@@ -1,0 +1,84 @@
+"""Carry JAX parameters across to the port.
+
+Takes the JAX package's parameter containers with numpy (or array-like)
+leaves -- for instance ``jax.tree.map(np.asarray, params)`` -- and builds
+the port's modules holding the same values, so both packages compute the
+same function.  The containers are read by field name only; nothing of the
+JAX package is imported.
+
+* :func:`moe_params`: a ``repro.moe.layer.MoEParams``.
+* :func:`lm_params`: a ``repro.models.model.LMParams`` of GQA attention
+  blocks; segments built with ``scan_layers=True`` carry a leading layer
+  axis and are unstacked per layer, unscanned segments are tuples of blocks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, layer_kinds
+from repro_torch.models.attention import GQAParams
+from repro_torch.models.model import LMParams
+from repro_torch.models.transformer import BlockParams
+from repro_torch.moe.layer import MoEParams
+
+__all__ = ["to_tensor", "moe_params", "lm_params"]
+
+
+def to_tensor(a, device="cuda") -> torch.Tensor | None:
+    """numpy-like array (or None) -> torch tensor on ``device``."""
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _index(tree, i):
+    """Leaf ``i`` of every array in a (named) tuple tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        vals = [_index(v, i) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return np.asarray(tree)[i]
+
+
+def moe_params(p, *, n_slot: int, device="cuda") -> MoEParams:
+    t = lambda a: to_tensor(a, device)  # noqa: E731
+    return MoEParams(t(p.router), t(p.w1), t(p.w3), t(p.w2),
+                     t(p.shared_w1), t(p.shared_w3), t(p.shared_w2),
+                     n_slot=n_slot)
+
+
+def _block(bp, cfg: ModelConfig, device) -> BlockParams:
+    if getattr(bp, "ssm", None) is not None or not hasattr(bp.attn, "wq"):
+        raise ValueError("only GQA attention blocks are ported")
+    t = lambda a: to_tensor(a, device)  # noqa: E731
+    a = bp.attn
+    attn = GQAParams(t(a.wq), t(a.wk), t(a.wv), t(a.wo), t(a.bq), t(a.bk),
+                     t(a.bv), t(a.q_norm), t(a.k_norm))
+    ffn = None if bp.ffn is None else tuple(t(w) for w in bp.ffn)
+    moe = None if bp.moe is None else moe_params(
+        bp.moe, n_slot=cfg.moe.n_slot, device=device)
+    return BlockParams(t(bp.norm1), t(bp.norm2), attn, ffn=ffn, moe=moe)
+
+
+def lm_params(p, cfg: ModelConfig, *, device="cuda") -> LMParams:
+    """JAX ``LMParams`` (numpy leaves) -> the port's :class:`LMParams`."""
+    if getattr(p, "frontend_proj", None) is not None:
+        raise ValueError("modality frontends are not ported")
+    blocks = []
+    for seg in p.segments:
+        if isinstance(seg, tuple) and not hasattr(seg, "_fields"):
+            if any(np.ndim(b.norm1) != 1 for b in seg):
+                raise ValueError("heterogeneous cycle segments are not ported")
+            blocks.extend(seg)                        # unscanned segment
+        else:
+            blocks.extend(_index(seg, i)              # stacked (L, ...) leaves
+                          for i in range(np.shape(seg.norm1)[0]))
+    if len(blocks) != len(layer_kinds(cfg)):
+        raise ValueError(f"{len(blocks)} blocks for {cfg.num_layers} layers")
+    return LMParams(embedding=to_tensor(p.embedding, device),
+                    layers=[_block(b, cfg, device) for b in blocks],
+                    final_norm=to_tensor(p.final_norm, device),
+                    lm_head=to_tensor(p.lm_head, device))

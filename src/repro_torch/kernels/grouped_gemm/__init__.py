@@ -1,0 +1,8 @@
+"""Grouped GEMM kernels of the MoE expert FFN (CUDA C++ for sm_90a)."""
+
+from repro_torch.kernels.grouped_gemm.ops import (  # noqa: F401
+    grouped_matmul,
+    grouped_matmul_ref,
+    grouped_swiglu,
+    grouped_swiglu_ref,
+)

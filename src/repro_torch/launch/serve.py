@@ -1,0 +1,121 @@
+"""Serving entry point: chunked-prefill engine over a Poisson request trace.
+
+Mirrors ``repro.launch.serve.serve_trace``.  ``arch`` is a registered arch
+name or a :class:`ModelConfig` (for instance a depth-cut config).  Weights
+are random, drawn from a ``torch.Generator`` seeded with ``seed`` on
+``device``; prompts come from numpy's generator with the same seed.  Every
+engine call is timed on the host clock between device synchronisations, the
+engine's clock advances by that measured time, and the calls are kept in
+``engine.calls`` as ``(kind, tokens, seconds)``.
+
+Example (on a card):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm45-106b-a12b \
+      --reduce --requests 6 --chunk 64
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.reduce import reduced
+from repro_torch.core.balancer import BalancerConfig
+from repro_torch.models.model import init_lm
+from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
+from repro_torch.serving.adapter import make_engine_fns
+from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
+
+__all__ = ["main", "serve_trace"]
+
+
+def _timed(fn, kind: str, calls: list, sync, n_tokens):
+    def wrapped(tokens, *args):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(tokens, *args)
+        sync()
+        calls.append((kind, n_tokens(tokens, *args), time.perf_counter() - t0))
+        return out
+    return wrapped
+
+
+def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
+                rps: float = 4.0, chunk: int = 64, max_new: int = 8,
+                reduce: bool = True, balancer: str = "ultraep", seed: int = 0,
+                prompt_len: tuple[int, int] = (32, 200), decode_batch: int = 4,
+                cf: float = 4.0, dtype=torch.float32, device="cuda"
+                ) -> ServingEngine:
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    if reduce:
+        cfg = reduced(cfg)
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only; no serving path")
+    device = torch.device(device)
+    rcfg = RuntimeConfig(
+        balancer=BalancerConfig(mode=balancer,
+                                n_slot=cfg.moe.n_slot if cfg.moe else 2),
+        cf_pair=cf, cf_slot=cf, dtype=dtype)
+    pctx = ParallelCtx(mesh=None)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_lm(cfg, rcfg, pctx, gen, device=device)
+    max_seq = max(prompt_len[1] + max_new + chunk, 2 * chunk)
+
+    prefill_fn, decode_fn, new_cache_fn, stack, unstack = make_engine_fns(
+        params, cfg, rcfg, pctx, max_seq=max_seq)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    calls: list = []
+    prefill_fn = _timed(prefill_fn, "prefill", calls, sync,
+                        lambda toks, cache, start, valid_len: int(valid_len))
+    decode_fn = _timed(decode_fn, "decode", calls, sync,
+                       lambda toks, caches: toks.shape[0])
+    eng = ServingEngine(EngineConfig(chunk_size=chunk,
+                                     decode_batch=decode_batch,
+                                     max_seq=max_seq),
+                        prefill_fn=prefill_fn, decode_fn=decode_fn,
+                        new_cache_fn=new_cache_fn, stack_caches=stack,
+                        unstack_caches=unstack,
+                        clock_fn=lambda: calls[-1][2])
+    eng.calls = calls
+    rng = np.random.default_rng(seed)
+    t = 0.0
+    for i in range(requests):
+        t += rng.exponential(1.0 / rps)
+        L = int(rng.integers(*prompt_len))
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, size=L).astype(np.int32),
+            max_new_tokens=max_new, arrival=t))
+    done = eng.run()
+    ttft, tpot = eng.ttft(), eng.tpot()
+    if len(ttft):
+        print(f"served {len(done)} requests  mean TTFT {ttft.mean()*1e3:.1f}ms"
+              f"  mean TPOT {tpot.mean()*1e3:.2f}ms")
+    return eng
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--rps", type=float, default=4.0)
+    ap.add_argument("--chunk", type=int, default=64)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--reduce", action="store_true")
+    ap.add_argument("--balancer", default="ultraep")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    serve_trace(args.arch, requests=args.requests, rps=args.rps,
+                chunk=args.chunk, max_new=args.max_new, reduce=args.reduce,
+                balancer=args.balancer, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,188 @@
+"""Transformer blocks over a shared residual stream.
+
+Mirrors ``repro.models.transformer`` for the block kinds ``attn+moe`` and
+``attn+dense`` on a single device (``ParallelCtx(mesh=None)``).  JAX groups
+identical layers into scanned segments; here the layers are a Python list
+and each block runs in turn.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.balancer import BalancerConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import AttnConfig, KVCache
+from repro_torch.models.layers import dense_swiglu, rms_norm
+from repro_torch.moe.gating import GatingConfig
+from repro_torch.moe.layer import MoEConfig, default_capacities, init_moe_params
+
+__all__ = ["RuntimeConfig", "ParallelCtx", "BlockParams", "attn_config",
+           "moe_config", "init_block", "init_cache_block", "block_apply"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Execution knobs orthogonal to the architecture (the subset of
+    ``repro.models.transformer.RuntimeConfig`` this slice runs)."""
+
+    balancer: BalancerConfig = BalancerConfig()
+    cf_pair: float = 2.0
+    cf_slot: float = 2.0
+    block_kv: int = 512
+    dtype: torch.dtype = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """Mesh context; only the single-device context (mesh None) is ported."""
+
+    mesh: object = None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise ValueError("multi-device meshes are not ported yet")
+
+    @property
+    def ep_size(self) -> int:
+        return 1
+
+    @property
+    def batch_size_divisor(self) -> int:
+        return 1
+
+
+class BlockParams(nn.Module):
+    """One residual block: norm1, mixer (attention), norm2, FFN (dense
+    (w1, w3, w2) or MoE)."""
+
+    def __init__(self, norm1, norm2, attn, ffn=None, moe=None):
+        super().__init__()
+        self.norm1 = nn.Parameter(norm1, requires_grad=False)
+        self.norm2 = None if norm2 is None else nn.Parameter(
+            norm2, requires_grad=False)
+        self.attn = attn
+        self.ffn = None if ffn is None else nn.ParameterList(
+            [nn.Parameter(w, requires_grad=False) for w in ffn])
+        self.moe = moe
+
+    def forward(self, x, kind, cfg, rcfg, pctx, **kw):
+        return block_apply(x, self, kind, cfg, rcfg, pctx, **kw)
+
+
+def attn_config(cfg: ModelConfig) -> AttnConfig:
+    if cfg.is_mla:
+        raise ValueError(f"{cfg.name}: MLA attention is not ported yet")
+    return AttnConfig(d_model=cfg.d_model, num_heads=cfg.num_heads,
+                      num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                      causal=cfg.causal, qkv_bias=cfg.qkv_bias,
+                      qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+
+
+def moe_config(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
+               tokens_per_rank: int, *, dispatch_mode: str = "a2a",
+               ideal: bool = False) -> MoEConfig:
+    """Mirrors ``repro.models.transformer.moe_config`` on a flat, single
+    rank EP group."""
+    m = cfg.moe
+    ep = pctx.ep_size
+    gating = GatingConfig(
+        num_experts=m.num_experts, top_k=m.top_k, score_fn=m.score_fn,
+        norm_topk_prob=m.norm_topk_prob, aux_loss_weight=m.aux_loss_weight,
+        routed_scaling=m.routed_scaling, use_bias=m.use_bias,
+        ideal=ideal or rcfg.balancer.mode == "ideal")
+    bal = dataclasses.replace(rcfg.balancer, n_slot=m.n_slot)
+    slots_per_rank = m.num_experts // ep + m.n_slot
+    cap_pair, cap_slot = default_capacities(
+        tokens_per_rank, m.top_k, ep, slots_per_rank,
+        cf_pair=rcfg.cf_pair, cf_slot=rcfg.cf_slot)
+    return MoEConfig(gating=gating, balancer=bal, d_model=cfg.d_model,
+                     d_ff=m.d_ff, ep_size=ep, cap_pair=cap_pair,
+                     cap_slot=cap_slot, n_shared_experts=m.n_shared_experts,
+                     shared_d_ff=m.shared_d_ff, dispatch_mode=dispatch_mode)
+
+
+def init_block(cfg: ModelConfig, kind: str, rcfg: RuntimeConfig,
+               pctx: ParallelCtx, generator: torch.Generator, *,
+               device="cuda") -> BlockParams:
+    mixer, ffn_kind = kind.split("+")
+    if mixer != "attn":
+        raise ValueError(f"block kind {kind!r} is not ported yet")
+    D = cfg.d_model
+    dtype = rcfg.dtype
+    attn = attn_mod.init_gqa(attn_config(cfg), generator, dtype=dtype,
+                             device=device)
+    ffn = moe = None
+    if ffn_kind == "dense":
+        Fd = cfg.d_ff
+        ffn = tuple(
+            torch.randn(shape, generator=generator, dtype=dtype,
+                        device=device) * scale
+            for shape, scale in (((D, Fd), D ** -0.5), ((D, Fd), D ** -0.5),
+                                 ((Fd, D), Fd ** -0.5)))
+    elif ffn_kind == "moe":
+        mcfg = moe_config(cfg, rcfg, pctx, tokens_per_rank=8)  # caps unused
+        moe = init_moe_params(mcfg, generator, dtype=dtype, device=device)
+    norm2 = None if ffn_kind == "none" else torch.ones(D, dtype=dtype,
+                                                       device=device)
+    return BlockParams(torch.ones(D, dtype=dtype, device=device), norm2,
+                       attn, ffn=ffn, moe=moe)
+
+
+def init_cache_block(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                     dtype, *, device="cuda") -> KVCache:
+    """Decode cache entry for one attention layer."""
+    if not kind.startswith("attn+"):
+        raise ValueError(f"block kind {kind!r} is not ported yet")
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   length=torch.zeros(batch, dtype=torch.int64, device=device))
+
+
+def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
+                rcfg: RuntimeConfig, pctx: ParallelCtx, *, cache=None,
+                router_bias: torch.Tensor | None = None, decode: bool = False,
+                valid_len=None):
+    """One residual block.  Returns (x, aux, drops, counts, new_cache).
+
+    Modes: full forward (cache None), chunked prefill (cache given, decode
+    False), decode (cache given, decode True, S == 1).
+    """
+    _mixer, ffn_kind = kind.split("+")
+    dev = x.device
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    drops = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = torch.zeros(cfg.moe.num_experts if cfg.moe else 1,
+                         dtype=torch.int64, device=dev)
+    new_cache = cache
+
+    h = rms_norm(x, bp.norm1)
+    att = bp.attn(h, attn_config(cfg), cache=cache, decode=decode,
+                  valid_len=valid_len, block_kv=rcfg.block_kv)
+    if cache is not None:
+        att, new_cache = att
+    x = x + att
+
+    if ffn_kind != "none":
+        h2 = rms_norm(x, bp.norm2)
+        if ffn_kind == "moe":
+            B, S, D = x.shape
+            tokens_per_rank = max(1, (B // pctx.batch_size_divisor)
+                                  * (S if decode or S < pctx.ep_size
+                                     else S // pctx.ep_size))
+            mcfg = moe_config(cfg, rcfg, pctx, tokens_per_rank,
+                              dispatch_mode="replicated" if decode else "a2a")
+            y, aux, stats = bp.moe(h2.reshape(-1, D), mcfg,
+                                   router_bias=router_bias)
+            y2 = y.reshape(B, S, D)
+            drops = stats.drops_dispatch + stats.drops_slot
+            counts = stats.counts
+        else:
+            y2 = dense_swiglu(h2, *bp.ffn)
+        x = x + y2
+    return x, aux, drops, counts, new_cache

@@ -1,0 +1,89 @@
+"""MoE router: top-k gating and the GShard auxiliary loss.
+
+Mirrors ``repro.moe.gating.gate`` on free routing: softmax or sigmoid
+scores, an optional aux-free selection bias (selection only, never the
+combine weights), renormalisation of the selected weights, routed scaling,
+the force-balanced ``ideal`` router, realized counts and the GShard loss.
+Rack-limited routing is not ported yet.  The router runs in fp32.
+
+Ties.  ``lax.top_k`` puts the lower expert index first among equal scores;
+``torch.topk`` promises no order, so the selection is a stable descending
+sort of the scores, cut to the first k columns.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["GatingConfig", "GateOut", "gate", "gshard_aux_loss"]
+
+_I64 = torch.int64
+
+
+@dataclasses.dataclass(frozen=True)
+class GatingConfig:
+    num_experts: int
+    top_k: int
+    score_fn: str = "softmax"          # "softmax" | "sigmoid"
+    norm_topk_prob: bool = True        # renormalise selected weights to sum 1
+    aux_loss_weight: float = 0.0       # GShard loss coefficient
+    routed_scaling: float = 1.0
+    use_bias: bool = False             # aux-free routing bias (DeepSeek)
+    ideal: bool = False                # force-balanced round-robin router
+
+
+class GateOut(NamedTuple):
+    expert_ids: torch.Tensor   # (T, k) selected logical experts
+    weights: torch.Tensor      # (T, k) combine weights (activation dtype)
+    counts: torch.Tensor       # (E,) realized per-expert token load
+    aux_loss: torch.Tensor     # () scalar (0 when disabled)
+    scores: torch.Tensor       # (T, E) router probabilities (fp32)
+
+
+def gshard_aux_loss(scores: torch.Tensor, expert_ids: torch.Tensor,
+                    num_experts: int) -> torch.Tensor:
+    """GShard load-balancing loss: E * sum_e f_e * P_e."""
+    T, k = expert_ids.shape
+    f = torch.bincount(expert_ids.reshape(-1), minlength=num_experts
+                       ).to(torch.float32) / (T * k)
+    p = scores.mean(dim=0)
+    return num_experts * torch.sum(f * p)
+
+
+def gate(x: torch.Tensor, w_router: torch.Tensor, cfg: GatingConfig, *,
+         bias: torch.Tensor | None = None) -> GateOut:
+    """Route tokens.  x: (T, D); w_router: (D, E); bias: (E,) or None."""
+    T = x.shape[0]
+    E, k = cfg.num_experts, cfg.top_k
+    logits = x.to(torch.float32) @ w_router.to(torch.float32)
+    if cfg.score_fn == "softmax":
+        scores = torch.softmax(logits, dim=-1)
+    elif cfg.score_fn == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        raise ValueError(f"unknown score_fn {cfg.score_fn}")
+
+    if cfg.ideal:
+        base = (torch.arange(T, dtype=_I64, device=x.device) * k) % E
+        expert_ids = (base[:, None]
+                      + torch.arange(k, dtype=_I64, device=x.device)) % E
+    else:
+        sel_scores = scores
+        if cfg.use_bias and bias is not None:
+            sel_scores = scores + bias.detach().to(torch.float32)[None, :]
+        expert_ids = torch.sort(sel_scores, dim=-1, descending=True,
+                                stable=True).indices[:, :k]
+    # Combine weights always come from the unbiased scores.
+    sel = torch.gather(scores, 1, expert_ids)
+    if cfg.norm_topk_prob:
+        sel = sel / sel.sum(dim=-1, keepdim=True).clamp(min=1e-20)
+    sel = sel * cfg.routed_scaling
+
+    counts = torch.bincount(expert_ids.reshape(-1), minlength=E)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.aux_loss_weight > 0.0:
+        aux = cfg.aux_loss_weight * gshard_aux_loss(scores, expert_ids, E)
+    return GateOut(expert_ids, sel.to(x.dtype), counts, aux, scores)

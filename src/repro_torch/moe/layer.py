@@ -1,0 +1,139 @@
+"""Balanced MoE layer: config, parameters and the public entry point.
+
+Mirrors ``repro.moe.layer``: :func:`moe_layer_local` is the per-rank view of
+one balanced MoE layer and delegates to :func:`repro_torch.moe.stages.
+run_staged_moe`.  This slice runs a single-rank EP group (``ep_size == 1``,
+``axis_name=None``) in the ``a2a`` and ``replicated`` dispatch modes of the
+fused engine, unchunked (no ``overlap_chunks``, ``dispatch_impl`` or wire
+codec options yet).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.core.balancer import BalancerConfig
+from repro_torch.core.layout import ExpertLayout
+from repro_torch.moe.gating import GatingConfig
+from repro_torch.moe.stages import MoEStats, run_staged_moe
+
+__all__ = ["MoEConfig", "MoEParams", "MoEStats", "moe_layer_local",
+           "init_moe_params", "default_capacities"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    gating: GatingConfig
+    balancer: BalancerConfig
+    d_model: int
+    d_ff: int                      # per-expert hidden size
+    ep_size: int                   # R (EP group size)
+    cap_pair: int                  # tokens per (src, dst) pair buffer
+    cap_slot: int                  # tokens per physical expert slot
+    n_shared_experts: int = 0
+    shared_d_ff: int = 0
+    dispatch_mode: str = "a2a"     # "a2a" | "replicated" (fused engine)
+
+    def __post_init__(self):
+        if self.dispatch_mode not in ("a2a", "replicated"):
+            raise ValueError(f"unknown or unported dispatch_mode: "
+                             f"{self.dispatch_mode!r}")
+
+    @property
+    def layout(self) -> ExpertLayout:
+        return ExpertLayout(self.gating.num_experts, self.ep_size,
+                            self.balancer.n_slot)
+
+
+class MoEParams(nn.Module):
+    """Per-rank MoE parameters (mirrors the ``repro.moe.layer.MoEParams``
+    fields: router (D, E) fp32, w1/w3 (E_local, D, F), w2 (E_local, F, D),
+    optional shared expert (D, F_sh), (D, F_sh), (F_sh, D)).
+
+    Each expert weight lives in a slot buffer of ``E_local + n_slot`` rows:
+    ``w1`` is a view of its first ``E_local`` rows and the distribute stage
+    writes the plan's replicas into the remaining rows in place, so the
+    grouped FFN reads one contiguous (num_slots, ...) tensor without a copy
+    of the mains on every call.  The tail is scratch: its contents belong
+    to the last call.
+    """
+
+    def __init__(self, router, w1, w3, w2, shared_w1=None, shared_w3=None,
+                 shared_w2=None, *, n_slot: int):
+        super().__init__()
+        self.n_slot = n_slot
+        self.router = nn.Parameter(router, requires_grad=False)
+        self._slots = []
+        for name, w in (("w1", w1), ("w3", w3), ("w2", w2)):
+            buf = w.new_zeros((w.shape[0] + n_slot,) + tuple(w.shape[1:]))
+            buf[: w.shape[0]].copy_(w)
+            self._slots.append(buf)
+            setattr(self, name, nn.Parameter(buf[: w.shape[0]],
+                                             requires_grad=False))
+        for name, w in (("shared_w1", shared_w1), ("shared_w3", shared_w3),
+                        ("shared_w2", shared_w2)):
+            setattr(self, name, None if w is None
+                    else nn.Parameter(w, requires_grad=False))
+
+    def slot_buffers(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The (num_slots, ...) buffers whose heads are w1, w3, w2."""
+        for buf, w in zip(self._slots, (self.w1, self.w3, self.w2)):
+            if buf.data_ptr() != w.data_ptr():
+                raise RuntimeError("MoEParams expert weights were replaced; "
+                                   "build a new MoEParams instead")
+        return tuple(self._slots)
+
+    def forward(self, x: torch.Tensor, cfg: MoEConfig, *, axis_name=None,
+                router_bias: torch.Tensor | None = None):
+        return moe_layer_local(x, self, cfg, axis_name=axis_name,
+                               router_bias=router_bias)
+
+
+def default_capacities(tokens_per_rank: int, top_k: int, ep_size: int,
+                       slots_per_rank: int, *, cf_pair: float = 2.0,
+                       cf_slot: float = 2.0) -> tuple[int, int]:
+    """Static capacity bounds sized off the balanced expectation (flat
+    topology; mirrors ``repro.moe.layer.default_capacities``)."""
+    items = tokens_per_rank * top_k
+    cap_pair = max(8, int(-(-items * cf_pair // ep_size)))
+    cap_slot = max(8, int(-(-items * cf_slot // slots_per_rank)))
+    return cap_pair, cap_slot
+
+
+def init_moe_params(cfg: MoEConfig, generator: torch.Generator, *,
+                    dtype=torch.float32, device="cuda") -> MoEParams:
+    """Per-rank parameter shard (E_local experts), drawn from ``generator``
+    (which must live on ``device``)."""
+    E = cfg.gating.num_experts
+    epr = E // cfg.ep_size
+    D, F = cfg.d_model, cfg.d_ff
+
+    def normal(shape, scale, dt=dtype):
+        return torch.randn(shape, generator=generator, dtype=dt,
+                           device=device) * scale
+
+    router = normal((D, E), D ** -0.5, torch.float32)
+    w1 = normal((epr, D, F), D ** -0.5)
+    w3 = normal((epr, D, F), D ** -0.5)
+    w2 = normal((epr, F, D), F ** -0.5)
+    shared = [None, None, None]
+    if cfg.n_shared_experts > 0:
+        Fs = cfg.shared_d_ff * cfg.n_shared_experts
+        shared = [normal((D, Fs), D ** -0.5), normal((D, Fs), D ** -0.5),
+                  normal((Fs, D), Fs ** -0.5)]
+    return MoEParams(router, w1, w3, w2, *shared, n_slot=cfg.balancer.n_slot)
+
+
+def moe_layer_local(x: torch.Tensor, params: MoEParams, cfg: MoEConfig, *,
+                    axis_name=None, router_bias: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, MoEStats]:
+    """One balanced MoE layer, per-rank view.  x: (T_local, D).
+
+    Returns (y, aux_loss, stats) with y (T_local, D).  ``axis_name`` must be
+    None (single-rank EP group, ``cfg.ep_size == 1``).
+    """
+    return run_staged_moe(x, params, cfg, axis_name=axis_name,
+                          router_bias=router_bias)

@@ -1,0 +1,200 @@
+"""Staged MoE execution: gate -> plan -> distribute -> dispatch -> compute
+-> combine.
+
+Mirrors the parts of ``repro.moe.stages`` that a single-rank EP group runs
+(``axis_name=None``, ``ep_size == 1``) with the fused permutation engine,
+``overlap_chunks == 1``, no resilience ladder and no wire codec.  The stage
+boundaries and the typed states between them are the JAX ones, so the
+multi-rank slice can add its collectives at the same seams.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core import balancer as balancer_mod
+from repro_torch.core.layout import physical_slot_of
+from repro_torch.moe.distribute import materialize_replica_stack
+from repro_torch.moe.expert import grouped_ffn
+from repro_torch.moe.gating import GateOut, gate
+from repro_torch.moe.permute import (
+    fused_bucket,
+    fused_combine,
+    fused_dispatch,
+    fused_replicated_bucket,
+    fused_replicated_combine,
+    fused_unbucket,
+)
+from repro_torch.moe.reference import swiglu
+
+__all__ = [
+    "MoEStats",
+    "GateState",
+    "PlanState",
+    "DistributeState",
+    "DispatchState",
+    "gate_stage",
+    "plan_stage",
+    "distribute_stage",
+    "dispatch_stage",
+    "compute_stage",
+    "combine_stage",
+    "chunk_bounds",
+    "run_staged_moe",
+]
+
+_I64 = torch.int64
+
+
+class MoEStats(NamedTuple):
+    drops_dispatch: torch.Tensor   # () items dropped at pair capacity
+    drops_slot: torch.Tensor       # () items dropped at slot capacity
+    pre_max: torch.Tensor          # () pre-balance max rank load
+    post_max: torch.Tensor         # () post-balance max rank load
+    max_slot_load: torch.Tensor    # () busiest physical slot occupancy
+    counts: torch.Tensor           # (E,) local per-expert load
+
+
+class GateState(NamedTuple):
+    gate_out: GateOut
+    lam: torch.Tensor      # (R, E) exact per-rank per-expert load
+    my: int                # this rank's EP index
+
+
+class PlanState(NamedTuple):
+    plan: Any                  # repro_torch.core.planner.Plan
+    slot_of_all: torch.Tensor  # (R, E) physical slot of e on r, -1 not hosted
+
+
+class DistributeState(NamedTuple):
+    w1_all: torch.Tensor   # (num_slots, D, F)
+    w3_all: torch.Tensor   # (num_slots, D, F)
+    w2_all: torch.Tensor   # (num_slots, F, D)
+
+
+class DispatchState(NamedTuple):
+    xs: torch.Tensor       # (num_slots, cap_slot, D) slot buffers
+    valid: torch.Tensor    # (num_slots, cap_slot) bool
+    inverse: Any           # (FusedDispatch, BucketMeta) or ReplicatedBucket
+    drops_dispatch: torch.Tensor
+    drops_slot: torch.Tensor
+
+
+def _check_single_rank(cfg, axis_name) -> None:
+    if axis_name is not None:
+        raise ValueError("multi-rank EP is not ported yet; axis_name must be None")
+    if cfg.ep_size != 1:
+        raise ValueError("axis_name=None requires ep_size == 1")
+
+
+def gate_stage(cfg, x: torch.Tensor, router: torch.Tensor,
+               router_bias: torch.Tensor | None = None) -> GateState:
+    """Gate the microbatch; with one rank the load matrix is the counts."""
+    gate_out = gate(x, router, cfg.gating, bias=router_bias)
+    return GateState(gate_out=gate_out, lam=gate_out.counts[None], my=0)
+
+
+def plan_stage(cfg, gs: GateState) -> PlanState:
+    """Solve the balancer on the full-batch load (once per microbatch)."""
+    layout = cfg.layout
+    plan = balancer_mod.solve(gs.lam, layout.home(gs.lam.device), cfg.balancer)
+    return PlanState(plan=plan, slot_of_all=physical_slot_of(layout, plan.x))
+
+
+def distribute_stage(cfg, params, gs: GateState, ps: PlanState) -> DistributeState:
+    """Main + replica weights per physical slot.
+
+    The JAX stage concatenates mains and replicas into fresh arrays, a copy
+    of every expert weight per call.  Here ``params`` owns one slot buffer
+    per weight whose head rows *are* the mains; only the replica tail is
+    written, in place (see ``repro_torch.moe.layer.MoEParams``).
+    """
+    n_main = cfg.layout.experts_per_rank
+    w1_all, w3_all, w2_all = params.slot_buffers()
+    materialize_replica_stack(
+        (params.w1, params.w3, params.w2), ps.plan.x, gs.my, None,
+        out=(w1_all[n_main:], w3_all[n_main:], w2_all[n_main:]))
+    return DistributeState(w1_all=w1_all, w3_all=w3_all, w2_all=w2_all)
+
+
+def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
+                   gs: GateState, ps: PlanState) -> DispatchState:
+    """Reroute one token chunk into this rank's slot buffers."""
+    num_slots = cfg.layout.slots_per_rank
+    zero = torch.zeros((), dtype=_I64, device=x_chunk.device)
+    if cfg.dispatch_mode == "replicated":
+        rb = fused_replicated_bucket(
+            x_chunk, expert_ids, ps.plan.cum_u, gs.my,
+            ps.slot_of_all[gs.my], num_slots=num_slots, cap_slot=cfg.cap_slot)
+        return DispatchState(xs=rb.xs, valid=rb.valid, inverse=rb,
+                             drops_dispatch=zero, drops_slot=rb.drops)
+    disp = fused_dispatch(x_chunk, expert_ids, ps.plan.cum_q[gs.my],
+                          ps.slot_of_all, num_slots=num_slots,
+                          cap_pair=cfg.cap_pair)
+    # One rank: the exchange is the identity.
+    xs, valid, meta, slot_drops = fused_bucket(
+        disp.send_x, disp.send_counts, num_slots=num_slots,
+        cap_slot=cfg.cap_slot)
+    return DispatchState(xs=xs, valid=valid, inverse=(disp, meta),
+                         drops_dispatch=disp.drops, drops_slot=slot_drops)
+
+
+def compute_stage(cfg, ds: DispatchState, dist: DistributeState) -> torch.Tensor:
+    """Grouped FFN over this rank's physical slots (the two kernels)."""
+    return grouped_ffn(ds.xs, ds.valid, dist.w1_all, dist.w3_all, dist.w2_all)
+
+
+def combine_stage(cfg, ds: DispatchState, out: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """Route FFN outputs back and reduce each token's k contributions."""
+    if cfg.dispatch_mode == "replicated":
+        return fused_replicated_combine(out, ds.inverse, weights)
+    disp, meta = ds.inverse
+    return fused_combine(fused_unbucket(out, meta), disp, weights)
+
+
+def chunk_bounds(total: int, *, n_chunks: int | None = None,
+                 chunk_size: int | None = None) -> list[tuple[int, int]]:
+    """(start, length) spans covering ``[0, total)``, in order.
+
+    Exactly one of ``n_chunks`` (equal split; must divide ``total``) or
+    ``chunk_size`` (fixed-size spans, ragged tail) must be given.
+    """
+    if (n_chunks is None) == (chunk_size is None):
+        raise ValueError("pass exactly one of n_chunks / chunk_size")
+    if n_chunks is not None:
+        if n_chunks < 1 or total % n_chunks != 0:
+            raise ValueError(
+                f"n_chunks={n_chunks} must be >= 1 and divide total={total}")
+        size = total // n_chunks
+        return [(i * size, size) for i in range(n_chunks)]
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size={chunk_size} must be >= 1")
+    return [(s, min(chunk_size, total - s)) for s in range(0, total, chunk_size)]
+
+
+def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
+                   router_bias: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, MoEStats]:
+    """One balanced MoE layer: gate -> plan -> distribute -> dispatch ->
+    compute -> combine (+ shared expert).  Returns (y, aux_loss, stats)."""
+    _check_single_rank(cfg, axis_name)
+    gs = gate_stage(cfg, x, params.router, router_bias)
+    ps = plan_stage(cfg, gs)
+    dist = distribute_stage(cfg, params, gs, ps)
+    ds = dispatch_stage(cfg, x, gs.gate_out.expert_ids, gs, ps)
+    out = compute_stage(cfg, ds, dist)
+    y = combine_stage(cfg, ds, out, gs.gate_out.weights)
+    if cfg.n_shared_experts > 0:
+        y = y + swiglu(x, params.shared_w1, params.shared_w3, params.shared_w2)
+    stats = MoEStats(
+        drops_dispatch=ds.drops_dispatch,
+        drops_slot=ds.drops_slot,
+        pre_max=ps.plan.pre_max,
+        post_max=ps.plan.post_max,
+        max_slot_load=ds.valid.sum(dim=1).max(),
+        counts=gs.gate_out.counts,
+    )
+    return y.to(x.dtype), gs.gate_out.aux_loss, stats

@@ -1,0 +1,52 @@
+"""Glue: bind a model to the ServingEngine callbacks.
+
+Mirrors ``repro.serving.adapter.make_engine_fns``.  Caches are a list with
+one KVCache per layer; stacking concatenates each layer's entries along the
+batch axis and unstacking slices them back.  Model calls run under
+``torch.inference_mode`` on the parameters' device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import KVCache
+from repro_torch.models.model import (
+    LMParams,
+    decode_step,
+    init_caches,
+    prefill_step,
+)
+from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
+
+__all__ = ["make_engine_fns"]
+
+
+def make_engine_fns(params: LMParams, cfg: ModelConfig, rcfg: RuntimeConfig,
+                    pctx: ParallelCtx, *, max_seq: int):
+    """Returns (prefill_fn, decode_fn, new_cache_fn, stack_caches,
+    unstack_caches)."""
+    device = params.embedding.device
+
+    @torch.inference_mode()
+    def prefill_fn(tokens, caches, start, valid_len):
+        return prefill_step(params, caches, tokens.to(device), cfg, rcfg,
+                            pctx, valid_len=valid_len)
+
+    @torch.inference_mode()
+    def decode_fn(tokens, caches):
+        return decode_step(params, caches, tokens.to(device), cfg, rcfg, pctx)
+
+    def new_cache_fn(batch):
+        return init_caches(cfg, batch, max_seq, rcfg, device=device)
+
+    def stack_caches(caches_list):
+        return [KVCache(*(torch.cat(parts, dim=0) for parts in zip(*layer)))
+                for layer in zip(*caches_list)]
+
+    def unstack_caches(caches, n):
+        return [[KVCache(*(t[b:b + 1] for t in layer)) for layer in caches]
+                for b in range(n)]
+
+    return prefill_fn, decode_fn, new_cache_fn, stack_caches, unstack_caches

@@ -1,0 +1,70 @@
+"""The port stands alone: it imports neither ``jax`` nor the JAX package.
+
+One test runs a reduced prefill in a subprocess where ``import jax`` fails;
+the other reads every source file of the port and ``chip_smoke.py``.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+_CODE = r"""
+import sys
+sys.modules["jax"] = None            # any `import jax` now raises ImportError
+import numpy as np
+import torch
+from repro_torch.configs import get_config
+from repro_torch.configs.reduce import reduced
+from repro_torch.core.balancer import BalancerConfig
+from repro_torch.launch import serve  # noqa: F401  (imports the whole path)
+from repro_torch.models.model import init_caches, init_lm, prefill_step
+from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
+cfg = reduced(get_config("glm45-106b-a12b"))
+rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"), cf_pair=4.0,
+                     cf_slot=4.0)
+gen = torch.Generator(device="cpu").manual_seed(0)
+params = init_lm(cfg, rcfg, ParallelCtx(), gen, device="cpu")
+caches = init_caches(cfg, 1, 64, rcfg, device="cpu")
+toks = torch.from_numpy(np.arange(32, dtype=np.int64)[None] % cfg.vocab_size)
+logits, _ = prefill_step(params, caches, toks, cfg, rcfg, ParallelCtx())
+assert logits.shape == (1, 32, cfg.vocab_size)
+assert torch.isfinite(logits).all()
+assert not any(m == "repro" or m.startswith(("repro.", "jax"))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _CODE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def _imported_modules(path: Path) -> list[str]:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.append(node.module)
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m == "jax" or m.startswith("jax.") or m == "repro"
+           or m.startswith("repro.")]
+    assert not bad, f"{path} imports {bad}"

@@ -1,0 +1,90 @@
+"""Port ``moe_layer_local`` vs ``repro.moe.layer.moe_layer_local`` at the
+``examples/quickstart.py`` shapes (T 256, D 64, F 128, E 64, k 4), with the
+same numpy weights in both.  y within 1e-5 (fp32; the CPU path of the
+grouped FFN is the plain fp32 einsum), MoEStats integers exact."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.balancer import BalancerConfig as JBalancerConfig
+from repro.moe.gating import GatingConfig as JGatingConfig
+from repro.moe.layer import MoEConfig as JMoEConfig
+from repro.moe.layer import MoEParams as JMoEParams
+from repro.moe.layer import moe_layer_local as j_moe_layer_local
+from repro_torch import convert
+from repro_torch.core.balancer import BalancerConfig
+from repro_torch.moe.gating import GatingConfig, gate
+from repro_torch.moe.layer import MoEConfig, moe_layer_local
+from repro_torch.moe.reference import moe_ref
+
+T, D, F, E, K = 256, 64, 128, 64, 4
+STAT_FIELDS = ("drops_dispatch", "drops_slot", "pre_max", "post_max",
+               "max_slot_load", "counts")
+
+
+def _params(shared: bool, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def n(shape, fan_in):
+        return (rng.standard_normal(shape) * fan_in ** -0.5).astype(np.float32)
+
+    sh = (n((D, F), D), n((D, F), D), n((F, D), F)) if shared else (None,) * 3
+    return JMoEParams(n((D, E), D), n((E, D, F), D), n((E, D, F), D),
+                      n((E, F, D), F), *sh)
+
+
+def _configs(mode, balancer, shared, cap):
+    kw = dict(d_model=D, d_ff=F, ep_size=1, cap_pair=cap[0], cap_slot=cap[1],
+              n_shared_experts=int(shared), shared_d_ff=F if shared else 0,
+              dispatch_mode=mode)
+    j = JMoEConfig(gating=JGatingConfig(num_experts=E, top_k=K),
+                   balancer=JBalancerConfig(mode=balancer, n_slot=2), **kw)
+    t = MoEConfig(gating=GatingConfig(num_experts=E, top_k=K),
+                  balancer=BalancerConfig(mode=balancer, n_slot=2), **kw)
+    return j, t
+
+
+@pytest.mark.parametrize("mode", ["a2a", "replicated"])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("balancer,cap", [("ultraep", (T * K, T * K)),
+                                          ("none", (T * K, 12))])
+def test_moe_layer_matches_jax(mode, shared, balancer, cap):
+    p = _params(shared)
+    x = np.random.default_rng(1).standard_normal((T, D)).astype(np.float32)
+    jcfg, tcfg = _configs(mode, balancer, shared, cap)
+    jp = JMoEParams(*(None if a is None else jnp.asarray(a) for a in p))
+    yj, auxj, sj = jax.jit(lambda x: j_moe_layer_local(
+        x, jp, jcfg, axis_name=None))(jnp.asarray(x))
+    tp = convert.moe_params(p, n_slot=2, device="cpu")
+    yt, auxt, st = moe_layer_local(torch.from_numpy(x), tp, tcfg)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(auxt), float(auxj), rtol=1e-5)
+    for f in STAT_FIELDS:
+        np.testing.assert_array_equal(getattr(st, f).numpy(),
+                                      np.asarray(getattr(sj, f)), err_msg=f)
+    if cap[1] == T * K:      # zero drops: the layer equals the dense oracle
+        assert int(st.drops_dispatch) == int(st.drops_slot) == 0
+        go = gate(torch.from_numpy(x), tp.router, tcfg.gating)
+        shared_w = ((tp.shared_w1, tp.shared_w3, tp.shared_w2) if shared
+                    else None)
+        y_ref = moe_ref(torch.from_numpy(x), go.expert_ids, go.weights,
+                        tp.w1, tp.w3, tp.w2, shared=shared_w)
+        np.testing.assert_allclose(yt.numpy(), y_ref.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_slot_buffer_tail_is_written_in_place():
+    """The replica tail of the slot buffer is the only thing a call writes;
+    the mains are the head of the same storage."""
+    p = _params(False)
+    tp = convert.moe_params(p, n_slot=2, device="cpu")
+    w1_all, _, _ = tp.slot_buffers()
+    assert w1_all.shape[0] == E + 2
+    assert w1_all.data_ptr() == tp.w1.data_ptr()
+    tp.w1 = torch.nn.Parameter(tp.w1.clone(), requires_grad=False)
+    with pytest.raises(RuntimeError):
+        tp.slot_buffers()
