@@ -4,12 +4,17 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Phases, one output line each:
-  1. card, torch/CUDA versions, kernel build (nvcc, sm_90a) time;
-  2. every kernel of the serving path against its plain PyTorch version at
-     the main path's prefill and decode shapes and at ragged shapes, in bf16
-     (max|err| <= 1e-2 max|ref|: one bf16 rounding of the output) and fp32
-     (max|err| <= 1e-4 max|ref|: summation order), with the kernel's, the
-     plain version's and a library call's time and the card's bound;
+  1. card, torch/CUDA versions, kernel build (nvcc, sm_90a, one process per
+     source, all at once) time;
+  2. the grouped-GEMM kernels against their plain PyTorch versions at the
+     GLM-4.5-Air and Jamba-v0.1 prefill and decode shapes and at ragged
+     shapes, in bf16 (max|err| <= 1e-2 max|ref|: one bf16 rounding of the
+     output) and fp32 (max|err| <= 1e-4 max|ref|: summation order), with
+     the kernel's, the plain version's and a library call's time and the
+     card's bound; then ``ssd_intra_chunk`` and ``ssd_chunk_scan`` (from
+     an initial state) against their plain versions at the Jamba prefill
+     chunk in bf16 and fp32 inputs and at the reduced shape at nc 1 and at
+     B 2, within 3e-4 max|ref| (fp32 arithmetic in both);
   3. the balanced MoE layer at GLM-4.5-Air width (T 4096, ep_size 1) in the
      a2a and replicated modes against the dense oracle ``moe_ref`` in fp32
      (bf16 layer: 2e-2 max|ref|, fp32 layer: 1e-4 max|ref|), zero drops;
@@ -17,7 +22,15 @@ Phases, one output line each:
      to 2 layers, bf16 weights from a seeded CUDA generator: 4 requests of
      2048-6144 tokens, chunk 4096, 8 new tokens each, decode batch 4,
      balancer ultraep, capacity factors 4.0;
-  5. the kernels of the path with their launch counts during phase 4.
+  5. one Jamba-v0.1 Mamba mixer at full width over T 4096 from a non-zero
+     state: bf16 and fp32 on the card (the SSD kernel) against the fp32
+     plain path run on the host (bf16: 2e-2 max|ref|, fp32: 1e-4 max|ref|),
+     and two chunks of 2048 against one of 4096 with the state carried;
+  6. ``serve_trace`` on Jamba-v0.1 at every published width with depth cut
+     to 8 layers (one period: mamba+dense, mamba+moe, attn+dense), with the
+     settings of phase 4;
+  7. the kernels with their launch counts on the serve paths: every count
+     is set to 0 just before each serve phase and read just after it.
 
 TF32 is off for matmuls and cuDNN, so fp32 references are full fp32.  Any
 failed check raises and the script exits non-zero; the last line is the
@@ -41,6 +54,15 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}   # dense, no sparsity
 PREFILL = dict(G=130, M=1009, K=4096, N=1408)      # 128 mains + 2 replicas
 DECODE = dict(G=130, M=8, K=4096, N=1408)
+# Jamba-v0.1: 16 mains + 2 replicas; M is cap_slot at T 4096, top-2, cf 4.
+JAMBA_PREFILL = dict(G=18, M=1821, K=4096, N=14336)
+JAMBA_DECODE = dict(G=18, M=8, K=4096, N=14336)
+JAMBA_SSD = dict(B=1, nc=32, Q=128, H=128, P=64, N=16)   # one 4096 chunk
+REDUCED_SSD = dict(B=1, nc=1, Q=16, H=8, P=16, N=16)
+SSD_TOL = 3e-4
+SERVE = dict(requests=4, chunk=4096, max_new=8, reduce=False,
+             balancer="ultraep", seed=0, prompt_len=(2048, 6144),
+             decode_batch=4, cf=4.0)
 
 
 def _line(tag: str, payload) -> None:
@@ -124,16 +146,19 @@ def _check_case(name, fn, ref, tol):
 
 
 def _time_pair(kernel, plain, library, flops, nbytes, kind, iters):
+    """Kernel, plain and library (None: no one PyTorch call computes the
+    same function) times in ms, and the card's bound for the work."""
     ms = _cuda_ms(kernel, iters)
     plain_ms = _cuda_ms(plain, max(1, iters // 2))
-    library_ms = _cuda_ms(library, iters)
+    library_ms = None if library is None else _cuda_ms(library, iters)
     bound_ms, bound_by = _bound(flops, nbytes, kind)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_kernels() -> dict:
-    """Both kernels vs their plain versions; returns the records by name."""
+    """Both grouped-GEMM kernels vs their plain versions; returns the
+    records by name."""
     import torch
     import torch.nn.functional as F
 
@@ -142,6 +167,8 @@ def phase_kernels() -> dict:
     records = {"grouped_swiglu": {}, "grouped_matmul": {}}
     cases = [("prefill", PREFILL, torch.bfloat16, 10),
              ("decode", DECODE, torch.bfloat16, 20),
+             ("jamba_prefill", JAMBA_PREFILL, torch.bfloat16, 3),
+             ("jamba_decode", JAMBA_DECODE, torch.bfloat16, 10),
              ("fp32_g8", dict(PREFILL, G=8), torch.float32, 3),
              ("ragged_m1", dict(G=1, M=1, K=4096, N=1408), torch.bfloat16, 0),
              ("ragged_tiles", dict(G=3, M=1009, K=136, N=200), torch.bfloat16, 0),
@@ -240,33 +267,132 @@ def phase_moe_layer(glm):
     torch.cuda.empty_cache()
 
 
-def phase_serve(glm):
+def _ssd_inputs(B, nc, Q, H, P, N, dtype, seed):
+    """xs, Bm, Cm ~ N(0, 0.25) in ``dtype``; dt = softplus(N(0, 1)) and
+    da = -0.4 dt in fp32; an initial state ~ N(0, 1) in fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    xs, Bm, Cm = (n(shape, 0.5).to(dtype) for shape in (
+        (B, nc, Q, H, P), (B, nc, Q, H, N), (B, nc, Q, H, N)))
+    dt = F.softplus(n((B, nc, Q, H)))
+    return xs, Bm, Cm, dt, -0.4 * dt, n((B, H, N, P))
+
+
+def _ssd_cost(B, nc, Q, H, P, N, elt):
+    """(fp32 operations, bytes) the intra-chunk function needs: the causal
+    triangle's C.B products, weights and W @ x, the chunk states, the scan;
+    each input read once and each fp32 output written once."""
+    pairs = Q * (Q + 1) // 2
+    flops = B * nc * H * (pairs * (2 * N + 3 + 2 * P) + 2 * Q * N * P + 4 * Q)
+    rows = B * nc * Q * H
+    nbytes = (rows * (P + 2 * N) * elt + 2 * rows * 4 + rows * P * 4
+              + B * nc * H * N * P * 4 + B * nc * H * 4)
+    return flops, nbytes
+
+
+def phase_ssd() -> dict:
+    """``ssd_intra_chunk`` and ``ssd_chunk_scan`` vs their plain versions."""
     import torch
 
-    from repro_torch.kernels.grouped_gemm import ops
+    from repro_torch.kernels.ssd_scan import ops
+
+    cases = [("jamba_prefill", JAMBA_SSD, torch.bfloat16, 20),
+             ("jamba_prefill_fp32", JAMBA_SSD, torch.float32, 10),
+             ("reduced_nc1", REDUCED_SSD, torch.bfloat16, 0),
+             ("reduced_nc1_fp32", REDUCED_SSD, torch.float32, 0),
+             ("reduced_b2", dict(REDUCED_SSD, B=2, nc=4), torch.bfloat16, 0),
+             ("reduced_b2_fp32", dict(REDUCED_SSD, B=2, nc=4), torch.float32,
+              0),
+             ("ragged_fp32", dict(B=2, nc=3, Q=13, H=3, P=6, N=5),
+              torch.float32, 0)]
+    records = {}
+    for tag, s, dtype, iters in cases:
+        shape = [s[k] for k in ("B", "nc", "Q", "H", "P", "N")]
+        xs, Bm, Cm, dt, da, s0 = _ssd_inputs(*shape, dtype, seed=len(tag))
+        args = (xs, Bm, Cm, dt, da)
+        got = ops.ssd_intra_chunk(*args)
+        got += ops.ssd_chunk_scan(*args, initial_state=s0)
+        torch.cuda.synchronize()
+        want = ops.ssd_intra_chunk_ref(*args)
+        want += ops.ssd_chunk_scan_ref(*args, initial_state=s0)
+        errs, scales = {}, {}
+        for name, out, ref in zip(("y_intra", "S", "decay", "y", "final"),
+                                  got, want):
+            err, scale = _max_err(out, ref)
+            if not err <= SSD_TOL * scale:
+                raise AssertionError(f"ssd {tag} {name}: max|err| {err:.3e} "
+                                     f"> {SSD_TOL} * max|ref| {scale:.3e}")
+            errs[name], scales[name] = err, scale
+        rec = {"shape": shape, "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": max(errs[k] for k in ("y_intra", "S", "decay")),
+               "max_abs_ref_y": scales["y_intra"],
+               "scan_max_abs_err": max(errs["y"], errs["final"])}
+        if iters:
+            rec.update(_time_pair(
+                lambda: ops.ssd_intra_chunk(*args),
+                lambda: ops.ssd_intra_chunk_ref(*args), None,
+                *_ssd_cost(*shape, xs.element_size()), "fp32", iters))
+            rec["scan_ms"] = _cuda_ms(
+                lambda: ops.ssd_chunk_scan(*args, initial_state=s0), iters)
+            rec["scan_plain_ms"] = _cuda_ms(
+                lambda: ops.ssd_chunk_scan_ref(*args, initial_state=s0),
+                max(1, iters // 2))
+        records[tag] = rec
+        del xs, Bm, Cm, dt, da, s0, args, got, want
+        torch.cuda.empty_cache()
+    _line("phase2_ssd", records)
+    return records
+
+
+def _reset_launches():
+    from repro_torch.kernels.grouped_gemm import ops as gg
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    for fn in (gg.grouped_swiglu, gg.grouped_matmul, ssd.ssd_intra_chunk):
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.grouped_gemm import ops as gg
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    return {"grouped_swiglu": gg.grouped_swiglu.launches,
+            "grouped_matmul": gg.grouped_matmul.launches,
+            "ssd_intra_chunk": ssd.ssd_intra_chunk.launches}
+
+
+def phase_serve(cfg, tag: str) -> dict:
+    """``serve_trace`` on ``cfg`` with the SERVE settings; returns the kernel
+    launch counts of the run (set to 0 just before it, read just after)."""
+    import gc
+
+    import torch
+
     from repro_torch.launch.serve import serve_trace
 
-    cfg = dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2)
     torch.cuda.reset_peak_memory_stats()
-    ops.grouped_swiglu.launches = 0      # counts from here on are the path's
-    ops.grouped_matmul.launches = 0
-    eng = serve_trace(cfg, requests=4, chunk=4096, max_new=8, reduce=False,
-                      balancer="ultraep", seed=0, prompt_len=(2048, 6144),
-                      decode_batch=4, cf=4.0, dtype=torch.bfloat16,
-                      device="cuda")
-    launches = {"grouped_swiglu": ops.grouped_swiglu.launches,
-                "grouped_matmul": ops.grouped_matmul.launches}
+    _reset_launches()
+    eng = serve_trace(cfg, dtype=torch.bfloat16, device="cuda", **SERVE)
+    launches = _launches()
     done = eng.finished
     failed = [r.rid for r in done if r.failed]
-    if len(done) != 4 or failed or eng.fault_counters["nonfinite_logits"]:
-        raise AssertionError(f"serve: finished {len(done)}, failed {failed}, "
+    if len(done) != SERVE["requests"] or failed or \
+            eng.fault_counters["nonfinite_logits"]:
+        raise AssertionError(f"{tag}: finished {len(done)}, failed {failed}, "
                              f"faults {eng.fault_counters}, last error "
                              f"{eng.last_error!r}")
-    if any(len(r.output) != 8 for r in done):
-        raise AssertionError("serve: a request did not produce 8 tokens")
+    if any(len(r.output) != SERVE["max_new"] for r in done):
+        raise AssertionError(f"{tag}: a request did not produce "
+                             f"{SERVE['max_new']} tokens")
     pre = [(n, s) for kind, n, s in eng.calls if kind == "prefill"]
     dec = [(n, s) for kind, n, s in eng.calls if kind == "decode"]
-    _line("phase4_serve", {
+    _line(tag, {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
         "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
         "prompt_tokens": [len(r.prompt) for r in sorted(done, key=lambda r: r.rid)],
@@ -278,7 +404,107 @@ def phase_serve(glm):
         "mean_tpot_s": float(eng.tpot().mean()),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches})
+    del eng, done
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_mamba_mixer(jamba):
+    """One Mamba mixer at full width over T 4096 from a non-zero state: the
+    card (SSD kernel) in bf16 and fp32 vs the fp32 plain path on the host,
+    and two chunks of 2048 vs one of 4096 with the state carried."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import ssm_config
+
+    scfg = ssm_config(jamba)
+    T, D = 4096, jamba.d_model
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p32 = ssm.init_ssm(scfg, gen, dtype=torch.float32, device="cuda")
+    x32 = torch.randn((1, T, D), generator=gen, device="cuda")
+    st32 = ssm.SSMState(
+        torch.randn((1, scfg.n_heads, scfg.d_state, scfg.headdim),
+                    generator=gen, device="cuda") * 0.5,
+        torch.randn((1, scfg.d_conv - 1, ssm.conv_channels(scfg)),
+                    generator=gen, device="cuda"),
+        torch.zeros(1, dtype=torch.int64, device="cuda"))
+
+    def cast(params, device, dtype):
+        """Copy of ``params`` on ``device``; a_log, d_skip, dt_bias stay
+        fp32 as in the model."""
+        t = {k: v.detach().to(device) for k, v in params.named_parameters()}
+        for k in ("in_proj", "conv_w", "conv_b", "norm", "out_proj"):
+            t[k] = t[k].to(dtype)
+        return ssm.SSMParams(**t)
+
+    def state(dtype, device):
+        return ssm.SSMState(st32.s.to(device), st32.conv.to(device, dtype),
+                            st32.length.to(device))
+
+    with torch.inference_mode():
+        y_ref, s_ref = ssm.ssd_prefill(x32.cpu(), state(torch.float32, "cpu"),
+                                       cast(p32, "cpu", torch.float32), scfg)
+        result = {}
+        p16 = cast(p32, "cuda", torch.bfloat16)
+        for key, params, x, tol in (
+                ("fp32", p32, x32, 1e-4),
+                ("bf16", p16, x32.to(torch.bfloat16), 2e-2)):
+            ops.ssd_intra_chunk.launches = 0
+            st = state(x.dtype, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, new = ssm.ssd_prefill(x, st, params, scfg)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if ops.ssd_intra_chunk.launches != 1:
+                raise AssertionError(f"mixer {key}: "
+                                     f"{ops.ssd_intra_chunk.launches} SSD "
+                                     f"kernel launches, expected 1")
+            rec = {"wall_ms": wall_ms, "tol": tol}
+            for name, out, ref in (("y", y, y_ref), ("state", new.s, s_ref.s)):
+                err, scale = _max_err(out.cpu(), ref)
+                if not (torch.isfinite(out).all() and err <= tol * scale):
+                    raise AssertionError(f"mixer {key} {name}: max|err| "
+                                         f"{err:.3e} > {tol} * max|ref| "
+                                         f"{scale:.3e}")
+                rec[f"{name}_max_abs_err"] = err
+                rec[f"{name}_max_abs_ref"] = scale
+            result[key] = rec
+        y_one, st_one = ssm.ssd_prefill(x32, state(torch.float32, "cuda"), p32,
+                                        scfg)
+        y_a, st_a = ssm.ssd_prefill(x32[:, :T // 2], state(torch.float32,
+                                                           "cuda"), p32, scfg)
+        y_b, st_b = ssm.ssd_prefill(x32[:, T // 2:], st_a, p32, scfg)
+        split = {}
+        for name, out, ref in (("y", torch.cat([y_a, y_b], 1), y_one),
+                               ("state", st_b.s, st_one.s),
+                               ("conv", st_b.conv, st_one.conv)):
+            err, scale = _max_err(out, ref)
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"mixer 2x2048 vs 4096 {name}: max|err| "
+                                     f"{err:.3e} > 1e-4 * max|ref| "
+                                     f"{scale:.3e}")
+            split[f"{name}_max_abs_err"] = err
+        if int(st_b.length) != T:
+            raise AssertionError(f"mixer: length {int(st_b.length)} != {T}")
+        result["two_chunks_vs_one_fp32"] = split
+    _line("phase5_mamba_mixer", {
+        "T": T, "d_model": D, "d_inner": scfg.d_inner, "heads": scfg.n_heads,
+        "d_state": scfg.d_state, "groups": scfg.n_groups, **result})
+    del p32, p16, x32, y_ref, s_ref
+    torch.cuda.empty_cache()
+
+
+def _kernel_row(name, source, replaces, rec, launches, extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": rec["shape"], **extra}
 
 
 def main() -> int:
@@ -297,28 +523,53 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_card()
     records = phase_kernels()
+    ssd_records = phase_ssd()
     glm = get_config("glm45-106b-a12b")
+    jamba = get_config("jamba-v0.1-52b")
     phase_moe_layer(glm)
-    launches = phase_serve(glm)
-    sources = {"grouped_swiglu": "src/repro/kernels/grouped_gemm/kernel.py:154",
-               "grouped_matmul": "src/repro/kernels/grouped_gemm/kernel.py:184"}
+    glm_launches = phase_serve(
+        dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2),
+        "phase4_serve_glm")
+    phase_mamba_mixer(jamba)
+    jamba_launches = phase_serve(
+        dataclasses.replace(jamba, name=jamba.name + "-8l", num_layers=8),
+        "phase6_serve_jamba")
+    paths = {"glm45-106b-a12b": glm_launches, "jamba-v0.1-52b": jamba_launches}
+    for path, name in (("glm45-106b-a12b", "grouped_swiglu"),
+                       ("glm45-106b-a12b", "grouped_matmul"),
+                       ("jamba-v0.1-52b", "grouped_swiglu"),
+                       ("jamba-v0.1-52b", "grouped_matmul"),
+                       ("jamba-v0.1-52b", "ssd_intra_chunk")):
+        if paths[path][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the {path} "
+                                 f"serve path")
+    gg_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
     kernels = []
-    for name in ("grouped_swiglu", "grouped_matmul"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched on the serve path")
-        main_rec = records[name]["prefill"]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu",
-            "replaces": sources[name], "launches": launches[name],
-            "max_abs_err": main_rec["max_abs_err"], "ms": main_rec["ms"],
-            "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
-            "bound_by": main_rec["bound_by"],
-            "library_ms": main_rec["library_ms"], "shape": main_rec["shape"],
-            "decode": {k: records[name]["decode"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err")},
-            "checks": sorted(records[name])})
+    for name, line in (("grouped_swiglu", 154), ("grouped_matmul", 184)):
+        rec = records[name]
+        kernels.append(_kernel_row(
+            name, gg_src, f"src/repro/kernels/grouped_gemm/kernel.py:{line}",
+            rec["prefill"], glm_launches[name], {
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
+                "decode": {k: rec["decode"][k] for k in keys},
+                "jamba_prefill": {k: rec["jamba_prefill"][k]
+                                  for k in ("shape",) + keys},
+                "jamba_decode": {k: rec["jamba_decode"][k] for k in keys},
+                "checks": sorted(rec)}))
+    ssd = ssd_records["jamba_prefill"]
+    kernels.append(_kernel_row(
+        "ssd_intra_chunk", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:66", ssd,
+        jamba_launches["ssd_intra_chunk"], {
+            "launches_by_path": {p: c["ssd_intra_chunk"]
+                                 for p, c in paths.items()},
+            "dtype": ssd["dtype"], "scan_ms": ssd["scan_ms"],
+            "scan_plain_ms": ssd["scan_plain_ms"],
+            "fp32_inputs": {k: ssd_records["jamba_prefill_fp32"][k]
+                            for k in keys},
+            "checks": sorted(ssd_records)}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

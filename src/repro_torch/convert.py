@@ -7,9 +7,13 @@ same function.  The containers are read by field name only; nothing of the
 JAX package is imported.
 
 * :func:`moe_params`: a ``repro.moe.layer.MoEParams``.
-* :func:`lm_params`: a ``repro.models.model.LMParams`` of GQA attention
-  blocks; segments built with ``scan_layers=True`` carry a leading layer
-  axis and are unstacked per layer, unscanned segments are tuples of blocks.
+* :func:`ssm_params`: a ``repro.models.ssm.SSMParams``.
+* :func:`lm_params`: a ``repro.models.model.LMParams`` of GQA attention and
+  Mamba blocks.  Segments built with ``scan_layers=True`` carry a leading
+  layer axis and are unstacked per layer, unscanned segments are tuples of
+  blocks, and a hybrid's "cycle" segment is a tuple of ``p`` blocks each
+  stacked over the ``n_rep`` repetitions of the period: layer
+  ``pre + r * p + j`` is entry ``j`` at index ``r``.
 """
 
 from __future__ import annotations
@@ -20,10 +24,11 @@ import torch
 from repro_torch.configs.base import ModelConfig, layer_kinds
 from repro_torch.models.attention import GQAParams
 from repro_torch.models.model import LMParams
+from repro_torch.models.ssm import SSMParams
 from repro_torch.models.transformer import BlockParams
 from repro_torch.moe.layer import MoEParams
 
-__all__ = ["to_tensor", "moe_params", "lm_params"]
+__all__ = ["to_tensor", "moe_params", "ssm_params", "lm_params"]
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor | None:
@@ -50,17 +55,28 @@ def moe_params(p, *, n_slot: int, device="cuda") -> MoEParams:
                      n_slot=n_slot)
 
 
-def _block(bp, cfg: ModelConfig, device) -> BlockParams:
-    if getattr(bp, "ssm", None) is not None or not hasattr(bp.attn, "wq"):
-        raise ValueError("only GQA attention blocks are ported")
+def ssm_params(p, *, device="cuda") -> SSMParams:
     t = lambda a: to_tensor(a, device)  # noqa: E731
-    a = bp.attn
-    attn = GQAParams(t(a.wq), t(a.wk), t(a.wv), t(a.wo), t(a.bq), t(a.bk),
-                     t(a.bv), t(a.q_norm), t(a.k_norm))
+    return SSMParams(t(p.in_proj), t(p.conv_w), t(p.conv_b), t(p.a_log),
+                     t(p.d_skip), t(p.dt_bias), t(p.norm), t(p.out_proj))
+
+
+def _block(bp, cfg: ModelConfig, device) -> BlockParams:
+    t = lambda a: to_tensor(a, device)  # noqa: E731
+    attn = ssm = None
+    if bp.ssm is not None:
+        ssm = ssm_params(bp.ssm, device=device)
+    elif hasattr(bp.attn, "wq"):
+        a = bp.attn
+        attn = GQAParams(t(a.wq), t(a.wk), t(a.wv), t(a.wo), t(a.bq),
+                         t(a.bk), t(a.bv), t(a.q_norm), t(a.k_norm))
+    else:
+        raise ValueError("only GQA attention and Mamba blocks are ported")
     ffn = None if bp.ffn is None else tuple(t(w) for w in bp.ffn)
     moe = None if bp.moe is None else moe_params(
         bp.moe, n_slot=cfg.moe.n_slot, device=device)
-    return BlockParams(t(bp.norm1), t(bp.norm2), attn, ffn=ffn, moe=moe)
+    return BlockParams(t(bp.norm1), t(bp.norm2), attn, ffn=ffn, moe=moe,
+                       ssm=ssm)
 
 
 def lm_params(p, cfg: ModelConfig, *, device="cuda") -> LMParams:
@@ -70,9 +86,12 @@ def lm_params(p, cfg: ModelConfig, *, device="cuda") -> LMParams:
     blocks = []
     for seg in p.segments:
         if isinstance(seg, tuple) and not hasattr(seg, "_fields"):
-            if any(np.ndim(b.norm1) != 1 for b in seg):
-                raise ValueError("heterogeneous cycle segments are not ported")
-            blocks.extend(seg)                        # unscanned segment
+            if all(np.ndim(b.norm1) == 1 for b in seg):
+                blocks.extend(seg)                    # unscanned segment
+                continue
+            n_rep = np.shape(seg[0].norm1)[0]         # cycle segment
+            blocks.extend(_index(entry, r) for r in range(n_rep)
+                          for entry in seg)
         else:
             blocks.extend(_index(seg, i)              # stacked (L, ...) leaves
                           for i in range(np.shape(seg.norm1)[0]))

@@ -90,8 +90,9 @@ class KernelLibrary:
 
 def _libraries() -> list[KernelLibrary]:
     from repro_torch.kernels.grouped_gemm import ops as grouped_gemm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_scan_ops
 
-    return [grouped_gemm_ops.LIBRARY]
+    return [grouped_gemm_ops.LIBRARY, ssd_scan_ops.LIBRARY]
 
 
 def build_all() -> dict[str, str]:

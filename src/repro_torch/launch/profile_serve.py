@@ -1,13 +1,16 @@
 """Where the serving time goes: one traced prefill chunk and decode step.
 
-Builds GLM-4.5-Air with its published widths and ``--layers`` layers (bf16,
-random weights from a seeded CUDA generator), warms up, then traces one
-full prefill chunk and one decode step of a batch with ``torch.profiler``
-and prints, per step, one JSON line: the host wall time between device
-synchronisations, the device-busy time (sum of kernel times on the one
-stream), the idle share, the time per kernel category and the top kernels.
+Builds ``--arch`` (GLM-4.5-Air by default) with its published widths and
+``--layers`` layers (bf16, random weights from a seeded CUDA generator),
+warms up, then traces one full prefill chunk and one decode step of a batch
+with ``torch.profiler`` and prints, per step, one JSON line: the host wall
+time between device synchronisations, the device-busy time (sum of kernel
+times on the one stream), the idle share, the time per kernel category and
+the top kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 2
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch jamba-v0.1-52b --layers 8
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ __all__ = ["main"]
 # Kernel-name fragments -> category, first match wins.
 _CATEGORIES = (
     ("grouped_gemm (ours)", ("grouped_gemm_bf16_kernel", "grouped_gemm_f32")),
+    ("ssd_scan (ours)", ("ssd_intra_chunk_kernel",)),
     ("library GEMM", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")),
     ("sort/scan/search", ("sort", "scan", "cumsum", "search", "radix")),
     ("gather/scatter/index", ("index", "gather", "scatter", "take")),
@@ -82,6 +86,7 @@ def _trace(step, label: str, top: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="glm45-106b-a12b")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--chunk", type=int, default=4096)
     ap.add_argument("--decode-batch", type=int, default=4)
@@ -90,8 +95,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("glm45-106b-a12b"),
-                              num_layers=args.layers)
+    cfg = dataclasses.replace(get_config(args.arch), num_layers=args.layers)
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep",
                                                  n_slot=cfg.moe.n_slot),
                          cf_pair=4.0, cf_slot=4.0, dtype=torch.bfloat16)
@@ -108,11 +112,13 @@ def main(argv=None) -> int:
         args.decode_batch, 1)).astype(np.int32))
     decode(step_toks, caches)                                    # warm-up
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "layers": args.layers, "chunk": args.chunk,
+                      "arch": cfg.name, "layers": args.layers,
+                      "chunk": args.chunk,
                       "decode_batch": args.decode_batch}), flush=True)
     print(json.dumps(_trace(lambda: prefill(toks, cache, args.chunk,
                                             args.chunk),
-                            "prefill_chunk_at_4096", args.top)), flush=True)
+                            f"prefill_chunk_at_{args.chunk}", args.top)),
+          flush=True)
     print(json.dumps(_trace(lambda: decode(step_toks, caches), "decode_step",
                             args.top)), flush=True)
     return 0

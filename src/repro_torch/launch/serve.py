@@ -11,6 +11,8 @@ engine's clock advances by that measured time, and the calls are kept in
 Example (on a card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm45-106b-a12b \
       --reduce --requests 6 --chunk 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+      --reduce --requests 6 --chunk 64
 """
 
 from __future__ import annotations
@@ -55,6 +57,9 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
         cfg = reduced(cfg)
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name} is encoder-only; no serving path")
+    if cfg.ssm is not None and chunk % cfg.ssm.chunk:
+        raise ValueError(f"prefill chunk {chunk} is not a multiple of the "
+                         f"SSD chunk {cfg.ssm.chunk} of {cfg.name}")
     device = torch.device(device)
     rcfg = RuntimeConfig(
         balancer=BalancerConfig(mode=balancer,

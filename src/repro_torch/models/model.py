@@ -3,8 +3,9 @@
 Mirrors the serving half of ``repro.models.model``: :class:`LMParams`,
 :func:`init_lm`, :func:`init_caches`, :func:`prefill_step` and
 :func:`decode_step`.  The layers are a list (one block per layer) where the
-JAX package stacks scanned segments; caches are one :class:`KVCache` per
-layer.
+JAX package stacks scanned segments; caches are one entry per layer, a
+:class:`KVCache` for an attention layer and an :class:`SSMState` for a
+Mamba layer.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def init_lm(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 rcfg: RuntimeConfig, *, device="cuda") -> list:
-    """One decode cache per layer."""
+    """One decode cache per layer (KVCache or SSMState by the layer's kind)."""
     return [init_cache_block(cfg, kind, batch, max_seq, rcfg.dtype,
                              device=device) for kind in layer_kinds(cfg)]
 

@@ -1,9 +1,10 @@
 """Transformer blocks over a shared residual stream.
 
-Mirrors ``repro.models.transformer`` for the block kinds ``attn+moe`` and
-``attn+dense`` on a single device (``ParallelCtx(mesh=None)``).  JAX groups
-identical layers into scanned segments; here the layers are a Python list
-and each block runs in turn.
+Mirrors ``repro.models.transformer`` for the block kinds ``attn+moe``,
+``attn+dense``, ``mamba+moe`` and ``mamba+dense`` on a single device
+(``ParallelCtx(mesh=None)``).  JAX groups identical layers into scanned
+segments (and a hybrid's repeating period into one "cycle" segment); here
+the layers are a Python list and each block runs in turn.
 """
 
 from __future__ import annotations
@@ -16,13 +17,16 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.balancer import BalancerConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnConfig, KVCache
 from repro_torch.models.layers import dense_swiglu, rms_norm
+from repro_torch.models.ssm import SSMConfig, SSMState
 from repro_torch.moe.gating import GatingConfig
 from repro_torch.moe.layer import MoEConfig, default_capacities, init_moe_params
 
 __all__ = ["RuntimeConfig", "ParallelCtx", "BlockParams", "attn_config",
-           "moe_config", "init_block", "init_cache_block", "block_apply"]
+           "ssm_config", "moe_config", "init_block", "init_cache_block",
+           "block_apply"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,15 +61,16 @@ class ParallelCtx:
 
 
 class BlockParams(nn.Module):
-    """One residual block: norm1, mixer (attention), norm2, FFN (dense
-    (w1, w3, w2) or MoE)."""
+    """One residual block: norm1, mixer (attention ``attn`` or Mamba
+    ``ssm``), norm2, FFN (dense (w1, w3, w2) or MoE)."""
 
-    def __init__(self, norm1, norm2, attn, ffn=None, moe=None):
+    def __init__(self, norm1, norm2, attn, ffn=None, moe=None, ssm=None):
         super().__init__()
         self.norm1 = nn.Parameter(norm1, requires_grad=False)
         self.norm2 = None if norm2 is None else nn.Parameter(
             norm2, requires_grad=False)
         self.attn = attn
+        self.ssm = ssm
         self.ffn = None if ffn is None else nn.ParameterList(
             [nn.Parameter(w, requires_grad=False) for w in ffn])
         self.moe = moe
@@ -81,6 +86,13 @@ def attn_config(cfg: ModelConfig) -> AttnConfig:
                       num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                       causal=cfg.causal, qkv_bias=cfg.qkv_bias,
                       qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+
+
+def ssm_config(cfg: ModelConfig) -> SSMConfig:
+    s = cfg.ssm
+    return SSMConfig(d_model=cfg.d_model, d_inner=s.d_inner,
+                     headdim=s.headdim, d_state=s.d_state,
+                     n_groups=s.n_groups, d_conv=s.d_conv, chunk=s.chunk)
 
 
 def moe_config(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
@@ -110,13 +122,15 @@ def init_block(cfg: ModelConfig, kind: str, rcfg: RuntimeConfig,
                pctx: ParallelCtx, generator: torch.Generator, *,
                device="cuda") -> BlockParams:
     mixer, ffn_kind = kind.split("+")
-    if mixer != "attn":
-        raise ValueError(f"block kind {kind!r} is not ported yet")
     D = cfg.d_model
     dtype = rcfg.dtype
-    attn = attn_mod.init_gqa(attn_config(cfg), generator, dtype=dtype,
-                             device=device)
-    ffn = moe = None
+    attn = ssm = ffn = moe = None
+    if mixer == "attn":
+        attn = attn_mod.init_gqa(attn_config(cfg), generator, dtype=dtype,
+                                 device=device)
+    else:
+        ssm = ssm_mod.init_ssm(ssm_config(cfg), generator, dtype=dtype,
+                               device=device)
     if ffn_kind == "dense":
         Fd = cfg.d_ff
         ffn = tuple(
@@ -130,18 +144,27 @@ def init_block(cfg: ModelConfig, kind: str, rcfg: RuntimeConfig,
     norm2 = None if ffn_kind == "none" else torch.ones(D, dtype=dtype,
                                                        device=device)
     return BlockParams(torch.ones(D, dtype=dtype, device=device), norm2,
-                       attn, ffn=ffn, moe=moe)
+                       attn, ffn=ffn, moe=moe, ssm=ssm)
 
 
 def init_cache_block(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
-                     dtype, *, device="cuda") -> KVCache:
-    """Decode cache entry for one attention layer."""
-    if not kind.startswith("attn+"):
-        raise ValueError(f"block kind {kind!r} is not ported yet")
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
-                   length=torch.zeros(batch, dtype=torch.int64, device=device))
+                     dtype, *, device="cuda") -> KVCache | SSMState:
+    """Decode cache entry for one layer: a KVCache for attention, an
+    SSMState (fp32 state, conv tail in ``dtype``) for a Mamba mixer."""
+    length = torch.zeros(batch, dtype=torch.int64, device=device)
+    if kind.startswith("attn+"):
+        shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device),
+                       length=length)
+    scfg = ssm_config(cfg)
+    return SSMState(
+        s=torch.zeros((batch, scfg.n_heads, scfg.d_state, scfg.headdim),
+                      dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, scfg.d_conv - 1,
+                          ssm_mod.conv_channels(scfg)), dtype=dtype,
+                         device=device),
+        length=length)
 
 
 def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
@@ -153,7 +176,7 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
     Modes: full forward (cache None), chunked prefill (cache given, decode
     False), decode (cache given, decode True, S == 1).
     """
-    _mixer, ffn_kind = kind.split("+")
+    mixer, ffn_kind = kind.split("+")
     dev = x.device
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     drops = torch.zeros((), dtype=torch.int64, device=dev)
@@ -162,11 +185,20 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
     new_cache = cache
 
     h = rms_norm(x, bp.norm1)
-    att = bp.attn(h, attn_config(cfg), cache=cache, decode=decode,
-                  valid_len=valid_len, block_kv=rcfg.block_kv)
-    if cache is not None:
-        att, new_cache = att
-    x = x + att
+    if mixer == "attn":
+        y = bp.attn(h, attn_config(cfg), cache=cache, decode=decode,
+                    valid_len=valid_len, block_kv=rcfg.block_kv)
+        if cache is not None:
+            y, new_cache = y
+    else:
+        scfg = ssm_config(cfg)
+        if decode:
+            y, new_cache = ssm_mod.ssd_decode(h, cache, bp.ssm, scfg)
+        elif cache is not None:
+            y, new_cache = ssm_mod.ssd_prefill(h, cache, bp.ssm, scfg)
+        else:
+            y, _final = ssm_mod.ssd_forward(h, bp.ssm, scfg)
+    x = x + y
 
     if ffn_kind != "none":
         h2 = rms_norm(x, bp.norm2)

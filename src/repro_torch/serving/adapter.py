@@ -1,9 +1,10 @@
 """Glue: bind a model to the ServingEngine callbacks.
 
 Mirrors ``repro.serving.adapter.make_engine_fns``.  Caches are a list with
-one KVCache per layer; stacking concatenates each layer's entries along the
-batch axis and unstacking slices them back.  Model calls run under
-``torch.inference_mode`` on the parameters' device.
+one entry per layer, a KVCache or an SSMState; every field of both carries
+the batch on axis 0, so stacking concatenates each layer's fields along it
+into the layer's own type and unstacking slices them back.  Model calls run
+under ``torch.inference_mode`` on the parameters' device.
 """
 
 from __future__ import annotations
@@ -11,7 +12,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import KVCache
 from repro_torch.models.model import (
     LMParams,
     decode_step,
@@ -42,11 +42,12 @@ def make_engine_fns(params: LMParams, cfg: ModelConfig, rcfg: RuntimeConfig,
         return init_caches(cfg, batch, max_seq, rcfg, device=device)
 
     def stack_caches(caches_list):
-        return [KVCache(*(torch.cat(parts, dim=0) for parts in zip(*layer)))
+        return [type(layer[0])(*(torch.cat(parts, dim=0)
+                                 for parts in zip(*layer)))
                 for layer in zip(*caches_list)]
 
     def unstack_caches(caches, n):
-        return [[KVCache(*(t[b:b + 1] for t in layer)) for layer in caches]
-                for b in range(n)]
+        return [[type(layer)(*(t[b:b + 1] for t in layer))
+                 for layer in caches] for b in range(n)]
 
     return prefill_fn, decode_fn, new_cache_fn, stack_caches, unstack_caches

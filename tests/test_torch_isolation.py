@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither ``jax`` nor the JAX package.
 
-One test runs a reduced prefill in a subprocess where ``import jax`` fails;
+One test runs a reduced prefill of each ported arch in a subprocess where
+``import jax`` fails;
 the other reads every source file of the port and ``chip_smoke.py``.
 """
 
@@ -27,16 +28,18 @@ from repro_torch.core.balancer import BalancerConfig
 from repro_torch.launch import serve  # noqa: F401  (imports the whole path)
 from repro_torch.models.model import init_caches, init_lm, prefill_step
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
-cfg = reduced(get_config("glm45-106b-a12b"))
-rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"), cf_pair=4.0,
-                     cf_slot=4.0)
-gen = torch.Generator(device="cpu").manual_seed(0)
-params = init_lm(cfg, rcfg, ParallelCtx(), gen, device="cpu")
-caches = init_caches(cfg, 1, 64, rcfg, device="cpu")
-toks = torch.from_numpy(np.arange(32, dtype=np.int64)[None] % cfg.vocab_size)
-logits, _ = prefill_step(params, caches, toks, cfg, rcfg, ParallelCtx())
-assert logits.shape == (1, 32, cfg.vocab_size)
-assert torch.isfinite(logits).all()
+for arch in ("glm45-106b-a12b", "jamba-v0.1-52b"):
+    cfg = reduced(get_config(arch))
+    rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"),
+                         cf_pair=4.0, cf_slot=4.0)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    params = init_lm(cfg, rcfg, ParallelCtx(), gen, device="cpu")
+    caches = init_caches(cfg, 1, 64, rcfg, device="cpu")
+    toks = torch.from_numpy(np.arange(32, dtype=np.int64)[None]
+                            % cfg.vocab_size)
+    logits, _ = prefill_step(params, caches, toks, cfg, rcfg, ParallelCtx())
+    assert logits.shape == (1, 32, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
 assert not any(m == "repro" or m.startswith(("repro.", "jax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

@@ -1,11 +1,14 @@
-"""Port LM vs the JAX LM on reduced GLM-4.5-Air with converted weights.
+"""Port LM vs the JAX LM on reduced GLM-4.5-Air and reduced Jamba-v0.1
+(8 layers: mamba+dense, mamba+moe, attn+dense) with converted weights.
 
 The JAX parameters (``repro.models.model.init_lm``, scan_layers=True, so
-segments are stacked on a layer axis) go through ``repro_torch.convert``.
+segments are stacked on a layer axis, and a 16-layer Jamba's repeating
+period becomes one "cycle" segment) go through ``repro_torch.convert``.
 Chunked prefill and batched decode logits must agree within 1e-4 (fp32),
 and one served trace must give identical greedy tokens from the JAX engine
 functions (``repro.serving.adapter``, as ``repro.launch.serve`` builds
-them) and from the port's.
+them) and from the port's.  The prefill chunk (64) is a multiple of the
+reduced SSD chunk (16).
 """
 
 import dataclasses
@@ -33,7 +36,7 @@ from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 from repro_torch.serving.adapter import make_engine_fns
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
 
-ARCH = "glm45-106b-a12b"
+GLM, JAMBA = "glm45-106b-a12b", "jamba-v0.1-52b"
 CHUNK = 64
 MAX_SEQ = 272          # = prompt max 200 + max_new 8 + chunk 64
 TOL = 1e-4
@@ -44,9 +47,9 @@ def _with_dense_prefix(cfg):
         cfg, d_ff=128, moe=dataclasses.replace(cfg.moe, first_dense_layers=1))
 
 
-def _build(dense_prefix: bool):
-    jcfg = j_reduced(j_get_config(ARCH))
-    tcfg = reduced(get_config(ARCH))
+def _build(arch: str, dense_prefix: bool = False, layers: int | None = None):
+    jcfg = j_reduced(j_get_config(arch), layers=layers)
+    tcfg = reduced(get_config(arch), layers=layers)
     if dense_prefix:
         jcfg, tcfg = _with_dense_prefix(jcfg), _with_dense_prefix(tcfg)
     jrcfg = JRuntimeConfig(balancer=JBalancerConfig(mode="ultraep", n_slot=2),
@@ -62,17 +65,18 @@ def _build(dense_prefix: bool):
                              max_seq=MAX_SEQ)
     tfns = make_engine_fns(tparams, tcfg, trcfg, ParallelCtx(),
                            max_seq=MAX_SEQ)
-    return jcfg, jfns, tfns
+    return jcfg, jfns, tfns, jparams
 
 
 def _close(j, t):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("dense_prefix", [False, True])
-def test_prefill_and_decode_logits_match_jax(dense_prefix):
-    cfg, (jpre, jdec, jnew, jstack, _), (tpre, tdec, tnew, tstack, _) = \
-        _build(dense_prefix)
+@pytest.mark.parametrize("arch,dense_prefix", [(GLM, False), (GLM, True),
+                                               (JAMBA, False)])
+def test_prefill_and_decode_logits_match_jax(arch, dense_prefix):
+    cfg, (jpre, jdec, jnew, jstack, _), (tpre, tdec, tnew, tstack, _), _ = \
+        _build(arch, dense_prefix)
     rng = np.random.default_rng(0)
     j_caches, t_caches = [], []
     for length in (100, 40):              # two chunks, then one ragged chunk
@@ -104,8 +108,9 @@ def _requests(cls, vocab):
     return out
 
 
-def test_served_trace_gives_identical_greedy_tokens():
-    cfg, jfns, tfns = _build(False)
+@pytest.mark.parametrize("arch", [GLM, JAMBA])
+def test_served_trace_gives_identical_greedy_tokens(arch):
+    cfg, jfns, tfns, _ = _build(arch)
     outs = []
     for fns, ecls, ccls, rcls in ((jfns, JServingEngine, JEngineConfig,
                                    JRequest),
@@ -121,3 +126,25 @@ def test_served_trace_gives_identical_greedy_tokens():
         assert eng.fault_counters["nonfinite_logits"] == 0
         outs.append([r.output for r in done])
     assert outs[0] == outs[1]
+
+
+def test_lm_params_converts_cycle_segment():
+    """16-layer Jamba: JAX stores layers 0..15 as one cycle segment of 8
+    entries stacked over 2 repetitions; the converted port LM gives the same
+    prefill logits (two chunks, the second ragged) and decode logits."""
+    cfg, (jpre, jdec, jnew, _, _), (tpre, tdec, tnew, _, _), jparams = \
+        _build(JAMBA, layers=16)
+    assert len(jparams.segments) == 1 and len(jparams.segments[0]) == 8
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, size=100).astype(np.int32)
+    jc, tc = jnew(1), tnew(1)
+    for pos in range(0, len(prompt), CHUNK):
+        n = min(CHUNK, len(prompt) - pos)
+        toks = np.pad(prompt[pos:pos + n], (0, CHUNK - n))[None, :]
+        jl, jc = jpre(jax.numpy.asarray(toks), jc, pos, n)
+        tl, tc = tpre(torch.from_numpy(toks), tc, pos, n)
+        _close(jl, tl)
+    toks = prompt[-1:][None, :]
+    jl, _ = jdec(jax.numpy.asarray(toks), jc)
+    tl, _ = tdec(torch.from_numpy(toks), tc)
+    _close(jl, tl)
