@@ -14,14 +14,27 @@ Phases, one output line each:
      card's bound; then ``ssd_intra_chunk`` and ``ssd_chunk_scan`` (from
      an initial state) against their plain versions at the Jamba prefill
      chunk in bf16 and fp32 inputs and at the reduced shape at nc 1 and at
-     B 2, within 3e-4 max|ref| (fp32 arithmetic in both);
+     B 2, within 3e-4 max|ref| (fp32 arithmetic in both); then the w8a8
+     pair ``grouped_swiglu_q8`` / ``grouped_matmul_q8`` against their plain
+     versions at the GLM-4.5-Air prefill and decode shapes and at ragged
+     shapes, with weight codes K-contiguous as the layer keeps them and the
+     SwiGLU's activations as the dispatch stage hands them over (a strided
+     view of the int8 wire, rows K + 4 bytes apart) and contiguous: the
+     matmul must match bitwise, the SwiGLU within 1e-5 max|ref| (the
+     gate's exp); the library yardstick is G calls of ``torch._int_mm``
+     (cuBLAS int8) plus the dequant in PyTorch;
   3. the balanced MoE layer at GLM-4.5-Air width (T 4096, ep_size 1) in the
      a2a and replicated modes against the dense oracle ``moe_ref`` in fp32
      (bf16 layer: 2e-2 max|ref|, fp32 layer: 1e-4 max|ref|), zero drops;
+     then in bf16 with (wire_dtype, ffn_dtype) (int8, int8) and (int8,
+     none): 3e-2 max|ref| (the JAX suite's bound for the int8 FFN), the
+     bf16 layer's counts, zero drops;
   4. ``serve_trace`` on GLM-4.5-Air at every published width with depth cut
      to 2 layers, bf16 weights from a seeded CUDA generator: 4 requests of
      2048-6144 tokens, chunk 4096, 8 new tokens each, decode batch 4,
-     balancer ultraep, capacity factors 4.0;
+     balancer ultraep, capacity factors 4.0; then (4b) the same with
+     ``wire_dtype = ffn_dtype = "int8"``, which must launch the q8 kernels
+     and not the bf16 grouped ones;
   5. one Jamba-v0.1 Mamba mixer at full width over T 4096 from a non-zero
      state: bf16 and fp32 on the card (the SSD kernel) against the fp32
      plain path run on the host (bf16: 2e-2 max|ref|, fp32: 1e-4 max|ref|),
@@ -51,7 +64,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}   # dense, no sparsity
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12,   # dense, no sparsity
+                  "int8": 1979e12}
 PREFILL = dict(G=130, M=1009, K=4096, N=1408)      # 128 mains + 2 replicas
 DECODE = dict(G=130, M=8, K=4096, N=1408)
 # Jamba-v0.1: 16 mains + 2 replicas; M is cap_slot at T 4096, top-2, cf 4.
@@ -59,6 +73,7 @@ JAMBA_PREFILL = dict(G=18, M=1821, K=4096, N=14336)
 JAMBA_DECODE = dict(G=18, M=8, K=4096, N=14336)
 JAMBA_SSD = dict(B=1, nc=32, Q=128, H=128, P=64, N=16)   # one 4096 chunk
 REDUCED_SSD = dict(B=1, nc=1, Q=16, H=8, P=16, N=16)
+Q8_SWIGLU_TOL = 1e-5                          # the gate's expf; matmul: exact
 SSD_TOL = 3e-4
 SERVE = dict(requests=4, chunk=4096, max_new=8, reduce=False,
              balancer="ultraep", seed=0, prompt_len=(2048, 6144),
@@ -210,6 +225,142 @@ def phase_kernels() -> dict:
     return records
 
 
+def _q8_operands(G, M, K, N, seed, wire_view):
+    """The w8a8 FFN's operands as the main path builds them.  Activations
+    x ~ N(0, 1) in bf16, (G, M, K), encoded for the int8 wire and split
+    (codes a view with rows K + 4 bytes apart), or quantized per row
+    (contiguous codes, as the decode path and the down projection get
+    them).  Weights w1, w3 (G, K, N) and w2 (G, N, K), bf16 ~ N(0, 1/fan_in),
+    quantized per column with their codes stored K-contiguous, as
+    ``MoEParams.q8_slot_buffers`` keeps them."""
+    import torch
+
+    from repro_torch.core.quantize import (
+        encode_wire,
+        quantize_rows,
+        split_wire_int8,
+    )
+    from repro_torch.moe.expert import quantize_weight_cols
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(shape, scale):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(torch.bfloat16)
+
+    x = n((G, M, K), 1.0)
+    q, rs = (split_wire_int8(encode_wire(x, "int8")) if wire_view
+             else quantize_rows(x))
+    ws = []
+    for shape in ((G, K, N), (G, K, N), (G, N, K)):
+        codes, scales = quantize_weight_cols(n(shape, shape[1] ** -0.5))
+        ws.append((codes.transpose(1, 2).contiguous().transpose(1, 2), scales))
+    return q, rs, ws
+
+
+def _int_mm_ffn(q, rs, w1, s1, w3, s3, aq, as_, w2, s2):
+    """The library yardstick for the q8 pair: one ``torch._int_mm`` (cuBLAS
+    int8 -> int32) per group in a Python loop, then the same dequant (and
+    gate) in PyTorch.  None where ``_int_mm`` refuses the shape (it needs
+    more than 16 rows, and K and N multiples of 8)."""
+    import torch
+    import torch.nn.functional as F
+
+    G, M, K = q.shape
+    N = w1.shape[2]
+    if M <= 16 or K % 8 or N % 8:
+        return None, None
+    qc = q.contiguous()
+    acc1, acc3 = (torch.empty((G, M, N), dtype=torch.int32, device=q.device)
+                  for _ in range(2))
+    acc2 = torch.empty((G, M, K), dtype=torch.int32, device=q.device)
+
+    def swiglu():
+        for i in range(G):
+            torch._int_mm(qc[i], w1[i], out=acc1[i])
+            torch._int_mm(qc[i], w3[i], out=acc3[i])
+        return (F.silu(acc1.float() * rs[:, :, None] * s1[:, None, :])
+                * (acc3.float() * rs[:, :, None] * s3[:, None, :]))
+
+    def matmul():
+        for i in range(G):
+            torch._int_mm(aq[i], w2[i], out=acc2[i])
+        return acc2.float() * as_[:, :, None] * s2[:, None, :]
+
+    return swiglu, matmul
+
+
+def phase_kernels_q8() -> dict:
+    """The w8a8 pair vs their plain versions; returns the records by name."""
+    import torch
+
+    from repro_torch.core.quantize import quantize_rows
+    from repro_torch.kernels.grouped_gemm import ops
+
+    records = {"grouped_swiglu_q8": {}, "grouped_matmul_q8": {}}
+    cases = [("prefill", PREFILL, True, 10),
+             ("decode", DECODE, True, 20),
+             ("prefill_contiguous", PREFILL, False, 10),
+             ("ragged_m1", dict(G=1, M=1, K=4096, N=1408), True, 0),
+             ("ragged_tiles", dict(G=3, M=1009, K=136, N=200), True, 0),
+             ("ragged_small", dict(G=2, M=65, K=33, N=129), True, 0),
+             ("ragged_small_contiguous", dict(G=2, M=65, K=33, N=129), False,
+              0)]
+    for tag, s, wire_view, iters in cases:
+        G, M, K, N = s["G"], s["M"], s["K"], s["N"]
+        q, rs, ((w1, s1), (w3, s3), (w2, s2)) = _q8_operands(
+            G, M, K, N, seed=len(tag), wire_view=wire_view)
+        act = ops.grouped_swiglu_q8(q, rs, w1, s1, w3, s3)
+        sw = dict(zip(("max_abs_err", "max_abs_ref"), _check_case(
+            f"grouped_swiglu_q8 {tag}", lambda: act,
+            lambda: ops.grouped_swiglu_q8_ref(q, rs, w1, s1, w3, s3),
+            Q8_SWIGLU_TOL)))
+        aq, as_ = quantize_rows(act)
+        out = ops.grouped_matmul_q8(aq, as_, w2, s2)
+        torch.cuda.synchronize()
+        ref = ops.grouped_matmul_q8_ref(aq, as_, w2, s2)
+        err, scale = _max_err(out, ref)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"grouped_matmul_q8 {tag}: not bitwise equal "
+                                 f"to its plain version (max|err| {err:.3e})")
+        mm = {"max_abs_err": err, "max_abs_ref": scale}
+        sw["q_row_bytes"] = q.stride(1)
+        if iters and wire_view:   # what a contiguous copy of the view costs
+            sw["q_contiguous_copy_ms"] = _cuda_ms(lambda: q.contiguous(),
+                                                  iters)
+        if iters:
+            lib_sw, lib_mm = _int_mm_ffn(q, rs, w1, s1, w3, s3, aq, as_, w2,
+                                         s2)
+            if lib_sw is not None:
+                # The yardstick must compute the same function.
+                if not torch.equal(lib_mm(), ref):
+                    raise AssertionError(f"_int_mm yardstick {tag} differs")
+                lib_err, _ = _max_err(lib_sw(), act)
+                if not lib_err <= Q8_SWIGLU_TOL * sw["max_abs_ref"]:
+                    raise AssertionError(f"_int_mm yardstick {tag} differs")
+            sw.update(_time_pair(
+                lambda: ops.grouped_swiglu_q8(q, rs, w1, s1, w3, s3),
+                lambda: ops.grouped_swiglu_q8_ref(q, rs, w1, s1, w3, s3),
+                lib_sw, 4.0 * G * M * K * N,
+                G * M * K + 4 * G * M + 2 * G * K * N + 8 * G * N
+                + 4 * G * M * N, "int8", iters))
+            mm.update(_time_pair(
+                lambda: ops.grouped_matmul_q8(aq, as_, w2, s2),
+                lambda: ops.grouped_matmul_q8_ref(aq, as_, w2, s2),
+                lib_mm, 2.0 * G * M * N * K,
+                G * M * N + 4 * G * M + G * N * K + 4 * G * K
+                + 4 * G * M * K, "int8", iters))
+            if lib_sw is None:
+                sw["library_note"] = mm["library_note"] = (
+                    "none: torch._int_mm needs more than 16 rows")
+        records["grouped_swiglu_q8"][tag] = dict(shape=[G, M, K, N], **sw)
+        records["grouped_matmul_q8"][tag] = dict(shape=[G, M, N, K], **mm)
+        del q, rs, w1, w3, w2, s1, s3, s2, act, aq, as_, out, ref
+        torch.cuda.empty_cache()
+    _line("phase2_kernels_q8", records)
+    return records
+
+
 def phase_moe_layer(glm):
     """The balanced layer at full width vs the dense oracle in fp32."""
     import torch
@@ -262,6 +413,34 @@ def phase_moe_layer(glm):
                            "post_max": int(st.post_max),
                            "max_slot_load": int(st.max_slot_load),
                            "cap_slot": cfg.cap_slot, "cap_pair": cfg.cap_pair}
+            if x.dtype == torch.bfloat16:
+                counts16 = st.counts
+        # The quantized layer: int8 wire and w8a8 FFN, and the int8 wire
+        # alone, each in both dispatch modes.  The first q8 call also
+        # quantizes the mains' weights once (wall_first_ms).
+        for wire, ffn in (("int8", "int8"), ("int8", "none")):
+            for mode in ("a2a", "replicated"):
+                cfg = dataclasses.replace(cfg_a2a, dispatch_mode=mode,
+                                          wire_dtype=wire, ffn_dtype=ffn)
+                walls = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y, aux, st = moe_layer_local(x16, p16, cfg)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                key = f"{mode}_bf16_wire_{wire}_ffn_{ffn}"
+                err, scale = _max_err(y, ref)
+                drops = int(st.drops_dispatch) + int(st.drops_slot)
+                if drops or not torch.equal(st.counts, counts16):
+                    raise AssertionError(f"moe layer {key}: drops {drops}, "
+                                         f"counts differ from the bf16 layer")
+                if not (torch.isfinite(y).all() and err <= 3e-2 * scale):
+                    raise AssertionError(f"moe layer {key}: max|err| {err:.3e}"
+                                         f" > 3e-2 * max|ref| {scale:.3e}")
+                result[key] = {"max_abs_err": err, "max_abs_ref": scale,
+                               "tol": 3e-2, "wall_first_ms": walls[0],
+                               "wall_ms": walls[1]}
     _line("phase3_moe_layer", result)
     del p16, p32, x16, x32, ref, go
     torch.cuda.empty_cache()
@@ -354,7 +533,8 @@ def _reset_launches():
     from repro_torch.kernels.grouped_gemm import ops as gg
     from repro_torch.kernels.ssd_scan import ops as ssd
 
-    for fn in (gg.grouped_swiglu, gg.grouped_matmul, ssd.ssd_intra_chunk):
+    for fn in (gg.grouped_swiglu, gg.grouped_matmul, gg.grouped_swiglu_q8,
+               gg.grouped_matmul_q8, ssd.ssd_intra_chunk):
         fn.launches = 0
 
 
@@ -364,12 +544,16 @@ def _launches() -> dict:
 
     return {"grouped_swiglu": gg.grouped_swiglu.launches,
             "grouped_matmul": gg.grouped_matmul.launches,
+            "grouped_swiglu_q8": gg.grouped_swiglu_q8.launches,
+            "grouped_matmul_q8": gg.grouped_matmul_q8.launches,
             "ssd_intra_chunk": ssd.ssd_intra_chunk.launches}
 
 
-def phase_serve(cfg, tag: str) -> dict:
-    """``serve_trace`` on ``cfg`` with the SERVE settings; returns the kernel
-    launch counts of the run (set to 0 just before it, read just after)."""
+def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
+    """``serve_trace`` on ``cfg`` with the SERVE settings (and ``runtime``,
+    the wire and FFN dtypes); returns the run's record, whose ``launches``
+    are the kernel launch counts (set to 0 just before it, read just after).
+    ``beside``: another serve record of this run, printed alongside."""
     import gc
 
     import torch
@@ -378,7 +562,8 @@ def phase_serve(cfg, tag: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    eng = serve_trace(cfg, dtype=torch.bfloat16, device="cuda", **SERVE)
+    eng = serve_trace(cfg, dtype=torch.bfloat16, device="cuda", **SERVE,
+                      **runtime)
     launches = _launches()
     done = eng.finished
     failed = [r.rid for r in done if r.failed]
@@ -392,8 +577,9 @@ def phase_serve(cfg, tag: str) -> dict:
                              f"{SERVE['max_new']} tokens")
     pre = [(n, s) for kind, n, s in eng.calls if kind == "prefill"]
     dec = [(n, s) for kind, n, s in eng.calls if kind == "decode"]
-    _line(tag, {
+    rec = {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "runtime": runtime,
         "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
         "prompt_tokens": [len(r.prompt) for r in sorted(done, key=lambda r: r.rid)],
         "prefill_calls": len(pre), "decode_calls": len(dec),
@@ -403,11 +589,16 @@ def phase_serve(cfg, tag: str) -> dict:
         "mean_ttft_s": float(eng.ttft().mean()),
         "mean_tpot_s": float(eng.tpot().mean()),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches})
+        "launches": launches}
+    keys = ("prefill_tok_per_s", "decode_tok_per_s", "mean_ttft_s",
+            "mean_tpot_s", "peak_mem_gb")
+    _line(tag, dict(rec, **({} if beside is None else {
+        "beside": {"model": beside["model"], "runtime": beside["runtime"],
+                   **{k: beside[k] for k in keys}}})))
     del eng, done
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return rec
 
 
 def phase_mamba_mixer(jamba):
@@ -524,25 +715,46 @@ def main() -> int:
     phase_card()
     records = phase_kernels()
     ssd_records = phase_ssd()
+    q8_records = phase_kernels_q8()
     glm = get_config("glm45-106b-a12b")
     jamba = get_config("jamba-v0.1-52b")
     phase_moe_layer(glm)
-    glm_launches = phase_serve(
-        dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2),
-        "phase4_serve_glm")
+    glm_2l = dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2)
+    glm_serve = phase_serve(glm_2l, "phase4_serve_glm")
+    glm_q8_serve = phase_serve(glm_2l, "phase4b_serve_glm_q8",
+                               beside=glm_serve, wire_dtype="int8",
+                               ffn_dtype="int8")
     phase_mamba_mixer(jamba)
-    jamba_launches = phase_serve(
+    jamba_serve = phase_serve(
         dataclasses.replace(jamba, name=jamba.name + "-8l", num_layers=8),
         "phase6_serve_jamba")
-    paths = {"glm45-106b-a12b": glm_launches, "jamba-v0.1-52b": jamba_launches}
+    glm_launches = glm_serve["launches"]
+    glm_q8_launches = glm_q8_serve["launches"]
+    jamba_launches = jamba_serve["launches"]
+    paths = {"glm45-106b-a12b": glm_launches,
+             "glm45-106b-a12b-q8": glm_q8_launches,
+             "jamba-v0.1-52b": jamba_launches}
     for path, name in (("glm45-106b-a12b", "grouped_swiglu"),
                        ("glm45-106b-a12b", "grouped_matmul"),
+                       ("glm45-106b-a12b-q8", "grouped_swiglu_q8"),
+                       ("glm45-106b-a12b-q8", "grouped_matmul_q8"),
                        ("jamba-v0.1-52b", "grouped_swiglu"),
                        ("jamba-v0.1-52b", "grouped_matmul"),
                        ("jamba-v0.1-52b", "ssd_intra_chunk")):
         if paths[path][name] <= 0:
             raise AssertionError(f"{name} was not launched on the {path} "
                                  f"serve path")
+    # ffn_dtype reached the layer: the q8 path runs no bf16 grouped GEMM,
+    # and the bf16 paths no q8 one.
+    for path, name in (("glm45-106b-a12b-q8", "grouped_swiglu"),
+                       ("glm45-106b-a12b-q8", "grouped_matmul"),
+                       ("glm45-106b-a12b", "grouped_swiglu_q8"),
+                       ("glm45-106b-a12b", "grouped_matmul_q8"),
+                       ("jamba-v0.1-52b", "grouped_swiglu_q8"),
+                       ("jamba-v0.1-52b", "grouped_matmul_q8")):
+        if paths[path][name] != 0:
+            raise AssertionError(f"{name} was launched {paths[path][name]} "
+                                 f"times on the {path} serve path")
     gg_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
@@ -557,6 +769,17 @@ def main() -> int:
                 "jamba_prefill": {k: rec["jamba_prefill"][k]
                                   for k in ("shape",) + keys},
                 "jamba_decode": {k: rec["jamba_decode"][k] for k in keys},
+                "checks": sorted(rec)}))
+    q8_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm_q8.cu"
+    for name, line in (("grouped_swiglu_q8", 246), ("grouped_matmul_q8", 214)):
+        rec = q8_records[name]
+        kernels.append(_kernel_row(
+            name, q8_src, f"src/repro/kernels/grouped_gemm/kernel.py:{line}",
+            rec["prefill"], glm_q8_launches[name], {
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
+                "decode": {k: rec["decode"][k] for k in keys},
+                "prefill_contiguous": {k: rec["prefill_contiguous"][k]
+                                       for k in keys},
                 "checks": sorted(rec)}))
     ssd = ssd_records["jamba_prefill"]
     kernels.append(_kernel_row(

@@ -2,7 +2,11 @@
 
 from repro_torch.kernels.grouped_gemm.ops import (  # noqa: F401
     grouped_matmul,
+    grouped_matmul_q8,
+    grouped_matmul_q8_ref,
     grouped_matmul_ref,
     grouped_swiglu,
+    grouped_swiglu_q8,
+    grouped_swiglu_q8_ref,
     grouped_swiglu_ref,
 )

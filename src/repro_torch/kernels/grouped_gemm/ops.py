@@ -3,16 +3,26 @@
 ``grouped_swiglu`` replaces ``repro.kernels.grouped_gemm.kernel.
 grouped_swiglu_pallas`` and ``grouped_matmul`` replaces
 ``grouped_matmul_pallas`` (the two Pallas kernels on the MoE expert path,
-``repro.moe.expert.grouped_ffn`` with ``use_kernel=True``).  The CUDA source
-is ``csrc/grouped_gemm.cu``; its header says what bounds each kernel on an
-H100 and what the design does about it.
+``repro.moe.expert.grouped_ffn`` with ``use_kernel=True``); their CUDA source
+is ``csrc/grouped_gemm.cu``.  ``grouped_swiglu_q8`` and ``grouped_matmul_q8``
+replace ``grouped_swiglu_q8_pallas`` and ``grouped_matmul_q8_pallas`` (the
+w8a8 path, ``ffn_dtype="int8"``); their source is ``csrc/grouped_gemm_q8.cu``.
+Each source's header says what bounds its kernels on an H100 and what the
+design does about it.
 
 Dispatch is by the tensors' device only: a CPU tensor runs the plain
 PyTorch version (an fp32 einsum, then a cast), a CUDA tensor launches the
 kernel or raises -- there is no size-based fallback and no ``try`` around
 the launch.  Unlike the JAX wrappers, nothing is padded: the kernel masks
 ragged M, N and K edges itself.  Each wrapper counts its launches in a
-plain int attribute, ``grouped_swiglu.launches`` / ``grouped_matmul.launches``.
+plain int attribute, ``grouped_swiglu.launches`` / ``grouped_matmul.launches``
+(and the same on the q8 pair).
+
+The q8 plain versions contract in fp64, which is exact here (every partial
+sum is an integer below 2^53), and convert to int32: CUDA has no int32
+``bmm``, and this keeps them exact on the card as on the CPU.  The q8
+kernels take the weight codes K-contiguous, ``(G, N, K)`` storage passed as
+a ``(G, K, N)`` view, the layout ``repro_torch.moe.layer.MoEParams`` keeps.
 """
 
 from __future__ import annotations
@@ -26,10 +36,14 @@ import torch.nn.functional as F
 from repro_torch.kernels.build import KernelLibrary
 
 __all__ = ["grouped_swiglu", "grouped_matmul", "grouped_swiglu_ref",
-           "grouped_matmul_ref", "LIBRARY"]
+           "grouped_matmul_ref", "grouped_swiglu_q8", "grouped_matmul_q8",
+           "grouped_swiglu_q8_ref", "grouped_matmul_q8_ref", "LIBRARY",
+           "LIBRARY_Q8"]
 
 LIBRARY = KernelLibrary("grouped_gemm",
                         Path(__file__).parent / "csrc" / "grouped_gemm.cu")
+LIBRARY_Q8 = KernelLibrary(
+    "grouped_gemm_q8", Path(__file__).parent / "csrc" / "grouped_gemm_q8.cu")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_M = {torch.float32: 64, torch.bfloat16: 128}   # rows per block
@@ -121,5 +135,117 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def grouped_matmul_q8_ref(q: torch.Tensor, row_scale: torch.Tensor,
+                          wq: torch.Tensor, col_scale: torch.Tensor
+                          ) -> torch.Tensor:
+    """w8a8 grouped matmul: q int8 (G, M, K), row_scale fp32 (G, M), wq int8
+    (G, K, N), col_scale fp32 (G, N) -> fp32 (G, M, N) = acc * rs * cs, with
+    acc the exact int32 product."""
+    acc = torch.einsum("gmk,gkn->gmn", q.to(torch.float64),
+                       wq.to(torch.float64)).to(torch.int32)
+    return (acc.to(torch.float32) * row_scale[:, :, None]
+            * col_scale[:, None, :])
+
+
+def grouped_swiglu_q8_ref(q: torch.Tensor, row_scale: torch.Tensor,
+                          w1q: torch.Tensor, w1s: torch.Tensor,
+                          w3q: torch.Tensor, w3s: torch.Tensor
+                          ) -> torch.Tensor:
+    """w8a8 grouped SwiGLU: both contractions int8, gate in fp32."""
+    h = grouped_matmul_q8_ref(q, row_scale, w1q, w1s)
+    g = grouped_matmul_q8_ref(q, row_scale, w3q, w3s)
+    return F.silu(h) * g
+
+
+def _piece_width(t: torch.Tensor) -> int:
+    """16 when the operand's base and outer strides (bytes) are multiples of
+    16, else 4: the width of the kernel's cp.async copies."""
+    if t.data_ptr() % 4:
+        raise ValueError("int8 operands must start on a 4-byte boundary")
+    aligned = t.data_ptr() % 16 == 0 and all(
+        s % 16 == 0 for s, n in zip(t.stride(), t.shape) if s != 1 and n > 1)
+    return 16 if aligned else 4
+
+
+def _launch_q8(q, row_scale, w1q, w1s, w3q, w3s, *, swiglu: bool):
+    """Validate, allocate the fp32 output and launch on the current stream."""
+    pairs = [(w1q, w1s)] + ([(w3q, w3s)] if swiglu else [])
+    if q.dtype != torch.int8 or any(w.dtype != torch.int8 for w, _ in pairs):
+        raise TypeError("q8 kernels take int8 codes")
+    scales = [row_scale] + [s for _, s in pairs]
+    if any(s.dtype != torch.float32 for s in scales):
+        raise TypeError("q8 kernels take fp32 scales")
+    if any(t.device != q.device for t in scales + [w for w, _ in pairs]):
+        raise ValueError("q8 operands must share one device")
+    if q.dim() != 3 or w1q.dim() != 3:
+        raise ValueError("expected q (G, M, K) and wq (G, K, N)")
+    G, M, K = q.shape
+    N = w1q.shape[2]
+    if w1q.shape != (G, K, N) or row_scale.shape != (G, M) or any(
+            w.shape != w1q.shape or w.stride() != w1q.stride()
+            or s.shape != (G, N) or s.stride() != w1s.stride()
+            for w, s in pairs):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, wq "
+                         f"{tuple(w1q.shape)}, row_scale "
+                         f"{tuple(row_scale.shape)}, col_scale "
+                         f"{tuple(w1s.shape)} (w1/w3 and their scales must "
+                         f"also share strides)")
+    if q.stride(2) != 1 or w1q.stride(1) != 1 or w1s.stride(1) != 1:
+        raise ValueError("q8 kernels need q with a unit-stride K, weight "
+                         "codes K-contiguous ((G, N, K) storage viewed as "
+                         "(G, K, N)) and column scales with a unit-stride N")
+    if G > _MAX_GRID_YZ or -(-M // 128) > _MAX_GRID_YZ:
+        raise ValueError(f"grid too large for G={G}, M={M}")
+    out = torch.empty((G, M, N), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = LIBRARY_Q8.load().grouped_gemm_q8_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+                   + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    w3q, w3s = pairs[-1]
+    err = fn(int(swiglu), _piece_width(q), min(_piece_width(w1q),
+                                               _piece_width(w3q)),
+             q.data_ptr(), row_scale.data_ptr(), w1q.data_ptr(),
+             w1s.data_ptr(), w3q.data_ptr(), w3s.data_ptr(), out.data_ptr(),
+             G, M, K, N, q.stride(0), q.stride(1), row_scale.stride(0),
+             row_scale.stride(1), w1q.stride(0), w1q.stride(2),
+             w1s.stride(0), out.stride(0), out.stride(1), stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_gemm_q8 kernel launch failed: CUDA "
+                           f"error {err}")
+    return out
+
+
+def grouped_swiglu_q8(q: torch.Tensor, row_scale: torch.Tensor,
+                      w1q: torch.Tensor, w1s: torch.Tensor,
+                      w3q: torch.Tensor, w3s: torch.Tensor) -> torch.Tensor:
+    """w8a8 fused SwiGLU: q (G, M, K) int8 with row scales (G, M), codes
+    (G, K, N) with column scales (G, N) -> fp32 (G, M, N)."""
+    if not _check_device(q):
+        return grouped_swiglu_q8_ref(q, row_scale, w1q, w1s, w3q, w3s)
+    out = _launch_q8(q, row_scale, w1q, w1s, w3q, w3s, swiglu=True)
+    if out.numel():
+        grouped_swiglu_q8.launches += 1
+    return out
+
+
+def grouped_matmul_q8(q: torch.Tensor, row_scale: torch.Tensor,
+                      wq: torch.Tensor, col_scale: torch.Tensor
+                      ) -> torch.Tensor:
+    """w8a8 grouped matmul: q (G, M, K) int8 with row scales (G, M), codes
+    (G, K, N) with column scales (G, N) -> fp32 (G, M, N)."""
+    if not _check_device(q):
+        return grouped_matmul_q8_ref(q, row_scale, wq, col_scale)
+    out = _launch_q8(q, row_scale, wq, col_scale, None, None, swiglu=False)
+    if out.numel():
+        grouped_matmul_q8.launches += 1
+    return out
+
+
 grouped_swiglu.launches = 0
 grouped_matmul.launches = 0
+grouped_swiglu_q8.launches = 0
+grouped_matmul_q8.launches = 0

@@ -11,6 +11,8 @@ the top kernels.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 2
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch jamba-v0.1-52b --layers 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 2 \
+      --wire-dtype int8 --ffn-dtype int8
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.balancer import BalancerConfig
+from repro_torch.core.quantize import FFN_DTYPES, WIRE_DTYPES
 from repro_torch.models.model import init_lm
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 from repro_torch.serving.adapter import make_engine_fns
@@ -34,6 +37,7 @@ __all__ = ["main"]
 # Kernel-name fragments -> category, first match wins.
 _CATEGORIES = (
     ("grouped_gemm (ours)", ("grouped_gemm_bf16_kernel", "grouped_gemm_f32")),
+    ("grouped_gemm_q8 (ours)", ("grouped_gemm_q8_kernel",)),
     ("ssd_scan (ours)", ("ssd_intra_chunk_kernel",)),
     ("library GEMM", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")),
     ("sort/scan/search", ("sort", "scan", "cumsum", "search", "radix")),
@@ -91,6 +95,8 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk", type=int, default=4096)
     ap.add_argument("--decode-batch", type=int, default=4)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--wire-dtype", default="none", choices=WIRE_DTYPES)
+    ap.add_argument("--ffn-dtype", default="none", choices=FFN_DTYPES)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -98,7 +104,8 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(get_config(args.arch), num_layers=args.layers)
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep",
                                                  n_slot=cfg.moe.n_slot),
-                         cf_pair=4.0, cf_slot=4.0, dtype=torch.bfloat16)
+                         cf_pair=4.0, cf_slot=4.0, dtype=torch.bfloat16,
+                         wire_dtype=args.wire_dtype, ffn_dtype=args.ffn_dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_lm(cfg, rcfg, ParallelCtx(), gen, device="cuda")
     prefill, decode, new_cache, stack, _ = make_engine_fns(
@@ -113,7 +120,8 @@ def main(argv=None) -> int:
     decode(step_toks, caches)                                    # warm-up
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "arch": cfg.name, "layers": args.layers,
-                      "chunk": args.chunk,
+                      "chunk": args.chunk, "wire_dtype": args.wire_dtype,
+                      "ffn_dtype": args.ffn_dtype,
                       "decode_batch": args.decode_batch}), flush=True)
     print(json.dumps(_trace(lambda: prefill(toks, cache, args.chunk,
                                             args.chunk),

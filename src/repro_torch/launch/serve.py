@@ -13,6 +13,8 @@ Example (on a card):
       --reduce --requests 6 --chunk 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
       --reduce --requests 6 --chunk 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm45-106b-a12b \
+      --reduce --wire-dtype int8 --ffn-dtype int8     # the w8a8 expert path
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.reduce import reduced
 from repro_torch.core.balancer import BalancerConfig
+from repro_torch.core.quantize import FFN_DTYPES, WIRE_DTYPES
 from repro_torch.models.model import init_lm
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 from repro_torch.serving.adapter import make_engine_fns
@@ -50,7 +53,8 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
                 rps: float = 4.0, chunk: int = 64, max_new: int = 8,
                 reduce: bool = True, balancer: str = "ultraep", seed: int = 0,
                 prompt_len: tuple[int, int] = (32, 200), decode_batch: int = 4,
-                cf: float = 4.0, dtype=torch.float32, device="cuda"
+                cf: float = 4.0, dtype=torch.float32, device="cuda",
+                wire_dtype: str = "none", ffn_dtype: str = "none"
                 ) -> ServingEngine:
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduce:
@@ -64,7 +68,8 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
     rcfg = RuntimeConfig(
         balancer=BalancerConfig(mode=balancer,
                                 n_slot=cfg.moe.n_slot if cfg.moe else 2),
-        cf_pair=cf, cf_slot=cf, dtype=dtype)
+        cf_pair=cf, cf_slot=cf, dtype=dtype, wire_dtype=wire_dtype,
+        ffn_dtype=ffn_dtype)
     pctx = ParallelCtx(mesh=None)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_lm(cfg, rcfg, pctx, gen, device=device)
@@ -116,10 +121,13 @@ def main(argv=None):
     ap.add_argument("--reduce", action="store_true")
     ap.add_argument("--balancer", default="ultraep")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--wire-dtype", default="none", choices=WIRE_DTYPES)
+    ap.add_argument("--ffn-dtype", default="none", choices=FFN_DTYPES)
     args = ap.parse_args(argv)
     serve_trace(args.arch, requests=args.requests, rps=args.rps,
                 chunk=args.chunk, max_new=args.max_new, reduce=args.reduce,
-                balancer=args.balancer, device=args.device)
+                balancer=args.balancer, device=args.device,
+                wire_dtype=args.wire_dtype, ffn_dtype=args.ffn_dtype)
 
 
 if __name__ == "__main__":

@@ -39,6 +39,8 @@ class RuntimeConfig:
     cf_slot: float = 2.0
     block_kv: int = 512
     dtype: torch.dtype = torch.float32
+    wire_dtype: str = "none"       # EP wire codec: "none" | "bf16" | "int8"
+    ffn_dtype: str = "none"        # expert FFN compute: "none" | "int8" (w8a8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +117,8 @@ def moe_config(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
     return MoEConfig(gating=gating, balancer=bal, d_model=cfg.d_model,
                      d_ff=m.d_ff, ep_size=ep, cap_pair=cap_pair,
                      cap_slot=cap_slot, n_shared_experts=m.n_shared_experts,
-                     shared_d_ff=m.shared_d_ff, dispatch_mode=dispatch_mode)
+                     shared_d_ff=m.shared_d_ff, dispatch_mode=dispatch_mode,
+                     wire_dtype=rcfg.wire_dtype, ffn_dtype=rcfg.ffn_dtype)
 
 
 def init_block(cfg: ModelConfig, kind: str, rcfg: RuntimeConfig,

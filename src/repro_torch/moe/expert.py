@@ -1,31 +1,79 @@
 """Grouped expert FFN over physical slot buffers.
 
-Mirrors the fp path of ``repro.moe.expert.grouped_ffn`` with
-``use_kernel=True``: one fused grouped SwiGLU (gate and up projections from
-one read of each x tile) and one grouped matmul (down projection), both
-hand-written Hopper kernels (:mod:`repro_torch.kernels.grouped_gemm`).  On a
-CPU tensor the wrappers run their plain PyTorch versions.  The w8a8 path is
-not ported yet.
+Mirrors ``repro.moe.expert.grouped_ffn`` with ``use_kernel=True``.  The fp
+path is one fused grouped SwiGLU (gate and up projections from one read of
+each x tile) and one grouped matmul (down projection); ``ffn_dtype="int8"``
+is the w8a8 path of DESIGN.md S12: activations quantized per token row,
+weights per (slot, out-feature) column over the contraction axis, both GEMMs
+accumulating in int32 with a rank-1 dequant, the gate and the requantization
+between the GEMMs in fp32.  All four GEMMs are hand-written Hopper kernels
+(:mod:`repro_torch.kernels.grouped_gemm`); on a CPU tensor the wrappers run
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.grouped_gemm import grouped_matmul, grouped_swiglu
+from repro_torch.core.quantize import abs_max, encode_int8, quantize_rows
+from repro_torch.kernels.grouped_gemm import (
+    grouped_matmul,
+    grouped_matmul_q8,
+    grouped_swiglu,
+    grouped_swiglu_q8,
+)
 
-__all__ = ["grouped_ffn"]
+__all__ = ["grouped_ffn", "quantize_weight_cols"]
+
+
+def quantize_weight_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(group, out-feature) symmetric int8 over the contraction axis.
+
+    ``w``: (G, K, N) -> (codes int8 (G, K, N), scales fp32 (G, N)).
+    """
+    scales = abs_max(w, 1) / 127.0
+    return encode_int8(w, scales[:, None, :]), scales
 
 
 def grouped_ffn(xs: torch.Tensor, valid: torch.Tensor, w1: torch.Tensor,
-                w3: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+                w3: torch.Tensor, w2: torch.Tensor, *, ffn_dtype: str = "none",
+                xs_scale: torch.Tensor | None = None,
+                wq: tuple | None = None) -> torch.Tensor:
     """Per-slot SwiGLU.
 
-    xs: (G, C, D) capacity-padded slot buffers; valid: (G, C) bool;
-    w1, w3: (G, D, F); w2: (G, F, D).  Returns (G, C, D) in xs's dtype, zero
-    on padded rows.
+    xs: (G, C, D) capacity-padded slot buffers, fp activations or int8 wire
+    codes with their fp32 row scales ``xs_scale`` (G, C); valid: (G, C)
+    bool; w1, w3: (G, D, F); w2: (G, F, D).  ``wq``, for ``ffn_dtype="int8"``
+    only, is ``((w1q, w1s), (w3q, w3s), (w2q, w2s))``, equal to
+    :func:`quantize_weight_cols` of w1, w3, w2 (the layer keeps them, so
+    the weights are not quantized on every call); without it they are
+    quantized here, as the reference does.  Returns (G, C, D) in xs's dtype,
+    or w1's when xs arrived as int8, zero on padded rows.
     """
-    zero = torch.zeros((), dtype=xs.dtype, device=xs.device)
-    xs = torch.where(valid[:, :, None], xs, zero)
-    out = grouped_matmul(grouped_swiglu(xs, w1, w3), w2)
-    return torch.where(valid[:, :, None], out, zero)
+    out_dtype = w1.dtype if xs.dtype == torch.int8 else xs.dtype
+    if ffn_dtype == "int8":
+        if xs.dtype == torch.int8:
+            # The reference zeroes the codes of padded rows; zeroing their
+            # scales instead gives the same valid rows (each output row
+            # depends on its own input row only) without copying a strided
+            # wire view.
+            xs_scale = torch.where(valid, xs_scale,
+                                   torch.zeros((), dtype=xs_scale.dtype,
+                                               device=xs_scale.device))
+        else:
+            xs, xs_scale = quantize_rows(torch.where(
+                valid[:, :, None], xs,
+                torch.zeros((), dtype=xs.dtype, device=xs.device)))
+        (w1q, w1s), (w3q, w3s), (w2q, w2s) = (
+            wq if wq is not None else map(quantize_weight_cols, (w1, w3, w2)))
+        act = grouped_swiglu_q8(xs, xs_scale, w1q, w1s, w3q, w3s)
+        aq, as_ = quantize_rows(act)
+        out = grouped_matmul_q8(aq, as_, w2q, w2s)
+    elif ffn_dtype == "none":
+        zero = torch.zeros((), dtype=xs.dtype, device=xs.device)
+        xs = torch.where(valid[:, :, None], xs, zero)
+        out = grouped_matmul(grouped_swiglu(xs, w1, w3), w2)
+    else:
+        raise ValueError(f"unknown ffn_dtype: {ffn_dtype!r}")
+    zero = torch.zeros((), dtype=out.dtype, device=out.device)
+    return torch.where(valid[:, :, None], out, zero).to(out_dtype)

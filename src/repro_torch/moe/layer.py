@@ -4,8 +4,9 @@ Mirrors ``repro.moe.layer``: :func:`moe_layer_local` is the per-rank view of
 one balanced MoE layer and delegates to :func:`repro_torch.moe.stages.
 run_staged_moe`.  This slice runs a single-rank EP group (``ep_size == 1``,
 ``axis_name=None``) in the ``a2a`` and ``replicated`` dispatch modes of the
-fused engine, unchunked (no ``overlap_chunks``, ``dispatch_impl`` or wire
-codec options yet).
+fused engine, unchunked (no ``overlap_chunks`` or ``dispatch_impl`` options
+yet), with the wire codec (``wire_dtype``) and the w8a8 expert FFN
+(``ffn_dtype``) of DESIGN.md S12.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from torch import nn
 
 from repro_torch.core.balancer import BalancerConfig
 from repro_torch.core.layout import ExpertLayout
+from repro_torch.core.quantize import FFN_DTYPES, WIRE_DTYPES
+from repro_torch.moe.expert import quantize_weight_cols
 from repro_torch.moe.gating import GatingConfig
 from repro_torch.moe.stages import MoEStats, run_staged_moe
 
@@ -36,11 +39,20 @@ class MoEConfig:
     n_shared_experts: int = 0
     shared_d_ff: int = 0
     dispatch_mode: str = "a2a"     # "a2a" | "replicated" (fused engine)
+    wire_dtype: str = "none"       # EP-wire payload codec: "none" | "bf16" |
+    # "int8" (per-row symmetric, fp32 scales packed in-band); token payloads
+    # both ways in "a2a" and the replica weight stream
+    ffn_dtype: str = "none"        # expert FFN: "none" (fp) | "int8" (w8a8);
+    # with wire_dtype "int8" too, the wire codes feed the kernel directly
 
     def __post_init__(self):
         if self.dispatch_mode not in ("a2a", "replicated"):
             raise ValueError(f"unknown or unported dispatch_mode: "
                              f"{self.dispatch_mode!r}")
+        if self.wire_dtype not in WIRE_DTYPES:
+            raise ValueError(f"unknown wire_dtype: {self.wire_dtype!r}")
+        if self.ffn_dtype not in FFN_DTYPES:
+            raise ValueError(f"unknown ffn_dtype: {self.ffn_dtype!r}")
 
     @property
     def layout(self) -> ExpertLayout:
@@ -59,6 +71,14 @@ class MoEParams(nn.Module):
     grouped FFN reads one contiguous (num_slots, ...) tensor without a copy
     of the mains on every call.  The tail is scratch: its contents belong
     to the last call.
+
+    The w8a8 path (``ffn_dtype="int8"``) reads int8 slot buffers of the same
+    shape beside them (:meth:`q8_slot_buffers`): their head rows hold the
+    mains' column codes and scales, computed once on first use, and the
+    distribute stage requantizes only the replica tail on each call.  The
+    codes are stored K-contiguous, the layout the q8 kernels take.  Like
+    the slot buffers, they assume the mains do not change: build a new
+    MoEParams for new weights.
     """
 
     def __init__(self, router, w1, w3, w2, shared_w1=None, shared_w3=None,
@@ -77,6 +97,7 @@ class MoEParams(nn.Module):
                         ("shared_w2", shared_w2)):
             setattr(self, name, None if w is None
                     else nn.Parameter(w, requires_grad=False))
+        self._q8 = None
 
     def slot_buffers(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The (num_slots, ...) buffers whose heads are w1, w3, w2."""
@@ -86,10 +107,35 @@ class MoEParams(nn.Module):
                                    "build a new MoEParams instead")
         return tuple(self._slots)
 
+    def q8_slot_buffers(self) -> tuple:
+        """``((w1q, w1s), (w3q, w3s), (w2q, w2s))`` over all slots: codes
+        int8 (num_slots, K, N) as views of (num_slots, N, K) storage, scales
+        fp32 (num_slots, N).  The head rows equal ``quantize_weight_cols``
+        of the mains; the tail rows are scratch, like the slot buffers'."""
+        self.slot_buffers()
+        if self._q8 is None:
+            self._q8 = tuple(_q8_slots(w, self.n_slot)
+                             for w in (self.w1, self.w3, self.w2))
+        return self._q8
+
     def forward(self, x: torch.Tensor, cfg: MoEConfig, *, axis_name=None,
                 router_bias: torch.Tensor | None = None):
         return moe_layer_local(x, self, cfg, axis_name=axis_name,
                                router_bias=router_bias)
+
+
+def _q8_slots(w: torch.Tensor, n_slot: int):
+    """Column codes and scales of ``w`` (E, K, N) in slot buffers of
+    ``E + n_slot`` rows, quantized 16 experts at a time to bound the fp32
+    temporaries (quantization is independent per expert)."""
+    E, K, N = w.shape
+    codes = torch.zeros((E + n_slot, N, K), dtype=torch.int8, device=w.device)
+    scales = torch.zeros((E + n_slot, N), dtype=torch.float32, device=w.device)
+    for e0 in range(0, E, 16):
+        c, s = quantize_weight_cols(w[e0:e0 + 16])
+        codes[e0:e0 + 16].copy_(c.transpose(1, 2))
+        scales[e0:e0 + 16].copy_(s)
+    return codes.transpose(1, 2), scales
 
 
 def default_capacities(tokens_per_rank: int, top_k: int, ep_size: int,

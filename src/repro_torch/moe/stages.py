@@ -3,9 +3,10 @@
 
 Mirrors the parts of ``repro.moe.stages`` that a single-rank EP group runs
 (``axis_name=None``, ``ep_size == 1``) with the fused permutation engine,
-``overlap_chunks == 1``, no resilience ladder and no wire codec.  The stage
-boundaries and the typed states between them are the JAX ones, so the
-multi-rank slice can add its collectives at the same seams.
+``overlap_chunks == 1`` and no resilience ladder.  The stage boundaries and
+the typed states between them are the JAX ones, so the multi-rank slice can
+add its collectives at the same seams; the wire codec already sits where the
+exchanges will be.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import torch
 
 from repro_torch.core import balancer as balancer_mod
 from repro_torch.core.layout import physical_slot_of
+from repro_torch.core.quantize import decode_wire, encode_wire, split_wire_int8
 from repro_torch.moe.distribute import materialize_replica_stack
-from repro_torch.moe.expert import grouped_ffn
+from repro_torch.moe.expert import grouped_ffn, quantize_weight_cols
 from repro_torch.moe.gating import GateOut, gate
 from repro_torch.moe.permute import (
     fused_bucket,
@@ -72,6 +74,8 @@ class DistributeState(NamedTuple):
     w1_all: torch.Tensor   # (num_slots, D, F)
     w3_all: torch.Tensor   # (num_slots, D, F)
     w2_all: torch.Tensor   # (num_slots, F, D)
+    q8: tuple | None = None  # ffn_dtype "int8": ((codes, scales),) * 3 of
+    #                          the slots, MoEParams.q8_slot_buffers()
 
 
 class DispatchState(NamedTuple):
@@ -80,6 +84,8 @@ class DispatchState(NamedTuple):
     inverse: Any           # (FusedDispatch, BucketMeta) or ReplicatedBucket
     drops_dispatch: torch.Tensor
     drops_slot: torch.Tensor
+    xs_scale: torch.Tensor | None = None  # (num_slots, cap_slot) fp32 row
+    #   scales of int8 xs when wire_dtype == ffn_dtype == "int8"
 
 
 def _check_single_rank(cfg, axis_name) -> None:
@@ -107,16 +113,26 @@ def distribute_stage(cfg, params, gs: GateState, ps: PlanState) -> DistributeSta
     """Main + replica weights per physical slot.
 
     The JAX stage concatenates mains and replicas into fresh arrays, a copy
-    of every expert weight per call.  Here ``params`` owns one slot buffer
-    per weight whose head rows *are* the mains; only the replica tail is
-    written, in place (see ``repro_torch.moe.layer.MoEParams``).
+    of every expert weight per call, and its w8a8 FFN quantizes every slot
+    on every call.  Here ``params`` owns one slot buffer per weight whose
+    head rows *are* the mains, and int8 slot buffers whose head rows are
+    the mains' codes; only the replica tails are written, in place (see
+    ``repro_torch.moe.layer.MoEParams``).  Quantization is independent per
+    slot, so the codes are those the reference computes.
     """
     n_main = cfg.layout.experts_per_rank
-    w1_all, w3_all, w2_all = params.slot_buffers()
+    slots = params.slot_buffers()
     materialize_replica_stack(
         (params.w1, params.w3, params.w2), ps.plan.x, gs.my, None,
-        out=(w1_all[n_main:], w3_all[n_main:], w2_all[n_main:]))
-    return DistributeState(w1_all=w1_all, w3_all=w3_all, w2_all=w2_all)
+        out=tuple(w[n_main:] for w in slots), wire_dtype=cfg.wire_dtype)
+    q8 = None
+    if cfg.ffn_dtype == "int8":
+        q8 = params.q8_slot_buffers()
+        for (codes, scales), w_all in zip(q8, slots):
+            c, s = quantize_weight_cols(w_all[n_main:])
+            codes[n_main:].copy_(c)
+            scales[n_main:].copy_(s)
+    return DistributeState(*slots, q8=q8)
 
 
 def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
@@ -130,29 +146,50 @@ def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
             ps.slot_of_all[gs.my], num_slots=num_slots, cap_slot=cfg.cap_slot)
         return DispatchState(xs=rb.xs, valid=rb.valid, inverse=rb,
                              drops_dispatch=zero, drops_slot=rb.drops)
-    disp = fused_dispatch(x_chunk, expert_ids, ps.plan.cum_q[gs.my],
-                          ps.slot_of_all, num_slots=num_slots,
-                          cap_pair=cfg.cap_pair)
-    # One rank: the exchange is the identity.
+    # The payload is encoded before the exchange (with one rank, the
+    # identity) and decoded only after bucketing; routing lives in the
+    # count metadata, so placement does not depend on the wire dtype.  The
+    # reference encodes the send buffer; the codec works row by row and
+    # maps the buffer's zero padding to zeros, so encoding the T source
+    # rows before the gather gives the same bytes for a fraction of the
+    # work (the buffer has cap_pair rows, 4 T k at the serve settings).
+    disp = fused_dispatch(encode_wire(x_chunk, cfg.wire_dtype), expert_ids,
+                          ps.plan.cum_q[gs.my], ps.slot_of_all,
+                          num_slots=num_slots, cap_pair=cfg.cap_pair)
     xs, valid, meta, slot_drops = fused_bucket(
         disp.send_x, disp.send_counts, num_slots=num_slots,
         cap_slot=cfg.cap_slot)
+    xs_scale = None
+    if cfg.wire_dtype == "int8" and cfg.ffn_dtype == "int8":
+        xs, xs_scale = split_wire_int8(xs)   # codes go to the kernel as-is
+    else:
+        xs = decode_wire(xs, cfg.wire_dtype, x_chunk.dtype)
     return DispatchState(xs=xs, valid=valid, inverse=(disp, meta),
-                         drops_dispatch=disp.drops, drops_slot=slot_drops)
+                         drops_dispatch=disp.drops, drops_slot=slot_drops,
+                         xs_scale=xs_scale)
 
 
 def compute_stage(cfg, ds: DispatchState, dist: DistributeState) -> torch.Tensor:
-    """Grouped FFN over this rank's physical slots (the two kernels)."""
-    return grouped_ffn(ds.xs, ds.valid, dist.w1_all, dist.w3_all, dist.w2_all)
+    """Grouped FFN over this rank's physical slots (two kernels, fp or
+    w8a8)."""
+    return grouped_ffn(ds.xs, ds.valid, dist.w1_all, dist.w3_all, dist.w2_all,
+                       ffn_dtype=cfg.ffn_dtype, xs_scale=ds.xs_scale,
+                       wq=dist.q8)
 
 
 def combine_stage(cfg, ds: DispatchState, out: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
-    """Route FFN outputs back and reduce each token's k contributions."""
+    """Route FFN outputs back and reduce each token's k contributions.
+
+    The return wire carries the forward wire's codec; the replicated mode
+    has no exchange and no codec, as in the reference.
+    """
     if cfg.dispatch_mode == "replicated":
         return fused_replicated_combine(out, ds.inverse, weights)
     disp, meta = ds.inverse
-    return fused_combine(fused_unbucket(out, meta), disp, weights)
+    ret = encode_wire(fused_unbucket(out, meta), cfg.wire_dtype)
+    return fused_combine(decode_wire(ret, cfg.wire_dtype, out.dtype), disp,
+                         weights)
 
 
 def chunk_bounds(total: int, *, n_chunks: int | None = None,

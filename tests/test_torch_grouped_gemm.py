@@ -5,7 +5,11 @@ card.
 CPU tolerance: rtol 1e-5 in fp32 (the frameworks sum in different orders).
 Card tolerances (fp32 SIMT tile vs fp32 einsum, TF32 off): max|err| <=
 1e-4 * max|ref|; bf16: max|err| <= 1e-2 * max|ref| (one bf16 rounding of
-the output).
+the output).  The w8a8 pair: the matmul is exact (int32 sums, the same
+dequant products in the same order), so it must equal the Pallas kernel on
+the CPU and its plain version on the card bitwise; the SwiGLU may differ
+in the gate's exp: rtol 1e-6 against Pallas (the JAX suite's own bound),
+max|err| <= 1e-5 * max|ref| on the card.
 
 The JAX side is imported inside the tests that use it, so the card test
 also runs where JAX is not installed:
@@ -80,6 +84,65 @@ def test_wrappers_refuse_other_devices():
         ops.grouped_matmul(x, x)
     with pytest.raises(ValueError):
         ops.grouped_swiglu(x, x, x)
+    q = torch.empty((1, 4, 4), dtype=torch.int8, device="meta")
+    s = torch.empty((1, 4), device="meta")
+    with pytest.raises(ValueError):
+        ops.grouped_matmul_q8(q, s, q, s)
+    with pytest.raises(ValueError):
+        ops.grouped_swiglu_q8(q, s, q, s, q, s)
+
+
+def _q8_inputs(G, M, K, N, seed=0):
+    """int8 codes in [-127, 127] (some rows all zero, scale 0) and positive
+    fp32 scales: activations (G, M, K), three weights (G, K, N)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, (G, M, K), dtype=np.int8)
+    q[:, ::7] = 0
+    rs = rng.uniform(0.001, 0.05, (G, M)).astype(np.float32)
+    rs[:, ::7] = 0.0
+    ws = [rng.integers(-127, 128, (G, K, N), dtype=np.int8) for _ in range(3)]
+    ss = [rng.uniform(1e-4, 2e-3, (G, N)).astype(np.float32)
+          for _ in range(3)]
+    return q, rs, ws, ss
+
+
+@pytest.mark.parametrize("G,M,K,N", [(2, 128, 128, 128), (3, 32, 256, 128)])
+def test_q8_plain_versions_match_pallas_interpret(G, M, K, N):
+    import jax.numpy as jnp
+
+    from repro.kernels.grouped_gemm.kernel import (
+        grouped_matmul_q8_pallas,
+        grouped_swiglu_q8_pallas,
+    )
+
+    q, rs, (w1, w3, _), (s1, s3, _) = _q8_inputs(G, M, K, N)
+    t = [torch.from_numpy(a) for a in (q, rs, w1, s1, w3, s3)]
+    j = [jnp.asarray(a) for a in (q, rs, w1, s1, w3, s3)]
+    before = (ops.grouped_swiglu_q8.launches, ops.grouped_matmul_q8.launches)
+    got = ops.grouped_matmul_q8(*t[:4]).numpy()
+    want = np.asarray(grouped_matmul_q8_pallas(*j[:4], bm=min(128, M),
+                                               interpret=True))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_allclose(
+        ops.grouped_swiglu_q8(*t).numpy(),
+        np.asarray(grouped_swiglu_q8_pallas(*j, bm=min(128, M),
+                                            interpret=True)),
+        rtol=1e-6, atol=1e-6)
+    # A CPU tensor runs the plain version: no kernel launch is counted.
+    assert (ops.grouped_swiglu_q8.launches,
+            ops.grouped_matmul_q8.launches) == before
+
+
+def test_q8_wrapper_checks_layout():
+    """The kernel takes K-contiguous weight codes and int8 codes only; the
+    checks run before anything touches a card."""
+    q = torch.zeros((1, 4, 8), dtype=torch.int8)
+    s = torch.zeros((1, 4))
+    w = torch.zeros((1, 8, 4), dtype=torch.int8)      # N-contiguous
+    with pytest.raises(ValueError, match="K-contiguous"):
+        ops._launch_q8(q, s, w, s, None, None, swiglu=False)
+    with pytest.raises(TypeError):
+        ops._launch_q8(q.float(), s, w, s, None, None, swiglu=False)
 
 
 @pytest.fixture
@@ -104,3 +167,34 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, G, M, K, N):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= tol * ref.float().abs().max().item()
+
+
+def _k_contiguous(w: torch.Tensor) -> torch.Tensor:
+    """(G, K, N) codes as a view of (G, N, K) storage: the layout the q8
+    kernels take (and ``MoEParams`` keeps)."""
+    return w.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,M,K,N", [(1, 1, 64, 64), (3, 1009, 136, 200),
+                                     (2, 65, 33, 129), (2, 300, 512, 384)])
+@pytest.mark.parametrize("wire_view", [False, True])
+def test_q8_kernels_match_plain_on_card(cuda_device, G, M, K, N, wire_view):
+    """Contiguous codes, or rows cut from an int8 wire buffer (K + 4 bytes
+    apart, so only 4-byte aligned when K is)."""
+    q, rs, ws, ss = _q8_inputs(G, M, K, N, seed=3)
+    qt = torch.from_numpy(q).to(cuda_device)
+    if wire_view:
+        buf = torch.zeros((G, M, K + 4), dtype=torch.int8, device=cuda_device)
+        buf[..., :K] = qt
+        qt = buf[..., :K]
+    rst = torch.from_numpy(rs).to(cuda_device)
+    w1, w3, w2 = (_k_contiguous(torch.from_numpy(w).to(cuda_device))
+                  for w in ws)
+    s1, s3, s2 = (torch.from_numpy(s).to(cuda_device) for s in ss)
+    mm = ops.grouped_matmul_q8(qt, rst, w2, s2)
+    sw = ops.grouped_swiglu_q8(qt, rst, w1, s1, w3, s3)
+    torch.cuda.synchronize()
+    assert torch.equal(mm, ops.grouped_matmul_q8_ref(qt, rst, w2, s2))
+    ref = ops.grouped_swiglu_q8_ref(qt, rst, w1, s1, w3, s3)
+    assert (sw - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

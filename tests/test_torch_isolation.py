@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither ``jax`` nor the JAX package.
 
-One test runs a reduced prefill of each ported arch in a subprocess where
-``import jax`` fails;
+One test runs a reduced prefill of each ported arch (and of GLM-4.5-Air
+under the int8 wire and w8a8 FFN) in a subprocess where ``import jax``
+fails;
 the other reads every source file of the port and ``chip_smoke.py``.
 """
 
@@ -28,10 +29,12 @@ from repro_torch.core.balancer import BalancerConfig
 from repro_torch.launch import serve  # noqa: F401  (imports the whole path)
 from repro_torch.models.model import init_caches, init_lm, prefill_step
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
-for arch in ("glm45-106b-a12b", "jamba-v0.1-52b"):
+for arch, q8 in (("glm45-106b-a12b", "none"), ("jamba-v0.1-52b", "none"),
+                 ("glm45-106b-a12b", "int8")):
     cfg = reduced(get_config(arch))
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"),
-                         cf_pair=4.0, cf_slot=4.0)
+                         cf_pair=4.0, cf_slot=4.0, wire_dtype=q8,
+                         ffn_dtype=q8)
     gen = torch.Generator(device="cpu").manual_seed(0)
     params = init_lm(cfg, rcfg, ParallelCtx(), gen, device="cpu")
     caches = init_caches(cfg, 1, 64, rcfg, device="cpu")

@@ -1,7 +1,10 @@
 """Port ``moe_layer_local`` vs ``repro.moe.layer.moe_layer_local`` at the
 ``examples/quickstart.py`` shapes (T 256, D 64, F 128, E 64, k 4), with the
 same numpy weights in both.  y within 1e-5 (fp32; the CPU path of the
-grouped FFN is the plain fp32 einsum), MoEStats integers exact."""
+grouped FFN is the plain fp32 einsum), MoEStats integers exact.  The same
+holds with the wire codec and the w8a8 FFN on: y within 1e-5 * max|y|."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -75,6 +78,50 @@ def test_moe_layer_matches_jax(mode, shared, balancer, cap):
                         tp.w1, tp.w3, tp.w2, shared=shared_w)
         np.testing.assert_allclose(yt.numpy(), y_ref.numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["a2a", "replicated"])
+@pytest.mark.parametrize("wire,ffn", [("bf16", "none"), ("int8", "none"),
+                                      ("int8", "int8")])
+def test_quantized_moe_layer_matches_jax(mode, wire, ffn):
+    """The wire codec (a2a both ways, and the replica stream) and the w8a8
+    FFN; routing is decided before encoding, so every stat is equal."""
+    p = _params(True)
+    x = np.random.default_rng(1).standard_normal((T, D)).astype(np.float32)
+    jcfg, tcfg = (dataclasses.replace(c, wire_dtype=wire, ffn_dtype=ffn)
+                  for c in _configs(mode, "ultraep", True, (T * K, T * K)))
+    jp = JMoEParams(*(None if a is None else jnp.asarray(a) for a in p))
+    yj, _, sj = jax.jit(lambda x: j_moe_layer_local(
+        x, jp, jcfg, axis_name=None))(jnp.asarray(x))
+    tp = convert.moe_params(p, n_slot=2, device="cpu")
+    yt, _, st = moe_layer_local(torch.from_numpy(x), tp, tcfg)
+    for f in STAT_FIELDS:
+        np.testing.assert_array_equal(getattr(st, f).numpy(),
+                                      np.asarray(getattr(sj, f)), err_msg=f)
+    assert int(st.drops_dispatch) == int(st.drops_slot) == 0
+    yj = np.asarray(yj)
+    tol = 1e-5 * np.abs(yj).max()
+    if ffn == "int8":
+        # The two frameworks' silu differ by an ulp on part of the gate's
+        # outputs, which can carry an activation across a rounding boundary
+        # of its int8 code: one code step is max|act row| / 127, which
+        # moves that token's output by well under 1e-3 * max|y|.  Every
+        # other token is held to 1e-5.
+        moved = (np.abs(yt.numpy() - yj) > tol).any(axis=1)
+        assert moved.sum() <= T // 100, moved.sum()
+        tol = 1e-3 * np.abs(yj).max()
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=0, atol=tol)
+    if ffn == "int8":     # the mains' codes are kept, the tail recomputed
+        w1q, w1s = tp.q8_slot_buffers()[0]
+        assert w1q.stride(1) == 1 and w1q.shape == (E + 2, D, F)
+
+
+def test_moe_config_rejects_unknown_dtypes():
+    _, tcfg = _configs("a2a", "ultraep", False, (8, 8))
+    with pytest.raises(ValueError, match="wire_dtype"):
+        dataclasses.replace(tcfg, wire_dtype="fp8")
+    with pytest.raises(ValueError, match="ffn_dtype"):
+        dataclasses.replace(tcfg, ffn_dtype="bf16")
 
 
 def test_slot_buffer_tail_is_written_in_place():
