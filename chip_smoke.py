@@ -22,7 +22,24 @@ Phases, one output line each:
      view of the int8 wire, rows K + 4 bytes apart) and contiguous: the
      matmul must match bitwise, the SwiGLU within 1e-5 max|ref| (the
      gate's exp); the library yardstick is G calls of ``torch._int_mm``
-     (cuBLAS int8) plus the dequant in PyTorch;
+     (cuBLAS int8) plus the dequant in PyTorch; then ``gating_topk``
+     against its plain version at the GLM/Qwen3 prefill (T 4096, E 128,
+     k 8) and decode (T 4) shapes, Jamba's (E 16, k 2), sigmoid at E 256,
+     a ragged shape and a tie case (duplicated router columns, all-zero
+     rows): ids equal wherever the plain k-th and (k+1)-th scores differ
+     by more than 1e-6 relative (every row of the tie case), counts equal
+     the histogram of the kernel's ids, weights and scores within 1e-6
+     max|ref|, and the same with a DeepSeek-style selection bias (the
+     weights stay the unbiased scores); and ``flash_attention`` against its
+     plain version at the GLM-4.5-Air serve cache (C 4096, Sk 10248:
+     offsets 0 and 4096, a ragged last chunk), at Qwen3's 64 over 4 heads,
+     at decode (B 4, per-row lengths), at the Pallas kernel's own case
+     (Sq = Sk = 2048, causal and not), in fp32 and at head dims 64 and 16
+     (the reduced configurations'), each output row (batch row, query
+     position, head) within a share of its own max|ref|: 1e-2 in bf16 (P
+     and the output rounded to bf16), 1e-4 in fp32; with
+     ``scaled_dot_product_attention`` (same boolean mask) timed as the
+     library yardstick;
   3. the balanced MoE layer at GLM-4.5-Air width (T 4096, ep_size 1) in the
      a2a and replicated modes against the dense oracle ``moe_ref`` in fp32
      (bf16 layer: 2e-2 max|ref|, fp32 layer: 1e-4 max|ref|), zero drops;
@@ -42,8 +59,15 @@ Phases, one output line each:
   6. ``serve_trace`` on Jamba-v0.1 at every published width with depth cut
      to 8 layers (one period: mamba+dense, mamba+moe, attn+dense), with the
      settings of phase 4;
-  7. the kernels with their launch counts on the serve paths: every count
-     is set to 0 just before each serve phase and read just after it.
+  7. ``serve_trace`` on Qwen3-235B-A22B at every published width with depth
+     cut to 2 layers, with the settings of phase 4; then (7b) the serve
+     entry point ``python -m repro_torch.launch.serve --reduce`` (its
+     ``main``) on each of the three archs in fp32 (its default) and bf16;
+  8. the kernels with their launch counts on the serve paths: every count
+     is set to 0 just before each serve run and read just after it; on
+     every path (phase 7b's too) ``flash_attention`` runs once per
+     attention layer and engine call and ``gating_topk`` once per MoE layer
+     and engine call.
 
 TF32 is off for matmuls and cuDNN, so fp32 references are full fp32.  Any
 failed check raises and the script exits non-zero; the last line is the
@@ -75,6 +99,9 @@ JAMBA_SSD = dict(B=1, nc=32, Q=128, H=128, P=64, N=16)   # one 4096 chunk
 REDUCED_SSD = dict(B=1, nc=1, Q=16, H=8, P=16, N=16)
 Q8_SWIGLU_TOL = 1e-5                          # the gate's expf; matmul: exact
 SSD_TOL = 3e-4
+SERVE_SK = 6144 + 8 + 4096                   # the serve cache: prompt + new + chunk
+GATING_TOL = 1e-6
+FLASH_TOL = {"bf16": 1e-2, "fp32": 1e-4}
 SERVE = dict(requests=4, chunk=4096, max_new=8, reduce=False,
              balancer="ultraep", seed=0, prompt_len=(2048, 6144),
              decode_batch=4, cf=4.0)
@@ -529,24 +556,234 @@ def phase_ssd() -> dict:
     return records
 
 
-def _reset_launches():
+def _gating_cost(T, E, k, want_scores) -> tuple[float, float]:
+    """(fp32 operations, bytes): the score pass and k compare rounds per
+    logit; logits read once, ids (int64), weights, counts and the scores
+    (when asked) written once."""
+    flops = T * E * (5.0 + k)
+    nbytes = T * E * 4 + T * k * 12 + E * 8 + (T * E * 4 if want_scores else 0)
+    return flops, nbytes
+
+
+def phase_gating() -> dict:
+    """``gating_topk`` vs its plain version; returns the records by case."""
+    import torch
+
+    from repro_torch.kernels.gating_topk import ops
+
+    cases = [("prefill", 4096, 128, 8, "softmax", 50),
+             ("decode", 4, 128, 8, "softmax", 50),
+             ("jamba_prefill", 4096, 16, 2, "softmax", 50),
+             ("sigmoid_e256", 4096, 256, 8, "sigmoid", 20),
+             ("ragged", 1000, 60, 6, "softmax", 0),
+             ("sigmoid_e256_bias", 4096, 256, 8, "sigmoid", 20),
+             ("ties", 4096, 128, 8, "softmax", 0),
+             ("ties_sigmoid", 4096, 128, 8, "sigmoid", 0)]
+    records = {}
+    for tag, T, E, k, score_fn, iters in cases:
+        g = torch.Generator(device="cuda").manual_seed(len(tag))
+        x = torch.randn((T, E), generator=g, device="cuda")
+        if tag.startswith("ties"):
+            x[::7] = 0.0                        # every expert ties
+            x[:, 9] = x[:, 2]                   # duplicated router columns
+            x[:, 5] = x[:, 11]
+        # A selection bias of the size aux-free balancing learns.
+        bias = (torch.randn((E,), generator=g, device="cuda") * 1e-2
+                if tag.endswith("bias") else None)
+        kw = dict(score_fn=score_fn, bias=bias, want_scores=True)
+        ids, w, cnt, sc = ops.gating_topk(x, k, **kw)
+        torch.cuda.synchronize()
+        r_ids, r_w, _, r_sc = ops.gating_topk_ref(x, k, **kw)
+        keys = r_sc if bias is None else r_sc + bias[None, :]
+        top = torch.sort(keys, dim=-1, descending=True).values
+        decided = (top[:, k - 1] - top[:, k]) > 1e-6 * top[:, k - 1].abs()
+        if tag.startswith("ties"):
+            decided[:] = True
+        if not torch.equal(ids[decided], r_ids[decided]):
+            raise AssertionError(f"gating_topk {tag}: ids differ from the "
+                                 f"plain version on decided rows")
+        if not torch.equal(cnt, torch.bincount(ids.reshape(-1), minlength=E)):
+            raise AssertionError(f"gating_topk {tag}: counts are not the "
+                                 f"histogram of the kernel's ids")
+        rec = {"shape": [T, E, k], "score_fn": score_fn,
+               "bias": bias is not None,
+               "rows_excluded_near_tie": int((~decided).sum())}
+        for name, out, ref in (("weights", w, r_w), ("scores", sc, r_sc)):
+            err, scale = _max_err(out, ref)
+            if not err <= GATING_TOL * scale:
+                raise AssertionError(f"gating_topk {tag} {name}: max|err| "
+                                     f"{err:.3e} > {GATING_TOL} * max|ref| "
+                                     f"{scale:.3e}")
+            rec[f"{name}_max_abs_err"] = err
+        rec["max_abs_err"] = max(rec["weights_max_abs_err"],
+                                 rec["scores_max_abs_err"])
+        if iters:
+            def torch_ops():
+                s = torch.softmax(x, -1) if score_fn == "softmax" \
+                    else torch.sigmoid(x)
+                _, i = torch.topk(s if bias is None else s + bias, k)
+                return (s.gather(1, i),
+                        torch.bincount(i.reshape(-1), minlength=E))
+
+            rec.update(_time_pair(
+                lambda: ops.gating_topk(x, k, **kw),
+                lambda: ops.gating_topk_ref(x, k, **kw),
+                None, *_gating_cost(T, E, k, True), "fp32", iters))
+            rec["torch_ops_ms"] = _cuda_ms(torch_ops, iters)
+        records[tag] = rec
+    _line("phase2_gating_topk", records)
+    return records
+
+
+def _flash_pairs(Sq, causal, q_off, kv_len) -> tuple[int, int]:
+    """(query-key pairs that are unmasked, keys that are needed) summed
+    over the batch rows, from this case's offsets."""
+    import numpy as np
+
+    pairs = keys = 0
+    for off, lim in zip(q_off, kv_len):
+        pos = np.arange(Sq) + off
+        row = np.minimum(lim, pos + 1) if causal else np.full(Sq, lim)
+        row = np.maximum(row, 0)
+        pairs += int(row.sum())
+        keys += int(row.max())
+    return pairs, keys
+
+
+def _check_rows(name, out, ref, tol) -> tuple[float, float, float]:
+    """Each output row (batch row, query position, head) within ``tol`` of
+    its own max|ref|, so a short row's large values do not loosen the
+    bound on a long row.  Returns max|err|, max|ref| and the largest
+    row's err / max|ref|."""
+    err = (out.float() - ref.float()).abs().amax(dim=-1)
+    scale = ref.float().abs().amax(dim=-1)
+    ratio = (err / scale.clamp(min=1e-30)).max().item()
+    if not ratio <= tol:
+        raise AssertionError(f"{name}: a row's max|err| is {ratio:.3e} of "
+                             f"its max|ref|, above {tol}")
+    return err.max().item(), scale.max().item(), ratio
+
+
+def phase_flash() -> dict:
+    """``flash_attention`` vs its plain version; returns the records by
+    case."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # tag, B, Sq, Sk, H, Hkv, hd, dtype, causal, q_offset per row,
+    # kv_valid_len per row, timing iterations
+    cases = [("glm_prefill_at_4096", 1, 4096, SERVE_SK, 32, 8, 128, bf16,
+              True, [4096], [8192], 20),
+             ("glm_prefill_at_0", 1, 4096, SERVE_SK, 32, 8, 128, bf16, True,
+              [0], [4096], 20),
+             ("glm_prefill_ragged", 1, 4096, SERVE_SK, 32, 8, 128, bf16,
+              True, [4096], [4096 + 1808], 0),
+             ("qwen3_prefill_at_4096", 1, 4096, SERVE_SK, 64, 4, 128, bf16,
+              True, [4096], [8192], 10),
+             ("decode", 4, 1, SERVE_SK, 32, 8, 128, bf16, False, [0] * 4,
+              [2048, 6144, 3000, 1], 50),
+             ("qwen3_decode", 4, 1, SERVE_SK, 64, 4, 128, bf16, False,
+              [0] * 4, [2048, 6144, 3000, 1], 50),
+             ("pallas_causal", 1, 2048, 2048, 32, 8, 128, bf16, True, [0],
+              [2048], 20),
+             ("pallas_full", 1, 2048, 2048, 32, 8, 128, bf16, False, [0],
+              [2048], 0),
+             ("fp32_prefill", 1, 1024, 4096, 32, 8, 128, fp32, True, [1024],
+              [2048], 3),
+             ("fp32_decode", 4, 1, SERVE_SK, 32, 8, 128, fp32, False, [0] * 4,
+              [2048, 6144, 3000, 1], 10),
+             ("hd64", 2, 300, 1000, 16, 4, 64, bf16, True, [0, 500],
+              [300, 777], 0),
+             ("hd64_fp32", 2, 300, 1000, 16, 4, 64, fp32, True, [0, 500],
+              [300, 777], 0),
+             ("reduced_prefill", 2, 64, 272, 4, 2, 16, bf16, True, [0, 64],
+              [50, 100], 0),
+             ("reduced_prefill_fp32", 2, 64, 272, 4, 2, 16, fp32, True,
+              [0, 64], [50, 100], 0),
+             ("reduced_decode", 4, 1, 272, 4, 2, 16, bf16, False, [0] * 4,
+              [1, 80, 200, 272], 0),
+             ("reduced_decode_fp32", 4, 1, 272, 4, 2, 16, fp32, False,
+              [0] * 4, [1, 80, 200, 272], 0)]
+    records = {}
+    for (tag, B, Sq, Sk, H, Hkv, hd, dtype, causal, q_off, kv_len,
+         iters) in cases:
+        kind = "bf16" if dtype == bf16 else "fp32"
+        g = torch.Generator(device="cuda").manual_seed(len(tag))
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                   for shape in ((B, Sq, H, hd), (B, Sk, Hkv, hd),
+                                 (B, Sk, Hkv, hd)))
+        off = torch.tensor(q_off, device="cuda")
+        lim = torch.tensor(kv_len, device="cuda")
+        kw = dict(causal=causal, q_offset=off, kv_valid_len=lim)
+        rec = {"shape": [B, Sq, Sk, H, Hkv, hd], "dtype": kind,
+               "causal": causal, "q_offset": q_off, "kv_valid_len": kv_len}
+        out = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = ops.flash_attention_ref(q, k, v, **kw)
+        (rec["max_abs_err"], rec["max_abs_ref"],
+         rec["max_row_rel_err"]) = _check_rows(f"flash_attention {tag}", out,
+                                               ref, FLASH_TOL[kind])
+        # The library yardstick must compute the same function.
+        kpos = torch.arange(Sk, device="cuda")
+        qpos = torch.arange(Sq, device="cuda")[None, :] + off[:, None]
+        mask = kpos[None, None, :] < lim[:, None, None]
+        if causal:
+            mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+        mask = mask[:, None]                                 # (B, 1, Sq, Sk)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        # Its own rounding may differ from the kernel's; a wrong mask would
+        # differ by O(max|ref|).
+        rec["library_max_abs_err"], _ = _max_err(sdpa().transpose(1, 2), ref)
+        if not rec["library_max_abs_err"] <= 5e-2 * rec["max_abs_ref"]:
+            raise AssertionError(f"sdpa yardstick {tag} differs: "
+                                 f"{rec['library_max_abs_err']}")
+        pairs, keys = _flash_pairs(Sq, causal, q_off, kv_len)
+        rec["pairs"] = pairs
+        if iters:
+            rec.update(_time_pair(
+                lambda: ops.flash_attention(q, k, v, **kw),
+                lambda: ops.flash_attention_ref(q, k, v, **kw), sdpa,
+                4.0 * hd * H * pairs,
+                q.element_size() * hd * (2 * B * Sq * H + 2 * keys * Hkv),
+                kind, iters))
+        records[tag] = rec
+        del q, k, v, out, ref, mask, qt, kt, vt
+        torch.cuda.empty_cache()
+    _line("phase2_flash_attention", records)
+    return records
+
+
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port by kernel name."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.gating_topk import ops as gt
     from repro_torch.kernels.grouped_gemm import ops as gg
     from repro_torch.kernels.ssd_scan import ops as ssd
 
-    for fn in (gg.grouped_swiglu, gg.grouped_matmul, gg.grouped_swiglu_q8,
-               gg.grouped_matmul_q8, ssd.ssd_intra_chunk):
+    return {"grouped_swiglu": gg.grouped_swiglu,
+            "grouped_matmul": gg.grouped_matmul,
+            "grouped_swiglu_q8": gg.grouped_swiglu_q8,
+            "grouped_matmul_q8": gg.grouped_matmul_q8,
+            "ssd_intra_chunk": ssd.ssd_intra_chunk,
+            "gating_topk": gt.gating_topk,
+            "flash_attention": fa.flash_attention}
+
+
+def _reset_launches():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def _launches() -> dict:
-    from repro_torch.kernels.grouped_gemm import ops as gg
-    from repro_torch.kernels.ssd_scan import ops as ssd
-
-    return {"grouped_swiglu": gg.grouped_swiglu.launches,
-            "grouped_matmul": gg.grouped_matmul.launches,
-            "grouped_swiglu_q8": gg.grouped_swiglu_q8.launches,
-            "grouped_matmul_q8": gg.grouped_matmul_q8.launches,
-            "ssd_intra_chunk": ssd.ssd_intra_chunk.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
@@ -558,6 +795,7 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
 
     import torch
 
+    from repro_torch.configs import layer_kinds
     from repro_torch.launch.serve import serve_trace
 
     torch.cuda.reset_peak_memory_stats()
@@ -579,6 +817,8 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
     dec = [(n, s) for kind, n, s in eng.calls if kind == "decode"]
     rec = {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "attn_layers": sum(k.startswith("attn+") for k in layer_kinds(cfg)),
+        "moe_layers": sum(k.endswith("+moe") for k in layer_kinds(cfg)),
         "runtime": runtime,
         "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
         "prompt_tokens": [len(r.prompt) for r in sorted(done, key=lambda r: r.rid)],
@@ -598,7 +838,64 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
     del eng, done
     gc.collect()
     torch.cuda.empty_cache()
-    return rec
+    return dict(rec, cfg=cfg)
+
+
+def _check_kernel_calls(path: str, launches: dict, cfg, calls: int) -> None:
+    """No attention or gate call went around its kernel: one launch per
+    attention (MoE) layer and engine call."""
+    from repro_torch.configs import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    for name, layers in (
+            ("flash_attention", sum(k.startswith("attn+") for k in kinds)),
+            ("gating_topk", sum(k.endswith("+moe") for k in kinds))):
+        if launches[name] != layers * calls:
+            raise AssertionError(
+                f"{name} was launched {launches[name]} times on the {path} "
+                f"serve path, not {layers} layers x {calls} engine calls")
+
+
+def phase_serve_cli() -> dict:
+    """The serve entry point as a user calls it (``python -m
+    repro_torch.launch.serve --arch ... --reduce``, through its ``main``)
+    on each arch in fp32, its default, and bf16: every request finishes
+    with its tokens, and every attention and gate call of the run went
+    through its kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.launch.serve import main as serve_main
+
+    records = {}
+    for arch in ("glm45-106b-a12b", "jamba-v0.1-52b", "qwen3-235b-a22b"):
+        cfg = reduced(get_config(arch))
+        for dtype in ("float32", "bfloat16"):
+            tag = f"{arch}_{dtype}"
+            _reset_launches()
+            eng = serve_main(["--arch", arch, "--reduce", "--requests", "4",
+                              "--chunk", "64", "--max-new", "8",
+                              "--dtype", dtype])
+            launches = _launches()
+            done = eng.finished
+            if len(done) != 4 or any(r.failed or len(r.output) != 8
+                                     for r in done) or \
+                    eng.fault_counters["nonfinite_logits"]:
+                raise AssertionError(f"serve cli {tag}: finished {len(done)},"
+                                     f" faults {eng.fault_counters}, last "
+                                     f"error {eng.last_error!r}")
+            _check_kernel_calls(f"serve cli {tag}", launches, cfg,
+                                len(eng.calls))
+            if launches["grouped_swiglu"] <= 0 or \
+                    launches["grouped_matmul"] <= 0:
+                raise AssertionError(f"serve cli {tag}: the grouped GEMM "
+                                     f"kernels were not launched")
+            records[tag] = {"layers": cfg.num_layers,
+                            "engine_calls": len(eng.calls),
+                            "mean_ttft_s": float(eng.ttft().mean()),
+                            "mean_tpot_s": float(eng.tpot().mean()),
+                            "launches": launches}
+    _line("phase7b_serve_cli", records)
+    return records
 
 
 def phase_mamba_mixer(jamba):
@@ -716,8 +1013,11 @@ def main() -> int:
     records = phase_kernels()
     ssd_records = phase_ssd()
     q8_records = phase_kernels_q8()
+    gating_records = phase_gating()
+    flash_records = phase_flash()
     glm = get_config("glm45-106b-a12b")
     jamba = get_config("jamba-v0.1-52b")
+    qwen3 = get_config("qwen3-235b-a22b")
     phase_moe_layer(glm)
     glm_2l = dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2)
     glm_serve = phase_serve(glm_2l, "phase4_serve_glm")
@@ -728,19 +1028,27 @@ def main() -> int:
     jamba_serve = phase_serve(
         dataclasses.replace(jamba, name=jamba.name + "-8l", num_layers=8),
         "phase6_serve_jamba")
-    glm_launches = glm_serve["launches"]
-    glm_q8_launches = glm_q8_serve["launches"]
-    jamba_launches = jamba_serve["launches"]
-    paths = {"glm45-106b-a12b": glm_launches,
-             "glm45-106b-a12b-q8": glm_q8_launches,
-             "jamba-v0.1-52b": jamba_launches}
+    qwen3_serve = phase_serve(
+        dataclasses.replace(qwen3, name=qwen3.name + "-2l", num_layers=2),
+        "phase7_serve_qwen3", beside=glm_serve)
+    phase_serve_cli()
+    serves = {"glm45-106b-a12b": glm_serve,
+              "glm45-106b-a12b-q8": glm_q8_serve,
+              "jamba-v0.1-52b": jamba_serve,
+              "qwen3-235b-a22b": qwen3_serve}
+    paths = {path: rec["launches"] for path, rec in serves.items()}
+    glm_launches = paths["glm45-106b-a12b"]
+    glm_q8_launches = paths["glm45-106b-a12b-q8"]
+    jamba_launches = paths["jamba-v0.1-52b"]
     for path, name in (("glm45-106b-a12b", "grouped_swiglu"),
                        ("glm45-106b-a12b", "grouped_matmul"),
                        ("glm45-106b-a12b-q8", "grouped_swiglu_q8"),
                        ("glm45-106b-a12b-q8", "grouped_matmul_q8"),
                        ("jamba-v0.1-52b", "grouped_swiglu"),
                        ("jamba-v0.1-52b", "grouped_matmul"),
-                       ("jamba-v0.1-52b", "ssd_intra_chunk")):
+                       ("jamba-v0.1-52b", "ssd_intra_chunk"),
+                       ("qwen3-235b-a22b", "grouped_swiglu"),
+                       ("qwen3-235b-a22b", "grouped_matmul")):
         if paths[path][name] <= 0:
             raise AssertionError(f"{name} was not launched on the {path} "
                                  f"serve path")
@@ -751,10 +1059,15 @@ def main() -> int:
                        ("glm45-106b-a12b", "grouped_swiglu_q8"),
                        ("glm45-106b-a12b", "grouped_matmul_q8"),
                        ("jamba-v0.1-52b", "grouped_swiglu_q8"),
-                       ("jamba-v0.1-52b", "grouped_matmul_q8")):
+                       ("jamba-v0.1-52b", "grouped_matmul_q8"),
+                       ("qwen3-235b-a22b", "grouped_swiglu_q8"),
+                       ("qwen3-235b-a22b", "grouped_matmul_q8")):
         if paths[path][name] != 0:
             raise AssertionError(f"{name} was launched {paths[path][name]} "
                                  f"times on the {path} serve path")
+    for path, rec in serves.items():
+        _check_kernel_calls(path, paths[path], rec["cfg"],
+                            rec["prefill_calls"] + rec["decode_calls"])
     gg_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
@@ -793,6 +1106,42 @@ def main() -> int:
             "fp32_inputs": {k: ssd_records["jamba_prefill_fp32"][k]
                             for k in keys},
             "checks": sorted(ssd_records)}))
+    kernels.append(_kernel_row(
+        "gating_topk", "src/repro_torch/kernels/gating_topk/csrc/gating_topk.cu",
+        "src/repro/kernels/gating_topk/kernel.py:59",
+        gating_records["prefill"], glm_launches["gating_topk"], {
+            "launches_by_path": {p: c["gating_topk"] for p, c in paths.items()},
+            "torch_ops_ms": gating_records["prefill"]["torch_ops_ms"],
+            "library_note": "none: no one PyTorch call computes the fused "
+                            "function; torch_ops_ms is softmax + topk + "
+                            "bincount",
+            "decode": {k: gating_records["decode"][k]
+                       for k in keys + ("torch_ops_ms",)},
+            "jamba_prefill": {k: gating_records["jamba_prefill"][k]
+                              for k in ("shape",) + keys + ("torch_ops_ms",)},
+            "sigmoid_e256_bias": {
+                k: gating_records["sigmoid_e256_bias"][k]
+                for k in ("shape",) + keys + ("torch_ops_ms",)},
+            "rows_excluded_near_tie": {
+                t: r["rows_excluded_near_tie"]
+                for t, r in gating_records.items()},
+            "checks": sorted(gating_records)}))
+    kernels.append(_kernel_row(
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:84",
+        flash_records["glm_prefill_at_4096"], glm_launches["flash_attention"],
+        {"launches_by_path": {p: c["flash_attention"]
+                              for p, c in paths.items()},
+         "library_note": "scaled_dot_product_attention, enable_gqa, the same "
+                         "boolean mask; timed only",
+         "max_row_rel_err": max(r["max_row_rel_err"]
+                                for r in flash_records.values()),
+         **{tag: {k: flash_records[tag][k] for k in ("shape",) + keys}
+            for tag in ("glm_prefill_at_0", "qwen3_prefill_at_4096",
+                        "decode", "qwen3_decode", "pallas_causal",
+                        "fp32_prefill", "fp32_decode")},
+         "checks": sorted(flash_records)}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

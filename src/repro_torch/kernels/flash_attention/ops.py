@@ -1,0 +1,218 @@
+"""Flash attention with cache offsets: a hand-written Hopper kernel and its
+plain version.
+
+``flash_attention`` replaces ``repro.kernels.flash_attention.kernel.
+flash_fwd_pallas`` and computes what ``repro.models.attention.flash_ref``
+computes, offsets included: query i of row b attends key j iff
+``j < kv_valid_len[b]`` and, when causal, ``j <= i + q_offset[b]``.  The
+Pallas kernel covers only ``q_offset = 0`` over the full KV length (full
+sequence and training); the serve path's chunked prefill against the cache
+and its decode need both offsets, so the port's kernel takes them.  The
+CUDA source is ``csrc/flash_attention.cu``; its header says what bounds the
+kernel on an H100 and what the design does about it.
+
+``flash_attention_ref`` is the plain version, an online softmax over KV
+blocks of ``block_kv`` keys in fp32 (the JAX ``lax.scan`` over blocks
+becomes a Python loop); ``repro_torch.models.attention`` re-exports it as
+``flash_ref``.
+
+Dispatch is by the tensors' device only: a CPU tensor runs the plain
+version, a CUDA tensor launches the kernel or raises.  The kernel takes
+q/k/v all bf16 (tensor cores, P rounded to bf16) or all fp32 (fp32
+arithmetic throughout), with head_dim 16, 64 or 128 (128 is the width of
+every served model, 16 that of the reduced configurations).
+``q_offset`` and ``kv_valid_len`` are a Python int or a (B,) tensor on the
+tensors' device, which the kernel reads there (no host sync).  The wrapper
+counts its launches in ``flash_attention.launches``.
+
+Layouts: q (B, Sq, H, hd); k/v (B, Sk, Hkv, hd) with H % Hkv == 0; the
+output is (B, Sq, H, hd) in q's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.build import KernelLibrary
+
+__all__ = ["flash_attention", "flash_attention_ref", "LIBRARY"]
+
+LIBRARY = KernelLibrary(
+    "flash_attention", Path(__file__).parent / "csrc" / "flash_attention.cu")
+
+HEAD_DIMS = (16, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TILE_ROWS = 64          # (query position, head of the group) rows per block
+_MAX_GRID_YZ = 65535
+
+
+def _as_batch_vector(v, device) -> torch.Tensor:
+    """A scalar or (B,) offset as a (1,) or (B,) int64 tensor."""
+    t = torch.as_tensor(v, device=device).to(torch.int64)
+    return t[None] if t.dim() == 0 else t
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, block_kv: int = 512, q_offset=0,
+                        kv_valid_len=None, scale: float | None = None
+                        ) -> torch.Tensor:
+    """Online-softmax attention over KV blocks (mirrors ``flash_ref``).
+
+    q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd) with H % Hkv == 0.  Query i
+    attends key j iff j < kv_valid_len and, when causal, j <= i + q_offset.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    hv = v.shape[-1]
+    dev = q.device
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.to(torch.float32) * scale
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=2)
+        vf = vf.repeat_interleave(rep, dim=2)
+    nblk = -(-Sk // block_kv)
+    pad = nblk * block_kv - Sk
+    if pad:
+        kf = F.pad(kf, (0, 0, 0, 0, 0, pad))
+        vf = F.pad(vf, (0, 0, 0, 0, 0, pad))
+    kf = kf.reshape(B, nblk, block_kv, H, hd)
+    vf = vf.reshape(B, nblk, block_kv, H, hv)
+
+    q_pos = (torch.arange(Sq, device=dev)[None, :]
+             + _as_batch_vector(q_offset, dev)[:, None])          # (B?, Sq)
+    limit = _as_batch_vector(Sk if kv_valid_len is None else kv_valid_len, dev)
+
+    m = torch.full((B, H, Sq), float("-inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Sq, hv), dtype=torch.float32, device=dev)
+    for i in range(nblk):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, i])
+        kv_pos = i * block_kv + torch.arange(block_kv, device=dev)
+        mask = kv_pos[None, None, :] < limit[:, None, None]       # (B?, 1, blk)
+        if causal:
+            mask = mask & (kv_pos[None, None, :] <= q_pos[:, :, None])
+        s = torch.where(mask[:, None, :, :], s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhv->bhqv", p,
+                                                    vf[:, i])
+        m = m_new
+    out = acc / l[..., None].clamp(min=1e-20)
+    return out.movedim(1, 2).to(q.dtype)                          # (B, Sq, H, hv)
+
+
+def _is_cuda(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch), False for CPU (plain version)."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no flash attention for device {x.device}")
+
+
+def _offset_arg(v, B: int, device, name: str):
+    """(pointer or None, stride, constant) for a Python int or a (), (1,)
+    or (B,) tensor, read by the kernel on the device."""
+    if not isinstance(v, torch.Tensor):
+        return None, 0, int(v)
+    if v.device != device:
+        raise ValueError(f"{name} must lie on the tensors' device {device}")
+    t = v.reshape(-1)
+    if t.numel() not in (1, B):
+        raise ValueError(f"{name} must be a scalar or ({B},), not "
+                         f"{tuple(v.shape)}")
+    t = t.to(torch.int64).contiguous()
+    return t, int(t.numel() == B and B > 1), 0
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Unit-stride head dim; for bf16 (read in 16-byte pieces) also
+    16-byte aligned base and outer strides."""
+    if t.stride(-1) != 1:
+        return False
+    return t.dtype != torch.bfloat16 or (
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1]))
+
+
+def _launch(q, k, v, causal, q_offset, kv_valid_len, scale):
+    """Validate, allocate the output and launch on the current stream."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("expected q (B, Sq, H, hd) and k/v (B, Sk, Hkv, hd)")
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or Hkv == 0 or H % Hkv:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the flash attention kernel takes q, k, v all bf16 "
+                        f"or all fp32, not {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the flash attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, not {hd}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash attention operands must share one device")
+    group = H // Hkv
+    if group > TILE_ROWS:
+        raise ValueError(f"{group} query heads per KV head exceed the "
+                         f"kernel's {TILE_ROWS}-row tile")
+    if not all(_aligned(t) for t in (q, k, v)):
+        raise ValueError("flash attention needs a unit-stride head dim and, "
+                         "in bf16, 16-byte aligned bases and strides")
+    if Hkv > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
+        raise ValueError(f"grid too large for B={B}, Hkv={Hkv}")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out, False
+    qo, qo_stride, qo_const = _offset_arg(q_offset, B, q.device, "q_offset")
+    kl, kl_stride, kl_const = _offset_arg(
+        Sk if kv_valid_len is None else kv_valid_len, B, q.device,
+        "kv_valid_len")
+    fn = LIBRARY.load().flash_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p, ctypes.c_int,
+                                                 ctypes.c_longlong] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(_DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, int(causal),
+             *strides,
+             None if qo is None else qo.data_ptr(), qo_stride, qo_const,
+             None if kl is None else kl.data_ptr(), kl_stride, kl_const,
+             float(scale if scale is not None else hd ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    return out, True
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset=0, kv_valid_len=None,
+                    scale: float | None = None,
+                    block_kv: int = 512) -> torch.Tensor:
+    """Attention of q (B, Sq, H, hd) over k/v (B, Sk, Hkv, hd) with
+    absolute query positions ``i + q_offset`` and ``kv_valid_len`` valid
+    keys per row (default all).  ``block_kv`` is read by the plain version
+    only."""
+    if not _is_cuda(q):
+        return flash_attention_ref(q, k, v, causal=causal, block_kv=block_kv,
+                                   q_offset=q_offset,
+                                   kv_valid_len=kv_valid_len, scale=scale)
+    out, launched = _launch(q, k, v, causal, q_offset, kv_valid_len, scale)
+    if launched:
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

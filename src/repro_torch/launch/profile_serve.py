@@ -13,6 +13,8 @@ the top kernels.
       --arch jamba-v0.1-52b --layers 8
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 2 \
       --wire-dtype int8 --ffn-dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch qwen3-235b-a22b --layers 2
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ _CATEGORIES = (
     ("grouped_gemm (ours)", ("grouped_gemm_bf16_kernel", "grouped_gemm_f32")),
     ("grouped_gemm_q8 (ours)", ("grouped_gemm_q8_kernel",)),
     ("ssd_scan (ours)", ("ssd_intra_chunk_kernel",)),
+    ("gating_topk (ours)", ("gating_topk_kernel",)),
+    ("flash_attention (ours)", ("flash_fwd_kernel",)),
     ("library GEMM", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")),
     ("sort/scan/search", ("sort", "scan", "cumsum", "search", "radix")),
     ("gather/scatter/index", ("index", "gather", "scatter", "take")),

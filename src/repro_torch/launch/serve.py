@@ -8,11 +8,11 @@ engine call is timed on the host clock between device synchronisations, the
 engine's clock advances by that measured time, and the calls are kept in
 ``engine.calls`` as ``(kind, tokens, seconds)``.
 
-Example (on a card):
+Example (on a card; ``--dtype`` is float32, the default, or bfloat16):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm45-106b-a12b \
       --reduce --requests 6 --chunk 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
-      --reduce --requests 6 --chunk 64
+      --reduce --requests 6 --chunk 64 --dtype bfloat16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm45-106b-a12b \
       --reduce --wire-dtype int8 --ffn-dtype int8     # the w8a8 expert path
 """
@@ -36,6 +36,8 @@ from repro_torch.serving.adapter import make_engine_fns
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
 
 __all__ = ["main", "serve_trace"]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _timed(fn, kind: str, calls: list, sync, n_tokens):
@@ -111,7 +113,7 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
     return eng
 
 
-def main(argv=None):
+def main(argv=None) -> ServingEngine:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
     ap.add_argument("--requests", type=int, default=16)
@@ -121,13 +123,15 @@ def main(argv=None):
     ap.add_argument("--reduce", action="store_true")
     ap.add_argument("--balancer", default="ultraep")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--wire-dtype", default="none", choices=WIRE_DTYPES)
     ap.add_argument("--ffn-dtype", default="none", choices=FFN_DTYPES)
     args = ap.parse_args(argv)
-    serve_trace(args.arch, requests=args.requests, rps=args.rps,
-                chunk=args.chunk, max_new=args.max_new, reduce=args.reduce,
-                balancer=args.balancer, device=args.device,
-                wire_dtype=args.wire_dtype, ffn_dtype=args.ffn_dtype)
+    return serve_trace(args.arch, requests=args.requests, rps=args.rps,
+                       chunk=args.chunk, max_new=args.max_new,
+                       reduce=args.reduce, balancer=args.balancer,
+                       dtype=DTYPES[args.dtype], device=args.device,
+                       wire_dtype=args.wire_dtype, ffn_dtype=args.ffn_dtype)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,13 @@
 """GQA attention with chunked prefill and a static-shape decode cache.
 
-Mirrors the GQA half of ``repro.models.attention``: ``flash_ref`` is the
-online-softmax reference over KV blocks written in plain tensor ops (the JAX
-``lax.scan`` over blocks becomes a Python loop), and the prefill/decode
-functions write the cache at each row's own offset.  MLA is not ported yet.
+Mirrors the GQA half of ``repro.models.attention``.  Where the reference
+calls ``flash_ref``, the port calls ``flash_attention`` with the same
+arguments (``q_offset``, ``kv_valid_len``): the hand-written flash kernel
+on a CUDA tensor, its plain version on a CPU tensor.  ``flash_ref`` (the
+online-softmax reference over KV blocks in plain tensor ops) is that plain
+version, re-exported from ``repro_torch.kernels.flash_attention``;
+``block_kv`` is read by it only.  The prefill/decode functions write the
+cache at each row's own offset.  MLA is not ported yet.
 """
 
 from __future__ import annotations
@@ -12,9 +16,12 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention_ref as flash_ref,
+)
 from repro_torch.models.layers import apply_rotary, rms_norm, rotary_cos_sin
 
 __all__ = ["AttnConfig", "GQAParams", "KVCache", "flash_ref", "init_gqa",
@@ -88,65 +95,6 @@ def init_gqa(cfg: AttnConfig, generator: torch.Generator, *,
     )
 
 
-def _as_batch_vector(v, device) -> torch.Tensor:
-    """A scalar or (B,) offset as a (1,) or (B,) int64 tensor."""
-    t = torch.as_tensor(v, device=device).to(torch.int64)
-    return t[None] if t.dim() == 0 else t
-
-
-def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool, block_kv: int = 512, q_offset=0,
-              kv_valid_len=None, scale: float | None = None) -> torch.Tensor:
-    """Online-softmax attention over KV blocks (mirrors ``flash_ref``).
-
-    q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd) with H % Hkv == 0.  Query i
-    attends key j iff j < kv_valid_len and, when causal, j <= i + q_offset.
-    """
-    B, Sq, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    rep = H // Hkv
-    hv = v.shape[-1]
-    dev = q.device
-    scale = scale if scale is not None else hd ** -0.5
-    qf = q.to(torch.float32) * scale
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
-    if rep > 1:
-        kf = kf.repeat_interleave(rep, dim=2)
-        vf = vf.repeat_interleave(rep, dim=2)
-    nblk = -(-Sk // block_kv)
-    pad = nblk * block_kv - Sk
-    if pad:
-        kf = F.pad(kf, (0, 0, 0, 0, 0, pad))
-        vf = F.pad(vf, (0, 0, 0, 0, 0, pad))
-    kf = kf.reshape(B, nblk, block_kv, H, hd)
-    vf = vf.reshape(B, nblk, block_kv, H, hv)
-
-    q_pos = (torch.arange(Sq, device=dev)[None, :]
-             + _as_batch_vector(q_offset, dev)[:, None])          # (B?, Sq)
-    limit = _as_batch_vector(Sk if kv_valid_len is None else kv_valid_len, dev)
-
-    m = torch.full((B, H, Sq), float("-inf"), dtype=torch.float32, device=dev)
-    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, Sq, hv), dtype=torch.float32, device=dev)
-    for i in range(nblk):
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, i])
-        kv_pos = i * block_kv + torch.arange(block_kv, device=dev)
-        mask = kv_pos[None, None, :] < limit[:, None, None]       # (B?, 1, blk)
-        if causal:
-            mask = mask & (kv_pos[None, None, :] <= q_pos[:, :, None])
-        s = torch.where(mask[:, None, :, :], s, float("-inf"))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhv->bhqv", p,
-                                                    vf[:, i])
-        m = m_new
-    out = acc / l[..., None].clamp(min=1e-20)
-    return out.movedim(1, 2).to(q.dtype)                          # (B, Sq, H, hv)
-
-
 def _update_at(cache_arr: torch.Tensor, new: torch.Tensor,
                lengths: torch.Tensor) -> torch.Tensor:
     """Write ``new`` (B, C, ...) into a copy of ``cache_arr`` (B, S, ...) at
@@ -189,7 +137,7 @@ def gqa_attention(x: torch.Tensor, params: GQAParams, cfg: AttnConfig, *,
     cos, sin = rotary_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
-    out = flash_ref(q, k, v, causal=cfg.causal, block_kv=block_kv)
+    out = flash_attention(q, k, v, causal=cfg.causal, block_kv=block_kv)
     return out.reshape(B, S, -1) @ params.wo
 
 
@@ -210,8 +158,9 @@ def gqa_prefill(x: torch.Tensor, cache: KVCache, params: GQAParams,
     k_all = _update_at(cache.k, k, cache.length)
     v_all = _update_at(cache.v, v, cache.length)
     vl = C if valid_len is None else valid_len
-    out = flash_ref(q, k_all, v_all, causal=True, block_kv=block_kv,
-                    q_offset=cache.length, kv_valid_len=cache.length + vl)
+    out = flash_attention(q, k_all, v_all, causal=True, block_kv=block_kv,
+                          q_offset=cache.length,
+                          kv_valid_len=cache.length + vl)
     y = out.reshape(B, C, -1) @ params.wo
     return y, KVCache(k_all, v_all, cache.length + vl)
 
@@ -228,7 +177,7 @@ def gqa_decode(x: torch.Tensor, cache: KVCache, params: GQAParams,
     k = apply_rotary(k, cos, sin)
     k_all = _update_at(cache.k, k, cache.length)
     v_all = _update_at(cache.v, v, cache.length)
-    out = flash_ref(q, k_all, v_all, causal=False, block_kv=block_kv,
-                    kv_valid_len=cache.length + 1)
+    out = flash_attention(q, k_all, v_all, causal=False, block_kv=block_kv,
+                          kv_valid_len=cache.length + 1)
     y = out.reshape(B, 1, -1) @ params.wo
     return y, KVCache(k_all, v_all, cache.length + 1)

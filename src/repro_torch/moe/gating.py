@@ -6,9 +6,18 @@ combine weights), renormalisation of the selected weights, routed scaling,
 the force-balanced ``ideal`` router, realized counts and the GShard loss.
 Rack-limited routing is not ported yet.  The router runs in fp32.
 
+Free routing, with or without the selection bias, takes the scores, the
+top-k and the counts from ``gating_topk`` (the hand-written fused kernel
+on a CUDA tensor, its plain version on a CPU tensor); the router
+projection before it is a ``torch.matmul``, as the JAX package leaves it
+outside Pallas too.  The ideal router keeps its plain code on every
+device: no TPU kernel computes it, and no served model of the port uses
+it.
+
 Ties.  ``lax.top_k`` puts the lower expert index first among equal scores;
-``torch.topk`` promises no order, so the selection is a stable descending
-sort of the scores, cut to the first k columns.
+``torch.topk`` promises no order, so the plain selection is a stable
+descending sort of the scores (plus the bias), cut to the first k columns,
+and the kernel's argmax rounds prefer the lower index.
 """
 
 from __future__ import annotations
@@ -17,6 +26,8 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels.gating_topk.ops import gating_topk, scores_of
 
 __all__ = ["GatingConfig", "GateOut", "gate", "gshard_aux_loss"]
 
@@ -59,30 +70,23 @@ def gate(x: torch.Tensor, w_router: torch.Tensor, cfg: GatingConfig, *,
     T = x.shape[0]
     E, k = cfg.num_experts, cfg.top_k
     logits = x.to(torch.float32) @ w_router.to(torch.float32)
-    if cfg.score_fn == "softmax":
-        scores = torch.softmax(logits, dim=-1)
-    elif cfg.score_fn == "sigmoid":
-        scores = torch.sigmoid(logits)
+    if not cfg.ideal:
+        # The bias steers selection only; the weights are the unbiased
+        # scores.
+        sel_bias = bias.detach() if cfg.use_bias and bias is not None else None
+        expert_ids, sel, counts, scores = gating_topk(
+            logits, k, score_fn=cfg.score_fn, bias=sel_bias, want_scores=True)
     else:
-        raise ValueError(f"unknown score_fn {cfg.score_fn}")
-
-    if cfg.ideal:
+        scores = scores_of(logits, cfg.score_fn)
         base = (torch.arange(T, dtype=_I64, device=x.device) * k) % E
         expert_ids = (base[:, None]
                       + torch.arange(k, dtype=_I64, device=x.device)) % E
-    else:
-        sel_scores = scores
-        if cfg.use_bias and bias is not None:
-            sel_scores = scores + bias.detach().to(torch.float32)[None, :]
-        expert_ids = torch.sort(sel_scores, dim=-1, descending=True,
-                                stable=True).indices[:, :k]
-    # Combine weights always come from the unbiased scores.
-    sel = torch.gather(scores, 1, expert_ids)
+        sel = torch.gather(scores, 1, expert_ids)
+        counts = torch.bincount(expert_ids.reshape(-1), minlength=E)
     if cfg.norm_topk_prob:
         sel = sel / sel.sum(dim=-1, keepdim=True).clamp(min=1e-20)
     sel = sel * cfg.routed_scaling
 
-    counts = torch.bincount(expert_ids.reshape(-1), minlength=E)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.aux_loss_weight > 0.0:
         aux = cfg.aux_loss_weight * gshard_aux_loss(scores, expert_ids, E)

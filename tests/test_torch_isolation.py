@@ -2,7 +2,7 @@
 
 One test runs a reduced prefill of each ported arch (and of GLM-4.5-Air
 under the int8 wire and w8a8 FFN) in a subprocess where ``import jax``
-fails;
+fails, through the gating and flash-attention wrappers;
 the other reads every source file of the port and ``chip_smoke.py``.
 """
 
@@ -30,7 +30,7 @@ from repro_torch.launch import serve  # noqa: F401  (imports the whole path)
 from repro_torch.models.model import init_caches, init_lm, prefill_step
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 for arch, q8 in (("glm45-106b-a12b", "none"), ("jamba-v0.1-52b", "none"),
-                 ("glm45-106b-a12b", "int8")):
+                 ("glm45-106b-a12b", "int8"), ("qwen3-235b-a22b", "none")):
     cfg = reduced(get_config(arch))
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"),
                          cf_pair=4.0, cf_slot=4.0, wire_dtype=q8,

@@ -1,5 +1,6 @@
-"""Port LM vs the JAX LM on reduced GLM-4.5-Air and reduced Jamba-v0.1
-(8 layers: mamba+dense, mamba+moe, attn+dense) with converted weights.
+"""Port LM vs the JAX LM on reduced GLM-4.5-Air, reduced Jamba-v0.1
+(8 layers: mamba+dense, mamba+moe, attn+dense) and reduced Qwen3-235B-A22B
+(per-head q/k RMSNorm) with converted weights.
 
 The JAX parameters (``repro.models.model.init_lm``, scan_layers=True, so
 segments are stacked on a layer axis, and a 16-layer Jamba's repeating
@@ -37,6 +38,7 @@ from repro_torch.serving.adapter import make_engine_fns
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
 
 GLM, JAMBA = "glm45-106b-a12b", "jamba-v0.1-52b"
+QWEN3 = "qwen3-235b-a22b"
 CHUNK = 64
 MAX_SEQ = 272          # = prompt max 200 + max_new 8 + chunk 64
 TOL = 1e-4
@@ -74,7 +76,7 @@ def _close(j, t):
 
 
 @pytest.mark.parametrize("arch,dense_prefix", [(GLM, False), (GLM, True),
-                                               (JAMBA, False)])
+                                               (JAMBA, False), (QWEN3, False)])
 def test_prefill_and_decode_logits_match_jax(arch, dense_prefix):
     cfg, (jpre, jdec, jnew, jstack, _), (tpre, tdec, tnew, tstack, _), _ = \
         _build(arch, dense_prefix)
@@ -147,7 +149,7 @@ def _requests(cls, vocab):
     return out
 
 
-@pytest.mark.parametrize("arch", [GLM, JAMBA])
+@pytest.mark.parametrize("arch", [GLM, JAMBA, QWEN3])
 def test_served_trace_gives_identical_greedy_tokens(arch):
     cfg, jfns, tfns, _ = _build(arch)
     outs = []
@@ -165,6 +167,18 @@ def test_served_trace_gives_identical_greedy_tokens(arch):
         assert eng.fault_counters["nonfinite_logits"] == 0
         outs.append([r.output for r in done])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serve_entry_point_takes_a_dtype(dtype):
+    """The serve entry point on a reduced model, as a user runs it (here on
+    the CPU): every request finishes with its tokens."""
+    from repro_torch.launch.serve import main
+
+    eng = main(["--arch", GLM, "--reduce", "--requests", "2", "--chunk", "64",
+                "--max-new", "3", "--device", "cpu", "--dtype", dtype])
+    assert len(eng.finished) == 2
+    assert all(not r.failed and len(r.output) == 3 for r in eng.finished)
 
 
 def test_lm_params_converts_cycle_segment():
