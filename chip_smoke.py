@@ -7,39 +7,42 @@ Phases, one output line each:
   1. card, torch/CUDA versions, kernel build (nvcc, sm_90a, one process per
      source, all at once) time;
   2. the grouped-GEMM kernels against their plain PyTorch versions at the
-     GLM-4.5-Air and Jamba-v0.1 prefill and decode shapes and at ragged
-     shapes, in bf16 (max|err| <= 1e-2 max|ref|: one bf16 rounding of the
-     output) and fp32 (max|err| <= 1e-4 max|ref|: summation order), with
-     the kernel's, the plain version's and a library call's time and the
-     card's bound; then ``ssd_intra_chunk`` and ``ssd_chunk_scan`` (from
-     an initial state) against their plain versions at the Jamba prefill
-     chunk in bf16 and fp32 inputs and at the reduced shape at nc 1 and at
-     B 2, within 3e-4 max|ref| (fp32 arithmetic in both); then the w8a8
-     pair ``grouped_swiglu_q8`` / ``grouped_matmul_q8`` against their plain
-     versions at the GLM-4.5-Air prefill and decode shapes and at ragged
-     shapes, with weight codes K-contiguous as the layer keeps them and the
-     SwiGLU's activations as the dispatch stage hands them over (a strided
-     view of the int8 wire, rows K + 4 bytes apart) and contiguous: the
-     matmul must match bitwise, the SwiGLU within 1e-5 max|ref| (the
+     GLM-4.5-Air and Jamba-v0.1 prefill and decode shapes with every row
+     valid, at ragged shapes, and with each slot's valid-row count as the
+     serve path makes it (the port's gate, ``ultraep`` plan and bucket on
+     seeded tokens at GLM prefill, GLM decode and Jamba prefill: padded rows
+     must come out exactly zero), in bf16 (max|err| <= 1e-2 max|ref|: one
+     bf16 rounding of the output) and fp32 (max|err| <= 1e-4 max|ref|:
+     summation order), with the kernel's, the plain version's and a library
+     call's (``torch.bmm`` over the padded buffers) time and the card's bound
+     on the valid rows' work; then ``ssd_intra_chunk`` and ``ssd_chunk_scan``
+     (from an initial state) against their plain versions at the Jamba
+     prefill chunk in bf16 and fp32 inputs and at the reduced shape at nc 1
+     and at B 2, within 3e-4 max|ref| (fp32 arithmetic in both); then the
+     w8a8 pair ``grouped_swiglu_q8`` / ``grouped_matmul_q8`` against their
+     plain versions at the GLM-4.5-Air prefill and decode shapes and at
+     ragged shapes, with weight codes K-contiguous as the layer keeps them
+     and the SwiGLU's activations as the dispatch stage hands them over (a
+     strided view of the int8 wire, rows K + 4 bytes apart) and contiguous:
+     the matmul must match bitwise, the SwiGLU within 1e-5 max|ref| (the
      gate's exp); the library yardstick is G calls of ``torch._int_mm``
-     (cuBLAS int8) plus the dequant in PyTorch; then ``gating_topk``
-     against its plain version at the GLM/Qwen3 prefill (T 4096, E 128,
-     k 8) and decode (T 4) shapes, Jamba's (E 16, k 2), sigmoid at E 256,
-     a ragged shape and a tie case (duplicated router columns, all-zero
-     rows): ids equal wherever the plain k-th and (k+1)-th scores differ
-     by more than 1e-6 relative (every row of the tie case), counts equal
-     the histogram of the kernel's ids, weights and scores within 1e-6
-     max|ref|, and the same with a DeepSeek-style selection bias (the
-     weights stay the unbiased scores); and ``flash_attention`` against its
-     plain version at the GLM-4.5-Air serve cache (C 4096, Sk 10248:
-     offsets 0 and 4096, a ragged last chunk), at Qwen3's 64 over 4 heads,
-     at decode (B 4, per-row lengths), at the Pallas kernel's own case
-     (Sq = Sk = 2048, causal and not), in fp32 and at head dims 64 and 16
-     (the reduced configurations'), each output row (batch row, query
-     position, head) within a share of its own max|ref|: 1e-2 in bf16 (P
-     and the output rounded to bf16), 1e-4 in fp32; with
-     ``scaled_dot_product_attention`` (same boolean mask) timed as the
-     library yardstick;
+     (cuBLAS int8) plus the dequant in PyTorch; then ``gating_topk`` against
+     its plain version at the GLM/Qwen3 prefill (T 4096, E 128, k 8) and
+     decode (T 4) shapes, Jamba's (E 16, k 2), sigmoid at E 256, a ragged
+     shape and a tie case (duplicated router columns, all-zero rows): ids
+     equal wherever the plain k-th and (k+1)-th scores differ by more than
+     1e-6 relative (every row of the tie case), counts equal the histogram of
+     the kernel's ids, weights and scores within 1e-6 max|ref|, and the same
+     with a DeepSeek-style selection bias (the weights stay the unbiased
+     scores); and ``flash_attention`` against its plain version at the
+     GLM-4.5-Air serve cache (C 4096, Sk 10248: offsets 0 and 4096, a ragged
+     last chunk), at Qwen3's 64 over 4 heads, at decode (B 4, per-row
+     lengths), at the Pallas kernel's own case (Sq = Sk = 2048, causal and
+     not), in fp32 and at head dims 64 and 16 (the reduced configurations'),
+     each output row (batch row, query position, head) within a share of its
+     own max|ref|: 1e-2 in bf16 (P and the output rounded to bf16), 1e-4 in
+     fp32; with ``scaled_dot_product_attention`` (same boolean mask) timed as
+     the library yardstick;
   3. the balanced MoE layer at GLM-4.5-Air width (T 4096, ep_size 1) in the
      a2a and replicated modes against the dense oracle ``moe_ref`` in fp32
      (bf16 layer: 2e-2 max|ref|, fp32 layer: 1e-4 max|ref|), zero drops;
@@ -66,8 +69,9 @@ Phases, one output line each:
   8. the kernels with their launch counts on the serve paths: every count
      is set to 0 just before each serve run and read just after it; on
      every path (phase 7b's too) ``flash_attention`` runs once per
-     attention layer and engine call and ``gating_topk`` once per MoE layer
-     and engine call.
+     attention layer and engine call, and ``gating_topk`` and the path's
+     two grouped GEMMs (bf16/fp32 or w8a8) once per MoE layer and engine
+     call, and no operand was copied for TMA (``padded_copies`` 0).
 
 TF32 is off for matmuls and cuDNN, so fp32 references are full fp32.  Any
 failed check raises and the script exits non-zero; the last line is the
@@ -198,19 +202,56 @@ def _time_pair(kernel, plain, library, flops, nbytes, kind, iters):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def phase_kernels() -> dict:
-    """Both grouped-GEMM kernels vs their plain versions; returns the
-    records by name."""
+def _serve_rows(cfg, T: int, mode: str, seed: int):
+    """Each slot's valid-row count and the slot capacity as the serve path
+    makes them: the port's gate, ``ultraep`` plan and bucket on T seeded
+    tokens at ``cfg``'s width, with the serve capacity factors."""
+    import torch
+
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.models.transformer import (
+        ParallelCtx,
+        RuntimeConfig,
+        moe_config,
+    )
+    from repro_torch.moe import stages
+
+    rcfg = RuntimeConfig(balancer=BalancerConfig(mode=SERVE["balancer"]),
+                         cf_pair=SERVE["cf"], cf_slot=SERVE["cf"],
+                         dtype=torch.bfloat16)
+    mcfg = moe_config(cfg, rcfg, ParallelCtx(), T, dispatch_mode=mode)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D = cfg.d_model
+    router = torch.randn((D, cfg.moe.num_experts), generator=g,
+                         device="cuda") * D ** -0.5
+    x = torch.randn((T, D), generator=g, device="cuda").to(torch.bfloat16)
+    gs = stages.gate_stage(mcfg, x, router)
+    ps = stages.plan_stage(mcfg, gs)
+    ds = stages.dispatch_stage(mcfg, x, gs.gate_out.expert_ids, gs, ps)
+    if not torch.equal(ds.rows, ds.valid.sum(dim=1)):
+        raise AssertionError("bucket rows differ from its validity mask")
+    return ds.rows, mcfg.cap_slot
+
+
+def phase_kernels(glm, jamba) -> dict:
+    """Both grouped-GEMM kernels vs their plain versions, every row valid
+    and at the serve path's row counts; returns the records by name."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.grouped_gemm import ops
 
     records = {"grouped_swiglu": {}, "grouped_matmul": {}}
+    # tag, shape or (config, tokens, dispatch mode) for serve counts, dtype,
+    # timing iterations
     cases = [("prefill", PREFILL, torch.bfloat16, 10),
              ("decode", DECODE, torch.bfloat16, 20),
              ("jamba_prefill", JAMBA_PREFILL, torch.bfloat16, 3),
              ("jamba_decode", JAMBA_DECODE, torch.bfloat16, 10),
+             ("prefill_serve", (glm, 4096, "a2a"), torch.bfloat16, 10),
+             ("decode_serve", (glm, 4, "replicated"), torch.bfloat16, 20),
+             ("jamba_prefill_serve", (jamba, 4096, "a2a"), torch.bfloat16,
+              5),
              ("fp32_g8", dict(PREFILL, G=8), torch.float32, 3),
              ("ragged_m1", dict(G=1, M=1, K=4096, N=1408), torch.bfloat16, 0),
              ("ragged_tiles", dict(G=3, M=1009, K=136, N=200), torch.bfloat16, 0),
@@ -219,34 +260,59 @@ def phase_kernels() -> dict:
              ("ragged_tiles_fp32", dict(G=3, M=1009, K=136, N=200),
               torch.float32, 0)]
     for tag, s, dtype, iters in cases:
+        rows = mask = None
+        if isinstance(s, tuple):
+            cfg, T, mode = s
+            rows, cap = _serve_rows(cfg, T, mode, seed=len(tag))
+            s = dict(G=rows.numel(), M=cap, K=cfg.d_model, N=cfg.moe.d_ff)
         G, M, K, N = s["G"], s["M"], s["K"], s["N"]
         x, w1, w3, w2 = _kernel_inputs(G, M, K, N, dtype, seed=len(tag))
+        if rows is None:
+            V, S = G * M, G
+        else:
+            mask = ops._row_mask(rows, M)
+            x = torch.where(mask, x, torch.zeros((), dtype=dtype,
+                                                 device="cuda"))
+            V, S = int(rows.sum()), int((rows > 0).sum())
         kind = "bf16" if dtype == torch.bfloat16 else "fp32"
         tol = 1e-2 if kind == "bf16" else 1e-4
         elt = x.element_size()
-        act = ops.grouped_swiglu(x, w1, w3)
+        act = ops.grouped_swiglu(x, w1, w3, rows)
         sw = dict(zip(("max_abs_err", "max_abs_ref"), _check_case(
             f"grouped_swiglu {tag}", lambda: act,
-            lambda: ops.grouped_swiglu_ref(x, w1, w3), tol)))
+            lambda: ops.grouped_swiglu_ref(x, w1, w3, rows), tol)))
+        out = ops.grouped_matmul(act, w2, rows)
         mm = dict(zip(("max_abs_err", "max_abs_ref"), _check_case(
-            f"grouped_matmul {tag}", lambda: ops.grouped_matmul(act, w2),
-            lambda: ops.grouped_matmul_ref(act, w2), tol)))
+            f"grouped_matmul {tag}", lambda: out,
+            lambda: ops.grouped_matmul_ref(act, w2, rows), tol)))
+        if mask is not None:
+            for name, t in (("grouped_swiglu", act), ("grouped_matmul", out)):
+                if t.masked_select(~mask).any():
+                    raise AssertionError(f"{name} {tag}: a padded row is not "
+                                         f"zero")
+            sw["rows"] = mm["rows"] = {
+                "cap_slot": M, "slots": G, "slots_with_rows": S,
+                "min": int(rows.min()), "mean": V / G, "max": int(rows.max()),
+                "sum": V}
         if iters:
+            # Bound on the valid rows' work: their products, their x rows
+            # and the weights of the slots that hold any, the whole output
+            # (padded rows are written as zeros).
             sw.update(_time_pair(
-                lambda: ops.grouped_swiglu(x, w1, w3),
-                lambda: ops.grouped_swiglu_ref(x, w1, w3),
+                lambda: ops.grouped_swiglu(x, w1, w3, rows),
+                lambda: ops.grouped_swiglu_ref(x, w1, w3, rows),
                 lambda: F.silu(torch.bmm(x, w1)) * torch.bmm(x, w3),
-                4.0 * G * M * K * N, (G * M * K + 2 * G * K * N + G * M * N) * elt,
+                4.0 * V * K * N, (V * K + 2 * S * K * N + G * M * N) * elt,
                 kind, iters))
             mm.update(_time_pair(
-                lambda: ops.grouped_matmul(act, w2),
-                lambda: ops.grouped_matmul_ref(act, w2),
+                lambda: ops.grouped_matmul(act, w2, rows),
+                lambda: ops.grouped_matmul_ref(act, w2, rows),
                 lambda: torch.bmm(act, w2),
-                2.0 * G * M * N * K, (G * M * N + G * N * K + G * M * K) * elt,
+                2.0 * V * N * K, (V * N + S * N * K + G * M * K) * elt,
                 kind, iters))
         records["grouped_swiglu"][tag] = dict(shape=[G, M, K, N], dtype=kind, **sw)
         records["grouped_matmul"][tag] = dict(shape=[G, M, N, K], dtype=kind, **mm)
-        del x, w1, w3, w2, act
+        del x, w1, w3, w2, act, out
         torch.cuda.empty_cache()
     _line("phase2_kernels", records)
     return records
@@ -780,10 +846,18 @@ def _wrappers() -> dict:
 def _reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "padded_copies"):
+            fn.padded_copies = 0
 
 
 def _launches() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _padded_copies() -> dict:
+    """Operands the bf16 grouped GEMMs copied for TMA since the reset."""
+    return {name: fn.padded_copies for name, fn in _wrappers().items()
+            if hasattr(fn, "padded_copies")}
 
 
 def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
@@ -803,6 +877,7 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
     eng = serve_trace(cfg, dtype=torch.bfloat16, device="cuda", **SERVE,
                       **runtime)
     launches = _launches()
+    copies = _padded_copies()
     done = eng.finished
     failed = [r.rid for r in done if r.failed]
     if len(done) != SERVE["requests"] or failed or \
@@ -829,7 +904,7 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
         "mean_ttft_s": float(eng.ttft().mean()),
         "mean_tpot_s": float(eng.tpot().mean()),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches}
+        "launches": launches, "padded_copies": copies}
     keys = ("prefill_tok_per_s", "decode_tok_per_s", "mean_ttft_s",
             "mean_tpot_s", "peak_mem_gb")
     _line(tag, dict(rec, **({} if beside is None else {
@@ -841,19 +916,27 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
     return dict(rec, cfg=cfg)
 
 
-def _check_kernel_calls(path: str, launches: dict, cfg, calls: int) -> None:
-    """No attention or gate call went around its kernel: one launch per
-    attention (MoE) layer and engine call."""
+def _check_kernel_calls(path: str, launches: dict, copies: dict, cfg,
+                        calls: int, ffn_dtype: str = "none") -> None:
+    """No attention, gate or expert FFN call went around its kernel: one
+    launch per attention (MoE) layer and engine call; and no operand of
+    the grouped GEMMs was copied for TMA."""
     from repro_torch.configs import layer_kinds
 
     kinds = layer_kinds(cfg)
+    moe = sum(k.endswith("+moe") for k in kinds)
+    ffn = ("_q8" if ffn_dtype == "int8" else "")
     for name, layers in (
             ("flash_attention", sum(k.startswith("attn+") for k in kinds)),
-            ("gating_topk", sum(k.endswith("+moe") for k in kinds))):
+            ("gating_topk", moe), ("grouped_swiglu" + ffn, moe),
+            ("grouped_matmul" + ffn, moe)):
         if launches[name] != layers * calls:
             raise AssertionError(
                 f"{name} was launched {launches[name]} times on the {path} "
                 f"serve path, not {layers} layers x {calls} engine calls")
+    if any(copies.values()):
+        raise AssertionError(f"the {path} serve path copied operands for "
+                             f"TMA: {copies}")
 
 
 def phase_serve_cli() -> dict:
@@ -876,6 +959,7 @@ def phase_serve_cli() -> dict:
                               "--chunk", "64", "--max-new", "8",
                               "--dtype", dtype])
             launches = _launches()
+            copies = _padded_copies()
             done = eng.finished
             if len(done) != 4 or any(r.failed or len(r.output) != 8
                                      for r in done) or \
@@ -883,12 +967,8 @@ def phase_serve_cli() -> dict:
                 raise AssertionError(f"serve cli {tag}: finished {len(done)},"
                                      f" faults {eng.fault_counters}, last "
                                      f"error {eng.last_error!r}")
-            _check_kernel_calls(f"serve cli {tag}", launches, cfg,
+            _check_kernel_calls(f"serve cli {tag}", launches, copies, cfg,
                                 len(eng.calls))
-            if launches["grouped_swiglu"] <= 0 or \
-                    launches["grouped_matmul"] <= 0:
-                raise AssertionError(f"serve cli {tag}: the grouped GEMM "
-                                     f"kernels were not launched")
             records[tag] = {"layers": cfg.num_layers,
                             "engine_calls": len(eng.calls),
                             "mean_ttft_s": float(eng.ttft().mean()),
@@ -1009,15 +1089,15 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
+    glm = get_config("glm45-106b-a12b")
+    jamba = get_config("jamba-v0.1-52b")
+    qwen3 = get_config("qwen3-235b-a22b")
     phase_card()
-    records = phase_kernels()
+    records = phase_kernels(glm, jamba)
     ssd_records = phase_ssd()
     q8_records = phase_kernels_q8()
     gating_records = phase_gating()
     flash_records = phase_flash()
-    glm = get_config("glm45-106b-a12b")
-    jamba = get_config("jamba-v0.1-52b")
-    qwen3 = get_config("qwen3-235b-a22b")
     phase_moe_layer(glm)
     glm_2l = dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2)
     glm_serve = phase_serve(glm_2l, "phase4_serve_glm")
@@ -1066,8 +1146,10 @@ def main() -> int:
             raise AssertionError(f"{name} was launched {paths[path][name]} "
                                  f"times on the {path} serve path")
     for path, rec in serves.items():
-        _check_kernel_calls(path, paths[path], rec["cfg"],
-                            rec["prefill_calls"] + rec["decode_calls"])
+        _check_kernel_calls(path, paths[path], rec["padded_copies"],
+                            rec["cfg"],
+                            rec["prefill_calls"] + rec["decode_calls"],
+                            rec["runtime"].get("ffn_dtype", "none"))
     gg_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
@@ -1076,12 +1158,13 @@ def main() -> int:
         rec = records[name]
         kernels.append(_kernel_row(
             name, gg_src, f"src/repro/kernels/grouped_gemm/kernel.py:{line}",
-            rec["prefill"], glm_launches[name], {
+            rec["prefill_serve"], glm_launches[name], {
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
-                "decode": {k: rec["decode"][k] for k in keys},
-                "jamba_prefill": {k: rec["jamba_prefill"][k]
-                                  for k in ("shape",) + keys},
-                "jamba_decode": {k: rec["jamba_decode"][k] for k in keys},
+                "rows": rec["prefill_serve"]["rows"],
+                **{tag: {k: rec[tag][k] for k in ("shape",) + keys}
+                   for tag in ("prefill", "decode", "decode_serve",
+                               "jamba_prefill", "jamba_decode",
+                               "jamba_prefill_serve")},
                 "checks": sorted(rec)}))
     q8_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm_q8.cu"
     for name, line in (("grouped_swiglu_q8", 246), ("grouped_matmul_q8", 214)):

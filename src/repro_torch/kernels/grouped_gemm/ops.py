@@ -13,10 +13,29 @@ design does about it.
 Dispatch is by the tensors' device only: a CPU tensor runs the plain
 PyTorch version (an fp32 einsum, then a cast), a CUDA tensor launches the
 kernel or raises -- there is no size-based fallback and no ``try`` around
-the launch.  Unlike the JAX wrappers, nothing is padded: the kernel masks
-ragged M, N and K edges itself.  Each wrapper counts its launches in a
-plain int attribute, ``grouped_swiglu.launches`` / ``grouped_matmul.launches``
-(and the same on the q8 pair).
+the launch.  Each wrapper counts its launches in a plain int attribute,
+``grouped_swiglu.launches`` / ``grouped_matmul.launches`` (and the same on
+the q8 pair).
+
+Row counts.  ``grouped_swiglu(x, w1, w3, rows=None)`` and
+``grouped_matmul(x, w, rows=None)`` take ``rows``, an int32 or int64 (G,)
+tensor on x's device: slot g's rows ``[0, min(rows[g], M))`` are computed
+and every row at or past that comes out as exact zeros, whatever x holds
+there; ``None`` means M for every slot.  The kernels read the counts on
+the device (no host sync) and skip the padded rows' work: a slot with no
+rows costs no weight bytes.  The plain versions take the same ``rows`` and
+mask the same way.
+
+Alignment.  The bf16 kernel reads its operands with TMA, which needs a
+16-byte aligned base and outer strides that are multiples of 16 bytes.
+An operand that is not (a width that is not a multiple of 8, or a view
+that starts mid-row) is first copied into a zero-padded buffer with its
+last dim rounded up to 8 -- the same kernel on padded operands, counted in
+``grouped_swiglu.padded_copies`` / ``grouped_matmul.padded_copies``.  No
+serve path makes such a copy: every model width is a multiple of 8.  The
+bf16 output has its width rounded up to 8 too and is returned as a view of
+the first N columns.  The fp32 kernel takes any strides and masks ragged
+M, N and K edges itself.
 
 The q8 plain versions contract in fp64, which is exact here (every partial
 sum is an integer below 2^53), and convert to int32: CUDA has no int32
@@ -46,28 +65,64 @@ LIBRARY_Q8 = KernelLibrary(
     "grouped_gemm_q8", Path(__file__).parent / "csrc" / "grouped_gemm_q8.cu")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_M = {torch.float32: 64, torch.bfloat16: 128}   # rows per block
 _MAX_GRID_YZ = 65535
 
 
-def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (G, M, K) @ w: (G, K, N) -> (G, M, N); fp32 accumulation, cast."""
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _row_mask(rows: torch.Tensor, M: int) -> torch.Tensor:
+    """(G, M, 1) bool: row p of slot g is valid iff p < rows[g]."""
+    p = torch.arange(M, device=rows.device)
+    return (p[None, :] < rows[:, None])[:, :, None]
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       rows: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (G, M, K) @ w: (G, K, N) -> (G, M, N); fp32 accumulation, cast.
+    Rows at or past ``rows[g]`` are zero."""
     out = torch.einsum("gmk,gkn->gmn", x.to(torch.float32), w.to(torch.float32))
+    if rows is not None:
+        out = torch.where(_row_mask(rows, x.shape[1]), out, 0.0)
     return out.to(x.dtype)
 
 
-def grouped_swiglu_ref(x: torch.Tensor, w1: torch.Tensor,
-                       w3: torch.Tensor) -> torch.Tensor:
-    """silu(x@w1) * (x@w3) per group, fp32 accumulation and gating, cast."""
+def grouped_swiglu_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                       rows: torch.Tensor | None = None) -> torch.Tensor:
+    """silu(x@w1) * (x@w3) per group, fp32 accumulation and gating, cast.
+    Rows at or past ``rows[g]`` are zero."""
     xf = x.to(torch.float32)
     h = torch.einsum("gmk,gkn->gmn", xf, w1.to(torch.float32))
     g = torch.einsum("gmk,gkn->gmn", xf, w3.to(torch.float32))
-    return (F.silu(h) * g).to(x.dtype)
+    out = F.silu(h) * g
+    if rows is not None:
+        out = torch.where(_row_mask(rows, x.shape[1]), out, 0.0)
+    return out.to(x.dtype)
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """True when TMA can read ``t`` as it is: a 16-byte aligned base and
+    positive outer strides that are multiples of 8 elements (16 bytes of
+    bf16)."""
+    return t.data_ptr() % 16 == 0 and all(
+        s > 0 and s % 8 == 0 for s in t.stride()[:-1])
+
+
+def _padded_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a zero buffer whose last dim is rounded up to 8,
+    returned as a view of ``t``'s shape."""
+    n = t.shape[-1]
+    buf = t.new_zeros(*t.shape[:-1], _round8(n))
+    buf[..., :n].copy_(t)
+    return buf[..., :n]
 
 
 def _launch(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
-            *, swiglu: bool) -> torch.Tensor:
-    """Validate, allocate the output and launch on the current stream."""
+            rows: torch.Tensor | None, *, swiglu: bool
+            ) -> tuple[torch.Tensor, int]:
+    """Validate, allocate the output and launch on the current stream.
+    Returns the output and the number of operands copied for TMA."""
     for t in (w1,) if w3 is None else (w1, w3):
         if t.device != x.device or t.dtype != x.dtype:
             raise ValueError("grouped GEMM operands must share device and dtype")
@@ -85,24 +140,46 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
             w3 is not None and w3.stride() != w1.stride()):
         raise ValueError("grouped GEMM operands need a unit-stride last dim "
                          "(and w1, w3 with equal strides)")
-    if G > _MAX_GRID_YZ or -(-M // _BLOCK_M[x.dtype]) > _MAX_GRID_YZ:
+    if rows is not None:
+        if rows.shape != (G,) or rows.device != x.device or rows.dtype not in (
+                torch.int32, torch.int64):
+            raise ValueError(f"rows must be an int32/int64 ({G},) tensor on "
+                             f"{x.device}")
+        rows = rows.to(torch.int64)
+    bf16 = x.dtype == torch.bfloat16
+    if not bf16 and (G > _MAX_GRID_YZ or -(-M // 64) > _MAX_GRID_YZ):
         raise ValueError(f"grid too large for G={G}, M={M}")
-    out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
+    copies = 0
+    if bf16:   # w1 and w3 share one pair of strides, so both are copied
+        ws = [w1] if w3 is None else [w1, w3]
+        if not all(map(_tma_ready, ws)):
+            ws = [_padded_copy(w) for w in ws]
+            copies += len(ws)
+            w1, w3 = ws[0], (None if w3 is None else ws[1])
+        if not _tma_ready(x):
+            x = _padded_copy(x)
+            copies += 1
+    n_out = _round8(N) if bf16 else N
+    out = torch.empty((G, M, n_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out
+        return out[..., :N], copies
     fn = LIBRARY.load().grouped_gemm_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
                    + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     w3_ptr = (w1 if w3 is None else w3).data_ptr()
     err = fn(_DTYPE_CODE[x.dtype], int(swiglu), x.data_ptr(), w1.data_ptr(),
-             w3_ptr, out.data_ptr(), G, M, K, N, x.stride(0), x.stride(1),
-             w1.stride(0), w1.stride(1), out.stride(0), out.stride(1), stream)
+             w3_ptr, out.data_ptr(), None if rows is None else rows.data_ptr(),
+             G, M, K, N, n_out, x.stride(0), x.stride(1), w1.stride(0),
+             w1.stride(1), out.stride(0), out.stride(1), stream)
     if err != 0:
-        raise RuntimeError(f"grouped_gemm kernel launch failed: CUDA error {err}")
-    return out
+        raise RuntimeError(f"grouped_gemm kernel launch failed: error {err} "
+                           f"(below 1000 a CUDA error; 1000 no "
+                           f"cuTensorMapEncodeTiled; 1001 + CUresult a "
+                           f"refused tensor map)")
+    return (out if n_out == N else out[..., :N]), copies
 
 
 def _check_device(x: torch.Tensor) -> bool:
@@ -114,22 +191,28 @@ def _check_device(x: torch.Tensor) -> bool:
     raise ValueError(f"no grouped GEMM for device {x.device}")
 
 
-def grouped_swiglu(x: torch.Tensor, w1: torch.Tensor,
-                   w3: torch.Tensor) -> torch.Tensor:
-    """Fused ``silu(x@w1) * (x@w3)``: x (G, M, K), w1/w3 (G, K, N) -> (G, M, N)."""
+def grouped_swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                   rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused ``silu(x@w1) * (x@w3)``: x (G, M, K), w1/w3 (G, K, N) ->
+    (G, M, N); slot g's rows at or past ``rows[g]`` (a (G,) int tensor on
+    x's device; None: M) come out zero."""
     if not _check_device(x):
-        return grouped_swiglu_ref(x, w1, w3)
-    out = _launch(x, w1, w3, swiglu=True)
+        return grouped_swiglu_ref(x, w1, w3, rows)
+    out, copies = _launch(x, w1, w3, rows, swiglu=True)
+    grouped_swiglu.padded_copies += copies
     if out.numel():
         grouped_swiglu.launches += 1
     return out
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Grouped matmul: x (G, M, K) @ w (G, K, N) -> (G, M, N)."""
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Grouped matmul: x (G, M, K) @ w (G, K, N) -> (G, M, N); slot g's rows
+    at or past ``rows[g]`` come out zero."""
     if not _check_device(x):
-        return grouped_matmul_ref(x, w)
-    out = _launch(x, w, None, swiglu=False)
+        return grouped_matmul_ref(x, w, rows)
+    out, copies = _launch(x, w, None, rows, swiglu=False)
+    grouped_matmul.padded_copies += copies
     if out.numel():
         grouped_matmul.launches += 1
     return out
@@ -247,5 +330,7 @@ def grouped_matmul_q8(q: torch.Tensor, row_scale: torch.Tensor,
 
 grouped_swiglu.launches = 0
 grouped_matmul.launches = 0
+grouped_swiglu.padded_copies = 0
+grouped_matmul.padded_copies = 0
 grouped_swiglu_q8.launches = 0
 grouped_matmul_q8.launches = 0

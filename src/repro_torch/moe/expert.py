@@ -38,17 +38,24 @@ def quantize_weight_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def grouped_ffn(xs: torch.Tensor, valid: torch.Tensor, w1: torch.Tensor,
                 w3: torch.Tensor, w2: torch.Tensor, *, ffn_dtype: str = "none",
                 xs_scale: torch.Tensor | None = None,
-                wq: tuple | None = None) -> torch.Tensor:
+                wq: tuple | None = None,
+                rows: torch.Tensor | None = None) -> torch.Tensor:
     """Per-slot SwiGLU.
 
     xs: (G, C, D) capacity-padded slot buffers, fp activations or int8 wire
     codes with their fp32 row scales ``xs_scale`` (G, C); valid: (G, C)
-    bool; w1, w3: (G, D, F); w2: (G, F, D).  ``wq``, for ``ffn_dtype="int8"``
-    only, is ``((w1q, w1s), (w3q, w3s), (w2q, w2s))``, equal to
-    :func:`quantize_weight_cols` of w1, w3, w2 (the layer keeps them, so
-    the weights are not quantized on every call); without it they are
-    quantized here, as the reference does.  Returns (G, C, D) in xs's dtype,
-    or w1's when xs arrived as int8, zero on padded rows.
+    bool, the prefix ``arange(C) < rows`` of each slot as the buckets of
+    :mod:`repro_torch.moe.permute` build it; rows: (G,) each slot's
+    valid-row count (the buckets return it; ``valid.sum(1)`` when not
+    given); w1, w3: (G, D, F); w2: (G, F, D).  The fp path hands ``rows`` to
+    both kernels, which compute only the valid rows and write exact zeros
+    past them on the device, whatever xs holds there.  ``wq``, for
+    ``ffn_dtype="int8"`` only, is ``((w1q, w1s), (w3q, w3s), (w2q, w2s))``,
+    equal to :func:`quantize_weight_cols` of w1, w3, w2 (the layer keeps
+    them, so the weights are not quantized on every call); without it they
+    are quantized here, as the reference does; this path masks with
+    ``valid``.  Returns (G, C, D) in xs's dtype, or w1's when xs arrived as
+    int8, zero on padded rows.
     """
     out_dtype = w1.dtype if xs.dtype == torch.int8 else xs.dtype
     if ffn_dtype == "int8":
@@ -70,9 +77,9 @@ def grouped_ffn(xs: torch.Tensor, valid: torch.Tensor, w1: torch.Tensor,
         aq, as_ = quantize_rows(act)
         out = grouped_matmul_q8(aq, as_, w2q, w2s)
     elif ffn_dtype == "none":
-        zero = torch.zeros((), dtype=xs.dtype, device=xs.device)
-        xs = torch.where(valid[:, :, None], xs, zero)
-        out = grouped_matmul(grouped_swiglu(xs, w1, w3), w2)
+        if rows is None:
+            rows = valid.sum(dim=1)
+        return grouped_matmul(grouped_swiglu(xs, w1, w3, rows), w2, rows)
     else:
         raise ValueError(f"unknown ffn_dtype: {ffn_dtype!r}")
     zero = torch.zeros((), dtype=out.dtype, device=out.device)

@@ -64,6 +64,7 @@ class ReplicatedBucket(NamedTuple):
     item_pos: torch.Tensor   # (N,) row within that slot buffer
     item_ok: torch.Tensor    # (N,) bool: mine, hosted and within capacity
     drops: torch.Tensor      # () of *my* items dropped
+    rows: torch.Tensor       # (num_slots,): valid = arange(cap) < rows
 
 
 def occurrence_by_histogram(ids: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -153,8 +154,10 @@ def fused_bucket(recv_x: torch.Tensor, recv_counts: torch.Tensor, *,
     """Sort-free receive-side bucketing from the count metadata.
 
     Mirrors ``repro.moe.permute.fused_bucket``.  Returns (xs, valid, meta,
-    drops): slot buffers (num_slots, cap_slot, D), their validity mask, the
-    :class:`BucketMeta` inverse map and the dropped-item count.
+    drops, rows): slot buffers (num_slots, cap_slot, D), their validity
+    mask, the :class:`BucketMeta` inverse map, the dropped-item count and
+    each slot's valid-row count (num_slots,): the valid rows of a slot are
+    the prefix ``arange(cap_slot) < rows``.
     """
     R, cap_pair, D = recv_x.shape
     dev = recv_x.device
@@ -172,7 +175,8 @@ def fused_bucket(recv_x: torch.Tensor, recv_counts: torch.Tensor, *,
     src = src.clamp(max=R - 1)                                   # (G, cap)
     g_idx = torch.arange(num_slots, dtype=_I64, device=dev)[:, None]
     row_pos = row_start[src, g_idx] + (p[None, :] - col_base[src, g_idx])
-    valid = p[None, :] < tot.clamp(max=cap_slot)[:, None]
+    rows = tot.clamp(max=cap_slot)
+    valid = p[None, :] < rows[:, None]
     flat = recv_x.reshape(-1, D)
     flat_idx = (src * cap_pair + row_pos).clamp(0, R * cap_pair - 1)
     xs = torch.where(valid[:, :, None], flat[flat_idx],
@@ -188,7 +192,7 @@ def fused_bucket(recv_x: torch.Tensor, recv_counts: torch.Tensor, *,
 
     drops = (recv_counts[:, num_slots].sum()
              + (tot - cap_slot).clamp(min=0).sum())
-    return xs, valid, meta, drops
+    return xs, valid, meta, drops, rows
 
 
 def fused_unbucket(out: torch.Tensor, meta: BucketMeta) -> torch.Tensor:
@@ -255,11 +259,13 @@ def fused_replicated_bucket(x: torch.Tensor, expert_ids: torch.Tensor,
 
     p = torch.arange(cap_slot, dtype=_I64, device=dev)
     gather_idx = start[:num_slots, None] + p[None, :]
-    valid = p[None, :] < cnt[:num_slots].clamp(max=cap_slot)[:, None]
+    rows = cnt[:num_slots].clamp(max=cap_slot)
+    valid = p[None, :] < rows[:, None]
     src_item = perm[gather_idx.clamp(0, n - 1)]
     xs = torch.where(valid[:, :, None], x[src_item // k], _zeros_like_scalar(x))
     return ReplicatedBucket(xs=xs, valid=valid, item_slot=key,
-                            item_pos=item_pos, item_ok=item_ok, drops=drops)
+                            item_pos=item_pos, item_ok=item_ok, drops=drops,
+                            rows=rows)
 
 
 def fused_replicated_combine(out: torch.Tensor, bucket: ReplicatedBucket,

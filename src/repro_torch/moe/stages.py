@@ -84,6 +84,8 @@ class DispatchState(NamedTuple):
     inverse: Any           # (FusedDispatch, BucketMeta) or ReplicatedBucket
     drops_dispatch: torch.Tensor
     drops_slot: torch.Tensor
+    rows: torch.Tensor     # (num_slots,) valid rows per slot: valid is the
+    #                        prefix arange(cap_slot) < rows
     xs_scale: torch.Tensor | None = None  # (num_slots, cap_slot) fp32 row
     #   scales of int8 xs when wire_dtype == ffn_dtype == "int8"
 
@@ -145,7 +147,8 @@ def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
             x_chunk, expert_ids, ps.plan.cum_u, gs.my,
             ps.slot_of_all[gs.my], num_slots=num_slots, cap_slot=cfg.cap_slot)
         return DispatchState(xs=rb.xs, valid=rb.valid, inverse=rb,
-                             drops_dispatch=zero, drops_slot=rb.drops)
+                             drops_dispatch=zero, drops_slot=rb.drops,
+                             rows=rb.rows)
     # The payload is encoded before the exchange (with one rank, the
     # identity) and decoded only after bucketing; routing lives in the
     # count metadata, so placement does not depend on the wire dtype.  The
@@ -156,7 +159,7 @@ def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
     disp = fused_dispatch(encode_wire(x_chunk, cfg.wire_dtype), expert_ids,
                           ps.plan.cum_q[gs.my], ps.slot_of_all,
                           num_slots=num_slots, cap_pair=cfg.cap_pair)
-    xs, valid, meta, slot_drops = fused_bucket(
+    xs, valid, meta, slot_drops, rows = fused_bucket(
         disp.send_x, disp.send_counts, num_slots=num_slots,
         cap_slot=cfg.cap_slot)
     xs_scale = None
@@ -166,15 +169,15 @@ def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
         xs = decode_wire(xs, cfg.wire_dtype, x_chunk.dtype)
     return DispatchState(xs=xs, valid=valid, inverse=(disp, meta),
                          drops_dispatch=disp.drops, drops_slot=slot_drops,
-                         xs_scale=xs_scale)
+                         xs_scale=xs_scale, rows=rows)
 
 
 def compute_stage(cfg, ds: DispatchState, dist: DistributeState) -> torch.Tensor:
     """Grouped FFN over this rank's physical slots (two kernels, fp or
-    w8a8)."""
+    w8a8); the fp kernels skip each slot's padded rows on the device."""
     return grouped_ffn(ds.xs, ds.valid, dist.w1_all, dist.w3_all, dist.w2_all,
                        ffn_dtype=cfg.ffn_dtype, xs_scale=ds.xs_scale,
-                       wq=dist.q8)
+                       wq=dist.q8, rows=ds.rows)
 
 
 def combine_stage(cfg, ds: DispatchState, out: torch.Tensor,
@@ -231,7 +234,7 @@ def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
         drops_slot=ds.drops_slot,
         pre_max=ps.plan.pre_max,
         post_max=ps.plan.post_max,
-        max_slot_load=ds.valid.sum(dim=1).max(),
+        max_slot_load=ds.rows.max(),
         counts=gs.gate_out.counts,
     )
     return y.to(x.dtype), gs.gate_out.aux_loss, stats

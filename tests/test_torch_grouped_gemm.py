@@ -78,6 +78,86 @@ def test_wrappers_on_cpu_match_jax_oracle(G, M, K, N):
     assert (ops.grouped_swiglu.launches, ops.grouped_matmul.launches) == before
 
 
+# Counts per slot: empty, a partial tile, full (and a count past M, which
+# means M).
+@pytest.mark.parametrize("G,M,K,N,rows", [(3, 128, 128, 128, [0, 37, 128]),
+                                          (4, 8, 256, 128, [0, 3, 8, 9])])
+def test_plain_versions_with_rows_match_pallas_interpret(G, M, K, N, rows):
+    """The Pallas kernels compute every row; on slot buffers whose rows
+    past each count are zero (as the buckets build them) they give zeros
+    there, which the plain versions with ``rows`` give by masking."""
+    import jax.numpy as jnp
+
+    from repro.kernels.grouped_gemm.kernel import (
+        grouped_matmul_pallas,
+        grouped_swiglu_pallas,
+    )
+
+    x, w1, w3 = _inputs(G, M, K, N, seed=4)
+    for g, r in enumerate(rows):
+        x[g, r:] = 0.0
+    tx, tw1, tw3 = map(torch.from_numpy, (x, w1, w3))
+    tr = torch.tensor(rows)
+    _close(ops.grouped_swiglu_ref(tx, tw1, tw3, tr).numpy(),
+           grouped_swiglu_pallas(jnp.asarray(x), jnp.asarray(w1),
+                                 jnp.asarray(w3), bm=min(128, M),
+                                 interpret=True))
+    _close(ops.grouped_matmul_ref(tx, tw1, tr).numpy(),
+           grouped_matmul_pallas(jnp.asarray(x), jnp.asarray(w1),
+                                 bm=min(128, M), interpret=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_dtype", [torch.int32, torch.int64])
+def test_wrappers_zero_rows_past_count(dtype, rows_dtype):
+    """Rows at or past the count come out as exact zeros whatever x holds
+    there (NaN and inf too); the rows before it are those of the unmasked
+    call."""
+    G, M, K, N = 4, 40, 24, 16
+    x, w1, w3 = (torch.from_numpy(a).to(dtype)
+                 for a in _inputs(G, M, K, N, seed=5))
+    rows = torch.tensor([0, 17, 40, 1], dtype=rows_dtype)
+    junk = x.clone()
+    for g, r in enumerate(rows.tolist()):
+        junk[g, r:] = torch.tensor([float("nan"), float("inf")] * (K // 2),
+                                   dtype=dtype)
+    for masked, plain in (
+            (ops.grouped_swiglu(junk, w1, w3, rows),
+             ops.grouped_swiglu(x, w1, w3)),
+            (ops.grouped_matmul(junk, w1, rows), ops.grouped_matmul(x, w1))):
+        assert masked.dtype == dtype and masked.shape == (G, M, N)
+        for g, r in enumerate(rows.tolist()):
+            assert torch.equal(masked[g, :r], plain[g, :r])
+            assert torch.equal(masked[g, r:], torch.zeros_like(masked[g, r:]))
+
+
+def test_tma_operand_helpers():
+    """What the bf16 launch does before it touches a card: which operands
+    TMA can read as they are, the zero-padded copy of one it cannot, and
+    the strides handed to the tensor maps."""
+    x = torch.randn(2, 65, 33).to(torch.bfloat16)     # rows 66 bytes apart
+    assert not ops._tma_ready(x)
+    xp = ops._padded_copy(x)
+    assert xp.shape == x.shape and xp.stride() == (65 * 40, 40, 1)
+    assert torch.equal(xp, x) and ops._tma_ready(xp)
+    assert not xp._base[..., 33:].any()
+    assert ops._tma_ready(torch.zeros(3, 1009, 136, dtype=torch.bfloat16))
+    assert ops._tma_ready(torch.zeros(1, 1, 64, dtype=torch.bfloat16))
+    assert not ops._tma_ready(torch.zeros(1, 1, 45, dtype=torch.bfloat16))
+    assert not ops._tma_ready(torch.zeros(3, 16, 40, dtype=torch.bfloat16)
+                              [:, :, 1:])                 # starts mid-row
+    assert not ops._tma_ready(torch.zeros(1, 16, 8).expand(3, 16, 8))
+
+
+def test_wrappers_check_rows():
+    """A (G,) int32/int64 tensor on x's device, checked before launch."""
+    x, w = torch.zeros((2, 4, 8)), torch.zeros((2, 8, 4))
+    for rows in (torch.zeros(3, dtype=torch.int64), torch.zeros(2),
+                 torch.zeros((2, 1), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="rows"):
+            ops._launch(x, w, None, rows, swiglu=False)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.empty((1, 4, 4), device="meta")
     with pytest.raises(ValueError):
@@ -167,6 +247,79 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, G, M, K, N):
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= tol * ref.float().abs().max().item()
+
+
+def _serve_like_rows(G, M, seed):
+    """Counts as a bucket returns them: empty slots, a partial tile, slots
+    that straddle a 128-row tile, full ones."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, M + 1, G)
+    rows[::4] = 0
+    if G > 2:
+        rows[1], rows[2] = M, min(M, 129)
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,M,K,N", [(1, 1, 64, 64), (3, 1009, 136, 200),
+                                     (2, 65, 33, 129), (6, 300, 512, 384),
+                                     (5, 8, 256, 136)])
+@pytest.mark.parametrize("counts", ["zero", "straddle", "full", "serve"])
+def test_kernels_with_rows_match_plain_on_card(cuda_device, dtype, G, M, K,
+                                               N, counts):
+    """Valid rows within the dtype's tolerance of the plain version with
+    the same counts; rows past the count exactly zero even where x holds
+    NaN; the same counts as int32 give the same output."""
+    x, w1, w3 = (torch.from_numpy(a).to(cuda_device, dtype)
+                 for a in _inputs(G, M, K, N, seed=6))
+    rows = {"zero": np.zeros(G, np.int64),
+            "straddle": np.minimum(M, 1 + 127 * np.arange(1, G + 1)),
+            "full": np.full(G, M),
+            "serve": _serve_like_rows(G, M, seed=G)}[counts]
+    rt = torch.from_numpy(np.asarray(rows, np.int64)).to(cuda_device)
+    mask = ops._row_mask(rt, M)
+    junk = torch.where(mask, x, torch.full_like(x, float("nan")))
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for out, out32, ref in (
+            (ops.grouped_swiglu(junk, w1, w3, rt),
+             ops.grouped_swiglu(junk, w1, w3, rt.to(torch.int32)),
+             ops.grouped_swiglu_ref(x, w1, w3, rt)),
+            (ops.grouped_matmul(junk, w1, rt),
+             ops.grouped_matmul(junk, w1, rt.to(torch.int32)),
+             ops.grouped_matmul_ref(x, w1, rt))):
+        torch.cuda.synchronize()
+        assert torch.equal(out, out32)
+        assert not out.masked_select(~mask).any()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol * max(ref.float().abs().max().item(), 1e-30)
+
+
+@pytest.mark.cuda
+def test_padded_copies_on_card(cuda_device):
+    """An operand TMA cannot read is copied, counted, and gives the plain
+    version's result; aligned operands and the views the kernel returns
+    are not copied."""
+    sw, mm = ops.grouped_swiglu, ops.grouped_matmul
+    x, w1, w3 = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                 for a in _inputs(2, 65, 33, 129, seed=7))
+    before = (sw.padded_copies, mm.padded_copies)
+    act = sw(x, w1, w3)                     # x, w1 and w3 are copied
+    assert (sw.padded_copies - before[0], mm.padded_copies) == (3, before[1])
+    assert act.shape == (2, 65, 129) and act.stride(1) == 136
+    w2 = torch.randn((2, 129, 45), device=cuda_device).to(torch.bfloat16)
+    out = mm(act, w2)                       # only w2 (rows 90 bytes apart)
+    assert mm.padded_copies - before[1] == 1
+    torch.cuda.synchronize()
+    ref = ops.grouped_matmul_ref(act, w2)
+    assert (out.float() - ref.float()).abs().max() <= \
+        1e-2 * ref.float().abs().max()
+    xa, wa, _ = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                 for a in _inputs(2, 64, 64, 128, seed=8))
+    n = (sw.padded_copies, mm.padded_copies)
+    sw(xa, wa, wa)
+    mm(xa, wa)
+    assert (sw.padded_copies, mm.padded_copies) == n
 
 
 def _k_contiguous(w: torch.Tensor) -> torch.Tensor:

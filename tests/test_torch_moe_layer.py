@@ -2,7 +2,10 @@
 ``examples/quickstart.py`` shapes (T 256, D 64, F 128, E 64, k 4), with the
 same numpy weights in both.  y within 1e-5 (fp32; the CPU path of the
 grouped FFN is the plain fp32 einsum), MoEStats integers exact.  The same
-holds with the wire codec and the w8a8 FFN on: y within 1e-5 * max|y|."""
+holds with the wire codec and the w8a8 FFN on: y within 1e-5 * max|y|.
+The buckets' per-slot row counts (``rows``) describe their validity masks
+exactly (a seeded hypothesis property), and ``grouped_ffn`` with ``rows``
+equals the JAX ``grouped_ffn`` within 1e-5."""
 
 import dataclasses
 
@@ -11,13 +14,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.core.balancer import BalancerConfig as JBalancerConfig
 from repro.moe.gating import GatingConfig as JGatingConfig
 from repro.moe.layer import MoEConfig as JMoEConfig
 from repro.moe.layer import MoEParams as JMoEParams
+from repro.moe.expert import grouped_ffn as j_grouped_ffn
 from repro.moe.layer import moe_layer_local as j_moe_layer_local
 from repro_torch import convert
+from repro_torch.moe import stages
+from repro_torch.moe.expert import grouped_ffn
 from repro_torch.core.balancer import BalancerConfig
 from repro_torch.moe.gating import GatingConfig, gate
 from repro_torch.moe.layer import MoEConfig, moe_layer_local
@@ -135,3 +143,52 @@ def test_slot_buffer_tail_is_written_in_place():
     tp.w1 = torch.nn.Parameter(tp.w1.clone(), requires_grad=False)
     with pytest.raises(RuntimeError):
         tp.slot_buffers()
+
+
+@settings(max_examples=30, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2**31 - 1), cap_slot=st.integers(1, 48),
+       mode=st.sampled_from(["a2a", "replicated"]),
+       balancer=st.sampled_from(["ultraep", "none"]))
+def test_bucket_rows_are_the_valid_prefix(seed, cap_slot, mode, balancer):
+    """What the kernels rely on: each slot's valid rows are the prefix
+    ``arange(cap_slot) < rows`` and ``rows == valid.sum(1)``, from both
+    buckets, with and without drops at slot capacity."""
+    _, tcfg = _configs(mode, balancer, False, (T * K, cap_slot))
+    tp = convert.moe_params(_params(False), n_slot=2, device="cpu")
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32)
+                         * rng.uniform(0.5, 4.0))
+    gs = stages.gate_stage(tcfg, x, tp.router)
+    ps = stages.plan_stage(tcfg, gs)
+    ds = stages.dispatch_stage(tcfg, x, gs.gate_out.expert_ids, gs, ps)
+    assert ds.rows.shape == (tcfg.layout.slots_per_rank,)
+    assert torch.equal(ds.rows, ds.valid.sum(dim=1))
+    p = torch.arange(ds.valid.shape[1])
+    assert torch.equal(ds.valid, p[None, :] < ds.rows[:, None])
+    assert not ds.xs[~ds.valid].any()
+
+
+@pytest.mark.parametrize("junk", [False, True])
+def test_grouped_ffn_rows_matches_jax(junk):
+    """Slot buffers whose rows past each count are zero (as the buckets
+    build them) through the JAX ``grouped_ffn`` and through the port's with
+    ``rows``; with ``junk`` the port's padded rows hold NaN, which the
+    kernels' row counts must keep out of the output."""
+    rng = np.random.default_rng(2)
+    G, C = 6, 24
+    rows = np.array([0, 5, 24, 13, 1, 16])
+    valid = np.arange(C)[None, :] < rows[:, None]
+    xs = (rng.standard_normal((G, C, D))
+          * valid[:, :, None]).astype(np.float32)
+    ws = [(rng.standard_normal(shape) * shape[1] ** -0.5).astype(np.float32)
+          for shape in ((G, D, F), (G, D, F), (G, F, D))]
+    y_j = np.asarray(j_grouped_ffn(jnp.asarray(xs), jnp.asarray(valid),
+                                   *map(jnp.asarray, ws)))
+    xs_t = torch.from_numpy(xs)
+    if junk:
+        xs_t[torch.from_numpy(~valid)] = float("nan")
+    y_t = grouped_ffn(xs_t, torch.from_numpy(valid),
+                      *map(torch.from_numpy, ws), rows=torch.from_numpy(rows))
+    assert not y_t.numpy()[~valid].any()               # padded rows zero
+    np.testing.assert_allclose(y_t.numpy(), y_j, rtol=1e-5,
+                               atol=1e-5 * np.abs(y_j).max())

@@ -81,10 +81,11 @@ def test_fused_a2a_pipeline_bitwise(R, cap_pair, cap_slot):
         jx, jv, jm, jdrops = j_bucket(
             jnp.asarray(recv_x), jnp.asarray(recv_c), num_slots=S,
             cap_slot=cap_slot)
-        tx, tv, tm, tdrops = tperm.fused_bucket(
+        tx, tv, tm, tdrops, trows = tperm.fused_bucket(
             _t(recv_x), _t(recv_c), num_slots=S, cap_slot=cap_slot)
         _eq(jx, tx, "xs")
         _eq(jv, tv, "valid")
+        _eq(np.asarray(jv).sum(1), trows, "rows")
         for f in tperm.BucketMeta._fields:
             _eq(getattr(jm, f), getattr(tm, f), f"meta.{f}")
         assert int(jdrops) == int(tdrops)
@@ -114,8 +115,9 @@ def test_fused_replicated_bitwise(R, cap_slot):
         tb = tperm.fused_replicated_bucket(
             _t(x[0]), _t(ids[0]), _t(plan.cum_u), me, _t(slot_of[me]),
             num_slots=S, cap_slot=cap_slot)
-        for f in tperm.ReplicatedBucket._fields:
+        for f in jperm.ReplicatedBucket._fields:
             _eq(getattr(jb, f), getattr(tb, f), f"bucket.{f} me={me}")
+        _eq(np.asarray(jb.valid).sum(1), tb.rows, f"bucket.rows me={me}")
         out = rng.standard_normal(tuple(tb.xs.shape)).astype(np.float32)
         _eq(jperm.fused_replicated_combine(jnp.asarray(out), jb,
                                            jnp.asarray(w[0])),
