@@ -39,10 +39,19 @@ Phases, one output line each:
      last chunk), at Qwen3's 64 over 4 heads, at decode (B 4, per-row
      lengths), at the Pallas kernel's own case (Sq = Sk = 2048, causal and
      not), in fp32 and at head dims 64 and 16 (the reduced configurations'),
-     each output row (batch row, query position, head) within a share of its
+     at the split edges (decode rows of length 1, of exactly one split,
+     ending on a split edge, and of the full capacity), at G 16 with Sq not
+     a multiple of 8, with a q tile straddling kv_valid_len, at hd 64 on
+     the wgmma kernel and hd 16 on the mma.sync kernel; each case asserts
+     the kernel the wrapper picked (``launches_by_kernel``) and holds each
+     output row (batch row, query position, head) within a share of its
      own max|ref|: 1e-2 in bf16 (P and the output rounded to bf16), 1e-4 in
-     fp32; with ``scaled_dot_product_attention`` (same boolean mask) timed as
-     the library yardstick;
+     fp32.  Library yardsticks: ``scaled_dot_product_attention`` with the
+     same boolean mask and, where every row shares one offset (B 1), without
+     a mask (k/v sliced to the valid length, ``causal_lower_right``, flash
+     or memory-efficient backend); the faster is ``library_ms``.  Kernel and
+     SDPA times are device times from CUDA-graph replays (``ms_eager``:
+     back to back);
   3. the balanced MoE layer at GLM-4.5-Air width (T 4096, ep_size 1) in the
      a2a and replicated modes against the dense oracle ``moe_ref`` in fp32
      (bf16 layer: 2e-2 max|ref|, fp32 layer: 1e-4 max|ref|), zero drops;
@@ -65,13 +74,18 @@ Phases, one output line each:
   7. ``serve_trace`` on Qwen3-235B-A22B at every published width with depth
      cut to 2 layers, with the settings of phase 4; then (7b) the serve
      entry point ``python -m repro_torch.launch.serve --reduce`` (its
-     ``main``) on each of the three archs in fp32 (its default) and bf16;
+     ``main``) on each of the three archs in fp32 (its default) and bf16 at
+     chunk 64 (every flash call on the split-KV kernel), and on GLM-4.5-Air
+     at chunk 4096 (prefill on the fp32 and the hd-16 mma.sync kernels);
   8. the kernels with their launch counts on the serve paths: every count
      is set to 0 just before each serve run and read just after it; on
      every path (phase 7b's too) ``flash_attention`` runs once per
-     attention layer and engine call, and ``gating_topk`` and the path's
-     two grouped GEMMs (bf16/fp32 or w8a8) once per MoE layer and engine
-     call, and no operand was copied for TMA (``padded_copies`` 0).
+     attention layer and engine call, by the kernel its shapes select (on
+     the bf16 hd-128 paths of phases 4, 6, 7: prefill calls through the
+     TMA + wgmma kernel, decode calls through the split-KV kernel, never the
+     hd-16 mma.sync kernel), and ``gating_topk`` and the path's two grouped
+     GEMMs (bf16/fp32 or w8a8) once per MoE layer and engine call, and no
+     operand was copied for TMA (``padded_copies`` 0).
 
 TF32 is off for matmuls and cuDNN, so fp32 references are full fp32.  Any
 failed check raises and the script exits non-zero; the last line is the
@@ -86,6 +100,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -730,51 +745,150 @@ def _check_rows(name, out, ref, tol) -> tuple[float, float, float]:
     return err.max().item(), scale.max().item(), ratio
 
 
+def _graph_ms(fn, iters: int) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph,
+    replayed once to warm up, then timed over one replay, so the host's
+    per-call work (Python, ctypes, allocation) does not hide a kernel of a
+    few microseconds."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                   # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def _sdpa_free(q, k, v, causal, q_off, kv_len):
+    """The mask-free library call where every row shares one offset and
+    the chunk ends at the valid length (B 1, q_offset + Sq = kv_valid_len,
+    or not causal): k/v sliced to the valid length and, when causal,
+    ``causal_lower_right``, under the flash or the memory-efficient
+    backend, GQA native or (if refused) k/v expanded to H heads outside
+    the timed call.  Returns (call, backend, gqa) or None where no such
+    call computes the same function."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+
+    B, Sq, H, _ = q.shape
+    L = kv_len[0]
+    if B != 1 or L < 1 or (causal and q_off[0] + Sq != L):
+        return None
+    qt = q.transpose(1, 2)
+    kt = k[:, :L].transpose(1, 2)
+    vt = v[:, :L].transpose(1, 2)
+    mask = causal_lower_right(Sq, L) if causal else None
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        for gqa in (True, False):
+            if gqa:
+                kk, vv = kt, vt
+            else:
+                rep = H // kt.shape[1]
+                kk = kt.repeat_interleave(rep, dim=1).contiguous()
+                vv = vt.repeat_interleave(rep, dim=1).contiguous()
+
+            def call(kk=kk, vv=vv, backend=backend, gqa=gqa):
+                with sdpa_kernel([backend]):
+                    return F.scaled_dot_product_attention(
+                        qt, kk, vv, attn_mask=mask, enable_gqa=gqa)
+
+            try:
+                with warnings.catch_warnings():   # SDPA's reasons for no
+                    warnings.simplefilter("ignore")   # kernel: expected here
+                    call()
+            except RuntimeError:
+                continue
+            torch.cuda.synchronize()
+            return call, backend.name, gqa
+    return None
+
+
 def phase_flash() -> dict:
     """``flash_attention`` vs its plain version; returns the records by
-    case."""
+    case, each with the kernel that ran."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops
 
     bf16, fp32 = torch.bfloat16, torch.float32
+    wg, split = "prefill_wgmma", "decode_split"
+    edges = [1, 1024, 2048, SERVE_SK]      # GLM decode: 1024 keys a split
     # tag, B, Sq, Sk, H, Hkv, hd, dtype, causal, q_offset per row,
-    # kv_valid_len per row, timing iterations
+    # kv_valid_len per row, the kernel the wrapper must pick, timing
+    # iterations
     cases = [("glm_prefill_at_4096", 1, 4096, SERVE_SK, 32, 8, 128, bf16,
-              True, [4096], [8192], 20),
+              True, [4096], [8192], wg, 20),
              ("glm_prefill_at_0", 1, 4096, SERVE_SK, 32, 8, 128, bf16, True,
-              [0], [4096], 20),
+              [0], [4096], wg, 20),
              ("glm_prefill_ragged", 1, 4096, SERVE_SK, 32, 8, 128, bf16,
-              True, [4096], [4096 + 1808], 0),
+              True, [4096], [4096 + 1808], wg, 0),
              ("qwen3_prefill_at_4096", 1, 4096, SERVE_SK, 64, 4, 128, bf16,
-              True, [4096], [8192], 10),
+              True, [4096], [8192], wg, 10),
              ("decode", 4, 1, SERVE_SK, 32, 8, 128, bf16, False, [0] * 4,
-              [2048, 6144, 3000, 1], 50),
+              [2048, 6144, 3000, 1], split, 50),
              ("qwen3_decode", 4, 1, SERVE_SK, 64, 4, 128, bf16, False,
-              [0] * 4, [2048, 6144, 3000, 1], 50),
+              [0] * 4, [2048, 6144, 3000, 1], split, 50),
              ("pallas_causal", 1, 2048, 2048, 32, 8, 128, bf16, True, [0],
-              [2048], 20),
+              [2048], wg, 20),
              ("pallas_full", 1, 2048, 2048, 32, 8, 128, bf16, False, [0],
-              [2048], 0),
+              [2048], wg, 0),
              ("fp32_prefill", 1, 1024, 4096, 32, 8, 128, fp32, True, [1024],
-              [2048], 3),
+              [2048], "prefill_f32", 3),
              ("fp32_decode", 4, 1, SERVE_SK, 32, 8, 128, fp32, False, [0] * 4,
-              [2048, 6144, 3000, 1], 10),
+              [2048, 6144, 3000, 1], split, 10),
              ("hd64", 2, 300, 1000, 16, 4, 64, bf16, True, [0, 500],
-              [300, 777], 0),
+              [300, 777], split, 0),
              ("hd64_fp32", 2, 300, 1000, 16, 4, 64, fp32, True, [0, 500],
-              [300, 777], 0),
+              [300, 777], "prefill_f32", 0),
              ("reduced_prefill", 2, 64, 272, 4, 2, 16, bf16, True, [0, 64],
-              [50, 100], 0),
+              [50, 100], split, 0),
              ("reduced_prefill_fp32", 2, 64, 272, 4, 2, 16, fp32, True,
-              [0, 64], [50, 100], 0),
+              [0, 64], [50, 100], split, 0),
              ("reduced_decode", 4, 1, 272, 4, 2, 16, bf16, False, [0] * 4,
-              [1, 80, 200, 272], 0),
+              [1, 80, 200, 272], split, 0),
              ("reduced_decode_fp32", 4, 1, 272, 4, 2, 16, fp32, False,
-              [0] * 4, [1, 80, 200, 272], 0)]
+              [0] * 4, [1, 80, 200, 272], split, 0),
+             # Split edges: rows of length 1, of exactly one split, ending
+             # on a split edge, and of the full capacity.
+             ("decode_split_edges", 4, 1, SERVE_SK, 32, 8, 128, bf16, False,
+              [0] * 4, edges, split, 0),
+             ("decode_split_edges_fp32", 4, 1, SERVE_SK, 32, 8, 128, fp32,
+              False, [0] * 4, edges, split, 0),
+             ("qwen3_decode_split_edges", 4, 1, SERVE_SK, 64, 4, 128, bf16,
+              False, [0] * 4, [1, 512, 1024, SERVE_SK], split, 0),
+             # G 16 with Sq not a multiple of 8; a q tile straddling
+             # kv_valid_len; hd 64 on the wgmma kernel; hd 16 on mma.sync.
+             ("qwen3_prefill_ragged_sq", 1, 1001, 1301, 64, 4, 128, bf16,
+              True, [300], [1301], wg, 0),
+             ("prefill_straddle", 2, 1000, 3000, 32, 8, 128, bf16, True,
+              [0, 1500], [777, 2100], wg, 0),
+             ("hd64_wgmma", 2, 1024, 2048, 16, 4, 64, bf16, True, [0, 512],
+              [1024, 1536], wg, 0),
+             ("hd16_mma", 8, 512, 1024, 8, 2, 16, bf16, True,
+              [0, 1, 2, 3, 4, 5, 6, 500],
+              [512, 600, 700, 800, 900, 1000, 1024, 1012],
+              "prefill_mma_hd16", 0)]
     records = {}
-    for (tag, B, Sq, Sk, H, Hkv, hd, dtype, causal, q_off, kv_len,
+    for (tag, B, Sq, Sk, H, Hkv, hd, dtype, causal, q_off, kv_len, want,
          iters) in cases:
         kind = "bf16" if dtype == bf16 else "fp32"
         g = torch.Generator(device="cuda").manual_seed(len(tag))
@@ -786,13 +900,25 @@ def phase_flash() -> dict:
         kw = dict(causal=causal, q_offset=off, kv_valid_len=lim)
         rec = {"shape": [B, Sq, Sk, H, Hkv, hd], "dtype": kind,
                "causal": causal, "q_offset": q_off, "kv_valid_len": kv_len}
+        before = dict(ops.flash_attention.launches_by_kernel)
         out = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        ran = [n for n, c in ops.flash_attention.launches_by_kernel.items()
+               if c != before[n]]
+        if ran != [want]:
+            raise AssertionError(f"flash_attention {tag} ran {ran}, not "
+                                 f"[{want}]")
+        rec["kernel"] = want
+        plan = ops.plan_launch(B, Sq, Sk, H, Hkv, hd, dtype,
+                               ops._sm_count(q.device))
+        if want == split:
+            rec["splits"], rec["keys_per_split"] = (plan.splits,
+                                                    plan.keys_per_split)
         ref = ops.flash_attention_ref(q, k, v, **kw)
         (rec["max_abs_err"], rec["max_abs_ref"],
          rec["max_row_rel_err"]) = _check_rows(f"flash_attention {tag}", out,
                                                ref, FLASH_TOL[kind])
-        # The library yardstick must compute the same function.
+        # The library yardsticks must compute the same function.
         kpos = torch.arange(Sk, device="cuda")
         qpos = torch.arange(Sq, device="cuda")[None, :] + off[:, None]
         mask = kpos[None, None, :] < lim[:, None, None]
@@ -805,24 +931,49 @@ def phase_flash() -> dict:
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
 
-        # Its own rounding may differ from the kernel's; a wrong mask would
-        # differ by O(max|ref|).
+        # Their own rounding may differ from the kernel's; a wrong mask
+        # would differ by O(max|ref|).
         rec["library_max_abs_err"], _ = _max_err(sdpa().transpose(1, 2), ref)
         if not rec["library_max_abs_err"] <= 5e-2 * rec["max_abs_ref"]:
             raise AssertionError(f"sdpa yardstick {tag} differs: "
                                  f"{rec['library_max_abs_err']}")
+        free = _sdpa_free(q, k, v, causal, q_off, kv_len)
+        if free is not None:
+            free_call, rec["sdpa_free_backend"], rec["sdpa_free_gqa"] = free
+            rec["sdpa_free_max_abs_err"], _ = _max_err(
+                free_call().transpose(1, 2), ref)
+            if not rec["sdpa_free_max_abs_err"] <= 5e-2 * rec["max_abs_ref"]:
+                raise AssertionError(f"mask-free sdpa {tag} differs: "
+                                     f"{rec['sdpa_free_max_abs_err']}")
         pairs, keys = _flash_pairs(Sq, causal, q_off, kv_len)
         rec["pairs"] = pairs
         if iters:
             rec.update(_time_pair(
                 lambda: ops.flash_attention(q, k, v, **kw),
-                lambda: ops.flash_attention_ref(q, k, v, **kw), sdpa,
+                lambda: ops.flash_attention_ref(q, k, v, **kw), None,
                 4.0 * hd * H * pairs,
                 q.element_size() * hd * (2 * B * Sq * H + 2 * keys * Hkv),
                 kind, iters))
+            # Device time without the host's per-call work (CUDA graphs);
+            # the eager back-to-back time above stays as ms_eager.
+            rec["ms_eager"] = rec["ms"]
+            rec["ms"] = _graph_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                                  iters)
+            rec["sdpa_masked_ms"] = _graph_ms(sdpa, iters)
+            rec["sdpa_free_ms"] = (None if free is None
+                                   else _graph_ms(free[0], iters))
+            rec["library_ms"] = min(t for t in (rec["sdpa_masked_ms"],
+                                                rec["sdpa_free_ms"])
+                                    if t is not None)
+            rec["slower_than_library"] = rec["ms"] / rec["library_ms"]
         records[tag] = rec
-        del q, k, v, out, ref, mask, qt, kt, vt
+        del q, k, v, out, ref, mask, qt, kt, vt, free
         torch.cuda.empty_cache()
+    # The graph timings ran cuBLAS on streams of their own, and each such
+    # stream keeps a workspace: release them, so the serve phases' peak
+    # memory counts the serve path alone.
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
     _line("phase2_flash_attention", records)
     return records
 
@@ -848,10 +999,19 @@ def _reset_launches():
         fn.launches = 0
         if hasattr(fn, "padded_copies"):
             fn.padded_copies = 0
+        for kernel in getattr(fn, "launches_by_kernel", {}):
+            fn.launches_by_kernel[kernel] = 0
 
 
 def _launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launch counts by wrapper, and flash_attention's by kernel (as
+    ``flash_attention.<kernel>``)."""
+    counts = {}
+    for name, fn in _wrappers().items():
+        counts[name] = fn.launches
+        for kernel, n in getattr(fn, "launches_by_kernel", {}).items():
+            counts[f"{name}.{kernel}"] = n
+    return counts
 
 
 def _padded_copies() -> dict:
@@ -917,23 +1077,31 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
 
 
 def _check_kernel_calls(path: str, launches: dict, copies: dict, cfg,
-                        calls: int, ffn_dtype: str = "none") -> None:
+                        calls: dict, ffn_dtype: str = "none") -> None:
     """No attention, gate or expert FFN call went around its kernel: one
-    launch per attention (MoE) layer and engine call; and no operand of
-    the grouped GEMMs was copied for TMA."""
+    launch per attention (MoE) layer and engine call; the flash calls by
+    the kernel ``calls`` names for them (``calls``: flash kernel -> engine
+    calls, e.g. prefill calls through ``prefill_wgmma``; every other flash
+    kernel must not have run); and no operand of the grouped GEMMs was
+    copied for TMA."""
     from repro_torch.configs import layer_kinds
+    from repro_torch.kernels.flash_attention.ops import KERNELS
 
     kinds = layer_kinds(cfg)
     moe = sum(k.endswith("+moe") for k in kinds)
+    attn = sum(k.startswith("attn+") for k in kinds)
+    total = sum(calls.values())
     ffn = ("_q8" if ffn_dtype == "int8" else "")
-    for name, layers in (
-            ("flash_attention", sum(k.startswith("attn+") for k in kinds)),
-            ("gating_topk", moe), ("grouped_swiglu" + ffn, moe),
-            ("grouped_matmul" + ffn, moe)):
-        if launches[name] != layers * calls:
+    expect = [("flash_attention", attn * total), ("gating_topk", moe * total),
+              ("grouped_swiglu" + ffn, moe * total),
+              ("grouped_matmul" + ffn, moe * total)]
+    expect += [(f"flash_attention.{k}", attn * calls.get(k, 0))
+               for k in KERNELS]
+    for name, want in expect:
+        if launches[name] != want:
             raise AssertionError(
                 f"{name} was launched {launches[name]} times on the {path} "
-                f"serve path, not {layers} layers x {calls} engine calls")
+                f"serve path, not {want} (layers x engine calls)")
     if any(copies.values()):
         raise AssertionError(f"the {path} serve path copied operands for "
                              f"TMA: {copies}")
@@ -942,38 +1110,54 @@ def _check_kernel_calls(path: str, launches: dict, copies: dict, cfg,
 def phase_serve_cli() -> dict:
     """The serve entry point as a user calls it (``python -m
     repro_torch.launch.serve --arch ... --reduce``, through its ``main``)
-    on each arch in fp32, its default, and bf16: every request finishes
-    with its tokens, and every attention and gate call of the run went
-    through its kernel."""
+    on each arch in fp32, its default, and bf16 at chunk 64, and on
+    GLM-4.5-Air at chunk 4096: every request finishes with its tokens, and
+    every attention and gate call of the run went through its kernel.  At
+    chunk 64 no prefill grid fills the card, so every flash call takes the
+    split-KV kernel; at chunk 4096 the prefill calls take the fp32 and the
+    hd-16 ``mma.sync`` kernels."""
     from repro_torch.configs import get_config
     from repro_torch.configs.reduce import reduced
     from repro_torch.launch.serve import main as serve_main
 
+    runs = [(arch, dtype, 64) for arch in ("glm45-106b-a12b",
+                                           "jamba-v0.1-52b",
+                                           "qwen3-235b-a22b")
+            for dtype in ("float32", "bfloat16")]
+    runs += [("glm45-106b-a12b", dtype, 4096)
+             for dtype in ("float32", "bfloat16")]
+    prefill_kernel = {64: {"float32": "decode_split",
+                           "bfloat16": "decode_split"},
+                      4096: {"float32": "prefill_f32",
+                             "bfloat16": "prefill_mma_hd16"}}
     records = {}
-    for arch in ("glm45-106b-a12b", "jamba-v0.1-52b", "qwen3-235b-a22b"):
+    for arch, dtype, chunk in runs:
         cfg = reduced(get_config(arch))
-        for dtype in ("float32", "bfloat16"):
-            tag = f"{arch}_{dtype}"
-            _reset_launches()
-            eng = serve_main(["--arch", arch, "--reduce", "--requests", "4",
-                              "--chunk", "64", "--max-new", "8",
-                              "--dtype", dtype])
-            launches = _launches()
-            copies = _padded_copies()
-            done = eng.finished
-            if len(done) != 4 or any(r.failed or len(r.output) != 8
-                                     for r in done) or \
-                    eng.fault_counters["nonfinite_logits"]:
-                raise AssertionError(f"serve cli {tag}: finished {len(done)},"
-                                     f" faults {eng.fault_counters}, last "
-                                     f"error {eng.last_error!r}")
-            _check_kernel_calls(f"serve cli {tag}", launches, copies, cfg,
-                                len(eng.calls))
-            records[tag] = {"layers": cfg.num_layers,
-                            "engine_calls": len(eng.calls),
-                            "mean_ttft_s": float(eng.ttft().mean()),
-                            "mean_tpot_s": float(eng.tpot().mean()),
-                            "launches": launches}
+        tag = f"{arch}_{dtype}" + ("" if chunk == 64 else f"_chunk{chunk}")
+        _reset_launches()
+        eng = serve_main(["--arch", arch, "--reduce", "--requests", "4",
+                          "--chunk", str(chunk), "--max-new", "8",
+                          "--dtype", dtype])
+        launches = _launches()
+        copies = _padded_copies()
+        done = eng.finished
+        if len(done) != 4 or any(r.failed or len(r.output) != 8
+                                 for r in done) or \
+                eng.fault_counters["nonfinite_logits"]:
+            raise AssertionError(f"serve cli {tag}: finished {len(done)},"
+                                 f" faults {eng.fault_counters}, last "
+                                 f"error {eng.last_error!r}")
+        pre = sum(kind == "prefill" for kind, _, _ in eng.calls)
+        calls = {prefill_kernel[chunk][dtype]: pre}
+        calls["decode_split"] = (calls.get("decode_split", 0)
+                                 + len(eng.calls) - pre)
+        _check_kernel_calls(f"serve cli {tag}", launches, copies, cfg, calls)
+        records[tag] = {"layers": cfg.num_layers,
+                        "engine_calls": len(eng.calls),
+                        "prefill_calls": pre,
+                        "mean_ttft_s": float(eng.ttft().mean()),
+                        "mean_tpot_s": float(eng.tpot().mean()),
+                        "launches": launches}
     _line("phase7b_serve_cli", records)
     return records
 
@@ -1145,10 +1329,14 @@ def main() -> int:
         if paths[path][name] != 0:
             raise AssertionError(f"{name} was launched {paths[path][name]} "
                                  f"times on the {path} serve path")
+    # Every serve path is bf16 at head dim 128: prefill chunks through the
+    # TMA + wgmma kernel, decode steps through the split-KV kernel, and
+    # never the hd-16 mma.sync kernel.
     for path, rec in serves.items():
         _check_kernel_calls(path, paths[path], rec["padded_copies"],
                             rec["cfg"],
-                            rec["prefill_calls"] + rec["decode_calls"],
+                            {"prefill_wgmma": rec["prefill_calls"],
+                             "decode_split": rec["decode_calls"]},
                             rec["runtime"].get("ffn_dtype", "none"))
     gg_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1209,21 +1397,35 @@ def main() -> int:
                 t: r["rows_excluded_near_tie"]
                 for t, r in gating_records.items()},
             "checks": sorted(gating_records)}))
+    flash_keys = ("shape", "kernel") + keys + (
+        "ms_eager", "sdpa_masked_ms", "sdpa_free_ms", "slower_than_library")
     kernels.append(_kernel_row(
         "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:84",
         flash_records["glm_prefill_at_4096"], glm_launches["flash_attention"],
-        {"launches_by_path": {p: c["flash_attention"]
+        {"kernel": flash_records["glm_prefill_at_4096"]["kernel"],
+         "launches_by_path": {p: c["flash_attention"]
                               for p, c in paths.items()},
-         "library_note": "scaled_dot_product_attention, enable_gqa, the same "
-                         "boolean mask; timed only",
+         "launches_by_kernel": {
+             p: {k.split(".", 1)[1]: n for k, n in c.items()
+                 if k.startswith("flash_attention.")}
+             for p, c in paths.items()},
+         "library_note": "the faster of scaled_dot_product_attention with "
+                         "the same boolean mask (enable_gqa) and, where "
+                         "every row shares one offset, without a mask (k/v "
+                         "sliced to the valid length, causal_lower_right, "
+                         "flash or efficient backend); timed only",
+         "sdpa_masked_ms": flash_records["glm_prefill_at_4096"][
+             "sdpa_masked_ms"],
+         "sdpa_free_ms": flash_records["glm_prefill_at_4096"]["sdpa_free_ms"],
+         "ms_eager": flash_records["glm_prefill_at_4096"]["ms_eager"],
          "max_row_rel_err": max(r["max_row_rel_err"]
                                 for r in flash_records.values()),
-         **{tag: {k: flash_records[tag][k] for k in ("shape",) + keys}
-            for tag in ("glm_prefill_at_0", "qwen3_prefill_at_4096",
-                        "decode", "qwen3_decode", "pallas_causal",
-                        "fp32_prefill", "fp32_decode")},
+         **{tag: {k: flash_records[tag][k] for k in flash_keys}
+            for tag in ("decode", "glm_prefill_at_0",
+                        "qwen3_prefill_at_4096", "qwen3_decode",
+                        "pallas_causal", "fp32_prefill", "fp32_decode")},
          "checks": sorted(flash_records)}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)

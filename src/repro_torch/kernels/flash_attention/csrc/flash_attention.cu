@@ -7,50 +7,97 @@
 // query i of batch row b sits at absolute position i + q_offset[b] and
 // attends key j iff j < kv_valid_len[b] and, when causal,
 // j <= i + q_offset[b].  Grouped-query attention: query head h reads KV
-// head h / (H / Hkv).  q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd) and the
+// head h / G, G = H / Hkv.  q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd) and the
 // output (B, Sq, H, hd) are all bf16 or all fp32 with a unit-stride head
 // dim, hd one of 16, 64, 128 (128 is the width of every served model, 16
-// the reduced configurations'); q_offset and
-// kv_valid_len are read on the device (a (B,) int64 vector or one
-// constant), so the caller never syncs with the host.
+// the reduced configurations'); q_offset and kv_valid_len are read on the
+// device (a (B,) int64 vector or one constant), so the caller never syncs
+// with the host.  In every kernel a row with no valid key gives 0.
 //
-// What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at
-// the GLM-4.5-Air prefill chunk (Sq 4096 at offset 4096, H 32 over 8 KV
-// heads, 8192 valid keys) the causal pairs need 4 * 128 * 32 * 25.2 M =
-// 412 GFLOP, 0.42 ms, against 29 MB of q, valid k/v and output (9 us): it
-// is bound by operations.  A decode step (Sq 1, B 4) is bound by the bytes
-// of the valid cache.  What the design does about it: both products run
-// on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate); the
-// K/V tiles are read from the bf16 cache once per block for all H / Hkv
-// query heads that share them (no repeat over heads, no fp32 copy); the
-// scores, probabilities and running statistics stay in registers; the
-// KV loop stops at min(kv_valid_len, last query position + 1), so causal
-// and invalid tiles cost nothing; the output is written once.
+// Rows.  Every kernel works on rows that are (query position, head of
+// the GQA group) pairs: row r of a group is position r / G, head
+// hkv * G + r % G, so one K/V tile read from the cache serves all G query
+// heads of its KV head (no repeat over heads, no fp32 copy of the cache).
 //
-// Design of the bf16 kernel (a first, simple version): one block of 4
-// warps per (q-tile, KV head, batch row).  Its 64 rows are (query
-// position, query head of the group) pairs, 64 / G positions of the
-// G = H / Hkv heads, so a decode step packs a group's heads into one tile.
-// Each warp owns 16 rows and holds their q fragments in registers.  K and
-// V tiles of 64 keys move through a 2-stage cp.async ring in shared memory
-// (rows padded by 16 bytes, so fragment loads hit 32 banks).  Per tile:
-// S = q k^T on the tensor cores, scale and mask in fp32, the online max /
-// sum / correction in fp32 registers (quad shuffles for the row max), P
-// rounded to bf16 in the registers that feed P v as its A operand, V's
-// fragments through ldmatrix.trans.  The one departure from flash_ref's
-// fp32 arithmetic is P in bf16 for the P v product.
+// Four kernels; the wrapper (ops.py, plan_launch) picks one from the
+// shapes alone, never from the device-held lengths:
 //
-// The fp32 kernel (fp32 serving, and the reduced configurations' default)
-// keeps flash_ref's arithmetic in fp32 throughout on the CUDA cores, with
-// the same blocks, rows and KV loop: 32-key K/V tiles in shared memory,
-// lane j scores key j of the tile for each of its warp's 16 rows, warp
-// shuffles give the row max and sum, and lane l accumulates output dims
-// l, l + 32, ...  It is bound by the fp32 rate (67 TFLOP/s) at best.
+// 1. flash_split_kernel + flash_combine_kernel (bf16 and fp32, hd 16, 64,
+//    128): every launch whose prefill grid (q tiles x Hkv x B) would not
+//    fill the card, which is every decode step.  A decode step is bound by
+//    the bytes of the valid cache (GLM-4.5-Air at batch 4: 45.8 MB,
+//    13.7 us at 3.35 TB/s).  Blocks are (split of the keys, row tile of at
+//    most RT rows, KV head, batch row); the number of splits comes from
+//    the cache capacity Sk so that the grid holds at least two blocks per
+//    SM, and a split that starts past its row's valid length writes an
+//    empty partial (m = -inf, l = 0) and exits.  Inside a block each warp
+//    streams its own 32-key tiles through its own 3-stage cp.async ring in
+//    16-byte pieces, neighbouring lanes on neighbouring addresses, and
+//    keeps its own online softmax, so the warps never wait for each other
+//    until the end.  bf16 computes both products on the tensor cores
+//    (mma.sync m16n8k16: the 16 rows of a row tile are one fragment, P is
+//    fed from the registers, V through ldmatrix.trans): the same products
+//    in fp32 on the CUDA cores ran slower than SDPA at Qwen3's 16 rows on
+//    an H100.  fp32 keeps fp32 arithmetic on the CUDA cores: lane =
+//    key for S = q k^T with q (pre-scaled) broadcast from shared memory,
+//    the row max by warp shuffles, P through a small shared buffer, lane =
+//    output dims for P v.  The warps' partials are merged in shared memory;
+//    with one split the block writes the output, otherwise (m, l, acc) in
+//    fp32 to a workspace, and the combine kernel (one warp per output row)
+//    computes
+//      out = sum_i 2^(m_i - m) acc_i / sum_i 2^(m_i - m) l_i.
 //
-// In both, a row with no valid key gives 0 (the plain version gives NaN
-// there; no caller produces such a row).  Not yet: wgmma with TMA, a
-// split-KV decode, and a persistent schedule.
+// 2. flash_wgmma_kernel (bf16, hd 64 and 128): every other bf16 launch,
+//    which is every serve prefill chunk.  Bound by operations (the GLM
+//    chunk at offset 4096: 412 GFLOP of causal pairs, 0.42 ms at 989
+//    TFLOP/s, against 29 MB of bytes).  Warp-specialised as
+//    grouped_gemm_wgmma_kernel: warpgroup 2 is the producer, one thread of
+//    which issues TMA loads (4-D tensor maps over (hd, heads, positions,
+//    batch), 64-column boxes with 128-byte swizzle, mbarrier completion):
+//    the 128-row q tile once, as one box of 128 / G positions x G heads
+//    starting at head hkv * G, and K and V tiles of 128 keys into a ring of
+//    STAGES stages.  Warpgroups 0 and 1 (64 rows each) compute
+//    S = Q K^T with wgmma m64n128k16 (both operands K-major in shared
+//    memory), the online softmax in fp32 registers (masking only the tiles
+//    that cross the causal diagonal or the valid length), round P to bf16
+//    and repack the S accumulator into wgmma A fragments in registers
+//    (the m64nN accumulator and the k16 A fragment share their thread
+//    layout, two columns per register), then O += P V with wgmma
+//    m64nHDk16, A from registers and V read N-major through the transpose
+//    bit.  setmaxnreg moves registers from the producer to the consumers.
+//    Keys past the valid length inside the last tile are read (TMA copies
+//    whole boxes) and masked; like the plain version, the kernel takes the
+//    cache there to be finite (the serve cache is zero-initialised).
+//    The 1-D grid runs each (batch row, KV head)'s q tiles in reverse
+//    position order, heaviest first, so the causal tail does not leave SMs
+//    idle, and neighbouring blocks share their K/V in L2.  The KV loop ends
+//    at min(kv_valid_len, last position + 1), read on the device.  The
+//    output is written once, in bf16.  The one departure from flash_ref's
+//    fp32 arithmetic is P in bf16 for the P v product.
+//    Shared memory at hd 128: q 32 KB + 2 stages x (K 32 KB + V 32 KB) =
+//    160 KB (hd 64: 16 KB + 4 stages x 32 KB).
+//
+// 3. flash_fwd_kernel (bf16, hd 16 only: the reduced configurations' width,
+//    which no served model uses): the first, simple tensor-core version.
+//    One block of 4 warps per (64-row q tile, KV head, batch row); each
+//    warp owns 16 rows with its q fragments in registers; 64-key K/V tiles
+//    through a 2-stage cp.async ring; mma.sync m16n8k16 for both
+//    products, P fed from the registers.
+//
+// 4. flash_fwd_f32_kernel (fp32 prefill: fp32 serving and the reduced
+//    configurations' default): flash_ref's arithmetic in fp32 throughout
+//    on the CUDA cores, with the blocks and rows of kernel 3: 32-key K/V
+//    tiles in shared memory, lane j scores key j of the tile for each of
+//    its warp's 16 rows, warp shuffles give the row max and sum, and lane
+//    l accumulates output dims l, l + 32, ...  Bound by the fp32 rate
+//    (67 TFLOP/s) at best.
+//
+// Not yet: overlapping one tile's softmax with the next tile's products in
+// the wgmma kernel (two consumer warpgroups interleave only as the
+// scheduler lets them), a persistent schedule, and TMA in the split kernel
+// (a decode step stays at about twice its bytes bound).
 
+#include <cuda.h>   // CUtensorMap and its enums only: no link against libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,14 +105,15 @@
 
 namespace {
 
+// Kernels 3 and 4.
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int BM = 16 * WARPS;          // rows per block
-constexpr int BN = 64;                  // keys per tile (bf16 kernel)
+constexpr int BN = 64;                  // keys per tile (mma.sync kernel)
 constexpr int BK = 32;                  // keys per tile (fp32 kernel)
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared-memory layout of the bf16 kernel for head dim HD.
+// Shared-memory layout of the mma.sync kernel for head dim HD.
 template <int HD>
 struct Bf16Tile {
   static constexpr int LDS = HD + 8;    // shared row stride, elements
@@ -153,7 +201,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
-  int Sq, Sk, G;
+  int B, Sq, Sk, H, Hkv, G;
   long long sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, sob, sos, soh;
   const long long* q_off;   // null: q_off_const for every row
   int q_off_stride;
@@ -162,9 +210,24 @@ struct Args {
   int kv_len_stride;
   long long kv_len_const;
   float scale_log2;         // scale * log2(e): scores are kept in log2 units
+  bool causal;
+  // Split-KV kernel only.
+  int n_rt;                 // row tiles per (KV head, batch row)
+  int splits;               // key splits; 1: the blocks write the output
+  int keys_per_split;
+  float* ws;                // splits x (B Sq H) x (hd + 2) fp32 partials
+
+  __device__ __forceinline__ long long qoff(int b) const {
+    return q_off ? q_off[b * q_off_stride] : q_off_const;
+  }
+  // min(kv_valid_len[b], Sk), at least 0.
+  __device__ __forceinline__ long long limit(int b) const {
+    const long long lim = kv_len ? kv_len[b * kv_len_stride] : kv_len_const;
+    return lim < 0 ? 0 : (lim < Sk ? lim : Sk);
+  }
 };
 
-// This block's rows and KV extent, shared by both kernels.  Row r of the
+// This block's rows and KV extent, shared by kernels 3 and 4.  Row r of the
 // tile is (position q0 + r / G, head hkv * G + r % G).
 struct Tile {
   int b, hkv, G, QT, q0, q_rows;
@@ -178,9 +241,8 @@ struct Tile {
     t.G = a.G;
     t.QT = BM / a.G;                       // query positions per tile
     t.q0 = blockIdx.x * t.QT;
-    t.qoff = a.q_off ? a.q_off[t.b * a.q_off_stride] : a.q_off_const;
-    long long lim = a.kv_len ? a.kv_len[t.b * a.kv_len_stride] : a.kv_len_const;
-    t.lim = lim < a.Sk ? lim : a.Sk;
+    t.qoff = a.qoff(t.b);
+    t.lim = a.limit(t.b);
     t.q_rows = min(t.QT, a.Sq - t.q0);     // valid query positions here
     long long kv_end = t.lim;
     if (CAUSAL) {
@@ -478,49 +540,1067 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Args a) {
   }
 }
 
+// ------------------------------------------------- 1. split-KV (decode)
+
+constexpr int SPLIT_STAGES = 3;
+constexpr int SPLIT_KW = 32;             // keys per warp tile: lane = key
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Shared-memory layout of the split kernel for element T, head dim HD and
+// RT rows a block: per warp a ring of SPLIT_STAGES K and V tiles of 32 keys
+// (rows padded by 16 bytes, so lane j's 16-byte reads of row j, the mma
+// fragments' 32-bit reads and ldmatrix hit distinct banks), then q (bf16
+// rows padded likewise for the mma path, fp32 pre-scaled for the CUDA-core
+// path), each warp's P (CUDA-core path: RT x 32 fp32) and the rows' key
+// limits (RT ints).  bf16 takes the mma.sync path (RT 16, the m16 of one
+// fragment), fp32 the CUDA-core path.
+template <typename T, int HD, int RT>
+struct SplitCfg {
+  static constexpr bool MMA = sizeof(T) == 2;
+  static_assert(!MMA || RT == 16, "the mma path computes 16 rows");
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per piece
+  static constexpr int LDK = HD + VEC;
+  static constexpr int PIECES = HD / VEC;                 // pieces per row
+  static constexpr int STAGE_ELEMS = 2 * SPLIT_KW * LDK;
+  static constexpr int STAGE_BYTES = STAGE_ELEMS * static_cast<int>(sizeof(T));
+  // As many warps as their rings fit in 210 KB, at most 8: the warps of
+  // one SM keep its loads in flight (4 at bf16 hd 128, 2 at fp32 hd 128).
+  static constexpr int WARPS =
+      210 * 1024 / (SPLIT_STAGES * STAGE_BYTES) < 8
+          ? 210 * 1024 / (SPLIT_STAGES * STAGE_BYTES) : 8;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int DPL = HD >= 32 ? HD / 32 : 1;     // dims per lane
+  static constexpr int RING_BYTES = WARPS * SPLIT_STAGES * STAGE_BYTES;
+  static constexpr int Q_BYTES = MMA ? RT * LDK * 2 : RT * HD * 4;
+  static constexpr int P_BYTES = MMA ? 0 : WARPS * RT * SPLIT_KW * 4;
+  static constexpr int SMEM_BYTES = RING_BYTES + Q_BYTES + P_BYTES + RT * 4;
+  static_assert(WARPS * RT * (HD + 2) * 4 <= RING_BYTES,
+                "the warps' partials are merged in the ring's memory");
+};
+
+// N consecutive fp32 values from shared memory in one vector load (the
+// CUDA-core path is fp32 only).
+template <int N>
+__device__ __forceinline__ void load_vec(float (&dst)[N], const float* src) {
+  if constexpr (N == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src);
+    dst[0] = f.x; dst[1] = f.y; dst[2] = f.z; dst[3] = f.w;
+  } else if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(src);
+    dst[0] = f.x; dst[1] = f.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = src[i];
+  }
+}
+
+template <typename T, int HD, int RT>
+__global__ void __launch_bounds__(SplitCfg<T, HD, RT>::THREADS)
+flash_split_kernel(const Args a) {
+  using C = SplitCfg<T, HD, RT>;
+  constexpr int W = C::WARPS, LDK = C::LDK, VEC = C::VEC, DPL = C::DPL;
+  constexpr int PIECES = C::PIECES, KW = SPLIT_KW, S = SPLIT_STAGES;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  unsigned char* q_raw = smem_raw + C::RING_BYTES;
+  float* p_all = reinterpret_cast<float*>(q_raw + C::Q_BYTES);
+  int* rl = reinterpret_cast<int*>(q_raw + C::Q_BYTES + C::P_BYTES);
+  const auto* qg = static_cast<const T*>(a.q);
+  const auto* kg = static_cast<const T*>(a.k);
+  const auto* vg = static_cast<const T*>(a.v);
+
+  const int split = blockIdx.x;
+  const int hkv = blockIdx.y / a.n_rt, rt = blockIdx.y % a.n_rt;
+  const int b = blockIdx.z;
+  const int G = a.G;
+  const int r0 = rt * RT;                         // first row of the tile
+  const int nrows = min(RT, a.Sq * G - r0);
+  const long long qoff = a.qoff(b), lim = a.limit(b);
+  long long kv_end = lim;
+  if (a.causal) {
+    const long long last = (r0 + nrows - 1) / G + qoff + 1;
+    kv_end = last < kv_end ? last : kv_end;
+  }
+  const long long k_lo = static_cast<long long>(split) * a.keys_per_split;
+  long long k_hi = k_lo + a.keys_per_split;
+  k_hi = k_hi < kv_end ? k_hi : kv_end;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long NR = static_cast<long long>(a.B) * a.Sq * a.H;
+  auto out_row = [&](int r) {   // (position, head) of row r of the tile
+    const int gr = r0 + r;
+    return make_int2(gr / G, hkv * G + gr % G);
+  };
+
+  if (k_lo >= k_hi) {
+    // Nothing to read: with one split the rows get 0 (no valid key),
+    // otherwise an empty partial that the combine skips.
+    for (int i = tid; i < nrows * HD; i += C::THREADS) {
+      const int r = i / HD, d = i % HD;
+      const int2 ph = out_row(r);
+      if (a.splits == 1) {
+        static_cast<T*>(a.out)[b * a.sob + ph.x * a.sos + ph.y * a.soh + d] =
+            from_f32<T>(0.f);
+      } else if (d == 0) {
+        const long long orow = (static_cast<long long>(b) * a.Sq + ph.x) * a.H
+                               + ph.y;
+        float* ml = a.ws + NR * a.splits * HD + (split * NR + orow) * 2;
+        ml[0] = -INFINITY;
+        ml[1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  // q rows in 16-byte pieces, every load issued before its store; rows
+  // past the tile are 0.  Keys below rl[r] are attended by row r (and lie
+  // in this split); every lane reads the same row limit.
+  {
+    constexpr int QN = (RT * PIECES + C::THREADS - 1) / C::THREADS;
+    uint4 qv[QN];
+#pragma unroll
+    for (int u = 0; u < QN; ++u) {
+      const int idx = tid + u * C::THREADS, r = idx / PIECES;
+      qv[u] = make_uint4(0, 0, 0, 0);
+      if (idx < RT * PIECES && r < nrows) {
+        const int2 ph = out_row(r);
+        qv[u] = *reinterpret_cast<const uint4*>(
+            qg + b * a.sqb + ph.x * a.sqs + ph.y * a.sqh + idx % PIECES * VEC);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < QN; ++u) {
+      const int idx = tid + u * C::THREADS, r = idx / PIECES;
+      const int d = idx % PIECES * VEC;
+      if (idx >= RT * PIECES) continue;
+      if constexpr (C::MMA) {
+        *reinterpret_cast<uint4*>(reinterpret_cast<T*>(q_raw) + r * LDK + d) =
+            qv[u];
+      } else {
+        const float4 f = *reinterpret_cast<const float4*>(&qv[u]);
+        *reinterpret_cast<float4*>(reinterpret_cast<float*>(q_raw) + r * HD +
+                                   d) =
+            make_float4(f.x * a.scale_log2, f.y * a.scale_log2,
+                        f.z * a.scale_log2, f.w * a.scale_log2);
+      }
+    }
+  }
+  if (tid < RT) {
+    long long v = 0;
+    if (tid < nrows) {
+      const long long pos = (r0 + tid) / G + qoff;
+      v = a.causal && pos + 1 < lim ? pos + 1 : lim;
+      v = v < k_hi ? v : k_hi;
+    }
+    rl[tid] = static_cast<int>(v);
+  }
+  __syncthreads();
+
+  // This warp's 32-key tiles of the split: t = warp, warp + W, ...
+  const int n_tiles = static_cast<int>((k_hi - k_lo + KW - 1) / KW);
+  const int my_tiles = warp < n_tiles ? (n_tiles - warp + W - 1) / W : 0;
+  T* my_ring = ring + warp * S * C::STAGE_ELEMS;
+  // Lane l copies piece l % PIECES of rows l / PIECES + JSTEP u: one base
+  // pointer per tile, stepped by JSTEP rows.
+  constexpr int JSTEP = 32 / PIECES;
+  const int pc = lane % PIECES, j0 = lane / PIECES;
+  const T* k_row = kg + b * a.skb + hkv * a.skh + pc * VEC;
+  const T* v_row = vg + b * a.svb + hkv * a.svh + pc * VEC;
+  auto load = [&](int slot, int i) {
+    const long long key0 = k_lo + static_cast<long long>(warp + i * W) * KW + j0;
+    T* k_s = my_ring + slot * C::STAGE_ELEMS + j0 * LDK + pc * VEC;
+    T* v_s = k_s + KW * LDK;
+    const T* ks = k_row + key0 * a.sks;
+    const T* vs = v_row + key0 * a.svs;
+#pragma unroll
+    for (int u = 0; u < KW / JSTEP; ++u) {
+      const bool ok = key0 + u * JSTEP < k_hi;
+      cp_async16(k_s + u * JSTEP * LDK, ok ? ks : kg, ok ? 16 : 0);
+      cp_async16(v_s + u * JSTEP * LDK, ok ? vs : vg, ok ? 16 : 0);
+      ks += JSTEP * a.sks;
+      vs += JSTEP * a.svs;
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < my_tiles) load(i, i);
+    cp_async_commit();
+  }
+  // Wait for tile i (every lane's pieces) and return its K and V.
+  auto next_tile = [&](int i) {
+    if (i + S - 1 < my_tiles) load((i + S - 1) % S, i + S - 1);
+    cp_async_commit();
+    cp_async_wait<S - 1>();
+    __syncwarp();
+    return my_ring + (i % S) * C::STAGE_ELEMS;
+  };
+  float* c_acc = reinterpret_cast<float*>(smem_raw);   // W x RT x HD
+  float* c_m = c_acc + W * RT * HD;                    // W x RT
+  float* c_l = c_m + W * RT;
+
+  if constexpr (C::MMA) {
+    // bf16: both products on the tensor cores (mma.sync m16n8k16, fp32
+    // accumulate), the 16 rows as one m16 fragment; this thread holds
+    // rows gid and gid + 8, keys / dims 8 j + 2 tq + {0, 1}.
+    const int gid = lane / 4, tq = lane % 4;
+    const T* q_s = reinterpret_cast<const T*>(q_raw);
+    unsigned qa[HD / 16][4];
+#pragma unroll
+    for (int kd = 0; kd < HD / 16; ++kd) {
+      const T* p = q_s + gid * LDK + kd * 16 + tq * 2;
+      qa[kd][0] = lds32(p);
+      qa[kd][1] = lds32(p + 8 * LDK);
+      qa[kd][2] = lds32(p + 8);
+      qa[kd][3] = lds32(p + 8 * LDK + 8);
+    }
+    const int row_lim[2] = {rl[gid], rl[gid + 8]};
+    float o[HD / 8][4];
+#pragma unroll
+    for (int nf = 0; nf < HD / 8; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nf][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int i = 0; i < my_tiles; ++i) {
+      const T* k_s = next_tile(i);
+      const T* v_s = k_s + KW * LDK;
+      const int key0 = static_cast<int>(k_lo) + (warp + i * W) * KW;
+      float s[KW / 8][4];
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        const T* kp = k_s + (j * 8 + gid) * LDK + tq * 2;
+#pragma unroll
+        for (int kd = 0; kd < HD / 16; ++kd)
+          mma_bf16(s[j], qa[kd], lds32(kp + kd * 16), lds32(kp + kd * 16 + 8));
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + j * 8 + tq * 2 + (e & 1);
+          const float v =
+              key < row_lim[e >> 1] ? s[j][e] * a.scale_log2 : -INFINITY;
+          s[j][e] = v;
+          mx[e >> 1] = fmaxf(mx[e >> 1], v);
+        }
+      float base[2];
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const float m_new = fmaxf(m[ii], quad_max(mx[ii]));
+        base[ii] = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = exp2f(m[ii] - base[ii]);
+        m[ii] = m_new;
+        l[ii] *= corr;
+#pragma unroll
+        for (int nf = 0; nf < HD / 8; ++nf) {
+          o[nf][2 * ii] *= corr;
+          o[nf][2 * ii + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[j][e] - base[e >> 1]);
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+      // O += P v: P (bf16) is the A operand straight from the registers,
+      // V's fragments through ldmatrix.trans.
+#pragma unroll
+      for (int kk = 0; kk < KW / 16; ++kk) {
+        const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const T* vp = v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDK
+                      + (lane >> 4) * 8;
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          unsigned vb[4];
+          ldsm_x4_trans(vb, vp + np * 16);
+          mma_bf16(o[2 * np], pa, vb[0], vb[1]);
+          mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
+        }
+      }
+      __syncwarp();                             // the slot is free
+    }
+    cp_async_wait<0>();
+    const float lsum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+    __syncthreads();                            // every ring is drained
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int r = gid + 8 * ii;
+#pragma unroll
+      for (int nf = 0; nf < HD / 8; ++nf) {
+        c_acc[(warp * RT + r) * HD + nf * 8 + tq * 2] = o[nf][2 * ii];
+        c_acc[(warp * RT + r) * HD + nf * 8 + tq * 2 + 1] = o[nf][2 * ii + 1];
+      }
+      if (tq == 0) {
+        c_m[warp * RT + r] = m[ii];
+        c_l[warp * RT + r] = lsum[ii];
+      }
+    }
+  } else {
+    // fp32: lane = key for S (q broadcast from shared memory), P through
+    // a shared buffer, lane = output dims for P v, all on the CUDA cores.
+    const float* q_s = reinterpret_cast<const float*>(q_raw);
+    float* p_s = p_all + warp * RT * KW;
+    float m[RT], l[RT], acc[RT][DPL];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) acc[r][d] = 0.f;
+    }
+    const bool owns_dims = lane * DPL < HD;     // false only at hd 16
+    for (int i = 0; i < my_tiles; ++i) {
+      const T* k_s = next_tile(i);
+      const T* v_s = k_s + KW * LDK;
+      const int key = static_cast<int>(k_lo) + (warp + i * W) * KW + lane;
+      float s[RT];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) s[r] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < PIECES; ++c) {
+        float kf[VEC];
+        load_vec<VEC>(kf, k_s + lane * LDK + c * VEC);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const float4* qp =
+              reinterpret_cast<const float4*>(q_s + r * HD + c * VEC);
+#pragma unroll
+          for (int e4 = 0; e4 < VEC / 4; ++e4) {
+            const float4 qv = qp[e4];
+            s[r] = fmaf(qv.x, kf[4 * e4], s[r]);
+            s[r] = fmaf(qv.y, kf[4 * e4 + 1], s[r]);
+            s[r] = fmaf(qv.z, kf[4 * e4 + 2], s[r]);
+            s[r] = fmaf(qv.w, kf[4 * e4 + 3], s[r]);
+          }
+        }
+      }
+      // Mask, online softmax (log2 units); l is this lane's partial sum.
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float x = key < rl[r] ? s[r] : -INFINITY;
+        const float m_new = fmaxf(m[r], warp_max(x));
+        const float base = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = exp2f(m[r] - base);
+        const float p = exp2f(x - base);
+        l[r] = l[r] * corr + p;
+        m[r] = m_new;
+        p_s[r * KW + lane] = p;
+#pragma unroll
+        for (int d = 0; d < DPL; ++d) acc[r][d] *= corr;
+      }
+      __syncwarp();
+      // O += P v: lane owns dims lane * DPL ... + DPL - 1.
+      if (owns_dims) {
+#pragma unroll 2
+        for (int j4 = 0; j4 < KW; j4 += 4) {
+          float vf[4][DPL];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            load_vec<DPL>(vf[jj], v_s + (j4 + jj) * LDK + lane * DPL);
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            const float4 p4 =
+                *reinterpret_cast<const float4*>(p_s + r * KW + j4);
+            const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+              for (int d = 0; d < DPL; ++d)
+                acc[r][d] = fmaf(pj[jj], vf[jj][d], acc[r][d]);
+          }
+        }
+      }
+      __syncwarp();                             // slot and P are free
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int r = 0; r < RT; ++r) l[r] = warp_sum(l[r]);
+    __syncthreads();                            // every ring is drained
+    if (owns_dims) {
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int d = 0; d < DPL; ++d)
+          c_acc[(warp * RT + r) * HD + lane * DPL + d] = acc[r][d];
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        c_m[warp * RT + r] = m[r];
+        c_l[warp * RT + r] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < nrows; r += W) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < W; ++w) M = fmaxf(M, c_m[w * RT + r]);
+    float cw[W], L = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float mw = c_m[w * RT + r];
+      cw[w] = mw == -INFINITY ? 0.f : exp2f(mw - M);
+      L += cw[w] * c_l[w * RT + r];
+    }
+    const int2 ph = out_row(r);
+    const long long orow =
+        (static_cast<long long>(b) * a.Sq + ph.x) * a.H + ph.y;
+    for (int d = lane; d < HD; d += 32) {
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+        if (cw[w] != 0.f) o = fmaf(cw[w], c_acc[(w * RT + r) * HD + d], o);
+      if (a.splits == 1) {
+        const float denom = L > 1e-20f ? L : 1e-20f;
+        static_cast<T*>(a.out)[b * a.sob + ph.x * a.sos + ph.y * a.soh + d] =
+            from_f32<T>(o / denom);
+      } else {
+        a.ws[(split * NR + orow) * HD + d] = o;
+      }
+    }
+    if (a.splits > 1 && lane == 0) {
+      float* ml = a.ws + NR * a.splits * HD + (split * NR + orow) * 2;
+      ml[0] = M;
+      ml[1] = L;
+    }
+  }
+}
+
+// out = sum_i 2^(m_i - m) acc_i / sum_i 2^(m_i - m) l_i over the splits;
+// one warp per output row (b, position, head); 0 where no split saw a key.
+// Lane i reads split i's (m, l) (32 splits a pass); the partial sums are
+// read for every split, independent loads, and an empty split's (which
+// were never written) are selected away, not multiplied.
+template <typename T, int HD>
+__global__ void __launch_bounds__(128) flash_combine_kernel(const Args a) {
+  const long long NR = static_cast<long long>(a.B) * a.Sq * a.H;
+  const long long orow =
+      static_cast<long long>(blockIdx.x) * 4 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (orow >= NR) return;
+  const int head = static_cast<int>(orow % a.H);
+  const int pos = static_cast<int>((orow / a.H) % a.Sq);
+  const int b = static_cast<int>(orow / (static_cast<long long>(a.H) * a.Sq));
+  const float* ml = a.ws + NR * a.splits * HD;
+  float M = -INFINITY;
+  for (int s = lane; s < a.splits; s += 32)
+    M = fmaxf(M, ml[(s * NR + orow) * 2]);
+  M = warp_max(M);
+  constexpr int DPL = (HD + 31) / 32;
+  float o[DPL], L = 0.f;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) o[i] = 0.f;
+  for (int s0 = 0; s0 < a.splits; s0 += 32) {
+    const int s = s0 + lane;
+    float w = 0.f;
+    if (s < a.splits) {
+      const float ms = ml[(s * NR + orow) * 2];
+      w = ms == -INFINITY ? 0.f : exp2f(ms - M);
+      L = fmaf(w, ml[(s * NR + orow) * 2 + 1], L);
+    }
+    const int n = min(32, a.splits - s0);
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      const float* acc = a.ws + ((s0 + j) * NR + orow) * HD;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + 32 * i;
+        const float x = d < HD ? acc[d] : 0.f;
+        o[i] = wj != 0.f ? fmaf(wj, x, o[i]) : o[i];
+      }
+    }
+  }
+  L = warp_sum(L);
+  const float denom = L > 1e-20f ? L : 1e-20f;
+  T* dst = static_cast<T*>(a.out) + b * a.sob + pos * a.sos + head * a.soh;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i)
+    if (lane + 32 * i < HD) dst[lane + 32 * i] = from_f32<T>(o[i] / denom);
+}
+
+// --------------------------------------- 2. TMA + wgmma prefill (bf16)
+
+constexpr int WG_BM = 128;               // rows per q tile: two warpgroups
+constexpr int WG_BN = 128;               // keys per K/V tile
+constexpr int WG_CONSUMERS = 2;
+constexpr int WG_THREADS = (WG_CONSUMERS + 1) * 128;
+constexpr int WG_BOX = 128 * 128;        // 128 rows x 64 bf16 (128 bytes)
+
 template <int HD>
-cudaError_t launch_hd(bool bf16, bool causal, const Args& a, dim3 grid,
-                      cudaStream_t s) {
-  auto kernel = bf16 ? (causal ? flash_fwd_kernel<HD, true>
-                               : flash_fwd_kernel<HD, false>)
-                     : (causal ? flash_fwd_f32_kernel<HD, true>
-                               : flash_fwd_f32_kernel<HD, false>);
-  const int smem = bf16 ? Bf16Tile<HD>::SMEM_BYTES : F32Tile<HD>::SMEM_BYTES;
-  // Above 48 KB, dynamic shared memory must be opted into (per device).
+struct WgCfg {
+  static constexpr int BOXES = HD / 64;                   // per row
+  static constexpr int Q_BYTES = BOXES * WG_BOX;          // 32 KB at hd 128
+  static constexpr int KV_BYTES = BOXES * WG_BOX;         // K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int STAGES = HD == 128 ? 2 : 4;
+  static constexpr int SMEM_BYTES =
+      1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Box at (c0 innermost, c1, c2, c3) of `map` into shared memory at `dst`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands (q,
+// K): SBO = 1024 (8 rows of 128 bytes), LBO unused (16).  N-major V:
+// LBO = the distance between 64-column boxes, SBO = 1024 (8 key rows).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses to the accumulators across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// S (64 x 128, fp32) = A (64 x 16, K-major, shared) @ B (16 x 128, K-major,
+// shared), accumulated into d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, 1, 1, 1, 0, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
+}
+
+// d (64 x 128) += A (64 x 16, bf16 fragments in registers) @ B (16 x 128,
+// N-major, shared: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, "
+      "1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 64) += A (64 x 16, registers) @ B (16 x 64, N-major, shared).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n64(o, a, db);
+}
+
+// 1-D grid: block x -> (batch row, KV head, q tile); each (batch row, KV
+// head) runs its q tiles in reverse position order.  Row r of the tile is
+// (position p0 + r / G, head hkv * G + r % G), r < QT * G with
+// QT = 128 / G; rows at or past QT * G (G not dividing 128) are idle.
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, const Args a,
+                   int n_qt) {
+  using C = WgCfg<HD>;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+
+  const int G = a.G, QT = WG_BM / G;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x % n_qt);
+  const int hkv = static_cast<int>((blockIdx.x / n_qt) % a.Hkv);
+  const int b = static_cast<int>(blockIdx.x / (static_cast<unsigned>(n_qt) * a.Hkv));
+  const int p0 = qt * QT;
+  const int q_rows = min(QT, a.Sq - p0);       // valid positions here
+  const long long qoff = a.qoff(b), lim = a.limit(b);
+  long long kv_end = lim, full_end = lim;      // full_end: no row masks below
+  if (CAUSAL) {
+    const long long last = p0 + q_rows - 1 + qoff + 1;
+    const long long first = p0 + qoff + 1;
+    kv_end = last < kv_end ? last : kv_end;
+    full_end = first < full_end ? first : full_end;
+  }
+  const int n_tiles =
+      kv_end <= 0 ? 0 : static_cast<int>((kv_end + WG_BN - 1) / WG_BN);
+  const int t_full = full_end <= 0 ? 0 : static_cast<int>(full_end / WG_BN);
+  auto* og = static_cast<__nv_bfloat16*>(a.out);
+
+  if (n_tiles == 0) {   // no row has a valid key: zeros, no loads
+    constexpr int CH = HD / 8;
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    for (int i = threadIdx.x; i < q_rows * G * CH; i += WG_THREADS) {
+      const int r = i / CH, c = i % CH;
+      const int pos = p0 + r / G, h = hkv * G + r % G;
+      *reinterpret_cast<uint4*>(og + b * a.sob + pos * a.sos + h * a.soh +
+                                c * 8) = z;
+    }
+    return;
+  }
+
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t q_u = smem_u32(tiles);
+  const uint32_t ring_u = q_u + C::Q_BYTES;
+  const uint32_t q_bar = ring_u + STAGES * C::STAGE_BYTES;
+  const uint32_t full0 = q_bar + 8;                 // STAGES x 8 B
+  const uint32_t empty0 = full0 + STAGES * 8;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, WG_CONSUMERS * 4);   // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == WG_CONSUMERS) {
+    // ---- producer: one thread loads q once and keeps the K/V ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == WG_CONSUMERS * 128) {
+      mbar_expect_tx(q_bar, static_cast<uint32_t>(C::BOXES * QT * G * 128));
+#pragma unroll
+      for (int x = 0; x < C::BOXES; ++x)
+        tma_load_4d(q_u + x * WG_BOX, &map_q, q_bar, x * 64, hkv * G, p0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        const uint32_t full = full0 + 8 * stage;
+        const uint32_t k_u = ring_u + stage * C::STAGE_BYTES;
+        mbar_expect_tx(full, C::STAGE_BYTES);
+#pragma unroll
+        for (int x = 0; x < C::BOXES; ++x) {
+          tma_load_4d(k_u + x * WG_BOX, &map_k, full, x * 64, hkv, t * WG_BN, b);
+          tma_load_4d(k_u + C::KV_BYTES + x * WG_BOX, &map_v, full, x * 64,
+                      hkv, t * WG_BN, b);
+        }
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x % 32, gid = lane / 4, tq = lane % 4;
+    const int rbase = wg * 64 + (threadIdx.x / 32 % 4) * 16 + gid;
+    // This thread's two rows rbase and rbase + 8: keys below row_lim.
+    long long row_lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long pos = p0 + (rbase + 8 * i) / G + qoff;
+      row_lim[i] = CAUSAL && pos + 1 < lim ? pos + 1 : lim;
+    }
+    const bool active = wg * 64 < q_rows * G;     // a valid row in this wg
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(q_bar, 0);
+    const uint32_t qa = q_u + wg * 64 * 128;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      mbar_wait(full0 + 8 * stage, phase);
+      if (active) {
+        const uint32_t k_u = ring_u + stage * C::STAGE_BYTES;
+        const uint32_t v_u = k_u + C::KV_BYTES;
+        // S = q K^T: 64 rows x 128 keys, fp32.
+        float s[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) s[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t off = (kk / 4) * WG_BOX + (kk % 4) * 32;
+          wgmma_ss_n128(s, desc_sw128(qa + off, 16, 1024),
+                        desc_sw128(k_u + off, 16, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(s);
+        // Scale, mask (only tiles that cross a row's limit), and the online
+        // softmax in log2 units.  Value 4 j + e sits at row rbase + 8 (e / 2),
+        // key n0 + 8 j + 2 tq + e % 2.
+        const int n0 = t * WG_BN;
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (t >= t_full) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const long long key = n0 + 8 * j + 2 * tq + (e & 1);
+              const float v = key < row_lim[e >> 1]
+                                  ? s[4 * j + e] * a.scale_log2 : -INFINITY;
+              s[4 * j + e] = v;
+              mx[e >> 1] = fmaxf(mx[e >> 1], v);
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float v = s[4 * j + e] * a.scale_log2;
+              s[4 * j + e] = v;
+              mx[e >> 1] = fmaxf(mx[e >> 1], v);
+            }
+        }
+        float base[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float m_new = fmaxf(m[i], quad_max(mx[i]));
+          base[i] = m_new == -INFINITY ? 0.f : m_new;
+          const float corr = exp2f(m[i] - base[i]);
+          m[i] = m_new;
+          l[i] *= corr;
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j) {
+            o[4 * j + 2 * i] *= corr;
+            o[4 * j + 2 * i + 1] *= corr;
+          }
+        }
+        // P in bf16, repacked into the A fragments of eight k16 slices:
+        // slice kk holds keys 16 kk .. 16 kk + 15, i.e. columns 2 kk and
+        // 2 kk + 1 of the accumulator's n8 groups.
+        uint32_t pa[8][4];
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          float p[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            p[e] = exp2f(s[8 * kk + e] - base[(e >> 1) & 1]);
+            l[(e >> 1) & 1] += p[e];
+          }
+          pa[kk][0] = pack_bf16(p[0], p[1]);
+          pa[kk][1] = pack_bf16(p[2], p[3]);
+          pa[kk][2] = pack_bf16(p[4], p[5]);
+          pa[kk][3] = pack_bf16(p[6], p[7]);
+        }
+        // O += P V: V's 16-key slices, N-major through the transpose bit.
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_pv<HD>(o, pa[kk], desc_sw128(v_u + kk * 2048, WG_BOX, 1024));
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(o);
+      }
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    }
+
+    // out = O / l, written once in bf16.  Every lane takes part in the
+    // shuffles before any lane skips its row.
+    const float lsum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rbase + 8 * i;
+        const int pos = p0 + r / G, h = hkv * G + r % G;
+        if (r >= QT * G || pos >= a.Sq) continue;
+        const float denom = lsum[i] > 1e-20f ? lsum[i] : 1e-20f;
+        __nv_bfloat16* dst = og + b * a.sob + pos * a.sos + h * a.soh + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2 * i] / denom,
+                                    o[4 * j + 2 * i + 1] / denom);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+constexpr int kErrNoEncode = 1000;    // entry point not found
+constexpr int kErrEncode = 1001;      // + CUresult of a refused map
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A (B, seq, heads, hd) bf16 operand as a 4-D map over (hd, heads, seq, B)
+// with the caller's strides (elements); a box of 64 columns x box_heads x
+// box_seq with 128-byte swizzle.  TMA zero-fills what lies past the edges.
+int make_map(CUtensorMap* map, const void* base, int hd, int heads, int seq,
+             int batch, long long s_head, long long s_seq, long long s_batch,
+             int box_heads, int box_seq) {
+  const EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_seq) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_seq), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+}
+
+template <int HD>
+int launch_wgmma(bool causal, const Args& a, cudaStream_t s) {
+  const int QT = WG_BM / a.G;
+  CUtensorMap mq, mk, mv;
+  int err = make_map(&mq, a.q, HD, a.H, a.Sq, a.B, a.sqh, a.sqs, a.sqb, a.G,
+                     QT);
+  if (!err)
+    err = make_map(&mk, a.k, HD, a.Hkv, a.Sk, a.B, a.skh, a.sks, a.skb, 1,
+                   WG_BN);
+  if (!err)
+    err = make_map(&mv, a.v, HD, a.Hkv, a.Sk, a.B, a.svh, a.svs, a.svb, 1,
+                   WG_BN);
+  if (err) return err;
+  auto kernel = causal ? flash_wgmma_kernel<HD, true>
+                       : flash_wgmma_kernel<HD, false>;
+  const int smem = WgCfg<HD>::SMEM_BYTES;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_qt = (a.Sq + QT - 1) / QT;
+  const long long blocks = static_cast<long long>(n_qt) * a.Hkv * a.B;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), WG_THREADS, smem, s>>>(mq, mk, mv,
+                                                                 a, n_qt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- launch
+
+cudaError_t set_smem(const void* kernel, int bytes) {
+  // Above 48 KB, dynamic shared memory must be opted into (per device).
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <typename T, int HD, int RT>
+cudaError_t launch_split_rt(const Args& a, cudaStream_t s) {
+  using C = SplitCfg<T, HD, RT>;
+  auto kernel = flash_split_kernel<T, HD, RT>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel),
+                             C::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.splits, a.Hkv * a.n_rt, a.B);
+  kernel<<<grid, C::THREADS, C::SMEM_BYTES, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  const long long rows = static_cast<long long>(a.B) * a.Sq * a.H;
+  flash_combine_kernel<T, HD>
+      <<<static_cast<unsigned>((rows + 3) / 4), 128, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_split(const Args& a, int row_tile, cudaStream_t s) {
+  if constexpr (sizeof(T) == 2) return launch_split_rt<T, HD, 16>(a, s);
+  else
+    return row_tile == 4 ? launch_split_rt<T, HD, 4>(a, s)
+                         : launch_split_rt<T, HD, 16>(a, s);
+}
+
+// Kernels 3 and 4: one block per (64-row q tile, KV head, batch row).
+template <typename Kernel>
+cudaError_t launch_tile(Kernel kernel, int smem, const Args& a,
+                        cudaStream_t s) {
+  const cudaError_t attr =
+      set_smem(reinterpret_cast<const void*>(kernel), smem);
   if (attr != cudaSuccess) return attr;
+  const int qt = BM / a.G;
+  const dim3 grid((a.Sq + qt - 1) / qt, a.Hkv, a.B);
   kernel<<<grid, THREADS, smem, s>>>(a);
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_f32(bool causal, const Args& a, cudaStream_t s) {
+  return launch_tile(causal ? flash_fwd_f32_kernel<HD, true>
+                            : flash_fwd_f32_kernel<HD, false>,
+                     F32Tile<HD>::SMEM_BYTES, a, s);
+}
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  dtype: 0 fp32, 1 bf16 (q, k, v
-// and out alike); hd: 16, 64 or 128.  Strides are in elements (batch,
-// sequence, head of q, k, v and out; the head dim is unit-stride, and for
-// bf16 the caller checks that bases and strides are 16-byte aligned).
-// q_off / kv_len: device int64 vectors read at b * stride, or null for the
-// constant beside them.  Launches on `stream`, does not synchronise, and
-// returns the launch's CUDA error code (0 = launched).
+// Plain C entry point, bound with ctypes.
+//   kernel: 0 TMA + wgmma prefill (bf16, hd 64/128), 1 split-KV (bf16 or
+//   fp32, hd 16/64/128; splits, keys_per_split, row_tile 16 (fp32: 4 or
+//   16) and, for
+//   splits > 1, a workspace of splits * B * Sq * H * (hd + 2) floats),
+//   2 mma.sync prefill (bf16, hd 16), 3 fp32 prefill (hd 16/64/128).
+//   dtype: 0 fp32, 1 bf16 (q, k, v and out alike).  Strides are in
+//   elements (batch, sequence, head of q, k, v and out; the head dim is
+//   unit-stride, and for bf16 the caller checks that bases and strides are
+//   16-byte aligned).  q_off / kv_len: device int64 vectors read at
+//   b * stride, or null for the constant beside them.  Launches on
+//   `stream`, does not synchronise, and returns the launch's CUDA error
+//   code (0 = launched; 1000 and up: a tensor map could not be made).
 extern "C" int flash_attention_launch(
-    int dtype, int hd, const void* q, const void* k, const void* v, void* out,
-    int B, int Sq, int Sk, int H, int Hkv, int causal, long long sqb,
-    long long sqs, long long sqh, long long skb, long long sks, long long skh,
-    long long svb, long long svs, long long svh, long long sob, long long sos,
-    long long soh, const void* q_off, int q_off_stride, long long q_off_const,
-    const void* kv_len, int kv_len_stride, long long kv_len_const, float scale,
-    void* stream) {
-  if (B < 1 || Sq < 1 || Hkv < 1 || H % Hkv || H / Hkv > BM ||
-      (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+    int kernel, int dtype, int hd, const void* q, const void* k,
+    const void* v, void* out, int B, int Sq, int Sk, int H, int Hkv,
+    int causal, long long sqb, long long sqs, long long sqh, long long skb,
+    long long sks, long long skh, long long svb, long long svs, long long svh,
+    long long sob, long long sos, long long soh, const void* q_off,
+    int q_off_stride, long long q_off_const, const void* kv_len,
+    int kv_len_stride, long long kv_len_const, float scale, int splits,
+    int keys_per_split, int row_tile, void* workspace, void* stream) {
+  const int inval = static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || Sq < 1 || Hkv < 1 || H % Hkv || (dtype != 0 && dtype != 1) ||
+      (hd != 16 && hd != 64 && hd != 128))
+    return inval;
   Args a;
   a.q = q;
   a.k = k;
   a.v = v;
   a.out = out;
+  a.B = B;
   a.Sq = Sq;
   a.Sk = Sk;
+  a.H = H;
+  a.Hkv = Hkv;
   a.G = H / Hkv;
   a.sqb = sqb; a.sqs = sqs; a.sqh = sqh;
   a.skb = skb; a.sks = sks; a.skh = skh;
@@ -533,16 +1613,62 @@ extern "C" int flash_attention_launch(
   a.kv_len_stride = kv_len_stride;
   a.kv_len_const = kv_len_const;
   a.scale_log2 = scale * LOG2E;
-  const int qt = BM / a.G;
-  const dim3 grid((Sq + qt - 1) / qt, Hkv, B);
+  a.causal = causal != 0;
+  a.splits = 1;
+  a.keys_per_split = 0;
+  a.n_rt = 1;
+  a.ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf16 = dtype == 1, c = causal != 0;
-  cudaError_t err;
-  switch (hd) {
-    case 16: err = launch_hd<16>(bf16, c, a, grid, s); break;
-    case 64: err = launch_hd<64>(bf16, c, a, grid, s); break;
-    case 128: err = launch_hd<128>(bf16, c, a, grid, s); break;
-    default: err = cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1, c = a.causal;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (kernel) {
+    case 0:   // TMA + wgmma prefill
+      if (!bf16 || hd == 16 || a.G > WG_BM || B > 65535 || Hkv > 65535)
+        return inval;
+      return hd == 128 ? launch_wgmma<128>(c, a, s) : launch_wgmma<64>(c, a, s);
+    case 1: {  // split-KV
+      if (splits < 1 || keys_per_split < 1 ||
+          (row_tile != 16 && (bf16 || row_tile != 4)) ||
+          static_cast<long long>(splits - 1) * keys_per_split >= (Sk > 0 ? Sk : 1) ||
+          (splits > 1 && workspace == nullptr))
+        return inval;
+      a.splits = splits;
+      a.keys_per_split = keys_per_split;
+      a.n_rt = static_cast<int>((static_cast<long long>(Sq) * a.G + row_tile - 1) /
+                                row_tile);
+      if (static_cast<long long>(a.n_rt) * Hkv > 65535 || B > 65535)
+        return inval;
+      if (bf16) {
+        switch (hd) {
+          case 16: err = launch_split<__nv_bfloat16, 16>(a, row_tile, s); break;
+          case 64: err = launch_split<__nv_bfloat16, 64>(a, row_tile, s); break;
+          default: err = launch_split<__nv_bfloat16, 128>(a, row_tile, s);
+        }
+      } else {
+        switch (hd) {
+          case 16: err = launch_split<float, 16>(a, row_tile, s); break;
+          case 64: err = launch_split<float, 64>(a, row_tile, s); break;
+          default: err = launch_split<float, 128>(a, row_tile, s);
+        }
+      }
+      return static_cast<int>(err);
+    }
+    case 2:   // mma.sync prefill, hd 16
+      if (!bf16 || hd != 16 || a.G > BM || B > 65535 || Hkv > 65535)
+        return inval;
+      err = launch_tile(c ? flash_fwd_kernel<16, true>
+                          : flash_fwd_kernel<16, false>,
+                        Bf16Tile<16>::SMEM_BYTES, a, s);
+      return static_cast<int>(err);
+    case 3:   // fp32 prefill
+      if (bf16 || a.G > BM || B > 65535 || Hkv > 65535) return inval;
+      switch (hd) {
+        case 16: err = launch_f32<16>(c, a, s); break;
+        case 64: err = launch_f32<64>(c, a, s); break;
+        default: err = launch_f32<128>(c, a, s);
+      }
+      return static_cast<int>(err);
+    default:
+      return inval;
   }
-  return static_cast<int>(err);
 }

@@ -17,13 +17,28 @@ becomes a Python loop); ``repro_torch.models.attention`` re-exports it as
 ``flash_ref``.
 
 Dispatch is by the tensors' device only: a CPU tensor runs the plain
-version, a CUDA tensor launches the kernel or raises.  The kernel takes
-q/k/v all bf16 (tensor cores, P rounded to bf16) or all fp32 (fp32
+version, a CUDA tensor launches a kernel or raises.  Which kernel is an
+explicit rule on the shapes alone (``plan_launch``; the device-held
+lengths are never read on the host):
+
+* ``decode_split``: the split-KV kernel (bf16 or fp32) for every launch
+  whose prefill grid (q tiles x Hkv x B) would not fill the card's SMs --
+  every decode step.  The keys are cut into splits, from the cache
+  capacity Sk, so the grid holds at least two blocks per SM; a second
+  small kernel combines the splits' partials from an fp32 workspace.
+* ``prefill_wgmma``: the TMA + ``wgmma`` kernel for every other bf16 launch
+  at head dim 64 or 128 (128-row q tiles): every serve prefill chunk.
+* ``prefill_mma_hd16``: the ``mma.sync`` kernel for the other bf16
+  launches at head dim 16, the reduced configurations' width.
+* ``prefill_f32``: the fp32 CUDA-core kernel for the other fp32 launches.
+
+q, k, v are all bf16 (tensor cores, P rounded to bf16) or all fp32 (fp32
 arithmetic throughout), with head_dim 16, 64 or 128 (128 is the width of
 every served model, 16 that of the reduced configurations).
 ``q_offset`` and ``kv_valid_len`` are a Python int or a (B,) tensor on the
-tensors' device, which the kernel reads there (no host sync).  The wrapper
-counts its launches in ``flash_attention.launches``.
+tensors' device, which the kernels read there (no host sync).  The wrapper
+counts its calls that launched in ``flash_attention.launches`` and, by
+kernel, in ``flash_attention.launches_by_kernel``.
 
 Layouts: q (B, Sq, H, hd); k/v (B, Sk, Hkv, hd) with H % Hkv == 0; the
 output is (B, Sq, H, hd) in q's dtype.
@@ -32,22 +47,74 @@ output is (B, Sq, H, hd) in q's dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.build import KernelLibrary
 
-__all__ = ["flash_attention", "flash_attention_ref", "LIBRARY"]
+__all__ = ["flash_attention", "flash_attention_ref", "plan_launch", "Plan",
+           "KERNELS", "LIBRARY"]
 
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).parent / "csrc" / "flash_attention.cu")
 
 HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TILE_ROWS = 64          # (query position, head of the group) rows per block
+# Kernel names, in the order of their codes in flash_attention_launch.
+KERNELS = ("prefill_wgmma", "decode_split", "prefill_mma_hd16", "prefill_f32")
+TILE_ROWS = {"prefill_wgmma": 128, "prefill_mma_hd16": 64, "prefill_f32": 64}
+H100_SMS = 132
+SPLIT_KEYS = 128        # keys per split: a multiple of the 32-key warp tile
+BLOCKS_PER_SM = 2       # the split grid holds at least this many per SM
 _MAX_GRID_YZ = 65535
+
+
+class Plan(NamedTuple):
+    """Which kernel a launch takes and, for ``decode_split``, its grid:
+    ``splits`` key ranges of ``keys_per_split`` keys and row tiles of
+    ``row_tile`` (query position, head) rows."""
+
+    kernel: str
+    splits: int = 1
+    keys_per_split: int = 0
+    row_tile: int = 0
+
+
+def plan_launch(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
+                dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
+    """The kernel for these shapes, from the shapes alone.
+
+    The prefill kernel by dtype and head dim (bf16 at 64/128: the TMA +
+    wgmma kernel; bf16 at 16: the mma.sync one; fp32: the CUDA-core one)
+    unless its grid of q tiles (``TILE_ROWS / G`` positions each) times
+    Hkv times B is smaller than ``sms``: then the split-KV kernel, with
+    enough splits of Sk that B * Hkv * row tiles * splits >= 2 * sms, or
+    as many as splits of SPLIT_KEYS keys allow.
+    """
+    G = H // Hkv
+    if dtype == torch.bfloat16:
+        prefill = "prefill_mma_hd16" if hd == 16 else "prefill_wgmma"
+    else:
+        prefill = "prefill_f32"
+    per_tile = max(1, TILE_ROWS[prefill] // G)        # query positions
+    if -(-Sq // per_tile) * Hkv * B >= sms:
+        if G > TILE_ROWS[prefill]:
+            raise ValueError(f"{G} query heads per KV head exceed the "
+                             f"{prefill} kernel's {TILE_ROWS[prefill]}-row "
+                             f"tile")
+        return Plan(prefill)
+    rows = Sq * G
+    # bf16 computes 16 rows as one mma.sync fragment; fp32 on the CUDA
+    # cores takes 4-row tiles where that is enough.
+    row_tile = 4 if rows <= 4 and dtype != torch.bfloat16 else 16
+    blocks = B * Hkv * -(-rows // row_tile)
+    want = -(-BLOCKS_PER_SM * sms // blocks)
+    keys = max(SPLIT_KEYS, -(-Sk // want) // SPLIT_KEYS * SPLIT_KEYS)
+    return Plan("decode_split", max(1, -(-Sk // keys)), keys, row_tile)
 
 
 def _as_batch_vector(v, device) -> torch.Tensor:
@@ -135,16 +202,38 @@ def _offset_arg(v, B: int, device, name: str):
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """Unit-stride head dim; for bf16 (read in 16-byte pieces) also
-    16-byte aligned base and outer strides."""
+    """Unit-stride head dim, 16-byte aligned base and outer strides: the
+    kernels read rows in 16-byte pieces (cp.async, TMA)."""
     if t.stride(-1) != 1:
         return False
-    return t.dtype != torch.bfloat16 or (
-        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1]))
+    per_16 = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % per_16 == 0
+                                          for s in t.stride()[:-1])
 
 
-def _launch(q, k, v, causal, q_offset, kv_valid_len, scale):
-    """Validate, allocate the output and launch on the current stream."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C entry point with its argument types (set once)."""
+    fn = LIBRARY.load().flash_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p, ctypes.c_int,
+                                                 ctypes.c_longlong] * 2
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2)
+    return fn
+
+
+def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None):
+    """Validate, plan, allocate the output (and the split workspace) and
+    launch on the current stream.  Returns the output and the kernel that
+    ran, or None when there was nothing to compute."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("expected q (B, Sq, H, hd) and k/v (B, Sk, Hkv, hd)")
     B, Sq, H, hd = q.shape
@@ -160,41 +249,39 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale):
                          f"{HEAD_DIMS}, not {hd}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash attention operands must share one device")
-    group = H // Hkv
-    if group > TILE_ROWS:
-        raise ValueError(f"{group} query heads per KV head exceed the "
-                         f"kernel's {TILE_ROWS}-row tile")
     if not all(_aligned(t) for t in (q, k, v)):
-        raise ValueError("flash attention needs a unit-stride head dim and, "
-                         "in bf16, 16-byte aligned bases and strides")
+        raise ValueError("flash attention needs a unit-stride head dim and "
+                         "16-byte aligned bases and strides")
     if Hkv > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
         raise ValueError(f"grid too large for B={B}, Hkv={Hkv}")
+    plan = plan_launch(B, Sq, Sk, H, Hkv, hd, q.dtype,
+                       _sm_count(q.device) if sms is None else sms)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out, False
+        return out, None
     qo, qo_stride, qo_const = _offset_arg(q_offset, B, q.device, "q_offset")
     kl, kl_stride, kl_const = _offset_arg(
         Sk if kv_valid_len is None else kv_valid_len, B, q.device,
         "kv_valid_len")
-    fn = LIBRARY.load().flash_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p, ctypes.c_int,
-                                                 ctypes.c_longlong] * 2
-                   + [ctypes.c_float, ctypes.c_void_p])
+    ws = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.splits * B * Sq * H * (hd + 2),
+                         dtype=torch.float32, device=q.device)
+    fn = _launcher()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(_DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-             v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, int(causal),
-             *strides,
+    err = fn(KERNELS.index(plan.kernel), _DTYPE_CODE[q.dtype], hd,
+             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+             Sk, H, Hkv, int(causal), *strides,
              None if qo is None else qo.data_ptr(), qo_stride, qo_const,
              None if kl is None else kl.data_ptr(), kl_stride, kl_const,
-             float(scale if scale is not None else hd ** -0.5), stream)
+             float(scale if scale is not None else hd ** -0.5), plan.splits,
+             plan.keys_per_split, plan.row_tile,
+             None if ws is None else ws.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    return out, True
+        raise RuntimeError(f"flash_attention kernel {plan.kernel} launch "
+                           f"failed: error {err}")
+    return out, plan.kernel
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -209,10 +296,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, block_kv=block_kv,
                                    q_offset=q_offset,
                                    kv_valid_len=kv_valid_len, scale=scale)
-    out, launched = _launch(q, k, v, causal, q_offset, kv_valid_len, scale)
-    if launched:
+    out, kernel = _launch(q, k, v, causal, q_offset, kv_valid_len, scale)
+    if kernel is not None:
         flash_attention.launches += 1
+        flash_attention.launches_by_kernel[kernel] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)

@@ -42,7 +42,8 @@ _CATEGORIES = (
     ("grouped_gemm_q8 (ours)", ("grouped_gemm_q8_kernel",)),
     ("ssd_scan (ours)", ("ssd_intra_chunk_kernel",)),
     ("gating_topk (ours)", ("gating_topk_kernel",)),
-    ("flash_attention (ours)", ("flash_fwd_kernel",)),
+    ("flash_attention (ours)", ("flash_wgmma_kernel", "flash_split_kernel",
+                                "flash_combine_kernel", "flash_fwd_kernel")),
     ("library GEMM", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")),
     ("sort/scan/search", ("sort", "scan", "cumsum", "search", "radix")),
     ("gather/scatter/index", ("index", "gather", "scatter", "take")),

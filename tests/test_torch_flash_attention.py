@@ -1,14 +1,17 @@
 """Flash attention: the port's plain version vs the Pallas kernel
-(interpret mode) and JAX ``flash_ref`` with cache offsets, and the CUDA
-kernel vs the plain version on a card.
+(interpret mode) and JAX ``flash_ref`` with cache offsets, the wrapper's
+choice of kernel and split count, the split-KV combine algebra, and the
+CUDA kernels vs the plain version on a card.
 
 CPU tolerances (fp32 throughout): 1e-4 against the Pallas kernel (the JAX
 suite's bound for fp32 kernels; its masked scores are -1e30, not -inf, and
-its blocks differ) and 1e-5 against ``flash_ref`` with the same blocks
-(the frameworks' einsums sum in different orders).  Card: each output row
-(batch row, query position, head) within a share of its own max|ref|:
-1e-2 for bf16 q/k/v (the kernel rounds P to bf16 for the P v product and
-the output once to bf16), 1e-4 for fp32 (fp32 arithmetic, another order).
+its blocks differ), 1e-5 against ``flash_ref`` with the same blocks (the
+frameworks' einsums sum in different orders) and 1e-6 for the split
+combine against the plain version (one fp32 rescaling per split).  Card:
+each output row (batch row, query position, head) within a share of its
+own max|ref|: 1e-2 for bf16 q/k/v (the kernels round P to bf16 for the P v
+product, or the split kernel's output once, and the output once to bf16),
+1e-4 for fp32 (fp32 arithmetic, another order).
 
 The JAX side is imported inside the tests that use it, so the card test
 also runs where JAX is not installed:
@@ -121,7 +124,8 @@ def test_kernel_refuses_what_it_does_not_compute(dtypes, hd, error):
 
 
 def test_kernel_takes_fp32_and_the_reduced_head_dims():
-    """fp32 needs only a unit-stride head dim; bf16 also 16-byte alignment."""
+    """Both dtypes need a unit-stride head dim and 16-byte aligned bases
+    and outer strides (the kernels read rows in 16-byte pieces)."""
     assert ops.HEAD_DIMS == (16, 64, 128)
     f = torch.zeros((2, 8, 4, 16))
     assert ops._aligned(f) and ops._aligned(f[:, 1:])
@@ -140,6 +144,137 @@ def test_offset_arguments_stay_on_the_device():
     assert ops._offset_arg(5, 2, t.device, "x") == (None, 0, 5)
     with pytest.raises(ValueError):
         ops._offset_arg(torch.zeros(3), 2, t.device, "x")
+
+
+SERVE_SK = 6144 + 8 + 4096          # the serve cache: prompt + new + chunk
+PLAN_SHAPES = [
+    # B, Sq, Sk, H, Hkv, hd, dtype, kernel
+    (1, 4096, SERVE_SK, 32, 8, 128, torch.bfloat16, "prefill_wgmma"),  # GLM
+    (1, 4096, SERVE_SK, 64, 4, 128, torch.bfloat16, "prefill_wgmma"),  # Qwen3
+    (4, 1, SERVE_SK, 32, 8, 128, torch.bfloat16, "decode_split"),
+    (4, 1, SERVE_SK, 64, 4, 128, torch.bfloat16, "decode_split"),      # G 16
+    (1, 1, SERVE_SK, 32, 8, 128, torch.bfloat16, "decode_split"),
+    (4, 1, SERVE_SK, 32, 8, 128, torch.float32, "decode_split"),
+    (1, 1024, 4096, 32, 8, 128, torch.float32, "prefill_f32"),
+    (2, 1024, 2048, 16, 4, 64, torch.bfloat16, "prefill_wgmma"),       # hd 64
+    (8, 512, 1024, 8, 2, 16, torch.bfloat16, "prefill_mma_hd16"),     # hd 16
+    (1, 64, 272, 4, 2, 16, torch.bfloat16, "decode_split"),           # reduced
+    (4, 1, 272, 4, 2, 16, torch.float32, "decode_split"),
+    (1, 4096, 4096, 8, 8, 128, torch.bfloat16, "prefill_wgmma"),       # G 1
+    (1, 2048, 4096, 16, 8, 128, torch.bfloat16, "prefill_wgmma"),      # G 2
+    (4, 1, 4096, 8, 8, 128, torch.bfloat16, "decode_split"),           # G 1
+    (4, 1, 4096, 16, 8, 128, torch.bfloat16, "decode_split"),          # G 2
+    (1, 1001, 1301, 64, 4, 128, torch.bfloat16, "prefill_wgmma"),      # G 16
+    (1, 5, 1, 4, 2, 16, torch.bfloat16, "decode_split"),               # Sk 1
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_fills_the_card_and_stays_inside_the_cache(shape):
+    """The kernel and split count are a pure function of the shapes: a
+    prefill kernel only where its q-tile grid fills 132 SMs, else splits
+    of Sk that give at least two blocks per SM, none starting past Sk."""
+    B, Sq, Sk, H, Hkv, hd, dtype, kernel = shape
+    plan = ops.plan_launch(B, Sq, Sk, H, Hkv, hd, dtype)
+    assert plan == ops.plan_launch(B, Sq, Sk, H, Hkv, hd, dtype)
+    assert plan.kernel == kernel
+    G = H // Hkv
+    if kernel != "decode_split":
+        per_tile = ops.TILE_ROWS[kernel] // G
+        assert -(-Sq // per_tile) * Hkv * B >= ops.H100_SMS
+        assert plan.splits == 1
+        return
+    assert plan.row_tile in (4, 16)
+    assert plan.keys_per_split % ops.SPLIT_KEYS == 0
+    rows = -(-Sq * G // plan.row_tile)
+    assert (plan.keys_per_split == ops.SPLIT_KEYS       # as many as can be
+            or B * Hkv * rows * plan.splits >= 2 * ops.H100_SMS)
+    assert (plan.splits - 1) * plan.keys_per_split < Sk
+    assert plan.splits * plan.keys_per_split >= Sk
+
+
+@pytest.mark.parametrize("make", [
+    lambda: torch.zeros((1, 4, 4, 136), dtype=torch.bfloat16)[..., 4:132],
+    lambda: torch.zeros((1, 4, 4, 128), dtype=torch.bfloat16).transpose(0, 3),
+    lambda: torch.zeros(1 * 4 * 4 * 128 + 1, dtype=torch.bfloat16)[1:].view(
+        1, 4, 4, 128),
+])
+def test_kernel_refuses_operands_tma_cannot_address(make):
+    """An unaligned base or stride, or a head dim that is not unit-stride,
+    is refused before any kernel is loaded."""
+    q = make()
+    k = torch.zeros((1, 8, 2, q.shape[-1]), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops._launch(q, k, k, True, 0, None, None)
+
+
+def _split_mirror(q, k, v, causal, q_off, kv_len, keys_per_split):
+    """What the split-KV kernel computes, in plain fp32: per split the
+    masked scores' max m_i, sum l_i and acc_i (an empty split gives
+    m_i = -inf, l_i = 0 and is skipped), then
+    out = sum_i 2^(m_i - m) acc_i / sum_i 2^(m_i - m) l_i (log2 units)."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (hd ** -0.5 * np.log2(
+        np.e)), kf)                                          # log2 units
+    kpos = torch.arange(Sk)
+    qpos = torch.arange(Sq)[None, :] + torch.as_tensor(q_off)[:, None]
+    limit = torch.as_tensor(kv_len)[:, None, None]
+    keep = kpos[None, None, :] < limit
+    if causal:
+        keep = keep & (kpos[None, None, :] <= qpos[:, :, None])
+    s = torch.where(keep[:, None], s, float("-inf"))
+    ms, ls, accs = [], [], []
+    for k0 in range(0, Sk, keys_per_split):
+        part = s[..., k0:k0 + keys_per_split]
+        m = part.amax(dim=-1)
+        base = torch.where(m == float("-inf"), 0.0, m)
+        p = torch.exp2(part - base[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhqk,bkhv->bhqv", p,
+                                 vf[:, k0:k0 + keys_per_split]))
+    m = torch.stack(ms).amax(dim=0)
+    c = [torch.where(mi == float("-inf"), 0.0, torch.exp2(mi - m))
+         for mi in ms]
+    L = sum(ci * li for ci, li in zip(c, ls))
+    acc = sum(ci[..., None] * ai for ci, ai in zip(c, accs))
+    return (acc / L.clamp(min=1e-20)[..., None]).movedim(1, 2)
+
+
+SPLIT_CASES = [
+    # B, Sq, Sk, H, Hkv, causal, q_offset, kv_valid_len, keys_per_split
+    # decode rows of length 1, of exactly one split, ending on a split
+    # edge, and at the full capacity
+    (4, 1, 512, 8, 2, False, [0] * 4, [1, 128, 256, 512], 128),
+    (4, 1, 500, 16, 1, False, [0] * 4, [1, 127, 129, 500], 128),   # G 16
+    (2, 7, 300, 8, 4, True, [0, 250], [7, 257], 128),      # short prefill
+    (3, 1, 640, 4, 4, False, [0] * 3, [640, 639, 2], 256),           # G 1
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_combine_matches_plain_version(case):
+    """The split-KV kernel's algebra, held against the plain version."""
+    B, Sq, Sk, H, Hkv, causal, q_off, kv_len, keys = case
+    q, k, v = map(torch.from_numpy, _qkv(B, Sq, Sk, H, Hkv, 64, seed=4))
+    got = _split_mirror(q, k, v, causal, q_off, kv_len, keys)
+    want = ops.flash_attention_ref(q, k, v, causal=causal,
+                                   q_offset=torch.tensor(q_off),
+                                   kv_valid_len=torch.tensor(kv_len))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_split_combine_gives_zero_where_no_key_is_valid():
+    """A row whose every split is empty gives 0, as every kernel does."""
+    q, k, v = map(torch.from_numpy, _qkv(2, 1, 256, 4, 2, 16, seed=5))
+    got = _split_mirror(q, k, v, False, [0, 0], [0, 200], 128)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.isfinite(got).all()
 
 
 @pytest.fixture
@@ -165,6 +300,20 @@ CARD_CASES = [
     (2, 64, 272, 4, 2, 16, True, [0, 64], [50, 100]),   # reduced configs
     (4, 1, 272, 4, 2, 16, False, 0, [1, 80, 200, 272]),
     (2, 40, 90, 8, 2, 16, True, [0, 7], [40, 47]),
+    # split edges: rows of length 1, of exactly one split (1024 keys at
+    # GLM's shape, 512 at Qwen3's), ending on a split edge, and of the
+    # full capacity
+    (4, 1, 10248, 32, 8, 128, False, 0, [1, 1024, 2048, 10248]),
+    (4, 1, 10248, 64, 4, 128, False, 0, [1, 512, 1024, 10248]),
+    (2, 1, 300, 8, 8, 128, False, 0, [300, 129]),       # G 1
+    (2, 1, 300, 16, 8, 64, False, 0, [3, 299]),         # G 2
+    (1, 1001, 1301, 64, 4, 128, True, [300], [1301]),   # G 16, Sq % 8 != 0
+    (2, 1000, 3000, 32, 8, 128, True, [0, 1500], [777, 2100]),  # straddles
+    (2, 1024, 2048, 16, 4, 64, True, [0, 512], [1024, 1536]),   # hd 64
+    (8, 512, 1024, 8, 2, 16, True, [0, 1, 2, 3, 4, 5, 6, 500],
+     [512, 600, 700, 800, 900, 1000, 1024, 1012]),              # hd 16
+    (1, 300, 300, 12, 4, 128, True, 0, None),           # G 3: rows idle
+    (1, 200, 260, 8, 2, 128, False, [0], [0]),          # no valid key
 ]
 
 
@@ -174,23 +323,64 @@ def _row_rel_err(out, ref):
     return (err / ref.float().abs().amax(dim=-1)).max().item()
 
 
+def _card_inputs(case, dtype, device):
+    B, Sq, Sk, H, Hkv, hd, causal, q_off, kv_len = case
+    q, k, v = (torch.from_numpy(a).to(device, dtype)
+               for a in _qkv(B, Sq, Sk, H, Hkv, hd, seed=3))
+    kw = dict(causal=causal,
+              q_offset=(q_off if isinstance(q_off, int)
+                        else torch.tensor(q_off, device=device)),
+              kv_valid_len=(None if kv_len is None
+                            else torch.tensor(kv_len, device=device)))
+    return q, k, v, kw
+
+
+def _check_against_plain(out, q, k, v, kw, tol):
+    """Rows with a valid key within tol of their own max|ref|; rows with
+    none exactly 0 (the plain version gives NaN there)."""
+    ref = ops.flash_attention_ref(q, k, v, **kw)
+    assert out.dtype == q.dtype
+    dead = ~torch.isfinite(ref).all(dim=-1)
+    assert torch.equal(out[dead].float(), torch.zeros_like(out[dead].float()))
+    if (~dead).any():
+        assert _row_rel_err(out[~dead], ref[~dead]) <= tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("case", CARD_CASES, ids=str)
 def test_kernel_matches_plain_on_card(cuda_device, case, dtype, tol):
-    B, Sq, Sk, H, Hkv, hd, causal, q_off, kv_len = case
-    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
-               for a in _qkv(B, Sq, Sk, H, Hkv, hd, seed=3))
-    kw = dict(causal=causal,
-              q_offset=(q_off if isinstance(q_off, int)
-                        else torch.tensor(q_off, device=cuda_device)),
-              kv_valid_len=(None if kv_len is None
-                            else torch.tensor(kv_len, device=cuda_device)))
+    """Through the wrapper: one launch, by the kernel the plan names."""
+    q, k, v, kw = _card_inputs(case, dtype, cuda_device)
+    B, Sq, H, hd = q.shape
+    want = ops.plan_launch(B, Sq, k.shape[1], H, k.shape[2], hd, dtype,
+                           ops._sm_count(cuda_device)).kernel
     before = ops.flash_attention.launches
+    by_kernel = dict(ops.flash_attention.launches_by_kernel)
     out = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
-    ref = ops.flash_attention_ref(q, k, v, **kw)
-    assert out.dtype == dtype
-    assert _row_rel_err(out, ref) <= tol
+    moved = {name: n - by_kernel[name] for name, n in
+             ops.flash_attention.launches_by_kernel.items()}
+    assert moved == {name: int(name == want) for name in ops.KERNELS}
+    _check_against_plain(out, q, k, v, kw, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("route", ["prefill", "split"])
+@pytest.mark.parametrize("case", CARD_CASES, ids=str)
+def test_each_kernel_matches_plain_on_card(cuda_device, case, route, dtype,
+                                           tol):
+    """Every case through both kernels of its dtype and head dim: the
+    prefill kernel (a plan for a card of one SM) and the split-KV kernel
+    (a plan for a card of 4096 SMs: many splits)."""
+    q, k, v, kw = _card_inputs(case, dtype, cuda_device)
+    sms = 1 if route == "prefill" else 4096
+    out, kernel = ops._launch(q, k, v, kw["causal"], kw["q_offset"],
+                              kw["kv_valid_len"], None, sms=sms)
+    torch.cuda.synchronize()
+    assert (kernel == "decode_split") == (route == "split")
+    _check_against_plain(out, q, k, v, kw, tol)
