@@ -20,13 +20,22 @@ Phases, one output line each:
      prefill chunk in bf16 and fp32 inputs and at the reduced shape at nc 1
      and at B 2, within 3e-4 max|ref| (fp32 arithmetic in both); then the
      w8a8 pair ``grouped_swiglu_q8`` / ``grouped_matmul_q8`` against their
-     plain versions at the GLM-4.5-Air prefill and decode shapes and at
-     ragged shapes, with weight codes K-contiguous as the layer keeps them
-     and the SwiGLU's activations as the dispatch stage hands them over (a
-     strided view of the int8 wire, rows K + 4 bytes apart) and contiguous:
-     the matmul must match bitwise, the SwiGLU within 1e-5 max|ref| (the
-     gate's exp); the library yardstick is G calls of ``torch._int_mm``
-     (cuBLAS int8) plus the dequant in PyTorch; then ``gating_topk`` against
+     plain versions at the GLM-4.5-Air prefill and decode shapes with every
+     row valid, with the serve path's per-slot row counts and activations
+     (taken from the port's dispatch stage: GLM prefill, ``a2a`` with the
+     int8 wire, and decode, ``replicated``), with counts that straddle a
+     tile and with empty slots (padded rows hold NaN row scales and must
+     come out exactly zero), and at ragged shapes, with weight codes
+     K-contiguous as the layer keeps them and the SwiGLU's activations as
+     a view of int8 wire rows padded to 16 bytes (as the bucket lays them
+     out), contiguous, or a view of unpadded wire rows, K + 4 bytes apart,
+     which TMA cannot read and the wrapper copies first (counted; the serve
+     cases must make no copy): the matmul must match bitwise in fp32 and in
+     bf16 output, the
+     SwiGLU within 1e-5 max|ref| (the gate's exp); bounds on the valid
+     rows' work; the library yardstick is G calls of ``torch._int_mm``
+     (cuBLAS int8) over every row plus the dequant in PyTorch; then
+     ``gating_topk`` against
      its plain version at the GLM/Qwen3 prefill (T 4096, E 128, k 8) and
      decode (T 4) shapes, Jamba's (E 16, k 2), sigmoid at E 256, a ragged
      shape and a tie case (duplicated router columns, all-zero rows): ids
@@ -217,10 +226,11 @@ def _time_pair(kernel, plain, library, flops, nbytes, kind, iters):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _serve_rows(cfg, T: int, mode: str, seed: int):
-    """Each slot's valid-row count and the slot capacity as the serve path
+def _serve_dispatch(cfg, T: int, mode: str, seed: int, **runtime):
+    """The dispatch stage's output and the slot capacity as the serve path
     makes them: the port's gate, ``ultraep`` plan and bucket on T seeded
-    tokens at ``cfg``'s width, with the serve capacity factors."""
+    tokens at ``cfg``'s width, with the serve capacity factors and the
+    ``RuntimeConfig`` fields in ``runtime`` (the wire and FFN dtypes)."""
     import torch
 
     from repro_torch.core.balancer import BalancerConfig
@@ -233,7 +243,7 @@ def _serve_rows(cfg, T: int, mode: str, seed: int):
 
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode=SERVE["balancer"]),
                          cf_pair=SERVE["cf"], cf_slot=SERVE["cf"],
-                         dtype=torch.bfloat16)
+                         dtype=torch.bfloat16, **runtime)
     mcfg = moe_config(cfg, rcfg, ParallelCtx(), T, dispatch_mode=mode)
     g = torch.Generator(device="cuda").manual_seed(seed)
     D = cfg.d_model
@@ -245,7 +255,14 @@ def _serve_rows(cfg, T: int, mode: str, seed: int):
     ds = stages.dispatch_stage(mcfg, x, gs.gate_out.expert_ids, gs, ps)
     if not torch.equal(ds.rows, ds.valid.sum(dim=1)):
         raise AssertionError("bucket rows differ from its validity mask")
-    return ds.rows, mcfg.cap_slot
+    return ds, mcfg.cap_slot
+
+
+def _serve_rows(cfg, T: int, mode: str, seed: int):
+    """Each slot's valid-row count and the slot capacity as the serve path
+    makes them (see :func:`_serve_dispatch`)."""
+    ds, cap = _serve_dispatch(cfg, T, mode, seed)
+    return ds.rows, cap
 
 
 def phase_kernels(glm, jamba) -> dict:
@@ -333,14 +350,15 @@ def phase_kernels(glm, jamba) -> dict:
     return records
 
 
-def _q8_operands(G, M, K, N, seed, wire_view):
+def _q8_operands(G, M, K, N, seed, layout, rows=None):
     """The w8a8 FFN's operands as the main path builds them.  Activations
-    x ~ N(0, 1) in bf16, (G, M, K), encoded for the int8 wire and split
-    (codes a view with rows K + 4 bytes apart), or quantized per row
-    (contiguous codes, as the decode path and the down projection get
-    them).  Weights w1, w3 (G, K, N) and w2 (G, N, K), bf16 ~ N(0, 1/fan_in),
-    quantized per column with their codes stored K-contiguous, as
-    ``MoEParams.q8_slot_buffers`` keeps them."""
+    x ~ N(0, 1) in bf16, (G, M, K), with the rows past ``rows[g]`` zero as
+    the bucket leaves them, encoded for the int8 wire and split: ``layout``
+    "padded", codes a view of wire rows padded to 16 bytes, as the bucket
+    lays them out (TMA reads them), or "wire", a view of unpadded wire rows
+    K + 4 bytes apart (TMA cannot: the wrapper copies them first); or
+    "contiguous", quantized per row (as the decode path and the down
+    projection get them).  Weights: see :func:`_q8_weights`."""
     import torch
 
     from repro_torch.core.quantize import (
@@ -348,29 +366,72 @@ def _q8_operands(G, M, K, N, seed, wire_view):
         quantize_rows,
         split_wire_int8,
     )
+    from repro_torch.kernels.grouped_gemm import ops
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((G, M, K), generator=g, device="cuda").to(torch.bfloat16)
+    if rows is not None:
+        x = torch.where(ops._row_mask(rows, M), x,
+                        torch.zeros((), dtype=x.dtype, device="cuda"))
+    if layout == "contiguous":
+        q, rs = quantize_rows(x)
+    else:
+        wire = encode_wire(x, "int8")
+        if layout == "padded":
+            pitch = -(-(K + 4) // 16) * 16
+            wire = torch.empty((G, M, pitch), dtype=torch.int8,
+                               device="cuda")[..., :K + 4].copy_(wire)
+        q, rs = split_wire_int8(wire)
+    return q, rs, _q8_weights(G, K, N, seed + 1)
+
+
+def _q8_weights(G, K, N, seed):
+    """Weights w1, w3 (G, K, N) and w2 (G, N, K), bf16 ~ N(0, 1/fan_in),
+    quantized per column with their codes stored K-contiguous, as
+    ``MoEParams.q8_slot_buffers`` keeps them."""
+    import torch
+
     from repro_torch.moe.expert import quantize_weight_cols
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-
-    def n(shape, scale):
-        return (torch.randn(shape, generator=g, device="cuda") * scale
-                ).to(torch.bfloat16)
-
-    x = n((G, M, K), 1.0)
-    q, rs = (split_wire_int8(encode_wire(x, "int8")) if wire_view
-             else quantize_rows(x))
     ws = []
     for shape in ((G, K, N), (G, K, N), (G, N, K)):
-        codes, scales = quantize_weight_cols(n(shape, shape[1] ** -0.5))
+        w = (torch.randn(shape, generator=g, device="cuda")
+             * shape[1] ** -0.5).to(torch.bfloat16)
+        codes, scales = quantize_weight_cols(w)
         ws.append((codes.transpose(1, 2).contiguous().transpose(1, 2), scales))
-    return q, rs, ws
+    return ws
+
+
+def _q8_serve_operands(cfg, T, mode, seed, wire_view):
+    """The w8a8 FFN's operands at the serve path's row counts, activations
+    from the port's dispatch stage with ``wire_dtype = ffn_dtype = "int8"``:
+    in ``a2a`` the bucket's view of the int8 wire (rows padded to 16
+    bytes), in ``replicated`` the bf16 bucket quantized per row, as
+    ``grouped_ffn`` does; ``wire_view`` copies the a2a codes into unpadded
+    wire rows (K + 4 bytes apart).  Weights: see :func:`_q8_weights`."""
+    import torch
+
+    from repro_torch.core.quantize import quantize_rows
+
+    ds, cap = _serve_dispatch(cfg, T, mode, seed, wire_dtype="int8",
+                              ffn_dtype="int8")
+    q, rs = (ds.xs, ds.xs_scale) if ds.xs.dtype == torch.int8 else \
+        quantize_rows(ds.xs)
+    if wire_view:
+        G, M, K = q.shape
+        q = torch.zeros((G, M, K + 4), dtype=torch.int8,
+                        device="cuda")[..., :K].copy_(q)
+    return ds.rows, q, rs, _q8_weights(q.shape[0], cfg.d_model,
+                                       cfg.moe.d_ff, seed + 1)
 
 
 def _int_mm_ffn(q, rs, w1, s1, w3, s3, aq, as_, w2, s2):
     """The library yardstick for the q8 pair: one ``torch._int_mm`` (cuBLAS
-    int8 -> int32) per group in a Python loop, then the same dequant (and
-    gate) in PyTorch.  None where ``_int_mm`` refuses the shape (it needs
-    more than 16 rows, and K and N multiples of 8)."""
+    int8 -> int32) per group in a Python loop over every row of the slot
+    buffers, then the same dequant (and gate) in PyTorch.  None where
+    ``_int_mm`` refuses the shape (it needs more than 16 rows, and K and N
+    multiples of 8)."""
     import torch
     import torch.nn.functional as F
 
@@ -398,71 +459,163 @@ def _int_mm_ffn(q, rs, w1, s1, w3, s3, aq, as_, w2, s2):
     return swiglu, matmul
 
 
-def phase_kernels_q8() -> dict:
-    """The w8a8 pair vs their plain versions; returns the records by name."""
+def phase_kernels_q8(glm) -> dict:
+    """The w8a8 pair vs their plain versions, every row valid and with
+    row counts (the serve path's, tiles straddled, empty slots); returns
+    the records by name (``grouped_matmul_q8`` also by ``<tag>_bf16``, the
+    bf16 output the FFN's down projection writes)."""
     import torch
 
     from repro_torch.core.quantize import quantize_rows
     from repro_torch.kernels.grouped_gemm import ops
 
     records = {"grouped_swiglu_q8": {}, "grouped_matmul_q8": {}}
-    cases = [("prefill", PREFILL, True, 10),
-             ("decode", DECODE, True, 20),
-             ("prefill_contiguous", PREFILL, False, 10),
-             ("ragged_m1", dict(G=1, M=1, K=4096, N=1408), True, 0),
-             ("ragged_tiles", dict(G=3, M=1009, K=136, N=200), True, 0),
-             ("ragged_small", dict(G=2, M=65, K=33, N=129), True, 0),
-             ("ragged_small_contiguous", dict(G=2, M=65, K=33, N=129), False,
-              0)]
-    for tag, s, wire_view, iters in cases:
-        G, M, K, N = s["G"], s["M"], s["K"], s["N"]
-        q, rs, ((w1, s1), (w3, s3), (w2, s2)) = _q8_operands(
-            G, M, K, N, seed=len(tag), wire_view=wire_view)
-        act = ops.grouped_swiglu_q8(q, rs, w1, s1, w3, s3)
+    # tag, shape, or (config, tokens, dispatch mode) for the serve path's
+    # counts and activations, or (shape, counts); activation layout (see
+    # _q8_operands; "serve": the dispatch stage's, "wire": also copied into
+    # unpadded wire rows); timing iterations
+    cases = [("prefill", PREFILL, "padded", 10),
+             ("decode", DECODE, "padded", 20),
+             ("prefill_contiguous", PREFILL, "contiguous", 10),
+             ("prefill_serve", (glm, 4096, "a2a"), "serve", 10),
+             ("prefill_serve_wire", (glm, 4096, "a2a"), "wire", 10),
+             ("decode_serve", (glm, 4, "replicated"), "serve", 20),
+             ("rows_straddle", (dict(G=6, M=300, K=512, N=384),
+                                [1, 127, 129, 255, 256, 300]), "wire", 0),
+             ("rows_straddle_padded", (dict(G=6, M=300, K=512, N=384),
+                                       [1, 127, 129, 255, 256, 300]),
+              "padded", 0),
+             ("rows_empty_slots", (dict(G=5, M=1009, K=4096, N=1408),
+                                   [0, 700, 0, 1009, 0]), "padded", 0),
+             ("rows_straddle_contiguous", (dict(G=4, M=65, K=136, N=200),
+                                           [0, 64, 65, 3]), "contiguous", 0),
+             ("ragged_m1", dict(G=1, M=1, K=4096, N=1408), "padded", 0),
+             ("ragged_tiles", dict(G=3, M=1009, K=136, N=200), "padded", 0),
+             ("ragged_small", dict(G=2, M=65, K=33, N=129), "wire", 0),
+             ("ragged_small_padded", dict(G=2, M=65, K=33, N=129), "padded",
+              0),
+             ("ragged_small_contiguous", dict(G=2, M=65, K=33, N=129),
+              "contiguous", 0)]
+    for tag, s, layout, iters in cases:
+        rows = None
+        if isinstance(s, tuple) and len(s) == 3:
+            rows, q, rs, ((w1, s1), (w3, s3), (w2, s2)) = _q8_serve_operands(
+                *s, seed=len(tag), wire_view=layout == "wire")
+            G, M, K = q.shape
+            N = s[0].moe.d_ff
+        else:
+            if isinstance(s, tuple):
+                s, counts = s
+                rows = torch.tensor(counts, dtype=torch.int64, device="cuda")
+            G, M, K, N = s["G"], s["M"], s["K"], s["N"]
+            q, rs, ((w1, s1), (w3, s3), (w2, s2)) = _q8_operands(
+                G, M, K, N, seed=len(tag), layout=layout, rows=rows)
+        if rows is None:
+            V, S = G * M, G
+        else:
+            # The kernels must ignore what padded rows hold: NaN row scales.
+            mask = ops._row_mask(rows, M)
+            rs = torch.where(mask[..., 0], rs,
+                             torch.full_like(rs, float("nan")))
+            V, S = int(rows.sum()), int((rows > 0).sum())
+        copies = ops.grouped_swiglu_q8.padded_copies
+        act = ops.grouped_swiglu_q8(q, rs, w1, s1, w3, s3, rows)
+        copies = ops.grouped_swiglu_q8.padded_copies - copies
+        # TMA reads every operand whose rows are 16-byte aligned; the
+        # wrapper copies the others (unpadded wire rows, a K that is not a
+        # multiple of 16), and counts them.  The serve path makes no copy.
+        expect = int(not ops._tma_ready(q)) + 2 * (K % 16 != 0)
+        if copies != expect or (layout == "serve" and copies):
+            raise AssertionError(f"grouped_swiglu_q8 {tag}: {copies} padded "
+                                 f"copies, expected {expect}")
         sw = dict(zip(("max_abs_err", "max_abs_ref"), _check_case(
             f"grouped_swiglu_q8 {tag}", lambda: act,
-            lambda: ops.grouped_swiglu_q8_ref(q, rs, w1, s1, w3, s3),
+            lambda: ops.grouped_swiglu_q8_ref(q, rs, w1, s1, w3, s3, rows),
             Q8_SWIGLU_TOL)))
         aq, as_ = quantize_rows(act)
-        out = ops.grouped_matmul_q8(aq, as_, w2, s2)
-        torch.cuda.synchronize()
-        ref = ops.grouped_matmul_q8_ref(aq, as_, w2, s2)
-        err, scale = _max_err(out, ref)
-        if not torch.equal(out, ref):
-            raise AssertionError(f"grouped_matmul_q8 {tag}: not bitwise equal "
-                                 f"to its plain version (max|err| {err:.3e})")
-        mm = {"max_abs_err": err, "max_abs_ref": scale}
+        mm = {}
+        for dtype, key in ((torch.float32, tag), (torch.bfloat16,
+                                                  tag + "_bf16")):
+            out = ops.grouped_matmul_q8(aq, as_, w2, s2, rows, out_dtype=dtype)
+            torch.cuda.synchronize()
+            ref = ops.grouped_matmul_q8_ref(aq, as_, w2, s2, rows,
+                                            out_dtype=dtype)
+            err, scale = _max_err(out, ref)
+            if out.dtype != dtype or not torch.equal(out, ref):
+                raise AssertionError(f"grouped_matmul_q8 {key}: not bitwise "
+                                     f"equal to its plain version (max|err| "
+                                     f"{err:.3e})")
+            mm[key] = {"max_abs_err": err, "max_abs_ref": scale,
+                       "out_dtype": str(dtype).split(".")[1]}
+        if rows is not None:
+            for name, t in (("grouped_swiglu_q8", act),
+                            ("grouped_matmul_q8", out)):
+                if t.masked_select(~mask).any():
+                    raise AssertionError(f"{name} {tag}: a padded row is not "
+                                         f"zero")
+            sw["rows"] = {"cap_slot": M, "slots": G, "slots_with_rows": S,
+                          "min": int(rows.min()), "mean": V / G,
+                          "max": int(rows.max()), "sum": V}
+            for rec in mm.values():
+                rec["rows"] = sw["rows"]
         sw["q_row_bytes"] = q.stride(1)
-        if iters and wire_view:   # what a contiguous copy of the view costs
+        sw["padded_copies"] = copies
+        if iters and layout != "contiguous":   # a contiguous copy's cost
             sw["q_contiguous_copy_ms"] = _cuda_ms(lambda: q.contiguous(),
                                                   iters)
         if iters:
             lib_sw, lib_mm = _int_mm_ffn(q, rs, w1, s1, w3, s3, aq, as_, w2,
                                          s2)
             if lib_sw is not None:
-                # The yardstick must compute the same function.
-                if not torch.equal(lib_mm(), ref):
+                # The yardstick must compute the same function on the
+                # valid rows (it computes every row: padded ones are NaN).
+                keep = (torch.ones((G, M, 1), dtype=torch.bool, device="cuda")
+                        if rows is None else mask)
+                if not torch.equal(torch.where(keep, lib_mm(), 0.0),
+                                   ops.grouped_matmul_q8_ref(aq, as_, w2, s2,
+                                                             rows)):
                     raise AssertionError(f"_int_mm yardstick {tag} differs")
-                lib_err, _ = _max_err(lib_sw(), act)
+                lib_err, _ = _max_err(torch.where(keep, lib_sw(), 0.0), act)
                 if not lib_err <= Q8_SWIGLU_TOL * sw["max_abs_ref"]:
                     raise AssertionError(f"_int_mm yardstick {tag} differs")
+            # Bounds on the valid work: the valid rows' products, codes,
+            # scales and output, the weights of the slots that hold rows
+            # (``bound_ms``); ``bound_all_rows_ms`` also counts the zeros
+            # written for the padded rows.
             sw.update(_time_pair(
-                lambda: ops.grouped_swiglu_q8(q, rs, w1, s1, w3, s3),
-                lambda: ops.grouped_swiglu_q8_ref(q, rs, w1, s1, w3, s3),
-                lib_sw, 4.0 * G * M * K * N,
-                G * M * K + 4 * G * M + 2 * G * K * N + 8 * G * N
-                + 4 * G * M * N, "int8", iters))
-            mm.update(_time_pair(
-                lambda: ops.grouped_matmul_q8(aq, as_, w2, s2),
-                lambda: ops.grouped_matmul_q8_ref(aq, as_, w2, s2),
-                lib_mm, 2.0 * G * M * N * K,
-                G * M * N + 4 * G * M + G * N * K + 4 * G * K
-                + 4 * G * M * K, "int8", iters))
+                lambda: ops.grouped_swiglu_q8(q, rs, w1, s1, w3, s3, rows),
+                lambda: ops.grouped_swiglu_q8_ref(q, rs, w1, s1, w3, s3, rows),
+                lib_sw, 4.0 * V * K * N,
+                V * K + 4 * V + 2 * S * K * N + 8 * S * N + 4 * V * N,
+                "int8", iters))
+            sw["bound_all_rows_ms"] = _bound(
+                4.0 * V * K * N,
+                V * K + 4 * V + 2 * S * K * N + 8 * S * N + 4 * G * M * N,
+                "int8")[0]
+            for dtype, key in ((torch.float32, tag), (torch.bfloat16,
+                                                      tag + "_bf16")):
+                elt = 4 if dtype == torch.float32 else 2
+                lib = None if lib_mm is None else (
+                    lib_mm if elt == 4 else lambda: lib_mm().to(dtype))
+                mm[key].update(_time_pair(
+                    lambda: ops.grouped_matmul_q8(aq, as_, w2, s2, rows,
+                                                  out_dtype=dtype),
+                    lambda: ops.grouped_matmul_q8_ref(aq, as_, w2, s2, rows,
+                                                      out_dtype=dtype),
+                    lib, 2.0 * V * N * K,
+                    V * N + 4 * V + S * N * K + 4 * S * K + elt * V * K,
+                    "int8", iters))
+                mm[key]["bound_all_rows_ms"] = _bound(
+                    2.0 * V * N * K,
+                    V * N + 4 * V + S * N * K + 4 * S * K + elt * G * M * K,
+                    "int8")[0]
             if lib_sw is None:
-                sw["library_note"] = mm["library_note"] = (
-                    "none: torch._int_mm needs more than 16 rows")
+                sw["library_note"] = "none: torch._int_mm needs more than 16 rows"
+                for rec in mm.values():
+                    rec["library_note"] = sw["library_note"]
         records["grouped_swiglu_q8"][tag] = dict(shape=[G, M, K, N], **sw)
-        records["grouped_matmul_q8"][tag] = dict(shape=[G, M, N, K], **mm)
+        for key, rec in mm.items():
+            records["grouped_matmul_q8"][key] = dict(shape=[G, M, N, K], **rec)
         del q, rs, w1, w3, w2, s1, s3, s2, act, aq, as_, out, ref
         torch.cuda.empty_cache()
     _line("phase2_kernels_q8", records)
@@ -1279,7 +1432,7 @@ def main() -> int:
     phase_card()
     records = phase_kernels(glm, jamba)
     ssd_records = phase_ssd()
-    q8_records = phase_kernels_q8()
+    q8_records = phase_kernels_q8(glm)
     gating_records = phase_gating()
     flash_records = phase_flash()
     phase_moe_layer(glm)
@@ -1355,15 +1508,24 @@ def main() -> int:
                                "jamba_prefill_serve")},
                 "checks": sorted(rec)}))
     q8_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm_q8.cu"
-    for name, line in (("grouped_swiglu_q8", 246), ("grouped_matmul_q8", 214)):
+    # The serve path's counts first; its down projection writes bf16.
+    for name, line, main, subs in (
+            ("grouped_swiglu_q8", 246, "prefill_serve",
+             ("prefill_serve_wire", "prefill", "decode", "decode_serve",
+              "prefill_contiguous")),
+            ("grouped_matmul_q8", 214, "prefill_serve_bf16",
+             ("prefill_serve", "prefill", "prefill_bf16", "decode",
+              "decode_serve_bf16", "prefill_contiguous"))):
         rec = q8_records[name]
         kernels.append(_kernel_row(
             name, q8_src, f"src/repro/kernels/grouped_gemm/kernel.py:{line}",
-            rec["prefill"], glm_q8_launches[name], {
+            rec[main], glm_q8_launches[name], {
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
-                "decode": {k: rec["decode"][k] for k in keys},
-                "prefill_contiguous": {k: rec["prefill_contiguous"][k]
-                                       for k in keys},
+                "rows": rec[main]["rows"],
+                "bound_all_rows_ms": rec[main]["bound_all_rows_ms"],
+                **{tag: {k: rec[tag][k]
+                         for k in ("shape",) + keys + ("bound_all_rows_ms",)}
+                   for tag in subs},
                 "checks": sorted(rec)}))
     ssd = ssd_records["jamba_prefill"]
     kernels.append(_kernel_row(

@@ -3,8 +3,9 @@
 Each kernel source under ``csrc/`` has a plain C interface and is compiled
 by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries go to
-``build/kernels/`` at the repository root, named by a hash of the source
-and flags, so an edited source builds again and an unchanged one is reused.
+``build/kernels/`` at the repository root, named by a hash of the source,
+the headers beside it and the flags, so an edited source builds again and
+an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -53,6 +54,8 @@ class KernelLibrary:
 
     def _digest(self) -> str:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return h.hexdigest()[:16]
 

@@ -54,26 +54,13 @@
 // overlapped with another tile's loads), clusters with TMA multicast, and
 // stores through shared memory.
 
-#include <cuda.h>   // CUtensorMap and its enums only: no link against libcuda
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper_tma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float silu_mul(float h, float g) {
-  return h * (1.0f / (1.0f + expf(-h))) * g;
-}
-
-// Rows of slot g to compute: min(rows[g], M), clamped at 0; M for null.
-__device__ __forceinline__ int valid_rows(const long long* rows, int g,
-                                          int M) {
-  if (rows == nullptr) return M;
-  const long long r = rows[g];
-  return r <= 0 ? 0 : (r >= M ? M : static_cast<int>(r));
-}
 
 // ------------------------------------------------------ bf16 / TMA + wgmma
 
@@ -89,70 +76,6 @@ constexpr int B_BYTES = 2 * BOX_BYTES;               // 16 KB: 64 K x 128 N
 constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;   // 48 KB
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// Box at (c0 innermost, c1, c2) of `map` into shared memory at `dst`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  K-major A: SBO = 1024
-// (8 rows of 128 bytes), LBO unused (16).  N-major B: LBO = the distance
-// between 64-column boxes, SBO = 1024 (8 K rows of 128 bytes).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // Keeps the compiler from moving accesses to the accumulators across the
 // asynchronous products.
 __device__ __forceinline__ void fence_regs(float (&d)[64]) {
@@ -339,56 +262,13 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-constexpr int kErrNoEncode = 1000;    // entry point not found
-constexpr int kErrEncode = 1001;      // + CUresult of a refused map
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A (groups, rows, cols) bf16 operand with unit-stride cols; strides in
 // elements; a box of box_rows x 64 columns with 128-byte swizzle.
 int make_map(CUtensorMap* map, const void* base, long long cols,
              long long rows, long long groups, long long s_row,
              long long s_group, int box_rows) {
-  const EncodeTiledFn fn = encode_fn();
-  if (fn == nullptr) return kErrNoEncode;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(groups)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(s_row) * 2,
-                                 static_cast<cuuint64_t>(s_group) * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+  return make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols,
+                     rows, groups, s_row, s_group, 64, box_rows);
 }
 
 template <bool SWIGLU>

@@ -17,25 +17,32 @@ the launch.  Each wrapper counts its launches in a plain int attribute,
 ``grouped_swiglu.launches`` / ``grouped_matmul.launches`` (and the same on
 the q8 pair).
 
-Row counts.  ``grouped_swiglu(x, w1, w3, rows=None)`` and
-``grouped_matmul(x, w, rows=None)`` take ``rows``, an int32 or int64 (G,)
-tensor on x's device: slot g's rows ``[0, min(rows[g], M))`` are computed
-and every row at or past that comes out as exact zeros, whatever x holds
+Row counts.  ``grouped_swiglu(x, w1, w3, rows=None)``,
+``grouped_matmul(x, w, rows=None)``, ``grouped_swiglu_q8(q, row_scale,
+w1q, w1s, w3q, w3s, rows=None)`` and ``grouped_matmul_q8(q, row_scale, wq,
+col_scale, rows=None, out_dtype=torch.float32)`` take ``rows``, an int32 or
+int64 (G,) tensor on the activations' device: slot g's rows ``[0,
+min(rows[g], M))`` are computed and every row at or past that comes out as
+exact zeros, whatever the activations (and, for q8, the row scales) hold
 there; ``None`` means M for every slot.  The kernels read the counts on
 the device (no host sync) and skip the padded rows' work: a slot with no
 rows costs no weight bytes.  The plain versions take the same ``rows`` and
-mask the same way.
+mask the same way.  ``grouped_matmul_q8`` writes fp32 or, with
+``out_dtype=torch.bfloat16``, the same values rounded to bf16 (equal to
+the fp32 result cast, bitwise).
 
-Alignment.  The bf16 kernel reads its operands with TMA, which needs a
+Alignment.  The kernels read their operands with TMA, which needs a
 16-byte aligned base and outer strides that are multiples of 16 bytes.
-An operand that is not (a width that is not a multiple of 8, or a view
-that starts mid-row) is first copied into a zero-padded buffer with its
-last dim rounded up to 8 -- the same kernel on padded operands, counted in
-``grouped_swiglu.padded_copies`` / ``grouped_matmul.padded_copies``.  No
-serve path makes such a copy: every model width is a multiple of 8.  The
-bf16 output has its width rounded up to 8 too and is returned as a view of
-the first N columns.  The fp32 kernel takes any strides and masks ragged
-M, N and K edges itself.
+An operand that is not (a width that is not a multiple of 16 bytes, a
+view of unpadded int8 wire rows, D + 4 bytes apart, or a view that starts
+mid-row) is first copied into a zero-padded buffer with its last dim
+rounded up to 16 bytes -- the same kernel on padded operands, counted in
+``padded_copies`` on each wrapper.  No serve path makes such a copy: every
+model width is a multiple of 16 and the bucket pads the int8 wire's rows
+to 16 bytes (:func:`repro_torch.moe.permute.fused_bucket`).  The bf16
+output has its width rounded up to 8 and is returned as a view of the
+first N columns.  The fp32 kernel takes any strides and masks ragged M, N
+and K edges itself.
 
 The q8 plain versions contract in fp64, which is exact here (every partial
 sum is an integer below 2^53), and convert to int32: CUDA has no int32
@@ -103,17 +110,18 @@ def grouped_swiglu_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 def _tma_ready(t: torch.Tensor) -> bool:
     """True when TMA can read ``t`` as it is: a 16-byte aligned base and
-    positive outer strides that are multiples of 8 elements (16 bytes of
-    bf16)."""
+    positive outer strides that are multiples of 16 bytes (8 bf16, 16
+    int8 codes)."""
+    e = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
-        s > 0 and s % 8 == 0 for s in t.stride()[:-1])
+        s > 0 and s * e % 16 == 0 for s in t.stride()[:-1])
 
 
 def _padded_copy(t: torch.Tensor) -> torch.Tensor:
-    """``t`` copied into a zero buffer whose last dim is rounded up to 8,
-    returned as a view of ``t``'s shape."""
-    n = t.shape[-1]
-    buf = t.new_zeros(*t.shape[:-1], _round8(n))
+    """``t`` copied into a zero buffer whose last dim is rounded up to 16
+    bytes, returned as a view of ``t``'s shape."""
+    n, m = t.shape[-1], 16 // t.element_size()
+    buf = t.new_zeros(*t.shape[:-1], -(-n // m) * m)
     buf[..., :n].copy_(t)
     return buf[..., :n]
 
@@ -140,12 +148,7 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
             w3 is not None and w3.stride() != w1.stride()):
         raise ValueError("grouped GEMM operands need a unit-stride last dim "
                          "(and w1, w3 with equal strides)")
-    if rows is not None:
-        if rows.shape != (G,) or rows.device != x.device or rows.dtype not in (
-                torch.int32, torch.int64):
-            raise ValueError(f"rows must be an int32/int64 ({G},) tensor on "
-                             f"{x.device}")
-        rows = rows.to(torch.int64)
+    rows = _check_rows(rows, G, x.device)
     bf16 = x.dtype == torch.bfloat16
     if not bf16 and (G > _MAX_GRID_YZ or -(-M // 64) > _MAX_GRID_YZ):
         raise ValueError(f"grid too large for G={G}, M={M}")
@@ -219,45 +222,66 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 def grouped_matmul_q8_ref(q: torch.Tensor, row_scale: torch.Tensor,
-                          wq: torch.Tensor, col_scale: torch.Tensor
+                          wq: torch.Tensor, col_scale: torch.Tensor,
+                          rows: torch.Tensor | None = None,
+                          out_dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
     """w8a8 grouped matmul: q int8 (G, M, K), row_scale fp32 (G, M), wq int8
-    (G, K, N), col_scale fp32 (G, N) -> fp32 (G, M, N) = acc * rs * cs, with
-    acc the exact int32 product."""
+    (G, K, N), col_scale fp32 (G, N) -> (G, M, N) = acc * rs * cs in fp32,
+    with acc the exact int32 product, cast to ``out_dtype``.  Rows at or
+    past ``rows[g]`` are zero."""
     acc = torch.einsum("gmk,gkn->gmn", q.to(torch.float64),
                        wq.to(torch.float64)).to(torch.int32)
-    return (acc.to(torch.float32) * row_scale[:, :, None]
-            * col_scale[:, None, :])
+    out = (acc.to(torch.float32) * row_scale[:, :, None]
+           * col_scale[:, None, :])
+    if rows is not None:
+        out = torch.where(_row_mask(rows, q.shape[1]), out, 0.0)
+    return out.to(out_dtype)
 
 
 def grouped_swiglu_q8_ref(q: torch.Tensor, row_scale: torch.Tensor,
                           w1q: torch.Tensor, w1s: torch.Tensor,
-                          w3q: torch.Tensor, w3s: torch.Tensor
-                          ) -> torch.Tensor:
-    """w8a8 grouped SwiGLU: both contractions int8, gate in fp32."""
+                          w3q: torch.Tensor, w3s: torch.Tensor,
+                          rows: torch.Tensor | None = None) -> torch.Tensor:
+    """w8a8 grouped SwiGLU: both contractions int8, gate in fp32.  Rows at
+    or past ``rows[g]`` are zero."""
     h = grouped_matmul_q8_ref(q, row_scale, w1q, w1s)
     g = grouped_matmul_q8_ref(q, row_scale, w3q, w3s)
-    return F.silu(h) * g
+    out = F.silu(h) * g
+    if rows is not None:
+        out = torch.where(_row_mask(rows, q.shape[1]), out, 0.0)
+    return out
 
 
-def _piece_width(t: torch.Tensor) -> int:
-    """16 when the operand's base and outer strides (bytes) are multiples of
-    16, else 4: the width of the kernel's cp.async copies."""
-    if t.data_ptr() % 4:
-        raise ValueError("int8 operands must start on a 4-byte boundary")
-    aligned = t.data_ptr() % 16 == 0 and all(
-        s % 16 == 0 for s, n in zip(t.stride(), t.shape) if s != 1 and n > 1)
-    return 16 if aligned else 4
+def _check_rows(rows: torch.Tensor | None, G: int,
+                device: torch.device) -> torch.Tensor | None:
+    """``rows`` as the kernels take it: None, or a (G,) int64 tensor on
+    ``device`` (an int32 one is converted); raises on anything else."""
+    if rows is None:
+        return None
+    if rows.shape != (G,) or rows.device != device or rows.dtype not in (
+            torch.int32, torch.int64):
+        raise ValueError(f"rows must be an int32/int64 ({G},) tensor on "
+                         f"{device}")
+    return rows.to(torch.int64)
 
 
-def _launch_q8(q, row_scale, w1q, w1s, w3q, w3s, *, swiglu: bool):
-    """Validate, allocate the fp32 output and launch on the current stream."""
+def _launch_q8(q, row_scale, w1q, w1s, w3q, w3s, rows=None,
+               out_dtype=torch.float32, *, swiglu: bool
+               ) -> tuple[torch.Tensor, int]:
+    """Validate, allocate the output and launch on the current stream.
+    Returns the output and the number of operands copied into padded
+    buffers (an operand TMA cannot read)."""
     pairs = [(w1q, w1s)] + ([(w3q, w3s)] if swiglu else [])
     if q.dtype != torch.int8 or any(w.dtype != torch.int8 for w, _ in pairs):
         raise TypeError("q8 kernels take int8 codes")
     scales = [row_scale] + [s for _, s in pairs]
     if any(s.dtype != torch.float32 for s in scales):
         raise TypeError("q8 kernels take fp32 scales")
+    if out_dtype not in (torch.float32, torch.bfloat16) or (
+            swiglu and out_dtype != torch.float32):
+        raise TypeError(f"q8 output dtype {out_dtype}: the matmul writes fp32 "
+                        f"or bf16, the SwiGLU fp32")
     if any(t.device != q.device for t in scales + [w for w, _ in pairs]):
         raise ValueError("q8 operands must share one device")
     if q.dim() != 3 or w1q.dim() != 3:
@@ -277,52 +301,76 @@ def _launch_q8(q, row_scale, w1q, w1s, w3q, w3s, *, swiglu: bool):
         raise ValueError("q8 kernels need q with a unit-stride K, weight "
                          "codes K-contiguous ((G, N, K) storage viewed as "
                          "(G, K, N)) and column scales with a unit-stride N")
-    if G > _MAX_GRID_YZ or -(-M // 128) > _MAX_GRID_YZ:
-        raise ValueError(f"grid too large for G={G}, M={M}")
-    out = torch.empty((G, M, N), dtype=torch.float32, device=q.device)
+    rows = _check_rows(rows, G, q.device)
+    copies = 0
+    # Weight codes as (G, N, K) with unit-stride K: TMA reads them when K
+    # and the base are 16-byte aligned (every model width is).
+    ws = [w.transpose(1, 2) for w, _ in pairs]
+    if not all(map(_tma_ready, ws)):
+        ws = [_padded_copy(w) for w in ws]
+        copies += len(ws)
+    if not _tma_ready(q):
+        q = _padded_copy(q)
+        copies += 1
+    out = torch.empty((G, M, N), dtype=out_dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out, copies
     fn = LIBRARY_Q8.load().grouped_gemm_q8_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+    fn.argtypes = ([ctypes.c_int] * 2
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    w3q, w3s = pairs[-1]
-    err = fn(int(swiglu), _piece_width(q), min(_piece_width(w1q),
-                                               _piece_width(w3q)),
-             q.data_ptr(), row_scale.data_ptr(), w1q.data_ptr(),
-             w1s.data_ptr(), w3q.data_ptr(), w3s.data_ptr(), out.data_ptr(),
-             G, M, K, N, q.stride(0), q.stride(1), row_scale.stride(0),
-             row_scale.stride(1), w1q.stride(0), w1q.stride(2),
-             w1s.stride(0), out.stride(0), out.stride(1), stream)
+    s1, s3 = w1s, pairs[-1][1]
+    err = fn(int(swiglu), int(out_dtype == torch.bfloat16), q.data_ptr(),
+             q.stride(0), q.stride(1), row_scale.data_ptr(),
+             row_scale.stride(0), row_scale.stride(1), ws[0].data_ptr(),
+             ws[-1].data_ptr(), ws[0].stride(0), ws[0].stride(1),
+             s1.data_ptr(), s3.data_ptr(), s1.stride(0), out.data_ptr(),
+             None if rows is None else rows.data_ptr(), G, M, K, N, stream)
     if err != 0:
-        raise RuntimeError(f"grouped_gemm_q8 kernel launch failed: CUDA "
-                           f"error {err}")
-    return out
+        raise RuntimeError(f"grouped_gemm_q8 kernel launch failed: error {err} "
+                           f"(below 1000 a CUDA error; 1000 no "
+                           f"cuTensorMapEncodeTiled; 1001 + CUresult a "
+                           f"refused tensor map)")
+    return out, copies
 
 
 def grouped_swiglu_q8(q: torch.Tensor, row_scale: torch.Tensor,
                       w1q: torch.Tensor, w1s: torch.Tensor,
-                      w3q: torch.Tensor, w3s: torch.Tensor) -> torch.Tensor:
+                      w3q: torch.Tensor, w3s: torch.Tensor,
+                      rows: torch.Tensor | None = None) -> torch.Tensor:
     """w8a8 fused SwiGLU: q (G, M, K) int8 with row scales (G, M), codes
-    (G, K, N) with column scales (G, N) -> fp32 (G, M, N)."""
+    (G, K, N) with column scales (G, N) -> fp32 (G, M, N); slot g's rows at
+    or past ``rows[g]`` (a (G,) int tensor on q's device; None: M) come out
+    zero."""
     if not _check_device(q):
-        return grouped_swiglu_q8_ref(q, row_scale, w1q, w1s, w3q, w3s)
-    out = _launch_q8(q, row_scale, w1q, w1s, w3q, w3s, swiglu=True)
+        return grouped_swiglu_q8_ref(q, row_scale, w1q, w1s, w3q, w3s, rows)
+    out, copies = _launch_q8(q, row_scale, w1q, w1s, w3q, w3s, rows,
+                             torch.float32, swiglu=True)
+    grouped_swiglu_q8.padded_copies += copies
     if out.numel():
         grouped_swiglu_q8.launches += 1
     return out
 
 
 def grouped_matmul_q8(q: torch.Tensor, row_scale: torch.Tensor,
-                      wq: torch.Tensor, col_scale: torch.Tensor
-                      ) -> torch.Tensor:
+                      wq: torch.Tensor, col_scale: torch.Tensor,
+                      rows: torch.Tensor | None = None,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """w8a8 grouped matmul: q (G, M, K) int8 with row scales (G, M), codes
-    (G, K, N) with column scales (G, N) -> fp32 (G, M, N)."""
+    (G, K, N) with column scales (G, N) -> (G, M, N) in ``out_dtype`` (fp32,
+    or bf16: the fp32 result rounded to nearest even); slot g's rows at or
+    past ``rows[g]`` come out zero."""
     if not _check_device(q):
-        return grouped_matmul_q8_ref(q, row_scale, wq, col_scale)
-    out = _launch_q8(q, row_scale, wq, col_scale, None, None, swiglu=False)
+        return grouped_matmul_q8_ref(q, row_scale, wq, col_scale, rows,
+                                     out_dtype)
+    out, copies = _launch_q8(q, row_scale, wq, col_scale, None, None, rows,
+                             out_dtype, swiglu=False)
+    grouped_matmul_q8.padded_copies += copies
     if out.numel():
         grouped_matmul_q8.launches += 1
     return out
@@ -334,3 +382,5 @@ grouped_swiglu.padded_copies = 0
 grouped_matmul.padded_copies = 0
 grouped_swiglu_q8.launches = 0
 grouped_matmul_q8.launches = 0
+grouped_swiglu_q8.padded_copies = 0
+grouped_matmul_q8.padded_copies = 0

@@ -5,8 +5,9 @@ Builds ``--arch`` (GLM-4.5-Air by default) with its published widths and
 warms up, then traces one full prefill chunk and one decode step of a batch
 with ``torch.profiler`` and prints, per step, one JSON line: the host wall
 time between device synchronisations, the device-busy time (sum of kernel
-times on the one stream), the idle share, the time per kernel category and
-the top kernels.
+times on the one stream), the idle share, the time per kernel category,
+the top kernels, and the device time of the plain int8 codec (from a
+second traced run with a profiler range around each codec call).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 2
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
@@ -20,8 +21,10 @@ the top kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import sys
 import time
 
 import numpy as np
@@ -38,8 +41,8 @@ __all__ = ["main"]
 
 # Kernel-name fragments -> category, first match wins.
 _CATEGORIES = (
+    ("grouped_gemm_q8 (ours)", ("grouped_gemm_q8_wgmma_kernel",)),
     ("grouped_gemm (ours)", ("grouped_gemm_wgmma_kernel", "grouped_gemm_f32")),
-    ("grouped_gemm_q8 (ours)", ("grouped_gemm_q8_kernel",)),
     ("ssd_scan (ours)", ("ssd_intra_chunk_kernel",)),
     ("gating_topk (ours)", ("gating_topk_kernel",)),
     ("flash_attention (ours)", ("flash_wgmma_kernel", "flash_split_kernel",
@@ -93,6 +96,76 @@ def _trace(step, label: str, top: int) -> dict:
                             for n, (ms, c) in ranked]}
 
 
+def _codec_functions() -> dict:
+    """The plain int8 codec, by identity: every function that
+    ``repro_torch.core.quantize`` exports, and the weight quantizer."""
+    from repro_torch.core import quantize
+    from repro_torch.moe.expert import quantize_weight_cols
+
+    fns = [getattr(quantize, name) for name in quantize.__all__]
+    return {id(f): f for f in fns + [quantize_weight_cols] if callable(f)}
+
+
+def _ranged(fn):
+    """``fn`` inside a ``record_function("int8_codec")`` range."""
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function("int8_codec"):
+            return fn(*args, **kwargs)
+
+    return ranged
+
+
+@contextlib.contextmanager
+def _codec_ranges():
+    """While the block runs, every name bound to a codec function in a
+    loaded ``repro_torch`` module (its own module's included) calls it
+    inside an ``int8_codec`` range, however the caller imported it (the
+    port itself carries no ranges)."""
+    codec = _codec_functions()
+    saved = []
+    for name, mod in list(sys.modules.items()):
+        if mod is None or not name.startswith("repro_torch"):
+            continue
+        for attr, fn in list(vars(mod).items()):
+            if codec.get(id(fn)) is fn:
+                saved.append((mod, attr, fn))
+    for mod, attr, fn in saved:
+        setattr(mod, attr, _ranged(fn))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _codec_ms(step) -> float:
+    """Device time of the kernels launched inside the int8 codec's ranges in
+    one more traced run of ``step`` (its host time is not reported: the
+    ranges add host work)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with _codec_ranges(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+
+    def nested(evt) -> bool:
+        p = evt.cpu_parent
+        while p is not None:
+            if p.name == "int8_codec":
+                return True
+            p = p.cpu_parent
+        return False
+
+    # The host-side ranges (the profiler also lists each range's span on
+    # the device, gaps included, as an event of the same name): each one's
+    # device time is that of the kernels launched inside it.
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == "int8_codec" and e.device_type.name == "CPU"
+               and not nested(e)) / 1e3
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="glm45-106b-a12b")
@@ -128,12 +201,13 @@ def main(argv=None) -> int:
                       "chunk": args.chunk, "wire_dtype": args.wire_dtype,
                       "ffn_dtype": args.ffn_dtype,
                       "decode_batch": args.decode_batch}), flush=True)
-    print(json.dumps(_trace(lambda: prefill(toks, cache, args.chunk,
-                                            args.chunk),
-                            f"prefill_chunk_at_{args.chunk}", args.top)),
-          flush=True)
-    print(json.dumps(_trace(lambda: decode(step_toks, caches), "decode_step",
-                            args.top)), flush=True)
+    steps = ((f"prefill_chunk_at_{args.chunk}",
+              lambda: prefill(toks, cache, args.chunk, args.chunk)),
+             ("decode_step", lambda: decode(step_toks, caches)))
+    for label, step in steps:
+        rec = _trace(step, label, args.top)
+        rec["int8_codec_ms"] = _codec_ms(step)
+        print(json.dumps(rec), flush=True)
     return 0
 
 

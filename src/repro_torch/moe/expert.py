@@ -46,41 +46,43 @@ def grouped_ffn(xs: torch.Tensor, valid: torch.Tensor, w1: torch.Tensor,
     codes with their fp32 row scales ``xs_scale`` (G, C); valid: (G, C)
     bool, the prefix ``arange(C) < rows`` of each slot as the buckets of
     :mod:`repro_torch.moe.permute` build it; rows: (G,) each slot's
-    valid-row count (the buckets return it; ``valid.sum(1)`` when not
-    given); w1, w3: (G, D, F); w2: (G, F, D).  The fp path hands ``rows`` to
-    both kernels, which compute only the valid rows and write exact zeros
-    past them on the device, whatever xs holds there.  ``wq``, for
+    valid-row count (the buckets return it; when not given, each slot's
+    last valid row, with the rows ``valid`` excludes zeroed, for either
+    ``ffn_dtype``); w1, w3: (G, D, F); w2: (G, F, D).  Both paths hand
+    ``rows`` to both kernels, which compute only the valid rows and write
+    exact zeros past them on the device, whatever xs (and xs_scale) hold
+    there; the w8a8 down projection writes the output dtype directly.  ``wq``, for
     ``ffn_dtype="int8"`` only, is ``((w1q, w1s), (w3q, w3s), (w2q, w2s))``,
     equal to :func:`quantize_weight_cols` of w1, w3, w2 (the layer keeps
     them, so the weights are not quantized on every call); without it they
-    are quantized here, as the reference does; this path masks with
-    ``valid``.  Returns (G, C, D) in xs's dtype, or w1's when xs arrived as
-    int8, zero on padded rows.
+    are quantized here, as the reference does.  Returns (G, C, D) in xs's
+    dtype, or w1's when xs arrived as int8, zero on padded rows.
     """
     out_dtype = w1.dtype if xs.dtype == torch.int8 else xs.dtype
-    if ffn_dtype == "int8":
-        if xs.dtype == torch.int8:
-            # The reference zeroes the codes of padded rows; zeroing their
-            # scales instead gives the same valid rows (each output row
-            # depends on its own input row only) without copying a strided
-            # wire view.
-            xs_scale = torch.where(valid, xs_scale,
-                                   torch.zeros((), dtype=xs_scale.dtype,
-                                               device=xs_scale.device))
-        else:
-            xs, xs_scale = quantize_rows(torch.where(
-                valid[:, :, None], xs,
-                torch.zeros((), dtype=xs.dtype, device=xs.device)))
-        (w1q, w1s), (w3q, w3s), (w2q, w2s) = (
-            wq if wq is not None else map(quantize_weight_cols, (w1, w3, w2)))
-        act = grouped_swiglu_q8(xs, xs_scale, w1q, w1s, w3q, w3s)
-        aq, as_ = quantize_rows(act)
-        out = grouped_matmul_q8(aq, as_, w2q, w2s)
-    elif ffn_dtype == "none":
-        if rows is None:
-            rows = valid.sum(dim=1)
-        return grouped_matmul(grouped_swiglu(xs, w1, w3, rows), w2, rows)
-    else:
+    if ffn_dtype not in ("none", "int8"):
         raise ValueError(f"unknown ffn_dtype: {ffn_dtype!r}")
-    zero = torch.zeros((), dtype=out.dtype, device=out.device)
-    return torch.where(valid[:, :, None], out, zero).to(out_dtype)
+    # The reference zeroes padded rows before the FFN (and after it); here
+    # the kernels take ``rows`` and write exact zeros past each count,
+    # whatever the activations (and scales) hold there: each output row
+    # depends on its own input row only, so the valid rows are the
+    # reference's.  A caller without the buckets' counts may pass any mask,
+    # as the reference allows: the rows it excludes are zeroed (a zero row
+    # gives a zero output row) and each slot runs to its last valid row.
+    if rows is None:
+        last = valid * torch.arange(1, valid.shape[1] + 1, device=valid.device)
+        rows = last.amax(dim=1)
+        if xs.dtype == torch.int8:
+            xs_scale = torch.where(valid, xs_scale, torch.zeros(
+                (), dtype=xs_scale.dtype, device=xs_scale.device))
+        else:
+            xs = torch.where(valid[:, :, None], xs,
+                             torch.zeros((), dtype=xs.dtype, device=xs.device))
+    if ffn_dtype == "none":
+        return grouped_matmul(grouped_swiglu(xs, w1, w3, rows), w2, rows)
+    if xs.dtype != torch.int8:
+        xs, xs_scale = quantize_rows(xs)
+    (w1q, w1s), (w3q, w3s), (w2q, w2s) = (
+        wq if wq is not None else map(quantize_weight_cols, (w1, w3, w2)))
+    act = grouped_swiglu_q8(xs, xs_scale, w1q, w1s, w3q, w3s, rows)
+    aq, as_ = quantize_rows(act)
+    return grouped_matmul_q8(aq, as_, w2q, w2s, rows, out_dtype=out_dtype)

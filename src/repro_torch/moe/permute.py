@@ -157,7 +157,10 @@ def fused_bucket(recv_x: torch.Tensor, recv_counts: torch.Tensor, *,
     drops, rows): slot buffers (num_slots, cap_slot, D), their validity
     mask, the :class:`BucketMeta` inverse map, the dropped-item count and
     each slot's valid-row count (num_slots,): the valid rows of a slot are
-    the prefix ``arange(cap_slot) < rows``.
+    the prefix ``arange(cap_slot) < rows``.  The slot buffers' rows start
+    a multiple of 16 bytes apart, so that the kernels read them with TMA:
+    where a row is not (the int8 wire's, D + 4 bytes), xs is a view of a
+    buffer with padded rows, written in the same one pass.
     """
     R, cap_pair, D = recv_x.shape
     dev = recv_x.device
@@ -179,8 +182,16 @@ def fused_bucket(recv_x: torch.Tensor, recv_counts: torch.Tensor, *,
     valid = p[None, :] < rows[:, None]
     flat = recv_x.reshape(-1, D)
     flat_idx = (src * cap_pair + row_pos).clamp(0, R * cap_pair - 1)
-    xs = torch.where(valid[:, :, None], flat[flat_idx],
-                     _zeros_like_scalar(recv_x))
+    pitch = -(-D * recv_x.element_size() // 16) * 16
+    if pitch == D * recv_x.element_size():
+        xs = torch.where(valid[:, :, None], flat[flat_idx],
+                         _zeros_like_scalar(recv_x))
+    else:
+        buf = recv_x.new_empty((num_slots, cap_slot,
+                                pitch // recv_x.element_size()))
+        xs = buf[..., :D]
+        torch.where(valid[:, :, None], flat[flat_idx],
+                    _zeros_like_scalar(recv_x), out=xs)
 
     c = torch.arange(cap_pair, dtype=_I64, device=dev)
     g_rc = (row_cum[:, None, :] <= c[None, :, None]).sum(dim=-1)

@@ -174,7 +174,7 @@ def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
 
 def compute_stage(cfg, ds: DispatchState, dist: DistributeState) -> torch.Tensor:
     """Grouped FFN over this rank's physical slots (two kernels, fp or
-    w8a8); the fp kernels skip each slot's padded rows on the device."""
+    w8a8); the kernels skip each slot's padded rows on the device."""
     return grouped_ffn(ds.xs, ds.valid, dist.w1_all, dist.w3_all, dist.w2_all,
                        ffn_dtype=cfg.ffn_dtype, xs_scale=ds.xs_scale,
                        wq=dist.q8, rows=ds.rows)

@@ -213,6 +213,99 @@ def test_q8_plain_versions_match_pallas_interpret(G, M, K, N):
             ops.grouped_matmul_q8.launches) == before
 
 
+# Counts per slot: empty, one that straddles a 128-row tile, M, above M.
+@pytest.mark.parametrize("G,M,K,N,rows", [(4, 256, 128, 128, [0, 130, 256, 300]),
+                                          (4, 32, 256, 128, [0, 17, 32, 40])])
+def test_q8_plain_versions_with_rows_match_pallas_interpret(G, M, K, N, rows):
+    """The Pallas kernels compute every row; with the codes and scales of
+    each slot's padded rows zeroed and their output masked they give what
+    the plain versions with ``rows`` give from junk there (random codes,
+    NaN row scales): the matmul bitwise, the SwiGLU within 1e-5."""
+    import jax.numpy as jnp
+
+    from repro.kernels.grouped_gemm.kernel import (
+        grouped_matmul_q8_pallas,
+        grouped_swiglu_q8_pallas,
+    )
+
+    q, rs, (w1, w3, _), (s1, s3, _) = _q8_inputs(G, M, K, N, seed=9)
+    valid = np.arange(M)[None, :] < np.asarray(rows)[:, None]
+    junk_rs = np.where(valid, rs, np.float32("nan"))
+    jq = jnp.asarray(np.where(valid[:, :, None], q, 0).astype(np.int8))
+    jrs = jnp.asarray(np.where(valid, rs, 0).astype(np.float32))
+    j = [jq, jrs] + [jnp.asarray(a) for a in (w1, s1, w3, s3)]
+    t = [torch.from_numpy(a) for a in (q, junk_rs, w1, s1, w3, s3)]
+    tr = torch.tensor(rows)
+    mask = valid[:, :, None]
+    got = ops.grouped_matmul_q8(*t[:4], rows=tr).numpy()
+    want = np.where(mask, np.asarray(grouped_matmul_q8_pallas(
+        *j[:4], bm=min(128, M), interpret=True)), np.float32(0))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    got = ops.grouped_swiglu_q8(*t, rows=tr).numpy()
+    want = np.where(mask, np.asarray(grouped_swiglu_q8_pallas(
+        *j, bm=min(128, M), interpret=True)), np.float32(0))
+    assert not got[~valid].any()
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("rows", [None, [0, 3, 8]])
+def test_q8_matmul_bf16_output_is_the_fp32_result_cast(rows):
+    """``out_dtype=torch.bfloat16`` is the fp32 result rounded to bf16,
+    bitwise (the cast the expert FFN used to do after the kernel)."""
+    q, rs, (w, _, _), (s, _, _) = _q8_inputs(3, 8, 64, 24, seed=10)
+    t = [torch.from_numpy(a) for a in (q, rs, w, s)]
+    tr = None if rows is None else torch.tensor(rows)
+    got = ops.grouped_matmul_q8(*t, rows=tr, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16),
+                       ops.grouped_matmul_q8(*t, rows=tr)
+                       .to(torch.bfloat16).view(torch.int16))
+
+
+def test_q8_wrappers_check_rows():
+    """A (G,) int32/int64 tensor on q's device, and an fp32 (matmul: or
+    bf16) output, checked before launch."""
+    q = torch.zeros((2, 4, 16), dtype=torch.int8)
+    s = torch.zeros((2, 4))
+    w = torch.zeros((2, 8, 16), dtype=torch.int8).transpose(1, 2)
+    ws = torch.zeros((2, 8))
+    for rows in (torch.zeros(3, dtype=torch.int64), torch.zeros(2),
+                 torch.zeros((2, 1), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="rows"):
+            ops._launch_q8(q, s, w, ws, None, None, rows, swiglu=False)
+        with pytest.raises(ValueError, match="rows"):
+            ops._launch_q8(q, s, w, ws, w, ws, rows, swiglu=True)
+    with pytest.raises(TypeError, match="output dtype"):
+        ops._launch_q8(q, s, w, ws, None, None, None, torch.float16,
+                       swiglu=False)
+    with pytest.raises(TypeError, match="output dtype"):
+        ops._launch_q8(q, s, w, ws, w, ws, None, torch.bfloat16, swiglu=True)
+
+
+def test_q8_operand_helpers():
+    """What the q8 launch does before it touches a card: which int8
+    operands TMA reads as they are (contiguous codes, the bucket's wire rows
+    padded to 16 bytes) and the padded copy of the rest (a view of unpadded
+    int8 wire rows, D + 4 bytes apart, or a K that is not 16-byte)."""
+    wire = torch.zeros(3, 1009, 4100, dtype=torch.int8)[..., :-4]
+    assert not ops._tma_ready(wire)
+    wp = ops._padded_copy(wire)
+    assert wp.stride() == (1009 * 4096, 4096, 1) and ops._tma_ready(wp)
+    assert torch.equal(wp, wire)
+    bucket = torch.zeros(3, 1009, 4112, dtype=torch.int8)[..., :4096]
+    assert ops._tma_ready(bucket)
+    q = torch.zeros(3, 1009, 4096, dtype=torch.int8)
+    assert ops._tma_ready(q)
+    w = torch.zeros(2, 200, 136, dtype=torch.int8)     # K 136: not 16-byte
+    assert not ops._tma_ready(w)
+    wp = ops._padded_copy(w)
+    assert wp.stride() == (200 * 144, 144, 1) and ops._tma_ready(wp)
+    odd = torch.zeros(2, 65, 37, dtype=torch.int8)[..., :33]
+    assert not ops._tma_ready(odd)
+    assert torch.equal(ops._padded_copy(odd), odd)
+
+
 def test_q8_wrapper_checks_layout():
     """The kernel takes K-contiguous weight codes and int8 codes only; the
     checks run before anything touches a card."""
@@ -334,7 +427,7 @@ def _k_contiguous(w: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("wire_view", [False, True])
 def test_q8_kernels_match_plain_on_card(cuda_device, G, M, K, N, wire_view):
     """Contiguous codes, or rows cut from an int8 wire buffer (K + 4 bytes
-    apart, so only 4-byte aligned when K is)."""
+    apart: TMA cannot read them, so the wrapper copies them first)."""
     q, rs, ws, ss = _q8_inputs(G, M, K, N, seed=3)
     qt = torch.from_numpy(q).to(cuda_device)
     if wire_view:
@@ -351,3 +444,96 @@ def test_q8_kernels_match_plain_on_card(cuda_device, G, M, K, N, wire_view):
     assert torch.equal(mm, ops.grouped_matmul_q8_ref(qt, rst, w2, s2))
     ref = ops.grouped_swiglu_q8_ref(qt, rst, w1, s1, w3, s3)
     assert (sw - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,M,K,N", [(1, 1, 64, 64), (3, 1009, 136, 200),
+                                     (2, 65, 33, 129), (6, 300, 512, 384),
+                                     (5, 8, 256, 136)])
+@pytest.mark.parametrize("layout", ["contiguous", "wire", "bucket"])
+@pytest.mark.parametrize("counts", ["zero", "straddle", "full", "serve",
+                                    "above"])
+def test_q8_kernels_with_rows_match_plain_on_card(cuda_device, G, M, K, N,
+                                                  layout, counts):
+    """With ``rows``: the matmul equals its plain version bitwise in fp32
+    and bf16 output, the SwiGLU within 1e-5 max|ref|; rows past the count
+    exactly zero though their codes are random and their row scales NaN;
+    the same counts as int32 give the same output.  Codes contiguous, cut
+    from int8 wire rows (K + 4 bytes apart: copied for TMA first), or from
+    those rows padded to 16 bytes as the bucket lays them out (TMA reads
+    them as they are)."""
+    q, rs, ws, ss = _q8_inputs(G, M, K, N, seed=11)
+    rows = {"zero": np.zeros(G, np.int64),
+            "straddle": np.minimum(M, 1 + 127 * np.arange(1, G + 1)),
+            "full": np.full(G, M),
+            "serve": _serve_like_rows(G, M, seed=G),
+            "above": np.full(G, M + 5)}[counts]
+    rt = torch.from_numpy(np.asarray(rows, np.int64)).to(cuda_device)
+    mask = ops._row_mask(rt, M)
+    qt = torch.from_numpy(q).to(cuda_device)
+    if layout != "contiguous":
+        pitch = K + 4 if layout == "wire" else -(-(K + 4) // 16) * 16
+        buf = torch.zeros((G, M, pitch), dtype=torch.int8, device=cuda_device)
+        buf[..., :K] = qt
+        qt = buf[..., :K]
+    rst = torch.from_numpy(rs).to(cuda_device)
+    rst = torch.where(mask[..., 0], rst, torch.full_like(rst, float("nan")))
+    w1, w3, w2 = (_k_contiguous(torch.from_numpy(w).to(cuda_device))
+                  for w in ws)
+    s1, s3, s2 = (torch.from_numpy(s).to(cuda_device) for s in ss)
+    for dtype in (torch.float32, torch.bfloat16):
+        mm = ops.grouped_matmul_q8(qt, rst, w2, s2, rt, out_dtype=dtype)
+        mm32 = ops.grouped_matmul_q8(qt, rst, w2, s2, rt.to(torch.int32),
+                                     out_dtype=dtype)
+        torch.cuda.synchronize()
+        ref = ops.grouped_matmul_q8_ref(qt, rst, w2, s2, rt, out_dtype=dtype)
+        assert mm.dtype == dtype
+        assert torch.equal(mm, ref) and torch.equal(mm, mm32)
+    sw = ops.grouped_swiglu_q8(qt, rst, w1, s1, w3, s3, rt)
+    torch.cuda.synchronize()
+    assert not sw.masked_select(~mask).any()
+    ref = ops.grouped_swiglu_q8_ref(qt, rst, w1, s1, w3, s3, rt)
+    assert (sw - ref).abs().max().item() <= \
+        1e-5 * max(ref.abs().max().item(), 1e-30)
+
+
+@pytest.mark.cuda
+def test_q8_padded_copies_on_card(cuda_device):
+    """An operand TMA cannot read is copied, counted, and gives the plain
+    version's result: codes whose rows are 33 bytes, weights whose K is 33,
+    a view of int8 wire rows (D + 4 bytes apart); 16-byte aligned codes and
+    wire rows padded to 16 bytes, as the bucket lays them out, are not."""
+    sw, mm = ops.grouped_swiglu_q8, ops.grouped_matmul_q8
+    q, rs, ws, ss = _q8_inputs(2, 65, 33, 129, seed=12)
+    qt, rst = (torch.from_numpy(a).to(cuda_device) for a in (q, rs))
+    w1, w3, w2 = (_k_contiguous(torch.from_numpy(w).to(cuda_device))
+                  for w in ws)
+    s1, s3, s2 = (torch.from_numpy(s).to(cuda_device) for s in ss)
+    before = (sw.padded_copies, mm.padded_copies)
+    out = sw(qt, rst, w1, s1, w3, s3)       # q (rows 33 bytes), w1 and w3
+    assert sw.padded_copies - before[0] == 3
+    assert mm.padded_copies == before[1]
+    torch.cuda.synchronize()
+    ref = ops.grouped_swiglu_q8_ref(qt, rst, w1, s1, w3, s3)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    q, rs, ws, ss = _q8_inputs(2, 65, 256, 128, seed=13)
+    rst = torch.from_numpy(rs).to(cuda_device)
+    buf = torch.zeros((2, 65, 260), dtype=torch.int8, device=cuda_device)
+    buf[..., :256] = torch.from_numpy(q).to(cuda_device)
+    w1, w3, _ = (_k_contiguous(torch.from_numpy(w).to(cuda_device))
+                 for w in ws)
+    s1, s3, _ = (torch.from_numpy(s).to(cuda_device) for s in ss)
+    n = (sw.padded_copies, mm.padded_copies)
+    out = sw(buf[..., :256], rst, w1, s1, w3, s3)
+    mm(buf[..., :256], rst, w1, s1)
+    assert (sw.padded_copies, mm.padded_copies) == (n[0] + 1, n[1] + 1)
+    torch.cuda.synchronize()
+    ref = ops.grouped_swiglu_q8_ref(buf[..., :256], rst, w1, s1, w3, s3)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    n = (sw.padded_copies, mm.padded_copies)
+    padded = torch.zeros((2, 65, 272), dtype=torch.int8, device=cuda_device)
+    padded[..., :256] = buf[..., :256]
+    sw(padded[..., :256], rst, w1, s1, w3, s3)
+    mm(padded[..., :256], rst, w1, s1)
+    sw(buf[..., :256].contiguous(), rst, w1, s1, w3, s3)
+    assert (sw.padded_copies, mm.padded_copies) == n

@@ -168,12 +168,22 @@ def test_bucket_rows_are_the_valid_prefix(seed, cap_slot, mode, balancer):
     assert not ds.xs[~ds.valid].any()
 
 
-@pytest.mark.parametrize("junk", [False, True])
-def test_grouped_ffn_rows_matches_jax(junk):
+@pytest.mark.parametrize("junk,ffn_dtype,wire", [
+    pytest.param(False, "none", False, id="False"),
+    pytest.param(True, "none", False, id="True"),
+    pytest.param(False, "int8", False, id="int8-False"),
+    pytest.param(True, "int8", False, id="int8-True"),
+    pytest.param(False, "int8", True, id="int8-wire-False"),
+    pytest.param(True, "int8", True, id="int8-wire-True")])
+def test_grouped_ffn_rows_matches_jax(junk, ffn_dtype, wire):
     """Slot buffers whose rows past each count are zero (as the buckets
     build them) through the JAX ``grouped_ffn`` and through the port's with
-    ``rows``; with ``junk`` the port's padded rows hold NaN, which the
-    kernels' row counts must keep out of the output."""
+    ``rows``, in fp and w8a8 (``wire``: the slot buffers arrive as int8
+    wire codes, a view with rows D + 4 bytes apart, and their scales); with
+    ``junk`` the port's padded rows hold NaN (wire: random codes and NaN
+    scales), which the kernels' row counts must keep out of the output."""
+    from repro_torch.core.quantize import encode_wire, split_wire_int8
+
     rng = np.random.default_rng(2)
     G, C = 6, 24
     rows = np.array([0, 5, 24, 13, 1, 16])
@@ -182,13 +192,24 @@ def test_grouped_ffn_rows_matches_jax(junk):
           * valid[:, :, None]).astype(np.float32)
     ws = [(rng.standard_normal(shape) * shape[1] ** -0.5).astype(np.float32)
           for shape in ((G, D, F), (G, D, F), (G, F, D))]
+    xs_t, scale_t, j_in = torch.from_numpy(xs), None, {}
+    if wire:
+        xs_t, scale_t = split_wire_int8(encode_wire(xs_t, "int8"))
+        j_in = dict(xs_scale=jnp.asarray(scale_t.numpy()))
+        xs = xs_t.numpy().copy()
     y_j = np.asarray(j_grouped_ffn(jnp.asarray(xs), jnp.asarray(valid),
-                                   *map(jnp.asarray, ws)))
-    xs_t = torch.from_numpy(xs)
-    if junk:
-        xs_t[torch.from_numpy(~valid)] = float("nan")
+                                   *map(jnp.asarray, ws), ffn_dtype=ffn_dtype,
+                                   **j_in))
+    pad = torch.from_numpy(~valid)
+    if junk and wire:
+        xs_t[pad] = torch.from_numpy(
+            rng.integers(-127, 128, (int(pad.sum()), D), dtype=np.int8))
+        scale_t[pad] = float("nan")
+    elif junk:
+        xs_t[pad] = float("nan")
     y_t = grouped_ffn(xs_t, torch.from_numpy(valid),
-                      *map(torch.from_numpy, ws), rows=torch.from_numpy(rows))
+                      *map(torch.from_numpy, ws), ffn_dtype=ffn_dtype,
+                      xs_scale=scale_t, rows=torch.from_numpy(rows))
     assert not y_t.numpy()[~valid].any()               # padded rows zero
     np.testing.assert_allclose(y_t.numpy(), y_j, rtol=1e-5,
                                atol=1e-5 * np.abs(y_j).max())

@@ -128,3 +128,25 @@ def test_occurrence_by_histogram_matches_jax():
     ids = np.random.default_rng(3).integers(0, E, 200).astype(np.int32)
     _eq(jperm.occurrence_by_histogram(jnp.asarray(ids), E),
         tperm.occurrence_by_histogram(_t(ids).long(), E))
+
+
+@pytest.mark.parametrize("width", [D + 4, 4100])
+def test_bucket_pads_int8_wire_rows_to_16_bytes(width):
+    """int8 wire rows (D + 4 bytes) are bucketed into slot buffers whose
+    rows start 16 bytes apart, so that the w8a8 kernel reads the codes with
+    TMA; the values are the JAX bucket's, bitwise, and fp rows are not
+    padded."""
+    rng = np.random.default_rng(3)
+    R, cap_pair, S, cap_slot = 2, 24, 3, 10
+    recv_x = rng.integers(-127, 128, (R, cap_pair, width), dtype=np.int8)
+    recv_c = np.array([[5, 12, 4, 3], [9, 0, 7, 8]], dtype=np.int32)
+    jx, jv, _, _ = j_bucket(jnp.asarray(recv_x), jnp.asarray(recv_c),
+                            num_slots=S, cap_slot=cap_slot)
+    tx, tv, _, _, _ = tperm.fused_bucket(_t(recv_x), _t(recv_c), num_slots=S,
+                                         cap_slot=cap_slot)
+    _eq(jx, tx, "xs")
+    _eq(jv, tv, "valid")
+    assert tx.stride(1) % 16 == 0 and tx.stride(1) >= width
+    fx = tperm.fused_bucket(_t(recv_x.astype(np.float32)), _t(recv_c),
+                            num_slots=S, cap_slot=cap_slot)[0]
+    assert fx.is_contiguous()
