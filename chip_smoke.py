@@ -18,7 +18,9 @@ Phases, one output line each:
      on the valid rows' work; then ``ssd_intra_chunk`` and ``ssd_chunk_scan``
      (from an initial state) against their plain versions at the Jamba
      prefill chunk in bf16 and fp32 inputs and at the reduced shape at nc 1
-     and at B 2, within 3e-4 max|ref| (fp32 arithmetic in both); then the
+     and at B 2, within 3e-4 max|ref| (the kernel's split bf16 products
+     against fp32; its bound under that arithmetic, the fp32 CUDA-core bound
+     beside it); then the
      w8a8 pair ``grouped_swiglu_q8`` / ``grouped_matmul_q8`` against their
      plain versions at the GLM-4.5-Air prefill and decode shapes with every
      row valid, with the serve path's per-slot row counts and activations
@@ -60,7 +62,9 @@ Phases, one output line each:
      a mask (k/v sliced to the valid length, ``causal_lower_right``, flash
      or memory-efficient backend); the faster is ``library_ms``.  Kernel and
      SDPA times are device times from CUDA-graph replays (``ms_eager``:
-     back to back);
+     back to back); the fp32 prefill kernel is timed at hd 128, 64 and 16,
+     its bound taken at the TF32 rate for its three products (the fp32
+     CUDA-core bound beside it);
   3. the balanced MoE layer at GLM-4.5-Air width (T 4096, ep_size 1) in the
      a2a and replicated modes against the dense oracle ``moe_ref`` in fp32
      (bf16 layer: 2e-2 max|ref|, fp32 layer: 1e-4 max|ref|), zero drops;
@@ -72,7 +76,8 @@ Phases, one output line each:
      2048-6144 tokens, chunk 4096, 8 new tokens each, decode batch 4,
      balancer ultraep, capacity factors 4.0; then (4b) the same with
      ``wire_dtype = ffn_dtype = "int8"``, which must launch the q8 kernels
-     and not the bf16 grouped ones;
+     and not the bf16 grouped ones; then (4c) the same in fp32 (about 38 GB
+     at peak), every prefill chunk on the fp32 prefill kernel;
   5. one Jamba-v0.1 Mamba mixer at full width over T 4096 from a non-zero
      state: bf16 and fp32 on the card (the SSD kernel) against the fp32
      plain path run on the host (bf16: 2e-2 max|ref|, fp32: 1e-4 max|ref|),
@@ -90,9 +95,10 @@ Phases, one output line each:
      is set to 0 just before each serve run and read just after it; on
      every path (phase 7b's too) ``flash_attention`` runs once per
      attention layer and engine call, by the kernel its shapes select (on
-     the bf16 hd-128 paths of phases 4, 6, 7: prefill calls through the
-     TMA + wgmma kernel, decode calls through the split-KV kernel, never the
-     hd-16 mma.sync kernel), and ``gating_topk`` and the path's two grouped
+     the hd-128 paths of phases 4, 6, 7: prefill calls through the TMA +
+     wgmma kernel, in phase 4c through the fp32 prefill kernel, decode
+     calls through the split-KV kernel, never the hd-16 mma.sync kernel),
+     and ``gating_topk`` and the path's two grouped
      GEMMs (bf16/fp32 or w8a8) once per MoE layer and engine call, and no
      operand was copied for TMA (``padded_copies`` 0).
 
@@ -117,7 +123,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12,   # dense, no sparsity
-                  "int8": 1979e12}
+                  "int8": 1979e12, "tf32": 495e12}
 PREFILL = dict(G=130, M=1009, K=4096, N=1408)      # 128 mains + 2 replicas
 DECODE = dict(G=130, M=8, K=4096, N=1408)
 # Jamba-v0.1: 16 mains + 2 replicas; M is cap_slot at T 4096, top-2, cf 4.
@@ -285,6 +291,7 @@ def phase_kernels(glm, jamba) -> dict:
              ("jamba_prefill_serve", (jamba, 4096, "a2a"), torch.bfloat16,
               5),
              ("fp32_g8", dict(PREFILL, G=8), torch.float32, 3),
+             ("prefill_serve_fp32", (glm, 4096, "a2a"), torch.float32, 3),
              ("ragged_m1", dict(G=1, M=1, K=4096, N=1408), torch.bfloat16, 0),
              ("ragged_tiles", dict(G=3, M=1009, K=136, N=200), torch.bfloat16, 0),
              ("ragged_small", dict(G=2, M=65, K=33, N=129), torch.bfloat16, 0),
@@ -736,6 +743,21 @@ def _ssd_cost(B, nc, Q, H, P, N, elt):
     return flops, nbytes
 
 
+def _ssd_tensor_bound(B, nc, Q, H, P, N, elt, nbytes):
+    """(ms, bound_by) under the kernel's own arithmetic, all of it on bf16
+    tensor cores: C.B as one product (fp32 inputs: hi + lo splits, three
+    products), W @ x and the chunk states as two (W_hi, W_lo; fp32 inputs:
+    three), against the bytes each input and output needs once."""
+    pairs = B * nc * H * Q * (Q + 1) // 2
+    cb = 2.0 * N * pairs
+    wx = 2.0 * P * pairs + 2.0 * B * nc * H * Q * N * P
+    n_cb, n_wx = (1, 2) if elt == 2 else (3, 3)
+    t_ops = (n_cb * cb + n_wx * wx) / PEAK_OPS_PER_S["bf16"]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
 def phase_ssd() -> dict:
     """``ssd_intra_chunk`` and ``ssd_chunk_scan`` vs their plain versions."""
     import torch
@@ -774,10 +796,17 @@ def phase_ssd() -> dict:
                "max_abs_ref_y": scales["y_intra"],
                "scan_max_abs_err": max(errs["y"], errs["final"])}
         if iters:
+            flops, nbytes = _ssd_cost(*shape, xs.element_size())
             rec.update(_time_pair(
                 lambda: ops.ssd_intra_chunk(*args),
                 lambda: ops.ssd_intra_chunk_ref(*args), None,
-                *_ssd_cost(*shape, xs.element_size()), "fp32", iters))
+                flops, nbytes, "fp32", iters))
+            # bound_ms under the tensor-core arithmetic the kernel does;
+            # the fp32 CUDA-core bound of the function stays beside it.
+            rec["bound_fp32_ms"], rec["bound_fp32_by"] = (rec["bound_ms"],
+                                                          rec["bound_by"])
+            rec["bound_ms"], rec["bound_by"] = _ssd_tensor_bound(
+                *shape, xs.element_size(), nbytes)
             rec["scan_ms"] = _cuda_ms(
                 lambda: ops.ssd_chunk_scan(*args, initial_state=s0), iters)
             rec["scan_plain_ms"] = _cuda_ms(
@@ -1006,12 +1035,14 @@ def phase_flash() -> dict:
               [2048], wg, 0),
              ("fp32_prefill", 1, 1024, 4096, 32, 8, 128, fp32, True, [1024],
               [2048], "prefill_f32", 3),
+             ("glm_prefill_at_4096_fp32", 1, 4096, SERVE_SK, 32, 8, 128,
+              fp32, True, [4096], [8192], "prefill_f32", 3),
              ("fp32_decode", 4, 1, SERVE_SK, 32, 8, 128, fp32, False, [0] * 4,
               [2048, 6144, 3000, 1], split, 10),
              ("hd64", 2, 300, 1000, 16, 4, 64, bf16, True, [0, 500],
               [300, 777], split, 0),
              ("hd64_fp32", 2, 300, 1000, 16, 4, 64, fp32, True, [0, 500],
-              [300, 777], "prefill_f32", 0),
+              [300, 777], "prefill_f32", 5),
              ("reduced_prefill", 2, 64, 272, 4, 2, 16, bf16, True, [0, 64],
               [50, 100], split, 0),
              ("reduced_prefill_fp32", 2, 64, 272, 4, 2, 16, fp32, True,
@@ -1039,7 +1070,11 @@ def phase_flash() -> dict:
              ("hd16_mma", 8, 512, 1024, 8, 2, 16, bf16, True,
               [0, 1, 2, 3, 4, 5, 6, 500],
               [512, 600, 700, 800, 900, 1000, 1024, 1012],
-              "prefill_mma_hd16", 0)]
+              "prefill_mma_hd16", 0),
+             ("hd16_fp32", 8, 512, 1024, 8, 2, 16, fp32, True,
+              [0, 1, 2, 3, 4, 5, 6, 500],
+              [512, 600, 700, 800, 900, 1000, 1024, 1012], "prefill_f32",
+              5)]
     records = {}
     for (tag, B, Sq, Sk, H, Hkv, hd, dtype, causal, q_off, kv_len, want,
          iters) in cases:
@@ -1101,12 +1136,18 @@ def phase_flash() -> dict:
         pairs, keys = _flash_pairs(Sq, causal, q_off, kv_len)
         rec["pairs"] = pairs
         if iters:
+            flops = 4.0 * hd * H * pairs
+            nbytes = q.element_size() * hd * (2 * B * Sq * H + 2 * keys * Hkv)
             rec.update(_time_pair(
                 lambda: ops.flash_attention(q, k, v, **kw),
                 lambda: ops.flash_attention_ref(q, k, v, **kw), None,
-                4.0 * hd * H * pairs,
-                q.element_size() * hd * (2 * B * Sq * H + 2 * keys * Hkv),
-                kind, iters))
+                flops, nbytes, kind, iters))
+            if want == "prefill_f32":
+                # The kernel's arithmetic: three TF32 products for each
+                # fp32 product (3xTF32); the fp32 CUDA-core bound beside.
+                rec["bound_fp32_ms"] = rec["bound_ms"]
+                rec["bound_ms"], rec["bound_by"] = _bound(3 * flops, nbytes,
+                                                          "tf32")
             # Device time without the host's per-call work (CUDA graphs);
             # the eager back-to-back time above stays as ms_eager.
             rec["ms_eager"] = rec["ms"]
@@ -1173,11 +1214,13 @@ def _padded_copies() -> dict:
             if hasattr(fn, "padded_copies")}
 
 
-def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
-    """``serve_trace`` on ``cfg`` with the SERVE settings (and ``runtime``,
-    the wire and FFN dtypes); returns the run's record, whose ``launches``
-    are the kernel launch counts (set to 0 just before it, read just after).
-    ``beside``: another serve record of this run, printed alongside."""
+def phase_serve(cfg, tag: str, beside: dict | None = None,
+                dtype: str = "bfloat16", **runtime) -> dict:
+    """``serve_trace`` on ``cfg`` with the SERVE settings in ``dtype`` (and
+    ``runtime``, the wire and FFN dtypes); returns the run's record, whose
+    ``launches`` are the kernel launch counts (set to 0 just before it,
+    read just after).  ``beside``: another serve record of this run,
+    printed alongside."""
     import gc
 
     import torch
@@ -1187,8 +1230,8 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    eng = serve_trace(cfg, dtype=torch.bfloat16, device="cuda", **SERVE,
-                      **runtime)
+    eng = serve_trace(cfg, dtype=getattr(torch, dtype), device="cuda",
+                      **SERVE, **runtime)
     launches = _launches()
     copies = _padded_copies()
     done = eng.finished
@@ -1207,7 +1250,7 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
         "attn_layers": sum(k.startswith("attn+") for k in layer_kinds(cfg)),
         "moe_layers": sum(k.endswith("+moe") for k in layer_kinds(cfg)),
-        "runtime": runtime,
+        "dtype": dtype, "runtime": runtime,
         "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
         "prompt_tokens": [len(r.prompt) for r in sorted(done, key=lambda r: r.rid)],
         "prefill_calls": len(pre), "decode_calls": len(dec),
@@ -1221,7 +1264,8 @@ def phase_serve(cfg, tag: str, beside: dict | None = None, **runtime) -> dict:
     keys = ("prefill_tok_per_s", "decode_tok_per_s", "mean_ttft_s",
             "mean_tpot_s", "peak_mem_gb")
     _line(tag, dict(rec, **({} if beside is None else {
-        "beside": {"model": beside["model"], "runtime": beside["runtime"],
+        "beside": {"model": beside["model"], "dtype": beside["dtype"],
+                   "runtime": beside["runtime"],
                    **{k: beside[k] for k in keys}}})))
     del eng, done
     gc.collect()
@@ -1441,6 +1485,8 @@ def main() -> int:
     glm_q8_serve = phase_serve(glm_2l, "phase4b_serve_glm_q8",
                                beside=glm_serve, wire_dtype="int8",
                                ffn_dtype="int8")
+    glm_fp32_serve = phase_serve(glm_2l, "phase4c_serve_glm_fp32",
+                                 beside=glm_serve, dtype="float32")
     phase_mamba_mixer(jamba)
     jamba_serve = phase_serve(
         dataclasses.replace(jamba, name=jamba.name + "-8l", num_layers=8),
@@ -1448,19 +1494,23 @@ def main() -> int:
     qwen3_serve = phase_serve(
         dataclasses.replace(qwen3, name=qwen3.name + "-2l", num_layers=2),
         "phase7_serve_qwen3", beside=glm_serve)
-    phase_serve_cli()
+    cli_records = phase_serve_cli()
     serves = {"glm45-106b-a12b": glm_serve,
               "glm45-106b-a12b-q8": glm_q8_serve,
+              "glm45-106b-a12b-fp32": glm_fp32_serve,
               "jamba-v0.1-52b": jamba_serve,
               "qwen3-235b-a22b": qwen3_serve}
     paths = {path: rec["launches"] for path, rec in serves.items()}
     glm_launches = paths["glm45-106b-a12b"]
     glm_q8_launches = paths["glm45-106b-a12b-q8"]
+    glm_fp32_launches = paths["glm45-106b-a12b-fp32"]
     jamba_launches = paths["jamba-v0.1-52b"]
     for path, name in (("glm45-106b-a12b", "grouped_swiglu"),
                        ("glm45-106b-a12b", "grouped_matmul"),
                        ("glm45-106b-a12b-q8", "grouped_swiglu_q8"),
                        ("glm45-106b-a12b-q8", "grouped_matmul_q8"),
+                       ("glm45-106b-a12b-fp32", "grouped_swiglu"),
+                       ("glm45-106b-a12b-fp32", "grouped_matmul"),
                        ("jamba-v0.1-52b", "grouped_swiglu"),
                        ("jamba-v0.1-52b", "grouped_matmul"),
                        ("jamba-v0.1-52b", "ssd_intra_chunk"),
@@ -1475,6 +1525,8 @@ def main() -> int:
                        ("glm45-106b-a12b-q8", "grouped_matmul"),
                        ("glm45-106b-a12b", "grouped_swiglu_q8"),
                        ("glm45-106b-a12b", "grouped_matmul_q8"),
+                       ("glm45-106b-a12b-fp32", "grouped_swiglu_q8"),
+                       ("glm45-106b-a12b-fp32", "grouped_matmul_q8"),
                        ("jamba-v0.1-52b", "grouped_swiglu_q8"),
                        ("jamba-v0.1-52b", "grouped_matmul_q8"),
                        ("qwen3-235b-a22b", "grouped_swiglu_q8"),
@@ -1482,13 +1534,15 @@ def main() -> int:
         if paths[path][name] != 0:
             raise AssertionError(f"{name} was launched {paths[path][name]} "
                                  f"times on the {path} serve path")
-    # Every serve path is bf16 at head dim 128: prefill chunks through the
-    # TMA + wgmma kernel, decode steps through the split-KV kernel, and
-    # never the hd-16 mma.sync kernel.
+    # Every serve path is at head dim 128: prefill chunks through the TMA +
+    # wgmma kernel (bf16) or the fp32 kernel (phase 4c), decode steps
+    # through the split-KV kernel, and never the hd-16 mma.sync kernel.
     for path, rec in serves.items():
+        prefill = ("prefill_f32" if rec["dtype"] == "float32"
+                   else "prefill_wgmma")
         _check_kernel_calls(path, paths[path], rec["padded_copies"],
                             rec["cfg"],
-                            {"prefill_wgmma": rec["prefill_calls"],
+                            {prefill: rec["prefill_calls"],
                              "decode_split": rec["decode_calls"]},
                             rec["runtime"].get("ffn_dtype", "none"))
     gg_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu"
@@ -1505,7 +1559,8 @@ def main() -> int:
                 **{tag: {k: rec[tag][k] for k in ("shape",) + keys}
                    for tag in ("prefill", "decode", "decode_serve",
                                "jamba_prefill", "jamba_decode",
-                               "jamba_prefill_serve")},
+                               "jamba_prefill_serve", "fp32_g8",
+                               "prefill_serve_fp32")},
                 "checks": sorted(rec)}))
     q8_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm_q8.cu"
     # The serve path's counts first; its down projection writes bf16.
@@ -1536,8 +1591,9 @@ def main() -> int:
                                  for p, c in paths.items()},
             "dtype": ssd["dtype"], "scan_ms": ssd["scan_ms"],
             "scan_plain_ms": ssd["scan_plain_ms"],
+            "bound_fp32_ms": ssd["bound_fp32_ms"],
             "fp32_inputs": {k: ssd_records["jamba_prefill_fp32"][k]
-                            for k in keys},
+                            for k in keys + ("bound_fp32_ms", "scan_ms")},
             "checks": sorted(ssd_records)}))
     kernels.append(_kernel_row(
         "gating_topk", "src/repro_torch/kernels/gating_topk/csrc/gating_topk.cu",
@@ -1589,6 +1645,29 @@ def main() -> int:
                         "qwen3_prefill_at_4096", "qwen3_decode",
                         "pallas_causal", "fp32_prefill", "fp32_decode")},
          "checks": sorted(flash_records)}))
+    # The fp32 serve path's shape (phase 4c's chunks at offset 4096) first.
+    f32 = flash_records["glm_prefill_at_4096_fp32"]
+    kernels.append(_kernel_row(
+        "flash_attention.prefill_f32",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:84", f32,
+        glm_fp32_launches["flash_attention.prefill_f32"],
+        {"kernel": "prefill_f32", "arithmetic": "3xTF32 mma.sync",
+         "bound_fp32_ms": f32["bound_fp32_ms"],
+         "sdpa_masked_ms": f32["sdpa_masked_ms"],
+         "sdpa_free_ms": f32["sdpa_free_ms"],
+         "slower_than_library": f32["slower_than_library"],
+         "launches_by_path": {p: c["flash_attention.prefill_f32"]
+                              for p, c in paths.items()},
+         "launches_serve_cli": {
+             tag: r["launches"]["flash_attention.prefill_f32"]
+             for tag, r in cli_records.items()},
+         "max_row_rel_err": max(r["max_row_rel_err"]
+                                for r in flash_records.values()
+                                if r["kernel"] == "prefill_f32"),
+         **{tag: {k: flash_records[tag][k]
+                  for k in flash_keys + ("bound_fp32_ms", "max_row_rel_err")}
+            for tag in ("fp32_prefill", "hd64_fp32", "hd16_fp32")}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

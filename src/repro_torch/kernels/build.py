@@ -2,10 +2,11 @@
 
 Each kernel source under ``csrc/`` has a plain C interface and is compiled
 by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries go to
-``build/kernels/`` at the repository root, named by a hash of the source,
-the headers beside it and the flags, so an edited source builds again and
-an unchanged one is reused.
+``ctypes`` (no PyTorch headers, so a build takes seconds).  Headers shared
+by several sources live in ``kernels/csrc/``, which is on the include path.
+Libraries go to ``build/kernels/`` at the repository root, named by a hash
+of the source, the headers beside it, the shared headers and the flags, so
+an edited source builds again and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -25,6 +26,7 @@ __all__ = ["KernelLibrary", "build_all", "build_dir"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SHARED_INCLUDE = Path(__file__).resolve().parent / "csrc"
 
 
 def build_dir() -> Path:
@@ -54,8 +56,9 @@ class KernelLibrary:
 
     def _digest(self) -> str:
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(self.source.parent.glob("*.cuh")):
-            h.update(header.read_bytes())
+        for folder in (self.source.parent, SHARED_INCLUDE):
+            for header in sorted(folder.glob("*.cuh")):
+                h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return h.hexdigest()[:16]
 
@@ -69,7 +72,8 @@ class KernelLibrary:
             return None
         build_dir().mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SHARED_INCLUDE), "-o", str(tmp),
+               str(self.source)]
         return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 

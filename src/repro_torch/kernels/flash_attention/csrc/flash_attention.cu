@@ -84,24 +84,48 @@
 //    through a 2-stage cp.async ring; mma.sync m16n8k16 for both
 //    products, P fed from the registers.
 //
-// 4. flash_fwd_f32_kernel (fp32 prefill: fp32 serving and the reduced
-//    configurations' default): flash_ref's arithmetic in fp32 throughout
-//    on the CUDA cores, with the blocks and rows of kernel 3: 32-key K/V
-//    tiles in shared memory, lane j scores key j of the tile for each of
-//    its warp's 16 rows, warp shuffles give the row max and sum, and lane
-//    l accumulates output dims l, l + 32, ...  Bound by the fp32 rate
-//    (67 TFLOP/s) at best.
+// 4. flash_fwd_f32_kernel (fp32 prefill: fp32 serving, every prefill chunk
+//    of `python -m repro_torch.launch.serve` by default, and the reduced
+//    configurations).  flash_ref computes in fp32; on the CUDA cores that
+//    work is bound by the fp32 rate (GLM's fp32 case, 1024 queries at
+//    offset 1024: 25.8 GFLOP of causal pairs, 0.385 ms at 67 TFLOP/s), and
+//    a kernel that feeds each FMA from shared memory reaches a fraction of
+//    it.  So both products run on the tensor cores in 3xTF32: each fp32
+//    operand is split into hi + lo, two TF32 values (hi the 10-bit
+//    truncation, lo the rest, which the tensor core truncates in turn:
+//    |x - hi - lo| < 2^-20 |x|), and a b = a_lo b_hi + a_hi b_lo +
+//    a_hi b_hi on mma.sync m16n8k8 with fp32 accumulation: each product
+//    keeps about 2^-20 (fp32: 2^-24; plain TF32 misses flash_ref by ~3e-3
+//    of a row).  The
+//    tensor core truncates as it accumulates, so P v sums each tile in
+//    fresh registers that are added to O in fp32, and S keeps its small
+//    terms apart from its large ones (one chain over 10k keys would miss
+//    the 1e-4 tolerance).  Three products at the TF32 rate (495 TFLOP/s)
+//    bound it at 0.156 ms there; at the fp32 serve path's shape (4096
+//    queries at offset 4096, 8192 keys: 412 GFLOP) at 2.50 ms, where it
+//    takes 7.78 ms on an H100, 0.85x the mask-free SDPA (chip_smoke.py).
+//    Blocks and rows as kernel 3 (4 warps of 16 rows, q tiles in reverse
+//    position order, heaviest first); q, K and V stay fp32 in shared memory
+//    (rows HD + 4 floats apart: conflict-free fragment reads), K/V tiles
+//    of 32 keys in a 2-stage cp.async ring (99 KB at hd 128: two blocks an
+//    SM), q pre-scaled once and split as it is read, the S accumulator split
+//    and repacked in registers as the A fragment of P v (keys permuted
+//    within each 8-key step, V read in the same order), masking only on
+//    tiles that cross a row's limit.
 //
 // Not yet: overlapping one tile's softmax with the next tile's products in
 // the wgmma kernel (two consumer warpgroups interleave only as the
-// scheduler lets them), a persistent schedule, and TMA in the split kernel
-// (a decode step stays at about twice its bytes bound).
+// scheduler lets them), a persistent schedule, TMA in the split kernel
+// (a decode step stays at about twice its bytes bound), and wgmma for the
+// fp32 kernel's TF32 products (K and V are split anew by each warp).
 
 #include <cuda.h>   // CUtensorMap and its enums only: no link against libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -110,7 +134,7 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int BM = 16 * WARPS;          // rows per block
 constexpr int BN = 64;                  // keys per tile (mma.sync kernel)
-constexpr int BK = 32;                  // keys per tile (fp32 kernel)
+constexpr int F32_BN = 32;              // keys per tile (fp32 kernel)
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared-memory layout of the mma.sync kernel for head dim HD.
@@ -123,55 +147,31 @@ struct Bf16Tile {
   static constexpr int CHUNKS = HD * 2 / 16;   // 16-byte pieces per row
 };
 
-// Shared-memory layout of the fp32 kernel for head dim HD.
+// Shared-memory layout of the fp32 kernel for head dim HD: q, then two
+// stages of (k, v).  Rows are HD + 4 floats apart, so the m16n8k8
+// fragments' reads (row gid, column tq of q and k; rows 2 tq, 2 tq + 1,
+// column gid of v) hit 32 distinct banks, and each row starts on 16 bytes.
 template <int HD>
 struct F32Tile {
-  static constexpr int LDK = HD + 1;    // K rows padded: lane j reads row j
-  static constexpr int SMEM_BYTES = (BM * HD + BK * LDK + BK * HD) * 4;
+  static constexpr int LD = HD + 4;
+  static constexpr int Q_FLOATS = BM * LD;
+  static constexpr int KV_FLOATS = F32_BN * LD;
+  static constexpr int SMEM_BYTES = (Q_FLOATS + 4 * KV_FLOATS) * 4;
+  static constexpr int CHUNKS = HD / 4;      // 16-byte pieces per row
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ unsigned lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// Four 8 x 8 bf16 matrices, transposed: lanes 8i .. 8i + 7 give the row
-// addresses of matrix i, and lane t receives elements (2 (t % 4), t / 4)
-// and (2 (t % 4) + 1, t / 4) of each, the B fragment of m16n8k16.
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
-                                              const __nv_bfloat16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
+// a b in 3xTF32: big += a_hi b_hi, small += a_lo b_hi + a_hi b_lo (the
+// a_lo b_lo term, below 2^-20 of the product, is dropped).  The tensor
+// core truncates as it accumulates, so the caller keeps each chain short
+// or the large terms apart from the small ones.
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const unsigned (&ah)[4],
+                                           const unsigned (&al)[4],
+                                           const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  mma_tf32(small, al, bh[0], bh[1]);
+  mma_tf32(small, ah, bl[0], bl[1]);
+  mma_tf32(big, ah, bh[0], bh[1]);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -234,13 +234,13 @@ struct Tile {
   long long qoff, lim, kv_end;
 
   template <bool CAUSAL>
-  __device__ __forceinline__ static Tile make(const Args& a) {
+  __device__ __forceinline__ static Tile make(const Args& a, int tile) {
     Tile t;
     t.b = blockIdx.z;
     t.hkv = blockIdx.y;
     t.G = a.G;
     t.QT = BM / a.G;                       // query positions per tile
-    t.q0 = blockIdx.x * t.QT;
+    t.q0 = tile * t.QT;
     t.qoff = a.qoff(t.b);
     t.lim = a.limit(t.b);
     t.q_rows = min(t.QT, a.Sq - t.q0);     // valid query positions here
@@ -274,7 +274,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
   const auto* kg = static_cast<const __nv_bfloat16*>(a.k);
   const auto* vg = static_cast<const __nv_bfloat16*>(a.v);
 
-  const Tile tl = Tile::make<CAUSAL>(a);
+  const Tile tl = Tile::make<CAUSAL>(a, blockIdx.x);
   const int b = tl.b, hkv = tl.hkv, G = tl.G, q0 = tl.q0;
   const long long kv_end = tl.kv_end;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -429,114 +429,180 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
 }
 
 template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Args a) {
-  constexpr int LDK = F32Tile<HD>::LDK;
-  constexpr int DPL = (HD + 31) / 32;      // output dims per lane
-  constexpr int RPW = BM / WARPS;          // rows per warp
+__global__ void __launch_bounds__(THREADS, 2)
+flash_fwd_f32_kernel(const Args a) {
+  using L = F32Tile<HD>;
+  constexpr int LD = L::LD, CHUNKS = L::CHUNKS, BN = F32_BN;
   extern __shared__ __align__(128) float fsmem[];
-  float* q_s = fsmem;                      // BM x HD
-  float* k_s = q_s + BM * HD;              // BK x LDK
-  float* v_s = k_s + BK * LDK;             // BK x HD
+  float* q_s = fsmem;
+  float* kv_s = fsmem + L::Q_FLOATS;  // stage st: k at 2 st, v at 2 st + 1
   const auto* qg = static_cast<const float*>(a.q);
   const auto* kg = static_cast<const float*>(a.k);
   const auto* vg = static_cast<const float*>(a.v);
 
-  const Tile tl = Tile::make<CAUSAL>(a);
+  // The q tiles run in reverse position order, heaviest (longest causal
+  // extent) first, so the short tiles fill the last wave.
+  const Tile tl = Tile::make<CAUSAL>(a, gridDim.x - 1 - blockIdx.x);
   const int b = tl.b, hkv = tl.hkv, G = tl.G, q0 = tl.q0;
+  const long long kv_end = tl.kv_end;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n_tiles = static_cast<int>((tl.kv_end + BK - 1) / BK);
+  const int gid = lane / 4, tq = lane % 4;
+  const int n_tiles = static_cast<int>((kv_end + BN - 1) / BN);
+  const bool active = warp * 16 < tl.q_rows * G;
 
-  // Every load of a tile is issued before its stores, so the loads'
-  // latencies overlap.
-  {
-    constexpr int N = BM * HD / THREADS;
-    float r_q[N];
-#pragma unroll
-    for (int u = 0; u < N; ++u) {
-      const int idx = tid + u * THREADS, r = idx / HD, d = idx % HD;
-      const int qp = q0 + r / G, h = hkv * G + r % G;
-      r_q[u] = tl.row_valid(r, a.Sq)
-                   ? qg[b * a.sqb + qp * a.sqs + h * a.sqh + d] : 0.f;
+  for (int idx = tid; idx < BM * CHUNKS; idx += THREADS) {
+    const int r = idx / CHUNKS, c = idx % CHUNKS;
+    const int qp = q0 + r / G, h = hkv * G + r % G;
+    const bool ok = tl.row_valid(r, a.Sq);
+    const float* src = ok ? qg + b * a.sqb + qp * a.sqs + h * a.sqh + c * 4 : qg;
+    cp_async16(q_s + r * LD + c * 4, src, ok ? 16 : 0);
+  }
+  auto load_kv = [&](int stage, int n0) {
+    float* k_s = kv_s + (2 * stage) * L::KV_FLOATS;
+    float* v_s = k_s + L::KV_FLOATS;
+    for (int idx = tid; idx < BN * CHUNKS; idx += THREADS) {
+      const int j = idx / CHUNKS, c = idx % CHUNKS;
+      const long long key = n0 + j;
+      const bool ok = key < kv_end;
+      const float* ks = ok ? kg + b * a.skb + key * a.sks + hkv * a.skh + c * 4 : kg;
+      const float* vs = ok ? vg + b * a.svb + key * a.svs + hkv * a.svh + c * 4 : vg;
+      cp_async16(k_s + j * LD + c * 4, ks, ok ? 16 : 0);
+      cp_async16(v_s + j * LD + c * 4, vs, ok ? 16 : 0);
     }
-#pragma unroll
-    for (int u = 0; u < N; ++u) q_s[tid + u * THREADS] = r_q[u];
-  }
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
 
-  float o[RPW][DPL], m[RPW], l[RPW];
+  // This thread's two rows, r0 = 16 warp + gid and r1 = r0 + 8, and the
+  // warp's smallest key limit (its first row's): a tile below it needs no
+  // mask.
+  long long row_lim[2];
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  for (int i = 0; i < 2; ++i)
+    row_lim[i] = tl.row_limit<CAUSAL>(warp * 16 + gid + 8 * i);
+  const long long warp_lim = tl.row_limit<CAUSAL>(warp * 16);
+
+  float o[HD / 8][4];
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) o[r][i] = 0.f;
-  }
+  for (int nf = 0; nf < HD / 8; ++nf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nf][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int n0 = t * BK;
-    {
-      constexpr int N = BK * HD / THREADS;
-      float r_k[N], r_v[N];
-#pragma unroll
-      for (int u = 0; u < N; ++u) {
-        const int idx = tid + u * THREADS, j = idx / HD, d = idx % HD;
-        const long long key = n0 + j;
-        const bool ok = key < tl.kv_end;
-        r_k[u] = ok ? kg[b * a.skb + key * a.sks + hkv * a.skh + d] : 0.f;
-        r_v[u] = ok ? vg[b * a.svb + key * a.svs + hkv * a.svh + d] : 0.f;
-      }
-      __syncthreads();             // the previous tile is consumed
-#pragma unroll
-      for (int u = 0; u < N; ++u) {
-        const int idx = tid + u * THREADS, j = idx / HD, d = idx % HD;
-        k_s[j * LDK + d] = r_k[u];
-        v_s[idx] = r_v[u];
-      }
-    }
+    if (t + 1 < n_tiles) load_kv((t + 1) & 1, (t + 1) * BN);
+    cp_async_commit();
+    cp_async_wait<1>();            // tile t (and the q tile) landed
     __syncthreads();
-    const long long key = n0 + lane;         // this lane's key
+    if (t == 0) {                  // q *= scale log2 e, once
+      for (int idx = tid; idx < BM * HD; idx += THREADS)
+        q_s[(idx / HD) * LD + idx % HD] *= a.scale_log2;
+      __syncthreads();
+    }
+    if (active) {
+      const float* k_s = kv_s + (2 * (t & 1)) * L::KV_FLOATS;
+      const float* v_s = k_s + L::KV_FLOATS;
+      const int n0 = t * BN;
+
+      // S = (scale log2 e) q k^T: 16 rows x BN keys per warp, 3xTF32,
+      // the a_hi b_hi terms in s and the two small ones in s_lo.
+      float s[BN / 8][4], s_lo[BN / 8][4];
 #pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp * RPW + rr;
-      if (!tl.row_valid(r, a.Sq)) continue;  // uniform across the warp
-      const float* qr = q_s + r * HD;
-      const float* kr = k_s + lane * LDK;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) s = fmaf(qr[d], kr[d], s);
-      s = key < tl.row_limit<CAUSAL>(r) ? s * a.scale_log2 : -INFINITY;
-      const float m_new = fmaxf(m[rr], warp_max(s));
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m[rr] - base);
-      const float p = exp2f(s - base);
-      l[rr] = l[rr] * corr + warp_sum(p);
-      m[rr] = m_new;
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) o[rr][i] *= corr;
-#pragma unroll 8
-      for (int j = 0; j < BK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
+        for (int e = 0; e < 4; ++e) s[j][e] = s_lo[j][e] = 0.f;
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int d = lane + 32 * i;
-          if (d < HD) o[rr][i] = fmaf(pj, v_s[j * HD + d], o[rr][i]);
+      for (int kd = 0; kd < HD / 8; ++kd) {
+        const float* qp = q_s + (warp * 16 + gid) * LD + kd * 8 + tq;
+        unsigned ah[4], al[4];
+        split_tf32(qp[0], ah[0], al[0]);
+        split_tf32(qp[8 * LD], ah[1], al[1]);
+        split_tf32(qp[4], ah[2], al[2]);
+        split_tf32(qp[8 * LD + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float* kp = k_s + (j * 8 + gid) * LD + kd * 8 + tq;
+          unsigned bh[2], bl[2];
+          split_tf32(kp[0], bh[0], bl[0]);
+          split_tf32(kp[4], bh[1], bl[1]);
+          mma_3xtf32(s[j], s_lo[j], ah, al, bh, bl);
         }
       }
+      // Mask (only a tile that crosses a row's limit) and the online
+      // softmax statistics, in log2 units.
+      const bool edge = n0 + BN > warp_lim;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e / 2;
+          const long long key = n0 + j * 8 + tq * 2 + (e & 1);
+          const float sum = s[j][e] + s_lo[j][e];
+          const float v = edge && key >= row_lim[i] ? -INFINITY : sum;
+          s[j][e] = v;
+          mx[i] = fmaxf(mx[i], v);
+        }
+      float base[2], corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        base[i] = m_new == -INFINITY ? 0.f : m_new;
+        corr[i] = exp2f(m[i] - base[i]);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+      // P, split, as the A fragments of P v: the S accumulator with the
+      // keys of each 8-key step permuted (A column tq holds key 2 tq,
+      // column tq + 4 key 2 tq + 1), so v's rows are read in that order.
+      unsigned ph[BN / 8][4], pl[BN / 8][4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[j][e] - base[e / 2]);
+          l[e / 2] += p;
+          const int at = (e & 1) * 2 + e / 2;    // 0, 2, 1, 3
+          split_tf32(p, ph[j][at], pl[j][at]);
+        }
+      // O = corr O + P v, 3xTF32.  Each 8-dim column block sums this
+      // tile's products in fresh registers (the tensor core's truncating
+      // accumulation stays 3 BN / 8 steps long) and adds them to O in
+      // fp32.
+      const float* vp = v_s + 2 * tq * LD + gid;
+#pragma unroll
+      for (int nf = 0; nf < HD / 8; ++nf) {
+        float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) {
+          unsigned bh[2], bl[2];
+          split_tf32(vp[kk * 8 * LD + nf * 8], bh[0], bl[0]);
+          split_tf32(vp[(kk * 8 + 1) * LD + nf * 8], bh[1], bl[1]);
+          mma_3xtf32(big, small, ph[kk], pl[kk], bh, bl);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[nf][e] = fmaf(o[nf][e], corr[e / 2], big[e] + small[e]);
+      }
     }
+    __syncthreads();               // stage t & 1 is free for tile t + 2
   }
+  cp_async_wait<0>();
+  if (!active) return;
 
+  const float lsum[2] = {quad_sum(l[0]), quad_sum(l[1])};
   auto* og = static_cast<float*>(a.out);
 #pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    if (!tl.row_valid(r, a.Sq)) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i;
     const int qp = q0 + r / G, h = hkv * G + r % G;
-    const float denom = l[rr] > 1e-20f ? l[rr] : 1e-20f;
-    float* dst = og + b * a.sob + qp * a.sos + h * a.soh;
+    if (!tl.row_valid(r, a.Sq)) continue;
+    const float denom = lsum[i] > 1e-20f ? lsum[i] : 1e-20f;
+    float* dst = og + b * a.sob + qp * a.sos + h * a.soh + tq * 2;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) dst[d] = o[rr][i] / denom;
-    }
+    for (int nf = 0; nf < HD / 8; ++nf)
+      *reinterpret_cast<float2*>(dst + nf * 8) =
+          make_float2(o[nf][2 * i] / denom, o[nf][2 * i + 1] / denom);
   }
 }
 
@@ -1558,9 +1624,15 @@ cudaError_t launch_tile(Kernel kernel, int smem, const Args& a,
 
 template <int HD>
 cudaError_t launch_f32(bool causal, const Args& a, cudaStream_t s) {
-  return launch_tile(causal ? flash_fwd_f32_kernel<HD, true>
-                            : flash_fwd_f32_kernel<HD, false>,
-                     F32Tile<HD>::SMEM_BYTES, a, s);
+  const auto kernel = causal ? flash_fwd_f32_kernel<HD, true>
+                             : flash_fwd_f32_kernel<HD, false>;
+  // Two blocks of 99 KB an SM (hd 128) need the largest shared carveout.
+  const cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return launch_tile(kernel, F32Tile<HD>::SMEM_BYTES, a, s);
 }
 
 }  // namespace

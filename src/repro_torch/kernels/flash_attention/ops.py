@@ -30,10 +30,14 @@ lengths are never read on the host):
   at head dim 64 or 128 (128-row q tiles): every serve prefill chunk.
 * ``prefill_mma_hd16``: the ``mma.sync`` kernel for the other bf16
   launches at head dim 16, the reduced configurations' width.
-* ``prefill_f32``: the fp32 CUDA-core kernel for the other fp32 launches.
+* ``prefill_f32``: the fp32 kernel for the other fp32 launches (every fp32
+  serve prefill chunk): both products on the tensor cores in 3xTF32, each
+  fp32 operand split into two TF32 values, so each product keeps about
+  2^-20 (fp32: 2^-24).
 
 q, k, v are all bf16 (tensor cores, P rounded to bf16) or all fp32 (fp32
-arithmetic throughout), with head_dim 16, 64 or 128 (128 is the width of
+results: the split-KV kernel computes in fp32 on the CUDA cores, the
+prefill kernel in 3xTF32), with head_dim 16, 64 or 128 (128 is the width of
 every served model, 16 that of the reduced configurations).
 ``q_offset`` and ``kv_valid_len`` are a Python int or a (B,) tensor on the
 tensors' device, which the kernels read there (no host sync).  The wrapper
@@ -89,7 +93,7 @@ def plan_launch(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
     """The kernel for these shapes, from the shapes alone.
 
     The prefill kernel by dtype and head dim (bf16 at 64/128: the TMA +
-    wgmma kernel; bf16 at 16: the mma.sync one; fp32: the CUDA-core one)
+    wgmma kernel; bf16 at 16: the mma.sync one; fp32: the 3xTF32 one)
     unless its grid of q tiles (``TILE_ROWS / G`` positions each) times
     Hkv times B is smaller than ``sms``: then the split-KV kernel, with
     enough splits of Sk that B * Hkv * row tiles * splits >= 2 * sms, or

@@ -115,10 +115,11 @@ def _launch(xs, Bm, Cm, dt, da):
     if err != 0:
         smem = lib.ssd_intra_chunk_smem_bytes
         smem.restype = ctypes.c_longlong
-        smem.argtypes = [ctypes.c_int] * 3
+        smem.argtypes = [ctypes.c_int] * 4
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed: CUDA "
                            f"error {err} (Q={Q}, P={P}, N={N} need "
-                           f"{smem(Q, P, N)} B of shared memory per block)")
+                           f"{smem(_DTYPE_CODE[xs.dtype], Q, P, N)} B of "
+                           f"shared memory per block)")
     return y, S, dec, True
 
 

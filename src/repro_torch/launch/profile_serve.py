@@ -1,7 +1,8 @@
 """Where the serving time goes: one traced prefill chunk and decode step.
 
 Builds ``--arch`` (GLM-4.5-Air by default) with its published widths and
-``--layers`` layers (bf16, random weights from a seeded CUDA generator),
+``--layers`` layers (``--dtype``, bf16 by default, random weights from a
+seeded CUDA generator),
 warms up, then traces one full prefill chunk and one decode step of a batch
 with ``torch.profiler`` and prints, per step, one JSON line: the host wall
 time between device synchronisations, the device-busy time (sum of kernel
@@ -16,6 +17,8 @@ second traced run with a profiler range around each codec call).
       --wire-dtype int8 --ffn-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch qwen3-235b-a22b --layers 2
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 2 \
+      --dtype float32
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ _CATEGORIES = (
     ("ssd_scan (ours)", ("ssd_intra_chunk_kernel",)),
     ("gating_topk (ours)", ("gating_topk_kernel",)),
     ("flash_attention (ours)", ("flash_wgmma_kernel", "flash_split_kernel",
-                                "flash_combine_kernel", "flash_fwd_kernel")),
+                                "flash_combine_kernel", "flash_fwd_kernel",
+                                "flash_fwd_f32_kernel")),
     ("library GEMM", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")),
     ("sort/scan/search", ("sort", "scan", "cumsum", "search", "radix")),
     ("gather/scatter/index", ("index", "gather", "scatter", "take")),
@@ -175,6 +179,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--wire-dtype", default="none", choices=WIRE_DTYPES)
     ap.add_argument("--ffn-dtype", default="none", choices=FFN_DTYPES)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -182,7 +188,8 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(get_config(args.arch), num_layers=args.layers)
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep",
                                                  n_slot=cfg.moe.n_slot),
-                         cf_pair=4.0, cf_slot=4.0, dtype=torch.bfloat16,
+                         cf_pair=4.0, cf_slot=4.0,
+                         dtype=getattr(torch, args.dtype),
                          wire_dtype=args.wire_dtype, ffn_dtype=args.ffn_dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_lm(cfg, rcfg, ParallelCtx(), gen, device="cuda")
@@ -199,7 +206,7 @@ def main(argv=None) -> int:
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "arch": cfg.name, "layers": args.layers,
                       "chunk": args.chunk, "wire_dtype": args.wire_dtype,
-                      "ffn_dtype": args.ffn_dtype,
+                      "ffn_dtype": args.ffn_dtype, "dtype": args.dtype,
                       "decode_batch": args.decode_batch}), flush=True)
     steps = ((f"prefill_chunk_at_{args.chunk}",
               lambda: prefill(toks, cache, args.chunk, args.chunk)),

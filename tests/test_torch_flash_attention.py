@@ -11,7 +11,9 @@ combine against the plain version (one fp32 rescaling per split).  Card:
 each output row (batch row, query position, head) within a share of its
 own max|ref|: 1e-2 for bf16 q/k/v (the kernels round P to bf16 for the P v
 product, or the split kernel's output once, and the output once to bf16),
-1e-4 for fp32 (fp32 arithmetic, another order).
+1e-4 for fp32 (fp32 arithmetic, or 3xTF32 products, another order).  The
+fp32 prefill kernel's 3xTF32 products are also modelled on the CPU, to
+show they are within that tolerance and one TF32 product is not.
 
 The JAX side is imported inside the tests that use it, so the card test
 also runs where JAX is not installed:
@@ -277,6 +279,56 @@ def test_split_combine_gives_zero_where_no_key_is_valid():
     assert torch.isfinite(got).all()
 
 
+def _tf32(t):
+    """TF32 as the tensor core reads an fp32 operand: the 13 low mantissa
+    bits cleared."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _f32_kernel_mirror(q, k, v, causal, q_off, kv_len, split):
+    """The fp32 prefill kernel's products in fp32 on the CPU: scores of
+    q (pre-scaled, log2 units) and k, then P v, each either in 3xTF32
+    (a = a_hi + a_lo with a_hi the TF32 part: a_hi b_hi + a_lo b_hi +
+    a_hi b_lo) or as one TF32 product."""
+    def prod(eq, a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        out = torch.einsum(eq, ah, bh)
+        if split:
+            out = (out + torch.einsum(eq, _tf32(a - ah), bh)
+                   + torch.einsum(eq, ah, _tf32(b - bh)))
+        return out
+
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    kf, vf = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    s = prod("bqhd,bkhd->bhqk", q * (hd ** -0.5 * np.log2(np.e)), kf)
+    kpos = torch.arange(Sk)
+    qpos = torch.arange(Sq)[None, :] + torch.as_tensor(q_off)[:, None]
+    keep = kpos[None, None, :] < torch.as_tensor(kv_len)[:, None, None]
+    if causal:
+        keep = keep & (kpos[None, None, :] <= qpos[:, :, None])
+    s = torch.where(keep[:, None], s, float("-inf"))
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    out = prod("bhqk,bkhv->bhqv", p, vf) / p.sum(dim=-1, keepdim=True)
+    return out.movedim(1, 2)
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_3xtf32_products_stay_within_tolerance(hd):
+    """3xTF32 products are within the fp32 tolerance (1e-4 of each row's
+    max|ref|) of the plain version, with a margin; one TF32 product is
+    not, which is why the fp32 prefill kernel splits its operands."""
+    q_off, kv_len = [0, 200], [64, 264]
+    q, k, v = map(torch.from_numpy, _qkv(2, 64, 300, 8, 2, hd, seed=6))
+    want = ops.flash_attention_ref(q, k, v, causal=True,
+                                   q_offset=torch.tensor(q_off),
+                                   kv_valid_len=torch.tensor(kv_len))
+    split = _f32_kernel_mirror(q, k, v, True, q_off, kv_len, split=True)
+    one = _f32_kernel_mirror(q, k, v, True, q_off, kv_len, split=False)
+    assert _row_rel_err(split, want) <= 1e-5
+    assert _row_rel_err(one, want) > 1e-4
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -384,3 +436,29 @@ def test_each_kernel_matches_plain_on_card(cuda_device, case, route, dtype,
     torch.cuda.synchronize()
     assert (kernel == "decode_split") == (route == "split")
     _check_against_plain(out, q, k, v, kw, tol)
+
+
+F32_CASES = [
+    # B, Sq, Sk, H, Hkv, hd, causal, q_offset, kv_valid_len
+    (1, 300, 700, 32, 8, 128, True, [400], [650]),   # Sq ends mid-tile
+    (2, 77, 200, 64, 4, 128, True, [0, 150], [0, 190]),  # G 16; no valid key
+    (2, 130, 400, 16, 4, 64, True, [5, 250], [100, 380]),       # hd 64
+    (3, 50, 120, 8, 2, 16, True, [0, 10, 70], [50, 0, 120]),    # hd 16
+    (1, 1000, 1500, 32, 8, 128, False, [0], [1337]),   # not causal
+    (1, 64, 10248, 32, 8, 128, False, [0], [10248]),   # 10248 keys a row
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_CASES, ids=str)
+def test_fp32_prefill_kernel_on_card(cuda_device, case):
+    """The fp32 prefill kernel (3xTF32) at head dims 16, 64 and 128 with
+    offsets, rows with no valid key (exactly 0), 16 query heads per KV
+    head, a query count that ends inside a tile and rows of 10248 keys,
+    each row within 1e-4 of its own max|ref|."""
+    q, k, v, kw = _card_inputs(case, torch.float32, cuda_device)
+    out, kernel = ops._launch(q, k, v, kw["causal"], kw["q_offset"],
+                              kw["kv_valid_len"], None, sms=1)
+    torch.cuda.synchronize()
+    assert kernel == "prefill_f32"
+    _check_against_plain(out, q, k, v, kw, 1e-4)

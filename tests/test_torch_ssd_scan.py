@@ -3,14 +3,19 @@ kernel (interpret mode), and the CUDA kernel vs its plain version on a card.
 
 CPU tolerance: rtol = atol = 3e-4, the JAX suite's own for this kernel
 (``tests/test_kernels.py``): the frameworks sum and scan in different
-orders.  Card tolerance: max|err| <= 3e-4 * max|ref| (fp32 arithmetic in
-both, other summation orders); bf16 inputs are cast to fp32 by both.
+orders.  Card tolerance: max|err| <= 3e-4 * max|ref| (the kernel's split
+bf16 products keep each term to about 2^-17, other summation orders); bf16
+inputs are cast to fp32 by both.  The kernel's products are also modelled
+on the CPU, to show the split is within that tolerance and one rounding of
+W is not.
 
 The JAX side is imported inside the tests that use it, so the card tests
 also run where JAX is not installed:
   PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
       tests/test_torch_ssd_scan.py
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -87,6 +92,81 @@ def test_wrapper_refuses_other_devices():
         ops.ssd_intra_chunk(x, x, x, d, d)
 
 
+def _bf16(t):
+    """Round to the nearest bf16 value, kept in fp32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _tf32(t):
+    """TF32 as the tensor core reads an fp32 operand: the 13 low mantissa
+    bits cleared."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(t, rnd):
+    hi = rnd(t)
+    return hi, rnd(t - hi)
+
+
+def _kernel_products(xs, Bm, Cm, dt, da, rnd, parts):
+    """y and S as the kernel forms them, in fp32 on the CPU: C.B exact for
+    bf16 inputs (split hi + lo for fp32 ones), W = C.B exp(cum_i - cum_j)
+    dt_j masked before exp, the exp as the kernel's ex2.approx.ftz takes it
+    (2^(d log2 e), results below 2^-126 flushed to 0), then W x with W
+    rounded by ``rnd`` once (``parts`` 1) or split hi + lo (``parts`` 2:
+    W_hi x + W_lo x, and for fp32 x also W_hi x_lo), and the chunk state
+    the same way.  Not modelled: ex2.approx's own 2^-22 error and the
+    tensor core's order of summation, both far below the split's 2^-17."""
+    exact = Bm.dtype == torch.bfloat16
+    x, b, c = (t.float() for t in (xs, Bm, Cm))
+    Q = x.shape[2]
+
+    def mm(eq, a, v):
+        if parts == 1:
+            return torch.einsum(eq, rnd(a), rnd(v))
+        ah, al = _split(a, rnd)
+        vh, vl = (v, torch.zeros_like(v)) if exact else _split(v, rnd)
+        return (torch.einsum(eq, ah, vh) + torch.einsum(eq, al, vh)
+                + torch.einsum(eq, ah, vl))
+
+    cb = (torch.einsum("bcqhn,bckhn->bcqkh", c, b) if exact
+          else mm("bcqhn,bckhn->bcqkh", c, b))
+    cum = torch.cumsum(da.float(), dim=2)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool).tril()[None, None, :, :, None]
+    e = torch.exp2(diff.masked_fill(~mask, float("-inf")) * math.log2(math.e))
+    e = torch.where(e < 2.0 ** -126, torch.zeros_like(e), e)
+    w = cb * e * dt[:, :, None, :, :]
+    y = mm("bcqkh,bckhp->bcqhp", w, x)
+    wj = torch.exp(cum[:, :, -1:, :] - cum) * dt
+    S = mm("bcqhn,bcqhp->bchnp", b * wj[..., None], x)
+    return y, S
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_split_products_stay_within_tolerance(dtype):
+    """At a Jamba-like chunk (Q 128, P 64, N 16) the kernel's split bf16
+    products, and split TF32 ones, are within SSD_TOL of the fp32 plain
+    version; one TF32 product (W and x each rounded once, as a tensor core
+    reads fp32 operands) and one bf16 rounding of W are not, which is why
+    the kernel splits."""
+    arrs = _inputs(1, 2, 128, 4, 64, 16, seed=7)[:5]
+    xs, Bm, Cm, dt, da = map(torch.from_numpy, arrs)
+    xs, Bm, Cm = (t.to(dtype) for t in (xs, Bm, Cm))
+    y_ref, S_ref, _ = ops.ssd_intra_chunk_ref(xs, Bm, Cm, dt, da)
+
+    def rel(out, ref):
+        return ((out - ref).abs().max() / ref.abs().max()).item()
+
+    for rnd in (_bf16, _tf32):
+        y, S = _kernel_products(xs, Bm, Cm, dt, da, rnd, parts=2)
+        assert rel(y, y_ref) <= TOL / 3 and rel(S, S_ref) <= TOL / 3
+    for rnd in (_bf16, _tf32):
+        y, _ = _kernel_products(xs, Bm, Cm, dt, da, rnd, parts=1)
+        assert rel(y, y_ref) > TOL
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -99,7 +179,9 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SHAPES + [(2, 1, 13, 3, 6, 5),
-                                            (1, 3, 128, 4, 64, 16)], ids=str)
+                                            (1, 3, 128, 4, 64, 16),
+                                            (1, 2, 64, 3, 80, 32),
+                                            (1, 1, 256, 2, 64, 16)], ids=str)
 def test_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     *arrs, s0 = _inputs(*shape, seed=2)
     xs, Bm, Cm, dt, da = (torch.from_numpy(a).to(cuda_device) for a in arrs)
@@ -113,5 +195,46 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     want = ops.ssd_intra_chunk_ref(xs, Bm, Cm, dt, da)
     want += ops.ssd_chunk_scan_ref(xs, Bm, Cm, dt, da, initial_state=init)
     for out, ref in zip(got, want):
+        err = (out - ref).abs().max().item()
+        assert err <= TOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["jamba_width", "deep_underflow",
+                                  "strided_view", "unaligned_view"])
+def test_kernel_edge_cases_on_card(cuda_device, dtype, case):
+    """The kernel at (1, 2, 128, 8, 64, 16); with strongly negative da
+    (cum reaches about -1e4: exp underflows to 0 in every unmasked entry
+    past the diagonal's neighbours, and the masked entries, whose exponent
+    would be +1e4, must stay finite); on views whose rows lie inside wider
+    rows, as the Mamba mixer's x does (16-byte aligned: the cp.async path);
+    and on views shifted by one element (the element-load path)."""
+    shape = (1, 2, 128, 8, 64, 16)
+    *arrs, _ = _inputs(*shape, seed=9)
+    xs, Bm, Cm, dt, da = (torch.from_numpy(a).to(cuda_device) for a in arrs)
+    if case == "deep_underflow":
+        da = -80.0 * dt
+    if case in ("strided_view", "unaligned_view"):
+        off = 8 if case == "strided_view" else 1
+
+        def widen(t):
+            n = t.shape[-1]
+            wide = torch.zeros(t.shape[:-1] + (n + 24,), dtype=dtype,
+                               device=cuda_device)
+            wide[..., off:off + n] = t.to(dtype)
+            return wide[..., off:off + n]
+
+        xs, Bm, Cm = (widen(t) for t in (xs, Bm, Cm))
+    else:
+        xs, Bm, Cm = (t.to(dtype) for t in (xs, Bm, Cm))
+    before = ops.ssd_intra_chunk.launches
+    got = ops.ssd_intra_chunk(xs, Bm, Cm, dt, da)
+    torch.cuda.synchronize()
+    assert ops.ssd_intra_chunk.launches == before + 1
+    want = ops.ssd_intra_chunk_ref(xs, Bm, Cm, dt, da)
+    for out, ref in zip(got, want):
+        assert torch.isfinite(out).all()
         err = (out - ref).abs().max().item()
         assert err <= TOL * ref.abs().max().item()
