@@ -12,13 +12,17 @@ Phases, one output line each:
      serve path makes it (the port's gate, ``ultraep`` plan and bucket on
      seeded tokens at GLM prefill, GLM decode and Jamba prefill: padded rows
      must come out exactly zero), in bf16 (max|err| <= 1e-2 max|ref|: one
-     bf16 rounding of the output) and fp32 (max|err| <= 1e-4 max|ref|:
-     summation order), with the kernel's, the plain version's and a library
-     call's (``torch.bmm`` over the padded buffers) time and the card's bound
-     on the valid rows' work; then ``ssd_intra_chunk`` and ``ssd_chunk_scan``
-     (from an initial state) against their plain versions at the Jamba
-     prefill chunk in bf16 and fp32 inputs and at the reduced shape at nc 1
-     and at B 2, within 3e-4 max|ref| (the kernel's split bf16 products
+     bf16 rounding of the output) and fp32 (max|err| <= 1e-4 max|ref|: the
+     kernels' 3xTF32 products; GLM dense at G 8, prefill and decode serve
+     counts, and counts that straddle a tile with NaN in the padded rows),
+     with the kernel's, the plain version's and a library call's
+     (``torch.bmm`` over the padded buffers) time and the card's bound on
+     the valid rows' work (fp32: three TF32 products at the TF32 rate, the
+     fp32 CUDA-core bound beside it); then ``ssd_intra_chunk`` and
+     ``ssd_chunk_scan`` (from an initial state) against their plain
+     versions at the Jamba prefill chunk in bf16 and fp32 inputs and at the
+     reduced shape at nc 1 and at B 2, within 3e-4 max|ref| (the kernel's
+     split bf16 products
      against fp32; its bound under that arithmetic, the fp32 CUDA-core bound
      beside it); then the
      w8a8 pair ``grouped_swiglu_q8`` / ``grouped_matmul_q8`` against their
@@ -100,7 +104,7 @@ Phases, one output line each:
      calls through the split-KV kernel, never the hd-16 mma.sync kernel),
      and ``gating_topk`` and the path's two grouped
      GEMMs (bf16/fp32 or w8a8) once per MoE layer and engine call, and no
-     operand was copied for TMA (``padded_copies`` 0).
+     operand of any of them was copied for TMA (``padded_copies`` 0).
 
 TF32 is off for matmuls and cuDNN, so fp32 references are full fp32.  Any
 failed check raises and the script exits non-zero; the last line is the
@@ -292,6 +296,13 @@ def phase_kernels(glm, jamba) -> dict:
               5),
              ("fp32_g8", dict(PREFILL, G=8), torch.float32, 3),
              ("prefill_serve_fp32", (glm, 4096, "a2a"), torch.float32, 3),
+             ("decode_serve_fp32", (glm, 4, "replicated"), torch.float32, 20),
+             # Counts that straddle a warp's fragments, a tile and M, an
+             # empty slot; the padded rows of x (and of the matmul's input)
+             # hold NaN, which must not reach the output.
+             ("straddle_nan_fp32", dict(G=5, M=300, K=4096, N=1408,
+                                        rows=[0, 37, 129, 300, 250]),
+              torch.float32, 0),
              ("ragged_m1", dict(G=1, M=1, K=4096, N=1408), torch.bfloat16, 0),
              ("ragged_tiles", dict(G=3, M=1009, K=136, N=200), torch.bfloat16, 0),
              ("ragged_small", dict(G=2, M=65, K=33, N=129), torch.bfloat16, 0),
@@ -300,18 +311,22 @@ def phase_kernels(glm, jamba) -> dict:
               torch.float32, 0)]
     for tag, s, dtype, iters in cases:
         rows = mask = None
+        junk = 0.0     # what the padded rows of x hold
         if isinstance(s, tuple):
             cfg, T, mode = s
             rows, cap = _serve_rows(cfg, T, mode, seed=len(tag))
             s = dict(G=rows.numel(), M=cap, K=cfg.d_model, N=cfg.moe.d_ff)
+        elif "rows" in s:
+            rows = torch.tensor(s["rows"], device="cuda")
+            junk = float("nan")
         G, M, K, N = s["G"], s["M"], s["K"], s["N"]
         x, w1, w3, w2 = _kernel_inputs(G, M, K, N, dtype, seed=len(tag))
         if rows is None:
             V, S = G * M, G
         else:
             mask = ops._row_mask(rows, M)
-            x = torch.where(mask, x, torch.zeros((), dtype=dtype,
-                                                 device="cuda"))
+            x = torch.where(mask, x, torch.full((), junk, dtype=dtype,
+                                                device="cuda"))
             V, S = int(rows.sum()), int((rows > 0).sum())
         kind = "bf16" if dtype == torch.bfloat16 else "fp32"
         tol = 1e-2 if kind == "bf16" else 1e-4
@@ -320,10 +335,12 @@ def phase_kernels(glm, jamba) -> dict:
         sw = dict(zip(("max_abs_err", "max_abs_ref"), _check_case(
             f"grouped_swiglu {tag}", lambda: act,
             lambda: ops.grouped_swiglu_ref(x, w1, w3, rows), tol)))
-        out = ops.grouped_matmul(act, w2, rows)
+        act_in = act if junk == 0.0 else torch.where(
+            mask, act, torch.full((), junk, dtype=dtype, device="cuda"))
+        out = ops.grouped_matmul(act_in, w2, rows)
         mm = dict(zip(("max_abs_err", "max_abs_ref"), _check_case(
             f"grouped_matmul {tag}", lambda: out,
-            lambda: ops.grouped_matmul_ref(act, w2, rows), tol)))
+            lambda: ops.grouped_matmul_ref(act_in, w2, rows), tol)))
         if mask is not None:
             for name, t in (("grouped_swiglu", act), ("grouped_matmul", out)):
                 if t.masked_select(~mask).any():
@@ -336,22 +353,31 @@ def phase_kernels(glm, jamba) -> dict:
         if iters:
             # Bound on the valid rows' work: their products, their x rows
             # and the weights of the slots that hold any, the whole output
-            # (padded rows are written as zeros).
-            sw.update(_time_pair(
-                lambda: ops.grouped_swiglu(x, w1, w3, rows),
-                lambda: ops.grouped_swiglu_ref(x, w1, w3, rows),
-                lambda: F.silu(torch.bmm(x, w1)) * torch.bmm(x, w3),
-                4.0 * V * K * N, (V * K + 2 * S * K * N + G * M * N) * elt,
-                kind, iters))
-            mm.update(_time_pair(
-                lambda: ops.grouped_matmul(act, w2, rows),
-                lambda: ops.grouped_matmul_ref(act, w2, rows),
-                lambda: torch.bmm(act, w2),
-                2.0 * V * N * K, (V * N + S * N * K + G * M * K) * elt,
-                kind, iters))
+            # (padded rows are written as zeros).  fp32: the kernels'
+            # arithmetic, three TF32 products at the TF32 rate; the fp32
+            # CUDA-core bound beside it.
+            for rec, fns, flops, nbytes in (
+                    (sw, (lambda: ops.grouped_swiglu(x, w1, w3, rows),
+                          lambda: ops.grouped_swiglu_ref(x, w1, w3, rows),
+                          lambda: F.silu(torch.bmm(x, w1))
+                          * torch.bmm(x, w3)),
+                     4.0 * V * K * N,
+                     (V * K + 2 * S * K * N + G * M * N) * elt),
+                    (mm, (lambda: ops.grouped_matmul(act_in, w2, rows),
+                          lambda: ops.grouped_matmul_ref(act_in, w2, rows),
+                          lambda: torch.bmm(act_in, w2)),
+                     2.0 * V * N * K, (V * N + S * N * K + G * M * K) * elt)):
+                if kind == "fp32":
+                    rec["bound_fp32_ms"], _ = _bound(flops, nbytes, "fp32")
+                    flops, kind_ops = 3 * flops, "tf32"
+                else:
+                    kind_ops = kind
+                rec.update(_time_pair(*fns, flops, nbytes, kind_ops, iters))
+                rec["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                rec["slower_than_library"] = rec["ms"] > rec["library_ms"]
         records["grouped_swiglu"][tag] = dict(shape=[G, M, K, N], dtype=kind, **sw)
         records["grouped_matmul"][tag] = dict(shape=[G, M, N, K], dtype=kind, **mm)
-        del x, w1, w3, w2, act, out
+        del x, w1, w3, w2, act, act_in, out
         torch.cuda.empty_cache()
     _line("phase2_kernels", records)
     return records
@@ -1209,7 +1235,8 @@ def _launches() -> dict:
 
 
 def _padded_copies() -> dict:
-    """Operands the bf16 grouped GEMMs copied for TMA since the reset."""
+    """Operands the grouped GEMMs (bf16, fp32 and w8a8) copied for TMA
+    since the reset."""
     return {name: fn.padded_copies for name, fn in _wrappers().items()
             if hasattr(fn, "padded_copies")}
 
@@ -1559,9 +1586,24 @@ def main() -> int:
                 **{tag: {k: rec[tag][k] for k in ("shape",) + keys}
                    for tag in ("prefill", "decode", "decode_serve",
                                "jamba_prefill", "jamba_decode",
-                               "jamba_prefill_serve", "fp32_g8",
-                               "prefill_serve_fp32")},
+                               "jamba_prefill_serve")},
                 "checks": sorted(rec)}))
+    # The fp32 kernels (3xTF32 on mma.sync), at the counts phase 4c runs.
+    f32_keys = keys + ("bound_fp32_ms", "bytes_bound_ms", "slower_than_library")
+    for name, line in (("grouped_swiglu", 154), ("grouped_matmul", 184)):
+        rec = records[name]
+        kernels.append(_kernel_row(
+            f"{name}.f32", gg_src,
+            f"src/repro/kernels/grouped_gemm/kernel.py:{line}",
+            rec["prefill_serve_fp32"], glm_fp32_launches[name], {
+                "arithmetic": "3xTF32 mma.sync",
+                "bound_fp32_ms": rec["prefill_serve_fp32"]["bound_fp32_ms"],
+                "slower_than_library": rec["prefill_serve_fp32"][
+                    "slower_than_library"],
+                "rows": rec["prefill_serve_fp32"]["rows"],
+                **{tag: {k: rec[tag][k] for k in ("shape",) + f32_keys}
+                   for tag in ("fp32_g8", "decode_serve_fp32")},
+                "checks": sorted(t for t in rec if "fp32" in t)}))
     q8_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm_q8.cu"
     # The serve path's counts first; its down projection writes bf16.
     for name, line, main, subs in (

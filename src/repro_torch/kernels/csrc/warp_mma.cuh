@@ -1,6 +1,7 @@
 // Warp-level helpers shared by the mma.sync kernels (flash_attention.cu,
-// ssd_scan.cu): 16-byte cp.async pieces, ldmatrix, the bf16 and TF32
-// m16n8 products, and the splits of fp32 values into two parts for them.
+// ssd_scan.cu, grouped_gemm.cu): 16-byte cp.async pieces, ldmatrix, the
+// bf16 and TF32 m16n8 products, the splits of fp32 values into two parts
+// for them, and the 3xTF32 product built from those.
 // Built with -I on this directory (kernels/build.py), which also hashes
 // this header into every library's name.
 
@@ -48,6 +49,18 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
       : "r"(s));
 }
 
+// Four 8 x 8 b16 matrices from shared address `addr` (lanes 8i .. 8i + 7
+// give the 16-byte row addresses of matrix i): lane t receives 32-bit word
+// t % 4 of row t / 4 of each.  On rows of fp32 values that is element
+// (t / 4, t % 4) of an 8 x 4 block, the layout of an m16n8k8 .tf32 A
+// fragment.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -83,6 +96,21 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a b in 3xTF32: big += a_hi b_hi, small += a_lo b_hi + a_hi b_lo (the
+// a_lo b_lo term, below 2^-20 of the product, is dropped).  The tensor
+// core truncates as it accumulates, so the caller keeps each chain short
+// or the large terms apart from the small ones; big and small may be the
+// same registers.
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const unsigned (&ah)[4],
+                                           const unsigned (&al)[4],
+                                           const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  mma_tf32(small, al, bh[0], bh[1]);
+  mma_tf32(small, ah, bl[0], bl[1]);
+  mma_tf32(big, ah, bh[0], bh[1]);
 }
 
 }  // namespace

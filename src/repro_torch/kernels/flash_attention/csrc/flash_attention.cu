@@ -160,20 +160,6 @@ struct F32Tile {
   static constexpr int CHUNKS = HD / 4;      // 16-byte pieces per row
 };
 
-// a b in 3xTF32: big += a_hi b_hi, small += a_lo b_hi + a_hi b_lo (the
-// a_lo b_lo term, below 2^-20 of the product, is dropped).  The tensor
-// core truncates as it accumulates, so the caller keeps each chain short
-// or the large terms apart from the small ones.
-__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
-                                           const unsigned (&ah)[4],
-                                           const unsigned (&al)[4],
-                                           const unsigned (&bh)[2],
-                                           const unsigned (&bl)[2]) {
-  mma_tf32(small, al, bh[0], bh[1]);
-  mma_tf32(small, ah, bl[0], bl[1]);
-  mma_tf32(big, ah, bh[0], bh[1]);
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));

@@ -11,12 +11,12 @@
 // rest are written as exact zeros, whatever x holds there (valid rows are
 // a prefix of each slot buffer; see repro_torch/moe/permute.py).
 //
-// What bounds them on an H100: the tensor-core rate on the valid rows
-// when slots are full (GLM-4.5-Air prefill, 130 slots x 1009 rows, K 4096,
-// N 1408: 3.0 TFLOP for the SwiGLU, ~3 ms at 989 TFLOP/s), and the weight
-// bytes of the slots that hold any row when they are not (GLM's serve
-// counts, ~252 rows a slot: 3.0 GB, ~0.9 ms at 3.35 TB/s; decode, at most
-// 32 of 130 slots with rows: <= 0.74 GB).
+// What bounds them on an H100 (bf16): the tensor-core rate on the valid
+// rows when slots are full (GLM-4.5-Air prefill, 130 slots x 1009 rows,
+// K 4096, N 1408: 3.0 TFLOP for the SwiGLU, ~3 ms at 989 TFLOP/s), and
+// the weight bytes of the slots that hold any row when they are not
+// (GLM's serve counts, ~252 rows a slot: 3.0 GB, ~0.9 ms at 3.35 TB/s;
+// decode, at most 32 of 130 slots with rows: <= 0.74 GB).
 //
 // Design (bf16).  One block of three warpgroups computes a 128-row tile
 // of one slot: 128 output columns of the SwiGLU (two products, on w1 and
@@ -47,16 +47,56 @@
 //     other, so the second M-tile's weight tiles come from L2.
 // TMA needs 16-byte aligned bases and row strides; the wrapper copies an
 // operand that is not into a padded buffer first (never on a serve path:
-// every model width is a multiple of 8).  fp32 (card tests, fp32 serving)
-// is a SIMT FMA tile that honours the same row counts by storing zeros
-// past them; it is not meant for speed and skips no work.
+// every model width is a multiple of 8).
+//
+// Design (fp32: fp32 serving, the serve CLI's default dtype).  The
+// reference computes in fp32, whose rate off the tensor cores (67 TFLOP/s)
+// bounds the GLM serve counts' SwiGLU at 11.3 ms; TF32 products alone miss
+// the 1e-4 tolerance (10 mantissa bits, truncated: a bias near 1e-3).  So
+// the products run on the tensor cores in 3xTF32: each fp32 operand is
+// split into hi (its 13 low mantissa bits cleared, a TF32 value) and
+// lo = x - hi, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi on mma.sync
+// m16n8k8, each product keeping about 2^-20 (fp32: 2^-24).  Three products
+// at the TF32 rate (495 TFLOP/s) bound that SwiGLU at 4.6 ms, and a decode
+// step by the weight bytes of its slots with rows (GLM: <= 1.5 GB).
+// wgmma takes TF32 operands only K-major from shared memory, and the
+// weights are N-major, so these kernels use mma.sync.  One block of eight
+// warps computes a 128-row tile of one slot: 64 output columns of the
+// SwiGLU (w1 and w3) or 128 of the matmul.
+//   * Thread 0 also produces: it starts TMA loads of the x tile (128 x 32,
+//     K-major) and four 32 x 32 weight boxes (N-major, as stored) into a
+//     5-stage ring of 32 KB stages with 128-byte swizzle, completion on
+//     mbarriers, the tensor maps as in the bf16 kernels; four tiles up
+//     front, then one after each tile it has consumed.  No warp is set
+//     apart for it: a ninth warp puts three on one SM sub-partition, whose
+//     16K registers then cap a thread at 168, and the K loop spilled.
+//   * The 8 warps (4 row warps of 32 rows x 2 column warps) read their
+//     fragments from the swizzled tiles without bank conflicts (A by
+//     ldmatrix, B one 16-byte load per k row; consume_f32 gives the
+//     layout), split each element once (the SwiGLU's A fragment serves w1
+//     and w3), and sum each 32-deep stage's products in fresh registers
+//     that are added to the accumulators in fp32: the tensor core
+//     truncates as it accumulates, so no chain runs over all of K.
+//   * Rows are skipped on the device as in bf16: a block whose tile
+//     starts at or past rows[g] writes zeros and exits before any weight
+//     load; a row warp whose 32 rows are all past the count writes zeros
+//     and takes no part in the ring; a warp whose second 16-row fragment
+//     is past it runs half the products (a separate instantiation of the
+//     K loop, which reads no count); the epilogue selects zero for the
+//     rows past the count of a straddling tile.
+// At GLM's serve counts on an H100 the SwiGLU takes 13.5 ms and the matmul
+// 7.0 (chip_smoke.py): a third of their three-product bounds, 0.23x
+// torch.bmm over the padded buffers in fp32.
 // Not yet: persistent blocks (each block's prologue and epilogue are not
 // overlapped with another tile's loads), clusters with TMA multicast, and
-// stores through shared memory.
+// stores through shared memory; for fp32, wgmma in TF32 (it needs the
+// weights K-major: a transpose in shared memory or K-major slot buffers),
+// and splitting each weight element once a block, not once a row warp.
 
 #include <cuda_bf16.h>
 
 #include "hopper_tma.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -113,13 +153,15 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
 
 // Zero rows [m0, m0 + nrows) x columns [n0, n0 + ncols) of one slot's
 // output, 16 bytes a store (ncols, n0 and the row stride are multiples of
-// 8 elements).
-__device__ __forceinline__ void zero_tile(bf16* outg, long long som, int m0,
+// 16 bytes).
+template <typename T>
+__device__ __forceinline__ void zero_tile(T* outg, long long som, int m0,
                                           int nrows, int n0, int ncols) {
-  const int chunks = ncols / 8;
+  constexpr int V = 16 / sizeof(T);
+  const int chunks = ncols / V;
   const uint4 z = make_uint4(0, 0, 0, 0);
   for (int i = threadIdx.x; i < nrows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i % chunks) * 8;
+    const int r = i / chunks, c = (i % chunks) * V;
     *reinterpret_cast<uint4*>(outg + (m0 + r) * som + n0 + c) = z;
   }
 }
@@ -296,96 +338,278 @@ int launch_bf16(const void* x, const void* w1, const void* w3, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// --------------------------------------------------------------- fp32 / SIMT
+// ------------------------------------------------- fp32 / 3xTF32 mma.sync
 
-constexpr int F_BM = 64, F_BN = 64, F_BK = 16;
-constexpr int F_THREADS = 256;         // 16 x 16 threads, 4 x 4 outputs each
+constexpr int F_BM = 128;             // rows per block: 4 warps of 32
+constexpr int F_BK = 32;              // 32 fp32 = one 128-byte swizzle row
+constexpr int F_STAGES = 5;
+constexpr int F_WARPS = 8;            // 4 (rows) x 2 (columns)
+constexpr int F_THREADS = F_WARPS * 32;
+constexpr int F_A_BYTES = F_BM * F_BK * 4;         // 16 KB
+constexpr int F_BOX_BYTES = F_BK * 32 * 4;         // 4 KB: 32 K x 32 N
+constexpr int F_STAGE_BYTES = F_A_BYTES + 4 * F_BOX_BYTES;   // 32 KB
+constexpr int F_SMEM_BYTES = F_STAGES * F_STAGE_BYTES + 1024 + 2 * F_STAGES * 8;
 
+// The K loop of one consumer warp: 32 rows (NMF of its two 16-row
+// fragments hold valid rows) x two 32-column weight boxes of the stage
+// (SwiGLU: w1 and w3 over the same columns; matmul: two neighbouring
+// boxes), 3xTF32 on mma.sync m16n8k8.
+//
+// Fragments from the 128-byte-swizzled tiles (16-byte chunk j of row r
+// sits at chunk j ^ (r % 8)):
+//   * A by ldmatrix.x4, one per 16 x 8 fragment (rows of 32-bit words:
+//     lane t gets element (t / 4, t % 4) of each 8 x 4 block); the eight
+//     rows of each block fall on eight chunks, so no bank conflicts.
+//   * B by one 16-byte load per (k row, box): lane (gid, tq) reads chunk
+//     c(gid) = 4 (gid % 2) + gid / 2 of rows kk * 8 + tq and + tq + 4, and
+//     element nb of those four floats is its b0 / b1 of the n-step nb.  So
+//     mma column gid of n-step nb is box column 4 c(gid) + nb; the eight
+//     lanes of each quarter warp read eight distinct chunks.  The output
+//     follows: a thread's c0 (c1) of n-steps 0..3 are box columns 4 tq ..
+//     4 tq + 3 (16 + 4 tq ..), one 16-byte store each.
+// Each stage's twelve products per output (4 k-steps x 3) chain in fresh
+// registers, small terms first, and are added to acc in fp32: the tensor
+// core truncates as it accumulates, so one chain over all of K could lose
+// an ulp at each of its 3 K / 8 steps (1,536 at K 4096: about 1e-4 of the
+// sum, the tolerance).
+struct F32Ring {
+  const CUtensorMap *x, *w1, *w3;
+  const unsigned char* tiles;          // the stages, 1024-byte aligned
+  uint32_t tiles_u, full0, empty0;     // their shared address; barriers
+  int m0, n0, g, ktiles;
+};
+
+// Start the loads of K tile u into stage u % F_STAGES once every warp has
+// released the tile that stage held (u - F_STAGES): the x tile and four
+// weight boxes, w1 | w1 | w3 | w3 (SwiGLU) or four neighbours of w.
 template <bool SWIGLU>
-__global__ void __launch_bounds__(F_THREADS)
-grouped_gemm_f32_kernel(const float* __restrict__ x,
-                        const float* __restrict__ w1,
-                        const float* __restrict__ w3, float* __restrict__ out,
-                        const long long* __restrict__ rows, int M, int K,
-                        int N, long long sxg, long long sxm, long long swg,
-                        long long swk, long long sog, long long som) {
-  __shared__ float As[F_BK][F_BM + 4];     // stored transposed: As[k][m]
-  __shared__ float B1s[F_BK][F_BN];
-  __shared__ float B3s[SWIGLU ? F_BK : 1][F_BN];
-
-  const int g = blockIdx.z;
-  const int m0 = blockIdx.y * F_BM;
-  const int n0 = blockIdx.x * F_BN;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-
-  const float* xg = x + g * sxg;
-  const float* w1g = w1 + g * swg;
-  const float* w3g = w3 + g * swg;
-
-  float acc1[4][4] = {}, acc3[4][4] = {};
-
-  for (int k0 = 0; k0 < K; k0 += F_BK) {
+__device__ __forceinline__ void load_stage_f32(const F32Ring& r, int u) {
+  const int stage = u % F_STAGES;
+  mbar_wait(r.empty0 + 8 * stage, ((u / F_STAGES) & 1) ^ 1);
+  const uint32_t full = r.full0 + 8 * stage;
+  const uint32_t a = r.tiles_u + stage * F_STAGE_BYTES;
+  const int k0 = u * F_BK;
+  mbar_expect_tx(full, F_STAGE_BYTES);
+  tma_load(a, r.x, full, k0, r.m0, r.g);
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {  // A: 64 x 16, B: 16 x 64, 1024 each
-      const int idx = tid + v * F_THREADS;
-      const int am = idx / F_BK, ak = idx % F_BK;
-      As[ak][am] = (m0 + am < M && k0 + ak < K)
-                       ? xg[(long long)(m0 + am) * sxm + k0 + ak] : 0.0f;
-      const int bk = idx / F_BN, bn = idx % F_BN;
-      const bool ok = k0 + bk < K && n0 + bn < N;
-      const long long off = (long long)(k0 + bk) * swk + n0 + bn;
-      B1s[bk][bn] = ok ? w1g[off] : 0.0f;
-      if constexpr (SWIGLU) B3s[bk][bn] = ok ? w3g[off] : 0.0f;
-    }
-    __syncthreads();
+  for (int b = 0; b < 4; ++b) {
+    const CUtensorMap* map = (SWIGLU && b >= 2) ? r.w3 : r.w1;
+    const int col = r.n0 + 32 * (SWIGLU ? b % 2 : b);
+    tma_load(a + F_A_BYTES + b * F_BOX_BYTES, map, full, col, k0, r.g);
+  }
+}
+
+template <int NMF, bool SWIGLU>
+__device__ __forceinline__ void consume_f32(float (&acc)[2][2][4][4],
+                                            const F32Ring& r, bool producer,
+                                            int wm, int wn, int lane) {
+  const int gid = lane / 4, tq = lane % 4;
+  // ldmatrix: lane gives row (lane % 8) + 8 ((lane / 8) % 2) of the
+  // fragment and chunk 2 kk + lane / 16; the row's swizzle is lane % 8.
+  const uint32_t a_row =
+      (wm * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * 128;
+  const int a_chunk = lane >> 4, a_sw = lane & 7;
+  const int cg = ((gid & 1) << 2) | (gid >> 1);
+  const int b_off0 = tq * 128 + ((cg ^ tq) << 4);
+  const int b_off1 = (tq + 4) * 128 + ((cg ^ (tq + 4)) << 4);
+  const int box[2] = {SWIGLU ? wn : 2 * wn, SWIGLU ? 2 + wn : 2 * wn + 1};
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < r.ktiles; ++t) {
+    mbar_wait(r.full0 + 8 * stage, phase);
+    const uint32_t a_u = r.tiles_u + stage * F_STAGE_BYTES + a_row;
+    const unsigned char* b_p = r.tiles + stage * F_STAGE_BYTES + F_A_BYTES;
+    float part[NMF][2][4][4];
 #pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      float a[4], b1[4], b3[4];
+    for (int mf = 0; mf < NMF; ++mf)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+      for (int b = 0; b < 2; ++b)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b1[j] = B1s[kk][tx * 4 + j];
-        if constexpr (SWIGLU) b3[j] = B3s[kk][tx * 4 + j];
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mf][b][nb][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < F_BK / 8; ++kk) {
+      unsigned ah[NMF][4], al[NMF][4];
+#pragma unroll
+      for (int mf = 0; mf < NMF; ++mf) {
+        unsigned a[4];
+        ldsm_x4(a, a_u + mf * 16 * 128 + (((2 * kk + a_chunk) ^ a_sw) << 4));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(a[i]), ah[mf][i], al[mf][i]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int b = 0; b < 2; ++b) {
+        const unsigned char* bp = b_p + box[b] * F_BOX_BYTES + kk * 8 * 128;
+        const float4 v0 = *reinterpret_cast<const float4*>(bp + b_off0);
+        const float4 v1 = *reinterpret_cast<const float4*>(bp + b_off1);
+        const float k0[4] = {v0.x, v0.y, v0.z, v0.w};
+        const float k1[4] = {v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc1[i][j] = fmaf(a[i], b1[j], acc1[i][j]);
-          if constexpr (SWIGLU) acc3[i][j] = fmaf(a[i], b3[j], acc3[i][j]);
+        for (int nb = 0; nb < 4; ++nb) {
+          unsigned bh[2], bl[2];
+          split_tf32(k0[nb], bh[0], bl[0]);
+          split_tf32(k1[nb], bh[1], bl[1]);
+#pragma unroll
+          for (int mf = 0; mf < NMF; ++mf)
+            mma_3xtf32(part[mf][b][nb], part[mf][b][nb], ah[mf], al[mf], bh,
+                       bl);
         }
+      }
     }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(r.empty0 + 8 * stage);   // shared reads done
+#pragma unroll
+    for (int mf = 0; mf < NMF; ++mf)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mf][b][nb][e] += part[mf][b][nb][e];
+    // The stage released one tile ago (by the other warps too, by now)
+    // takes the tile F_STAGES - 1 ahead.
+    if (producer && t + F_STAGES - 1 < r.ktiles)
+      load_stage_f32<SWIGLU>(r, t + F_STAGES - 1);
+    if (++stage == F_STAGES) { stage = 0; phase ^= 1; }
+  }
+}
+
+// out: (G, M, n_out) fp32 with n_out = N rounded up to 4 (the wrapper
+// returns the first N columns); som = n_out, sog = M * n_out.
+template <bool SWIGLU>
+__global__ void __launch_bounds__(F_THREADS, 1)
+grouped_gemm_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_w1,
+                         const __grid_constant__ CUtensorMap map_w3,
+                         float* __restrict__ out,
+                         const long long* __restrict__ rows, int M, int K,
+                         int n_out, int n_tiles, int m_tiles, long long sog,
+                         long long som) {
+  constexpr int OUT_COLS = SWIGLU ? 64 : 128;
+  extern __shared__ unsigned char smem_raw[];
+
+  const int mt = blockIdx.x % m_tiles;
+  const int nt = (blockIdx.x / m_tiles) % n_tiles;
+  const int g = blockIdx.x / (m_tiles * n_tiles);
+  const int m0 = mt * F_BM, n0 = nt * OUT_COLS;
+  const int mv = valid_rows(rows, g, M);
+  float* outg = out + g * sog;
+
+  if (m0 >= mv) {   // no valid row in this tile: zeros, no weight bytes
+    zero_tile(outg, som, m0, min(F_BM, M - m0), n0, min(OUT_COLS, n_out - n0));
+    return;
   }
 
-  // Rows at or past the count are stored as zeros.  The count is read only
-  // here: using it in the K loop (to skip or zero-load padded rows) changed
-  // the loop's code and made this kernel markedly slower on an H100.
-  const int mv = valid_rows(rows, g, M);
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t tiles_u = smem_u32(tiles);
+  const F32Ring ring{&map_x, &map_w1, &map_w3, tiles, tiles_u,
+                     tiles_u + F_STAGES * F_STAGE_BYTES,
+                     tiles_u + F_STAGES * F_STAGE_BYTES + F_STAGES * 8,
+                     m0, n0, g, (K + F_BK - 1) / F_BK};
+  // Row warps whose 32 rows are all past the count take no part in the
+  // ring: they write their zeros only.
+  const int m_warps = min(F_WARPS / 2, (mv - m0 + 31) / 32);
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(ring.full0 + 8 * s, 1);
+      mbar_init(ring.empty0 + 8 * s, 2 * m_warps);   // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Thread 0 (of row warp 0, always active) is also the producer: the
+  // first F_STAGES - 1 tiles now, one more after each tile it consumes.
+  if (threadIdx.x == 0)
+    for (int u = 0; u < min(F_STAGES - 1, ring.ktiles); ++u)
+      load_stage_f32<SWIGLU>(ring, u);
+
+  // Warp (wm, wn) owns rows m0 + 32 wm .. + 31.  The two column warps of
+  // a row warp are neighbours, so they sit on two SM sub-partitions (warp
+  // % 4) when only row warp 0 has rows, as at decode.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int r0 = m0 + wm * 32;
+  float acc[2][2][4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = m0 + ty * 4 + i, c = n0 + tx * 4 + j;
-      if (r < M && c < N)
-        out[g * sog + (long long)r * som + c] =
-            r >= mv ? 0.0f
-                    : (SWIGLU ? silu_mul(acc1[i][j], acc3[i][j]) : acc1[i][j]);
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mf][b][nb][e] = 0.0f;
+  if (wm < m_warps) {
+    const bool producer = threadIdx.x == 0;
+    if (mv - r0 > 16)
+      consume_f32<2, SWIGLU>(acc, ring, producer, wm, wn, lane);
+    else   // the second fragment holds no valid row: half the products
+      consume_f32<1, SWIGLU>(acc, ring, producer, wm, wn, lane);
+  }
+
+  // Epilogue: c0 / c1 / c2 / c3 of n-step nb at (row gid, box column
+  // 4 tq + nb) / (gid, 16 + 4 tq + nb) / (gid + 8, ..) / (gid + 8, ..);
+  // rows past the count are selected to zero, never multiplied.
+  const int gid = lane / 4, tq = lane % 4;
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + mf * 16 + gid + 8 * (e >> 1);
+      if (r >= M) continue;
+      float* orow = outg + r * som;
+      const bool keep = r < mv;
+#pragma unroll
+      for (int b = 0; b < (SWIGLU ? 1 : 2); ++b) {
+        const int c = n0 + (SWIGLU ? 32 : 64) * wn + 32 * b + 16 * (e & 1) +
+                      4 * tq;
+        if (c >= n_out) continue;
+        const float(&v)[4][4] = acc[mf][b];
+        float4 o;
+        if constexpr (SWIGLU) {
+          const float(&w)[4][4] = acc[mf][1];
+          o = make_float4(
+              silu_mul(v[0][e], w[0][e]), silu_mul(v[1][e], w[1][e]),
+              silu_mul(v[2][e], w[2][e]), silu_mul(v[3][e], w[3][e]));
+        } else {
+          o = make_float4(v[0][e], v[1][e], v[2][e], v[3][e]);
+        }
+        *reinterpret_cast<float4*>(orow + c) = keep ? o : zero4;
+      }
     }
 }
 
 template <bool SWIGLU>
 int launch_f32(const void* x, const void* w1, const void* w3, void* out,
-               const long long* rows, int G, int M, int K, int N,
+               const long long* rows, int G, int M, int K, int N, int n_out,
                long long sxg, long long sxm, long long swg, long long swk,
-               long long sog, long long som, cudaStream_t stream) {
-  const dim3 grid((N + F_BN - 1) / F_BN, (M + F_BM - 1) / F_BM, G);
-  grouped_gemm_f32_kernel<SWIGLU><<<grid, F_THREADS, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(w3), static_cast<float*>(out), rows, M, K, N,
-      sxg, sxm, swg, swk, sog, som);
+               cudaStream_t stream) {
+  CUtensorMap mx, mw1, mw3;
+  int err = make_map_3d(&mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, K, M, G,
+                        sxm, sxg, 32, F_BM);
+  if (!err)
+    err = make_map_3d(&mw1, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w1, N, K, G,
+                      swk, swg, 32, F_BK);
+  if (!err)
+    err = make_map_3d(&mw3, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w3, N, K, G,
+                      swk, swg, 32, F_BK);
+  if (err) return err;
+  auto kernel = grouped_gemm_tf32_kernel<SWIGLU>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int out_cols = SWIGLU ? 64 : 128;
+  const int n_tiles = (N + out_cols - 1) / out_cols;
+  const int m_tiles = (M + F_BM - 1) / F_BM;
+  const long long blocks = static_cast<long long>(G) * n_tiles * m_tiles;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), F_THREADS, F_SMEM_BYTES, stream>>>(
+      mx, mw1, mw3, static_cast<float*>(out), rows, M, K, n_out, n_tiles,
+      m_tiles, static_cast<long long>(M) * n_out, n_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,17 +619,16 @@ int launch_f32(const void* x, const void* w1, const void* w3, void* out,
 // swiglu: 1 -> out = silu(x @ w1) * (x @ w3); 0 -> out = x @ w1 (w3 unused).
 // rows: (G,) int64 valid-row counts on the device, or null for M.
 // Strides are in elements; the last dimension of every operand is unit
-// stride.  bf16 needs 16-byte aligned bases and outer strides (TMA) and a
-// contiguous out of width n_out = N rounded up to 8; fp32 takes any
-// strides (n_out unused).  Launches on `stream`, does not synchronise, and
-// returns the launch's CUDA error code (0 = launched; 1000 and up: a
-// tensor map could not be made).
+// stride, and bases and outer strides are 16-byte aligned (TMA).  out is
+// contiguous, of width n_out = N rounded up to 16 bytes (8 bf16, 4 fp32).
+// Launches on `stream`, does not synchronise, and returns the launch's
+// CUDA error code (0 = launched; 1000 and up: a tensor map could not be
+// made).
 extern "C" int grouped_gemm_launch(int dtype, int swiglu, const void* x,
                                    const void* w1, const void* w3, void* out,
                                    const long long* rows, int G, int M, int K,
                                    int N, int n_out, long long sxg,
                                    long long sxm, long long swg, long long swk,
-                                   long long sog, long long som,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && swiglu)
@@ -415,10 +638,10 @@ extern "C" int grouped_gemm_launch(int dtype, int swiglu, const void* x,
     return launch_bf16<false>(x, w1, w1, out, rows, G, M, K, N, n_out, sxg,
                               sxm, swg, swk, s);
   if (dtype == 0 && swiglu)
-    return launch_f32<true>(x, w1, w3, out, rows, G, M, K, N, sxg, sxm, swg,
-                            swk, sog, som, s);
+    return launch_f32<true>(x, w1, w3, out, rows, G, M, K, N, n_out, sxg,
+                            sxm, swg, swk, s);
   if (dtype == 0)
-    return launch_f32<false>(x, w1, w1, out, rows, G, M, K, N, sxg, sxm, swg,
-                             swk, sog, som, s);
+    return launch_f32<false>(x, w1, w1, out, rows, G, M, K, N, n_out, sxg,
+                             sxm, swg, swk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,25 +24,30 @@ col_scale, rows=None, out_dtype=torch.float32)`` take ``rows``, an int32 or
 int64 (G,) tensor on the activations' device: slot g's rows ``[0,
 min(rows[g], M))`` are computed and every row at or past that comes out as
 exact zeros, whatever the activations (and, for q8, the row scales) hold
-there; ``None`` means M for every slot.  The kernels read the counts on
-the device (no host sync) and skip the padded rows' work: a slot with no
-rows costs no weight bytes.  The plain versions take the same ``rows`` and
-mask the same way.  ``grouped_matmul_q8`` writes fp32 or, with
+there; ``None`` means M for every slot.  The kernels, bf16, fp32 and
+int8 alike, read the counts on the device (no host sync) and skip the
+padded rows' work: a tile past a slot's count loads nothing, so a slot
+with no rows costs no weight bytes.  The plain versions take the same
+``rows`` and mask the same way.  ``grouped_matmul_q8`` writes fp32 or, with
 ``out_dtype=torch.bfloat16``, the same values rounded to bf16 (equal to
 the fp32 result cast, bitwise).
 
-Alignment.  The kernels read their operands with TMA, which needs a
-16-byte aligned base and outer strides that are multiples of 16 bytes.
-An operand that is not (a width that is not a multiple of 16 bytes, a
-view of unpadded int8 wire rows, D + 4 bytes apart, or a view that starts
-mid-row) is first copied into a zero-padded buffer with its last dim
-rounded up to 16 bytes -- the same kernel on padded operands, counted in
-``padded_copies`` on each wrapper.  No serve path makes such a copy: every
-model width is a multiple of 16 and the bucket pads the int8 wire's rows
-to 16 bytes (:func:`repro_torch.moe.permute.fused_bucket`).  The bf16
-output has its width rounded up to 8 and is returned as a view of the
-first N columns.  The fp32 kernel takes any strides and masks ragged M, N
-and K edges itself.
+Alignment.  Every kernel reads its operands with TMA, which needs a
+16-byte aligned base and outer strides that are multiples of 16 bytes (4
+fp32, 8 bf16, 16 int8 codes).  An operand that is not (a width that is
+not a multiple of 16 bytes, a view of unpadded int8 wire rows, D + 4
+bytes apart, or a view that starts mid-row) is first copied into a
+zero-padded buffer with its last dim rounded up to 16 bytes -- the same
+kernel on padded operands, counted in ``padded_copies`` on each wrapper.
+No serve path makes such a copy: every model width is a multiple of 16
+and the bucket pads the int8 wire's rows to 16 bytes
+(:func:`repro_torch.moe.permute.fused_bucket`).  The fp32 and bf16
+outputs have their width rounded up to 16 bytes and are returned as a
+view of the first N columns; TMA zero-fills the ragged M, N and K edges.
+
+fp32 runs its products on the tensor cores in 3xTF32 (each operand split
+into a TF32 part and the rest; see the source's header): each product
+keeps about 2^-20 where fp32 keeps 2^-24, within 1e-4 of max|ref|.
 
 The q8 plain versions contract in fp64, which is exact here (every partial
 sum is an integer below 2^53), and convert to int32: CUDA has no int32
@@ -72,11 +77,13 @@ LIBRARY_Q8 = KernelLibrary(
     "grouped_gemm_q8", Path(__file__).parent / "csrc" / "grouped_gemm_q8.cu")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65535
 
 
-def _round8(n: int) -> int:
-    return -(-n // 8) * 8
+def _out_width(N: int, elt: int) -> int:
+    """The kernels' output row width: N elements of ``elt`` bytes rounded
+    up to 16 bytes."""
+    m = 16 // elt
+    return -(-N // m) * m
 
 
 def _row_mask(rows: torch.Tensor, M: int) -> torch.Tensor:
@@ -110,8 +117,8 @@ def grouped_swiglu_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 def _tma_ready(t: torch.Tensor) -> bool:
     """True when TMA can read ``t`` as it is: a 16-byte aligned base and
-    positive outer strides that are multiples of 16 bytes (8 bf16, 16
-    int8 codes)."""
+    positive outer strides that are multiples of 16 bytes (4 fp32, 8 bf16,
+    16 int8 codes)."""
     e = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         s > 0 and s * e % 16 == 0 for s in t.stride()[:-1])
@@ -149,34 +156,31 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
         raise ValueError("grouped GEMM operands need a unit-stride last dim "
                          "(and w1, w3 with equal strides)")
     rows = _check_rows(rows, G, x.device)
-    bf16 = x.dtype == torch.bfloat16
-    if not bf16 and (G > _MAX_GRID_YZ or -(-M // 64) > _MAX_GRID_YZ):
-        raise ValueError(f"grid too large for G={G}, M={M}")
     copies = 0
-    if bf16:   # w1 and w3 share one pair of strides, so both are copied
-        ws = [w1] if w3 is None else [w1, w3]
-        if not all(map(_tma_ready, ws)):
-            ws = [_padded_copy(w) for w in ws]
-            copies += len(ws)
-            w1, w3 = ws[0], (None if w3 is None else ws[1])
-        if not _tma_ready(x):
-            x = _padded_copy(x)
-            copies += 1
-    n_out = _round8(N) if bf16 else N
+    # w1 and w3 share one pair of strides, so both are copied.
+    ws = [w1] if w3 is None else [w1, w3]
+    if not all(map(_tma_ready, ws)):
+        ws = [_padded_copy(w) for w in ws]
+        copies += len(ws)
+        w1, w3 = ws[0], (None if w3 is None else ws[1])
+    if not _tma_ready(x):
+        x = _padded_copy(x)
+        copies += 1
+    n_out = _out_width(N, x.element_size())
     out = torch.empty((G, M, n_out), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out[..., :N], copies
     fn = LIBRARY.load().grouped_gemm_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
                    + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     w3_ptr = (w1 if w3 is None else w3).data_ptr()
     err = fn(_DTYPE_CODE[x.dtype], int(swiglu), x.data_ptr(), w1.data_ptr(),
              w3_ptr, out.data_ptr(), None if rows is None else rows.data_ptr(),
              G, M, K, N, n_out, x.stride(0), x.stride(1), w1.stride(0),
-             w1.stride(1), out.stride(0), out.stride(1), stream)
+             w1.stride(1), stream)
     if err != 0:
         raise RuntimeError(f"grouped_gemm kernel launch failed: error {err} "
                            f"(below 1000 a CUDA error; 1000 no "

@@ -45,7 +45,8 @@ __all__ = ["main"]
 # Kernel-name fragments -> category, first match wins.
 _CATEGORIES = (
     ("grouped_gemm_q8 (ours)", ("grouped_gemm_q8_wgmma_kernel",)),
-    ("grouped_gemm (ours)", ("grouped_gemm_wgmma_kernel", "grouped_gemm_f32")),
+    ("grouped_gemm (ours)", ("grouped_gemm_wgmma_kernel",
+                             "grouped_gemm_tf32_kernel")),
     ("ssd_scan (ours)", ("ssd_intra_chunk_kernel",)),
     ("gating_topk (ours)", ("gating_topk_kernel",)),
     ("flash_attention (ours)", ("flash_wgmma_kernel", "flash_split_kernel",

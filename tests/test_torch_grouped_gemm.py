@@ -3,9 +3,11 @@ kernels (interpret mode), and the CUDA kernels vs the plain versions on a
 card.
 
 CPU tolerance: rtol 1e-5 in fp32 (the frameworks sum in different orders).
-Card tolerances (fp32 SIMT tile vs fp32 einsum, TF32 off): max|err| <=
-1e-4 * max|ref|; bf16: max|err| <= 1e-2 * max|ref| (one bf16 rounding of
-the output).  The w8a8 pair: the matmul is exact (int32 sums, the same
+Card tolerances (fp32 kernels' 3xTF32 products vs fp32 einsum, TF32 off):
+max|err| <= 1e-4 * max|ref|; bf16: max|err| <= 1e-2 * max|ref| (one bf16
+rounding of the output).  The fp32 kernels' arithmetic is also modelled on
+the CPU, to show it is within that tolerance of the JAX oracle at GLM's
+contraction depths and one TF32 product is not.  The w8a8 pair: the matmul is exact (int32 sums, the same
 dequant products in the same order), so it must equal the Pallas kernel on
 the CPU and its plain version on the card bitwise; the SwiGLU may differ
 in the gate's exp: rtol 1e-6 against Pallas (the JAX suite's own bound),
@@ -17,9 +19,12 @@ also runs where JAX is not installed:
       tests/test_torch_grouped_gemm.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.grouped_gemm import ops
 
@@ -147,6 +152,100 @@ def test_tma_operand_helpers():
     assert not ops._tma_ready(torch.zeros(3, 16, 40, dtype=torch.bfloat16)
                               [:, :, 1:])                 # starts mid-row
     assert not ops._tma_ready(torch.zeros(1, 16, 8).expand(3, 16, 8))
+
+
+def test_tma_operand_helpers_fp32():
+    """The same rule for fp32 operands: rows 16 bytes (4 floats) apart and a
+    16-byte base, or a padded copy; the output row rounded up to 16 bytes
+    (4 fp32, 8 bf16)."""
+    x = torch.randn(2, 33, 70)                         # rows 280 bytes apart
+    assert not ops._tma_ready(x)
+    xp = ops._padded_copy(x)
+    assert xp.shape == x.shape and xp.stride() == (33 * 72, 72, 1)
+    assert torch.equal(xp, x) and ops._tma_ready(xp)
+    assert not xp._base[..., 70:].any()
+    assert not ops._tma_ready(torch.zeros(2, 70, 45))  # rows 180 bytes
+    assert ops._tma_ready(torch.zeros(130, 1009, 4096))
+    assert ops._tma_ready(torch.zeros(130, 4096, 1408))
+    assert not ops._tma_ready(torch.zeros(3, 16, 8)[:, :, 1:])
+    assert ops._tma_ready(torch.zeros(3, 16, 12)[:, :, 4:])
+    assert [ops._out_width(n, 4) for n in (1, 45, 1408)] == [4, 48, 1408]
+    assert [ops._out_width(n, 2) for n in (1, 129, 4096)] == [8, 136, 4096]
+
+
+def _tf32(t):
+    """TF32 as the tensor core reads an fp32 operand: the 13 low mantissa
+    bits cleared."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _kernel_products(x, w, split):
+    """x (G, M, K) @ w (G, K, N) in the fp32 kernels' arithmetic on the CPU:
+    the products of each 32-deep K tile summed apart, the tiles' sums added
+    in fp32 in order; with ``split`` 3xTF32 (a = a_hi + a_lo, a_hi the TF32
+    part: a_lo b_hi + a_hi b_lo + a_hi b_hi, a_lo b_lo dropped), else one
+    TF32 product."""
+    acc = torch.zeros(x.shape[0], x.shape[1], w.shape[2])
+    for k0 in range(0, x.shape[2], 32):
+        a, b = x[:, :, k0:k0 + 32], w[:, k0:k0 + 32]
+        ah, bh = _tf32(a), _tf32(b)
+        part = torch.einsum("gmk,gkn->gmn", ah, bh)
+        if split:
+            part = (torch.einsum("gmk,gkn->gmn", _tf32(a - ah), bh)
+                    + torch.einsum("gmk,gkn->gmn", ah, _tf32(b - bh)) + part)
+        acc += part
+    return acc
+
+
+# GLM-4.5-Air's depths: the SwiGLU contracts d_model 4096, the matmul d_ff
+# 1408; narrow slots and columns keep the interpreted oracle quick.
+F32_DEPTHS = [("swiglu", 4096), ("matmul", 1408)]
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_case(op, K):
+    """Inputs from a seed, the JAX oracle (the Pallas kernel in interpret
+    mode, fp32) and the kernels' arithmetic with and without the split."""
+    import jax.numpy as jnp
+
+    from repro.kernels.grouped_gemm.kernel import (
+        grouped_matmul_pallas,
+        grouped_swiglu_pallas,
+    )
+
+    G, M, N = 2, 16, 128
+    x, w1, w3 = _inputs(G, M, K, N, seed=14)
+    tx, tw1, tw3 = map(torch.from_numpy, (x, w1, w3))
+    if op == "swiglu":
+        want = grouped_swiglu_pallas(jnp.asarray(x), jnp.asarray(w1),
+                                     jnp.asarray(w3), bk=512, interpret=True)
+        got = [F.silu(_kernel_products(tx, tw1, s)) * _kernel_products(
+            tx, tw3, s) for s in (True, False)]
+    else:
+        want = grouped_matmul_pallas(jnp.asarray(x), jnp.asarray(w1), bk=128,
+                                     interpret=True)
+        got = [_kernel_products(tx, tw1, s) for s in (True, False)]
+    want = np.asarray(want)
+    return [float(np.abs(g.numpy() - want).max() / np.abs(want).max())
+            for g in got]
+
+
+@pytest.mark.parametrize("op,K", F32_DEPTHS)
+def test_3xtf32_products_stay_within_tolerance(op, K):
+    """The fp32 kernels' 3xTF32 products, summed per 32-deep K tile, are
+    within the card tolerance (1e-4 of max|ref|) of the Pallas kernel, with
+    a margin."""
+    split, _ = _f32_case(op, K)
+    assert split <= 1e-5
+
+
+@pytest.mark.parametrize("op,K", F32_DEPTHS)
+def test_one_tf32_product_misses_tolerance(op, K):
+    """One TF32 product (each operand truncated to 10 mantissa bits, as the
+    tensor core reads fp32) misses the 1e-4 tolerance: why the kernels
+    split."""
+    _, one = _f32_case(op, K)
+    assert one > 1e-4
 
 
 def test_wrappers_check_rows():
@@ -413,6 +512,50 @@ def test_padded_copies_on_card(cuda_device):
     sw(xa, wa, wa)
     mm(xa, wa)
     assert (sw.padded_copies, mm.padded_copies) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fragment_edges", "empty_slots", "nan_inf",
+                                  "ragged"])
+def test_f32_kernels_edge_cases_on_card(cuda_device, case):
+    """The fp32 kernels against their plain versions within 1e-4 of max|ref|,
+    rows past each count exactly zero: counts on the edges of a warp's
+    16-row fragments, of its 32 rows and of a 128-row tile; slots with no
+    rows; NaN, inf and -inf in the padded rows; and K 70 / N 45, whose
+    operands TMA cannot read (copied, counted)."""
+    G, M, K, N, rows = {
+        "fragment_edges": (8, 300, 256, 192, [1, 15, 16, 17, 32, 33, 129,
+                                              300]),
+        "empty_slots": (4, 64, 512, 136, [0, 0, 5, 0]),
+        "nan_inf": (4, 300, 128, 256, [0, 37, 128, 200]),
+        "ragged": (3, 33, 70, 45, [0, 10, 33])}[case]
+    x, w1, w3 = (torch.from_numpy(a).to(cuda_device)
+                 for a in _inputs(G, M, K, N, seed=15))
+    w2 = torch.randn((G, N, K), device=cuda_device) * N ** -0.5
+    rt = torch.tensor(rows, device=cuda_device)
+    mask = ops._row_mask(rt, M)
+    junk = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                        device=cuda_device).repeat(K)[:K]
+    sw, mm = ops.grouped_swiglu, ops.grouped_matmul
+    before = (sw.launches, mm.launches, sw.padded_copies, mm.padded_copies)
+    act = sw(torch.where(mask, x, junk), w1, w3, rt)
+    torch.cuda.synchronize()
+    checks = [(act.clone(), ops.grouped_swiglu_ref(x, w1, w3, rt))]
+    out = mm(act.masked_fill_(~mask, float("nan")), w2, rt)   # in its view
+    torch.cuda.synchronize()
+    checks.append((out, ops.grouped_matmul_ref(act, w2, rt)))
+    # ragged: x (rows 280 bytes), w1 and w3 (180), then w2 (280); the
+    # SwiGLU's output is a view of rows 48 floats apart, which TMA reads.
+    copies = (3, 1) if case == "ragged" else (0, 0)
+    assert (sw.launches, mm.launches, sw.padded_copies, mm.padded_copies) == (
+        before[0] + 1, before[1] + 1, before[2] + copies[0],
+        before[3] + copies[1])
+    for got, ref in checks:
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        pad = got.masked_select(~mask)
+        assert torch.equal(pad, torch.zeros_like(pad))
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-4 * max(ref.abs().max().item(), 1e-30)
 
 
 def _k_contiguous(w: torch.Tensor) -> torch.Tensor:
