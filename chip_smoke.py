@@ -49,7 +49,15 @@ Phases, one output line each:
      1e-6 relative (every row of the tie case), counts equal the histogram of
      the kernel's ids, weights and scores within 1e-6 max|ref|, and the same
      with a DeepSeek-style selection bias (the weights stay the unbiased
-     scores); and ``flash_attention`` against its plain version at the
+     scores); timed back to back (``ms``, the wrapper's host work included)
+     and as device time from CUDA-graph replays with the logits warm in L2
+     (``graph_ms``) and out of it (``graph_cold_ms``), beside the PyTorch
+     composite (softmax + topk + gather + histogram) both ways and the
+     graph time of a one-element add (``launch_floor_ms``), and the
+     prefill case's graph time at 4, 32, 33, 1024 and 4096 rows, and the
+     prefill and E 256 cases checked and timed with sub-warp groups of 16
+     experts a lane beside the wrapper's geometry; and
+     ``flash_attention`` against its plain version at the
      GLM-4.5-Air serve cache (C 4096, Sk 10248: offsets 0 and 4096, a ragged
      last chunk), at Qwen3's 64 over 4 heads, at decode (B 4, per-row
      lengths), at the Pallas kernel's own case (Sq = Sk = 2048, causal and
@@ -854,8 +862,55 @@ def _gating_cost(T, E, k, want_scores) -> tuple[float, float]:
     return flops, nbytes
 
 
+def _graph_cold_ms(call, x, iters: int) -> tuple[float, str]:
+    """Device time per ``call(x)`` with ``x`` not in the 50 MB L2: the call
+    captured on copies of ``x`` that together exceed 64 MiB, one after the
+    other, where that takes at most 512 copies; else (inputs below 128 KiB)
+    each call after a read of a 64 MiB buffer, less the reads' own time.
+    Returns the time and how the input was kept out of L2."""
+    import torch
+
+    nbytes = x.numel() * x.element_size()
+    copies = -(-(64 << 20) // nbytes)
+    if copies <= 512:
+        xs = x.expand(copies, *x.shape).clone()
+        turn = [0]
+
+        def rotated():
+            turn[0] += 1
+            return call(xs[turn[0] % copies])
+
+        ms = _graph_ms(rotated, max(iters, copies))
+        del xs
+        return ms, f"rotated over {copies} copies"
+    flush = torch.ones(((64 << 20) // 4,), device="cuda")
+
+    def flushed():
+        flush.sum()
+        return call(x)
+
+    ms = _graph_ms(flushed, iters) - _graph_ms(flush.sum, iters)
+    del flush
+    return ms, "after a 64 MiB read, its time subtracted"
+
+
+def _at_geometry(ops, group_per, fn):
+    """``fn()`` with ``gating_topk``'s lane groups forced to (G, experts a
+    lane); the rows a block and the blocks stay the wrapper's."""
+    orig = ops.launch_geometry
+    ops.launch_geometry = lambda T, E, k: (*group_per, *orig(T, E, k)[2:])
+    try:
+        return fn()
+    finally:
+        ops.launch_geometry = orig
+
+
 def phase_gating() -> dict:
-    """``gating_topk`` vs its plain version; returns the records by case."""
+    """``gating_topk`` vs its plain version; returns the records by case.
+    Timed cases: ``ms`` back to back (the wrapper's host work included),
+    ``graph_ms`` device time with the logits warm in L2 (as the router
+    matmul leaves them), ``graph_cold_ms`` with them in device memory, and
+    the PyTorch composite (softmax + topk + gather + histogram) both ways."""
     import torch
 
     from repro_torch.kernels.gating_topk import ops
@@ -868,6 +923,9 @@ def phase_gating() -> dict:
              ("sigmoid_e256_bias", 4096, 256, 8, "sigmoid", 20),
              ("ties", 4096, 128, 8, "softmax", 0),
              ("ties_sigmoid", 4096, 128, 8, "sigmoid", 0)]
+    # The graph time of a one-element add: what any one kernel costs here.
+    one = torch.zeros((1,), device="cuda")
+    floor_ms = _graph_ms(lambda: one.add_(1.0), 50)
     records = {}
     for tag, T, E, k, score_fn, iters in cases:
         g = torch.Generator(device="cuda").manual_seed(len(tag))
@@ -914,11 +972,58 @@ def phase_gating() -> dict:
                 return (s.gather(1, i),
                         torch.bincount(i.reshape(-1), minlength=E))
 
+            ones = torch.ones((T * k,), dtype=torch.int64, device="cuda")
+
+            def torch_ops_graph():
+                # bincount reads its input's max back to the host, so a
+                # graph takes the histogram as a scatter-add instead.
+                s = torch.softmax(x, -1) if score_fn == "softmax" \
+                    else torch.sigmoid(x)
+                _, i = torch.topk(s if bias is None else s + bias, k)
+                return (s.gather(1, i),
+                        torch.zeros((E,), dtype=torch.int64, device="cuda"
+                                    ).scatter_add_(0, i.reshape(-1), ones))
+
             rec.update(_time_pair(
                 lambda: ops.gating_topk(x, k, **kw),
                 lambda: ops.gating_topk_ref(x, k, **kw),
                 None, *_gating_cost(T, E, k, True), "fp32", iters))
             rec["torch_ops_ms"] = _cuda_ms(torch_ops, iters)
+            rec["graph_ms"] = _graph_ms(lambda: ops.gating_topk(x, k, **kw),
+                                        iters)
+            rec["graph_cold_ms"], rec["cold"] = _graph_cold_ms(
+                lambda xi: ops.gating_topk(xi, k, **kw), x, iters)
+            rec["torch_ops_graph_ms"] = _graph_ms(torch_ops_graph, iters)
+            rec["bound_share_warm"] = rec["bound_ms"] / rec["graph_ms"]
+            rec["bound_share_cold"] = rec["bound_ms"] / rec["graph_cold_ms"]
+            rec["launch_floor_ms"] = floor_ms
+        if tag in ("prefill", "sigmoid_e256_bias") and hasattr(
+                ops, "launch_geometry"):
+            # The same kernel with sub-warp groups holding 16 experts a
+            # lane (G 8 at E 128, 16 at E 256), checked and timed beside.
+            sub = (E // 16, 16)
+            ids16, _, cnt16, sc16 = _at_geometry(
+                ops, sub, lambda: ops.gating_topk(x, k, **kw))
+            torch.cuda.synchronize()
+            err, scale = _max_err(sc16, r_sc)
+            if not (torch.equal(ids16[decided], r_ids[decided])
+                    and torch.equal(cnt16, torch.bincount(
+                        ids16.reshape(-1), minlength=E))
+                    and err <= GATING_TOL * scale):
+                raise AssertionError(f"gating_topk {tag} at G {sub[0]}: "
+                                     f"differs from the plain version")
+            rec["subwarp_geometry"] = list(sub)
+            rec["subwarp_graph_ms"] = _at_geometry(ops, sub, lambda: _graph_ms(
+                lambda: ops.gating_topk(x, k, **kw), iters))
+        if tag == "prefill":
+            # Device time against the rows: one row group (T 4), one block
+            # of 32 rows (T 32), two blocks and so the cross-block
+            # histogram (T 33), and more blocks.
+            rec["graph_ms_by_rows"] = {}
+            for rows in (4, 32, 33, 1024, 4096):
+                xr = x[:rows].clone()
+                rec["graph_ms_by_rows"][rows] = _graph_ms(
+                    lambda: ops.gating_topk(xr, k, **kw), iters)
         records[tag] = rec
     _line("phase2_gating_topk", records)
     return records
@@ -953,6 +1058,9 @@ def _check_rows(name, out, ref, tol) -> tuple[float, float, float]:
     return err.max().item(), scale.max().item(), ratio
 
 
+_TIMING_STREAM = None     # one side stream for every graph capture
+
+
 def _graph_ms(fn, iters: int) -> float:
     """Device time per call: ``iters`` calls captured in one CUDA graph,
     replayed once to warm up, then timed over one replay, so the host's
@@ -960,14 +1068,17 @@ def _graph_ms(fn, iters: int) -> float:
     few microseconds."""
     import torch
 
-    stream = torch.cuda.Stream()
+    global _TIMING_STREAM
+    if _TIMING_STREAM is None:
+        _TIMING_STREAM = torch.cuda.Stream()
+    stream = _TIMING_STREAM
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         fn()                                   # warm up outside the capture
     torch.cuda.current_stream().wait_stream(stream)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -1637,22 +1748,34 @@ def main() -> int:
             "fp32_inputs": {k: ssd_records["jamba_prefill_fp32"][k]
                             for k in keys + ("bound_fp32_ms", "scan_ms")},
             "checks": sorted(ssd_records)}))
+    # Row 5's ms is its device time from graph replays, logits warm in L2
+    # as the router matmul leaves them; ms_eager includes the host work.
+    gating_keys = keys + ("ms_eager", "graph_cold_ms", "bound_share_cold",
+                          "torch_ops_ms", "torch_ops_graph_ms")
+    gating_rows = {tag: {**r, "ms": r.get("graph_ms"), "ms_eager": r.get("ms")}
+                   for tag, r in gating_records.items()}
+    gating = gating_rows["prefill"]
     kernels.append(_kernel_row(
         "gating_topk", "src/repro_torch/kernels/gating_topk/csrc/gating_topk.cu",
-        "src/repro/kernels/gating_topk/kernel.py:59",
-        gating_records["prefill"], glm_launches["gating_topk"], {
+        "src/repro/kernels/gating_topk/kernel.py:59", gating,
+        glm_launches["gating_topk"], {
             "launches_by_path": {p: c["gating_topk"] for p, c in paths.items()},
-            "torch_ops_ms": gating_records["prefill"]["torch_ops_ms"],
+            "ms_eager": gating["ms_eager"],
+            "graph_cold_ms": gating["graph_cold_ms"], "cold": gating["cold"],
+            "bound_share_warm": gating["bound_share_warm"],
+            "bound_share_cold": gating["bound_share_cold"],
+            "launch_floor_ms": gating["launch_floor_ms"],
+            "graph_ms_by_rows": gating["graph_ms_by_rows"],
+            "subwarp_geometry": gating.get("subwarp_geometry"),
+            "subwarp_graph_ms": gating.get("subwarp_graph_ms"),
+            "torch_ops_ms": gating["torch_ops_ms"],
+            "torch_ops_graph_ms": gating["torch_ops_graph_ms"],
             "library_note": "none: no one PyTorch call computes the fused "
                             "function; torch_ops_ms is softmax + topk + "
-                            "bincount",
-            "decode": {k: gating_records["decode"][k]
-                       for k in keys + ("torch_ops_ms",)},
-            "jamba_prefill": {k: gating_records["jamba_prefill"][k]
-                              for k in ("shape",) + keys + ("torch_ops_ms",)},
-            "sigmoid_e256_bias": {
-                k: gating_records["sigmoid_e256_bias"][k]
-                for k in ("shape",) + keys + ("torch_ops_ms",)},
+                            "gather + bincount (graph: scatter_add_)",
+            **{tag: {k: gating_rows[tag][k] for k in ("shape",) + gating_keys}
+               for tag in ("decode", "jamba_prefill", "sigmoid_e256",
+                           "sigmoid_e256_bias")},
             "rows_excluded_near_tie": {
                 t: r["rows_excluded_near_tie"]
                 for t, r in gating_records.items()},

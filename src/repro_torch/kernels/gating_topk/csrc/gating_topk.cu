@@ -6,33 +6,73 @@
 //       k rounds of: a = argmax(s) (the lowest index among equal
 //       maxima, as lax.top_k and argmax), ids[t, i] = a,
 //       weights[t, i] = s[a], s[a] = -inf
-//       counts[e] += number of rows that selected e
+//       counts[e] = number of rows that selected e
 // with ids int64 (the port's id dtype), weights fp32, counts int64 and,
 // when the caller passes a buffer, the scores (T, E) fp32.  With an
 // aux-free selection bias (E,) (DeepSeek), the rounds select on
 // scores + bias while the weights stay the unbiased scores, as
 // repro/moe/gating.py:gate does.
 //
-// What bounds it on an H100 SXM (3.35 TB/s): it is a row reduction with a
-// few operations per byte, so bytes bound it.  At the GLM-4.5-Air and
-// Qwen3-235B-A22B prefill shape (T 4096, E 128, k 8) it reads 2.1 MB of
-// logits and writes 0.5 MB of ids and weights (and 2.1 MB of scores when
-// asked): 0.8 us without the scores, 1.4 us with them.  What the design
-// does about it: the logits are read once, into registers; the scores, the
-// k selection rounds and the histogram never leave the chip, and the
-// outputs are written once.
+// What bounds it on an H100 SXM (3.35 TB/s): by the data sheet, bytes: at
+// the GLM-4.5-Air and Qwen3-235B-A22B prefill shape (T 4096, E 128, k 8)
+// it reads 2.1 MB of logits and writes 0.4 MB of ids and weights and 2.1
+// MB of scores, 1.37 us.  On the card the work is too small for that
+// bound to be reached: a graph node costs ~1.3 us before any work, and
+// each row is a chain of dependent steps (max, exp, sum, sort, k rounds),
+// so the time is the chain of one pass, the instructions of 32 rows on an
+// SM, and the cross-block histogram after the last row.  The design keeps
+// the logits read once, into registers, the scores, the selection and the
+// histogram on the chip, each output written once, and shortens the chain.
 //
-// Design: one warp per token row, E up to 256.  Lane l holds experts l,
-// l + 32, l + 64, ... (so a warp's loads are coalesced), does the softmax's
-// max and sum with warp shuffles, and each of the k <= 8 rounds is a warp
-// argmax over (score, index) pairs that prefers the lower index on equal
-// scores (the biased score when a bias is given; the pair carries the
-// unbiased score along for the weight).  The owner lane of the winner
-// masks it.  Counts go to a block-shared histogram with shared atomics,
-// then to global memory with one integer atomicAdd per expert and block:
-// integer sums are the same in any order, so the counts are
-// deterministic.  CUDA C++ rather than
-// Triton: the port's kernels are CUDA C++ for sm_90a, bound with ctypes.
+// Design.  What held the first kernel of this port back: k rounds of a
+// 5-level warp butterfly moving three values (15 dependent shuffles a
+// round), lane 0 writing every id and weight, a global atomic per expert
+// and block into counts that the wrapper zeroed first, and a whole warp
+// even for 16 experts.  This one:
+// 1. A row belongs to a group of G lanes (G a power of two with a lane for
+//    each 16-byte chunk of the row, two chunks past E 128, and for each of
+//    the k selections: 32 at E 128 and 256, 4 at Jamba's E 16, so a warp
+//    serves 32 / G rows).  Lane r holds the chunks r, r + G of the row
+//    (experts 4c .. 4c + 3 of chunk c), read with one 16-byte load each,
+//    so a warp's load reads whole 128-byte lines; experts past E are
+//    masked.  The softmax's max and sum reduce over the group: for a whole
+//    warp the max is one redux.sync over the fp32 values' order-preserving
+//    bits; the sum, and a sub-warp group's max, take log2 G xor shuffles.
+//    Each expert's selection word is 64 bits: the order-preserving bits of
+//    the fp32 key (-0.0 made +0.0 first, as the plain version's stable
+//    sort treats them as equal) above the complement of the expert index,
+//    so the larger word is the larger key or, among equal keys, the lower
+//    index.  Each lane sorts its 4 (or 8) words once, in registers (a
+//    bitonic network).  A round is one group max of the lanes' heads, and
+//    the lane that held the winner drops its head: no rescan of a lane's
+//    experts.  For a whole warp the max is two redux.sync (the largest key,
+//    then the lowest index among the heads that hold it); for a sub-warp
+//    group, log2 G 64-bit xor shuffles (redux.sync under a mask of part of
+//    a warp measured slower).  Sub-warp groups of 8 lanes holding 16
+//    experts each at E 128 (16 lanes at E 256) run the same code, and
+//    chip_smoke.py checks and times them beside the chosen geometry: their
+//    sort of 16 words and shuffle rounds make a longer chain (PERF.md).
+// 2. Lane r < k of the group keeps round r's id; its weight (the unbiased
+//    score) is read after the rounds from the row's scores, which the group
+//    put in shared memory.  The group writes the row's k ids and k weights
+//    with one store instruction each, after the rounds.
+// 3. The histogram: the group's lanes add their selections into a
+//    block-shared histogram; each block writes its partial (int32, E
+//    words) to a scratch buffer, with no atomics on global memory, then
+//    takes a ticket with one atomic add (release: the block's partial is
+//    visible before its ticket; acquire: the last block then reads every
+//    partial).  The block that draws the last ticket sums the partials
+//    (int4 columns spread over its threads, eight loads in flight each,
+//    then a fixed order through shared memory) into `counts` and resets
+//    the ticket.  Integer sums: the counts are the same on every run.
+//    `counts` is written, not accumulated, so the caller need not zero it.
+//    The grid is capped at MAX_BLOCKS (rows past MAX_BLOCKS * 32 are walked
+//    by the same blocks), which fixes the scratch's size; a one-block grid
+//    (decode) writes `counts` from shared memory directly.  A block takes
+//    its ticket before it stores its last rows, so the release does not
+//    wait on those stores.
+// CUDA C++ rather than Triton: the port's kernels are CUDA C++ for sm_90a,
+// bound with ctypes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,138 +81,341 @@
 namespace {
 
 constexpr int MAX_E = 256;
-constexpr int PER_LANE = MAX_E / 32;
 constexpr int MAX_K = 8;
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
+constexpr int MAX_ROWS = 32;        // token rows per block and pass
+constexpr int MAX_BLOCKS = 256;     // grid cap; the scratch holds this many partials
+constexpr int SCRATCH_HEAD = 4;     // int32 words before the partials: [0] the ticket
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float v) {
+// fp32 bits whose unsigned order is the float order, -0.0 equal to +0.0.
+__device__ __forceinline__ unsigned order_bits(float f) {
+  const unsigned u = __float_as_uint(f == 0.f ? 0.f : f);
+  return u ^ (static_cast<unsigned>(static_cast<int>(u) >> 31) | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_order_bits(unsigned b) {
+  return __uint_as_float(b & 0x80000000u ? b ^ 0x80000000u : ~b);
+}
+
+__device__ __forceinline__ unsigned long long pack(float key, int e) {
+  return (static_cast<unsigned long long>(order_bits(key)) << 32) |
+         static_cast<unsigned>(~e);
+}
+
+// The ticket: an atomic add with release semantics for the partials the
+// block wrote before its barrier, and acquire semantics for the partials
+// the last block then reads (after its barrier), at device scope.
+__device__ __forceinline__ unsigned take_ticket(unsigned* ticket) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
+               : "=r"(old) : "l"(ticket) : "memory");
+  return old;
+}
+
+// The max over a group of G lanes (mask `gmask`).  A whole warp reduces
+// with redux.sync: a 64-bit word as the max of its high halves, then the
+// max low half among the lanes that hold it.  A sub-warp group uses xor
+// shuffles.
+template <int G>
+__device__ __forceinline__ float group_max(unsigned gmask, float v) {
+  if constexpr (G == 32) {
+    return from_order_bits(__reduce_max_sync(gmask, order_bits(v)));
+  } else {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    for (int o = G / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(gmask, v, o));
+    return v;
+  }
+}
+
+template <int G>
+__device__ __forceinline__ unsigned long long group_max(unsigned gmask,
+                                                        unsigned long long v) {
+  if constexpr (G == 32) {
+    const unsigned hi = static_cast<unsigned>(v >> 32);
+    const unsigned mh = __reduce_max_sync(gmask, hi);
+    const unsigned ml = __reduce_max_sync(gmask, hi == mh ? static_cast<unsigned>(v) : 0u);
+    return (static_cast<unsigned long long>(mh) << 32) | ml;
+  } else {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      const unsigned long long w = __shfl_xor_sync(gmask, v, o);
+      v = w > v ? w : v;
+    }
+    return v;
+  }
+}
+
+// Compare-exchange: after it, a >= b when `desc`, a <= b otherwise.
+__device__ __forceinline__ void cas(unsigned long long& a, unsigned long long& b,
+                                    bool desc) {
+  const bool swap = desc ? a < b : a > b;
+  const unsigned long long x = swap ? b : a, y = swap ? a : b;
+  a = x;
+  b = y;
+}
+
+// Bitonic sort of p[0 .. N) into descending order, N a power of two: the
+// stages K = 2, 4, .., N of steps J = K / 2, .., 1, unrolled by recursion so
+// every index is a constant and p stays in registers.
+template <int N, int K, int J>
+__device__ __forceinline__ void bitonic(unsigned long long (&p)[N]) {
+  if constexpr (K <= N) {
+    if constexpr (J > 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if ((i ^ J) > i) cas(p[i], p[i ^ J], (i & K) == 0);
+      bitonic<N, K, J / 2>(p);
+    } else {
+      bitonic<N, 2 * K, K>(p);
+    }
+  }
+}
+
+// Experts e0 .. e0 + 3 of a row: one 16-byte load where the chunk lies
+// inside E and the row is aligned, else element loads; `pad` past E.
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int e0, int E,
+                                        bool vec, float pad) {
+  if (vec && e0 + 3 < E) return __ldg(reinterpret_cast<const float4*>(row + e0));
+  float4 v;
+  v.x = e0 < E ? __ldg(row + e0) : pad;
+  v.y = e0 + 1 < E ? __ldg(row + e0 + 1) : pad;
+  v.z = e0 + 2 < E ? __ldg(row + e0 + 2) : pad;
+  v.w = e0 + 3 < E ? __ldg(row + e0 + 3) : pad;
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void store4(float* __restrict__ row, int e0, int E, bool vec,
+                                       float a, float b, float c, float d) {
+  if (vec && e0 + 3 < E) {
+    *reinterpret_cast<float4*>(row + e0) = make_float4(a, b, c, d);
+    return;
+  }
+  if (e0 < E) row[e0] = a;
+  if (e0 + 1 < E) row[e0 + 1] = b;
+  if (e0 + 2 < E) row[e0 + 2] = c;
+  if (e0 + 3 < E) row[e0 + 3] = d;
 }
 
-// (v, i) beats (w, j) when v > w, or v == w and i < j.
-__device__ __forceinline__ bool beats(float v, int i, float w, int j) {
-  return v > w || (v == w && i < j);
-}
-
-template <int SCORE_FN>   // 0 softmax, 1 sigmoid
-__global__ void __launch_bounds__(THREADS)
+template <int G, int PER, int SCORE_FN>   // SCORE_FN 0 softmax, 1 sigmoid
+__global__ void __launch_bounds__(G * MAX_ROWS)
 gating_topk_kernel(const float* __restrict__ logits, long long srow,
-                   const float* __restrict__ bias, int64_t* __restrict__ ids, float* __restrict__ weights,
-                   unsigned long long* __restrict__ counts,
-                   float* __restrict__ scores, int T, int E, int k) {
+                   const float* __restrict__ bias, int64_t* __restrict__ ids,
+                   float* __restrict__ weights, long long* __restrict__ counts,
+                   float* __restrict__ scores, int* __restrict__ scratch, int T,
+                   int E, int k) {
+  constexpr int CH = PER / 4;                 // 16-byte chunks a lane holds
+  // The pass's scores (for the weights); the last block's sums after that.
+  __shared__ float4 rows[MAX_ROWS][G * CH];
   __shared__ int hist[MAX_E];
-  for (int e = threadIdx.x; e < E; e += THREADS) hist[e] = 0;
+  __shared__ int last;
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int r = tid % G;                      // lane within the row's group
+  const int grp = tid / G;                    // the group's row in the pass
+  const unsigned gmask = G == 32 ? FULL : ((1u << G) - 1) << ((tid % 32) & ~(G - 1));
+  for (int e = tid; e < E; e += nthreads) hist[e] = 0;
+
+  const bool vec_in = ((reinterpret_cast<uintptr_t>(logits) | (srow * 4)) & 15) == 0;
+  const bool vec_out = ((reinterpret_cast<uintptr_t>(scores) | (E * 4)) & 15) == 0;
+  float b[PER];                               // the bias of this lane's experts
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const float4 v = bias != nullptr
+        ? load4(bias, 4 * (r + G * j), E,
+                (reinterpret_cast<uintptr_t>(bias) & 15) == 0, 0.f)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    b[4 * j] = v.x; b[4 * j + 1] = v.y; b[4 * j + 2] = v.z; b[4 * j + 3] = v.w;
+  }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = blockIdx.x * WARPS + warp;   // this warp's token row
-  if (t < T) {
-    const float* x = logits + (long long)t * srow;
-    float s[PER_LANE];
+  float s[PER];                               // this lane's scores of the row
+  long long my_id = 0;                        // round r's selection (r < k)
+  float my_w = 0.f;
+  int t = 0;
+  bool pending = false;                       // a row whose outputs are unwritten
+  auto store_row = [&]() {
+    if (scores != nullptr) {
+      float* out = scores + static_cast<long long>(t) * E;
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int e = lane + 32 * i;
-      s[i] = e < E ? x[e] : -INFINITY;
+      for (int j = 0; j < CH; ++j)
+        store4(out, 4 * (r + G * j), E, vec_out, s[4 * j], s[4 * j + 1],
+               s[4 * j + 2], s[4 * j + 3]);
+    }
+    if (r < k) {                              // one store instruction each
+      ids[static_cast<long long>(t) * k + r] = my_id;
+      weights[static_cast<long long>(t) * k + r] = my_w;
+    }
+  };
+
+  const int R = nthreads / G;                 // rows a pass
+  for (int row0 = blockIdx.x * R; row0 < T; row0 += gridDim.x * R) {
+    if (pending) store_row();                 // an earlier pass's row
+    pending = false;
+    t = row0 + grp;
+    if (t >= T) continue;                     // the whole group, so no waits
+    const float* x = logits + static_cast<long long>(t) * srow;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const float4 v = load4(x, 4 * (r + G * j), E, vec_in, -INFINITY);
+      s[4 * j] = v.x; s[4 * j + 1] = v.y; s[4 * j + 2] = v.z; s[4 * j + 3] = v.w;
     }
     if (SCORE_FN == 0) {
-      float m = -INFINITY;
+      float m = s[0];
 #pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) m = fmaxf(m, s[i]);
-      m = warp_max(m);
+      for (int i = 1; i < PER; ++i) m = fmaxf(m, s[i]);
+      m = group_max<G>(gmask, m);
       float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) {
-        s[i] = lane + 32 * i < E ? expf(s[i] - m) : 0.f;
+      for (int i = 0; i < PER; ++i) {
+        s[i] = expf(s[i] - m);                // 0 past E (-inf)
         sum += s[i];
       }
-      sum = warp_sum(sum);
 #pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) s[i] = s[i] / sum;
+      for (int o = G / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(gmask, sum, o);
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) s[i] *= inv;
     } else {
 #pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) s[i] = 1.f / (1.f + expf(-s[i]));
+      for (int i = 0; i < PER; ++i) s[i] = 1.f / (1.f + expf(-s[i]));   // 0 past E
     }
-    if (scores != nullptr) {
-      float* out = scores + (long long)t * E;
+    __syncwarp(gmask);                        // the last pass's reads are done
 #pragma unroll
-      for (int i = 0; i < PER_LANE; ++i)
-        if (lane + 32 * i < E) out[lane + 32 * i] = s[i];
-    }
-    // Selection keys: the scores, plus the bias when given.  Experts past
-    // E take part as -inf: never selected, since k <= E and every real key
-    // is finite.
-    float key[PER_LANE];
+    for (int j = 0; j < CH; ++j)
+      rows[grp][r + G * j] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
+                                         s[4 * j + 3]);
+    // Packed selection words, sorted.  Experts past E take part as -inf:
+    // never selected, since k <= E and every real key is finite.
+    unsigned long long p[PER];
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int e = lane + 32 * i;
-      key[i] = e >= E ? -INFINITY : (bias != nullptr ? s[i] + bias[e] : s[i]);
-    }
+    for (int j = 0; j < CH; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = 4 * (r + G * j) + q;
+        p[4 * j + q] = pack(e < E ? s[4 * j + q] + b[4 * j + q] : -INFINITY, e);
+      }
+    bitonic<PER, 2, 1>(p);
+    // k rounds: the group's largest word among its lanes' heads; the lane
+    // that held it drops its head.
     for (int round = 0; round < k; ++round) {
-      float bv = key[0], bw = s[0];
-      int bi = lane;
+      const unsigned long long g = group_max<G>(gmask, p[0]);
+      if (r == round) my_id = static_cast<int>(~static_cast<unsigned>(g));
+      if (p[0] == g) {
 #pragma unroll
-      for (int i = 1; i < PER_LANE; ++i)   // the first maximum wins
-        if (key[i] > bv) { bv = key[i]; bw = s[i]; bi = lane + 32 * i; }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const float ow = __shfl_xor_sync(0xffffffffu, bw, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (beats(ov, oi, bv, bi)) { bv = ov; bw = ow; bi = oi; }
+        for (int i = 0; i + 1 < PER; ++i) p[i] = p[i + 1];
+        p[PER - 1] = 0ull;
       }
-      if (lane == bi % 32) {
+    }
+    __syncwarp(gmask);
+    if (r < k) {
+      my_w = reinterpret_cast<const float*>(rows[grp])[my_id];
+      atomicAdd(&hist[my_id], 1);
+    }
+    pending = true;
+  }
+  __syncthreads();
+
+  if (gridDim.x == 1) {                       // the block saw every row
+    for (int e = tid; e < E; e += nthreads) counts[e] = hist[e];
+    if (pending) store_row();
+    return;
+  }
+  const int Ep = (E + 3) & ~3;                // partial pitch: whole int4s
+  int4* parts = reinterpret_cast<int4*>(scratch + SCRATCH_HEAD);
+  int* mine = scratch + SCRATCH_HEAD + blockIdx.x * Ep;
+  for (int e = tid; e < Ep; e += nthreads) mine[e] = e < E ? hist[e] : 0;
+  __syncthreads();
+  if (tid == 0) last = take_ticket(reinterpret_cast<unsigned*>(scratch)) == gridDim.x - 1;
+  __syncthreads();
+  if (pending) store_row();
+  if (!last) return;
+
+  // The last block: sum the partials.  Thread i reads int4 column i % ncol
+  // of blocks i / ncol, i / ncol + slices, ...; then slice sums in order.
+  // A multi-block grid has 32 rows a block, so ncol <= 2 G <= nthreads.
+  const int nb = gridDim.x;
+  const int ncol = Ep / 4;
+  const int slices = nthreads / ncol;
+  const int col = tid % ncol, sl = tid / ncol;
+  int4 acc = make_int4(0, 0, 0, 0);
+  if (sl < slices) {
+    for (int blk0 = sl; blk0 < nb; blk0 += 8 * slices) {
+      int4 v[8];                              // eight loads in flight at once
 #pragma unroll
-        for (int i = 0; i < PER_LANE; ++i)
-          if (lane + 32 * i == bi) key[i] = -INFINITY;
+      for (int u = 0; u < 8; ++u) {
+        const int blk = blk0 + u * slices;
+        v[u] = blk < nb ? __ldcg(parts + blk * ncol + col) : make_int4(0, 0, 0, 0);
       }
-      if (lane == 0) {
-        ids[(long long)t * k + round] = bi;
-        weights[(long long)t * k + round] = bw;
-        atomicAdd(&hist[bi], 1);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        acc.x += v[u].x; acc.y += v[u].y; acc.z += v[u].z; acc.w += v[u].w;
       }
     }
   }
+  int4* red = reinterpret_cast<int4*>(&rows[0][0]);   // >= nthreads int4s
+  red[tid] = acc;                             // the rows were read before the barrier
   __syncthreads();
-  for (int e = threadIdx.x; e < E; e += THREADS)
-    if (hist[e]) atomicAdd(&counts[e], (unsigned long long)hist[e]);
+  const int* sums = reinterpret_cast<const int*>(red);
+  for (int e = tid; e < E; e += nthreads) {
+    long long c = 0;
+    for (int i = 0; i < slices; ++i) c += sums[(i * ncol + e / 4) * 4 + e % 4];
+    counts[e] = c;
+  }
+  if (tid == 0) scratch[0] = 0;               // the next launch's ticket
+}
+
+template <int G, int PER>
+int launch_g(int score_fn, int rows, int blocks, cudaStream_t s, const float* x,
+             long long srow, const float* bs, int64_t* i64, float* w, long long* c,
+             float* sc, int* scratch, int T, int E, int k) {
+  if (score_fn == 0)
+    gating_topk_kernel<G, PER, 0><<<blocks, G * rows, 0, s>>>(x, srow, bs, i64, w, c, sc,
+                                                              scratch, T, E, k);
+  else
+    gating_topk_kernel<G, PER, 1><<<blocks, G * rows, 0, s>>>(x, srow, bs, i64, w, c, sc,
+                                                              scratch, T, E, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  score_fn: 0 softmax, 1 sigmoid.
-// logits: (T, E) fp32 with row stride `srow` (elements) and unit stride
-// along E; bias (E,) fp32 contiguous or null; ids (T, k) int64, weights (T, k) fp32 contiguous; counts (E,)
-// int64, zeroed by the caller; scores (T, E) fp32 contiguous or null.
-// Launches on `stream`, does not synchronise, and returns the launch's
-// CUDA error code (0 = launched; cudaErrorInvalidValue for E or k out of
-// range).
-extern "C" int gating_topk_launch(int score_fn, const void* logits,
-                                  const void* bias, void* ids, void* weights, void* counts,
-                                  void* scores, int T, int E, int k,
-                                  long long srow, void* stream) {
-  if (E < 1 || E > MAX_E || k < 1 || k > MAX_K || k > E || T < 1 ||
-      (score_fn != 0 && score_fn != 1))
+extern "C" int gating_topk_launch(int score_fn, int group, int per, int rows, int blocks,
+                                  const void* logits, const void* bias, void* ids,
+                                  void* weights, void* counts, void* scores,
+                                  void* scratch, int T, int E, int k, long long srow,
+                                  void* stream) {
+  if (E < 1 || E > MAX_E || k < 1 || k > MAX_K || k > E || T < 0 ||
+      (score_fn != 0 && score_fn != 1) || group < k || group * per < E ||
+      rows < 1 || rows > MAX_ROWS || (group * rows) % 32 != 0 || blocks < 1 ||
+      blocks > MAX_BLOCKS || (blocks > 1 && rows != MAX_ROWS) ||
+      (blocks - 1) * rows >= (T > 0 ? T : 1) ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((T + WARPS - 1) / WARPS);
   const auto* x = static_cast<const float*>(logits);
   const auto* bs = static_cast<const float*>(bias);
   auto* i64 = static_cast<int64_t*>(ids);
   auto* w = static_cast<float*>(weights);
-  auto* c = static_cast<unsigned long long*>(counts);
+  auto* c = static_cast<long long*>(counts);
   auto* sc = static_cast<float*>(scores);
-  if (score_fn == 0)
-    gating_topk_kernel<0><<<grid, THREADS, 0, s>>>(x, srow, bs, i64, w, c, sc, T, E, k);
-  else
-    gating_topk_kernel<1><<<grid, THREADS, 0, s>>>(x, srow, bs, i64, w, c, sc, T, E, k);
-  return static_cast<int>(cudaGetLastError());
+  auto* scr = static_cast<int*>(scratch);
+  // The (G, per) pairs launch_geometry chooses (per 4 up to E 128, else 8
+  // at G 32), and the sub-warp groups with 16 experts a lane (G 8 at E 128,
+  // 16 at E 256) that chip_smoke.py times beside them.
+  switch (group * 100 + per) {
+#define GATING_CASE(G, PER) \
+    case G * 100 + PER:     \
+      return launch_g<G, PER>(score_fn, rows, blocks, s, x, srow, bs, i64, w, c, sc, scr, T, E, k);
+    GATING_CASE(1, 4)
+    GATING_CASE(2, 4)
+    GATING_CASE(4, 4)
+    GATING_CASE(8, 4)
+    GATING_CASE(16, 4)
+    GATING_CASE(32, 4)
+    GATING_CASE(32, 8)
+    GATING_CASE(8, 16)
+    GATING_CASE(16, 16)
+#undef GATING_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

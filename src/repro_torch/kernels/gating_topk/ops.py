@@ -12,7 +12,12 @@ kernel on an H100 and what the design does about it.
 
 Dispatch is by the tensor's device only: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises.  The wrapper counts
-its launches in ``gating_topk.launches``.
+its launches in ``gating_topk.launches``.  On the card one launch does
+everything, the counts included (written, not accumulated: no zeroing),
+and nothing is read back to the host, so a CUDA graph can capture the
+call; the kernel's cross-block scratch is the wrapper's, one per (device,
+stream) (see ``_scratch``).  ``packed_topk`` mirrors the kernel's
+selection on the CPU for the tests.
 
 Shapes: logits (T, E) fp32 -> ids (T, k) int64 (the port's id dtype),
 weights (T, k) fp32 (the raw selected scores: the caller renormalises),
@@ -22,13 +27,15 @@ counts (E,) int64 and, when asked, scores (T, E) fp32.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels.build import KernelLibrary
 
-__all__ = ["gating_topk", "gating_topk_ref", "scores_of", "LIBRARY"]
+__all__ = ["gating_topk", "gating_topk_ref", "scores_of", "launch_geometry",
+           "packed_keys", "packed_topk", "LIBRARY"]
 
 LIBRARY = KernelLibrary("gating_topk",
                         Path(__file__).parent / "csrc" / "gating_topk.cu")
@@ -61,6 +68,85 @@ def gating_topk_ref(logits: torch.Tensor, k: int, *, score_fn: str,
     return (ids, weights, counts) + ((scores,) if want_scores else ())
 
 
+# Launch geometry (checked again by the kernel's entry point): a row per
+# group of G lanes, at most 32 rows a block and pass (32 whenever the grid
+# has more than one block), the grid capped at MAX_BLOCKS.
+MAX_ROWS = 32
+MAX_BLOCKS = 256
+# The scratch: a 16-byte head (word 0: the ticket), then one partial
+# histogram (E int32 words, padded to whole int4s) per block.
+SCRATCH_HEAD = 4
+SCRATCH_INTS = SCRATCH_HEAD + MAX_BLOCKS * MAX_EXPERTS
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(T: int, E: int, k: int) -> tuple[int, int, int, int]:
+    """(G lanes a row, experts a lane, rows a block, blocks) for logits
+    (T, E), top-k.
+
+    A lane holds one 16-byte chunk of the row (two past E 128), and G is
+    the smallest power of two with a lane for each chunk and for each of
+    the k selections: 32 at E 128 and 256, 4 at E 16.  A block takes 32
+    rows, or all T rows (in whole warps) when T is smaller."""
+    per = 4 if E <= 128 else 8
+    group = 1 << (max(k, -(-E // per)) - 1).bit_length()
+    per_warp = 32 // group
+    rows = min(MAX_ROWS, max(per_warp, -(-T // per_warp) * per_warp))
+    blocks = max(1, min(-(-T // rows), MAX_BLOCKS))
+    return group, per, rows, blocks
+
+
+def _order_bits(keys: torch.Tensor) -> torch.Tensor:
+    """fp32 keys as int64 in [0, 2**32) whose order is the float order,
+    -0.0 equal to +0.0 (the kernel's ``order_bits``)."""
+    keys = torch.where(keys == 0, torch.zeros_like(keys), keys)
+    u = keys.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 2 ** 31, 0xFFFFFFFF - u, u + 2 ** 31)
+
+
+def packed_keys(keys: torch.Tensor) -> torch.Tensor:
+    """The kernel's 64-bit selection words for keys (T, E) fp32, as int64
+    with the same order: the key's order bits in the high half, the
+    complement of the expert index in the low half, so one max picks the
+    larger key and, among equal keys, the lower index."""
+    e = torch.arange(keys.shape[-1], dtype=torch.int64, device=keys.device)
+    return (_order_bits(keys) - 2 ** 31) * 2 ** 32 + (0xFFFFFFFF - e)
+
+
+def packed_topk(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """A CPU mirror of the kernel's selection, used by the tests only: the
+    row's experts laid out over its G lanes as the kernel holds them
+    (16-byte chunks r, r + G, ...; -inf past E), each lane's packed words
+    sorted, then k rounds of: the largest key among the lanes' heads, the
+    lowest index among the heads that hold it (the two halves of the
+    kernel's group max), and that lane's head dropped.  Returns the ids
+    (T, k) int64."""
+    T, E = keys.shape
+    group, per, _, _ = launch_geometry(T, E, k)
+    width = group * per
+    padded = torch.full((T, width), float("-inf"), dtype=torch.float32)
+    padded[:, :E] = keys.to(torch.float32)
+    words = packed_keys(padded)                  # (T, width), index = expert
+    # lanes[t, r, 4 j + q] = words[t, 4 (r + G j) + q]
+    lanes = words.view(T, per // 4, group, 4).transpose(1, 2).reshape(
+        T, group, per).clone()
+    lanes = lanes.sort(dim=2, descending=True).values
+    cleared = torch.iinfo(torch.int64).min
+    ids = []
+    for _ in range(k):
+        heads = lanes[:, :, 0]                                # (T, G)
+        hi, lo = heads >> 32, heads & 0xFFFFFFFF
+        mh = hi.max(dim=1, keepdim=True).values
+        ml = torch.where(hi == mh, lo, torch.full_like(lo, -1)).max(
+            dim=1, keepdim=True).values
+        ids.append((0xFFFFFFFF - ml)[:, 0])
+        won = ((hi == mh) & (lo == ml))[:, :, None]
+        lanes = torch.where(won, torch.cat(
+            [lanes[:, :, 1:], torch.full_like(lanes[:, :, :1], cleared)],
+            dim=2), lanes)
+    return torch.stack(ids, dim=1)
+
+
 def _is_cuda(x: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch), False for CPU (plain version)."""
     if x.device.type == "cuda":
@@ -70,9 +156,54 @@ def _is_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no gating top-k for device {x.device}")
 
 
+_LAUNCH = None
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _launcher():
+    """The C entry point, its ctypes signature set once, at load."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = LIBRARY.load().gating_topk_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+                       + [ctypes.c_void_p])
+        _LAUNCH = fn
+    return _LAUNCH
+
+
+def _scratch(dev: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's scratch for launches on ``stream``: the ticket and the
+    blocks' partial histograms, SCRATCH_INTS int32 words.
+
+    Made once per (device, stream), with its ticket 0; every launch that
+    uses it leaves the ticket 0 again, so no call zeroes anything.  Two
+    launches on one stream share it safely because they run one after the
+    other; launches on two streams use two scratches.  A CUDA graph keeps
+    the scratch of the stream it was captured on, so replay it where no
+    other launch on that stream runs at the same time.  The scratch cannot
+    be made inside a capture (its zeroing would run only when the graph
+    replays): make one call on the capture stream first."""
+    key = (dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "gating_topk: the first call on a stream cannot be inside a "
+                "CUDA graph capture; call it once on the capture stream "
+                "before capturing (e.g. torch.cuda.graph(g, stream=s) after "
+                "a warm-up call on s)")
+        buf = torch.zeros(SCRATCH_INTS, dtype=torch.int32, device=dev)
+        _SCRATCH[key] = buf
+    return buf
+
+
 def _launch(logits: torch.Tensor, k: int, score_fn: str, bias,
             want_scores: bool):
-    """Validate, allocate the outputs and launch on the current stream."""
+    """Validate, allocate the outputs and launch on the current stream.
+    Nothing here reads the device back, so the call can be captured in a
+    CUDA graph."""
     if logits.dim() != 2 or logits.dtype != torch.float32:
         raise TypeError("gating_topk takes fp32 logits (T, E)")
     if score_fn not in _SCORE_FN:
@@ -89,28 +220,26 @@ def _launch(logits: torch.Tensor, k: int, score_fn: str, bias,
             raise ValueError(f"bias must be ({E},) on {dev}, not "
                              f"{tuple(bias.shape)} on {bias.device}")
         bias = bias.to(torch.float32).contiguous()
-    ids = torch.empty((T, k), dtype=torch.int64, device=dev)
-    weights = torch.empty((T, k), dtype=torch.float32, device=dev)
-    counts = torch.zeros((E,), dtype=torch.int64, device=dev)
-    scores = (torch.empty((T, E), dtype=torch.float32, device=dev)
-              if want_scores else None)
-    if T == 0:
-        return ids, weights, counts, scores, False
-    fn = LIBRARY.load().gating_topk_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_SCORE_FN[score_fn], logits.data_ptr(),
-             None if bias is None else bias.data_ptr(), ids.data_ptr(),
-             weights.data_ptr(), counts.data_ptr(),
-             0 if scores is None else scores.data_ptr(), T, E, k,
-             logits.stride(0), stream)
+    # new_empty: the cheapest allocation on the host (measured against
+    # torch.empty(device=...) and against views of two shared buffers).
+    ids = logits.new_empty((T, k), dtype=torch.int64)
+    weights = logits.new_empty((T, k))
+    counts = logits.new_empty((E,), dtype=torch.int64)
+    scores = logits.new_empty((T, E)) if want_scores else None
+    group, per, rows, blocks = launch_geometry(T, E, k)
+    # The raw handle of the current stream (torch.cuda.current_stream()
+    # builds a Stream object, several microseconds of host time a call).
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = _launcher()(
+        _SCORE_FN[score_fn], group, per, rows, blocks, logits.data_ptr(),
+        None if bias is None else bias.data_ptr(), ids.data_ptr(),
+        weights.data_ptr(), counts.data_ptr(),
+        None if scores is None else scores.data_ptr(),
+        _scratch(dev, stream).data_ptr(), T, E, k, logits.stride(0), stream)
     if err != 0:
         raise RuntimeError(f"gating_topk kernel launch failed: CUDA error "
                            f"{err}")
-    return ids, weights, counts, scores, True
+    return ids, weights, counts, scores
 
 
 def gating_topk(logits: torch.Tensor, k: int, *, score_fn: str = "softmax",
@@ -124,10 +253,9 @@ def gating_topk(logits: torch.Tensor, k: int, *, score_fn: str = "softmax",
     if not _is_cuda(logits):
         return gating_topk_ref(logits, k, score_fn=score_fn, bias=bias,
                                want_scores=want_scores)
-    ids, weights, counts, scores, launched = _launch(logits, k, score_fn,
-                                                     bias, want_scores)
-    if launched:
-        gating_topk.launches += 1
+    ids, weights, counts, scores = _launch(logits, k, score_fn, bias,
+                                           want_scores)
+    gating_topk.launches += 1
     return (ids, weights, counts) + ((scores,) if want_scores else ())
 
 

@@ -12,6 +12,14 @@ every row of the tie case; counts equal the histogram of the kernel's own
 ids; weights and scores within 1e-6 * max|ref|.  With a bias the gap is
 taken on the biased keys.
 
+The kernel's selection (a max over 64-bit words: the key's order bits
+above the complement of the expert index, over groups of G lanes)
+is mirrored on the CPU by ``ops.packed_topk``, whose ids must equal the
+plain stable sort's exactly, signed zeros and ragged E included.  On the
+card: counts stay right over back-to-back launches (the cross-block ticket
+resets), under CUDA-graph capture and replay, and are bitwise the same
+across runs.
+
 The JAX side is imported inside the tests that use it, so the card test
 also runs where JAX is not installed:
   PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
@@ -152,6 +160,97 @@ def test_gate_routes_free_routing_through_gating_topk(monkeypatch):
     assert len(calls) == 2 and torch.equal(calls[1]["bias"], bias)
 
 
+def _stable_topk(keys, k):
+    return torch.sort(keys, dim=-1, descending=True, stable=True).indices[:, :k]
+
+
+def _mirror_keys(case):
+    """Selection keys (T, E) and k for the mirror's cases."""
+    rng = np.random.default_rng(11)
+    if case.startswith("random_e"):
+        E = int(case[len("random_e"):])
+        k = 2 if E == 16 else 8
+        return ops.scores_of(torch.from_numpy(_logits(512, E, seed=E)),
+                             "softmax"), k
+    if case == "ties":                   # duplicated columns, all-zero rows
+        return ops.scores_of(torch.from_numpy(_tie_logits()), "softmax"), 4
+    if case == "ties_sigmoid":
+        return ops.scores_of(torch.from_numpy(_tie_logits()), "sigmoid"), 4
+    if case == "negative_by_bias":       # sigmoid + a bias below -1
+        s = ops.scores_of(torch.from_numpy(_logits(256, 32, seed=12)),
+                          "sigmoid")
+        bias = torch.from_numpy(rng.uniform(-2.0, -1.0, 32).astype(
+            np.float32))
+        keys = s + bias[None, :]
+        assert (keys < 0).all()
+        return keys, 6
+    if case == "mixed_sign_bias":
+        s = ops.scores_of(torch.from_numpy(_logits(256, 128, seed=13)),
+                          "sigmoid")
+        return s + torch.from_numpy(_bias(128, scale=0.5)), 8
+    if case == "signed_zero":            # -0.0 and +0.0 tie, lower index first
+        keys = torch.from_numpy(rng.choice(
+            np.array([-0.0, 0.0, -1.0, 1.0, -np.inf], np.float32),
+            size=(256, 24)))
+        assert (torch.signbit(keys) & (keys == 0)).any()
+        return keys, 8
+    if case in ("ragged_e60", "ragged_e37", "ragged_e100"):
+        E = int(case[len("ragged_e"):])
+        x = _logits(300, E, seed=E)
+        x[::3, E // 2:] = x[::3, :E - E // 2]      # cross-lane duplicates
+        return ops.scores_of(torch.from_numpy(x), "softmax"), min(8, E // 6)
+    raise ValueError(case)
+
+
+MIRROR_CASES = ["random_e16", "random_e60", "random_e128", "random_e256",
+                "ties", "ties_sigmoid", "negative_by_bias", "mixed_sign_bias",
+                "signed_zero", "ragged_e60", "ragged_e37", "ragged_e100"]
+
+
+@pytest.mark.parametrize("case", MIRROR_CASES)
+def test_packed_topk_mirror_equals_stable_sort(case):
+    """The kernel's packed-word argmax over its lane groups, k rounds,
+    picks what the plain version's stable sort picks."""
+    keys, k = _mirror_keys(case)
+    got = ops.packed_topk(keys, k)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, _stable_topk(keys, k))
+
+
+def test_packed_keys_follow_float_order_then_lower_index():
+    vals = np.array([-np.inf, -3.0e38, -1.0, -1e-45, -0.0, 0.0, 1e-45, 1.0,
+                     3.0e38, np.inf], np.float32)
+    words = ops.packed_keys(torch.from_numpy(vals)[None, :])[0]
+    # strictly increasing float order, except -0.0 / +0.0, which tie on the
+    # key and are ordered by the index's complement (lower index larger)
+    assert bool((words[1:] > words[:-1])[[0, 1, 2, 3, 5, 6, 7, 8]].all())
+    assert words[4] > words[5] and (words[4] >> 32) == (words[5] >> 32)
+
+
+@pytest.mark.parametrize("E,k,group,per", [(16, 2, 4, 4), (60, 6, 16, 4),
+                                           (128, 8, 32, 4), (256, 8, 32, 8),
+                                           (16, 8, 8, 4), (1, 1, 1, 4)])
+def test_launch_geometry_and_scratch_size(E, k, group, per):
+    assert ops.launch_geometry(4096, E, k) == (group, per, 32, 128)
+    assert group >= k and group * per >= E and per in (4, 8)
+    assert group * per < 2 * max(E, 4 * group)    # no lane wholly idle twice
+    for T, blocks in ((0, 1), (4, 1), (33, 2), (4096, 128), (8192, 256),
+                      (9000, 256)):
+        _, _, rows, got = ops.launch_geometry(T, E, k)
+        assert got == blocks
+        # whole warps; a grid of several blocks has 32 rows in each
+        assert (rows * group) % 32 == 0 and rows <= ops.MAX_ROWS
+        assert blocks == 1 or rows == ops.MAX_ROWS
+        assert (blocks - 1) * rows < max(T, 1) <= blocks * rows or T > (
+            ops.MAX_BLOCKS * rows)
+    # The scratch: a 16-byte head, then a partial of whole int4s per block.
+    pitch = -(-E // 4) * 4
+    assert ops.SCRATCH_HEAD * 4 == 16
+    assert ops.SCRATCH_INTS >= ops.SCRATCH_HEAD + ops.MAX_BLOCKS * pitch
+    # The last block's reduction spreads int4 columns over its 32 G threads.
+    assert pitch // 4 <= 32 * group
+
+
 def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         ops.gating_topk(torch.empty((4, 8), device="meta"), 2)
@@ -180,7 +279,8 @@ def _rows_with_a_gap(scores, k, rel=1e-6):
 @pytest.mark.cuda
 @pytest.mark.parametrize("score_fn", ["softmax", "sigmoid"])
 @pytest.mark.parametrize("T,E,k", SHAPES + [(4, 128, 8), (1000, 60, 6),
-                                            (300, 256, 8), (33, 1, 1)])
+                                            (300, 256, 8), (33, 1, 1),
+                                            (9000, 128, 8), (4096, 256, 8)])
 def test_kernel_matches_plain_on_card(cuda_device, score_fn, T, E, k):
     x = torch.from_numpy(_logits(T, E, seed=2)).to(cuda_device)
     before = ops.gating_topk.launches
@@ -224,3 +324,106 @@ def test_kernel_ties_on_card(cuda_device, score_fn):
     r_ids, _, r_cnt = ops.gating_topk_ref(x, 4, score_fn=score_fn)
     torch.cuda.synchronize()
     assert torch.equal(ids, r_ids) and torch.equal(cnt, r_cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k", [(4096, 128, 8), (9000, 256, 8),
+                                   (4096, 16, 2), (4, 128, 8)])
+def test_counts_over_back_to_back_launches_on_card(cuda_device, T, E, k):
+    """Five launches with nothing zeroed in between: each one's counts are
+    the histogram of its own ids, so the ticket went back to 0 each time."""
+    outs = []
+    for seed in range(5):
+        x = torch.from_numpy(_logits(T, E, seed=20 + seed)).to(cuda_device)
+        outs.append(ops.gating_topk(x, k))
+    torch.cuda.synchronize()
+    for ids, _, cnt in outs:
+        assert torch.equal(cnt, torch.bincount(ids.reshape(-1), minlength=E))
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert ops._SCRATCH[(cuda_device.index or 0, stream)][0].item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("score_fn", ["softmax", "sigmoid"])
+def test_cuda_graph_capture_and_replay_on_card(cuda_device, score_fn):
+    """The call is captured in a CUDA graph and replayed on two logits
+    copied into the static input: ids and counts are right after each."""
+    T, E, k = 4096, 128, 8
+    static = torch.from_numpy(_logits(T, E, seed=30)).to(cuda_device)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.gating_topk(static, k, score_fn=score_fn)     # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        ids, w, cnt, scores = ops.gating_topk(static, k, score_fn=score_fn,
+                                              want_scores=True)
+    for seed in (31, 32):
+        x = torch.from_numpy(_logits(T, E, seed=seed)).to(cuda_device)
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        r_ids, r_w, r_cnt, r_scores = ops.gating_topk_ref(
+            x, k, score_fn=score_fn, want_scores=True)
+        decided = _rows_with_a_gap(r_scores, k)
+        assert decided.float().mean().item() > 0.99
+        assert torch.equal(ids[decided], r_ids[decided])
+        assert torch.equal(cnt, torch.bincount(ids.reshape(-1), minlength=E))
+        assert (w - r_w).abs().max().item() <= 1e-6 * r_w.abs().max().item()
+        assert (scores - r_scores).abs().max().item() <= (
+            1e-6 * r_scores.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_first_call_inside_a_capture_raises_on_card(cuda_device):
+    """A stream's scratch is made (ticket zeroed) outside any capture."""
+    x = torch.from_numpy(_logits(64, 16, seed=33)).to(cuda_device)
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph, stream=stream):
+            ops.gating_topk(x, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k", [(4096, 128, 8), (9000, 256, 8)])
+def test_counts_bitwise_equal_across_runs_on_card(cuda_device, T, E, k):
+    x = torch.from_numpy(_logits(T, E, seed=34)).to(cuda_device)
+    a = ops.gating_topk(x, k)
+    b = ops.gating_topk(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(a[2], b[2]) and torch.equal(a[0], b[0])
+    assert torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_empty_input_writes_zero_counts_on_card(cuda_device):
+    x = torch.empty((0, 128), device=cuda_device)
+    ids, w, cnt = ops.gating_topk(x, 8)
+    torch.cuda.synchronize()
+    assert ids.shape == (0, 8) and w.shape == (0, 8)
+    assert torch.equal(cnt, torch.zeros(128, dtype=torch.int64,
+                                        device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,E,k", [(4096, 128, 8), (300, 256, 8), (4, 128, 8)])
+def test_kernel_with_sub_warp_groups_on_card(cuda_device, monkeypatch, T, E,
+                                             k):
+    """The sub-warp geometry chip_smoke.py times beside the wrapper's (G 8
+    or 16 lanes holding 16 experts each) computes the same function."""
+    orig = ops.launch_geometry
+    monkeypatch.setattr(ops, "launch_geometry",
+                        lambda T_, E_, k_: (E_ // 16, 16, *orig(T_, E_, k_)[2:]))
+    x = torch.from_numpy(_logits(T, E, seed=35)).to(cuda_device)
+    ids, w, cnt, scores = ops.gating_topk(x, k, want_scores=True)
+    torch.cuda.synchronize()
+    r_ids, r_w, _, r_scores = ops.gating_topk_ref(x, k, score_fn="softmax",
+                                                  want_scores=True)
+    decided = _rows_with_a_gap(r_scores, k)
+    assert torch.equal(ids[decided], r_ids[decided])
+    assert torch.equal(cnt, torch.bincount(ids.reshape(-1), minlength=E))
+    for out, ref in ((w, r_w), (scores, r_scores)):
+        assert (out - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
