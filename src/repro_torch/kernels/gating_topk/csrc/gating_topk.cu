@@ -49,9 +49,8 @@
 //    then the lowest index among the heads that hold it); for a sub-warp
 //    group, log2 G 64-bit xor shuffles (redux.sync under a mask of part of
 //    a warp measured slower).  Sub-warp groups of 8 lanes holding 16
-//    experts each at E 128 (16 lanes at E 256) run the same code, and
-//    chip_smoke.py checks and times them beside the chosen geometry: their
-//    sort of 16 words and shuffle rounds make a longer chain (PERF.md).
+//    experts each at E 128 (16 lanes at E 256) measured slower: their sort
+//    of 16 words and shuffle rounds make a longer chain (PERF.md).
 // 2. Lane r < k of the group keeps round r's id; its weight (the unbiased
 //    score) is read after the rounds from the row's scores, which the group
 //    put in shared memory.  The group writes the row's k ids and k weights
@@ -71,6 +70,9 @@
 //    (decode) writes `counts` from shared memory directly.  A block takes
 //    its ticket before it stores its last rows, so the release does not
 //    wait on those stores.
+// The entry point derives the launch geometry from (T, E, k) (`plan`) and
+// `gating_topk_plan` reports it and the scratch's size, so the wrapper
+// keeps no copy of these constants.
 // CUDA C++ rather than Triton: the port's kernels are CUDA C++ for sm_90a,
 // bound with ctypes.
 
@@ -377,20 +379,56 @@ int launch_g(int score_fn, int rows, int blocks, cudaStream_t s, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+struct Plan {
+  int group, per, rows, blocks;
+};
+
+// A lane holds one 16-byte chunk of the row (two past E 128), and G is the
+// smallest power of two with a lane for each chunk and for each of the k
+// selections: 32 at E 128 and 256, 4 at E 16.  A block takes 32 rows, or
+// all T rows (in whole warps) when T is smaller; the grid is capped at
+// MAX_BLOCKS.
+Plan plan(int T, int E, int k) {
+  Plan p;
+  p.per = E <= 128 ? 4 : 8;
+  const int need = k > (E + p.per - 1) / p.per ? k : (E + p.per - 1) / p.per;
+  p.group = 1;
+  while (p.group < need) p.group *= 2;
+  const int per_warp = 32 / p.group;
+  const int whole = (T + per_warp - 1) / per_warp * per_warp;
+  p.rows = whole < per_warp ? per_warp : (whole < MAX_ROWS ? whole : MAX_ROWS);
+  const int blocks = (T + p.rows - 1) / p.rows;
+  p.blocks = blocks < 1 ? 1 : (blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
+  return p;
+}
+
+// The scratch: a 16-byte head (word 0: the ticket), then one partial
+// histogram (E int32 words, padded to whole int4s) per block.
+constexpr int SCRATCH_INTS = SCRATCH_HEAD + MAX_BLOCKS * MAX_E;
+
 }  // namespace
 
-extern "C" int gating_topk_launch(int score_fn, int group, int per, int rows, int blocks,
-                                  const void* logits, const void* bias, void* ids,
-                                  void* weights, void* counts, void* scores,
+// out = {G lanes a row, experts a lane, rows a block, blocks, scratch int32s}.
+extern "C" void gating_topk_plan(int T, int E, int k, int* out) {
+  const Plan p = plan(T, E, k);
+  out[0] = p.group;
+  out[1] = p.per;
+  out[2] = p.rows;
+  out[3] = p.blocks;
+  out[4] = SCRATCH_INTS;
+}
+
+// `scratch`: SCRATCH_INTS int32 words, 16-byte aligned, its ticket 0 before
+// the first launch (every launch leaves it 0 again).
+extern "C" int gating_topk_launch(int score_fn, const void* logits, const void* bias,
+                                  void* ids, void* weights, void* counts, void* scores,
                                   void* scratch, int T, int E, int k, long long srow,
                                   void* stream) {
   if (E < 1 || E > MAX_E || k < 1 || k > MAX_K || k > E || T < 0 ||
-      (score_fn != 0 && score_fn != 1) || group < k || group * per < E ||
-      rows < 1 || rows > MAX_ROWS || (group * rows) % 32 != 0 || blocks < 1 ||
-      blocks > MAX_BLOCKS || (blocks > 1 && rows != MAX_ROWS) ||
-      (blocks - 1) * rows >= (T > 0 ? T : 1) ||
+      (score_fn != 0 && score_fn != 1) ||
       (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan(T, E, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const float*>(logits);
   const auto* bs = static_cast<const float*>(bias);
@@ -399,13 +437,11 @@ extern "C" int gating_topk_launch(int score_fn, int group, int per, int rows, in
   auto* c = static_cast<long long*>(counts);
   auto* sc = static_cast<float*>(scores);
   auto* scr = static_cast<int*>(scratch);
-  // The (G, per) pairs launch_geometry chooses (per 4 up to E 128, else 8
-  // at G 32), and the sub-warp groups with 16 experts a lane (G 8 at E 128,
-  // 16 at E 256) that chip_smoke.py times beside them.
-  switch (group * 100 + per) {
+  switch (p.group * 100 + p.per) {
 #define GATING_CASE(G, PER) \
     case G * 100 + PER:     \
-      return launch_g<G, PER>(score_fn, rows, blocks, s, x, srow, bs, i64, w, c, sc, scr, T, E, k);
+      return launch_g<G, PER>(score_fn, p.rows, p.blocks, s, x, srow, bs, i64, w, c, sc, \
+                              scr, T, E, k);
     GATING_CASE(1, 4)
     GATING_CASE(2, 4)
     GATING_CASE(4, 4)
@@ -413,8 +449,6 @@ extern "C" int gating_topk_launch(int score_fn, int group, int per, int rows, in
     GATING_CASE(16, 4)
     GATING_CASE(32, 4)
     GATING_CASE(32, 8)
-    GATING_CASE(8, 16)
-    GATING_CASE(16, 16)
 #undef GATING_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -16,8 +16,9 @@ its launches in ``gating_topk.launches``.  On the card one launch does
 everything, the counts included (written, not accumulated: no zeroing),
 and nothing is read back to the host, so a CUDA graph can capture the
 call; the kernel's cross-block scratch is the wrapper's, one per (device,
-stream) (see ``_scratch``).  ``packed_topk`` mirrors the kernel's
-selection on the CPU for the tests.
+stream) (see ``prepare_stream``).  The kernel's entry point decides its
+launch geometry; ``launch_geometry`` and ``packed_topk`` mirror that and
+the kernel's selection on the CPU for the tests.
 
 Shapes: logits (T, E) fp32 -> ids (T, k) int64 (the port's id dtype),
 weights (T, k) fp32 (the raw selected scores: the caller renormalises),
@@ -34,8 +35,9 @@ import torch
 
 from repro_torch.kernels.build import KernelLibrary
 
-__all__ = ["gating_topk", "gating_topk_ref", "scores_of", "launch_geometry",
-           "packed_keys", "packed_topk", "LIBRARY"]
+__all__ = ["gating_topk", "gating_topk_ref", "scores_of", "prepare_stream",
+           "release_scratch", "launch_geometry", "packed_keys", "packed_topk",
+           "LIBRARY"]
 
 LIBRARY = KernelLibrary("gating_topk",
                         Path(__file__).parent / "csrc" / "gating_topk.cu")
@@ -68,9 +70,11 @@ def gating_topk_ref(logits: torch.Tensor, k: int, *, score_fn: str,
     return (ids, weights, counts) + ((scores,) if want_scores else ())
 
 
-# Launch geometry (checked again by the kernel's entry point): a row per
-# group of G lanes, at most 32 rows a block and pass (32 whenever the grid
-# has more than one block), the grid capped at MAX_BLOCKS.
+# A mirror of the kernel's launch geometry, which its entry point decides
+# (``plan`` in the CUDA source; the card tests hold the two equal through
+# ``gating_topk_plan``): a row per group of G lanes, at most 32 rows a
+# block and pass (32 whenever the grid has more than one block), the grid
+# capped at MAX_BLOCKS.
 MAX_ROWS = 32
 MAX_BLOCKS = 256
 # The scratch: a 16-byte head (word 0: the ticket), then one partial
@@ -82,7 +86,8 @@ SCRATCH_INTS = SCRATCH_HEAD + MAX_BLOCKS * MAX_EXPERTS
 @functools.lru_cache(maxsize=256)
 def launch_geometry(T: int, E: int, k: int) -> tuple[int, int, int, int]:
     """(G lanes a row, experts a lane, rows a block, blocks) for logits
-    (T, E), top-k.
+    (T, E), top-k: the kernel's choice, mirrored for ``packed_topk`` and the
+    tests.
 
     A lane holds one 16-byte chunk of the row (two past E 128), and G is
     the smallest power of two with a lane for each chunk and for each of
@@ -156,45 +161,69 @@ def _is_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no gating top-k for device {x.device}")
 
 
-_LAUNCH = None
 _SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _launcher():
-    """The C entry point, its ctypes signature set once, at load."""
-    global _LAUNCH
-    if _LAUNCH is None:
-        fn = LIBRARY.load().gating_topk_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p])
-        _LAUNCH = fn
-    return _LAUNCH
+@functools.cache
+def _library():
+    """The C entry points, their ctypes signatures set once, at load."""
+    lib = LIBRARY.load()
+    lib.gating_topk_plan.restype = None
+    lib.gating_topk_plan.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.gating_topk_launch.restype = ctypes.c_int
+    lib.gating_topk_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] + [ctypes.c_void_p])
+    return lib
 
 
-def _scratch(dev: torch.device, stream: int) -> torch.Tensor:
-    """The kernel's scratch for launches on ``stream``: the ticket and the
-    blocks' partial histograms, SCRATCH_INTS int32 words.
+def kernel_plan(T: int, E: int, k: int) -> tuple[int, ...]:
+    """The kernel's own (G, experts a lane, rows a block, blocks, scratch
+    int32 words) for logits (T, E), top-k, from its entry point."""
+    out = (ctypes.c_int * 5)()
+    _library().gating_topk_plan(T, E, k, out)
+    return tuple(out)
+
+
+def prepare_stream(stream: torch.cuda.Stream | None = None) -> torch.Tensor:
+    """Make the kernel's scratch for launches on ``stream`` (the current
+    stream by default) and return it: the ticket and the blocks' partial
+    histograms.
 
     Made once per (device, stream), with its ticket 0; every launch that
     uses it leaves the ticket 0 again, so no call zeroes anything.  Two
     launches on one stream share it safely because they run one after the
-    other; launches on two streams use two scratches.  A CUDA graph keeps
-    the scratch of the stream it was captured on, so replay it where no
-    other launch on that stream runs at the same time.  The scratch cannot
-    be made inside a capture (its zeroing would run only when the graph
-    replays): make one call on the capture stream first."""
+    other; launches on two streams use two scratches.  The first call on a
+    stream makes it, but not inside a CUDA-graph capture (its zeroing would
+    run only when the graph replays): a graph path calls this for its
+    capture stream first and captures with ``torch.cuda.graph(g,
+    stream=s)``.  A graph keeps the scratch of the stream it was captured
+    on, so replay it where no other launch on that stream runs at the same
+    time.  A scratch is 256 KB, kept until ``release_scratch``."""
+    if stream is None:
+        stream = torch.cuda.current_stream()
+    return _scratch(stream.device, stream.cuda_stream)
+
+
+def release_scratch() -> None:
+    """Drop every stream's scratch.  Only when no captured graph that holds
+    one will replay again: the graph keeps the raw pointer."""
+    _SCRATCH.clear()
+
+
+def _scratch(dev: torch.device, stream: int) -> torch.Tensor:
     key = (dev.index, stream)
     buf = _SCRATCH.get(key)
     if buf is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 "gating_topk: the first call on a stream cannot be inside a "
-                "CUDA graph capture; call it once on the capture stream "
-                "before capturing (e.g. torch.cuda.graph(g, stream=s) after "
-                "a warm-up call on s)")
-        buf = torch.zeros(SCRATCH_INTS, dtype=torch.int32, device=dev)
+                "CUDA graph capture; call ops.prepare_stream(s) for the "
+                "capture stream s first and capture with "
+                "torch.cuda.graph(g, stream=s)")
+        buf = torch.zeros(kernel_plan(0, 1, 1)[4], dtype=torch.int32,
+                          device=dev)
         _SCRATCH[key] = buf
     return buf
 
@@ -226,16 +255,16 @@ def _launch(logits: torch.Tensor, k: int, score_fn: str, bias,
     weights = logits.new_empty((T, k))
     counts = logits.new_empty((E,), dtype=torch.int64)
     scores = logits.new_empty((T, E)) if want_scores else None
-    group, per, rows, blocks = launch_geometry(T, E, k)
     # The raw handle of the current stream (torch.cuda.current_stream()
     # builds a Stream object, several microseconds of host time a call).
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    err = _launcher()(
-        _SCORE_FN[score_fn], group, per, rows, blocks, logits.data_ptr(),
+    scratch = _scratch(dev, stream)
+    err = _library().gating_topk_launch(
+        _SCORE_FN[score_fn], logits.data_ptr(),
         None if bias is None else bias.data_ptr(), ids.data_ptr(),
         weights.data_ptr(), counts.data_ptr(),
         None if scores is None else scores.data_ptr(),
-        _scratch(dev, stream).data_ptr(), T, E, k, logits.stride(0), stream)
+        scratch.data_ptr(), T, E, k, logits.stride(0), stream)
     if err != 0:
         raise RuntimeError(f"gating_topk kernel launch failed: CUDA error "
                            f"{err}")

@@ -18,7 +18,7 @@ is mirrored on the CPU by ``ops.packed_topk``, whose ids must equal the
 plain stable sort's exactly, signed zeros and ragged E included.  On the
 card: counts stay right over back-to-back launches (the cross-block ticket
 resets), under CUDA-graph capture and replay, and are bitwise the same
-across runs.
+across runs; the CPU mirror of the launch geometry equals the kernel's.
 
 The JAX side is imported inside the tests that use it, so the card test
 also runs where JAX is not installed:
@@ -409,21 +409,37 @@ def test_empty_input_writes_zero_counts_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,E,k", [(4096, 128, 8), (300, 256, 8), (4, 128, 8)])
-def test_kernel_with_sub_warp_groups_on_card(cuda_device, monkeypatch, T, E,
-                                             k):
-    """The sub-warp geometry chip_smoke.py times beside the wrapper's (G 8
-    or 16 lanes holding 16 experts each) computes the same function."""
-    orig = ops.launch_geometry
-    monkeypatch.setattr(ops, "launch_geometry",
-                        lambda T_, E_, k_: (E_ // 16, 16, *orig(T_, E_, k_)[2:]))
-    x = torch.from_numpy(_logits(T, E, seed=35)).to(cuda_device)
-    ids, w, cnt, scores = ops.gating_topk(x, k, want_scores=True)
+def test_launch_geometry_mirrors_the_kernel_on_card(cuda_device):
+    """The kernel's entry point decides its geometry; the CPU mirror that
+    ``packed_topk`` and the tests use gives the same, scratch size too."""
+    for E in (1, 16, 37, 60, 100, 128, 129, 200, 256):
+        for k in sorted({1, 2, min(6, E), min(8, E)}):
+            for T in (0, 1, 4, 7, 31, 32, 33, 1000, 4096, 8192, 9000):
+                assert ops.kernel_plan(T, E, k) == (
+                    *ops.launch_geometry(T, E, k), ops.SCRATCH_INTS)
+
+
+@pytest.mark.cuda
+def test_prepare_stream_lets_the_first_call_be_captured_on_card(cuda_device):
+    """After ``prepare_stream(s)``, a stream's first call can be inside a
+    capture on s; ``release_scratch`` drops the scratches."""
+    T, E, k = 300, 256, 8
+    static = torch.from_numpy(_logits(T, E, seed=36)).to(cuda_device)
+    stream = torch.cuda.Stream()
+    scratch = ops.prepare_stream(stream)
+    assert scratch.dtype == torch.int32 and scratch.numel() == ops.SCRATCH_INTS
+    assert ops.prepare_stream(stream) is scratch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        ids, _, cnt = ops.gating_topk(static, k)
+    graph.replay()
     torch.cuda.synchronize()
-    r_ids, r_w, _, r_scores = ops.gating_topk_ref(x, k, score_fn="softmax",
-                                                  want_scores=True)
+    r_ids, _, _, r_scores = ops.gating_topk_ref(static, k, score_fn="softmax",
+                                                want_scores=True)
     decided = _rows_with_a_gap(r_scores, k)
     assert torch.equal(ids[decided], r_ids[decided])
     assert torch.equal(cnt, torch.bincount(ids.reshape(-1), minlength=E))
-    for out, ref in ((w, r_w), (scores, r_scores)):
-        assert (out - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+    assert scratch[0].item() == 0
+    del graph
+    ops.release_scratch()
+    assert not ops._SCRATCH
