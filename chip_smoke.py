@@ -52,7 +52,16 @@ Phases, one output line each:
      scores); timed back to back (``ms``, the wrapper's host work included)
      and as device time from CUDA-graph replays with the logits warm in L2
      (``graph_ms``) and out of it (``graph_cold_ms``), beside the PyTorch
-     composite (softmax + topk + gather + histogram) both ways; and
+     composite (softmax + topk + gather + histogram) both ways; then
+     ``plan_solve`` against its plain version (the whole ``Plan``
+     integer-equal, and the count of probes and oracle steps) at E 128, k 8
+     (GLM, Qwen3) at R 8, 16, 32, 64 and E 16, k 2 (Jamba) at R 2, 4, 8, 16,
+     ``n_slot`` 2, over load drawn from three expert popularity laws
+     (uniform, Zipf 1.0, four hot experts taking half), with no host sync
+     under ``set_sync_debug_mode("error")``: graph device time of the
+     kernel and of the whole solve, the plain loop's eager time on the
+     card, the bound (serial oracle steps x one redux.sync round, timed
+     here) and post_max / ceil(total / R); and
      ``flash_attention`` against its plain version at the
      GLM-4.5-Air serve cache (C 4096, Sk 10248: offsets 0 and 4096, a ragged
      last chunk), at Qwen3's 64 over 4 heads, at decode (B 4, per-row
@@ -75,7 +84,9 @@ Phases, one output line each:
      CUDA-core bound beside it);
   3. the balanced MoE layer at GLM-4.5-Air width (T 4096, ep_size 1) in the
      a2a and replicated modes against the dense oracle ``moe_ref`` in fp32
-     (bf16 layer: 2e-2 max|ref|, fp32 layer: 1e-4 max|ref|), zero drops;
+     (bf16 layer: 2e-2 max|ref|, fp32 layer: 1e-4 max|ref|), zero drops,
+     and the bf16 calls again under ``torch.cuda.set_sync_debug_mode
+     ("error")``: no host sync;
      then in bf16 with (wire_dtype, ffn_dtype) (int8, int8) and (int8,
      none): 3e-2 max|ref| (the JAX suite's bound for the int8 FFN), the
      bf16 layer's counts, zero drops;
@@ -99,6 +110,17 @@ Phases, one output line each:
      ``main``) on each of the three archs in fp32 (its default) and bf16 at
      chunk 64 (every flash call on the split-KV kernel), and on GLM-4.5-Air
      at chunk 4096 (prefill on the fp32 and the hd-16 mma.sync kernels);
+  9. the EP layer at R = 2 on the one card: two processes (spawn), one
+     gloo group that carries CUDA tensors (each collective's result
+     checked first), GLM-4.5-Air at full width, one MoE layer, 4096 bf16
+     tokens a rank (leaning toward rank 0's experts, so replicas stream to
+     rank 1), ``ultraep``, in modes ``a2a``, ``replicated`` and
+     ``a2a`` with the int8 wire: y against the R = 1 layer on the same 8192
+     tokens and weights (2e-2 max|ref|, int8 wire 3e-2), the plan tables
+     (solved on the card) equal to the plain solve's, zero drops, and each
+     layer call through one launch of the plan-solve, gate and two grouped
+     kernels (counts set to 0 before the call, read after); no time is
+     stated for it;
   8. the kernels with their launch counts on the serve paths: every count
      is set to 0 just before each serve run and read just after it; on
      every path (phase 7b's too) ``flash_attention`` runs once per
@@ -108,7 +130,9 @@ Phases, one output line each:
      calls through the split-KV kernel, never the hd-16 mma.sync kernel),
      and ``gating_topk`` and the path's two grouped
      GEMMs (bf16/fp32 or w8a8) once per MoE layer and engine call, and no
-     operand of any of them was copied for TMA (``padded_copies`` 0).
+     operand of any of them was copied for TMA (``padded_copies`` 0);
+     ``plan_solve`` never runs on a serve path (R = 1), and its row's
+     launches are phase 9's.
 
 TF32 is off for matmuls and cuDNN, so fp32 references are full fp32.  Any
 failed check raises and the script exits non-zero; the last line is the
@@ -147,6 +171,13 @@ FLASH_TOL = {"bf16": 1e-2, "fp32": 1e-4}
 SERVE = dict(requests=4, chunk=4096, max_new=8, reduce=False,
              balancer="ultraep", seed=0, prompt_len=(2048, 6144),
              decode_batch=4, cf=4.0)
+# The plan solve's cases: (R, E, top-k) of GLM-4.5-Air / Qwen3-235B-A22B and
+# Jamba-v0.1, 4096 tokens a rank, three expert popularity laws.
+PLAN_CASES = ([(R, 128, 8) for R in (8, 16, 32, 64)]
+              + [(R, 16, 2) for R in (2, 4, 8, 16)])
+PLAN_LAWS = ("uniform", "zipf", "hot4")
+PLAN_TOKENS = 4096
+EP_RANKS, EP_TOKENS = 2, 4096                # phase 9: ranks, tokens a rank
 
 
 def _line(tag: str, payload) -> None:
@@ -264,9 +295,10 @@ def _serve_dispatch(cfg, T: int, mode: str, seed: int, **runtime):
     router = torch.randn((D, cfg.moe.num_experts), generator=g,
                          device="cuda") * D ** -0.5
     x = torch.randn((T, D), generator=g, device="cuda").to(torch.bfloat16)
-    gs = stages.gate_stage(mcfg, x, router)
-    ps = stages.plan_stage(mcfg, gs)
-    ds = stages.dispatch_stage(mcfg, x, gs.gate_out.expert_ids, gs, ps)
+    ctx = stages.make_stage_ctx(mcfg, None)
+    gs = stages.gate_stage(ctx, x, router)
+    ps = stages.plan_stage(ctx, gs)
+    ds = stages.dispatch_stage(ctx, x, gs.gate_out.expert_ids, gs, ps)
     if not torch.equal(ds.rows, ds.valid.sum(dim=1)):
         raise AssertionError("bucket rows differ from its validity mask")
     return ds, mcfg.cap_slot
@@ -713,6 +745,10 @@ def phase_moe_layer(glm):
                            "cap_slot": cfg.cap_slot, "cap_pair": cfg.cap_pair}
             if x.dtype == torch.bfloat16:
                 counts16 = st.counts
+                # At R = 1 the plan is the home quota with no read: the
+                # whole layer call makes no host sync.
+                _sync_free(lambda: moe_layer_local(x, params, cfg))
+                result[key]["sync_free"] = True
         # The quantized layer: int8 wire and w8a8 FFN, and the int8 wire
         # alone, each in both dispatch modes.  The first q8 call also
         # quantizes the mains' weights once (wall_first_ms).
@@ -983,6 +1019,107 @@ def phase_gating() -> dict:
     # so the serve phases' peak memory counts the serve path alone.
     ops.release_scratch()
     _line("phase2_gating_topk", records)
+    return records
+
+
+def _plan_lam(R, E, k, law, seed):
+    """(R, E) int64 load: each rank's PLAN_TOKENS x k items drawn from one
+    expert popularity law (uniform; Zipf s = 1.0 over a shuffled order;
+    four hot experts taking half the load)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if law == "uniform":
+        p = np.ones(E)
+    elif law == "zipf":
+        p = 1.0 / np.arange(1, E + 1)
+        p = p[rng.permutation(E)]
+    else:
+        p = np.full(E, 0.5 / (E - 4))
+        p[rng.choice(E, 4, replace=False)] = 0.5 / 4
+    return np.stack([rng.multinomial(PLAN_TOKENS * k, p / p.sum())
+                     for _ in range(R)]).astype(np.int64)
+
+
+def _sync_free(fn) -> None:
+    """Run ``fn`` with every host sync an error."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def phase_plan_solve() -> dict:
+    """``plan_solve`` vs its plain version: the whole Plan integer-equal,
+    (probes, steps) equal, no host sync; graph device time (warm) of the
+    kernel and of the whole ``solve_plan``, the plain loop's eager time on
+    the card, and the bound: serial oracle steps x one redux.sync round
+    (measured here).  Returns the records by case."""
+    import torch
+
+    from repro_torch.core import planner
+    from repro_torch.kernels.plan_solve import ops
+
+    redux_ms = min(ops.redux_round_ms() for _ in range(3))
+    records = {}
+    for R, E, k in PLAN_CASES:
+        for li, law in enumerate(PLAN_LAWS):
+            name = f"e{E}_k{k}_r{R}_{law}"
+            lam = torch.from_numpy(_plan_lam(R, E, k, law, seed=R * 10 + li))
+            home = torch.arange(E) // (E // R)
+            bound = R * PLAN_TOKENS * k
+            plain = planner.solve_plan(lam, home, n_slot=2)
+            lam_d, home_d = lam.cuda(), home.cuda()
+            plan = planner.solve_plan(lam_d, home_d, n_slot=2,
+                                      load_bound=bound)
+            torch.cuda.synchronize()
+            for field in planner.Plan._fields:
+                if not torch.equal(getattr(plan, field).cpu(),
+                                   getattr(plain, field)):
+                    raise AssertionError(f"plan_solve {name}: {field} "
+                                         f"differs from the plain solve")
+            lam_e = lam.sum(dim=0)
+            ell = planner._rank_load(lam_e, home, R)
+            rexp = planner._expert_order(lam_e, home, R)
+            args = [t.cuda() for t in (lam_e, ell, home, rexp)]
+            kw = dict(n_slot=2, u_min=1, max_replicas_per_expert=R)
+            stats_ref = torch.zeros(2, dtype=torch.int32)
+            ops.plan_solve_ref(lam_e, ell, home, rexp, stats=stats_ref, **kw)
+            stats = torch.zeros(2, dtype=torch.int32, device="cuda")
+            ops.plan_solve(*args, load_bound=bound, stats=stats, **kw)
+            if not torch.equal(stats.cpu(), stats_ref):
+                raise AssertionError(f"plan_solve {name}: (probes, steps) "
+                                     f"{stats.tolist()} != "
+                                     f"{stats_ref.tolist()}")
+            _sync_free(lambda: planner.solve_plan(lam_d, home_d, n_slot=2,
+                                                  load_bound=bound))
+            ms = _graph_ms(lambda: ops.plan_solve(*args, load_bound=bound,
+                                                  **kw), 5)
+            plan_ms = _graph_ms(lambda: planner.solve_plan(
+                lam_d, home_d, n_slot=2, load_bound=bound), 3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.plan_solve_ref(*args, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            probes, steps = stats_ref.tolist()
+            total = int(lam.sum())
+            mean = -(-total // R)
+            records[name] = {
+                "shape": [R, E, k], "law": law, "probes": probes,
+                "steps": steps, "ms": ms, "plan_graph_ms": plan_ms,
+                "plain_ms": plain_ms, "bound_ms": steps * redux_ms,
+                "bound_by": "operations", "library_ms": None,
+                "max_abs_err": 0, "pre_over_mean": int(plain.pre_max) / mean,
+                "post_over_mean": int(plain.post_max) / mean,
+                "tau": int(plain.tau), "replicas": int((plain.x >= 0).sum()),
+                "sync_free": True}
+    _line("phase2_plan_solve", {"redux_round_ms": redux_ms, **records})
     return records
 
 
@@ -1271,6 +1408,7 @@ def _wrappers() -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.gating_topk import ops as gt
     from repro_torch.kernels.grouped_gemm import ops as gg
+    from repro_torch.kernels.plan_solve import ops as ps
     from repro_torch.kernels.ssd_scan import ops as ssd
 
     return {"grouped_swiglu": gg.grouped_swiglu,
@@ -1279,7 +1417,8 @@ def _wrappers() -> dict:
             "grouped_matmul_q8": gg.grouped_matmul_q8,
             "ssd_intra_chunk": ssd.ssd_intra_chunk,
             "gating_topk": gt.gating_topk,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "plan_solve": ps.plan_solve}
 
 
 def _reset_launches():
@@ -1454,6 +1593,171 @@ def phase_serve_cli() -> dict:
     return records
 
 
+def _ep_worker(rank, world, port, out_dir):
+    """One rank of phase 9 (a spawned process on the one card): the gloo
+    transport's checks, the plan tables against the plain solve, the EP
+    layer in each mode with the kernel counts set to 0 before and read
+    after, and, on rank 0, the R = 1 layer on all the ranks' tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import planner
+    from repro_torch.models.transformer import (
+        ParallelCtx,
+        RuntimeConfig,
+        moe_config,
+    )
+    from repro_torch.moe import stages
+    from repro_torch.moe.layer import init_moe_params, moe_layer_local
+    from repro_torch.parallel import collectives
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = collectives.init("gloo", world_size=world, rank=rank,
+                             init_method=f"tcp://localhost:{port}",
+                             timeout_s=600)
+    dev = torch.device("cuda")
+    # Every collective of the layer, on CUDA tensors through gloo.
+    ar = torch.arange(world, device=dev)
+    transport = {
+        "all_gather": torch.equal(collectives.all_gather(
+            group, torch.full((3,), rank, device=dev)).cpu(),
+            torch.arange(world)[:, None].expand(world, 3)),
+        "all_to_all": torch.equal(collectives.all_to_all(
+            group, (ar * 10 + rank)[:, None].to(torch.bfloat16)).cpu()[:, 0],
+            (rank * 10 + torch.arange(world)).to(torch.bfloat16)),
+        # Row q is nonzero on one rank only, as a replica slot's weights.
+        "reduce_scatter_int8": torch.equal(collectives.reduce_scatter(
+            group, torch.where((ar + 1) % world == rank, -100 - ar, 0)
+            .to(torch.int8)[:, None].expand(world, 4).contiguous()).cpu(),
+            torch.full((4,), -100 - rank, dtype=torch.int8)),
+        "all_reduce_bf16": torch.equal(collectives.all_reduce(
+            group, torch.ones(4, dtype=torch.bfloat16, device=dev)).cpu(),
+            torch.full((4,), world, dtype=torch.bfloat16))}
+    if not all(transport.values()):
+        raise AssertionError(f"gloo on CUDA tensors: {transport}")
+    glm = get_config("glm45-106b-a12b")
+    bf16 = torch.bfloat16
+    rcfg = RuntimeConfig(cf_pair=4.0, cf_slot=4.0, dtype=bf16)
+    pctx = ParallelCtx(group=group)
+    T = EP_TOKENS
+    cfgs = {"a2a": moe_config(glm, rcfg, pctx, T),
+            "replicated": moe_config(glm, rcfg, pctx, world * T,
+                                     dispatch_mode="replicated")}
+    cfgs["a2a_wire_int8"] = dataclasses.replace(cfgs["a2a"],
+                                                wire_dtype="int8")
+    params = init_moe_params(cfgs["a2a"], torch.Generator(
+        device=dev).manual_seed(0), dtype=bf16, device=dev, ep_rank=rank)
+    # The tokens lean toward experts 0-7 (homed on rank 0), so the plan
+    # moves load off rank 0 and streams replicas to rank 1.
+    lean = params.router[:, :8].sum(dim=1)
+    x_all = (torch.randn((world * T, glm.d_model), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+        + 2.0 * lean / lean.norm()).to(bf16)
+    mine = x_all[rank * T:(rank + 1) * T]
+    inputs = {m: x_all if c.dispatch_mode == "replicated" else mine
+              for m, c in cfgs.items()}
+    out = {"transport": transport, "modes": {}}
+    with torch.inference_mode():
+        for mode in ("a2a", "replicated"):
+            ctx = stages.make_stage_ctx(cfgs[mode], group)
+            gs = stages.gate_stage(ctx, inputs[mode], params.router)
+            plan = stages.plan_stage(ctx, gs).plan
+            plain = planner.solve_plan(gs.lam.cpu(), torch.arange(
+                glm.moe.num_experts) // (glm.moe.num_experts // world),
+                n_slot=cfgs[mode].balancer.n_slot)
+            for field in planner.Plan._fields:
+                if not torch.equal(getattr(plan, field).cpu(),
+                                   getattr(plain, field)):
+                    raise AssertionError(f"ep layer {mode}: plan {field} "
+                                         f"differs from the plain solve")
+            out["modes"][mode] = {
+                "plan_tables_equal": True, "lam_total": int(gs.lam.sum()),
+                "pre_max": int(plain.pre_max), "post_max": int(plain.post_max),
+                "replicas": int((plain.x >= 0).sum())}
+        ys = {}
+        for mode, cfg in cfgs.items():
+            torch.cuda.synchronize()
+            _reset_launches()
+            y, _, st = moe_layer_local(inputs[mode], params, cfg,
+                                       axis_name=group)
+            torch.cuda.synchronize()
+            launches = _launches()
+            if cfg.dispatch_mode == "a2a":
+                y = collectives.all_gather(group, y).reshape(world * T, -1)
+            ys[mode] = y
+            rec = out["modes"].setdefault(mode, {})
+            rec.update(drops=int(st.drops_dispatch + st.drops_slot),
+                       post_max=int(st.post_max),
+                       max_slot_load=int(st.max_slot_load),
+                       cap_pair=cfg.cap_pair, cap_slot=cfg.cap_slot,
+                       launches={k: launches[k] for k in (
+                           "plan_solve", "gating_topk", "grouped_swiglu",
+                           "grouped_matmul", "flash_attention")})
+        del params
+        if rank == 0:
+            # The R = 1 layer on the same tokens and weights.
+            cfg1 = moe_config(glm, rcfg, ParallelCtx(), world * T)
+            p1 = init_moe_params(cfg1, torch.Generator(
+                device=dev).manual_seed(0), dtype=bf16, device=dev)
+            refs = {"a2a": moe_layer_local(x_all, p1, cfg1)[0],
+                    "replicated": moe_layer_local(x_all, p1, dataclasses.replace(
+                        cfg1, dispatch_mode="replicated"))[0]}
+            refs["a2a_wire_int8"] = refs["a2a"]
+            for mode, y in ys.items():
+                err, scale = _max_err(y, refs[mode])
+                tol = 3e-2 if "int8" in mode else 2e-2
+                out["modes"][mode].update(max_abs_err=err, max_abs_ref=scale,
+                                          tol=tol,
+                                          finite=bool(torch.isfinite(y).all()))
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    collectives.destroy()
+
+
+def phase_ep_layer() -> dict:
+    """The EP layer at R = 2 on the one card: two processes (spawn), one
+    gloo group over CUDA tensors, GLM-4.5-Air at full width, one MoE layer,
+    EP_TOKENS bf16 tokens a rank that lean toward rank 0's experts,
+    ``ultraep``, in modes ``a2a``,
+    ``replicated`` and ``a2a`` with the int8 wire.  y against the R = 1
+    layer on the same tokens and weights (2e-2 max|ref| in bf16, 3e-2 with
+    the int8 wire), plan tables equal to the plain solve's, zero drops, and
+    each call through the plan-solve, gate and grouped-GEMM kernels.  No
+    time is stated: gloo stages CUDA tensors through the host."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        mp.spawn(_ep_worker, args=(EP_RANKS, port, out_dir), nprocs=EP_RANKS,
+                 join=True)
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(EP_RANKS)]
+    for rank, rec in enumerate(ranks):
+        for mode, m in rec["modes"].items():
+            n = m["launches"]
+            if m["drops"] or n["plan_solve"] != 1 or n["gating_topk"] != 1 \
+                    or n["grouped_swiglu"] != 1 or n["grouped_matmul"] != 1:
+                raise AssertionError(f"ep layer rank {rank} {mode}: drops "
+                                     f"{m['drops']}, launches {n}")
+    for mode, m in ranks[0]["modes"].items():
+        if not (m["finite"] and m["max_abs_err"] <= m["tol"] * m["max_abs_ref"]):
+            raise AssertionError(f"ep layer {mode}: max|err| "
+                                 f"{m['max_abs_err']:.3e} > {m['tol']} * "
+                                 f"max|ref| {m['max_abs_ref']:.3e}")
+    result = {"ranks": EP_RANKS, "tokens_per_rank": EP_TOKENS,
+              "backend": "gloo", "ranks_by_mode": ranks}
+    _line("phase9_ep_layer", result)
+    return result
+
+
 def phase_mamba_mixer(jamba):
     """One Mamba mixer at full width over T 4096 from a non-zero state: the
     card (SSD kernel) in bf16 and fp32 vs the fp32 plain path on the host,
@@ -1573,6 +1877,7 @@ def main() -> int:
     ssd_records = phase_ssd()
     q8_records = phase_kernels_q8(glm)
     gating_records = phase_gating()
+    plan_records = phase_plan_solve()
     flash_records = phase_flash()
     phase_moe_layer(glm)
     glm_2l = dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2)
@@ -1590,6 +1895,7 @@ def main() -> int:
         dataclasses.replace(qwen3, name=qwen3.name + "-2l", num_layers=2),
         "phase7_serve_qwen3", beside=glm_serve)
     cli_records = phase_serve_cli()
+    ep = phase_ep_layer()
     serves = {"glm45-106b-a12b": glm_serve,
               "glm45-106b-a12b-q8": glm_q8_serve,
               "glm45-106b-a12b-fp32": glm_fp32_serve,
@@ -1629,6 +1935,13 @@ def main() -> int:
         if paths[path][name] != 0:
             raise AssertionError(f"{name} was launched {paths[path][name]} "
                                  f"times on the {path} serve path")
+    # At R = 1 the plan is the home quota: no serve path solves on the card.
+    for path, launches in list(paths.items()) + [
+            (f"serve cli {t}", r["launches"]) for t, r in cli_records.items()]:
+        if launches["plan_solve"] != 0:
+            raise AssertionError(f"plan_solve was launched "
+                                 f"{launches['plan_solve']} times on the "
+                                 f"{path} serve path (R = 1)")
     # Every serve path is at head dim 128: prefill chunks through the TMA +
     # wgmma kernel (bf16) or the fp32 kernel (phase 4c), decode steps
     # through the split-KV kernel, and never the hd-16 mma.sync kernel.
@@ -1782,6 +2095,34 @@ def main() -> int:
          **{tag: {k: flash_records[tag][k]
                   for k in flash_keys + ("bound_fp32_ms", "max_row_rel_err")}
             for tag in ("fp32_prefill", "hd64_fp32", "hd16_fp32")}}))
+    # Row P: the plan solve (no pallas_call: the JAX solve's two
+    # lax.while_loop).  Its serve paths run at R = 1, where the plan is the
+    # home quota and the kernel never launches; phase 9 (R = 2) is its path.
+    plan_rec = dict(plan_records["e128_k8_r64_zipf"], shape="E 128, k 8, R 64,"
+                    " Zipf 1.0, 4096 tokens a rank")
+    ep_launches = {mode: m["launches"]["plan_solve"]
+                   for mode, m in ep["ranks_by_mode"][0]["modes"].items()}
+    kernels.append(_kernel_row(
+        "plan_solve", "src/repro_torch/kernels/plan_solve/csrc/plan_solve.cu",
+        "src/repro/core/planner.py:349 (the bisection's lax.while_loop around"
+        " _greedy_oracle's, :198; no pallas_call)", plan_rec,
+        sum(ep_launches.values()), {
+            "launches_note": "phase 9 (R = 2), rank 0, one per layer call; "
+                             "0 on every R = 1 serve path: the plan there "
+                             "is the home quota, solved without a launch",
+            "launches_by_path": {**{p: c["plan_solve"]
+                                    for p, c in paths.items()},
+                                 **{f"ep_layer_r2_{m}": n
+                                    for m, n in ep_launches.items()}},
+            "bound_note": "latency: serial oracle steps x one measured "
+                          "redux.sync round",
+            "steps": plan_rec["steps"], "probes": plan_rec["probes"],
+            "plan_graph_ms": plan_rec["plan_graph_ms"],
+            "library_note": "none: no PyTorch call computes the solve",
+            **{tag: {k: plan_records[tag][k] for k in (
+                "shape", "law", "probes", "steps", "ms", "plan_graph_ms",
+                "plain_ms", "bound_ms", "post_over_mean")}
+               for tag in plan_records if tag != "e128_k8_r64_zipf"}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

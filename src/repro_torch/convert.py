@@ -14,6 +14,10 @@ JAX package is imported.
   blocks, and a hybrid's "cycle" segment is a tuple of ``p`` blocks each
   stacked over the ``n_rep`` repetitions of the period: layer
   ``pre + r * p + j`` is entry ``j`` at index ``r``.
+
+On an EP group of ``ep_size`` ranks, rank ``ep_rank`` gets the experts
+``[ep_rank * E / ep_size, (ep_rank + 1) * E / ep_size)`` of every MoE layer
+and everything else whole (the router and the shared expert included).
 """
 
 from __future__ import annotations
@@ -48,9 +52,21 @@ def _index(tree, i):
     return np.asarray(tree)[i]
 
 
-def moe_params(p, *, n_slot: int, device="cuda") -> MoEParams:
+def _rank_experts(w, ep_rank: int, ep_size: int):
+    """Rows ``[ep_rank * E / ep_size, (ep_rank + 1) * E / ep_size)``."""
+    E = np.shape(w)[0]
+    if E % ep_size != 0 or not 0 <= ep_rank < ep_size:
+        raise ValueError(f"{E} experts over rank {ep_rank} of {ep_size}")
+    epr = E // ep_size
+    return np.asarray(w)[ep_rank * epr:(ep_rank + 1) * epr]
+
+
+def moe_params(p, *, n_slot: int, device="cuda", ep_rank: int = 0,
+               ep_size: int = 1) -> MoEParams:
     t = lambda a: to_tensor(a, device)  # noqa: E731
-    return MoEParams(t(p.router), t(p.w1), t(p.w3), t(p.w2),
+    w1, w3, w2 = (_rank_experts(w, ep_rank, ep_size)
+                  for w in (p.w1, p.w3, p.w2))
+    return MoEParams(t(p.router), t(w1), t(w3), t(w2),
                      t(p.shared_w1), t(p.shared_w3), t(p.shared_w2),
                      n_slot=n_slot)
 
@@ -61,7 +77,8 @@ def ssm_params(p, *, device="cuda") -> SSMParams:
                      t(p.d_skip), t(p.dt_bias), t(p.norm), t(p.out_proj))
 
 
-def _block(bp, cfg: ModelConfig, device) -> BlockParams:
+def _block(bp, cfg: ModelConfig, device, ep_rank: int,
+           ep_size: int) -> BlockParams:
     t = lambda a: to_tensor(a, device)  # noqa: E731
     attn = ssm = None
     if bp.ssm is not None:
@@ -74,13 +91,16 @@ def _block(bp, cfg: ModelConfig, device) -> BlockParams:
         raise ValueError("only GQA attention and Mamba blocks are ported")
     ffn = None if bp.ffn is None else tuple(t(w) for w in bp.ffn)
     moe = None if bp.moe is None else moe_params(
-        bp.moe, n_slot=cfg.moe.n_slot, device=device)
+        bp.moe, n_slot=cfg.moe.n_slot, device=device, ep_rank=ep_rank,
+        ep_size=ep_size)
     return BlockParams(t(bp.norm1), t(bp.norm2), attn, ffn=ffn, moe=moe,
                        ssm=ssm)
 
 
-def lm_params(p, cfg: ModelConfig, *, device="cuda") -> LMParams:
-    """JAX ``LMParams`` (numpy leaves) -> the port's :class:`LMParams`."""
+def lm_params(p, cfg: ModelConfig, *, device="cuda", ep_rank: int = 0,
+              ep_size: int = 1) -> LMParams:
+    """JAX ``LMParams`` (numpy leaves) -> the port's :class:`LMParams`, the
+    share of EP rank ``ep_rank`` of ``ep_size``."""
     if getattr(p, "frontend_proj", None) is not None:
         raise ValueError("modality frontends are not ported")
     blocks = []
@@ -98,6 +118,7 @@ def lm_params(p, cfg: ModelConfig, *, device="cuda") -> LMParams:
     if len(blocks) != len(layer_kinds(cfg)):
         raise ValueError(f"{len(blocks)} blocks for {cfg.num_layers} layers")
     return LMParams(embedding=to_tensor(p.embedding, device),
-                    layers=[_block(b, cfg, device) for b in blocks],
+                    layers=[_block(b, cfg, device, ep_rank, ep_size)
+                            for b in blocks],
                     final_norm=to_tensor(p.final_norm, device),
                     lm_head=to_tensor(p.lm_head, device))

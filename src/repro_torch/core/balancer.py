@@ -53,12 +53,18 @@ def no_balance_plan(lam: torch.Tensor, home: torch.Tensor, n_slot: int) -> Plan:
     return _finish_plan(lam, u, q, home, n_slot)
 
 
-def solve(lam: torch.Tensor, home: torch.Tensor, cfg: BalancerConfig) -> Plan:
-    """Dispatch on ``cfg.mode`` (mirrors ``repro.core.balancer.solve``)."""
+def solve(lam: torch.Tensor, home: torch.Tensor, cfg: BalancerConfig, *,
+          load_bound: int | None = None) -> Plan:
+    """Dispatch on ``cfg.mode`` (mirrors ``repro.core.balancer.solve``).
+
+    Every mode takes any R; ``ultraep`` at R > 1 solves on the card through
+    the plan-solve kernel, which needs ``load_bound`` (see
+    :func:`repro_torch.core.planner.solve_replication`)."""
     lam = lam.to(_I64)
     home = home.to(_I64)
     if cfg.mode in ("none", "ideal"):
         return no_balance_plan(lam, home, cfg.n_slot)
     return planner.solve_plan(
         lam, home, n_slot=cfg.n_slot, u_min=cfg.u_min, locality=cfg.locality,
-        max_replicas_per_expert=cfg.max_replicas_per_expert)
+        max_replicas_per_expert=cfg.max_replicas_per_expert,
+        load_bound=load_bound)

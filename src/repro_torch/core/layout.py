@@ -40,8 +40,9 @@ class ExpertLayout:
 
     def home(self, device="cuda") -> torch.Tensor:
         """(E,) home rank of each logical expert (contiguous blocks)."""
-        return torch.arange(self.ep_size, dtype=_I64, device=device
-                            ).repeat_interleave(self.experts_per_rank)
+        return torch.div(torch.arange(self.num_experts, dtype=_I64,
+                                      device=device),
+                         self.experts_per_rank, rounding_mode="floor")
 
 
 def physical_slot_of(layout: ExpertLayout, x: torch.Tensor) -> torch.Tensor:

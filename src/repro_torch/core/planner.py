@@ -6,13 +6,15 @@ bisection, locality-first NW-corner reroute and slot assignment, so the
 plan tables are integer-identical to the JAX solve (and hence to the numpy
 oracle ``repro.core.ref_planner``).
 
-Control flow.  JAX runs both loops as ``lax.while_loop`` on the device.  In
-eager PyTorch the faithful translation is a Python loop whose condition
-reads a scalar: the bisection reads ``(tau_lo, tau_hi)`` once up front and
-each oracle step reads its cursor decisions.  The tables themselves stay on
-the tensors' device.  With one EP rank the interval is empty from the start
-(``tau_lo = ceil(total / 1) = max(ell) = tau_hi``), so a solve costs exactly
-one scalar read per MoE layer call and never enters the oracle.
+Control flow.  JAX runs both loops as ``lax.while_loop`` on the device.
+Here they are one launch of a hand-written kernel on a CUDA tensor
+(:mod:`repro_torch.kernels.plan_solve`, the paper's GPU-native solve,
+S5.3) and, on a CPU tensor, its plain version: Python loops whose
+conditions read scalars.  With one EP rank the interval is empty from the
+start (``tau_lo = ceil(total / 1) = max(ell) = tau_hi``), so the solve
+returns the home quota and ``tau = total`` with no launch and no read.
+Everything around the loops (the expert order, the reroute, the slot map,
+the cumsums) is tensor code, so a solve on the card reads nothing back.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels.plan_solve.ops import plan_solve
 
 __all__ = ["Plan", "solve_replication", "solve_reroute", "solve_plan",
            "slot_assignment", "token_targets", "occurrence_index",
@@ -63,61 +67,6 @@ def _expert_order(lam_e: torch.Tensor, home: torch.Tensor, R: int) -> torch.Tens
     return p1[p2].reshape(R, E // R)
 
 
-def _greedy_oracle(lam_e, ell, home, rank_experts, tau: int, *, n_slot: int,
-                   u_min: int, max_replicas_per_expert: int):
-    """One feasibility probe (Alg. 1 lines 6-19).  Returns (feasible, u).
-
-    Mirrors the flat cursor walk of ``repro.core.planner._greedy_oracle``:
-    the state lives in tensors, the cursor (rank index, expert index,
-    iteration) in Python ints, and each step reads the scalars that decide
-    whether it transfers load and where the cursor moves.
-    """
-    E = lam_e.shape[0]
-    R = ell.shape[0]
-    epr = E // R
-    dev = lam_e.device
-    exc = (ell - tau).clamp(min=0)
-    slk = (tau - ell).clamp(min=0)
-    u = _home_quota(lam_e, home, R)
-    hosted = torch.nn.functional.one_hot(home, R).bool()        # (E, R)
-    rank_order = torch.sort(-exc, stable=True).indices.tolist()
-    slots = torch.zeros(R, dtype=_I64, device=dev)
-    nrep = torch.zeros(E, dtype=_I64, device=dev)
-
-    max_iters = R * (n_slot + epr + 2) + 2
-    it = ri = ei = 0
-    while ri < R and it < max_iters:
-        r = rank_order[ri]
-        rank_done = int(exc[r]) <= 0
-        experts_done = ei >= epr
-        accept = False
-        if not (rank_done or experts_done):
-            e = int(rank_experts[r, ei])
-            cap = int(u[e, r])
-            adm = ((slk > 0) & (slots < n_slot) & ~hosted[e, :]
-                   & (nrep[e] < max_replicas_per_expert))
-            # Slack first; torch.argmax returns the first (lowest-rank) max.
-            score = torch.where(adm, slk, -1)
-            t = int(torch.argmax(score))
-            if bool(adm.any()) and cap > 0:
-                delta = min(int(exc[r]), int(slk[t]), cap)
-                if delta >= u_min:
-                    accept = True
-                    u[e, r] -= delta
-                    u[e, t] += delta
-                    exc[r] -= delta
-                    slk[t] -= delta
-                    slots[t] += 1
-                    hosted[e, t] = True
-                    nrep[e] += 1
-        if rank_done or experts_done:
-            ri, ei = ri + 1, 0
-        elif not accept:
-            ei += 1
-        it += 1
-    return bool(exc.sum() == 0), u
-
-
 def _flat_only(rack_size, health_weight, demand_tiebreak,
                probe_parallelism: int) -> None:
     if rack_size is not None:
@@ -136,11 +85,15 @@ def solve_replication(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
                       max_replicas_per_expert: int | None = None,
                       probe_parallelism: int = 1, rack_size: int | None = None,
                       health_weight: torch.Tensor | None = None,
-                      demand_tiebreak: bool = False):
+                      demand_tiebreak: bool = False,
+                      load_bound: int | None = None):
     """Quota table U by threshold bisection (Alg. 1 lines 1-25).
 
     Mirrors ``repro.core.planner.solve_replication``.  Returns ``(u, tau)``:
     the (E, R) quota table and the solved threshold as a 0-d tensor.
+    ``load_bound`` bounds ``lam.sum()`` from what the host knows (ranks x
+    tokens per rank x top-k); a solve on the card at R > 1 needs it, since
+    the kernel's int32 arithmetic takes totals below 2^31 only.
     """
     _flat_only(rack_size, health_weight, demand_tiebreak, probe_parallelism)
     lam = lam.to(_I64)
@@ -151,22 +104,14 @@ def solve_replication(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
     max_rep = R if max_replicas_per_expert is None else max_replicas_per_expert
 
     lam_e = lam.sum(dim=0)
+    if R == 1:
+        # The interval is empty: the home quota, tau = total, no read.
+        return _home_quota(lam_e, home, R), lam_e.sum()
     ell = _rank_load(lam_e, home, R)
     rank_experts = _expert_order(lam_e, home, R)
-    total = ell.sum()
-    best_u = _home_quota(lam_e, home, R)
-    # The one host read of the solve: at R == 1 the interval is empty.
-    lo, hi = torch.stack([-(-total // R), ell.max()]).tolist()
-    while lo < hi:
-        tau = (lo + hi) // 2
-        feasible, u = _greedy_oracle(lam_e, ell, home, rank_experts, tau,
-                                     n_slot=n_slot, u_min=u_min,
-                                     max_replicas_per_expert=max_rep)
-        if feasible:
-            hi, best_u = tau, u
-        else:
-            lo = tau + 1
-    return best_u, torch.tensor(hi, dtype=_I64, device=lam.device)
+    return plan_solve(lam_e, ell, home, rank_experts, n_slot=n_slot,
+                      u_min=u_min, max_replicas_per_expert=max_rep,
+                      load_bound=load_bound)
 
 
 def _nw_corner(demand: torch.Tensor, quota: torch.Tensor) -> torch.Tensor:
@@ -267,16 +212,19 @@ def solve_plan(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
                max_replicas_per_expert: int | None = None,
                probe_parallelism: int = 1, rack_size: int | None = None,
                health_weight: torch.Tensor | None = None,
-               demand_tiebreak: bool = False) -> Plan:
+               demand_tiebreak: bool = False,
+               load_bound: int | None = None) -> Plan:
     """Full Alg. 1: replication + reroute + slot map + imbalance metrics.
 
-    Mirrors ``repro.core.planner.solve_plan`` on the flat tier.
+    Mirrors ``repro.core.planner.solve_plan`` on the flat tier
+    (``load_bound``: see :func:`solve_replication`).
     """
     _flat_only(rack_size, health_weight, demand_tiebreak, probe_parallelism)
     lam = lam.to(_I64)
     home = home.to(_I64)
     u, tau = solve_replication(lam, home, n_slot=n_slot, u_min=u_min,
-                               max_replicas_per_expert=max_replicas_per_expert)
+                               max_replicas_per_expert=max_replicas_per_expert,
+                               load_bound=load_bound)
     q = solve_reroute(lam, u, locality=locality)
     return _plan_from(lam, u, q, tau, home, n_slot)
 

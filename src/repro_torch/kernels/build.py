@@ -99,10 +99,12 @@ def _libraries() -> list[KernelLibrary]:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.gating_topk import ops as gating_ops
     from repro_torch.kernels.grouped_gemm import ops as grouped_gemm_ops
+    from repro_torch.kernels.plan_solve import ops as plan_solve_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_scan_ops
 
     return [grouped_gemm_ops.LIBRARY, grouped_gemm_ops.LIBRARY_Q8,
-            ssd_scan_ops.LIBRARY, gating_ops.LIBRARY, flash_ops.LIBRARY]
+            ssd_scan_ops.LIBRARY, gating_ops.LIBRARY, flash_ops.LIBRARY,
+            plan_solve_ops.LIBRARY]
 
 
 def build_all() -> dict[str, str]:

@@ -1,0 +1,240 @@
+"""UltraEP plan solve: a hand-written Hopper kernel and its plain version.
+
+``plan_solve`` takes the place of the JAX package's device-resident solve,
+the two ``lax.while_loop`` of ``repro.core.planner`` (``solve_replication``
+at :349, the threshold bisection, around ``_greedy_oracle`` at :198, the
+flat cursor walk), at ``probe_parallelism=1`` on the flat tier.  It is no
+Pallas kernel there, but it is the one loop of the MoE layer that runs for
+a data-dependent number of steps, so in eager PyTorch its faithful
+translation reads the device on every step; the kernel runs the whole
+solve in one launch and reads nothing back.  The CUDA source is
+``csrc/plan_solve.cu``; its header says what bounds the kernel on an H100
+and what the design does about it.
+
+Dispatch is by the tensors' device only: CPU tensors run the plain version
+(:func:`plan_solve_ref`, Python loops whose conditions read scalars), CUDA
+tensors launch the kernel or raise.  The wrapper counts its launches in
+``plan_solve.launches``.  On the card nothing is read back, so a CUDA graph
+can capture the call.
+
+Inputs: ``lam_e`` (E,) per-expert load, ``ell`` (R,) per-rank home load,
+``home`` (E,) home rank of each expert and ``rank_experts`` (R, E/R) each
+rank's mains by descending load (stable by id), all int64; R >= 2.  Outputs:
+``u`` (E, R) int64, the quota table, and ``tau`` () int64, the solved
+threshold.  The kernel's arithmetic is int32, as the JAX solve's: the
+caller passes ``load_bound``, a bound on the total load that the host
+knows from the shapes (ranks x tokens per rank x top-k), and the wrapper
+raises where it reaches 2^31; it never reads the load itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import KernelLibrary
+
+__all__ = ["plan_solve", "plan_solve_ref", "redux_round_ms", "LIBRARY",
+           "INT32_LIMIT"]
+
+LIBRARY = KernelLibrary("plan_solve",
+                        Path(__file__).parent / "csrc" / "plan_solve.cu")
+
+_I64 = torch.int64
+INT32_LIMIT = 2 ** 31
+MAX_SMEM = 232448          # 227 KB: the dynamic shared memory of an H100 block
+
+
+def _greedy_oracle(lam_e, ell, home, rank_experts, tau: int, *, n_slot: int,
+                   u_min: int, max_replicas_per_expert: int):
+    """One feasibility probe (Alg. 1 lines 6-19).  Returns (feasible, u,
+    steps).
+
+    Mirrors the flat cursor walk of ``repro.core.planner._greedy_oracle``:
+    the state lives in tensors, the cursor (rank index, expert index,
+    iteration) in Python ints, and each step reads the scalars that decide
+    whether it transfers load and where the cursor moves.
+    """
+    E = lam_e.shape[0]
+    R = ell.shape[0]
+    epr = E // R
+    dev = lam_e.device
+    exc = (ell - tau).clamp(min=0)
+    slk = (tau - ell).clamp(min=0)
+    u = torch.nn.functional.one_hot(home, R).to(_I64) * lam_e[:, None]
+    hosted = torch.nn.functional.one_hot(home, R).bool()        # (E, R)
+    rank_order = torch.sort(-exc, stable=True).indices.tolist()
+    slots = torch.zeros(R, dtype=_I64, device=dev)
+    nrep = torch.zeros(E, dtype=_I64, device=dev)
+
+    max_iters = R * (n_slot + epr + 2) + 2
+    it = ri = ei = 0
+    while ri < R and it < max_iters:
+        r = rank_order[ri]
+        rank_done = int(exc[r]) <= 0
+        experts_done = ei >= epr
+        accept = False
+        if not (rank_done or experts_done):
+            e = int(rank_experts[r, ei])
+            cap = int(u[e, r])
+            adm = ((slk > 0) & (slots < n_slot) & ~hosted[e, :]
+                   & (nrep[e] < max_replicas_per_expert))
+            # Slack first; torch.argmax returns the first (lowest-rank) max.
+            score = torch.where(adm, slk, -1)
+            t = int(torch.argmax(score))
+            if bool(adm.any()) and cap > 0:
+                delta = min(int(exc[r]), int(slk[t]), cap)
+                if delta >= u_min:
+                    accept = True
+                    u[e, r] -= delta
+                    u[e, t] += delta
+                    exc[r] -= delta
+                    slk[t] -= delta
+                    slots[t] += 1
+                    hosted[e, t] = True
+                    nrep[e] += 1
+        if rank_done or experts_done:
+            ri, ei = ri + 1, 0
+        elif not accept:
+            ei += 1
+        it += 1
+    return bool(exc.sum() == 0), u, it
+
+
+def plan_solve_ref(lam_e: torch.Tensor, ell: torch.Tensor, home: torch.Tensor,
+                   rank_experts: torch.Tensor, *, n_slot: int, u_min: int,
+                   max_replicas_per_expert: int,
+                   stats: torch.Tensor | None = None):
+    """Plain version: the bisection of ``repro.core.planner.
+    solve_replication`` as a Python loop over the oracle's probes.  Returns
+    ``(u, tau)``; ``stats`` (2,), if given, receives (probes, oracle
+    steps)."""
+    R = ell.shape[0]
+    total = ell.sum()
+    best_u = torch.nn.functional.one_hot(home, R).to(_I64) * lam_e[:, None]
+    lo, hi = torch.stack([-(-total // R), ell.max()]).tolist()
+    probes = steps = 0
+    while lo < hi:
+        tau = (lo + hi) // 2
+        feasible, u, it = _greedy_oracle(
+            lam_e, ell, home, rank_experts, tau, n_slot=n_slot, u_min=u_min,
+            max_replicas_per_expert=max_replicas_per_expert)
+        probes, steps = probes + 1, steps + it
+        if feasible:
+            hi, best_u = tau, u
+        else:
+            lo = tau + 1
+    if stats is not None:
+        stats.copy_(torch.tensor([probes, steps], dtype=stats.dtype))
+    return best_u, torch.tensor(hi, dtype=_I64, device=lam_e.device)
+
+
+@functools.cache
+def _library():
+    """The C entry point, its ctypes signature set once, at load."""
+    lib = LIBRARY.load()
+    lib.plan_solve_launch.restype = ctypes.c_int
+    lib.plan_solve_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+    lib.plan_solve_smem_bytes.restype = ctypes.c_longlong
+    lib.plan_solve_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.plan_solve_redux_chain.restype = ctypes.c_int
+    lib.plan_solve_redux_chain.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_void_p]
+    return lib
+
+
+def redux_round_ms(device=None, rounds: int = 1 << 16) -> float:
+    """The card's latency of one warp-reduction round (``redux.sync``), in
+    ms: one warp runs ``rounds`` dependent reductions, timed with CUDA
+    events against a chain of 1 round.  The solve's bound is its serial
+    oracle steps times this."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    out = torch.empty(1, dtype=torch.int32, device=device)
+    stream = torch._C._cuda_getCurrentRawStream(out.device.index)
+    lib = _library()
+
+    def run(n):
+        err = lib.plan_solve_redux_chain(n, out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"redux chain launch failed: CUDA error {err}")
+
+    run(rounds)
+    times = []
+    for n in (1, rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(n)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return (times[1] - times[0]) / (rounds - 1)
+
+
+def _check(lam_e, ell, home, rank_experts, load_bound) -> None:
+    E, R = lam_e.shape[0], ell.shape[0]
+    if R < 2:
+        raise ValueError("plan_solve solves R >= 2 ranks; at R = 1 the "
+                         "interval is empty and the plan is the home quota")
+    if E % R != 0:
+        raise ValueError(f"E={E} must be a multiple of R={R}")
+    for name, t, shape in (("lam_e", lam_e, (E,)), ("ell", ell, (R,)),
+                           ("home", home, (E,)),
+                           ("rank_experts", rank_experts, (R, E // R))):
+        if t.dtype != _I64 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"plan_solve: {name} must be contiguous int64 "
+                             f"{shape}, not {t.dtype} {tuple(t.shape)}")
+        if t.device != lam_e.device:
+            raise ValueError(f"plan_solve: {name} is on {t.device}, not "
+                             f"{lam_e.device}")
+    if load_bound is None or load_bound >= INT32_LIMIT:
+        raise ValueError(f"plan_solve's int32 arithmetic needs a total load "
+                         f"below 2^31; the shapes allow {load_bound}")
+    smem = _library().plan_solve_smem_bytes(E, R)
+    if smem > MAX_SMEM:
+        raise ValueError(f"plan_solve: E={E}, R={R} need {smem} B of shared "
+                         f"memory, more than {MAX_SMEM}")
+
+
+def plan_solve(lam_e: torch.Tensor, ell: torch.Tensor, home: torch.Tensor,
+               rank_experts: torch.Tensor, *, n_slot: int, u_min: int,
+               max_replicas_per_expert: int, load_bound: int | None,
+               stats: torch.Tensor | None = None):
+    """Quota table ``u`` (E, R) and threshold ``tau`` () of one solve.
+
+    ``stats``, if given, is an int32 (2,) tensor on the inputs' device that
+    receives (probes, oracle steps).  ``load_bound`` is needed on the card
+    only (see the module docstring)."""
+    if lam_e.device.type == "cpu":
+        return plan_solve_ref(lam_e, ell, home, rank_experts, n_slot=n_slot,
+                              u_min=u_min,
+                              max_replicas_per_expert=max_replicas_per_expert,
+                              stats=stats)
+    if lam_e.device.type != "cuda":
+        raise ValueError(f"no plan solve for device {lam_e.device}")
+    _check(lam_e, ell, home, rank_experts, load_bound)
+    if stats is not None and (stats.dtype != torch.int32 or stats.shape != (2,)
+                              or stats.device != lam_e.device):
+        raise ValueError("plan_solve: stats must be int32 (2,) on the "
+                         "inputs' device")
+    E, R = lam_e.shape[0], ell.shape[0]
+    u = lam_e.new_empty((E, R))
+    tau = lam_e.new_empty(())
+    stream = torch._C._cuda_getCurrentRawStream(lam_e.device.index)
+    err = _library().plan_solve_launch(
+        lam_e.data_ptr(), ell.data_ptr(), home.data_ptr(),
+        rank_experts.data_ptr(), E, R, n_slot, u_min,
+        max_replicas_per_expert, u.data_ptr(), tau.data_ptr(),
+        None if stats is None else stats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"plan_solve kernel launch failed: CUDA error "
+                           f"{err}")
+    plan_solve.launches += 1
+    return u, tau
+
+
+plan_solve.launches = 0

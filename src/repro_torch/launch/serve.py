@@ -15,11 +15,20 @@ Example (on a card; ``--dtype`` is float32, the default, or bfloat16):
       --reduce --requests 6 --chunk 64 --dtype bfloat16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm45-106b-a12b \
       --reduce --wire-dtype int8 --ffn-dtype int8     # the w8a8 expert path
+
+Expert parallelism: under ``torchrun`` (``WORLD_SIZE`` and ``RANK`` set)
+every process is one rank of an EP group of ``WORLD_SIZE`` ranks, NCCL on
+``--device cuda`` with one card a rank (``LOCAL_RANK``), gloo on ``--device
+cpu``; each rank serves the same trace with its share of the experts and
+rank 0 prints.  Without ``WORLD_SIZE`` it runs on one device.
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.serve \
+      --arch glm45-106b-a12b --reduce --dtype bfloat16
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -32,6 +41,7 @@ from repro_torch.core.balancer import BalancerConfig
 from repro_torch.core.quantize import FFN_DTYPES, WIRE_DTYPES
 from repro_torch.models.model import init_lm
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
+from repro_torch.parallel import collectives
 from repro_torch.serving.adapter import make_engine_fns
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
 
@@ -56,8 +66,12 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
                 reduce: bool = True, balancer: str = "ultraep", seed: int = 0,
                 prompt_len: tuple[int, int] = (32, 200), decode_batch: int = 4,
                 cf: float = 4.0, dtype=torch.float32, device="cuda",
-                wire_dtype: str = "none", ffn_dtype: str = "none"
-                ) -> ServingEngine:
+                wire_dtype: str = "none", ffn_dtype: str = "none",
+                group=None) -> ServingEngine:
+    """Serve a seeded Poisson trace; ``group``: the EP group
+    (:class:`repro_torch.parallel.collectives.EPGroup`) this process is a
+    rank of, or None for one device.  Every rank of a group serves the same
+    trace; rank 0 prints the summary."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduce:
         cfg = reduced(cfg)
@@ -72,7 +86,7 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
                                 n_slot=cfg.moe.n_slot if cfg.moe else 2),
         cf_pair=cf, cf_slot=cf, dtype=dtype, wire_dtype=wire_dtype,
         ffn_dtype=ffn_dtype)
-    pctx = ParallelCtx(mesh=None)
+    pctx = ParallelCtx(group=group)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_lm(cfg, rcfg, pctx, gen, device=device)
     max_seq = max(prompt_len[1] + max_new + chunk, 2 * chunk)
@@ -107,7 +121,7 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
             max_new_tokens=max_new, arrival=t))
     done = eng.run()
     ttft, tpot = eng.ttft(), eng.tpot()
-    if len(ttft):
+    if len(ttft) and (group is None or group.rank == 0):
         print(f"served {len(done)} requests  mean TTFT {ttft.mean()*1e3:.1f}ms"
               f"  mean TPOT {tpot.mean()*1e3:.2f}ms")
     return eng
@@ -127,11 +141,27 @@ def main(argv=None) -> ServingEngine:
     ap.add_argument("--wire-dtype", default="none", choices=WIRE_DTYPES)
     ap.add_argument("--ffn-dtype", default="none", choices=FFN_DTYPES)
     args = ap.parse_args(argv)
-    return serve_trace(args.arch, requests=args.requests, rps=args.rps,
-                       chunk=args.chunk, max_new=args.max_new,
-                       reduce=args.reduce, balancer=args.balancer,
-                       dtype=DTYPES[args.dtype], device=args.device,
-                       wire_dtype=args.wire_dtype, ffn_dtype=args.ffn_dtype)
+    device, group = args.device, None
+    if "WORLD_SIZE" in os.environ:
+        # One EP rank per process (torchrun): NCCL with a card each, or gloo
+        # on the CPU.
+        on_cuda = torch.device(device).type == "cuda"
+        if on_cuda:
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+            torch.cuda.set_device(device)
+        group = collectives.init("nccl" if on_cuda else "gloo",
+                                 world_size=int(os.environ["WORLD_SIZE"]),
+                                 rank=int(os.environ["RANK"]))
+    try:
+        return serve_trace(args.arch, requests=args.requests, rps=args.rps,
+                           chunk=args.chunk, max_new=args.max_new,
+                           reduce=args.reduce, balancer=args.balancer,
+                           dtype=DTYPES[args.dtype], device=device,
+                           wire_dtype=args.wire_dtype,
+                           ffn_dtype=args.ffn_dtype, group=group)
+    finally:
+        if group is not None:
+            collectives.destroy()
 
 
 if __name__ == "__main__":

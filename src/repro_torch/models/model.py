@@ -44,7 +44,11 @@ class LMParams(nn.Module):
 
 def init_lm(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
             generator: torch.Generator, *, device="cuda") -> LMParams:
-    """Random weights from ``generator`` (which must live on ``device``)."""
+    """Random weights from ``generator`` (which must live on ``device``).
+
+    On an EP group each rank draws every weight from the same seed and
+    keeps its own experts of each MoE layer (``init_moe_params``), so the
+    group's ranks together hold what one rank holds at ``ep_size == 1``."""
     if cfg.frontend != "none":
         raise ValueError(f"{cfg.name}: modality frontends are not ported yet")
     layers = [init_block(cfg, kind, rcfg, pctx, generator, device=device)

@@ -1,10 +1,14 @@
 """Transformer blocks over a shared residual stream.
 
 Mirrors ``repro.models.transformer`` for the block kinds ``attn+moe``,
-``attn+dense``, ``mamba+moe`` and ``mamba+dense`` on a single device
-(``ParallelCtx(mesh=None)``).  JAX groups identical layers into scanned
-segments (and a hybrid's repeating period into one "cycle" segment); here
-the layers are a Python list and each block runs in turn.
+``attn+dense``, ``mamba+moe`` and ``mamba+dense`` on one device
+(``ParallelCtx()``) or on an EP group of R ranks over ``torch.distributed``
+(``ParallelCtx(group=...)``, the counterpart of a mesh whose model axis is
+the EP group and whose data axes have size 1): attention, Mamba and dense
+layers are replicated on every rank, and each MoE block runs the EP layer
+(:func:`_ep_moe_block`).  JAX groups identical layers into scanned segments
+(and a hybrid's repeating period into one "cycle" segment); here the layers
+are a Python list and each block runs in turn.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from repro_torch.models.layers import dense_swiglu, rms_norm
 from repro_torch.models.ssm import SSMConfig, SSMState
 from repro_torch.moe.gating import GatingConfig
 from repro_torch.moe.layer import MoEConfig, default_capacities, init_moe_params
+from repro_torch.parallel import collectives
 
 __all__ = ["RuntimeConfig", "ParallelCtx", "BlockParams", "attn_config",
            "ssm_config", "moe_config", "init_block", "init_cache_block",
@@ -45,17 +50,19 @@ class RuntimeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """Mesh context; only the single-device context (mesh None) is ported."""
+    """Parallel context: the EP group (a
+    :class:`repro_torch.parallel.collectives.EPGroup`), or None for one
+    device.  There is no data axis yet, so the batch is never split."""
 
-    mesh: object = None
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise ValueError("multi-device meshes are not ported yet")
+    group: object = None
 
     @property
     def ep_size(self) -> int:
-        return 1
+        return 1 if self.group is None else self.group.size
+
+    @property
+    def ep_rank(self) -> int:
+        return 0 if self.group is None else self.group.rank
 
     @property
     def batch_size_divisor(self) -> int:
@@ -100,8 +107,8 @@ def ssm_config(cfg: ModelConfig) -> SSMConfig:
 def moe_config(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
                tokens_per_rank: int, *, dispatch_mode: str = "a2a",
                ideal: bool = False) -> MoEConfig:
-    """Mirrors ``repro.models.transformer.moe_config`` on a flat, single
-    rank EP group."""
+    """Mirrors ``repro.models.transformer.moe_config`` on a flat EP group
+    of ``pctx.ep_size`` ranks."""
     m = cfg.moe
     ep = pctx.ep_size
     gating = GatingConfig(
@@ -143,7 +150,8 @@ def init_block(cfg: ModelConfig, kind: str, rcfg: RuntimeConfig,
                                  ((Fd, D), Fd ** -0.5)))
     elif ffn_kind == "moe":
         mcfg = moe_config(cfg, rcfg, pctx, tokens_per_rank=8)  # caps unused
-        moe = init_moe_params(mcfg, generator, dtype=dtype, device=device)
+        moe = init_moe_params(mcfg, generator, dtype=dtype, device=device,
+                              ep_rank=pctx.ep_rank)
     norm2 = None if ffn_kind == "none" else torch.ones(D, dtype=dtype,
                                                        device=device)
     return BlockParams(torch.ones(D, dtype=dtype, device=device), norm2,
@@ -168,6 +176,45 @@ def init_cache_block(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                           ssm_mod.conv_channels(scfg)), dtype=dtype,
                          device=device),
         length=length)
+
+
+def _ep_moe_block(x: torch.Tensor, mp, mcfg: MoEConfig, pctx: ParallelCtx,
+                  router_bias: torch.Tensor | None):
+    """(B, S, D) -> (B, S, D) through the EP layer; returns (y, aux, drops,
+    counts), summed over the group as the reference's shard_map island
+    (``repro.models.transformer._ep_moe_block``) sums them.
+
+    On a group, a prefill chunk's sequence is split over the ranks when S
+    divides by R and the mode is not replicated: each rank runs the layer
+    on its shard of S and an ``all_gather`` puts y back together along S.
+    Otherwise every rank runs the whole batch (decode: ``replicated``
+    dispatch, which merges the ranks' shares inside the layer)."""
+    B, S, D = x.shape
+    g = pctx.group
+    if g is None:
+        y, aux, stats = mp(x.reshape(-1, D), mcfg, router_bias=router_bias)
+        return (y.reshape(B, S, D), aux,
+                stats.drops_dispatch + stats.drops_slot, stats.counts)
+    R = pctx.ep_size
+    replicated = mcfg.dispatch_mode == "replicated"
+    seq_ok = (not replicated) and S % R == 0
+    if seq_ok:
+        Sl = S // R
+        x = x[:, pctx.ep_rank * Sl:(pctx.ep_rank + 1) * Sl]
+    y, aux, stats = mp(x.reshape(-1, D), mcfg, axis_name=g,
+                       router_bias=router_bias)
+    y = y.reshape(x.shape)
+    if seq_ok:
+        y = collectives.all_gather(g, y).permute(1, 0, 2, 3).reshape(B, S, D)
+    drops = stats.drops_dispatch + stats.drops_slot
+    # The global per-expert load: replicated tokens already count it whole.
+    counts = stats.counts
+    if replicated:
+        drops = collectives.all_reduce(g, drops)
+    else:
+        summed = collectives.all_reduce(g, torch.cat([counts, drops[None]]))
+        counts, drops = summed[:-1], summed[-1]
+    return y, collectives.all_reduce(g, aux), drops, counts
 
 
 def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
@@ -212,11 +259,8 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
                                      else S // pctx.ep_size))
             mcfg = moe_config(cfg, rcfg, pctx, tokens_per_rank,
                               dispatch_mode="replicated" if decode else "a2a")
-            y, aux, stats = bp.moe(h2.reshape(-1, D), mcfg,
-                                   router_bias=router_bias)
-            y2 = y.reshape(B, S, D)
-            drops = stats.drops_dispatch + stats.drops_slot
-            counts = stats.counts
+            y2, aux, drops, counts = _ep_moe_block(h2, bp.moe, mcfg, pctx,
+                                                   router_bias)
         else:
             y2 = dense_swiglu(h2, *bp.ffn)
         x = x + y2

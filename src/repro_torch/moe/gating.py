@@ -54,12 +54,19 @@ class GateOut(NamedTuple):
     scores: torch.Tensor       # (T, E) router probabilities (fp32)
 
 
+def _histogram(ids: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """(E,) int64 count of each expert id: ``torch.bincount`` without its
+    read of ``ids.max()`` (a host sync on a CUDA tensor)."""
+    flat = ids.reshape(-1).to(_I64)
+    return torch.zeros(num_experts, dtype=_I64, device=ids.device
+                       ).scatter_add_(0, flat, torch.ones_like(flat))
+
+
 def gshard_aux_loss(scores: torch.Tensor, expert_ids: torch.Tensor,
                     num_experts: int) -> torch.Tensor:
     """GShard load-balancing loss: E * sum_e f_e * P_e."""
     T, k = expert_ids.shape
-    f = torch.bincount(expert_ids.reshape(-1), minlength=num_experts
-                       ).to(torch.float32) / (T * k)
+    f = _histogram(expert_ids, num_experts).to(torch.float32) / (T * k)
     p = scores.mean(dim=0)
     return num_experts * torch.sum(f * p)
 
@@ -82,7 +89,7 @@ def gate(x: torch.Tensor, w_router: torch.Tensor, cfg: GatingConfig, *,
         expert_ids = (base[:, None]
                       + torch.arange(k, dtype=_I64, device=x.device)) % E
         sel = torch.gather(scores, 1, expert_ids)
-        counts = torch.bincount(expert_ids.reshape(-1), minlength=E)
+        counts = _histogram(expert_ids, E)
     if cfg.norm_topk_prob:
         sel = sel / sel.sum(dim=-1, keepdim=True).clamp(min=1e-20)
     sel = sel * cfg.routed_scaling

@@ -2,11 +2,13 @@
 
 Mirrors ``repro.moe.layer``: :func:`moe_layer_local` is the per-rank view of
 one balanced MoE layer and delegates to :func:`repro_torch.moe.stages.
-run_staged_moe`.  This slice runs a single-rank EP group (``ep_size == 1``,
-``axis_name=None``) in the ``a2a`` and ``replicated`` dispatch modes of the
-fused engine, unchunked (no ``overlap_chunks`` or ``dispatch_impl`` options
-yet), with the wire codec (``wire_dtype``) and the w8a8 expert FFN
-(``ffn_dtype``) of DESIGN.md S12.
+run_staged_moe`.  It runs a flat EP group of ``ep_size`` ranks over
+``torch.distributed`` (``axis_name`` the group, an
+:class:`repro_torch.parallel.collectives.EPGroup`; None for one rank) in the
+``a2a`` and ``replicated`` dispatch modes of the fused engine, unchunked
+(no ``overlap_chunks`` or ``dispatch_impl`` options yet), with the wire
+codec (``wire_dtype``) and the w8a8 expert FFN (``ffn_dtype``) of DESIGN.md
+S12.  Forward only: backward through the multi-rank layer is a later slice.
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ class MoEConfig:
     # both ways in "a2a" and the replica weight stream
     ffn_dtype: str = "none"        # expert FFN: "none" (fp) | "int8" (w8a8);
     # with wire_dtype "int8" too, the wire codes feed the kernel directly
+    distribute_chunks: int = 1     # replica stream: reduce-scatters over the
+    # packed weight axis (tile streaming)
 
     def __post_init__(self):
         if self.dispatch_mode not in ("a2a", "replicated"):
@@ -53,6 +57,8 @@ class MoEConfig:
             raise ValueError(f"unknown wire_dtype: {self.wire_dtype!r}")
         if self.ffn_dtype not in FFN_DTYPES:
             raise ValueError(f"unknown ffn_dtype: {self.ffn_dtype!r}")
+        if self.distribute_chunks < 1:
+            raise ValueError("distribute_chunks must be >= 1")
 
     @property
     def layout(self) -> ExpertLayout:
@@ -150,21 +156,34 @@ def default_capacities(tokens_per_rank: int, top_k: int, ep_size: int,
 
 
 def init_moe_params(cfg: MoEConfig, generator: torch.Generator, *,
-                    dtype=torch.float32, device="cuda") -> MoEParams:
+                    dtype=torch.float32, device="cuda",
+                    ep_rank: int = 0) -> MoEParams:
     """Per-rank parameter shard (E_local experts), drawn from ``generator``
-    (which must live on ``device``)."""
+    (which must live on ``device``).
+
+    Every rank draws the weights of all E experts and keeps its own
+    ``[ep_rank * E_local, (ep_rank + 1) * E_local)``, so the ranks of a
+    group draw from one seed what one rank holds at ``ep_size == 1``, and
+    the generator ends in the same state on every rank."""
     E = cfg.gating.num_experts
     epr = E // cfg.ep_size
     D, F = cfg.d_model, cfg.d_ff
+    if not 0 <= ep_rank < cfg.ep_size:
+        raise ValueError(f"ep_rank {ep_rank} of ep_size {cfg.ep_size}")
+    mine = slice(ep_rank * epr, (ep_rank + 1) * epr)
 
     def normal(shape, scale, dt=dtype):
         return torch.randn(shape, generator=generator, dtype=dt,
                            device=device) * scale
 
+    def experts(shape, scale):
+        w = normal((E,) + shape, scale)
+        return w[mine]          # MoEParams copies it into its slot buffer
+
     router = normal((D, E), D ** -0.5, torch.float32)
-    w1 = normal((epr, D, F), D ** -0.5)
-    w3 = normal((epr, D, F), D ** -0.5)
-    w2 = normal((epr, F, D), F ** -0.5)
+    w1 = experts((D, F), D ** -0.5)
+    w3 = experts((D, F), D ** -0.5)
+    w2 = experts((F, D), F ** -0.5)
     shared = [None, None, None]
     if cfg.n_shared_experts > 0:
         Fs = cfg.shared_d_ff * cfg.n_shared_experts
@@ -178,8 +197,12 @@ def moe_layer_local(x: torch.Tensor, params: MoEParams, cfg: MoEConfig, *,
                     ) -> tuple[torch.Tensor, torch.Tensor, MoEStats]:
     """One balanced MoE layer, per-rank view.  x: (T_local, D).
 
-    Returns (y, aux_loss, stats) with y (T_local, D).  ``axis_name`` must be
-    None (single-rank EP group, ``cfg.ep_size == 1``).
+    Returns (y, aux_loss, stats) with y (T_local, D).  ``axis_name`` is the
+    EP group (:class:`repro_torch.parallel.collectives.EPGroup` of
+    ``cfg.ep_size`` ranks, each calling with its own tokens and its
+    ``params`` shard), or None when ``cfg.ep_size == 1``.  In the
+    ``replicated`` mode every rank passes the same tokens and gets the
+    same y.
     """
     return run_staged_moe(x, params, cfg, axis_name=axis_name,
                           router_bias=router_bias)

@@ -1,12 +1,15 @@
 """Staged MoE execution: gate -> plan -> distribute -> dispatch -> compute
 -> combine.
 
-Mirrors the parts of ``repro.moe.stages`` that a single-rank EP group runs
-(``axis_name=None``, ``ep_size == 1``) with the fused permutation engine,
-``overlap_chunks == 1`` and no resilience ladder.  The stage boundaries and
-the typed states between them are the JAX ones, so the multi-rank slice can
-add its collectives at the same seams; the wire codec already sits where the
-exchanges will be.
+Mirrors ``repro.moe.stages`` on a flat EP group of R ranks with the fused
+permutation engine, ``overlap_chunks == 1`` and no resilience ladder.  The
+stage boundaries and the typed states between them are the JAX ones, and
+the collectives sit at the same seams, through
+:mod:`repro_torch.parallel.collectives`: the gate's ``all_gather`` of the
+counts into the load matrix, the replica stream's reduce-scatter, the
+dispatch and combine ``all_to_all`` (``a2a``), and the replicated mode's
+final sum.  A :class:`StageCtx` carries the EP group (None for one rank).
+Forward only: backward through the multi-rank layer is a later slice.
 """
 
 from __future__ import annotations
@@ -30,13 +33,16 @@ from repro_torch.moe.permute import (
     fused_unbucket,
 )
 from repro_torch.moe.reference import swiglu
+from repro_torch.parallel import collectives
 
 __all__ = [
     "MoEStats",
+    "StageCtx",
     "GateState",
     "PlanState",
     "DistributeState",
     "DispatchState",
+    "make_stage_ctx",
     "gate_stage",
     "plan_stage",
     "distribute_stage",
@@ -57,6 +63,11 @@ class MoEStats(NamedTuple):
     post_max: torch.Tensor         # () post-balance max rank load
     max_slot_load: torch.Tensor    # () busiest physical slot occupancy
     counts: torch.Tensor           # (E,) local per-expert load
+
+
+class StageCtx(NamedTuple):
+    cfg: Any               # repro_torch.moe.layer.MoEConfig
+    group: Any             # collectives.EPGroup of cfg.ep_size ranks, or None
 
 
 class GateState(NamedTuple):
@@ -90,28 +101,62 @@ class DispatchState(NamedTuple):
     #   scales of int8 xs when wire_dtype == ffn_dtype == "int8"
 
 
-def _check_single_rank(cfg, axis_name) -> None:
-    if axis_name is not None:
-        raise ValueError("multi-rank EP is not ported yet; axis_name must be None")
-    if cfg.ep_size != 1:
-        raise ValueError("axis_name=None requires ep_size == 1")
+def make_stage_ctx(cfg, axis_name) -> StageCtx:
+    """Validate the (ep_size, group) pairing once, up front (mirrors
+    ``repro.moe.stages.make_stage_ctx`` on a flat EP axis)."""
+    if axis_name is None:
+        if cfg.ep_size != 1:
+            raise ValueError("axis_name=None requires ep_size == 1")
+    elif axis_name.size != cfg.ep_size:
+        raise ValueError(f"ep_size={cfg.ep_size} on an EP group of "
+                         f"{axis_name.size} ranks")
+    return StageCtx(cfg=cfg, group=axis_name)
 
 
-def gate_stage(cfg, x: torch.Tensor, router: torch.Tensor,
+def _exchange(ctx: StageCtx, buf: torch.Tensor) -> torch.Tensor:
+    """(R, ...) destination-major buffer through the EP fabric (its own
+    inverse: the return wire is the same call)."""
+    return buf if ctx.group is None else collectives.all_to_all(ctx.group,
+                                                                buf)
+
+
+def gate_stage(ctx: StageCtx, x: torch.Tensor, router: torch.Tensor,
                router_bias: torch.Tensor | None = None) -> GateState:
-    """Gate the microbatch; with one rank the load matrix is the counts."""
+    """Gate the microbatch and gather the exact EP load matrix."""
+    cfg = ctx.cfg
+    R = cfg.ep_size
     gate_out = gate(x, router, cfg.gating, bias=router_bias)
-    return GateState(gate_out=gate_out, lam=gate_out.counts[None], my=0)
+    counts = gate_out.counts
+    if cfg.dispatch_mode == "replicated":
+        # Tokens are identical on every EP rank, so the counts are already
+        # the group's totals: no collective.  The load is attributed to the
+        # experts' home ranks (source locality is vacuous here).
+        home = cfg.layout.home(x.device)
+        lam = (torch.nn.functional.one_hot(home, R).to(counts.dtype)
+               * counts[:, None]).T
+    elif ctx.group is not None:
+        lam = collectives.all_gather(ctx.group, counts)
+    else:
+        lam = counts[None]
+    return GateState(gate_out=gate_out, lam=lam,
+                     my=0 if ctx.group is None else ctx.group.rank)
 
 
-def plan_stage(cfg, gs: GateState) -> PlanState:
-    """Solve the balancer on the full-batch load (once per microbatch)."""
+def plan_stage(ctx: StageCtx, gs: GateState) -> PlanState:
+    """Solve the balancer on the full-batch load (once per microbatch).
+
+    The load's total is at most R x tokens per rank x top-k, which the
+    host knows: the solve's int32 bound on the card."""
+    cfg = ctx.cfg
     layout = cfg.layout
-    plan = balancer_mod.solve(gs.lam, layout.home(gs.lam.device), cfg.balancer)
+    T, k = gs.gate_out.expert_ids.shape
+    plan = balancer_mod.solve(gs.lam, layout.home(gs.lam.device),
+                              cfg.balancer, load_bound=cfg.ep_size * T * k)
     return PlanState(plan=plan, slot_of_all=physical_slot_of(layout, plan.x))
 
 
-def distribute_stage(cfg, params, gs: GateState, ps: PlanState) -> DistributeState:
+def distribute_stage(ctx: StageCtx, params, gs: GateState,
+                     ps: PlanState) -> DistributeState:
     """Main + replica weights per physical slot.
 
     The JAX stage concatenates mains and replicas into fresh arrays, a copy
@@ -122,11 +167,13 @@ def distribute_stage(cfg, params, gs: GateState, ps: PlanState) -> DistributeSta
     ``repro_torch.moe.layer.MoEParams``).  Quantization is independent per
     slot, so the codes are those the reference computes.
     """
+    cfg = ctx.cfg
     n_main = cfg.layout.experts_per_rank
     slots = params.slot_buffers()
     materialize_replica_stack(
-        (params.w1, params.w3, params.w2), ps.plan.x, gs.my, None,
-        out=tuple(w[n_main:] for w in slots), wire_dtype=cfg.wire_dtype)
+        (params.w1, params.w3, params.w2), ps.plan.x, gs.my, ctx.group,
+        out=tuple(w[n_main:] for w in slots),
+        n_chunks=cfg.distribute_chunks, wire_dtype=cfg.wire_dtype)
     q8 = None
     if cfg.ffn_dtype == "int8":
         q8 = params.q8_slot_buffers()
@@ -137,9 +184,15 @@ def distribute_stage(cfg, params, gs: GateState, ps: PlanState) -> DistributeSta
     return DistributeState(*slots, q8=q8)
 
 
-def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
-                   gs: GateState, ps: PlanState) -> DispatchState:
-    """Reroute one token chunk into this rank's slot buffers."""
+def dispatch_stage(ctx: StageCtx, x_chunk: torch.Tensor,
+                   expert_ids: torch.Tensor, gs: GateState,
+                   ps: PlanState) -> DispatchState:
+    """Reroute one token chunk into this rank's slot buffers.
+
+    ``replicated``: every rank holds every token and buckets its own share
+    of the items (the outputs are merged by a sum after the combine);
+    ``a2a``: the send buffers and their counts go through the EP fabric."""
+    cfg = ctx.cfg
     num_slots = cfg.layout.slots_per_rank
     zero = torch.zeros((), dtype=_I64, device=x_chunk.device)
     if cfg.dispatch_mode == "replicated":
@@ -149,8 +202,8 @@ def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
         return DispatchState(xs=rb.xs, valid=rb.valid, inverse=rb,
                              drops_dispatch=zero, drops_slot=rb.drops,
                              rows=rb.rows)
-    # The payload is encoded before the exchange (with one rank, the
-    # identity) and decoded only after bucketing; routing lives in the
+    # The payload is encoded before the exchange and decoded only after
+    # bucketing; routing lives in the
     # count metadata, so placement does not depend on the wire dtype.  The
     # reference encodes the send buffer; the codec works row by row and
     # maps the buffer's zero padding to zeros, so encoding the T source
@@ -159,9 +212,10 @@ def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
     disp = fused_dispatch(encode_wire(x_chunk, cfg.wire_dtype), expert_ids,
                           ps.plan.cum_q[gs.my], ps.slot_of_all,
                           num_slots=num_slots, cap_pair=cfg.cap_pair)
+    recv_x = _exchange(ctx, disp.send_x)
+    recv_c = _exchange(ctx, disp.send_counts)
     xs, valid, meta, slot_drops, rows = fused_bucket(
-        disp.send_x, disp.send_counts, num_slots=num_slots,
-        cap_slot=cfg.cap_slot)
+        recv_x, recv_c, num_slots=num_slots, cap_slot=cfg.cap_slot)
     xs_scale = None
     if cfg.wire_dtype == "int8" and cfg.ffn_dtype == "int8":
         xs, xs_scale = split_wire_int8(xs)   # codes go to the kernel as-is
@@ -172,25 +226,29 @@ def dispatch_stage(cfg, x_chunk: torch.Tensor, expert_ids: torch.Tensor,
                          xs_scale=xs_scale, rows=rows)
 
 
-def compute_stage(cfg, ds: DispatchState, dist: DistributeState) -> torch.Tensor:
+def compute_stage(ctx: StageCtx, ds: DispatchState,
+                  dist: DistributeState) -> torch.Tensor:
     """Grouped FFN over this rank's physical slots (two kernels, fp or
     w8a8); the kernels skip each slot's padded rows on the device."""
     return grouped_ffn(ds.xs, ds.valid, dist.w1_all, dist.w3_all, dist.w2_all,
-                       ffn_dtype=cfg.ffn_dtype, xs_scale=ds.xs_scale,
+                       ffn_dtype=ctx.cfg.ffn_dtype, xs_scale=ds.xs_scale,
                        wq=dist.q8, rows=ds.rows)
 
 
-def combine_stage(cfg, ds: DispatchState, out: torch.Tensor,
+def combine_stage(ctx: StageCtx, ds: DispatchState, out: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
     """Route FFN outputs back and reduce each token's k contributions.
 
     The return wire carries the forward wire's codec; the replicated mode
-    has no exchange and no codec, as in the reference.
+    has no exchange and no codec, as in the reference, and returns this
+    rank's share (run_staged_moe sums the ranks' shares).
     """
+    cfg = ctx.cfg
     if cfg.dispatch_mode == "replicated":
         return fused_replicated_combine(out, ds.inverse, weights)
     disp, meta = ds.inverse
-    ret = encode_wire(fused_unbucket(out, meta), cfg.wire_dtype)
+    ret = _exchange(ctx, encode_wire(fused_unbucket(out, meta),
+                                     cfg.wire_dtype))
     return fused_combine(decode_wire(ret, cfg.wire_dtype, out.dtype), disp,
                          weights)
 
@@ -219,14 +277,20 @@ def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
                    router_bias: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, MoEStats]:
     """One balanced MoE layer: gate -> plan -> distribute -> dispatch ->
-    compute -> combine (+ shared expert).  Returns (y, aux_loss, stats)."""
-    _check_single_rank(cfg, axis_name)
-    gs = gate_stage(cfg, x, params.router, router_bias)
-    ps = plan_stage(cfg, gs)
-    dist = distribute_stage(cfg, params, gs, ps)
-    ds = dispatch_stage(cfg, x, gs.gate_out.expert_ids, gs, ps)
-    out = compute_stage(cfg, ds, dist)
-    y = combine_stage(cfg, ds, out, gs.gate_out.weights)
+    compute -> combine (+ shared expert).  Returns (y, aux_loss, stats).
+
+    ``axis_name``: the EP group (:class:`repro_torch.parallel.collectives.
+    EPGroup` of ``cfg.ep_size`` ranks), or None for one rank."""
+    ctx = make_stage_ctx(cfg, axis_name)
+    gs = gate_stage(ctx, x, params.router, router_bias)
+    ps = plan_stage(ctx, gs)
+    dist = distribute_stage(ctx, params, gs, ps)
+    ds = dispatch_stage(ctx, x, gs.gate_out.expert_ids, gs, ps)
+    out = compute_stage(ctx, ds, dist)
+    y = combine_stage(ctx, ds, out, gs.gate_out.weights)
+    if cfg.dispatch_mode == "replicated" and ctx.group is not None:
+        # One rank-merge over the whole batch, as the reference's psum.
+        y = collectives.all_reduce(ctx.group, y)
     if cfg.n_shared_experts > 0:
         y = y + swiglu(x, params.shared_w1, params.shared_w3, params.shared_w2)
     stats = MoEStats(

@@ -2,8 +2,10 @@
 
 One test runs a reduced prefill of each ported arch (and of GLM-4.5-Air
 under the int8 wire and w8a8 FFN) in a subprocess where ``import jax``
-fails, through the gating and flash-attention wrappers;
-the other reads every source file of the port and ``chip_smoke.py``.
+fails, through the gating and flash-attention wrappers, then the plan
+solve at R = 4 (``kernels/plan_solve``) and a MoE layer on a one-rank gloo
+group through every collective of ``parallel/``; the other reads every
+source file of the port and ``chip_smoke.py``.
 """
 
 import ast
@@ -43,6 +45,32 @@ for arch, q8 in (("glm45-106b-a12b", "none"), ("jamba-v0.1-52b", "none"),
     logits, _ = prefill_step(params, caches, toks, cfg, rcfg, ParallelCtx())
     assert logits.shape == (1, 32, cfg.vocab_size)
     assert torch.isfinite(logits).all()
+
+import dataclasses
+import socket
+from repro_torch.core import planner
+from repro_torch.kernels.plan_solve import ops as plan_ops
+from repro_torch.moe.gating import GatingConfig
+from repro_torch.moe.layer import MoEConfig, init_moe_params, moe_layer_local
+from repro_torch.parallel import collectives
+lam = torch.from_numpy(np.random.default_rng(0).integers(0, 50, (4, 16)))
+plan = planner.solve_plan(lam, torch.arange(16) // 4, n_slot=2)
+assert (plan.x >= 0).any() and int(plan.post_max) < int(plan.pre_max)
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+group = collectives.init("gloo", world_size=1, rank=0,
+                         init_method=f"tcp://localhost:{port}")
+cfg = MoEConfig(gating=GatingConfig(num_experts=16, top_k=2),
+                balancer=BalancerConfig(mode="ultraep"), d_model=32, d_ff=16,
+                ep_size=1, cap_pair=256, cap_slot=256)
+p = init_moe_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+x = torch.randn(64, 32, generator=torch.Generator().manual_seed(1))
+for mode in ("a2a", "replicated"):
+    c = dataclasses.replace(cfg, dispatch_mode=mode)
+    y_group = moe_layer_local(x, p, c, axis_name=group)[0]
+    assert torch.equal(y_group, moe_layer_local(x, p, c)[0])
+collectives.destroy()
 assert not any(m == "repro" or m.startswith(("repro.", "jax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

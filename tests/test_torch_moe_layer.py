@@ -158,9 +158,10 @@ def test_bucket_rows_are_the_valid_prefix(seed, cap_slot, mode, balancer):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32)
                          * rng.uniform(0.5, 4.0))
-    gs = stages.gate_stage(tcfg, x, tp.router)
-    ps = stages.plan_stage(tcfg, gs)
-    ds = stages.dispatch_stage(tcfg, x, gs.gate_out.expert_ids, gs, ps)
+    ctx = stages.make_stage_ctx(tcfg, None)
+    gs = stages.gate_stage(ctx, x, tp.router)
+    ps = stages.plan_stage(ctx, gs)
+    ds = stages.dispatch_stage(ctx, x, gs.gate_out.expert_ids, gs, ps)
     assert ds.rows.shape == (tcfg.layout.slots_per_rank,)
     assert torch.equal(ds.rows, ds.valid.sum(dim=1))
     p = torch.arange(ds.valid.shape[1])
