@@ -10,9 +10,9 @@ Phases, one output line each:
      GLM-4.5-Air and Jamba-v0.1 prefill and decode shapes with every row
      valid, at ragged shapes, and with each slot's valid-row count as the
      serve path makes it (the port's gate, ``ultraep`` plan and bucket on
-     seeded tokens at GLM prefill, GLM decode and Jamba prefill: padded rows
-     must come out exactly zero), in bf16 (max|err| <= 1e-2 max|ref|: one
-     bf16 rounding of the output) and fp32 (max|err| <= 1e-4 max|ref|: the
+     seeded tokens at GLM prefill, GLM decode, Jamba prefill and DeepSeek-V3
+     prefill and decode: padded rows must come out exactly zero), in bf16
+     (max|err| <= 1e-2 max|ref|: one bf16 rounding of the output) and fp32 (max|err| <= 1e-4 max|ref|: the
      kernels' 3xTF32 products; GLM dense at G 8, prefill and decode serve
      counts, and counts that straddle a tile with NaN in the padded rows),
      with the kernel's, the plain version's and a library call's
@@ -43,7 +43,8 @@ Phases, one output line each:
      (cuBLAS int8) over every row plus the dequant in PyTorch; then
      ``gating_topk`` against
      its plain version at the GLM/Qwen3 prefill (T 4096, E 128, k 8) and
-     decode (T 4) shapes, Jamba's (E 16, k 2), sigmoid at E 256, a ragged
+     decode (T 4) shapes, Jamba's (E 16, k 2), sigmoid at E 256 (DeepSeek-V3's
+     prefill and decode), a ragged
      shape and a tie case (duplicated router columns, all-zero rows): ids
      equal wherever the plain k-th and (k+1)-th scores differ by more than
      1e-6 relative (every row of the tie case), counts equal the histogram of
@@ -70,7 +71,11 @@ Phases, one output line each:
      at the split edges (decode rows of length 1, of exactly one split,
      ending on a split edge, and of the full capacity), at G 16 with Sq not
      a multiple of 8, with a q tile straddling kv_valid_len, at hd 64 on
-     the wgmma kernel and hd 16 on the mma.sync kernel; each case asserts
+     the wgmma kernel and hd 16 on the mma.sync kernel, and at DeepSeek-V3's
+     MLA dims (q/k 192, v 128 as a strided view, 128 heads): its serve chunk
+     (4096 queries at offset 4096) on the wgmma kernel and 64 queries at B 1
+     on the split-KV kernel, SDPA under the first backend that takes
+     unequal head dims, named; each case asserts
      the kernel the wrapper picked (``launches_by_kernel``) and holds each
      output row (batch row, query position, head) within a share of its
      own max|ref|: 1e-2 in bf16 (P and the output rounded to bf16), 1e-4 in
@@ -110,6 +115,16 @@ Phases, one output line each:
      ``main``) on each of the three archs in fp32 (its default) and bf16 at
      chunk 64 (every flash call on the split-KV kernel), and on GLM-4.5-Air
      at chunk 4096 (prefill on the fp32 and the hd-16 mma.sync kernels);
+     then DeepSeek-V3 at full width with one layer in fp32, whose first
+     prefill must raise a ValueError naming (192, 128), a bf16-only pair;
+ 10. one DeepSeek-V3 MLA layer at full width: bf16 ``mla_prefill`` of a
+     4096-token chunk at offset 4096 through the flash kernel against the
+     plain flash on the card (1e-2 max|ref|, caches equal), and in fp32 the
+     absorbed ``mla_decode`` against a one-token ``mla_prefill`` at the same
+     positions through the plain flash (1e-4 max|ref|);
+ 11. ``serve_trace`` on DeepSeek-V3 at every published width with depth cut
+     to 4 layers (3 dense, 1 MoE: 256 experts top-8, sigmoid router, routed
+     scaling 2.5, a shared expert), bf16, with the settings of phase 4;
   9. the EP layer at R = 2 on the one card: two processes (spawn), one
      gloo group that carries CUDA tensors (each collective's result
      checked first), GLM-4.5-Air at full width, one MoE layer, 4096 bf16
@@ -127,7 +142,10 @@ Phases, one output line each:
      attention layer and engine call, by the kernel its shapes select (on
      the hd-128 paths of phases 4, 6, 7: prefill calls through the TMA +
      wgmma kernel, in phase 4c through the fp32 prefill kernel, decode
-     calls through the split-KV kernel, never the hd-16 mma.sync kernel),
+     calls through the split-KV kernel, never the hd-16 mma.sync kernel;
+     on DeepSeek-V3's path, phase 11, prefill calls through the wgmma
+     kernel at (192, 128) and no flash call at decode, which attends on
+     the latent cache),
      and ``gating_topk`` and the path's two grouped
      GEMMs (bf16/fp32 or w8a8) once per MoE layer and engine call, and no
      operand of any of them was copied for TMA (``padded_copies`` 0);
@@ -311,7 +329,7 @@ def _serve_rows(cfg, T: int, mode: str, seed: int):
     return ds.rows, cap
 
 
-def phase_kernels(glm, jamba) -> dict:
+def phase_kernels(glm, jamba, deepseek) -> dict:
     """Both grouped-GEMM kernels vs their plain versions, every row valid
     and at the serve path's row counts; returns the records by name."""
     import torch
@@ -330,6 +348,11 @@ def phase_kernels(glm, jamba) -> dict:
              ("decode_serve", (glm, 4, "replicated"), torch.bfloat16, 20),
              ("jamba_prefill_serve", (jamba, 4096, "a2a"), torch.bfloat16,
               5),
+             # DeepSeek-V3: 256 mains + 2 replicas, d_model 7168, d_ff 2048.
+             ("deepseek_prefill_serve", (deepseek, 4096, "a2a"),
+              torch.bfloat16, 3),
+             ("deepseek_decode_serve", (deepseek, 4, "replicated"),
+              torch.bfloat16, 10),
              ("fp32_g8", dict(PREFILL, G=8), torch.float32, 3),
              ("prefill_serve_fp32", (glm, 4096, "a2a"), torch.float32, 3),
              ("decode_serve_fp32", (glm, 4, "replicated"), torch.float32, 20),
@@ -940,6 +963,7 @@ def phase_gating() -> dict:
              ("decode", 4, 128, 8, "softmax", 50),
              ("jamba_prefill", 4096, 16, 2, "softmax", 50),
              ("sigmoid_e256", 4096, 256, 8, "sigmoid", 20),
+             ("sigmoid_e256_decode", 4, 256, 8, "sigmoid", 50),
              ("ragged", 1000, 60, 6, "softmax", 0),
              ("sigmoid_e256_bias", 4096, 256, 8, "sigmoid", 20),
              ("ties", 4096, 128, 8, "softmax", 0),
@@ -1234,6 +1258,31 @@ def _sdpa_free(q, k, v, causal, q_off, kv_len):
     return None
 
 
+def _sdpa_unequal(qt, kt, vt, mask):
+    """Where q/k and v differ in head dim (MLA), the masked library call
+    under the first backend that takes those dims (memory-efficient, then
+    cuDNN; the flash backend takes one head dim, the math one would
+    materialise every score): (call, backend) or None."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                call()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    return None
+
+
 def phase_flash() -> dict:
     """``flash_attention`` vs its plain version; returns the records by
     case, each with the kernel that ran."""
@@ -1305,20 +1354,33 @@ def phase_flash() -> dict:
              ("hd16_fp32", 8, 512, 1024, 8, 2, 16, fp32, True,
               [0, 1, 2, 3, 4, 5, 6, 500],
               [512, 600, 700, 800, 900, 1000, 1024, 1012], "prefill_f32",
-              5)]
+              5),
+             # DeepSeek-V3's MLA prefill: q/k 192, v 128, 128 heads with
+             # Hkv = H; its serve chunk at offset 4096, and a chunk of 64
+             # queries at B 1, which the split-KV kernel takes.
+             ("mla_prefill_at_4096", 1, 4096, SERVE_SK, 128, 128, (192, 128),
+              bf16, True, [4096], [8192], wg, 10),
+             ("mla_prefill_64", 1, 64, SERVE_SK, 128, 128, (192, 128), bf16,
+              True, [4096], [4160], split, 20)]
     records = {}
     for (tag, B, Sq, Sk, H, Hkv, hd, dtype, causal, q_off, kv_len, want,
          iters) in cases:
+        hd, hd_v = hd if isinstance(hd, tuple) else (hd, hd)
         kind = "bf16" if dtype == bf16 else "fp32"
         g = torch.Generator(device="cuda").manual_seed(len(tag))
+        # Where v is narrower than q/k (MLA), it is what MLA prefill passes:
+        # the last hd_v columns of the expanded latent, a strided view.
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
                    for shape in ((B, Sq, H, hd), (B, Sk, Hkv, hd),
-                                 (B, Sk, Hkv, hd)))
+                                 (B, Sk, Hkv, hd if hd_v == hd else 2 * hd_v)))
+        v = v[..., -hd_v:]
         off = torch.tensor(q_off, device="cuda")
         lim = torch.tensor(kv_len, device="cuda")
         kw = dict(causal=causal, q_offset=off, kv_valid_len=lim)
-        rec = {"shape": [B, Sq, Sk, H, Hkv, hd], "dtype": kind,
-               "causal": causal, "q_offset": q_off, "kv_valid_len": kv_len}
+        rec = {"shape": [B, Sq, Sk, H, Hkv, hd] + ([hd_v] if hd_v != hd
+                                                   else []),
+               "dtype": kind, "causal": causal, "q_offset": q_off,
+               "kv_valid_len": kv_len}
         before = dict(ops.flash_attention.launches_by_kernel)
         out = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1350,12 +1412,17 @@ def phase_flash() -> dict:
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
 
+        if hd_v != hd:
+            masked = _sdpa_unequal(qt, kt, vt, mask)
+            sdpa, rec["sdpa_masked_backend"] = masked or (None, None)
         # Their own rounding may differ from the kernel's; a wrong mask
         # would differ by O(max|ref|).
-        rec["library_max_abs_err"], _ = _max_err(sdpa().transpose(1, 2), ref)
-        if not rec["library_max_abs_err"] <= 5e-2 * rec["max_abs_ref"]:
-            raise AssertionError(f"sdpa yardstick {tag} differs: "
-                                 f"{rec['library_max_abs_err']}")
+        if sdpa is not None:
+            rec["library_max_abs_err"], _ = _max_err(
+                sdpa().transpose(1, 2), ref)
+            if not rec["library_max_abs_err"] <= 5e-2 * rec["max_abs_ref"]:
+                raise AssertionError(f"sdpa yardstick {tag} differs: "
+                                     f"{rec['library_max_abs_err']}")
         free = _sdpa_free(q, k, v, causal, q_off, kv_len)
         if free is not None:
             free_call, rec["sdpa_free_backend"], rec["sdpa_free_gqa"] = free
@@ -1367,8 +1434,8 @@ def phase_flash() -> dict:
         pairs, keys = _flash_pairs(Sq, causal, q_off, kv_len)
         rec["pairs"] = pairs
         if iters:
-            flops = 4.0 * hd * H * pairs
-            nbytes = q.element_size() * hd * (2 * B * Sq * H + 2 * keys * Hkv)
+            flops = 2.0 * (hd + hd_v) * H * pairs
+            nbytes = q.element_size() * (hd + hd_v) * (B * Sq * H + keys * Hkv)
             rec.update(_time_pair(
                 lambda: ops.flash_attention(q, k, v, **kw),
                 lambda: ops.flash_attention_ref(q, k, v, **kw), None,
@@ -1384,13 +1451,28 @@ def phase_flash() -> dict:
             rec["ms_eager"] = rec["ms"]
             rec["ms"] = _graph_ms(lambda: ops.flash_attention(q, k, v, **kw),
                                   iters)
-            rec["sdpa_masked_ms"] = _graph_ms(sdpa, iters)
+            rec["sdpa_masked_ms"] = (None if sdpa is None
+                                     else _graph_ms(sdpa, iters))
             rec["sdpa_free_ms"] = (None if free is None
                                    else _graph_ms(free[0], iters))
-            rec["library_ms"] = min(t for t in (rec["sdpa_masked_ms"],
-                                                rec["sdpa_free_ms"])
-                                    if t is not None)
-            rec["slower_than_library"] = rec["ms"] / rec["library_ms"]
+            lib = [t for t in (rec["sdpa_masked_ms"], rec["sdpa_free_ms"])
+                   if t is not None]
+            rec["library_ms"] = min(lib) if lib else None
+            rec["slower_than_library"] = (None if not lib
+                                          else rec["ms"] / rec["library_ms"])
+            if tag == "mla_prefill_64":
+                # The same call forced onto the wgmma kernel (a plan for a
+                # card of one SM): 128 blocks, one q tile a head, beside
+                # the split-KV kernel the plan picks at 128 heads < 132 SMs.
+                forced = ops._launch(q, k, v, causal, off, lim, None, sms=1)
+                if forced[1] != wg:
+                    raise AssertionError(f"{tag}: {forced[1]} ran, not {wg}")
+                rec["wgmma_max_row_rel_err"] = _check_rows(
+                    f"flash_attention {tag} on wgmma", forced[0], ref,
+                    FLASH_TOL[kind])[2]
+                rec["wgmma_ms"] = _graph_ms(
+                    lambda: ops._launch(q, k, v, causal, off, lim, None,
+                                        sms=1), iters)
         records[tag] = rec
         del q, k, v, out, ref, mask, qt, kt, vt, free
         torch.cuda.empty_cache()
@@ -1508,22 +1590,26 @@ def phase_serve(cfg, tag: str, beside: dict | None = None,
 
 
 def _check_kernel_calls(path: str, launches: dict, copies: dict, cfg,
-                        calls: dict, ffn_dtype: str = "none") -> None:
+                        calls: dict, ffn_dtype: str = "none",
+                        engine_calls: int | None = None) -> None:
     """No attention, gate or expert FFN call went around its kernel: one
-    launch per attention (MoE) layer and engine call; the flash calls by
-    the kernel ``calls`` names for them (``calls``: flash kernel -> engine
+    gate and expert FFN launch per MoE layer and engine call
+    (``engine_calls``, by default the sum of ``calls``), one flash launch
+    per attention layer and engine call that attends through it, by the
+    kernel ``calls`` names for them (``calls``: flash kernel -> engine
     calls, e.g. prefill calls through ``prefill_wgmma``; every other flash
-    kernel must not have run); and no operand of the grouped GEMMs was
-    copied for TMA."""
+    kernel must not have run; MLA decode attends without it); and no
+    operand of the grouped GEMMs was copied for TMA."""
     from repro_torch.configs import layer_kinds
     from repro_torch.kernels.flash_attention.ops import KERNELS
 
     kinds = layer_kinds(cfg)
     moe = sum(k.endswith("+moe") for k in kinds)
     attn = sum(k.startswith("attn+") for k in kinds)
-    total = sum(calls.values())
+    flash = sum(calls.values())
+    total = flash if engine_calls is None else engine_calls
     ffn = ("_q8" if ffn_dtype == "int8" else "")
-    expect = [("flash_attention", attn * total), ("gating_topk", moe * total),
+    expect = [("flash_attention", attn * flash), ("gating_topk", moe * total),
               ("grouped_swiglu" + ffn, moe * total),
               ("grouped_matmul" + ffn, moe * total)]
     expect += [(f"flash_attention.{k}", attn * calls.get(k, 0))
@@ -1546,7 +1632,13 @@ def phase_serve_cli() -> dict:
     every attention and gate call of the run went through its kernel.  At
     chunk 64 no prefill grid fills the card, so every flash call takes the
     split-KV kernel; at chunk 4096 the prefill calls take the fp32 and the
-    hd-16 ``mma.sync`` kernels."""
+    hd-16 ``mma.sync`` kernels.  Then DeepSeek-V3 at full width, one
+    layer, in fp32: the flash kernel takes MLA's (192, 128) in bf16 only,
+    so its first prefill must raise a ValueError that names the dims."""
+    import gc
+
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.configs.reduce import reduced
     from repro_torch.launch.serve import main as serve_main
@@ -1589,8 +1681,123 @@ def phase_serve_cli() -> dict:
                         "mean_ttft_s": float(eng.ttft().mean()),
                         "mean_tpot_s": float(eng.tpot().mean()),
                         "launches": launches}
+    # DeepSeek-V3 at full width, one layer, in fp32 (the CLI's default):
+    # MLA prefill's (192, 128) is a bf16-only pair of the flash kernel, so
+    # the first prefill raises a ValueError that names it, and nothing ran
+    # in its place.
+    _reset_launches()
+    try:
+        serve_main(["--arch", "deepseek-v3-671b", "--layers", "1",
+                    "--requests", "1", "--chunk", "256", "--max-new", "2"])
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("serve cli deepseek-v3-671b fp32: no error")
+    if "(192, 128)" not in refused or _launches()["flash_attention"]:
+        raise AssertionError(f"serve cli deepseek-v3-671b fp32: {refused!r}, "
+                             f"{_launches()['flash_attention']} launches")
+    records["deepseek-v3-671b_float32_refused"] = {"error": refused,
+                                                   "launches": _launches()}
+    gc.collect()
+    torch.cuda.empty_cache()
     _line("phase7b_serve_cli", records)
     return records
+
+
+def phase_mla_layer(deepseek) -> dict:
+    """One DeepSeek-V3 MLA layer at full width (128 heads, q_lora 1536,
+    kv_lora 512, q/k 192, v 128) on the card: (a) bf16 ``mla_prefill`` of
+    a 4096-token chunk at offset 4096 over the serve cache (SERVE_SK
+    positions, seeded latents before it) through the flash kernel (one
+    ``prefill_wgmma`` launch) against the same call through the plain
+    flash: y within FLASH_TOL bf16 of max|ref|, the caches equal; (b) in
+    fp32, the absorbed ``mla_decode`` at positions 4096 and 777 (B 2)
+    against a one-token ``mla_prefill`` at the same offsets through the
+    plain flash, which expands K and V: y within 1e-4 of max|ref| (the
+    absorbed algebra; fp32 products in another order)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import attn_config
+
+    acfg = attn_config(deepseek)
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    @contextlib.contextmanager
+    def plain_flash():
+        saved = attention.flash_attention
+        attention.flash_attention = ops.flash_attention_ref
+        try:
+            yield
+        finally:
+            attention.flash_attention = saved
+
+    def cache(lengths, dtype):
+        B = len(lengths)
+        return attention.KVCache(*(
+            torch.randn((B, SERVE_SK, n), generator=g, device="cuda").to(dtype)
+            for n in (deepseek.kv_lora_rank, deepseek.qk_rope_dim)),
+            torch.tensor(lengths, device="cuda"))
+
+    result = {}
+    with torch.inference_mode():
+        p16 = attention.init_mla(acfg, g, dtype=torch.bfloat16, device="cuda")
+        c16 = cache([4096], torch.bfloat16)
+        x = torch.randn((1, 4096, deepseek.d_model), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        _reset_launches()
+        y, new = attention.mla_prefill(x, c16, p16, acfg)
+        torch.cuda.synchronize()
+        launches = _launches()
+        with plain_flash():
+            y_ref, new_ref = attention.mla_prefill(x, c16, p16, acfg)
+        torch.cuda.synchronize()
+        if launches["flash_attention.prefill_wgmma"] != 1 or \
+                _launches()["flash_attention"] != 1:
+            raise AssertionError(f"mla layer bf16: flash launches "
+                                 f"{launches}, then {_launches()}")
+        err, scale = _max_err(y, y_ref)
+        if not (torch.isfinite(y).all() and err <= FLASH_TOL["bf16"] * scale):
+            raise AssertionError(f"mla layer bf16: max|err| {err:.3e} > "
+                                 f"{FLASH_TOL['bf16']} * max|ref| {scale:.3e}")
+        if not all(torch.equal(a, b) for a, b in zip(new, new_ref)):
+            raise AssertionError("mla layer bf16: the caches differ")
+        result["prefill_bf16"] = {"chunk": 4096, "q_offset": 4096,
+                                  "cache": SERVE_SK, "max_abs_err": err,
+                                  "max_abs_ref": scale,
+                                  "tol": FLASH_TOL["bf16"]}
+        del p16, c16, x, y, new, y_ref, new_ref
+        torch.cuda.empty_cache()
+
+        p32 = attention.init_mla(acfg, g, dtype=torch.float32, device="cuda")
+        c32 = cache([4096, 777], torch.float32)
+        x = torch.randn((2, 1, deepseek.d_model), generator=g, device="cuda")
+        _reset_launches()
+        y_dec, _ = attention.mla_decode(x, c32, p32, acfg)
+        with plain_flash():
+            y_pre, _ = attention.mla_prefill(x, c32, p32, acfg)
+        torch.cuda.synchronize()
+        err, scale = _max_err(y_dec, y_pre)
+        if _launches()["flash_attention"] or not (
+                torch.isfinite(y_dec).all() and err <= 1e-4 * scale):
+            raise AssertionError(f"mla layer fp32: absorbed decode max|err| "
+                                 f"{err:.3e} > 1e-4 * max|ref| {scale:.3e}, "
+                                 f"or the flash kernel ran")
+        result["decode_absorbed_fp32"] = {"positions": [4096, 777],
+                                          "max_abs_err": err,
+                                          "max_abs_ref": scale, "tol": 1e-4}
+        del p32, c32, x, y_dec, y_pre
+    torch.cuda.empty_cache()
+    _line("phase10_mla_layer", {"heads": deepseek.num_heads,
+                                "q_lora": deepseek.q_lora_rank,
+                                "kv_lora": deepseek.kv_lora_rank,
+                                "qk_head_dim": deepseek.qk_nope_dim
+                                + deepseek.qk_rope_dim,
+                                "v_head_dim": deepseek.v_head_dim, **result})
+    return result
 
 
 def _ep_worker(rank, world, port, out_dir):
@@ -1872,8 +2079,9 @@ def main() -> int:
     glm = get_config("glm45-106b-a12b")
     jamba = get_config("jamba-v0.1-52b")
     qwen3 = get_config("qwen3-235b-a22b")
+    deepseek = get_config("deepseek-v3-671b")
     phase_card()
-    records = phase_kernels(glm, jamba)
+    records = phase_kernels(glm, jamba, deepseek)
     ssd_records = phase_ssd()
     q8_records = phase_kernels_q8(glm)
     gating_records = phase_gating()
@@ -1894,13 +2102,20 @@ def main() -> int:
     qwen3_serve = phase_serve(
         dataclasses.replace(qwen3, name=qwen3.name + "-2l", num_layers=2),
         "phase7_serve_qwen3", beside=glm_serve)
+    phase_mla_layer(deepseek)
+    # 3 dense layers (first_dense_layers) and 1 MoE layer.
+    deepseek_serve = phase_serve(
+        dataclasses.replace(deepseek, name=deepseek.name + "-4l",
+                            num_layers=4),
+        "phase11_serve_deepseek", beside=glm_serve)
     cli_records = phase_serve_cli()
     ep = phase_ep_layer()
     serves = {"glm45-106b-a12b": glm_serve,
               "glm45-106b-a12b-q8": glm_q8_serve,
               "glm45-106b-a12b-fp32": glm_fp32_serve,
               "jamba-v0.1-52b": jamba_serve,
-              "qwen3-235b-a22b": qwen3_serve}
+              "qwen3-235b-a22b": qwen3_serve,
+              "deepseek-v3-671b": deepseek_serve}
     paths = {path: rec["launches"] for path, rec in serves.items()}
     glm_launches = paths["glm45-106b-a12b"]
     glm_q8_launches = paths["glm45-106b-a12b-q8"]
@@ -1916,7 +2131,11 @@ def main() -> int:
                        ("jamba-v0.1-52b", "grouped_matmul"),
                        ("jamba-v0.1-52b", "ssd_intra_chunk"),
                        ("qwen3-235b-a22b", "grouped_swiglu"),
-                       ("qwen3-235b-a22b", "grouped_matmul")):
+                       ("qwen3-235b-a22b", "grouped_matmul"),
+                       ("deepseek-v3-671b", "grouped_swiglu"),
+                       ("deepseek-v3-671b", "grouped_matmul"),
+                       ("deepseek-v3-671b", "gating_topk"),
+                       ("deepseek-v3-671b", "flash_attention")):
         if paths[path][name] <= 0:
             raise AssertionError(f"{name} was not launched on the {path} "
                                  f"serve path")
@@ -1931,7 +2150,9 @@ def main() -> int:
                        ("jamba-v0.1-52b", "grouped_swiglu_q8"),
                        ("jamba-v0.1-52b", "grouped_matmul_q8"),
                        ("qwen3-235b-a22b", "grouped_swiglu_q8"),
-                       ("qwen3-235b-a22b", "grouped_matmul_q8")):
+                       ("qwen3-235b-a22b", "grouped_matmul_q8"),
+                       ("deepseek-v3-671b", "grouped_swiglu_q8"),
+                       ("deepseek-v3-671b", "grouped_matmul_q8")):
         if paths[path][name] != 0:
             raise AssertionError(f"{name} was launched {paths[path][name]} "
                                  f"times on the {path} serve path")
@@ -1942,17 +2163,21 @@ def main() -> int:
             raise AssertionError(f"plan_solve was launched "
                                  f"{launches['plan_solve']} times on the "
                                  f"{path} serve path (R = 1)")
-    # Every serve path is at head dim 128: prefill chunks through the TMA +
-    # wgmma kernel (bf16) or the fp32 kernel (phase 4c), decode steps
-    # through the split-KV kernel, and never the hd-16 mma.sync kernel.
+    # Every serve path is at head dim 128 or, for DeepSeek-V3's MLA, at
+    # (192, 128): prefill chunks through the TMA + wgmma kernel (bf16) or
+    # the fp32 kernel (phase 4c), GQA decode steps through the split-KV
+    # kernel, and never the hd-16 mma.sync kernel.  MLA decode attends on
+    # the latent cache with no flash call.
     for path, rec in serves.items():
         prefill = ("prefill_f32" if rec["dtype"] == "float32"
                    else "prefill_wgmma")
+        calls = {prefill: rec["prefill_calls"]}
+        if not rec["cfg"].is_mla:
+            calls["decode_split"] = rec["decode_calls"]
         _check_kernel_calls(path, paths[path], rec["padded_copies"],
-                            rec["cfg"],
-                            {prefill: rec["prefill_calls"],
-                             "decode_split": rec["decode_calls"]},
-                            rec["runtime"].get("ffn_dtype", "none"))
+                            rec["cfg"], calls,
+                            rec["runtime"].get("ffn_dtype", "none"),
+                            rec["prefill_calls"] + rec["decode_calls"])
     gg_src = "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
@@ -1967,7 +2192,9 @@ def main() -> int:
                 **{tag: {k: rec[tag][k] for k in ("shape",) + keys}
                    for tag in ("prefill", "decode", "decode_serve",
                                "jamba_prefill", "jamba_decode",
-                               "jamba_prefill_serve")},
+                               "jamba_prefill_serve",
+                               "deepseek_prefill_serve",
+                               "deepseek_decode_serve")},
                 "checks": sorted(rec)}))
     # The fp32 kernels (3xTF32 on mma.sync), at the counts phase 4c runs.
     f32_keys = keys + ("bound_fp32_ms", "bytes_bound_ms", "slower_than_library")
@@ -2037,7 +2264,7 @@ def main() -> int:
             **{tag: {k: gating_records[tag][k]
                      for k in ("shape",) + keys + gating_keys}
                for tag in ("decode", "jamba_prefill", "sigmoid_e256",
-                           "sigmoid_e256_bias")},
+                           "sigmoid_e256_decode", "sigmoid_e256_bias")},
             "rows_excluded_near_tie": {
                 t: r["rows_excluded_near_tie"]
                 for t, r in gating_records.items()},
@@ -2095,6 +2322,30 @@ def main() -> int:
          **{tag: {k: flash_records[tag][k]
                   for k in flash_keys + ("bound_fp32_ms", "max_row_rel_err")}
             for tag in ("fp32_prefill", "hd64_fp32", "hd16_fp32")}}))
+    # Row 6 at DeepSeek-V3's MLA dims (q/k 192, v 128, bf16): its serve
+    # chunk (4096 queries at offset 4096 over 8192 keys, 128 heads) on the
+    # wgmma kernel; a 64-query chunk at B 1 on the split-KV kernel beside.
+    mla = flash_records["mla_prefill_at_4096"]
+    kernels.append(_kernel_row(
+        "flash_attention.mla",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:84", mla,
+        paths["deepseek-v3-671b"]["flash_attention.prefill_wgmma"],
+        {"kernel": mla["kernel"], "head_dims": [192, 128],
+         "sdpa_masked_ms": mla["sdpa_masked_ms"],
+         "sdpa_masked_backend": mla["sdpa_masked_backend"],
+         "sdpa_free_ms": mla["sdpa_free_ms"],
+         "sdpa_free_backend": mla.get("sdpa_free_backend"),
+         "slower_than_library": mla["slower_than_library"],
+         "ms_eager": mla["ms_eager"],
+         "max_row_rel_err": mla["max_row_rel_err"],
+         "launches_by_kernel": {
+             k.split(".", 1)[1]: n
+             for k, n in paths["deepseek-v3-671b"].items()
+             if k.startswith("flash_attention.")},
+         "mla_prefill_64": {k: flash_records["mla_prefill_64"][k]
+                            for k in flash_keys + ("max_row_rel_err",
+                                                   "splits", "wgmma_ms")}}))
     # Row P: the plan solve (no pallas_call: the JAX solve's two
     # lax.while_loop).  Its serve paths run at R = 1, where the plan is the
     # home quota and the kernel never launches; phase 9 (R = 2) is its path.

@@ -2,6 +2,7 @@
 
 from repro_torch.configs import (  # noqa: F401
     base,
+    deepseek_v3_671b,
     glm45_106b_a12b,
     jamba_v01_52b,
     qwen3_235b_a22b,

@@ -8,12 +8,13 @@ JAX package is imported.
 
 * :func:`moe_params`: a ``repro.moe.layer.MoEParams``.
 * :func:`ssm_params`: a ``repro.models.ssm.SSMParams``.
-* :func:`lm_params`: a ``repro.models.model.LMParams`` of GQA attention and
-  Mamba blocks.  Segments built with ``scan_layers=True`` carry a leading
-  layer axis and are unstacked per layer, unscanned segments are tuples of
-  blocks, and a hybrid's "cycle" segment is a tuple of ``p`` blocks each
-  stacked over the ``n_rep`` repetitions of the period: layer
-  ``pre + r * p + j`` is entry ``j`` at index ``r``.
+* :func:`mla_params`: a ``repro.models.attention.MLAParams``.
+* :func:`lm_params`: a ``repro.models.model.LMParams`` of GQA or MLA
+  attention and Mamba blocks.  Segments built with ``scan_layers=True``
+  carry a leading layer axis and are unstacked per layer, unscanned
+  segments are tuples of blocks, and a hybrid's "cycle" segment is a tuple
+  of ``p`` blocks each stacked over the ``n_rep`` repetitions of the
+  period: layer ``pre + r * p + j`` is entry ``j`` at index ``r``.
 
 On an EP group of ``ep_size`` ranks, rank ``ep_rank`` gets the experts
 ``[ep_rank * E / ep_size, (ep_rank + 1) * E / ep_size)`` of every MoE layer
@@ -26,13 +27,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, layer_kinds
-from repro_torch.models.attention import GQAParams
+from repro_torch.models.attention import GQAParams, MLAParams
 from repro_torch.models.model import LMParams
 from repro_torch.models.ssm import SSMParams
 from repro_torch.models.transformer import BlockParams
 from repro_torch.moe.layer import MoEParams
 
-__all__ = ["to_tensor", "moe_params", "ssm_params", "lm_params"]
+__all__ = ["to_tensor", "moe_params", "ssm_params", "mla_params",
+           "lm_params"]
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor | None:
@@ -77,18 +79,24 @@ def ssm_params(p, *, device="cuda") -> SSMParams:
                      t(p.d_skip), t(p.dt_bias), t(p.norm), t(p.out_proj))
 
 
+def mla_params(p, *, device="cuda") -> MLAParams:
+    t = lambda a: to_tensor(a, device)  # noqa: E731
+    return MLAParams(t(p.wq_a), t(p.q_a_norm), t(p.wq_b), t(p.wkv_a),
+                     t(p.kv_a_norm), t(p.wkv_b), t(p.wo))
+
+
 def _block(bp, cfg: ModelConfig, device, ep_rank: int,
            ep_size: int) -> BlockParams:
     t = lambda a: to_tensor(a, device)  # noqa: E731
     attn = ssm = None
     if bp.ssm is not None:
         ssm = ssm_params(bp.ssm, device=device)
-    elif hasattr(bp.attn, "wq"):
+    elif cfg.is_mla:
+        attn = mla_params(bp.attn, device=device)
+    else:
         a = bp.attn
         attn = GQAParams(t(a.wq), t(a.wk), t(a.wv), t(a.wo), t(a.bq),
                          t(a.bk), t(a.bv), t(a.q_norm), t(a.k_norm))
-    else:
-        raise ValueError("only GQA attention and Mamba blocks are ported")
     ffn = None if bp.ffn is None else tuple(t(w) for w in bp.ffn)
     moe = None if bp.moe is None else moe_params(
         bp.moe, n_slot=cfg.moe.n_slot, device=device, ep_rank=ep_rank,

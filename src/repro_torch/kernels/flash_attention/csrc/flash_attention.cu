@@ -7,12 +7,16 @@
 // query i of batch row b sits at absolute position i + q_offset[b] and
 // attends key j iff j < kv_valid_len[b] and, when causal,
 // j <= i + q_offset[b].  Grouped-query attention: query head h reads KV
-// head h / G, G = H / Hkv.  q (B, Sq, H, hd), k/v (B, Sk, Hkv, hd) and the
-// output (B, Sq, H, hd) are all bf16 or all fp32 with a unit-stride head
-// dim, hd one of 16, 64, 128 (128 is the width of every served model, 16
-// the reduced configurations'); q_offset and kv_valid_len are read on the
-// device (a (B,) int64 vector or one constant), so the caller never syncs
-// with the host.  In every kernel a row with no valid key gives 0.
+// head h / G, G = H / Hkv.  q (B, Sq, H, hd), k (B, Sk, Hkv, hd), v
+// (B, Sk, Hkv, hd_v) and the output (B, Sq, H, hd_v) are all bf16 or all
+// fp32 with a unit-stride head dim; (hd, hd_v) is (16, 16), (64, 64) or
+// (128, 128) (128 is the width of the GQA models, 16 the reduced
+// configurations'), or, in bf16 only, (192, 128): DeepSeek-V3's MLA
+// prefill, whose q and k are nope 128 + rope 64 wide and whose v is 128
+// (repro/models/attention.py:mla_prefill; kernels 1 and 2 take it).
+// q_offset and kv_valid_len are read on the device (a (B,) int64 vector or
+// one constant), so the caller never syncs with the host.  In every kernel
+// a row with no valid key gives 0.
 //
 // Rows.  Every kernel works on rows that are (query position, head of
 // the GQA group) pairs: row r of a group is position r / G, head
@@ -23,7 +27,8 @@
 // shapes alone, never from the device-held lengths:
 //
 // 1. flash_split_kernel + flash_combine_kernel (bf16 and fp32, hd 16, 64,
-//    128): every launch whose prefill grid (q tiles x Hkv x B) would not
+//    128; bf16 (192, 128)): every launch whose prefill grid (q tiles x Hkv
+//    x B) would not
 //    fill the card, which is every decode step.  A decode step is bound by
 //    the bytes of the valid cache (GLM-4.5-Air at batch 4: 45.8 MB,
 //    13.7 us at 3.35 TB/s).  Blocks are (split of the keys, row tile of at
@@ -46,11 +51,16 @@
 //    fp32 to a workspace, and the combine kernel (one warp per output row)
 //    computes
 //      out = sum_i 2^(m_i - m) acc_i / sum_i 2^(m_i - m) l_i.
+//    At (192, 128) a K row is 24 pieces, which do not divide the warp, so
+//    its lanes copy the tile's pieces in row-major order; the ring's stages
+//    are 21 KB and three warps fit (four at hd 128).  MLA prefill takes it
+//    at B 1 for chunks of at most 128 tokens (128 KV heads fill fewer than
+//    132 SMs).
 //
-// 2. flash_wgmma_kernel (bf16, hd 64 and 128): every other bf16 launch,
-//    which is every serve prefill chunk.  Bound by operations (the GLM
-//    chunk at offset 4096: 412 GFLOP of causal pairs, 0.42 ms at 989
-//    TFLOP/s, against 29 MB of bytes).  Warp-specialised as
+// 2. flash_wgmma_kernel (bf16, hd 64, 128 and (192, 128)): every other
+//    bf16 launch, which is every serve prefill chunk.  Bound by operations
+//    (the GLM chunk at offset 4096: 412 GFLOP of causal pairs, 0.42 ms at
+//    989 TFLOP/s, against 29 MB of bytes).  Warp-specialised as
 //    grouped_gemm_wgmma_kernel: warpgroup 2 is the producer, one thread of
 //    which issues TMA loads (4-D tensor maps over (hd, heads, positions,
 //    batch), 64-column boxes with 128-byte swizzle, mbarrier completion):
@@ -75,7 +85,13 @@
 //    output is written once, in bf16.  The one departure from flash_ref's
 //    fp32 arithmetic is P in bf16 for the P v product.
 //    Shared memory at hd 128: q 32 KB + 2 stages x (K 32 KB + V 32 KB) =
-//    160 KB (hd 64: 16 KB + 4 stages x 32 KB).
+//    160 KB (hd 64: 16 KB + 4 stages x 32 KB).  At (192, 128), DeepSeek-V3's
+//    MLA prefill (128 heads, Hkv = H, G 1): a q or K row is three 64-column
+//    boxes and a V row two, so S = q K^T takes 12 k-steps of m64n128k16 in
+//    place of 8 and P V keeps N = 128 (the registers are those of hd 128);
+//    q 48 KB + 2 stages x (K 48 KB + V 32 KB) = 208 KB + the barriers, of
+//    the 227 KB a block may have.  The bound is still the operations: 320
+//    flops a pair (192 for S, 128 for P V) against 256 at hd 128.
 //
 // 3. flash_fwd_kernel (bf16, hd 16 only: the reduced configurations' width,
 //    which no served model uses): the first, simple tensor-core version.
@@ -606,37 +622,79 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Shared-memory layout of the split kernel for element T, head dim HD and
-// RT rows a block: per warp a ring of SPLIT_STAGES K and V tiles of 32 keys
-// (rows padded by 16 bytes, so lane j's 16-byte reads of row j, the mma
-// fragments' 32-bit reads and ldmatrix hit distinct banks), then q (bf16
-// rows padded likewise for the mma path, fp32 pre-scaled for the CUDA-core
-// path), each warp's P (CUDA-core path: RT x 32 fp32) and the rows' key
-// limits (RT ints).  bf16 takes the mma.sync path (RT 16, the m16 of one
-// fragment), fp32 the CUDA-core path.
-template <typename T, int HD, int RT>
+// Shared-memory layout of the split kernel for element T, head dims HDK
+// (q, k) and HDV (v, out) and RT rows a block: per warp a ring of
+// SPLIT_STAGES K and V tiles of 32 keys (rows padded by 16 bytes, so lane
+// j's 16-byte reads of row j, the mma fragments' 32-bit reads and ldmatrix
+// hit distinct banks), then q (bf16 rows padded likewise for the mma path,
+// fp32 pre-scaled for the CUDA-core path), each warp's P (CUDA-core path:
+// RT x 32 fp32) and the rows' key limits (RT ints).  bf16 takes the
+// mma.sync path (RT 16, the m16 of one fragment), fp32 the CUDA-core path,
+// which takes one head dim.
+template <typename T, int HDK, int HDV, int RT>
 struct SplitCfg {
   static constexpr bool MMA = sizeof(T) == 2;
   static_assert(!MMA || RT == 16, "the mma path computes 16 rows");
+  static_assert(MMA || HDK == HDV, "the CUDA-core path takes one head dim");
   static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per piece
-  static constexpr int LDK = HD + VEC;
-  static constexpr int PIECES = HD / VEC;                 // pieces per row
-  static constexpr int STAGE_ELEMS = 2 * SPLIT_KW * LDK;
+  static constexpr int LDK = HDK + VEC;                   // q and K rows
+  static constexpr int LDV = HDV + VEC;                   // V rows
+  static constexpr int PIECES_K = HDK / VEC;              // pieces per row
+  static constexpr int PIECES_V = HDV / VEC;
+  static constexpr int K_ELEMS = SPLIT_KW * LDK;          // V follows K
+  static constexpr int STAGE_ELEMS = SPLIT_KW * (LDK + LDV);
   static constexpr int STAGE_BYTES = STAGE_ELEMS * static_cast<int>(sizeof(T));
   // As many warps as their rings fit in 210 KB, at most 8: the warps of
-  // one SM keep its loads in flight (4 at bf16 hd 128, 2 at fp32 hd 128).
+  // one SM keep its loads in flight (4 at bf16 hd 128, 3 at bf16
+  // (192, 128), 2 at fp32 hd 128).
   static constexpr int WARPS =
       210 * 1024 / (SPLIT_STAGES * STAGE_BYTES) < 8
           ? 210 * 1024 / (SPLIT_STAGES * STAGE_BYTES) : 8;
   static constexpr int THREADS = WARPS * 32;
-  static constexpr int DPL = HD >= 32 ? HD / 32 : 1;     // dims per lane
+  static constexpr int DPL = HDV >= 32 ? HDV / 32 : 1;   // dims per lane
   static constexpr int RING_BYTES = WARPS * SPLIT_STAGES * STAGE_BYTES;
-  static constexpr int Q_BYTES = MMA ? RT * LDK * 2 : RT * HD * 4;
+  static constexpr int Q_BYTES = MMA ? RT * LDK * 2 : RT * HDK * 4;
   static constexpr int P_BYTES = MMA ? 0 : WARPS * RT * SPLIT_KW * 4;
   static constexpr int SMEM_BYTES = RING_BYTES + Q_BYTES + P_BYTES + RT * 4;
-  static_assert(WARPS * RT * (HD + 2) * 4 <= RING_BYTES,
+  static_assert(WARPS * RT * (HDV + 2) * 4 <= RING_BYTES,
                 "the warps' partials are merged in the ring's memory");
 };
+
+// One 32-key tile of rows of PIECES 16-byte pieces, from key row key0 of
+// `src` (rows `stride` elements apart) into `dst` (rows LD apart); keys at
+// or past k_hi are zero-filled (from `any`, a valid address).  Where the
+// pieces of a row divide the warp, lane l copies piece l % PIECES of rows
+// l / PIECES + 32 / PIECES u (one base pointer, stepped); otherwise lane l
+// copies pieces l, l + 32, ... of the tile in row-major order.
+template <typename T, int PIECES, int LD>
+__device__ __forceinline__ void load_split_tile(T* dst, const T* src,
+                                                long long stride,
+                                                long long key0,
+                                                long long k_hi, int lane,
+                                                const T* any) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  if constexpr (32 % PIECES == 0) {
+    constexpr int JSTEP = 32 / PIECES;
+    const int pc = lane % PIECES, j0 = lane / PIECES;
+    const T* s = src + (key0 + j0) * stride + pc * VEC;
+    T* d = dst + j0 * LD + pc * VEC;
+#pragma unroll
+    for (int u = 0; u < SPLIT_KW / JSTEP; ++u) {
+      const bool ok = key0 + j0 + u * JSTEP < k_hi;
+      cp_async16(d + u * JSTEP * LD, ok ? s : any, ok ? 16 : 0);
+      s += JSTEP * stride;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < SPLIT_KW * PIECES / 32; ++u) {
+      const int idx = lane + 32 * u, j = idx / PIECES, pc = idx % PIECES;
+      const bool ok = key0 + j < k_hi;
+      cp_async16(dst + j * LD + pc * VEC,
+                 ok ? src + (key0 + j) * stride + pc * VEC : any,
+                 ok ? 16 : 0);
+    }
+  }
+}
 
 // N consecutive fp32 values from shared memory in one vector load (the
 // CUDA-core path is fp32 only).
@@ -654,12 +712,13 @@ __device__ __forceinline__ void load_vec(float (&dst)[N], const float* src) {
   }
 }
 
-template <typename T, int HD, int RT>
-__global__ void __launch_bounds__(SplitCfg<T, HD, RT>::THREADS)
+template <typename T, int HDK, int HDV, int RT>
+__global__ void __launch_bounds__(SplitCfg<T, HDK, HDV, RT>::THREADS)
 flash_split_kernel(const Args a) {
-  using C = SplitCfg<T, HD, RT>;
-  constexpr int W = C::WARPS, LDK = C::LDK, VEC = C::VEC, DPL = C::DPL;
-  constexpr int PIECES = C::PIECES, KW = SPLIT_KW, S = SPLIT_STAGES;
+  using C = SplitCfg<T, HDK, HDV, RT>;
+  constexpr int W = C::WARPS, LDK = C::LDK, LDV = C::LDV, VEC = C::VEC;
+  constexpr int DPL = C::DPL, PIECES = C::PIECES_K, KW = SPLIT_KW;
+  constexpr int S = SPLIT_STAGES;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   unsigned char* q_raw = smem_raw + C::RING_BYTES;
@@ -694,8 +753,8 @@ flash_split_kernel(const Args a) {
   if (k_lo >= k_hi) {
     // Nothing to read: with one split the rows get 0 (no valid key),
     // otherwise an empty partial that the combine skips.
-    for (int i = tid; i < nrows * HD; i += C::THREADS) {
-      const int r = i / HD, d = i % HD;
+    for (int i = tid; i < nrows * HDV; i += C::THREADS) {
+      const int r = i / HDV, d = i % HDV;
       const int2 ph = out_row(r);
       if (a.splits == 1) {
         static_cast<T*>(a.out)[b * a.sob + ph.x * a.sos + ph.y * a.soh + d] =
@@ -703,7 +762,7 @@ flash_split_kernel(const Args a) {
       } else if (d == 0) {
         const long long orow = (static_cast<long long>(b) * a.Sq + ph.x) * a.H
                                + ph.y;
-        float* ml = a.ws + NR * a.splits * HD + (split * NR + orow) * 2;
+        float* ml = a.ws + NR * a.splits * HDV + (split * NR + orow) * 2;
         ml[0] = -INFINITY;
         ml[1] = 0.f;
       }
@@ -737,7 +796,7 @@ flash_split_kernel(const Args a) {
             qv[u];
       } else {
         const float4 f = *reinterpret_cast<const float4*>(&qv[u]);
-        *reinterpret_cast<float4*>(reinterpret_cast<float*>(q_raw) + r * HD +
+        *reinterpret_cast<float4*>(reinterpret_cast<float*>(q_raw) + r * HDK +
                                    d) =
             make_float4(f.x * a.scale_log2, f.y * a.scale_log2,
                         f.z * a.scale_log2, f.w * a.scale_log2);
@@ -759,26 +818,15 @@ flash_split_kernel(const Args a) {
   const int n_tiles = static_cast<int>((k_hi - k_lo + KW - 1) / KW);
   const int my_tiles = warp < n_tiles ? (n_tiles - warp + W - 1) / W : 0;
   T* my_ring = ring + warp * S * C::STAGE_ELEMS;
-  // Lane l copies piece l % PIECES of rows l / PIECES + JSTEP u: one base
-  // pointer per tile, stepped by JSTEP rows.
-  constexpr int JSTEP = 32 / PIECES;
-  const int pc = lane % PIECES, j0 = lane / PIECES;
-  const T* k_row = kg + b * a.skb + hkv * a.skh + pc * VEC;
-  const T* v_row = vg + b * a.svb + hkv * a.svh + pc * VEC;
+  const T* k_rows = kg + b * a.skb + hkv * a.skh;
+  const T* v_rows = vg + b * a.svb + hkv * a.svh;
   auto load = [&](int slot, int i) {
-    const long long key0 = k_lo + static_cast<long long>(warp + i * W) * KW + j0;
-    T* k_s = my_ring + slot * C::STAGE_ELEMS + j0 * LDK + pc * VEC;
-    T* v_s = k_s + KW * LDK;
-    const T* ks = k_row + key0 * a.sks;
-    const T* vs = v_row + key0 * a.svs;
-#pragma unroll
-    for (int u = 0; u < KW / JSTEP; ++u) {
-      const bool ok = key0 + u * JSTEP < k_hi;
-      cp_async16(k_s + u * JSTEP * LDK, ok ? ks : kg, ok ? 16 : 0);
-      cp_async16(v_s + u * JSTEP * LDK, ok ? vs : vg, ok ? 16 : 0);
-      ks += JSTEP * a.sks;
-      vs += JSTEP * a.svs;
-    }
+    const long long key0 = k_lo + static_cast<long long>(warp + i * W) * KW;
+    T* k_s = my_ring + slot * C::STAGE_ELEMS;
+    load_split_tile<T, C::PIECES_K, LDK>(k_s, k_rows, a.sks, key0, k_hi, lane,
+                                         kg);
+    load_split_tile<T, C::PIECES_V, LDV>(k_s + C::K_ELEMS, v_rows, a.svs, key0,
+                                         k_hi, lane, vg);
   };
 #pragma unroll
   for (int i = 0; i < S - 1; ++i) {
@@ -793,8 +841,8 @@ flash_split_kernel(const Args a) {
     __syncwarp();
     return my_ring + (i % S) * C::STAGE_ELEMS;
   };
-  float* c_acc = reinterpret_cast<float*>(smem_raw);   // W x RT x HD
-  float* c_m = c_acc + W * RT * HD;                    // W x RT
+  float* c_acc = reinterpret_cast<float*>(smem_raw);   // W x RT x HDV
+  float* c_m = c_acc + W * RT * HDV;                   // W x RT
   float* c_l = c_m + W * RT;
 
   if constexpr (C::MMA) {
@@ -803,9 +851,9 @@ flash_split_kernel(const Args a) {
     // rows gid and gid + 8, keys / dims 8 j + 2 tq + {0, 1}.
     const int gid = lane / 4, tq = lane % 4;
     const T* q_s = reinterpret_cast<const T*>(q_raw);
-    unsigned qa[HD / 16][4];
+    unsigned qa[HDK / 16][4];
 #pragma unroll
-    for (int kd = 0; kd < HD / 16; ++kd) {
+    for (int kd = 0; kd < HDK / 16; ++kd) {
       const T* p = q_s + gid * LDK + kd * 16 + tq * 2;
       qa[kd][0] = lds32(p);
       qa[kd][1] = lds32(p + 8 * LDK);
@@ -813,15 +861,15 @@ flash_split_kernel(const Args a) {
       qa[kd][3] = lds32(p + 8 * LDK + 8);
     }
     const int row_lim[2] = {rl[gid], rl[gid + 8]};
-    float o[HD / 8][4];
+    float o[HDV / 8][4];
 #pragma unroll
-    for (int nf = 0; nf < HD / 8; ++nf)
+    for (int nf = 0; nf < HDV / 8; ++nf)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nf][e] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     for (int i = 0; i < my_tiles; ++i) {
       const T* k_s = next_tile(i);
-      const T* v_s = k_s + KW * LDK;
+      const T* v_s = k_s + C::K_ELEMS;
       const int key0 = static_cast<int>(k_lo) + (warp + i * W) * KW;
       float s[KW / 8][4];
 #pragma unroll
@@ -830,7 +878,7 @@ flash_split_kernel(const Args a) {
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
         const T* kp = k_s + (j * 8 + gid) * LDK + tq * 2;
 #pragma unroll
-        for (int kd = 0; kd < HD / 16; ++kd)
+        for (int kd = 0; kd < HDK / 16; ++kd)
           mma_bf16(s[j], qa[kd], lds32(kp + kd * 16), lds32(kp + kd * 16 + 8));
       }
       float mx[2] = {-INFINITY, -INFINITY};
@@ -853,7 +901,7 @@ flash_split_kernel(const Args a) {
         m[ii] = m_new;
         l[ii] *= corr;
 #pragma unroll
-        for (int nf = 0; nf < HD / 8; ++nf) {
+        for (int nf = 0; nf < HDV / 8; ++nf) {
           o[nf][2 * ii] *= corr;
           o[nf][2 * ii + 1] *= corr;
         }
@@ -874,10 +922,10 @@ flash_split_kernel(const Args a) {
                                 pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                                 pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const T* vp = v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDK
+        const T* vp = v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV
                       + (lane >> 4) * 8;
 #pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {
+        for (int np = 0; np < HDV / 16; ++np) {
           unsigned vb[4];
           ldsm_x4_trans(vb, vp + np * 16);
           mma_bf16(o[2 * np], pa, vb[0], vb[1]);
@@ -893,9 +941,9 @@ flash_split_kernel(const Args a) {
     for (int ii = 0; ii < 2; ++ii) {
       const int r = gid + 8 * ii;
 #pragma unroll
-      for (int nf = 0; nf < HD / 8; ++nf) {
-        c_acc[(warp * RT + r) * HD + nf * 8 + tq * 2] = o[nf][2 * ii];
-        c_acc[(warp * RT + r) * HD + nf * 8 + tq * 2 + 1] = o[nf][2 * ii + 1];
+      for (int nf = 0; nf < HDV / 8; ++nf) {
+        c_acc[(warp * RT + r) * HDV + nf * 8 + tq * 2] = o[nf][2 * ii];
+        c_acc[(warp * RT + r) * HDV + nf * 8 + tq * 2 + 1] = o[nf][2 * ii + 1];
       }
       if (tq == 0) {
         c_m[warp * RT + r] = m[ii];
@@ -915,10 +963,10 @@ flash_split_kernel(const Args a) {
 #pragma unroll
       for (int d = 0; d < DPL; ++d) acc[r][d] = 0.f;
     }
-    const bool owns_dims = lane * DPL < HD;     // false only at hd 16
+    const bool owns_dims = lane * DPL < HDV;    // false only at hd 16
     for (int i = 0; i < my_tiles; ++i) {
       const T* k_s = next_tile(i);
-      const T* v_s = k_s + KW * LDK;
+      const T* v_s = k_s + C::K_ELEMS;
       const int key = static_cast<int>(k_lo) + (warp + i * W) * KW + lane;
       float s[RT];
 #pragma unroll
@@ -930,7 +978,7 @@ flash_split_kernel(const Args a) {
 #pragma unroll
         for (int r = 0; r < RT; ++r) {
           const float4* qp =
-              reinterpret_cast<const float4*>(q_s + r * HD + c * VEC);
+              reinterpret_cast<const float4*>(q_s + r * HDK + c * VEC);
 #pragma unroll
           for (int e4 = 0; e4 < VEC / 4; ++e4) {
             const float4 qv = qp[e4];
@@ -963,7 +1011,7 @@ flash_split_kernel(const Args a) {
           float vf[4][DPL];
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj)
-            load_vec<DPL>(vf[jj], v_s + (j4 + jj) * LDK + lane * DPL);
+            load_vec<DPL>(vf[jj], v_s + (j4 + jj) * LDV + lane * DPL);
 #pragma unroll
           for (int r = 0; r < RT; ++r) {
             const float4 p4 =
@@ -988,7 +1036,7 @@ flash_split_kernel(const Args a) {
       for (int r = 0; r < RT; ++r)
 #pragma unroll
         for (int d = 0; d < DPL; ++d)
-          c_acc[(warp * RT + r) * HD + lane * DPL + d] = acc[r][d];
+          c_acc[(warp * RT + r) * HDV + lane * DPL + d] = acc[r][d];
     }
     if (lane == 0) {
 #pragma unroll
@@ -1013,21 +1061,21 @@ flash_split_kernel(const Args a) {
     const int2 ph = out_row(r);
     const long long orow =
         (static_cast<long long>(b) * a.Sq + ph.x) * a.H + ph.y;
-    for (int d = lane; d < HD; d += 32) {
+    for (int d = lane; d < HDV; d += 32) {
       float o = 0.f;
 #pragma unroll
       for (int w = 0; w < W; ++w)
-        if (cw[w] != 0.f) o = fmaf(cw[w], c_acc[(w * RT + r) * HD + d], o);
+        if (cw[w] != 0.f) o = fmaf(cw[w], c_acc[(w * RT + r) * HDV + d], o);
       if (a.splits == 1) {
         const float denom = L > 1e-20f ? L : 1e-20f;
         static_cast<T*>(a.out)[b * a.sob + ph.x * a.sos + ph.y * a.soh + d] =
             from_f32<T>(o / denom);
       } else {
-        a.ws[(split * NR + orow) * HD + d] = o;
+        a.ws[(split * NR + orow) * HDV + d] = o;
       }
     }
     if (a.splits > 1 && lane == 0) {
-      float* ml = a.ws + NR * a.splits * HD + (split * NR + orow) * 2;
+      float* ml = a.ws + NR * a.splits * HDV + (split * NR + orow) * 2;
       ml[0] = M;
       ml[1] = L;
     }
@@ -1035,7 +1083,8 @@ flash_split_kernel(const Args a) {
 }
 
 // out = sum_i 2^(m_i - m) acc_i / sum_i 2^(m_i - m) l_i over the splits;
-// one warp per output row (b, position, head); 0 where no split saw a key.
+// one warp per output row (b, position, head) of HD (v's head dim) values;
+// 0 where no split saw a key.
 // Lane i reads split i's (m, l) (32 splits a pass); the partial sums are
 // read for every split, independent loads, and an empty split's (which
 // were never written) are selected away, not multiplied.
@@ -1095,15 +1144,20 @@ constexpr int WG_CONSUMERS = 2;
 constexpr int WG_THREADS = (WG_CONSUMERS + 1) * 128;
 constexpr int WG_BOX = 128 * 128;        // 128 rows x 64 bf16 (128 bytes)
 
-template <int HD>
+// Shared memory for q/k head dim HDK and v head dim HDV: a row of q or K
+// is HDK / 64 boxes of 64 columns, a row of V HDV / 64.
+template <int HDK, int HDV>
 struct WgCfg {
-  static constexpr int BOXES = HD / 64;                   // per row
-  static constexpr int Q_BYTES = BOXES * WG_BOX;          // 32 KB at hd 128
-  static constexpr int KV_BYTES = BOXES * WG_BOX;         // K or V tile
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int STAGES = HD == 128 ? 2 : 4;
+  static constexpr int BOXES_K = HDK / 64;                // per q or K row
+  static constexpr int BOXES_V = HDV / 64;                // per V row
+  static constexpr int Q_BYTES = BOXES_K * WG_BOX;        // 32 KB at hd 128
+  static constexpr int K_BYTES = BOXES_K * WG_BOX;        // K tile
+  static constexpr int V_BYTES = BOXES_V * WG_BOX;        // V tile
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr int STAGES = HDK == 64 ? 4 : 2;
   static constexpr int SMEM_BYTES =
       1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
+  static_assert(SMEM_BYTES <= 232448, "above a block's shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1252,10 +1306,10 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+template <int HDV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HDV / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (HDV == 128) wgmma_rs_n128(o, a, db);
   else wgmma_rs_n64(o, a, db);
 }
 
@@ -1263,13 +1317,13 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
 // head) runs its q tiles in reverse position order.  Row r of the tile is
 // (position p0 + r / G, head hkv * G + r % G), r < QT * G with
 // QT = 128 / G; rows at or past QT * G (G not dividing 128) are idle.
-template <int HD, bool CAUSAL>
+template <int HDK, int HDV, bool CAUSAL>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v, const Args a,
                    int n_qt) {
-  using C = WgCfg<HD>;
+  using C = WgCfg<HDK, HDV>;
   constexpr int STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
 
@@ -1293,7 +1347,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   auto* og = static_cast<__nv_bfloat16*>(a.out);
 
   if (n_tiles == 0) {   // no row has a valid key: zeros, no loads
-    constexpr int CH = HD / 8;
+    constexpr int CH = HDV / 8;
     const uint4 z = make_uint4(0, 0, 0, 0);
     for (int i = threadIdx.x; i < q_rows * G * CH; i += WG_THREADS) {
       const int r = i / CH, c = i % CH;
@@ -1327,9 +1381,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer: one thread loads q once and keeps the K/V ring full.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == WG_CONSUMERS * 128) {
-      mbar_expect_tx(q_bar, static_cast<uint32_t>(C::BOXES * QT * G * 128));
+      mbar_expect_tx(q_bar, static_cast<uint32_t>(C::BOXES_K * QT * G * 128));
 #pragma unroll
-      for (int x = 0; x < C::BOXES; ++x)
+      for (int x = 0; x < C::BOXES_K; ++x)
         tma_load_4d(q_u + x * WG_BOX, &map_q, q_bar, x * 64, hkv * G, p0, b);
       int stage = 0;
       uint32_t phase = 0;
@@ -1339,11 +1393,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const uint32_t k_u = ring_u + stage * C::STAGE_BYTES;
         mbar_expect_tx(full, C::STAGE_BYTES);
 #pragma unroll
-        for (int x = 0; x < C::BOXES; ++x) {
+        for (int x = 0; x < C::BOXES_K; ++x)
           tma_load_4d(k_u + x * WG_BOX, &map_k, full, x * 64, hkv, t * WG_BN, b);
-          tma_load_4d(k_u + C::KV_BYTES + x * WG_BOX, &map_v, full, x * 64,
+#pragma unroll
+        for (int x = 0; x < C::BOXES_V; ++x)
+          tma_load_4d(k_u + C::K_BYTES + x * WG_BOX, &map_v, full, x * 64,
                       hkv, t * WG_BN, b);
-        }
         if (++stage == STAGES) { stage = 0; phase ^= 1; }
       }
     }
@@ -1360,9 +1415,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       row_lim[i] = CAUSAL && pos + 1 < lim ? pos + 1 : lim;
     }
     const bool active = wg * 64 < q_rows * G;     // a valid row in this wg
-    float o[HD / 2];
+    float o[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     mbar_wait(q_bar, 0);
     const uint32_t qa = q_u + wg * 64 * 128;
@@ -1372,14 +1427,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(full0 + 8 * stage, phase);
       if (active) {
         const uint32_t k_u = ring_u + stage * C::STAGE_BYTES;
-        const uint32_t v_u = k_u + C::KV_BYTES;
-        // S = q K^T: 64 rows x 128 keys, fp32.
+        const uint32_t v_u = k_u + C::K_BYTES;
+        // S = q K^T: 64 rows x 128 keys, fp32, HDK / 16 k-steps.
         float s[64];
 #pragma unroll
         for (int i = 0; i < 64; ++i) s[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
+        for (int kk = 0; kk < HDK / 16; ++kk) {
           const uint32_t off = (kk / 4) * WG_BOX + (kk % 4) * 32;
           wgmma_ss_n128(s, desc_sw128(qa + off, 16, 1024),
                         desc_sw128(k_u + off, 16, 1024));
@@ -1422,7 +1477,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           m[i] = m_new;
           l[i] *= corr;
 #pragma unroll
-          for (int j = 0; j < HD / 8; ++j) {
+          for (int j = 0; j < HDV / 8; ++j) {
             o[4 * j + 2 * i] *= corr;
             o[4 * j + 2 * i + 1] *= corr;
           }
@@ -1448,7 +1503,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
-          wgmma_pv<HD>(o, pa[kk], desc_sw128(v_u + kk * 2048, WG_BOX, 1024));
+          wgmma_pv<HDV>(o, pa[kk], desc_sw128(v_u + kk * 2048, WG_BOX, 1024));
         wgmma_commit();
         wgmma_wait0();
         fence_regs(o);
@@ -1469,7 +1524,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const float denom = lsum[i] > 1e-20f ? lsum[i] : 1e-20f;
         __nv_bfloat16* dst = og + b * a.sob + pos * a.sos + h * a.soh + 2 * tq;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
+        for (int j = 0; j < HDV / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
               __floats2bfloat162_rn(o[4 * j + 2 * i] / denom,
                                     o[4 * j + 2 * i + 1] / denom);
@@ -1534,22 +1589,22 @@ int make_map(CUtensorMap* map, const void* base, int hd, int heads, int seq,
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }
 
-template <int HD>
+template <int HDK, int HDV>
 int launch_wgmma(bool causal, const Args& a, cudaStream_t s) {
   const int QT = WG_BM / a.G;
   CUtensorMap mq, mk, mv;
-  int err = make_map(&mq, a.q, HD, a.H, a.Sq, a.B, a.sqh, a.sqs, a.sqb, a.G,
+  int err = make_map(&mq, a.q, HDK, a.H, a.Sq, a.B, a.sqh, a.sqs, a.sqb, a.G,
                      QT);
   if (!err)
-    err = make_map(&mk, a.k, HD, a.Hkv, a.Sk, a.B, a.skh, a.sks, a.skb, 1,
+    err = make_map(&mk, a.k, HDK, a.Hkv, a.Sk, a.B, a.skh, a.sks, a.skb, 1,
                    WG_BN);
   if (!err)
-    err = make_map(&mv, a.v, HD, a.Hkv, a.Sk, a.B, a.svh, a.svs, a.svb, 1,
+    err = make_map(&mv, a.v, HDV, a.Hkv, a.Sk, a.B, a.svh, a.svs, a.svb, 1,
                    WG_BN);
   if (err) return err;
-  auto kernel = causal ? flash_wgmma_kernel<HD, true>
-                       : flash_wgmma_kernel<HD, false>;
-  const int smem = WgCfg<HD>::SMEM_BYTES;
+  auto kernel = causal ? flash_wgmma_kernel<HDK, HDV, true>
+                       : flash_wgmma_kernel<HDK, HDV, false>;
+  const int smem = WgCfg<HDK, HDV>::SMEM_BYTES;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -1570,10 +1625,10 @@ cudaError_t set_smem(const void* kernel, int bytes) {
                               bytes);
 }
 
-template <typename T, int HD, int RT>
+template <typename T, int HDK, int HDV, int RT>
 cudaError_t launch_split_rt(const Args& a, cudaStream_t s) {
-  using C = SplitCfg<T, HD, RT>;
-  auto kernel = flash_split_kernel<T, HD, RT>;
+  using C = SplitCfg<T, HDK, HDV, RT>;
+  auto kernel = flash_split_kernel<T, HDK, HDV, RT>;
   cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel),
                              C::SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -1582,17 +1637,17 @@ cudaError_t launch_split_rt(const Args& a, cudaStream_t s) {
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   const long long rows = static_cast<long long>(a.B) * a.Sq * a.H;
-  flash_combine_kernel<T, HD>
+  flash_combine_kernel<T, HDV>
       <<<static_cast<unsigned>((rows + 3) / 4), 128, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HDK, int HDV = HDK>
 cudaError_t launch_split(const Args& a, int row_tile, cudaStream_t s) {
-  if constexpr (sizeof(T) == 2) return launch_split_rt<T, HD, 16>(a, s);
+  if constexpr (sizeof(T) == 2) return launch_split_rt<T, HDK, HDV, 16>(a, s);
   else
-    return row_tile == 4 ? launch_split_rt<T, HD, 4>(a, s)
-                         : launch_split_rt<T, HD, 16>(a, s);
+    return row_tile == 4 ? launch_split_rt<T, HDK, HDV, 4>(a, s)
+                         : launch_split_rt<T, HDK, HDV, 16>(a, s);
 }
 
 // Kernels 3 and 4: one block per (64-row q tile, KV head, batch row).
@@ -1624,11 +1679,13 @@ cudaError_t launch_f32(bool causal, const Args& a, cudaStream_t s) {
 }  // namespace
 
 // Plain C entry point, bound with ctypes.
-//   kernel: 0 TMA + wgmma prefill (bf16, hd 64/128), 1 split-KV (bf16 or
-//   fp32, hd 16/64/128; splits, keys_per_split, row_tile 16 (fp32: 4 or
-//   16) and, for
-//   splits > 1, a workspace of splits * B * Sq * H * (hd + 2) floats),
-//   2 mma.sync prefill (bf16, hd 16), 3 fp32 prefill (hd 16/64/128).
+//   (hd, hd_v): the head dims of q and k, and of v and out: (16, 16),
+//   (64, 64), (128, 128), or (192, 128) (MLA prefill, bf16 only).
+//   kernel: 0 TMA + wgmma prefill (bf16, (64, 64), (128, 128), (192, 128)),
+//   1 split-KV (bf16 at every pair, fp32 at the equal ones; splits,
+//   keys_per_split, row_tile 16 (fp32: 4 or 16) and, for splits > 1, a
+//   workspace of splits * B * Sq * H * (hd_v + 2) floats), 2 mma.sync
+//   prefill (bf16, (16, 16)), 3 fp32 prefill (the equal pairs).
 //   dtype: 0 fp32, 1 bf16 (q, k, v and out alike).  Strides are in
 //   elements (batch, sequence, head of q, k, v and out; the head dim is
 //   unit-stride, and for bf16 the caller checks that bases and strides are
@@ -1637,7 +1694,7 @@ cudaError_t launch_f32(bool causal, const Args& a, cudaStream_t s) {
 //   `stream`, does not synchronise, and returns the launch's CUDA error
 //   code (0 = launched; 1000 and up: a tensor map could not be made).
 extern "C" int flash_attention_launch(
-    int kernel, int dtype, int hd, const void* q, const void* k,
+    int kernel, int dtype, int hd, int hd_v, const void* q, const void* k,
     const void* v, void* out, int B, int Sq, int Sk, int H, int Hkv,
     int causal, long long sqb, long long sqs, long long sqh, long long skb,
     long long sks, long long skh, long long svb, long long svs, long long svh,
@@ -1646,8 +1703,10 @@ extern "C" int flash_attention_launch(
     int kv_len_stride, long long kv_len_const, float scale, int splits,
     int keys_per_split, int row_tile, void* workspace, void* stream) {
   const int inval = static_cast<int>(cudaErrorInvalidValue);
+  const bool mla = hd == 192 && hd_v == 128;
   if (B < 1 || Sq < 1 || Hkv < 1 || H % Hkv || (dtype != 0 && dtype != 1) ||
-      (hd != 16 && hd != 64 && hd != 128))
+      !(mla || (hd == hd_v && (hd == 16 || hd == 64 || hd == 128))) ||
+      (mla && dtype != 1))
     return inval;
   Args a;
   a.q = q;
@@ -1683,7 +1742,9 @@ extern "C" int flash_attention_launch(
     case 0:   // TMA + wgmma prefill
       if (!bf16 || hd == 16 || a.G > WG_BM || B > 65535 || Hkv > 65535)
         return inval;
-      return hd == 128 ? launch_wgmma<128>(c, a, s) : launch_wgmma<64>(c, a, s);
+      if (mla) return launch_wgmma<192, 128>(c, a, s);
+      return hd == 128 ? launch_wgmma<128, 128>(c, a, s)
+                       : launch_wgmma<64, 64>(c, a, s);
     case 1: {  // split-KV
       if (splits < 1 || keys_per_split < 1 ||
           (row_tile != 16 && (bf16 || row_tile != 4)) ||
@@ -1696,7 +1757,9 @@ extern "C" int flash_attention_launch(
                                 row_tile);
       if (static_cast<long long>(a.n_rt) * Hkv > 65535 || B > 65535)
         return inval;
-      if (bf16) {
+      if (mla) {
+        err = launch_split<__nv_bfloat16, 192, 128>(a, row_tile, s);
+      } else if (bf16) {
         switch (hd) {
           case 16: err = launch_split<__nv_bfloat16, 16>(a, row_tile, s); break;
           case 64: err = launch_split<__nv_bfloat16, 64>(a, row_tile, s); break;

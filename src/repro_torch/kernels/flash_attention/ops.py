@@ -27,7 +27,8 @@ lengths are never read on the host):
   capacity Sk, so the grid holds at least two blocks per SM; a second
   small kernel combines the splits' partials from an fp32 workspace.
 * ``prefill_wgmma``: the TMA + ``wgmma`` kernel for every other bf16 launch
-  at head dim 64 or 128 (128-row q tiles): every serve prefill chunk.
+  at head dims 64, 128 or (192, 128) (128-row q tiles): every serve
+  prefill chunk.
 * ``prefill_mma_hd16``: the ``mma.sync`` kernel for the other bf16
   launches at head dim 16, the reduced configurations' width.
 * ``prefill_f32``: the fp32 kernel for the other fp32 launches (every fp32
@@ -37,15 +38,18 @@ lengths are never read on the host):
 
 q, k, v are all bf16 (tensor cores, P rounded to bf16) or all fp32 (fp32
 results: the split-KV kernel computes in fp32 on the CUDA cores, the
-prefill kernel in 3xTF32), with head_dim 16, 64 or 128 (128 is the width of
-every served model, 16 that of the reduced configurations).
+prefill kernel in 3xTF32), at a (q/k, v) pair of head dims in
+``HEAD_DIMS``: 16, 64 or 128 for both (128 is the width of the GQA models,
+16 that of the reduced configurations), or q/k 192 and v 128 in bf16
+(DeepSeek-V3's MLA prefill: nope 128 + rope 64, v 128).  Any other pair or
+dtype raises a ``ValueError`` that names it (fp32 MLA among them).
 ``q_offset`` and ``kv_valid_len`` are a Python int or a (B,) tensor on the
 tensors' device, which the kernels read there (no host sync).  The wrapper
 counts its calls that launched in ``flash_attention.launches`` and, by
 kernel, in ``flash_attention.launches_by_kernel``.
 
-Layouts: q (B, Sq, H, hd); k/v (B, Sk, Hkv, hd) with H % Hkv == 0; the
-output is (B, Sq, H, hd) in q's dtype.
+Layouts: q (B, Sq, H, hd); k (B, Sk, Hkv, hd) and v (B, Sk, Hkv, hd_v)
+with H % Hkv == 0; the output is (B, Sq, H, hd_v) in q's dtype.
 """
 
 from __future__ import annotations
@@ -61,13 +65,17 @@ import torch.nn.functional as F
 from repro_torch.kernels.build import KernelLibrary
 
 __all__ = ["flash_attention", "flash_attention_ref", "plan_launch", "Plan",
-           "KERNELS", "LIBRARY"]
+           "HEAD_DIMS", "KERNELS", "LIBRARY"]
 
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).parent / "csrc" / "flash_attention.cu")
 
-HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (q/k head dim, v head dim) -> the dtypes the kernels take at that pair.
+HEAD_DIMS = {(16, 16): (torch.float32, torch.bfloat16),
+             (64, 64): (torch.float32, torch.bfloat16),
+             (128, 128): (torch.float32, torch.bfloat16),
+             (192, 128): (torch.bfloat16,)}          # MLA prefill
 # Kernel names, in the order of their codes in flash_attention_launch.
 KERNELS = ("prefill_wgmma", "decode_split", "prefill_mma_hd16", "prefill_f32")
 TILE_ROWS = {"prefill_wgmma": 128, "prefill_mma_hd16": 64, "prefill_f32": 64}
@@ -92,8 +100,9 @@ def plan_launch(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
                 dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
     """The kernel for these shapes, from the shapes alone.
 
-    The prefill kernel by dtype and head dim (bf16 at 64/128: the TMA +
-    wgmma kernel; bf16 at 16: the mma.sync one; fp32: the 3xTF32 one)
+    The prefill kernel by dtype and q/k head dim ``hd`` (bf16 at 64, 128
+    or 192: the TMA + wgmma kernel; bf16 at 16: the mma.sync one; fp32:
+    the 3xTF32 one)
     unless its grid of q tiles (``TILE_ROWS / G`` positions each) times
     Hkv times B is smaller than ``sms``: then the split-KV kernel, with
     enough splits of Sk that B * Hkv * row tiles * splits >= 2 * sms, or
@@ -133,8 +142,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         ) -> torch.Tensor:
     """Online-softmax attention over KV blocks (mirrors ``flash_ref``).
 
-    q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd) with H % Hkv == 0.  Query i
-    attends key j iff j < kv_valid_len and, when causal, j <= i + q_offset.
+    q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v) with
+    H % Hkv == 0.  Query i attends key j iff j < kv_valid_len and, when
+    causal, j <= i + q_offset.  The scale defaults to hd ** -0.5.
     """
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -225,7 +235,7 @@ def _launcher():
     """The C entry point with its argument types (set once)."""
     fn = LIBRARY.load().flash_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p, ctypes.c_int,
                                                  ctypes.c_longlong] * 2
@@ -238,19 +248,24 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None):
     """Validate, plan, allocate the output (and the split workspace) and
     launch on the current stream.  Returns the output and the kernel that
     ran, or None when there was nothing to compute."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("expected q (B, Sq, H, hd) and k/v (B, Sk, Hkv, hd)")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            v.shape[:3] != k.shape[:3]:
+        raise ValueError("expected q (B, Sq, H, hd), k (B, Sk, Hkv, hd) and "
+                         "v (B, Sk, Hkv, hd_v)")
     B, Sq, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != hd or Hkv == 0 or H % Hkv:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the flash attention kernel takes q, k, v all bf16 "
                         f"or all fp32, not {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the flash attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, not {hd}")
+    if q.dtype not in HEAD_DIMS.get((hd, hd_v), ()):
+        pairs = ", ".join(
+            f"({a}, {b})" + ("" if len(t) == 2 else " bf16 only")
+            for (a, b), t in HEAD_DIMS.items())
+        raise ValueError(f"the flash attention kernel takes (q/k, v) head "
+                         f"dims {pairs}, not ({hd}, {hd_v}) in {q.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash attention operands must share one device")
     if not all(_aligned(t) for t in (q, k, v)):
@@ -260,7 +275,7 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None):
         raise ValueError(f"grid too large for B={B}, Hkv={Hkv}")
     plan = plan_launch(B, Sq, Sk, H, Hkv, hd, q.dtype,
                        _sm_count(q.device) if sms is None else sms)
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out, None
     qo, qo_stride, qo_const = _offset_arg(q_offset, B, q.device, "q_offset")
@@ -269,12 +284,12 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None):
         "kv_valid_len")
     ws = None
     if plan.splits > 1:
-        ws = torch.empty(plan.splits * B * Sq * H * (hd + 2),
+        ws = torch.empty(plan.splits * B * Sq * H * (hd_v + 2),
                          dtype=torch.float32, device=q.device)
     fn = _launcher()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(KERNELS.index(plan.kernel), _DTYPE_CODE[q.dtype], hd,
+    err = fn(KERNELS.index(plan.kernel), _DTYPE_CODE[q.dtype], hd, hd_v,
              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
              Sk, H, Hkv, int(causal), *strides,
              None if qo is None else qo.data_ptr(), qo_stride, qo_const,
@@ -292,10 +307,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset=0, kv_valid_len=None,
                     scale: float | None = None,
                     block_kv: int = 512) -> torch.Tensor:
-    """Attention of q (B, Sq, H, hd) over k/v (B, Sk, Hkv, hd) with
-    absolute query positions ``i + q_offset`` and ``kv_valid_len`` valid
-    keys per row (default all).  ``block_kv`` is read by the plain version
-    only."""
+    """Attention of q (B, Sq, H, hd) over k (B, Sk, Hkv, hd) and v
+    (B, Sk, Hkv, hd_v) with absolute query positions ``i + q_offset`` and
+    ``kv_valid_len`` valid keys per row (default all); the output is
+    (B, Sq, H, hd_v).  ``block_kv`` is read by the plain version only."""
     if not _is_cuda(q):
         return flash_attention_ref(q, k, v, causal=causal, block_kv=block_kv,
                                    q_offset=q_offset,

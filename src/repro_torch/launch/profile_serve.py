@@ -19,6 +19,8 @@ second traced run with a profiler range around each codec call).
       --arch qwen3-235b-a22b --layers 2
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --layers 2 \
       --dtype float32
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch deepseek-v3-671b --layers 4      # 3 dense + 1 MoE layer, MLA
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Serving entry point: chunked-prefill engine over a Poisson request trace.
 
 Mirrors ``repro.launch.serve.serve_trace``.  ``arch`` is a registered arch
-name or a :class:`ModelConfig` (for instance a depth-cut config).  Weights
+name or a :class:`ModelConfig` (for instance a depth-cut config);
+``layers`` (``--layers``) cuts the depth, of the published widths or of the
+reduced config.  Weights
 are random, drawn from a ``torch.Generator`` seeded with ``seed`` on
 ``device``; prompts come from numpy's generator with the same seed.  Every
 engine call is timed on the host clock between device synchronisations, the
@@ -15,6 +17,12 @@ Example (on a card; ``--dtype`` is float32, the default, or bfloat16):
       --reduce --requests 6 --chunk 64 --dtype bfloat16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm45-106b-a12b \
       --reduce --wire-dtype int8 --ffn-dtype int8     # the w8a8 expert path
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+      --layers 4 --dtype bfloat16 --chunk 256     # full width: 3 dense + 1 MoE
+
+DeepSeek-V3's MLA prefill attends at q/k head dim 192 and v head dim 128,
+which the flash kernel takes in bf16 only: in fp32 on a card the first
+prefill raises a ValueError that names the dims.
 
 Expert parallelism: under ``torchrun`` (``WORLD_SIZE`` and ``RANK`` set)
 every process is one rank of an EP group of ``WORLD_SIZE`` ranks, NCCL on
@@ -28,6 +36,7 @@ rank 0 prints.  Without ``WORLD_SIZE`` it runs on one device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -63,7 +72,8 @@ def _timed(fn, kind: str, calls: list, sync, n_tokens):
 
 def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
                 rps: float = 4.0, chunk: int = 64, max_new: int = 8,
-                reduce: bool = True, balancer: str = "ultraep", seed: int = 0,
+                reduce: bool = True, layers: int | None = None,
+                balancer: str = "ultraep", seed: int = 0,
                 prompt_len: tuple[int, int] = (32, 200), decode_batch: int = 4,
                 cf: float = 4.0, dtype=torch.float32, device="cuda",
                 wire_dtype: str = "none", ffn_dtype: str = "none",
@@ -74,7 +84,9 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
     trace; rank 0 prints the summary."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduce:
-        cfg = reduced(cfg)
+        cfg = reduced(cfg, layers=layers)
+    elif layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name} is encoder-only; no serving path")
     if cfg.ssm is not None and chunk % cfg.ssm.chunk:
@@ -135,6 +147,8 @@ def main(argv=None) -> ServingEngine:
     ap.add_argument("--chunk", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--reduce", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--balancer", default="ultraep")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
@@ -155,7 +169,8 @@ def main(argv=None) -> ServingEngine:
     try:
         return serve_trace(args.arch, requests=args.requests, rps=args.rps,
                            chunk=args.chunk, max_new=args.max_new,
-                           reduce=args.reduce, balancer=args.balancer,
+                           reduce=args.reduce, layers=args.layers,
+                           balancer=args.balancer,
                            dtype=DTYPES[args.dtype], device=device,
                            wire_dtype=args.wire_dtype,
                            ffn_dtype=args.ffn_dtype, group=group)

@@ -1,13 +1,22 @@
-"""GQA attention with chunked prefill and a static-shape decode cache.
+"""Attention: GQA (optional QKV bias / qk-norm) and DeepSeek MLA, with
+chunked prefill and a static-shape decode cache.
 
-Mirrors the GQA half of ``repro.models.attention``.  Where the reference
-calls ``flash_ref``, the port calls ``flash_attention`` with the same
-arguments (``q_offset``, ``kv_valid_len``): the hand-written flash kernel
+Mirrors ``repro.models.attention``.  Where the reference calls
+``flash_ref``, the port calls ``flash_attention`` with the same arguments
+(``q_offset``, ``kv_valid_len``, ``scale``): the hand-written flash kernel
 on a CUDA tensor, its plain version on a CPU tensor.  ``flash_ref`` (the
 online-softmax reference over KV blocks in plain tensor ops) is that plain
 version, re-exported from ``repro_torch.kernels.flash_attention``;
 ``block_kv`` is read by it only.  The prefill/decode functions write the
-cache at each row's own offset.  MLA is not ported yet.
+cache at each row's own offset.
+
+MLA keeps the latent cache: ``k`` holds the normalised latent c_kv
+(B, S, kv_lora) and ``v`` the rotated rope key (B, S, rope).  Prefill
+expands the whole latent cache to per-head K (nope + rope wide) and V (v
+wide), as the reference does, and attends with the flash kernel at those
+unequal head dims; decode is the absorbed form (W_UK folded into q, W_UV
+applied to the latent context) in fp32 products, which the reference
+computes outside any Pallas kernel too.
 """
 
 from __future__ import annotations
@@ -24,8 +33,9 @@ from repro_torch.kernels.flash_attention.ops import (
 )
 from repro_torch.models.layers import apply_rotary, rms_norm, rotary_cos_sin
 
-__all__ = ["AttnConfig", "GQAParams", "KVCache", "flash_ref", "init_gqa",
-           "gqa_attention", "gqa_prefill", "gqa_decode"]
+__all__ = ["AttnConfig", "GQAParams", "MLAParams", "KVCache", "flash_ref",
+           "init_gqa", "init_mla", "gqa_attention", "mla_attention",
+           "gqa_prefill", "mla_prefill", "gqa_decode", "mla_decode"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +48,16 @@ class AttnConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    # MLA (DeepSeek-V3) dims; attention is MLA iff kv_lora_rank > 0.
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
 
 
 class GQAParams(nn.Module):
@@ -63,8 +83,34 @@ class GQAParams(nn.Module):
         return gqa_attention(x, self, cfg, block_kv=block_kv)
 
 
+class MLAParams(nn.Module):
+    """wq_a (D, q_lora), q_a_norm (q_lora,), wq_b (q_lora, H*(nope+rope)),
+    wkv_a (D, kv_lora + rope), kv_a_norm (kv_lora,), wkv_b
+    (kv_lora, H*(nope+v)), wo (H*v, D) (mirrors
+    ``repro.models.attention.MLAParams``)."""
+
+    def __init__(self, wq_a, q_a_norm, wq_b, wkv_a, kv_a_norm, wkv_b, wo):
+        super().__init__()
+        for name, t in (("wq_a", wq_a), ("q_a_norm", q_a_norm),
+                        ("wq_b", wq_b), ("wkv_a", wkv_a),
+                        ("kv_a_norm", kv_a_norm), ("wkv_b", wkv_b),
+                        ("wo", wo)):
+            setattr(self, name, nn.Parameter(t, requires_grad=False))
+
+    def forward(self, x: torch.Tensor, cfg: AttnConfig, *, cache=None,
+                decode: bool = False, valid_len=None, block_kv: int = 512):
+        if decode:
+            return mla_decode(x, cache, self, cfg)
+        if cache is not None:
+            return mla_prefill(x, cache, self, cfg, valid_len=valid_len,
+                               block_kv=block_kv)
+        return mla_attention(x, self, cfg, block_kv=block_kv)
+
+
 class KVCache(NamedTuple):
-    """Decode-time cache: k/v (B, S, Hkv, hd), length (B,) filled positions."""
+    """Decode-time cache, length (B,) filled positions.  GQA: k/v
+    (B, S, Hkv, hd).  MLA: k the latent (B, S, kv_lora), v the rope key
+    (B, S, rope)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -93,6 +139,30 @@ def init_gqa(cfg: AttnConfig, generator: torch.Generator, *,
         q_norm=const(hd, 1.0) if cfg.qk_norm else None,
         k_norm=const(hd, 1.0) if cfg.qk_norm else None,
     )
+
+
+def init_mla(cfg: AttnConfig, generator: torch.Generator, *,
+             dtype=torch.float32, device="cuda") -> MLAParams:
+    D, H = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device) * scale
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    s = D ** -0.5
+    return MLAParams(
+        wq_a=normal((D, cfg.q_lora_rank), s), q_a_norm=ones(cfg.q_lora_rank),
+        wq_b=normal((cfg.q_lora_rank, H * qk), cfg.q_lora_rank ** -0.5),
+        wkv_a=normal((D, cfg.kv_lora_rank + cfg.qk_rope_dim), s),
+        kv_a_norm=ones(cfg.kv_lora_rank),
+        wkv_b=normal((cfg.kv_lora_rank,
+                      H * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                     cfg.kv_lora_rank ** -0.5),
+        wo=normal((H * cfg.v_head_dim, D), (H * cfg.v_head_dim) ** -0.5))
 
 
 def _update_at(cache_arr: torch.Tensor, new: torch.Tensor,
@@ -181,3 +251,103 @@ def gqa_decode(x: torch.Tensor, cache: KVCache, params: GQAParams,
                           kv_valid_len=cache.length + 1)
     y = out.reshape(B, 1, -1) @ params.wo
     return y, KVCache(k_all, v_all, cache.length + 1)
+
+
+def _project_mla(x: torch.Tensor, params: MLAParams, cfg: AttnConfig,
+                 pos: torch.Tensor):
+    """Per-head q (nope + rope, rope part rotated), the normalised latent
+    c_kv and the rotated rope key k_r (B, S, rope)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = rms_norm(x @ params.wq_a, params.q_a_norm) @ params.wq_b
+    q = q.reshape(B, S, H, nope + rope)
+    kv = x @ params.wkv_a                                   # (B, S, lora+rope)
+    c_kv = rms_norm(kv[..., :cfg.kv_lora_rank], params.kv_a_norm)
+    k_r = kv[..., cfg.kv_lora_rank:].reshape(B, S, 1, rope)
+    cos, sin = rotary_cos_sin(pos, rope, cfg.rope_theta)
+    q_r = apply_rotary(q[..., nope:], cos, sin)
+    k_r = apply_rotary(k_r, cos, sin)
+    q = torch.cat([q[..., :nope], q_r], dim=-1)
+    return q, c_kv, k_r[:, :, 0, :]
+
+
+def _expand_latent(c_all: torch.Tensor, kr_all: torch.Tensor,
+                   params: MLAParams, cfg: AttnConfig):
+    """Per-head K (B, S, H, nope + rope), the rope key shared by every
+    head, and V (B, S, H, v), a view of the expanded latent."""
+    B, S, _ = c_all.shape
+    H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    kv = (c_all @ params.wkv_b).reshape(B, S, H, nope + cfg.v_head_dim)
+    k = torch.cat([kv[..., :nope],
+                   kr_all[:, :, None, :].expand(B, S, H, rope)], dim=-1)
+    return k, kv[..., nope:]
+
+
+def mla_attention(x: torch.Tensor, params: MLAParams, cfg: AttnConfig, *,
+                  block_kv: int = 512) -> torch.Tensor:
+    """Full-sequence MLA: the latent expanded to per-head K/V.
+    x: (B, S, D)."""
+    B, S, _ = x.shape
+    q, c_kv, k_r = _project_mla(x, params, cfg,
+                                torch.arange(S, device=x.device))
+    k, v = _expand_latent(c_kv, k_r, params, cfg)
+    out = flash_attention(q, k, v, causal=cfg.causal, block_kv=block_kv,
+                          scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5)
+    return out.reshape(B, S, -1) @ params.wo
+
+
+def mla_prefill(x: torch.Tensor, cache: KVCache, params: MLAParams,
+                cfg: AttnConfig, *, valid_len=None, block_kv: int = 1024
+                ) -> tuple[torch.Tensor, KVCache]:
+    """Chunked MLA prefill on the latent cache.  x: (B, C, D) starting at
+    absolute position cache.length."""
+    B, C, _ = x.shape
+    pos = cache.length[:, None] + torch.arange(C, device=x.device)[None, :]
+    q, c_new, kr_new = _project_mla(x, params, cfg, pos)
+    c_all = _update_at(cache.k, c_new, cache.length)
+    kr_all = _update_at(cache.v, kr_new, cache.length)
+    k_full, v_full = _expand_latent(c_all, kr_all, params, cfg)
+    vl = C if valid_len is None else valid_len
+    out = flash_attention(q, k_full, v_full, causal=True, block_kv=block_kv,
+                          q_offset=cache.length,
+                          kv_valid_len=cache.length + vl,
+                          scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5)
+    y = out.reshape(B, C, -1) @ params.wo
+    return y, KVCache(c_all, kr_all, cache.length + vl)
+
+
+def mla_decode(x: torch.Tensor, cache: KVCache, params: MLAParams,
+               cfg: AttnConfig) -> tuple[torch.Tensor, KVCache]:
+    """Absorbed-weight MLA decode on the latent cache.  x: (B, 1, D).
+
+    Scores s_t = q_nope^T W_UK c_t + q_rope^T k_rope_t, without expanding
+    per-head K/V; the context stays latent until W_UV.  fp32 products, as
+    in the reference.
+    """
+    B = x.shape[0]
+    H = cfg.num_heads
+    nope, rope, hv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lora = cfg.kv_lora_rank
+    q, c_new, kr_new = _project_mla(x, params, cfg, cache.length[:, None])
+    c_all = _update_at(cache.k, c_new, cache.length)
+    kr_all = _update_at(cache.v, kr_new, cache.length)
+    w_full = params.wkv_b.reshape(lora, H, nope + hv).to(torch.float32)
+    c32 = c_all.to(torch.float32)
+    # Absorb W_UK into q: (B, 1, H, nope) x (lora, H, nope) -> (B, H, lora).
+    q_abs = torch.einsum("bqhn,lhn->bhl", q[..., :nope].to(torch.float32),
+                         w_full[..., :nope])
+    scores = torch.einsum("bhl,bsl->bhs", q_abs, c32)
+    scores = scores + torch.einsum("bqhr,bsr->bhs",
+                                   q[..., nope:].to(torch.float32),
+                                   kr_all.to(torch.float32))
+    scores = scores * (nope + rope) ** -0.5
+    S = c_all.shape[1]
+    mask = (torch.arange(S, device=x.device)[None, None, :]
+            <= cache.length[:, None, None])
+    scores = torch.where(mask, scores, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhs,bsl->bhl", p, c32)              # latent context
+    out = torch.einsum("bhl,lhv->bhv", ctx, w_full[..., nope:])
+    y = out.reshape(B, 1, H * hv).to(x.dtype) @ params.wo
+    return y, KVCache(c_all, kr_all, cache.length + 1)

@@ -1,7 +1,7 @@
 """Transformer blocks over a shared residual stream.
 
 Mirrors ``repro.models.transformer`` for the block kinds ``attn+moe``,
-``attn+dense``, ``mamba+moe`` and ``mamba+dense`` on one device
+``attn+dense``, ``mamba+moe`` and ``mamba+dense`` (attention GQA or MLA) on one device
 (``ParallelCtx()``) or on an EP group of R ranks over ``torch.distributed``
 (``ParallelCtx(group=...)``, the counterpart of a mesh whose model axis is
 the EP group and whose data axes have size 1): attention, Mamba and dense
@@ -89,12 +89,14 @@ class BlockParams(nn.Module):
 
 
 def attn_config(cfg: ModelConfig) -> AttnConfig:
-    if cfg.is_mla:
-        raise ValueError(f"{cfg.name}: MLA attention is not ported yet")
     return AttnConfig(d_model=cfg.d_model, num_heads=cfg.num_heads,
                       num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                       causal=cfg.causal, qkv_bias=cfg.qkv_bias,
-                      qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+                      qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
+                      q_lora_rank=cfg.q_lora_rank,
+                      kv_lora_rank=cfg.kv_lora_rank,
+                      qk_nope_dim=cfg.qk_nope_dim,
+                      qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim)
 
 
 def ssm_config(cfg: ModelConfig) -> SSMConfig:
@@ -136,8 +138,8 @@ def init_block(cfg: ModelConfig, kind: str, rcfg: RuntimeConfig,
     dtype = rcfg.dtype
     attn = ssm = ffn = moe = None
     if mixer == "attn":
-        attn = attn_mod.init_gqa(attn_config(cfg), generator, dtype=dtype,
-                                 device=device)
+        init = attn_mod.init_mla if cfg.is_mla else attn_mod.init_gqa
+        attn = init(attn_config(cfg), generator, dtype=dtype, device=device)
     else:
         ssm = ssm_mod.init_ssm(ssm_config(cfg), generator, dtype=dtype,
                                device=device)
@@ -160,13 +162,19 @@ def init_block(cfg: ModelConfig, kind: str, rcfg: RuntimeConfig,
 
 def init_cache_block(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      dtype, *, device="cuda") -> KVCache | SSMState:
-    """Decode cache entry for one layer: a KVCache for attention, an
-    SSMState (fp32 state, conv tail in ``dtype``) for a Mamba mixer."""
+    """Decode cache entry for one layer: a KVCache for attention (MLA: the
+    latent (B, S, kv_lora) and the rope key (B, S, rope)), an SSMState
+    (fp32 state, conv tail in ``dtype``) for a Mamba mixer."""
     length = torch.zeros(batch, dtype=torch.int64, device=device)
     if kind.startswith("attn+"):
-        shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                       v=torch.zeros(shape, dtype=dtype, device=device),
+        if cfg.is_mla:
+            k_shape = (batch, max_seq, cfg.kv_lora_rank)
+            v_shape = (batch, max_seq, cfg.qk_rope_dim)
+        else:
+            k_shape = v_shape = (batch, max_seq, cfg.num_kv_heads,
+                                 cfg.head_dim)
+        return KVCache(k=torch.zeros(k_shape, dtype=dtype, device=device),
+                       v=torch.zeros(v_shape, dtype=dtype, device=device),
                        length=length)
     scfg = ssm_config(cfg)
     return SSMState(
@@ -236,6 +244,8 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
 
     h = rms_norm(x, bp.norm1)
     if mixer == "attn":
+        # GQAParams or MLAParams: each sends the call to its own decode,
+        # chunked prefill or full-sequence function.
         y = bp.attn(h, attn_config(cfg), cache=cache, decode=decode,
                     valid_len=valid_len, block_kv=rcfg.block_kv)
         if cache is not None:

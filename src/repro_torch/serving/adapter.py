@@ -1,10 +1,13 @@
 """Glue: bind a model to the ServingEngine callbacks.
 
 Mirrors ``repro.serving.adapter.make_engine_fns``.  Caches are a list with
-one entry per layer, a KVCache or an SSMState; every field of both carries
-the batch on axis 0, so stacking concatenates each layer's fields along it
-into the layer's own type and unstacking slices them back.  Model calls run
-under ``torch.inference_mode`` on the parameters' device.
+one entry per layer, a KVCache (GQA's per-head k/v or MLA's latent and
+rope key) or an SSMState; every field of each carries the batch on axis 0,
+so stacking concatenates each layer's fields along it into the layer's own
+type and unstacking slices them back.  Model calls run under
+``torch.inference_mode`` on the parameters' device and, as in the
+reference, pass no router bias: a ``use_bias`` router (DeepSeek-V3) selects
+on its plain scores.
 """
 
 from __future__ import annotations

@@ -115,20 +115,30 @@ def test_wrapper_refuses_other_devices():
     ((torch.bfloat16, torch.float32, torch.float32), 128, TypeError),
     ((torch.float32,) * 3, 32, ValueError),            # head dim not served
     ((torch.bfloat16,) * 3, 256, ValueError),
-])
+    ((torch.float32,) * 3, (192, 128), ValueError),    # MLA: bf16 only
+    ((torch.bfloat16,) * 3, (192, 64), ValueError),    # pair not served
+    ((torch.bfloat16,) * 3, (128, 64), ValueError),
+    ((torch.bfloat16,) * 3, (12, 8), ValueError),      # reduced MLA dims
+], ids=str)
 def test_kernel_refuses_what_it_does_not_compute(dtypes, hd, error):
     """The launcher raises before it loads the kernel, so no plain path
-    hides on a card."""
+    hides on a card; a refused pair of head dims is named.  ``hd``: one
+    head dim, or (q/k, v)."""
+    hd, hd_v = hd if isinstance(hd, tuple) else (hd, hd)
     q, k, v = (torch.zeros(shape, dtype=dt) for shape, dt in zip(
-        ((1, 4, 4, hd), (1, 8, 2, hd), (1, 8, 2, hd)), dtypes))
-    with pytest.raises(error):
+        ((1, 4, 4, hd), (1, 8, 2, hd), (1, 8, 2, hd_v)), dtypes))
+    with pytest.raises(error) as info:
         ops._launch(q, k, v, True, 0, None, None)
+    assert error is TypeError or f"not ({hd}, {hd_v})" in str(info.value)
 
 
 def test_kernel_takes_fp32_and_the_reduced_head_dims():
-    """Both dtypes need a unit-stride head dim and 16-byte aligned bases
+    """Both dtypes at equal head dims 16, 64 and 128, and bf16 at MLA's
+    (192, 128); both need a unit-stride head dim and 16-byte aligned bases
     and outer strides (the kernels read rows in 16-byte pieces)."""
-    assert ops.HEAD_DIMS == (16, 64, 128)
+    both = (torch.float32, torch.bfloat16)
+    assert ops.HEAD_DIMS == {(16, 16): both, (64, 64): both,
+                             (128, 128): both, (192, 128): (torch.bfloat16,)}
     f = torch.zeros((2, 8, 4, 16))
     assert ops._aligned(f) and ops._aligned(f[:, 1:])
     b = torch.zeros((2, 8, 4, 16), dtype=torch.bfloat16)
@@ -168,6 +178,12 @@ PLAN_SHAPES = [
     (4, 1, 4096, 16, 8, 128, torch.bfloat16, "decode_split"),          # G 2
     (1, 1001, 1301, 64, 4, 128, torch.bfloat16, "prefill_wgmma"),      # G 16
     (1, 5, 1, 4, 2, 16, torch.bfloat16, "decode_split"),               # Sk 1
+    # DeepSeek-V3's MLA prefill (q/k 192, v 128; H = Hkv = 128): a chunk
+    # of more than 128 tokens fills the card, one of at most 128 does not.
+    (1, 4096, SERVE_SK, 128, 128, 192, torch.bfloat16, "prefill_wgmma"),
+    (1, 129, SERVE_SK, 128, 128, 192, torch.bfloat16, "prefill_wgmma"),
+    (1, 128, SERVE_SK, 128, 128, 192, torch.bfloat16, "decode_split"),
+    (1, 64, 8192, 128, 128, 192, torch.bfloat16, "decode_split"),
 ]
 
 
@@ -462,3 +478,98 @@ def test_fp32_prefill_kernel_on_card(cuda_device, case):
     torch.cuda.synchronize()
     assert kernel == "prefill_f32"
     _check_against_plain(out, q, k, v, kw, 1e-4)
+
+
+MLA_CASES = [
+    # B, Sq, Sk, H, Hkv, causal, q_offset, kv_valid_len at (192, 128)
+    (1, 300, 700, 16, 16, True, [400], [650]),        # Sq ends mid-tile
+    (2, 200, 512, 8, 8, True, [0, 250], [200, 411]),  # per-row, ragged
+    (2, 1, 600, 16, 16, False, 0, [600, 77]),         # decode-like rows
+    (1, 64, 4160, 128, 128, True, [4096], [4130]),    # MLA's split shape
+    (2, 130, 400, 32, 8, True, [5, 250], [100, 380]),  # GQA 4
+    (1, 200, 300, 4, 4, True, [0], [0]),              # no valid key
+]
+
+
+def _mla_inputs(case, device, seed=7):
+    """q (192 wide), k (192 wide) and v as MLA prefill makes it: the last
+    128 columns of a 256-wide expanded latent (a strided view)."""
+    B, Sq, Sk, H, Hkv, causal, q_off, kv_len = case
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, torch.bfloat16)
+
+    q, k, kv = t((B, Sq, H, 192)), t((B, Sk, Hkv, 192)), t((B, Sk, Hkv, 256))
+    kw = dict(causal=causal, scale=192 ** -0.5,
+              q_offset=(q_off if isinstance(q_off, int)
+                        else torch.tensor(q_off, device=device)),
+              kv_valid_len=torch.tensor(kv_len, device=device))
+    return q, k, kv[..., 128:], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["plan", "prefill", "split"])
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_mla_head_dims_match_plain_on_card(cuda_device, case, route):
+    """(192, 128) in bf16 through the kernel the plan picks (one launch,
+    counted), the TMA + wgmma prefill kernel (a card of one SM) and the
+    split-KV kernel (a card of 4096 SMs), each output row within 1e-2 of
+    its own max|ref| and rows with no valid key exactly 0."""
+    q, k, v, kw = _mla_inputs(case, cuda_device)
+    if route == "plan":
+        before = ops.flash_attention.launches
+        out = ops.flash_attention(q, k, v, **kw)
+        assert ops.flash_attention.launches == before + 1
+    else:
+        out, kernel = ops._launch(q, k, v, kw["causal"], kw["q_offset"],
+                                  kw["kv_valid_len"], kw["scale"],
+                                  sms=1 if route == "prefill" else 4096)
+        assert kernel == ("prefill_wgmma" if route == "prefill"
+                          else "decode_split")
+    torch.cuda.synchronize()
+    assert out.shape == q.shape[:3] + (128,)
+    _check_against_plain(out, q, k, v, kw, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [64, 1000])
+def test_mla_head_dims_under_cuda_graph(cuda_device, Sq):
+    """A captured (192, 128) call (split-KV at 64 queries, wgmma at 1000)
+    replays on new inputs and new offsets copied into its tensors."""
+    case = (1, Sq, 1300, 128, 128, True, [250], [250 + Sq])
+    q, k, v, kw = _mla_inputs(case, cuda_device)
+    ops.flash_attention(q, k, v, **kw)              # build, load, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    with torch.cuda.graph(graph, stream=stream):
+        out = ops.flash_attention(q, k, v, **kw)
+    q2, k2, v2, _ = _mla_inputs(case, cuda_device, seed=8)
+    for dst, src in ((q, q2), (k, k2), (v, v2)):
+        dst.copy_(src)
+    kw["q_offset"].fill_(200)
+    kw["kv_valid_len"].fill_(200 + Sq - 7)
+    graph.replay()
+    torch.cuda.synchronize()
+    _check_against_plain(out, q, k, v, kw, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dims", [(torch.float32, (192, 128)),
+                                        (torch.bfloat16, (192, 64)),
+                                        (torch.bfloat16, (128, 64)),
+                                        (torch.bfloat16, (64, 128))],
+                         ids=str)
+def test_pairs_outside_the_table_raise_on_card(cuda_device, dtype, dims):
+    """On a CUDA tensor a pair of head dims the table does not list raises
+    a ValueError that names it, and nothing is launched."""
+    hd, hd_v = dims
+    q = torch.zeros((1, 200, 8, hd), dtype=dtype, device=cuda_device)
+    k = torch.zeros((1, 300, 8, hd), dtype=dtype, device=cuda_device)
+    v = torch.zeros((1, 300, 8, hd_v), dtype=dtype, device=cuda_device)
+    before = ops.flash_attention.launches
+    with pytest.raises(ValueError, match=f"not \\({hd}, {hd_v}\\)"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention.launches == before

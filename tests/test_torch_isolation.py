@@ -32,7 +32,8 @@ from repro_torch.launch import serve  # noqa: F401  (imports the whole path)
 from repro_torch.models.model import init_caches, init_lm, prefill_step
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 for arch, q8 in (("glm45-106b-a12b", "none"), ("jamba-v0.1-52b", "none"),
-                 ("glm45-106b-a12b", "int8"), ("qwen3-235b-a22b", "none")):
+                 ("glm45-106b-a12b", "int8"), ("qwen3-235b-a22b", "none"),
+                 ("deepseek-v3-671b", "none")):
     cfg = reduced(get_config(arch))
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"),
                          cf_pair=4.0, cf_slot=4.0, wire_dtype=q8,

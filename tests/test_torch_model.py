@@ -1,6 +1,8 @@
 """Port LM vs the JAX LM on reduced GLM-4.5-Air, reduced Jamba-v0.1
-(8 layers: mamba+dense, mamba+moe, attn+dense) and reduced Qwen3-235B-A22B
-(per-head q/k RMSNorm) with converted weights.
+(8 layers: mamba+dense, mamba+moe, attn+dense), reduced Qwen3-235B-A22B
+(per-head q/k RMSNorm) and reduced DeepSeek-V3 (MLA on the latent cache,
+1 dense + 3 MoE layers, a sigmoid router with routed scaling 2.5 and no
+selection bias when serving) with converted weights.
 
 The JAX parameters (``repro.models.model.init_lm``, scan_layers=True, so
 segments are stacked on a layer axis, and a 16-layer Jamba's repeating
@@ -38,7 +40,7 @@ from repro_torch.serving.adapter import make_engine_fns
 from repro_torch.serving.engine import EngineConfig, Request, ServingEngine
 
 GLM, JAMBA = "glm45-106b-a12b", "jamba-v0.1-52b"
-QWEN3 = "qwen3-235b-a22b"
+QWEN3, DEEPSEEK = "qwen3-235b-a22b", "deepseek-v3-671b"
 CHUNK = 64
 MAX_SEQ = 272          # = prompt max 200 + max_new 8 + chunk 64
 TOL = 1e-4
@@ -76,7 +78,8 @@ def _close(j, t):
 
 
 @pytest.mark.parametrize("arch,dense_prefix", [(GLM, False), (GLM, True),
-                                               (JAMBA, False), (QWEN3, False)])
+                                               (JAMBA, False), (QWEN3, False),
+                                               (DEEPSEEK, False)])
 def test_prefill_and_decode_logits_match_jax(arch, dense_prefix):
     cfg, (jpre, jdec, jnew, jstack, _), (tpre, tdec, tnew, tstack, _), _ = \
         _build(arch, dense_prefix)
@@ -149,7 +152,7 @@ def _requests(cls, vocab):
     return out
 
 
-@pytest.mark.parametrize("arch", [GLM, JAMBA, QWEN3])
+@pytest.mark.parametrize("arch", [GLM, JAMBA, QWEN3, DEEPSEEK])
 def test_served_trace_gives_identical_greedy_tokens(arch):
     cfg, jfns, tfns, _ = _build(arch)
     outs = []
