@@ -1495,6 +1495,10 @@ def _wrappers() -> dict:
 
     return {"grouped_swiglu": gg.grouped_swiglu,
             "grouped_matmul": gg.grouped_matmul,
+            "grouped_swiglu_bwd": gg.grouped_swiglu_bwd,
+            "grouped_matmul_nt": gg.grouped_matmul_nt,
+            "grouped_wgrad": gg.grouped_wgrad,
+            "flash_attention_bwd": fa.flash_attention_bwd,
             "grouped_swiglu_q8": gg.grouped_swiglu_q8,
             "grouped_matmul_q8": gg.grouped_matmul_q8,
             "ssd_intra_chunk": ssd.ssd_intra_chunk,
@@ -1901,7 +1905,6 @@ def _ep_worker(rank, world, port, out_dir):
                        launches={k: launches[k] for k in (
                            "plan_solve", "gating_topk", "grouped_swiglu",
                            "grouped_matmul", "flash_attention")})
-        del params
         if rank == 0:
             # The R = 1 layer on the same tokens and weights.
             cfg1 = moe_config(glm, rcfg, ParallelCtx(), world * T)
@@ -1917,9 +1920,76 @@ def _ep_worker(rank, world, port, out_dir):
                 out["modes"][mode].update(max_abs_err=err, max_abs_ref=scale,
                                           tol=tol,
                                           finite=bool(torch.isfinite(y).all()))
+            del p1, refs
+    out["backward"] = _ep_backward(rank, world, group, glm, rcfg,
+                                   cfgs["a2a"], params, x_all, mine)
+    del params
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
     collectives.destroy()
+
+
+def _ep_backward(rank, world, group, glm, rcfg, cfg, params, x_all, mine):
+    """Phase 9's backward on one rank: d(sum y^2) through the R = 2 ``a2a``
+    layer against the R = 1 layer's on the same tokens and weights (each
+    rank holds the R = 1 layer and compares its own share: its tokens'
+    gradient, its experts', and the router's summed over the group), each
+    within TRAIN_TOL of the reference tensor's max|ref|."""
+    import torch
+
+    from repro_torch.models.transformer import ParallelCtx, moe_config
+    from repro_torch.moe import stages
+    from repro_torch.moe.layer import init_moe_params, moe_layer_local
+    from repro_torch.parallel import collectives
+
+    T = mine.shape[0]
+    with torch.no_grad():
+        ctx = stages.make_stage_ctx(cfg, group)
+        plan = stages.plan_stage(ctx, stages.gate_stage(
+            ctx, mine, params.router)).plan
+    torch.cuda.synchronize()
+    _reset_launches()
+    with torch.enable_grad():
+        params.requires_grad_(True)
+        xg = mine.clone().requires_grad_(True)
+        y, _, st = moe_layer_local(xg, params, cfg, axis_name=group)
+        (y.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launches = _launches()
+    router = collectives.all_reduce(group, params.router.grad)
+    # Held on the host while the R = 1 layer runs (two ranks share the card).
+    got = {"x": xg.grad.cpu(), "router": router.cpu(),
+           "w1": params.w1.grad.cpu(), "w3": params.w3.grad.cpu(),
+           "w2": params.w2.grad.cpu()}
+    params.requires_grad_(False)
+    for t in params.parameters():
+        t.grad = None
+    del xg, y, router
+    torch.cuda.empty_cache()
+    cfg1 = moe_config(glm, rcfg, ParallelCtx(), world * T)
+    p1 = init_moe_params(cfg1, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16, device="cuda")
+    with torch.enable_grad():
+        p1.requires_grad_(True)
+        x1 = x_all.clone().requires_grad_(True)
+        (moe_layer_local(x1, p1, cfg1)[0].float() ** 2).sum().backward()
+    epr = glm.moe.num_experts // world
+    mine_e = slice(rank * epr, (rank + 1) * epr)
+    ref = {"x": x1.grad[rank * T:(rank + 1) * T], "router": p1.router.grad,
+           "w1": p1.w1.grad[mine_e], "w3": p1.w3.grad[mine_e],
+           "w2": p1.w2.grad[mine_e]}
+    errs = {n: _rel_check(f"ep backward rank {rank} d{n}", got[n],
+                          ref[n].cpu(), TRAIN_TOL) for n in got}
+    del p1, x1, ref
+    torch.cuda.empty_cache()
+    return {"max_abs_err": {n: e[0] for n, e in errs.items()},
+            "max_abs_ref": {n: e[1] for n, e in errs.items()},
+            "replicas": int((plan.x >= 0).sum()),
+            "drops": int(st.drops_dispatch + st.drops_slot),
+            "launches": {k: launches[k] for k in (
+                "plan_solve", "gating_topk", "grouped_swiglu",
+                "grouped_matmul", "grouped_swiglu_bwd", "grouped_matmul_nt",
+                "grouped_wgrad")}}
 
 
 def phase_ep_layer() -> dict:
@@ -1954,6 +2024,12 @@ def phase_ep_layer() -> dict:
                     or n["grouped_swiglu"] != 1 or n["grouped_matmul"] != 1:
                 raise AssertionError(f"ep layer rank {rank} {mode}: drops "
                                      f"{m['drops']}, launches {n}")
+    for rank, rec in enumerate(ranks):
+        bw = rec["backward"]
+        n = bw["launches"]
+        if bw["replicas"] < 1 or bw["drops"] or n["grouped_swiglu_bwd"] != 1 \
+                or n["grouped_matmul_nt"] != 2 or n["grouped_wgrad"] != 3:
+            raise AssertionError(f"ep layer backward rank {rank}: {bw}")
     for mode, m in ranks[0]["modes"].items():
         if not (m["finite"] and m["max_abs_err"] <= m["tol"] * m["max_abs_ref"]):
             raise AssertionError(f"ep layer {mode}: max|err| "
@@ -2053,6 +2129,299 @@ def phase_mamba_mixer(jamba):
     torch.cuda.empty_cache()
 
 
+TRAIN = dict(layers=1, batch=2, seq=4096, steps=5, loss_chunks=8, seed=0)
+TRAIN_TOL = 2e-2              # every gradient within 2e-2 of its max|ref|
+# Launches of each wrapper in one train step of the one-layer GLM-4.5-Air
+# (attention + MoE): the forward kernels once, B1 once, B2 twice (dact =
+# dy w2^T, dx = dh w1^T + dg w3^T), B3 three times (dw1, dw3, dw2), the
+# flash backward once; no plan solve (R = 1) and no operand copied.
+TRAIN_LAUNCHES = {"gating_topk": 1, "grouped_swiglu": 1, "grouped_matmul": 1,
+                  "grouped_swiglu_bwd": 1, "grouped_matmul_nt": 2,
+                  "grouped_wgrad": 3, "flash_attention": 1,
+                  "flash_attention.prefill_wgmma": 1,
+                  "flash_attention_bwd": 1, "plan_solve": 0}
+
+
+def _rel_check(name, out, ref, tol):
+    """max|err| <= tol * max|ref| over the whole tensor; (err, scale)."""
+    err, scale = _max_err(out, ref)
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max|err| {err:.3e} > {tol} * "
+                             f"max|ref| {scale:.3e}")
+    return err, scale
+
+
+def phase_train_kernels(glm) -> dict:
+    """Phase 12: the backward kernels at the train step's shapes against
+    their plain versions, timed beside their bounds and a library call.
+
+    Grouped (B1 swiglu_bwd, B2 matmul_nt, B3 wgrad): G 130 slots of cap
+    2017 rows, K 4096, N 1408, with each slot's valid-row count from the
+    port's gate, ``ultraep`` plan and bucket on 8192 seeded tokens (the
+    train step's), then the same with every 13th slot empty; every output
+    within TRAIN_TOL of its max|ref|, padded rows and empty slots exactly
+    zero.  Flash (B4): B 2, S 4096, 32 / 8 heads, hd 128, causal; dq, dk,
+    dv within TRAIN_TOL of their max|ref| against autograd through the
+    plain version.  Bounds on the valid rows' (causal pairs') bf16 work or
+    the bytes, whichever is larger; library: ``torch.bmm`` over the padded
+    buffers, and SDPA's backward through autograd (flash backend, k/v
+    expanded to 32 heads outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.grouped_gemm import ops as gg
+
+    bf16 = torch.bfloat16
+    rows, cap = _serve_rows(glm, 8192, "a2a", 7)
+    G, M, K, N = rows.shape[0], cap, glm.d_model, glm.moe.d_ff
+    R = int(rows.sum())
+    nz = int((rows > 0).sum())
+    x, w1, w3, w2 = _kernel_inputs(G, M, K, N, bf16, 11)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    dact = torch.randn((G, M, N), generator=g, device="cuda").to(bf16)
+    dy = torch.randn((G, M, K), generator=g, device="cuda").to(bf16)
+    pad = (torch.arange(M, device="cuda")[None, :, None]
+           >= rows[:, None, None])
+    x = torch.where(pad, 0.0, x.float()).to(bf16)     # as the bucket leaves it
+    recs = {}
+
+    def zeros_past(name, out, r):
+        keep = torch.arange(out.shape[1], device="cuda")[None, :, None] < \
+            r[:, None, None]
+        if not torch.all(torch.where(keep, 0.0, out.float()) == 0):
+            raise AssertionError(f"{name}: a padded row is not zero")
+
+    def record(name, kernel, plain, library, flops, nbytes, iters, checks,
+               **extra):
+        t = _time_pair(kernel, plain, library, flops, nbytes, "bf16", iters)
+        recs[name] = dict(t, shape=dict(G=G, M=M, K=K, N=N), rows=R,
+                          slots_with_rows=nz, **checks, **extra)
+
+    # B1
+    dh, dg = gg.grouped_swiglu_bwd(x, w1, w3, dact, rows)
+    torch.cuda.synchronize()
+    rh, rg = gg.grouped_swiglu_bwd_ref(x, w1, w3, dact, rows)
+    e1 = _rel_check("swiglu_bwd dh", dh, rh, TRAIN_TOL)
+    e2 = _rel_check("swiglu_bwd dg", dg, rg, TRAIN_TOL)
+    zeros_past("swiglu_bwd dh", dh, rows)
+    zeros_past("swiglu_bwd dg", dg, rows)
+    del rh, rg
+    record("grouped_swiglu_bwd",
+           lambda: gg.grouped_swiglu_bwd(x, w1, w3, dact, rows),
+           lambda: gg.grouped_swiglu_bwd_ref(x, w1, w3, dact, rows),
+           None, 4.0 * R * K * N,
+           2 * (R * K + 2 * nz * K * N + 3 * R * N), 10,
+           dict(max_abs_err=max(e1[0], e2[0]), max_abs_ref=max(e1[1], e2[1])),
+           bmm_pair_ms=_cuda_ms(lambda: (torch.bmm(x, w1), torch.bmm(x, w3)),
+                                10),
+           library_note="none: no one call computes dh and dg; bmm_pair_ms "
+                        "is torch.bmm of x by w1 and by w3 over the padded "
+                        "buffers")
+    # B2: dact = dy w2^T (w2 stored (G, F, D)), dx = dh w1^T + dg w3^T
+    out = gg.grouped_matmul_nt(dy, w2, rows)
+    torch.cuda.synchronize()
+    e = _rel_check("matmul_nt", out, gg.grouped_matmul_nt_ref(dy, w2, rows),
+                   TRAIN_TOL)
+    zeros_past("matmul_nt", out, rows)
+    record("grouped_matmul_nt",
+           lambda: gg.grouped_matmul_nt(dy, w2, rows),
+           lambda: gg.grouped_matmul_nt_ref(dy, w2, rows),
+           lambda: torch.bmm(dy, w2.transpose(1, 2)), 2.0 * R * K * N,
+           2 * (R * K + nz * K * N + R * N), 10,
+           dict(max_abs_err=e[0], max_abs_ref=e[1]))
+    out = gg.grouped_matmul_nt(dh, w1, rows, dg, w3)
+    torch.cuda.synchronize()
+    e = _rel_check("matmul_nt dual", out,
+                   gg.grouped_matmul_nt_ref(dh, w1, rows, dg, w3), TRAIN_TOL)
+    zeros_past("matmul_nt dual", out, rows)
+    recs["grouped_matmul_nt"]["dual"] = dict(
+        _time_pair(lambda: gg.grouped_matmul_nt(dh, w1, rows, dg, w3),
+                   lambda: gg.grouped_matmul_nt_ref(dh, w1, rows, dg, w3),
+                   None, 4.0 * R * K * N,
+                   2 * (2 * R * N + 2 * nz * K * N + R * K), "bf16", 10),
+        max_abs_err=e[0], max_abs_ref=e[1],
+        bmm_pair_ms=_cuda_ms(lambda: torch.bmm(dh, w1.transpose(1, 2))
+                             + torch.bmm(dg, w3.transpose(1, 2)), 10))
+    # B3: dw1 = x^T dh at the serve counts; then NaN in the padded rows and
+    # every 13th slot empty.
+    out = gg.grouped_wgrad(x, dh, rows)
+    torch.cuda.synchronize()
+    e = _rel_check("wgrad", out, gg.grouped_wgrad_ref(x, dh, rows), TRAIN_TOL)
+    record("grouped_wgrad", lambda: gg.grouped_wgrad(x, dh, rows),
+           lambda: gg.grouped_wgrad_ref(x, dh, rows),
+           lambda: torch.bmm(x.transpose(1, 2), dh), 2.0 * R * K * N,
+           2 * (R * K + R * N + G * K * N), 10,
+           dict(max_abs_err=e[0], max_abs_ref=e[1]))
+    sparse = rows.clone()
+    sparse[::13] = 0
+    nan_x = torch.where(pad, float("nan"), x.float()).to(bf16)
+    out = gg.grouped_wgrad(nan_x, dh, sparse)
+    torch.cuda.synchronize()
+    e = _rel_check("wgrad sparse", out, gg.grouped_wgrad_ref(nan_x, dh,
+                                                             sparse),
+                   TRAIN_TOL)
+    if not torch.all(out[::13] == 0):
+        raise AssertionError("wgrad: an empty slot's gradient is not zero")
+    dh2, _ = gg.grouped_swiglu_bwd(x, w1, w3, dact, sparse)
+    zeros_past("swiglu_bwd sparse", dh2, sparse)
+    recs["grouped_wgrad"]["sparse_nan"] = dict(max_abs_err=e[0],
+                                               max_abs_ref=e[1])
+    del x, w1, w3, w2, dact, dy, dh, dg, out, nan_x, dh2, pad
+    torch.cuda.empty_cache()
+
+    # B4
+    B, S, H, Hkv, hd = 2, 4096, 32, 8, 128
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(bf16)
+    k = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").to(bf16)
+    v = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").to(bf16)
+    dout = torch.randn((B, S, H, hd), generator=g, device="cuda").to(bf16)
+    lse = torch.empty((B, H, S), device="cuda")
+    o, _ = fa._launch(q, k, v, True, 0, None, None, sms=1, lse=lse)
+    grads = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=True)
+    torch.cuda.synchronize()
+    refs = fa.flash_attention_bwd_ref(q, k, v, dout, causal=True)
+    errs = {n: _rel_check(f"flash_bwd d{n}", a, r, TRAIN_TOL)
+            for n, a, r in zip("qkv", grads, refs)}
+    del refs
+    pairs = B * H * S * (S + 1) // 2
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    vt = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = dout.transpose(1, 2)
+    t = _time_pair(
+        lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=True),
+        lambda: fa.flash_attention_bwd_ref(q, k, v, dout, causal=True),
+        lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+        pairs * 5 * 2.0 * hd,
+        2 * (4 * B * S * H * hd + 2 * B * S * Hkv * hd) + 4 * B * H * S
+        + 2 * (B * S * H * hd + 2 * B * S * Hkv * hd), "bf16", 5)
+    recs["flash_attention_bwd"] = dict(
+        t, shape=dict(B=B, S=S, H=H, Hkv=Hkv, hd=hd, causal=True),
+        max_abs_err=max(e[0] for e in errs.values()),
+        errs={n: {"max_abs_err": e[0], "max_abs_ref": e[1]}
+              for n, e in errs.items()},
+        library_note="SDPA's backward through autograd (flash backend, "
+                     "k/v expanded to 32 heads outside the timed call)",
+        dq="second pass (deterministic)")
+    del q, k, v, dout, o, lse, grads, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    _line("phase12_train_kernels", recs)
+    return recs
+
+
+def phase_train(glm) -> dict:
+    """Phase 13: GLM-4.5-Air at every published width, depth cut to one
+    layer (attention + MoE), trained on the card through
+    ``repro_torch.launch.train.train``: bf16 weights, fp32 AdamW moments,
+    ``ultraep`` at one EP rank, capacity factors 4.0, the synthetic stream
+    from seed 0, batch 2 x 4096, TRAIN["steps"] steps, blocked loss in 8
+    chunks.  First the step's gradient of every parameter against the same
+    step with the plain versions' backward (``plain_backward``: autograd
+    through the plain forwards, the forward kernels shared, so both runs
+    route every token alike), within TRAIN_TOL of each tensor's max|ref|;
+    then the run: every loss finite and each step's launches as
+    TRAIN_LAUNCHES with no operand copied for TMA."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import init_lm
+    from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
+    from repro_torch.train.loop import loss_and_grads
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(glm, name=f"{glm.name}-{TRAIN['layers']}l",
+                              num_layers=TRAIN["layers"])
+    rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep", n_slot=2),
+                         cf_pair=4.0, cf_slot=4.0, dtype=torch.bfloat16,
+                         loss_chunks=TRAIN["loss_chunks"])
+    pctx = ParallelCtx()
+    params = init_lm(cfg, rcfg, pctx, torch.Generator(device="cuda")
+                     .manual_seed(TRAIN["seed"]), device="cuda")
+    params.requires_grad_(True)
+    batch = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+        global_batch=TRAIN["batch"], seed=TRAIN["seed"])).batch(0)
+    batch = {k: torch.from_numpy(v).to("cuda", torch.int64)
+             for k, v in batch.items()}
+    loss_p, _, counts_p, grads_p = loss_and_grads(
+        params, batch, cfg, dataclasses.replace(rcfg, plain_backward=True),
+        pctx)
+    grads_p = [t.clone() for t in grads_p]
+    torch.cuda.synchronize()
+    _reset_launches()
+    loss_k, drops_k, counts_k, grads_k = loss_and_grads(params, batch, cfg,
+                                                        rcfg, pctx)
+    torch.cuda.synchronize()
+    check_launches = _launches()
+    if not torch.equal(counts_p, counts_k):
+        raise AssertionError("train check: the two runs routed differently")
+    errs = {}
+    for (name, _), gk, gp in zip(params.named_parameters(), grads_k, grads_p):
+        err, scale = _max_err(gk, gp)
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"train grad {name} is not finite")
+        errs[name] = err / max(scale, 1e-30)
+    bad = {n: e for n, e in errs.items() if not e <= TRAIN_TOL}
+    if bad:
+        raise AssertionError(f"train grads beyond {TRAIN_TOL} of max|ref|: "
+                             f"{bad}; all: {errs}")
+    check = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+             "drops": int(drops_k), "max_rel_err_by_param": errs,
+             "worst": max(errs, key=errs.get), "launches": check_launches}
+    del params, grads_p, grads_k, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    per_step = []
+
+    def on_metrics(step, m):
+        torch.cuda.synchronize()
+        per_step.append({"launches": _launches(), "copies": _padded_copies()})
+        _reset_launches()
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    run = train(cfg, steps=TRAIN["steps"], batch=TRAIN["batch"],
+                seq=TRAIN["seq"], reduce=False, device="cuda",
+                dtype=torch.bfloat16, loss_chunks=TRAIN["loss_chunks"],
+                seed=TRAIN["seed"], log_every=TRAIN["steps"],
+                on_metrics=on_metrics)
+    import math
+    if not all(math.isfinite(v) for v in run.losses):
+        raise AssertionError(f"train: a loss is not finite: {run.losses}")
+    for i, rec in enumerate(per_step):
+        bad = {k: (rec["launches"][k], n) for k, n in TRAIN_LAUNCHES.items()
+               if rec["launches"][k] != n}
+        if bad or any(rec["copies"].values()):
+            raise AssertionError(f"train step {i}: launches (seen, want) "
+                                 f"{bad}, copies {rec['copies']}")
+    result = {
+        "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": run.params, "dtype": "bfloat16", "optimizer": "adamw fp32",
+        "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+        "loss_chunks": TRAIN["loss_chunks"], "losses": run.losses,
+        "grad_norms": run.grad_norms, "step_s": run.step_s,
+        "step_s_median_2_5": run.step_s_median,
+        "tokens_per_s": run.tokens_per_s,
+        "peak_mem_gb": run.peak_mem / 1e9,
+        "launches_per_step": per_step[-1]["launches"],
+        "grad_check": check}
+    _line("phase13_train", result)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def _kernel_row(name, source, replaces, rec, launches, extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2087,6 +2456,7 @@ def main() -> int:
     gating_records = phase_gating()
     plan_records = phase_plan_solve()
     flash_records = phase_flash()
+    train_kernel_records = phase_train_kernels(glm)
     phase_moe_layer(glm)
     glm_2l = dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2)
     glm_serve = phase_serve(glm_2l, "phase4_serve_glm")
@@ -2108,6 +2478,7 @@ def main() -> int:
         dataclasses.replace(deepseek, name=deepseek.name + "-4l",
                             num_layers=4),
         "phase11_serve_deepseek", beside=glm_serve)
+    train_record = phase_train(glm)
     cli_records = phase_serve_cli()
     ep = phase_ep_layer()
     serves = {"glm45-106b-a12b": glm_serve,
@@ -2374,6 +2745,34 @@ def main() -> int:
                 "shape", "law", "probes", "steps", "ms", "plan_graph_ms",
                 "plain_ms", "bound_ms", "post_over_mean")}
                for tag in plan_records if tag != "e128_k8_r64_zipf"}}))
+    # The backward kernels (no pallas_call: XLA differentiates the JAX
+    # package's einsums and flash_ref), with their launches in the last
+    # train step of phase 13 and in phase 9's R = 2 backward.
+    train_launches = train_record["launches_per_step"]
+    bwd_rows = (
+        ("grouped_swiglu_bwd", gg_src, "src/repro/kernels/grouped_gemm/"
+         "kernel.py:154 (its backward; no pallas_call: XLA differentiates "
+         "src/repro/moe/expert.py:102-105)", ("sparse_nan",)),
+        ("grouped_matmul_nt", gg_src, "src/repro/kernels/grouped_gemm/"
+         "kernel.py:184 and :154 (their dgrad; no pallas_call)", ("dual",)),
+        ("grouped_wgrad", gg_src, "src/repro/kernels/grouped_gemm/"
+         "kernel.py:154 and :184 (their wgrad; no pallas_call)",
+         ("sparse_nan",)),
+        ("flash_attention_bwd", "src/repro_torch/kernels/flash_attention/"
+         "csrc/flash_attention_bwd.cu", "src/repro/kernels/flash_attention/"
+         "kernel.py:84 (its backward; no pallas_call: XLA differentiates "
+         "src/repro/models/attention.py:252 through flash_ref)", ("errs",)))
+    for name, src, replaces, subs in bwd_rows:
+        rec = train_kernel_records[name]
+        kernels.append(_kernel_row(name, src, replaces, rec,
+                                   train_launches[name], {
+            "launches_by_path": {
+                "train_step_glm45_1l": train_launches[name],
+                "ep_layer_r2_backward_rank0": ep["ranks_by_mode"][0][
+                    "backward"]["launches"].get(name)},
+            **{k: rec[k] for k in subs if k in rec},
+            **{k: rec[k] for k in ("bmm_pair_ms", "library_note", "rows",
+                                   "slots_with_rows", "dq") if k in rec}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -104,7 +104,7 @@ def _libraries() -> list[KernelLibrary]:
 
     return [grouped_gemm_ops.LIBRARY, grouped_gemm_ops.LIBRARY_Q8,
             ssd_scan_ops.LIBRARY, gating_ops.LIBRARY, flash_ops.LIBRARY,
-            plan_solve_ops.LIBRARY]
+            flash_ops.LIBRARY_BWD, plan_solve_ops.LIBRARY]
 
 
 def build_all() -> dict[str, str]:

@@ -218,6 +218,10 @@ struct Args {
   int splits;               // key splits; 1: the blocks write the output
   int keys_per_split;
   float* ws;                // splits x (B Sq H) x (hd + 2) fp32 partials
+  // TMA + wgmma kernel only: null, or (B, H, Sq) fp32 that receives each
+  // row's logsumexp of its scaled scores, natural log (+inf for a row with
+  // no valid key), for the backward kernels.
+  float* lse;
 
   __device__ __forceinline__ long long qoff(int b) const {
     return q_off ? q_off[b * q_off_stride] : q_off_const;
@@ -1354,6 +1358,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const int pos = p0 + r / G, h = hkv * G + r % G;
       *reinterpret_cast<uint4*>(og + b * a.sob + pos * a.sos + h * a.soh +
                                 c * 8) = z;
+      if (a.lse != nullptr && c == 0)
+        a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + pos] = INFINITY;
     }
     return;
   }
@@ -1528,6 +1534,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
               __floats2bfloat162_rn(o[4 * j + 2 * i] / denom,
                                     o[4 * j + 2 * i + 1] / denom);
+        // m is in log2 units of the scaled scores, l = sum 2^(s - m).
+        if (a.lse != nullptr && tq == 0)
+          a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + pos] =
+              lsum[i] > 0.f ? (m[i] + log2f(lsum[i])) * 0.6931471805599453f
+                            : INFINITY;
       }
     }
   }
@@ -1690,7 +1701,9 @@ cudaError_t launch_f32(bool causal, const Args& a, cudaStream_t s) {
 //   elements (batch, sequence, head of q, k, v and out; the head dim is
 //   unit-stride, and for bf16 the caller checks that bases and strides are
 //   16-byte aligned).  q_off / kv_len: device int64 vectors read at
-//   b * stride, or null for the constant beside them.  Launches on
+//   b * stride, or null for the constant beside them.  lse: null, or for
+//   kernel 0 only a (B, H, Sq) fp32 buffer that receives each row's
+//   logsumexp (natural log) of its scaled scores.  Launches on
 //   `stream`, does not synchronise, and returns the launch's CUDA error
 //   code (0 = launched; 1000 and up: a tensor map could not be made).
 extern "C" int flash_attention_launch(
@@ -1701,7 +1714,8 @@ extern "C" int flash_attention_launch(
     long long sob, long long sos, long long soh, const void* q_off,
     int q_off_stride, long long q_off_const, const void* kv_len,
     int kv_len_stride, long long kv_len_const, float scale, int splits,
-    int keys_per_split, int row_tile, void* workspace, void* stream) {
+    int keys_per_split, int row_tile, void* workspace, void* lse,
+    void* stream) {
   const int inval = static_cast<int>(cudaErrorInvalidValue);
   const bool mla = hd == 192 && hd_v == 128;
   if (B < 1 || Sq < 1 || Hkv < 1 || H % Hkv || (dtype != 0 && dtype != 1) ||
@@ -1735,6 +1749,8 @@ extern "C" int flash_attention_launch(
   a.keys_per_split = 0;
   a.n_rt = 1;
   a.ws = static_cast<float*>(workspace);
+  a.lse = static_cast<float*>(lse);
+  if (lse != nullptr && kernel != 0) return inval;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1, c = a.causal;
   cudaError_t err = cudaErrorInvalidValue;

@@ -50,6 +50,21 @@ kernel, in ``flash_attention.launches_by_kernel``.
 
 Layouts: q (B, Sq, H, hd); k (B, Sk, Hkv, hd) and v (B, Sk, Hkv, hd_v)
 with H % Hkv == 0; the output is (B, Sq, H, hd_v) in q's dtype.
+
+Gradients.  With a gradient required of q, k or v, ``flash_attention`` runs
+as an autograd Function over a full sequence (no ``q_offset`` or
+``kv_valid_len``): on the card the forward is ``prefill_wgmma`` writing
+each row's logsumexp beside the output, and the backward is
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``: dq, dk, dv from
+q, k, v, the output, its gradient and the logsumexp; dk and dv summed over
+each KV head's query heads in the kernel, dq from a second pass), counted
+in ``flash_attention_bwd.launches``.  Both take bf16 at head dim 128 only
+and raise a ``ValueError`` naming anything else (fp32, MLA's (192, 128),
+64, 16) before any launch.  The JAX package has no backward kernel: XLA
+differentiates ``flash_ref``.  The plain version of the backward,
+``flash_attention_bwd_ref``, is autograd through ``flash_attention_ref``
+(recomputed): the CPU's backward, and the card's under
+``plain_backward=True``.
 """
 
 from __future__ import annotations
@@ -64,11 +79,15 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.build import KernelLibrary
 
-__all__ = ["flash_attention", "flash_attention_ref", "plan_launch", "Plan",
-           "HEAD_DIMS", "KERNELS", "LIBRARY"]
+__all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "plan_launch", "Plan", "HEAD_DIMS",
+           "KERNELS", "LIBRARY", "LIBRARY_BWD"]
 
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).parent / "csrc" / "flash_attention.cu")
+LIBRARY_BWD = KernelLibrary(
+    "flash_attention_bwd",
+    Path(__file__).parent / "csrc" / "flash_attention_bwd.cu")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (q/k head dim, v head dim) -> the dtypes the kernels take at that pair.
@@ -144,7 +163,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v) with
     H % Hkv == 0.  Query i attends key j iff j < kv_valid_len and, when
-    causal, j <= i + q_offset.  The scale defaults to hd ** -0.5.
+    causal, j <= i + q_offset.  The scale defaults to hd ** -0.5.  fp32
+    arithmetic (fp64 for fp64 operands).
     """
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -152,9 +172,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hv = v.shape[-1]
     dev = q.device
     scale = scale if scale is not None else hd ** -0.5
-    qf = q.to(torch.float32) * scale
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(acc_t) * scale
+    kf = k.to(acc_t)
+    vf = v.to(acc_t)
     if rep > 1:
         kf = kf.repeat_interleave(rep, dim=2)
         vf = vf.repeat_interleave(rep, dim=2)
@@ -170,9 +191,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              + _as_batch_vector(q_offset, dev)[:, None])          # (B?, Sq)
     limit = _as_batch_vector(Sk if kv_valid_len is None else kv_valid_len, dev)
 
-    m = torch.full((B, H, Sq), float("-inf"), dtype=torch.float32, device=dev)
-    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, Sq, hv), dtype=torch.float32, device=dev)
+    m = torch.full((B, H, Sq), float("-inf"), dtype=acc_t, device=dev)
+    l = torch.zeros((B, H, Sq), dtype=acc_t, device=dev)
+    acc = torch.zeros((B, H, Sq, hv), dtype=acc_t, device=dev)
     for i in range(nblk):
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, i])
         kv_pos = i * block_kv + torch.arange(block_kv, device=dev)
@@ -240,14 +261,17 @@ def _launcher():
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p, ctypes.c_int,
                                                  ctypes.c_longlong] * 2
                    + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p] * 3)
     return fn
 
 
-def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None):
+def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None,
+            lse=None):
     """Validate, plan, allocate the output (and the split workspace) and
     launch on the current stream.  Returns the output and the kernel that
-    ran, or None when there was nothing to compute."""
+    ran, or None when there was nothing to compute.  ``lse``: a (B, H, Sq)
+    fp32 buffer that receives each row's logsumexp (``prefill_wgmma``
+    only)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
             v.shape[:3] != k.shape[:3]:
         raise ValueError("expected q (B, Sq, H, hd), k (B, Sk, Hkv, hd) and "
@@ -275,6 +299,10 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None):
         raise ValueError(f"grid too large for B={B}, Hkv={Hkv}")
     plan = plan_launch(B, Sq, Sk, H, Hkv, hd, q.dtype,
                        _sm_count(q.device) if sms is None else sms)
+    if lse is not None and plan.kernel != "prefill_wgmma":
+        raise ValueError(f"the logsumexp for the backward comes from "
+                         f"prefill_wgmma, not {plan.kernel} (B {B}, Sq {Sq}, "
+                         f"Hkv {Hkv}: a grid below the card's SMs)")
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out, None
@@ -296,7 +324,8 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None):
              None if kl is None else kl.data_ptr(), kl_stride, kl_const,
              float(scale if scale is not None else hd ** -0.5), plan.splits,
              plan.keys_per_split, plan.row_tile,
-             None if ws is None else ws.data_ptr(), stream)
+             None if ws is None else ws.data_ptr(),
+             None if lse is None else lse.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel {plan.kernel} launch "
                            f"failed: error {err}")
@@ -306,11 +335,21 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset=0, kv_valid_len=None,
                     scale: float | None = None,
-                    block_kv: int = 512) -> torch.Tensor:
+                    block_kv: int = 512,
+                    plain_backward: bool = False) -> torch.Tensor:
     """Attention of q (B, Sq, H, hd) over k (B, Sk, Hkv, hd) and v
     (B, Sk, Hkv, hd_v) with absolute query positions ``i + q_offset`` and
     ``kv_valid_len`` valid keys per row (default all); the output is
-    (B, Sq, H, hd_v).  ``block_kv`` is read by the plain version only."""
+    (B, Sq, H, hd_v).  ``block_kv`` is read by the plain version only.
+    Differentiable over full sequences (see the module's notes)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if not (isinstance(q_offset, int) and q_offset == 0
+                and kv_valid_len is None and k.shape[1] == q.shape[1]):
+            raise ValueError("flash attention is differentiable over full "
+                             "sequences only (q_offset 0, no kv_valid_len, "
+                             "Sq == Sk)")
+        return _FlashAttention.apply(q, k, v, causal, scale, block_kv,
+                                     plain_backward)
     if not _is_cuda(q):
         return flash_attention_ref(q, k, v, causal=causal, block_kv=block_kv,
                                    q_offset=q_offset,
@@ -324,3 +363,113 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+
+
+# ---------------------------------------------------------------- backward
+
+BWD_HEAD_DIM = 128
+
+
+def _bwd_contract(q, k, v) -> None:
+    """What the backward kernel takes, checked before any launch."""
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    if q.dtype != torch.bfloat16 or (hd, hd_v) != (BWD_HEAD_DIM,) * 2:
+        raise ValueError(f"the flash attention backward kernel takes bf16 at "
+                         f"head dims ({BWD_HEAD_DIM}, {BWD_HEAD_DIM}), not "
+                         f"({hd}, {hd_v}) in {q.dtype}")
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, causal: bool,
+                            scale: float | None = None, block_kv: int = 512):
+    """(dq, dk, dv) by autograd through :func:`flash_attention_ref`
+    (recomputed), in the operands' dtypes."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, block_kv=block_kv,
+                                  scale=scale)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
+                        scale: float | None = None):
+    """(dq, dk, dv) of full-sequence attention on the card: q, out, dout
+    (B, S, H, 128), k, v (B, S, Hkv, 128) bf16 and the forward's logsumexp
+    ``lse`` (B, H, S) fp32; one call launches the three kernels of
+    ``csrc/flash_attention_bwd.cu`` (counted once)."""
+    if not _is_cuda(q):
+        return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                       scale=scale)
+    _bwd_contract(q, k, v)
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    if k.shape != (B, S, Hkv, hd) or v.shape != k.shape or \
+            out.shape != q.shape or dout.shape != q.shape or \
+            lse.shape != (B, H, S) or lse.dtype != torch.float32 or H % Hkv:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, lse "
+                         f"{tuple(lse.shape)}")
+    q, k, v, out, dout, lse = (t.contiguous()
+                               for t in (q, k, v, out, dout, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    err = _bwd_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, int(causal),
+        float(scale if scale is not None else hd ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    """The backward's C entry point with its argument types (set once)."""
+    fn = LIBRARY_BWD.load().flash_attention_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Full-sequence attention; saves q, k, v, the output and (on the card)
+    the logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_kv, plain_backward):
+        lse = None
+        if _is_cuda(q):
+            _bwd_contract(q, k, v)
+            B, S, H, _ = q.shape
+            lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+            # The logsumexp comes from prefill_wgmma, which sms=1 selects
+            # whatever the grid (plan_launch).
+            out, kernel = _launch(q, k, v, causal, 0, None, scale, sms=1,
+                                  lse=lse)
+            if kernel is not None:
+                flash_attention.launches += 1
+                flash_attention.launches_by_kernel[kernel] += 1
+        else:
+            out = flash_attention_ref(q, k, v, causal=causal,
+                                      block_kv=block_kv, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, block_kv, plain_backward)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, block_kv, plain_backward = ctx.args
+        if plain_backward or lse is None:
+            grads = flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                            scale=scale, block_kv=block_kv)
+        else:
+            grads = flash_attention_bwd(q, k, v, out, dout, lse,
+                                        causal=causal, scale=scale)
+        return (*grads, None, None, None, None)
+
+
+flash_attention_bwd.launches = 0

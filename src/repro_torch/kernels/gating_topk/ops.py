@@ -23,6 +23,14 @@ the kernel's selection on the CPU for the tests.
 Shapes: logits (T, E) fp32 -> ids (T, k) int64 (the port's id dtype),
 weights (T, k) fp32 (the raw selected scores: the caller renormalises),
 counts (E,) int64 and, when asked, scores (T, E) fp32.
+
+Gradient.  With a gradient required of the logits, the call is an autograd
+Function: the forward is the same one launch (or the plain version), and
+the backward, in PyTorch ops, scatters d(weights) at the selected ids into
+(T, E), adds d(scores) and applies the softmax or sigmoid Jacobian (one
+(T, E) pass; the JAX package differentiates ``lax.top_k`` and the gather
+the same way, with no kernel).  The ids and counts carry no gradient, and
+neither does the bias, which only steers the selection.
 """
 
 from __future__ import annotations
@@ -48,11 +56,13 @@ MAX_K = 8
 
 
 def scores_of(logits: torch.Tensor, score_fn: str) -> torch.Tensor:
-    """Router scores in fp32: softmax or sigmoid over the expert axis."""
+    """Router scores in fp32 (fp64 for fp64 logits): softmax or sigmoid
+    over the expert axis."""
+    x = logits.to(torch.promote_types(logits.dtype, torch.float32))
     if score_fn == "softmax":
-        return torch.softmax(logits.to(torch.float32), dim=-1)
+        return torch.softmax(x, dim=-1)
     if score_fn == "sigmoid":
-        return torch.sigmoid(logits.to(torch.float32))
+        return torch.sigmoid(x)
     raise ValueError(f"unknown score_fn {score_fn}")
 
 
@@ -278,7 +288,15 @@ def gating_topk(logits: torch.Tensor, k: int, *, score_fn: str = "softmax",
     ``bias`` (E,), if given, steers the selection only.  Returns ``(ids,
     weights, counts)``, plus ``scores`` (T, E) fp32 when ``want_scores``;
     on a CUDA tensor the scores are written by the same pass that
-    selects."""
+    selects.  Differentiable in the logits (weights and scores)."""
+    if torch.is_grad_enabled() and logits.requires_grad:
+        out = _GatingTopK.apply(logits, k, score_fn,
+                                None if bias is None else bias.detach())
+        return out if want_scores else out[:3]
+    return _topk(logits, k, score_fn, bias, want_scores)
+
+
+def _topk(logits, k, score_fn, bias, want_scores):
     if not _is_cuda(logits):
         return gating_topk_ref(logits, k, score_fn=score_fn, bias=bias,
                                want_scores=want_scores)
@@ -289,3 +307,28 @@ def gating_topk(logits: torch.Tensor, k: int, *, score_fn: str = "softmax",
 
 
 gating_topk.launches = 0
+
+
+class _GatingTopK(torch.autograd.Function):
+    """(ids, weights, counts, scores) of the logits; saves ids and scores."""
+
+    @staticmethod
+    def forward(ctx, logits, k, score_fn, bias):
+        ids, weights, counts, scores = _topk(logits, k, score_fn, bias, True)
+        ctx.save_for_backward(ids, scores)
+        ctx.score_fn = score_fn
+        ctx.mark_non_differentiable(ids, counts)
+        return ids, weights, counts, scores
+
+    @staticmethod
+    def backward(ctx, _dids, dweights, _dcounts, dscores):
+        ids, scores = ctx.saved_tensors
+        d = (torch.zeros_like(scores) if dscores is None
+             else dscores.to(scores.dtype).clone())
+        if dweights is not None:
+            d.scatter_add_(1, ids, dweights.to(scores.dtype))
+        if ctx.score_fn == "softmax":
+            dl = scores * (d - (d * scores).sum(dim=-1, keepdim=True))
+        else:
+            dl = d * scores * (1 - scores)
+        return dl, None, None, None

@@ -87,6 +87,35 @@
 // At GLM's serve counts on an H100 the SwiGLU takes 13.5 ms and the matmul
 // 7.0 (chip_smoke.py): a third of their three-product bounds, 0.23x
 // torch.bmm over the padded buffers in fp32.
+// Backward (bf16 only; the training step's expert FFN, at GLM-4.5-Air's
+// train shapes G 130, cap 2017, K 4096, N 1408).  The JAX package has no
+// backward kernel: XLA differentiates the einsums of repro/moe/expert.py.
+// Three more instantiations of grouped_gemm_wgmma_kernel and one kernel of
+// its own, all on the same ring, producer and wgmma machinery:
+//   * B1 swiglu_bwd (MODE_SWIGLU_BWD): the SwiGLU kernel's products
+//     h = x w1, g = x w3 from one read of each x tile, and an epilogue that
+//     reads dact and writes dh = dact g s (1 + h (1 - s)) and
+//     dg = dact h s, s = sigmoid(h), both bf16; rows past the count are
+//     exact zeros.  Bound as the forward SwiGLU (operations on the valid
+//     rows), plus the dact read and the second output.
+//   * B2 dgrad (MODE_NT, MODE_NT2): out = x w^T with w stored (G, N, K),
+//     K-contiguous: wgmma reads such a B K-major (no transpose bit), each
+//     128-column B tile one TMA box of 64 K x 128 N rows, as the q8 kernels
+//     read their weight codes.  MODE_NT2 sums two products over the same
+//     K, out = x w1^T + x2 w3^T (dx = dh w1^T + dg w3^T): the K loop runs
+//     over x/w1 and then x2/w3 into the same accumulators.
+//   * B3 grouped_wgrad_kernel: dW[g] = x[g, :rows[g]]^T d[g, :rows[g]],
+//     (G, K, N) in bf16 with fp32 accumulation.  The contraction is over
+//     the slot's valid rows only: the K loop runs ceil(rows[g] / 64) tiles
+//     (a slot with no rows writes its zero tile and reads nothing; this is
+//     what torch.bmm over the padded buffers cannot skip), and the rows of
+//     the last tile past the count are zeroed in shared memory before its
+//     products, so whatever the buffers hold there (NaN included) adds
+//     nothing.  Both operands are token-major in memory: x is read as an
+//     M-major A (wgmma's transpose bit on A), d as the N-major B the
+//     forward kernels read.  One block: 128 output rows (two warpgroups of
+//     64) x 256 columns, the forward's 48 KB stages (two 64 x 64 A boxes,
+//     four 64 x 64 B boxes).
 // Not yet: persistent blocks (each block's prologue and epilogue are not
 // overlapped with another tile's loads), clusters with TMA multicast, and
 // stores through shared memory; for fp32, wgmma in TF32 (it needs the
@@ -123,7 +152,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128, fp32) += A (64 x 16, K-major) @ B (16 x 128, N-major).
+// d (64 x 128, fp32) += A (64 x 16) @ B (16 x 128), both from shared
+// memory: A K-major (TA 0) or M-major (TA 1), B K-major (TB 0) or N-major
+// (TB 1), the transpose bits of wgmma.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -133,7 +165,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
       "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, 1, 1, 1, 0, 1;\n"
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, 1, 1, 1, %66, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -148,7 +180,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db));
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
 // Zero rows [m0, m0 + nrows) x columns [n0, n0 + ncols) of one slot's
@@ -166,18 +198,39 @@ __device__ __forceinline__ void zero_tile(T* outg, long long som, int m0,
   }
 }
 
-// out: (G, M, n_out) with n_out = N rounded up to 8 (the wrapper returns
-// the first N columns); som = n_out, sog = M * n_out.
-template <bool SWIGLU>
+// The products of grouped_gemm_wgmma_kernel.
+enum Mode {
+  MODE_MATMUL = 0,       // out = x w (w N-major)
+  MODE_SWIGLU = 1,       // out = silu(x w1) * (x w3)
+  MODE_SWIGLU_BWD = 2,   // (out, out2) = (dh, dg) of the SwiGLU, from dact
+  MODE_NT = 3,           // out = x w^T (w stored (G, N, K), K-major)
+  MODE_NT2 = 4,          // out = x w1^T + x2 w3^T
+};
+
+// dh and dg of out = silu(h) g for an upstream gradient da.
+__device__ __forceinline__ void swiglu_grad(float h, float g, float da,
+                                            float& dh, float& dg) {
+  const float sg = 1.0f / (1.0f + expf(-h));
+  dg = da * h * sg;
+  dh = da * g * sg * (1.0f + h * (1.0f - sg));
+}
+
+// out (and out2, dact): (G, M, n_out) with n_out = N rounded up to 8 (the
+// wrapper returns the first N columns); som = n_out, sog = M * n_out.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_x2,
                           const __grid_constant__ CUtensorMap map_w1,
                           const __grid_constant__ CUtensorMap map_w3,
-                          bf16* __restrict__ out,
+                          bf16* __restrict__ out, bf16* __restrict__ out2,
+                          const bf16* __restrict__ dact,
                           const long long* __restrict__ rows, int M, int K,
                           int n_out, int n_tiles, int m_tiles, long long sog,
                           long long som) {
-  constexpr int OUT_COLS = SWIGLU ? BN : 2 * BN;
+  constexpr bool SWI = MODE == MODE_SWIGLU || MODE == MODE_SWIGLU_BWD;
+  constexpr bool KMAJOR_B = MODE == MODE_NT || MODE == MODE_NT2;
+  constexpr int OUT_COLS = SWI ? BN : 2 * BN;
   extern __shared__ unsigned char smem_raw[];
 
   const int mt = blockIdx.x % m_tiles;
@@ -189,6 +242,9 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 
   if (m0 >= mv) {   // no valid row in this tile: zeros, no weight bytes
     zero_tile(outg, som, m0, min(BM, M - m0), n0, min(OUT_COLS, n_out - n0));
+    if constexpr (MODE == MODE_SWIGLU_BWD)
+      zero_tile(out2 + g * sog, som, m0, min(BM, M - m0), n0,
+                min(OUT_COLS, n_out - n0));
     return;
   }
 
@@ -208,6 +264,7 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   __syncthreads();
 
   const int ktiles = (K + BK - 1) / BK;
+  const int total = MODE == MODE_NT2 ? 2 * ktiles : ktiles;
   const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {
     // ---- producer: one thread keeps the ring full.
@@ -215,20 +272,27 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
     if (threadIdx.x == CONSUMERS * 128) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int t = 0; t < ktiles; ++t) {
+      for (int t = 0; t < total; ++t) {
         mbar_wait(empty0 + 8 * stage, phase ^ 1);
         const uint32_t full = full0 + 8 * stage;
         const uint32_t a = tiles_u + stage * STAGE_BYTES;
-        const int k0 = t * BK;
+        const bool second = MODE == MODE_NT2 && t >= ktiles;
+        const int k0 = (second ? t - ktiles : t) * BK;
         mbar_expect_tx(full, STAGE_BYTES);
-        tma_load(a, &map_x, full, k0, m0, g);
+        tma_load(a, second ? &map_x2 : &map_x, full, k0, m0, g);
 #pragma unroll
         for (int b = 0; b < 2; ++b) {   // w1 | w3, or the two column halves
-          const CUtensorMap* map = (SWIGLU && b == 1) ? &map_w3 : &map_w1;
-          const int nb = SWIGLU ? n0 : n0 + b * BN;
           const uint32_t dst = a + A_BYTES + b * B_BYTES;
-          tma_load(dst, map, full, nb, k0, g);
-          tma_load(dst + BOX_BYTES, map, full, nb + 64, k0, g);
+          if constexpr (KMAJOR_B) {
+            // One box of 64 K x 128 N rows of the (G, N, K) weight.
+            tma_load(dst, second ? &map_w3 : &map_w1, full, k0, n0 + b * BN,
+                     g);
+          } else {
+            const CUtensorMap* map = (SWI && b == 1) ? &map_w3 : &map_w1;
+            const int nb = SWI ? n0 : n0 + b * BN;
+            tma_load(dst, map, full, nb, k0, g);
+            tma_load(dst + BOX_BYTES, map, full, nb + 64, k0, g);
+          }
         }
         if (++stage == STAGES) { stage = 0; phase ^= 1; }
       }
@@ -243,7 +307,7 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
     const int lane = threadIdx.x % 32;
     int stage = 0, prev = 0;
     uint32_t phase = 0;
-    for (int t = 0; t < ktiles; ++t) {
+    for (int t = 0; t < total; ++t) {
       mbar_wait(full0 + 8 * stage, phase);
       if (active) {
         const uint32_t a = tiles_u + stage * STAGE_BYTES + wg * (64 * 128);
@@ -252,11 +316,18 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t da = desc_sw128(a + kk * 32, 16, 1024);
-          wgmma_m64n128k16(acc[0], da,
-                           desc_sw128(b + kk * 2048, BOX_BYTES, 1024));
-          wgmma_m64n128k16(acc[1], da,
-                           desc_sw128(b + B_BYTES + kk * 2048, BOX_BYTES,
-                                      1024));
+          if constexpr (KMAJOR_B) {
+            wgmma_m64n128k16<0, 0>(acc[0], da,
+                                   desc_sw128(b + kk * 32, 16, 1024));
+            wgmma_m64n128k16<0, 0>(
+                acc[1], da, desc_sw128(b + B_BYTES + kk * 32, 16, 1024));
+          } else {
+            wgmma_m64n128k16<0, 1>(
+                acc[0], da, desc_sw128(b + kk * 2048, BOX_BYTES, 1024));
+            wgmma_m64n128k16<0, 1>(
+                acc[1], da,
+                desc_sw128(b + B_BYTES + kk * 2048, BOX_BYTES, 1024));
+          }
         }
         wgmma_commit();
         wgmma_wait<1>();   // the previous k-tile's products are done
@@ -284,12 +355,31 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
 #pragma unroll
-        for (int b = 0; b < (SWIGLU ? 1 : 2); ++b) {
+        for (int b = 0; b < (SWI ? 1 : 2); ++b) {
           const int c = c0 + b * BN + 8 * j;
           if (c >= n_out) continue;
           const int i = 4 * j + 2 * half;
+          if constexpr (MODE == MODE_SWIGLU_BWD) {
+            bf16* o2 = out2 + g * sog + r * som + c;
+            if (!keep) {
+              *reinterpret_cast<__nv_bfloat162*>(orow + c) = zero2;
+              *reinterpret_cast<__nv_bfloat162*>(o2) = zero2;
+              continue;
+            }
+            const float2 da = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(dact + g * sog +
+                                                          r * som + c));
+            float dh0, dg0, dh1, dg1;
+            swiglu_grad(acc[0][i], acc[1][i], da.x, dh0, dg0);
+            swiglu_grad(acc[0][i + 1], acc[1][i + 1], da.y, dh1, dg1);
+            *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+                __floats2bfloat162_rn(dh0, dh1);
+            *reinterpret_cast<__nv_bfloat162*>(o2) =
+                __floats2bfloat162_rn(dg0, dg1);
+            continue;
+          }
           float v0, v1;
-          if constexpr (SWIGLU) {
+          if constexpr (MODE == MODE_SWIGLU) {
             v0 = silu_mul(acc[0][i], acc[1][i]);
             v1 = silu_mul(acc[0][i + 1], acc[1][i + 1]);
           } else {
@@ -304,6 +394,137 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
+// dW[g] (Kd x N) = x[g, :mv]^T @ d[g, :mv] over the slot's mv valid rows.
+// x (G, M, Kd) and d (G, M, N) bf16, token-major; out (G, Kd, N) bf16,
+// som = N, sog = Kd * N.  Block: output rows m0 .. m0 + 127 (Kd), columns
+// n0 .. n0 + 255; stage t holds token rows 64 t .. 64 t + 63 as two A boxes
+// (64 Kd columns each, one per consumer warpgroup) and four B boxes.
+__global__ void __launch_bounds__(THREADS, 1)
+grouped_wgrad_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_d,
+                     bf16* __restrict__ out,
+                     const long long* __restrict__ rows, int M, int Kd, int N,
+                     int k_tiles, int n_tiles, long long sog, long long som) {
+  extern __shared__ unsigned char smem_raw[];
+  const int kt = blockIdx.x % k_tiles;
+  const int nt = (blockIdx.x / k_tiles) % n_tiles;
+  const int g = blockIdx.x / (k_tiles * n_tiles);
+  const int m0 = kt * BM, n0 = nt * 2 * BN;
+  const int mv = valid_rows(rows, g, M);
+  bf16* outg = out + g * sog;
+
+  if (mv == 0) {   // a slot with no rows: zeros, nothing read
+    zero_tile(outg, som, m0, min(BM, Kd - m0), n0, min(2 * BN, N - n0));
+    return;
+  }
+
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t tiles_u = smem_u32(tiles);
+  const uint32_t full0 = tiles_u + STAGES * STAGE_BYTES;
+  const uint32_t empty0 = full0 + STAGES * 8;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int ttiles = (mv + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < ttiles; ++t) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        const uint32_t full = full0 + 8 * stage;
+        const uint32_t a = tiles_u + stage * STAGE_BYTES;
+        mbar_expect_tx(full, STAGE_BYTES);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          tma_load(a + j * BOX_BYTES, &map_x, full, m0 + 64 * j, t * BK, g);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tma_load(a + A_BYTES + j * BOX_BYTES, &map_d, full, n0 + 64 * j,
+                   t * BK, g);
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc[2][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.0f;
+    const int lane = threadIdx.x % 32;
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < ttiles; ++t) {
+      mbar_wait(full0 + 8 * stage, phase);
+      unsigned char* st = tiles + stage * STAGE_BYTES;
+      const int tail = mv - t * BK;   // valid token rows in this tile
+      if (tail < BK) {
+        // Token rows tail .. 63 of all six boxes to zero (a row is 128
+        // bytes; the swizzle permutes 16-byte pieces within it), made
+        // visible to the tensor cores' async proxy, then both consumer
+        // warpgroups meet before the products.
+        const int n = 6 * (BK - tail) * 8;
+        const uint4 z = make_uint4(0, 0, 0, 0);
+        for (int i = threadIdx.x; i < n; i += CONSUMERS * 128) {
+          const int box = i / ((BK - tail) * 8);
+          const int rr = tail + (i / 8) % (BK - tail), c = i % 8;
+          *reinterpret_cast<uint4*>(st + box * BOX_BYTES + rr * 128 + c * 16) =
+              z;
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+      }
+      const uint32_t a = tiles_u + stage * STAGE_BYTES + wg * BOX_BYTES;
+      const uint32_t b = tiles_u + stage * STAGE_BYTES + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = desc_sw128(a + kk * 2048, BOX_BYTES, 1024);
+        wgmma_m64n128k16<1, 1>(acc[0], da,
+                               desc_sw128(b + kk * 2048, BOX_BYTES, 1024));
+        wgmma_m64n128k16<1, 1>(
+            acc[1], da, desc_sw128(b + B_BYTES + kk * 2048, BOX_BYTES, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+      prev = stage;
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+
+    const int r0 = m0 + wg * 64 + (threadIdx.x / 32 % 4) * 16 + lane / 4;
+    const int c0 = n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      if (r >= Kd) continue;
+      bf16* orow = outg + r * som;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int c = c0 + b * BN + 8 * j;
+          if (c >= N) continue;
+          const int i = 4 * j + 2 * half;
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(acc[b][i], acc[b][i + 1]);
+        }
+    }
+  }
+}
+
 // A (groups, rows, cols) bf16 operand with unit-stride cols; strides in
 // elements; a box of box_rows x 64 columns with 128-byte swizzle.
 int make_map(CUtensorMap* map, const void* base, long long cols,
@@ -313,28 +534,41 @@ int make_map(CUtensorMap* map, const void* base, long long cols,
                      rows, groups, s_row, s_group, 64, box_rows);
 }
 
-template <bool SWIGLU>
-int launch_bf16(const void* x, const void* w1, const void* w3, void* out,
+// x (G, M, K) with strides (sxg, sxm); x2 likewise (MODE_NT2).  w1 / w3:
+// (G, K, N) N-major with strides (swg, swk), or for MODE_NT / MODE_NT2
+// (G, N, K) K-major with strides (swg, swn).
+template <int MODE>
+int launch_bf16(const void* x, const void* x2, const void* w1, const void* w3,
+                void* out, void* out2, const void* dact,
                 const long long* rows, int G, int M, int K, int N, int n_out,
-                long long sxg, long long sxm, long long swg, long long swk,
+                long long sxg, long long sxm, long long swg, long long sw1,
                 cudaStream_t stream) {
-  CUtensorMap mx, mw1, mw3;
+  constexpr bool KMAJOR_B = MODE == MODE_NT || MODE == MODE_NT2;
+  CUtensorMap mx, mx2, mw1, mw3;
   int err = make_map(&mx, x, K, M, G, sxm, sxg, BM);
-  if (!err) err = make_map(&mw1, w1, N, K, G, swk, swg, BK);
-  if (!err) err = make_map(&mw3, w3, N, K, G, swk, swg, BK);
+  if (!err) err = make_map(&mx2, x2, K, M, G, sxm, sxg, BM);
+  if (KMAJOR_B) {
+    if (!err) err = make_map(&mw1, w1, K, N, G, sw1, swg, BN);
+    if (!err) err = make_map(&mw3, w3, K, N, G, sw1, swg, BN);
+  } else {
+    if (!err) err = make_map(&mw1, w1, N, K, G, sw1, swg, BK);
+    if (!err) err = make_map(&mw3, w3, N, K, G, sw1, swg, BK);
+  }
   if (err) return err;
-  auto kernel = grouped_gemm_wgmma_kernel<SWIGLU>;
+  auto kernel = grouped_gemm_wgmma_kernel<MODE>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int out_cols = SWIGLU ? BN : 2 * BN;
+  const bool swi = MODE == MODE_SWIGLU || MODE == MODE_SWIGLU_BWD;
+  const int out_cols = swi ? BN : 2 * BN;
   const int n_tiles = (N + out_cols - 1) / out_cols;
   const int m_tiles = (M + BM - 1) / BM;
   const long long blocks = static_cast<long long>(G) * n_tiles * m_tiles;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, stream>>>(
-      mx, mw1, mw3, static_cast<bf16*>(out), rows, M, K, n_out, n_tiles,
-      m_tiles, static_cast<long long>(M) * n_out, n_out);
+      mx, mx2, mw1, mw3, static_cast<bf16*>(out), static_cast<bf16*>(out2),
+      static_cast<const bf16*>(dact), rows, M, K, n_out, n_tiles, m_tiles,
+      static_cast<long long>(M) * n_out, n_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -632,11 +866,11 @@ extern "C" int grouped_gemm_launch(int dtype, int swiglu, const void* x,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && swiglu)
-    return launch_bf16<true>(x, w1, w3, out, rows, G, M, K, N, n_out, sxg,
-                             sxm, swg, swk, s);
+    return launch_bf16<MODE_SWIGLU>(x, x, w1, w3, out, nullptr, nullptr, rows,
+                                    G, M, K, N, n_out, sxg, sxm, swg, swk, s);
   if (dtype == 1)
-    return launch_bf16<false>(x, w1, w1, out, rows, G, M, K, N, n_out, sxg,
-                              sxm, swg, swk, s);
+    return launch_bf16<MODE_MATMUL>(x, x, w1, w1, out, nullptr, nullptr, rows,
+                                    G, M, K, N, n_out, sxg, sxm, swg, swk, s);
   if (dtype == 0 && swiglu)
     return launch_f32<true>(x, w1, w3, out, rows, G, M, K, N, n_out, sxg,
                             sxm, swg, swk, s);
@@ -644,4 +878,62 @@ extern "C" int grouped_gemm_launch(int dtype, int swiglu, const void* x,
     return launch_f32<false>(x, w1, w1, out, rows, G, M, K, N, n_out, sxg,
                              sxm, swg, swk, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Backward entry points (bf16; same conventions as grouped_gemm_launch).
+// mode 2: (out, out2) = (dh, dg) of out = silu(x w1) (x w3) for the
+//   upstream gradient dact, (G, M, n_out) like out; w1, w3 (G, K, N)
+//   N-major with strides (swg, sw1).
+// mode 3: out = x w1^T; mode 4: out = x w1^T + x2 w3^T: w1, w3 stored
+//   (G, N, K), K-major with strides (swg, sw1); x2 has x's strides.
+extern "C" int grouped_gemm_bwd_launch(int mode, const void* x, const void* x2,
+                                       const void* w1, const void* w3,
+                                       void* out, void* out2, const void* dact,
+                                       const long long* rows, int G, int M,
+                                       int K, int N, int n_out, long long sxg,
+                                       long long sxm, long long swg,
+                                       long long sw1, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case MODE_SWIGLU_BWD:
+      return launch_bf16<MODE_SWIGLU_BWD>(x, x, w1, w3, out, out2, dact, rows,
+                                          G, M, K, N, n_out, sxg, sxm, swg,
+                                          sw1, s);
+    case MODE_NT:
+      return launch_bf16<MODE_NT>(x, x, w1, w1, out, nullptr, nullptr, rows,
+                                  G, M, K, N, n_out, sxg, sxm, swg, sw1, s);
+    case MODE_NT2:
+      return launch_bf16<MODE_NT2>(x, x2, w1, w3, out, nullptr, nullptr, rows,
+                                   G, M, K, N, n_out, sxg, sxm, swg, sw1, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dW = x^T d per slot over its valid rows: x (G, M, Kd), d (G, M, N) bf16
+// with unit-stride last dims and strides (sxg, sxm), (sdg, sdm); out
+// (G, Kd, N) contiguous bf16.  rows: (G,) int64 on the device, or null
+// for M.
+extern "C" int grouped_wgrad_launch(const void* x, const void* d, void* out,
+                                    const long long* rows, int G, int M,
+                                    int Kd, int N, long long sxg,
+                                    long long sxm, long long sdg,
+                                    long long sdm, void* stream) {
+  CUtensorMap mx, md;
+  int err = make_map(&mx, x, Kd, M, G, sxm, sxg, BK);
+  if (!err) err = make_map(&md, d, N, M, G, sdm, sdg, BK);
+  if (err) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      grouped_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int k_tiles = (Kd + BM - 1) / BM;
+  const int n_tiles = (N + 2 * BN - 1) / (2 * BN);
+  const long long blocks = static_cast<long long>(G) * k_tiles * n_tiles;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  grouped_wgrad_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES,
+                         static_cast<cudaStream_t>(stream)>>>(
+      mx, md, static_cast<bf16*>(out), rows, M, Kd, N, k_tiles, n_tiles,
+      static_cast<long long>(Kd) * N, N);
+  return static_cast<int>(cudaGetLastError());
 }

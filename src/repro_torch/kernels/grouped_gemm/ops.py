@@ -49,6 +49,29 @@ fp32 runs its products on the tensor cores in 3xTF32 (each operand split
 into a TF32 part and the rest; see the source's header): each product
 keeps about 2^-20 where fp32 keeps 2^-24, within 1e-4 of max|ref|.
 
+Gradients (bf16 on the card; any float dtype on the CPU).  With a gradient
+required, ``grouped_swiglu`` and ``grouped_matmul`` run as autograd
+Functions: the forward kernel as above, and a backward of three more
+kernels of ``csrc/grouped_gemm.cu`` (the JAX package has none: XLA
+differentiates its einsums), each with a plain version and a launch count:
+
+* ``grouped_swiglu_bwd(x, w1, w3, dact, rows)`` -> (dh, dg): the SwiGLU's
+  h = x w1 and g = x w3 recomputed from one read of each x tile, and
+  dh = dact g s (1 + h (1 - s)), dg = dact h s with s = sigmoid(h);
+* ``grouped_matmul_nt(x, w, rows, x2=None, w2=None)`` -> x w^T (+ x2 w2^T)
+  with w stored (G, N, K), K-contiguous (the weights as they are kept:
+  dact = dy w2^T and dx = dh w1^T + dg w3^T);
+* ``grouped_wgrad(x, d, rows)`` -> (G, K, N): x[g, :rows[g]]^T d[g, :rows[g]]
+  over each slot's valid rows only, fp32 accumulation, x's dtype.
+
+Rows past a slot's count come out as exact zeros in every output, and its
+gradients are zero there.  The SwiGLU saves x and recomputes h and g; the
+matmul saves its input (the activations, ``act``).  ``plain_backward=True``
+runs the backward as autograd through the plain forward instead, on any
+device (a check of the kernels in place: the forward is the same).  On the
+card the backward kernels take bf16 with K and N multiples of 8 and raise a
+``ValueError`` on anything else before any launch.
+
 The q8 plain versions contract in fp64, which is exact here (every partial
 sum is an integer below 2^53), and convert to int32: CUDA has no int32
 ``bmm``, and this keeps them exact on the card as on the CPU.  The q8
@@ -59,6 +82,7 @@ a ``(G, K, N)`` view, the layout ``repro_torch.moe.layer.MoEParams`` keeps.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -68,8 +92,10 @@ from repro_torch.kernels.build import KernelLibrary
 
 __all__ = ["grouped_swiglu", "grouped_matmul", "grouped_swiglu_ref",
            "grouped_matmul_ref", "grouped_swiglu_q8", "grouped_matmul_q8",
-           "grouped_swiglu_q8_ref", "grouped_matmul_q8_ref", "LIBRARY",
-           "LIBRARY_Q8"]
+           "grouped_swiglu_q8_ref", "grouped_matmul_q8_ref",
+           "grouped_swiglu_bwd", "grouped_swiglu_bwd_ref",
+           "grouped_matmul_nt", "grouped_matmul_nt_ref", "grouped_wgrad",
+           "grouped_wgrad_ref", "LIBRARY", "LIBRARY_Q8"]
 
 LIBRARY = KernelLibrary("grouped_gemm",
                         Path(__file__).parent / "csrc" / "grouped_gemm.cu")
@@ -92,11 +118,17 @@ def _row_mask(rows: torch.Tensor, M: int) -> torch.Tensor:
     return (p[None, :] < rows[:, None])[:, :, None]
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic: fp32, or fp64 for fp64 operands."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
                        rows: torch.Tensor | None = None) -> torch.Tensor:
     """x: (G, M, K) @ w: (G, K, N) -> (G, M, N); fp32 accumulation, cast.
     Rows at or past ``rows[g]`` are zero."""
-    out = torch.einsum("gmk,gkn->gmn", x.to(torch.float32), w.to(torch.float32))
+    acc = _acc(x.dtype)
+    out = torch.einsum("gmk,gkn->gmn", x.to(acc), w.to(acc))
     if rows is not None:
         out = torch.where(_row_mask(rows, x.shape[1]), out, 0.0)
     return out.to(x.dtype)
@@ -106,9 +138,10 @@ def grouped_swiglu_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                        rows: torch.Tensor | None = None) -> torch.Tensor:
     """silu(x@w1) * (x@w3) per group, fp32 accumulation and gating, cast.
     Rows at or past ``rows[g]`` are zero."""
-    xf = x.to(torch.float32)
-    h = torch.einsum("gmk,gkn->gmn", xf, w1.to(torch.float32))
-    g = torch.einsum("gmk,gkn->gmn", xf, w3.to(torch.float32))
+    acc = _acc(x.dtype)
+    xf = x.to(acc)
+    h = torch.einsum("gmk,gkn->gmn", xf, w1.to(acc))
+    g = torch.einsum("gmk,gkn->gmn", xf, w3.to(acc))
     out = F.silu(h) * g
     if rows is not None:
         out = torch.where(_row_mask(rows, x.shape[1]), out, 0.0)
@@ -198,11 +231,23 @@ def _check_device(x: torch.Tensor) -> bool:
     raise ValueError(f"no grouped GEMM for device {x.device}")
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
 def grouped_swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-                   rows: torch.Tensor | None = None) -> torch.Tensor:
+                   rows: torch.Tensor | None = None, *,
+                   plain_backward: bool = False) -> torch.Tensor:
     """Fused ``silu(x@w1) * (x@w3)``: x (G, M, K), w1/w3 (G, K, N) ->
     (G, M, N); slot g's rows at or past ``rows[g]`` (a (G,) int tensor on
-    x's device; None: M) come out zero."""
+    x's device; None: M) come out zero.  Differentiable in x, w1 and w3."""
+    if _needs_grad(x, w1, w3):
+        return _GroupedSwiGLU.apply(x, w1, w3, rows, plain_backward)
+    return _swiglu_fwd(x, w1, w3, rows)
+
+
+def _swiglu_fwd(x, w1, w3, rows):
     if not _check_device(x):
         return grouped_swiglu_ref(x, w1, w3, rows)
     out, copies = _launch(x, w1, w3, rows, swiglu=True)
@@ -213,9 +258,16 @@ def grouped_swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
-                   rows: torch.Tensor | None = None) -> torch.Tensor:
+                   rows: torch.Tensor | None = None, *,
+                   plain_backward: bool = False) -> torch.Tensor:
     """Grouped matmul: x (G, M, K) @ w (G, K, N) -> (G, M, N); slot g's rows
-    at or past ``rows[g]`` come out zero."""
+    at or past ``rows[g]`` come out zero.  Differentiable in x and w."""
+    if _needs_grad(x, w):
+        return _GroupedMatmul.apply(x, w, rows, plain_backward)
+    return _matmul_fwd(x, w, rows)
+
+
+def _matmul_fwd(x, w, rows):
     if not _check_device(x):
         return grouped_matmul_ref(x, w, rows)
     out, copies = _launch(x, w, None, rows, swiglu=False)
@@ -380,6 +432,247 @@ def grouped_matmul_q8(q: torch.Tensor, row_scale: torch.Tensor,
     return out
 
 
+# ---------------------------------------------------------------- backward
+
+
+def grouped_swiglu_bwd_ref(x: torch.Tensor, w1: torch.Tensor,
+                           w3: torch.Tensor, dact: torch.Tensor,
+                           rows: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dh, dg) of ``act = silu(x@w1) * (x@w3)`` for the gradient ``dact``
+    (G, M, N): h and g recomputed in fp32, dh = dact g s (1 + h (1 - s)),
+    dg = dact h s with s = sigmoid(h), each cast to x's dtype; zero at or
+    past ``rows[g]``."""
+    acc = _acc(x.dtype)
+    xf = x.to(acc)
+    h = torch.einsum("gmk,gkn->gmn", xf, w1.to(acc))
+    g = torch.einsum("gmk,gkn->gmn", xf, w3.to(acc))
+    da = dact.to(acc)
+    sg = torch.sigmoid(h)
+    dg = da * h * sg
+    dh = da * g * sg * (1 + h * (1 - sg))
+    if rows is not None:
+        keep = _row_mask(rows, x.shape[1])
+        dh, dg = torch.where(keep, dh, 0.0), torch.where(keep, dg, 0.0)
+    return dh.to(x.dtype), dg.to(x.dtype)
+
+
+def grouped_matmul_nt_ref(x: torch.Tensor, w: torch.Tensor,
+                          rows: torch.Tensor | None = None,
+                          x2: torch.Tensor | None = None,
+                          w2: torch.Tensor | None = None) -> torch.Tensor:
+    """x (G, M, K) @ w^T with w (G, N, K), plus x2 @ w2^T when given;
+    fp32 accumulation, cast to x's dtype; zero at or past ``rows[g]``."""
+    acc = _acc(x.dtype)
+    out = torch.einsum("gmk,gnk->gmn", x.to(acc), w.to(acc))
+    if x2 is not None:
+        out = out + torch.einsum("gmk,gnk->gmn", x2.to(acc), w2.to(acc))
+    if rows is not None:
+        out = torch.where(_row_mask(rows, x.shape[1]), out, 0.0)
+    return out.to(x.dtype)
+
+
+def grouped_wgrad_ref(x: torch.Tensor, d: torch.Tensor,
+                      rows: torch.Tensor | None = None) -> torch.Tensor:
+    """(G, K, N) = x[g, :rows[g]]^T d[g, :rows[g]] per slot (x (G, M, K),
+    d (G, M, N)), fp32 accumulation, cast to x's dtype.  Rows past the
+    count are selected away, never multiplied."""
+    acc = _acc(x.dtype)
+    xf, df = x.to(acc), d.to(acc)
+    if rows is not None:
+        keep = _row_mask(rows, x.shape[1])
+        xf, df = torch.where(keep, xf, 0.0), torch.where(keep, df, 0.0)
+    return torch.einsum("gmk,gmn->gkn", xf, df).to(x.dtype)
+
+
+def _bwd_operands(name: str, *ts: torch.Tensor) -> None:
+    """The backward kernels' contract: bf16 on one card, 3-D, a unit-stride
+    last dim, TMA-readable, widths that are multiples of 8."""
+    for t in ts:
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: the backward kernels take bf16, not "
+                             f"{t.dtype}")
+        if t.device != ts[0].device or t.dim() != 3:
+            raise ValueError(f"{name}: expected 3-D operands on one device")
+        if t.shape[-1] % 8 or t.stride(-1) != 1 or not _tma_ready(t):
+            raise ValueError(f"{name}: operands need a unit-stride last dim "
+                             f"that is a multiple of 8 and 16-byte aligned "
+                             f"rows, not {tuple(t.shape)} / {t.stride()}")
+
+
+def _bwd_check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: error {err} (below "
+                           f"1000 a CUDA error; 1000 no cuTensorMapEncodeTiled;"
+                           f" 1001 + CUresult a refused tensor map)")
+
+
+def grouped_swiglu_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                       dact: torch.Tensor, rows: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dh, dg), each (G, M, N), of the grouped SwiGLU for ``dact``; see
+    :func:`grouped_swiglu_bwd_ref`."""
+    if not _check_device(x):
+        return grouped_swiglu_bwd_ref(x, w1, w3, dact, rows)
+    G, M, K = x.shape
+    N = w1.shape[2]
+    _bwd_operands("grouped_swiglu_bwd", x, w1, w3, dact)
+    if w1.shape != (G, K, N) or w3.shape != w1.shape or \
+            w3.stride() != w1.stride() or dact.shape != (G, M, N) or \
+            not dact.is_contiguous():
+        raise ValueError("grouped_swiglu_bwd: x (G, M, K), w1 / w3 (G, K, N) "
+                         "with equal strides, dact (G, M, N) contiguous")
+    rows = _check_rows(rows, G, x.device)
+    dh, dg = torch.empty_like(dact), torch.empty_like(dact)
+    if dh.numel():
+        _bwd_check(_bwd_launcher()(
+            2, x.data_ptr(), x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
+            dh.data_ptr(), dg.data_ptr(), dact.data_ptr(),
+            None if rows is None else rows.data_ptr(), G, M, K, N, N,
+            x.stride(0), x.stride(1), w1.stride(0), w1.stride(1),
+            torch.cuda.current_stream(x.device).cuda_stream),
+            "grouped_swiglu_bwd")
+        grouped_swiglu_bwd.launches += 1
+    return dh, dg
+
+
+def grouped_matmul_nt(x: torch.Tensor, w: torch.Tensor,
+                      rows: torch.Tensor | None = None,
+                      x2: torch.Tensor | None = None,
+                      w2: torch.Tensor | None = None) -> torch.Tensor:
+    """x (G, M, K) @ w^T (+ x2 @ w2^T) with w, w2 stored (G, N, K):
+    (G, M, N), zero at or past ``rows[g]``; one launch for both products."""
+    if not _check_device(x):
+        return grouped_matmul_nt_ref(x, w, rows, x2, w2)
+    G, M, K = x.shape
+    N = w.shape[1]
+    ops = (x, w) if x2 is None else (x, w, x2, w2)
+    _bwd_operands("grouped_matmul_nt", *ops)
+    if w.shape != (G, N, K) or (x2 is not None and (
+            x2.shape != x.shape or x2.stride() != x.stride()
+            or w2.shape != w.shape or w2.stride() != w.stride())):
+        raise ValueError("grouped_matmul_nt: x (G, M, K), w (G, N, K); x2 and "
+                         "w2 with the shapes and strides of x and w")
+    rows = _check_rows(rows, G, x.device)
+    out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
+    if out.numel():
+        second = x2 is not None
+        _bwd_check(_bwd_launcher()(
+            4 if second else 3, x.data_ptr(),
+            (x2 if second else x).data_ptr(), w.data_ptr(),
+            (w2 if second else w).data_ptr(), out.data_ptr(), None, None,
+            None if rows is None else rows.data_ptr(), G, M, K, N, N,
+            x.stride(0), x.stride(1), w.stride(0), w.stride(1),
+            torch.cuda.current_stream(x.device).cuda_stream),
+            "grouped_matmul_nt")
+        grouped_matmul_nt.launches += 1
+    return out
+
+
+def grouped_wgrad(x: torch.Tensor, d: torch.Tensor,
+                  rows: torch.Tensor | None = None) -> torch.Tensor:
+    """(G, K, N) = x[g, :rows[g]]^T d[g, :rows[g]] for x (G, M, K) and
+    d (G, M, N): each slot's valid rows only (a slot with none gives zeros
+    and reads nothing)."""
+    if not _check_device(x):
+        return grouped_wgrad_ref(x, d, rows)
+    G, M, K = x.shape
+    N = d.shape[2]
+    _bwd_operands("grouped_wgrad", x, d)
+    if d.shape[:2] != (G, M):
+        raise ValueError(f"grouped_wgrad: x {tuple(x.shape)}, d "
+                         f"{tuple(d.shape)}")
+    rows = _check_rows(rows, G, x.device)
+    out = torch.empty((G, K, N), dtype=x.dtype, device=x.device)
+    if out.numel():
+        _bwd_check(_wgrad_launcher()(
+            x.data_ptr(), d.data_ptr(), out.data_ptr(),
+            None if rows is None else rows.data_ptr(), G, M, K, N,
+            x.stride(0), x.stride(1), d.stride(0), d.stride(1),
+            torch.cuda.current_stream(x.device).cuda_stream), "grouped_wgrad")
+        grouped_wgrad.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    """The backward entry points with their argument types (set once)."""
+    fn = LIBRARY.load().grouped_gemm_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_launcher():
+    fn = LIBRARY.load().grouped_wgrad_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    return fn
+
+
+def _plain_grads(ref, inputs, needs, grad_out, rows):
+    """Gradients of ``ref(*inputs, rows)`` by autograd through the plain
+    forward (recomputed), for the inputs that need one."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = ref(*leaves, rows)
+        wanted = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad_out))
+    return [next(got) if t.requires_grad else None for t in leaves]
+
+
+class _GroupedSwiGLU(torch.autograd.Function):
+    """act = silu(x w1) (x w3): saves x, w1, w3 (h and g are recomputed)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w3, rows, plain_backward):
+        ctx.save_for_backward(x, w1, w3, rows)
+        ctx.plain_backward = plain_backward
+        return _swiglu_fwd(x, w1, w3, rows)
+
+    @staticmethod
+    def backward(ctx, dact):
+        x, w1, w3, rows = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        if ctx.plain_backward:
+            return (*_plain_grads(grouped_swiglu_ref, (x, w1, w3), needs,
+                                  dact, rows), None, None)
+        dh, dg = grouped_swiglu_bwd(x, w1, w3, dact.contiguous(), rows)
+        dx = grouped_matmul_nt(dh, w1, rows, dg, w3) if needs[0] else None
+        dw1 = grouped_wgrad(x, dh, rows) if needs[1] else None
+        dw3 = grouped_wgrad(x, dg, rows) if needs[2] else None
+        return dx, dw1, dw3, None, None
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """y = x w: saves x (the FFN's activations) and w."""
+
+    @staticmethod
+    def forward(ctx, x, w, rows, plain_backward):
+        ctx.save_for_backward(x, w, rows)
+        ctx.plain_backward = plain_backward
+        return _matmul_fwd(x, w, rows)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, rows = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:2]
+        if ctx.plain_backward:
+            return (*_plain_grads(grouped_matmul_ref, (x, w), needs, dy, rows),
+                    None, None)
+        dy = dy.contiguous()
+        dx = grouped_matmul_nt(dy, w, rows) if needs[0] else None
+        dw = grouped_wgrad(x, dy, rows) if needs[1] else None
+        return dx, dw, None, None
+
+
+grouped_swiglu_bwd.launches = 0
+grouped_matmul_nt.launches = 0
+grouped_wgrad.launches = 0
 grouped_swiglu.launches = 0
 grouped_matmul.launches = 0
 grouped_swiglu.padded_copies = 0

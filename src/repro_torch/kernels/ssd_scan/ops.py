@@ -124,9 +124,15 @@ def _launch(xs, Bm, Cm, dt, da):
 
 
 def ssd_intra_chunk(xs, Bm, Cm, dt, da):
-    """Intra-chunk SSD term, chunk states and chunk decays (all fp32)."""
+    """Intra-chunk SSD term, chunk states and chunk decays (all fp32).
+    No backward kernel yet: on the card a gradient through it raises (on
+    the CPU the plain version is differentiable)."""
     if not _is_cuda(xs):
         return ssd_intra_chunk_ref(xs, Bm, Cm, dt, da)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xs, Bm, Cm, dt, da)):
+        raise ValueError("ssd_intra_chunk has no backward kernel: the SSD "
+                         "backward is not ported to the card")
     y, S, dec, launched = _launch(xs, Bm, Cm, dt, da)
     if launched:
         ssd_intra_chunk.launches += 1

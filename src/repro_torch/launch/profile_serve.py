@@ -47,6 +47,12 @@ __all__ = ["main"]
 # Kernel-name fragments -> category, first match wins.
 _CATEGORIES = (
     ("grouped_gemm_q8 (ours)", ("grouped_gemm_q8_wgmma_kernel",)),
+    ("grouped_gemm backward (ours)", ("grouped_wgrad_kernel",
+                                      "grouped_gemm_wgmma_kernel<2>",
+                                      "grouped_gemm_wgmma_kernel<3>",
+                                      "grouped_gemm_wgmma_kernel<4>")),
+    ("flash_attention backward (ours)", ("bwd_dkdv_kernel", "bwd_dq_kernel",
+                                         "bwd_delta_kernel")),
     ("grouped_gemm (ours)", ("grouped_gemm_wgmma_kernel",
                              "grouped_gemm_tf32_kernel")),
     ("ssd_scan (ours)", ("ssd_intra_chunk_kernel",)),

@@ -17,6 +17,13 @@ wide), as the reference does, and attends with the flash kernel at those
 unequal head dims; decode is the absorbed form (W_UK folded into q, W_UV
 applied to the latent context) in fp32 products, which the reference
 computes outside any Pallas kernel too.
+
+The full-sequence functions (``gqa_attention``, ``mla_attention``) are
+differentiable: with a gradient required, ``flash_attention`` is its
+autograd Function (on the card the backward kernel at bf16 and head dim
+128, which GQA at the models' width takes; MLA's (192, 128) raises there).
+``plain_backward`` runs that backward as autograd through the plain
+version instead.
 """
 
 from __future__ import annotations
@@ -74,13 +81,15 @@ class GQAParams(nn.Module):
                     else nn.Parameter(t, requires_grad=False))
 
     def forward(self, x: torch.Tensor, cfg: AttnConfig, *, cache=None,
-                decode: bool = False, valid_len=None, block_kv: int = 512):
+                decode: bool = False, valid_len=None, block_kv: int = 512,
+                plain_backward: bool = False):
         if decode:
             return gqa_decode(x, cache, self, cfg, block_kv=block_kv)
         if cache is not None:
             return gqa_prefill(x, cache, self, cfg, valid_len=valid_len,
                                block_kv=block_kv)
-        return gqa_attention(x, self, cfg, block_kv=block_kv)
+        return gqa_attention(x, self, cfg, block_kv=block_kv,
+                             plain_backward=plain_backward)
 
 
 class MLAParams(nn.Module):
@@ -98,13 +107,15 @@ class MLAParams(nn.Module):
             setattr(self, name, nn.Parameter(t, requires_grad=False))
 
     def forward(self, x: torch.Tensor, cfg: AttnConfig, *, cache=None,
-                decode: bool = False, valid_len=None, block_kv: int = 512):
+                decode: bool = False, valid_len=None, block_kv: int = 512,
+                plain_backward: bool = False):
         if decode:
             return mla_decode(x, cache, self, cfg)
         if cache is not None:
             return mla_prefill(x, cache, self, cfg, valid_len=valid_len,
                                block_kv=block_kv)
-        return mla_attention(x, self, cfg, block_kv=block_kv)
+        return mla_attention(x, self, cfg, block_kv=block_kv,
+                             plain_backward=plain_backward)
 
 
 class KVCache(NamedTuple):
@@ -199,7 +210,8 @@ def _project_gqa(x: torch.Tensor, params: GQAParams, cfg: AttnConfig):
 
 def gqa_attention(x: torch.Tensor, params: GQAParams, cfg: AttnConfig, *,
                   positions: torch.Tensor | None = None,
-                  block_kv: int = 512) -> torch.Tensor:
+                  block_kv: int = 512,
+                  plain_backward: bool = False) -> torch.Tensor:
     """Full-sequence GQA.  x: (B, S, D)."""
     B, S, _ = x.shape
     q, k, v = _project_gqa(x, params, cfg)
@@ -207,7 +219,8 @@ def gqa_attention(x: torch.Tensor, params: GQAParams, cfg: AttnConfig, *,
     cos, sin = rotary_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
-    out = flash_attention(q, k, v, causal=cfg.causal, block_kv=block_kv)
+    out = flash_attention(q, k, v, causal=cfg.causal, block_kv=block_kv,
+                          plain_backward=plain_backward)
     return out.reshape(B, S, -1) @ params.wo
 
 
@@ -285,7 +298,8 @@ def _expand_latent(c_all: torch.Tensor, kr_all: torch.Tensor,
 
 
 def mla_attention(x: torch.Tensor, params: MLAParams, cfg: AttnConfig, *,
-                  block_kv: int = 512) -> torch.Tensor:
+                  block_kv: int = 512,
+                  plain_backward: bool = False) -> torch.Tensor:
     """Full-sequence MLA: the latent expanded to per-head K/V.
     x: (B, S, D)."""
     B, S, _ = x.shape
@@ -293,7 +307,8 @@ def mla_attention(x: torch.Tensor, params: MLAParams, cfg: AttnConfig, *,
                                 torch.arange(S, device=x.device))
     k, v = _expand_latent(c_kv, k_r, params, cfg)
     out = flash_attention(q, k, v, causal=cfg.causal, block_kv=block_kv,
-                          scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5)
+                          scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5,
+                          plain_backward=plain_backward)
     return out.reshape(B, S, -1) @ params.wo
 
 

@@ -49,8 +49,13 @@ def dense_swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup, (B, S) -> (B, S, D)."""
-    return table[tokens]
+    """Token embedding lookup, (B, S) -> (B, S, D).  Its backward
+    (``embedding_dense_backward``) sums each row's gradients in fp32; the
+    backward of ``table[tokens]`` accumulates in the table's dtype, one
+    occurrence at a time: in bf16, over the ~2000 occurrences of a Zipf
+    stream's top token in 8192, that drifts by a few bf16 steps (and took
+    0.4 s of an H100 train step)."""
+    return F.embedding(tokens, table)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

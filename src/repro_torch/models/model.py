@@ -1,8 +1,11 @@
-"""LM assembly: embedding, blocks, final norm, chunked prefill and decode.
+"""LM assembly: embedding, blocks, final norm, losses, chunked prefill and
+decode.
 
-Mirrors the serving half of ``repro.models.model``: :class:`LMParams`,
-:func:`init_lm`, :func:`init_caches`, :func:`prefill_step` and
-:func:`decode_step`.  The layers are a list (one block per layer) where the
+Mirrors ``repro.models.model``: :class:`LMParams`, :func:`init_lm`,
+:func:`init_router_bias`, the full-sequence :func:`forward` and the losses
+:func:`lm_loss` and :func:`blocked_lm_loss` (training), :func:`init_caches`,
+:func:`prefill_step` and :func:`decode_step` (serving), :func:`param_count`.
+Modality frontends are not ported.  The layers are a list (one block per layer) where the
 JAX package stacks scanned segments; caches are one entry per layer, a
 :class:`KVCache` for an attention layer and an :class:`SSMState` for a
 Mamba layer.
@@ -11,6 +14,7 @@ Mamba layer.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, layer_kinds
@@ -22,13 +26,16 @@ from repro_torch.models.transformer import (
     init_cache_block,
 )
 
-__all__ = ["LMParams", "init_lm", "init_caches", "prefill_step",
-           "decode_step"]
+__all__ = ["LMParams", "init_lm", "init_router_bias", "forward", "lm_loss",
+           "blocked_lm_loss", "init_caches", "prefill_step", "decode_step",
+           "param_count"]
 
 
 class LMParams(nn.Module):
     """embedding (V, D), one BlockParams per layer, final_norm (D,),
-    lm_head (V, D) or None when tied."""
+    lm_head (V, D) or None when tied.  Built with ``requires_grad=False``
+    (serving); ``requires_grad_(True)`` makes every parameter trainable
+    (``repro_torch.train.loop.init_train_state`` does)."""
 
     def __init__(self, embedding, layers, final_norm, lm_head=None):
         super().__init__()
@@ -63,6 +70,91 @@ def init_lm(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
         embedding=normal((V, D)), layers=layers,
         final_norm=torch.ones(D, dtype=rcfg.dtype, device=device),
         lm_head=None if cfg.tie_embeddings else normal((V, D)))
+
+
+def init_router_bias(cfg: ModelConfig, *, device="cuda"
+                     ) -> torch.Tensor | None:
+    """(num_layers, E) aux-free routing bias (zeros for non-MoE layers)."""
+    if cfg.moe is None or not cfg.moe.use_bias:
+        return None
+    return torch.zeros((cfg.num_layers, cfg.moe.num_experts),
+                       dtype=torch.float32, device=device)
+
+
+def forward(params: LMParams, batch: dict, cfg: ModelConfig,
+            rcfg: RuntimeConfig, pctx: ParallelCtx, *,
+            router_bias: torch.Tensor | None = None,
+            return_hidden: bool = False):
+    """Full-sequence forward of ``batch["tokens"]`` (B, S).
+
+    Returns (logits, aux_loss, drops, counts) where counts is the
+    (num_layers, E) realized per-layer expert load (zeros on non-MoE
+    layers); ``return_hidden=True`` returns the final-norm hidden states in
+    place of the fp32 logits (the blocked-loss path)."""
+    if cfg.frontend != "none":
+        raise ValueError(f"{cfg.name}: modality frontends are not ported yet")
+    x = embed(batch["tokens"], params.embedding)
+    dev = x.device
+    aux_tot = torch.zeros((), dtype=torch.float32, device=dev)
+    drops_tot = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = []
+    for i, (kind, bp) in enumerate(zip(layer_kinds(cfg), params.layers)):
+        bias = None if router_bias is None else router_bias[i]
+        x, aux, drops, c, _ = bp(x, kind, cfg, rcfg, pctx, router_bias=bias)
+        aux_tot = aux_tot + aux
+        drops_tot = drops_tot + drops
+        counts.append(c)
+    x = rms_norm(x, params.final_norm)
+    counts = torch.stack(counts)
+    if return_hidden:
+        return x, aux_tot, drops_tot, counts
+    return unembed(x, params.head()), aux_tot, drops_tot, counts
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor, *,
+            z_loss: float = 1e-4) -> torch.Tensor:
+    """Token cross-entropy (fp32) with z-loss regularisation."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].to(torch.int64))[..., 0]
+    return (lse - ll).mean() + z_loss * (lse ** 2).mean()
+
+
+def _chunk_terms(xc: torch.Tensor, head32: torch.Tensor, tc: torch.Tensor):
+    logits = torch.einsum("bsd,vd->bsv", xc.to(torch.float32), head32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, tc[..., None].to(torch.int64))[..., 0]
+    return (lse - ll).sum(), (lse ** 2).sum()
+
+
+def blocked_lm_loss(x: torch.Tensor, head: torch.Tensor,
+                    targets: torch.Tensor, *, z_loss: float = 1e-4,
+                    chunks: int = 8) -> torch.Tensor:
+    """Cross-entropy over sequence chunks without materialising the full
+    (B, S, V) fp32 logits: each chunk's logits are recomputed in the
+    backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``).  The head is cast to fp32 once, so its gradient
+    accumulates over the chunks in fp32."""
+    B, S, _ = x.shape
+    chunks = max(1, min(chunks, S))
+    while S % chunks:
+        chunks -= 1
+    size = S // chunks
+    head32 = head.to(torch.float32)
+    nll = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(chunks):
+        sl = slice(c * size, (c + 1) * size)
+        a, b = torch.utils.checkpoint.checkpoint(
+            _chunk_terms, x[:, sl], head32, targets[:, sl],
+            use_reentrant=False)
+        nll, z = nll + a, z + b
+    n = B * S
+    return nll / n + z_loss * z / n
+
+
+def param_count(params: LMParams) -> int:
+    """Parameters of this rank (an EP rank holds its own experts)."""
+    return sum(p.numel() for p in params.parameters())
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,

@@ -9,6 +9,11 @@ layers are replicated on every rank, and each MoE block runs the EP layer
 (:func:`_ep_moe_block`).  JAX groups identical layers into scanned segments
 (and a hybrid's repeating period into one "cycle" segment); here the layers
 are a Python list and each block runs in turn.
+
+The full forward (cache None) is differentiable on one device, which is how
+the trainer runs (``repro.launch.train`` uses ``ParallelCtx(mesh=None)``).
+Per-layer rematerialisation (``remat``) is not ported: every activation is
+kept for the backward.
 """
 
 from __future__ import annotations
@@ -46,6 +51,10 @@ class RuntimeConfig:
     dtype: torch.dtype = torch.float32
     wire_dtype: str = "none"       # EP wire codec: "none" | "bf16" | "int8"
     ffn_dtype: str = "none"        # expert FFN compute: "none" | "int8" (w8a8)
+    loss_chunks: int = 1           # >1: blocked CE, no (B,S,V) materialise
+    plain_backward: bool = False   # the kernels' backward as autograd through
+    # their plain versions, the forward unchanged (a check of the backward
+    # kernels in place); not in the reference
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +136,8 @@ def moe_config(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
                      d_ff=m.d_ff, ep_size=ep, cap_pair=cap_pair,
                      cap_slot=cap_slot, n_shared_experts=m.n_shared_experts,
                      shared_d_ff=m.shared_d_ff, dispatch_mode=dispatch_mode,
-                     wire_dtype=rcfg.wire_dtype, ffn_dtype=rcfg.ffn_dtype)
+                     wire_dtype=rcfg.wire_dtype, ffn_dtype=rcfg.ffn_dtype,
+                     plain_backward=rcfg.plain_backward)
 
 
 def init_block(cfg: ModelConfig, kind: str, rcfg: RuntimeConfig,
@@ -247,7 +257,8 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
         # GQAParams or MLAParams: each sends the call to its own decode,
         # chunked prefill or full-sequence function.
         y = bp.attn(h, attn_config(cfg), cache=cache, decode=decode,
-                    valid_len=valid_len, block_kv=rcfg.block_kv)
+                    valid_len=valid_len, block_kv=rcfg.block_kv,
+                    plain_backward=rcfg.plain_backward)
         if cache is not None:
             y, new_cache = y
     else:

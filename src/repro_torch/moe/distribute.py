@@ -13,8 +13,23 @@ home's rows unchanged, but for a ``-0.0`` that may arrive as ``+0.0``
 (``-0.0 + 0.0``), which no product or sum downstream can tell apart from
 ``+0.0`` beyond the sign of a zero.  With one EP rank (``axis_name``
 None) every replica's home is local and a replica slot is a masked row
-gather of the local mains.  Backward through the multi-rank stream is not
-ported (training is a later slice).
+gather of the local mains.
+
+Backward (the paper's training equivalence, S4.2).  The JAX package gets
+it by construction: the transpose of the reduce-scatter is an all-gather,
+and the transpose of the masked gather a segment-sum, so
+
+  dL/dw_local = onehot^T @ all_gather_{EP}(dL/dreplica_w):
+
+every replica's gradient goes back onto its home main.  :func:`slot_weights`
+is that as one autograd Function around the in-place stream: its forward
+writes the replicas into the slot buffers' tails as
+:func:`materialize_replica_stack` does and returns the whole buffers, and
+its backward adds, onto each main's gradient (the gradient of its own slot
+rows), the replica rows' gradients all-gathered over the group and
+segment-summed onto their home mains (:func:`replica_grads_to_mains`; at
+R = 1 a local segment-sum).  Under a gradient the wire codec must be
+"none".
 
 Weight copies.  The JAX version packs w1/w3/w2 into one matrix before its
 transfer, which at GLM-4.5-Air width copies ~4.4 GB per layer per call.
@@ -37,7 +52,8 @@ import torch
 from repro_torch.core.quantize import decode_wire, encode_wire
 from repro_torch.parallel import collectives
 
-__all__ = ["select_local_replicas", "materialize_replica_stack"]
+__all__ = ["select_local_replicas", "materialize_replica_stack",
+           "replica_grads_to_mains", "slot_weights"]
 
 
 def select_local_replicas(w_local: torch.Tensor, x_slots_flat: torch.Tensor,
@@ -104,3 +120,65 @@ def materialize_replica_stack(ws: tuple[torch.Tensor, ...],
             (n_slot,) + tuple(e.shape[1:])), wire_dtype, w.dtype))
         off += size
     return out
+
+
+def replica_grads_to_mains(d_rep: torch.Tensor, x_slots: torch.Tensor,
+                           my_rank: int, axis_name, out: torch.Tensor
+                           ) -> torch.Tensor:
+    """The transpose of the replica stream, added onto ``out`` (n_main,
+    ...), the gradient of this rank's mains, in place: ``d_rep`` (N_slot,
+    ...) are this rank's replica slots' gradients.  Every rank's are
+    all-gathered (R, N_slot, ...) and each row whose slot holds one of this
+    rank's experts is added onto that expert's row (the transpose of
+    :func:`select_local_replicas`); rows of other homes and unbound slots
+    (-1) add zeros."""
+    R, n_slot = x_slots.shape
+    n_main = out.shape[0]
+    full = d_rep[None] if axis_name is None else collectives.all_gather(
+        axis_name, d_rep)
+    flat = full.reshape(R * n_slot, -1)
+    local = x_slots.reshape(-1).to(torch.int64) - my_rank * n_main
+    ok = (local >= 0) & (local < n_main)
+    out.view(n_main, -1).index_add_(
+        0, local.clamp(0, n_main - 1),
+        torch.where(ok[:, None], flat, torch.zeros((), dtype=flat.dtype,
+                                                   device=flat.device)))
+    return out
+
+
+def slot_weights(mains: tuple[torch.Tensor, ...],
+                 buffers: tuple[torch.Tensor, ...], x_slots: torch.Tensor,
+                 my_rank: int, axis_name, *, n_chunks: int = 1,
+                 wire_dtype: str = "none") -> tuple[torch.Tensor, ...]:
+    """Differentiable slot buffers: each of ``buffers`` (num_slots, ...)
+    holds its main (``mains``, the buffer's first E_local rows, as views)
+    in its head; the replicas of the plan's slot table ``x_slots`` are
+    written into the tails in place (:func:`materialize_replica_stack`),
+    and views of the whole buffers are returned, whose gradient flows back
+    onto the mains (see the module's notes; under a gradient the wire
+    codec must be "none")."""
+    return _SlotWeights.apply(x_slots, my_rank, axis_name, n_chunks,
+                              wire_dtype, tuple(buffers), *mains)
+
+
+class _SlotWeights(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_slots, my_rank, axis_name, n_chunks, wire_dtype,
+                buffers, *mains):
+        n_main = mains[0].shape[0]
+        materialize_replica_stack(mains, x_slots, my_rank, axis_name,
+                                  out=tuple(b[n_main:] for b in buffers),
+                                  n_chunks=n_chunks, wire_dtype=wire_dtype)
+        ctx.save_for_backward(x_slots)
+        ctx.args = (my_rank, axis_name, n_main)
+        return tuple(b.view_as(b) for b in buffers)
+
+    @staticmethod
+    def backward(ctx, *d_bufs):
+        (x_slots,) = ctx.saved_tensors
+        my_rank, axis_name, n_main = ctx.args
+        # Each main's gradient: its own slot rows' plus its replicas'.
+        d_mains = [None if d is None else replica_grads_to_mains(
+            d[n_main:], x_slots, my_rank, axis_name, d[:n_main].clone())
+            for d in d_bufs]
+        return (None, None, None, None, None, None, *d_mains)

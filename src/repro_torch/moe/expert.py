@@ -9,6 +9,10 @@ accumulating in int32 with a rank-1 dequant, the gate and the requantization
 between the GEMMs in fp32.  All four GEMMs are hand-written Hopper kernels
 (:mod:`repro_torch.kernels.grouped_gemm`); on a CPU tensor the wrappers run
 their plain PyTorch versions.
+
+The fp path is differentiable in xs, w1, w3 and w2 (the grouped kernels'
+autograd Functions and their backward kernels); the w8a8 path has no
+backward and raises a ``ValueError`` when a gradient is required.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ def grouped_ffn(xs: torch.Tensor, valid: torch.Tensor, w1: torch.Tensor,
                 w3: torch.Tensor, w2: torch.Tensor, *, ffn_dtype: str = "none",
                 xs_scale: torch.Tensor | None = None,
                 wq: tuple | None = None,
-                rows: torch.Tensor | None = None) -> torch.Tensor:
+                rows: torch.Tensor | None = None,
+                plain_backward: bool = False) -> torch.Tensor:
     """Per-slot SwiGLU.
 
     xs: (G, C, D) capacity-padded slot buffers, fp activations or int8 wire
@@ -57,6 +62,8 @@ def grouped_ffn(xs: torch.Tensor, valid: torch.Tensor, w1: torch.Tensor,
     them, so the weights are not quantized on every call); without it they
     are quantized here, as the reference does.  Returns (G, C, D) in xs's
     dtype, or w1's when xs arrived as int8, zero on padded rows.
+    ``plain_backward``: the fp path's backward as autograd through the
+    kernels' plain versions (see :mod:`repro_torch.kernels.grouped_gemm`).
     """
     out_dtype = w1.dtype if xs.dtype == torch.int8 else xs.dtype
     if ffn_dtype not in ("none", "int8"):
@@ -78,7 +85,12 @@ def grouped_ffn(xs: torch.Tensor, valid: torch.Tensor, w1: torch.Tensor,
             xs = torch.where(valid[:, :, None], xs,
                              torch.zeros((), dtype=xs.dtype, device=xs.device))
     if ffn_dtype == "none":
-        return grouped_matmul(grouped_swiglu(xs, w1, w3, rows), w2, rows)
+        act = grouped_swiglu(xs, w1, w3, rows, plain_backward=plain_backward)
+        return grouped_matmul(act, w2, rows, plain_backward=plain_backward)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xs, w1, w3, w2)):
+        raise ValueError("ffn_dtype='int8' has no backward: train with "
+                         "ffn_dtype='none'")
     if xs.dtype != torch.int8:
         xs, xs_scale = quantize_rows(xs)
     (w1q, w1s), (w3q, w3s), (w2q, w2s) = (

@@ -14,6 +14,12 @@ outside Pallas too.  The ideal router keeps its plain code on every
 device: no TPU kernel computes it, and no served model of the port uses
 it.
 
+Gradients reach ``x`` and the router through the scores and the combine
+weights (``gating_topk``'s autograd Function); the selection bias gets none
+(it is detached, as the reference's ``stop_gradient``).
+:func:`update_router_bias` is the reference's aux-free bias update on free
+routing (its ``num_racks == 1`` branch), applied outside the gradient.
+
 Ties.  ``lax.top_k`` puts the lower expert index first among equal scores;
 ``torch.topk`` promises no order, so the plain selection is a stable
 descending sort of the scores (plus the bias), cut to the first k columns,
@@ -29,7 +35,8 @@ import torch
 
 from repro_torch.kernels.gating_topk.ops import gating_topk, scores_of
 
-__all__ = ["GatingConfig", "GateOut", "gate", "gshard_aux_loss"]
+__all__ = ["GatingConfig", "GateOut", "gate", "gshard_aux_loss",
+           "update_router_bias"]
 
 _I64 = torch.int64
 
@@ -98,3 +105,13 @@ def gate(x: torch.Tensor, w_router: torch.Tensor, cfg: GatingConfig, *,
     if cfg.aux_loss_weight > 0.0:
         aux = cfg.aux_loss_weight * gshard_aux_loss(scores, expert_ids, E)
     return GateOut(expert_ids, sel.to(x.dtype), counts, aux, scores)
+
+
+def update_router_bias(bias: torch.Tensor, counts: torch.Tensor,
+                       speed: float) -> torch.Tensor:
+    """Aux-free bias update: nudge under-loaded experts up, overloaded down
+    (mirrors ``repro.moe.gating.update_router_bias`` with ``num_racks ==
+    1``; rack-limited routing is not ported).  bias (..., E) fp32, counts
+    (..., E) the realized per-expert load (one row per layer)."""
+    load = counts.to(torch.float32)
+    return bias + speed * torch.sign(load.mean(dim=-1, keepdim=True) - load)

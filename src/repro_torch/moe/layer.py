@@ -8,7 +8,8 @@ run_staged_moe`.  It runs a flat EP group of ``ep_size`` ranks over
 ``a2a`` and ``replicated`` dispatch modes of the fused engine, unchunked
 (no ``overlap_chunks`` or ``dispatch_impl`` options yet), with the wire
 codec (``wire_dtype``) and the w8a8 expert FFN (``ffn_dtype``) of DESIGN.md
-S12.  Forward only: backward through the multi-rank layer is a later slice.
+S12.  It is differentiable (``repro_torch.moe.stages``: training) in the
+fp FFN with no wire codec, on one rank or an EP group.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ class MoEConfig:
     # with wire_dtype "int8" too, the wire codes feed the kernel directly
     distribute_chunks: int = 1     # replica stream: reduce-scatters over the
     # packed weight axis (tile streaming)
+    plain_backward: bool = False   # the grouped FFN's backward as autograd
+    # through its plain versions (a check of the backward kernels in place)
 
     def __post_init__(self):
         if self.dispatch_mode not in ("a2a", "replicated"):
@@ -77,6 +80,13 @@ class MoEParams(nn.Module):
     grouped FFN reads one contiguous (num_slots, ...) tensor without a copy
     of the mains on every call.  The tail is scratch: its contents belong
     to the last call.
+
+    Training: the parameters are built with ``requires_grad=False`` (the
+    serve path); ``requires_grad_(True)`` makes them trainable.  Under a
+    gradient the distribute stage returns the slot buffers through
+    :func:`repro_torch.moe.distribute.slot_weights`, so ``w1``'s gradient is
+    its own slot rows' plus its replicas', and an optimizer updates the
+    mains in place (the buffers' heads), never rebinding them.
 
     The w8a8 path (``ffn_dtype="int8"``) reads int8 slot buffers of the same
     shape beside them (:meth:`q8_slot_buffers`): their head rows hold the

@@ -9,7 +9,16 @@ the collectives sit at the same seams, through
 counts into the load matrix, the replica stream's reduce-scatter, the
 dispatch and combine ``all_to_all`` (``a2a``), and the replicated mode's
 final sum.  A :class:`StageCtx` carries the EP group (None for one rank).
-Forward only: backward through the multi-rank layer is a later slice.
+
+Training.  Under a gradient (grad mode on and x or a parameter requiring
+one) the layer is differentiable in x, the router, the mains and the
+shared expert: the gate, the permutations and the combine through their
+autograd (the gate kernel's Function, gathers and sums), the exchanges
+through the collectives' transposes, the grouped FFN through its backward
+kernels, and the replica stream through
+:func:`repro_torch.moe.distribute.slot_weights`, whose backward reduces
+each replica's gradient onto its home main.  The wire codec and the w8a8
+FFN have no backward: both must be "none" under a gradient.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import torch
 from repro_torch.core import balancer as balancer_mod
 from repro_torch.core.layout import physical_slot_of
 from repro_torch.core.quantize import decode_wire, encode_wire, split_wire_int8
-from repro_torch.moe.distribute import materialize_replica_stack
+from repro_torch.moe.distribute import slot_weights
 from repro_torch.moe.expert import grouped_ffn, quantize_weight_cols
 from repro_torch.moe.gating import GateOut, gate
 from repro_torch.moe.permute import (
@@ -155,6 +164,13 @@ def plan_stage(ctx: StageCtx, gs: GateState) -> PlanState:
     return PlanState(plan=plan, slot_of_all=physical_slot_of(layout, plan.x))
 
 
+def _training(x: torch.Tensor, params) -> bool:
+    """True under a gradient: grad mode on and x or a parameter of the
+    layer requiring one."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        p.requires_grad for p in params.parameters()))
+
+
 def distribute_stage(ctx: StageCtx, params, gs: GateState,
                      ps: PlanState) -> DistributeState:
     """Main + replica weights per physical slot.
@@ -165,15 +181,15 @@ def distribute_stage(ctx: StageCtx, params, gs: GateState,
     head rows *are* the mains, and int8 slot buffers whose head rows are
     the mains' codes; only the replica tails are written, in place (see
     ``repro_torch.moe.layer.MoEParams``).  Quantization is independent per
-    slot, so the codes are those the reference computes.
+    slot, so the codes are those the reference computes.  The buffers come
+    back through :func:`slot_weights`, differentiable in the mains.
     """
     cfg = ctx.cfg
     n_main = cfg.layout.experts_per_rank
     slots = params.slot_buffers()
-    materialize_replica_stack(
-        (params.w1, params.w3, params.w2), ps.plan.x, gs.my, ctx.group,
-        out=tuple(w[n_main:] for w in slots),
-        n_chunks=cfg.distribute_chunks, wire_dtype=cfg.wire_dtype)
+    ws = slot_weights((params.w1, params.w3, params.w2), slots, ps.plan.x,
+                      gs.my, ctx.group, n_chunks=cfg.distribute_chunks,
+                      wire_dtype=cfg.wire_dtype)
     q8 = None
     if cfg.ffn_dtype == "int8":
         q8 = params.q8_slot_buffers()
@@ -181,7 +197,7 @@ def distribute_stage(ctx: StageCtx, params, gs: GateState,
             c, s = quantize_weight_cols(w_all[n_main:])
             codes[n_main:].copy_(c)
             scales[n_main:].copy_(s)
-    return DistributeState(*slots, q8=q8)
+    return DistributeState(*ws, q8=q8)
 
 
 def dispatch_stage(ctx: StageCtx, x_chunk: torch.Tensor,
@@ -232,7 +248,8 @@ def compute_stage(ctx: StageCtx, ds: DispatchState,
     w8a8); the kernels skip each slot's padded rows on the device."""
     return grouped_ffn(ds.xs, ds.valid, dist.w1_all, dist.w3_all, dist.w2_all,
                        ffn_dtype=ctx.cfg.ffn_dtype, xs_scale=ds.xs_scale,
-                       wq=dist.q8, rows=ds.rows)
+                       wq=dist.q8, rows=ds.rows,
+                       plain_backward=ctx.cfg.plain_backward)
 
 
 def combine_stage(ctx: StageCtx, ds: DispatchState, out: torch.Tensor,
@@ -282,6 +299,10 @@ def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
     ``axis_name``: the EP group (:class:`repro_torch.parallel.collectives.
     EPGroup` of ``cfg.ep_size`` ranks), or None for one rank."""
     ctx = make_stage_ctx(cfg, axis_name)
+    if _training(x, params) and (cfg.wire_dtype != "none"
+                                or cfg.ffn_dtype != "none"):
+        raise ValueError(f"no backward for wire_dtype={cfg.wire_dtype!r} or "
+                         f"ffn_dtype={cfg.ffn_dtype!r}: train with 'none'")
     gs = gate_stage(ctx, x, params.router, router_bias)
     ps = plan_stage(ctx, gs)
     dist = distribute_stage(ctx, params, gs, ps)

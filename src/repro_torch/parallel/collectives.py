@@ -16,6 +16,15 @@ MoE layer and the model need, in the JAX package's terms
   rank's row ``rank``;
 * :func:`all_reduce`: the sum over ranks.
 
+Gradients follow JAX's transpose rules where the MoE layer needs them: the
+backward of ``all_to_all`` is the same exchange of the gradient, of
+``reduce_scatter`` an ``all_gather`` (each an autograd Function when its
+input requires a gradient; every rank of the group runs the backward, in
+the same order as the forward).  ``all_gather`` (the counts, the model's
+sequence split) and ``all_reduce`` (the ``replicated`` mode's decode, the
+summed statistics) raise under a gradient: model-level multi-rank
+training is not ported.
+
 NCCL carries CUDA tensors, one card per rank.  gloo carries CPU tensors,
 and CUDA tensors too where several ranks share one card (which NCCL
 refuses): on PyTorch 2.11 with CUDA 12.8 gloo takes CUDA tensors in all
@@ -75,8 +84,19 @@ def destroy() -> None:
     dist.destroy_process_group()
 
 
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def all_gather(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
     """(...) -> (R, ...): every rank's ``x`` in rank order."""
+    if _grad(x):
+        raise ValueError("all_gather has no backward here: model-level "
+                         "multi-rank training is not ported")
+    return _all_gather(g, x)
+
+
+def _all_gather(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((g.size,) + tuple(x.shape))
     dist.all_gather_into_tensor(out.view(-1), x.view(-1), group=g.group)
@@ -86,6 +106,12 @@ def all_gather(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
 def all_to_all(g: EPGroup, buf: torch.Tensor) -> torch.Tensor:
     """(R, ...) -> (R, ...): row s of rank r's output is row r of rank s's
     ``buf`` (``jax.lax.all_to_all(buf, axis, 0, 0, tiled=False)``)."""
+    if _grad(buf):
+        return _AllToAll.apply(g, buf)
+    return _all_to_all(g, buf)
+
+
+def _all_to_all(g: EPGroup, buf: torch.Tensor) -> torch.Tensor:
     if buf.shape[0] != g.size:
         raise ValueError(f"all_to_all needs {g.size} rows on axis 0, not "
                          f"{buf.shape[0]}")
@@ -99,6 +125,12 @@ def reduce_scatter(g: EPGroup, buf: torch.Tensor) -> torch.Tensor:
     """(R, ...) -> (...): the sum over ranks of row ``g.rank``
     (``jax.lax.psum_scatter(buf, axis, scatter_dimension=0,
     tiled=False)``), in ``buf``'s dtype."""
+    if _grad(buf):
+        return _ReduceScatter.apply(g, buf)
+    return _reduce_scatter(g, buf)
+
+
+def _reduce_scatter(g: EPGroup, buf: torch.Tensor) -> torch.Tensor:
     if buf.shape[0] != g.size:
         raise ValueError(f"reduce_scatter needs {g.size} rows on axis 0, "
                          f"not {buf.shape[0]}")
@@ -109,7 +141,34 @@ def reduce_scatter(g: EPGroup, buf: torch.Tensor) -> torch.Tensor:
 
 
 def all_reduce(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
-    """The sum over ranks (``jax.lax.psum``), as a new tensor."""
+    """The sum over ranks (``jax.lax.psum``), as a new tensor; no gradient
+    (see the module's notes)."""
+    if _grad(x):
+        raise ValueError("all_reduce has no backward here: the replicated "
+                         "dispatch mode serves decode only; train with a2a "
+                         "on one rank's model or the layer")
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=g.group)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, buf):
+        ctx.g = g
+        return _all_to_all(g, buf)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _all_to_all(ctx.g, dy)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, buf):
+        ctx.g = g
+        return _reduce_scatter(g, buf)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _all_gather(ctx.g, dy)

@@ -14,6 +14,14 @@ group) holds every case, beside one JAX run on four virtual CPU devices
   tolerance of ``test_quantized_moe_layer_matches_jax``); drops and
   ``post_max`` per rank and every plan table equal; y also against the
   dense oracle ``moe_ref`` where nothing drops.
+* The layer's gradients at R = 4 (``a2a``, ``ultraep``, a load skewed so
+  the plan binds replica slots): d(sum y^2) with respect to x, the router
+  and the experts, against JAX's ``jax.grad`` under ``shard_map`` and of
+  the dense oracle ``moe_ref`` (rtol and atol 5e-4, as
+  ``tests/test_multidevice.py``); the replicas' gradients reach their home
+  mains through the all-gather of the replica stream's transpose, and the
+  tokens' through the exchanges' transposes.  The router is replicated, so
+  its gradient is the sum of the ranks'; it is held against ``moe_ref``'s.
 * The model at R = 2 (a subgroup of ranks 0 and 1): a reduced GLM-4.5-Air,
   prefill and decode logits against the port at R = 1 within 1e-5 of
   max|logits|.
@@ -49,6 +57,8 @@ LAYER_CASES = {
 }
 PLAN_FIELDS = ("u", "q", "x", "tau", "hosted", "cum_q", "cum_u", "pre_max",
                "post_max")
+GRAD_CASES = ("a2a_ultraep",)
+GRAD_NAMES = ("x", "router", "w1", "w3", "w2")
 SERVE = dict(requests=3, chunk=32, max_new=4, cf=16.0, device="cpu",
              prompt_len=(20, 90))
 
@@ -148,6 +158,17 @@ def _worker(rank, world, port, inputs, out_dir):
         out[f"{name}/drops"] = int(st.drops_dispatch + st.drops_slot)
         for f in PLAN_FIELDS:
             out[f"{name}/plan/{f}"] = getattr(plan, f).numpy()
+        if name in GRAD_CASES:
+            params.requires_grad_(True)
+            xg = x.clone().requires_grad_(True)
+            y, _, _ = moe_layer_local(xg, params, cfg, axis_name=group)
+            (y ** 2).sum().backward()
+            for g, t in zip(GRAD_NAMES, (xg, params.router, params.w1,
+                                         params.w3, params.w2)):
+                out[f"{name}/grad/{g}"] = t.grad.numpy()
+            params.requires_grad_(False)
+            for t in params.parameters():
+                t.grad = None
     pair = collectives.subgroup([0, 1])
     if pair is not None:
         out["model/prefill"], out["model/decode"] = _model(pair)
@@ -174,8 +195,10 @@ from repro.core.layout import ExpertLayout
 from repro.models.transformer import shard_map_compat as shard_map
 from repro.moe.gating import GatingConfig, gate
 from repro.moe.layer import MoEConfig, MoEParams, moe_layer_local
+from repro.moe.reference import moe_ref
 R, E, K, D, F, T = {R}, {E}, {K}, {D}, {F}, {T}
 cases = {cases!r}
+grad_cases = {grad_cases!r}
 data = np.load({inputs!r})
 x, router = jnp.asarray(data["x"]), jnp.asarray(data["router"])
 ws = [jnp.asarray(data[k]) for k in ("w1", "w3", "w2")]
@@ -202,6 +225,19 @@ for name, (mode, balancer, cap, wire, chunks) in cases.items():
                   out_specs=(x_spec, P("model"), P("model")))
     y, drops, post = jax.jit(f)(x, router, *ws)
     out[name + "/y"] = np.asarray(y)
+    if name in grad_cases:
+        def loss_ep(*args):
+            return (f(*args)[0] ** 2).sum()
+
+        def loss_ref(x, router, w1, w3, w2):
+            go = gate(x, router, gcfg)
+            return (moe_ref(x, go.expert_ids, go.weights, w1, w3, w2)
+                    ** 2).sum()
+
+        for tag, fn in (("ep", loss_ep), ("ref", loss_ref)):
+            gs = jax.jit(jax.grad(fn, argnums=(0, 1, 2, 3, 4)))(x, router, *ws)
+            for g, a in zip({grad_names!r}, gs):
+                out[name + "/grad_" + tag + "/" + g] = np.asarray(a)
     out[name + "/drops"] = np.asarray(drops)
     out[name + "/post_max"] = np.asarray(post)
     if mode == "a2a":
@@ -229,7 +265,8 @@ def ep_run(tmp_path_factory):
     _inputs(inputs)
     jax_out = str(tmp / "jax.npz")
     code = _JAX.format(R=R, E=E, K=K, D=D, F=F, T=T, cases=LAYER_CASES,
-                       inputs=inputs, fields=PLAN_FIELDS, result=jax_out)
+                       inputs=inputs, fields=PLAN_FIELDS, result=jax_out,
+                       grad_cases=GRAD_CASES, grad_names=GRAD_NAMES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     torch_cmd = [sys.executable, "-c",
                  f"from tests.test_torch_ep import _spawn; "
@@ -298,6 +335,23 @@ def test_ep_layer_matches_dense_oracle(ep_run, name):
                   *(torch.from_numpy(data[k]) for k in ("w1", "w3", "w2")))
     np.testing.assert_allclose(_y(name, ranks), ref.numpy(), rtol=0,
                                atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+@pytest.mark.parametrize("grad", GRAD_NAMES)
+def test_ep_layer_gradients_match_jax_and_dense_oracle(ep_run, name, grad):
+    _, jax_out, ranks = ep_run
+    shards = [r[f"{name}/grad/{grad}"] for r in ranks]
+    # The router is replicated: the group's gradient is the ranks' sum.
+    got = sum(shards) if grad == "router" else np.concatenate(shards)
+    refs = ["ref"] if grad == "router" else ["ep", "ref"]
+    for tag in refs:
+        np.testing.assert_allclose(got, jax_out[f"{name}/grad_{tag}/{grad}"],
+                                   rtol=5e-4, atol=5e-4, err_msg=tag)
+    assert np.abs(got).max() > 0
+    # The skewed load binds replica slots, so replica gradients were
+    # reduced onto their mains.
+    assert (ranks[0][f"{name}/plan/x"] >= 0).any()
 
 
 @pytest.mark.parametrize("step", ["prefill", "decode"])

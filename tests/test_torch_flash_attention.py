@@ -573,3 +573,60 @@ def test_pairs_outside_the_table_raise_on_card(cuda_device, dtype, dims):
     with pytest.raises(ValueError, match=f"not \\({hd}, {hd_v}\\)"):
         ops.flash_attention(q, k, v, causal=True)
     assert ops.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,causal", [(1, 256, 4, 1, True),
+                                              (2, 320, 8, 2, True),
+                                              (1, 192, 2, 2, False),
+                                              (2, 1024, 32, 8, True)])
+def test_backward_kernel_matches_plain_on_card(cuda_device, B, S, H, Hkv,
+                                               causal):
+    """The autograd Function on the card (prefill_wgmma with the
+    logsumexp, then flash_attention_bwd) against autograd through the
+    plain version: dq, dk, dv each within 2e-2 of its own max|ref| (bf16
+    P and dS in the products), the logsumexp within 1e-4 of the plain
+    one's (fp32), and S not a multiple of the 64-row tiles."""
+    rng = np.random.default_rng(3)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+
+    q, k, v = t((B, S, H, 128)), t((B, S, Hkv, 128)), t((B, S, Hkv, 128))
+    dout = t((B, S, H, 128))
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    n0 = ops.flash_attention_bwd.launches
+    out = ops.flash_attention(*leaves, causal=causal)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_bwd.launches == n0 + 1
+    refs = ops.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+    for name, leaf, ref in zip("qkv", leaves, refs):
+        err = (leaf.grad.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        assert err <= 2e-2 * scale, (name, err, scale)
+    lse = torch.empty((B, H, S), device=cuda_device)
+    ops._launch(q, k, v, causal, 0, None, None, sms=1, lse=lse)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(H // Hkv, dim=2)) * 128 ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                     device=cuda_device).triu(1), -torch.inf)
+    ref_lse = torch.logsumexp(s, dim=-1)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4 * ref_lse.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,hd_v", [(torch.float32, 128, 128),
+                                           (torch.bfloat16, 64, 64),
+                                           (torch.bfloat16, 192, 128)])
+def test_backward_refuses_other_dims_on_card(cuda_device, dtype, hd, hd_v):
+    q = torch.zeros((1, 256, 4, hd), dtype=dtype, device=cuda_device,
+                    requires_grad=True)
+    k = torch.zeros((1, 256, 4, hd), dtype=dtype, device=cuda_device)
+    v = torch.zeros((1, 256, 4, hd_v), dtype=dtype, device=cuda_device)
+    n0 = ops.flash_attention.launches
+    with pytest.raises(ValueError, match="backward kernel takes bf16"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention.launches == n0

@@ -680,3 +680,72 @@ def test_q8_padded_copies_on_card(cuda_device):
     mm(padded[..., :256], rst, w1, s1)
     sw(buf[..., :256].contiguous(), rst, w1, s1, w3, s3)
     assert (sw.padded_copies, mm.padded_copies) == n
+
+
+def _bwd_rows(G, M, counts):
+    if counts == "zero":
+        return [0] * G
+    if counts == "full":
+        return [M] * G
+    return [(g * 97 + 37) % (M + 1) for g in range(G)]    # straddling, one 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,M,K,N", [(2, 256, 128, 256), (3, 200, 136, 200),
+                                     (4, 130, 4096, 1408)])
+@pytest.mark.parametrize("counts", ["zero", "straddle", "full"])
+def test_backward_kernels_match_plain_on_card(cuda_device, G, M, K, N,
+                                              counts):
+    """B1 (swiglu_bwd), B2 (matmul_nt, one and two products) and B3 (wgrad)
+    in bf16 against their plain versions: every output within 2e-2 of its
+    own max|ref| (bf16 outputs of fp32 sums), padded rows exact zeros, and
+    NaN in the padded rows of the wgrad's operands reaching nothing."""
+    rng = np.random.default_rng(1)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+
+    x, w1, w3 = t((G, M, K)), t((G, K, N), K ** -0.5), t((G, K, N), K ** -0.5)
+    dact, dy = t((G, M, N)), t((G, M, K))
+    rows = torch.tensor(_bwd_rows(G, M, counts), device=cuda_device)
+    pad = torch.arange(M, device=cuda_device)[None, :, None] >= rows[:, None, None]
+
+    def check(name, out, ref):
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        assert err <= 2e-2 * scale, (name, err, scale)
+        if out.shape[1] == M:
+            assert torch.all(torch.where(pad, out.float(), 0.0) == 0), name
+
+    n0 = (ops.grouped_swiglu_bwd.launches, ops.grouped_matmul_nt.launches,
+          ops.grouped_wgrad.launches)
+    dh, dg = ops.grouped_swiglu_bwd(x, w1, w3, dact, rows)
+    rh, rg = ops.grouped_swiglu_bwd_ref(x, w1, w3, dact, rows)
+    check("dh", dh, rh)
+    check("dg", dg, rg)
+    w1t = w1.transpose(1, 2).contiguous()           # (G, N, K) storage
+    check("nt", ops.grouped_matmul_nt(dy, w1t, rows),
+          ops.grouped_matmul_nt_ref(dy, w1t, rows))
+    check("nt2", ops.grouped_matmul_nt(dh, w1, rows, dg, w3),
+          ops.grouped_matmul_nt_ref(dh, w1, rows, dg, w3))
+    nan_x = torch.where(pad, float("nan"), x.float()).to(torch.bfloat16)
+    nan_d = torch.where(pad, float("nan"), dact.float()).to(torch.bfloat16)
+    check("wgrad", ops.grouped_wgrad(nan_x, nan_d, rows),
+          ops.grouped_wgrad_ref(nan_x, nan_d, rows))
+    check("wgrad_dy", ops.grouped_wgrad(dy, dact, rows),
+          ops.grouped_wgrad_ref(dy, dact, rows))
+    assert (ops.grouped_swiglu_bwd.launches - n0[0],
+            ops.grouped_matmul_nt.launches - n0[1],
+            ops.grouped_wgrad.launches - n0[2]) == (1, 2, 2)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_refuse_fp32_on_card(cuda_device):
+    x = torch.zeros((1, 8, 16), device=cuda_device)
+    w = torch.zeros((1, 16, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="bf16"):
+        ops.grouped_wgrad(x, x)
+    with pytest.raises(ValueError, match="bf16"):
+        ops.grouped_matmul_nt(x, w)

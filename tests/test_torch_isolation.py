@@ -3,9 +3,11 @@
 One test runs a reduced prefill of each ported arch (and of GLM-4.5-Air
 under the int8 wire and w8a8 FFN) in a subprocess where ``import jax``
 fails, through the gating and flash-attention wrappers, then the plan
-solve at R = 4 (``kernels/plan_solve``) and a MoE layer on a one-rank gloo
-group through every collective of ``parallel/``; the other reads every
-source file of the port and ``chip_smoke.py``.
+solve at R = 4 (``kernels/plan_solve``), a MoE layer on a one-rank gloo
+group through every collective of ``parallel/`` (and its backward through
+their transposes), and one reduced train step through
+``repro_torch.launch.train`` (``optim/``, ``train/``, ``data/``); the other
+reads every source file of the port and ``chip_smoke.py``.
 """
 
 import ast
@@ -71,7 +73,13 @@ for mode in ("a2a", "replicated"):
     c = dataclasses.replace(cfg, dispatch_mode=mode)
     y_group = moe_layer_local(x, p, c, axis_name=group)[0]
     assert torch.equal(y_group, moe_layer_local(x, p, c)[0])
+p.requires_grad_(True)
+(moe_layer_local(x, p, cfg, axis_name=group)[0] ** 2).sum().backward()
+assert all(t.grad is not None for t in p.parameters())
 collectives.destroy()
+from repro_torch.launch import train
+run = train.train("glm45-106b-a12b", steps=1, batch=2, seq=16, device="cpu")
+assert len(run.losses) == 1 and np.isfinite(run.losses[0])
 assert not any(m == "repro" or m.startswith(("repro.", "jax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

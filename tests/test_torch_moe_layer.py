@@ -214,3 +214,38 @@ def test_grouped_ffn_rows_matches_jax(junk, ffn_dtype, wire):
     assert not y_t.numpy()[~valid].any()               # padded rows zero
     np.testing.assert_allclose(y_t.numpy(), y_j, rtol=1e-5,
                                atol=1e-5 * np.abs(y_j).max())
+
+
+@pytest.mark.parametrize("mode", ["a2a", "replicated"])
+@pytest.mark.parametrize("balancer,cap", [("ultraep", (T * K, T * K)),
+                                          ("none", (T * K, 12))])
+def test_moe_layer_gradients_match_jax(mode, balancer, cap):
+    """d(sum y^2 + aux) in x, the router, the experts and the shared
+    expert, against ``jax.grad`` of the JAX layer (the fused engine, as
+    ``tests/test_permute.py``'s gradient test): the gradients through the
+    gathers of dispatch, bucket, unbucket and combine (tokens and combine
+    weights), with items dropped at a tight slot capacity too."""
+    p = _params(True)
+    x = np.random.default_rng(2).standard_normal((T, D)).astype(np.float32)
+    jcfg, tcfg = _configs(mode, balancer, True, cap)
+
+    def jloss(x, *ws):
+        y, aux, _ = j_moe_layer_local(x, JMoEParams(*ws), jcfg,
+                                      axis_name=None)
+        return (y ** 2).sum() + aux
+
+    jg = jax.jit(jax.grad(jloss, argnums=tuple(range(8))))(
+        jnp.asarray(x), *(jnp.asarray(a) for a in p))
+    tp = convert.moe_params(p, n_slot=2, device="cpu")
+    tp.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y, aux, _ = moe_layer_local(xt, tp, tcfg)
+    ((y ** 2).sum() + aux).backward()
+    got = [xt.grad] + [t.grad for t in (tp.router, tp.w1, tp.w3, tp.w2,
+                                        tp.shared_w1, tp.shared_w3,
+                                        tp.shared_w2)]
+    for name, a, b in zip(("x", "router", "w1", "w3", "w2", "sw1", "sw3",
+                           "sw2"), got, jg):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-5 * np.abs(b).max(), err_msg=name)
