@@ -1356,12 +1356,14 @@ def phase_flash() -> dict:
               [512, 600, 700, 800, 900, 1000, 1024, 1012], "prefill_f32",
               5),
              # DeepSeek-V3's MLA prefill: q/k 192, v 128, 128 heads with
-             # Hkv = H; its serve chunk at offset 4096, and a chunk of 64
-             # queries at B 1, which the split-KV kernel takes.
+             # Hkv = H; its serve chunk at offset 4096, and chunks of 64
+             # and 128 queries at B 1 (128 blocks: the wgmma kernel too).
              ("mla_prefill_at_4096", 1, 4096, SERVE_SK, 128, 128, (192, 128),
               bf16, True, [4096], [8192], wg, 10),
              ("mla_prefill_64", 1, 64, SERVE_SK, 128, 128, (192, 128), bf16,
-              True, [4096], [4160], split, 20)]
+              True, [4096], [4160], wg, 20),
+             ("mla_prefill_128", 1, 128, SERVE_SK, 128, 128, (192, 128), bf16,
+              True, [4096], [4224], wg, 20)]
     records = {}
     for (tag, B, Sq, Sk, H, Hkv, hd, dtype, causal, q_off, kv_len, want,
          iters) in cases:
@@ -1460,19 +1462,26 @@ def phase_flash() -> dict:
             rec["library_ms"] = min(lib) if lib else None
             rec["slower_than_library"] = (None if not lib
                                           else rec["ms"] / rec["library_ms"])
-            if tag == "mla_prefill_64":
-                # The same call forced onto the wgmma kernel (a plan for a
-                # card of one SM): 128 blocks, one q tile a head, beside
-                # the split-KV kernel the plan picks at 128 heads < 132 SMs.
-                forced = ops._launch(q, k, v, causal, off, lim, None, sms=1)
-                if forced[1] != wg:
-                    raise AssertionError(f"{tag}: {forced[1]} ran, not {wg}")
-                rec["wgmma_max_row_rel_err"] = _check_rows(
-                    f"flash_attention {tag} on wgmma", forced[0], ref,
-                    FLASH_TOL[kind])[2]
-                rec["wgmma_ms"] = _graph_ms(
-                    lambda: ops._launch(q, k, v, causal, off, lim, None,
-                                        sms=1), iters)
+            if tag in ("mla_prefill_64", "mla_prefill_128"):
+                # The same call on the split-KV kernel with the splits the
+                # plan gives it on this card (PREFILL_FILL set above any
+                # grid for the call): the plan's pick before it sent a grid
+                # of at least three quarters of the SMs (here 128 blocks,
+                # one q tile a head) to the wgmma kernel.
+                fill, ops.PREFILL_FILL = ops.PREFILL_FILL, float("inf")
+                try:
+                    forced = ops._launch(q, k, v, causal, off, lim, None)
+                    if forced[1] != split:
+                        raise AssertionError(f"{tag}: {forced[1]} ran, not "
+                                             f"{split}")
+                    rec["split_max_row_rel_err"] = _check_rows(
+                        f"flash_attention {tag} on split-KV", forced[0],
+                        ref, FLASH_TOL[kind])[2]
+                    rec["split_ms"] = _graph_ms(
+                        lambda: ops._launch(q, k, v, causal, off, lim, None),
+                        iters)
+                finally:
+                    ops.PREFILL_FILL = fill
         records[tag] = rec
         del q, k, v, out, ref, mask, qt, kt, vt, free
         torch.cuda.empty_cache()
@@ -2280,7 +2289,12 @@ def phase_train_kernels(glm) -> dict:
     lse = torch.empty((B, H, S), device="cuda")
     o, _ = fa._launch(q, k, v, True, 0, None, None, sms=1, lse=lse)
     grads = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=True)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=True)
     torch.cuda.synchronize()
+    for n, a, r in zip("qkv", grads, again):
+        if not torch.equal(a, r):
+            raise AssertionError(f"flash_bwd d{n}: two calls differ")
+    del again
     refs = fa.flash_attention_bwd_ref(q, k, v, dout, causal=True)
     errs = {n: _rel_check(f"flash_bwd d{n}", a, r, TRAIN_TOL)
             for n, a, r in zip("qkv", grads, refs)}
@@ -2308,7 +2322,8 @@ def phase_train_kernels(glm) -> dict:
               for n, e in errs.items()},
         library_note="SDPA's backward through autograd (flash backend, "
                      "k/v expanded to 32 heads outside the timed call)",
-        dq="second pass (deterministic)")
+        dq="second pass over the key tiles (TMA + wgmma, S and dP "
+           "recomputed, no atomics): bitwise equal over two calls")
     del q, k, v, dout, o, lse, grads, qt, kt, vt, ot
     torch.cuda.empty_cache()
     _line("phase12_train_kernels", recs)
@@ -2695,7 +2710,8 @@ def main() -> int:
             for tag in ("fp32_prefill", "hd64_fp32", "hd16_fp32")}}))
     # Row 6 at DeepSeek-V3's MLA dims (q/k 192, v 128, bf16): its serve
     # chunk (4096 queries at offset 4096 over 8192 keys, 128 heads) on the
-    # wgmma kernel; a 64-query chunk at B 1 on the split-KV kernel beside.
+    # wgmma kernel; 64- and 128-query chunks at B 1 beside, on the wgmma
+    # kernel the plan picks, with the split-KV kernel's time forced.
     mla = flash_records["mla_prefill_at_4096"]
     kernels.append(_kernel_row(
         "flash_attention.mla",
@@ -2714,9 +2730,10 @@ def main() -> int:
              k.split(".", 1)[1]: n
              for k, n in paths["deepseek-v3-671b"].items()
              if k.startswith("flash_attention.")},
-         "mla_prefill_64": {k: flash_records["mla_prefill_64"][k]
-                            for k in flash_keys + ("max_row_rel_err",
-                                                   "splits", "wgmma_ms")}}))
+         **{tag: {k: flash_records[tag][k]
+                  for k in flash_keys + ("max_row_rel_err", "split_ms",
+                                         "split_max_row_rel_err")}
+            for tag in ("mla_prefill_64", "mla_prefill_128")}}))
     # Row P: the plan solve (no pallas_call: the JAX solve's two
     # lax.while_loop).  Its serve paths run at R = 1, where the plan is the
     # home quota and the kernel never launches; phase 9 (R = 2) is its path.

@@ -1,8 +1,11 @@
-// Building blocks shared by the grouped GEMM kernels for Hopper (sm_90a):
-// mbarriers, 3-D TMA loads, wgmma descriptors and fences, and the host-side
-// tensor-map encoder.  Included by grouped_gemm.cu (bf16) and
-// grouped_gemm_q8.cu (int8); each source is its own translation unit, so
-// everything here is internal to it.
+// Building blocks shared by the TMA + wgmma kernels for Hopper (sm_90a):
+// mbarriers, TMA loads (3-D and 4-D tensor maps, and plain bulk copies),
+// wgmma descriptors and fences, and the host-side tensor-map encoder.
+// Included by grouped_gemm.cu (bf16), grouped_gemm_q8.cu (int8),
+// flash_attention.cu and flash_attention_bwd.cu; each source is its own
+// translation unit, so everything here is internal to it.  Built with -I on
+// this directory (kernels/build.py), which also hashes this header into
+// every library's name.
 
 #pragma once
 
@@ -11,18 +14,6 @@
 #include <stdint.h>
 
 namespace {
-
-__device__ __forceinline__ float silu_mul(float h, float g) {
-  return h * (1.0f / (1.0f + expf(-h))) * g;
-}
-
-// Rows of slot g to compute: min(rows[g], M), clamped at 0; M for null.
-__device__ __forceinline__ int valid_rows(const long long* rows, int g,
-                                          int M) {
-  if (rows == nullptr) return M;
-  const long long r = rows[g];
-  return r <= 0 ? 0 : (r >= M ? M : static_cast<int>(r));
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -68,6 +59,28 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(c2) : "memory");
 }
 
+// Box at (c0 innermost, c1, c2, c3) of `map` into shared memory at `dst`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3) : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global `src` into shared memory at `dst`, no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle.  K-major tiles (rows of
 // 128 bytes): SBO = 1024 (8 rows), LBO unused (16), and a k step of 32
 // bytes advances the start address.  N-major B: LBO = the distance between
@@ -88,6 +101,14 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to fp32 accumulators across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime.
@@ -139,6 +160,33 @@ int make_map_3d(CUtensorMap* map, CUtensorMapDataType dtype, int elt,
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, dtype, 3, const_cast<void*>(base), dims, strides,
                         box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+}
+
+// A (B, seq, heads, hd) bf16 operand as a 4-D map over (hd, heads, seq, B)
+// with the caller's strides (elements); a box of 64 columns x box_heads x
+// box_seq with 128-byte swizzle.  TMA zero-fills what lies past the edges.
+int make_map_4d(CUtensorMap* map, const void* base, int hd, int heads,
+                int seq, int batch, long long s_head, long long s_seq,
+                long long s_batch, int box_heads, int box_seq) {
+  const EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kErrNoEncode;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_seq) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_seq), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -4,7 +4,7 @@
 // The JAX package has no backward kernel: it differentiates
 // repro/models/attention.py:flash_ref (the plain version of the Pallas
 // forward, repro/kernels/flash_attention/kernel.py:flash_fwd_pallas), so
-// the TPU gets its backward from XLA.  This is that backward as a kernel:
+// the TPU gets its backward from XLA.  This is that backward as kernels:
 // from q, k, v (B, S, H or Hkv, 128), the forward's output o and its
 // gradient do (B, S, H, 128) and the forward's row logsumexp lse
 // (B, H, S, fp32, natural log; the TMA + wgmma forward writes it when
@@ -15,39 +15,69 @@
 // What bounds it on an H100: operations.  Five products of the forward's
 // size where the forward has two (causal, B 2, S 4096, 32 heads: 0.69
 // TFLOP of causal pairs, 0.69 ms at 989 TFLOP/s), against 0.2 GB of bytes.
+// These kernels do seven (S and dP twice, so that dq needs no atomics):
+// 0.97 ms at that rate.
 //
 // Precision: P and dS are rounded to bf16 as the A operands of their
 // products, as the forward rounds P for P v.
 //
-// Design: three kernels, all simple mma.sync (m16n8k16) tiles with the
-// operands in padded shared memory (rows 128 + 8 elements apart, so the
-// fragments' 32-bit reads hit distinct banks) behind a 2-stage cp.async
-// ring (105 KB a block: two blocks an SM); P and dS are rebuilt from
-// registers as A fragments, as the forward's mma.sync kernel feeds P v.
-//   1. bwd_delta_kernel: D = rowsum(do o) per (b, h, position), one warp a
-//      row, into an fp32 workspace.
-//   2. bwd_dkdv_kernel: one block of 4 warps per (64-key tile, KV head,
-//      batch row); each warp owns 16 keys and accumulates their dk and dv
-//      in registers over the G query heads of its KV head and every
-//      64-query tile at or past the keys (causal), so dk and dv are
-//      summed over the group inside the kernel and written once.  S^T, P^T
-//      and dS^T are computed key-major (keys as the rows of the products),
-//      so dv += P^T do and dk += dS^T q take P^T and dS^T straight from
-//      the registers.  Blocks run the heaviest key tiles (the first) first.
-//   3. bwd_dq_kernel: dq from a second pass, one block of 4 warps per
-//      (64-query tile, query head, batch row), each warp 16 queries, over
-//      the key tiles up to the diagonal: it recomputes S and dP (two of its
-//      three products) rather than adding into dq with fp32 atomics from
-//      kernel 2, so dq is deterministic: the same bits on every run.
-// Masking only on the diagonal tile (causal) and on positions past S.
-// Not yet: wgmma and TMA (these are mma.sync tiles at a fraction of the
-// tensor-core rate), and one pass with atomics for dq.
+// Determinism: every sum is taken by one block in a fixed order (dk and dv
+// over the group's query heads and query tiles, dq over the key tiles), so
+// dq, dk and dv are the same bits on every run; no atomics.
+//
+// Design: three kernels.
+//   1. bwd_prep_kernel: one warp a row (b, h, position) writes
+//      lse2 = lse log2(e) and D = rowsum(do o) into an fp32 workspace of
+//      two (B, H, S64) arrays, S64 = S rounded up to 64; positions past S
+//      get lse2 = +inf and D = 0, so P = 2^(s - lse2) is 0 there and the
+//      other kernels copy a 64-position slice without bounds.
+//   2. bwd_dkdv_kernel: one block per (128-key tile, KV head, batch row),
+//      the heaviest (first, causal) key tiles first.  Warp-specialised as
+//      the forward's flash_wgmma_kernel: warpgroup 2 is the producer, one
+//      thread of which loads K and V once (TMA, 4-D tensor maps, 64-column
+//      boxes with 128-byte swizzle) and streams the 64-query tiles of q and
+//      do, with their lse2 and D slices (bulk copies), for each of the G
+//      query heads and each query tile from the diagonal on (causal),
+//      through a ring of STAGES stages with full / empty mbarriers.
+//      Warpgroups 0 and 1 own 64 keys each and, per stage:
+//        S^T = K q^T and dP^T = V do^T (wgmma m64n64k16, both operands
+//          K-major in shared memory),
+//        P^T in fp32 registers while dP^T is still in flight (the causal
+//          mask only on the tiles that cross the diagonal), rounded to
+//          bf16 and repacked as A fragments,
+//        dv += P^T do (wgmma m64n128k16, A from registers, do read
+//          N-major through the transpose bit) in flight while
+//          dS^T = P^T (dP^T - D) is formed the same way, then
+//          dk += dS^T q.
+//      dk and dv stay in registers (128 a thread) over the whole group and
+//      are written once.
+//   3. bwd_dq_kernel: one block per (128-query tile, query head, batch
+//      row), the heaviest (last, causal) query tiles first.  The producer
+//      loads q and do once and streams 128-key tiles of K and V up to the
+//      diagonal through a 2-stage ring; warpgroups 0 and 1 own 64 queries
+//      each and compute S = q K^T and dP = do V^T (wgmma m64n128k16, SS),
+//      P while dP is in flight, dS (masks on the diagonal tile and on keys
+//      past S), then dq += dS K (RS, K through the transpose bit); dq is
+//      written once.
+// A warpgroup computes every tile its loop visits, also one wholly above
+// the diagonal (masked to 0): a branch around the products made ptxas
+// serialise them (C7520), which cost more than the few masked tiles.
+// Registers: setmaxnreg gives each consumer thread 240 and the producer 24
+// (384 threads, one block an SM at 195 KB of shared memory); ptxas
+// reports no spills.
+// Not yet: what bounds the two main kernels is not measured.  Each block
+// reads its streamed tiles from L2 (dq: K and V per 128 x 128 tile of
+// pairs; dk/dv: q and do per 128 x 64), and TMA multicast across a
+// cluster of blocks that share them (the G heads of a KV head) would cut
+// those reads; a persistent schedule would hide each block's prologue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_wgmma.cuh"
+#include "hopper_tma.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -55,32 +85,33 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int HD = 128;
-constexpr int BT = 64;                  // rows (queries or keys) per tile
-constexpr int WARPS = 4;                // 16 rows each
-constexpr int THREADS = WARPS * 32;
-constexpr int LDS = HD + 8;             // shared row stride, elements
-constexpr int TILE = BT * LDS;          // elements of one 64-row tile
-constexpr int CHUNKS = HD * 2 / 16;     // 16-byte pieces per row
-constexpr int SMEM_BYTES = 6 * TILE * 2 + 4 * BT * 4;
+constexpr int CONSUMERS = 2;                 // warpgroups of 64 rows
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int ROWS = 64 * CONSUMERS;         // resident rows a block
+constexpr int STREAM = 64;                   // streamed queries a dkdv stage
+constexpr int STAGES = 4;                    // dkdv ring
+constexpr int DQ_STAGES = 2;                 // dq ring: 128 keys a stage
+constexpr int RES_BOX = ROWS * 128;          // 64 columns x 128 rows: 16 KB
+constexpr int RES_TILE = 2 * RES_BOX;        // 128 rows x 128 dims: 32 KB
+constexpr int STR_BOX = STREAM * 128;        // 64 columns x 64 rows: 8 KB
+constexpr int STR_TILE = 2 * STR_BOX;        // 64 rows x 128 dims: 16 KB
+constexpr int STAT_BYTES = 2 * STREAM * 4;   // lse2 and D of one tile
+constexpr int RING = STAGES * 2 * STR_TILE;
+static_assert(DQ_STAGES * 2 * RES_TILE <= RING, "dq ring above the ring");
+constexpr int BAR_BYTES = 8 * (1 + 2 * STAGES);
+constexpr int SMEM_BYTES =
+    1024 + 2 * RES_TILE + RING + STAGES * STAT_BYTES + BAR_BYTES;
+static_assert(SMEM_BYTES <= 232448, "above a block's shared memory");
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Bwd {
-  const bf16 *q, *k, *v, *o, *dout;
+  const bf16 *o, *dout;
   const float* lse;          // (B, H, S)
-  float* delta;              // (B, H, S) workspace
+  float* ws;                 // lse2 then D, each (B, H, S64)
   bf16 *dq, *dk, *dv;
-  int B, S, H, Hkv, G;
+  int B, S, S64, H, Hkv, G;
   float scale, scale_log2;
-  // Element offsets of (b, position, head) in the contiguous layouts.
-  __device__ __forceinline__ long long qrow(int b, int s, int h) const {
-    return ((static_cast<long long>(b) * S + s) * H + h) * HD;
-  }
-  __device__ __forceinline__ long long kvrow(int b, int s, int h) const {
-    return ((static_cast<long long>(b) * S + s) * Hkv + h) * HD;
-  }
-  __device__ __forceinline__ long long stat(int b, int h, int s) const {
-    return (static_cast<long long>(b) * H + h) * S + s;
-  }
+  long long ws_half;         // B * H * S64
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -89,361 +120,448 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 64 rows of a (B, S, heads, 128) tensor at (b, s0 .., head) into a padded
-// tile; rows at or past S are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row0, long long row_step,
-                                          int s0, int S) {
-  for (int i = threadIdx.x; i < BT * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const bool ok = s0 + r < S;
-    cp_async16(dst + r * LDS + c * 8, ok ? src + row0 + r * row_step + c * 8
-                                         : src, ok ? 16 : 0);
+// Shared memory: 1024-aligned resident tiles, the ring, the stats, the
+// barriers (one-shot, full[STAGES], empty[STAGES]).
+struct Smem {
+  uint32_t res, ring, stats, bar, full0, empty0;
+  __device__ explicit Smem(unsigned char* raw) {
+    const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
+    res = base;
+    ring = res + 2 * RES_TILE;
+    stats = ring + RING;
+    bar = stats + STAGES * STAT_BYTES;
+    full0 = bar + 8;
+    empty0 = full0 + 8 * STAGES;
   }
-}
-
-// 64 fp32 row statistics at src[at ..] (zero past S), plain loads: the
-// barrier that opens the iteration which reads them orders them.
-__device__ __forceinline__ void load_stat(float* dst, const float* src,
-                                          long long at, int s0, int S) {
-  if (threadIdx.x < BT) {
-    const int r = threadIdx.x;
-    dst[r] = s0 + r < S ? src[at + r] : 0.f;
-  }
-}
-
-// The A fragment of m16n8k16 for rows row0 .. row0 + 15 and columns
-// 16 kd .. 16 kd + 15 of a padded tile.
-__device__ __forceinline__ void a_frag(unsigned (&a)[4], const bf16* t,
-                                       int row0, int kd, int gid, int tq) {
-  const bf16* p = t + (row0 + gid) * LDS + kd * 16 + tq * 2;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * LDS);
-  a[2] = lds32(p + 8);
-  a[3] = lds32(p + 8 * LDS + 8);
-}
-
-// acc (16 x 64) = A (16 rows of `a_t` from row0) @ B^T with B the 64 rows
-// of `b_t`: the scores of 16 rows against a tile, over all 128 dims.
-__device__ __forceinline__ void rows_by_tile(float (&acc)[8][4],
-                                             const bf16* a_t, int row0,
-                                             const bf16* b_t, int gid,
-                                             int tq) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < HD / 16; ++kd) {
-    unsigned a[4];
-    a_frag(a, a_t, row0, kd, gid, tq);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* bp = b_t + (j * 8 + gid) * LDS + kd * 16 + tq * 2;
-      mma_bf16(acc[j], a, lds32(bp), lds32(bp + 8));
+  __device__ void init(int stages) const {
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      for (int s = 0; s < stages; ++s) {
+        mbar_init(full0 + 8 * s, 1);
+        mbar_init(empty0 + 8 * s, CONSUMERS * 4);   // one arrival per warp
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
+    __syncthreads();
   }
+};
+
+// K-major operand descriptor for k step kk (16 columns) of a tile of
+// 64-column boxes `box` bytes apart.
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk, int box) {
+  return desc_sw128(tile + (kk / 4) * box + (kk % 4) * 32, 16, 1024);
 }
 
-// out (16 x 128) += P (16 x 64, the fp32 accumulator layout of
-// rows_by_tile, rounded to bf16) @ T (64 rows x 128 of a padded tile).
-__device__ __forceinline__ void acc_times_tile(float (&out)[16][4],
-                                               const float (&p)[8][4],
-                                               const bf16* t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    const unsigned pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    const bf16* tp = t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                     (lane >> 4) * 8;
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      unsigned vb[4];
-      ldsm_x4_trans(vb, tp + np * 16);
-      mma_bf16(out[2 * np], pa, vb[0], vb[1]);
-      mma_bf16(out[2 * np + 1], pa, vb[2], vb[3]);
-    }
-  }
+// N-major B descriptor for k step kk (16 rows) of a tile of 64-column
+// boxes `box` bytes apart.
+__device__ __forceinline__ uint64_t ndesc(uint32_t tile, int kk, int box) {
+  return desc_sw128(tile + kk * 2048, box, 1024);
 }
 
-// Write 16 rows x 128 of an fp32 accumulator, times `mul`, as bf16 rows at
-// dst(row) (row past S skipped).
+// Write 64 rows x 128 of an fp32 accumulator (m64n128 layout), times
+// `mul`, as bf16 rows at dst(r) for each row r of the warpgroup below
+// `limit` (r counted from the warpgroup's first row `r0`).
 template <typename RowPtr>
-__device__ __forceinline__ void store_rows(const float (&acc)[16][4],
-                                           float mul, int row0, int S,
-                                           int gid, int tq, RowPtr dst) {
+__device__ __forceinline__ void store_acc(const float (&acc)[64], float mul,
+                                          int r0, int limit, RowPtr dst) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32 % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = row0 + gid + 8 * i;
-    if (r >= S) continue;
-    bf16* p = dst(r) + tq * 2;
+    const int r = r0 + 16 * warp + lane / 4 + 8 * i;
+    if (r >= limit) continue;
+    bf16* p = dst(r) + 2 * (lane % 4);
 #pragma unroll
-    for (int nf = 0; nf < HD / 8; ++nf)
-      *reinterpret_cast<__nv_bfloat162*>(p + nf * 8) = __floats2bfloat162_rn(
-          acc[nf][2 * i] * mul, acc[nf][2 * i + 1] * mul);
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
   }
 }
 
-__global__ void __launch_bounds__(256) bwd_delta_kernel(const Bwd a) {
+__global__ void __launch_bounds__(256) bwd_prep_kernel(const Bwd a) {
   const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
-  const long long rows = static_cast<long long>(a.B) * a.S * a.H;
-  if (row >= rows) return;
+  if (row >= a.ws_half) return;
   const int lane = threadIdx.x % 32;
-  const bf16* op = a.o + row * HD + lane * 4;
-  const bf16* dp = a.dout + row * HD + lane * 4;
-  float sum = 0.f;
+  const int s = static_cast<int>(row % a.S64);
+  const long long bh = row / a.S64;               // b * H + h
+  float sum = 0.f, lse2 = INFINITY;
+  if (s < a.S) {
+    const int h = static_cast<int>(bh % a.H);
+    const long long b = bh / a.H;
+    const long long at = ((b * a.S + s) * a.H + h) * HD + lane * 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float2 o = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(op)[i]);
-    const float2 d = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(dp)[i]);
-    sum += o.x * d.x + o.y * d.y;
+    for (int i = 0; i < 2; ++i) {
+      const float2 o = __bfloat1622float2(
+          reinterpret_cast<const __nv_bfloat162*>(a.o + at)[i]);
+      const float2 d = __bfloat1622float2(
+          reinterpret_cast<const __nv_bfloat162*>(a.dout + at)[i]);
+      sum += o.x * d.x + o.y * d.y;
+    }
+    sum = warp_sum(sum);
+    lse2 = a.lse[bh * a.S + s] * LOG2E;
   }
-  sum = warp_sum(sum);
   if (lane == 0) {
-    const int h = static_cast<int>(row % a.H);
-    const int s = static_cast<int>((row / a.H) % a.S);
-    const int b = static_cast<int>(row / (static_cast<long long>(a.H) * a.S));
-    a.delta[a.stat(b, h, s)] = sum;
+    a.ws[row] = lse2;
+    a.ws[a.ws_half + row] = sum;
   }
 }
 
 template <bool CAUSAL>
-__global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(const Bwd a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + TILE;
-  bf16* qd_s = v_s + TILE;                  // stage st: q at 2 st, do at 2 st + 1
-  float* st_s = reinterpret_cast<float*>(qd_s + 4 * TILE);  // lse, D per stage
-
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_do,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v, const Bwd a) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm(smem_raw);
   const int per = a.Hkv * a.B;
   const int kt = static_cast<int>(blockIdx.x / per);   // heaviest first
   const int hkv = static_cast<int>(blockIdx.x % per) % a.Hkv;
   const int b = static_cast<int>(blockIdx.x % per) / a.Hkv;
-  const int k0 = kt * BT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane / 4, tq = lane % 4;
-  const int n_qt = (a.S + BT - 1) / BT;
-  const int qt0 = CAUSAL ? k0 / BT : 0;
-  const int per_head = n_qt - qt0;
-  const int iters = a.G * per_head;
+  const int k0 = kt * ROWS;
+  const int n_qt = (a.S + STREAM - 1) / STREAM;
+  const int qt0 = CAUSAL ? k0 / STREAM : 0;
+  const uint32_t k_u = sm.res, v_u = sm.res + RES_TILE;
+  sm.init(STAGES);
 
-  load_tile(k_s, a.k, a.kvrow(b, k0, hkv), static_cast<long long>(a.Hkv) * HD,
-            k0, a.S);
-  load_tile(v_s, a.v, a.kvrow(b, k0, hkv), static_cast<long long>(a.Hkv) * HD,
-            k0, a.S);
-  auto load_q = [&](int stage, int it) {
-    const int h = hkv * a.G + it / per_head;
-    const int s0 = (qt0 + it % per_head) * BT;
-    const long long step = static_cast<long long>(a.H) * HD;
-    load_tile(qd_s + 2 * stage * TILE, a.q, a.qrow(b, s0, h), step, s0, a.S);
-    load_tile(qd_s + (2 * stage + 1) * TILE, a.dout, a.qrow(b, s0, h), step,
-              s0, a.S);
-    load_stat(st_s + stage * 2 * BT, a.lse, a.stat(b, h, s0), s0, a.S);
-    load_stat(st_s + stage * 2 * BT + BT, a.delta, a.stat(b, h, s0), s0, a.S);
-  };
-  if (iters > 0) load_q(0, 0);
-  cp_async_commit();
-
-  float dk[16][4], dv[16][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread loads K, V once and keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(sm.bar, 2 * RES_TILE);
 #pragma unroll
-  for (int nf = 0; nf < 16; ++nf)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nf][e] = dv[nf][e] = 0.f;
-  const int key_row0 = warp * 16;           // this warp's keys in the tile
-
-  for (int it = 0; it < iters; ++it) {
-    if (it + 1 < iters) load_q((it + 1) & 1, it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int stage = it & 1;
-    const bf16* q_s = qd_s + 2 * stage * TILE;
-    const bf16* do_s = q_s + TILE;
-    const float* lse_s = st_s + stage * 2 * BT;
-    const float* dl_s = lse_s + BT;
-    const int q0 = (qt0 + it % per_head) * BT;
-
-    // S^T: 16 keys x 64 queries; value [j][e] at key key_row0 + gid +
-    // 8 (e / 2), query 8 j + 2 tq + e % 2 of the tile.
-    float p[8][4];
-    rows_by_tile(p, k_s, key_row0, q_s, gid, tq);
-    const bool diag = CAUSAL && q0 < k0 + BT;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + tq * 2 + (e & 1);
-        const int key = k0 + key_row0 + gid + 8 * (e >> 1);
-        const bool masked = q0 + qi >= a.S || (diag && key > q0 + qi);
-        p[j][e] = masked ? 0.f
-                         : exp2f(p[j][e] * a.scale_log2 - lse_s[qi] * LOG2E);
+      for (int x = 0; x < 2; ++x) {
+        tma_load_4d(k_u + x * RES_BOX, &map_k, sm.bar, x * 64, hkv, k0, b);
+        tma_load_4d(v_u + x * RES_BOX, &map_v, sm.bar, x * 64, hkv, k0, b);
       }
-    // dv += P^T do.
-    acc_times_tile(dv, p, do_s, lane);
-    // dP^T = v do^T, then dS^T = P^T (dP^T - D) in place of P^T.
-    float dp[8][4];
-    rows_by_tile(dp, v_s, key_row0, do_s, gid, tq);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int h = hkv * a.G; h < (hkv + 1) * a.G; ++h) {
+        const float* st = a.ws + (static_cast<long long>(b) * a.H + h) * a.S64;
+        for (int qt = qt0; qt < n_qt; ++qt) {
+          mbar_wait(sm.empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = sm.full0 + 8 * stage;
+          const uint32_t q_u = sm.ring + stage * 2 * STR_TILE;
+          const uint32_t s_u = sm.stats + stage * STAT_BYTES;
+          mbar_expect_tx(full, 2 * STR_TILE + STAT_BYTES);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+          for (int x = 0; x < 2; ++x) {
+            tma_load_4d(q_u + x * STR_BOX, &map_q, full, x * 64, h,
+                        qt * STREAM, b);
+            tma_load_4d(q_u + STR_TILE + x * STR_BOX, &map_do, full, x * 64,
+                        h, qt * STREAM, b);
+          }
+          bulk_load(s_u, st + qt * STREAM, STREAM * 4, full);
+          bulk_load(s_u + STREAM * 4, st + a.ws_half + qt * STREAM,
+                    STREAM * 4, full);
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = threadIdx.x % 32, tq = lane % 4;
+    const int kw0 = k0 + 64 * wg;                      // first key here
+    const int key_r = kw0 + 16 * (threadIdx.x / 32 % 4) + lane / 4;
+    const uint32_t ka = k_u + wg * 64 * 128, va = v_u + wg * 64 * 128;
+    const float* stats = reinterpret_cast<const float*>(
+        smem_raw + (sm.stats - smem_u32(smem_raw)));
+    float dk[64], dv[64];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[j][e] *= dp[j][e] - dl_s[j * 8 + tq * 2 + (e & 1)];
-    // dk += dS^T q (scaled at the end).
-    acc_times_tile(dk, p, q_s, lane);
-    __syncthreads();   // stage `stage` is free for iteration it + 2
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(sm.bar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < a.G * (n_qt - qt0); ++it) {
+      const int q0 = (qt0 + it % (n_qt - qt0)) * STREAM;
+      mbar_wait(sm.full0 + 8 * stage, phase);
+      const uint32_t q_u = sm.ring + stage * 2 * STR_TILE;
+      const uint32_t do_u = q_u + STR_TILE;
+      const float* lse2 = stats + stage * 2 * STREAM;
+      const float* dl = lse2 + STREAM;
+      // S^T = K q^T, dP^T = V do^T: 64 keys x 64 queries; value 4 j + e
+      // at key key_r + 8 (e / 2), query q0 + 8 j + 2 tq + e % 2.
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(s, kdesc(ka, kk, RES_BOX), kdesc(q_u, kk, STR_BOX));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(dp, kdesc(va, kk, RES_BOX), kdesc(do_u, kk, STR_BOX));
+      wgmma_commit();
+      // P^T (in place of S^T) while dP^T is in flight, in bf16 A
+      // fragments of four 16-query slices.
+      wgmma_wait<1>();
+      fence_regs(s);
+      const bool diag = CAUSAL && kw0 + 63 > q0;
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int qi = 16 * kk + 8 * (e / 4) + 2 * tq + (e & 1);
+          float v = exp2f(fmaf(s[8 * kk + e], a.scale_log2, -lse2[qi]));
+          if (diag && key_r + 8 * ((e >> 1) & 1) > q0 + qi) v = 0.f;
+          s[8 * kk + e] = v;
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      }
+      // dv += P^T do, in flight while dS^T is computed.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n128(dv, pa[kk], ndesc(do_u, kk, STR_BOX));
+      wgmma_commit();
+      wgmma_wait<1>();                             // dP^T has landed
+      fence_regs(dp);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float ds[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int qi = 16 * kk + 8 * (e / 4) + 2 * tq + (e & 1);
+          ds[e] = s[8 * kk + e] * (dp[8 * kk + e] - dl[qi]);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = pack_bf16(ds[2 * r], ds[2 * r + 1]);
+      }
+      // dk += dS^T q (scaled at the end).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n128(dk, da[kk], ndesc(q_u, kk, STR_BOX));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      if (lane == 0) mbar_arrive(sm.empty0 + 8 * stage);
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    }
+    const long long kstep = static_cast<long long>(a.Hkv) * HD;
+    const long long kbase = (static_cast<long long>(b) * a.S * a.Hkv + hkv) * HD;
+    store_acc(dk, a.scale, kw0, a.S,
+              [&](int r) { return a.dk + kbase + r * kstep; });
+    store_acc(dv, 1.f, kw0, a.S,
+              [&](int r) { return a.dv + kbase + r * kstep; });
   }
-  cp_async_wait<0>();
-
-  store_rows(dk, a.scale, k0 + key_row0, a.S, gid, tq, [&](int r) {
-    return a.dk + a.kvrow(b, r, hkv);
-  });
-  store_rows(dv, 1.f, k0 + key_row0, a.S, gid, tq, [&](int r) {
-    return a.dv + a.kvrow(b, r, hkv);
-  });
 }
 
 template <bool CAUSAL>
-__global__ void __launch_bounds__(THREADS) bwd_dq_kernel(const Bwd a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + TILE;
-  bf16* kv_s = do_s + TILE;                 // stage st: k at 2 st, v at 2 st + 1
-
-  const int n_qt = (a.S + BT - 1) / BT;
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_do,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v, const Bwd a) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm(smem_raw);
+  const int n_qt = (a.S + ROWS - 1) / ROWS;
   const int per = a.H * a.B;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / per);  // heaviest first
   const int h = static_cast<int>(blockIdx.x % per) % a.H;
   const int b = static_cast<int>(blockIdx.x % per) / a.H;
   const int hkv = h / a.G;
-  const int q0 = qt * BT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane / 4, tq = lane % 4;
-  const int n_kt = CAUSAL ? (min(q0 + BT, a.S) - 1) / BT + 1 : (a.S + BT - 1) / BT;
-  const long long qstep = static_cast<long long>(a.H) * HD;
-  const long long kstep = static_cast<long long>(a.Hkv) * HD;
+  const int q0 = qt * ROWS;
+  const int n_kt = CAUSAL ? qt + 1 : n_qt;          // 128-key tiles
+  const uint32_t q_u = sm.res, do_u = sm.res + RES_TILE;
+  sm.init(DQ_STAGES);
 
-  load_tile(q_s, a.q, a.qrow(b, q0, h), qstep, q0, a.S);
-  load_tile(do_s, a.dout, a.qrow(b, q0, h), qstep, q0, a.S);
-  auto load_kv = [&](int stage, int t) {
-    const int s0 = t * BT;
-    load_tile(kv_s + 2 * stage * TILE, a.k, a.kvrow(b, s0, hkv), kstep, s0,
-              a.S);
-    load_tile(kv_s + (2 * stage + 1) * TILE, a.v, a.kvrow(b, s0, hkv), kstep,
-              s0, a.S);
-  };
-  load_kv(0, 0);
-  cp_async_commit();
-
-  // This thread's two query rows: lse (log2 units) and D.
-  const int row0 = warp * 16;
-  float lse2[2], dl[2];
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread loads q, do once and keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(sm.bar, 2 * RES_TILE);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = q0 + row0 + gid + 8 * i;
-    const bool ok = s < a.S;
-    lse2[i] = ok ? a.lse[a.stat(b, h, s)] * LOG2E : INFINITY;
-    dl[i] = ok ? a.delta[a.stat(b, h, s)] : 0.f;
-  }
-  float dq[16][4];
-#pragma unroll
-  for (int nf = 0; nf < 16; ++nf)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nf][e] = 0.f;
-
-  for (int t = 0; t < n_kt; ++t) {
-    if (t + 1 < n_kt) load_kv((t + 1) & 1, t + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* k_s = kv_s + 2 * (t & 1) * TILE;
-    const bf16* v_s = k_s + TILE;
-    const int k0 = t * BT;
-    // S: 16 queries x 64 keys; [j][e] at query row0 + gid + 8 (e / 2),
-    // key 8 j + 2 tq + e % 2.
-    float p[8][4];
-    rows_by_tile(p, q_s, row0, k_s, gid, tq);
-    const bool diag = CAUSAL && k0 + BT > q0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tq * 2 + (e & 1);
-        const int qi = q0 + row0 + gid + 8 * (e >> 1);
-        const bool masked = key >= a.S || (diag && key > qi);
-        p[j][e] = masked ? 0.f
-                         : exp2f(p[j][e] * a.scale_log2 - lse2[e >> 1]);
+      for (int x = 0; x < 2; ++x) {
+        tma_load_4d(q_u + x * RES_BOX, &map_q, sm.bar, x * 64, h, q0, b);
+        tma_load_4d(do_u + x * RES_BOX, &map_do, sm.bar, x * 64, h, q0, b);
       }
-    float dp[8][4];
-    rows_by_tile(dp, do_s, row0, v_s, gid, tq);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_kt; ++t) {
+        mbar_wait(sm.empty0 + 8 * stage, phase ^ 1);
+        const uint32_t full = sm.full0 + 8 * stage;
+        const uint32_t k_u = sm.ring + stage * 2 * RES_TILE;
+        mbar_expect_tx(full, 2 * RES_TILE);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int x = 0; x < 2; ++x) {
+          tma_load_4d(k_u + x * RES_BOX, &map_k, full, x * 64, hkv, t * ROWS,
+                      b);
+          tma_load_4d(k_u + RES_TILE + x * RES_BOX, &map_v, full, x * 64,
+                      hkv, t * ROWS, b);
+        }
+        if (++stage == DQ_STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    // ---- consumers: 64 queries each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = threadIdx.x % 32, tq = lane % 4;
+    const int qw0 = q0 + 64 * wg;                      // first query here
+    const int row_r = qw0 + 16 * (threadIdx.x / 32 % 4) + lane / 4;
+    // This thread's rows row_r and row_r + 8: lse2 and D.
+    float lse2[2], dl[2];
+    const long long st = (static_cast<long long>(b) * a.H + h) * a.S64;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[j][e] *= dp[j][e] - dl[e >> 1];
-    // dq += dS k (scaled at the end).
-    acc_times_tile(dq, p, k_s, lane);
-    __syncthreads();
+    for (int i = 0; i < 2; ++i) {
+      const int r = row_r + 8 * i;
+      lse2[i] = r < a.S ? a.ws[st + r] : INFINITY;
+      dl[i] = r < a.S ? a.ws[a.ws_half + st + r] : 0.f;
+    }
+    const uint32_t qa = q_u + wg * 64 * 128, doa = do_u + wg * 64 * 128;
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    mbar_wait(sm.bar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_kt; ++t) {
+      const int k0 = t * ROWS;
+      mbar_wait(sm.full0 + 8 * stage, phase);
+      const uint32_t k_u = sm.ring + stage * 2 * RES_TILE;
+      const uint32_t v_u = k_u + RES_TILE;
+      // S = q K^T, dP = do V^T: 64 queries x 128 keys; value 4 j + e at
+      // query row_r + 8 (e / 2), key k0 + 8 j + 2 tq + e % 2.
+      float s[64], dp[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n128(s, kdesc(qa, kk, RES_BOX), kdesc(k_u, kk, RES_BOX));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n128(dp, kdesc(doa, kk, RES_BOX), kdesc(v_u, kk, RES_BOX));
+      wgmma_commit();
+      // P (in place of S) while dP is in flight; masks on the diagonal
+      // tile (a tile wholly above it gives P = 0) and on keys past S.
+      wgmma_wait<1>();
+      fence_regs(s);
+      const bool mask = (CAUSAL && k0 + ROWS - 1 > qw0) || k0 + ROWS > a.S;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int i = (e >> 1) & 1;
+          const int key = k0 + 16 * kk + 8 * (e / 4) + 2 * tq + (e & 1);
+          float v = exp2f(fmaf(s[8 * kk + e], a.scale_log2, -lse2[i]));
+          if (mask && (key >= a.S || (CAUSAL && key > row_r + 8 * i)))
+            v = 0.f;
+          s[8 * kk + e] = v;
+        }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      uint32_t da[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        float ds[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          ds[e] = s[8 * kk + e] * (dp[8 * kk + e] - dl[(e >> 1) & 1]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = pack_bf16(ds[2 * r], ds[2 * r + 1]);
+      }
+      // dq += dS K (scaled at the end).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs_n128(dq, da[kk], ndesc(k_u, kk, RES_BOX));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      if (lane == 0) mbar_arrive(sm.empty0 + 8 * stage);
+      if (++stage == DQ_STAGES) { stage = 0; phase ^= 1; }
+    }
+    const long long qstep = static_cast<long long>(a.H) * HD;
+    const long long qbase = (static_cast<long long>(b) * a.S * a.H + h) * HD;
+    store_acc(dq, a.scale, qw0, a.S,
+              [&](int r) { return a.dq + qbase + r * qstep; });
   }
-  cp_async_wait<0>();
-  store_rows(dq, a.scale, q0 + row0, a.S, gid, tq, [&](int r) {
-    return a.dq + a.qrow(b, r, h);
-  });
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, long long blocks, const Bwd& a,
-                   cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
+int launch(Kernel kernel, long long blocks, const CUtensorMap (&m)[4],
+           const Bwd& a, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, s>>>(a);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, s>>>(
+      m[0], m[1], m[2], m[3], a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  q, o, do, dq: (B, S, H, 128);
 // k, v, dk, dv: (B, S, Hkv, 128); all bf16 and contiguous.  lse: (B, H, S)
-// fp32 from the forward; delta: a (B, H, S) fp32 workspace.  Launches the
-// three kernels on `stream`, does not synchronise, and returns the first
-// launch's CUDA error code (0 = launched).
+// fp32 from the forward; ws: an fp32 workspace of 2 B H S64 floats,
+// S64 = S rounded up to 64 (16-byte aligned).  Launches the three kernels
+// on `stream`, does not synchronise, and returns the first failure's code
+// (0 = launched; 1000 and up: a tensor map could not be made).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    const void* dout, const void* lse, void* ws, void* dq, void* dk,
     void* dv, int B, int S, int H, int Hkv, int causal, float scale,
     void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   Bwd a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
   a.o = static_cast<const bf16*>(o);
   a.dout = static_cast<const bf16*>(dout);
   a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
+  a.ws = static_cast<float*>(ws);
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.B = B;
   a.S = S;
+  a.S64 = (S + STREAM - 1) / STREAM * STREAM;
   a.H = H;
   a.Hkv = Hkv;
   a.G = H / Hkv;
   a.scale = scale;
   a.scale_log2 = scale * LOG2E;
+  a.ws_half = static_cast<long long>(B) * H * a.S64;
+  // The prep kernel first: the runtime's launch makes the device's primary
+  // context current on this thread (autograd runs a backward on a thread
+  // of its own), which the tensor-map encoder below needs.
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = static_cast<long long>(B) * S * H;
-  bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (S + BT - 1) / BT;
+  bwd_prep_kernel<<<static_cast<unsigned>((a.ws_half + 7) / 8), 256, 0, s>>>(a);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  // Tensor maps: q, do, k, v with the boxes of each kernel (dkdv streams
+  // 64 queries and holds 128 keys; dq holds 128 queries and streams 128
+  // keys).
+  const long long sq = static_cast<long long>(H) * HD;
+  const long long sk = static_cast<long long>(Hkv) * HD;
+  CUtensorMap m_dkdv[4], m_dq[4];
+  for (int i = 0; i < 2 && !err; ++i) {
+    const void* qd = i == 0 ? q : dout;
+    err = make_map_4d(&m_dkdv[i], qd, HD, H, S, B, HD, sq, S * sq, 1, STREAM);
+    if (!err)
+      err = make_map_4d(&m_dq[i], qd, HD, H, S, B, HD, sq, S * sq, 1, ROWS);
+    if (!err)
+      err = make_map_4d(&m_dkdv[2 + i], i == 0 ? k : v, HD, Hkv, S, B, HD, sk,
+                        S * sk, 1, ROWS);
+    m_dq[2 + i] = m_dkdv[2 + i];
+  }
+  if (err) return err;
+  const long long k_tiles = (S + ROWS - 1) / ROWS;
   err = launch(causal ? bwd_dkdv_kernel<true> : bwd_dkdv_kernel<false>,
-               tiles * Hkv * B, a, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch(causal ? bwd_dq_kernel<true> : bwd_dq_kernel<false>,
-               tiles * H * B, a, s);
-  return static_cast<int>(err);
+               k_tiles * Hkv * B, m_dkdv, a, s);
+  if (err) return err;
+  return launch(causal ? bwd_dq_kernel<true> : bwd_dq_kernel<false>,
+                k_tiles * H * B, m_dq, a, s);
 }

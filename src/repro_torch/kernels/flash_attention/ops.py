@@ -22,13 +22,15 @@ explicit rule on the shapes alone (``plan_launch``; the device-held
 lengths are never read on the host):
 
 * ``decode_split``: the split-KV kernel (bf16 or fp32) for every launch
-  whose prefill grid (q tiles x Hkv x B) would not fill the card's SMs --
-  every decode step.  The keys are cut into splits, from the cache
-  capacity Sk, so the grid holds at least two blocks per SM; a second
-  small kernel combines the splits' partials from an fp32 workspace.
+  whose prefill grid (q tiles x Hkv x B) would fill less than
+  ``PREFILL_FILL`` (three quarters) of the card's SMs -- every decode
+  step.  The keys are cut into splits, from the cache capacity Sk, so the
+  grid holds at least two blocks per SM; a second small kernel combines
+  the splits' partials from an fp32 workspace.
 * ``prefill_wgmma``: the TMA + ``wgmma`` kernel for every other bf16 launch
   at head dims 64, 128 or (192, 128) (128-row q tiles): every serve
-  prefill chunk.
+  prefill chunk, DeepSeek-V3's MLA chunks of at most 128 tokens among
+  them (128 blocks of 132 SMs).
 * ``prefill_mma_hd16``: the ``mma.sync`` kernel for the other bf16
   launches at head dim 16, the reduced configurations' width.
 * ``prefill_f32``: the fp32 kernel for the other fp32 launches (every fp32
@@ -57,7 +59,8 @@ as an autograd Function over a full sequence (no ``q_offset`` or
 each row's logsumexp beside the output, and the backward is
 ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``: dq, dk, dv from
 q, k, v, the output, its gradient and the logsumexp; dk and dv summed over
-each KV head's query heads in the kernel, dq from a second pass), counted
+each KV head's query heads in one block, dq from a second pass that
+recomputes S and dP, so no atomics: the same bits on every run), counted
 in ``flash_attention_bwd.launches``.  Both take bf16 at head dim 128 only
 and raise a ``ValueError`` naming anything else (fp32, MLA's (192, 128),
 64, 16) before any launch.  The JAX package has no backward kernel: XLA
@@ -99,6 +102,12 @@ HEAD_DIMS = {(16, 16): (torch.float32, torch.bfloat16),
 KERNELS = ("prefill_wgmma", "decode_split", "prefill_mma_hd16", "prefill_f32")
 TILE_ROWS = {"prefill_wgmma": 128, "prefill_mma_hd16": 64, "prefill_f32": 64}
 H100_SMS = 132
+# The prefill kernel takes a launch whose q-tile grid fills at least this
+# share of the SMs.  At a grid of 128 blocks (MLA's 128 heads, one q tile)
+# the wgmma kernel takes a third of the split kernel's time; every decode
+# step's grid is 16-64 blocks (launch/bench_flash.py times both kernels
+# across the threshold).
+PREFILL_FILL = 0.75
 SPLIT_KEYS = 128        # keys per split: a multiple of the 32-key warp tile
 BLOCKS_PER_SM = 2       # the split grid holds at least this many per SM
 _MAX_GRID_YZ = 65535
@@ -123,7 +132,8 @@ def plan_launch(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
     or 192: the TMA + wgmma kernel; bf16 at 16: the mma.sync one; fp32:
     the 3xTF32 one)
     unless its grid of q tiles (``TILE_ROWS / G`` positions each) times
-    Hkv times B is smaller than ``sms``: then the split-KV kernel, with
+    Hkv times B is below ``PREFILL_FILL`` of ``sms`` (``sms=1`` always
+    picks the prefill kernel): then the split-KV kernel, with
     enough splits of Sk that B * Hkv * row tiles * splits >= 2 * sms, or
     as many as splits of SPLIT_KEYS keys allow.
     """
@@ -133,7 +143,7 @@ def plan_launch(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
     else:
         prefill = "prefill_f32"
     per_tile = max(1, TILE_ROWS[prefill] // G)        # query positions
-    if -(-Sq // per_tile) * Hkv * B >= sms:
+    if -(-Sq // per_tile) * Hkv * B >= PREFILL_FILL * sms:
         if G > TILE_ROWS[prefill]:
             raise ValueError(f"{G} query heads per KV head exceed the "
                              f"{prefill} kernel's {TILE_ROWS[prefill]}-row "
@@ -302,7 +312,7 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None,
     if lse is not None and plan.kernel != "prefill_wgmma":
         raise ValueError(f"the logsumexp for the backward comes from "
                          f"prefill_wgmma, not {plan.kernel} (B {B}, Sq {Sq}, "
-                         f"Hkv {Hkv}: a grid below the card's SMs)")
+                         f"Hkv {Hkv}: a grid that leaves the card idle)")
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out, None
@@ -395,7 +405,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
     """(dq, dk, dv) of full-sequence attention on the card: q, out, dout
     (B, S, H, 128), k, v (B, S, Hkv, 128) bf16 and the forward's logsumexp
     ``lse`` (B, H, S) fp32; one call launches the three kernels of
-    ``csrc/flash_attention_bwd.cu`` (counted once)."""
+    ``csrc/flash_attention_bwd.cu`` (counted once).  Deterministic: two
+    calls on the same inputs give the same bits."""
     if not _is_cuda(q):
         return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
                                        scale=scale)
@@ -411,10 +422,12 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
     q, k, v, out, dout, lse = (t.contiguous()
                                for t in (q, k, v, out, dout, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty_like(lse)
+    # lse log2(e) and rowsum(do o), each (B, H, S rounded up to 64).
+    ws = torch.empty(2 * B * H * -(-S // 64) * 64, dtype=torch.float32,
+                     device=q.device)
     err = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, int(causal),
         float(scale if scale is not None else hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)

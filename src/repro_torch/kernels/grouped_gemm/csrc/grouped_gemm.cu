@@ -124,6 +124,7 @@
 
 #include <cuda_bf16.h>
 
+#include "grouped_common.cuh"
 #include "hopper_tma.cuh"
 #include "warp_mma.cuh"
 
@@ -144,13 +145,6 @@ constexpr int BOX_BYTES = BK * 64 * 2;               // 8 KB: 64 K x 64 N
 constexpr int B_BYTES = 2 * BOX_BYTES;               // 16 KB: 64 K x 128 N
 constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;   // 48 KB
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
-
-// Keeps the compiler from moving accesses to the accumulators across the
-// asynchronous products.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x 128, fp32) += A (64 x 16) @ B (16 x 128), both from shared
 // memory: A K-major (TA 0) or M-major (TA 1), B K-major (TB 0) or N-major

@@ -76,6 +76,7 @@
 
 #include <cuda_bf16.h>
 
+#include "grouped_common.cuh"
 #include "hopper_tma.cuh"
 
 namespace {

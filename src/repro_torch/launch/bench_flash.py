@@ -1,0 +1,251 @@
+"""Time the flash attention kernels on the card, one JSON line a case.
+
+``--plan``: both candidate kernels of ``ops.plan_launch`` (the prefill
+kernel, planned for a card of one SM, and the split-KV kernel with the
+splits the plan gives it on this card, ``ops.PREFILL_FILL`` set above any
+grid for the call) on each case, with the plan's own pick and its q-tile grid
+beside, as CUDA-graph device times.  The cases sweep grids around
+``ops.PREFILL_FILL`` of the SMs in GQA 4 at hd 128 (GLM-4.5-Air's heads)
+and in MLA's (192, 128) at G 1, take the plan rows of
+``tests/test_torch_flash_attention.py`` that sit near the threshold, and
+each serve path's flash shapes (chunk 4096 at offset 4096, decode at
+batch 4), with GLM decode at batch 8 and 16 beside (grids 64 and 128).
+
+``--fwd``: the plan's pick at GLM-4.5-Air's serve chunk (4096 queries at
+offset 4096 over a 10,248-position cache) and at DeepSeek-V3's 64- and
+128-query MLA chunks.  ``--bwd``: ``flash_attention_bwd`` at the train
+step's shape (B 2, S 4096, 32 / 8 heads, hd 128, causal), eager events
+over repeated calls, beside SDPA's backward (flash backend), and the
+device time of each of its kernels from ``torch.profiler``; with
+``--check`` it also asserts that two calls give the same bits.
+
+The script imports the package from ``sys.path``, so pointing PYTHONPATH
+at another checkout's ``src`` times that checkout's kernels with the same
+cases (a parent and a change in one call, on one card):
+
+  PYTHONPATH=src python src/repro_torch/launch/bench_flash.py --fwd --bwd
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+SERVE_SK = 6144 + 8 + 4096          # chip_smoke's serve cache capacity
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """Device time of one call, from a CUDA graph of ``iters`` calls."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _event_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _inputs(B, Sq, Sk, H, Hkv, hd, hd_v, q_off, kv_len, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").to(bf)
+    k = torch.randn((B, Sk, Hkv, hd), generator=g, device="cuda").to(bf)
+    # MLA's v is the last 128 columns of the expanded latent: a view.
+    v = torch.randn((B, Sk, Hkv, hd if hd_v == hd else 2 * hd_v),
+                    generator=g, device="cuda").to(bf)[..., -hd_v:]
+    return (q, k, v, torch.tensor(q_off, device="cuda"),
+            torch.tensor(kv_len, device="cuda"))
+
+
+def _plan_cases():
+    """(tag, B, Sq, Sk, H, Hkv, (hd, hd_v), q_offset, kv_valid_len)."""
+    cases = []
+    for tiles in (8, 10, 12, 13, 14, 16, 24):       # grid = tiles x 8 KV heads
+        Sq = 32 * tiles
+        cases.append((f"gqa4_grid{8 * tiles}", 1, Sq, SERVE_SK, 32, 8,
+                      (128, 128), [4096], [4096 + Sq]))
+    for H in (64, 80, 96, 112, 128):                 # grid = H (one q tile)
+        cases.append((f"mla_h{H}_q64", 1, 64, SERVE_SK, H, H, (192, 128),
+                      [4096], [4160]))
+    cases += [
+        ("mla_q16", 1, 16, SERVE_SK, 128, 128, (192, 128), [4096], [4112]),
+        ("mla_q128", 1, 128, SERVE_SK, 128, 128, (192, 128), [4096],
+         [4224]),
+        ("plan_mla_q64_sk8192", 1, 64, 8192, 128, 128, (192, 128), [8128],
+         [8192]),
+        ("plan_gqa4_grid98", 1, 1568, 4096, 8, 2, (128, 128), [0], [4096]),
+        ("plan_gqa4_grid99", 1, 1056, 4096, 12, 3, (128, 128), [0], [4096]),
+        ("glm_prefill_at_4096", 1, 4096, SERVE_SK, 32, 8, (128, 128),
+         [4096], [8192]),
+        ("qwen3_prefill_at_4096", 1, 4096, SERVE_SK, 64, 4, (128, 128),
+         [4096], [8192]),
+        ("mla_prefill_at_4096", 1, 4096, SERVE_SK, 128, 128, (192, 128),
+         [4096], [8192]),
+        ("glm_decode", 4, 1, SERVE_SK, 32, 8, (128, 128), [0] * 4,
+         [2048, 6144, 3000, 1]),
+        ("qwen3_decode", 4, 1, SERVE_SK, 64, 4, (128, 128), [0] * 4,
+         [2048, 6144, 3000, 1]),
+        ("glm_decode_b8", 8, 1, SERVE_SK, 32, 8, (128, 128), [0] * 8,
+         [2048, 6144, 3000, 1] * 2),
+        ("glm_decode_b16", 16, 1, SERVE_SK, 32, 8, (128, 128), [0] * 16,
+         [2048, 6144, 3000, 1] * 4),
+    ]
+    return cases
+
+
+def bench_plan(iters: int) -> None:
+    from repro_torch.kernels.flash_attention import ops
+
+    sms = ops._sm_count(torch.device("cuda"))
+    for tag, B, Sq, Sk, H, Hkv, (hd, hd_v), q_off, kv_len in _plan_cases():
+        q, k, v, off, lim = _inputs(B, Sq, Sk, H, Hkv, hd, hd_v, q_off, kv_len)
+        causal = Sq > 1
+        G = H // Hkv
+        grid = -(-Sq // max(1, ops.TILE_ROWS["prefill_wgmma"] // G)) * Hkv * B
+        rec = {"case": tag, "shape": [B, Sq, Sk, H, Hkv, hd, hd_v],
+               "grid": grid, "sms": sms,
+               "plan": ops.plan_launch(B, Sq, Sk, H, Hkv, hd, q.dtype,
+                                       sms).kernel}
+        for name, force, fill in (("prefill_ms", 1, ops.PREFILL_FILL),
+                                  ("split_ms", sms, float("inf"))):
+            saved, ops.PREFILL_FILL = ops.PREFILL_FILL, fill
+            try:
+                ran = ops._launch(q, k, v, causal, off, lim, None,
+                                  sms=force)[1]
+                rec[name] = _graph_ms(
+                    lambda: ops._launch(q, k, v, causal, off, lim, None,
+                                        sms=force), iters)
+            finally:
+                ops.PREFILL_FILL = saved
+            rec[name.replace("_ms", "_kernel")] = ran
+        rec["faster"] = ("prefill" if rec["prefill_ms"] < rec["split_ms"]
+                         else "split")
+        print(json.dumps(rec), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def bench_fwd(iters: int) -> None:
+    from repro_torch.kernels.flash_attention import ops
+
+    for tag, B, Sq, Sk, H, Hkv, (hd, hd_v), q_off, kv_len in [
+            ("glm_prefill_at_4096", 1, 4096, SERVE_SK, 32, 8, (128, 128),
+             [4096], [8192]),
+            ("mla_prefill_64", 1, 64, SERVE_SK, 128, 128, (192, 128), [4096],
+             [4160]),
+            ("mla_prefill_128", 1, 128, SERVE_SK, 128, 128, (192, 128),
+             [4096], [4224])]:
+        q, k, v, off, lim = _inputs(B, Sq, Sk, H, Hkv, hd, hd_v, q_off, kv_len)
+        kw = dict(causal=True, q_offset=off, kv_valid_len=lim)
+        before = dict(ops.flash_attention.launches_by_kernel)
+        ops.flash_attention(q, k, v, **kw)
+        ran = [n for n, c in ops.flash_attention.launches_by_kernel.items()
+               if c != before[n]]
+        print(json.dumps({"case": tag, "kernel": ran, "ms": _graph_ms(
+            lambda: ops.flash_attention(q, k, v, **kw), iters)}), flush=True)
+
+
+def bench_bwd(iters: int, check: bool) -> None:
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops
+
+    B, S, H, Hkv, hd = 2, 4096, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, dout = (torch.randn((B, S, H, hd), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, hd), generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    lse = torch.empty((B, H, S), device="cuda")
+    o = ops._launch(q, k, v, True, 0, None, None, sms=1, lse=lse)[0]
+
+    def kernel():
+        return ops.flash_attention_bwd(q, k, v, o, dout, lse, causal=True)
+
+    rec = {"case": "train_step_flash_bwd", "shape": [B, S, H, Hkv, hd]}
+    if check:
+        first, again = kernel(), kernel()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError("flash_attention_bwd: two calls differ")
+        rec["bitwise_equal"] = True
+        del first, again
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for t in (k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = dout.transpose(1, 2)
+    for _ in range(2):      # kernel, library, kernel, library
+        rec.setdefault("ms", []).append(_event_ms(kernel, iters))
+        rec.setdefault("sdpa_bwd_ms", []).append(_event_ms(
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                        retain_graph=True), iters))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            kernel()
+        torch.cuda.synchronize()
+    rec["kernel_ms"] = {
+        e.key[:60]: e.device_time_total / 1e3 / iters
+        for e in prof.key_averages() if e.device_time_total > 0}
+    print(json.dumps(rec), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--plan", action="store_true")
+    ap.add_argument("--fwd", action="store_true")
+    ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--check", action="store_true",
+                    help="with --bwd: assert two calls give the same bits")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_flash needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi, "torch": torch.__version__}),
+          flush=True)
+    if args.plan:
+        bench_plan(args.iters)
+    if args.fwd:
+        bench_fwd(args.iters)
+    if args.bwd:
+        bench_bwd(max(1, args.iters // 4), args.check)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

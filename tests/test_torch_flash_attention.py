@@ -179,27 +179,34 @@ PLAN_SHAPES = [
     (1, 1001, 1301, 64, 4, 128, torch.bfloat16, "prefill_wgmma"),      # G 16
     (1, 5, 1, 4, 2, 16, torch.bfloat16, "decode_split"),               # Sk 1
     # DeepSeek-V3's MLA prefill (q/k 192, v 128; H = Hkv = 128): a chunk
-    # of more than 128 tokens fills the card, one of at most 128 does not.
+    # of at most 128 tokens is 128 blocks, which nearly fill 132 SMs.
     (1, 4096, SERVE_SK, 128, 128, 192, torch.bfloat16, "prefill_wgmma"),
     (1, 129, SERVE_SK, 128, 128, 192, torch.bfloat16, "prefill_wgmma"),
-    (1, 128, SERVE_SK, 128, 128, 192, torch.bfloat16, "decode_split"),
-    (1, 64, 8192, 128, 128, 192, torch.bfloat16, "decode_split"),
+    (1, 128, SERVE_SK, 128, 128, 192, torch.bfloat16, "prefill_wgmma"),
+    (1, 64, 8192, 128, 128, 192, torch.bfloat16, "prefill_wgmma"),
+    # Around three quarters of 132 SMs (99 blocks): GQA 4 at 98 blocks
+    # (49 q tiles x 2 KV heads) and at 99 (33 x 3).
+    (1, 1568, 4096, 8, 2, 128, torch.bfloat16, "decode_split"),
+    (1, 1056, 4096, 12, 3, 128, torch.bfloat16, "prefill_wgmma"),
 ]
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
 def test_plan_fills_the_card_and_stays_inside_the_cache(shape):
     """The kernel and split count are a pure function of the shapes: a
-    prefill kernel only where its q-tile grid fills 132 SMs, else splits
-    of Sk that give at least two blocks per SM, none starting past Sk."""
+    prefill kernel only where its q-tile grid fills at least three
+    quarters of 132 SMs, else splits of Sk that give at least two blocks
+    per SM, none starting past Sk."""
     B, Sq, Sk, H, Hkv, hd, dtype, kernel = shape
     plan = ops.plan_launch(B, Sq, Sk, H, Hkv, hd, dtype)
     assert plan == ops.plan_launch(B, Sq, Sk, H, Hkv, hd, dtype)
     assert plan.kernel == kernel
     G = H // Hkv
+    prefill = ("prefill_f32" if dtype == torch.float32 else
+               "prefill_mma_hd16" if hd == 16 else "prefill_wgmma")
+    grid = -(-Sq // (ops.TILE_ROWS[prefill] // G)) * Hkv * B
+    assert (grid * 4 >= 3 * ops.H100_SMS) == (kernel != "decode_split")
     if kernel != "decode_split":
-        per_tile = ops.TILE_ROWS[kernel] // G
-        assert -(-Sq // per_tile) * Hkv * B >= ops.H100_SMS
         assert plan.splits == 1
         return
     assert plan.row_tile in (4, 16)
@@ -485,7 +492,7 @@ MLA_CASES = [
     (1, 300, 700, 16, 16, True, [400], [650]),        # Sq ends mid-tile
     (2, 200, 512, 8, 8, True, [0, 250], [200, 411]),  # per-row, ragged
     (2, 1, 600, 16, 16, False, 0, [600, 77]),         # decode-like rows
-    (1, 64, 4160, 128, 128, True, [4096], [4130]),    # MLA's split shape
+    (1, 64, 4160, 128, 128, True, [4096], [4130]),    # MLA's 64-token chunk
     (2, 130, 400, 32, 8, True, [5, 250], [100, 380]),  # GQA 4
     (1, 200, 300, 4, 4, True, [0], [0]),              # no valid key
 ]
@@ -534,11 +541,12 @@ def test_mla_head_dims_match_plain_on_card(cuda_device, case, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Sq", [64, 1000])
-def test_mla_head_dims_under_cuda_graph(cuda_device, Sq):
-    """A captured (192, 128) call (split-KV at 64 queries, wgmma at 1000)
-    replays on new inputs and new offsets copied into its tensors."""
-    case = (1, Sq, 1300, 128, 128, True, [250], [250 + Sq])
+@pytest.mark.parametrize("Sq,H", [(64, 128), (64, 16), (1000, 128)])
+def test_mla_head_dims_under_cuda_graph(cuda_device, Sq, H):
+    """A captured (192, 128) call (wgmma at 64 and 1000 queries over 128
+    heads, split-KV at 64 queries over 16) replays on new inputs and new
+    offsets copied into its tensors."""
+    case = (1, Sq, 1300, H, H, True, [250], [250 + Sq])
     q, k, v, kw = _mla_inputs(case, cuda_device)
     ops.flash_attention(q, k, v, **kw)              # build, load, warm up
     torch.cuda.synchronize()
@@ -575,18 +583,55 @@ def test_pairs_outside_the_table_raise_on_card(cuda_device, dtype, dims):
     assert ops.flash_attention.launches == before
 
 
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [96, 130, 200])
+def test_plain_backward_matches_jax_vjp(G, causal, S):
+    """The plain backward that the card's kernel is held against, on the
+    CPU in fp32: ``flash_attention_bwd_ref`` against ``jax.vjp`` of JAX
+    ``flash_ref`` (the gradient XLA takes on the TPU), GQA with G query
+    heads a KV head, S not a multiple of 64, hd 64, 64-key blocks in
+    both; dq, dk, dv each within 1e-5 of its own max|ref| (the gradient
+    tolerance; the frameworks sum in different orders)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.attention import flash_ref
+
+    B, Hkv, hd = 2, 2, 64
+    H = G * Hkv
+    q, k, v = _qkv(B, S, S, H, Hkv, hd, seed=S + G)
+    dout = np.random.default_rng(S).standard_normal(
+        (B, S, H, hd)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: flash_ref(a, b, c, causal=causal,
+                                               block_kv=64),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    got = ops.flash_attention_bwd_ref(*map(torch.from_numpy, (q, k, v, dout)),
+                                      causal=causal, block_kv=64)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-5 * np.abs(w).max(), (name, err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hkv,causal", [(1, 256, 4, 1, True),
                                               (2, 320, 8, 2, True),
                                               (1, 192, 2, 2, False),
-                                              (2, 1024, 32, 8, True)])
+                                              (2, 1024, 32, 8, True),
+                                              (1, 1000, 8, 2, True),
+                                              (2, 333, 4, 2, False),
+                                              (2, 4096, 32, 8, True)])
 def test_backward_kernel_matches_plain_on_card(cuda_device, B, S, H, Hkv,
                                                causal):
     """The autograd Function on the card (prefill_wgmma with the
     logsumexp, then flash_attention_bwd) against autograd through the
     plain version: dq, dk, dv each within 2e-2 of its own max|ref| (bf16
     P and dS in the products), the logsumexp within 1e-4 of the plain
-    one's (fp32), and S not a multiple of the 64-row tiles."""
+    one's (fp32); S a multiple of 128, of 64 only, and of neither (1000,
+    333), up to the train step's shape (B 2, S 4096, 32 / 8 heads).  Two
+    calls of the backward on the same inputs give the same bits."""
     rng = np.random.default_rng(3)
 
     def t(shape):
@@ -615,6 +660,13 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, B, S, H, Hkv,
                                      device=cuda_device).triu(1), -torch.inf)
     ref_lse = torch.logsumexp(s, dim=-1)
     assert (lse - ref_lse).abs().max().item() <= 1e-4 * ref_lse.abs().max().item()
+    del s, ref_lse
+    o = ops._launch(q, k, v, causal, 0, None, None, sms=1, lse=lse)[0]
+    first, again = (ops.flash_attention_bwd(q, k, v, o, dout, lse,
+                                            causal=causal) for _ in range(2))
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", first, again):
+        assert torch.equal(a, b), f"d{name} differs between two calls"
 
 
 @pytest.mark.cuda
