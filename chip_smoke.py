@@ -62,7 +62,14 @@ Phases, one output line each:
      under ``set_sync_debug_mode("error")``: graph device time of the
      kernel and of the whole solve, the plain loop's eager time on the
      card, the bound (serial oracle steps x one redux.sync round, timed
-     here) and post_max / ceil(total / R); and
+     here) and post_max / ceil(total / R); the rack modes of both kernels:
+     ``gating_topk`` with DeepSeek-V3's node-limited routing (T 4096, E
+     256, k 8, sigmoid + bias; G 8, M 4, group top-2; G 2, M 1; decode),
+     ids equal to the plain rack selection on the kernel's own keys on
+     every row, and ``plan_solve`` with rack size 8 (2 at R 4), with and
+     without the demand tie-break, the whole Plan with its tier fields
+     equal to the plain solve's, no host sync, timed beside the flat
+     solve; and
      ``flash_attention`` against its plain version at the
      GLM-4.5-Air serve cache (C 4096, Sk 10248: offsets 0 and 4096, a ragged
      last chunk), at Qwen3's 64 over 4 heads, at decode (B 4, per-row
@@ -136,6 +143,14 @@ Phases, one output line each:
      layer call through one launch of the plan-solve, gate and two grouped
      kernels (counts set to 0 before the call, read after); no time is
      stated for it;
+ 14. the rack tier on the one card: four processes (spawn) in one gloo
+     group and the same ranks factored as 2 racks x 2 lanes, DeepSeek-V3's
+     MoE layer at full width (E 256, k 8, d_model 7168, d_ff 2048, bf16),
+     2048 tokens a rank: (a) flat ``a2a``, (b) ``hier_a2a``, (c) a rack
+     limit of 1 against its flat twin, (d) (b) in 2 overlap chunks, (e) (a)
+     on the reference engine, bit for bit as stated, zero drops, the plan
+     tables against the plain solve, launch counts; (f) the backward of (b)
+     against (a) within 2e-2; no time is stated (gloo);
   8. the kernels with their launch counts on the serve paths: every count
      is set to 0 just before each serve run and read just after it; on
      every path (phase 7b's too) ``flash_attention`` runs once per
@@ -152,7 +167,10 @@ Phases, one output line each:
      ``plan_solve`` never runs on a serve path (R = 1), and its row's
      launches are phase 9's.
 
-TF32 is off for matmuls and cuDNN, so fp32 references are full fp32.  Any
+Every phase prints its wall seconds on a line of its own
+(``phase_seconds``; phase 1's includes the kernel build, also printed as
+``kernel_build_s``).  TF32 is off for matmuls and cuDNN, so fp32
+references are full fp32.  Any
 failed check raises and the script exits non-zero; the last line is the
 ``{"ok": true, "device": ...}`` record.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any result.
@@ -196,6 +214,17 @@ PLAN_CASES = ([(R, 128, 8) for R in (8, 16, 32, 64)]
 PLAN_LAWS = ("uniform", "zipf", "hot4")
 PLAN_TOKENS = 4096
 EP_RANKS, EP_TOKENS = 2, 4096                # phase 9: ranks, tokens a rank
+# Row 5r: (tag, T, E, k, score_fn, num_racks G, rack_limit M, group top-k,
+# timing iterations): DeepSeek-V3's prefill shape and published
+# node-limited routing (n_group 8, topk_group 4, group score of the top 2;
+# arXiv:2412.19437 S2.1.2), two racks of which one, and decode.
+RACK_GATE_CASES = [("ds_g8_m4", 4096, 256, 8, "sigmoid", 8, 4, 2, 20),
+                   ("ds_g2_m1", 4096, 256, 8, "sigmoid", 2, 1, 2, 20),
+                   ("ds_g8_m4_decode", 4, 256, 8, "sigmoid", 8, 4, 2, 50)]
+# Row Pr: PLAN_CASES at rack size 8 (2 at R 4; R 2 has no rack tier).
+RACK_PLAN_CASES = [(R, E, k, 8 if R % 8 == 0 else 2)
+                   for R, E, k in PLAN_CASES if R >= 4]
+RACKS, RACK_RANKS, RACK_TOKENS = 2, 4, 2048   # phase 14: 2 racks x 2 lanes
 
 
 def _line(tag: str, payload) -> None:
@@ -1065,6 +1094,19 @@ def _plan_lam(R, E, k, law, seed):
                      for _ in range(R)]).astype(np.int64)
 
 
+def _plan_mismatch(plan, plain) -> str | None:
+    """The first field of two Plans that differs (set on one and not the
+    other, or unequal integers; ``plan`` may live on the card), or None."""
+    import torch
+
+    for field in plan._fields:
+        a, b = getattr(plan, field), getattr(plain, field)
+        if (a is None) != (b is None) or (
+                a is not None and not torch.equal(a.cpu(), b)):
+            return field
+    return None
+
+
 def _sync_free(fn) -> None:
     """Run ``fn`` with every host sync an error."""
     import torch
@@ -1102,11 +1144,10 @@ def phase_plan_solve() -> dict:
             plan = planner.solve_plan(lam_d, home_d, n_slot=2,
                                       load_bound=bound)
             torch.cuda.synchronize()
-            for field in planner.Plan._fields:
-                if not torch.equal(getattr(plan, field).cpu(),
-                                   getattr(plain, field)):
-                    raise AssertionError(f"plan_solve {name}: {field} "
-                                         f"differs from the plain solve")
+            field = _plan_mismatch(plan, plain)
+            if field is not None:
+                raise AssertionError(f"plan_solve {name}: {field} "
+                                     f"differs from the plain solve")
             lam_e = lam.sum(dim=0)
             ell = planner._rank_load(lam_e, home, R)
             rexp = planner._expert_order(lam_e, home, R)
@@ -1144,6 +1185,219 @@ def phase_plan_solve() -> dict:
                 "tau": int(plain.tau), "replicas": int((plain.x >= 0).sum()),
                 "sync_free": True}
     _line("phase2_plan_solve", {"redux_round_ms": redux_ms, **records})
+    return records
+
+
+def _rack_gate_cost(T, E, k, G, want_scores) -> tuple[float, float]:
+    """(fp32 operations, bytes) of the rack mode: the free kernel's, plus
+    per key the bias add and its share of the chunk sort (5 compares a 4)
+    and of the rack merges (log2 W rounds of 8 a 4), and per row each
+    lane's count over the G rack words."""
+    flops, nbytes = _gating_cost(T, E, k, want_scores)
+    W = E // (4 * G)
+    flops += T * E * (1 + 1.25 + 2.0 * max(W.bit_length() - 1, 0)) + T * G * G
+    return flops, nbytes
+
+
+def phase_gating_racks() -> dict:
+    """Row 5r: ``gating_topk``'s rack mode at DeepSeek-V3's prefill shape
+    (T 4096, E 256, k 8, sigmoid, a selection bias) with its node-limited
+    routing (G 8, M 4, group top-2), with G 2, M 1, and at decode (T 4).
+    Checks: the ids equal the plain rack selection on the kernel's own
+    scores plus the bias on every row (so its rack scores, kept racks and
+    rounds are the plain version's), and the fully plain version's on
+    every row whose rack choice and k-th key are decided by a gap over
+    1e-6 relative; counts the histogram of the ids; scores and weights
+    within GATING_TOL of max|ref|; at most M racks a token.  Times: eager
+    (``ms``, host work included), graph device time warm and cold, the free
+    kernel at the same shape (graph, warm), the plain version eager and the
+    PyTorch composite (group top-2 -> top-M -> mask -> topk -> gather ->
+    scatter-add) in a graph."""
+    import torch
+
+    from repro_torch.kernels.gating_topk import ops
+
+    records = {}
+    for tag, T, E, k, score_fn, G, M, gk, iters in RACK_GATE_CASES:
+        g = torch.Generator(device="cuda").manual_seed(len(tag) + G)
+        x = torch.randn((T, E), generator=g, device="cuda")
+        bias = torch.randn((E,), generator=g, device="cuda") * 1e-2
+        kw = dict(score_fn=score_fn, bias=bias, want_scores=True,
+                  num_racks=G, rack_limit=M, group_topk=gk)
+        before = ops.gating_topk.launches_by_kernel["rack"]
+        ids, w, cnt, sc = ops.gating_topk(x, k, **kw)
+        torch.cuda.synchronize()
+        if ops.gating_topk.launches_by_kernel["rack"] != before + 1:
+            raise AssertionError(f"gating_topk rack {tag}: not launched in "
+                                 f"rack mode")
+        keys = sc + bias[None, :]
+        if not torch.equal(ids, ops.rack_limited_ids(keys, k, G, M, gk)):
+            raise AssertionError(f"gating_topk rack {tag}: ids differ from "
+                                 f"the plain rack selection on the kernel's "
+                                 f"keys")
+        r_ids, r_w, _, r_sc = ops.gating_topk_ref(x, k, **kw)
+        r_keys = r_sc + bias[None, :]
+        grp = torch.sort(r_keys.reshape(T, G, E // G), dim=-1,
+                         descending=True).values[..., :gk].sum(-1)
+        top_g = torch.sort(grp, dim=-1, descending=True).values
+        decided = (top_g[:, M - 1] - top_g[:, M]) > 1e-6 * top_g[:, M - 1].abs()
+        live = torch.zeros((T, G), dtype=torch.bool, device="cuda")
+        live.scatter_(1, torch.sort(grp, dim=-1, descending=True,
+                                    stable=True).indices[:, :M], True)
+        masked = torch.where(live.repeat_interleave(E // G, dim=1), r_keys,
+                             torch.full_like(r_keys, float("-inf")))
+        top = torch.sort(masked, dim=-1, descending=True).values
+        decided &= (top[:, k - 1] - top[:, k]) > 1e-6 * top[:, k - 1].abs()
+        if not torch.equal(ids[decided], r_ids[decided]):
+            raise AssertionError(f"gating_topk rack {tag}: ids differ from "
+                                 f"the plain version on decided rows")
+        if not torch.equal(cnt, torch.bincount(ids.reshape(-1), minlength=E)):
+            raise AssertionError(f"gating_topk rack {tag}: counts are not "
+                                 f"the histogram of the kernel's ids")
+        racks_a_token = max(torch.unique(r).numel()
+                            for r in (ids // (E // G)).cpu())
+        if racks_a_token > M:
+            raise AssertionError(f"gating_topk rack {tag}: a token reaches "
+                                 f"{racks_a_token} > {M} racks")
+        rec = {"shape": [T, E, k], "score_fn": score_fn, "bias": True,
+               "num_racks": G, "rack_limit": M, "group_topk": gk,
+               "rows_excluded_near_tie": int((~decided).sum()),
+               "racks_a_token_max": racks_a_token}
+        for name, out, ref in (("weights", w, r_w), ("scores", sc, r_sc)):
+            err, scale = _max_err(out, ref)
+            if not err <= GATING_TOL * scale:
+                raise AssertionError(f"gating_topk rack {tag} {name}: max|err|"
+                                     f" {err:.3e} > {GATING_TOL} * max|ref| "
+                                     f"{scale:.3e}")
+            rec[f"{name}_max_abs_err"] = err
+        rec["max_abs_err"] = max(rec["weights_max_abs_err"],
+                                 rec["scores_max_abs_err"])
+        epg = E // G
+        ones = torch.ones((T * k,), dtype=torch.int64, device="cuda")
+
+        def torch_ops_graph():
+            s = torch.sigmoid(x) if score_fn == "sigmoid" \
+                else torch.softmax(x, -1)
+            key = s + bias
+            grp_s = torch.topk(key.reshape(T, G, epg), gk).values.sum(-1)
+            keep = torch.zeros((T, G), dtype=torch.bool, device="cuda")
+            keep.scatter_(1, torch.topk(grp_s, M).indices, True)
+            masked_k = key.masked_fill(
+                ~keep.repeat_interleave(epg, dim=1), float("-inf"))
+            i = torch.topk(masked_k, k).indices
+            return (s.gather(1, i),
+                    torch.zeros((E,), dtype=torch.int64, device="cuda"
+                                ).scatter_add_(0, i.reshape(-1), ones))
+
+        rec.update(_time_pair(lambda: ops.gating_topk(x, k, **kw),
+                              lambda: ops.gating_topk_ref(x, k, **kw), None,
+                              *_rack_gate_cost(T, E, k, G, True), "fp32",
+                              iters))
+        rec["graph_ms"] = _graph_ms(lambda: ops.gating_topk(x, k, **kw),
+                                    iters)
+        rec["graph_cold_ms"], rec["cold"] = _graph_cold_ms(
+            lambda xi: ops.gating_topk(xi, k, **kw), x, iters)
+        rec["free_graph_ms"] = _graph_ms(lambda: ops.gating_topk(
+            x, k, score_fn=score_fn, bias=bias, want_scores=True), iters)
+        rec["torch_ops_graph_ms"] = _graph_ms(torch_ops_graph, iters)
+        rec["bound_share_warm"] = rec["bound_ms"] / rec["graph_ms"]
+        records[tag] = rec
+    ops.release_scratch()
+    _line("phase2_gating_topk_rack", records)
+    return records
+
+
+def _racked_lam(R, E, k, law, L, seed):
+    """PLAN_TOKENS x k items a rank from one popularity law, with each rack
+    keeping its tokens off its own third of the experts, so the racks'
+    demand incidence differs (the rack-limited gate's pattern)."""
+    import numpy as np
+
+    lam = _plan_lam(R, E, k, law, seed)
+    rng = np.random.default_rng(seed + 1)
+    for g in range(R // L):
+        lam[g * L:(g + 1) * L, rng.choice(E, E // 3, replace=False)] = 0
+    return lam
+
+
+def phase_plan_solve_racks() -> dict:
+    """Row Pr: ``plan_solve``'s rack mode (rack size L; with and without
+    the demand tie-break, whose (G, E) incidence the kernel computes from
+    lam) at RACK_PLAN_CASES over the three laws: the whole Plan, tier fields
+    included, integer-equal to the plain solve's; (probes, steps) equal; no
+    host sync.  Timed (graph, warm; the zipf law) beside the flat solve of
+    the same load; the plain loop's eager time on the card; the bound, as
+    row P's, serial oracle steps x one redux.sync round."""
+    import torch
+
+    from repro_torch.core import planner
+    from repro_torch.kernels.plan_solve import ops
+
+    redux_ms = min(ops.redux_round_ms() for _ in range(3))
+    records = {}
+    for R, E, k, L in RACK_PLAN_CASES:
+        for li, law in enumerate(PLAN_LAWS):
+            lam = torch.from_numpy(_racked_lam(R, E, k, law, L,
+                                               seed=R * 10 + li))
+            home = torch.arange(E) // (E // R)
+            bound = R * PLAN_TOKENS * k
+            lam_d, home_d = lam.cuda(), home.cuda()
+            lam_e = lam.sum(dim=0)
+            ell = planner._rank_load(lam_e, home, R)
+            rexp = planner._expert_order(lam_e, home, R)
+            args = [t.cuda() for t in (lam_e, ell, home, rexp)]
+            for demand in (False, True):
+                name = f"e{E}_k{k}_r{R}_l{L}_{law}" + ("_demand" if demand
+                                                        else "")
+                pkw = dict(n_slot=2, rack_size=L, demand_tiebreak=demand)
+                plain = planner.solve_plan(lam, home, **pkw)
+                plan = planner.solve_plan(lam_d, home_d, load_bound=bound,
+                                          **pkw)
+                torch.cuda.synchronize()
+                field = _plan_mismatch(plan, plain)
+                if field is not None:
+                    raise AssertionError(f"plan_solve rack {name}: {field} "
+                                         f"differs from the plain solve")
+                kw = dict(n_slot=2, u_min=1, max_replicas_per_expert=R,
+                          rack_size=L)
+                stats_ref = torch.zeros(2, dtype=torch.int32)
+                ops.plan_solve_ref(lam_e, ell, home, rexp, stats=stats_ref,
+                                   lam=lam if demand else None, **kw)
+                stats = torch.zeros(2, dtype=torch.int32, device="cuda")
+                ops.plan_solve(*args, load_bound=bound, stats=stats,
+                               lam=lam_d if demand else None, **kw)
+                if not torch.equal(stats.cpu(), stats_ref):
+                    raise AssertionError(f"plan_solve rack {name}: (probes, "
+                                         f"steps) {stats.tolist()} != "
+                                         f"{stats_ref.tolist()}")
+                _sync_free(lambda: planner.solve_plan(
+                    lam_d, home_d, load_bound=bound, **pkw))
+                probes, steps = stats_ref.tolist()
+                rec = {"shape": [R, E, k], "rack_size": L, "law": law,
+                       "demand": demand, "probes": probes, "steps": steps,
+                       "tier_tokens": plain.tier_tokens.tolist(),
+                       "tier_replicas": plain.tier_replicas.tolist(),
+                       "post_max": int(plain.post_max), "tau": int(plain.tau),
+                       "bound_ms": steps * redux_ms,
+                       "bound_by": "operations", "library_ms": None,
+                       "max_abs_err": 0, "sync_free": True}
+                if law == "zipf":
+                    dl = lam_d if demand else None
+                    rec["ms"] = _graph_ms(lambda: ops.plan_solve(
+                        *args, load_bound=bound, lam=dl, **kw), 5)
+                    rec["flat_ms"] = _graph_ms(lambda: ops.plan_solve(
+                        *args, load_bound=bound, n_slot=2, u_min=1,
+                        max_replicas_per_expert=R), 5)
+                    rec["plan_graph_ms"] = _graph_ms(
+                        lambda: planner.solve_plan(lam_d, home_d,
+                                                   load_bound=bound, **pkw), 3)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ops.plan_solve_ref(*args, lam=dl, **kw)
+                    torch.cuda.synchronize()
+                    rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                records[name] = rec
+    _line("phase2_plan_solve_rack", {"redux_round_ms": redux_ms, **records})
     return records
 
 
@@ -1886,11 +2140,10 @@ def _ep_worker(rank, world, port, out_dir):
             plain = planner.solve_plan(gs.lam.cpu(), torch.arange(
                 glm.moe.num_experts) // (glm.moe.num_experts // world),
                 n_slot=cfgs[mode].balancer.n_slot)
-            for field in planner.Plan._fields:
-                if not torch.equal(getattr(plan, field).cpu(),
-                                   getattr(plain, field)):
-                    raise AssertionError(f"ep layer {mode}: plan {field} "
-                                         f"differs from the plain solve")
+            field = _plan_mismatch(plan, plain)
+            if field is not None:
+                raise AssertionError(f"ep layer {mode}: plan {field} "
+                                     f"differs from the plain solve")
             out["modes"][mode] = {
                 "plan_tables_equal": True, "lam_total": int(gs.lam.sum()),
                 "pre_max": int(plain.pre_max), "post_max": int(plain.post_max),
@@ -2437,6 +2690,419 @@ def phase_train(glm) -> dict:
     return result
 
 
+def _rack_params(rank, world, cfg, dev):
+    """This rank's share of a DeepSeek-V3 MoE layer in bf16: the router,
+    the shared expert and the routing bias from one seed on every rank,
+    each rank's experts from a seed of its own (every group in phase 14
+    runs on these same shares, so the calls compare with no R = 1 copy of
+    all 256 experts)."""
+    import torch
+
+    from repro_torch.moe.layer import MoEParams
+
+    bf16 = torch.bfloat16
+    D, F, Fs = cfg.d_model, cfg.d_ff, cfg.shared_d_ff
+    g = torch.Generator(device=dev).manual_seed(0)
+    router = torch.randn((D, cfg.gating.num_experts), generator=g,
+                         device=dev) * D ** -0.5
+    bias = torch.randn((cfg.gating.num_experts,), generator=g,
+                       device=dev) * 1e-2
+    shared = [(torch.randn(shape, generator=g, device=dev, dtype=bf16)
+               * fan ** -0.5) for shape, fan in (((D, Fs), D), ((D, Fs), D),
+                                                  ((Fs, D), Fs))]
+    ge = torch.Generator(device=dev).manual_seed(1000 + rank)
+    epr = cfg.gating.num_experts // world
+    experts = [(torch.randn((epr,) + shape, generator=ge, device=dev,
+                            dtype=bf16) * fan ** -0.5)
+               for shape, fan in (((D, F), D), ((D, F), D), ((F, D), F))]
+    params = MoEParams(router, *experts, *shared, n_slot=cfg.balancer.n_slot)
+    del experts
+    return params, bias
+
+
+def _rack_worker(rank, world, port, out_dir):
+    """One rank of phase 14 (a spawned process on the one card): a flat
+    gloo group of 4 and the same ranks factored as 2 racks x 2 lanes; calls
+    (a)-(e) with the kernel counts set to 0 before each and read after, the
+    plan tables against the plain solve, then the backward of (b) and
+    (a)."""
+    import os
+
+    # Four ranks share the card: segments that grow in place leave less of
+    # it reserved and unused than the default allocator's (read when this
+    # process first allocates on the card).
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import planner
+    from repro_torch.models.transformer import (
+        ParallelCtx,
+        RuntimeConfig,
+        moe_config,
+    )
+    from repro_torch.moe import stages
+    from repro_torch.moe.layer import moe_layer_local
+    from repro_torch.parallel import collectives
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flat = collectives.init("gloo", world_size=world, rank=rank,
+                            init_method=f"tcp://localhost:{port}",
+                            timeout_s=300)
+    hier = collectives.factor(RACKS)
+    dev = torch.device("cuda")
+    ds = get_config("deepseek-v3-671b")
+    T = RACK_TOKENS
+    rcfg = RuntimeConfig(cf_pair=4.0, cf_slot=4.0, dtype=torch.bfloat16)
+    limited = dataclasses.replace(rcfg, rack_limit=1)
+    cfgs = {"a": moe_config(ds, rcfg, ParallelCtx(group=flat), T),
+            "b": moe_config(ds, rcfg, ParallelCtx(group=hier), T),
+            "c": moe_config(ds, limited, ParallelCtx(group=hier), T)}
+    cfgs["c_flat"] = dataclasses.replace(cfgs["a"], gating=cfgs["c"].gating)
+    cfgs["d"] = dataclasses.replace(cfgs["b"], overlap_chunks=2)
+    cfgs["e"] = dataclasses.replace(cfgs["a"], dispatch_impl="reference")
+    assert cfgs["b"].dispatch_mode == "hier_a2a" and cfgs["c"].gating.rack_binding
+    groups = {n: hier if c.dispatch_mode == "hier_a2a" else flat
+              for n, c in cfgs.items()}
+    # One rank at a time builds its share (the transient copies of four
+    # ranks at once would not fit the card beside each other).
+    for r in range(world):
+        if r == rank:
+            params, bias = _rack_params(rank, world, cfgs["a"], dev)
+            torch.cuda.empty_cache()
+        collectives.all_reduce(flat, torch.zeros(1, device=dev))
+    # The tokens lean toward experts 0-7 (homed on rank 0), half as hard as
+    # phase 9's: at 2.0 the hottest expert's load (≈ 1160 items) passes a
+    # slot's capacity (993 at cf 4) and no plan of 2 slots a rank keeps it
+    # (a CPU simulation of this router); at 1.0 the largest quota is ≈ 670
+    # and the plan still places 4-5 replicas.
+    lean = params.router[:, :8].sum(dim=1)
+    x_all = (torch.randn((world * T, ds.d_model), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+        + 1.0 * lean / lean.norm()).to(torch.bfloat16)
+    x = x_all[rank * T:(rank + 1) * T]
+    del x_all
+    E = ds.moe.num_experts
+    home = torch.arange(E) // (E // world)
+    out = {"calls": {}}
+    ys, gates = {}, {}
+    with torch.inference_mode():
+        for name, cfg in cfgs.items():
+            g = groups[name]
+            ctx = stages.make_stage_ctx(cfg, g)
+            gs = stages.gate_stage(ctx, x, params.router, bias)
+            plan = stages.plan_stage(ctx, gs).plan
+            plain = planner.solve_plan(
+                gs.lam.cpu(), home, n_slot=cfg.balancer.n_slot,
+                rack_size=cfg.rack_size,
+                demand_tiebreak=cfg.gating.rack_binding,
+                gate_tier_tokens=(None if gs.gate_tier_tokens is None
+                                  else gs.gate_tier_tokens.cpu()))
+            # Failures are recorded and raised by the parent: a rank that
+            # raised here would leave the others waiting in a collective.
+            mismatch = _plan_mismatch(plan, plain)
+            ids = gs.gate_out.expert_ids
+            gates[name] = (ids, gs.gate_out.weights)
+            del gs, plan
+            torch.cuda.synchronize()
+            _reset_launches()
+            y, _, st = moe_layer_local(x, params, cfg, axis_name=g,
+                                       router_bias=bias)
+            torch.cuda.synchronize()
+            launches = _launches()
+            ys[name] = y
+            racks_a_token = int((ids // (E // RACKS)).sort(dim=1).values
+                                .diff(dim=1).ne(0).sum(dim=1).max()) + 1
+            rec = {"mode": cfg.dispatch_mode, "impl": cfg.dispatch_impl,
+                   "overlap_chunks": cfg.overlap_chunks,
+                   "racks": cfg.racks, "rack_limit": cfg.gating.rack_limit,
+                   "cap_pair": cfg.cap_pair, "cap_slot": cfg.cap_slot,
+                   "drops": int(st.drops_dispatch + st.drops_slot),
+                   "post_max": int(st.post_max),
+                   "max_slot_load": int(st.max_slot_load),
+                   "racks_a_token_max": racks_a_token,
+                   "items": world * T * cfg.gating.top_k,
+                   "finite": bool(torch.isfinite(y).all()),
+                   "plan_mismatch": mismatch,
+                   "launches": {k: launches[k] for k in (
+                       "plan_solve", "gating_topk", "gating_topk.rack",
+                       "gating_topk.free", "grouped_swiglu",
+                       "grouped_matmul")}}
+            for f in ("tier_tokens", "tier_replicas", "tier_bytes",
+                      "gate_tier_tokens", "gate_tier_bytes"):
+                v = getattr(st, f)
+                rec[f] = None if v is None else v.tolist()
+            out["calls"][name] = rec
+            del st
+            torch.cuda.empty_cache()
+            _host_release()
+    pairs = (("b", "a"), ("c", "c_flat"), ("d", "b"), ("e", "a"))
+    out["equal"] = {f"{u}={v}": bool(torch.equal(ys[u], ys[v]))
+                    for u, v in pairs}
+    # Where outputs differ: the gate's and the rows' differences on this
+    # rank, and, where they differ on any rank (every rank must make the
+    # same collective calls), each item's FFN row of (b) against (a).
+    out["differences"] = {
+        f"{u}={v}": {"gate_equal": bool(
+                         torch.equal(gates[u][0], gates[v][0])
+                         and torch.equal(gates[u][1], gates[v][1])),
+                     "rows_differing": int((ys[u] != ys[v]).any(dim=1).sum()),
+                     "max_abs_diff": float((ys[u].float() - ys[v].float())
+                                           .abs().max())}
+        for u, v in pairs if not torch.equal(ys[u], ys[v])}
+    bad = collectives.all_reduce(flat, torch.tensor(
+        [float(bool(out["differences"]))], device=dev))
+    if bad.item() > 0:
+        out["first_difference"] = _rack_first_difference(
+            cfgs, groups, params, x, bias)
+    del ys, gates
+    torch.cuda.empty_cache()
+    out["peak_forward_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    out["backward"] = _rack_backward(cfgs, groups, params, x, bias)
+    out["peak_backward_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["host_peak_gb"] = _host_peak_gb()
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    collectives.destroy()
+
+
+def _rack_first_difference(cfgs, groups, params, x, bias) -> dict:
+    """Stage by stage, (b) against (a): whether the gate, each item's FFN
+    output row as it returns to its source, and the combined output agree
+    bit for bit."""
+    import torch
+
+    from repro_torch.moe import stages
+    from repro_torch.moe.permute import fused_unbucket
+
+    res = {}
+    with torch.inference_mode():
+        st = {}
+        for name in ("a", "b"):
+            ctx = stages.make_stage_ctx(cfgs[name], groups[name])
+            gs = stages.gate_stage(ctx, x, params.router, bias)
+            ps = stages.plan_stage(ctx, gs)
+            dist = stages.distribute_stage(ctx, params, gs, ps)
+            d = stages.dispatch_stage(ctx, x, gs.gate_out.expert_ids, gs, ps)
+            o = stages.compute_stage(ctx, d, dist)
+            disp, meta = d.inverse
+            ret = stages._exchange(ctx, fused_unbucket(o, meta), reverse=True)
+            cap = ret.shape[1]
+            rows = ret.reshape(-1, ret.shape[-1])[
+                disp.item_dst.clamp(min=0) * cap + disp.item_pos.clamp(
+                    max=cap - 1)]
+            st[name] = (gs.gate_out, rows, stages.combine_stage(
+                ctx, d, o, gs.gate_out.weights))
+        ga, gb = st["a"][0], st["b"][0]
+        res["gate"] = bool(torch.equal(ga.expert_ids, gb.expert_ids)
+                           and torch.equal(ga.weights, gb.weights))
+        res["ffn_rows"] = bool(torch.equal(st["a"][1], st["b"][1]))
+        res["combined"] = bool(torch.equal(st["a"][2], st["b"][2]))
+    return res
+
+
+# Phase 14's backward in passes, each with the gradients of one part: x
+# (the parameters held fixed), then the router with w1, then w3, then w2
+# (x held fixed); and the launches each pass makes (B1 the SwiGLU backward,
+# B2 the dgrad products: dact, and dx where x takes a gradient; B3 the
+# three wgrads, made in every parameter pass: the slot buffers of all three
+# weights take a gradient when one main does).
+_PARAM_PASS = {"grouped_swiglu_bwd": 1, "grouped_matmul_nt": 1,
+               "grouped_wgrad": 3}
+RACK_BWD_PASSES = {
+    "x": (("x",), {"grouped_swiglu_bwd": 1, "grouped_matmul_nt": 2,
+                   "grouped_wgrad": 0}),
+    "w1": (("router", "w1"), _PARAM_PASS),
+    "w3": (("w3",), _PARAM_PASS),
+    "w2": (("w2",), _PARAM_PASS)}
+
+
+def _max_err_rows(out, ref, rows: int = 8) -> tuple[float, float]:
+    """``_max_err`` of ``out`` (on the card) against ``ref`` (on the host),
+    ``rows`` leading rows at a time: an fp32 copy of a whole expert
+    gradient (3.5 GB) does not fit beside four ranks."""
+    err = scale = 0.0
+    for i in range(0, out.shape[0], rows):
+        e, m = _max_err(out[i:i + rows], ref[i:i + rows].to(out.device))
+        err, scale = max(err, e), max(scale, m)
+    return err, scale
+
+
+def _host_peak_gb() -> float:
+    """This process's peak resident host memory, GB (``ru_maxrss``, KB on
+    Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def _host_release() -> bool:
+    """Return the cached pinned host blocks (gloo stages CUDA tensors
+    through them) to the system, where this PyTorch can; four ranks' caches
+    and the reference gradients share the host's memory.  True if done."""
+    import torch
+
+    release = getattr(torch._C, "_host_emptyCache", None)
+    if release is not None:
+        release()
+    return release is not None
+
+
+def _rack_backward(cfgs, groups, params, x, bias) -> dict:
+    """(f): d(sum y^2) through (b) against (a), in x, the router and this
+    rank's experts (the router's summed over the group), each within
+    TRAIN_TOL of (a)'s max|g|.
+
+    The gradients come in passes (RACK_BWD_PASSES), each run on (a), then
+    on (b).  Four ranks share one card and one host: a pass of one part
+    holds the experts, the slot gradients and the exchanges' buffers but
+    not every gradient at once, (a)'s gradients of the pass wait on the
+    host (at most one weight, 1.9 GB a rank) and (b)'s are compared on the
+    card.  Each pass also has one chain of collectives, where a pass of
+    both kinds would leave the replica gradients' gather and the dispatch
+    exchange's transpose ready together, a choice the autograd engine need
+    not make alike on every rank."""
+    import sys
+
+    import torch
+
+    from repro_torch.moe.layer import moe_layer_local
+    from repro_torch.parallel import collectives
+
+    errs = {}
+    launches = {}
+    for tag, (wrt, _) in RACK_BWD_PASSES.items():
+        ref = {}                              # (a)'s gradients, on the host
+        for name in ("a", "b"):
+            print(f"rack tier backward: rank {groups['a'].rank} pass {tag} "
+                  f"call ({name})", file=sys.stderr, flush=True)
+            torch.cuda.synchronize()
+            _reset_launches()
+            with torch.enable_grad():
+                for n in ("router", "w1", "w3", "w2"):
+                    getattr(params, n).requires_grad_(n in wrt)
+                xg = x.clone().requires_grad_("x" in wrt)
+                y, _, st = moe_layer_local(xg, params, cfgs[name],
+                                           axis_name=groups[name],
+                                           router_bias=bias)
+                (y.float() ** 2).sum().backward()
+            torch.cuda.synchronize()
+            n = _launches()
+            launches[f"{name}/{tag}"] = {k: n[k] for k in (
+                "plan_solve", "gating_topk", "grouped_swiglu",
+                "grouped_matmul", "grouped_swiglu_bwd", "grouped_matmul_nt",
+                "grouped_wgrad")}
+            launches[f"{name}/{tag}"]["drops"] = int(st.drops_dispatch
+                                                     + st.drops_slot)
+            grads = {g: (xg.grad if g == "x" else getattr(params, g).grad)
+                     for g in wrt}
+            if "router" in grads:
+                grads["router"] = collectives.all_reduce(groups["a"],
+                                                         grads["router"])
+            for g, t in grads.items():
+                if name == "a":
+                    ref[g] = t.cpu()
+                else:
+                    errs[g] = _max_err_rows(t, ref.pop(g))
+            for t in params.parameters():
+                t.requires_grad_(False)
+                t.grad = None
+            del xg, y, st, grads
+            torch.cuda.empty_cache()
+            _host_release()
+    return {"max_abs_err": {n: e[0] for n, e in errs.items()},
+            "max_abs_ref": {n: e[1] for n, e in errs.items()},
+            "tol": TRAIN_TOL, "launches": launches,
+            "host_cache_released": _host_release()}
+
+
+def phase_rack_tier() -> dict:
+    """Phase 14: the rack tier on the one card.  Four processes (spawn),
+    one gloo group over CUDA tensors and the same ranks factored as 2
+    racks x 2 lanes; DeepSeek-V3's MoE layer at full width (E 256, k 8,
+    sigmoid router with a selection bias, routed scaling 2.5, d_model 7168,
+    d_ff 2048, one shared expert, n_slot 2), bf16, RACK_TOKENS tokens a
+    rank leaning toward rank 0's experts, ``ultraep``, capacity factors
+    4.0.  Calls: (a) flat ``a2a``; (b) ``hier_a2a``; (c) ``hier_a2a`` with
+    a rack limit of 1 and flat ``a2a`` with the same gate; (d) (b) in 2
+    overlap chunks; (e) (a) on the reference engine; (f) the backward of
+    (b) against (a)'s.  Checks on every rank: y(b) == y(a), y(c) == its
+    flat twin, y(d) == y(b), y(e) == y(a) bit for bit; (b)'s tier_tokens
+    sum to R T k; under (c) every token's experts in one rack and at most
+    one at-gate inter-rack copy a token; zero drops; the plan tables equal
+    the plain solve's; each call through one launch of the plan solve,
+    the gate (rack mode in (c) and its twin) and the two grouped GEMMs (two each in
+    (d)); (f) within TRAIN_TOL of max|g|, in two passes (RACK_BWD_PASSES)
+    with their launches of B1, B2 and B3.
+    No time is stated: gloo stages CUDA tensors through the host."""
+    import gc
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gb = torch.cuda.memory_reserved() / 2 ** 30
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        mp.spawn(_rack_worker, args=(RACK_RANKS, port, out_dir),
+                 nprocs=RACK_RANKS, join=True)
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(RACK_RANKS)]
+    result = {"ranks": RACK_RANKS, "racks": RACKS,
+              "tokens_per_rank": RACK_TOKENS, "backend": "gloo",
+              "parent_reserved_gb": parent_gb,
+              "parent_host_peak_gb": _host_peak_gb(), "ranks_by_call": ranks}
+    # The record first, so that a failed check leaves every rank's data.
+    _line("phase14_rack_tier", result)
+    for rank, rec in enumerate(ranks):
+        if not all(rec["equal"].values()):
+            raise AssertionError(f"rack tier rank {rank}: outputs not equal "
+                                 f"bit for bit: {rec['differences']}; (b) "
+                                 f"against (a) by stage, every rank: "
+                                 f"{[r.get('first_difference') for r in ranks]}")
+        bw = rec["backward"]
+        for n, err in bw["max_abs_err"].items():
+            if not err <= TRAIN_TOL * bw["max_abs_ref"][n]:
+                raise AssertionError(f"rack tier backward rank {rank} d{n}: "
+                                     f"max|err| {err:.3e} > {TRAIN_TOL} * "
+                                     f"max|ref| {bw['max_abs_ref'][n]:.3e}")
+        for name, c in rec["calls"].items():
+            n = c["launches"]
+            chunks = c["overlap_chunks"]
+            want_rack = 1 if c["rack_limit"] else 0     # (c), its flat twin
+            if (c["drops"] or not c["finite"] or c["plan_mismatch"]
+                    or n["plan_solve"] != 1
+                    or n["gating_topk"] != 1
+                    or n["gating_topk.rack"] != want_rack
+                    or n["grouped_swiglu"] != chunks
+                    or n["grouped_matmul"] != chunks):
+                raise AssertionError(f"rack tier rank {rank} ({name}): {c}")
+        b, c = rec["calls"]["b"], rec["calls"]["c"]
+        items = b["items"]
+        if sum(b["tier_tokens"]) != items or sum(c["tier_tokens"]) != items:
+            raise AssertionError(f"rack tier rank {rank}: tier_tokens "
+                                 f"{b['tier_tokens']}, {c['tier_tokens']} "
+                                 f"do not sum to {items}")
+        if c["racks_a_token_max"] != 1 or \
+                c["gate_tier_tokens"][2] > RACK_RANKS * RACK_TOKENS:
+            raise AssertionError(f"rack tier rank {rank} (c): a token in "
+                                 f"{c['racks_a_token_max']} racks, at-gate "
+                                 f"tiers {c['gate_tier_tokens']}")
+        for name, n in rec["backward"]["launches"].items():
+            want = RACK_BWD_PASSES[name.split("/")[1]][1]
+            if n["drops"] or any(n[k] != v for k, v in want.items()):
+                raise AssertionError(f"rack tier backward rank {rank} "
+                                     f"({name}): {n}, expected {want}")
+    return result
+
+
 def _kernel_row(name, source, replaces, rec, launches, extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2464,38 +3130,57 @@ def main() -> int:
     jamba = get_config("jamba-v0.1-52b")
     qwen3 = get_config("qwen3-235b-a22b")
     deepseek = get_config("deepseek-v3-671b")
-    phase_card()
-    records = phase_kernels(glm, jamba, deepseek)
-    ssd_records = phase_ssd()
-    q8_records = phase_kernels_q8(glm)
-    gating_records = phase_gating()
-    plan_records = phase_plan_solve()
-    flash_records = phase_flash()
-    train_kernel_records = phase_train_kernels(glm)
-    phase_moe_layer(glm)
+
+    def timed(tag, fn, *args, **kw):
+        """Run one phase and print its wall seconds on a line of its own."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        _line("phase_seconds", {"phase": tag,
+                                "wall_s": round(time.perf_counter() - t0, 3)})
+        return out
+
+    timed("phase1_card", phase_card)     # its line holds kernel_build_s
+    records = timed("phase2_kernels", phase_kernels, glm, jamba, deepseek)
+    ssd_records = timed("phase2_ssd", phase_ssd)
+    q8_records = timed("phase2_kernels_q8", phase_kernels_q8, glm)
+    gating_records = timed("phase2_gating_topk", phase_gating)
+    gating_rack_records = timed("phase2_gating_topk_rack", phase_gating_racks)
+    plan_records = timed("phase2_plan_solve", phase_plan_solve)
+    plan_rack_records = timed("phase2_plan_solve_rack",
+                              phase_plan_solve_racks)
+    flash_records = timed("phase2_flash_attention", phase_flash)
+    train_kernel_records = timed("phase12_train_kernels", phase_train_kernels,
+                                 glm)
+    timed("phase3_moe_layer", phase_moe_layer, glm)
     glm_2l = dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2)
-    glm_serve = phase_serve(glm_2l, "phase4_serve_glm")
-    glm_q8_serve = phase_serve(glm_2l, "phase4b_serve_glm_q8",
-                               beside=glm_serve, wire_dtype="int8",
-                               ffn_dtype="int8")
-    glm_fp32_serve = phase_serve(glm_2l, "phase4c_serve_glm_fp32",
-                                 beside=glm_serve, dtype="float32")
-    phase_mamba_mixer(jamba)
-    jamba_serve = phase_serve(
+    glm_serve = timed("phase4_serve_glm", phase_serve, glm_2l,
+                      "phase4_serve_glm")
+    glm_q8_serve = timed("phase4b_serve_glm_q8", phase_serve, glm_2l,
+                         "phase4b_serve_glm_q8", beside=glm_serve,
+                         wire_dtype="int8", ffn_dtype="int8")
+    glm_fp32_serve = timed("phase4c_serve_glm_fp32", phase_serve, glm_2l,
+                           "phase4c_serve_glm_fp32", beside=glm_serve,
+                           dtype="float32")
+    timed("phase5_mamba_mixer", phase_mamba_mixer, jamba)
+    jamba_serve = timed(
+        "phase6_serve_jamba", phase_serve,
         dataclasses.replace(jamba, name=jamba.name + "-8l", num_layers=8),
         "phase6_serve_jamba")
-    qwen3_serve = phase_serve(
+    qwen3_serve = timed(
+        "phase7_serve_qwen3", phase_serve,
         dataclasses.replace(qwen3, name=qwen3.name + "-2l", num_layers=2),
         "phase7_serve_qwen3", beside=glm_serve)
-    phase_mla_layer(deepseek)
+    timed("phase10_mla_layer", phase_mla_layer, deepseek)
     # 3 dense layers (first_dense_layers) and 1 MoE layer.
-    deepseek_serve = phase_serve(
+    deepseek_serve = timed(
+        "phase11_serve_deepseek", phase_serve,
         dataclasses.replace(deepseek, name=deepseek.name + "-4l",
                             num_layers=4),
         "phase11_serve_deepseek", beside=glm_serve)
-    train_record = phase_train(glm)
-    cli_records = phase_serve_cli()
-    ep = phase_ep_layer()
+    train_record = timed("phase13_train", phase_train, glm)
+    cli_records = timed("phase7b_serve_cli", phase_serve_cli)
+    ep = timed("phase9_ep_layer", phase_ep_layer)
+    rack = timed("phase14_rack_tier", phase_rack_tier)
     serves = {"glm45-106b-a12b": glm_serve,
               "glm45-106b-a12b-q8": glm_q8_serve,
               "glm45-106b-a12b-fp32": glm_fp32_serve,
@@ -2762,6 +3447,62 @@ def main() -> int:
                 "shape", "law", "probes", "steps", "ms", "plan_graph_ms",
                 "plain_ms", "bound_ms", "post_over_mean")}
                for tag in plan_records if tag != "e128_k8_r64_zipf"}}))
+    # Row 5r: the gate kernel's rack mode (DeepSeek-V3's node-limited
+    # routing, G 8 / M 4 / group top-2), launched on phase 14's path by
+    # call (c), rank 0; its ms is the eager time, as row 5's.
+    rack0 = rack["ranks_by_call"][0]["calls"]
+    gr = gating_rack_records["ds_g8_m4"]
+    rack_gate_keys = ("graph_ms", "graph_cold_ms", "free_graph_ms",
+                      "torch_ops_graph_ms", "bound_share_warm")
+    kernels.append(_kernel_row(
+        "gating_topk.rack",
+        "src/repro_torch/kernels/gating_topk/csrc/gating_topk.cu",
+        "src/repro/kernels/gating_topk/kernel.py:59 (with "
+        "src/repro/moe/gating.py:112-139, _rack_limited_top_k)", gr,
+        rack0["c"]["launches"]["gating_topk.rack"], {
+            "launches_note": "phase 14, call (c) (hier_a2a, rack limit 1), "
+                             "rank 0",
+            "launches_by_call": {n: c["launches"]["gating_topk.rack"]
+                                 for n, c in rack0.items()},
+            "routing": {"num_racks": 8, "rack_limit": 4, "group_topk": 2},
+            **{k: gr[k] for k in rack_gate_keys}, "cold": gr["cold"],
+            "library_note": "none: no one PyTorch call computes the fused "
+                            "function; torch_ops_graph_ms is the composite "
+                            "group top-2 -> top-M -> mask -> topk -> gather "
+                            "-> scatter_add in a graph",
+            **{tag: {k: gating_rack_records[tag][k]
+                     for k in ("shape", "num_racks", "rack_limit") + keys
+                     + rack_gate_keys}
+               for tag in ("ds_g2_m1", "ds_g8_m4_decode")},
+            "rows_excluded_near_tie": {
+                t: r["rows_excluded_near_tie"]
+                for t, r in gating_rack_records.items()}}))
+    # Row Pr: the plan solve's rack mode (rack score and, with the demand
+    # tie-break, the on-card incidence), launched by phase 14's rack-aware
+    # calls (b), (c), (d), rank 0.
+    pr = dict(plan_rack_records["e128_k8_r64_l8_zipf_demand"],
+              shape="E 128, k 8, R 64, L 8, Zipf 1.0 with racks off a third "
+                    "of the experts, 4096 tokens a rank, demand tie-break")
+    kernels.append(_kernel_row(
+        "plan_solve.rack",
+        "src/repro_torch/kernels/plan_solve/csrc/plan_solve.cu",
+        "src/repro/core/planner.py:349 and :198 in rack mode (the score of "
+        ":156-162, the incidence of :291-294; no pallas_call)", pr,
+        sum(rack0[n]["launches"]["plan_solve"] for n in ("b", "c", "d")), {
+            "launches_note": "phase 14, rank 0: calls (b), (c), (d) "
+                             "(rack size 2); (a), (e) solve flat",
+            "launches_by_call": {n: c["launches"]["plan_solve"]
+                                 for n, c in rack0.items()},
+            "bound_note": "latency: serial oracle steps x one measured "
+                          "redux.sync round",
+            "steps": pr["steps"], "probes": pr["probes"],
+            "flat_ms": pr["flat_ms"], "plan_graph_ms": pr["plan_graph_ms"],
+            "library_note": "none: no PyTorch call computes the solve",
+            **{tag: {k: r[k] for k in ("shape", "rack_size", "law", "demand",
+                                       "probes", "steps", "ms", "flat_ms",
+                                       "plain_ms", "bound_ms")}
+               for tag, r in plan_rack_records.items()
+               if "ms" in r and tag != "e128_k8_r64_l8_zipf_demand"}}))
     # The backward kernels (no pallas_call: XLA differentiates the JAX
     # package's einsums and flash_ref), with their launches in the last
     # train step of phase 13 and in phase 9's R = 2 backward.

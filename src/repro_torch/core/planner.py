@@ -1,10 +1,18 @@
-"""UltraEP quota-driven replication planner, flat tier (paper Alg. 1).
+"""UltraEP quota-driven replication planner (paper Alg. 1).
 
-Mirrors ``repro.core.planner`` at ``probe_parallelism=1`` with no rack tier
-and no health weights: the same greedy feasibility oracle, threshold
-bisection, locality-first NW-corner reroute and slot assignment, so the
-plan tables are integer-identical to the JAX solve (and hence to the numpy
-oracle ``repro.core.ref_planner``).
+Mirrors ``repro.core.planner`` at ``probe_parallelism=1`` with no health
+weights: the same greedy feasibility oracle, threshold bisection,
+locality-first NW-corner reroute and slot assignment, so the plan tables
+are integer-identical to the JAX solve (and hence to the numpy oracle
+``repro.core.ref_planner``).
+
+The rack tier (``rack_size``, ranks per rack of a two-level topology,
+DESIGN.md S9) is the reference's: exact slack ties in the oracle break
+toward racks that demand the expert (``demand_tiebreak``, DESIGN.md S14),
+then toward the expert's home rack; the reroute gains a rack-local
+NW-corner tier before the global one; and the plan carries its token and
+replica volumes by fabric tier.  With one rack every bonus is uniform and
+the plan is the flat one, bit for bit.
 
 Control flow.  JAX runs both loops as ``lax.while_loop`` on the device.
 Here they are one launch of a hand-written kernel on a CUDA tensor
@@ -27,7 +35,7 @@ from repro_torch.kernels.plan_solve.ops import plan_solve
 
 __all__ = ["Plan", "solve_replication", "solve_reroute", "solve_plan",
            "slot_assignment", "token_targets", "occurrence_index",
-           "cumulative_quota"]
+           "cumulative_quota", "token_tier_volumes", "replica_tier_volumes"]
 
 _I64 = torch.int64
 
@@ -44,6 +52,14 @@ class Plan(NamedTuple):
     post_max: torch.Tensor   # () post-balance max rank load
     cum_q: torch.Tensor      # (R, E, R) inclusive cumsum of q over dst rank
     cum_u: torch.Tensor      # (E, R) inclusive cumsum of u over instance rank
+    # Rack-aware solves (rack_size set): token items and replica instances
+    # by fabric tier.
+    tier_tokens: torch.Tensor | None = None    # (3,) [local, intra, inter]
+    tier_replicas: torch.Tensor | None = None  # (2,) [intra, inter]
+    # Rack-limited routing: the gate's (3,) deduplicated payload copies
+    # against the home placement, before any reroute (the at-gate twin of
+    # tier_tokens; repro_torch.moe.gating.rack_copy_volumes).
+    gate_tier_tokens: torch.Tensor | None = None  # (3,) [local, intra, inter]
 
 
 def _home_quota(lam_e: torch.Tensor, home: torch.Tensor, R: int) -> torch.Tensor:
@@ -67,17 +83,19 @@ def _expert_order(lam_e: torch.Tensor, home: torch.Tensor, R: int) -> torch.Tens
     return p1[p2].reshape(R, E // R)
 
 
-def _flat_only(rack_size, health_weight, demand_tiebreak,
-               probe_parallelism: int) -> None:
-    if rack_size is not None:
-        raise ValueError("rack_size: the rack-aware tier is not ported yet")
+def _unported(health_weight, probe_parallelism: int) -> None:
     if health_weight is not None:
         raise ValueError("health_weight: health-weighted solves are not "
-                         "ported yet")
-    if demand_tiebreak:
-        raise ValueError("demand_tiebreak: rack co-design is not ported yet")
+                         "ported yet (ROADMAP section 1 item 7, resilience)")
     if probe_parallelism != 1:
-        raise ValueError("probe_parallelism > 1 is not ported yet")
+        raise ValueError("probe_parallelism > 1 is not ported yet (ROADMAP "
+                         "section 1: probe_parallelism in the plan-solve "
+                         "kernel)")
+
+
+def _check_rack_size(rack_size: int | None, R: int) -> None:
+    if rack_size is not None and (rack_size < 1 or R % rack_size != 0):
+        raise ValueError(f"rack_size={rack_size} must divide R={R}")
 
 
 def solve_replication(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
@@ -93,14 +111,18 @@ def solve_replication(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
     the (E, R) quota table and the solved threshold as a 0-d tensor.
     ``load_bound`` bounds ``lam.sum()`` from what the host knows (ranks x
     tokens per rank x top-k); a solve on the card at R > 1 needs it, since
-    the kernel's int32 arithmetic takes totals below 2^31 only.
+    the kernel's int32 arithmetic takes totals below 2^31 only (below
+    2^31 / 2, or / 4 with ``demand_tiebreak``, in rack mode: the score
+    scales the slack).  ``rack_size`` and ``demand_tiebreak``: see the
+    module's notes.
     """
-    _flat_only(rack_size, health_weight, demand_tiebreak, probe_parallelism)
+    _unported(health_weight, probe_parallelism)
     lam = lam.to(_I64)
     home = home.to(_I64)
     R, E = lam.shape
     if E % R != 0:
         raise ValueError(f"E={E} must be a multiple of R={R}")
+    _check_rack_size(rack_size, R)
     max_rep = R if max_replicas_per_expert is None else max_replicas_per_expert
 
     lam_e = lam.sum(dim=0)
@@ -109,9 +131,11 @@ def solve_replication(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
         return _home_quota(lam_e, home, R), lam_e.sum()
     ell = _rank_load(lam_e, home, R)
     rank_experts = _expert_order(lam_e, home, R)
+    demand = demand_tiebreak and rack_size is not None
     return plan_solve(lam_e, ell, home, rank_experts, n_slot=n_slot,
                       u_min=u_min, max_replicas_per_expert=max_rep,
-                      load_bound=load_bound)
+                      load_bound=load_bound, rack_size=rack_size,
+                      lam=lam.contiguous() if demand else None)
 
 
 def _nw_corner(demand: torch.Tensor, quota: torch.Tensor) -> torch.Tensor:
@@ -128,14 +152,16 @@ def solve_reroute(lam: torch.Tensor, u: torch.Tensor, *, locality: bool = True,
                   rack_size: int | None = None) -> torch.Tensor:
     """Quota decomposition Q (S5.2): locality first, then NW-corner residual.
 
-    Mirrors the flat tier of ``repro.core.planner.solve_reroute``; both
-    marginals are exact: ``Q.sum(-1) == lam`` and ``Q.sum(0).T == u``.
+    Mirrors ``repro.core.planner.solve_reroute``; both marginals are exact:
+    ``Q.sum(-1) == lam`` and ``Q.sum(0).T == u``.  ``rack_size`` inserts the
+    rack-local tier between the rank-local step and the global residual:
+    per expert and rack, residual demand is NW-corner matched against
+    residual quota inside the rack before any flow crosses racks.
     """
-    if rack_size is not None:
-        raise ValueError("rack_size: the rack-local tier is not ported yet")
     lam = lam.to(_I64)
     u = u.to(_I64)
-    R, _E = lam.shape
+    R, E = lam.shape
+    _check_rack_size(rack_size, R)
     demand = lam.T
     quota = u
     local = None
@@ -143,7 +169,22 @@ def solve_reroute(lam: torch.Tensor, u: torch.Tensor, *, locality: bool = True,
         local = torch.minimum(demand, quota)
         demand = demand - local
         quota = quota - local
-    q = _nw_corner(demand, quota).permute(1, 0, 2)         # (R_src, E, R_dst)
+    q_intra = None
+    if rack_size is not None:
+        L = rack_size
+        G = R // L
+        fill_g = _nw_corner(demand.reshape(E, G, L),
+                            quota.reshape(E, G, L))         # (E, G, L, L)
+        demand = demand - fill_g.sum(dim=-1).reshape(E, R)
+        quota = quota - fill_g.sum(dim=-2).reshape(E, R)
+        # Rack blocks onto the (R_src, R_dst) diagonal of racks.
+        eye_g = torch.eye(G, dtype=_I64, device=lam.device)
+        q_intra = (eye_g[None, :, None, :, None]
+                   * fill_g[:, :, :, None, :]).reshape(E, R, R)
+    fill = _nw_corner(demand, quota)                        # (E, R_src, R_dst)
+    if q_intra is not None:
+        fill = fill + q_intra
+    q = fill.permute(1, 0, 2)                               # (R_src, E, R_dst)
     if locality:
         eye = torch.eye(R, dtype=_I64, device=lam.device)
         q = q + local.T[:, :, None] * eye[:, None, :]
@@ -207,33 +248,77 @@ def token_targets(expert_ids: torch.Tensor, q_row: torch.Tensor | None = None,
     return tgt
 
 
+def token_tier_volumes(q: torch.Tensor, rack_size: int) -> torch.Tensor:
+    """(3,) token items by fabric tier: [local, intra_rack, inter_rack].
+
+    Mirrors ``repro.core.planner.token_tier_volumes``; ``q`` is the
+    (R_src, E, R_dst) reroute split."""
+    R = q.shape[0]
+    per_pair = q.to(_I64).sum(dim=1)                         # (R_src, R_dst)
+    ranks = torch.arange(R, dtype=_I64, device=q.device)
+    same_rank = ranks[:, None] == ranks[None, :]
+    same_rack = (ranks[:, None] // rack_size) == (ranks[None, :] // rack_size)
+    zero = torch.zeros((), dtype=_I64, device=q.device)
+    return torch.stack([
+        torch.where(same_rank, per_pair, zero).sum(),
+        torch.where(same_rack & ~same_rank, per_pair, zero).sum(),
+        torch.where(~same_rack, per_pair, zero).sum()])
+
+
+def replica_tier_volumes(u: torch.Tensor, home: torch.Tensor,
+                         rack_size: int) -> torch.Tensor:
+    """(2,) replica instances by tier: [intra_rack, inter_rack].
+
+    Mirrors ``repro.core.planner.replica_tier_volumes``: each off-home
+    instance with positive quota is one weight transfer from its home."""
+    E, R = u.shape
+    ranks = torch.arange(R, dtype=_I64, device=u.device)
+    home = home.to(_I64)
+    is_rep = (u.T > 0) & (home[None, :] != ranks[:, None])   # (R, E)
+    same_rack = (ranks[:, None] // rack_size) == (home[None, :] // rack_size)
+    return torch.stack([(is_rep & same_rack).sum(),
+                        (is_rep & ~same_rack).sum()])
+
+
 def solve_plan(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
                u_min: int = 1, locality: bool = True,
                max_replicas_per_expert: int | None = None,
                probe_parallelism: int = 1, rack_size: int | None = None,
                health_weight: torch.Tensor | None = None,
                demand_tiebreak: bool = False,
+               gate_tier_tokens: torch.Tensor | None = None,
                load_bound: int | None = None) -> Plan:
     """Full Alg. 1: replication + reroute + slot map + imbalance metrics.
 
-    Mirrors ``repro.core.planner.solve_plan`` on the flat tier
-    (``load_bound``: see :func:`solve_replication`).
+    Mirrors ``repro.core.planner.solve_plan`` (``load_bound``: see
+    :func:`solve_replication`).  ``rack_size`` switches on the rack-aware
+    solve and the plan's tier volumes; ``gate_tier_tokens`` is stamped on
+    the plan as given.
     """
-    _flat_only(rack_size, health_weight, demand_tiebreak, probe_parallelism)
+    _unported(health_weight, probe_parallelism)
     lam = lam.to(_I64)
     home = home.to(_I64)
     u, tau = solve_replication(lam, home, n_slot=n_slot, u_min=u_min,
                                max_replicas_per_expert=max_replicas_per_expert,
+                               rack_size=rack_size,
+                               demand_tiebreak=demand_tiebreak,
                                load_bound=load_bound)
-    q = solve_reroute(lam, u, locality=locality)
-    return _plan_from(lam, u, q, tau, home, n_slot)
+    q = solve_reroute(lam, u, locality=locality, rack_size=rack_size)
+    return _plan_from(lam, u, q, tau, home, n_slot, rack_size,
+                      gate_tier_tokens)
 
 
-def _plan_from(lam, u, q, tau, home, n_slot: int) -> Plan:
+def _plan_from(lam, u, q, tau, home, n_slot: int, rack_size=None,
+               gate_tier_tokens=None) -> Plan:
     """Assemble a :class:`Plan` from solved tables (shared with the balancer)."""
     R = lam.shape[0]
     hosted = (u.T > 0) | torch.nn.functional.one_hot(home, R).T.bool()
     ell = _rank_load(lam.sum(dim=0), home, R)
     return Plan(u=u, q=q, x=slot_assignment(u, home, n_slot), tau=tau,
                 hosted=hosted, pre_max=ell.max(), post_max=u.sum(dim=0).max(),
-                cum_q=cumulative_quota(q), cum_u=cumulative_quota(u))
+                cum_q=cumulative_quota(q), cum_u=cumulative_quota(u),
+                tier_tokens=(None if rack_size is None
+                             else token_tier_volumes(q, rack_size)),
+                tier_replicas=(None if rack_size is None
+                               else replica_tier_volumes(u, home, rack_size)),
+                gate_tier_tokens=gate_tier_tokens)

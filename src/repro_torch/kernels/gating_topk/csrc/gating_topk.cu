@@ -70,6 +70,27 @@
 //    (decode) writes `counts` from shared memory directly.  A block takes
 //    its ticket before it stores its last rows, so the release does not
 //    wait on those stores.
+// 4. Rack-limited routing (DeepSeek-V3's node-limited routing, repro/moe/
+//    gating.py:112-139, `_rack_limited_top_k`): with num_racks G, rack_limit
+//    M < G and group top-k gk, rack g owns the contiguous experts [g E / G,
+//    (g + 1) E / G).  Each rack is scored by the sum of its gk largest
+//    selection keys (scores + bias), the M best racks are kept (ties to the
+//    lower rack index, as lax.top_k), and every other rack's experts take
+//    part in the k rounds as -inf.  The keys are already in registers, and
+//    a rack is W = E / (4 G) whole 16-byte chunks, which the lane layout
+//    puts on W aligned lanes of one chunk column (chunk c is on lane c % G
+//    lanes, column c / G lanes): at E 256 and G 8 a rack is 8 chunks on 8
+//    lanes.  So a lane sorts its chunk's 4 keys, and log2 W xor-shuffle
+//    rounds merge the sorted top-4 lists of the rack's lanes (the max of
+//    one list against the other reversed, then a 4-wide bitonic cleanup),
+//    after which every lane of the rack holds the rack's top 4 and sums its
+//    first gk in descending order, as the plain version does.  The racks'
+//    packed (score, complement of the rack index) words are then shuffled
+//    to every lane of the row, which counts the words above its own: a
+//    rack is live when fewer than M are.  No second pass over global
+//    memory.  The wrapper takes W a power of two and gk <= 4, and sends M
+//    == G to the free kernel (the mask is then all-true and the selection
+//    the free one, bit for bit).
 // The entry point derives the launch geometry from (T, E, k) (`plan`) and
 // `gating_topk_plan` reports it and the scratch's size, so the wrapper
 // keeps no copy of these constants.
@@ -198,13 +219,68 @@ __device__ __forceinline__ void store4(float* __restrict__ row, int e0, int E, b
   if (e0 + 3 < E) row[e0 + 3] = d;
 }
 
-template <int G, int PER, int SCORE_FN>   // SCORE_FN 0 softmax, 1 sigmoid
+// Compare-exchange of floats: after it, a >= b.
+__device__ __forceinline__ void cas_desc(float& a, float& b) {
+  const float x = fmaxf(a, b), y = fminf(a, b);
+  a = x;
+  b = y;
+}
+
+// The rack-limited routing's live mask of this lane's chunks (bit j: the
+// rack of chunk column j is among the M best); see the header, item 4.
+template <int G, int PER>
+__device__ __forceinline__ unsigned rack_live(unsigned gmask, const float (&key)[PER], int r,
+                                              int W, int M, int gk) {
+  constexpr int CH = PER / 4;
+  unsigned long long word[CH];
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    float t[4] = {key[4 * j], key[4 * j + 1], key[4 * j + 2], key[4 * j + 3]};
+    cas_desc(t[0], t[1]);                     // sort 4, descending
+    cas_desc(t[2], t[3]);
+    cas_desc(t[0], t[2]);
+    cas_desc(t[1], t[3]);
+    cas_desc(t[1], t[2]);
+    for (int o = 1; o < W; o <<= 1) {         // merge the rack's lanes
+      float u[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) u[q] = __shfl_xor_sync(gmask, t[q], o, G);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) t[q] = fmaxf(t[q], u[3 - q]);   // bitonic: the top 4
+      cas_desc(t[0], t[2]);
+      cas_desc(t[1], t[3]);
+      cas_desc(t[0], t[1]);
+      cas_desc(t[2], t[3]);
+    }
+    float sum = t[0];
+#pragma unroll
+    for (int q = 1; q < 4; ++q)
+      if (q < gk) sum += t[q];
+    word[j] = pack(sum, (r + G * j) / W);     // rack index of chunk r + G j
+  }
+  int above[CH];
+#pragma unroll
+  for (int j = 0; j < CH; ++j) above[j] = 0;
+#pragma unroll
+  for (int jj = 0; jj < CH; ++jj)
+    for (int src = 0; src < G; src += W) {    // one lane of every rack
+      const unsigned long long w = __shfl_sync(gmask, word[jj], src, G);
+#pragma unroll
+      for (int j = 0; j < CH; ++j) above[j] += w > word[j];
+    }
+  unsigned live = 0;
+#pragma unroll
+  for (int j = 0; j < CH; ++j) live |= (above[j] < M ? 1u : 0u) << j;
+  return live;
+}
+
+template <int G, int PER, int SCORE_FN, bool RACK>   // SCORE_FN 0 softmax, 1 sigmoid
 __global__ void __launch_bounds__(G * MAX_ROWS)
 gating_topk_kernel(const float* __restrict__ logits, long long srow,
                    const float* __restrict__ bias, int64_t* __restrict__ ids,
                    float* __restrict__ weights, long long* __restrict__ counts,
                    float* __restrict__ scores, int* __restrict__ scratch, int T,
-                   int E, int k) {
+                   int E, int k, int W, int M, int gk) {
   constexpr int CH = PER / 4;                 // 16-byte chunks a lane holds
   // The pass's scores (for the weights); the last block's sums after that.
   __shared__ float4 rows[MAX_ROWS][G * CH];
@@ -287,15 +363,25 @@ gating_topk_kernel(const float* __restrict__ logits, long long srow,
       rows[grp][r + G * j] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
                                          s[4 * j + 3]);
     // Packed selection words, sorted.  Experts past E take part as -inf:
-    // never selected, since k <= E and every real key is finite.
-    unsigned long long p[PER];
+    // never selected, since k <= E and every real key is finite.  So do a
+    // dead rack's experts under rack-limited routing (k <= M E / G).
+    float key[PER];
 #pragma unroll
     for (int j = 0; j < CH; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int e = 4 * (r + G * j) + q;
-        p[4 * j + q] = pack(e < E ? s[4 * j + q] + b[4 * j + q] : -INFINITY, e);
+        key[4 * j + q] = e < E ? s[4 * j + q] + b[4 * j + q] : -INFINITY;
       }
+    unsigned live = ~0u;
+    if constexpr (RACK) live = rack_live<G, PER>(gmask, key, r, W, M, gk);
+    unsigned long long p[PER];
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        p[4 * j + q] = pack((live >> j) & 1u ? key[4 * j + q] : -INFINITY,
+                            4 * (r + G * j) + q);
     bitonic<PER, 2, 1>(p);
     // k rounds: the group's largest word among its lanes' heads; the lane
     // that held it drops its head.
@@ -366,16 +452,29 @@ gating_topk_kernel(const float* __restrict__ logits, long long srow,
   if (tid == 0) scratch[0] = 0;               // the next launch's ticket
 }
 
+template <int G, int PER, int SCORE_FN>
+void launch_r(bool rack, int rows, int blocks, cudaStream_t s, const float* x,
+              long long srow, const float* bs, int64_t* i64, float* w, long long* c,
+              float* sc, int* scratch, int T, int E, int k, int W, int M, int gk) {
+  if (rack)
+    gating_topk_kernel<G, PER, SCORE_FN, true><<<blocks, G * rows, 0, s>>>(
+        x, srow, bs, i64, w, c, sc, scratch, T, E, k, W, M, gk);
+  else
+    gating_topk_kernel<G, PER, SCORE_FN, false><<<blocks, G * rows, 0, s>>>(
+        x, srow, bs, i64, w, c, sc, scratch, T, E, k, W, M, gk);
+}
+
 template <int G, int PER>
 int launch_g(int score_fn, int rows, int blocks, cudaStream_t s, const float* x,
              long long srow, const float* bs, int64_t* i64, float* w, long long* c,
-             float* sc, int* scratch, int T, int E, int k) {
+             float* sc, int* scratch, int T, int E, int k, int W, int M, int gk) {
+  const bool rack = W > 0;
   if (score_fn == 0)
-    gating_topk_kernel<G, PER, 0><<<blocks, G * rows, 0, s>>>(x, srow, bs, i64, w, c, sc,
-                                                              scratch, T, E, k);
+    launch_r<G, PER, 0>(rack, rows, blocks, s, x, srow, bs, i64, w, c, sc, scratch, T, E, k,
+                        W, M, gk);
   else
-    gating_topk_kernel<G, PER, 1><<<blocks, G * rows, 0, s>>>(x, srow, bs, i64, w, c, sc,
-                                                              scratch, T, E, k);
+    launch_r<G, PER, 1>(rack, rows, blocks, s, x, srow, bs, i64, w, c, sc, scratch, T, E, k,
+                        W, M, gk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,16 +517,33 @@ extern "C" void gating_topk_plan(int T, int E, int k, int* out) {
   out[4] = SCRATCH_INTS;
 }
 
+// The rack-limited routing's chunks a rack (W, a power of two), or 0 when
+// (num_racks, rack_limit, gk) is free routing or a geometry the kernel does
+// not take (-1): racks of whole 16-byte chunks, gk <= 4, k <= M E / G.
+extern "C" int gating_topk_rack_chunks(int E, int k, int num_racks, int rack_limit, int gk) {
+  if (num_racks <= 1 || rack_limit <= 0 || rack_limit >= num_racks) return 0;
+  if (E % num_racks != 0) return -1;
+  const int epg = E / num_racks;
+  const int W = epg / 4;
+  if (epg % 4 != 0 || (W & (W - 1)) != 0 || gk < 1 || (gk < epg ? gk : epg) > 4 ||
+      k > rack_limit * epg)
+    return -1;
+  return W;
+}
+
 // `scratch`: SCRATCH_INTS int32 words, 16-byte aligned, its ticket 0 before
-// the first launch (every launch leaves it 0 again).
+// the first launch (every launch leaves it 0 again).  num_racks 1 (or
+// rack_limit 0 or >= num_racks) is free routing.
 extern "C" int gating_topk_launch(int score_fn, const void* logits, const void* bias,
                                   void* ids, void* weights, void* counts, void* scores,
                                   void* scratch, int T, int E, int k, long long srow,
-                                  void* stream) {
-  if (E < 1 || E > MAX_E || k < 1 || k > MAX_K || k > E || T < 0 ||
+                                  int num_racks, int rack_limit, int gk, void* stream) {
+  const int W = gating_topk_rack_chunks(E, k, num_racks, rack_limit, gk);
+  if (E < 1 || E > MAX_E || k < 1 || k > MAX_K || k > E || T < 0 || W < 0 ||
       (score_fn != 0 && score_fn != 1) ||
       (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int egk = W > 0 ? (gk < 4 * W ? gk : 4 * W) : 0;   // gk clamped to the rack
   const Plan p = plan(T, E, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const float*>(logits);
@@ -441,7 +557,7 @@ extern "C" int gating_topk_launch(int score_fn, const void* logits, const void* 
 #define GATING_CASE(G, PER) \
     case G * 100 + PER:     \
       return launch_g<G, PER>(score_fn, p.rows, p.blocks, s, x, srow, bs, i64, w, c, sc, \
-                              scr, T, E, k);
+                              scr, T, E, k, W, rack_limit, egk);
     GATING_CASE(1, 4)
     GATING_CASE(2, 4)
     GATING_CASE(4, 4)

@@ -20,6 +20,16 @@ stream) (see ``prepare_stream``).  The kernel's entry point decides its
 launch geometry; ``launch_geometry`` and ``packed_topk`` mirror that and
 the kernel's selection on the CPU for the tests.
 
+Rack-limited routing (``num_racks`` G, ``rack_limit`` M, ``group_topk``
+gk; DeepSeek-V3's node-limited routing, ``repro.moe.gating.
+_rack_limited_top_k``): the rounds select among the experts of each row's
+M best racks only, a rack (a contiguous block of E / G experts) scored by
+the sum of its gk largest keys.  On a CUDA tensor a binding limit (M < G)
+launches the kernel's rack mode (counted in ``launches_by_kernel["rack"]``
+besides ``launches``) or raises where the kernel does not take the
+geometry; M == G is free routing, bit for bit, and takes the free kernel.
+The plain version is :func:`rack_limited_ids`.
+
 Shapes: logits (T, E) fp32 -> ids (T, k) int64 (the port's id dtype),
 weights (T, k) fp32 (the raw selected scores: the caller renormalises),
 counts (E,) int64 and, when asked, scores (T, E) fp32.
@@ -45,7 +55,7 @@ from repro_torch.kernels.build import KernelLibrary
 
 __all__ = ["gating_topk", "gating_topk_ref", "scores_of", "prepare_stream",
            "release_scratch", "launch_geometry", "packed_keys", "packed_topk",
-           "LIBRARY"]
+           "rack_limited_ids", "rack_chunks", "LIBRARY"]
 
 LIBRARY = KernelLibrary("gating_topk",
                         Path(__file__).parent / "csrc" / "gating_topk.cu")
@@ -66,15 +76,73 @@ def scores_of(logits: torch.Tensor, score_fn: str) -> torch.Tensor:
     raise ValueError(f"unknown score_fn {score_fn}")
 
 
+def _top(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``lax.top_k``'s indices: a stable descending sort, the lower index
+    first among equal values."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def rack_limited_ids(keys: torch.Tensor, k: int, num_racks: int,
+                     rack_limit: int, group_topk: int) -> torch.Tensor:
+    """Group-limited top-k (mirrors ``repro.moe.gating._rack_limited_top_k``).
+
+    Per row of ``keys`` (T, E): each rack (a block of E / G experts) scores
+    the sum of its ``group_topk`` largest keys (in descending order), the
+    ``rack_limit`` best racks are kept (the lower rack first among equal
+    scores), every other rack's keys become -inf, and the ordinary top-k
+    follows.  At ``rack_limit == num_racks`` the keys are unchanged."""
+    T, E = keys.shape
+    G, M = num_racks, rack_limit
+    epg = E // G
+    gk = min(group_topk, epg)
+    grp = torch.sort(keys.reshape(T, G, epg), dim=-1,
+                     descending=True).values[..., :gk]
+    score = grp[..., 0]
+    for i in range(1, gk):
+        score = score + grp[..., i]
+    racks = _top(score, M)                                      # (T, M)
+    live = torch.zeros((T, G), dtype=torch.bool, device=keys.device)
+    live.scatter_(1, racks, True)
+    masked = torch.where(live.repeat_interleave(epg, dim=1), keys,
+                         torch.full((), float("-inf"), dtype=keys.dtype,
+                                    device=keys.device))
+    return _top(masked, k)
+
+
+def rack_chunks(E: int, k: int, num_racks: int, rack_limit: int,
+                group_topk: int) -> int:
+    """The kernel's 16-byte chunks a rack (``gating_topk_rack_chunks`` in
+    the CUDA source): 0 for free routing (one rack, no limit, or a limit
+    that does not bind), -1 where the kernel does not take the geometry
+    (racks of a whole power of two of 4-expert chunks, the clamped group
+    top-k at most 4, k at most M E / G)."""
+    if num_racks <= 1 or rack_limit <= 0 or rack_limit >= num_racks:
+        return 0
+    if E % num_racks:
+        return -1
+    epg = E // num_racks
+    W = epg // 4
+    if (epg % 4 or W & (W - 1) or group_topk < 1 or min(group_topk, epg) > 4
+            or k > rack_limit * epg):
+        return -1
+    return W
+
+
 def gating_topk_ref(logits: torch.Tensor, k: int, *, score_fn: str,
                     bias: torch.Tensor | None = None,
-                    want_scores: bool = False):
+                    want_scores: bool = False, num_racks: int = 1,
+                    rack_limit: int = 0, group_topk: int = 2):
     """Plain version: scores, a stable descending sort of the scores (plus
     ``bias``) cut to k (the lower expert index first among equal keys, as
-    ``lax.top_k``), the unbiased scores gathered, bincount."""
+    ``lax.top_k``), the unbiased scores gathered, bincount.  With a rack
+    limit (``0 < rack_limit``, ``num_racks > 1``) the selection is
+    :func:`rack_limited_ids`."""
     scores = scores_of(logits, score_fn)
     keys = scores if bias is None else scores + bias.to(torch.float32)[None, :]
-    ids = torch.sort(keys, dim=-1, descending=True, stable=True).indices[:, :k]
+    if num_racks > 1 and rack_limit > 0:
+        ids = rack_limited_ids(keys, k, num_racks, rack_limit, group_topk)
+    else:
+        ids = _top(keys, k)
     weights = torch.gather(scores, 1, ids)
     counts = torch.bincount(ids.reshape(-1), minlength=logits.shape[1])
     return (ids, weights, counts) + ((scores,) if want_scores else ())
@@ -184,7 +252,7 @@ def _library():
     lib.gating_topk_launch.restype = ctypes.c_int
     lib.gating_topk_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-        + [ctypes.c_longlong] + [ctypes.c_void_p])
+        + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     return lib
 
 
@@ -239,7 +307,7 @@ def _scratch(dev: torch.device, stream: int) -> torch.Tensor:
 
 
 def _launch(logits: torch.Tensor, k: int, score_fn: str, bias,
-            want_scores: bool):
+            want_scores: bool, racks: tuple[int, int, int] = (1, 0, 2)):
     """Validate, allocate the outputs and launch on the current stream.
     Nothing here reads the device back, so the call can be captured in a
     CUDA graph."""
@@ -253,6 +321,12 @@ def _launch(logits: torch.Tensor, k: int, score_fn: str, bias,
                          f"k <= {MAX_K} (k <= E), not E={E}, k={k}")
     if logits.stride(1) != 1:
         raise ValueError("gating_topk needs unit-stride expert logits")
+    if rack_chunks(E, k, *racks) < 0:
+        raise ValueError(
+            f"gating_topk's rack mode takes racks of a power of two of "
+            f"4-expert chunks, a group top-k of at most 4 and k <= "
+            f"rack_limit * E / num_racks, not E={E}, k={k}, (num_racks, "
+            f"rack_limit, group_topk)={racks}")
     dev = logits.device
     if bias is not None:
         if bias.shape != (E,) or bias.device != dev:
@@ -274,7 +348,7 @@ def _launch(logits: torch.Tensor, k: int, score_fn: str, bias,
         None if bias is None else bias.data_ptr(), ids.data_ptr(),
         weights.data_ptr(), counts.data_ptr(),
         None if scores is None else scores.data_ptr(),
-        scratch.data_ptr(), T, E, k, logits.stride(0), stream)
+        scratch.data_ptr(), T, E, k, logits.stride(0), *racks, stream)
     if err != 0:
         raise RuntimeError(f"gating_topk kernel launch failed: CUDA error "
                            f"{err}")
@@ -282,39 +356,48 @@ def _launch(logits: torch.Tensor, k: int, score_fn: str, bias,
 
 
 def gating_topk(logits: torch.Tensor, k: int, *, score_fn: str = "softmax",
-                bias: torch.Tensor | None = None, want_scores: bool = False):
+                bias: torch.Tensor | None = None, want_scores: bool = False,
+                num_racks: int = 1, rack_limit: int = 0, group_topk: int = 2):
     """Scores, top-k and histogram of router logits (T, E).
 
-    ``bias`` (E,), if given, steers the selection only.  Returns ``(ids,
-    weights, counts)``, plus ``scores`` (T, E) fp32 when ``want_scores``;
-    on a CUDA tensor the scores are written by the same pass that
-    selects.  Differentiable in the logits (weights and scores)."""
+    ``bias`` (E,), if given, steers the selection only.  ``num_racks``,
+    ``rack_limit`` and ``group_topk``: rack-limited routing (the module's
+    notes).  Returns ``(ids, weights, counts)``, plus ``scores`` (T, E)
+    fp32 when ``want_scores``; on a CUDA tensor the scores are written by
+    the same pass that selects.  Differentiable in the logits (weights and
+    scores)."""
+    racks = (num_racks, rack_limit, group_topk)
     if torch.is_grad_enabled() and logits.requires_grad:
         out = _GatingTopK.apply(logits, k, score_fn,
-                                None if bias is None else bias.detach())
+                                None if bias is None else bias.detach(), racks)
         return out if want_scores else out[:3]
-    return _topk(logits, k, score_fn, bias, want_scores)
+    return _topk(logits, k, score_fn, bias, want_scores, racks)
 
 
-def _topk(logits, k, score_fn, bias, want_scores):
+def _topk(logits, k, score_fn, bias, want_scores, racks):
     if not _is_cuda(logits):
         return gating_topk_ref(logits, k, score_fn=score_fn, bias=bias,
-                               want_scores=want_scores)
+                               want_scores=want_scores, num_racks=racks[0],
+                               rack_limit=racks[1], group_topk=racks[2])
     ids, weights, counts, scores = _launch(logits, k, score_fn, bias,
-                                           want_scores)
+                                           want_scores, racks)
     gating_topk.launches += 1
+    kernel = "rack" if rack_chunks(logits.shape[1], k, *racks) else "free"
+    gating_topk.launches_by_kernel[kernel] += 1
     return (ids, weights, counts) + ((scores,) if want_scores else ())
 
 
 gating_topk.launches = 0
+gating_topk.launches_by_kernel = {"free": 0, "rack": 0}
 
 
 class _GatingTopK(torch.autograd.Function):
     """(ids, weights, counts, scores) of the logits; saves ids and scores."""
 
     @staticmethod
-    def forward(ctx, logits, k, score_fn, bias):
-        ids, weights, counts, scores = _topk(logits, k, score_fn, bias, True)
+    def forward(ctx, logits, k, score_fn, bias, racks):
+        ids, weights, counts, scores = _topk(logits, k, score_fn, bias, True,
+                                             racks)
         ctx.save_for_backward(ids, scores)
         ctx.score_fn = score_fn
         ctx.mark_non_differentiable(ids, counts)
@@ -331,4 +414,4 @@ class _GatingTopK(torch.autograd.Function):
             dl = scores * (d - (d * scores).sum(dim=-1, keepdim=True))
         else:
             dl = d * scores * (1 - scores)
-        return dl, None, None, None
+        return dl, None, None, None, None

@@ -5,13 +5,26 @@
 // kernel but two lax.while_loop in repro/core/planner.py:
 //   solve_replication (:349, bisection over the threshold tau) around
 //   _greedy_oracle (:198, the flat cursor walk over (rank, expert)),
-// at probe_parallelism=1 on the flat tier without health weights.  Given
+// at probe_parallelism=1 without health weights, flat or rack-aware.  Given
 // lam_e (E,) (per-expert load), ell (R,) (per-rank home load), home (E,)
 // and rank_experts (R, E/R) (each rank's mains by descending load, stable
 // by id), it writes the quota table u (E, R) and the solved tau, both
 // int64, and optionally (probes, oracle steps).  The arithmetic is int32,
 // as in JAX (repro/core/planner.py:256-257); the wrapper raises where the
 // shapes allow a total load of 2^31 or more.
+//
+// Rack mode (rack_size L > 0, ranks per rack; repro/core/planner.py:79-198):
+// the argmax over candidate hosts t scores
+//   bonus_scale * (adm ? slk[t] : -1) + 2 * demand[rack(t), e]
+//       + [rack(t) == rack(home e)],
+// ties to the lowest rank, with bonus_scale 4 when the (G, E) demand
+// incidence is on (lam given: demand[g, e] = sum of lam over rack g's ranks
+// > 0) and 2 otherwise.  The kernel computes the incidence from lam itself,
+// once, into shared memory beside the state, so nothing is read back.  JAX
+// scores in int32; the wrapper bounds the total load below 2^31 /
+// bonus_scale, so bonus_scale * slk + 3 + 1 fits the unsigned score word.
+// With one rack every bonus is the same for every host and the plan is the
+// flat one.
 //
 // What bounds it on an H100: latency.  It reads a few KB and writes E * R
 // int64 words (64 KB at E 128, R 64), but the oracle is a chain of
@@ -58,17 +71,20 @@ constexpr int MAX_SMEM = 232448;     // 227 KB: an H100 block's dynamic limit
 constexpr int SMALL_SMEM = 48 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ inline long long smem_ints(int E, int R) {
+__host__ __device__ inline long long smem_ints(int E, int R, int L, int demand) {
   // u, then exc, slk, slots, order, ell (R each), then lam_e, home, nrep,
-  // rank_experts (E each), then 4 words of flags.
-  return static_cast<long long>(E) * R + 5LL * R + 4LL * E + 4;
+  // rank_experts (E each), then 4 words of flags, then the demand
+  // incidence (R / L racks x E) in rack mode with demand.
+  const long long dem = (L > 0 && demand) ? static_cast<long long>(R / L) * E : 0;
+  return static_cast<long long>(E) * R + 5LL * R + 4LL * E + 4 + dem;
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
 plan_solve_kernel(const long long* __restrict__ lam_e_g, const long long* __restrict__ ell_g,
                   const long long* __restrict__ home_g,
-                  const long long* __restrict__ rank_experts_g, int E, int R, int n_slot,
-                  int u_min, int max_rep, long long* __restrict__ u_out,
+                  const long long* __restrict__ rank_experts_g,
+                  const long long* __restrict__ lam_g, int E, int R, int n_slot,
+                  int u_min, int max_rep, int L, long long* __restrict__ u_out,
                   long long* __restrict__ tau_out, int* __restrict__ stats) {
   extern __shared__ int smem[];
   int* u = smem;
@@ -82,6 +98,8 @@ plan_solve_kernel(const long long* __restrict__ lam_e_g, const long long* __rest
   int* nrep = home + E;
   int* rexp = nrep + E;
   int* flag = rexp + E;   // [0] feasible, [1] total load, [2] max rank load
+  int* dem = flag + 4;    // (R / L, E) demand incidence (rack mode with lam)
+  const unsigned bonus_scale = lam_g != nullptr ? 4u : 2u;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int epr = E / R;
@@ -93,6 +111,14 @@ plan_solve_kernel(const long long* __restrict__ lam_e_g, const long long* __rest
     rexp[i] = static_cast<int>(rank_experts_g[i]);
   }
   for (int r = tid; r < R; r += THREADS) ell[r] = static_cast<int>(ell_g[r]);
+  if (lam_g != nullptr) {
+    for (int i = tid; i < (R / L) * E; i += THREADS) {
+      const int g = i / E, e = i - g * E;
+      bool any = false;
+      for (int l = 0; l < L; ++l) any |= lam_g[static_cast<long long>(g * L + l) * E + e] > 0;
+      dem[i] = any;
+    }
+  }
   __syncthreads();
   if (tid < 32) {
     int s = 0, m = 0;   // loads are non-negative
@@ -157,19 +183,39 @@ plan_solve_kernel(const long long* __restrict__ lam_e_g, const long long* __rest
           const int he = home[e];
           const bool rep_ok = nrep[e] < max_rep;
           unsigned best = 0u, bt = FULL;
-          for (int t = lane; t < R; t += 32) {
-            const int s = slk[t];
-            const bool adm = rep_ok && s > 0 && slots[t] < n_slot && t != he && ue[t] <= 0;
-            const unsigned sc = adm ? static_cast<unsigned>(s) + 1u : 0u;
-            if (bt == FULL || sc > best) {
-              best = sc;
-              bt = static_cast<unsigned>(t);
+          if (L == 0) {
+            for (int t = lane; t < R; t += 32) {
+              const int s = slk[t];
+              const bool adm = rep_ok && s > 0 && slots[t] < n_slot && t != he && ue[t] <= 0;
+              const unsigned sc = adm ? static_cast<unsigned>(s) + 1u : 0u;
+              if (bt == FULL || sc > best) {
+                best = sc;
+                bt = static_cast<unsigned>(t);
+              }
+            }
+          } else {
+            // Rack mode: bonus_scale * slack + the tie-break bonuses, + 1
+            // so that any admissible host scores above every other.
+            const int hr = he / L;
+            const int* de = dem + e;
+            for (int t = lane; t < R; t += 32) {
+              const int s = slk[t];
+              const bool adm = rep_ok && s > 0 && slots[t] < n_slot && t != he && ue[t] <= 0;
+              const int rt = t / L;
+              const unsigned bonus = (rt == hr ? 1u : 0u) +
+                                     (lam_g != nullptr && de[rt * E] ? 2u : 0u);
+              const unsigned sc = adm ? bonus_scale * static_cast<unsigned>(s) + bonus + 1u : 0u;
+              if (bt == FULL || sc > best) {
+                best = sc;
+                bt = static_cast<unsigned>(t);
+              }
             }
           }
           const unsigned m = __reduce_max_sync(FULL, best);
           const unsigned t = __reduce_min_sync(FULL, best == m ? bt : FULL);
           if (m > 0u && cap > 0) {
-            const int delta = min(min(ex, static_cast<int>(m - 1u)), cap);
+            const int st = L == 0 ? static_cast<int>(m - 1u) : slk[t];
+            const int delta = min(min(ex, st), cap);
             accept = delta >= u_min;
             if (accept && lane == 0) {
               u[e * R + r] -= delta;
@@ -232,19 +278,22 @@ extern "C" int plan_solve_redux_chain(int rounds, void* out, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" long long plan_solve_smem_bytes(int E, int R) {
-  return 4 * smem_ints(E, R);
+extern "C" long long plan_solve_smem_bytes(int E, int R, int L, int demand) {
+  return 4 * smem_ints(E, R, L, demand);
 }
 
 // lam_e (E,), ell (R,), home (E,), rank_experts (R * E / R) int64, contiguous;
-// u (E, R) and tau () int64 outputs; stats (2,) int32 or null.
+// lam (R, E) int64 or null (the demand tie-break, rack mode only); L the
+// ranks per rack, 0 for the flat solve; u (E, R) and tau () int64 outputs;
+// stats (2,) int32 or null.
 extern "C" int plan_solve_launch(const void* lam_e, const void* ell, const void* home,
-                                 const void* rank_experts, int E, int R, int n_slot,
-                                 int u_min, int max_rep, void* u, void* tau, void* stats,
-                                 void* stream) {
-  if (R < 2 || E < R || E % R != 0 || n_slot < 0)
+                                 const void* rank_experts, const void* lam, int E, int R,
+                                 int n_slot, int u_min, int max_rep, int L, void* u, void* tau,
+                                 void* stats, void* stream) {
+  if (R < 2 || E < R || E % R != 0 || n_slot < 0 || L < 0 || (L > 0 && R % L != 0) ||
+      (lam != nullptr && L == 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = plan_solve_smem_bytes(E, R);
+  const long long smem = plan_solve_smem_bytes(E, R, L, lam != nullptr);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > SMALL_SMEM) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -253,8 +302,9 @@ extern "C" int plan_solve_launch(const void* lam_e, const void* ell, const void*
   }
   plan_solve_kernel<<<1, THREADS, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(lam_e), static_cast<const long long*>(ell),
-      static_cast<const long long*>(home), static_cast<const long long*>(rank_experts), E, R,
-      n_slot, u_min, max_rep, static_cast<long long*>(u), static_cast<long long*>(tau),
+      static_cast<const long long*>(home), static_cast<const long long*>(rank_experts),
+      static_cast<const long long*>(lam), E, R, n_slot, u_min, max_rep, L,
+      static_cast<long long*>(u), static_cast<long long*>(tau),
       static_cast<int*>(stats));
   return static_cast<int>(cudaGetLastError());
 }

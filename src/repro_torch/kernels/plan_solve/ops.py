@@ -3,7 +3,7 @@
 ``plan_solve`` takes the place of the JAX package's device-resident solve,
 the two ``lax.while_loop`` of ``repro.core.planner`` (``solve_replication``
 at :349, the threshold bisection, around ``_greedy_oracle`` at :198, the
-flat cursor walk), at ``probe_parallelism=1`` on the flat tier.  It is no
+flat cursor walk), at ``probe_parallelism=1``, flat or rack-aware.  It is no
 Pallas kernel there, but it is the one loop of the MoE layer that runs for
 a data-dependent number of steps, so in eager PyTorch its faithful
 translation reads the device on every step; the kernel runs the whole
@@ -25,6 +25,15 @@ threshold.  The kernel's arithmetic is int32, as the JAX solve's: the
 caller passes ``load_bound``, a bound on the total load that the host
 knows from the shapes (ranks x tokens per rank x top-k), and the wrapper
 raises where it reaches 2^31; it never reads the load itself.
+
+Rack mode (``rack_size`` L, ranks per rack of a two-level topology): the
+oracle's argmax over candidate hosts scores each rank t by
+``bonus_scale * (adm ? slack : -1) + 2 * demand[rack(t), e] + [rack(t) ==
+rack(home e)]`` (``repro.core.planner._greedy_oracle``, :156-162), ties to
+the lowest rank.  ``demand`` is the (G, E) incidence ``lam.reshape(G, L,
+E).sum(1) > 0`` of the (R, E) load ``lam``, passed only with the demand
+tie-break; then ``bonus_scale`` is 4, else 2.  JAX computes the score in
+int32, so in rack mode the bound on the load is ``2^31 / bonus_scale``.
 """
 
 from __future__ import annotations
@@ -37,8 +46,8 @@ import torch
 
 from repro_torch.kernels.build import KernelLibrary
 
-__all__ = ["plan_solve", "plan_solve_ref", "redux_round_ms", "LIBRARY",
-           "INT32_LIMIT"]
+__all__ = ["plan_solve", "plan_solve_ref", "rack_bonus", "load_limit",
+           "redux_round_ms", "LIBRARY", "INT32_LIMIT"]
 
 LIBRARY = KernelLibrary("plan_solve",
                         Path(__file__).parent / "csrc" / "plan_solve.cu")
@@ -49,14 +58,17 @@ MAX_SMEM = 232448          # 227 KB: the dynamic shared memory of an H100 block
 
 
 def _greedy_oracle(lam_e, ell, home, rank_experts, tau: int, *, n_slot: int,
-                   u_min: int, max_replicas_per_expert: int):
+                   u_min: int, max_replicas_per_expert: int, bonus=None,
+                   bonus_scale: int = 1):
     """One feasibility probe (Alg. 1 lines 6-19).  Returns (feasible, u,
     steps).
 
-    Mirrors the flat cursor walk of ``repro.core.planner._greedy_oracle``:
-    the state lives in tensors, the cursor (rank index, expert index,
+    Mirrors the cursor walk of ``repro.core.planner._greedy_oracle``: the
+    state lives in tensors, the cursor (rank index, expert index,
     iteration) in Python ints, and each step reads the scalars that decide
-    whether it transfers load and where the cursor moves.
+    whether it transfers load and where the cursor moves.  ``bonus`` (E, R),
+    in rack mode, is each (expert, host) pair's tie-break bonus, added to
+    ``bonus_scale`` times the slack score.
     """
     E = lam_e.shape[0]
     R = ell.shape[0]
@@ -83,7 +95,9 @@ def _greedy_oracle(lam_e, ell, home, rank_experts, tau: int, *, n_slot: int,
             adm = ((slk > 0) & (slots < n_slot) & ~hosted[e, :]
                    & (nrep[e] < max_replicas_per_expert))
             # Slack first; torch.argmax returns the first (lowest-rank) max.
-            score = torch.where(adm, slk, -1)
+            score = torch.where(adm, slk, -1) * bonus_scale
+            if bonus is not None:
+                score = score + bonus[e]
             t = int(torch.argmax(score))
             if bool(adm.any()) and cap > 0:
                 delta = min(int(exc[r]), int(slk[t]), cap)
@@ -104,15 +118,35 @@ def _greedy_oracle(lam_e, ell, home, rank_experts, tau: int, *, n_slot: int,
     return bool(exc.sum() == 0), u, it
 
 
+def rack_bonus(home: torch.Tensor, R: int, rack_size: int,
+               lam: torch.Tensor | None = None) -> tuple[torch.Tensor, int]:
+    """(bonus (E, R), bonus_scale) of the rack-aware oracle: ``2 *
+    demand[rack(t), e] + [rack(t) == rack(home e)]`` with ``demand`` the
+    rack incidence of ``lam`` (R, E) when given, and the slack's scale (4
+    with demand, else 2)."""
+    ranks = torch.arange(R, dtype=_I64, device=home.device)
+    rack = ranks // rack_size
+    bonus = (rack[None, :] == (home // rack_size)[:, None]).to(_I64)
+    if lam is None:
+        return bonus, 2
+    E = home.shape[0]
+    demand = (lam.reshape(R // rack_size, rack_size, E).sum(dim=1) > 0)
+    return bonus + 2 * demand.T[:, rack].to(_I64), 4
+
+
 def plan_solve_ref(lam_e: torch.Tensor, ell: torch.Tensor, home: torch.Tensor,
                    rank_experts: torch.Tensor, *, n_slot: int, u_min: int,
                    max_replicas_per_expert: int,
-                   stats: torch.Tensor | None = None):
+                   stats: torch.Tensor | None = None,
+                   rack_size: int | None = None,
+                   lam: torch.Tensor | None = None):
     """Plain version: the bisection of ``repro.core.planner.
     solve_replication`` as a Python loop over the oracle's probes.  Returns
     ``(u, tau)``; ``stats`` (2,), if given, receives (probes, oracle
-    steps)."""
+    steps).  ``rack_size`` and ``lam``: rack mode (the module's notes)."""
     R = ell.shape[0]
+    bonus, scale = (None, 1) if rack_size is None else rack_bonus(
+        home, R, rack_size, lam)
     total = ell.sum()
     best_u = torch.nn.functional.one_hot(home, R).to(_I64) * lam_e[:, None]
     lo, hi = torch.stack([-(-total // R), ell.max()]).tolist()
@@ -121,7 +155,8 @@ def plan_solve_ref(lam_e: torch.Tensor, ell: torch.Tensor, home: torch.Tensor,
         tau = (lo + hi) // 2
         feasible, u, it = _greedy_oracle(
             lam_e, ell, home, rank_experts, tau, n_slot=n_slot, u_min=u_min,
-            max_replicas_per_expert=max_replicas_per_expert)
+            max_replicas_per_expert=max_replicas_per_expert, bonus=bonus,
+            bonus_scale=scale)
         probes, steps = probes + 1, steps + it
         if feasible:
             hi, best_u = tau, u
@@ -138,9 +173,9 @@ def _library():
     lib = LIBRARY.load()
     lib.plan_solve_launch.restype = ctypes.c_int
     lib.plan_solve_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
     lib.plan_solve_smem_bytes.restype = ctypes.c_longlong
-    lib.plan_solve_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.plan_solve_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.plan_solve_redux_chain.restype = ctypes.c_int
     lib.plan_solve_redux_chain.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                            ctypes.c_void_p]
@@ -175,7 +210,16 @@ def redux_round_ms(device=None, rounds: int = 1 << 16) -> float:
     return (times[1] - times[0]) / (rounds - 1)
 
 
-def _check(lam_e, ell, home, rank_experts, load_bound) -> None:
+def load_limit(rack_size: int | None, demand: bool) -> int:
+    """The kernel's exclusive bound on the total load: 2^31, or 2^31 over
+    the rack score's slack scale (2, or 4 with demand)."""
+    if rack_size is None:
+        return INT32_LIMIT
+    return INT32_LIMIT // (4 if demand else 2)
+
+
+def _check(lam_e, ell, home, rank_experts, load_bound, rack_size,
+           lam) -> None:
     E, R = lam_e.shape[0], ell.shape[0]
     if R < 2:
         raise ValueError("plan_solve solves R >= 2 ranks; at R = 1 the "
@@ -191,10 +235,24 @@ def _check(lam_e, ell, home, rank_experts, load_bound) -> None:
         if t.device != lam_e.device:
             raise ValueError(f"plan_solve: {name} is on {t.device}, not "
                              f"{lam_e.device}")
-    if load_bound is None or load_bound >= INT32_LIMIT:
+    if rack_size is not None and (rack_size < 1 or R % rack_size != 0):
+        raise ValueError(f"rack_size={rack_size} must divide R={R}")
+    if lam is not None:
+        if rack_size is None:
+            raise ValueError("plan_solve: the demand tie-break (lam) needs "
+                             "rack_size")
+        if (lam.dtype != _I64 or tuple(lam.shape) != (R, E)
+                or not lam.is_contiguous() or lam.device != lam_e.device):
+            raise ValueError(f"plan_solve: lam must be contiguous int64 "
+                             f"{(R, E)} on {lam_e.device}")
+    limit = load_limit(rack_size, lam is not None)
+    if load_bound is None or load_bound >= limit:
+        scale = "" if limit == INT32_LIMIT else (
+            f" / {INT32_LIMIT // limit} (the rack score's slack scale)")
         raise ValueError(f"plan_solve's int32 arithmetic needs a total load "
-                         f"below 2^31; the shapes allow {load_bound}")
-    smem = _library().plan_solve_smem_bytes(E, R)
+                         f"below 2^31{scale}; the shapes allow {load_bound}")
+    smem = _library().plan_solve_smem_bytes(
+        E, R, rack_size or 0, 0 if lam is None else 1)
     if smem > MAX_SMEM:
         raise ValueError(f"plan_solve: E={E}, R={R} need {smem} B of shared "
                          f"memory, more than {MAX_SMEM}")
@@ -203,20 +261,22 @@ def _check(lam_e, ell, home, rank_experts, load_bound) -> None:
 def plan_solve(lam_e: torch.Tensor, ell: torch.Tensor, home: torch.Tensor,
                rank_experts: torch.Tensor, *, n_slot: int, u_min: int,
                max_replicas_per_expert: int, load_bound: int | None,
-               stats: torch.Tensor | None = None):
+               stats: torch.Tensor | None = None,
+               rack_size: int | None = None, lam: torch.Tensor | None = None):
     """Quota table ``u`` (E, R) and threshold ``tau`` () of one solve.
 
     ``stats``, if given, is an int32 (2,) tensor on the inputs' device that
     receives (probes, oracle steps).  ``load_bound`` is needed on the card
-    only (see the module docstring)."""
+    only (see the module docstring).  ``rack_size`` switches on rack mode;
+    ``lam`` (R, E) int64, with it, the demand tie-break."""
     if lam_e.device.type == "cpu":
         return plan_solve_ref(lam_e, ell, home, rank_experts, n_slot=n_slot,
                               u_min=u_min,
                               max_replicas_per_expert=max_replicas_per_expert,
-                              stats=stats)
+                              stats=stats, rack_size=rack_size, lam=lam)
     if lam_e.device.type != "cuda":
         raise ValueError(f"no plan solve for device {lam_e.device}")
-    _check(lam_e, ell, home, rank_experts, load_bound)
+    _check(lam_e, ell, home, rank_experts, load_bound, rack_size, lam)
     if stats is not None and (stats.dtype != torch.int32 or stats.shape != (2,)
                               or stats.device != lam_e.device):
         raise ValueError("plan_solve: stats must be int32 (2,) on the "
@@ -227,8 +287,9 @@ def plan_solve(lam_e: torch.Tensor, ell: torch.Tensor, home: torch.Tensor,
     stream = torch._C._cuda_getCurrentRawStream(lam_e.device.index)
     err = _library().plan_solve_launch(
         lam_e.data_ptr(), ell.data_ptr(), home.data_ptr(),
-        rank_experts.data_ptr(), E, R, n_slot, u_min,
-        max_replicas_per_expert, u.data_ptr(), tau.data_ptr(),
+        rank_experts.data_ptr(), None if lam is None else lam.data_ptr(), E,
+        R, n_slot, u_min, max_replicas_per_expert, rack_size or 0,
+        u.data_ptr(), tau.data_ptr(),
         None if stats is None else stats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"plan_solve kernel launch failed: CUDA error "

@@ -31,6 +31,16 @@ cpu``; each rank serves the same trace with its share of the experts and
 rank 0 prints.  Without ``WORLD_SIZE`` it runs on one device.
   PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.serve \
       --arch glm45-106b-a12b --reduce --dtype bfloat16
+``--racks G`` factors the group into G racks of WORLD_SIZE / G ranks (the
+two-level topology: the MoE layers run ``hier_a2a``, the rack-aware plan
+and the tiered replica stream); ``--rack-limit M`` bounds each token's
+experts to M racks at the gate (0: free routing);
+``--overlap-chunks C`` splits each MoE call's tokens into C chunks whose
+exchanges overlap the FFN; ``--dispatch-impl reference`` runs the
+multi-sort reference dispatch engine (flat groups only).  On the CPU:
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b --reduce --device cpu --racks 2 \
+      --rack-limit 1 --overlap-chunks 2
 """
 
 from __future__ import annotations
@@ -77,11 +87,13 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
                 prompt_len: tuple[int, int] = (32, 200), decode_batch: int = 4,
                 cf: float = 4.0, dtype=torch.float32, device="cuda",
                 wire_dtype: str = "none", ffn_dtype: str = "none",
-                group=None) -> ServingEngine:
+                rack_limit: int = 0, overlap_chunks: int = 1,
+                dispatch_impl: str = "fused", group=None) -> ServingEngine:
     """Serve a seeded Poisson trace; ``group``: the EP group
-    (:class:`repro_torch.parallel.collectives.EPGroup`) this process is a
-    rank of, or None for one device.  Every rank of a group serves the same
-    trace; rank 0 prints the summary."""
+    (:class:`repro_torch.parallel.collectives.EPGroup`, factored for a
+    two-level topology) this process is a rank of, or None for one device.
+    Every rank of a group serves the same trace; rank 0 prints the
+    summary."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduce:
         cfg = reduced(cfg, layers=layers)
@@ -97,7 +109,8 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
         balancer=BalancerConfig(mode=balancer,
                                 n_slot=cfg.moe.n_slot if cfg.moe else 2),
         cf_pair=cf, cf_slot=cf, dtype=dtype, wire_dtype=wire_dtype,
-        ffn_dtype=ffn_dtype)
+        ffn_dtype=ffn_dtype, rack_limit=rack_limit,
+        overlap_chunks=overlap_chunks, dispatch_impl=dispatch_impl)
     pctx = ParallelCtx(group=group)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_lm(cfg, rcfg, pctx, gen, device=device)
@@ -154,6 +167,13 @@ def main(argv=None) -> ServingEngine:
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--wire-dtype", default="none", choices=WIRE_DTYPES)
     ap.add_argument("--ffn-dtype", default="none", choices=FFN_DTYPES)
+    ap.add_argument("--racks", type=int, default=1,
+                    help="factor the EP group into this many racks")
+    ap.add_argument("--rack-limit", type=int, default=0,
+                    help="at most this many racks a token (0: free routing)")
+    ap.add_argument("--overlap-chunks", type=int, default=1)
+    ap.add_argument("--dispatch-impl", default="fused",
+                    choices=("fused", "reference"))
     args = ap.parse_args(argv)
     device, group = args.device, None
     if "WORLD_SIZE" in os.environ:
@@ -166,6 +186,10 @@ def main(argv=None) -> ServingEngine:
         group = collectives.init("nccl" if on_cuda else "gloo",
                                  world_size=int(os.environ["WORLD_SIZE"]),
                                  rank=int(os.environ["RANK"]))
+        if args.racks > 1:
+            group = collectives.factor(args.racks)
+    elif args.racks > 1:
+        raise ValueError("--racks needs an EP group (run under torchrun)")
     try:
         return serve_trace(args.arch, requests=args.requests, rps=args.rps,
                            chunk=args.chunk, max_new=args.max_new,
@@ -173,7 +197,10 @@ def main(argv=None) -> ServingEngine:
                            balancer=args.balancer,
                            dtype=DTYPES[args.dtype], device=device,
                            wire_dtype=args.wire_dtype,
-                           ffn_dtype=args.ffn_dtype, group=group)
+                           ffn_dtype=args.ffn_dtype,
+                           rack_limit=args.rack_limit,
+                           overlap_chunks=args.overlap_chunks,
+                           dispatch_impl=args.dispatch_impl, group=group)
     finally:
         if group is not None:
             collectives.destroy()

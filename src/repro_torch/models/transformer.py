@@ -4,7 +4,9 @@ Mirrors ``repro.models.transformer`` for the block kinds ``attn+moe``,
 ``attn+dense``, ``mamba+moe`` and ``mamba+dense`` (attention GQA or MLA) on one device
 (``ParallelCtx()``) or on an EP group of R ranks over ``torch.distributed``
 (``ParallelCtx(group=...)``, the counterpart of a mesh whose model axis is
-the EP group and whose data axes have size 1): attention, Mamba and dense
+the EP group and whose data axes have size 1; a factored group of racks x
+lanes, ``collectives.factor``, is the mesh with a rack axis, and its MoE
+blocks run ``hier_a2a``): attention, Mamba and dense
 layers are replicated on every rank, and each MoE block runs the EP layer
 (:func:`_ep_moe_block`).  JAX groups identical layers into scanned segments
 (and a hybrid's repeating period into one "cycle" segment); here the layers
@@ -25,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.balancer import BalancerConfig
+from repro_torch.core.topology import Topology
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnConfig, KVCache
@@ -35,8 +38,8 @@ from repro_torch.moe.layer import MoEConfig, default_capacities, init_moe_params
 from repro_torch.parallel import collectives
 
 __all__ = ["RuntimeConfig", "ParallelCtx", "BlockParams", "attn_config",
-           "ssm_config", "moe_config", "init_block", "init_cache_block",
-           "block_apply"]
+           "ssm_config", "effective_rack_limit", "moe_config", "init_block",
+           "init_cache_block", "block_apply"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +50,17 @@ class RuntimeConfig:
     balancer: BalancerConfig = BalancerConfig()
     cf_pair: float = 2.0
     cf_slot: float = 2.0
+    overlap_chunks: int = 1        # MoE dispatch/compute overlap chunks;
+    # falls back to 1 per layer when the local token count does not divide
+    # or the dispatch engine is "reference"
+    dispatch_impl: str = "fused"   # "fused" | "reference" MoE dispatch engine
+    rack_limit: int = 0            # bound each token's experts to this many
+    # racks at the gate (0 = free routing); degrades to free routing on a
+    # flat group and where the limit cannot hold (effective_rack_limit)
     block_kv: int = 512
     dtype: torch.dtype = torch.float32
-    wire_dtype: str = "none"       # EP wire codec: "none" | "bf16" | "int8"
+    wire_dtype: str = "none"       # EP wire codec: "none" | "bf16" | "int8";
+    # needs the fused engine, so it degrades to "none" with "reference"
     ffn_dtype: str = "none"        # expert FFN compute: "none" | "int8" (w8a8)
     loss_chunks: int = 1           # >1: blocked CE, no (B,S,V) materialise
     plain_backward: bool = False   # the kernels' backward as autograd through
@@ -60,14 +71,26 @@ class RuntimeConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     """Parallel context: the EP group (a
-    :class:`repro_torch.parallel.collectives.EPGroup`), or None for one
-    device.  There is no data axis yet, so the batch is never split."""
+    :class:`repro_torch.parallel.collectives.EPGroup`, factored into racks
+    x lanes for a two-level topology), or None for one device.  There is
+    no data axis yet, so the batch is never split.  Rank numbering is
+    rack-major, so a factored group's rank r holds flat rank r's experts."""
 
     group: object = None
 
     @property
     def ep_size(self) -> int:
         return 1 if self.group is None else self.group.size
+
+    @property
+    def racks(self) -> int:
+        if self.group is None or not self.group.factored:
+            return 1
+        return self.group.racks
+
+    @property
+    def factored(self) -> bool:
+        return self.group is not None and self.group.factored
 
     @property
     def ep_rank(self) -> int:
@@ -115,28 +138,61 @@ def ssm_config(cfg: ModelConfig) -> SSMConfig:
                      n_groups=s.n_groups, d_conv=s.d_conv, chunk=s.chunk)
 
 
+def effective_rack_limit(m, rcfg: RuntimeConfig, racks: int) -> int:
+    """The gate's rack limit as applied (mirrors ``repro.models.
+    transformer.effective_rack_limit``): ``rcfg.rack_limit`` degrades to
+    free routing (0) on a flat or one-rack group, where the experts do not
+    divide into racks, and where the limit would expose fewer than top_k
+    experts; else it is clamped to the rack count."""
+    if rcfg.rack_limit <= 0 or racks <= 1 or m is None:
+        return 0
+    if m.num_experts % racks != 0:
+        return 0
+    limit = min(rcfg.rack_limit, racks)
+    if limit * (m.num_experts // racks) < m.top_k:
+        return 0
+    return limit
+
+
 def moe_config(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
                tokens_per_rank: int, *, dispatch_mode: str = "a2a",
                ideal: bool = False) -> MoEConfig:
-    """Mirrors ``repro.models.transformer.moe_config`` on a flat EP group
-    of ``pctx.ep_size`` ranks."""
+    """Mirrors ``repro.models.transformer.moe_config`` on an EP group of
+    ``pctx.ep_size`` ranks: on a factored group the gate's rack limit, the
+    per-rack pair bound and ``hier_a2a`` in place of ``a2a``; overlap
+    chunks that do not divide the tokens, or with the reference engine,
+    degrade to 1, and the wire codec to "none" with the reference
+    engine."""
     m = cfg.moe
     ep = pctx.ep_size
+    rack_limit = effective_rack_limit(m, rcfg, pctx.racks)
     gating = GatingConfig(
         num_experts=m.num_experts, top_k=m.top_k, score_fn=m.score_fn,
         norm_topk_prob=m.norm_topk_prob, aux_loss_weight=m.aux_loss_weight,
         routed_scaling=m.routed_scaling, use_bias=m.use_bias,
-        ideal=ideal or rcfg.balancer.mode == "ideal")
+        ideal=ideal or rcfg.balancer.mode == "ideal",
+        rack_limit=rack_limit, num_racks=pctx.racks if rack_limit else 1)
     bal = dataclasses.replace(rcfg.balancer, n_slot=m.n_slot)
     slots_per_rank = m.num_experts // ep + m.n_slot
+    topo = (Topology(racks=pctx.racks, ranks_per_rack=ep // pctx.racks)
+            if pctx.factored and pctx.racks > 1 else None)
     cap_pair, cap_slot = default_capacities(
         tokens_per_rank, m.top_k, ep, slots_per_rank,
-        cf_pair=rcfg.cf_pair, cf_slot=rcfg.cf_slot)
+        cf_pair=rcfg.cf_pair, cf_slot=rcfg.cf_slot, topology=topo)
+    if pctx.factored and dispatch_mode == "a2a":
+        dispatch_mode = "hier_a2a"
+    overlap = rcfg.overlap_chunks
+    if overlap >= 1 and (tokens_per_rank % overlap != 0
+                         or rcfg.dispatch_impl != "fused"):
+        overlap = 1
+    wire_dtype = rcfg.wire_dtype if rcfg.dispatch_impl == "fused" else "none"
     return MoEConfig(gating=gating, balancer=bal, d_model=cfg.d_model,
                      d_ff=m.d_ff, ep_size=ep, cap_pair=cap_pair,
                      cap_slot=cap_slot, n_shared_experts=m.n_shared_experts,
                      shared_d_ff=m.shared_d_ff, dispatch_mode=dispatch_mode,
-                     wire_dtype=rcfg.wire_dtype, ffn_dtype=rcfg.ffn_dtype,
+                     dispatch_impl=rcfg.dispatch_impl, racks=pctx.racks,
+                     overlap_chunks=overlap, wire_dtype=wire_dtype,
+                     ffn_dtype=rcfg.ffn_dtype,
                      plain_backward=rcfg.plain_backward)
 
 
@@ -206,7 +262,8 @@ def _ep_moe_block(x: torch.Tensor, mp, mcfg: MoEConfig, pctx: ParallelCtx,
     divides by R and the mode is not replicated: each rank runs the layer
     on its shard of S and an ``all_gather`` puts y back together along S.
     Otherwise every rank runs the whole batch (decode: ``replicated``
-    dispatch, which merges the ranks' shares inside the layer)."""
+    dispatch, which merges the ranks' shares inside the layer).  A
+    factored group is split the same way over all its R ranks."""
     B, S, D = x.shape
     g = pctx.group
     if g is None:

@@ -1,6 +1,6 @@
 """Replica weight distribution (paper S6.1).
 
-Mirrors ``repro.moe.distribute`` on a flat EP group: each redundant slot's
+Mirrors ``repro.moe.distribute``: each redundant slot's
 weights come from its expert's home rank,
 
   replica_w = reduce_scatter_{EP}( select(slot_wants_my_expert, w_local) ),
@@ -14,6 +14,14 @@ home's rows unchanged, but for a ``-0.0`` that may arrive as ``+0.0``
 ``+0.0`` beyond the sign of a zero.  With one EP rank (``axis_name``
 None) every replica's home is local and a replica slot is a masked row
 gather of the local mains.
+
+On a factored (rack x lane) group the reduce-scatter is the paper's tiered
+replica stream (S6.1) in two stages: over the lane subgroup first, which
+aggregates a whole rack's contributions per destination rack onto the
+same-lane member, then over the rack subgroup, which lands each rack
+aggregate on its rank.  Every slot still has one nonzero contribution, so
+both shapes give the same replicas.  The backward gathers in the reverse
+order: racks, then lanes.
 
 Backward (the paper's training equivalence, S4.2).  The JAX package gets
 it by construction: the transpose of the reduce-scatter is an all-gather,
@@ -73,6 +81,30 @@ def select_local_replicas(w_local: torch.Tensor, x_slots_flat: torch.Tensor,
                                                device=w_local.device))
 
 
+def _reduce_scatter_slots(axis_name, packed: torch.Tensor) -> torch.Tensor:
+    """(R, N_slot, X) partial -> (N_slot, X) this rank's slots: one
+    reduce-scatter on a flat group; on a factored one, lanes first, then
+    racks (``repro.moe.distribute._scatter_replicas``)."""
+    if not axis_name.factored:
+        return collectives.reduce_scatter(axis_name, packed)
+    R = packed.shape[0]
+    G = axis_name.racks
+    t = packed.reshape((G, R // G) + tuple(packed.shape[1:]))
+    t = collectives.reduce_scatter(axis_name.lane, t.transpose(0, 1))
+    return collectives.reduce_scatter(axis_name.rack, t)     # (N_slot, X)
+
+
+def _all_gather_slots(axis_name, d_rep: torch.Tensor) -> torch.Tensor:
+    """The transpose of :func:`_reduce_scatter_slots`: (N_slot, ...) on
+    every rank -> (R, N_slot, ...), rank-major (factored: racks first, then
+    lanes)."""
+    if not axis_name.factored:
+        return collectives.all_gather(axis_name, d_rep)
+    t = collectives.all_gather(axis_name.rack, d_rep)         # (G, N_slot, ...)
+    t = collectives.all_gather(axis_name.lane, t)             # (L, G, ...)
+    return t.transpose(0, 1).reshape((axis_name.size,) + tuple(d_rep.shape))
+
+
 def materialize_replica_stack(ws: tuple[torch.Tensor, ...],
                               x_slots: torch.Tensor, my_rank: int, axis_name,
                               *, out: tuple[torch.Tensor, ...],
@@ -110,7 +142,7 @@ def materialize_replica_stack(ws: tuple[torch.Tensor, ...],
     packed = torch.cat([e.reshape(R, n_slot, -1) for e in enc], dim=-1)
     total = packed.shape[-1]
     chunk = -(-total // n_chunks)
-    parts = [collectives.reduce_scatter(axis_name, packed[..., lo:lo + chunk])
+    parts = [_reduce_scatter_slots(axis_name, packed[..., lo:lo + chunk])
              for lo in range(0, total, chunk)]
     rep = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     off = 0
@@ -134,7 +166,7 @@ def replica_grads_to_mains(d_rep: torch.Tensor, x_slots: torch.Tensor,
     (-1) add zeros."""
     R, n_slot = x_slots.shape
     n_main = out.shape[0]
-    full = d_rep[None] if axis_name is None else collectives.all_gather(
+    full = d_rep[None] if axis_name is None else _all_gather_slots(
         axis_name, d_rep)
     flat = full.reshape(R * n_slot, -1)
     local = x_slots.reshape(-1).to(torch.int64) - my_rank * n_main
@@ -177,8 +209,11 @@ class _SlotWeights(torch.autograd.Function):
     def backward(ctx, *d_bufs):
         (x_slots,) = ctx.saved_tensors
         my_rank, axis_name, n_main = ctx.args
-        # Each main's gradient: its own slot rows' plus its replicas'.
+        # Each main's gradient: its own slot rows' plus its replicas',
+        # added in place onto the head rows of the slot gradient (no copy
+        # of the mains' gradients: at DeepSeek-V3's width one is 5.6 GB a
+        # rank), which autograd owns and reads no more.
         d_mains = [None if d is None else replica_grads_to_mains(
-            d[n_main:], x_slots, my_rank, axis_name, d[:n_main].clone())
-            for d in d_bufs]
+            d[n_main:], x_slots, my_rank, axis_name, d[:n_main])
+            for d in (None if d is None else d.contiguous() for d in d_bufs)]
         return (None, None, None, None, None, None, *d_mains)

@@ -2,14 +2,18 @@
 
 Mirrors ``repro.moe.layer``: :func:`moe_layer_local` is the per-rank view of
 one balanced MoE layer and delegates to :func:`repro_torch.moe.stages.
-run_staged_moe`.  It runs a flat EP group of ``ep_size`` ranks over
+run_staged_moe`.  It runs an EP group of ``ep_size`` ranks over
 ``torch.distributed`` (``axis_name`` the group, an
-:class:`repro_torch.parallel.collectives.EPGroup`; None for one rank) in the
-``a2a`` and ``replicated`` dispatch modes of the fused engine, unchunked
-(no ``overlap_chunks`` or ``dispatch_impl`` options yet), with the wire
-codec (``wire_dtype``) and the w8a8 expert FFN (``ffn_dtype``) of DESIGN.md
-S12.  It is differentiable (``repro_torch.moe.stages``: training) in the
-fp FFN with no wire codec, on one rank or an EP group.
+:class:`repro_torch.parallel.collectives.EPGroup`; None for one rank): a
+flat one in the ``a2a`` and ``replicated`` dispatch modes, a factored one
+of ``racks`` racks (``collectives.factor``) in ``hier_a2a`` (the
+rack-aware plan, the two-hop token exchange and the tiered replica stream
+of DESIGN.md S9) and ``replicated``; with the fused permutation engine or
+the reference one (``dispatch_impl``), ``overlap_chunks`` token chunks
+sharing one plan, the wire codec (``wire_dtype``) and the w8a8 expert FFN
+(``ffn_dtype``) of DESIGN.md S12.  It is differentiable
+(``repro_torch.moe.stages``: training) in the fp FFN with no wire codec,
+on one rank or an EP group.
 """
 
 from __future__ import annotations
@@ -41,7 +45,16 @@ class MoEConfig:
     cap_slot: int                  # tokens per physical expert slot
     n_shared_experts: int = 0
     shared_d_ff: int = 0
-    dispatch_mode: str = "a2a"     # "a2a" | "replicated" (fused engine)
+    dispatch_mode: str = "a2a"     # "a2a" | "replicated" | "hier_a2a"
+    # "hier_a2a": two-level (rack x lane) EP on a factored group; the
+    # fused engine only; "a2a" on one rack, bit for bit
+    dispatch_impl: str = "fused"   # "fused" (single-sort permutation
+    # engine, moe.permute) | "reference" (multi-sort scatter path,
+    # moe.dispatch: the equivalence oracle)
+    racks: int = 1                 # racks of the two-level EP group
+    overlap_chunks: int = 1        # token chunks sharing one plan, chunk
+    # i+1's exchange issued before chunk i's FFN (moe.stages); must divide
+    # the local token count at call time
     wire_dtype: str = "none"       # EP-wire payload codec: "none" | "bf16" |
     # "int8" (per-row symmetric, fp32 scales packed in-band); token payloads
     # both ways in "a2a" and the replica weight stream
@@ -53,15 +66,45 @@ class MoEConfig:
     # through its plain versions (a check of the backward kernels in place)
 
     def __post_init__(self):
-        if self.dispatch_mode not in ("a2a", "replicated"):
-            raise ValueError(f"unknown or unported dispatch_mode: "
-                             f"{self.dispatch_mode!r}")
+        # Fail at construction (mirrors repro.moe.layer.MoEConfig).
+        if self.dispatch_impl not in ("fused", "reference"):
+            raise ValueError(f"unknown dispatch_impl: {self.dispatch_impl!r}")
+        if self.dispatch_mode not in ("a2a", "replicated", "hier_a2a"):
+            raise ValueError(f"unknown dispatch_mode: {self.dispatch_mode!r}")
+        if self.dispatch_mode == "hier_a2a" and self.dispatch_impl != "fused":
+            raise ValueError(
+                "dispatch_mode='hier_a2a' requires dispatch_impl='fused' "
+                "(the reference scatter path is the flat-EP oracle)")
+        if self.racks < 1 or self.ep_size % self.racks != 0:
+            raise ValueError(
+                f"racks={self.racks} must divide ep_size={self.ep_size}")
+        if self.distribute_chunks < 1:
+            raise ValueError(
+                f"distribute_chunks={self.distribute_chunks} must be >= 1")
+        if self.overlap_chunks < 1:
+            raise ValueError(
+                f"overlap_chunks={self.overlap_chunks} must be >= 1")
+        if self.overlap_chunks > 1 and self.dispatch_impl != "fused":
+            raise ValueError(
+                "overlap_chunks > 1 requires dispatch_impl='fused' (the "
+                "reference scatter path is the unchunked equivalence oracle)")
         if self.wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"unknown wire_dtype: {self.wire_dtype!r}")
         if self.ffn_dtype not in FFN_DTYPES:
             raise ValueError(f"unknown ffn_dtype: {self.ffn_dtype!r}")
-        if self.distribute_chunks < 1:
-            raise ValueError("distribute_chunks must be >= 1")
+        if self.wire_dtype != "none" and self.dispatch_impl != "fused":
+            raise ValueError(
+                "wire_dtype != 'none' requires dispatch_impl='fused' (the "
+                "reference scatter path is the uncompressed oracle)")
+
+    @property
+    def ranks_per_rack(self) -> int:
+        return self.ep_size // self.racks
+
+    @property
+    def rack_size(self) -> int | None:
+        """Ranks per rack when the topology is two-level, else None (flat)."""
+        return self.ranks_per_rack if self.racks > 1 else None
 
     @property
     def layout(self) -> ExpertLayout:
@@ -156,11 +199,19 @@ def _q8_slots(w: torch.Tensor, n_slot: int):
 
 def default_capacities(tokens_per_rank: int, top_k: int, ep_size: int,
                        slots_per_rank: int, *, cf_pair: float = 2.0,
-                       cf_slot: float = 2.0) -> tuple[int, int]:
-    """Static capacity bounds sized off the balanced expectation (flat
-    topology; mirrors ``repro.moe.layer.default_capacities``)."""
+                       cf_slot: float = 2.0,
+                       topology=None) -> tuple[int, int]:
+    """Static capacity bounds sized off the balanced expectation (mirrors
+    ``repro.moe.layer.default_capacities``).  ``topology`` (a
+    :class:`repro_torch.core.topology.Topology` of more than one rack)
+    takes the per-rack pair bound: the rack-local reroute tier concentrates
+    a source's traffic in its rack, so a pair buffer is sized for all of a
+    source's traffic to one rack landing on one rank."""
     items = tokens_per_rank * top_k
-    cap_pair = max(8, int(-(-items * cf_pair // ep_size)))
+    if topology is not None and topology.racks > 1:
+        cap_pair = max(8, int(-(-items * cf_pair // topology.racks)))
+    else:
+        cap_pair = max(8, int(-(-items * cf_pair // ep_size)))
     cap_slot = max(8, int(-(-items * cf_slot // slots_per_rank)))
     return cap_pair, cap_slot
 
@@ -210,7 +261,8 @@ def moe_layer_local(x: torch.Tensor, params: MoEParams, cfg: MoEConfig, *,
     Returns (y, aux_loss, stats) with y (T_local, D).  ``axis_name`` is the
     EP group (:class:`repro_torch.parallel.collectives.EPGroup` of
     ``cfg.ep_size`` ranks, each calling with its own tokens and its
-    ``params`` shard), or None when ``cfg.ep_size == 1``.  In the
+    ``params`` shard; factored into ``cfg.racks`` racks for ``hier_a2a``),
+    or None when ``cfg.ep_size == 1``.  In the
     ``replicated`` mode every rank passes the same tokens and gets the
     same y.
     """

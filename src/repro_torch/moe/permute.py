@@ -1,11 +1,17 @@
 """Fused single-sort permutation engine for MoE dispatch (DESIGN.md S2).
 
-Mirrors ``repro.moe.permute`` except the two-hop exchange: the occurrence
+Mirrors ``repro.moe.permute``: the occurrence
 index is a histogram cumsum (no sort), one stable sort of the packed
 ``dst * (S+1) + slot`` key groups items by destination rank and slot, send
 buffers and slot buffers are gathers from the saved permutation, and the
 receiver rebuilds its slot layout from a tiny per-(src, slot) count matrix.
 Integer outputs and gathered buffers are bitwise those of the JAX engine.
+
+On a two-level (rack x lane) group the same destination-major buffers ride
+:func:`two_hop_all_to_all`: destination ranks are rack-major, so the packed
+key is already the ``(rack, lane, slot)`` key, and the flat exchange
+becomes an inter-rack hop of rack-aggregated payloads followed by an
+intra-rack scatter (DESIGN.md S9), bit for bit the flat result.
 
 Dtype notes: indices are int64 (PyTorch's indexing type);
 ``jnp.searchsorted(side=)`` is ``torch.searchsorted(right=)`` and the
@@ -24,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.planner import token_targets
+from repro_torch.parallel import collectives
 
 __all__ = [
     "FusedDispatch",
@@ -37,6 +44,8 @@ __all__ = [
     "fused_replicated_bucket",
     "fused_replicated_combine",
     "gather_rows",
+    "two_hop_all_to_all",
+    "two_hop_all_to_all_async",
 ]
 
 _I64 = torch.int64
@@ -112,6 +121,96 @@ class _GatherRows(torch.autograd.Function):
                        torch.where(ok[(...,) + (None,) * (gf.dim() - 1)], gf,
                                    _zeros_like_scalar(gf)))
         return out, None, None
+
+
+def _hops(group, reverse: bool):
+    """The two hops in wire order: (subgroup, dim of the (racks, L, ...)
+    view it exchanges).  Hop 1 (scale-out) goes over the rack subgroup on
+    dim 0, hop 2 (scale-up) over the lane subgroup on dim 1; ``reverse``
+    runs them the other way round.  A subgroup of one rank moves nothing
+    and is left out."""
+    hops = [(group.rack, 0), (group.lane, 1)]
+    return [(g, d) for g, d in (hops[::-1] if reverse else hops)
+            if g.size > 1]
+
+
+def _hop_in(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The (racks, L, ...) view as the hop's (peers, ...) buffer."""
+    return t if dim == 0 else t.transpose(0, 1)
+
+
+def two_hop_all_to_all(buf: torch.Tensor, group, *,
+                       reverse: bool = False) -> torch.Tensor:
+    """Tiered EP exchange of a destination-major buffer (DESIGN.md S9).
+
+    Mirrors ``repro.moe.permute.two_hop_all_to_all`` on a factored
+    :class:`repro_torch.parallel.collectives.EPGroup` of ``racks`` x ``L``
+    ranks: ``buf`` is (R, ...) with one row per destination rank in
+    rack-major order, viewed as (racks, L, ...).  Hop 1 (scale-out) is an
+    ``all_to_all`` over the rack subgroup on dim 0: one rack-aggregated
+    payload of L rows to the same-lane peer of each rack; hop 2
+    (scale-up) is one over the lane subgroup on dim 1, which scatters each
+    row to its lane.  Both are pure relabellings and commute, so the
+    result is bit for bit the flat ``all_to_all``; ``reverse=True`` runs
+    the lane hop first (the return wire).  Differentiable: each hop's
+    transpose is itself, so the backward is the reverse exchange."""
+    R = buf.shape[0]
+    # The list holds the one reference to each hop's result, which the
+    # next hop takes (pop) and drops once its input is copied: a hop's
+    # output is allocated with at most three buffers of the wire alive
+    # (at DeepSeek-V3's width a buffer is 1.9 GB a rank).
+    held = [buf.reshape((group.racks, R // group.racks)
+                        + tuple(buf.shape[1:]))]
+    for sub, dim in _hops(group, reverse):
+        held.append(_hop(sub, held.pop(), dim))
+    return held.pop().reshape(buf.shape)
+
+
+def _hop(sub, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """One hop of the (racks, L, ...) view ``t`` over ``sub`` on ``dim``;
+    ``t`` is dropped once the hop's contiguous input is made."""
+    x = _hop_in(t, dim).contiguous()
+    del t
+    return _hop_in(collectives.all_to_all(sub, x), dim)
+
+
+class _TwoHop:
+    """A started :func:`two_hop_all_to_all`: the first hop runs while the
+    caller works on; ``wait()`` finishes it, runs the second hop and
+    returns the received buffer."""
+
+    def __init__(self, buf: torch.Tensor, group, reverse: bool):
+        R = buf.shape[0]
+        self._shape = buf.shape
+        self._group = group
+        self._hops = _hops(group, reverse)
+        t = buf.reshape((group.racks, R // group.racks)
+                        + tuple(buf.shape[1:]))
+        self._first = None
+        if self._hops:
+            sub, dim = self._hops[0]
+            self._first = collectives.all_to_all_async(sub, _hop_in(t, dim))
+        self._t = t
+        self._out = None
+
+    def wait(self) -> torch.Tensor:
+        if self._out is None:
+            held = [self._t]
+            self._t = None
+            if self._first is not None:
+                held = [_hop_in(self._first.wait(), self._hops[0][1])]
+                self._first = None
+            for sub, dim in self._hops[1:]:
+                held.append(_hop(sub, held.pop(), dim))
+            self._out = held.pop().reshape(self._shape)
+        return self._out
+
+
+def two_hop_all_to_all_async(buf: torch.Tensor, group, *,
+                             reverse: bool = False) -> _TwoHop:
+    """:func:`two_hop_all_to_all` with its first hop started and not
+    waited for; ``.wait()`` gives the result (no gradient)."""
+    return _TwoHop(buf, group, reverse)
 
 
 def occurrence_by_histogram(ids: torch.Tensor, num_groups: int) -> torch.Tensor:

@@ -14,7 +14,19 @@ MoE layer and the model need, in the JAX package's terms
   syncs;
 * :func:`reduce_scatter`: (R, ...) -> (...), the sum over ranks of each
   rank's row ``rank``;
-* :func:`all_reduce`: the sum over ranks.
+* :func:`all_reduce`: the sum over ranks;
+* :func:`all_to_all_async`: :func:`all_to_all` started and returned as a
+  handle whose ``wait()`` gives the received buffer (the overlap driver's
+  exchange of the next chunk, under the current chunk's FFN).
+
+A factored group (:func:`factor`: ``racks`` x ``L`` ranks, the two-level
+topology of ``repro.core.topology``, rank-major: rank ``r`` is rack ``r //
+L``, lane ``r % L``) also holds its ``rack`` subgroup (the ranks of its
+lane, one a rack: ``jax.lax`` over the rack axis) and its ``lane``
+subgroup (the ranks of its rack).  ``torch.distributed.new_group`` is
+collective over the default group: every rank calls it for every
+subgroup, in one order, including those it is not in, so :func:`factor`
+makes them all at once, when the group is built.
 
 Gradients follow JAX's transpose rules where the MoE layer needs them: the
 backward of ``all_to_all`` is the same exchange of the gradient, of
@@ -40,23 +52,34 @@ import datetime
 import torch
 import torch.distributed as dist
 
-__all__ = ["EPGroup", "init", "subgroup", "destroy", "all_gather",
-           "all_to_all", "reduce_scatter", "all_reduce"]
+__all__ = ["EPGroup", "init", "subgroup", "factor", "destroy", "all_gather",
+           "all_to_all", "all_to_all_async", "reduce_scatter", "all_reduce"]
 
 
 class EPGroup:
     """One EP group: the process group, this process's rank in it, its size
-    and backend."""
+    and backend; on a factored group (:func:`factor`) also ``racks``, the
+    ``rack`` subgroup (this lane's ranks, one a rack) and the ``lane``
+    subgroup (this rack's ranks), else ``racks`` None."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, *, racks: int | None = None, rack=None,
+                 lane=None):
         self.group = group
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.backend = dist.get_backend(group)
+        self.racks = racks
+        self.rack = rack
+        self.lane = lane
+
+    @property
+    def factored(self) -> bool:
+        return self.racks is not None
 
     def __repr__(self) -> str:
+        tier = "" if self.racks is None else f", racks={self.racks}"
         return (f"EPGroup(rank={self.rank}, size={self.size}, "
-                f"backend={self.backend!r})")
+                f"backend={self.backend!r}{tier})")
 
 
 def init(backend: str, *, world_size: int, rank: int,
@@ -77,6 +100,34 @@ def subgroup(ranks: list[int]) -> EPGroup | None:
     default group must call this); None on a rank outside it."""
     group = dist.new_group(ranks)
     return EPGroup(group) if dist.get_rank() in ranks else None
+
+
+def factor(racks: int) -> EPGroup:
+    """The default group factored into ``racks`` racks of ``world /
+    racks`` ranks (rack-major): the same ranks and process group, plus
+    this rank's lane subgroup (its rack's ranks) and rack subgroup (its
+    lane's ranks).
+
+    Collective over the default group: every rank calls it with the same
+    ``racks``, in the same order as its other group calls.  It makes every
+    lane subgroup (one a rack), then every rack subgroup (one a lane)."""
+    R = dist.get_world_size()
+    if racks < 1 or R % racks != 0:
+        raise ValueError(f"racks={racks} must divide the group's {R} ranks")
+    L = R // racks
+    me = dist.get_rank()
+    lane_g = rack_g = None
+    for g in range(racks):
+        members = [g * L + l for l in range(L)]
+        pg = dist.new_group(members)
+        if me in members:
+            lane_g = EPGroup(pg)
+    for l in range(L):
+        members = [g * L + l for g in range(racks)]
+        pg = dist.new_group(members)
+        if me in members:
+            rack_g = EPGroup(pg)
+    return EPGroup(racks=racks, rack=rack_g, lane=lane_g)
 
 
 def destroy() -> None:
@@ -150,6 +201,37 @@ def all_reduce(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=g.group)
     return out
+
+
+class AsyncExchange:
+    """A started :func:`all_to_all`; ``wait()`` returns the received buffer
+    (the same call again returns it again)."""
+
+    def __init__(self, out: torch.Tensor, work):
+        self._out = out
+        self._work = work
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._out
+
+
+def all_to_all_async(g: EPGroup, buf: torch.Tensor) -> AsyncExchange:
+    """:func:`all_to_all` started without waiting for it (no gradient:
+    under one, call :func:`all_to_all`).  Every rank must start its
+    exchanges in the same order, as with the synchronous calls."""
+    if _grad(buf):
+        raise ValueError("all_to_all_async has no backward: under a "
+                         "gradient use all_to_all")
+    if buf.shape[0] != g.size:
+        raise ValueError(f"all_to_all needs {g.size} rows on axis 0, not "
+                         f"{buf.shape[0]}")
+    buf = buf.contiguous()
+    out = torch.empty_like(buf)
+    work = dist.all_to_all_single(out, buf, group=g.group, async_op=True)
+    return AsyncExchange(out, work)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -24,7 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (LMParams, blocked_lm_loss, forward,
                                       init_router_bias, lm_loss)
-from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
+from repro_torch.models.transformer import (ParallelCtx, RuntimeConfig,
+                                            effective_rack_limit)
 from repro_torch.moe.gating import update_router_bias
 from repro_torch.optim.optimizer import Optimizer, clip_by_global_norm
 
@@ -125,9 +126,13 @@ def make_train_step(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
         if router_bias is not None and tcfg.bias_update and \
                 cfg.moe is not None:
             # Only the MoE layers' rows move (a dense layer counts nothing).
+            # Where the gate's rack limit binds, the two-level per-rack
+            # update (DESIGN.md S14).
+            limit = effective_rack_limit(cfg.moe, rcfg, pctx.racks)
             is_moe = counts.sum(dim=1) > 0
-            upd = update_router_bias(router_bias, counts,
-                                     cfg.moe.bias_update_speed)
+            upd = update_router_bias(
+                router_bias, counts, cfg.moe.bias_update_speed,
+                num_racks=pctx.racks if 0 < limit < pctx.racks else 1)
             router_bias = torch.where(is_moe[:, None], upd, router_bias)
         metrics = {"loss": loss, "grad_norm": gnorm, "drops": drops,
                    "counts": counts, "step": state.step}

@@ -443,3 +443,65 @@ def test_prepare_stream_lets_the_first_call_be_captured_on_card(cuda_device):
     del graph
     ops.release_scratch()
     assert not ops._SCRATCH
+
+
+# (T, E, k, num_racks, rack_limit, group_topk): DeepSeek-V3's prefill shape
+# with its published node-limited routing (8 groups, 4 kept, group top-2),
+# two racks of which one, decode, and small geometries (W 1 and 2).
+RACK_SHAPES = [(4096, 256, 8, 8, 4, 2), (4096, 256, 8, 2, 1, 2),
+               (4, 256, 8, 8, 4, 2), (1000, 128, 8, 4, 2, 3),
+               (512, 16, 2, 4, 1, 2), (300, 32, 4, 2, 1, 4),
+               (9000, 256, 8, 8, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["free", "bias"])
+@pytest.mark.parametrize("score_fn", ["softmax", "sigmoid"])
+@pytest.mark.parametrize("T,E,k,G,M,gk", RACK_SHAPES)
+def test_kernel_rack_mode_matches_plain_on_card(cuda_device, score_fn, bias,
+                                                T, E, k, G, M, gk):
+    """The rack mode's ids equal the plain rack selection on the kernel's
+    own scores (plus the bias) on every row, ties included, so the rack
+    scores, the kept racks and the rounds are the plain version's; the
+    scores and weights are within 1e-6 max|ref| of the plain version's;
+    the counts are the histogram of the ids; one launch, counted as rack
+    mode."""
+    x = torch.from_numpy(_logits(T, E, seed=3)).to(cuda_device)
+    x[::9] = 0.0                                  # rows where every key ties
+    b = (torch.from_numpy(_bias(E)).to(cuda_device) if bias else None)
+    kw = dict(score_fn=score_fn, bias=b, want_scores=True, num_racks=G,
+              rack_limit=M, group_topk=gk)
+    before = dict(ops.gating_topk.launches_by_kernel)
+    ids, w, cnt, scores = ops.gating_topk(x, k, **kw)
+    torch.cuda.synchronize()
+    assert ops.gating_topk.launches_by_kernel["rack"] == before["rack"] + 1
+    keys = scores if b is None else scores + b[None, :]
+    assert torch.equal(ids, ops.rack_limited_ids(keys, k, G, M, gk))
+    assert torch.equal(cnt, torch.bincount(ids.reshape(-1), minlength=E))
+    r_ids, r_w, _, r_scores = ops.gating_topk_ref(x, k, **kw)
+    assert (scores - r_scores).abs().max() <= 1e-6 * r_scores.abs().max()
+    assert torch.equal(w, torch.gather(scores, 1, ids))
+    racks = ids // (E // G)
+    assert max(torch.unique(r).numel() for r in racks.cpu()) <= M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("score_fn", ["softmax", "sigmoid"])
+def test_kernel_rack_limit_of_all_racks_is_free_routing(cuda_device,
+                                                        score_fn):
+    x = torch.from_numpy(_logits(2048, 256, seed=4)).to(cuda_device)
+    free = ops.gating_topk(x, 8, score_fn=score_fn, want_scores=True)
+    full = ops.gating_topk(x, 8, score_fn=score_fn, want_scores=True,
+                           num_racks=8, rack_limit=8, group_topk=2)
+    for a, c in zip(free, full):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_kernel_rack_mode_refuses_other_geometries(cuda_device):
+    x = torch.zeros((8, 96), device=cuda_device)
+    with pytest.raises(ValueError, match="rack mode"):
+        ops.gating_topk(x, 4, num_racks=2, rack_limit=1)     # 12 chunks a rack
+    with pytest.raises(ValueError, match="rack mode"):
+        ops.gating_topk(x[:, :64], 4, num_racks=2, rack_limit=1,
+                        group_topk=8)

@@ -245,3 +245,74 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         ops.plan_solve(t, t[:2], t, t.reshape(2, 2), n_slot=2, u_min=1,
                        max_replicas_per_expert=2, load_bound=8)
+
+
+# Rack mode (row Pr): PLAN_CASES at rack size 8, and R 4 at rack size 2.
+RACK_CASES = [(R, 128, 8, 8) for R in (8, 16, 32, 64)] + [(4, 16, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("demand", [False, True], ids=["plain", "demand"])
+@pytest.mark.parametrize("law", LAWS)
+@pytest.mark.parametrize("R,E,k,L", RACK_CASES)
+def test_kernel_rack_mode_matches_plain_on_card(cuda_device, R, E, k, L, law,
+                                                demand):
+    """The rack score and, with ``demand``, the (G, E) incidence computed
+    on the card: u, tau and (probes, steps) equal the plain version's, the
+    whole Plan (tier fields too) the plain solve's, with no host sync."""
+    lam = _lam(R, E, k, law, seed=R + L + LAWS.index(law))
+    # Each rack keeps its tokens off a third of the experts, so the
+    # incidence differs between racks.
+    rng = np.random.default_rng(R)
+    for g in range(R // L):
+        lam[g * L:(g + 1) * L, rng.choice(E, E // 3, replace=False)] = 0
+    lam = torch.from_numpy(lam)
+    home = torch.from_numpy(_home(R, E))
+    lam_e, ell, rexp = _solve_inputs(lam, home)
+    ref_stats = torch.zeros(2, dtype=torch.int32)
+    u_ref, tau_ref = ops.plan_solve_ref(
+        lam_e, ell, home, rexp, n_slot=2, u_min=1, max_replicas_per_expert=R,
+        stats=ref_stats, rack_size=L, lam=lam if demand else None)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    d = [t.to(cuda_device) for t in (lam_e, ell, home, rexp, lam)]
+    u, tau = ops.plan_solve(*d[:4], n_slot=2, u_min=1,
+                            max_replicas_per_expert=R,
+                            load_bound=R * 4096 * k, stats=stats,
+                            rack_size=L, lam=d[4] if demand else None)
+    torch.cuda.synchronize()
+    assert torch.equal(u.cpu(), u_ref) and int(tau) == int(tau_ref)
+    assert torch.equal(stats.cpu(), ref_stats)
+    kw = dict(n_slot=2, rack_size=L, demand_tiebreak=demand)
+    plain = planner.solve_plan(lam, home, **kw)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = planner.solve_plan(d[4], d[2], load_bound=R * 4096 * k, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for f in PLAN_FIELDS + ("tier_tokens", "tier_replicas"):
+        assert torch.equal(getattr(plan, f).cpu(), getattr(plain, f)), f
+
+
+@pytest.mark.cuda
+def test_kernel_one_rack_is_the_flat_solve(cuda_device):
+    R, E, k = 16, 128, 8
+    lam = torch.from_numpy(_lam(R, E, k, "zipf", seed=2)).to(cuda_device)
+    home = torch.from_numpy(_home(R, E)).to(cuda_device)
+    flat = planner.solve_plan(lam, home, n_slot=2, load_bound=R * 4096 * k)
+    one = planner.solve_plan(lam, home, n_slot=2, rack_size=R,
+                             demand_tiebreak=True, load_bound=R * 4096 * k)
+    for f in PLAN_FIELDS:
+        assert torch.equal(getattr(one, f), getattr(flat, f)), f
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_at_the_rack_mode_bound(cuda_device):
+    R, E, L = 4, 16, 2
+    lam = torch.from_numpy(_lam(R, E, 2, "uniform", seed=1)).to(cuda_device)
+    home = torch.from_numpy(_home(R, E)).to(cuda_device)
+    for demand, bound in ((False, 2 ** 30), (True, 2 ** 29)):
+        with pytest.raises(ValueError, match="slack scale"):
+            planner.solve_plan(lam, home, n_slot=2, rack_size=L,
+                               demand_tiebreak=demand, load_bound=bound)
+        planner.solve_plan(lam, home, n_slot=2, rack_size=L,
+                           demand_tiebreak=demand, load_bound=bound - 1)

@@ -106,8 +106,7 @@ def test_layout_and_lookups_match_jax(R):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"rack_size": 2}, {"health_weight": torch.ones(4)},
-    {"demand_tiebreak": True}, {"probe_parallelism": 2}])
+    {"health_weight": torch.ones(4)}, {"probe_parallelism": 2}])
 def test_unported_arguments_raise(kwargs):
     lam = torch.from_numpy(_pareto_load(4, seed=0))
     with pytest.raises(ValueError):
