@@ -69,7 +69,16 @@ Phases, one output line each:
      every row, and ``plan_solve`` with rack size 8 (2 at R 4), with and
      without the demand tie-break, the whole Plan with its tier fields
      equal to the plain solve's, no host sync, timed beside the flat
-     solve; and
+     solve; ``plan_solve``'s k-ary round (row Pk: probe_parallelism 4 and
+     8 beside 1 in the same call, E 128 and 256, R 64, flat and rack size
+     8, Zipf 1.0) and health mode (row Ph: rank 1 at weight 0.5, rank 2 at
+     0, whose load must be 0), the whole Plan equal to the plain solve's,
+     (probes, steps, critical-path steps) equal, no host sync, graph time,
+     the bound (critical-path steps x one redux.sync round) and the plain
+     loop's time; ``eplb_place`` (row Pe, EPLB's greedy placement) at E
+     128 and 256, R 64, n_slot 2, Zipf 1.0: hosted bitwise equal to the
+     plain version, no host sync, graph time, the bound (steps x two block
+     reductions, timed here) and the plain loop's time; and
      ``flash_attention`` against its plain version at the
      GLM-4.5-Air serve cache (C 4096, Sk 10248: offsets 0 and 4096, a ragged
      last chunk), at Qwen3's 64 over 4 heads, at decode (B 4, per-row
@@ -141,8 +150,27 @@ Phases, one output line each:
      tokens and weights (2e-2 max|ref|, int8 wire 3e-2), the plan tables
      (solved on the card) equal to the plain solve's, zero drops, and each
      layer call through one launch of the plan-solve, gate and two grouped
-     kernels (counts set to 0 before the call, read after); no time is
-     stated for it;
+     kernels (counts set to 0 before the call, read after); then, in
+     ``a2a``, the balancers ``eplb`` (a stale estimate), ``eplb_plus``,
+     ``lplb``, ``ultraep`` at probe_parallelism 4 and under a
+     ``RankHealth`` with rank 1 at half speed, each y against the R = 1
+     layer (2e-2 max|ref|), zero drops, one launch of ``eplb_place`` for
+     the EPLB modes, of ``plan_solve`` for ``ultraep``, of neither for
+     ``lplb``; and the resilience ladder: an injected ``solve_fail`` after a
+     clean call (the cached plan reused, no solve launched, y bitwise the
+     clean call's), ``transfer_flaky`` (retried twice, y bitwise the clean
+     run's) and ``nan_payload`` (payload rows counted apart from the
+     capacity drops, y finite); no time is stated for it;
+ 15. the balancer comparison: DeepSeek-V3's expert count (E 256) and
+     GLM-4.5-Air's (E 128) at R 64, top-8, 4096 tokens a rank, under a
+     Zipf 0.4 expert popularity (the home-rank imbalance lands inside the
+     paper's 1.30-4.01); ``none``, ``eplb`` (placement from the EMA of
+     three earlier batches whose popularity is rolled by E / 2),
+     ``eplb_plus``, ``lplb``, ``ultraep`` at P 1 and 4 solve the same load
+     on the card through ``balancer.solve``: ``metrics.report`` before and
+     after (imbalance, instances, fan-out, slots, in-flight share) and the
+     solve's time (graph device time; ``lplb``, host numpy by design, its
+     host wall);
  14. the rack tier on the one card: four processes (spawn) in one gloo
      group and the same ranks factored as 2 racks x 2 lanes, DeepSeek-V3's
      MoE layer at full width (E 256, k 8, d_model 7168, d_ff 2048, bf16),
@@ -225,6 +253,23 @@ RACK_GATE_CASES = [("ds_g8_m4", 4096, 256, 8, "sigmoid", 8, 4, 2, 20),
 RACK_PLAN_CASES = [(R, E, k, 8 if R % 8 == 0 else 2)
                    for R, E, k in PLAN_CASES if R >= 4]
 RACKS, RACK_RANKS, RACK_TOKENS = 2, 4, 2048   # phase 14: 2 racks x 2 lanes
+# Row Pe: (R, E, top-k) of GLM-4.5-Air (E 128) and DeepSeek-V3 (E 256) at
+# R 64, n_slot 2.
+EPLB_CASES = [(64, 128, 8), (64, 256, 8)]
+# Rows Pk and Ph: (R, E, top-k, rack size or None); P 1 beside P 4 and 8.
+KARY_CASES = [(64, 128, 8, None), (64, 128, 8, 8), (64, 256, 8, None),
+              (64, 256, 8, 8)]
+KARY_PS = (1, 4, 8)
+HEALTH_CASES = [(64, 128, 8, None), (64, 128, 8, 8)]
+# Phase 15: DeepSeek-V3's and GLM-4.5-Air's expert counts at R 64, top-8,
+# PLAN_TOKENS a rank, Zipf exponent BAL_ZIPF over a shuffled expert order
+# (0.4 puts the home-rank imbalance inside the paper's 1.30-4.01); the
+# stale estimate is the EMA of BAL_HISTORY earlier batches whose
+# popularity is the current one rolled by E / 2.
+BAL_CASES = [("deepseek-v3-671b", 256), ("glm45-106b-a12b", 128)]
+BAL_ZIPF, BAL_HISTORY, BAL_R, BAL_K = 0.4, 3, 64, 8
+BAL_MODES = (("none", 1), ("eplb", 1), ("eplb_plus", 1), ("lplb", 1),
+             ("ultraep", 1), ("ultraep", 4))
 
 
 def _line(tag: str, payload) -> None:
@@ -1401,6 +1446,250 @@ def phase_plan_solve_racks() -> dict:
     return records
 
 
+def phase_eplb_place() -> dict:
+    """Row Pe: EPLB's greedy placement (``eplb_place``) vs its plain
+    version at EPLB_CASES (Zipf 1.0 loads, n_slot 2): hosted bitwise equal
+    and (steps, placements) equal, no host sync under
+    ``set_sync_debug_mode("error")``; graph device time, the plain loop's
+    eager time on the card, and the bound: steps x two block reductions
+    (the kernel's chain of one, timed here)."""
+    import torch
+
+    from repro_torch.kernels.eplb_place import ops
+
+    unit = min(ops.block_reduce_ms() for _ in range(3))
+    records = {}
+    for R, E, k in EPLB_CASES:
+        name = f"e{E}_k{k}_r{R}_zipf"
+        lam = torch.from_numpy(_plan_lam(R, E, k, "zipf", seed=E))
+        lam_e = lam.sum(dim=0).to(torch.float32)
+        home = torch.arange(E) // (E // R)
+        kw = dict(n_slot=2, max_rep=R)
+        stats_ref = torch.zeros(2, dtype=torch.int32)
+        want = ops.eplb_place_ref(lam_e, home, R, stats=stats_ref, **kw)
+        d_lam, d_home = lam_e.cuda(), home.cuda()
+        stats = torch.zeros(2, dtype=torch.int32, device="cuda")
+        got = ops.eplb_place(d_lam, d_home, R, stats=stats, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"eplb_place {name}: hosted differs from "
+                                 f"the plain version")
+        if not torch.equal(stats.cpu(), stats_ref):
+            raise AssertionError(f"eplb_place {name}: (steps, placements) "
+                                 f"{stats.tolist()} != {stats_ref.tolist()}")
+        _sync_free(lambda: ops.eplb_place(d_lam, d_home, R, **kw))
+        ms = _graph_ms(lambda: ops.eplb_place(d_lam, d_home, R, **kw), 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.eplb_place_ref(d_lam, d_home, R, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        steps, placed = stats_ref.tolist()
+        records[name] = {
+            "shape": [R, E, k], "law": "zipf", "steps": steps,
+            "placements": placed, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": steps * 2 * unit, "bound_by": "operations",
+            "library_ms": None, "max_abs_err": 0, "sync_free": True,
+            "replicas": int(want.sum()) - E}
+    _line("phase2_eplb_place", {"block_reduce_ms": unit, **records})
+    return records
+
+
+def _kary_record(lam, home, R, E, k, L, law, redux_ms, *, P=1,
+                 health=None, time_plain=False) -> tuple:
+    """One k-ary / health case of ``plan_solve`` (rows Pk, Ph): the whole
+    Plan integer-equal to the plain solve's, (probes, steps, critical
+    path) equal to the plain version's, no host sync; graph device time,
+    the bound (critical-path oracle steps x one redux.sync round) and, with
+    ``time_plain``, the plain loop's eager time on the card."""
+    import torch
+
+    from repro_torch.core import planner
+    from repro_torch.kernels.plan_solve import ops
+
+    bound = R * PLAN_TOKENS * k
+    lam_d, home_d = lam.cuda(), home.cuda()
+    hw_d = None if health is None else health.cuda()
+    pkw = dict(n_slot=2, rack_size=L, probe_parallelism=P)
+    plain = planner.solve_plan(lam, home, health_weight=health, **pkw)
+    plan = planner.solve_plan(lam_d, home_d, load_bound=bound,
+                              health_weight=hw_d, **pkw)
+    torch.cuda.synchronize()
+    tag = f"e{E} r{R} l{L} P{P} health {health is not None}"
+    field = _plan_mismatch(plan, plain)
+    if field is not None:
+        raise AssertionError(f"plan_solve {tag}: {field} differs from the "
+                             f"plain solve")
+    lam_e = lam.sum(dim=0)
+    ell = planner._rank_load(lam_e, home, R)
+    rexp = planner._expert_order(lam_e, home, R)
+    args = [t.cuda() for t in (lam_e, ell, home, rexp)]
+    kw = dict(n_slot=2, u_min=1, max_replicas_per_expert=R, rack_size=L,
+              probe_parallelism=P)
+    stats_ref = torch.zeros(3, dtype=torch.int32)
+    ops.plan_solve_ref(lam_e, ell, home, rexp, stats=stats_ref,
+                       health_weight=health, **kw)
+    stats = torch.zeros(3, dtype=torch.int32, device="cuda")
+    ops.plan_solve(*args, load_bound=bound, stats=stats, health_weight=hw_d,
+                   **kw)
+    if not torch.equal(stats.cpu(), stats_ref):
+        raise AssertionError(f"plan_solve {tag}: (probes, steps, critical) "
+                             f"{stats.tolist()} != {stats_ref.tolist()}")
+    _sync_free(lambda: planner.solve_plan(lam_d, home_d, load_bound=bound,
+                                          health_weight=hw_d, **pkw))
+    probes, steps, crit = stats_ref.tolist()
+    rec = {"shape": [R, E, k], "rack_size": L, "law": law,
+           "probe_parallelism": P, "health": health is not None,
+           "probes": probes, "steps": steps, "critical_steps": crit,
+           "ms": _graph_ms(lambda: ops.plan_solve(
+               *args, load_bound=bound, health_weight=hw_d, **kw), 5),
+           "bound_ms": crit * redux_ms, "bound_by": "operations",
+           "library_ms": None, "max_abs_err": 0, "sync_free": True,
+           "tau": int(plain.tau), "post_max": int(plain.post_max),
+           "replicas": int((plain.x >= 0).sum()),
+           "rank_loads_min": int(plain.u.sum(dim=0).min())}
+    if time_plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.plan_solve_ref(*args, health_weight=hw_d, **kw)
+        torch.cuda.synchronize()
+        rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    return rec, plain
+
+
+def phase_plan_solve_kary() -> dict:
+    """Row Pk: ``plan_solve`` with probe_parallelism P in KARY_PS (P 1
+    beside, in the same call) at KARY_CASES (E 128 and 256, R 64, flat and
+    rack size 8), Zipf 1.0 loads; each case as :func:`_kary_record`, the
+    plain loop timed on the card for E 128 flat."""
+    import torch
+
+    from repro_torch.kernels.plan_solve import ops
+
+    redux_ms = min(ops.redux_round_ms() for _ in range(3))
+    records = {}
+    for R, E, k, L in KARY_CASES:
+        lam = torch.from_numpy(_plan_lam(R, E, k, "zipf", seed=R * 10 + 1))
+        home = torch.arange(E) // (E // R)
+        for P in KARY_PS:
+            name = f"e{E}_k{k}_r{R}_l{L or 0}_p{P}"
+            records[name], _ = _kary_record(
+                lam, home, R, E, k, L, "zipf", redux_ms, P=P,
+                time_plain=(E == 128 and L is None))
+    _line("phase2_plan_solve_kary", {"redux_round_ms": redux_ms, **records})
+    return records
+
+
+def phase_plan_solve_health() -> dict:
+    """Row Ph: ``plan_solve``'s health mode with rank 1 at weight 0.5 and
+    rank 2 at 0 (quarantined), E 128, R 64, flat and rack size 8, P 1 and
+    4, Zipf 1.0 loads; each case as :func:`_kary_record`, and the
+    quarantined rank's load 0 in the solved plan."""
+    import torch
+
+    from repro_torch.kernels.plan_solve import ops
+
+    redux_ms = min(ops.redux_round_ms() for _ in range(3))
+    records = {}
+    for R, E, k, L in HEALTH_CASES:
+        lam = torch.from_numpy(_plan_lam(R, E, k, "zipf", seed=R * 10 + 2))
+        home = torch.arange(E) // (E // R)
+        w = torch.ones(R, dtype=torch.float32)
+        w[1], w[2] = 0.5, 0.0
+        for P in (1, 4):
+            name = f"e{E}_k{k}_r{R}_l{L or 0}_p{P}"
+            rec, plain = _kary_record(lam, home, R, E, k, L, "zipf", redux_ms,
+                                      P=P, health=w,
+                                      time_plain=(P == 1 and L is None))
+            load = plain.u.sum(dim=0)
+            if int(load[2]) != 0:
+                raise AssertionError(f"plan_solve health {name}: the "
+                                     f"quarantined rank keeps {int(load[2])}")
+            rec.update(rank1_load=int(load[1]), rank2_load=int(load[2]),
+                       full_rank_load_max=int(load[3:].max()))
+            records[name] = rec
+    _line("phase2_plan_solve_health", {"redux_round_ms": redux_ms, **records})
+    return records
+
+
+def _zipf_batch(rng, R, E, k, p):
+    """(R, E) load: each rank's PLAN_TOKENS x k items drawn from p."""
+    import numpy as np
+
+    return np.stack([rng.multinomial(PLAN_TOKENS * k, p)
+                     for _ in range(R)]).astype(np.int64)
+
+
+def phase_balancers() -> dict:
+    """Phase 15, the balancer comparison: at BAL_CASES (E 256 and E 128, R
+    64, top-8, Zipf BAL_ZIPF), each mode of BAL_MODES solves the same load
+    on the card through ``balancer.solve``: ``metrics.report`` before and
+    after the plan, the plan's marginals checked, and the solve's time:
+    graph device time for the modes that read nothing back (checked under
+    ``set_sync_debug_mode("error")``), the host wall with a device sync
+    for ``lplb`` (host numpy by design).  ``eplb`` places from the EMA of
+    BAL_HISTORY earlier batches under a popularity rolled by E / 2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import balancer, metrics
+    from repro_torch.core.eplb import LoadEMA
+
+    records = {}
+    for arch, E in BAL_CASES:
+        R, k = BAL_R, BAL_K
+        rng = np.random.default_rng(E)
+        p = 1.0 / np.arange(1, E + 1) ** BAL_ZIPF
+        p = p[rng.permutation(E)]
+        p /= p.sum()
+        ema = LoadEMA(E, decay=0.9)
+        for _ in range(BAL_HISTORY):
+            ema.update(_zipf_batch(rng, R, E, k, np.roll(p, E // 2)).sum(0))
+        lam = torch.from_numpy(_zipf_batch(rng, R, E, k, p))
+        home = torch.arange(E) // (E // R)
+        lam_d, home_d = lam.cuda(), home.cuda()
+        est_d = torch.from_numpy(ema.value).to("cuda", torch.float32)
+        bound = R * PLAN_TOKENS * k
+        rec = {"arch": arch, "shape": [R, E, k], "zipf": BAL_ZIPF,
+               "modes": {}}
+        for mode, P in BAL_MODES:
+            cfg = balancer.BalancerConfig(mode=mode, n_slot=2,
+                                          probe_parallelism=P)
+            est = est_d if mode == "eplb" else None
+
+            def solve():
+                return balancer.solve(lam_d, home_d, cfg, lam_e_est=est,
+                                      load_bound=bound)
+
+            plan = solve()
+            torch.cuda.synchronize()
+            if not (torch.equal(plan.q.sum(dim=-1).cpu(), lam)
+                    and torch.equal(plan.q.sum(dim=0), plan.u)):
+                raise AssertionError(f"balancer {arch} {mode}: the plan's "
+                                     f"marginals are not the load's")
+            rep = metrics.report(lam, plan.u, home)
+            if mode == "lplb":
+                t0 = time.perf_counter()
+                solve()
+                torch.cuda.synchronize()
+                ms, timing = (time.perf_counter() - t0) * 1e3, "host wall"
+            else:
+                _sync_free(solve)
+                ms, timing = _graph_ms(solve, 3), "graph device time"
+            tag = mode if mode != "ultraep" else f"ultraep_p{P}"
+            rec["modes"][tag] = {
+                "pre_imbalance": rep.pre_imbalance,
+                "post_imbalance": rep.post_imbalance,
+                "total_instances": rep.total_instances,
+                "max_fanout": rep.max_fanout, "slots_used": rep.slots_used,
+                "inflight_token_ratio": rep.inflight_token_ratio,
+                "post_max": int(plan.post_max), "solve_ms": ms,
+                "timing": timing}
+        records[arch] = rec
+    _line("phase15_balancers", records)
+    return records
+
+
 def _flash_pairs(Sq, causal, q_off, kv_len) -> tuple[int, int]:
     """(query-key pairs that are unmasked, keys that are needed) summed
     over the batch rows, from this case's offsets."""
@@ -1753,6 +2042,7 @@ def _wrappers() -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.gating_topk import ops as gt
     from repro_torch.kernels.grouped_gemm import ops as gg
+    from repro_torch.kernels.eplb_place import ops as ep
     from repro_torch.kernels.plan_solve import ops as ps
     from repro_torch.kernels.ssd_scan import ops as ssd
 
@@ -1767,7 +2057,8 @@ def _wrappers() -> dict:
             "ssd_intra_chunk": ssd.ssd_intra_chunk,
             "gating_topk": gt.gating_topk,
             "flash_attention": fa.flash_attention,
-            "plan_solve": ps.plan_solve}
+            "plan_solve": ps.plan_solve,
+            "eplb_place": ep.eplb_place}
 
 
 def _reset_launches():
@@ -2182,13 +2473,104 @@ def _ep_worker(rank, world, port, out_dir):
                 out["modes"][mode].update(max_abs_err=err, max_abs_ref=scale,
                                           tol=tol,
                                           finite=bool(torch.isfinite(y).all()))
+            ref_a2a = refs["a2a"]
             del p1, refs
+        out["runs"] = _ep_balancer_runs(rank, world, group, cfgs["a2a"],
+                                        params, mine, ys["a2a"],
+                                        ref_a2a if rank == 0 else None)
+        if rank == 0:
+            del ref_a2a
     out["backward"] = _ep_backward(rank, world, group, glm, rcfg,
                                    cfgs["a2a"], params, x_all, mine)
     del params
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
     collectives.destroy()
+
+
+def _ep_balancer_runs(rank, world, group, cfg, params, mine, y_clean, ref):
+    """Phase 9's balancer and resilience runs on one rank (``a2a``, the
+    phase's tokens and weights), each with the kernel counts set to 0
+    before the layer call and read after: the baselines ``eplb`` (a stale
+    estimate: the load's per-expert sums rolled by E / 2), ``eplb_plus``,
+    ``lplb``, ``ultraep`` at P 4 and under a ``RankHealth`` with rank 1 at
+    half speed; an injected ``solve_fail`` after a clean call (the plan
+    reused, y bitwise equal), ``transfer_flaky`` (retried, y bitwise the
+    clean run's) and ``nan_payload`` (rows counted, y finite).  On rank 0,
+    y of every run that computes the layer's function against the R = 1
+    layer (``ref``) at the phase's bf16 tolerance."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.health import RankHealth
+    from repro_torch.fault.injector import FaultInjector, FaultSpec
+    from repro_torch.moe import stages
+    from repro_torch.moe.layer import moe_layer_local
+    from repro_torch.parallel import collectives
+
+    T = mine.shape[0]
+    E = cfg.gating.num_experts
+    ctx = stages.make_stage_ctx(cfg, group)
+    lam = stages.gate_stage(ctx, mine, params.router).lam
+    stale = torch.roll(lam.sum(dim=0), E // 2).to(torch.float32)
+
+    def bal(**kw):
+        return dataclasses.replace(
+            cfg, balancer=dataclasses.replace(cfg.balancer, **kw))
+
+    def call(c, res=None, est=None):
+        torch.cuda.synchronize()
+        _reset_launches()
+        y, _, st = moe_layer_local(mine, params, c, axis_name=group,
+                                   lam_e_est=est, resilience=res)
+        torch.cuda.synchronize()
+        n = _launches()
+        y = collectives.all_gather(group, y).reshape(world * T, -1)
+        rec = {"drops": int(st.drops_dispatch + st.drops_slot),
+               "post_max": int(st.post_max),
+               "finite": bool(torch.isfinite(y).all()),
+               "launches": {k: n[k] for k in (
+                   "plan_solve", "eplb_place", "gating_topk",
+                   "grouped_swiglu", "grouped_matmul")}}
+        if res is not None:
+            rec.update(fallback_plans=int(st.fallback_plans),
+                       dropped_payload_tokens=int(st.dropped_payload_tokens),
+                       quarantined_ranks=int(st.quarantined_ranks),
+                       counters=dict(res.counters))
+        return y, rec
+
+    runs, ys = {}, {}
+    ys["eplb"], runs["eplb"] = call(bal(mode="eplb"), est=stale)
+    ys["eplb_plus"], runs["eplb_plus"] = call(bal(mode="eplb_plus"))
+    ys["lplb"], runs["lplb"] = call(bal(mode="lplb"))
+    ys["ultraep_p4"], runs["ultraep_p4"] = call(bal(probe_parallelism=4))
+    health = RankHealth(world)
+    health.observe(np.array([1.0, 2.0]))          # rank 1 at half speed
+    ys["ultraep_health"], runs["ultraep_health"] = call(
+        cfg, stages.Resilience(health=health))
+    runs["ultraep_health"]["weights"] = health.planner_weights().tolist()
+    # solve_fail: step 0 solves and caches, step 1's solve fails.
+    inj = FaultInjector([FaultSpec("solve_fail", start_step=1)])
+    res = stages.Resilience(injector=inj)
+    inj.advance(0)
+    y0, runs["solve_fail_step0"] = call(cfg, res)
+    inj.advance(1)
+    y1, runs["solve_fail"] = call(cfg, res)
+    runs["solve_fail"]["y_equal_step0"] = bool(torch.equal(y0, y1))
+    ys["solve_fail_step0"] = y0
+    inj = FaultInjector([FaultSpec("transfer_flaky", count=2)])
+    inj.advance(0)
+    y, runs["transfer_flaky"] = call(cfg, stages.Resilience(
+        stages.ResilienceConfig(max_transfer_retries=2), injector=inj))
+    runs["transfer_flaky"]["y_equal_clean"] = bool(torch.equal(y, y_clean))
+    inj = FaultInjector([FaultSpec("nan_payload", severity=0.05)], seed=3)
+    inj.advance(0)
+    _, runs["nan_payload"] = call(cfg, stages.Resilience(injector=inj))
+    if ref is not None:
+        for name, y in ys.items():
+            err, scale = _max_err(y, ref)
+            runs[name].update(max_abs_err=err, max_abs_ref=scale, tol=2e-2)
+    return runs
 
 
 def _ep_backward(rank, world, group, glm, rcfg, cfg, params, x_all, mine):
@@ -2286,6 +2668,39 @@ def phase_ep_layer() -> dict:
                     or n["grouped_swiglu"] != 1 or n["grouped_matmul"] != 1:
                 raise AssertionError(f"ep layer rank {rank} {mode}: drops "
                                      f"{m['drops']}, launches {n}")
+    for rank, rec in enumerate(ranks):
+        for name, m in rec["runs"].items():
+            n = m["launches"]
+            want = {"plan_solve": 1, "eplb_place": 0}
+            if name in ("eplb", "eplb_plus"):
+                want = {"plan_solve": 0, "eplb_place": 1}
+            elif name in ("lplb", "solve_fail"):
+                want = {"plan_solve": 0, "eplb_place": 0}
+            want.update(gating_topk=1, grouped_swiglu=1, grouped_matmul=1)
+            if m["drops"] or not m["finite"] or any(
+                    n[k] != v for k, v in want.items()):
+                raise AssertionError(f"ep layer rank {rank} {name}: drops "
+                                     f"{m['drops']}, finite {m['finite']}, "
+                                     f"launches {n}, expected {want}")
+            if "tol" in m and not (m["max_abs_err"]
+                                   <= m["tol"] * m["max_abs_ref"]):
+                raise AssertionError(f"ep layer {name}: max|err| "
+                                     f"{m['max_abs_err']:.3e} > {m['tol']} * "
+                                     f"max|ref| {m['max_abs_ref']:.3e}")
+        runs = rec["runs"]
+        if not (runs["solve_fail"]["y_equal_step0"]
+                and runs["solve_fail"]["fallback_plans"] == 1
+                and runs["solve_fail"]["counters"]["last_good_reuses"] == 1):
+            raise AssertionError(f"ep layer rank {rank} solve_fail: "
+                                 f"{runs['solve_fail']}")
+        if not (runs["transfer_flaky"]["y_equal_clean"]
+                and runs["transfer_flaky"]["counters"]["transfer_retries"]
+                == 2):
+            raise AssertionError(f"ep layer rank {rank} transfer_flaky: "
+                                 f"{runs['transfer_flaky']}")
+        if runs["nan_payload"]["dropped_payload_tokens"] <= 0:
+            raise AssertionError(f"ep layer rank {rank} nan_payload: no row "
+                                 f"counted: {runs['nan_payload']}")
     for rank, rec in enumerate(ranks):
         bw = rec["backward"]
         n = bw["launches"]
@@ -3148,6 +3563,10 @@ def main() -> int:
     plan_records = timed("phase2_plan_solve", phase_plan_solve)
     plan_rack_records = timed("phase2_plan_solve_rack",
                               phase_plan_solve_racks)
+    kary_records = timed("phase2_plan_solve_kary", phase_plan_solve_kary)
+    health_records = timed("phase2_plan_solve_health",
+                           phase_plan_solve_health)
+    eplb_records = timed("phase2_eplb_place", phase_eplb_place)
     flash_records = timed("phase2_flash_attention", phase_flash)
     train_kernel_records = timed("phase12_train_kernels", phase_train_kernels,
                                  glm)
@@ -3180,6 +3599,7 @@ def main() -> int:
     train_record = timed("phase13_train", phase_train, glm)
     cli_records = timed("phase7b_serve_cli", phase_serve_cli)
     ep = timed("phase9_ep_layer", phase_ep_layer)
+    timed("phase15_balancers", phase_balancers)
     rack = timed("phase14_rack_tier", phase_rack_tier)
     serves = {"glm45-106b-a12b": glm_serve,
               "glm45-106b-a12b-q8": glm_q8_serve,
@@ -3503,6 +3923,50 @@ def main() -> int:
                                        "plain_ms", "bound_ms")}
                for tag, r in plan_rack_records.items()
                if "ms" in r and tag != "e128_k8_r64_l8_zipf_demand"}}))
+    # Rows Pk and Ph: the plan solve's k-ary round and health mode, launched
+    # by phase 9's ``ultraep`` runs at P 4 and under a RankHealth, rank 0.
+    runs0 = ep["ranks_by_mode"][0]["runs"]
+    plan_src = "src/repro_torch/kernels/plan_solve/csrc/plan_solve.cu"
+    sub_keys = ("shape", "rack_size", "probe_parallelism", "probes", "steps",
+                "critical_steps", "ms", "bound_ms", "tau", "post_max")
+    for name, recs, main_tag, run, replaces in (
+            ("plan_solve.kary", kary_records, "e128_k8_r64_l0_p8",
+             "ultraep_p4", "src/repro/core/planner.py:316-343 (the k-ary "
+             "round of solve_replication's lax.while_loop, :349; no "
+             "pallas_call)"),
+            ("plan_solve.health", health_records, "e128_k8_r64_l0_p1",
+             "ultraep_health", "src/repro/core/planner.py:274-287 and "
+             ":125-128 (health-weighted capacities; no pallas_call)")):
+        rec = dict(recs[main_tag])
+        kernels.append(_kernel_row(name, plan_src, replaces, rec,
+                                   runs0[run]["launches"]["plan_solve"], {
+            "launches_note": f"phase 9 (R = 2), run {run}, rank 0",
+            "bound_note": "latency: critical-path oracle steps (the longest "
+                          "probe of each batch of warps) x one measured "
+                          "redux.sync round",
+            "probes": rec["probes"], "steps": rec["steps"],
+            "critical_steps": rec["critical_steps"],
+            "library_note": "none: no PyTorch call computes the solve",
+            **{tag: {k: r.get(k) for k in sub_keys + ("plain_ms",)}
+               for tag, r in recs.items() if tag != main_tag}}))
+    # Row Pe: EPLB's placement, launched by phase 9's eplb and eplb_plus
+    # runs, rank 0.
+    pe = eplb_records["e256_k8_r64_zipf"]
+    kernels.append(_kernel_row(
+        "eplb_place", "src/repro_torch/kernels/eplb_place/csrc/eplb_place.cu",
+        "src/repro/core/eplb.py:154-174 (_eplb_replication_jax's "
+        "lax.while_loop, body :158-171; no pallas_call)", pe,
+        sum(runs0[r]["launches"]["eplb_place"] for r in ("eplb",
+                                                         "eplb_plus")), {
+            "launches_note": "phase 9 (R = 2), runs eplb and eplb_plus, "
+                             "rank 0",
+            "bound_note": "latency: steps x two measured block reductions",
+            "steps": pe["steps"], "placements": pe["placements"],
+            "library_note": "none: no PyTorch call computes the placement",
+            **{tag: {k: r[k] for k in ("shape", "steps", "placements", "ms",
+                                       "plain_ms", "bound_ms")}
+               for tag, r in eplb_records.items()
+               if tag != "e256_k8_r64_zipf"}}))
     # The backward kernels (no pallas_call: XLA differentiates the JAX
     # package's einsums and flash_ref), with their launches in the last
     # train step of phase 13 and in phase 9's R = 2 backward.

@@ -1,10 +1,19 @@
 """UltraEP quota-driven replication planner (paper Alg. 1).
 
-Mirrors ``repro.core.planner`` at ``probe_parallelism=1`` with no health
-weights: the same greedy feasibility oracle, threshold bisection,
-locality-first NW-corner reroute and slot assignment, so the plan tables
-are integer-identical to the JAX solve (and hence to the numpy oracle
+Mirrors ``repro.core.planner``: the same greedy feasibility oracle,
+threshold search (bisection, or the k-ary round at ``probe_parallelism``
+P > 1), health-weighted capacities, locality-first NW-corner reroute and
+slot assignment, so the plan tables are integer-identical to the JAX solve
+(and at P = 1 with no health weights to the numpy oracle
 ``repro.core.ref_planner``).
+
+Health weights (``health_weight``, (R,) per-rank relative throughput,
+:class:`repro_torch.core.health.RankHealth`): normalised so the fastest
+rank is 1.0, each probe caps rank r at ``floor(f32(tau) * w_r)``, so a
+half-speed rank is packed to about half the quota and a quarantined rank
+(weight 0) drains to zero; tau is then in full-speed-rank units.  Every
+rank of a group must pass the same vector, as every rank must see the
+same load, for the ranks to solve the same plan.
 
 The rack tier (``rack_size``, ranks per rack of a two-level topology,
 DESIGN.md S9) is the reference's: exact slack ties in the oracle break
@@ -17,10 +26,13 @@ the plan is the flat one, bit for bit.
 Control flow.  JAX runs both loops as ``lax.while_loop`` on the device.
 Here they are one launch of a hand-written kernel on a CUDA tensor
 (:mod:`repro_torch.kernels.plan_solve`, the paper's GPU-native solve,
-S5.3) and, on a CPU tensor, its plain version: Python loops whose
-conditions read scalars.  With one EP rank the interval is empty from the
-start (``tau_lo = ceil(total / 1) = max(ell) = tau_hi``), so the solve
-returns the home quota and ``tau = total`` with no launch and no read.
+S5.3; at P > 1 its warps probe P thresholds at once, the paper's
+warp-parallel probing) and, on a CPU tensor, its plain version: Python
+loops whose conditions read scalars.  With one EP rank the interval is
+empty from the start (``tau_lo = ceil(total / 1) = max(ell) = tau_hi``;
+with health weights the one weight normalises to 1 and ``tau_lo = total =
+tau_hi``), so the solve returns the home quota and ``tau = total`` with no
+launch and no read.
 Everything around the loops (the expert order, the reroute, the slot map,
 the cumsums) is tensor code, so a solve on the card reads nothing back.
 """
@@ -83,16 +95,6 @@ def _expert_order(lam_e: torch.Tensor, home: torch.Tensor, R: int) -> torch.Tens
     return p1[p2].reshape(R, E // R)
 
 
-def _unported(health_weight, probe_parallelism: int) -> None:
-    if health_weight is not None:
-        raise ValueError("health_weight: health-weighted solves are not "
-                         "ported yet (ROADMAP section 1 item 7, resilience)")
-    if probe_parallelism != 1:
-        raise ValueError("probe_parallelism > 1 is not ported yet (ROADMAP "
-                         "section 1: probe_parallelism in the plan-solve "
-                         "kernel)")
-
-
 def _check_rack_size(rack_size: int | None, R: int) -> None:
     if rack_size is not None and (rack_size < 1 or R % rack_size != 0):
         raise ValueError(f"rack_size={rack_size} must divide R={R}")
@@ -113,10 +115,10 @@ def solve_replication(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
     tokens per rank x top-k); a solve on the card at R > 1 needs it, since
     the kernel's int32 arithmetic takes totals below 2^31 only (below
     2^31 / 2, or / 4 with ``demand_tiebreak``, in rack mode: the score
-    scales the slack).  ``rack_size`` and ``demand_tiebreak``: see the
-    module's notes.
+    scales the slack; below 2^31 / P at ``probe_parallelism`` P and 2^30
+    with ``health_weight``).  ``rack_size``, ``demand_tiebreak`` and
+    ``health_weight``: see the module's notes.
     """
-    _unported(health_weight, probe_parallelism)
     lam = lam.to(_I64)
     home = home.to(_I64)
     R, E = lam.shape
@@ -135,7 +137,9 @@ def solve_replication(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
     return plan_solve(lam_e, ell, home, rank_experts, n_slot=n_slot,
                       u_min=u_min, max_replicas_per_expert=max_rep,
                       load_bound=load_bound, rack_size=rack_size,
-                      lam=lam.contiguous() if demand else None)
+                      lam=lam.contiguous() if demand else None,
+                      health_weight=health_weight,
+                      probe_parallelism=probe_parallelism)
 
 
 def _nw_corner(demand: torch.Tensor, quota: torch.Tensor) -> torch.Tensor:
@@ -295,12 +299,13 @@ def solve_plan(lam: torch.Tensor, home: torch.Tensor, *, n_slot: int,
     solve and the plan's tier volumes; ``gate_tier_tokens`` is stamped on
     the plan as given.
     """
-    _unported(health_weight, probe_parallelism)
     lam = lam.to(_I64)
     home = home.to(_I64)
     u, tau = solve_replication(lam, home, n_slot=n_slot, u_min=u_min,
                                max_replicas_per_expert=max_replicas_per_expert,
+                               probe_parallelism=probe_parallelism,
                                rack_size=rack_size,
+                               health_weight=health_weight,
                                demand_tiebreak=demand_tiebreak,
                                load_bound=load_bound)
     q = solve_reroute(lam, u, locality=locality, rack_size=rack_size)

@@ -96,6 +96,7 @@ class KernelLibrary:
 
 
 def _libraries() -> list[KernelLibrary]:
+    from repro_torch.kernels.eplb_place import ops as eplb_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.gating_topk import ops as gating_ops
     from repro_torch.kernels.grouped_gemm import ops as grouped_gemm_ops
@@ -104,7 +105,7 @@ def _libraries() -> list[KernelLibrary]:
 
     return [grouped_gemm_ops.LIBRARY, grouped_gemm_ops.LIBRARY_Q8,
             ssd_scan_ops.LIBRARY, gating_ops.LIBRARY, flash_ops.LIBRARY,
-            flash_ops.LIBRARY_BWD, plan_solve_ops.LIBRARY]
+            flash_ops.LIBRARY_BWD, plan_solve_ops.LIBRARY, eplb_ops.LIBRARY]
 
 
 def build_all() -> dict[str, str]:

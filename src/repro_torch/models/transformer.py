@@ -50,6 +50,7 @@ class RuntimeConfig:
     balancer: BalancerConfig = BalancerConfig()
     cf_pair: float = 2.0
     cf_slot: float = 2.0
+    distribute_chunks: int = 1     # reduce-scatters of the replica stream
     overlap_chunks: int = 1        # MoE dispatch/compute overlap chunks;
     # falls back to 1 per layer when the local token count does not divide
     # or the dispatch engine is "reference"
@@ -191,6 +192,7 @@ def moe_config(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
                      cap_slot=cap_slot, n_shared_experts=m.n_shared_experts,
                      shared_d_ff=m.shared_d_ff, dispatch_mode=dispatch_mode,
                      dispatch_impl=rcfg.dispatch_impl, racks=pctx.racks,
+                     distribute_chunks=rcfg.distribute_chunks,
                      overlap_chunks=overlap, wire_dtype=wire_dtype,
                      ffn_dtype=rcfg.ffn_dtype,
                      plain_backward=rcfg.plain_backward)

@@ -254,7 +254,8 @@ def init_moe_params(cfg: MoEConfig, generator: torch.Generator, *,
 
 
 def moe_layer_local(x: torch.Tensor, params: MoEParams, cfg: MoEConfig, *,
-                    axis_name=None, router_bias: torch.Tensor | None = None
+                    axis_name=None, router_bias: torch.Tensor | None = None,
+                    lam_e_est: torch.Tensor | None = None, resilience=None
                     ) -> tuple[torch.Tensor, torch.Tensor, MoEStats]:
     """One balanced MoE layer, per-rank view.  x: (T_local, D).
 
@@ -264,7 +265,11 @@ def moe_layer_local(x: torch.Tensor, params: MoEParams, cfg: MoEConfig, *,
     ``params`` shard; factored into ``cfg.racks`` racks for ``hier_a2a``),
     or None when ``cfg.ep_size == 1``.  In the
     ``replicated`` mode every rank passes the same tokens and gets the
-    same y.
+    same y.  ``lam_e_est``: optional stale per-expert load estimate (the
+    ``eplb`` balancer mode).  ``resilience``: optional
+    :class:`repro_torch.moe.stages.Resilience` -- health-weighted planning,
+    the degradation ladder, and payload screening (DESIGN.md S13).
     """
     return run_staged_moe(x, params, cfg, axis_name=axis_name,
-                          router_bias=router_bias)
+                          router_bias=router_bias, lam_e_est=lam_e_est,
+                          resilience=resilience)

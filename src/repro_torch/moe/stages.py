@@ -1,8 +1,7 @@
 """Staged MoE execution: gate -> plan -> distribute -> dispatch -> compute
 -> combine.
 
-Mirrors ``repro.moe.stages`` without the resilience ladder: a flat EP
-group of R ranks (``a2a``, ``replicated``) or a factored one of racks x
+Mirrors ``repro.moe.stages``: a flat EP group of R ranks (``a2a``, ``replicated``) or a factored one of racks x
 lanes (``hier_a2a``, ``replicated``), the fused permutation engine or the
 reference one (``dispatch_impl``), and ``overlap_chunks`` token chunks
 sharing one plan.  The stage boundaries and the typed states between them
@@ -37,10 +36,31 @@ kernels, and the replica stream through
 :func:`repro_torch.moe.distribute.slot_weights`, whose backward reduces
 each replica's gradient onto its home main.  The wire codec and the w8a8
 FFN have no backward: both must be "none" under a gradient.
+
+Resilience (DESIGN.md S13).  With a :class:`Resilience` the layer runs the
+reference's degraded-fabric ladder: the plan solve is health-weighted (the
+live :class:`repro_torch.core.health.RankHealth` weights, honoured by
+``ultraep``) and falls back to the last good plan, then to the no-balance
+plan, instead of raising; the replica stream retries transient faults and
+downgrades to a replica-free plan when the retries run out; dispatched
+payloads and combined outputs are screened for NaN/Inf rows, which are
+zeroed, dropped and counted (``MoEStats.dropped_payload_tokens``, a device
+tensor, apart from the capacity drops).  Every ladder decision is made on
+the host, where the step is issued, and reads nothing from the device.
+Under ``torch.distributed`` each process holds its own ``Resilience``,
+injector and health state: the ranks solve the same plan when they build
+the same specs, advance the same steps and hold the same weights.  The
+solve deadline times the host wall of the solve call; on the card the
+solve is asynchronous, so it times the launch and not the kernel (as the
+reference's deadline, under jit, times the trace), and no synchronisation
+is added to make it time the kernel.  The reference's ``PlanViolationError``
+rung waits for the port of its plan checker.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Any, NamedTuple
 
 import torch
@@ -54,6 +74,7 @@ from repro_torch.core.quantize import (
     payload_bytes_per_item,
     split_wire_int8,
 )
+from repro_torch.fault.injector import PlannerFault, SolveTimeout, TransferFault
 from repro_torch.moe.dispatch import (
     bucket_by_slot,
     combine_tokens,
@@ -83,6 +104,8 @@ __all__ = [
     "PlanState",
     "DistributeState",
     "DispatchState",
+    "ResilienceConfig",
+    "Resilience",
     "make_stage_ctx",
     "gate_stage",
     "plan_stage",
@@ -90,6 +113,7 @@ __all__ = [
     "dispatch_stage",
     "compute_stage",
     "combine_stage",
+    "screen_payload",
     "chunk_bounds",
     "chunk_occ_offsets",
     "run_staged_moe",
@@ -116,6 +140,13 @@ class MoEStats(NamedTuple):
     # copies against the home placement, before the plan's reroute.
     gate_tier_tokens: torch.Tensor | None = None  # (3,)
     gate_tier_bytes: torch.Tensor | None = None   # (3,)
+    # Resilience counters (run with a Resilience): the ladder's activations
+    # in this call, the NaN/Inf payload rows screened out (apart from the
+    # capacity drops above), and the quarantined ranks the plan was solved
+    # under; () device tensors.
+    fallback_plans: torch.Tensor | None = None
+    dropped_payload_tokens: torch.Tensor | None = None
+    quarantined_ranks: torch.Tensor | None = None
 
 
 class StageCtx(NamedTuple):
@@ -155,6 +186,184 @@ class DispatchState(NamedTuple):
     #                        prefix arange(cap_slot) < rows
     xs_scale: torch.Tensor | None = None  # (num_slots, cap_slot) fp32 row
     #   scales of int8 xs when wire_dtype == ffn_dtype == "int8"
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilienceConfig:
+    """Knobs of the degradation ladder (mirrors
+    ``repro.moe.stages.ResilienceConfig``).
+
+    ``solve_deadline_s`` bounds the host wall time of one plan solve call;
+    exceeding it is treated as a solve failure (on the card the call
+    launches the solve and returns, so the deadline times the launch).
+    ``max_transfer_retries`` bounds retry of *transient* transfer faults,
+    each backed off by ``retry_backoff_s * 2**attempt`` seconds.
+    ``screen_payloads`` switches the NaN/Inf stage-boundary screen.
+    """
+
+    solve_deadline_s: float | None = None
+    max_transfer_retries: int = 2
+    retry_backoff_s: float = 0.0
+    screen_payloads: bool = True
+
+
+class Resilience:
+    """Host-side resilience state threaded through one MoE layer's stages
+    (mirrors ``repro.moe.stages.Resilience``).
+
+    Holds the fault injector (optional), the rank-health state feeding the
+    planner (optional), the last-good plan cache, and the fault counters.
+    The degradation ladder of :meth:`solve_with_ladder`:
+
+        solve (health-weighted)  -- normal path; every plan is cached
+          |  PlannerFault / SolveTimeout
+          v
+        last-good cached plan    -- stale but valid; quotas may clamp
+          |  no cached plan of matching shape
+          v
+        no_balance_plan          -- home routing, never fails, never stalls
+
+    Every port plan is concrete, so every solved plan is cached; its
+    tensors are fresh outputs of the solve that no later call writes in
+    place.
+    """
+
+    def __init__(self, cfg: ResilienceConfig = ResilienceConfig(), *,
+                 injector=None, health=None, layer: int | None = None):
+        self.cfg = cfg
+        self.injector = injector
+        self.health = health
+        self.layer = layer
+        self.last_good = None
+        self.last_error: Exception | None = None
+        self.counters = {
+            "fallback_plans": 0,       # ladder activations (any rung)
+            "last_good_reuses": 0,     # rung 2 hits
+            "no_balance_fallbacks": 0,  # rung 3 hits
+            "transfer_retries": 0,     # transient transfer faults retried
+            "transfer_fallbacks": 0,   # retry budget exhausted
+        }
+
+    # -- planner rung ------------------------------------------------------
+
+    def health_weight(self, device=None) -> torch.Tensor | None:
+        """(R,) float32 planner weights on ``device``, or None."""
+        if self.health is None:
+            return None
+        return torch.as_tensor(self.health.planner_weights(),
+                               dtype=torch.float32).to(device)
+
+    def num_quarantined(self) -> int:
+        return 0 if self.health is None else self.health.num_quarantined
+
+    # -- distribute rung: live-health relay scheduling ---------------------
+
+    def rank_speed(self):
+        """(R,) live relative channel speeds for the relay schedule, or
+        None: the same :meth:`RankHealth.planner_weights` vector that
+        scales the plan's quotas, so replica broadcast trees route around
+        degraded ranks with the signal the planner drains them by."""
+        if self.health is None:
+            return None
+        return self.health.planner_weights()
+
+    def relay_schedule(self, plan, expert_bytes: int, home, *,
+                       relay_threshold: int = 3, topology=None):
+        """The plan's replica broadcast schedule under the live speeds
+        (:func:`repro_torch.core.comm_plan.build_relay_schedule`; host-side,
+        reads the plan back).  ``home`` is the (E,) home map."""
+        import numpy as np
+
+        from repro_torch.core import comm_plan
+
+        hosted = plan.hosted.T.cpu().numpy()      # (E, R) expert-major
+        home = (home.cpu().numpy() if isinstance(home, torch.Tensor)
+                else np.asarray(home))
+        return comm_plan.build_relay_schedule(
+            hosted, home, expert_bytes, relay_threshold=relay_threshold,
+            topology=topology, rank_speed=self.rank_speed())
+
+    def solve_with_ladder(self, solve_fn, lam: torch.Tensor,
+                          home: torch.Tensor, n_slot: int,
+                          rack_size: int | None,
+                          gate_tier_tokens: torch.Tensor | None = None):
+        """Run ``solve_fn`` through the ladder; always returns a plan."""
+        try:
+            plan = solve_fn()
+        except PlannerFault as e:
+            self.last_error = e
+            self.counters["fallback_plans"] += 1
+            cached = self.last_good
+            if cached is not None and tuple(cached.u.shape) == (
+                    lam.shape[1], lam.shape[0]):
+                self.counters["last_good_reuses"] += 1
+                return cached
+            self.counters["no_balance_fallbacks"] += 1
+            return balancer_mod.no_balance_plan(lam, home, n_slot, rack_size,
+                                                gate_tier_tokens)
+        self.last_good = plan
+        return plan
+
+    # -- transfer rung -----------------------------------------------------
+
+    def guard_transfer(self) -> None:
+        """Bounded retry+backoff over transient transfer faults.
+
+        Returns normally when the transfer may proceed; re-raises the
+        :class:`TransferFault` when it is permanent or the retry budget is
+        exhausted (the caller then downgrades to a replica-free plan).
+        """
+        if self.injector is None:
+            return
+        attempts = self.cfg.max_transfer_retries + 1
+        for attempt in range(attempts):
+            try:
+                self.injector.check_transfer(self.layer)
+                return
+            except TransferFault as e:
+                self.last_error = e
+                if not e.transient or attempt == attempts - 1:
+                    self.counters["transfer_fallbacks"] += 1
+                    raise
+                self.counters["transfer_retries"] += 1
+                if self.cfg.retry_backoff_s > 0:
+                    time.sleep(self.cfg.retry_backoff_s * (2 ** attempt))
+
+    def __repr__(self) -> str:
+        live = {k: v for k, v in self.counters.items() if v}
+        return f"Resilience(layer={self.layer}, counters={live})"
+
+
+def screen_payload(xs: torch.Tensor, valid: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Drop non-finite payload rows at a stage boundary (mirrors
+    ``repro.moe.stages.screen_payload``).
+
+    Returns ``(xs, valid, n_dropped)`` where corrupted rows are zeroed AND
+    invalidated.  Zeroing matters independently of the mask: a kernel that
+    runs a slot's rows up to its count multiplies an invalid row like any
+    other, and ``NaN * 0 == NaN``.  Integer buffers (int8 wire codes) pass
+    through -- they cannot encode NaN.  ``n_dropped`` is a () device
+    tensor.
+    """
+    if not torch.is_floating_point(xs):
+        return xs, valid, torch.zeros((), dtype=_I64, device=xs.device)
+    finite = torch.isfinite(xs).all(dim=-1)
+    dropped = (valid & ~finite).sum()
+    xs = torch.where(finite[..., None], xs, torch.zeros((), dtype=xs.dtype,
+                                                        device=xs.device))
+    return xs, valid & finite, dropped
+
+
+def _screen_rows(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero non-finite output rows; returns ``(y, n_dropped)`` (the
+    combine-side twin of :func:`screen_payload`)."""
+    if not torch.is_floating_point(y):
+        return y, torch.zeros((), dtype=_I64, device=y.device)
+    finite = torch.isfinite(y).all(dim=-1)
+    return (torch.where(finite[:, None], y,
+                        torch.zeros((), dtype=y.dtype, device=y.device)),
+            (~finite).sum())
 
 
 def make_stage_ctx(cfg, axis_name) -> StageCtx:
@@ -265,21 +474,49 @@ def gate_stage(ctx: StageCtx, x: torch.Tensor, router: torch.Tensor,
                      gate_tier_tokens=gate_tiers)
 
 
-def plan_stage(ctx: StageCtx, gs: GateState) -> PlanState:
+def plan_stage(ctx: StageCtx, gs: GateState, *,
+               lam_e_est: torch.Tensor | None = None,
+               resilience: Resilience | None = None) -> PlanState:
     """Solve the balancer on the full-batch load (once per microbatch):
     rack-aware with ``cfg.rack_size``, with the demand tie-break where the
-    gate's rack limit binds, the gate's tier volumes stamped on the plan.
+    gate's rack limit binds, the gate's tier volumes stamped on the plan;
+    ``lam_e_est`` feeds the ``eplb`` mode's stale estimate.
+
+    With ``resilience`` the solve is health-weighted and runs through the
+    degradation ladder: an injected or real :class:`PlannerFault` or a
+    deadline overrun falls back to the last good plan, then to the
+    no-balance plan; the stage never raises for them.
 
     The load's total is at most R x tokens per rank x top-k, which the
     host knows: the solve's int32 bound on the card."""
     cfg = ctx.cfg
     layout = cfg.layout
     T, k = gs.gate_out.expert_ids.shape
-    plan = balancer_mod.solve(gs.lam, layout.home(gs.lam.device),
-                              cfg.balancer, rack_size=cfg.rack_size,
-                              demand_tiebreak=cfg.gating.rack_binding,
-                              gate_tier_tokens=gs.gate_tier_tokens,
-                              load_bound=cfg.ep_size * T * k)
+    home = layout.home(gs.lam.device)
+    res = resilience
+    health_weight = None if res is None else res.health_weight(gs.lam.device)
+
+    def solve():
+        if res is not None and res.injector is not None:
+            res.injector.check_solve(res.layer)
+        t0 = time.monotonic()
+        plan = balancer_mod.solve(gs.lam, home, cfg.balancer,
+                                  lam_e_est=lam_e_est,
+                                  rack_size=cfg.rack_size,
+                                  health_weight=health_weight,
+                                  demand_tiebreak=cfg.gating.rack_binding,
+                                  gate_tier_tokens=gs.gate_tier_tokens,
+                                  load_bound=cfg.ep_size * T * k)
+        deadline = None if res is None else res.cfg.solve_deadline_s
+        if deadline is not None and time.monotonic() - t0 > deadline:
+            raise SolveTimeout(f"plan solve exceeded {deadline}s deadline")
+        return plan
+
+    if res is None:
+        plan = solve()
+    else:
+        plan = res.solve_with_ladder(solve, gs.lam, home, cfg.balancer.n_slot,
+                                     cfg.rack_size, gs.gate_tier_tokens)
     return PlanState(plan=plan, slot_of_all=physical_slot_of(layout, plan.x))
 
 
@@ -291,7 +528,7 @@ def _training(x: torch.Tensor, params) -> bool:
 
 
 def distribute_stage(ctx: StageCtx, params, gs: GateState,
-                     ps: PlanState) -> DistributeState:
+                     ps: PlanState, *, corrupt=None) -> DistributeState:
     """Main + replica weights per physical slot.
 
     The JAX stage concatenates mains and replicas into fresh arrays, a copy
@@ -302,6 +539,9 @@ def distribute_stage(ctx: StageCtx, params, gs: GateState,
     ``repro_torch.moe.layer.MoEParams``).  Quantization is independent per
     slot, so the codes are those the reference computes.  The buffers come
     back through :func:`slot_weights`, differentiable in the mains.
+    ``corrupt``, if given, maps w1's streamed replica rows to what arrived
+    (the ``transfer_corrupt`` fault): w1's slots then come back as a new
+    tensor, the slot buffer untouched.
     """
     cfg = ctx.cfg
     n_main = cfg.layout.experts_per_rank
@@ -309,14 +549,48 @@ def distribute_stage(ctx: StageCtx, params, gs: GateState,
     ws = slot_weights((params.w1, params.w3, params.w2), slots, ps.plan.x,
                       gs.my, ctx.group, n_chunks=cfg.distribute_chunks,
                       wire_dtype=cfg.wire_dtype)
+    if corrupt is not None:
+        tail = ws[0][n_main:]
+        w1r = corrupt(tail)
+        if w1r is not tail:
+            ws = (torch.cat([ws[0][:n_main], w1r]),) + tuple(ws[1:])
     q8 = None
     if cfg.ffn_dtype == "int8":
         q8 = params.q8_slot_buffers()
-        for (codes, scales), w_all in zip(q8, slots):
+        for (codes, scales), w_all in zip(q8, ws):
             c, s = quantize_weight_cols(w_all[n_main:])
             codes[n_main:].copy_(c)
             scales[n_main:].copy_(s)
     return DistributeState(*ws, q8=q8)
+
+
+def _distribute_with_ladder(ctx: StageCtx, params, gs: GateState,
+                            ps: PlanState, res: Resilience | None
+                            ) -> tuple[PlanState, DistributeState]:
+    """Replica streaming under the ladder (mirrors
+    ``repro.moe.stages._distribute_with_ladder``): retry transients, else
+    downgrade to the no-balance plan, which needs no transfer at all,
+    rather than dispatch tokens to replicas whose weights never arrived.
+    Injected replica corruption (``transfer_corrupt``) is applied to w1's
+    streamed slots only; the combine-side screen catches its NaN outputs.
+    """
+    if res is None:
+        return ps, distribute_stage(ctx, params, gs, ps)
+    cfg = ctx.cfg
+    try:
+        res.guard_transfer()
+    except TransferFault:
+        res.counters["fallback_plans"] += 1
+        plan = balancer_mod.no_balance_plan(
+            gs.lam, cfg.layout.home(gs.lam.device), cfg.balancer.n_slot,
+            cfg.rack_size, gs.gate_tier_tokens)
+        ps = PlanState(plan=plan,
+                       slot_of_all=physical_slot_of(cfg.layout, plan.x))
+    corrupt = None
+    if res.injector is not None:
+        def corrupt(w):
+            return res.injector.corrupt_replicas(w, res.layer)
+    return ps, distribute_stage(ctx, params, gs, ps, corrupt=corrupt)
 
 
 class _Pending(NamedTuple):
@@ -506,7 +780,9 @@ def chunk_occ_offsets(expert_ids: torch.Tensor, n_chunks: int,
 
 
 def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
-                   router_bias: torch.Tensor | None = None
+                   router_bias: torch.Tensor | None = None,
+                   lam_e_est: torch.Tensor | None = None,
+                   resilience: Resilience | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, MoEStats]:
     """One balanced MoE layer: gate -> plan -> distribute once on the
     microbatch, then dispatch -> compute -> combine per overlap chunk
@@ -514,7 +790,9 @@ def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
 
     ``axis_name``: the EP group (:class:`repro_torch.parallel.collectives.
     EPGroup` of ``cfg.ep_size`` ranks, factored for ``hier_a2a``), or None
-    for one rank."""
+    for one rank.  ``lam_e_est``: the ``eplb`` mode's stale per-expert load
+    estimate.  ``resilience``: the degradation ladder, payload screening
+    and the fault counters (the module's notes)."""
     ctx = make_stage_ctx(cfg, axis_name)
     training = _training(x, params)
     if training and (cfg.wire_dtype != "none" or cfg.ffn_dtype != "none"):
@@ -525,9 +803,13 @@ def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
     if T % C != 0:
         raise ValueError(f"overlap_chunks={C} must divide the local token "
                          f"count T={T}")
+    res = resilience
+    fallback_before = 0 if res is None else res.counters["fallback_plans"]
     gs = gate_stage(ctx, x, params.router, router_bias)
-    ps = plan_stage(ctx, gs)
-    dist = distribute_stage(ctx, params, gs, ps)
+    ps = plan_stage(ctx, gs, lam_e_est=lam_e_est, resilience=res)
+    ps, dist = _distribute_with_ladder(ctx, params, gs, ps, res)
+    screening = res is not None and res.cfg.screen_payloads
+    corrupting = res is not None and res.injector is not None
     ids, weights = gs.gate_out.expert_ids, gs.gate_out.weights
     bounds = chunk_bounds(T, n_chunks=C)
     offsets = (chunk_occ_offsets(ids, C, cfg.gating.num_experts) if C > 1
@@ -542,16 +824,31 @@ def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
 
     ys = []
     drops_dispatch = drops_slot = max_slot_load = None
+    dropped_payload = torch.zeros((), dtype=_I64, device=x.device)
     pending = start(0)
     for i in range(C):
         # Chunk i's buffers, then chunk i+1's exchange started before
         # chunk i's FFN and combine.
         ds = _dispatch_finish(ctx, pending)
         pending = start(i + 1) if i + 1 < C else None
+        if corrupting:
+            ds = ds._replace(xs=res.injector.corrupt_payload(ds.xs,
+                                                             res.layer))
+        if screening:
+            # Screened rows are zeroed and leave the valid mask; the
+            # kernels still run each slot to its count (a zero row gives a
+            # zero output row), so the row counts stay.
+            xs, valid, n_bad = screen_payload(ds.xs, ds.valid)
+            ds = ds._replace(xs=xs, valid=valid)
+            dropped_payload = dropped_payload + n_bad
         out = compute_stage(ctx, ds, dist)
         s, n = bounds[i]
-        ys.append(combine_stage(ctx, ds, out, weights[s:s + n]))
-        load = ds.rows.max()
+        y_chunk = combine_stage(ctx, ds, out, weights[s:s + n])
+        if screening:
+            y_chunk, n_bad = _screen_rows(y_chunk)
+            dropped_payload = dropped_payload + n_bad
+        ys.append(y_chunk)
+        load = ds.valid.sum(dim=1).max() if screening else ds.rows.max()
         if i == 0:
             drops_dispatch, drops_slot = ds.drops_dispatch, ds.drops_slot
             max_slot_load = load
@@ -568,6 +865,13 @@ def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
     plan = ps.plan
     width = payload_bytes_per_item(D, cfg.wire_dtype,
                                    base_bytes=x.element_size())
+    fallbacks = quarantined = None
+    if res is not None:
+        # Host counts as () device tensors: a fill, no copy and no read.
+        fallbacks = torch.full((), res.counters["fallback_plans"]
+                               - fallback_before, dtype=_I64, device=x.device)
+        quarantined = torch.full((), res.num_quarantined(), dtype=_I64,
+                                 device=x.device)
     stats = MoEStats(
         drops_dispatch=drops_dispatch,
         drops_slot=drops_slot,
@@ -582,5 +886,8 @@ def run_staged_moe(x: torch.Tensor, params, cfg, *, axis_name=None,
         gate_tier_tokens=plan.gate_tier_tokens,
         gate_tier_bytes=(None if plan.gate_tier_tokens is None
                          else plan.gate_tier_tokens * width),
+        fallback_plans=fallbacks,
+        dropped_payload_tokens=dropped_payload if res is not None else None,
+        quarantined_ranks=quarantined,
     )
     return y.to(x.dtype), gs.gate_out.aux_loss, stats

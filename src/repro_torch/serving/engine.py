@@ -112,8 +112,10 @@ class ServingEngine:
             self._advance(self.clock_fn() if self.clock_fn else 0.0)
         return last_logits, cache
 
-    def run(self):
-        """Alternate prefill and decode until the queues drain."""
+    def run(self, until_empty: bool = True):
+        """Alternate prefill and decode until the queues drain, or, with
+        ``until_empty=False``, for one round of each (mirrors
+        ``repro.serving.engine.ServingEngine.run``)."""
         while self.waiting or self.decoding:
             if self.waiting:
                 req = self.waiting.popleft()
@@ -173,6 +175,8 @@ class ServingEngine:
                 self.decoding = (
                     [(group[i][0], new_caches[i]) for i in still]
                     + self.decoding[self.cfg.decode_batch:])
+            if not until_empty:
+                break
         return self.finished
 
     def ttft(self) -> np.ndarray:

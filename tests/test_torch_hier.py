@@ -57,6 +57,10 @@ LAYER_CASES = {
     "hier_limit": ("hier_a2a", RACKS, 1),
     "hier_replicated": ("replicated", RACKS, 0),
 }
+# The same cases at a capacity that drops (cap_pair, cap_slot): per-rank
+# drops equal to JAX's, and apart from the payload screen's count.
+TIGHT_CAP = (256, 70)
+TIGHT_CASES = {f"{n}_tight": c for n, c in LAYER_CASES.items()}
 # The port's flat R = 4 twin of each factored case.
 FLAT_TWIN = {"hier": ("a2a", 1, 0), "hier_limit": ("a2a", 1, 1),
              "hier_replicated": ("replicated", 1, 0)}
@@ -172,27 +176,31 @@ def test_one_rack_is_the_flat_plan_bitwise():
 
 def test_rack_mode_load_bound_and_arguments():
     """The wrapper's int32 guard in rack mode is 2^31 over the slack's
-    scale (2, or 4 with the demand tie-break), named in the message; the
-    argument checks run before any launch."""
+    scale (2, or 4 with the demand tie-break), named in the message, and
+    also over P with k-ary probing and 2^30 with health weights; the
+    argument checks run before any launch.  Health weights and k-ary
+    probing solve in rack mode."""
     assert ops.load_limit(None, False) == 2 ** 31
     assert ops.load_limit(4, False) == 2 ** 30
     assert ops.load_limit(4, True) == 2 ** 29
+    assert ops.load_limit(4, False, 8) == 2 ** 28
+    assert ops.load_limit(None, False, 1, True) == 2 ** 30
     lam = torch.ones((4, 8), dtype=torch.int64)
     lam_e, ell = lam.sum(0), torch.full((4,), 8, dtype=torch.int64)
     home = torch.arange(8) // 2
     rexp = torch.arange(8).reshape(4, 2)
     with pytest.raises(ValueError, match="slack scale"):
-        ops._check(lam_e, ell, home, rexp, 2 ** 29, 2, lam)
+        ops._check(lam_e, ell, home, rexp, 2 ** 29, 2, lam, n_slot=2)
     with pytest.raises(ValueError, match="must divide"):
-        ops._check(lam_e, ell, home, rexp, 100, 3, None)
+        ops._check(lam_e, ell, home, rexp, 100, 3, None, n_slot=2)
     with pytest.raises(ValueError, match="needs rack_size"):
-        ops._check(lam_e, ell, home, rexp, 100, None, lam)
-    # The health weights and k-ary probing still raise, naming the item.
-    with pytest.raises(ValueError, match="item 7"):
-        planner.solve_plan(lam, home, n_slot=2,
-                           health_weight=torch.ones(4))
-    with pytest.raises(ValueError, match="probe_parallelism"):
-        planner.solve_plan(lam, home, n_slot=2, probe_parallelism=2)
+        ops._check(lam_e, ell, home, rexp, 100, None, lam, n_slot=2)
+    with pytest.raises(ValueError, match="health_weight"):
+        ops._check(lam_e, ell, home, rexp, 100, 2, None, n_slot=2,
+                   health_weight=torch.ones(3))
+    for kw in ({"health_weight": torch.ones(4)}, {"probe_parallelism": 2}):
+        plan = planner.solve_plan(lam, home, n_slot=2, rack_size=2, **kw)
+        assert (plan.q.sum(dim=-1) == lam).all()
 
 
 def test_config_validation_at_construction():
@@ -256,7 +264,7 @@ def test_wire_oracle_codec_matches_port_codec():
 # ------------------------------------ four gloo ranks beside JAX shard_map --
 
 
-def _config(mode, racks, limit, ep=R, overlap=1, impl="fused"):
+def _config(mode, racks, limit, ep=R, overlap=1, impl="fused", cap=CAP):
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.moe.gating import GatingConfig
     from repro_torch.moe.layer import MoEConfig
@@ -265,7 +273,7 @@ def _config(mode, racks, limit, ep=R, overlap=1, impl="fused"):
         gating=GatingConfig(num_experts=E, top_k=K, rack_limit=limit,
                             num_racks=RACKS if limit else 1),
         balancer=BalancerConfig(mode="ultraep", n_slot=2), d_model=D,
-        d_ff=F, ep_size=ep, cap_pair=CAP[0], cap_slot=CAP[1],
+        d_ff=F, ep_size=ep, cap_pair=cap[0], cap_slot=cap[1],
         dispatch_mode=mode, racks=racks, distribute_chunks=2,
         overlap_chunks=overlap, dispatch_impl=impl)
 
@@ -351,6 +359,14 @@ def _worker(rank, world, port, inputs, out_dir):
             v = getattr(st, f)
             if v is not None:
                 out[f"{name}/stats/{f}"] = v.numpy()
+    for name, (mode, racks, limit) in TIGHT_CASES.items():
+        cfg = _config(mode, racks, limit, cap=TIGHT_CAP)
+        x = x_all if mode == "replicated" else mine
+        y, _, st = moe_layer_local(x, params, cfg, axis_name=hier,
+                                   resilience=stages.Resilience())
+        out[f"{name}/y"] = y.numpy()
+        out[f"{name}/drops"] = int(st.drops_dispatch + st.drops_slot)
+        out[f"{name}/dropped_payload"] = int(st.dropped_payload_tokens)
     for name, group in (("hier", hier), ("hier/flat", flat)):
         mode, racks, limit = (LAYER_CASES if "/" not in name
                               else FLAT_TWIN)[name.split("/")[0]]
@@ -390,6 +406,7 @@ from repro.moe.layer import MoEConfig, MoEParams, moe_layer_local
 RACKS, LANES, E, K, D, F, T = {RACKS}, {LANES}, {E}, {K}, {D}, {F}, {T}
 R = RACKS * LANES
 cases = {cases!r}
+caps = {caps!r}
 data = np.load({inputs!r})
 x, router = jnp.asarray(data["x"]), jnp.asarray(data["router"])
 ws = [jnp.asarray(data[k]) for k in ("w1", "w3", "w2")]
@@ -402,7 +419,8 @@ for name, (mode, racks, limit) in cases.items():
                         num_racks=RACKS if limit else 1)
     bcfg = jbal.BalancerConfig(mode="ultraep", n_slot=2)
     cfg = MoEConfig(gating=gcfg, balancer=bcfg, d_model=D, d_ff=F,
-                    ep_size=R, cap_pair={cap0}, cap_slot={cap1},
+                    ep_size=R, cap_pair=caps[name][0],
+                    cap_slot=caps[name][1],
                     dispatch_mode=mode, racks=racks, distribute_chunks=2)
 
     def run(x, router, w1, w3, w2):
@@ -464,10 +482,12 @@ def hier_run(tmp_path_factory):
     inputs = str(tmp / "inputs.npz")
     _inputs(inputs)
     jax_out = str(tmp / "jax.npz")
+    caps = {**{n: CAP for n in LAYER_CASES},
+            **{n: TIGHT_CAP for n in TIGHT_CASES}}
     code = _JAX.format(RACKS=RACKS, LANES=LANES, E=E, K=K, D=D, F=F, T=T,
-                       cases=LAYER_CASES, inputs=inputs, fields=PLAN_FIELDS,
-                       result=jax_out, grad_names=GRAD_NAMES, cap0=CAP[0],
-                       cap1=CAP[1])
+                       cases={**LAYER_CASES, **TIGHT_CASES}, caps=caps,
+                       inputs=inputs, fields=PLAN_FIELDS, result=jax_out,
+                       grad_names=GRAD_NAMES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     torch_cmd = [sys.executable, "-c",
                  f"from tests.test_torch_hier import _spawn; "
@@ -486,7 +506,8 @@ def hier_run(tmp_path_factory):
 def _y(name, ranks):
     """The group's y: the shards in rank order, or the replicated y (every
     rank's must be the same)."""
-    if LAYER_CASES[name.split("/")[0]][0] != "replicated":
+    cases = {**LAYER_CASES, **TIGHT_CASES}
+    if cases[name.split("/")[0]][0] != "replicated":
         return np.concatenate([r[f"{name}/y"] for r in ranks])
     for r in ranks[1:]:
         np.testing.assert_array_equal(r[f"{name}/y"], ranks[0][f"{name}/y"])
@@ -533,6 +554,21 @@ def test_factored_layer_matches_jax_shard_map(hier_run, name):
                                               err_msg=key)
             else:
                 assert f == "gate_tier_tokens" and not jax_out[key].any()
+
+
+@pytest.mark.parametrize("name", list(TIGHT_CASES))
+def test_factored_layer_drops_match_jax_at_a_tight_cap(hier_run, name):
+    """At cap_slot 70 the factored layer drops items: per-rank drops equal
+    to JAX's in every mode, y within 1e-5 of max|y|, and the payload
+    screen's count (a Resilience with no fault) stays 0, apart from them."""
+    _, jax_out, ranks = hier_run
+    drops = np.array([r[f"{name}/drops"] for r in ranks])
+    np.testing.assert_array_equal(drops, jax_out[f"{name}/drops"])
+    assert drops.sum() > 0
+    assert all(r[f"{name}/dropped_payload"] == 0 for r in ranks)
+    yj = jax_out[f"{name}/y"]
+    np.testing.assert_allclose(_y(name, ranks), yj, rtol=0,
+                               atol=1e-5 * np.abs(yj).max())
 
 
 @pytest.mark.parametrize("name", list(LAYER_CASES))

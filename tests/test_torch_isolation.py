@@ -3,7 +3,9 @@
 One test runs a reduced prefill of each ported arch (and of GLM-4.5-Air
 under the int8 wire and w8a8 FFN) in a subprocess where ``import jax``
 fails, through the gating and flash-attention wrappers, then the plan
-solve at R = 4 (``kernels/plan_solve``), a MoE layer on a one-rank gloo
+solve at R = 4 (``kernels/plan_solve``) and every balancer mode
+(``kernels/eplb_place``, the metrics), a MoE layer (with a
+``Resilience`` too) on a one-rank gloo
 group through every collective of ``parallel/`` (and its backward through
 their transposes), and one reduced train step through
 ``repro_torch.launch.train`` (``optim/``, ``train/``, ``data/``); the other
@@ -59,6 +61,11 @@ from repro_torch.parallel import collectives
 lam = torch.from_numpy(np.random.default_rng(0).integers(0, 50, (4, 16)))
 plan = planner.solve_plan(lam, torch.arange(16) // 4, n_slot=2)
 assert (plan.x >= 0).any() and int(plan.post_max) < int(plan.pre_max)
+from repro_torch.core import balancer, metrics
+from repro_torch.moe.stages import Resilience
+for mode in balancer.MODES:
+    pl = balancer.solve(lam, torch.arange(16) // 4, BalancerConfig(mode=mode))
+    assert metrics.report(lam, pl.u, torch.arange(16) // 4).max_fanout >= 1
 with socket.socket() as s:
     s.bind(("localhost", 0))
     port = s.getsockname()[1]
@@ -73,6 +80,8 @@ for mode in ("a2a", "replicated"):
     c = dataclasses.replace(cfg, dispatch_mode=mode)
     y_group = moe_layer_local(x, p, c, axis_name=group)[0]
     assert torch.equal(y_group, moe_layer_local(x, p, c)[0])
+assert torch.equal(moe_layer_local(x, p, cfg, resilience=Resilience())[0],
+                   moe_layer_local(x, p, cfg)[0])
 p.requires_grad_(True)
 (moe_layer_local(x, p, cfg, axis_name=group)[0] ** 2).sum().backward()
 assert all(t.grad is not None for t in p.parameters())

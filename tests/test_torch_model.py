@@ -204,3 +204,53 @@ def test_lm_params_converts_cycle_segment():
     jl, _ = jdec(jax.numpy.asarray(toks), jc)
     tl, _ = tdec(torch.from_numpy(toks), tc)
     _close(jl, tl)
+
+
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_runtime_distribute_chunks_reaches_the_layer(chunks):
+    """``RuntimeConfig.distribute_chunks`` reaches the MoE layer's config
+    as JAX's ``moe_config`` passes it on (the replica stream's
+    reduce-scatters), with every other field the layer shares."""
+    from repro.models.transformer import moe_config as j_moe_config
+    from repro_torch.models.transformer import moe_config
+
+    jcfg = j_reduced(j_get_config(GLM))
+    tcfg = reduced(get_config(GLM))
+    jm = j_moe_config(jcfg, JRuntimeConfig(distribute_chunks=chunks),
+                      JParallelCtx(mesh=None), 64)
+    tm = moe_config(tcfg, RuntimeConfig(distribute_chunks=chunks),
+                    ParallelCtx(), 64)
+    assert tm.distribute_chunks == jm.distribute_chunks == chunks
+    for f in ("ep_size", "cap_pair", "cap_slot", "d_model", "d_ff",
+              "overlap_chunks", "dispatch_mode", "wire_dtype"):
+        assert getattr(tm, f) == getattr(jm, f), f
+
+
+def test_engine_run_until_empty_false_steps_like_jax():
+    """``run(until_empty=False)`` makes one round (a prefill, then a decode
+    step when due) per call in both engines: the queues, the finished
+    requests and their tokens agree after every call."""
+    cfg, jfns, tfns, _ = _build(GLM)
+    engines = []
+    for fns, ecls, ccls, rcls in ((jfns, JServingEngine, JEngineConfig,
+                                   JRequest),
+                                  (tfns, ServingEngine, EngineConfig, Request)):
+        pre, dec, new, stack, unstack = fns
+        eng = ecls(ccls(chunk_size=CHUNK, decode_batch=4, max_seq=MAX_SEQ),
+                   prefill_fn=pre, decode_fn=dec, new_cache_fn=new,
+                   stack_caches=stack, unstack_caches=unstack)
+        for r in _requests(rcls, cfg.vocab_size)[:3]:
+            eng.submit(r)
+        engines.append(eng)
+    rounds = 0
+    while any(e.waiting or e.decoding for e in engines):
+        for eng in engines:
+            eng.run(until_empty=False)
+        rounds += 1
+        j, t = engines
+        assert (len(j.waiting), len(j.decoding), len(j.finished)) == (
+            len(t.waiting), len(t.decoding), len(t.finished))
+        assert [r.output for r in j.finished] == [r.output for r in t.finished]
+        assert [r.output for r, _ in j.decoding] == [
+            r.output for r, _ in t.decoding]
+    assert rounds > 1 and len(engines[1].finished) == 3

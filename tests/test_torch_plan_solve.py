@@ -316,3 +316,129 @@ def test_wrapper_raises_at_the_rack_mode_bound(cuda_device):
                                demand_tiebreak=demand, load_bound=bound)
         planner.solve_plan(lam, home, n_slot=2, rack_size=L,
                            demand_tiebreak=demand, load_bound=bound - 1)
+
+
+# Rows Pk and Ph: the k-ary round and the health mode in the kernel, flat
+# and rack-aware, against the plain version (u, tau and (probes, steps,
+# critical path) equal) and the whole Plan against the plain solve.
+KARY_CASES = [(64, 128, 8, None), (64, 128, 8, 8), (64, 256, 8, None),
+              (16, 16, 2, None), (8, 128, 8, 2)]
+
+
+def _weights(R, kind):
+    w = np.ones(R)
+    if kind == "half_and_zero":
+        w[1], w[2] = 0.5, 0.0
+    elif kind == "arbitrary":
+        w = np.random.default_rng(R).uniform(0.1, 1.0, R)
+    elif kind == "all_zero":
+        w[:] = 0.0
+    return torch.from_numpy(w)
+
+
+def _card_vs_plain(cuda_device, R, E, k, L, law, **opts):
+    lam = torch.from_numpy(_lam(R, E, k, law, seed=R + E))
+    home = torch.from_numpy(_home(R, E))
+    lam_e, ell, rexp = _solve_inputs(lam, home)
+    hw = opts.get("health_weight")
+    ref_stats = torch.zeros(3, dtype=torch.int32)
+    u_ref, tau_ref = ops.plan_solve_ref(
+        lam_e, ell, home, rexp, n_slot=2, u_min=1, max_replicas_per_expert=R,
+        stats=ref_stats, rack_size=L, **opts)
+    stats = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    d = [t.to(cuda_device) for t in (lam_e, ell, home, rexp)]
+    dopts = dict(opts)
+    if hw is not None:
+        dopts["health_weight"] = hw.to(cuda_device)
+    before = ops.plan_solve.launches
+    u, tau = ops.plan_solve(*d, n_slot=2, u_min=1, max_replicas_per_expert=R,
+                            load_bound=R * 4096 * k, stats=stats,
+                            rack_size=L, **dopts)
+    torch.cuda.synchronize()
+    assert ops.plan_solve.launches == before + 1
+    assert torch.equal(u.cpu(), u_ref) and int(tau) == int(tau_ref)
+    assert torch.equal(stats.cpu(), ref_stats)
+    kw = dict(n_slot=2, rack_size=L, **opts)
+    plain = planner.solve_plan(lam, home, **kw)
+    kw.update(dopts)
+    lam_d, home_d = lam.to(cuda_device), home.to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = planner.solve_plan(lam_d, home_d, load_bound=R * 4096 * k,
+                                  **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for f in PLAN_FIELDS:
+        assert torch.equal(getattr(plan, f).cpu(), getattr(plain, f)), f
+    return plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4, 8, 12])
+@pytest.mark.parametrize("R,E,k,L", KARY_CASES)
+def test_kernel_kary_matches_plain_on_card(cuda_device, R, E, k, L, P):
+    _card_vs_plain(cuda_device, R, E, k, L, "zipf", probe_parallelism=P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("kind", ["half_and_zero", "arbitrary", "all_zero"])
+@pytest.mark.parametrize("R,E,k,L", [(64, 128, 8, None), (64, 128, 8, 8),
+                                     (16, 16, 2, None)])
+def test_kernel_health_matches_plain_on_card(cuda_device, R, E, k, L, kind,
+                                             P):
+    plain = _card_vs_plain(cuda_device, R, E, k, L, "hot4",
+                           health_weight=_weights(R, kind),
+                           probe_parallelism=P)
+    if kind == "half_and_zero":
+        assert int(plain.u.sum(dim=0)[2]) == 0
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_at_the_kary_and_health_bounds(cuda_device):
+    R, E = 4, 16
+    lam = torch.from_numpy(_lam(R, E, 2, "uniform", seed=1)).to(cuda_device)
+    home = torch.from_numpy(_home(R, E)).to(cuda_device)
+    with pytest.raises(ValueError, match="2\\^31"):
+        planner.solve_plan(lam, home, n_slot=2, probe_parallelism=8,
+                           load_bound=2 ** 28)
+    planner.solve_plan(lam, home, n_slot=2, probe_parallelism=8,
+                       load_bound=2 ** 28 - 1)
+    w = torch.ones(R, device=cuda_device)
+    with pytest.raises(ValueError, match="2\\^31"):
+        planner.solve_plan(lam, home, n_slot=2, health_weight=w,
+                           load_bound=2 ** 30)
+
+
+# Row Pe: EPLB's placement on the card against its plain version, bitwise,
+# at E 128 and E 256, R 64, over Zipf loads, with no host sync.
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_rep", [None, 1])
+@pytest.mark.parametrize("R,E", [(64, 128), (64, 256), (16, 64), (4, 16)])
+def test_eplb_place_matches_plain_on_card(cuda_device, R, E, max_rep):
+    from repro_torch.core import eplb
+    from repro_torch.kernels.eplb_place import ops as eplb_ops
+
+    lam_e = torch.from_numpy(_lam(R, E, 8, "zipf", seed=E).sum(0)).float()
+    home = torch.from_numpy(_home(R, E))
+    mr = R if max_rep is None else max_rep + 1
+    ref_stats = torch.zeros(2, dtype=torch.int32)
+    want = eplb_ops.eplb_place_ref(lam_e, home, R, n_slot=2, max_rep=mr,
+                                   stats=ref_stats)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    d_lam, d_home = lam_e.to(cuda_device), home.to(cuda_device)
+    before = eplb_ops.eplb_place.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eplb_ops.eplb_place(d_lam, d_home, R, n_slot=2, max_rep=mr,
+                                  stats=stats)
+        hosted = eplb.eplb_replication_dev(d_lam, d_home, R, n_slot=2,
+                                           max_replicas_per_expert=max_rep)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert eplb_ops.eplb_place.launches == before + 2
+    assert torch.equal(got.cpu(), want) and torch.equal(hosted.cpu(), want)
+    assert torch.equal(stats.cpu(), ref_stats)

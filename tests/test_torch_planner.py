@@ -1,9 +1,10 @@
 """Port planner vs the JAX planner and the numpy oracle: exact plan tables.
 
 The same Pareto-skewed numpy load matrices go through
-``repro.core.planner.solve_plan`` (JAX, probe_parallelism=1),
-``repro.core.ref_planner.solve`` (numpy) and the port's ``solve_plan`` /
-``balancer.solve`` on the CPU; every integer table must be equal.
+``repro.core.planner.solve_plan`` (JAX), ``repro.core.ref_planner.solve``
+(numpy, probe_parallelism=1 without health weights) and the port's
+``solve_plan`` / ``balancer.solve`` on the CPU; every integer table must be
+equal, with health weights and k-ary probing too.
 """
 
 import jax.numpy as jnp
@@ -105,9 +106,79 @@ def test_layout_and_lookups_match_jax(R):
         np.testing.assert_array_equal(np.asarray(jt), tt.numpy())
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"health_weight": torch.ones(4)}, {"probe_parallelism": 2}])
-def test_unported_arguments_raise(kwargs):
-    lam = torch.from_numpy(_pareto_load(4, seed=0))
-    with pytest.raises(ValueError):
-        tplan.solve_plan(lam, torch.from_numpy(_home(4)), n_slot=2, **kwargs)
+# Health weights (R = 8): exact sums (1, 0.5, 0.25, 0), arbitrary ones, one
+# quarantined rank, all zero (uniform fallback), a single slow rank.
+WEIGHTS = {
+    "exact": np.array([1, 0.5, 0.25, 0] * 2, dtype=np.float64),
+    "arbitrary": np.random.default_rng(9).uniform(0.1, 1.0, 8),
+    "quarantine": np.array([1, 1, 0, 1, 1, 1, 1, 1], dtype=np.float64),
+    "all_zero": np.zeros(8),
+    "half_rank1": np.array([1, 0.5, 1, 1, 1, 1, 1, 1], dtype=np.float64),
+}
+
+
+@pytest.mark.parametrize("rack_size", [None, 2])
+@pytest.mark.parametrize("weights", list(WEIGHTS))
+def test_health_weighted_solve_matches_jax(weights, rack_size):
+    """``health_weight``: the whole plan equal to JAX's, flat and rack-aware;
+    with one rank quarantined the solve is feasible and that rank drains
+    to zero (where no probe is feasible, as with two zero weights here, the
+    plan is the home quota, as in JAX)."""
+    R = 8
+    lam = _pareto_load(R, seed=11)
+    home = _home(R)
+    w = WEIGHTS[weights]
+    jp = jplan.solve_plan(jnp.asarray(lam), jnp.asarray(home), n_slot=2,
+                          health_weight=jnp.asarray(w, jnp.float32),
+                          rack_size=rack_size)
+    tp = tplan.solve_plan(torch.from_numpy(lam), torch.from_numpy(home),
+                          n_slot=2, health_weight=torch.from_numpy(w),
+                          rack_size=rack_size)
+    _assert_plan_equal(jp, tp)
+    if weights == "quarantine":
+        assert int(tp.u.sum(dim=0)[2]) == 0
+
+
+@pytest.mark.parametrize("rack_size", [None, 4])
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_kary_solve_matches_jax(P, rack_size):
+    """``probe_parallelism`` P: the whole plan equal to JAX's k-ary solve,
+    also with health weights."""
+    R = 16
+    for seed in (0, 1):
+        lam = _pareto_load(R, seed)
+        home = _home(R)
+        kw = dict(n_slot=2, u_min=4, probe_parallelism=P, rack_size=rack_size)
+        jp = jplan.solve_plan(jnp.asarray(lam), jnp.asarray(home), **kw)
+        tp = tplan.solve_plan(torch.from_numpy(lam), torch.from_numpy(home),
+                              **kw)
+        _assert_plan_equal(jp, tp)
+    w = np.tile(WEIGHTS["half_rank1"], 2)
+    jp = jplan.solve_plan(jnp.asarray(lam), jnp.asarray(home),
+                          health_weight=jnp.asarray(w, jnp.float32), **kw)
+    tp = tplan.solve_plan(torch.from_numpy(lam), torch.from_numpy(home),
+                          health_weight=torch.from_numpy(w), **kw)
+    _assert_plan_equal(jp, tp)
+
+
+def test_kary_stats_count_batches():
+    """The plain solve's statistics at P = 8 and 12: probes come in batches
+    of the kernel's warps, and the critical path is at most the steps."""
+    from repro_torch.kernels.plan_solve import ops
+
+    R = 8
+    lam = torch.from_numpy(_pareto_load(R, seed=2)).long()
+    home = torch.from_numpy(_home(R)).long()
+    lam_e = lam.sum(dim=0)
+    args = (lam_e, tplan._rank_load(lam_e, home, R), home,
+            tplan._expert_order(lam_e, home, R))
+    for P in (1, 8, 12):
+        stats = torch.zeros(3, dtype=torch.int32)
+        ops.plan_solve(*args, n_slot=2, u_min=1, max_replicas_per_expert=R,
+                       load_bound=None, stats=stats, probe_parallelism=P)
+        probes, steps, crit = stats.tolist()
+        assert crit <= steps and probes >= 1
+        if P == 1:
+            assert crit == steps
+        else:
+            assert probes % min(P, ops.PROBE_WARPS) == 0 or P > 8
