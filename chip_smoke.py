@@ -179,6 +179,17 @@ Phases, one output line each:
      on the reference engine, bit for bit as stated, zero drops, the plan
      tables against the plain solve, launch counts; (f) the backward of (b)
      against (a) within 2e-2; no time is stated (gloo);
+ 16. the trainer on groups of two processes on the one card (spawn, gloo
+     on CUDA tensors): GLM-4.5-Air, one layer at full width, bf16, the aux
+     loss off and the router bias on, as (a) EP 2 x data 1 (batch 1 x
+     4096) and (b) data 2 x EP 1 (2 x 4096): every gradient of the global
+     loss against the one-rank step's within 2e-2 of max|ref|, counts
+     equal, zero drops (capacity factors 16: at 4.0 the seed-0 stream
+     drops items at init, differently at each R), then one train step at
+     4.0 with each rank's launches as stated and the one-rank router bias;
+     (d) the Supervisor on the reduced GLM at head dim 128 with a fault on
+     both ranks after step 3, the replay within 1e-3 of the clean run;
+     each process's peak memory, no time;
   8. the kernels with their launch counts on the serve paths: every count
      is set to 0 just before each serve run and read just after it; on
      every path (phase 7b's too) ``flash_attention`` runs once per
@@ -3074,11 +3085,13 @@ def phase_train(glm) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
+    # No checkpoints: a full-width one is over 40 GB (phase 16 (d) holds
+    # the Supervisor's checkpoints on the reduced GLM).
     run = train(cfg, steps=TRAIN["steps"], batch=TRAIN["batch"],
                 seq=TRAIN["seq"], reduce=False, device="cuda",
                 dtype=torch.bfloat16, loss_chunks=TRAIN["loss_chunks"],
                 seed=TRAIN["seed"], log_every=TRAIN["steps"],
-                on_metrics=on_metrics)
+                on_metrics=on_metrics, ckpt_every=0)
     import math
     if not all(math.isfinite(v) for v in run.losses):
         raise AssertionError(f"train: a loss is not finite: {run.losses}")
@@ -3102,6 +3115,327 @@ def phase_train(glm) -> dict:
     _line("phase13_train", result)
     gc.collect()
     torch.cuda.empty_cache()
+    return result
+
+
+# Phase 16: the trainer on groups of two processes on the one card.  Cases:
+# name -> (data rows, EP ranks, global batch rows of TRAIN_GROUP["seq"]).
+# At init the stream's hottest expert takes 3,799 of a row's 4,096 tokens,
+# so at capacity factors 4.0 the layer drops 42% of its items, and which
+# ones depends on R (capacities and plan): the gradient checks run at
+# GROUP_CHECK_CF, where nothing drops at R = 1 or 2; the train step runs at
+# TRAIN_GROUP["cf"], phase 13's.
+TRAIN_GROUP = dict(layers=1, seq=4096, loss_chunks=8, seed=0, ranks=2,
+                   cf=4.0)
+GROUP_CHECK_CF = 16.0
+GROUP_CASES = {"a": (1, 2, 1), "b": (2, 1, 2)}
+# Each rank's launches in one train step: phase 13's forward and backward
+# kernels, and the plan solve once a MoE layer at EP 2 (none at EP 1).
+GROUP_LAUNCHES = {"a": {**TRAIN_LAUNCHES, "plan_solve": 1},
+                  "b": dict(TRAIN_LAUNCHES)}
+# (d): the Supervisor on the reduced GLM (head dim 128, the backward
+# kernel's), bf16, EP 2: steps, checkpoint interval, the step whose run
+# raises on every rank, batch, sequence (2 x 2048: enough q tiles for the
+# wgmma prefill kernel, whose logsumexp the backward reads).
+SUPERVISED = dict(steps=4, every=2, fault_at=3, batch=2, seq=2048)
+
+
+def _group_cfgs(glm, cf):
+    """Phase 16's model: GLM-4.5-Air at every published width, one layer,
+    bf16, capacity factors ``cf``, blocked loss; the aux loss off (the
+    reference sums each rank's aux, so with it a group's loss differs from
+    one rank's by construction) and the aux-free router bias on."""
+    import torch
+
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.models.transformer import RuntimeConfig
+
+    cfg = dataclasses.replace(
+        glm, name=f"{glm.name}-{TRAIN_GROUP['layers']}l",
+        num_layers=TRAIN_GROUP["layers"],
+        moe=dataclasses.replace(glm.moe, aux_loss_weight=0.0, use_bias=True))
+    rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep", n_slot=2),
+                         cf_pair=cf, cf_slot=cf, dtype=torch.bfloat16,
+                         loss_chunks=TRAIN_GROUP["loss_chunks"])
+    return cfg, rcfg
+
+
+def _group_batch(cfg, rows):
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+
+    b = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_GROUP["seq"],
+        global_batch=2, seed=TRAIN_GROUP["seed"])).batch(0)
+    return {k: torch.from_numpy(v[:rows]).to("cuda", torch.int64)
+            for k, v in b.items()}
+
+
+def _bias_after(cfg, counts):
+    """The router bias after one step from zeros (``make_train_step``'s
+    update)."""
+    import torch
+
+    from repro_torch.models.model import init_router_bias
+    from repro_torch.moe.gating import update_router_bias
+
+    bias = init_router_bias(cfg, device="cuda")
+    upd = update_router_bias(bias, counts, cfg.moe.bias_update_speed)
+    return torch.where((counts.sum(dim=1) > 0)[:, None], upd, bias)
+
+
+def _group_case(rank, name, mesh, glm, ref_path):
+    """One case of phase 16 on one rank: the global gradient against the
+    R = 1 step's (``ref_path``), then one train step with the kernel counts
+    set to 0 before it and read after."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.model import init_lm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.train.loop import (global_grads, init_train_state,
+                                        make_train_step)
+
+    cfg, rcfg = _group_cfgs(glm, GROUP_CHECK_CF)
+    pctx = pctx_for_mesh(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, rcfg, pctx, torch.Generator(device="cuda")
+                     .manual_seed(TRAIN_GROUP["seed"]), device="cuda")
+    params.requires_grad_(True)
+    batch = _group_batch(cfg, GROUP_CASES[name][2])
+    loss, drops, counts, grads = global_grads(params, batch, cfg, rcfg, pctx)
+    ref = torch.load(ref_path, mmap=True)
+    errs = {}
+    specs = sharding.lm_param_specs(params, pctx)
+    for (pname, _), g, sp in zip(params.named_parameters(), grads, specs):
+        r = ref["grads"][pname]
+        if sp.expert and pctx.ep_size > 1:
+            n = g.shape[0]
+            r = r[pctx.ep_rank * n:(pctx.ep_rank + 1) * n]
+        r = r.to("cuda")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"group {name} rank {rank}: grad {pname} "
+                                 f"is not finite")
+        err, scale = _max_err(g, r)
+        errs[pname] = err / max(scale, 1e-30)
+        del r
+    check = {"loss": float(loss), "loss_r1": float(ref["loss"]),
+             "loss_rel_err": abs(float(loss) - float(ref["loss"]))
+             / abs(float(ref["loss"])),
+             "counts_diff": int((counts.cpu() - ref["counts"]).abs().sum()),
+             "drops": int(drops), "drops_r1": int(ref["drops"]),
+             "max_rel_err_by_param": errs, "worst": max(errs, key=errs.get)}
+    if any(not e <= TRAIN_TOL for e in errs.values()) or check["drops"] \
+            or check["counts_diff"] or not check["loss_rel_err"] <= TRAIN_TOL:
+        raise AssertionError(f"group {name} rank {rank}: against the R = 1 "
+                             f"step (tolerance {TRAIN_TOL}): {check}")
+    for p in params.parameters():
+        p.grad = None
+    del grads, ref
+    gc.collect()
+    peak_check = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _, rcfg = _group_cfgs(glm, TRAIN_GROUP["cf"])
+    opt = adamw(1e-3)
+    state = init_train_state(params, opt, cfg, pctx)
+    step = make_train_step(cfg, rcfg, pctx, opt)
+    torch.cuda.synchronize()
+    _reset_launches()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    launches, copies = _launches(), _padded_copies()
+    ref = torch.load(ref_path, mmap=True)
+    bias_ok = torch.equal(state.router_bias.cpu(), ref["bias"])
+    bad = {k: (launches[k], n) for k, n in GROUP_LAUNCHES[name].items()
+           if launches[k] != n}
+    if bad or any(copies.values()) or not bias_ok:
+        raise AssertionError(f"group {name} rank {rank}: launches (seen, "
+                             f"want) {bad}, copies {copies}, router bias "
+                             f"equal {bias_ok}")
+    moments = sum(t.numel() for t in state.opt_state.mu)
+    out = {"data": pctx.data_size, "ep": pctx.ep_size,
+           "global_batch": [GROUP_CASES[name][2], TRAIN_GROUP["seq"]],
+           "params_a_rank": sum(p.numel() for p in params.parameters()),
+           "moment_elems_a_rank": moments, "grad_check": check,
+           "check_cf": GROUP_CHECK_CF, "step_cf": TRAIN_GROUP["cf"],
+           "step_loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "step_drops": int(m["drops"]), "router_bias_equal": bias_ok,
+           "launches": {k: launches[k] for k in GROUP_LAUNCHES[name]},
+           "peak_mem_gb_check": peak_check,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, params, m, ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _supervised(rank, mesh, glm, out_dir):
+    """Phase 16 (d) on one rank: the Supervisor on the reduced GLM (head
+    dim 128, bf16) at EP 2, clean and with a RuntimeError raised on every
+    rank after step SUPERVISED["fault_at"] has run."""
+    import torch
+
+    from repro_torch.configs.reduce import reduced
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.launch.train import train
+
+    cfg = dataclasses.replace(reduced(glm), head_dim=128)
+    pctx = pctx_for_mesh(mesh)
+    sv = SUPERVISED
+
+    def inject(fn):
+        left = [1]
+
+        def step(state, batch):
+            at = state.step
+            out = fn(state, batch)
+            if at == sv["fault_at"] and left[0]:
+                left[0] = 0
+                raise RuntimeError("injected fault")
+            return out
+        return step
+
+    runs = {}
+    for tag, hook in (("clean", None), ("faulty", inject)):
+        seen = []
+        run = train(cfg, steps=sv["steps"], batch=sv["batch"], seq=sv["seq"],
+                    reduce=False, device="cuda", dtype=torch.bfloat16,
+                    ckpt_dir=str(Path(out_dir) / f"ckpt_{tag}"),
+                    ckpt_every=sv["every"], log_every=100, pctx=pctx,
+                    step_hook=hook, lr=1e-3,
+                    on_metrics=lambda s, m: seen.append((s, float(m["loss"]))))
+        runs[tag] = {"steps": [s for s, _ in seen],
+                     "losses": [v for _, v in seen],
+                     "restarts": run.restarts, "final_step": run.final_step}
+    clean = dict(zip(runs["clean"]["steps"], runs["clean"]["losses"]))
+    rel = [abs(v - clean[s]) / abs(clean[s])
+           for s, v in zip(runs["faulty"]["steps"], runs["faulty"]["losses"])]
+    want = [0, 1, 2, 2, 3]
+    if runs["faulty"]["steps"] != want or runs["faulty"]["restarts"] != 1 \
+            or not max(rel) <= 1e-3:
+        raise AssertionError(f"supervised rank {rank}: {runs}, replay "
+                             f"rel err {rel}")
+    return {"model": cfg.name, "head_dim": 128, "runs": runs,
+            "max_replay_rel_err": max(rel),
+            "replay_bitwise": max(rel) == 0.0}
+
+
+def _group_worker(rank, world, port, out_dir):
+    """One rank of phase 16 (a spawned process on the one card)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    collectives.init("gloo", world_size=world, rank=rank,
+                     init_method=f"tcp://localhost:{port}", timeout_s=600)
+    glm = get_config("glm45-106b-a12b")
+    meshes = {n: make_test_mesh(d, e) for n, (d, e, _) in GROUP_CASES.items()}
+    out = {n: _group_case(rank, n, meshes[n], glm,
+                          str(Path(out_dir) / f"ref_{n}.pt"))
+           for n in GROUP_CASES}
+    out["d"] = _supervised(rank, meshes["a"], glm, out_dir)
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    collectives.destroy()
+
+
+def phase_train_group(glm) -> dict:
+    """Phase 16: the trainer on groups of two processes on the one card
+    (spawn; one gloo group carrying CUDA tensors, as phase 9).  GLM-4.5-Air
+    at every published width, depth cut to one layer (attention + MoE),
+    bf16 weights, fp32 AdamW moments sharded over each parameter's
+    replicas (``parallel/sharding.opt_state_specs``), ``ultraep``, blocked
+    loss in 8 chunks, the synthetic stream from seed 0; the aux loss off
+    and the router bias on (``_group_cfgs``).  First the parent runs the
+    R = 1 step on each global batch, a microbatch a row (so each row runs
+    at a data rank's shapes), at GROUP_CHECK_CF, and keeps its loss,
+    counts, gradients and bias update (``torch.save``, read back with
+    ``mmap``).  Then, on each rank, (a) EP 2 x data 1, global batch 1 x
+    4096, and (b) data 2 x EP 1, global batch 2 x 4096: at GROUP_CHECK_CF
+    every gradient of the global loss within TRAIN_TOL of the R = 1
+    gradient's max|ref| (an expert's: the rank's rows), the loss within
+    TRAIN_TOL relative, the counts equal, zero drops; then one train step
+    at capacity factors TRAIN_GROUP["cf"] whose launches are
+    GROUP_LAUNCHES with no operand copied for TMA, and whose router bias
+    equals the R = 1 step's.  (d) the Supervisor
+    (``launch.train.train``) on the reduced GLM at head dim 128 (the
+    backward kernel's) at EP 2: 4 steps, a checkpoint every 2, a
+    RuntimeError on every rank after step 3; the run restores step 2 and
+    replays, each replayed loss within 1e-3 relative of the clean run's.
+    (d) runs reduced because a full-width checkpoint is over 40 GB of disk
+    writes a save, and the checkpointer is host code.  Each process's peak
+    memory is printed; no time is stated: gloo stages CUDA tensors through
+    the host."""
+    import gc
+    import os
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.models.model import init_lm
+    from repro_torch.models.transformer import ParallelCtx
+    from repro_torch.train.loop import TrainConfig, loss_and_grads
+
+    cfg, rcfg = _group_cfgs(glm, GROUP_CHECK_CF)
+    world = TRAIN_GROUP["ranks"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        params = init_lm(cfg, rcfg, ParallelCtx(), torch.Generator(
+            device="cuda").manual_seed(TRAIN_GROUP["seed"]), device="cuda")
+        params.requires_grad_(True)
+        for name, (_, _, rows) in GROUP_CASES.items():
+            # A microbatch a row: each row runs at a data rank's shapes.
+            loss, drops, counts, grads = loss_and_grads(
+                params, _group_batch(cfg, rows), cfg, rcfg, ParallelCtx(),
+                TrainConfig(microbatches=rows))
+            torch.save({"loss": float(loss), "drops": int(drops),
+                        "counts": counts.cpu(),
+                        "bias": _bias_after(cfg, counts).cpu(),
+                        "grads": {n: g.cpu() for (n, _), g in
+                                  zip(params.named_parameters(), grads)}},
+                       Path(out_dir) / f"ref_{name}.pt")
+            for p in params.parameters():
+                p.grad = None
+            del grads
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        # Two ranks near 38 GB each share the card: segments that grow in
+        # place keep the allocator's fragments from tipping it over.
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            mp.spawn(_group_worker, args=(world, port, out_dir),
+                     nprocs=world, join=True)
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    result = {"ranks": world, "backend": "gloo", "model": cfg.name,
+              "time": "not stated (gloo stages CUDA tensors through the "
+                      "host)",
+              "peak_mem_gb_by_rank": {n: [r[n]["peak_mem_gb"] for r in ranks]
+                                      for n in GROUP_CASES},
+              "peak_mem_gb_check_by_rank": {
+                  n: [r[n]["peak_mem_gb_check"] for r in ranks]
+                  for n in GROUP_CASES},
+              "ranks_by_case": ranks}
+    _line("phase16_train_group", result)
     return result
 
 
@@ -3601,6 +3935,7 @@ def main() -> int:
     ep = timed("phase9_ep_layer", phase_ep_layer)
     timed("phase15_balancers", phase_balancers)
     rack = timed("phase14_rack_tier", phase_rack_tier)
+    timed("phase16_train_group", phase_train_group, glm)
     serves = {"glm45-106b-a12b": glm_serve,
               "glm45-106b-a12b-q8": glm_q8_serve,
               "glm45-106b-a12b-fp32": glm_fp32_serve,

@@ -6,6 +6,7 @@ from repro_torch.configs import (  # noqa: F401
     glm45_106b_a12b,
     jamba_v01_52b,
     qwen3_235b_a22b,
+    tiny,
 )
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,

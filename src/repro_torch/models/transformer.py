@@ -2,18 +2,20 @@
 
 Mirrors ``repro.models.transformer`` for the block kinds ``attn+moe``,
 ``attn+dense``, ``mamba+moe`` and ``mamba+dense`` (attention GQA or MLA) on one device
-(``ParallelCtx()``) or on an EP group of R ranks over ``torch.distributed``
-(``ParallelCtx(group=...)``, the counterpart of a mesh whose model axis is
-the EP group and whose data axes have size 1; a factored group of racks x
-lanes, ``collectives.factor``, is the mesh with a rack axis, and its MoE
-blocks run ``hier_a2a``): attention, Mamba and dense
-layers are replicated on every rank, and each MoE block runs the EP layer
-(:func:`_ep_moe_block`).  JAX groups identical layers into scanned segments
-(and a hybrid's repeating period into one "cycle" segment); here the layers
-are a Python list and each block runs in turn.
+(``ParallelCtx()``) or on a mesh of data x EP ranks over
+``torch.distributed`` (``ParallelCtx(group=..., data=..., world=...)``,
+built by ``repro_torch.launch.mesh``: the EP group is the mesh's model
+axis, the data group its batch axis; a factored EP group of racks x lanes,
+``collectives.factor``, is the mesh with a rack axis, and its MoE blocks
+run ``hier_a2a``): attention, Mamba and dense layers are replicated on
+every rank of an EP group, which all see their data rank's rows of the
+batch, and each MoE block runs the EP layer (:func:`_ep_moe_block`).  JAX
+groups identical layers into scanned segments (and a hybrid's repeating
+period into one "cycle" segment); here the layers are a Python list and
+each block runs in turn.
 
-The full forward (cache None) is differentiable on one device, which is how
-the trainer runs (``repro.launch.train`` uses ``ParallelCtx(mesh=None)``).
+The full forward (cache None) is differentiable on one device and on a
+mesh (``repro_torch.train.loop`` reduces the gradients over it).
 Per-layer rematerialisation (``remat``) is not ported: every activation is
 kept for the backward.
 """
@@ -71,13 +73,20 @@ class RuntimeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """Parallel context: the EP group (a
+    """Parallel context (mirrors ``repro.models.transformer.ParallelCtx``):
+    ``group`` the EP group (a
     :class:`repro_torch.parallel.collectives.EPGroup`, factored into racks
-    x lanes for a two-level topology), or None for one device.  There is
-    no data axis yet, so the batch is never split.  Rank numbering is
-    rack-major, so a factored group's rank r holds flat rank r's experts."""
+    x lanes for a two-level topology) or None for one rank; ``data`` the
+    data group (the ranks that hold this rank's experts, one a data row:
+    ``batch_axes``' counterpart) or None when there is one data row;
+    ``world`` every rank of the mesh (None: the EP group's ranks).  Rank
+    numbering is the reference mesh's row-major order, global rank
+    ``d * R + r``; a factored group is rack-major inside each data row, so
+    its rank r holds flat rank r's experts."""
 
     group: object = None
+    data: object = None
+    world: object = None
 
     @property
     def ep_size(self) -> int:
@@ -98,8 +107,29 @@ class ParallelCtx:
         return 0 if self.group is None else self.group.rank
 
     @property
+    def data_size(self) -> int:
+        return 1 if self.data is None else self.data.size
+
+    @property
+    def data_rank(self) -> int:
+        return 0 if self.data is None else self.data.rank
+
+    @property
+    def world_group(self):
+        """Every rank of the mesh (the EP group when there is no data
+        group, the data group when there is no EP group); None on one
+        rank."""
+        if self.world is not None:
+            return self.world
+        return self.group if self.group is not None else self.data
+
+    @property
+    def world_size(self) -> int:
+        return self.ep_size * self.data_size
+
+    @property
     def batch_size_divisor(self) -> int:
-        return 1
+        return self.data_size
 
 
 class BlockParams(nn.Module):
@@ -257,41 +287,58 @@ def init_cache_block(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
 def _ep_moe_block(x: torch.Tensor, mp, mcfg: MoEConfig, pctx: ParallelCtx,
                   router_bias: torch.Tensor | None):
     """(B, S, D) -> (B, S, D) through the EP layer; returns (y, aux, drops,
-    counts), summed over the group as the reference's shard_map island
-    (``repro.models.transformer._ep_moe_block``) sums them.
+    counts) summed as the reference's shard_map island
+    (``repro.models.transformer._ep_moe_block``) sums them: aux and drops
+    over every rank of the mesh (each rank's aux is its own tokens' term),
+    counts over data x EP (``replicated``: over the data group, the EP
+    ranks already count every token).
 
-    On a group, a prefill chunk's sequence is split over the ranks when S
-    divides by R and the mode is not replicated: each rank runs the layer
-    on its shard of S and an ``all_gather`` puts y back together along S.
-    Otherwise every rank runs the whole batch (decode: ``replicated``
-    dispatch, which merges the ranks' shares inside the layer).  A
-    factored group is split the same way over all its R ranks."""
+    On a group, a prefill chunk's or a training batch's sequence is split
+    over the ranks when S divides by R and the mode is not replicated: each
+    rank runs the layer on its shard of S (:func:`collectives.shard`) and
+    an ``all_gather`` puts y back together along S; both carry gradients
+    (the module notes of ``collectives``).  Otherwise every rank runs the
+    whole batch (decode: ``replicated`` dispatch, which merges the ranks'
+    shares inside the layer), which has no backward here.  A factored
+    group is split the same way over all its R ranks."""
     B, S, D = x.shape
     g = pctx.group
     if g is None:
         y, aux, stats = mp(x.reshape(-1, D), mcfg, router_bias=router_bias)
-        return (y.reshape(B, S, D), aux,
-                stats.drops_dispatch + stats.drops_slot, stats.counts)
+        drops, counts = stats.drops_dispatch + stats.drops_slot, stats.counts
+        if pctx.data is not None:     # one EP rank a data row
+            summed = collectives.all_reduce(pctx.data, torch.cat(
+                [counts, drops[None]]))
+            counts, drops = summed[:-1], summed[-1]
+            aux = collectives.all_reduce(pctx.data, aux)
+        return y.reshape(B, S, D), aux, drops, counts
     R = pctx.ep_size
     replicated = mcfg.dispatch_mode == "replicated"
     seq_ok = (not replicated) and S % R == 0
     if seq_ok:
-        Sl = S // R
-        x = x[:, pctx.ep_rank * Sl:(pctx.ep_rank + 1) * Sl]
+        x = collectives.shard(g, x, 1)
+    elif torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError(f"training on an EP group of {R} splits the "
+                         f"sequence: S={S} must divide by {R}")
     y, aux, stats = mp(x.reshape(-1, D), mcfg, axis_name=g,
                        router_bias=router_bias)
     y = y.reshape(x.shape)
     if seq_ok:
         y = collectives.all_gather(g, y).permute(1, 0, 2, 3).reshape(B, S, D)
+    world = pctx.world_group
     drops = stats.drops_dispatch + stats.drops_slot
-    # The global per-expert load: replicated tokens already count it whole.
+    # The global per-expert load: replicated tokens already count it whole
+    # on each EP rank.
     counts = stats.counts
     if replicated:
-        drops = collectives.all_reduce(g, drops)
+        drops = collectives.all_reduce(world, drops)
+        if pctx.data is not None:
+            counts = collectives.all_reduce(pctx.data, counts)
     else:
-        summed = collectives.all_reduce(g, torch.cat([counts, drops[None]]))
+        summed = collectives.all_reduce(world, torch.cat([counts,
+                                                          drops[None]]))
         counts, drops = summed[:-1], summed[-1]
-    return y, collectives.all_reduce(g, aux), drops, counts
+    return y, collectives.all_reduce(world, aux), drops, counts
 
 
 def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
@@ -334,9 +381,10 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
         h2 = rms_norm(x, bp.norm2)
         if ffn_kind == "moe":
             B, S, D = x.shape
-            tokens_per_rank = max(1, (B // pctx.batch_size_divisor)
-                                  * (S if decode or S < pctx.ep_size
-                                     else S // pctx.ep_size))
+            # x holds this data rank's rows already (the reference divides
+            # its global B by the data axes here).
+            tokens_per_rank = max(1, B * (S if decode or S < pctx.ep_size
+                                          else S // pctx.ep_size))
             mcfg = moe_config(cfg, rcfg, pctx, tokens_per_rank,
                               dispatch_mode="replicated" if decode else "a2a")
             y2, aux, drops, counts = _ep_moe_block(h2, bp.moe, mcfg, pctx,

@@ -1,1 +1,2 @@
-"""Process groups and collectives of the EP group (torch.distributed)."""
+"""Process groups, collectives, placement and the pipeline over
+``torch.distributed`` (mirrors ``repro.parallel``)."""

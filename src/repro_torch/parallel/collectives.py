@@ -15,6 +15,12 @@ MoE layer and the model need, in the JAX package's terms
 * :func:`reduce_scatter`: (R, ...) -> (...), the sum over ranks of each
   rank's row ``rank``;
 * :func:`all_reduce`: the sum over ranks;
+* :func:`shard`: this rank's slice of a replicated tensor along a
+  dimension (the inverse of :func:`all_gather`);
+* :func:`all_reduce_`, :func:`broadcast`, :func:`sendrecv`,
+  :func:`barrier`: an in-place sum (gradient buckets), a broadcast and a
+  point-to-point exchange (the pipeline), with no gradient, and a
+  barrier;
 * :func:`all_to_all_async`: :func:`all_to_all` started and returned as a
   handle whose ``wait()`` gives the received buffer (the overlap driver's
   exchange of the next chunk, under the current chunk's FFN).
@@ -28,14 +34,27 @@ collective over the default group: every rank calls it for every
 subgroup, in one order, including those it is not in, so :func:`factor`
 makes them all at once, when the group is built.
 
-Gradients follow JAX's transpose rules where the MoE layer needs them: the
-backward of ``all_to_all`` is the same exchange of the gradient, of
-``reduce_scatter`` an ``all_gather`` (each an autograd Function when its
-input requires a gradient; every rank of the group runs the backward, in
-the same order as the forward).  ``all_gather`` (the counts, the model's
-sequence split) and ``all_reduce`` (the ``replicated`` mode's decode, the
-summed statistics) raise under a gradient: model-level multi-rank
-training is not ported.
+Gradients follow JAX's transpose rules, under one convention: every rank
+of an EP group computes the replicated (dense) part of the model and the
+loss redundantly, so the cotangent that reaches a replicated tensor is the
+whole gradient on every rank.  Each op below is an autograd Function only
+where its input requires a gradient, and every rank of the group runs the
+backward in the same order as the forward:
+
+* ``all_to_all``: the same exchange of the gradient;
+* ``reduce_scatter``: an ``all_gather`` of the gradient;
+* ``all_gather`` (rank slices -> replicated): the rank's own slice of the
+  (replicated) cotangent, with no communication;
+* :func:`shard` (a replicated tensor -> the rank's slice, the MoE block's
+  sequence split): an ``all_gather`` of the slices' cotangents, so the
+  replicated input again gets the whole gradient on every rank;
+* ``all_reduce`` (the summed aux loss and statistics): the identity, so
+  each rank back-propagates its own term of the sum.
+
+The same ops serve the data group (a ``ParallelCtx``'s ``data`` group:
+the global loss's sum, the MoE statistics) and the optimizer's groups
+(the gradients' in-place sums, the ``all_gather`` of updated parameter
+shards).
 
 NCCL carries CUDA tensors, one card per rank.  gloo carries CPU tensors,
 and CUDA tensors too where several ranks share one card (which NCCL
@@ -53,7 +72,9 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["EPGroup", "init", "subgroup", "factor", "destroy", "all_gather",
-           "all_to_all", "all_to_all_async", "reduce_scatter", "all_reduce"]
+           "all_to_all", "all_to_all_async", "reduce_scatter", "all_reduce",
+           "all_reduce_", "shard", "barrier", "sendrecv", "broadcast",
+           "world_size", "world_rank"]
 
 
 class EPGroup:
@@ -95,6 +116,16 @@ def init(backend: str, *, world_size: int, rank: int,
     return EPGroup()
 
 
+def world_size() -> int:
+    """Ranks of the default group."""
+    return dist.get_world_size()
+
+
+def world_rank() -> int:
+    """This process's rank in the default group."""
+    return dist.get_rank()
+
+
 def subgroup(ranks: list[int]) -> EPGroup | None:
     """An EP group of some ranks of the default group (every rank of the
     default group must call this); None on a rank outside it."""
@@ -102,32 +133,40 @@ def subgroup(ranks: list[int]) -> EPGroup | None:
     return EPGroup(group) if dist.get_rank() in ranks else None
 
 
-def factor(racks: int) -> EPGroup:
-    """The default group factored into ``racks`` racks of ``world /
-    racks`` ranks (rack-major): the same ranks and process group, plus
-    this rank's lane subgroup (its rack's ranks) and rack subgroup (its
-    lane's ranks).
+def factor(racks: int, ranks: list[int] | None = None) -> EPGroup | None:
+    """An EP group of ``ranks`` (default: the whole default group) factored
+    into ``racks`` racks of ``len(ranks) / racks`` ranks (rack-major): the
+    group, plus this rank's lane subgroup (its rack's ranks) and rack
+    subgroup (its lane's ranks); None on a rank outside ``ranks``.
 
     Collective over the default group: every rank calls it with the same
-    ``racks``, in the same order as its other group calls.  It makes every
-    lane subgroup (one a rack), then every rack subgroup (one a lane)."""
-    R = dist.get_world_size()
+    arguments, in the same order as its other group calls.  It makes the
+    group (unless it is the default one), every lane subgroup (one a
+    rack), then every rack subgroup (one a lane)."""
+    pg = None
+    if ranks is None:
+        ranks = list(range(dist.get_world_size()))
+    else:
+        pg = dist.new_group(ranks)
+    R = len(ranks)
     if racks < 1 or R % racks != 0:
         raise ValueError(f"racks={racks} must divide the group's {R} ranks")
     L = R // racks
     me = dist.get_rank()
     lane_g = rack_g = None
     for g in range(racks):
-        members = [g * L + l for l in range(L)]
-        pg = dist.new_group(members)
+        members = [ranks[g * L + l] for l in range(L)]
+        sub = dist.new_group(members)
         if me in members:
-            lane_g = EPGroup(pg)
+            lane_g = EPGroup(sub)
     for l in range(L):
-        members = [g * L + l for g in range(racks)]
-        pg = dist.new_group(members)
+        members = [ranks[g * L + l] for g in range(racks)]
+        sub = dist.new_group(members)
         if me in members:
-            rack_g = EPGroup(pg)
-    return EPGroup(racks=racks, rack=rack_g, lane=lane_g)
+            rack_g = EPGroup(sub)
+    if me not in ranks:
+        return None
+    return EPGroup(pg, racks=racks, rack=rack_g, lane=lane_g)
 
 
 def destroy() -> None:
@@ -140,10 +179,10 @@ def _grad(x: torch.Tensor) -> bool:
 
 
 def all_gather(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
-    """(...) -> (R, ...): every rank's ``x`` in rank order."""
+    """(...) -> (R, ...): every rank's ``x`` in rank order; under a
+    gradient its backward is this rank's row of the cotangent."""
     if _grad(x):
-        raise ValueError("all_gather has no backward here: model-level "
-                         "multi-rank training is not ported")
+        return _AllGather.apply(g, x)
     return _all_gather(g, x)
 
 
@@ -192,15 +231,76 @@ def _reduce_scatter(g: EPGroup, buf: torch.Tensor) -> torch.Tensor:
 
 
 def all_reduce(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
-    """The sum over ranks (``jax.lax.psum``), as a new tensor; no gradient
-    (see the module's notes)."""
+    """The sum over ranks (``jax.lax.psum``), as a new tensor; under a
+    gradient its backward is the identity (see the module's notes)."""
     if _grad(x):
-        raise ValueError("all_reduce has no backward here: the replicated "
-                         "dispatch mode serves decode only; train with a2a "
-                         "on one rank's model or the layer")
+        return _AllReduce.apply(g, x)
+    return _all_reduce(g, x)
+
+
+def _all_reduce(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=g.group)
     return out
+
+
+def all_reduce_(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
+    """The sum over ranks written into ``x`` (contiguous, no gradient)."""
+    dist.all_reduce(x, group=g.group)
+    return x
+
+
+def shard(g: EPGroup, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's slice of a replicated ``x`` along ``dim`` (which must
+    divide by the group's size); under a gradient its backward gathers the
+    slices' cotangents back along ``dim``."""
+    if x.shape[dim] % g.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {g.size} ranks")
+    if _grad(x):
+        return _Shard.apply(g, x, dim)
+    return _shard(g, x, dim)
+
+
+def _shard(g: EPGroup, x: torch.Tensor, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // g.size
+    return x.narrow(dim, g.rank * n, n)
+
+
+def _unshard(g: EPGroup, xs: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's slice along ``dim``, put back together."""
+    parts = _all_gather(g, xs)                      # (R, ...)
+    dim = dim % xs.dim()
+    return parts.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def barrier(g: EPGroup) -> None:
+    dist.barrier(group=g.group)
+
+
+def broadcast(g: EPGroup, x: torch.Tensor, src: int) -> torch.Tensor:
+    """``x`` of group rank ``src`` written into every rank's ``x``."""
+    dist.broadcast(x, group_src=src, group=g.group)
+    return x
+
+
+def sendrecv(g: EPGroup, x: torch.Tensor | None, dst: int | None,
+             out: torch.Tensor | None, src: int | None) -> None:
+    """Point-to-point, no gradient: send ``x`` to group rank ``dst`` and
+    receive group rank ``src``'s into ``out`` (either side may be None),
+    posted together (``batch_isend_irecv``) so a chain of ranks cannot
+    deadlock."""
+    ops = []
+    if x is not None:
+        ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                              dist.get_global_rank(g.group, dst)
+                              if g.group is not None else dst, g.group))
+    if out is not None:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(g.group, src)
+                              if g.group is not None else src, g.group))
+    for req in dist.batch_isend_irecv(ops) if ops else ():
+        req.wait()
 
 
 class AsyncExchange:
@@ -254,3 +354,35 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return None, _all_gather(ctx.g, dy)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x):
+        ctx.g = g
+        return _all_gather(g, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, dy[ctx.g.rank]
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x, dim):
+        ctx.g, ctx.dim = g, dim
+        return _shard(g, x, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _unshard(ctx.g, dy.contiguous(), ctx.dim), None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x):
+        return _all_reduce(g, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, dy

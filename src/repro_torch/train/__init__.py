@@ -1,2 +1,2 @@
-"""Training loop (mirrors ``repro.train``; the fault-tolerant supervisor is
-not ported yet)."""
+"""Training (mirrors ``repro.train``): the train step (``loop``) and the
+fault-tolerant supervisor (``fault``)."""

@@ -12,6 +12,22 @@ computes them.  The router bias is updated outside the gradient from the
 realized per-layer loads (DeepSeek's recipe, free routing only), and the
 gradients are clipped by their global norm before the optimizer.  Metrics
 are device tensors: nothing here reads the device.
+
+On a mesh of D data rows x R EP ranks (``ParallelCtx`` ``data`` and
+``group``) the step takes the global batch and runs its data rank's rows
+(``sharding.local_batch``).  The rule: the sum over every rank of each
+rank's gradient contribution is the gradient of the reference's one
+global loss, the LM loss's mean over the global batch plus the aux loss
+summed over all ranks (the reference's island returns each device's aux
+and sums them).  So each rank back-propagates its LM loss scaled by 1/D
+plus the summed aux (whose ``all_reduce`` passes each rank's own term
+back); the gradients are then summed over the data group, and the
+router's and shared expert's, which each EP rank runs on its slice of the
+tokens only, over data x EP (``sharding.lm_param_specs``).  Taking the
+mean over the data group instead would leave the aux term's gradient D
+times too small.  The metrics are the reference's global values on every
+rank, the router bias moves with the global counts, so every replica
+stays equal.
 """
 
 from __future__ import annotations
@@ -27,10 +43,13 @@ from repro_torch.models.model import (LMParams, blocked_lm_loss, forward,
 from repro_torch.models.transformer import (ParallelCtx, RuntimeConfig,
                                             effective_rack_limit)
 from repro_torch.moe.gating import update_router_bias
-from repro_torch.optim.optimizer import Optimizer, clip_by_global_norm
+from repro_torch.optim.optimizer import (Optimizer, clip_by_global_norm,
+                                         reduce_grads)
+from repro_torch.parallel import collectives, sharding
 
 __all__ = ["TrainConfig", "TrainState", "init_train_state", "loss_and_grads",
-           "make_train_step"]
+           "global_grads", "make_train_step", "global_shapes",
+           "state_to_global", "state_from_global"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,28 +67,36 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(params: LMParams, optimizer: Optimizer,
-                     cfg: ModelConfig) -> TrainState:
-    """Make every parameter trainable and start the optimizer state."""
+                     cfg: ModelConfig,
+                     pctx: ParallelCtx | None = None) -> TrainState:
+    """Make every parameter trainable and start the optimizer state; on a
+    mesh, with each moment sharded over its parameter's replicas
+    (``sharding.opt_state_specs``)."""
     params.requires_grad_(True)
     plist = list(params.parameters())
-    return TrainState(params=params, opt_state=optimizer.init(plist),
+    shards = None
+    if pctx is not None and pctx.world_size > 1:
+        shards = sharding.opt_state_specs(
+            plist, sharding.lm_param_specs(params, pctx))
+    return TrainState(params=params, opt_state=optimizer.init(plist, shards),
                       router_bias=init_router_bias(
                           cfg, device=plist[0].device),
                       step=0)
 
 
 def _loss(params, batch, cfg, rcfg, pctx, router_bias):
+    """(LM loss, aux, drops, counts) of this rank's rows."""
     if rcfg.loss_chunks > 1:
         x, aux, drops, counts = forward(params, batch, cfg, rcfg, pctx,
                                         router_bias=router_bias,
                                         return_hidden=True)
-        loss = blocked_lm_loss(x, params.head(), batch["targets"],
-                               chunks=rcfg.loss_chunks) + aux
+        lm = blocked_lm_loss(x, params.head(), batch["targets"],
+                             chunks=rcfg.loss_chunks)
     else:
         logits, aux, drops, counts = forward(params, batch, cfg, rcfg, pctx,
                                              router_bias=router_bias)
-        loss = lm_loss(logits, batch["targets"]) + aux
-    return loss, drops, counts
+        lm = lm_loss(logits, batch["targets"])
+    return lm, aux, drops, counts
 
 
 def loss_and_grads(params: LMParams, batch: dict, cfg: ModelConfig,
@@ -79,20 +106,30 @@ def loss_and_grads(params: LMParams, batch: dict, cfg: ModelConfig,
     """(loss, drops, counts, grads): the mean over ``tcfg.microbatches`` of
     the loss and of each parameter's gradient (``grads`` in
     ``params.parameters()`` order, the parameters' ``.grad``), the summed
-    drops and per-layer expert counts."""
+    drops and per-layer expert counts.
+
+    On a mesh ``batch`` is this data rank's rows; the loss is the global
+    one and each gradient is this rank's contribution, before the sums
+    over the mesh (see the module's notes)."""
     plist = list(params.parameters())
     for p in plist:
         p.grad = None
     n = max(1, tcfg.microbatches)
+    D = pctx.data_size
     B = batch["tokens"].shape[0]
     if B % n:
         raise ValueError(f"batch {B} does not split into {n} microbatches")
     loss = drops = counts = None
     for i in range(n):
         mb = {k: v[i * (B // n):(i + 1) * (B // n)] for k, v in batch.items()}
-        li, di, ci = _loss(params, mb, cfg, rcfg, pctx, router_bias)
+        lm, aux, di, ci = _loss(params, mb, cfg, rcfg, pctx, router_bias)
+        if D > 1:
+            lm = lm * (1.0 / D)
+        li = lm + aux
         li.backward()
         li = li.detach()
+        if D > 1:       # the global loss: the data rows' LM terms summed
+            li = collectives.all_reduce(pctx.data, lm.detach()) + aux.detach()
         loss = li if loss is None else loss + li
         drops = di if drops is None else drops + di
         counts = ci if counts is None else counts + ci
@@ -109,14 +146,41 @@ def loss_and_grads(params: LMParams, batch: dict, cfg: ModelConfig,
     return loss, drops, counts, grads
 
 
+def global_grads(params: LMParams, batch: dict, cfg: ModelConfig,
+                 rcfg: RuntimeConfig, pctx: ParallelCtx,
+                 tcfg: TrainConfig = TrainConfig(),
+                 router_bias: torch.Tensor | None = None):
+    """:func:`loss_and_grads` of this rank's rows of the global ``batch``,
+    then each gradient summed over its group of the mesh
+    (``sharding.lm_param_specs``): the gradients of the global loss (an
+    expert's: this EP rank's rows of it)."""
+    if pctx.world_size == 1:
+        return loss_and_grads(params, batch, cfg, rcfg, pctx, tcfg,
+                              router_bias)
+    loss, drops, counts, grads = loss_and_grads(
+        params, sharding.local_batch(batch, pctx), cfg, rcfg, pctx, tcfg,
+        router_bias)
+    specs = sharding.lm_param_specs(params, pctx)
+    with torch.no_grad():
+        reduce_grads(grads, [s.reduce for s in specs])
+    return loss, drops, counts, grads
+
+
 def make_train_step(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
                     optimizer: Optimizer, tcfg: TrainConfig = TrainConfig()):
+    """``(state, batch) -> (state, metrics)``; ``batch`` is the global
+    batch (on a mesh each rank takes its data rank's rows)."""
     def train_step(state: TrainState, batch: dict):
         params = state.params
-        loss, drops, counts, grads = loss_and_grads(
+        loss, drops, counts, grads = global_grads(
             params, batch, cfg, rcfg, pctx, tcfg, state.router_bias)
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+            sharded = None
+            if pctx.world_size > 1:
+                sharded = [s.expert for s in
+                           sharding.lm_param_specs(params, pctx)]
+            grads, gnorm = clip_by_global_norm(
+                grads, tcfg.clip_norm, sharded=sharded, group=pctx.group)
             opt_state = optimizer.update(grads, state.opt_state,
                                          list(params.parameters()),
                                          state.step)
@@ -140,3 +204,82 @@ def make_train_step(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
                           state.step + 1), metrics
 
     return train_step
+
+
+# ---------------- the state at global shapes (checkpoints) ----------------
+
+def _leaves(state: TrainState, pctx: ParallelCtx):
+    """(key, tensor, expert, moment shard or None) of every tensor of
+    ``state``: the parameters, then AdamW's two moments."""
+    named = list(state.params.named_parameters())
+    expert = [False] * len(named)
+    if pctx.world_size > 1:
+        expert = [s.expert for s in
+                  sharding.lm_param_specs(state.params, pctx)]
+    shards = state.opt_state.shards or [None] * len(named)
+    for (name, p), ex in zip(named, expert):
+        yield f"params/{name}", p, ex, None
+    for mom in ("mu", "nu"):
+        for (name, _), t, ex, sh in zip(named, getattr(state.opt_state, mom),
+                                        expert, shards):
+            yield f"opt_state/{mom}/{name}", t, ex, sh
+
+
+def global_shapes(state: TrainState, pctx: ParallelCtx) -> dict:
+    """Every leaf's key -> its global shape (what ``state_to_global``
+    gives), on any mesh."""
+    out = {}
+    for key, t, ex, sh in _leaves(state, pctx):
+        shape = list(t.shape) if sh is None or sh.whole else \
+            [s * sh.count if i == sh.dim else s
+             for i, s in enumerate(t.shape)]
+        if ex:
+            shape[0] *= pctx.ep_size
+        out[key] = shape
+    if state.router_bias is not None:
+        out["router_bias"] = list(state.router_bias.shape)
+    out["step"] = []
+    return out
+
+
+@torch.no_grad()
+def state_to_global(state: TrainState, pctx: ParallelCtx) -> dict:
+    """The train state as one flat mapping at global shapes, the same on
+    every rank (collective on a mesh): expert rows gathered over the EP
+    group, moment shards over their replicas."""
+    out = {}
+    for key, t, ex, sh in _leaves(state, pctx):
+        if sh is not None and not sh.whole:
+            t = collectives.all_gather(sh.group, t.contiguous())
+            t = t.movedim(0, sh.dim).flatten(sh.dim, sh.dim + 1)
+        if ex and pctx.ep_size > 1:
+            t = collectives.all_gather(pctx.group,
+                                       t.contiguous()).flatten(0, 1)
+        out[key] = t
+    if state.router_bias is not None:
+        out["router_bias"] = state.router_bias
+    out["step"] = int(state.step)
+    return out
+
+
+@torch.no_grad()
+def state_from_global(state: TrainState, tree: dict,
+                      pctx: ParallelCtx) -> TrainState:
+    """``state`` with every tensor overwritten in place by this rank's
+    share of the global ``tree`` (``state_to_global``'s layout, from a
+    mesh of any size)."""
+    for key, t, ex, sh in _leaves(state, pctx):
+        a = tree[key]
+        a = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+        if ex and pctx.ep_size > 1:
+            n = a.shape[0] // pctx.ep_size
+            a = a[pctx.ep_rank * n:(pctx.ep_rank + 1) * n]
+        if sh is not None:
+            a = sh.take(a)
+        t.copy_(a.to(t.device))
+    bias = state.router_bias
+    if bias is not None:
+        a = tree["router_bias"]
+        bias = torch.as_tensor(a).to(device=bias.device, dtype=bias.dtype)
+    return TrainState(state.params, state.opt_state, bias,
+                      int(tree["step"]))

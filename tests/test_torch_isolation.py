@@ -8,7 +8,8 @@ solve at R = 4 (``kernels/plan_solve``) and every balancer mode
 ``Resilience`` too) on a one-rank gloo
 group through every collective of ``parallel/`` (and its backward through
 their transposes), and one reduced train step through
-``repro_torch.launch.train`` (``optim/``, ``train/``, ``data/``); the other
+``repro_torch.launch.train`` (``optim/``, ``train/``, ``data/``, the
+Supervisor and ``checkpoint/``; ``parallel/pipeline`` is imported); the other
 reads every source file of the port and ``chip_smoke.py``.
 """
 
@@ -87,6 +88,7 @@ p.requires_grad_(True)
 assert all(t.grad is not None for t in p.parameters())
 collectives.destroy()
 from repro_torch.launch import train
+from repro_torch.parallel import pipeline  # noqa: F401  (not on a path)
 run = train.train("glm45-106b-a12b", steps=1, batch=2, seq=16, device="cpu")
 assert len(run.losses) == 1 and np.isfinite(run.losses[0])
 assert not any(m == "repro" or m.startswith(("repro.", "jax"))
