@@ -190,6 +190,25 @@ Phases, one output line each:
      (d) the Supervisor on the reduced GLM at head dim 128 with a fault on
      both ranks after step 3, the replay within 1e-3 of the clean run;
      each process's peak memory, no time;
+ 12. the backward kernels at the train step's shapes against their plain
+     versions (TRAIN_TOL, 2e-2 of max|ref|), timed beside their bounds and
+     a library call: B1-B3 at GLM-4.5-Air's train counts, B4 (B 2, S 4096,
+     32 / 8 heads), B4m at DeepSeek-V3's MLA cell (B 1, S 4096, 128 heads,
+     q/k 192, v 128; SDPA's backward, memory-efficient) and B5 at
+     Jamba-v0.1's train chunk in bf16 and fp32 inputs (against the closed
+     form and autograd of the plain forward); B4 and B4m bitwise over two
+     calls;
+ 13. GLM-4.5-Air one layer at full width trained 5 steps with
+     ``remat=False`` (its launch counts are those of a step without the
+     recompute), after a gradient check against ``plain_backward``;
+ 17. the train cells of ``launch/specs.py`` (Adafactor, per-layer remat,
+     bf16, batch 1 x 4096): DeepSeek-V3 4 layers and Jamba-v0.1 8 layers,
+     each parameter's gradient against ``plain_backward`` within 2e-2, a
+     second kernel run bit for bit (or which gradients differ), the remat
+     recompute's counts equal to the forward's, then 3 steps through
+     ``launch.train.train_cell(arch, "train_4k")`` with the launches a step as
+     CELL_LAUNCHES, their times and peak memory; remat's saving on
+     Jamba's first two layers;
   8. the kernels with their launch counts on the serve paths: every count
      is set to 0 just before each serve run and read just after it; on
      every path (phase 7b's too) ``flash_attention`` runs once per
@@ -2063,6 +2082,7 @@ def _wrappers() -> dict:
             "grouped_matmul_nt": gg.grouped_matmul_nt,
             "grouped_wgrad": gg.grouped_wgrad,
             "flash_attention_bwd": fa.flash_attention_bwd,
+            "ssd_intra_chunk_bwd": ssd.ssd_intra_chunk_bwd,
             "grouped_swiglu_q8": gg.grouped_swiglu_q8,
             "grouped_matmul_q8": gg.grouped_matmul_q8,
             "ssd_intra_chunk": ssd.ssd_intra_chunk,
@@ -2077,18 +2097,23 @@ def _reset_launches():
         fn.launches = 0
         if hasattr(fn, "padded_copies"):
             fn.padded_copies = 0
-        for kernel in getattr(fn, "launches_by_kernel", {}):
-            fn.launches_by_kernel[kernel] = 0
+        for attr in ("launches_by_kernel", "launches_by_dims"):
+            table = getattr(fn, attr, {})
+            for key in table:
+                table[key] = 0
 
 
 def _launches() -> dict:
-    """Launch counts by wrapper, and flash_attention's by kernel (as
-    ``flash_attention.<kernel>``)."""
+    """Launch counts by wrapper, flash_attention's by kernel (as
+    ``flash_attention.<kernel>``) and flash_attention_bwd's by head-dim
+    pair (as ``flash_attention_bwd.<hd>x<hd_v>``)."""
     counts = {}
     for name, fn in _wrappers().items():
         counts[name] = fn.launches
         for kernel, n in getattr(fn, "launches_by_kernel", {}).items():
             counts[f"{name}.{kernel}"] = n
+        for (a, b), n in getattr(fn, "launches_by_dims", {}).items():
+            counts[f"{name}.{a}x{b}"] = n
     return counts
 
 
@@ -3005,8 +3030,145 @@ def phase_train_kernels(glm) -> dict:
            "recomputed, no atomics): bitwise equal over two calls")
     del q, k, v, dout, o, lse, grads, qt, kt, vt, ot
     torch.cuda.empty_cache()
+    recs["flash_attention_bwd.mla"] = _mla_bwd_record(g)
+    recs["ssd_intra_chunk_bwd"] = _ssd_bwd_record()
     _line("phase12_train_kernels", recs)
     return recs
+
+
+def _mla_bwd_record(g) -> dict:
+    """B4m at DeepSeek-V3's train cell: B 1, S 4096, 128 heads (G 1), q/k
+    192, v 128, causal, MLA's scale, k and v strided views of one tensor as
+    the model makes them; dq, dk, dv within TRAIN_TOL of autograd through
+    the plain version, bitwise equal over two calls; timed beside SDPA's
+    backward (memory-efficient backend: the flash backend takes one head
+    dim)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    bf16 = torch.bfloat16
+    B, S, H, hd, hv = 1, 4096, 128, 192, 128
+    scale = hd ** -0.5
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(bf16)
+    kv = torch.randn((B, S, H, hd + hv), generator=g, device="cuda").to(bf16)
+    k, v = kv[..., :hd], kv[..., hd:]
+    dout = torch.randn((B, S, H, hv), generator=g, device="cuda").to(bf16)
+    lse = torch.empty((B, H, S), device="cuda")
+    o, _ = fa._launch(q, k, v, True, 0, None, scale, sms=1, lse=lse)
+    grads = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=True,
+                                   scale=scale)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=True,
+                                   scale=scale)
+    torch.cuda.synchronize()
+    for n, a, r in zip("qkv", grads, again):
+        if not torch.equal(a, r):
+            raise AssertionError(f"flash_bwd mla d{n}: two calls differ")
+    del again
+    refs = fa.flash_attention_bwd_ref(q, k, v, dout, causal=True,
+                                      scale=scale)
+    errs = {n: _rel_check(f"flash_bwd mla d{n}", a, r, TRAIN_TOL)
+            for n, a, r in zip("qkv", grads, refs)}
+    del refs, grads
+    pairs = B * H * S * (S + 1) // 2
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt = k.transpose(1, 2).detach().requires_grad_(True)
+    vt = v.transpose(1, 2).detach().requires_grad_(True)
+    dot = dout.transpose(1, 2)
+    library, library_error = None, None
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                scale=scale)
+        torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+        def library():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                       retain_graph=True)
+    except RuntimeError as e:        # no SDPA backward at these head dims
+        ot, library_error = None, str(e)[:300]
+    t = _time_pair(
+        lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=True,
+                                       scale=scale),
+        lambda: fa.flash_attention_bwd_ref(q, k, v, dout, causal=True,
+                                           scale=scale),
+        library,
+        pairs * 2.0 * (hd + hv + hv + hd + hd),
+        2 * (2 * B * S * H * hd + B * S * H * hv * 3) + 4 * B * H * S
+        + 2 * (2 * B * S * H * hd + B * S * H * hv), "bf16", 5)
+    rec = dict(t, shape=dict(B=B, S=S, H=H, Hkv=H, hd=hd, hd_v=hv,
+                             causal=True),
+               max_abs_err=max(e[0] for e in errs.values()),
+               errs={n: {"max_abs_err": e[0], "max_abs_ref": e[1]}
+                     for n, e in errs.items()},
+               bound_seven_products_ms=pairs * 2.0 * (2 * hd + 2 * hv + hv
+                                                      + 2 * hd)
+               / PEAK_OPS_PER_S["bf16"] * 1e3,
+               library_note="SDPA's backward through autograd "
+                            "(memory-efficient backend; the flash backend "
+                            "takes one head dim)",
+               library_error=library_error)
+    del q, kv, k, v, dout, o, lse, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _ssd_bwd_record() -> dict:
+    """B5 at Jamba-v0.1's train cell (B 1, T 4096: nc 32, Q 128, H 128, P 64,
+    N 16) in the model's bf16 inputs, and in fp32 inputs beside: dxs, dB,
+    dC, ddt, dda against the closed form and against autograd through the
+    plain forward, within TRAIN_TOL of each max|ref|; bound: the bytes of
+    the dtypes the kernel sees, or the products at the TF32 rate (as the
+    fp32 product rows are bounded), whichever is larger; the products at
+    the fp32 CUDA-core rate that this kernel uses beside, as
+    ``cuda_core_fp32_ms``; no library call computes it."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops
+
+    s = JAMBA_SSD
+    B, nc, Q, H, P, N = (s[k] for k in ("B", "nc", "Q", "H", "P", "N"))
+    out = {}
+    for tag, dtype, iters in (("bf16", torch.bfloat16, 10),
+                              ("fp32", torch.float32, 5)):
+        xs, Bm, Cm, dt, da, _ = _ssd_inputs(B, nc, Q, H, P, N, dtype, 21)
+        g = torch.Generator(device="cuda").manual_seed(22)
+        dy = torch.randn((B, nc, Q, H, P), generator=g, device="cuda")
+        dS = torch.randn((B, nc, H, N, P), generator=g, device="cuda")
+        ddec = torch.randn((B, nc, H), generator=g, device="cuda")
+        args = (xs, Bm, Cm, dt, da, dy, dS, ddec)
+        got = ops.ssd_intra_chunk_bwd(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for ref_name, ref in (("closed_form", ops.ssd_intra_chunk_bwd_ref),
+                              ("autograd", ops._plain_bwd)):
+            want = ref(*args)
+            for n, a, r in zip(("xs", "Bm", "Cm", "dt", "da"), got, want):
+                e = _rel_check(f"ssd_bwd {tag} d{n} vs {ref_name}", a, r,
+                               TRAIN_TOL)
+                errs[f"d{n}_vs_{ref_name}"] = {"max_abs_err": e[0],
+                                               "max_abs_ref": e[1]}
+            del want
+        elt = xs.element_size()
+        rows = B * nc * Q * H
+        nbytes = (rows * (P + 2 * N) * elt * 2 + rows * 4 * 4 + rows * P * 4
+                  + B * nc * H * (N * P + 1) * 4)
+        pairs = B * nc * H * Q * (Q + 1) // 2
+        flops = pairs * (4.0 * P + 6.0 * N + 10) + rows * 4.0 * N * P
+        rec = _time_pair(lambda: ops.ssd_intra_chunk_bwd(*args),
+                         lambda: ops.ssd_intra_chunk_bwd_ref(*args), None,
+                         flops, nbytes, "tf32", iters)
+        rec.update(shape=[B, nc, Q, H, P, N], dtype=tag,
+                   cuda_core_fp32_ms=flops / PEAK_OPS_PER_S["fp32"] * 1e3,
+                   max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                   errs=errs, bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   library_note="none: no PyTorch call computes it")
+        out[tag] = rec
+        del xs, Bm, Cm, dt, da, dy, dS, ddec, args, got
+        torch.cuda.empty_cache()
+    return dict(out["bf16"], fp32_inputs=out["fp32"])
 
 
 def phase_train(glm) -> dict:
@@ -3037,7 +3199,7 @@ def phase_train(glm) -> dict:
                               num_layers=TRAIN["layers"])
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep", n_slot=2),
                          cf_pair=4.0, cf_slot=4.0, dtype=torch.bfloat16,
-                         loss_chunks=TRAIN["loss_chunks"])
+                         loss_chunks=TRAIN["loss_chunks"], remat=False)
     pctx = ParallelCtx()
     params = init_lm(cfg, rcfg, pctx, torch.Generator(device="cuda")
                      .manual_seed(TRAIN["seed"]), device="cuda")
@@ -3091,7 +3253,7 @@ def phase_train(glm) -> dict:
                 seq=TRAIN["seq"], reduce=False, device="cuda",
                 dtype=torch.bfloat16, loss_chunks=TRAIN["loss_chunks"],
                 seed=TRAIN["seed"], log_every=TRAIN["steps"],
-                on_metrics=on_metrics, ckpt_every=0)
+                on_metrics=on_metrics, ckpt_every=0, remat=False)
     import math
     if not all(math.isfinite(v) for v in run.losses):
         raise AssertionError(f"train: a loss is not finite: {run.losses}")
@@ -3116,6 +3278,268 @@ def phase_train(glm) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return result
+
+
+# Phase 17: the train cells of ``launch/specs.py`` (``build_cell(arch,
+# "train_4k", ParallelCtx(), num_layers_override=layers)``) at every
+# published width, depth cut, global batch 1 x 4096, bf16, ``ultraep``,
+# per-layer remat, Adafactor, the loss in 8 chunks.  DeepSeek-V3: 3 dense
+# + 1 MoE layer (15.1 B parameters, 56.3 GiB of bf16 weights and
+# gradients); Jamba-v0.1: its first 8-layer period (7 Mamba layers, the
+# attention layer 4, MoE every other layer: 14.6 B).  Remat's saving is
+# measured on Jamba's first two layers (mamba+dense, mamba+moe), where
+# both fit.
+TRAIN_CELLS = {"deepseek-v3-671b": 4, "jamba-v0.1-52b": 8}
+REMAT_PEAK_CELL = ("jamba-v0.1-52b", 2)
+CELL_RUN = dict(batch=1, loss_chunks=8, steps=3, seed=0)
+# Launches of each wrapper in one step of each cell: every forward kernel
+# twice (the forward, and the recompute of the backward's remat), each
+# backward kernel once (B1 once, B2 twice, B3 three times a MoE layer; the
+# flash backward once an attention layer, at (192, 128) for DeepSeek-V3's
+# MLA and (128, 128) for Jamba's GQA; the SSD backward once a Mamba
+# layer); no plan solve (R = 1).
+def _cell_launches(moe, attn, mamba, dims):
+    return {"gating_topk": 2 * moe, "grouped_swiglu": 2 * moe,
+            "grouped_matmul": 2 * moe, "grouped_swiglu_bwd": moe,
+            "grouped_matmul_nt": 2 * moe, "grouped_wgrad": 3 * moe,
+            "flash_attention": 2 * attn,
+            "flash_attention.prefill_wgmma": 2 * attn,
+            "flash_attention_bwd": attn, f"flash_attention_bwd.{dims}": attn,
+            "ssd_intra_chunk": 2 * mamba, "ssd_intra_chunk_bwd": mamba,
+            "plan_solve": 0}
+
+
+CELL_LAUNCHES = {"deepseek-v3-671b": _cell_launches(1, 4, 0, "192x128"),
+                 "jamba-v0.1-52b": _cell_launches(4, 1, 7, "128x128")}
+
+
+def _recording_blocks():
+    """Patch ``transformer.block_apply`` to record each call's per-expert
+    counts; returns (calls, restore).  Under remat a step calls it once a
+    layer in the forward, then once a layer in the backward's recompute,
+    in reverse layer order (with the checkpoint's early stop off)."""
+    from repro_torch.models import transformer
+
+    orig = transformer.block_apply
+    calls = []
+
+    def rec(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append(out[3].detach().clone())
+        return out
+
+    transformer.block_apply = rec
+    return calls, lambda: setattr(transformer, "block_apply", orig)
+
+
+def _cell_check(tr, batch) -> dict:
+    """The cell's gradient of every parameter with the backward kernels
+    against the same step with ``plain_backward`` (the forward kernels
+    shared, so both route alike), within TRAIN_TOL of each max|ref|; the
+    kernel gradients wait on the host.  A second kernel run first: its
+    loss, counts and gradients against the first's bit for bit, which
+    says whether the step is deterministic and, if not, where; and the
+    remat recompute's counts against the forward's, layer by layer."""
+    import torch
+
+    from repro_torch.train.loop import loss_and_grads
+
+    cfg, rcfg, pctx = tr.cfg, tr.rcfg, tr.pctx
+    params, bias = tr.state.params, tr.state.router_bias
+    named = [n for n, _ in params.named_parameters()]
+    calls, restore = _recording_blocks()
+    _reset_launches()
+    try:
+        # The recompute runs each block to its end (no early stop), so the
+        # recorder sees its counts.
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            loss_k, drops_k, counts_k, grads = loss_and_grads(
+                params, batch, cfg, rcfg, pctx, router_bias=bias)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = _launches()
+    L = cfg.num_layers
+    if len(calls) != 2 * L:
+        raise AssertionError(f"remat: {len(calls)} block calls, want {2 * L}")
+    remat_mismatch = {i: int((calls[i] != calls[2 * L - 1 - i]).sum())
+                      for i in range(L)}
+    host = [g.to("cpu", non_blocking=True) for g in grads]
+    torch.cuda.synchronize()
+    del grads
+    for p in params.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    loss_2, _, counts_2, grads_2 = loss_and_grads(params, batch, cfg, rcfg,
+                                                  pctx, router_bias=bias)
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(named, host, grads_2)
+              if _max_err_pieces(n, a, b)[0] != 0.0]
+    again = {"loss_equal": bool(torch.equal(loss_k, loss_2)),
+             "counts_equal": bool(torch.equal(counts_k, counts_2)),
+             "params_differing": differ}
+    del grads_2
+    for p in params.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    loss_p, _, counts_p, grads_p = loss_and_grads(
+        params, batch, cfg, dataclasses.replace(rcfg, plain_backward=True),
+        pctx,
+        router_bias=bias)
+    torch.cuda.synchronize()
+    if not torch.equal(counts_p, counts_k):
+        raise AssertionError("cell check: the two runs routed differently")
+    errs = {}
+    for name, gk, gp in zip(named, host, grads_p):
+        err, scale = _max_err_pieces(name, gk, gp)
+        errs[name] = err / max(scale, 1e-30)
+    del grads_p, host
+    for p in params.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    bad = {n: e for n, e in errs.items() if not e <= TRAIN_TOL}
+    if bad or any(remat_mismatch.values()):
+        raise AssertionError(f"cell grads beyond {TRAIN_TOL} of max|ref|: "
+                             f"{bad}; remat count mismatches "
+                             f"{remat_mismatch}")
+    return {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "drops": int(drops_k), "worst": max(errs, key=errs.get),
+            "worst_rel_err": max(errs.values()),
+            "max_rel_err_by_param": errs, "launches": launches,
+            "remat_count_mismatches": sum(remat_mismatch.values()),
+            "remat_mismatch_by_layer": remat_mismatch,
+            "rerun": again}
+
+
+def _max_err_pieces(name, host, ref) -> tuple[float, float]:
+    """``_max_err`` of a host tensor against a device one, a slice of at
+    most 2^26 elements at a time (beside two sets of DeepSeek-V3's
+    gradients there is no room for an expert weight's fp32 copies); raises
+    if the host tensor holds a non-finite value."""
+    import torch
+
+    err = scale = 0.0
+    h, r = host.reshape(-1), ref.reshape(-1)
+    for lo in range(0, h.numel(), 1 << 26):
+        a = h[lo:lo + (1 << 26)].to(r.device)
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"cell grad {name} is not finite")
+        e, sc = _max_err(a, r[lo:lo + (1 << 26)])
+        err, scale = max(err, e), max(scale, sc)
+    return err, scale
+
+
+def _cell_peak(tr, batch, remat: bool) -> float:
+    """Peak device memory (GB) of one loss_and_grads of the cell, with the
+    state already resident."""
+    import torch
+
+    from repro_torch.train.loop import loss_and_grads
+
+    for p in tr.state.params.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss_and_grads(tr.state.params, batch, tr.cfg,
+                   dataclasses.replace(tr.rcfg, remat=remat), tr.pctx,
+                   router_bias=tr.state.router_bias)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for p in tr.state.params.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase_train_cells() -> dict:
+    """Phase 17: each train cell of TRAIN_CELLS on the card, from
+    ``build_cell`` (its runtime: bf16, remat, capacity factors 2.0; its
+    optimizer: Adafactor): (a) DeepSeek-V3 and (b) Jamba-v0.1 each get the
+    gradient check of :func:`_cell_check` (a model from
+    ``launch.train.build_cell_trainer``), then CELL_RUN["steps"] steps
+    through ``launch.train.train_cell(arch, "train_4k")`` (the Supervisor,
+    no checkpoints) with every loss finite and each step's launches as
+    CELL_LAUNCHES, the steps' host seconds and peak memory; (c) the remat
+    recompute's counts against the forward's (0 mismatches) in both, and
+    the peak memory of one forward and backward of REMAT_PEAK_CELL with
+    remat on and off."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import layer_kinds
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.launch.train import build_cell_trainer, train_cell
+    from repro_torch.models.transformer import ParallelCtx
+
+    def cell_trainer(arch, layers):
+        return build_cell_trainer(build_cell(
+            arch, "train_4k", ParallelCtx(), num_layers_override=layers,
+            rcfg_overrides={"loss_chunks": CELL_RUN["loss_chunks"]}),
+            batch=CELL_RUN["batch"], seed=CELL_RUN["seed"])
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {}
+    for arch, layers in TRAIN_CELLS.items():
+        free()
+        t0 = time.perf_counter()
+        tr = cell_trainer(arch, layers)
+        kinds, opt = layer_kinds(tr.cfg), type(tr.state.opt_state).__name__
+        check = _cell_check(tr, tr.batch(0))
+        check_s = time.perf_counter() - t0
+        del tr
+        free()
+        per_step = []
+
+        def on_metrics(step, m):
+            torch.cuda.synchronize()
+            per_step.append(_launches())
+            _reset_launches()
+
+        _reset_launches()
+        run = train_cell(arch, "train_4k", layers=layers,
+                         batch=CELL_RUN["batch"], steps=CELL_RUN["steps"],
+                         loss_chunks=CELL_RUN["loss_chunks"],
+                         seed=CELL_RUN["seed"], device="cuda",
+                         ckpt_every=0, log_every=CELL_RUN["steps"],
+                         on_metrics=on_metrics)
+        if not all(math.isfinite(v) for v in run.losses):
+            raise AssertionError(f"{arch} cell: a loss is not finite: "
+                                 f"{run.losses}")
+        want = CELL_LAUNCHES[arch]
+        for i, rec in enumerate(per_step):
+            bad = {k: (rec[k], n) for k, n in want.items() if rec[k] != n}
+            if bad:
+                raise AssertionError(f"{arch} cell step {i}: launches "
+                                     f"(seen, want) {bad}")
+        out[arch] = {
+            "layers": layers, "kinds": kinds, "params": run.params,
+            "optimizer": opt, "batch": CELL_RUN["batch"],
+            "seq": run.tokens_per_step // CELL_RUN["batch"],
+            "losses": run.losses, "step_s": run.step_s,
+            "step_s_median": run.step_s_median,
+            "tokens_per_s": run.tokens_per_s,
+            "peak_mem_gb": run.peak_mem / 1e9, "check_s": check_s,
+            "launches_per_step": per_step[-1], "grad_check": check}
+        _line(f"phase17_train_cell {arch}", {
+            k: v for k, v in out[arch].items() if k != "grad_check"}
+            | {"grad_check": {k: v for k, v in check.items()
+                              if k != "max_rel_err_by_param"}})
+        free()
+    arch, layers = REMAT_PEAK_CELL
+    tr = cell_trainer(arch, layers)
+    batch = tr.batch(0)
+    out["remat_peak_gb"] = {"arch": arch, "layers": layers,
+                            "on": _cell_peak(tr, batch, True),
+                            "off": _cell_peak(tr, batch, False)}
+    _line("phase17_remat_peak", out["remat_peak_gb"])
+    del tr, batch
+    free()
+    return out
 
 
 # Phase 16: the trainer on groups of two processes on the one card.  Cases:
@@ -3156,7 +3580,7 @@ def _group_cfgs(glm, cf):
         moe=dataclasses.replace(glm.moe, aux_loss_weight=0.0, use_bias=True))
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep", n_slot=2),
                          cf_pair=cf, cf_slot=cf, dtype=torch.bfloat16,
-                         loss_chunks=TRAIN_GROUP["loss_chunks"])
+                         loss_chunks=TRAIN_GROUP["loss_chunks"], remat=False)
     return cfg, rcfg
 
 
@@ -3306,7 +3730,7 @@ def _supervised(rank, mesh, glm, out_dir):
                     reduce=False, device="cuda", dtype=torch.bfloat16,
                     ckpt_dir=str(Path(out_dir) / f"ckpt_{tag}"),
                     ckpt_every=sv["every"], log_every=100, pctx=pctx,
-                    step_hook=hook, lr=1e-3,
+                    step_hook=hook, lr=1e-3, remat=False,
                     on_metrics=lambda s, m: seen.append((s, float(m["loss"]))))
         runs[tag] = {"steps": [s for s, _ in seen],
                      "losses": [v for _, v in seen],
@@ -3936,6 +4360,7 @@ def main() -> int:
     timed("phase15_balancers", phase_balancers)
     rack = timed("phase14_rack_tier", phase_rack_tier)
     timed("phase16_train_group", phase_train_group, glm)
+    cell_records = timed("phase17_train_cells", phase_train_cells)
     serves = {"glm45-106b-a12b": glm_serve,
               "glm45-106b-a12b-q8": glm_q8_serve,
               "glm45-106b-a12b-fp32": glm_fp32_serve,
@@ -4330,6 +4755,39 @@ def main() -> int:
             **{k: rec[k] for k in subs if k in rec},
             **{k: rec[k] for k in ("bmm_pair_ms", "library_note", "rows",
                                    "slots_with_rows", "dq") if k in rec}}))
+    # B4m and B5, with their launches in the last step of phase 17's
+    # DeepSeek-V3 and Jamba-v0.1 train cells.
+    cell_launches = {a: cell_records[a]["launches_per_step"]
+                     for a in TRAIN_CELLS}
+    rec = train_kernel_records["flash_attention_bwd.mla"]
+    kernels.append(_kernel_row(
+        "flash_attention_bwd.mla", "src/repro_torch/kernels/flash_attention/"
+        "csrc/flash_attention_bwd.cu", "src/repro/kernels/flash_attention/"
+        "kernel.py:84 (its backward at MLA's (192, 128); no pallas_call: XLA "
+        "differentiates src/repro/models/attention.py:252 through "
+        "flash_ref)", rec,
+        cell_launches["deepseek-v3-671b"]["flash_attention_bwd.192x128"], {
+            "head_dims": [192, 128],
+            "launches_by_path": {f"train_cell_{a}": n[
+                "flash_attention_bwd.192x128"]
+                for a, n in cell_launches.items()},
+            "errs": rec["errs"], "library_note": rec["library_note"],
+            "library_error": rec["library_error"],
+            "bound_seven_products_ms": rec["bound_seven_products_ms"]}))
+    rec = train_kernel_records["ssd_intra_chunk_bwd"]
+    kernels.append(_kernel_row(
+        "ssd_intra_chunk_bwd",
+        "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:66 (its backward; no "
+        "pallas_call: XLA differentiates the plain SSD path)", rec,
+        cell_launches["jamba-v0.1-52b"]["ssd_intra_chunk_bwd"], {
+            "dtype": rec["dtype"], "arithmetic": "fp32 CUDA cores",
+            "bytes_bound_ms": rec["bytes_bound_ms"],
+            "launches_by_path": {f"train_cell_{a}": n["ssd_intra_chunk_bwd"]
+                                 for a, n in cell_launches.items()},
+            "errs": rec["errs"], "library_note": rec["library_note"],
+            "fp32_inputs": {k: rec["fp32_inputs"][k] for k in
+                            keys + ("bytes_bound_ms",)}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

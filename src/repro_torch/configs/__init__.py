@@ -9,8 +9,10 @@ from repro_torch.configs import (  # noqa: F401
     tiny,
 )
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     ModelConfig,
     MoEArch,
+    ShapeSpec,
     SSMArch,
     get_config,
     layer_kinds,

@@ -2,8 +2,9 @@
 
 The port keeps its own copy of ``repro.configs.base`` (the port imports
 nothing of the JAX package): :class:`ModelConfig`, :class:`MoEArch`,
-:func:`layer_kinds` and the registry mirror it field for field, so a config
-built here describes the same model as the JAX one of the same name.
+:func:`layer_kinds`, :class:`ShapeSpec` with the ``SHAPES`` table and the
+registry mirror it field for field, so a config built here describes the
+same model as the JAX one of the same name.
 """
 
 from __future__ import annotations
@@ -11,8 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-__all__ = ["MoEArch", "SSMArch", "ModelConfig", "register", "get_config",
-           "list_archs", "layer_kinds"]
+__all__ = ["MoEArch", "SSMArch", "ModelConfig", "ShapeSpec", "SHAPES",
+           "register", "get_config", "list_archs", "layer_kinds"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +84,22 @@ class ModelConfig:
     @property
     def has_decode(self) -> bool:
         return self.causal
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:

@@ -7,8 +7,11 @@ round to nearest, ties to even (``torch.round``, as ``jnp.round``).  The
 int8 wire packs each row's fp32 scale, bitcast, into 4 trailing int8 lanes,
 so one ``(..., D + 4)`` buffer carries codes and scales together.
 
-Not ported: stochastic rounding (``key=``), which only the gradient
-compression of the training path uses.
+Stochastic rounding, ``floor(v + u)`` with ``u ~ U[0, 1)`` (the
+reference's ``key=`` branch, for gradients), takes an explicit
+``torch.Generator`` or the uniform ``noise`` itself in place of a
+``jax.random`` key: the two frameworks draw different numbers from one
+seed, so a test hands both the same draws.
 """
 
 from __future__ import annotations
@@ -43,10 +46,15 @@ def tensor_scale(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return torch.clamp(x.abs().max(), min=eps) / 127.0
 
 
-def encode_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def encode_int8(x: torch.Tensor, scale: torch.Tensor, *,
+                generator: torch.Generator | None = None,
+                noise: torch.Tensor | None = None) -> torch.Tensor:
     """``clip(round(x / scale), -127, 127)`` as int8, 0 where ``scale == 0``.
 
-    ``scale`` broadcasts against ``x`` (``(..., 1)`` per row).  The
+    ``scale`` broadcasts against ``x`` (``(..., 1)`` per row).  With
+    ``generator`` or ``noise`` (fp32 uniform draws on [0, 1) of ``x``'s
+    shape) the rounding is stochastic, ``floor(v + u)``: unbiased in
+    expectation, for gradients quantized without error feedback.  The
     arithmetic runs in place on one fp32 temporary, since at the wire's
     width each extra temporary is gigabytes.
     """
@@ -54,7 +62,14 @@ def encode_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     v = x.to(torch.float32) / torch.where(live, scale,
                                           torch.ones_like(scale))
     v.masked_fill_(~live, 0.0)
-    return v.round_().clamp_(-127, 127).to(torch.int8)
+    if noise is None and generator is not None:
+        noise = torch.rand(v.shape, generator=generator, dtype=torch.float32,
+                           device=v.device)
+    if noise is None:
+        v.round_()
+    else:
+        v.add_(noise).floor_()
+    return v.clamp_(-127, 127).to(torch.int8)
 
 
 def decode_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -69,11 +84,16 @@ def abs_max(x: torch.Tensor, dim: int) -> torch.Tensor:
                                     dtype=torch.float32)
 
 
-def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, *,
+                  generator: torch.Generator | None = None,
+                  noise: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 over the last axis: ``(q, scales)``, q int8 of
-    ``x.shape`` and scales fp32 of ``x.shape[:-1]``."""
+    ``x.shape`` and scales fp32 of ``x.shape[:-1]``; ``generator`` or
+    ``noise``: stochastic rounding (:func:`encode_int8`)."""
     scales = abs_max(x, -1) / 127.0
-    return encode_int8(x, scales[..., None]), scales
+    return encode_int8(x, scales[..., None], generator=generator,
+                       noise=noise), scales
 
 
 def dequantize_rows(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,16 @@
-// Flash attention backward for Hopper (sm_90a): GQA, bf16, head dim 128,
-// full sequences (the training step), causal or not.
+// Flash attention backward for Hopper (sm_90a): GQA, bf16, full sequences
+// (the training step), causal or not, at (q/k, v) head dims (128, 128) (B4)
+// and (192, 128) (B4m: DeepSeek-V3's MLA, nope 128 + rope 64, v 128).
 //
 // The JAX package has no backward kernel: it differentiates
 // repro/models/attention.py:flash_ref (the plain version of the Pallas
 // forward, repro/kernels/flash_attention/kernel.py:flash_fwd_pallas), so
 // the TPU gets its backward from XLA.  This is that backward as kernels:
-// from q, k, v (B, S, H or Hkv, 128), the forward's output o and its
-// gradient do (B, S, H, 128) and the forward's row logsumexp lse
-// (B, H, S, fp32, natural log; the TMA + wgmma forward writes it when
-// asked), it computes dq, dk, dv in bf16 with fp32 accumulation:
+// from q, k (B, S, H or Hkv, HDK), v (B, S, Hkv, HDV), the forward's
+// output o and its gradient do (B, S, H, HDV) and the forward's row
+// logsumexp lse (B, H, S, fp32, natural log; the TMA + wgmma forward
+// writes it when asked), it computes dq, dk, dv in bf16 with fp32
+// accumulation:
 //   P = exp(scale q k^T - lse), dP = do v^T, D = rowsum(do o),
 //   dS = P (dP - D), dq = scale dS k, dk = scale dS^T q, dv = P^T do.
 //
@@ -16,7 +18,9 @@
 // size where the forward has two (causal, B 2, S 4096, 32 heads: 0.69
 // TFLOP of causal pairs, 0.69 ms at 989 TFLOP/s), against 0.2 GB of bytes.
 // These kernels do seven (S and dP twice, so that dq needs no atomics):
-// 0.97 ms at that rate.
+// 0.97 ms at that rate.  At (192, 128), B 1, S 4096, 128 heads: a causal
+// pair costs 2 (192 + 128 + 128 + 192 + 192) flops for the five products,
+// 1.79 TFLOP, 1.81 ms (2.50 ms for the seven the kernels do).
 //
 // Precision: P and dS are rounded to bf16 as the A operands of their
 // products, as the forward rounds P for P v.
@@ -49,8 +53,8 @@
 //          N-major through the transpose bit) in flight while
 //          dS^T = P^T (dP^T - D) is formed the same way, then
 //          dk += dS^T q.
-//      dk and dv stay in registers (128 a thread) over the whole group and
-//      are written once.
+//      dk and dv stay in registers (128 a thread at (128, 128)) over the
+//      whole group and are written once.
 //   3. bwd_dq_kernel: one block per (128-query tile, query head, batch
 //      row), the heaviest (last, causal) query tiles first.  The producer
 //      loads q and do once and streams 128-key tiles of K and V up to the
@@ -63,8 +67,15 @@
 // the diagonal (masked to 0): a branch around the products made ptxas
 // serialise them (C7520), which cost more than the few masked tiles.
 // Registers: setmaxnreg gives each consumer thread 240 and the producer 24
-// (384 threads, one block an SM at 195 KB of shared memory); ptxas
-// reports no spills.
+// (384 threads, one block an SM at 195 KB of shared memory at (128, 128));
+// ptxas reports no spills.
+// (192, 128): the q and K rows are three 64-column boxes, do and V two.
+// dk alone then holds 96 fp32 a thread, dk and dv 160, so the dK/dV pass
+// streams 32-query tiles (S^T and dP^T m64n32, 16 values each: 208 live
+// accumulator and fragment registers of the 240) through a 6-stage ring of
+// 20 KB; the dQ pass streams 64-key tiles (K 24 KB + V 16 KB a stage,
+// 3 stages) beside its resident q and do (80 KB), where 128-key stages
+// would need 240 KB of the SM's 227.  dk and dq are m64n192 products.
 // Not yet: what bounds the two main kernels is not measured.  Each block
 // reads its streamed tiles from L2 (dq: K and V per 128 x 128 tile of
 // pairs; dk/dv: q and do per 128 x 64), and TMA multicast across a
@@ -84,25 +95,44 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int HD = 128;
+constexpr int HDV_PREP = 128;                // v head dim of every pair
 constexpr int CONSUMERS = 2;                 // warpgroups of 64 rows
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int ROWS = 64 * CONSUMERS;         // resident rows a block
-constexpr int STREAM = 64;                   // streamed queries a dkdv stage
-constexpr int STAGES = 4;                    // dkdv ring
-constexpr int DQ_STAGES = 2;                 // dq ring: 128 keys a stage
 constexpr int RES_BOX = ROWS * 128;          // 64 columns x 128 rows: 16 KB
-constexpr int RES_TILE = 2 * RES_BOX;        // 128 rows x 128 dims: 32 KB
-constexpr int STR_BOX = STREAM * 128;        // 64 columns x 64 rows: 8 KB
-constexpr int STR_TILE = 2 * STR_BOX;        // 64 rows x 128 dims: 16 KB
-constexpr int STAT_BYTES = 2 * STREAM * 4;   // lse2 and D of one tile
-constexpr int RING = STAGES * 2 * STR_TILE;
-static_assert(DQ_STAGES * 2 * RES_TILE <= RING, "dq ring above the ring");
-constexpr int BAR_BYTES = 8 * (1 + 2 * STAGES);
-constexpr int SMEM_BYTES =
-    1024 + 2 * RES_TILE + RING + STAGES * STAT_BYTES + BAR_BYTES;
-static_assert(SMEM_BYTES <= 232448, "above a block's shared memory");
+constexpr int PAD = 64;                      // workspace rows pad to this
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Tile shapes and shared memory of the pair (HDK, HDV): q / K rows are
+// BK 64-column boxes, do / V rows BV.  The dK/dV pass streams STREAM
+// queries a stage through STAGES stages; the dQ pass KT keys a stage
+// through DQ_STAGES.
+template <int HDK, int HDV>
+struct Cfg {
+  static_assert(HDV == HDV_PREP && (HDK == 128 || HDK == 192),
+                "the backward takes (128, 128) and (192, 128)");
+  static constexpr int BK = HDK / 64, BV = HDV / 64;
+  static constexpr int STREAM = HDK == 128 ? 64 : 32;
+  static constexpr int STAGES = HDK == 128 ? 4 : 6;
+  static constexpr int KT = HDK == 128 ? 128 : 64;
+  static constexpr int DQ_STAGES = HDK == 128 ? 2 : 3;
+  static constexpr int RES_BYTES = (BK + BV) * RES_BOX;
+  static constexpr int STR_BOX = STREAM * 128;
+  static constexpr int STR_STAGE = (BK + BV) * STR_BOX;
+  static constexpr int KT_BOX = KT * 128;
+  static constexpr int KT_STAGE = (BK + BV) * KT_BOX;
+  static constexpr int RING = STAGES * STR_STAGE > DQ_STAGES * KT_STAGE
+                                  ? STAGES * STR_STAGE
+                                  : DQ_STAGES * KT_STAGE;
+  static constexpr int STAT_BYTES = 2 * STREAM * 4;   // lse2 and D of a tile
+  static constexpr int MAX_STAGES = STAGES > DQ_STAGES ? STAGES : DQ_STAGES;
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * MAX_STAGES);
+  static constexpr int SMEM_BYTES =
+      1024 + RES_BYTES + RING + STAGES * STAT_BYTES + BAR_BYTES;
+  static_assert(SMEM_BYTES <= 232448, "above a block's shared memory");
+  static_assert(STREAM % 16 == 0 && KT % 16 == 0 && ROWS % KT == 0,
+                "tiles of whole k16 slices");
+};
 
 struct Bwd {
   const bf16 *o, *dout;
@@ -121,17 +151,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Shared memory: 1024-aligned resident tiles, the ring, the stats, the
-// barriers (one-shot, full[STAGES], empty[STAGES]).
+// barriers (one-shot, full[stages], empty[stages]).
+template <typename C>
 struct Smem {
   uint32_t res, ring, stats, bar, full0, empty0;
   __device__ explicit Smem(unsigned char* raw) {
     const uint32_t base = (smem_u32(raw) + 1023) & ~1023u;
     res = base;
-    ring = res + 2 * RES_TILE;
-    stats = ring + RING;
-    bar = stats + STAGES * STAT_BYTES;
+    ring = res + C::RES_BYTES;
+    stats = ring + C::RING;
+    bar = stats + C::STAGES * C::STAT_BYTES;
     full0 = bar + 8;
-    empty0 = full0 + 8 * STAGES;
+    empty0 = full0 + 8 * C::MAX_STAGES;
   }
   __device__ void init(int stages) const {
     if (threadIdx.x == 0) {
@@ -158,12 +189,13 @@ __device__ __forceinline__ uint64_t ndesc(uint32_t tile, int kk, int box) {
   return desc_sw128(tile + kk * 2048, box, 1024);
 }
 
-// Write 64 rows x 128 of an fp32 accumulator (m64n128 layout), times
-// `mul`, as bf16 rows at dst(r) for each row r of the warpgroup below
-// `limit` (r counted from the warpgroup's first row `r0`).
-template <typename RowPtr>
-__device__ __forceinline__ void store_acc(const float (&acc)[64], float mul,
-                                          int r0, int limit, RowPtr dst) {
+// Write 64 rows x N of an fp32 accumulator (m64nN layout), times `mul`,
+// as bf16 rows at dst(r) for each row r of the warpgroup below `limit`
+// (r counted from the warpgroup's first row `r0`).
+template <int N, typename RowPtr>
+__device__ __forceinline__ void store_acc(const float (&acc)[N / 2],
+                                          float mul, int r0, int limit,
+                                          RowPtr dst) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32 % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -171,7 +203,7 @@ __device__ __forceinline__ void store_acc(const float (&acc)[64], float mul,
     if (r >= limit) continue;
     bf16* p = dst(r) + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
   }
@@ -187,7 +219,7 @@ __global__ void __launch_bounds__(256) bwd_prep_kernel(const Bwd a) {
   if (s < a.S) {
     const int h = static_cast<int>(bh % a.H);
     const long long b = bh / a.H;
-    const long long at = ((b * a.S + s) * a.H + h) * HD + lane * 4;
+    const long long at = ((b * a.S + s) * a.H + h) * HDV_PREP + lane * 4;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float2 o = __bfloat1622float2(
@@ -205,14 +237,16 @@ __global__ void __launch_bounds__(256) bwd_prep_kernel(const Bwd a) {
   }
 }
 
-template <bool CAUSAL>
+template <int HDK, int HDV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_do,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v, const Bwd a) {
+  using C = Cfg<HDK, HDV>;
+  constexpr int STREAM = C::STREAM, STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
-  const Smem sm(smem_raw);
+  const Smem<C> sm(smem_raw);
   const int per = a.Hkv * a.B;
   const int kt = static_cast<int>(blockIdx.x / per);   // heaviest first
   const int hkv = static_cast<int>(blockIdx.x % per) % a.Hkv;
@@ -220,7 +254,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int k0 = kt * ROWS;
   const int n_qt = (a.S + STREAM - 1) / STREAM;
   const int qt0 = CAUSAL ? k0 / STREAM : 0;
-  const uint32_t k_u = sm.res, v_u = sm.res + RES_TILE;
+  const uint32_t k_u = sm.res, v_u = sm.res + C::BK * RES_BOX;
   sm.init(STAGES);
 
   const int wg = threadIdx.x / 128;
@@ -228,12 +262,13 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer: one thread loads K, V once and keeps the ring full.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == CONSUMERS * 128) {
-      mbar_expect_tx(sm.bar, 2 * RES_TILE);
+      mbar_expect_tx(sm.bar, C::RES_BYTES);
 #pragma unroll
-      for (int x = 0; x < 2; ++x) {
+      for (int x = 0; x < C::BK; ++x)
         tma_load_4d(k_u + x * RES_BOX, &map_k, sm.bar, x * 64, hkv, k0, b);
+#pragma unroll
+      for (int x = 0; x < C::BV; ++x)
         tma_load_4d(v_u + x * RES_BOX, &map_v, sm.bar, x * 64, hkv, k0, b);
-      }
       int stage = 0;
       uint32_t phase = 0;
       for (int h = hkv * a.G; h < (hkv + 1) * a.G; ++h) {
@@ -241,16 +276,17 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int qt = qt0; qt < n_qt; ++qt) {
           mbar_wait(sm.empty0 + 8 * stage, phase ^ 1);
           const uint32_t full = sm.full0 + 8 * stage;
-          const uint32_t q_u = sm.ring + stage * 2 * STR_TILE;
-          const uint32_t s_u = sm.stats + stage * STAT_BYTES;
-          mbar_expect_tx(full, 2 * STR_TILE + STAT_BYTES);
+          const uint32_t q_u = sm.ring + stage * C::STR_STAGE;
+          const uint32_t s_u = sm.stats + stage * C::STAT_BYTES;
+          mbar_expect_tx(full, C::STR_STAGE + C::STAT_BYTES);
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            tma_load_4d(q_u + x * STR_BOX, &map_q, full, x * 64, h,
+          for (int x = 0; x < C::BK; ++x)
+            tma_load_4d(q_u + x * C::STR_BOX, &map_q, full, x * 64, h,
                         qt * STREAM, b);
-            tma_load_4d(q_u + STR_TILE + x * STR_BOX, &map_do, full, x * 64,
-                        h, qt * STREAM, b);
-          }
+#pragma unroll
+          for (int x = 0; x < C::BV; ++x)
+            tma_load_4d(q_u + (C::BK + x) * C::STR_BOX, &map_do, full,
+                        x * 64, h, qt * STREAM, b);
           bulk_load(s_u, st + qt * STREAM, STREAM * 4, full);
           bulk_load(s_u + STREAM * 4, st + a.ws_half + qt * STREAM,
                     STREAM * 4, full);
@@ -267,41 +303,45 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t ka = k_u + wg * 64 * 128, va = v_u + wg * 64 * 128;
     const float* stats = reinterpret_cast<const float*>(
         smem_raw + (sm.stats - smem_u32(smem_raw)));
-    float dk[64], dv[64];
+    float dk[HDK / 2], dv[HDV / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < HDK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < HDV / 2; ++i) dv[i] = 0.f;
     mbar_wait(sm.bar, 0);
     int stage = 0;
     uint32_t phase = 0;
     for (int it = 0; it < a.G * (n_qt - qt0); ++it) {
       const int q0 = (qt0 + it % (n_qt - qt0)) * STREAM;
       mbar_wait(sm.full0 + 8 * stage, phase);
-      const uint32_t q_u = sm.ring + stage * 2 * STR_TILE;
-      const uint32_t do_u = q_u + STR_TILE;
+      const uint32_t q_u = sm.ring + stage * C::STR_STAGE;
+      const uint32_t do_u = q_u + C::BK * C::STR_BOX;
       const float* lse2 = stats + stage * 2 * STREAM;
       const float* dl = lse2 + STREAM;
-      // S^T = K q^T, dP^T = V do^T: 64 keys x 64 queries; value 4 j + e
+      // S^T = K q^T, dP^T = V do^T: 64 keys x STREAM queries; value 4 j + e
       // at key key_r + 8 (e / 2), query q0 + 8 j + 2 tq + e % 2.
-      float s[32], dp[32];
+      float s[STREAM / 2], dp[STREAM / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      for (int i = 0; i < STREAM / 2; ++i) s[i] = dp[i] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss_n64(s, kdesc(ka, kk, RES_BOX), kdesc(q_u, kk, STR_BOX));
+      for (int kk = 0; kk < HDK / 16; ++kk)
+        wgmma_ss<STREAM>(s, kdesc(ka, kk, RES_BOX),
+                         kdesc(q_u, kk, C::STR_BOX));
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss_n64(dp, kdesc(va, kk, RES_BOX), kdesc(do_u, kk, STR_BOX));
+      for (int kk = 0; kk < HDV / 16; ++kk)
+        wgmma_ss<STREAM>(dp, kdesc(va, kk, RES_BOX),
+                         kdesc(do_u, kk, C::STR_BOX));
       wgmma_commit();
       // P^T (in place of S^T) while dP^T is in flight, in bf16 A
-      // fragments of four 16-query slices.
+      // fragments of 16-query slices.
       wgmma_wait<1>();
       fence_regs(s);
       const bool diag = CAUSAL && kw0 + 63 > q0;
-      uint32_t pa[4][4], da[4][4];
+      uint32_t pa[STREAM / 16][4], da[STREAM / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < STREAM / 16; ++kk) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const int qi = 16 * kk + 8 * (e / 4) + 2 * tq + (e & 1);
@@ -316,13 +356,13 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       // dv += P^T do, in flight while dS^T is computed.
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_n128(dv, pa[kk], ndesc(do_u, kk, STR_BOX));
+      for (int kk = 0; kk < STREAM / 16; ++kk)
+        wgmma_rs<HDV>(dv, pa[kk], ndesc(do_u, kk, C::STR_BOX));
       wgmma_commit();
       wgmma_wait<1>();                             // dP^T has landed
       fence_regs(dp);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < STREAM / 16; ++kk) {
         float ds[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
@@ -336,8 +376,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       // dk += dS^T q (scaled at the end).
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_n128(dk, da[kk], ndesc(q_u, kk, STR_BOX));
+      for (int kk = 0; kk < STREAM / 16; ++kk)
+        wgmma_rs<HDK>(dk, da[kk], ndesc(q_u, kk, C::STR_BOX));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -345,23 +385,26 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       if (lane == 0) mbar_arrive(sm.empty0 + 8 * stage);
       if (++stage == STAGES) { stage = 0; phase ^= 1; }
     }
-    const long long kstep = static_cast<long long>(a.Hkv) * HD;
-    const long long kbase = (static_cast<long long>(b) * a.S * a.Hkv + hkv) * HD;
-    store_acc(dk, a.scale, kw0, a.S,
-              [&](int r) { return a.dk + kbase + r * kstep; });
-    store_acc(dv, 1.f, kw0, a.S,
-              [&](int r) { return a.dv + kbase + r * kstep; });
+    const long long row0 = static_cast<long long>(b) * a.S * a.Hkv + hkv;
+    store_acc<HDK>(dk, a.scale, kw0, a.S, [&](int r) {
+      return a.dk + (row0 + static_cast<long long>(r) * a.Hkv) * HDK;
+    });
+    store_acc<HDV>(dv, 1.f, kw0, a.S, [&](int r) {
+      return a.dv + (row0 + static_cast<long long>(r) * a.Hkv) * HDV;
+    });
   }
 }
 
-template <bool CAUSAL>
+template <int HDK, int HDV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_do,
               const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v, const Bwd a) {
+  using C = Cfg<HDK, HDV>;
+  constexpr int KT = C::KT, DQ_STAGES = C::DQ_STAGES;
   extern __shared__ unsigned char smem_raw[];
-  const Smem sm(smem_raw);
+  const Smem<C> sm(smem_raw);
   const int n_qt = (a.S + ROWS - 1) / ROWS;
   const int per = a.H * a.B;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / per);  // heaviest first
@@ -369,8 +412,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int b = static_cast<int>(blockIdx.x % per) / a.H;
   const int hkv = h / a.G;
   const int q0 = qt * ROWS;
-  const int n_kt = CAUSAL ? qt + 1 : n_qt;          // 128-key tiles
-  const uint32_t q_u = sm.res, do_u = sm.res + RES_TILE;
+  const int n_kt = CAUSAL ? (q0 + ROWS) / KT : (a.S + KT - 1) / KT;
+  const uint32_t q_u = sm.res, do_u = sm.res + C::BK * RES_BOX;
   sm.init(DQ_STAGES);
 
   const int wg = threadIdx.x / 128;
@@ -378,26 +421,28 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer: one thread loads q, do once and keeps the ring full.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == CONSUMERS * 128) {
-      mbar_expect_tx(sm.bar, 2 * RES_TILE);
+      mbar_expect_tx(sm.bar, C::RES_BYTES);
 #pragma unroll
-      for (int x = 0; x < 2; ++x) {
+      for (int x = 0; x < C::BK; ++x)
         tma_load_4d(q_u + x * RES_BOX, &map_q, sm.bar, x * 64, h, q0, b);
+#pragma unroll
+      for (int x = 0; x < C::BV; ++x)
         tma_load_4d(do_u + x * RES_BOX, &map_do, sm.bar, x * 64, h, q0, b);
-      }
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < n_kt; ++t) {
         mbar_wait(sm.empty0 + 8 * stage, phase ^ 1);
         const uint32_t full = sm.full0 + 8 * stage;
-        const uint32_t k_u = sm.ring + stage * 2 * RES_TILE;
-        mbar_expect_tx(full, 2 * RES_TILE);
+        const uint32_t k_u = sm.ring + stage * C::KT_STAGE;
+        mbar_expect_tx(full, C::KT_STAGE);
 #pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          tma_load_4d(k_u + x * RES_BOX, &map_k, full, x * 64, hkv, t * ROWS,
+        for (int x = 0; x < C::BK; ++x)
+          tma_load_4d(k_u + x * C::KT_BOX, &map_k, full, x * 64, hkv, t * KT,
                       b);
-          tma_load_4d(k_u + RES_TILE + x * RES_BOX, &map_v, full, x * 64,
-                      hkv, t * ROWS, b);
-        }
+#pragma unroll
+        for (int x = 0; x < C::BV; ++x)
+          tma_load_4d(k_u + (C::BK + x) * C::KT_BOX, &map_v, full, x * 64,
+                      hkv, t * KT, b);
         if (++stage == DQ_STAGES) { stage = 0; phase ^= 1; }
       }
     }
@@ -417,38 +462,38 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       dl[i] = r < a.S ? a.ws[a.ws_half + st + r] : 0.f;
     }
     const uint32_t qa = q_u + wg * 64 * 128, doa = do_u + wg * 64 * 128;
-    float dq[64];
+    float dq[HDK / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int i = 0; i < HDK / 2; ++i) dq[i] = 0.f;
     mbar_wait(sm.bar, 0);
     int stage = 0;
     uint32_t phase = 0;
     for (int t = 0; t < n_kt; ++t) {
-      const int k0 = t * ROWS;
+      const int k0 = t * KT;
       mbar_wait(sm.full0 + 8 * stage, phase);
-      const uint32_t k_u = sm.ring + stage * 2 * RES_TILE;
-      const uint32_t v_u = k_u + RES_TILE;
-      // S = q K^T, dP = do V^T: 64 queries x 128 keys; value 4 j + e at
+      const uint32_t k_u = sm.ring + stage * C::KT_STAGE;
+      const uint32_t v_u = k_u + C::BK * C::KT_BOX;
+      // S = q K^T, dP = do V^T: 64 queries x KT keys; value 4 j + e at
       // query row_r + 8 (e / 2), key k0 + 8 j + 2 tq + e % 2.
-      float s[64], dp[64];
+      float s[KT / 2], dp[KT / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] = dp[i] = 0.f;
+      for (int i = 0; i < KT / 2; ++i) s[i] = dp[i] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss_n128(s, kdesc(qa, kk, RES_BOX), kdesc(k_u, kk, RES_BOX));
+      for (int kk = 0; kk < HDK / 16; ++kk)
+        wgmma_ss<KT>(s, kdesc(qa, kk, RES_BOX), kdesc(k_u, kk, C::KT_BOX));
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss_n128(dp, kdesc(doa, kk, RES_BOX), kdesc(v_u, kk, RES_BOX));
+      for (int kk = 0; kk < HDV / 16; ++kk)
+        wgmma_ss<KT>(dp, kdesc(doa, kk, RES_BOX), kdesc(v_u, kk, C::KT_BOX));
       wgmma_commit();
       // P (in place of S) while dP is in flight; masks on the diagonal
       // tile (a tile wholly above it gives P = 0) and on keys past S.
       wgmma_wait<1>();
       fence_regs(s);
-      const bool mask = (CAUSAL && k0 + ROWS - 1 > qw0) || k0 + ROWS > a.S;
+      const bool mask = (CAUSAL && k0 + KT - 1 > qw0) || k0 + KT > a.S;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KT / 16; ++kk)
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const int i = (e >> 1) & 1;
@@ -460,9 +505,9 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         }
       wgmma_wait<0>();
       fence_regs(dp);
-      uint32_t da[8][4];
+      uint32_t da[KT / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < KT / 16; ++kk) {
         float ds[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e)
@@ -474,48 +519,93 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       // dq += dS K (scaled at the end).
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs_n128(dq, da[kk], ndesc(k_u, kk, RES_BOX));
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_rs<HDK>(dq, da[kk], ndesc(k_u, kk, C::KT_BOX));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
       if (lane == 0) mbar_arrive(sm.empty0 + 8 * stage);
       if (++stage == DQ_STAGES) { stage = 0; phase ^= 1; }
     }
-    const long long qstep = static_cast<long long>(a.H) * HD;
-    const long long qbase = (static_cast<long long>(b) * a.S * a.H + h) * HD;
-    store_acc(dq, a.scale, qw0, a.S,
-              [&](int r) { return a.dq + qbase + r * qstep; });
+    const long long row0 = static_cast<long long>(b) * a.S * a.H + h;
+    store_acc<HDK>(dq, a.scale, qw0, a.S, [&](int r) {
+      return a.dq + (row0 + static_cast<long long>(r) * a.H) * HDK;
+    });
   }
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, long long blocks, const CUtensorMap (&m)[4],
-           const Bwd& a, cudaStream_t s) {
+int launch(Kernel kernel, long long blocks, int smem,
+           const CUtensorMap (&m)[4], const Bwd& a, cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, s>>>(
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(
       m[0], m[1], m[2], m[3], a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor maps and the two main kernels of the pair (HDK, HDV).
+template <int HDK, int HDV>
+int run(const void* q, const void* k, const void* v, const Bwd& a,
+        bool causal, cudaStream_t s) {
+  using C = Cfg<HDK, HDV>;
+  const int B = a.B, S = a.S, H = a.H, Hkv = a.Hkv;
+  const long long sq = static_cast<long long>(H) * HDK;
+  const long long sdo = static_cast<long long>(H) * HDV;
+  const long long sk = static_cast<long long>(Hkv) * HDK;
+  const long long sv = static_cast<long long>(Hkv) * HDV;
+  // dkdv streams STREAM queries and holds ROWS keys; dq holds ROWS
+  // queries and streams KT keys.
+  CUtensorMap m_dkdv[4], m_dq[4];
+  int err = make_map_4d(&m_dkdv[0], q, HDK, H, S, B, HDK, sq, S * sq, 1,
+                        C::STREAM);
+  if (!err)
+    err = make_map_4d(&m_dkdv[1], a.dout, HDV, H, S, B, HDV, sdo, S * sdo, 1,
+                      C::STREAM);
+  if (!err)
+    err = make_map_4d(&m_dkdv[2], k, HDK, Hkv, S, B, HDK, sk, S * sk, 1, ROWS);
+  if (!err)
+    err = make_map_4d(&m_dkdv[3], v, HDV, Hkv, S, B, HDV, sv, S * sv, 1, ROWS);
+  if (!err)
+    err = make_map_4d(&m_dq[0], q, HDK, H, S, B, HDK, sq, S * sq, 1, ROWS);
+  if (!err)
+    err = make_map_4d(&m_dq[1], a.dout, HDV, H, S, B, HDV, sdo, S * sdo, 1,
+                      ROWS);
+  if (!err)
+    err = make_map_4d(&m_dq[2], k, HDK, Hkv, S, B, HDK, sk, S * sk, 1, C::KT);
+  if (!err)
+    err = make_map_4d(&m_dq[3], v, HDV, Hkv, S, B, HDV, sv, S * sv, 1, C::KT);
+  if (err) return err;
+  const long long tiles = (S + ROWS - 1) / ROWS;
+  err = launch(causal ? bwd_dkdv_kernel<HDK, HDV, true>
+                      : bwd_dkdv_kernel<HDK, HDV, false>,
+               tiles * Hkv * B, C::SMEM_BYTES, m_dkdv, a, s);
+  if (err) return err;
+  return launch(causal ? bwd_dq_kernel<HDK, HDV, true>
+                       : bwd_dq_kernel<HDK, HDV, false>,
+                tiles * H * B, C::SMEM_BYTES, m_dq, a, s);
+}
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  q, o, do, dq: (B, S, H, 128);
-// k, v, dk, dv: (B, S, Hkv, 128); all bf16 and contiguous.  lse: (B, H, S)
-// fp32 from the forward; ws: an fp32 workspace of 2 B H S64 floats,
-// S64 = S rounded up to 64 (16-byte aligned).  Launches the three kernels
-// on `stream`, does not synchronise, and returns the first failure's code
-// (0 = launched; 1000 and up: a tensor map could not be made).
+// Plain C entry point, bound with ctypes.  q, dq: (B, S, H, hdk); o, do:
+// (B, S, H, hdv); k, dk: (B, S, Hkv, hdk); v, dv: (B, S, Hkv, hdv); all
+// bf16 and contiguous; (hdk, hdv) is (128, 128) or (192, 128).  lse:
+// (B, H, S) fp32 from the forward; ws: an fp32 workspace of 2 B H S64
+// floats, S64 = S rounded up to 64 (16-byte aligned).  Launches the three
+// kernels on `stream`, does not synchronise, and returns the first
+// failure's code (0 = launched; 1000 and up: a tensor map could not be
+// made).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, int B, int S, int H, int Hkv, int causal, float scale,
-    void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || B > 65535)
+    void* dv, int B, int S, int H, int Hkv, int hdk, int hdv, int causal,
+    float scale, void* stream) {
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || B > 65535 ||
+      hdv != HDV_PREP || (hdk != 128 && hdk != 192))
     return static_cast<int>(cudaErrorInvalidValue);
   Bwd a;
   a.o = static_cast<const bf16*>(o);
@@ -527,7 +617,7 @@ extern "C" int flash_attention_bwd_launch(
   a.dv = static_cast<bf16*>(dv);
   a.B = B;
   a.S = S;
-  a.S64 = (S + STREAM - 1) / STREAM * STREAM;
+  a.S64 = (S + PAD - 1) / PAD * PAD;
   a.H = H;
   a.Hkv = Hkv;
   a.G = H / Hkv;
@@ -536,32 +626,11 @@ extern "C" int flash_attention_bwd_launch(
   a.ws_half = static_cast<long long>(B) * H * a.S64;
   // The prep kernel first: the runtime's launch makes the device's primary
   // context current on this thread (autograd runs a backward on a thread
-  // of its own), which the tensor-map encoder below needs.
+  // of its own), which the tensor-map encoder needs.
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bwd_prep_kernel<<<static_cast<unsigned>((a.ws_half + 7) / 8), 256, 0, s>>>(a);
-  int err = static_cast<int>(cudaGetLastError());
+  const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  // Tensor maps: q, do, k, v with the boxes of each kernel (dkdv streams
-  // 64 queries and holds 128 keys; dq holds 128 queries and streams 128
-  // keys).
-  const long long sq = static_cast<long long>(H) * HD;
-  const long long sk = static_cast<long long>(Hkv) * HD;
-  CUtensorMap m_dkdv[4], m_dq[4];
-  for (int i = 0; i < 2 && !err; ++i) {
-    const void* qd = i == 0 ? q : dout;
-    err = make_map_4d(&m_dkdv[i], qd, HD, H, S, B, HD, sq, S * sq, 1, STREAM);
-    if (!err)
-      err = make_map_4d(&m_dq[i], qd, HD, H, S, B, HD, sq, S * sq, 1, ROWS);
-    if (!err)
-      err = make_map_4d(&m_dkdv[2 + i], i == 0 ? k : v, HD, Hkv, S, B, HD, sk,
-                        S * sk, 1, ROWS);
-    m_dq[2 + i] = m_dkdv[2 + i];
-  }
-  if (err) return err;
-  const long long k_tiles = (S + ROWS - 1) / ROWS;
-  err = launch(causal ? bwd_dkdv_kernel<true> : bwd_dkdv_kernel<false>,
-               k_tiles * Hkv * B, m_dkdv, a, s);
-  if (err) return err;
-  return launch(causal ? bwd_dq_kernel<true> : bwd_dq_kernel<false>,
-                k_tiles * H * B, m_dq, a, s);
+  return hdk == 128 ? run<128, 128>(q, k, v, a, causal != 0, s)
+                    : run<192, 128>(q, k, v, a, causal != 0, s);
 }

@@ -61,9 +61,11 @@ each row's logsumexp beside the output, and the backward is
 q, k, v, the output, its gradient and the logsumexp; dk and dv summed over
 each KV head's query heads in one block, dq from a second pass that
 recomputes S and dP, so no atomics: the same bits on every run), counted
-in ``flash_attention_bwd.launches``.  Both take bf16 at head dim 128 only
-and raise a ``ValueError`` naming anything else (fp32, MLA's (192, 128),
-64, 16) before any launch.  The JAX package has no backward kernel: XLA
+in ``flash_attention_bwd.launches`` (and by head-dim pair in
+``flash_attention_bwd.launches_by_dims``).  Both take bf16 at the (q/k, v)
+head dims of ``BWD_HEAD_DIMS``, (128, 128) and MLA's (192, 128), and raise
+a ``ValueError`` naming anything else (fp32, 64, 16, 80) before any
+launch.  The JAX package has no backward kernel: XLA
 differentiates ``flash_ref``.  The plain version of the backward,
 ``flash_attention_bwd_ref``, is autograd through ``flash_attention_ref``
 (recomputed): the CPU's backward, and the card's under
@@ -84,7 +86,7 @@ from repro_torch.kernels.build import KernelLibrary
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "plan_launch", "Plan", "HEAD_DIMS",
-           "KERNELS", "LIBRARY", "LIBRARY_BWD"]
+           "BWD_HEAD_DIMS", "KERNELS", "LIBRARY", "LIBRARY_BWD"]
 
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).parent / "csrc" / "flash_attention.cu")
@@ -377,44 +379,69 @@ flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 # ---------------------------------------------------------------- backward
 
-BWD_HEAD_DIM = 128
+# (q/k, v) head dims the backward kernel takes, all in bf16: the GQA
+# models' 128 and DeepSeek-V3's MLA (nope 128 + rope 64, v 128).
+BWD_HEAD_DIMS = ((128, 128), (192, 128))
 
 
 def _bwd_contract(q, k, v) -> None:
     """What the backward kernel takes, checked before any launch."""
     hd, hd_v = q.shape[-1], v.shape[-1]
-    if q.dtype != torch.bfloat16 or (hd, hd_v) != (BWD_HEAD_DIM,) * 2:
+    if q.dtype != torch.bfloat16 or (hd, hd_v) not in BWD_HEAD_DIMS or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        pairs = ", ".join(f"({a}, {b})" for a, b in BWD_HEAD_DIMS)
         raise ValueError(f"the flash attention backward kernel takes bf16 at "
-                         f"head dims ({BWD_HEAD_DIM}, {BWD_HEAD_DIM}), not "
-                         f"({hd}, {hd_v}) in {q.dtype}")
+                         f"head dims {pairs}, not ({hd}, {hd_v}) in "
+                         f"{q.dtype}")
+
+
+# The plain backward runs over groups of KV heads whose fp32 scores take
+# at most this many bytes (autograd keeps a few such tensors per group):
+# MLA's 128 heads at S 4096 would otherwise keep tens of GB.
+_REF_BWD_BYTES = 1 << 28
 
 
 def flash_attention_bwd_ref(q, k, v, dout, *, causal: bool,
                             scale: float | None = None, block_kv: int = 512):
     """(dq, dk, dv) by autograd through :func:`flash_attention_ref`
-    (recomputed), in the operands' dtypes."""
+    (recomputed), in the operands' dtypes; one group of KV heads (with
+    their query heads) at a time, heads being independent."""
+    B, Sq, H, _ = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    per_head = 4 * B * G * Sq * Sk
+    step = max(1, min(Hkv, _REF_BWD_BYTES // max(per_head, 1)))
+    parts = []
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        out = flash_attention_ref(*leaves, causal=causal, block_kv=block_kv,
-                                  scale=scale)
-        return torch.autograd.grad(out, leaves, dout)
+        for h0 in range(0, Hkv, step):
+            hq = slice(h0 * G, min(Hkv, h0 + step) * G)
+            hk = slice(h0, min(Hkv, h0 + step))
+            leaves = [t.detach()[:, :, hs].requires_grad_(True)
+                      for t, hs in ((q, hq), (k, hk), (v, hk))]
+            out = flash_attention_ref(*leaves, causal=causal,
+                                      block_kv=block_kv, scale=scale)
+            parts.append(torch.autograd.grad(out, leaves, dout[:, :, hq]))
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(g, dim=2) for g in zip(*parts))
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
                         scale: float | None = None):
-    """(dq, dk, dv) of full-sequence attention on the card: q, out, dout
-    (B, S, H, 128), k, v (B, S, Hkv, 128) bf16 and the forward's logsumexp
-    ``lse`` (B, H, S) fp32; one call launches the three kernels of
-    ``csrc/flash_attention_bwd.cu`` (counted once).  Deterministic: two
+    """(dq, dk, dv) of full-sequence attention on the card: q (B, S, H,
+    hd), k (B, S, Hkv, hd), v (B, S, Hkv, hd_v), out and dout (B, S, H,
+    hd_v), bf16 at a pair of ``BWD_HEAD_DIMS``, and the forward's
+    logsumexp ``lse`` (B, H, S) fp32; one call launches the three kernels
+    of ``csrc/flash_attention_bwd.cu`` (counted once).  Deterministic: two
     calls on the same inputs give the same bits."""
     if not _is_cuda(q):
         return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
                                        scale=scale)
     _bwd_contract(q, k, v)
     B, S, H, hd = q.shape
-    Hkv = k.shape[2]
-    if k.shape != (B, S, Hkv, hd) or v.shape != k.shape or \
-            out.shape != q.shape or dout.shape != q.shape or \
+    Hkv, hd_v = k.shape[2], v.shape[3]
+    if k.shape != (B, S, Hkv, hd) or v.shape != (B, S, Hkv, hd_v) or \
+            out.shape != (B, S, H, hd_v) or dout.shape != out.shape or \
             lse.shape != (B, H, S) or lse.dtype != torch.float32 or H % Hkv:
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, lse "
@@ -428,12 +455,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
     err = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, int(causal),
+        dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, hd, hd_v, int(causal),
         float(scale if scale is not None else hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: error {err}")
+        raise RuntimeError(f"flash_attention_bwd launch failed at ({hd}, "
+                           f"{hd_v}): error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_dims[(hd, hd_v)] += 1
     return dq, dk, dv
 
 
@@ -442,7 +471,7 @@ def _bwd_launcher():
     """The backward's C entry point with its argument types (set once)."""
     fn = LIBRARY_BWD.load().flash_attention_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
@@ -486,3 +515,4 @@ class _FlashAttention(torch.autograd.Function):
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_dims = dict.fromkeys(BWD_HEAD_DIMS, 0)

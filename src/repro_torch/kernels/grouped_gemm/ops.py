@@ -614,15 +614,33 @@ def _wgrad_launcher():
     return fn
 
 
+# The plain backward runs over groups of slots whose fp32 operands take at
+# most this many bytes (autograd keeps their fp32 copies): DeepSeek-V3's
+# 258 expert slots hold 15 GB of fp32 weights a projection.
+_PLAIN_BWD_BYTES = 1 << 30
+
+
 def _plain_grads(ref, inputs, needs, grad_out, rows):
     """Gradients of ``ref(*inputs, rows)`` by autograd through the plain
-    forward (recomputed), for the inputs that need one."""
+    forward (recomputed), for the inputs that need one; a group of slots
+    at a time, slots being independent."""
+    G = inputs[0].shape[0]
+    per_slot = 4 * (sum(t[0].numel() for t in inputs) + grad_out[0].numel())
+    step = max(1, min(G, _PLAIN_BWD_BYTES // max(per_slot, 1)))
+    parts = []
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
-        out = ref(*leaves, rows)
-        wanted = [t for t in leaves if t.requires_grad]
-        got = iter(torch.autograd.grad(out, wanted, grad_out))
-    return [next(got) if t.requires_grad else None for t in leaves]
+        for g0 in range(0, G, step):
+            sl = slice(g0, g0 + step)
+            leaves = [t.detach()[sl].requires_grad_(n)
+                      for t, n in zip(inputs, needs)]
+            out = ref(*leaves, None if rows is None else rows[sl])
+            wanted = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, grad_out[sl]))
+            parts.append([next(got) if t.requires_grad else None
+                          for t in leaves])
+    if len(parts) == 1:
+        return parts[0]
+    return [None if g[0] is None else torch.cat(g) for g in zip(*parts)]
 
 
 class _GroupedSwiGLU(torch.autograd.Function):

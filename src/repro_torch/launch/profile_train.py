@@ -8,9 +8,15 @@ host wall time up to a device synchronisation, the device-busy time, the
 idle share, the time per kernel category (``profile_serve``'s, with the
 backward kernels apart) and the top kernels.  A second line times, with
 CUDA events on the same state, the step's parts: the forward and backward
-(``loss_and_grads``), and the clipping and AdamW update.
+(``loss_and_grads``), and the clipping and the optimizer's update.
+
+With ``--cell train_4k`` it profiles the arch's train cell instead
+(``launch.specs.build_cell``: bf16, per-layer remat, capacity factors
+2.0, Adafactor for the big archs), ``--layers`` deep at ``--batch`` rows.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train --layers 1
+  PYTHONPATH=src python -m repro_torch.launch.profile_train \
+      --arch deepseek-v3-671b --cell train_4k --layers 4 --batch 1
 """
 
 from __future__ import annotations
@@ -21,7 +27,9 @@ import json
 import torch
 
 from repro_torch.launch.profile_serve import _trace
-from repro_torch.launch.train import build
+from repro_torch.launch.specs import build_cell
+from repro_torch.launch.train import build, build_cell_trainer
+from repro_torch.models.transformer import ParallelCtx
 from repro_torch.optim.optimizer import adamw, clip_by_global_norm
 from repro_torch.train.loop import loss_and_grads
 
@@ -47,17 +55,28 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--loss-chunks", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--cell", default=None,
+                    help="profile the arch's cell of this shape (train_4k)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    tr = build(args.arch, steps=10, batch=args.batch, seq=args.seq,
-               reduce=False, layers=args.layers, device="cuda",
-               dtype=torch.bfloat16, loss_chunks=args.loss_chunks)
+    if args.cell:
+        cell = build_cell(args.arch, args.cell, ParallelCtx(),
+                          num_layers_override=args.layers,
+                          rcfg_overrides={"loss_chunks": args.loss_chunks})
+        tr = build_cell_trainer(cell, batch=args.batch)
+        opt = cell.meta["optimizer"]
+    else:
+        tr = build(args.arch, steps=10, batch=args.batch, seq=args.seq,
+                   reduce=False, layers=args.layers, device="cuda",
+                   dtype=torch.bfloat16, loss_chunks=args.loss_chunks)
+        opt = adamw(1e-4)
     state, _ = tr.step_fn(tr.state, tr.batch(0))                # warm-up
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "arch": tr.cfg.name, "layers": args.layers,
-                      "batch": args.batch, "seq": args.seq,
+                      "batch": args.batch, "seq": tr.stream.cfg.seq_len,
+                      "cell": args.cell, "remat": tr.rcfg.remat,
                       "loss_chunks": args.loss_chunks}), flush=True)
     b = tr.batch(1)
     box = {}
@@ -76,11 +95,11 @@ def main(argv=None) -> int:
     def update():
         with torch.no_grad():
             clip_by_global_norm(grads, 1.0)
-            adamw(1e-4).update(grads, box["state"].opt_state, params,
-                               box["state"].step)
+            opt.update(grads, box["state"].opt_state, params,
+                       box["state"].step)
 
     print(json.dumps({"step": "parts", "forward_backward_ms": fwd_bwd,
-                      "clip_and_adamw_ms": _event_ms(update)}), flush=True)
+                      "clip_and_update_ms": _event_ms(update)}), flush=True)
     return 0
 
 

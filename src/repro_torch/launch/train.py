@@ -1,4 +1,5 @@
-"""Training entry point: AdamW on the synthetic domain-mixture stream.
+"""Training entry point: AdamW (or a train cell's optimizer) on the
+synthetic domain-mixture stream.
 
 Mirrors ``repro.launch.train``: trains a registered arch (``--reduce``d,
 or at its published widths with ``--layers`` cutting the depth) with the
@@ -26,9 +27,25 @@ Example (the CPU, a reduced model; on a card drop ``--device``):
       --layers 1 --dtype bfloat16 --batch 2 --seq 4096 --steps 5 \
       --loss-chunks 8 --ckpt-every 0    # one full-width layer on an H100
 
-Backward kernels exist on the card for bf16 GQA at head dim 128 and the fp
-expert FFN; other configurations (fp32 or MLA attention, Mamba mixers, the
-int8 paths) raise a ValueError there and train on the CPU.
+A train cell (``--cell train_4k``: ``repro_torch.launch.specs.build_cell``
+at the arch's published widths, ``--layers`` cutting the depth and
+``--batch`` the global batch of 256) trains with the cell's runtime (bf16,
+per-layer remat, capacity factors 2.0), sequence length and optimizer
+(Adafactor for the big archs, AdamW otherwise), so it refuses the flags
+those fix (``--seq``, ``--balancer``, ``--reduce``, ``--lr``, ``--dtype``,
+``--d-model``); from Python, ``train_cell``:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \
+      --cell train_4k --layers 4 --batch 1 --steps 3 --loss-chunks 8 \
+      --ckpt-every 0    # DeepSeek-V3, 3 dense + 1 MoE layer, on an H100
+
+What trains on the card: bf16 GQA attention at head dim 128 (B4) and
+DeepSeek-V3's MLA at (192, 128) (B4m), the Mamba-2 mixer (the SSD
+intra-chunk backward, B5), the bf16 and fp32 expert FFN (B1-B3) and the
+router's top-k; so GLM-4.5-Air, Qwen3-235B-A22B, Jamba-v0.1 and
+DeepSeek-V3.  fp32 attention, head dims other than those two pairs, and
+the int8 wire and FFN raise a ValueError there and train on the CPU.
+Training remats each layer by default (``train(remat=False)`` keeps
+every activation; a cell's runtime fixes it on).
 """
 
 from __future__ import annotations
@@ -46,6 +63,7 @@ from repro_torch.configs.reduce import reduced
 from repro_torch.core.balancer import BalancerConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
 from repro_torch.launch.mesh import make_test_mesh, pctx_for_mesh
+from repro_torch.launch.specs import Cell, build_cell
 from repro_torch.models.model import init_lm, param_count
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 from repro_torch.optim import adamw, cosine_schedule
@@ -54,9 +72,12 @@ from repro_torch.train.fault import Supervisor, SupervisorConfig
 from repro_torch.train.loop import (TrainConfig, init_train_state,
                                     make_train_step)
 
-__all__ = ["main", "train", "build", "init_group", "TrainRun", "Trainer"]
+__all__ = ["main", "train", "train_cell", "build", "build_cell_trainer",
+           "init_group", "TrainRun", "Trainer"]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The command-line arguments that a train cell fixes.
+CELL_FIXED = ("seq", "balancer", "reduce", "lr", "dtype", "d_model")
 
 
 @dataclasses.dataclass
@@ -111,7 +132,7 @@ def build(arch, *, steps: int = 100, batch: int = 8, seq: int = 128,
           balancer: str = "ultraep", reduce: bool = True, lr: float = 3e-3,
           microbatches: int = 1, d_model: int = 64, layers: int | None = None,
           seed: int = 0, device="cuda", dtype=torch.float32,
-          loss_chunks: int = 1, cf: float = 4.0,
+          loss_chunks: int = 1, cf: float = 4.0, remat: bool = True,
           pctx: ParallelCtx = ParallelCtx()) -> Trainer:
     """The model (random weights from ``seed``; on a mesh ``pctx``, this
     rank's share), AdamW on a cosine schedule over ``steps``, the train
@@ -124,7 +145,8 @@ def build(arch, *, steps: int = 100, batch: int = 8, seq: int = 128,
     rcfg = RuntimeConfig(
         balancer=BalancerConfig(mode=balancer,
                                 n_slot=cfg.moe.n_slot if cfg.moe else 2),
-        cf_pair=cf, cf_slot=cf, dtype=dtype, loss_chunks=loss_chunks)
+        cf_pair=cf, cf_slot=cf, dtype=dtype, loss_chunks=loss_chunks,
+        remat=remat)
     params = init_lm(cfg, rcfg, pctx,
                      torch.Generator(device=device).manual_seed(seed),
                      device=device)
@@ -140,30 +162,91 @@ def build(arch, *, steps: int = 100, batch: int = 8, seq: int = 128,
                    device=device)
 
 
+def build_cell_trainer(cell: Cell, *, batch: int, seed: int = 0,
+                       device="cuda",
+                       pctx: ParallelCtx = ParallelCtx()) -> Trainer:
+    """A train cell's :class:`Trainer`: its model with random weights from
+    ``seed`` on ``device``, its optimizer's state, its step, and the
+    stream at its sequence length with a global batch of ``batch``."""
+    cfg, rcfg = cell.meta["cfg"], cell.meta["rcfg"]
+    if cell.meta["shape"].kind != "train":
+        raise ValueError(f"{cell.shape} is not a train cell")
+    params = init_lm(cfg, rcfg, pctx,
+                     torch.Generator(device=device).manual_seed(seed),
+                     device=device)
+    return Trainer(cfg=cfg, rcfg=rcfg, pctx=pctx,
+                   state=init_train_state(params, cell.meta["optimizer"],
+                                          cfg, pctx),
+                   step_fn=cell.step_fn,
+                   stream=SyntheticLMStream(DataConfig(
+                       vocab_size=cfg.vocab_size,
+                       seq_len=cell.meta["shape"].seq_len,
+                       global_batch=batch, seed=seed)),
+                   device=device)
+
+
 def train(arch, *, steps: int = 100, batch: int = 8, seq: int = 128,
           balancer: str = "ultraep", reduce: bool = True, lr: float = 3e-3,
           microbatches: int = 1, d_model: int = 64, layers: int | None = None,
           log_every: int = 10, seed: int = 0, on_metrics=None,
           device="cuda", dtype=torch.float32, loss_chunks: int = 1,
           cf: float = 4.0, ckpt_dir: str | None = None, ckpt_every: int = 50,
-          pctx: ParallelCtx = ParallelCtx(), step_hook=None) -> TrainRun:
+          pctx: ParallelCtx = ParallelCtx(), step_hook=None,
+          remat: bool = True) -> TrainRun:
     """Train under the Supervisor; every rank of a mesh calls it with its
     ``pctx`` (rank 0 prints).  ``step_hook(step_fn) -> step_fn`` wraps the
     train step (fault injection in tests)."""
-    on_cuda = torch.device(device).type == "cuda"
-    if on_cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+    _reset_peak(device)
     tr = build(arch, steps=steps, batch=batch, seq=seq, balancer=balancer,
                reduce=reduce, lr=lr, microbatches=microbatches,
                d_model=d_model, layers=layers, seed=seed, device=device,
-               dtype=dtype, loss_chunks=loss_chunks, cf=cf, pctx=pctx)
+               dtype=dtype, loss_chunks=loss_chunks, cf=cf, remat=remat,
+               pctx=pctx)
+    return _run(tr, steps=steps, batch=batch, log_every=log_every,
+                on_metrics=on_metrics, device=device, ckpt_dir=ckpt_dir,
+                ckpt_every=ckpt_every, pctx=pctx, step_hook=step_hook)
+
+
+def train_cell(arch, cell: str, *, steps: int = 100, batch: int = 8,
+               layers: int | None = None, microbatches: int = 1,
+               loss_chunks: int = 1, log_every: int = 10, seed: int = 0,
+               on_metrics=None, device="cuda",
+               ckpt_dir: str | None = None, ckpt_every: int = 50,
+               pctx: ParallelCtx = ParallelCtx(),
+               step_hook=None) -> TrainRun:
+    """:func:`train` of the arch's cell of shape ``cell`` (``build_cell``
+    at the published widths): the cell fixes the runtime (its dtype,
+    remat, capacity factors and balancer), the sequence length and the
+    optimizer; ``layers`` cuts the depth and ``batch`` the global batch."""
+    _reset_peak(device)
+    tr = build_cell_trainer(
+        build_cell(arch, cell, pctx, num_layers_override=layers,
+                   microbatches=microbatches,
+                   rcfg_overrides={"loss_chunks": loss_chunks}),
+        batch=batch, seed=seed, device=device, pctx=pctx)
+    return _run(tr, steps=steps, batch=batch, log_every=log_every,
+                on_metrics=on_metrics, device=device, ckpt_dir=ckpt_dir,
+                ckpt_every=ckpt_every, pctx=pctx, step_hook=step_hook)
+
+
+def _reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _run(tr: Trainer, *, steps, batch, log_every, on_metrics, device,
+         ckpt_dir, ckpt_every, pctx, step_hook) -> TrainRun:
+    """``steps`` steps of ``tr`` under the Supervisor."""
+    on_cuda = torch.device(device).type == "cuda"
     loud = pctx.world_group is None or pctx.world_group.rank == 0
     run = TrainRun(arch=tr.cfg.name, params=param_count(tr.state.params),
                    losses=[], grad_norms=[], step_s=[],
-                   tokens_per_step=batch * seq, peak_mem=None)
+                   tokens_per_step=batch * tr.stream.cfg.seq_len,
+                   peak_mem=None)
     if loud:
         print(f"arch={tr.cfg.name} params={run.params:,} (a rank) "
-              f"balancer={balancer} device={device} dtype={dtype} "
+              f"balancer={tr.rcfg.balancer.mode} device={device} "
+              f"dtype={tr.rcfg.dtype} remat={tr.rcfg.remat} "
               f"data={pctx.data_size} ep={pctx.ep_size}", flush=True)
 
     def _metrics(step, m):
@@ -258,25 +341,33 @@ def main(argv=None) -> TrainRun:
                          "the temporary directory)")
     ap.add_argument("--ckpt-every", type=int, default=50,
                     help="steps between checkpoints (0: none)")
+    ap.add_argument("--cell", default=None,
+                    help="train the arch's cell of this shape (train_4k)")
     ap.add_argument("--data", type=int, default=1,
                     help="data rows of the mesh (under torchrun)")
     ap.add_argument("--ep", type=int, default=1,
                     help="EP ranks of the mesh (under torchrun)")
     args = ap.parse_args(argv)
+    if args.cell is not None:
+        fixed = [f"--{k.replace('_', '-')}" for k in CELL_FIXED
+                 if getattr(args, k) != ap.get_default(k)]
+        if fixed:
+            ap.error(f"--cell fixes {', '.join(fixed)}")
     device, pctx = args.device, ParallelCtx()
     grouped = args.data * args.ep > 1
     if grouped:
         pctx, device = init_group(args.data, args.ep, device)
+    common = dict(steps=args.steps, batch=args.batch,
+                  microbatches=args.microbatches, layers=args.layers,
+                  log_every=args.log_every, seed=args.seed, device=device,
+                  loss_chunks=args.loss_chunks, ckpt_dir=args.ckpt_dir,
+                  ckpt_every=args.ckpt_every, pctx=pctx)
     try:
-        return train(args.arch, steps=args.steps, batch=args.batch,
-                     seq=args.seq, balancer=args.balancer,
-                     reduce=args.reduce, lr=args.lr,
-                     microbatches=args.microbatches, d_model=args.d_model,
-                     layers=args.layers, log_every=args.log_every,
-                     seed=args.seed, device=device,
-                     dtype=DTYPES[args.dtype], loss_chunks=args.loss_chunks,
-                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                     pctx=pctx)
+        if args.cell is not None:
+            return train_cell(args.arch, args.cell, **common)
+        return train(args.arch, seq=args.seq, balancer=args.balancer,
+                     reduce=args.reduce, lr=args.lr, d_model=args.d_model,
+                     dtype=DTYPES[args.dtype], **common)
     finally:
         if grouped:
             collectives.destroy()

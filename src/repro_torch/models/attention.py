@@ -20,10 +20,10 @@ computes outside any Pallas kernel too.
 
 The full-sequence functions (``gqa_attention``, ``mla_attention``) are
 differentiable: with a gradient required, ``flash_attention`` is its
-autograd Function (on the card the backward kernel at bf16 and head dim
-128, which GQA at the models' width takes; MLA's (192, 128) raises there).
-``plain_backward`` runs that backward as autograd through the plain
-version instead.
+autograd Function (on the card the backward kernel in bf16 at head dim
+128, GQA at the models' width, and at MLA's (192, 128), DeepSeek-V3's
+full-sequence training path; fp32 raises there).  ``plain_backward`` runs
+that backward as autograd through the plain version instead.
 """
 
 from __future__ import annotations

@@ -90,7 +90,14 @@ def forward(params: LMParams, batch: dict, cfg: ModelConfig,
     Returns (logits, aux_loss, drops, counts) where counts is the
     (num_layers, E) realized per-layer expert load (zeros on non-MoE
     layers); ``return_hidden=True`` returns the final-norm hidden states in
-    place of the fp32 logits (the blocked-loss path)."""
+    place of the fp32 logits (the blocked-loss path).
+
+    Under a gradient with ``rcfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
+    input is kept and the layer runs again in the backward, kernels and
+    (on a mesh) EP collectives included, in the same order on every rank.
+    aux, drops and counts are this forward's; the recompute's copies feed
+    only the gradient.  No layer draws random numbers."""
     if cfg.frontend != "none":
         raise ValueError(f"{cfg.name}: modality frontends are not ported yet")
     x = embed(batch["tokens"], params.embedding)
@@ -98,9 +105,16 @@ def forward(params: LMParams, batch: dict, cfg: ModelConfig,
     aux_tot = torch.zeros((), dtype=torch.float32, device=dev)
     drops_tot = torch.zeros((), dtype=torch.int64, device=dev)
     counts = []
+    remat = rcfg.remat and torch.is_grad_enabled()
     for i, (kind, bp) in enumerate(zip(layer_kinds(cfg), params.layers)):
         bias = None if router_bias is None else router_bias[i]
-        x, aux, drops, c, _ = bp(x, kind, cfg, rcfg, pctx, router_bias=bias)
+        if remat:
+            x, aux, drops, c, _ = torch.utils.checkpoint.checkpoint(
+                bp, x, kind, cfg, rcfg, pctx, router_bias=bias,
+                use_reentrant=False)
+        else:
+            x, aux, drops, c, _ = bp(x, kind, cfg, rcfg, pctx,
+                                     router_bias=bias)
         aux_tot = aux_tot + aux
         drops_tot = drops_tot + drops
         counts.append(c)

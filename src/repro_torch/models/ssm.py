@@ -123,7 +123,8 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             xp[:, xp.shape[1] - (K - 1):, :].clone())
 
 
-def _mix(x, params: SSMParams, cfg: SSMConfig, tail, initial_state):
+def _mix(x, params: SSMParams, cfg: SSMConfig, tail, initial_state,
+         plain_backward: bool = False):
     """Projection, conv and chunk scan of a (B, L, D) block, L % chunk == 0.
 
     Returns (out (B, L, D) in x's dtype, final state, new conv tail)."""
@@ -147,7 +148,8 @@ def _mix(x, params: SSMParams, cfg: SSMConfig, tail, initial_state):
     y, final = ssd_chunk_scan(
         xs.reshape(B, nc, Q, H, P), Bh.reshape(B, nc, Q, H, N),
         Ch.reshape(B, nc, Q, H, N), dtv.reshape(B, nc, Q, H),
-        da.reshape(B, nc, Q, H), initial_state=initial_state)
+        da.reshape(B, nc, Q, H), initial_state=initial_state,
+        plain_backward=plain_backward)
     y = y.reshape(B, L, H, P) + xs.to(_F32) * params.d_skip[None, None, :,
                                                             None]
     return _out(y.reshape(B, L, di), z, params, x.dtype), final, new_tail
@@ -162,11 +164,15 @@ def _out(y, z, params: SSMParams, dtype):
 
 
 def ssd_forward(x: torch.Tensor, params: SSMParams, cfg: SSMConfig, *,
-                initial_state: torch.Tensor | None = None):
+                initial_state: torch.Tensor | None = None,
+                plain_backward: bool = False):
     """Full-sequence SSD.  x (B, L, D) with L % chunk == 0.
 
-    Returns (y (B, L, D), final state (B, H, N, P) fp32)."""
-    y, final, _tail = _mix(x, params, cfg, None, initial_state)
+    Returns (y (B, L, D), final state (B, H, N, P) fp32).  Differentiable:
+    the intra-chunk term through its backward kernel on the card (its
+    plain version with ``plain_backward``), the rest plain autograd."""
+    y, final, _tail = _mix(x, params, cfg, None, initial_state,
+                           plain_backward)
     return y, final
 
 

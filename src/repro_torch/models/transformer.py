@@ -15,9 +15,11 @@ period into one "cycle" segment); here the layers are a Python list and
 each block runs in turn.
 
 The full forward (cache None) is differentiable on one device and on a
-mesh (``repro_torch.train.loop`` reduces the gradients over it).
-Per-layer rematerialisation (``remat``) is not ported: every activation is
-kept for the backward.
+mesh (``repro_torch.train.loop`` reduces the gradients over it).  With
+``RuntimeConfig.remat`` (on by default, as in the reference) each layer of
+the full forward keeps only its input for the backward and runs again
+inside it (``repro_torch.models.model.forward``; the serve paths never
+remat).
 """
 
 from __future__ import annotations
@@ -65,6 +67,8 @@ class RuntimeConfig:
     wire_dtype: str = "none"       # EP wire codec: "none" | "bf16" | "int8";
     # needs the fused engine, so it degrades to "none" with "reference"
     ffn_dtype: str = "none"        # expert FFN compute: "none" | "int8" (w8a8)
+    remat: bool = True             # full forward: each layer recomputed in
+    # the backward (torch.utils.checkpoint), its activations not kept
     loss_chunks: int = 1           # >1: blocked CE, no (B,S,V) materialise
     plain_backward: bool = False   # the kernels' backward as autograd through
     # their plain versions, the forward unchanged (a check of the backward
@@ -374,7 +378,8 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
         elif cache is not None:
             y, new_cache = ssm_mod.ssd_prefill(h, cache, bp.ssm, scfg)
         else:
-            y, _final = ssm_mod.ssd_forward(h, bp.ssm, scfg)
+            y, _final = ssm_mod.ssd_forward(
+                h, bp.ssm, scfg, plain_backward=rcfg.plain_backward)
     x = x + y
 
     if ffn_kind != "none":

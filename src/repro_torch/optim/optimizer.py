@@ -1,7 +1,8 @@
-"""AdamW, the cosine schedule, global-norm clipping and update application.
+"""AdamW, Adafactor, the cosine schedule, global-norm clipping and update
+application.
 
-Mirrors ``repro.optim.optimizer`` (``adamw``, ``cosine_schedule``,
-``clip_by_global_norm``, ``apply_updates``; Adafactor is not ported yet).
+Mirrors ``repro.optim.optimizer`` (``adamw``, ``adafactor``,
+``cosine_schedule``, ``clip_by_global_norm``, ``apply_updates``).
 The JAX optimizers are pure functions over pytrees; here the parameters are
 a list of tensors updated in place, in each parameter's dtype, so that a
 parameter that is a view (the MoE mains at the head of their slot buffers)
@@ -22,7 +23,15 @@ On a mesh the moments may be sharded (``init(params, shards)``, the
 each rank then updates its moment shard and the matching slice of the
 parameter, and an ``all_gather`` over the parameter's replica group puts
 the parameter back together on every replica.  AdamW is elementwise, so
-the sharded update is bitwise the unsharded one.  The gather runs in
+the sharded update is bitwise the unsharded one.  Adafactor's state is
+small (factored second moments, no first moment) and stays whole on every
+replica: each computes the same update from the same summed gradient.  An
+expert parameter is the EP rank's rows of it, so where Adafactor's
+statistics span those rows (the update's RMS, and for a 2-D parameter the
+column mean and the mean of v_row) it sums them over the EP group
+(``update(..., sharded=, group=)``, as :func:`clip_by_global_norm`
+takes them), and every rank scales its rows as the whole tensor's update
+would be scaled.  The gather runs in
 pieces of at most ``BUCKET_BYTES`` (gloo stages CUDA tensors through the
 host), as does :func:`reduce_grads`, the gradients' sums over their
 groups.  :func:`clip_by_global_norm` takes the norm over the whole mesh
@@ -40,9 +49,9 @@ import torch
 
 from repro_torch.parallel import collectives
 
-__all__ = ["Optimizer", "AdamWState", "adamw", "cosine_schedule",
-           "clip_by_global_norm", "apply_updates", "reduce_grads", "CHUNK",
-           "BUCKET_BYTES"]
+__all__ = ["Optimizer", "AdamWState", "adamw", "AdafactorState",
+           "adafactor", "cosine_schedule", "clip_by_global_norm",
+           "apply_updates", "reduce_grads", "CHUNK", "BUCKET_BYTES"]
 
 CHUNK = 1 << 26            # elements per fp32 slice of an update
 BUCKET_BYTES = 256 << 20   # most bytes a gradient sum or gather moves
@@ -181,8 +190,10 @@ def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.95,
         ps.add_(u.to(ps.dtype))
 
     @torch.no_grad()
-    def update(grads: list, state: AdamWState, params: list,
-               step: int) -> AdamWState:
+    def update(grads: list, state: AdamWState, params: list, step: int,
+               *, sharded=None, group=None) -> AdamWState:
+        """``sharded`` and ``group`` are ignored: the update is elementwise."""
+        del sharded, group
         stepf = step + 1.0
         lr_t = lr_fn(step)
         c1, c2 = 1 - b1 ** stepf, 1 - b2 ** stepf
@@ -198,6 +209,146 @@ def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.95,
                 _apply(*a, c1, c2, lr_t)
             if not whole:
                 _gather_into(p, ps, sh)
+        return state
+
+    return Optimizer(init=init, update=update)
+
+
+class AdafactorState(NamedTuple):
+    v_row: list   # fp32: shape[:-1] if factored, else the full v
+    v_col: list   # fp32: shape[:-2] + shape[-1:] if factored, else ()
+
+
+def _factored(p: torch.Tensor) -> bool:
+    return p.dim() >= 2
+
+
+def _row_blocks(p: torch.Tensor):
+    """(lead index, first row, last row) of a factored (*lead, R, C)
+    tensor in blocks of at most CHUNK elements."""
+    R, C = p.shape[-2], p.shape[-1]
+    step = max(1, CHUNK // max(C, 1))
+    for lead in range(p.numel() // max(R * C, 1)):
+        for lo in range(0, R, step):
+            yield lead, lo, min(R, lo + step)
+
+
+def _mean_over(sq: torch.Tensor, p: torch.Tensor, grp) -> torch.Tensor:
+    """``sq`` (a sum over ``p``) over the elements of the whole tensor:
+    ``p``'s alone, or summed over its rows on every rank of ``grp``."""
+    if grp is None:
+        return sq / p.numel()
+    return collectives.all_reduce(grp, sq) / (p.numel() * grp.size)
+
+
+def adafactor(lr: float | Callable, decay: float = 0.99, eps: float = 1e-30,
+              clip_threshold: float = 1.0) -> Optimizer:
+    """Factored second-moment optimizer (Shazeer & Stern), no first moment.
+
+    The reference's arithmetic, in fp32: g2 = g^2 + eps; a tensor of two
+    or more dims keeps v_row (the mean of g2 over its last axis) and v_col
+    (over its second last), ``decay`` averages of them, and
+    u = g / sqrt(max(v_row / max(mean(v_row), eps) v_col, eps)); a vector
+    or scalar keeps the whole v.  The update's RMS is clipped to
+    ``clip_threshold`` and p += -lr u, rounded to p's dtype, in place.
+
+    A factored tensor is walked in blocks of at most ``CHUNK`` elements
+    (rows of its last two axes) three times, so no fp32 temporary of its
+    size is made (an expert weight's u would be 15 GB at DeepSeek-V3's
+    width): first the statistics (v_row, and v_col as a sum over the
+    blocks), then the RMS of u, then the update, with u recomputed each
+    time.  The state is whole on every replica of a mesh (``shards`` of
+    ``init`` is ignored): each replica computes the same update from the
+    same summed gradient.  ``update(..., sharded=, group=)``: where
+    ``sharded[i]``, parameter i is this rank's rows (its first axis) of a
+    tensor split over ``group``, and the statistics that span that axis are
+    summed over it: the update's RMS always, and for a 2-D parameter, whose
+    rows are its second last axis, v_col's column sums and v_row's mean.
+    v_row is then this rank's rows, v_col whole, as the checkpoint's
+    global shapes (``train.loop``) have them."""
+    lr_fn = lr if callable(lr) else (lambda _: float(lr))
+
+    def init(params: list, shards: list | None = None) -> AdafactorState:
+        del shards
+        f32 = dict(dtype=torch.float32)
+
+        def vr(p):
+            shape = p.shape[:-1] if _factored(p) else p.shape
+            return torch.zeros(shape, device=p.device, **f32)
+
+        def vc(p):
+            shape = p.shape[:-2] + p.shape[-1:] if _factored(p) else ()
+            return torch.zeros(shape, device=p.device, **f32)
+
+        return AdafactorState(v_row=[vr(p) for p in params],
+                              v_col=[vc(p) for p in params])
+
+    def _u_factored(g3, vr2, vc2, rmean, lead, lo, hi):
+        gf = g3[lead, lo:hi].to(torch.float32)
+        denom = (vr2[lead, lo:hi, None] / rmean[lead]) * vc2[lead, None, :]
+        return gf * torch.rsqrt(torch.clamp(denom, min=eps))
+
+    def _update_factored(g, vr, vc, p, lr_t, grp):
+        R, C = p.shape[-2], p.shape[-1]
+        g3 = g.reshape(-1, R, C)
+        p3 = p.view(-1, R, C)
+        vr2, vc2 = vr.view(-1, R), vc.view(-1, C)
+        rows_split = grp is not None and p.dim() == 2
+        col = torch.zeros_like(vc2)
+        for lead, lo, hi in _row_blocks(p):
+            gf = g3[lead, lo:hi].to(torch.float32)
+            g2 = gf * gf + eps
+            vr2[lead, lo:hi].mul_(decay).add_((1 - decay) * g2.mean(dim=-1))
+            col[lead].add_(g2.sum(dim=0))
+        if rows_split:
+            Rg = R * grp.size
+            col = collectives.all_reduce(grp, col)
+            rsum = collectives.all_reduce(grp, vr2.sum(dim=-1, keepdim=True))
+            vc2.mul_(decay).add_((1 - decay) * (col / Rg))
+            rmean = torch.clamp(rsum / Rg, min=eps)
+        else:
+            vc2.mul_(decay).add_((1 - decay) * (col / R))
+            rmean = torch.clamp(vr2.mean(dim=-1, keepdim=True), min=eps)
+        sq = torch.zeros((), dtype=torch.float32, device=p.device)
+        for blk in _row_blocks(p):
+            u = _u_factored(g3, vr2, vc2, rmean, *blk)
+            sq = sq + torch.sum(u * u)
+        rms = torch.sqrt(_mean_over(sq, p, grp) + 1e-12)
+        div = torch.clamp(rms / clip_threshold, min=1.0)
+        for blk in _row_blocks(p):
+            u = _u_factored(g3, vr2, vc2, rmean, *blk) / div
+            lead, lo, hi = blk
+            p3[lead, lo:hi].add_((-lr_t * u).to(p.dtype))
+
+    def _update_whole(g, vr, p, lr_t, grp):
+        gf = g.to(torch.float32)
+        vr.mul_(decay).add_((1 - decay) * (gf * gf + eps))
+        u = gf * torch.rsqrt(torch.clamp(vr, min=eps))
+        if grp is None:
+            rms = torch.sqrt(torch.mean(u * u) + 1e-12)
+        else:
+            rms = torch.sqrt(_mean_over(torch.sum(u * u), p, grp) + 1e-12)
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        p.add_((-lr_t * u).to(p.dtype))
+
+    @torch.no_grad()
+    def update(grads: list, state: AdafactorState, params: list, step: int,
+               *, sharded=None, group=None) -> AdafactorState:
+        lr_t = lr_fn(step)
+        split = sharded if group is not None and group.size > 1 and \
+            sharded is not None else [False] * len(params)
+        for g, vr, vc, p, sp in zip(grads, state.v_row, state.v_col, params,
+                                    split):
+            if not p.is_contiguous():
+                raise ValueError("adafactor updates contiguous parameters "
+                                 "in place")
+            grp = group if sp else None
+            if p.numel() == 0 and grp is None:
+                continue
+            if _factored(p):
+                _update_factored(g, vr, vc, p, lr_t, grp)
+            else:
+                _update_whole(g, vr, p, lr_t, grp)
         return state
 
     return Optimizer(init=init, update=update)

@@ -14,7 +14,8 @@ MoE layer and the model need, in the JAX package's terms
   syncs;
 * :func:`reduce_scatter`: (R, ...) -> (...), the sum over ranks of each
   rank's row ``rank``;
-* :func:`all_reduce`: the sum over ranks;
+* :func:`all_reduce`: the sum over ranks; :func:`all_max`: the max
+  (``pmax``, no gradient);
 * :func:`shard`: this rank's slice of a replicated tensor along a
   dimension (the inverse of :func:`all_gather`);
 * :func:`all_reduce_`, :func:`broadcast`, :func:`sendrecv`,
@@ -73,7 +74,7 @@ import torch.distributed as dist
 
 __all__ = ["EPGroup", "init", "subgroup", "factor", "destroy", "all_gather",
            "all_to_all", "all_to_all_async", "reduce_scatter", "all_reduce",
-           "all_reduce_", "shard", "barrier", "sendrecv", "broadcast",
+           "all_reduce_", "all_max", "shard", "barrier", "sendrecv", "broadcast",
            "world_size", "world_rank"]
 
 
@@ -248,6 +249,14 @@ def all_reduce_(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
     """The sum over ranks written into ``x`` (contiguous, no gradient)."""
     dist.all_reduce(x, group=g.group)
     return x
+
+
+def all_max(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
+    """The max over ranks (``jax.lax.pmax``), as a new tensor, no
+    gradient."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g.group)
+    return out
 
 
 def shard(g: EPGroup, x: torch.Tensor, dim: int) -> torch.Tensor:

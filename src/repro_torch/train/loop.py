@@ -1,5 +1,5 @@
-"""Train step: loss, gradients, microbatched accumulation, clipping, AdamW
-and the aux-free router-bias update.
+"""Train step: loss, gradients, microbatched accumulation, clipping, the
+optimizer (AdamW or Adafactor) and the aux-free router-bias update.
 
 Mirrors ``repro.train.loop``.  ``make_train_step`` returns ``(state, batch)
 -> (state, metrics)``; where the JAX step is a pure function for ``jit``
@@ -183,7 +183,8 @@ def make_train_step(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
                 grads, tcfg.clip_norm, sharded=sharded, group=pctx.group)
             opt_state = optimizer.update(grads, state.opt_state,
                                          list(params.parameters()),
-                                         state.step)
+                                         state.step, sharded=sharded,
+                                         group=pctx.group)
         for p in params.parameters():
             p.grad = None
         router_bias = state.router_bias
@@ -210,19 +211,26 @@ def make_train_step(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
 
 def _leaves(state: TrainState, pctx: ParallelCtx):
     """(key, tensor, expert, moment shard or None) of every tensor of
-    ``state``: the parameters, then AdamW's two moments."""
+    ``state``: the parameters, then the optimizer's per-parameter state
+    (AdamW's two moments, sharded on a mesh; Adafactor's v_row and v_col,
+    whole).  An expert parameter's state is expert-major as the parameter
+    is, except a factored v_col of a 2-D parameter (its columns)."""
     named = list(state.params.named_parameters())
     expert = [False] * len(named)
     if pctx.world_size > 1:
         expert = [s.expert for s in
                   sharding.lm_param_specs(state.params, pctx)]
-    shards = state.opt_state.shards or [None] * len(named)
+    opt = state.opt_state
+    shards = getattr(opt, "shards", None) or [None] * len(named)
     for (name, p), ex in zip(named, expert):
         yield f"params/{name}", p, ex, None
-    for mom in ("mu", "nu"):
-        for (name, _), t, ex, sh in zip(named, getattr(state.opt_state, mom),
-                                        expert, shards):
-            yield f"opt_state/{mom}/{name}", t, ex, sh
+    for field in opt._fields:
+        if field == "shards":
+            continue
+        for (name, p), t, ex, sh in zip(named, getattr(opt, field), expert,
+                                        shards):
+            ex_t = ex and (field != "v_col" or p.dim() >= 3)
+            yield f"opt_state/{field}/{name}", t, ex_t, sh
 
 
 def global_shapes(state: TrainState, pctx: ParallelCtx) -> dict:

@@ -672,7 +672,8 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, B, S, H, Hkv,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,hd,hd_v", [(torch.float32, 128, 128),
                                            (torch.bfloat16, 64, 64),
-                                           (torch.bfloat16, 192, 128)])
+                                           (torch.float32, 192, 128),
+                                           (torch.bfloat16, 16, 16)])
 def test_backward_refuses_other_dims_on_card(cuda_device, dtype, hd, hd_v):
     q = torch.zeros((1, 256, 4, hd), dtype=dtype, device=cuda_device,
                     requires_grad=True)

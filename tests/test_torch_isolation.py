@@ -10,7 +10,11 @@ group through every collective of ``parallel/`` (and its backward through
 their transposes), and one reduced train step through
 ``repro_torch.launch.train`` (``optim/``, ``train/``, ``data/``, the
 Supervisor and ``checkpoint/``; ``parallel/pipeline`` is imported); the other
-reads every source file of the port and ``chip_smoke.py``.
+reads every source file of the port and ``chip_smoke.py``.  The first
+also runs the int8 gradient all-reduce (``optim/grad_compress``) on the
+group, stochastic rounding, a train cell of ``launch/specs`` on the meta
+device and an Adafactor step of a reduced Jamba (remat, the SSD
+backward).
 """
 
 import ast
@@ -86,11 +90,34 @@ assert torch.equal(moe_layer_local(x, p, cfg, resilience=Resilience())[0],
 p.requires_grad_(True)
 (moe_layer_local(x, p, cfg, axis_name=group)[0] ** 2).sum().backward()
 assert all(t.grad is not None for t in p.parameters())
+from repro_torch.optim import grad_compress
+st = grad_compress.init_state([x])[0]
+mean, st = grad_compress.psum_compressed(x, st, group)
+assert (mean - x).abs().max() <= x.abs().max() / 127
 collectives.destroy()
+from repro_torch.core import quantize
+q = quantize.encode_int8(x, quantize.tensor_scale(x),
+                         generator=torch.Generator().manual_seed(0))
+assert q.dtype == torch.int8
+from repro_torch.launch import specs
+cell = specs.build_cell("deepseek-v3-671b", "train_4k", ParallelCtx(),
+                        num_layers_override=2)
+assert type(cell.arg_shapes[0].opt_state).__name__ == "AdafactorState"
 from repro_torch.launch import train
 from repro_torch.parallel import pipeline  # noqa: F401  (not on a path)
 run = train.train("glm45-106b-a12b", steps=1, batch=2, seq=16, device="cpu")
 assert len(run.losses) == 1 and np.isfinite(run.losses[0])
+from repro_torch.optim import adafactor
+from repro_torch.train.loop import init_train_state, make_train_step
+cfg = reduced(get_config("jamba-v0.1-52b"), layers=2)
+rcfg = RuntimeConfig()
+params = init_lm(cfg, rcfg, ParallelCtx(), torch.Generator().manual_seed(0),
+                 device="cpu")
+state = init_train_state(params, adafactor(1e-3), cfg)
+toks = torch.arange(32)[None] % cfg.vocab_size
+state, m = make_train_step(cfg, rcfg, ParallelCtx(), adafactor(1e-3))(
+    state, {"tokens": toks, "targets": toks})
+assert np.isfinite(float(m["loss"]))
 assert not any(m == "repro" or m.startswith(("repro.", "jax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

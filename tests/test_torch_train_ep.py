@@ -18,7 +18,13 @@ reads.  The model is ``tiny-moe`` with ``ultraep``, AdamW at 1e-3, B 8, S
   the global drops and counts equal, and each rank's own drops equal the
   JAX device's (a ``jax.debug.callback`` inside the island, the torch
   rank's stats beside it); after the steps every parameter within 1e-5 of
-  its max|p|.
+  its max|p|.  ``adafactor``: the (2, 4) mesh with Adafactor at 1e-3 in
+  place of AdamW, the same checks: its update's RMS clip binds in these
+  steps, and the reference takes the RMS over the whole expert tensor,
+  so each EP rank's rows must be scaled by the global RMS.  Its JAX
+  model keeps each layer's tensors apart (``scan_layers=False``, the same
+  initial values), as the port does: Adafactor factors a stacked (L, D)
+  norm, which a per-layer (D,) norm is not.
 * ``aux0``: the (2, 4) mesh with ``aux_loss_weight`` 0: the gradients of
   the global loss (summed over the mesh) against the port's one-rank step
   on the whole batch, within 1e-5 of each tensor's max|g|.
@@ -27,6 +33,11 @@ reads.  The model is ``tiny-moe`` with ``ultraep``, AdamW at 1e-3, B 8, S
   with the gather and the gradient sums cut into pieces of a few bytes.
 * ``collectives.all_gather``, ``all_reduce`` and ``shard`` under a
   gradient on the EP group of 4 ranks.
+* Adafactor over that EP group with every tensor split by rows (a 2-D
+  tensor, whose column mean and v_row mean span the split, a 3-D and a
+  1-D one), three steps with the clip binding: each rank's rows of the
+  parameters and v_row, and the whole v_col, within 1e-5 relative of
+  JAX's ``adafactor`` on the whole tensors.
 """
 
 import dataclasses
@@ -42,11 +53,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, STEPS, B, S = 8, 3, 8, 32
-# name: (mesh, capacity factor, use_bias, aux_loss_weight or None)
+# name: (mesh, capacity factor, use_bias, aux_loss_weight or None,
+#        optimizer)
 CASES = {
-    "d2e4": ("flat", 8.0, False, None),
-    "tight": ("flat", 1.0, True, None),
-    "rack": ("rack", 8.0, False, None),
+    "d2e4": ("flat", 8.0, False, None, "adamw"),
+    "tight": ("flat", 1.0, True, None, "adamw"),
+    "rack": ("rack", 8.0, False, None, "adamw"),
+    "adafactor": ("flat", 8.0, False, None, "adafactor"),
 }
 TOL = 1e-5
 LR = 1e-3
@@ -54,6 +67,8 @@ LR = 1e-3
 # and bf16.
 ADAM_SHAPES = (((16, 5), torch.float32), ((5, 24), torch.float32),
                ((3, 5), torch.float32), ((8, 4), torch.bfloat16))
+# Tensors of the EP-split Adafactor check, split by rows over 4 ranks.
+FACTOR_SHAPES = ((8, 6), (8, 3, 5), (8,))
 
 
 def _cfgs(cf, use_bias, aux):
@@ -96,6 +111,39 @@ def _adam_inputs():
     return ps, gs
 
 
+def _factor_inputs():
+    """Parameters and three steps' gradients of FACTOR_SHAPES (fp32)."""
+    rng = np.random.default_rng(5)
+    ps = [rng.standard_normal(s).astype(np.float32) for s in FACTOR_SHAPES]
+    gs = [[(rng.standard_normal(s) * 10.0 ** rng.integers(-3, 2, s[:1])
+            .reshape((-1,) + (1,) * (len(s) - 1))).astype(np.float32)
+           for s in FACTOR_SHAPES] for _ in range(3)]
+    return ps, gs
+
+
+def _split_adafactor(g):
+    """This EP rank's rows of FACTOR_SHAPES after three Adafactor steps
+    over ``g``; returns the parameters, v_row and v_col."""
+    from repro_torch.optim import adafactor
+
+    R, r = g.size, g.rank
+    ps, gs = _factor_inputs()
+    rows = [torch.from_numpy(p[r * (p.shape[0] // R):][:p.shape[0] // R])
+            .contiguous() for p in ps]
+    opt = adafactor(1e-2)
+    st = opt.init(rows)
+    for i, gi in enumerate(gs):
+        mine = [torch.from_numpy(x[r * (x.shape[0] // R):][:x.shape[0] // R])
+                .contiguous() for x in gi]
+        opt.update(mine, st, rows, i, sharded=[True] * len(rows), group=g)
+    out = {}
+    for i, p in enumerate(rows):
+        out[f"factor/p{i}"] = p.numpy()
+        out[f"factor/vr{i}"] = st.v_row[i].numpy()
+        out[f"factor/vc{i}"] = st.v_col[i].numpy()
+    return out
+
+
 def _collectives_backward(g):
     """all_gather, all_reduce and shard under a gradient on ``g``; returns
     their forward values and the inputs' gradients."""
@@ -128,14 +176,14 @@ def _masking(opt, params, specs, pctx, out, name):
 
     names = [n for n, _ in params.named_parameters()]
 
-    def update(grads, state, plist, step):
+    def update(grads, state, plist, step, **kw):
         for n, g, sp in zip(names, grads, specs):
             if sp.expert:
                 g = collectives.all_gather(pctx.group, g).flatten(0, 1)
             m = (g.abs() > 1e-3 * g.abs().max()).numpy()
             key = f"{name}/mask/{n}"
             out[key] = m if key not in out else out[key] & m
-        return opt.update(grads, state, plist, step)
+        return opt.update(grads, state, plist, step, **kw)
 
     return Optimizer(init=opt.init, update=update)
 
@@ -145,7 +193,7 @@ def _worker(rank, world, port, inputs, out_dir):
     from repro_torch.launch.mesh import (make_rack_mesh, make_test_mesh,
                                          pctx_for_mesh)
     from repro_torch.moe.layer import MoEParams
-    from repro_torch.optim import adamw
+    from repro_torch.optim import adafactor, adamw
     from repro_torch.optim import optimizer as opt_mod
     from repro_torch.parallel import collectives, sharding
     from repro_torch.train.loop import (TrainConfig, global_grads,
@@ -160,6 +208,7 @@ def _worker(rank, world, port, inputs, out_dir):
              for k in ("tokens", "targets")}
     meshes = {"flat": make_test_mesh(2, 4), "rack": make_rack_mesh(1, 2, 2)}
     out = _collectives_backward(meshes["flat"].model)
+    out.update(_split_adafactor(meshes["flat"].model))
 
     # Each rank's own drops, read from the layer's stats.
     rec = []
@@ -171,7 +220,8 @@ def _worker(rank, world, port, inputs, out_dir):
         return y, aux, st
 
     MoEParams.forward = forward
-    for name, (mesh_name, cf, use_bias, aux) in CASES.items():
+    optimizers = {"adamw": adamw, "adafactor": adafactor}
+    for name, (mesh_name, cf, use_bias, aux, opt_name) in CASES.items():
         mesh = meshes[mesh_name]
         if mesh is None:
             continue
@@ -179,7 +229,8 @@ def _worker(rank, world, port, inputs, out_dir):
         cfg, rcfg = _cfgs(cf, use_bias, aux)
         params = _params(cfg, rcfg, pctx, init)
         specs = sharding.lm_param_specs(params, pctx)
-        opt = _masking(adamw(LR), params, specs, pctx, out, name)
+        opt = _masking(optimizers[opt_name](LR), params, specs, pctx, out,
+                       name)
         state = init_train_state(params, opt, cfg, pctx)
         step = make_train_step(cfg, rcfg, pctx, opt, TrainConfig())
         for i in range(STEPS):
@@ -249,7 +300,7 @@ from repro.launch.mesh import make_rack_mesh, make_test_mesh, pctx_for_mesh
 from repro.models import transformer as jtr
 from repro.models.model import init_lm
 from repro.models.transformer import RuntimeConfig
-from repro.optim import adamw
+from repro.optim import adafactor, adamw
 from repro.train.loop import TrainConfig, init_train_state, make_train_step
 from repro_torch import convert
 from repro_torch.configs import get_config as t_get_config
@@ -285,7 +336,7 @@ def port_named(params, cfg):
 
 
 meshes = {{"flat": make_test_mesh(2, 4), "rack": make_rack_mesh(1, 2, 2)}}
-for name, (mesh_name, cf, use_bias, aux) in cases.items():
+for name, (mesh_name, cf, use_bias, aux, opt_name) in cases.items():
     mesh = meshes[mesh_name]
     pctx = pctx_for_mesh(mesh)
     moe = {{"use_bias": use_bias}}
@@ -296,12 +347,13 @@ for name, (mesh_name, cf, use_bias, aux) in cases.items():
                                moe=dataclasses.replace(
                                    t_get_config("tiny-moe").moe, **moe))
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep", n_slot=2),
-                         cf_pair=cf, cf_slot=cf, remat=False)
+                         cf_pair=cf, cf_slot=cf, remat=False,
+                         scan_layers=opt_name == "adamw")
     params = init_lm(jax.random.PRNGKey(0), cfg, rcfg, pctx)
     if "init/embedding" not in out:
         for n, a in port_named(params, tcfg).items():
             out["init/" + n] = a
-    opt = adamw(1e-3)
+    opt = {{"adamw": adamw, "adafactor": adafactor}}[opt_name](1e-3)
     state = init_train_state(params, opt, cfg)
     step = jax.jit(make_train_step(cfg, rcfg, pctx, opt, TrainConfig()))
     shape = tuple(mesh.shape.values())
@@ -393,7 +445,8 @@ def test_mesh_params_after_steps_match_jax(mesh_run, name):
     """Every parameter within 1e-5 of its max|p| where each step's gradient
     exceeded 1e-3 of its max|g| (as tests/test_torch_train.py compares
     updated parameters); elsewhere Adam moves an element by about lr a
-    step in a direction rounding may decide, so there within that."""
+    step in a direction rounding may decide, so there within that (and
+    Adafactor, whose clipped update there is about lr a step or less)."""
     jax_out, ranks = mesh_run
     keys = [k for k in jax_out if k.startswith(f"{name}/final/")]
     assert keys
@@ -459,3 +512,26 @@ def test_collectives_backward_at_four_ranks(mesh_run):
         np.testing.assert_array_equal(
             r["shard/dx"], np.repeat(np.arange(1, 5.0), 2)[:, None]
             .repeat(3, 1))
+
+
+def test_ep_split_adafactor_matches_jax_whole(mesh_run):
+    import jax.numpy as jnp
+    from repro.optim import adafactor as jax_adafactor
+
+    _, ranks = mesh_run
+    ps, gs = _factor_inputs()
+    opt = jax_adafactor(1e-2)
+    jp = [jnp.asarray(p) for p in ps]
+    st = opt.init(jp)
+    for i, gi in enumerate(gs):
+        upd, st = opt.update([jnp.asarray(x) for x in gi], st, jp, i)
+        jp = [p + u for p, u in zip(jp, upd)]
+    for i, shape in enumerate(FACTOR_SHAPES):
+        p, vr, vc = (np.asarray(a[i]) for a in (jp, st.v_row, st.v_col))
+        n = shape[0] // 4
+        for j, r in enumerate(ranks):
+            e = j % 4
+            _close(r[f"factor/p{i}"], p[e * n:(e + 1) * n], f"p{i}")
+            _close(r[f"factor/vr{i}"], vr[e * n:(e + 1) * n], f"vr{i}")
+            want_vc = vc[e * n:(e + 1) * n] if len(shape) >= 3 else vc
+            _close(r[f"factor/vc{i}"], want_vc, f"vc{i}")
