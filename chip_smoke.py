@@ -196,8 +196,8 @@ Phases, one output line each:
      32 / 8 heads), B4m at DeepSeek-V3's MLA cell (B 1, S 4096, 128 heads,
      q/k 192, v 128; SDPA's backward, memory-efficient) and B5 at
      Jamba-v0.1's train chunk in bf16 and fp32 inputs (against the closed
-     form and autograd of the plain forward); B4 and B4m bitwise over two
-     calls;
+     form and autograd of the plain forward); B4, B4m and B5 bitwise
+     over two calls, B4m's three kernels also timed one by one;
  13. GLM-4.5-Air one layer at full width trained 5 steps with
      ``remat=False`` (its launch counts are those of a step without the
      recompute), after a gradient check against ``plain_backward``;
@@ -3042,7 +3042,9 @@ def _mla_bwd_record(g) -> dict:
     the model makes them; dq, dk, dv within TRAIN_TOL of autograd through
     the plain version, bitwise equal over two calls; timed beside SDPA's
     backward (memory-efficient backend: the flash backend takes one head
-    dim)."""
+    dim), and each of its three kernels alone (``stage_ms``: prep, dK/dV,
+    dQ, CUDA events around launches of one); ``ds_round_trip_ms``: the
+    dS tiles' write and read at the HBM rate, bytes the design adds."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3072,7 +3074,10 @@ def _mla_bwd_record(g) -> dict:
     errs = {n: _rel_check(f"flash_bwd mla d{n}", a, r, TRAIN_TOL)
             for n, a, r in zip("qkv", grads, refs)}
     del refs, grads
+    stage_ms = fa.bwd_stage_ms(q, k, v, o, dout, lse, causal=True,
+                               scale=scale)
     pairs = B * H * S * (S + 1) // 2
+    n_tri = -(-S // 64) * (-(-S // 64) + 1) // 2     # dS tiles a head
     qt = q.transpose(1, 2).detach().requires_grad_(True)
     kt = k.transpose(1, 2).detach().requires_grad_(True)
     vt = v.transpose(1, 2).detach().requires_grad_(True)
@@ -3103,9 +3108,9 @@ def _mla_bwd_record(g) -> dict:
                max_abs_err=max(e[0] for e in errs.values()),
                errs={n: {"max_abs_err": e[0], "max_abs_ref": e[1]}
                      for n, e in errs.items()},
-               bound_seven_products_ms=pairs * 2.0 * (2 * hd + 2 * hv + hv
-                                                      + 2 * hd)
-               / PEAK_OPS_PER_S["bf16"] * 1e3,
+               ds_round_trip_ms=2 * B * H * n_tri * 64 * 64 * 2
+               / HBM_BYTES_PER_S * 1e3,
+               stage_ms=stage_ms,
                library_note="SDPA's backward through autograd "
                             "(memory-efficient backend; the flash backend "
                             "takes one head dim)",
@@ -3119,11 +3124,12 @@ def _ssd_bwd_record() -> dict:
     """B5 at Jamba-v0.1's train cell (B 1, T 4096: nc 32, Q 128, H 128, P 64,
     N 16) in the model's bf16 inputs, and in fp32 inputs beside: dxs, dB,
     dC, ddt, dda against the closed form and against autograd through the
-    plain forward, within TRAIN_TOL of each max|ref|; bound: the bytes of
-    the dtypes the kernel sees, or the products at the TF32 rate (as the
-    fp32 product rows are bounded), whichever is larger; the products at
-    the fp32 CUDA-core rate that this kernel uses beside, as
-    ``cuda_core_fp32_ms``; no library call computes it."""
+    plain forward, within TRAIN_TOL of each max|ref|, bitwise equal over
+    two calls; bound: the bytes of the dtypes the kernel sees, or the
+    products at the TF32 rate (as the fp32 product rows are bounded),
+    whichever is larger; the products at the fp32 CUDA-core rate beside,
+    as ``cuda_core_fp32_ms`` (the rate of the first, CUDA-core version);
+    no library call computes it."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ops
@@ -3140,7 +3146,12 @@ def _ssd_bwd_record() -> dict:
         ddec = torch.randn((B, nc, H), generator=g, device="cuda")
         args = (xs, Bm, Cm, dt, da, dy, dS, ddec)
         got = ops.ssd_intra_chunk_bwd(*args)
+        again = ops.ssd_intra_chunk_bwd(*args)
         torch.cuda.synchronize()
+        for n, a, r in zip(("xs", "Bm", "Cm", "dt", "da"), got, again):
+            if not torch.equal(a, r):
+                raise AssertionError(f"ssd_bwd {tag} d{n}: two calls differ")
+        del again
         errs = {}
         for ref_name, ref in (("closed_form", ops.ssd_intra_chunk_bwd_ref),
                               ("autograd", ops._plain_bwd)):
@@ -4773,7 +4784,8 @@ def main() -> int:
                 for a, n in cell_launches.items()},
             "errs": rec["errs"], "library_note": rec["library_note"],
             "library_error": rec["library_error"],
-            "bound_seven_products_ms": rec["bound_seven_products_ms"]}))
+            "ds_round_trip_ms": rec["ds_round_trip_ms"],
+            "stage_ms": rec["stage_ms"]}))
     rec = train_kernel_records["ssd_intra_chunk_bwd"]
     kernels.append(_kernel_row(
         "ssd_intra_chunk_bwd",
@@ -4781,7 +4793,8 @@ def main() -> int:
         "src/repro/kernels/ssd_scan/kernel.py:66 (its backward; no "
         "pallas_call: XLA differentiates the plain SSD path)", rec,
         cell_launches["jamba-v0.1-52b"]["ssd_intra_chunk_bwd"], {
-            "dtype": rec["dtype"], "arithmetic": "fp32 CUDA cores",
+            "dtype": rec["dtype"],
+            "arithmetic": "split bf16 (hi + lo) on mma.sync m16n8k16",
             "bytes_bound_ms": rec["bytes_bound_ms"],
             "launches_by_path": {f"train_cell_{a}": n["ssd_intra_chunk_bwd"]
                                  for a, n in cell_launches.items()},

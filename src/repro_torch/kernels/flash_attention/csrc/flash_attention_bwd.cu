@@ -17,19 +17,23 @@
 // What bounds it on an H100: operations.  Five products of the forward's
 // size where the forward has two (causal, B 2, S 4096, 32 heads: 0.69
 // TFLOP of causal pairs, 0.69 ms at 989 TFLOP/s), against 0.2 GB of bytes.
-// These kernels do seven (S and dP twice, so that dq needs no atomics):
-// 0.97 ms at that rate.  At (192, 128), B 1, S 4096, 128 heads: a causal
-// pair costs 2 (192 + 128 + 128 + 192 + 192) flops for the five products,
-// 1.79 TFLOP, 1.81 ms (2.50 ms for the seven the kernels do).
+// At (128, 128) these kernels do seven (S and dP twice, so that dq needs
+// no atomics): 0.97 ms at that rate.  At (192, 128), B 1, S 4096, 128
+// heads: a causal pair costs 2 (192 + 128 + 128 + 192 + 192) flops for
+// the five products, 1.79 TFLOP, 1.81 ms; here the kernels do the five
+// and move dS through device memory instead of recomputing S and dP:
+// 2.2 GB of bf16 tiles written and read once, 1.3 ms of bytes at 3.35
+// TB/s, spread over both passes.
 //
 // Precision: P and dS are rounded to bf16 as the A operands of their
-// products, as the forward rounds P for P v.
+// products, as the forward rounds P for P v; the dS^T tiles that carry dS
+// to the dQ pass at (192, 128) are those same bf16 values.
 //
 // Determinism: every sum is taken by one block in a fixed order (dk and dv
 // over the group's query heads and query tiles, dq over the key tiles), so
 // dq, dk and dv are the same bits on every run; no atomics.
 //
-// Design: three kernels.
+// Design at (128, 128) (B4): three kernels.
 //   1. bwd_prep_kernel: one warp a row (b, h, position) writes
 //      lse2 = lse log2(e) and D = rowsum(do o) into an fp32 workspace of
 //      two (B, H, S64) arrays, S64 = S rounded up to 64; positions past S
@@ -69,18 +73,40 @@
 // Registers: setmaxnreg gives each consumer thread 240 and the producer 24
 // (384 threads, one block an SM at 195 KB of shared memory at (128, 128));
 // ptxas reports no spills.
-// (192, 128): the q and K rows are three 64-column boxes, do and V two.
-// dk alone then holds 96 fp32 a thread, dk and dv 160, so the dK/dV pass
-// streams 32-query tiles (S^T and dP^T m64n32, 16 values each: 208 live
-// accumulator and fragment registers of the 240) through a 6-stage ring of
-// 20 KB; the dQ pass streams 64-key tiles (K 24 KB + V 16 KB a stage,
-// 3 stages) beside its resident q and do (80 KB), where 128-key stages
-// would need 240 KB of the SM's 227.  dk and dq are m64n192 products.
-// Not yet: what bounds the two main kernels is not measured.  Each block
-// reads its streamed tiles from L2 (dq: K and V per 128 x 128 tile of
-// pairs; dk/dv: q and do per 128 x 64), and TMA multicast across a
-// cluster of blocks that share them (the G heads of a KV head) would cut
-// those reads; a persistent schedule would hide each block's prologue.
+//
+// Design at (192, 128) (B4m): the q and K rows are three 64-column boxes,
+// do and V two, and dk alone holds 96 fp32 a thread, so B4's dK/dV block
+// (dk and dv of 64 keys in each warpgroup, 160 registers before any
+// product of a stage) does not fit at 64-query stages.  The prep kernel,
+// then:
+//   2m. bwd_dkdv_split_kernel: one block per (64-key tile, KV head, batch
+//      row), head-major (the tiles of a head adjacent, the heaviest
+//      first, so the blocks in flight share a head's q/do stream in L2).
+//      The producer streams 64-query stages of q and do (40 KB, 3
+//      stages).  The two consumer warpgroups split the work by role over
+//      the same 64 keys: warpgroup 0 forms S^T = K q^T (wgmma m64n64k16,
+//      K's A fragments held in registers, q K-major), P^T (ex2.approx),
+//      hands P^T (fp32) to warpgroup 1 through shared memory (two buffers
+//      under named barriers) and holds dv += P^T do (m64n128k16); warpgroup
+//      1 forms dP^T = V do^T (V's fragments in registers), dS^T = P^T
+//      (dP^T - D), holds dk += dS^T q (m64n192k16) and writes the bf16
+//      dS^T tile to shared memory (128-byte swizzle), from where one thread
+//      stores it by TMA into the dS workspace.  Each warpgroup issues the
+//      next stage's first product right behind this stage's last.  The
+//      products balance: 64 x 64 x 192 + 64 x 128 x 64 multiply-adds a
+//      stage in each warpgroup.
+//   3m. bwd_dq_gemm_kernel: one block per (128-query tile, head, batch
+//      row), head-major, heaviest first; warpgroup w owns 64 queries and
+//      adds dq += dS K over the key tiles up to its diagonal, in order,
+//      from 4 stages of a 64-key K tile and the two warpgroups' dS^T tiles
+//      (wgmma m64n192k16, dS read M-major and K N-major through the
+//      transpose bits): no exp and no recomputed S or dP, so two of the
+//      seven products are gone.
+// What a 64-key block costs: each q/do tile is streamed once per 64 keys
+// (twice B4's traffic from L2 a key); a 2-block cluster that multicast
+// each stage to both key tiles of a pair was tried and ran slower.
+// Not yet: the dK/dV pass is the larger part; a persistent schedule would
+// hide each block's prologue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,19 +129,19 @@ constexpr int RES_BOX = ROWS * 128;          // 64 columns x 128 rows: 16 KB
 constexpr int PAD = 64;                      // workspace rows pad to this
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Tile shapes and shared memory of the pair (HDK, HDV): q / K rows are
-// BK 64-column boxes, do / V rows BV.  The dK/dV pass streams STREAM
+// B4's tile shapes and shared memory at (128, 128): q / K rows are BK
+// 64-column boxes, do / V rows BV.  The dK/dV pass streams STREAM
 // queries a stage through STAGES stages; the dQ pass KT keys a stage
-// through DQ_STAGES.
+// through DQ_STAGES.  (192, 128) runs bwd_dkdv_split_kernel and
+// bwd_dq_gemm_kernel, with SplitCfg and GemmCfg.
 template <int HDK, int HDV>
 struct Cfg {
-  static_assert(HDV == HDV_PREP && (HDK == 128 || HDK == 192),
-                "the backward takes (128, 128) and (192, 128)");
+  static_assert(HDK == 128 && HDV == HDV_PREP, "B4's kernels: (128, 128)");
   static constexpr int BK = HDK / 64, BV = HDV / 64;
-  static constexpr int STREAM = HDK == 128 ? 64 : 32;
-  static constexpr int STAGES = HDK == 128 ? 4 : 6;
-  static constexpr int KT = HDK == 128 ? 128 : 64;
-  static constexpr int DQ_STAGES = HDK == 128 ? 2 : 3;
+  static constexpr int STREAM = 64;
+  static constexpr int STAGES = 4;
+  static constexpr int KT = 128;
+  static constexpr int DQ_STAGES = 2;
   static constexpr int RES_BYTES = (BK + BV) * RES_BOX;
   static constexpr int STR_BOX = STREAM * 128;
   static constexpr int STR_STAGE = (BK + BV) * STR_BOX;
@@ -134,12 +160,37 @@ struct Cfg {
                 "tiles of whole k16 slices");
 };
 
+// bwd_dkdv_split_kernel: 64 keys a block (K and V resident), 64-query
+// stages of q, do and their lse2 and D through STAGES stages, two
+// buffers of P^T (fp32, 32 values a consumer thread) handed from the
+// warpgroup that forms it to the one that forms dS^T, and two dS^T tiles
+// (bf16, 128-byte swizzle) on their way out by TMA.
+template <int HDK, int HDV>
+struct SplitCfg {
+  static constexpr int BK = HDK / 64, BV = HDV / 64;
+  static constexpr int ROWS = 64;                     // keys; queries a stage
+  static constexpr int BOX = ROWS * 128;              // 64 rows x 64 columns
+  static constexpr int RES_BYTES = (BK + BV) * BOX;   // K and V
+  static constexpr int STAGE = (BK + BV) * BOX;       // q and do
+  static constexpr int STAGES = 3;
+  static constexpr int EXCH = 32 * 128 * 4;           // one P^T buffer
+  static constexpr int DS_BOX = BOX;                  // one dS^T tile, bf16
+  static constexpr int STAT_BYTES = 2 * ROWS * 4;
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * STAGES);
+  static constexpr int SMEM_BYTES = 1024 + RES_BYTES + STAGES * STAGE +
+                                    2 * DS_BOX + 2 * EXCH +
+                                    STAGES * STAT_BYTES + BAR_BYTES;
+  static_assert(SMEM_BYTES <= 232448, "above a block's shared memory");
+};
+
 struct Bwd {
   const bf16 *o, *dout;
   const float* lse;          // (B, H, S)
   float* ws;                 // lse2 then D, each (B, H, S64)
   bf16 *dq, *dk, *dv;
+  bf16* ds;                  // (192, 128): dS^T tiles, n_tri a (b, h)
   int B, S, S64, H, Hkv, G;
+  int n_tri;                 // 64 x 64 tiles of dS a (b, h)
   float scale, scale_log2;
   long long ws_half;         // B * H * S64
 };
@@ -187,6 +238,17 @@ __device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk, int box) {
 // boxes `box` bytes apart.
 __device__ __forceinline__ uint64_t ndesc(uint32_t tile, int kk, int box) {
   return desc_sw128(tile + kk * 2048, box, 1024);
+}
+
+// The A fragments (registers) of k16 slice kk of a 64-row tile of
+// 128-byte-swizzled 64-column boxes `box` bytes apart, as TMA wrote it:
+// this warp's 16 rows, by ldmatrix.
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], uint32_t tile,
+                                       int kk, int box) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32 % 4;
+  const int r = 16 * w + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int j = 2 * kk + (lane >> 4);          // 16-byte piece of the row
+  ldsm_x4(a, tile + (j / 8) * box + r * 128 + (((j % 8) ^ (r & 7)) << 4));
 }
 
 // Write 64 rows x N of an fp32 accumulator (m64nN layout), times `mul`,
@@ -395,6 +457,451 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// 2^x on ex2.approx.ftz (max relative error 2^-22; results below 2^-126
+// flush to 0): the (192, 128) kernels' decay, where exp2f's slower path
+// costs a tenth of the dQ pass.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Index of the 64 x 64 tile (query tile qt, key tile kt) among a (b, h)'s
+// n_tri stored dS^T tiles: the causal triangle row by row, or the square.
+__device__ __forceinline__ long long ds_tile(const Bwd& a, int b, int h,
+                                             int qt, int kt, bool causal) {
+  const int t = causal ? qt * (qt + 1) / 2 + kt : qt * (a.S64 / 64) + kt;
+  return (static_cast<long long>(b) * a.H + h) * a.n_tri + t;
+}
+
+// TMA stores from shared memory (bulk groups): the tile at `src` to the
+// box at (c0, c1, c2, c3) of `map`; the group's commit; waits until at
+// most N groups are still reading their source or, for bulk_wait, not
+// yet done; the fence that orders this thread's shared-memory writes
+// before the async proxy reads them.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Named barriers of the P^T hand-off, buffer b: P_FULL + b (filled),
+// P_EMPTY + b (read); both consumer warpgroups take part.
+constexpr int P_FULL = 1, P_EMPTY = 3, PAIR = 2 * 128;
+// Warpgroup 1's own barrier around the dS^T tile it stores.
+constexpr int DS_FREE = 5;
+
+template <int HDK, int HDV, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_do,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_ds,
+                      const Bwd a) {
+  using C = SplitCfg<HDK, HDV>;
+  constexpr int R = C::ROWS, STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_u = smem_u32(smem_raw);
+  const uint32_t base = (raw_u + 1023) & ~1023u;
+  const uint32_t k_u = base, v_u = base + C::BK * C::BOX;
+  const uint32_t ring = base + C::RES_BYTES;
+  const uint32_t dsb_u = ring + STAGES * C::STAGE;
+  const uint32_t exch_u = dsb_u + 2 * C::DS_BOX;
+  const uint32_t stats_u = exch_u + 2 * C::EXCH;
+  const uint32_t bar = stats_u + STAGES * C::STAT_BYTES;
+  const uint32_t full0 = bar + 8, empty0 = full0 + 8 * STAGES;
+  float* exch = reinterpret_cast<float*>(smem_raw + (exch_u - raw_u));
+  const float* stats =
+      reinterpret_cast<const float*>(smem_raw + (stats_u - raw_u));
+  // Head-major, the heaviest (first, causal) key tiles of a head first:
+  // the blocks in flight share their head's q/do stream in L2.
+  const int n_t = (a.S + R - 1) / R;
+  const int kt = static_cast<int>(blockIdx.x % n_t);
+  const int hb = static_cast<int>(blockIdx.x / n_t);
+  const int hkv = hb % a.Hkv, b = hb / a.Hkv;
+  const int k0 = kt * R;
+  const int qt0 = CAUSAL ? kt : 0;
+  const int iters = a.G * (n_t - qt0);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, CONSUMERS * 4);   // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread loads K, V once and keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(bar, C::RES_BYTES);
+#pragma unroll
+      for (int x = 0; x < C::BK; ++x)
+        tma_load_4d(k_u + x * C::BOX, &map_k, bar, x * 64, hkv, k0, b);
+#pragma unroll
+      for (int x = 0; x < C::BV; ++x)
+        tma_load_4d(v_u + x * C::BOX, &map_v, bar, x * 64, hkv, k0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int h = hkv * a.G; h < (hkv + 1) * a.G; ++h) {
+        const float* st = a.ws + (static_cast<long long>(b) * a.H + h) * a.S64;
+        for (int qt = qt0; qt < n_t; ++qt) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t q_u = ring + stage * C::STAGE;
+          const uint32_t s_u = stats_u + stage * C::STAT_BYTES;
+          mbar_expect_tx(full, C::STAGE + C::STAT_BYTES);
+#pragma unroll
+          for (int x = 0; x < C::BK; ++x)
+            tma_load_4d(q_u + x * C::BOX, &map_q, full, x * 64, h, qt * R, b);
+#pragma unroll
+          for (int x = 0; x < C::BV; ++x)
+            tma_load_4d(q_u + (C::BK + x) * C::BOX, &map_do, full, x * 64, h,
+                        qt * R, b);
+          bulk_load(s_u, st + qt * R, R * 4, full);
+          bulk_load(s_u + R * 4, st + a.ws_half + qt * R, R * 4, full);
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+  // ---- consumers, both over the block's 64 keys: warpgroup 0 forms
+  // S^T = K q^T and P^T and holds dv += P^T do; warpgroup 1 forms dP^T =
+  // V do^T and dS^T = P^T (dP^T - D) and holds dk += dS^T q.  Value
+  // 4 j + e of a thread's 64 x 64 tile is key key_r + 8 (e / 2), query
+  // q0 + 8 j + 2 tq + e % 2, in both.  Each warpgroup issues the next
+  // stage's first product right behind this stage's last, so its tensor
+  // work queues back to back while it does the elementwise work.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x % 128, lane = tid % 32, tq = lane % 4;
+  const int key_r = k0 + 16 * (tid / 32) + lane / 4;
+  mbar_wait(bar, 0);
+  const long long row0 = static_cast<long long>(b) * a.S * a.Hkv + hkv;
+  const auto q_of = [&](int st) { return ring + st * C::STAGE; };
+  const auto release = [&](int st) { mbar_arrive(empty0 + 8 * st); };
+  const auto do_of = [&](int st) { return q_of(st) + C::BK * C::BOX; };
+  if (wg == 0) {
+    // K's A fragments stay in registers: S^T reads only q from shared
+    // memory.
+    uint32_t kf[HDK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HDK / 16; ++kk) ldsm_a(kf[kk], k_u, kk, C::BOX);
+    float dv[HDV / 2], s[R / 2];
+#pragma unroll
+    for (int i = 0; i < HDV / 2; ++i) dv[i] = 0.f;
+    const auto issue_s = [&](int st) {
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDK / 16; ++kk)
+        wgmma_rs_n64_kmajor(s, kf[kk], kdesc(q_of(st), kk, C::BOX));
+      wgmma_commit();
+    };
+    int stage = 0;
+    uint32_t phase = 0;
+    if (iters > 0) {
+      mbar_wait(full0, 0);
+      issue_s(0);
+    }
+    for (int it = 0; it < iters; ++it) {
+      const int q0 = (qt0 + it % (n_t - qt0)) * R;
+      const float* lse2 = stats + stage * 2 * R;
+      wgmma_wait<0>();                   // S^T of this stage, dv of the last
+      fence_regs(s);
+      fence_regs(dv);
+      if (it > 0 && lane == 0)
+        release(stage == 0 ? STAGES - 1 : stage - 1);
+      // P^T; only the tile on the diagonal masks (q0 >= k0 on every tile
+      // a causal block streams).
+      const bool diag = CAUSAL && q0 == k0;
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) {
+        const int qi = 8 * (i / 4) + 2 * tq + (i & 1);
+        float v = ex2_approx(fmaf(s[i], a.scale_log2, -lse2[qi]));
+        if (diag && key_r + 8 * ((i >> 1) & 1) > q0 + qi) v = 0.f;
+        s[i] = v;
+      }
+      // Hand P^T over (the buffer of two stages ago must have been read).
+      const int buf = it & 1;
+      if (it >= 2) named_sync(P_EMPTY + buf, PAIR);
+      float* ex = exch + buf * (C::EXCH / 4);
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) ex[i * 128 + tid] = s[i];
+      named_arrive(P_FULL + buf, PAIR);
+      uint32_t pa[R / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk)
+        wgmma_rs<HDV>(dv, pa[kk], ndesc(do_of(stage), kk, C::BOX));
+      wgmma_commit();
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      if (it + 1 < iters) {
+        mbar_wait(full0 + 8 * stage, phase);
+        issue_s(stage);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dv);
+    if (iters > 0 && lane == 0) release(stage == 0 ? STAGES - 1 : stage - 1);
+    // The last two buffers' reads complete the P_EMPTY barriers' uses.
+    for (int it = iters > 2 ? iters - 2 : 0; it < iters; ++it)
+      named_sync(P_EMPTY + (it & 1), PAIR);
+    store_acc<HDV>(dv, 1.f, k0, a.S, [&](int r) {
+      return a.dv + (row0 + static_cast<long long>(r) * a.Hkv) * HDV;
+    });
+  } else {
+    uint32_t vf[HDV / 16][4];                    // V's A fragments
+#pragma unroll
+    for (int kk = 0; kk < HDV / 16; ++kk) ldsm_a(vf[kk], v_u, kk, C::BOX);
+    float dk[HDK / 2], dp[R / 2];
+#pragma unroll
+    for (int i = 0; i < HDK / 2; ++i) dk[i] = 0.f;
+    const auto issue_dp = [&](int st) {
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDV / 16; ++kk)
+        wgmma_rs_n64_kmajor(dp, vf[kk], kdesc(do_of(st), kk, C::BOX));
+      wgmma_commit();
+    };
+    int stage = 0;
+    uint32_t phase = 0;
+    if (iters > 0) {
+      mbar_wait(full0, 0);
+      issue_dp(0);
+    }
+    for (int it = 0; it < iters; ++it) {
+      const float* dl = stats + stage * 2 * R + R;
+      // P^T from warpgroup 0 while dP^T (and the last dk) are in flight.
+      const int buf = it & 1;
+      named_sync(P_FULL + buf, PAIR);
+      const float* ex = exch + buf * (C::EXCH / 4);
+      float p[R / 2];
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) p[i] = ex[i * 128 + tid];
+      named_arrive(P_EMPTY + buf, PAIR);
+      wgmma_wait<0>();                   // dP^T of this stage, dk of the last
+      fence_regs(dp);
+      fence_regs(dk);
+      if (it > 0 && lane == 0)
+        release(stage == 0 ? STAGES - 1 : stage - 1);
+      uint32_t da[R / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk) {
+        float ds[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int i = 8 * kk + e;
+          const int qi = 8 * (i / 4) + 2 * tq + (i & 1);
+          ds[e] = p[i] * (dp[i] - dl[qi]);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = pack_bf16(ds[2 * r], ds[2 * r + 1]);
+      }
+      // dS^T for the dQ pass: written into a swizzled tile in shared
+      // memory (rows = keys, 64 queries of 128 bytes), then stored by TMA
+      // by one thread; the tile's previous store must have read it.
+      {
+        const int it_h = it / (n_t - qt0), h = hkv * a.G + it_h;
+        const int qt = qt0 + it % (n_t - qt0);
+        const uint32_t tile_u = dsb_u + buf * C::DS_BOX;
+        if (tid == 0) bulk_wait_read<1>();
+        named_sync(DS_FREE, 128);
+        const int kr = key_r - k0;
+#pragma unroll
+        for (int kk = 0; kk < R / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = kr + 8 * (r & 1);
+            const int col = 16 * kk + 8 * (r >> 1) + 2 * tq;   // element
+            st_shared_u32(tile_u + row * 128 +
+                              ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2,
+                          da[kk][r]);
+          }
+        fence_proxy_async();
+        named_sync(DS_FREE, 128);
+        if (tid == 0) {
+          tma_store_4d(&map_ds, tile_u, 0, 0,
+                       static_cast<int>(ds_tile(a, b, h, qt, kt, CAUSAL) * R),
+                       0);
+          bulk_commit();
+        }
+      }
+      // dk += dS^T q (scaled at the end).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk)
+        wgmma_rs<HDK>(dk, da[kk], ndesc(q_of(stage), kk, C::BOX));
+      wgmma_commit();
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      if (it + 1 < iters) {
+        mbar_wait(full0 + 8 * stage, phase);
+        issue_dp(stage);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dk);
+    if (iters > 0 && lane == 0) release(stage == 0 ? STAGES - 1 : stage - 1);
+    if (tid == 0) bulk_wait<0>();          // the dS^T stores have landed
+    store_acc<HDK>(dk, a.scale, k0, a.S, [&](int r) {
+      return a.dk + (row0 + static_cast<long long>(r) * a.Hkv) * HDK;
+    });
+  }
+}
+
+// bwd_dq_gemm_kernel's stages: a 64-key tile of K and the two 64 x 64
+// dS^T tiles of the block's two query tiles.
+template <int HDK>
+struct GemmCfg {
+  static constexpr int BK = HDK / 64;
+  static constexpr int ROWS = 64;
+  static constexpr int BOX = ROWS * 128;              // 64 rows x 64 columns
+  static constexpr int K_BYTES = BK * BOX;
+  static constexpr int STAGE = K_BYTES + CONSUMERS * BOX;
+  static constexpr int STAGES = 4;
+  static constexpr int BAR_BYTES = 8 * 2 * STAGES;
+  static constexpr int SMEM_BYTES = 1024 + STAGES * STAGE + BAR_BYTES;
+  static_assert(SMEM_BYTES <= 232448, "above a block's shared memory");
+};
+
+// dq = scale dS K at (192, 128) from the dS^T tiles the dK/dV pass
+// stored: a block per 128 queries of a head (head-major, the heaviest,
+// last, causal tiles of a head first), warpgroup w owns query tile
+// 2 QT + w and adds dS K over the key tiles up to its diagonal in order
+// (wgmma m64n192k16 with dS read M-major and K N-major, both through
+// their transpose bits).  No exp, no recomputed S or dP.
+template <int HDK, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_gemm_kernel(const __grid_constant__ CUtensorMap map_ds,
+                   const __grid_constant__ CUtensorMap map_k, const Bwd a) {
+  using C = GemmCfg<HDK>;
+  constexpr int R = C::ROWS, STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full0 = base + STAGES * C::STAGE;
+  const uint32_t empty0 = full0 + 8 * STAGES;
+  const int n_t = (a.S + R - 1) / R;               // 64-row tiles
+  const int n_big = (a.S + 2 * R - 1) / (2 * R);   // 128-query tiles
+  const int big = n_big - 1 - static_cast<int>(blockIdx.x % n_big);
+  const int hb = static_cast<int>(blockIdx.x / n_big);
+  const int h = hb % a.H, b = hb / a.H, hkv = h / a.G;
+  const int n_kt = CAUSAL ? min(2 * big + 2, n_t) : n_t;
+  // Warpgroup w's query tile and whether it reads key tile t.
+  const auto active = [&](int w, int t) {
+    const int qt = 2 * big + w;
+    return qt < n_t && (!CAUSAL || t <= qt);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, CONSUMERS * 4);   // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_kt; ++t) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        const uint32_t full = full0 + 8 * stage;
+        const uint32_t k_u = base + stage * C::STAGE;
+        uint32_t bytes = C::K_BYTES;
+        for (int w = 0; w < CONSUMERS; ++w) bytes += active(w, t) ? C::BOX : 0;
+        mbar_expect_tx(full, bytes);
+#pragma unroll
+        for (int x = 0; x < C::BK; ++x)
+          tma_load_4d(k_u + x * C::BOX, &map_k, full, x * 64, hkv, t * R, b);
+        for (int w = 0; w < CONSUMERS; ++w)
+          if (active(w, t))
+            tma_load_4d(k_u + C::K_BYTES + w * C::BOX, &map_ds, full, 0, 0,
+                        static_cast<int>(
+                            ds_tile(a, b, h, 2 * big + w, t, CAUSAL) * R),
+                        0);
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int lane = threadIdx.x % 32;
+  float dq[HDK / 2];
+#pragma unroll
+  for (int i = 0; i < HDK / 2; ++i) dq[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  // Each tile's products are waited for behind the next tile's, so the
+  // stage is released one tile late.
+  for (int t = 0; t < n_kt; ++t) {
+    mbar_wait(full0 + 8 * stage, phase);
+    const uint32_t k_u = base + stage * C::STAGE;
+    if (active(wg, t)) {
+      const uint32_t ds_u = k_u + C::K_BYTES + wg * C::BOX;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < R / 16; ++kk)
+        wgmma_ss_n192_tt(dq, ndesc(ds_u, kk, C::BOX), ndesc(k_u, kk, C::BOX));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(dq);
+    if (t > 0 && lane == 0)
+      mbar_arrive(empty0 + 8 * (stage == 0 ? STAGES - 1 : stage - 1));
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_regs(dq);
+  const int qw0 = (2 * big + wg) * R;
+  const long long row0 = static_cast<long long>(b) * a.S * a.H + h;
+  store_acc<HDK>(dq, a.scale, qw0, a.S, [&](int r) {
+    return a.dq + (row0 + static_cast<long long>(r) * a.H) * HDK;
+  });
+}
+
 template <int HDK, int HDV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -534,59 +1041,95 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, long long blocks, int smem,
-           const CUtensorMap (&m)[4], const Bwd& a, cudaStream_t s) {
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, long long blocks, int smem, cudaStream_t s,
+           const Args&... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(
-      m[0], m[1], m[2], m[3], a);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The tensor maps and the two main kernels of the pair (HDK, HDV).
 template <int HDK, int HDV>
-int run(const void* q, const void* k, const void* v, const Bwd& a,
-        bool causal, cudaStream_t s) {
-  using C = Cfg<HDK, HDV>;
+int run(const void* q, const void* k, const void* v, const long long (&ks)[3],
+        const long long (&vs)[3], const Bwd& a, bool causal, int parts,
+        cudaStream_t s) {
   const int B = a.B, S = a.S, H = a.H, Hkv = a.Hkv;
   const long long sq = static_cast<long long>(H) * HDK;
   const long long sdo = static_cast<long long>(H) * HDV;
-  const long long sk = static_cast<long long>(Hkv) * HDK;
-  const long long sv = static_cast<long long>(Hkv) * HDV;
-  // dkdv streams STREAM queries and holds ROWS keys; dq holds ROWS
-  // queries and streams KT keys.
-  CUtensorMap m_dkdv[4], m_dq[4];
-  int err = make_map_4d(&m_dkdv[0], q, HDK, H, S, B, HDK, sq, S * sq, 1,
-                        C::STREAM);
-  if (!err)
-    err = make_map_4d(&m_dkdv[1], a.dout, HDV, H, S, B, HDV, sdo, S * sdo, 1,
-                      C::STREAM);
-  if (!err)
-    err = make_map_4d(&m_dkdv[2], k, HDK, Hkv, S, B, HDK, sk, S * sk, 1, ROWS);
-  if (!err)
-    err = make_map_4d(&m_dkdv[3], v, HDV, Hkv, S, B, HDV, sv, S * sv, 1, ROWS);
-  if (!err)
-    err = make_map_4d(&m_dq[0], q, HDK, H, S, B, HDK, sq, S * sq, 1, ROWS);
-  if (!err)
-    err = make_map_4d(&m_dq[1], a.dout, HDV, H, S, B, HDV, sdo, S * sdo, 1,
-                      ROWS);
-  if (!err)
-    err = make_map_4d(&m_dq[2], k, HDK, Hkv, S, B, HDK, sk, S * sk, 1, C::KT);
-  if (!err)
-    err = make_map_4d(&m_dq[3], v, HDV, Hkv, S, B, HDV, sv, S * sv, 1, C::KT);
-  if (err) return err;
-  const long long tiles = (S + ROWS - 1) / ROWS;
-  err = launch(causal ? bwd_dkdv_kernel<HDK, HDV, true>
-                      : bwd_dkdv_kernel<HDK, HDV, false>,
-               tiles * Hkv * B, C::SMEM_BYTES, m_dkdv, a, s);
-  if (err) return err;
-  return launch(causal ? bwd_dq_kernel<HDK, HDV, true>
-                       : bwd_dq_kernel<HDK, HDV, false>,
-                tiles * H * B, C::SMEM_BYTES, m_dq, a, s);
+  if constexpr (HDK == 192) {
+    // dK/dV: 64-row boxes of q, do (streamed) and K, V (resident); dQ: K
+    // again and the dS^T tiles, rows of 64 queries.
+    using SC = SplitCfg<HDK, HDV>;
+    constexpr int R = SC::ROWS;
+    const long long ds_rows = static_cast<long long>(B) * H * a.n_tri * R;
+    CUtensorMap m[4], m_ds;
+    int err = make_map_4d(&m[0], q, HDK, H, S, B, HDK, sq, S * sq, 1, R);
+    if (!err)
+      err = make_map_4d(&m[1], a.dout, HDV, H, S, B, HDV, sdo, S * sdo, 1, R);
+    if (!err)
+      err = make_map_4d(&m[2], k, HDK, Hkv, S, B, ks[0], ks[1], ks[2], 1, R);
+    if (!err)
+      err = make_map_4d(&m[3], v, HDV, Hkv, S, B, vs[0], vs[1], vs[2], 1, R);
+    if (!err)
+      err = make_map_4d(&m_ds, a.ds, R, 1, static_cast<int>(ds_rows), 1, R,
+                        R, ds_rows * R, 1, R);
+    if (err) return err;
+    const long long n_t = (S + R - 1) / R;
+    if (parts & 2)
+      err = launch(causal ? bwd_dkdv_split_kernel<HDK, HDV, true>
+                          : bwd_dkdv_split_kernel<HDK, HDV, false>,
+                   n_t * Hkv * B, SC::SMEM_BYTES, s, m[0], m[1], m[2], m[3],
+                   m_ds, a);
+    if (err || !(parts & 4)) return err;
+    return launch(causal ? bwd_dq_gemm_kernel<HDK, true>
+                         : bwd_dq_gemm_kernel<HDK, false>,
+                  (n_t + 1) / 2 * H * B, GemmCfg<HDK>::SMEM_BYTES, s, m_ds,
+                  m[2], a);
+  } else {
+    using C = Cfg<HDK, HDV>;
+    // dkdv streams STREAM queries and holds ROWS keys; dq holds ROWS
+    // queries and streams KT keys.
+    CUtensorMap m_dkdv[4], m_dq[4];
+    int err = make_map_4d(&m_dkdv[0], q, HDK, H, S, B, HDK, sq, S * sq, 1,
+                          C::STREAM);
+    if (!err)
+      err = make_map_4d(&m_dkdv[1], a.dout, HDV, H, S, B, HDV, sdo, S * sdo,
+                        1, C::STREAM);
+    if (!err)
+      err = make_map_4d(&m_dkdv[2], k, HDK, Hkv, S, B, ks[0], ks[1], ks[2], 1,
+                        ROWS);
+    if (!err)
+      err = make_map_4d(&m_dkdv[3], v, HDV, Hkv, S, B, vs[0], vs[1], vs[2], 1,
+                        ROWS);
+    if (!err)
+      err = make_map_4d(&m_dq[0], q, HDK, H, S, B, HDK, sq, S * sq, 1, ROWS);
+    if (!err)
+      err = make_map_4d(&m_dq[1], a.dout, HDV, H, S, B, HDV, sdo, S * sdo, 1,
+                        ROWS);
+    if (!err)
+      err = make_map_4d(&m_dq[2], k, HDK, Hkv, S, B, ks[0], ks[1], ks[2], 1,
+                        C::KT);
+    if (!err)
+      err = make_map_4d(&m_dq[3], v, HDV, Hkv, S, B, vs[0], vs[1], vs[2], 1,
+                        C::KT);
+    if (err) return err;
+    const long long tiles = (S + ROWS - 1) / ROWS;
+    if (parts & 2)
+      err = launch(causal ? bwd_dkdv_kernel<HDK, HDV, true>
+                          : bwd_dkdv_kernel<HDK, HDV, false>,
+                   tiles * Hkv * B, C::SMEM_BYTES, s, m_dkdv[0], m_dkdv[1],
+                   m_dkdv[2], m_dkdv[3], a);
+    if (err || !(parts & 4)) return err;
+    return launch(causal ? bwd_dq_kernel<HDK, HDV, true>
+                         : bwd_dq_kernel<HDK, HDV, false>,
+                  tiles * H * B, C::SMEM_BYTES, s, m_dq[0], m_dq[1], m_dq[2],
+                  m_dq[3], a);
+  }
 }
 
 }  // namespace
@@ -595,15 +1138,21 @@ int run(const void* q, const void* k, const void* v, const Bwd& a,
 // (B, S, H, hdv); k, dk: (B, S, Hkv, hdk); v, dv: (B, S, Hkv, hdv); all
 // bf16 and contiguous; (hdk, hdv) is (128, 128) or (192, 128).  lse:
 // (B, H, S) fp32 from the forward; ws: an fp32 workspace of 2 B H S64
-// floats, S64 = S rounded up to 64 (16-byte aligned).  Launches the three
-// kernels on `stream`, does not synchronise, and returns the first
+// floats, S64 = S rounded up to 64 (16-byte aligned); ds, at (192, 128)
+// only (else null): a bf16 workspace of B H n_tri 64 x 64 tiles, n_tri =
+// n (n + 1) / 2 causal, n^2 not, n = S64 / 64.  Launches the
+// kernels that `parts` names (1: prep, 2: dK/dV, 4: dQ; 7 all three, the
+// backward; the others time a kernel alone, on a workspace an earlier
+// prep filled) on `stream`, does not synchronise, and returns the first
 // failure's code (0 = launched; 1000 and up: a tensor map could not be
 // made).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, int B, int S, int H, int Hkv, int hdk, int hdv, int causal,
-    float scale, void* stream) {
+    void* dv, void* ds, int B, int S, int H, int Hkv, int hdk, int hdv,
+    int causal, float scale, int parts, long long skh, long long sks,
+    long long skb, long long svh, long long svs, long long svb,
+    void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || B > 65535 ||
       hdv != HDV_PREP || (hdk != 128 && hdk != 192))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -615,9 +1164,16 @@ extern "C" int flash_attention_bwd_launch(
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
+  a.ds = static_cast<bf16*>(ds);
   a.B = B;
   a.S = S;
   a.S64 = (S + PAD - 1) / PAD * PAD;
+  const int n_t = a.S64 / PAD;
+  a.n_tri = causal ? n_t * (n_t + 1) / 2 : n_t * n_t;
+  if (hdk == 192 && (ds == nullptr ||
+                     static_cast<long long>(B) * H * a.n_tri * 64 >
+                         0x7FFFFFFFLL))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.H = H;
   a.Hkv = Hkv;
   a.G = H / Hkv;
@@ -627,10 +1183,17 @@ extern "C" int flash_attention_bwd_launch(
   // The prep kernel first: the runtime's launch makes the device's primary
   // context current on this thread (autograd runs a backward on a thread
   // of its own), which the tensor-map encoder needs.
+  // A prep-less call (parts without 1) makes the context current with a
+  // runtime call of its own.
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bwd_prep_kernel<<<static_cast<unsigned>((a.ws_half + 7) / 8), 256, 0, s>>>(a);
+  if (parts & 1)
+    bwd_prep_kernel<<<static_cast<unsigned>((a.ws_half + 7) / 8), 256, 0,
+                      s>>>(a);
+  else
+    cudaFree(nullptr);
   const int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  return hdk == 128 ? run<128, 128>(q, k, v, a, causal != 0, s)
-                    : run<192, 128>(q, k, v, a, causal != 0, s);
+  if (err || !(parts & 6)) return err;
+  const long long ks[3] = {skh, sks, skb}, vs[3] = {svh, svs, svb};
+  return hdk == 128 ? run<128, 128>(q, k, v, ks, vs, a, causal != 0, parts, s)
+                    : run<192, 128>(q, k, v, ks, vs, a, causal != 0, parts, s);
 }

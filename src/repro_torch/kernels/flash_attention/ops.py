@@ -60,7 +60,11 @@ each row's logsumexp beside the output, and the backward is
 ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``: dq, dk, dv from
 q, k, v, the output, its gradient and the logsumexp; dk and dv summed over
 each KV head's query heads in one block, dq from a second pass that
-recomputes S and dP, so no atomics: the same bits on every run), counted
+recomputes S and dP at (128, 128), and at (192, 128) that reads back the
+bf16 dS tiles the first pass stored in a workspace the wrapper allocates
+(2.2 GB at DeepSeek-V3's train cell); no atomics: the same bits on every
+run; k and v may be strided views, as MLA makes them, read in place
+where TMA can), counted
 in ``flash_attention_bwd.launches`` (and by head-dim pair in
 ``flash_attention_bwd.launches_by_dims``).  Both take bf16 at the (q/k, v)
 head dims of ``BWD_HEAD_DIMS``, (128, 128) and MLA's (192, 128), and raise
@@ -446,24 +450,81 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, lse "
                          f"{tuple(lse.shape)}")
-    q, k, v, out, dout, lse = (t.contiguous()
-                               for t in (q, k, v, out, dout, lse))
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # lse log2(e) and rowsum(do o), each (B, H, S rounded up to 64).
-    ws = torch.empty(2 * B * H * -(-S // 64) * 64, dtype=torch.float32,
+    ops = _bwd_operands(q, k, v, out, dout, lse, causal)
+    _bwd_call(ops, causal, scale, 7)
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_dims[(hd, hd_v)] += 1
+    return ops[7:10]
+
+
+def _tma_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where TMA reads it (unit-stride rows, 16-byte aligned
+    base and strides: MLA's k and v, views of one tensor), else a
+    contiguous copy."""
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
+            all(st % 8 == 0 for st in t.stride()[:-1]):
+        return t
+    return t.contiguous()
+
+
+def _bwd_operands(q, k, v, out, dout, lse, causal) -> tuple:
+    """The kernels' inputs (q, out, dout, lse contiguous; k and v as TMA
+    reads them), the workspace (lse log2(e) and rowsum(do o), each (B, H,
+    S rounded up to 64)), dq, dk, dv (contiguous) and, at (192, 128), the
+    dS^T tiles the dK/dV pass hands the dQ pass (bf16, 64 x 64 a tile,
+    the causal triangle's or the square's tiles a (b, h); else None)."""
+    q, out, dout, lse = (t.contiguous() for t in (q, out, dout, lse))
+    k, v = _tma_view(k), _tma_view(v)
+    B, S, H, hd = q.shape
+    n = -(-S // 64)
+    ws = torch.empty(2 * B * H * n * 64, dtype=torch.float32,
                      device=q.device)
+    ds = None
+    if hd == 192:
+        tiles = n * (n + 1) // 2 if causal else n * n
+        ds = torch.empty(B * H * tiles * 64 * 64, dtype=torch.bfloat16,
+                         device=q.device)
+    return (q, k, v, out, dout, lse, ws,
+            *(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+              for t in (q, k, v)), ds)
+
+
+def _bwd_call(ops, causal, scale, parts: int) -> None:
+    """Launch the kernels ``parts`` names (1 prep, 2 dK/dV, 4 dQ)."""
+    q, k, v = ops[:3]
+    B, S, H, hd = q.shape
+    Hkv, hd_v = v.shape[2], v.shape[3]
     err = _bwd_launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, S, H, Hkv, hd, hd_v, int(causal),
-        float(scale if scale is not None else hd ** -0.5),
+        *(None if t is None else t.data_ptr() for t in ops), B, S, H, Hkv,
+        hd, hd_v, int(causal),
+        float(scale if scale is not None else hd ** -0.5), parts,
+        *(t.stride(d) for t in (k, v) for d in (2, 1, 0)),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed at ({hd}, "
                            f"{hd_v}): error {err}")
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.launches_by_dims[(hd, hd_v)] += 1
-    return dq, dk, dv
+
+
+def bwd_stage_ms(q, k, v, out, dout, lse, *, causal: bool,
+                 scale: float | None = None, iters: int = 5) -> dict:
+    """Each of the backward's three kernels timed alone on the card (CUDA
+    events around ``iters`` launches of one, after a warm-up), on the same
+    operands as :func:`flash_attention_bwd`: ms of ``prep``, ``dkdv`` and
+    ``dq``.  Not counted as launches."""
+    _bwd_contract(q, k, v)
+    ops = _bwd_operands(q, k, v, out, dout, lse, causal)
+    _bwd_call(ops, causal, scale, 7)
+    out_ms = {}
+    for name, parts in (("prep", 1), ("dkdv", 2), ("dq", 4)):
+        _bwd_call(ops, causal, scale, parts)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(iters):
+            _bwd_call(ops, causal, scale, parts)
+        end.record()
+        end.synchronize()
+        out_ms[name] = start.elapsed_time(end) / iters
+    return out_ms
 
 
 @functools.lru_cache(maxsize=None)
@@ -471,8 +532,9 @@ def _bwd_launcher():
     """The backward's C entry point with its argument types (set once)."""
     fn = LIBRARY_BWD.load().flash_attention_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int] + [ctypes.c_longlong] * 6
+                   + [ctypes.c_void_p])
     return fn
 
 

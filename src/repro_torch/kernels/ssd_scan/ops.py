@@ -91,6 +91,17 @@ def _is_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no SSD chunk scan for device {x.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_launcher():
+    """The forward's C entry point with its argument types (set once)."""
+    fn = LIBRARY.load().ssd_intra_chunk_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 20
+                   + [ctypes.c_void_p])
+    return fn
+
+
 def _launch(xs, Bm, Cm, dt, da):
     """Validate, allocate the outputs and launch on the current stream."""
     if xs.dim() != 5 or Bm.dim() != 5 or dt.dim() != 4:
@@ -120,20 +131,14 @@ def _launch(xs, Bm, Cm, dt, da):
     dec = torch.empty((B, nc, H), **f32)
     if y.numel() == 0 or S.numel() == 0:
         return y, S, dec, False
-    lib = LIBRARY.load()
-    fn = lib.ssd_intra_chunk_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 20
-                   + [ctypes.c_void_p])
     strides = [s for t in (xs, Bm, Cm, dt, da) for s in t.stride()[:4]]
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = fn(_DTYPE_CODE[xs.dtype], xs.data_ptr(), Bm.data_ptr(),
-             Cm.data_ptr(), dt.data_ptr(), da.data_ptr(), y.data_ptr(),
-             S.data_ptr(), dec.data_ptr(), B, nc, Q, H, P, N, *strides,
-             stream)
+    err = _fwd_launcher()(
+        _DTYPE_CODE[xs.dtype], xs.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        dt.data_ptr(), da.data_ptr(), y.data_ptr(), S.data_ptr(),
+        dec.data_ptr(), B, nc, Q, H, P, N, *strides, stream)
     if err != 0:
-        smem = lib.ssd_intra_chunk_smem_bytes
+        smem = LIBRARY.load().ssd_intra_chunk_smem_bytes
         smem.restype = ctypes.c_longlong
         smem.argtypes = [ctypes.c_int] * 4
         raise RuntimeError(f"ssd_intra_chunk kernel launch failed: CUDA "

@@ -14,10 +14,14 @@ batch 4), with GLM decode at batch 8 and 16 beside (grids 64 and 128).
 ``--fwd``: the plan's pick at GLM-4.5-Air's serve chunk (4096 queries at
 offset 4096 over a 10,248-position cache) and at DeepSeek-V3's 64- and
 128-query MLA chunks.  ``--bwd``: ``flash_attention_bwd`` at the train
-step's shape (B 2, S 4096, 32 / 8 heads, hd 128, causal), eager events
-over repeated calls, beside SDPA's backward (flash backend), and the
-device time of each of its kernels from ``torch.profiler``; with
-``--check`` it also asserts that two calls give the same bits.
+step's shape (B 2, S 4096, 32 / 8 heads, hd 128, causal) and at
+DeepSeek-V3's train cell (B 1, S 4096, 128 heads, q/k 192, v 128, MLA's
+scale), eager events over repeated calls, beside SDPA's backward (flash
+backend; memory-efficient at (192, 128), where flash takes one head dim),
+each of its three kernels timed alone with CUDA events
+(``ops.bwd_stage_ms``) and the device time of each kernel from
+``torch.profiler``; with ``--check`` it also asserts that two calls give
+the same bits.
 
 The script imports the package from ``sys.path``, so pointing PYTHONPATH
 at another checkout's ``src`` times that checkout's kernels with the same
@@ -173,51 +177,73 @@ def bench_fwd(iters: int) -> None:
             lambda: ops.flash_attention(q, k, v, **kw), iters)}), flush=True)
 
 
+def _bwd_cases():
+    """(tag, B, S, H, Hkv, hd, hd_v, scale, SDPA backend name): B4 at the
+    GLM train step, B4m at DeepSeek-V3's train cell (k and v strided
+    views of one tensor, as MLA makes them)."""
+    return [("train_step_flash_bwd", 2, 4096, 32, 8, 128, 128, None,
+             "FLASH_ATTENTION"),
+            ("mla_train_cell_flash_bwd", 1, 4096, 128, 128, 192, 128,
+             192 ** -0.5, "EFFICIENT_ATTENTION")]
+
+
 def bench_bwd(iters: int, check: bool) -> None:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attention import ops
 
-    B, S, H, Hkv, hd = 2, 4096, 32, 8, 128
-    g = torch.Generator(device="cuda").manual_seed(12)
-    q, dout = (torch.randn((B, S, H, hd), generator=g, device="cuda")
-               .to(torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, hd), generator=g, device="cuda")
-            .to(torch.bfloat16) for _ in range(2))
-    lse = torch.empty((B, H, S), device="cuda")
-    o = ops._launch(q, k, v, True, 0, None, None, sms=1, lse=lse)[0]
+    for tag, B, S, H, Hkv, hd, hd_v, scale, backend in _bwd_cases():
+        g = torch.Generator(device="cuda").manual_seed(12)
+        q, dout = (torch.randn((B, S, H, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for d in (hd, hd_v))
+        kv = torch.randn((B, S, Hkv, hd + hd_v), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        k, v = kv[..., :hd], kv[..., hd:]
+        if scale is None:           # GQA's k and v are tensors of their own
+            k, v = k.contiguous(), v.contiguous()
+        lse = torch.empty((B, H, S), device="cuda")
+        o = ops._launch(q, k, v, True, 0, None, scale, sms=1, lse=lse)[0]
 
-    def kernel():
-        return ops.flash_attention_bwd(q, k, v, o, dout, lse, causal=True)
+        def kernel():
+            return ops.flash_attention_bwd(q, k, v, o, dout, lse,
+                                           causal=True, scale=scale)
 
-    rec = {"case": "train_step_flash_bwd", "shape": [B, S, H, Hkv, hd]}
-    if check:
-        first, again = kernel(), kernel()
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            raise AssertionError("flash_attention_bwd: two calls differ")
-        rec["bitwise_equal"] = True
-        del first, again
-    qt = q.transpose(1, 2).detach().requires_grad_(True)
-    kt, vt = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).detach()
-              .requires_grad_(True) for t in (k, v))
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = dout.transpose(1, 2)
-    for _ in range(2):      # kernel, library, kernel, library
-        rec.setdefault("ms", []).append(_event_ms(kernel, iters))
-        rec.setdefault("sdpa_bwd_ms", []).append(_event_ms(
-            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                        retain_graph=True), iters))
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            kernel()
-        torch.cuda.synchronize()
-    rec["kernel_ms"] = {
-        e.key[:60]: e.device_time_total / 1e3 / iters
-        for e in prof.key_averages() if e.device_time_total > 0}
-    print(json.dumps(rec), flush=True)
+        rec = {"case": tag, "shape": [B, S, H, Hkv, hd, hd_v]}
+        if check:
+            first, again = kernel(), kernel()
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"{tag}: two calls differ")
+            rec["bitwise_equal"] = True
+            del first, again
+        qt = q.transpose(1, 2).detach().requires_grad_(True)
+        kt, vt = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+                  .detach().requires_grad_(True) for t in (k, v))
+        with sdpa_kernel([getattr(SDPBackend, backend)]):
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                scale=scale)
+        dot = dout.transpose(1, 2)
+        for _ in range(2):      # kernel, library, kernel, library
+            rec.setdefault("ms", []).append(_event_ms(kernel, iters))
+            rec.setdefault("sdpa_bwd_ms", []).append(_event_ms(
+                lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                            retain_graph=True), iters))
+        rec["sdpa_backend"] = backend
+        if hasattr(ops, "bwd_stage_ms"):     # absent before the split
+            rec["stage_ms"] = ops.bwd_stage_ms(q, k, v, o, dout, lse,
+                                               causal=True, scale=scale,
+                                               iters=iters)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                kernel()
+            torch.cuda.synchronize()
+        rec["kernel_ms"] = {
+            e.key[:60]: e.device_time_total / 1e3 / iters
+            for e in prof.key_averages() if e.device_time_total > 0}
+        print(json.dumps(rec), flush=True)
+        del q, k, v, kv, dout, o, lse, qt, kt, vt, ot
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:

@@ -52,7 +52,9 @@ _CATEGORIES = (
                                       "grouped_gemm_wgmma_kernel<3>",
                                       "grouped_gemm_wgmma_kernel<4>")),
     ("flash_attention backward (ours)", ("bwd_dkdv_kernel", "bwd_dq_kernel",
-                                         "bwd_prep_kernel")),
+                                         "bwd_prep_kernel",
+                                         "bwd_dkdv_split_kernel",
+                                         "bwd_dq_gemm_kernel")),
     ("ssd_scan backward (ours)", ("ssd_bwd_kernel",)),
     ("grouped_gemm (ours)", ("grouped_gemm_wgmma_kernel",
                              "grouped_gemm_tf32_kernel")),

@@ -86,11 +86,14 @@ class ParallelCtx:
     ``world`` every rank of the mesh (None: the EP group's ranks).  Rank
     numbering is the reference mesh's row-major order, global rank
     ``d * R + r``; a factored group is rack-major inside each data row, so
-    its rank r holds flat rank r's experts."""
+    its rank r holds flat rank r's experts.  ``batch_replicated``: every
+    data row holds the whole global batch, which does not divide over the
+    data group (``sharding.batch_specs``); the train step sets it."""
 
     group: object = None
     data: object = None
     world: object = None
+    batch_replicated: bool = False
 
     @property
     def ep_size(self) -> int:
@@ -295,7 +298,10 @@ def _ep_moe_block(x: torch.Tensor, mp, mcfg: MoEConfig, pctx: ParallelCtx,
     (``repro.models.transformer._ep_moe_block``) sums them: aux and drops
     over every rank of the mesh (each rank's aux is its own tokens' term),
     counts over data x EP (``replicated``: over the data group, the EP
-    ranks already count every token).
+    ranks already count every token).  Where the batch is replicated over
+    the data group (``pctx.batch_replicated``) every data row holds the
+    same values, and the sums run over the EP group only, as the
+    reference's island leaves the data axes out of them.
 
     On a group, a prefill chunk's or a training batch's sequence is split
     over the ranks when S divides by R and the mode is not replicated: each
@@ -307,14 +313,15 @@ def _ep_moe_block(x: torch.Tensor, mp, mcfg: MoEConfig, pctx: ParallelCtx,
     group is split the same way over all its R ranks."""
     B, S, D = x.shape
     g = pctx.group
+    data = None if pctx.batch_replicated else pctx.data
     if g is None:
         y, aux, stats = mp(x.reshape(-1, D), mcfg, router_bias=router_bias)
         drops, counts = stats.drops_dispatch + stats.drops_slot, stats.counts
-        if pctx.data is not None:     # one EP rank a data row
-            summed = collectives.all_reduce(pctx.data, torch.cat(
+        if data is not None:          # one EP rank a data row
+            summed = collectives.all_reduce(data, torch.cat(
                 [counts, drops[None]]))
             counts, drops = summed[:-1], summed[-1]
-            aux = collectives.all_reduce(pctx.data, aux)
+            aux = collectives.all_reduce(data, aux)
         return y.reshape(B, S, D), aux, drops, counts
     R = pctx.ep_size
     replicated = mcfg.dispatch_mode == "replicated"
@@ -329,15 +336,15 @@ def _ep_moe_block(x: torch.Tensor, mp, mcfg: MoEConfig, pctx: ParallelCtx,
     y = y.reshape(x.shape)
     if seq_ok:
         y = collectives.all_gather(g, y).permute(1, 0, 2, 3).reshape(B, S, D)
-    world = pctx.world_group
+    world = g if pctx.batch_replicated else pctx.world_group
     drops = stats.drops_dispatch + stats.drops_slot
     # The global per-expert load: replicated tokens already count it whole
     # on each EP rank.
     counts = stats.counts
     if replicated:
         drops = collectives.all_reduce(world, drops)
-        if pctx.data is not None:
-            counts = collectives.all_reduce(pctx.data, counts)
+        if data is not None:
+            counts = collectives.all_reduce(data, counts)
     else:
         summed = collectives.all_reduce(world, torch.cat([counts,
                                                           drops[None]]))
@@ -386,10 +393,15 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
         h2 = rms_norm(x, bp.norm2)
         if ffn_kind == "moe":
             B, S, D = x.shape
-            # x holds this data rank's rows already (the reference divides
-            # its global B by the data axes here).
-            tokens_per_rank = max(1, B * (S if decode or S < pctx.ep_size
-                                          else S // pctx.ep_size))
+            # The reference sizes the capacities from its global B floored
+            # by the data group, (B // D).  A split batch leaves this rank
+            # B // D rows already; a replicated one leaves all B, and the
+            # floor is taken here, a mirror of the reference (its capacity
+            # then counts fewer tokens than a rank routes), not a fix.
+            rows = B // pctx.batch_size_divisor if pctx.batch_replicated \
+                else B
+            tokens_per_rank = max(1, rows * (S if decode or S < pctx.ep_size
+                                             else S // pctx.ep_size))
             mcfg = moe_config(cfg, rcfg, pctx, tokens_per_rank,
                               dispatch_mode="replicated" if decode else "a2a")
             y2, aux, drops, counts = _ep_moe_block(h2, bp.moe, mcfg, pctx,

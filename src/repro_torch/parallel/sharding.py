@@ -44,8 +44,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["Placement", "MomentShard", "batch_specs", "local_batch",
-           "lm_param_specs", "opt_state_specs"]
+__all__ = ["Placement", "MomentShard", "batch_specs", "batch_replicated",
+           "local_batch", "lm_param_specs", "opt_state_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,10 +95,16 @@ def batch_specs(pctx, global_batch: int) -> slice:
     its contiguous share, or every row where the batch does not divide
     over the data group (replicated, as the reference)."""
     D, d = pctx.data_size, pctx.data_rank
-    if D == 1 or global_batch % D:
+    if D == 1 or batch_replicated(pctx, global_batch):
         return slice(0, global_batch)
     b = global_batch // D
     return slice(d * b, (d + 1) * b)
+
+
+def batch_replicated(pctx, global_batch: int) -> bool:
+    """True where every data row holds the whole global batch (it does
+    not divide over the data group)."""
+    return pctx.data_size > 1 and global_batch % pctx.data_size != 0
 
 
 def local_batch(batch: dict, pctx) -> dict:

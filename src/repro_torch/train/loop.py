@@ -25,9 +25,12 @@ back); the gradients are then summed over the data group, and the
 router's and shared expert's, which each EP rank runs on its slice of the
 tokens only, over data x EP (``sharding.lm_param_specs``).  Taking the
 mean over the data group instead would leave the aux term's gradient D
-times too small.  The metrics are the reference's global values on every
-rank, the router bias moves with the global counts, so every replica
-stays equal.
+times too small.  Where the global batch does not divide over the data
+group, every data row runs all of it (``ParallelCtx.batch_replicated``):
+the reference then sums aux, drops and counts over the EP axes only, and
+each rank back-propagates its aux scaled by 1/D as well.  The metrics
+are the reference's global values on every rank, the router bias moves
+with the global counts, so every replica stays equal.
 """
 
 from __future__ import annotations
@@ -125,7 +128,8 @@ def loss_and_grads(params: LMParams, batch: dict, cfg: ModelConfig,
         lm, aux, di, ci = _loss(params, mb, cfg, rcfg, pctx, router_bias)
         if D > 1:
             lm = lm * (1.0 / D)
-        li = lm + aux
+        # A replicated batch: every data row holds the same aux as well.
+        li = lm + (aux * (1.0 / D) if pctx.batch_replicated else aux)
         li.backward()
         li = li.detach()
         if D > 1:       # the global loss: the data rows' LM terms summed
@@ -157,6 +161,8 @@ def global_grads(params: LMParams, batch: dict, cfg: ModelConfig,
     if pctx.world_size == 1:
         return loss_and_grads(params, batch, cfg, rcfg, pctx, tcfg,
                               router_bias)
+    if sharding.batch_replicated(pctx, batch["tokens"].shape[0]):
+        pctx = dataclasses.replace(pctx, batch_replicated=True)
     loss, drops, counts, grads = loss_and_grads(
         params, sharding.local_batch(batch, pctx), cfg, rcfg, pctx, tcfg,
         router_bias)

@@ -7,7 +7,8 @@ orders.  Card tolerance: max|err| <= 3e-4 * max|ref| (the kernel's split
 bf16 products keep each term to about 2^-17, other summation orders); bf16
 inputs are cast to fp32 by both.  The kernel's products are also modelled
 on the CPU, to show the split is within that tolerance and one rounding of
-W is not.
+W is not, and so are the backward kernel's (within the card's 1e-4 of
+``tests/test_torch_train_kernels.py``; one rounding of dY or W not).
 
 The JAX side is imported inside the tests that use it, so the card tests
 also run where JAX is not installed:
@@ -165,6 +166,97 @@ def test_split_products_stay_within_tolerance(dtype):
     for rnd in (_bf16, _tf32):
         y, _ = _kernel_products(xs, Bm, Cm, dt, da, rnd, parts=1)
         assert rel(y, y_ref) > TOL
+
+
+def _parts(t, how):
+    """An operand as the backward kernel feeds it to the tensor cores:
+    [(part, is_lo)], exact (a bf16 input), rounded to bf16 once, or split
+    into bf16 hi + lo."""
+    if how == "exact":
+        return [(t, False)]
+    if how == "once":
+        return [(_bf16(t), False)]
+    hi, lo = _split(t, _bf16)
+    return [(hi, False), (lo, True)]
+
+
+def _mm(eq, a, b):
+    """A product of two operands' parts, accumulated in fp32, without the
+    lo x lo term."""
+    return sum(torch.einsum(eq, p, q) for p, lp in a for q, lq in b
+               if not (lp and lq))
+
+
+def _bwd_kernel_model(xs, Bm, Cm, dt, da, dy, dS, ddec, once=None):
+    """(dx, dB, dC, ddt, dda) as the backward kernel forms them, in fp32 on
+    the CPU: every product on bf16 operands (mma.sync m16n8k16) with fp32
+    accumulation; bf16 x, B, C exact, fp32 ones and every fp32 operand
+    (dY, dS, W, G and the chunk state's w_j B_j) split hi + lo; the decay
+    as ex2.approx.ftz takes it; dcum's column term as dt_j times ddt's
+    (the kernel sums dW C.B L once for both).  ``once``: "dy" or "w"
+    rounds that operand to bf16 once instead of splitting it."""
+    inp = "exact" if xs.dtype == torch.bfloat16 else "split"
+    x, b, c = (t.float() for t in (xs, Bm, Cm))
+    X, Bp, Cp = (_parts(t, inp) for t in (x, b, c))
+    DY = _parts(dy, "once" if once == "dy" else "split")
+    DS = _parts(dS, "split")
+    Q = x.shape[2]
+    cum = torch.cumsum(da, dim=2)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.exp2(diff.masked_fill(~mask, float("-inf")) * math.log2(math.e))
+    L = torch.where(L < 2.0 ** -126, torch.zeros_like(L), L)
+    cb = _mm("bcqhn,bckhn->bcqkh", Cp, Bp)
+    dW = _mm("bcqhp,bckhp->bcqkh", DY, X)
+    Ld = L * dt[:, :, None, :, :]
+    W, G = cb * Ld, dW * Ld
+    Wp = _parts(W, "once" if once == "w" else "split")
+    Gp = _parts(G, "split")
+    last = cum[:, :, -1:, :]
+    ej = torch.exp(last - cum)
+    wj = ej * dt
+    dx = (_mm("bcqkh,bcqhp->bckhp", Wp, DY)
+          + _mm("bcqhn,bchnp->bcqhp", _parts(b * wj[..., None], "split"),
+                DS))
+    u = _mm("bcqhp,bchnp->bcqhn", X, DS)
+    dC = _mm("bcqkh,bckhn->bcqhn", Gp, Bp)
+    dB = _mm("bcqkh,bcqhn->bckhn", Gp, Cp) + wj[..., None] * u
+    dwj = (b * u).sum(-1)
+    col = (dW * cb * L).sum(dim=2)
+    dcum = (dW * W).sum(dim=3) - dt * col - dwj * wj
+    dcum[:, :, -1] += (dwj * wj).sum(dim=2) + ddec * torch.exp(last[:, :, 0])
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    return dx, dB, dC, col + dwj * ej, dda
+
+
+@pytest.mark.parametrize("once", [None, "dy", "w"],
+                         ids=["split", "dy_once", "w_once"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_backward_split_products_stay_within_tolerance(dtype, once):
+    """At Jamba's chunk (Q 128, P 64, N 16) the backward kernel's split
+    bf16 products keep every gradient within 1e-4 of max|ref| of the
+    closed form (the card test's tolerance with fp32 inputs), for both
+    input dtypes (compared in fp32, before dx, dB, dC are rounded to the
+    inputs' dtype); one bf16 rounding of dY or of W does not, which is why
+    the kernel splits both."""
+    B, nc, Q, H, P, N = 1, 2, 128, 4, 64, 16
+    xs, Bm, Cm, dt, da, _ = (torch.from_numpy(a) for a in
+                             _inputs(B, nc, Q, H, P, N, seed=5))
+    rng = np.random.default_rng(6)
+    dy, dS, ddec = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((B, nc, Q, H, P), (B, nc, H, N, P),
+                               (B, nc, H)))
+    xs, Bm, Cm = (t.to(dtype) for t in (xs, Bm, Cm))
+    want = ops.ssd_intra_chunk_bwd_ref(xs.float(), Bm.float(), Cm.float(),
+                                       dt, da, dy, dS, ddec)
+    got = _bwd_kernel_model(xs, Bm, Cm, dt, da, dy, dS, ddec, once=once)
+    errs = [((g - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    if once is None:
+        assert max(errs) <= 1e-4, errs
+    else:
+        assert max(errs) > 1e-4, errs
 
 
 @pytest.fixture

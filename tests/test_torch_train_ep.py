@@ -24,7 +24,11 @@ reads.  The model is ``tiny-moe`` with ``ultraep``, AdamW at 1e-3, B 8, S
   so each EP rank's rows must be scaled by the global RMS.  Its JAX
   model keeps each layer's tensors apart (``scan_layers=False``, the same
   initial values), as the port does: Adafactor factors a stacked (L, D)
-  norm, which a per-layer (D,) norm is not.
+  norm, which a per-layer (D,) norm is not.  ``replicated``: the (2, 4)
+  mesh on the batch's first 3 rows at capacity factors 1, a global batch
+  that does not divide over the 2 data rows, so every data row runs all
+  3 rows and the reference sizes the capacities from 3 // 2 rows: the
+  floor binds and ranks drop, the same checks.
 * ``aux0``: the (2, 4) mesh with ``aux_loss_weight`` 0: the gradients of
   the global loss (summed over the mesh) against the port's one-rank step
   on the whole batch, within 1e-5 of each tensor's max|g|.
@@ -54,12 +58,13 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, STEPS, B, S = 8, 3, 8, 32
 # name: (mesh, capacity factor, use_bias, aux_loss_weight or None,
-#        optimizer)
+#        optimizer, rows of the batch)
 CASES = {
-    "d2e4": ("flat", 8.0, False, None, "adamw"),
-    "tight": ("flat", 1.0, True, None, "adamw"),
-    "rack": ("rack", 8.0, False, None, "adamw"),
-    "adafactor": ("flat", 8.0, False, None, "adafactor"),
+    "d2e4": ("flat", 8.0, False, None, "adamw", B),
+    "tight": ("flat", 1.0, True, None, "adamw", B),
+    "rack": ("rack", 8.0, False, None, "adamw", B),
+    "adafactor": ("flat", 8.0, False, None, "adafactor", B),
+    "replicated": ("flat", 1.0, False, None, "adamw", 3),
 }
 TOL = 1e-5
 LR = 1e-3
@@ -221,7 +226,8 @@ def _worker(rank, world, port, inputs, out_dir):
 
     MoEParams.forward = forward
     optimizers = {"adamw": adamw, "adafactor": adafactor}
-    for name, (mesh_name, cf, use_bias, aux, opt_name) in CASES.items():
+    for name, (mesh_name, cf, use_bias, aux, opt_name, rows) in \
+            CASES.items():
         mesh = meshes[mesh_name]
         if mesh is None:
             continue
@@ -235,7 +241,7 @@ def _worker(rank, world, port, inputs, out_dir):
         step = make_train_step(cfg, rcfg, pctx, opt, TrainConfig())
         for i in range(STEPS):
             rec.clear()
-            state, m = step(state, batch)
+            state, m = step(state, {k: v[:rows] for k, v in batch.items()})
             pre = f"{name}/{i}/"
             out[pre + "loss"] = float(m["loss"])
             out[pre + "grad_norm"] = float(m["grad_norm"])
@@ -336,7 +342,7 @@ def port_named(params, cfg):
 
 
 meshes = {{"flat": make_test_mesh(2, 4), "rack": make_rack_mesh(1, 2, 2)}}
-for name, (mesh_name, cf, use_bias, aux, opt_name) in cases.items():
+for name, (mesh_name, cf, use_bias, aux, opt_name, rows) in cases.items():
     mesh = meshes[mesh_name]
     pctx = pctx_for_mesh(mesh)
     moe = {{"use_bias": use_bias}}
@@ -359,7 +365,7 @@ for name, (mesh_name, cf, use_bias, aux, opt_name) in cases.items():
     shape = tuple(mesh.shape.values())
     for i in range(STEPS):
         REC.clear()
-        state, m = step(state, batch)
+        state, m = step(state, {{k: v[:rows] for k, v in batch.items()}})
         jax.block_until_ready(m["loss"])
         pre = f"{{name}}/{{i}}/"
         for k in ("loss", "grad_norm", "drops", "counts"):
@@ -428,6 +434,8 @@ def test_mesh_step_metrics_match_jax(mesh_run, name, step):
         jax_out[pre + "rank_drops"])
     if name == "tight":
         assert (jax_out[pre + "rank_drops"] > 0).all()
+    elif CASES[name][1] < 8:         # the capacity floor binds
+        assert int(jax_out[pre + "drops"]) > 0
     else:
         assert int(jax_out[pre + "drops"]) == 0
 
@@ -446,15 +454,23 @@ def test_mesh_params_after_steps_match_jax(mesh_run, name):
     exceeded 1e-3 of its max|g| (as tests/test_torch_train.py compares
     updated parameters); elsewhere Adam moves an element by about lr a
     step in a direction rounding may decide, so there within that (and
-    Adafactor, whose clipped update there is about lr a step or less)."""
+    Adafactor, whose clipped update there is about lr a step or less).
+    A case on fewer rows than B leaves the embedding rows that none of
+    its tokens selects without a gradient, so there the share of compared
+    elements counts the selected rows."""
     jax_out, ranks = mesh_run
     keys = [k for k in jax_out if k.startswith(f"{name}/final/")]
+    rows = CASES[name][5]
     assert keys
     for k in keys:
         want = jax_out[k]
+        reach = np.ones(want.shape, bool)
+        if rows < B and k.endswith("/embedding"):
+            reach = np.zeros(want.shape, bool)
+            reach[np.unique(jax_out["tokens"][:rows])] = True
         for r in _ranks_of(name, ranks)[::3]:
             mask = r[k.replace("/final/", "/mask/")]
-            assert mask.mean() > 0.8, (k, mask.mean())
+            assert mask[reach].mean() > 0.8, (k, mask[reach].mean())
             err = np.abs(r[k] - want)
             assert (err[mask] <= TOL * np.abs(want).max()).all(), \
                 (k, err[mask].max(), np.abs(want).max())

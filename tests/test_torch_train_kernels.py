@@ -171,6 +171,7 @@ def cuda_device():
 @pytest.mark.parametrize("B,S,H,causal", [(1, 256, 4, True),
                                           (2, 320, 2, True),
                                           (1, 1000, 8, True),
+                                          (2, 200, 3, True),
                                           (1, 333, 4, False),
                                           (1, 2048, 16, True)])
 def test_mla_backward_kernel_matches_plain_on_card(cuda_device, B, S, H,
@@ -206,11 +207,13 @@ def test_mla_backward_kernel_matches_plain_on_card(cuda_device, B, S, H,
         assert torch.equal(a, b), f"d{name} differs between two calls"
 
 
+SSD_CARD_SHAPES = [(1, 4, 128, 8, 64, 16), (2, 3, 16, 4, 16, 16),
+                   (1, 2, 100, 3, 64, 16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 4, 128, 8, 64, 16),
-                                   (2, 3, 16, 4, 16, 16),
-                                   (1, 2, 100, 3, 64, 16)], ids=str)
+@pytest.mark.parametrize("shape", SSD_CARD_SHAPES, ids=str)
 def test_ssd_backward_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     """B5 against the closed form and against autograd through the plain
     forward, on the same inputs, with cotangents of y, S and the decay:
@@ -243,6 +246,27 @@ def test_ssd_backward_kernel_matches_plain_on_card(cuda_device, dtype, shape):
                 err = (g.float() - r.float()).abs().max().item()
                 assert err <= tol * r.float().abs().max().item(), (
                     name, steep, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_CARD_SHAPES, ids=str)
+def test_ssd_backward_kernel_is_bitwise_deterministic_on_card(cuda_device,
+                                                              dtype, shape):
+    """B5 gives the same bits on two calls with the same inputs (every sum
+    in a fixed order, no atomics)."""
+    B, nc, Q, H, P, N = shape
+    (xs, Bm, Cm, dt, da, _), (dy, _) = _ssd_inputs(*shape, seed=7)
+    rng = np.random.default_rng(8)
+    dS = rng.standard_normal((B, nc, H, N, P)).astype(np.float32)
+    ddec = rng.standard_normal((B, nc, H)).astype(np.float32)
+    ins = [torch.from_numpy(a).to(cuda_device) for a in (xs, Bm, Cm, dt, da)]
+    ins[:3] = [a.to(dtype) for a in ins[:3]]
+    cots = [torch.from_numpy(a).to(cuda_device) for a in (dy, dS, ddec)]
+    first, again = (ssd.ssd_intra_chunk_bwd(*ins, *cots) for _ in range(2))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("xs", "Bm", "Cm", "dt", "da"), first, again):
+        assert torch.equal(a, b), f"d{name} differs between two calls"
 
 
 @pytest.mark.cuda
