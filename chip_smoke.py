@@ -188,11 +188,15 @@ Phases, one output line each:
      drops items at init, differently at each R), then one train step at
      4.0 with each rank's launches as stated and the one-rank router bias;
      (d) the Supervisor on the reduced GLM at head dim 128 with a fault on
-     both ranks after step 3, the replay within 1e-3 of the clean run;
-     each process's peak memory, no time;
+     both ranks after step 3, the replay within 1e-3 of the clean run
+     (whether it is bitwise is recorded); each process's peak memory, no
+     time;
  12. the backward kernels at the train step's shapes against their plain
      versions (TRAIN_TOL, 2e-2 of max|ref|), timed beside their bounds and
-     a library call: B1-B3 at GLM-4.5-Air's train counts, B4 (B 2, S 4096,
+     a library call: B1-B3 at GLM-4.5-Air's train counts and at the
+     DeepSeek-V3 and Jamba-v0.1 train cells' (each with NaN in the padded
+     rows and every 13th slot empty; B2's and B3's outputs bitwise
+     whatever B1's padded rows hold), B4 (B 2, S 4096,
      32 / 8 heads), B4m at DeepSeek-V3's MLA cell (B 1, S 4096, 128 heads,
      q/k 192, v 128; SDPA's backward, memory-efficient) and B5 at
      Jamba-v0.1's train chunk in bf16 and fp32 inputs (against the closed
@@ -204,7 +208,7 @@ Phases, one output line each:
  17. the train cells of ``launch/specs.py`` (Adafactor, per-layer remat,
      bf16, batch 1 x 4096): DeepSeek-V3 4 layers and Jamba-v0.1 8 layers,
      each parameter's gradient against ``plain_backward`` within 2e-2, a
-     second kernel run bit for bit (or which gradients differ), the remat
+     second kernel run bit for bit (loss, counts, every gradient), the remat
      recompute's counts equal to the forward's, then 3 steps through
      ``launch.train.train_cell(arch, "train_4k")`` with the launches a step as
      CELL_LAUNCHES, their times and peak memory; remat's saving on
@@ -393,11 +397,13 @@ def _time_pair(kernel, plain, library, flops, nbytes, kind, iters):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def _serve_dispatch(cfg, T: int, mode: str, seed: int, **runtime):
+def _serve_dispatch(cfg, T: int, mode: str, seed: int, cf=SERVE["cf"],
+                    **runtime):
     """The dispatch stage's output and the slot capacity as the serve path
     makes them: the port's gate, ``ultraep`` plan and bucket on T seeded
-    tokens at ``cfg``'s width, with the serve capacity factors and the
-    ``RuntimeConfig`` fields in ``runtime`` (the wire and FFN dtypes)."""
+    tokens at ``cfg``'s width, with capacity factors ``cf`` (the serve
+    path's by default) and the ``RuntimeConfig`` fields in ``runtime`` (the
+    wire and FFN dtypes)."""
     import torch
 
     from repro_torch.core.balancer import BalancerConfig
@@ -409,8 +415,8 @@ def _serve_dispatch(cfg, T: int, mode: str, seed: int, **runtime):
     from repro_torch.moe import stages
 
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode=SERVE["balancer"]),
-                         cf_pair=SERVE["cf"], cf_slot=SERVE["cf"],
-                         dtype=torch.bfloat16, **runtime)
+                         cf_pair=cf, cf_slot=cf, dtype=torch.bfloat16,
+                         **runtime)
     mcfg = moe_config(cfg, rcfg, ParallelCtx(), T, dispatch_mode=mode)
     g = torch.Generator(device="cuda").manual_seed(seed)
     D = cfg.d_model
@@ -426,10 +432,10 @@ def _serve_dispatch(cfg, T: int, mode: str, seed: int, **runtime):
     return ds, mcfg.cap_slot
 
 
-def _serve_rows(cfg, T: int, mode: str, seed: int):
+def _serve_rows(cfg, T: int, mode: str, seed: int, cf=SERVE["cf"]):
     """Each slot's valid-row count and the slot capacity as the serve path
     makes them (see :func:`_serve_dispatch`)."""
-    ds, cap = _serve_dispatch(cfg, T, mode, seed)
+    ds, cap = _serve_dispatch(cfg, T, mode, seed, cf)
     return ds.rows, cap
 
 
@@ -2864,31 +2870,54 @@ def _rel_check(name, out, ref, tol):
     return err, scale
 
 
-def phase_train_kernels(glm) -> dict:
-    """Phase 12: the backward kernels at the train step's shapes against
-    their plain versions, timed beside their bounds and a library call.
+# The grouped backward's shapes in phase 12: (tag, config name, tokens,
+# capacity factors).  GLM-4.5-Air's train step (phase 13's counts: 8192
+# tokens at 4.0) and the two train cells of phase 17 (launch/specs.py's
+# train_4k: 4096 tokens at the runtime's 2.0): DeepSeek-V3's short slots
+# (~128 rows, K 7168, N 2048) and Jamba-v0.1's 16 experts (~512 rows, K
+# 4096, N 14336).
+GROUPED_BWD_SHAPES = (("glm_train", "glm", 8192, SERVE["cf"]),
+                      ("deepseek_cell", "deepseek", 4096, 2.0),
+                      ("jamba_cell", "jamba", 4096, 2.0))
 
-    Grouped (B1 swiglu_bwd, B2 matmul_nt, B3 wgrad): G 130 slots of cap
-    2017 rows, K 4096, N 1408, with each slot's valid-row count from the
-    port's gate, ``ultraep`` plan and bucket on 8192 seeded tokens (the
-    train step's), then the same with every 13th slot empty; every output
-    within TRAIN_TOL of its max|ref|, padded rows and empty slots exactly
-    zero.  Flash (B4): B 2, S 4096, 32 / 8 heads, hd 128, causal; dq, dk,
-    dv within TRAIN_TOL of their max|ref| against autograd through the
-    plain version.  Bounds on the valid rows' (causal pairs') bf16 work or
-    the bytes, whichever is larger; library: ``torch.bmm`` over the padded
-    buffers, and SDPA's backward through autograd (flash backend, k/v
-    expanded to 32 heads outside the timed call)."""
+
+def _slot_check(name, outs, ref, tol, step: int = 32):
+    """:func:`_rel_check` of each of ``outs`` ((G, ...) tensors) against
+    the same entry of ``ref(sl)``, the plain version on the slots ``sl``,
+    a group of ``step`` slots at a time (at DeepSeek-V3's width a plain
+    version's fp32 temporaries over all 258 slots would not fit beside the
+    operands); (max err, max|ref|) over all of them."""
+    err = scale = 0.0
+    for g0 in range(0, outs[0].shape[0], step):
+        sl = slice(g0, g0 + step)
+        for out, r in zip(outs, ref(sl)):
+            e, sc = _max_err(out[sl], r)
+            err, scale = max(err, e), max(scale, sc)
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max|err| {err:.3e} > {tol} * "
+                             f"max|ref| {scale:.3e}")
+    return err, scale
+
+
+def _grouped_bwd_records(cfg, tokens: int, cf: float, iters: int) -> dict:
+    """B1 (swiglu_bwd), B2 (matmul_nt) and B3 (wgrad) at one shape of
+    GROUPED_BWD_SHAPES: each slot's valid-row count from the port's gate,
+    ``ultraep`` plan and bucket on ``tokens`` seeded tokens at capacity
+    factors ``cf``, then the same with every 13th slot empty and NaN in
+    the padded rows of x and dact; every output within TRAIN_TOL of its
+    max|ref|, padded rows and empty slots exactly zero.  B1's ``ms`` is the
+    train step's call (``zero_padded=False``: rows from the count rounded
+    up to 64 on unwritten), checked equal to the public call's on the
+    valid rows, whose time (zeros written) stands beside; and B2's and B3's
+    outputs must be the same bits whether those rows hold zeros, NaN or
+    what the train step's call left there."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.grouped_gemm import ops as gg
 
     bf16 = torch.bfloat16
-    rows, cap = _serve_rows(glm, 8192, "a2a", 7)
-    G, M, K, N = rows.shape[0], cap, glm.d_model, glm.moe.d_ff
+    rows, cap = _serve_rows(cfg, tokens, "a2a", 7, cf=cf)
+    G, M, K, N = rows.shape[0], cap, cfg.d_model, cfg.moe.d_ff
     R = int(rows.sum())
     nz = int((rows > 0).sum())
     x, w1, w3, w2 = _kernel_inputs(G, M, K, N, bf16, 11)
@@ -2898,6 +2927,7 @@ def phase_train_kernels(glm) -> dict:
     pad = (torch.arange(M, device="cuda")[None, :, None]
            >= rows[:, None, None])
     x = torch.where(pad, 0.0, x.float()).to(bf16)     # as the bucket leaves it
+    shape = dict(G=G, M=M, K=K, N=N, tokens=tokens, cf=cf)
     recs = {}
 
     def zeros_past(name, out, r):
@@ -2906,83 +2936,169 @@ def phase_train_kernels(glm) -> dict:
         if not torch.all(torch.where(keep, 0.0, out.float()) == 0):
             raise AssertionError(f"{name}: a padded row is not zero")
 
-    def record(name, kernel, plain, library, flops, nbytes, iters, checks,
+    def record(name, kernel, plain, library, flops, nbytes, checks,
                **extra):
         t = _time_pair(kernel, plain, library, flops, nbytes, "bf16", iters)
-        recs[name] = dict(t, shape=dict(G=G, M=M, K=K, N=N), rows=R,
-                          slots_with_rows=nz, **checks, **extra)
+        recs[name] = dict(t, shape=shape, rows=R, slots_with_rows=nz,
+                          **checks, **extra)
 
-    # B1
+    def nan_past(t, r):
+        keep = torch.arange(t.shape[1], device="cuda")[None, :, None] < \
+            r[:, None, None]
+        return torch.where(keep, t.float(), float("nan")).to(t.dtype)
+
+    # B1: the public call, then the train step's.
     dh, dg = gg.grouped_swiglu_bwd(x, w1, w3, dact, rows)
     torch.cuda.synchronize()
-    rh, rg = gg.grouped_swiglu_bwd_ref(x, w1, w3, dact, rows)
-    e1 = _rel_check("swiglu_bwd dh", dh, rh, TRAIN_TOL)
-    e2 = _rel_check("swiglu_bwd dg", dg, rg, TRAIN_TOL)
+    e1 = _slot_check("swiglu_bwd", (dh, dg),
+                     lambda sl: gg.grouped_swiglu_bwd_ref(
+                         x[sl], w1[sl], w3[sl], dact[sl], rows[sl]),
+                     TRAIN_TOL)
     zeros_past("swiglu_bwd dh", dh, rows)
     zeros_past("swiglu_bwd dg", dg, rows)
-    del rh, rg
+    dh5, dg5 = gg.grouped_swiglu_bwd(x, w1, w3, dact, rows,
+                                     zero_padded=False)
+    torch.cuda.synchronize()
+    for n, a, b in (("dh", dh5, dh), ("dg", dg5, dg)):
+        if not torch.equal(torch.where(pad, 0.0, a.float()), b.float()):
+            raise AssertionError(f"swiglu_bwd {n}: the train step's call "
+                                 f"differs on the valid rows")
+    tile_rows = torch.clamp((rows + 63) // 64 * 64, max=M)
     record("grouped_swiglu_bwd",
-           lambda: gg.grouped_swiglu_bwd(x, w1, w3, dact, rows),
+           lambda: gg.grouped_swiglu_bwd(x, w1, w3, dact, rows,
+                                         zero_padded=False),
            lambda: gg.grouped_swiglu_bwd_ref(x, w1, w3, dact, rows),
            None, 4.0 * R * K * N,
-           2 * (R * K + 2 * nz * K * N + 3 * R * N), 10,
-           dict(max_abs_err=max(e1[0], e2[0]), max_abs_ref=max(e1[1], e2[1])),
+           2 * (R * K + 2 * nz * K * N + 3 * R * N),
+           dict(max_abs_err=e1[0], max_abs_ref=e1[1]),
+           zero_padded_ms=_cuda_ms(
+               lambda: gg.grouped_swiglu_bwd(x, w1, w3, dact, rows), iters),
+           zero_bytes=int(4 * (G * M - int(tile_rows.sum())) * N),
+           work_items=int(gg.swiglu_bwd_tiles(rows, M, N).shape[0]),
            bmm_pair_ms=_cuda_ms(lambda: (torch.bmm(x, w1), torch.bmm(x, w3)),
-                                10),
+                                iters),
            library_note="none: no one call computes dh and dg; bmm_pair_ms "
                         "is torch.bmm of x by w1 and by w3 over the padded "
-                        "buffers")
+                        "buffers; ms is the train step's call "
+                        "(zero_padded=False), zero_padded_ms the public "
+                        "call's (rows past the count written as zeros)")
+    # B2's and B3's outputs whatever B1's padded rows hold.
+    unread = {}
+    for tag, (a, b) in (("nan", (nan_past(dh, rows), nan_past(dg, rows))),
+                        ("unwritten", (dh5, dg5))):
+        for name, call in (
+                ("matmul_nt_dual", lambda a, b: gg.grouped_matmul_nt(
+                    a, w1, rows, b, w3)),
+                ("wgrad_dw1", lambda a, b: gg.grouped_wgrad(x, a, rows)),
+                ("wgrad_dw3", lambda a, b: gg.grouped_wgrad(x, b, rows))):
+            same = torch.equal(call(a, b), call(dh, dg))
+            unread[f"{name}_{tag}"] = same
+            if not same:
+                raise AssertionError(f"{name}: B1's padded rows ({tag}) "
+                                     f"reach a valid output")
+        torch.cuda.empty_cache()
+    recs["grouped_swiglu_bwd"]["padded_rows_unread_bitwise"] = unread
+    del dh5, dg5
     # B2: dact = dy w2^T (w2 stored (G, F, D)), dx = dh w1^T + dg w3^T
     out = gg.grouped_matmul_nt(dy, w2, rows)
     torch.cuda.synchronize()
-    e = _rel_check("matmul_nt", out, gg.grouped_matmul_nt_ref(dy, w2, rows),
-                   TRAIN_TOL)
+    e = _slot_check("matmul_nt", (out,), lambda sl: (
+        gg.grouped_matmul_nt_ref(dy[sl], w2[sl], rows[sl]),), TRAIN_TOL)
     zeros_past("matmul_nt", out, rows)
     record("grouped_matmul_nt",
            lambda: gg.grouped_matmul_nt(dy, w2, rows),
            lambda: gg.grouped_matmul_nt_ref(dy, w2, rows),
            lambda: torch.bmm(dy, w2.transpose(1, 2)), 2.0 * R * K * N,
-           2 * (R * K + nz * K * N + R * N), 10,
+           2 * (R * K + nz * K * N + R * N),
            dict(max_abs_err=e[0], max_abs_ref=e[1]))
+    del w2, dy
     out = gg.grouped_matmul_nt(dh, w1, rows, dg, w3)
     torch.cuda.synchronize()
-    e = _rel_check("matmul_nt dual", out,
-                   gg.grouped_matmul_nt_ref(dh, w1, rows, dg, w3), TRAIN_TOL)
+    e = _slot_check("matmul_nt dual", (out,), lambda sl: (
+        gg.grouped_matmul_nt_ref(dh[sl], w1[sl], rows[sl], dg[sl], w3[sl]),),
+        TRAIN_TOL)
     zeros_past("matmul_nt dual", out, rows)
     recs["grouped_matmul_nt"]["dual"] = dict(
         _time_pair(lambda: gg.grouped_matmul_nt(dh, w1, rows, dg, w3),
                    lambda: gg.grouped_matmul_nt_ref(dh, w1, rows, dg, w3),
                    None, 4.0 * R * K * N,
-                   2 * (2 * R * N + 2 * nz * K * N + R * K), "bf16", 10),
+                   2 * (2 * R * N + 2 * nz * K * N + R * K), "bf16", iters),
         max_abs_err=e[0], max_abs_ref=e[1],
         bmm_pair_ms=_cuda_ms(lambda: torch.bmm(dh, w1.transpose(1, 2))
-                             + torch.bmm(dg, w3.transpose(1, 2)), 10))
-    # B3: dw1 = x^T dh at the serve counts; then NaN in the padded rows and
-    # every 13th slot empty.
+                             + torch.bmm(dg, w3.transpose(1, 2)), iters))
+    del out
+    # B3: dw1 = x^T dh; then NaN in the padded rows and every 13th slot
+    # empty, for B3 and B1.
     out = gg.grouped_wgrad(x, dh, rows)
     torch.cuda.synchronize()
-    e = _rel_check("wgrad", out, gg.grouped_wgrad_ref(x, dh, rows), TRAIN_TOL)
+    e = _slot_check("wgrad", (out,), lambda sl: (
+        gg.grouped_wgrad_ref(x[sl], dh[sl], rows[sl]),), TRAIN_TOL)
+    del out
     record("grouped_wgrad", lambda: gg.grouped_wgrad(x, dh, rows),
            lambda: gg.grouped_wgrad_ref(x, dh, rows),
            lambda: torch.bmm(x.transpose(1, 2), dh), 2.0 * R * K * N,
-           2 * (R * K + R * N + G * K * N), 10,
-           dict(max_abs_err=e[0], max_abs_ref=e[1]))
+           2 * (R * K + R * N + G * K * N),
+           dict(max_abs_err=e[0], max_abs_ref=e[1]),
+           tiles=int(gg.wgrad_tiles(G, K, N).shape[0]))
+    torch.cuda.empty_cache()
     sparse = rows.clone()
     sparse[::13] = 0
-    nan_x = torch.where(pad, float("nan"), x.float()).to(bf16)
+    nan_x = nan_past(x, rows)
     out = gg.grouped_wgrad(nan_x, dh, sparse)
     torch.cuda.synchronize()
-    e = _rel_check("wgrad sparse", out, gg.grouped_wgrad_ref(nan_x, dh,
-                                                             sparse),
-                   TRAIN_TOL)
+    e = _slot_check("wgrad sparse", (out,), lambda sl: (
+        gg.grouped_wgrad_ref(nan_x[sl], dh[sl], sparse[sl]),), TRAIN_TOL)
     if not torch.all(out[::13] == 0):
         raise AssertionError("wgrad: an empty slot's gradient is not zero")
-    dh2, _ = gg.grouped_swiglu_bwd(x, w1, w3, dact, sparse)
-    zeros_past("swiglu_bwd sparse", dh2, sparse)
     recs["grouped_wgrad"]["sparse_nan"] = dict(max_abs_err=e[0],
                                                max_abs_ref=e[1])
-    del x, w1, w3, w2, dact, dy, dh, dg, out, nan_x, dh2, pad
+    del out
+    dh2, dg2 = gg.grouped_swiglu_bwd(nan_x, w1, w3, nan_past(dact, rows),
+                                     sparse)
+    torch.cuda.synchronize()
+    e = _slot_check("swiglu_bwd sparse", (dh2, dg2), lambda sl: (
+        gg.grouped_swiglu_bwd_ref(x[sl], w1[sl], w3[sl], dact[sl],
+                                  sparse[sl])), TRAIN_TOL)
+    zeros_past("swiglu_bwd sparse dh", dh2, sparse)
+    zeros_past("swiglu_bwd sparse dg", dg2, sparse)
+    recs["grouped_swiglu_bwd"]["sparse_nan"] = dict(max_abs_err=e[0],
+                                                    max_abs_ref=e[1])
+    del x, w1, w3, dact, dh, dg, nan_x, dh2, dg2, pad
     torch.cuda.empty_cache()
+    return recs
+
+
+def phase_train_kernels(glm, deepseek, jamba) -> dict:
+    """Phase 12: the backward kernels at the train steps' shapes against
+    their plain versions, timed beside their bounds and a library call.
+
+    Grouped (B1 swiglu_bwd, B2 matmul_nt, B3 wgrad): at each shape of
+    GROUPED_BWD_SHAPES (:func:`_grouped_bwd_records`); the GLM train
+    step's records are the kernels line's, the cells' stand beside them.
+    Flash (B4): B 2, S 4096, 32 / 8 heads, hd 128, causal; dq, dk, dv
+    within TRAIN_TOL of their max|ref| against autograd through the plain
+    version.  Bounds on the valid rows' (causal pairs') bf16 work or the
+    bytes, whichever is larger; library: ``torch.bmm`` over the padded
+    buffers, and SDPA's backward through autograd (flash backend, k/v
+    expanded to 32 heads outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    bf16 = torch.bfloat16
+    cfgs = {"glm": glm, "deepseek": deepseek, "jamba": jamba}
+    recs = {}
+    for tag, name, tokens, cf in GROUPED_BWD_SHAPES:
+        shape_recs = _grouped_bwd_records(cfgs[name], tokens, cf,
+                                          10 if tag == "glm_train" else 4)
+        for kernel, rec in shape_recs.items():
+            if tag == "glm_train":
+                recs[kernel] = rec
+            else:
+                recs[kernel][tag] = rec
+    g = torch.Generator(device="cuda").manual_seed(12)
 
     # B4
     B, S, H, Hkv, hd = 2, 4096, 32, 8, 128
@@ -3348,9 +3464,9 @@ def _cell_check(tr, batch) -> dict:
     against the same step with ``plain_backward`` (the forward kernels
     shared, so both route alike), within TRAIN_TOL of each max|ref|; the
     kernel gradients wait on the host.  A second kernel run first: its
-    loss, counts and gradients against the first's bit for bit, which
-    says whether the step is deterministic and, if not, where; and the
-    remat recompute's counts against the forward's, layer by layer."""
+    loss, counts and every parameter's gradient must equal the first's bit
+    for bit (the step sums in a fixed order: no atomics); and the remat
+    recompute's counts against the forward's, layer by layer."""
     import torch
 
     from repro_torch.train.loop import loss_and_grads
@@ -3389,6 +3505,8 @@ def _cell_check(tr, batch) -> dict:
     again = {"loss_equal": bool(torch.equal(loss_k, loss_2)),
              "counts_equal": bool(torch.equal(counts_k, counts_2)),
              "params_differing": differ}
+    if differ or not again["loss_equal"] or not again["counts_equal"]:
+        raise AssertionError(f"cell rerun not bitwise: {again}")
     del grads_2
     for p in params.parameters():
         p.grad = None
@@ -3869,6 +3987,8 @@ def phase_train_group(glm) -> dict:
               "peak_mem_gb_check_by_rank": {
                   n: [r[n]["peak_mem_gb_check"] for r in ranks]
                   for n in GROUP_CASES},
+              "supervisor_replay_bitwise": [r["d"]["replay_bitwise"]
+                                            for r in ranks],
               "ranks_by_case": ranks}
     _line("phase16_train_group", result)
     return result
@@ -4338,7 +4458,7 @@ def main() -> int:
     eplb_records = timed("phase2_eplb_place", phase_eplb_place)
     flash_records = timed("phase2_flash_attention", phase_flash)
     train_kernel_records = timed("phase12_train_kernels", phase_train_kernels,
-                                 glm)
+                                 glm, deepseek, jamba)
     timed("phase3_moe_layer", phase_moe_layer, glm)
     glm_2l = dataclasses.replace(glm, name=glm.name + "-2l", num_layers=2)
     glm_serve = timed("phase4_serve_glm", phase_serve, glm_2l,
@@ -4742,15 +4862,21 @@ def main() -> int:
     # package's einsums and flash_ref), with their launches in the last
     # train step of phase 13 and in phase 9's R = 2 backward.
     train_launches = train_record["launches_per_step"]
+    cell_launches = {a: cell_records[a]["launches_per_step"]
+                     for a in TRAIN_CELLS}
+    cells = tuple(tag for tag, *_ in GROUPED_BWD_SHAPES[1:])
     bwd_rows = (
         ("grouped_swiglu_bwd", gg_src, "src/repro/kernels/grouped_gemm/"
          "kernel.py:154 (its backward; no pallas_call: XLA differentiates "
-         "src/repro/moe/expert.py:102-105)", ("sparse_nan",)),
+         "src/repro/moe/expert.py:102-105)",
+         ("sparse_nan", "zero_padded_ms", "zero_bytes", "work_items",
+          "padded_rows_unread_bitwise") + cells),
         ("grouped_matmul_nt", gg_src, "src/repro/kernels/grouped_gemm/"
-         "kernel.py:184 and :154 (their dgrad; no pallas_call)", ("dual",)),
+         "kernel.py:184 and :154 (their dgrad; no pallas_call)",
+         ("dual",) + cells),
         ("grouped_wgrad", gg_src, "src/repro/kernels/grouped_gemm/"
          "kernel.py:154 and :184 (their wgrad; no pallas_call)",
-         ("sparse_nan",)),
+         ("sparse_nan", "tiles") + cells),
         ("flash_attention_bwd", "src/repro_torch/kernels/flash_attention/"
          "csrc/flash_attention_bwd.cu", "src/repro/kernels/flash_attention/"
          "kernel.py:84 (its backward; no pallas_call: XLA differentiates "
@@ -4762,14 +4888,14 @@ def main() -> int:
             "launches_by_path": {
                 "train_step_glm45_1l": train_launches[name],
                 "ep_layer_r2_backward_rank0": ep["ranks_by_mode"][0][
-                    "backward"]["launches"].get(name)},
+                    "backward"]["launches"].get(name),
+                **{f"train_cell_{a}": n.get(name)
+                   for a, n in cell_launches.items()}},
             **{k: rec[k] for k in subs if k in rec},
             **{k: rec[k] for k in ("bmm_pair_ms", "library_note", "rows",
                                    "slots_with_rows", "dq") if k in rec}}))
     # B4m and B5, with their launches in the last step of phase 17's
     # DeepSeek-V3 and Jamba-v0.1 train cells.
-    cell_launches = {a: cell_records[a]["launches_per_step"]
-                     for a in TRAIN_CELLS}
     rec = train_kernel_records["flash_attention_bwd.mla"]
     kernels.append(_kernel_row(
         "flash_attention_bwd.mla", "src/repro_torch/kernels/flash_attention/"

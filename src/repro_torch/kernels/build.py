@@ -46,17 +46,21 @@ def _nvcc() -> str:
 
 
 class KernelLibrary:
-    """One CUDA source, its shared library and the ctypes handle."""
+    """One CUDA source, its shared library and the ctypes handle.
+    ``include``: the shared headers' folder (another checkout's, to build
+    that checkout's source as it was)."""
 
-    def __init__(self, name: str, source: Path):
+    def __init__(self, name: str, source: Path,
+                 include: Path = SHARED_INCLUDE):
         self.name = name
         self.source = Path(source)
+        self.include = Path(include)
         self._lib: ctypes.CDLL | None = None
         self.ptxas_log = ""
 
     def _digest(self) -> str:
         h = hashlib.sha256(self.source.read_bytes())
-        for folder in (self.source.parent, SHARED_INCLUDE):
+        for folder in (self.source.parent, self.include):
             for header in sorted(folder.glob("*.cuh")):
                 h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
@@ -72,7 +76,7 @@ class KernelLibrary:
             return None
         build_dir().mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SHARED_INCLUDE), "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(self.include), "-o", str(tmp),
                str(self.source)]
         return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

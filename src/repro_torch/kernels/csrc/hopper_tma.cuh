@@ -1,6 +1,7 @@
 // Building blocks shared by the TMA + wgmma kernels for Hopper (sm_90a):
 // mbarriers, TMA loads (3-D and 4-D tensor maps, and plain bulk copies),
-// wgmma descriptors and fences, and the host-side tensor-map encoder.
+// TMA stores in bulk groups, named barriers, wgmma descriptors and fences,
+// and the host-side tensor-map encoder.
 // Included by grouped_gemm.cu (bf16), grouped_gemm_q8.cu (int8),
 // flash_attention.cu and flash_attention_bwd.cu; each source is its own
 // translation unit, so everything here is internal to it.  Built with -I on
@@ -79,6 +80,59 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// TMA stores from shared memory (bulk groups): the tile at `src` to the
+// box at (c0, c1, c2[, c3]) of `map` (TMA writes nothing outside the
+// operand); the group's commit; waits until at most N groups are still
+// reading their source or, for bulk_wait, not yet done; the fence that
+// orders this thread's shared-memory writes before the async proxy reads
+// them; 32-bit shared-memory accesses by address.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Named barriers: bar.sync waits for `threads` threads at barrier `id`
+// (1-15; 0 is __syncthreads), bar.arrive counts this thread and goes on.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle.  K-major tiles (rows of

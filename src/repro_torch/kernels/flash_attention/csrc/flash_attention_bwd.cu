@@ -466,50 +466,12 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // Index of the 64 x 64 tile (query tile qt, key tile kt) among a (b, h)'s
 // n_tri stored dS^T tiles: the causal triangle row by row, or the square.
 __device__ __forceinline__ long long ds_tile(const Bwd& a, int b, int h,
                                              int qt, int kt, bool causal) {
   const int t = causal ? qt * (qt + 1) / 2 + kt : qt * (a.S64 / 64) + kt;
   return (static_cast<long long>(b) * a.H + h) * a.n_tri + t;
-}
-
-// TMA stores from shared memory (bulk groups): the tile at `src` to the
-// box at (c0, c1, c2, c3) of `map`; the group's commit; waits until at
-// most N groups are still reading their source or, for bulk_wait, not
-// yet done; the fence that orders this thread's shared-memory writes
-// before the async proxy reads them.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
-                                             uint32_t src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
-      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // Named barriers of the P^T hand-off, buffer b: P_FULL + b (filled),

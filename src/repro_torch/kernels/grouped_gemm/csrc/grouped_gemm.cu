@@ -90,37 +90,88 @@
 // Backward (bf16 only; the training step's expert FFN, at GLM-4.5-Air's
 // train shapes G 130, cap 2017, K 4096, N 1408).  The JAX package has no
 // backward kernel: XLA differentiates the einsums of repro/moe/expert.py.
-// Three more instantiations of grouped_gemm_wgmma_kernel and one kernel of
-// its own, all on the same ring, producer and wgmma machinery:
-//   * B1 swiglu_bwd (MODE_SWIGLU_BWD): the SwiGLU kernel's products
-//     h = x w1, g = x w3 from one read of each x tile, and an epilogue that
-//     reads dact and writes dh = dact g s (1 + h (1 - s)) and
-//     dg = dact h s, s = sigmoid(h), both bf16; rows past the count are
-//     exact zeros.  Bound as the forward SwiGLU (operations on the valid
-//     rows), plus the dact read and the second output.
-//   * B2 dgrad (MODE_NT, MODE_NT2): out = x w^T with w stored (G, N, K),
+//   * B2 dgrad (MODE_NT, MODE_NT2): two more instantiations of
+//     grouped_gemm_wgmma_kernel.  out = x w^T with w stored (G, N, K),
 //     K-contiguous: wgmma reads such a B K-major (no transpose bit), each
 //     128-column B tile one TMA box of 64 K x 128 N rows, as the q8 kernels
 //     read their weight codes.  MODE_NT2 sums two products over the same
 //     K, out = x w1^T + x2 w3^T (dx = dh w1^T + dg w3^T): the K loop runs
-//     over x/w1 and then x2/w3 into the same accumulators.
+//     over x/w1 and then x2/w3 into the same accumulators.  A tile past a
+//     slot's count loads nothing, and the epilogue selects zero for the
+//     rows past it, so whatever its operands hold there (NaN included)
+//     never reaches a valid row.
+//   * B1 and B3 are persistent kernels of their own: one block an SM
+//     (__launch_bounds__(THREADS, 1), ~210 KB of shared memory) walks a
+//     list of output tiles; the producer thread keeps the ring (3 stages of
+//     48 KB) full across tile boundaries, so the next tile's loads run
+//     under this tile's epilogue, and the epilogue leaves through shared
+//     memory: bf16 into swizzled staging boxes, fence.proxy.async, one
+//     thread's TMA stores in a bulk group, waited on only before the
+//     buffer is written again, so the store of tile i runs under the
+//     products of tile i + 1.  Three stages, not the forward's four: the
+//     staging takes the fourth stage's room (227 KB a block; four stages
+//     with half the staging measured no faster).  A consumer warpgroup
+//     runs its 64 rows x 256 columns as one m64n256k16 product a k-step
+//     (two m64n128 would read its A operand twice).
 //   * B3 grouped_wgrad_kernel: dW[g] = x[g, :rows[g]]^T d[g, :rows[g]],
-//     (G, K, N) in bf16 with fp32 accumulation.  The contraction is over
-//     the slot's valid rows only: the K loop runs ceil(rows[g] / 64) tiles
-//     (a slot with no rows writes its zero tile and reads nothing; this is
-//     what torch.bmm over the padded buffers cannot skip), and the rows of
-//     the last tile past the count are zeroed in shared memory before its
-//     products, so whatever the buffers hold there (NaN included) adds
-//     nothing.  Both operands are token-major in memory: x is read as an
-//     M-major A (wgmma's transpose bit on A), d as the N-major B the
-//     forward kernels read.  One block: 128 output rows (two warpgroups of
-//     64) x 256 columns, the forward's 48 KB stages (two 64 x 64 A boxes,
-//     four 64 x 64 B boxes).
-// Not yet: persistent blocks (each block's prologue and epilogue are not
-// overlapped with another tile's loads), clusters with TMA multicast, and
-// stores through shared memory; for fp32, wgmma in TF32 (it needs the
-// weights K-major: a transpose in shared memory or K-major slot buffers),
-// and splitting each weight element once a block, not once a row warp.
+//     (G, K, N) in bf16 with fp32 accumulation.  A tile is 128 output
+//     rows (two warpgroups of 64) x 256 columns; the list is every
+//     (slot, K tile, N tile), slot-major with the N tiles fastest, block b
+//     taking tiles b, b + grid, ...: the blocks running together read one
+//     slot's x and d panels from L2 and write whole output rows (at
+//     DeepSeek-V3's cell, bound by its stores, 3.45-3.54 ms against
+//     3.91-4.00 with the K tiles fastest; the same within 5% at GLM's and
+//     Jamba's counts).  The contraction is over the slot's
+//     valid rows only: ceil(rows[g] / 64) token tiles (a slot with no rows
+//     stores its zero tile and reads nothing; this is what torch.bmm over
+//     the padded buffers cannot skip), and the rows of the last tile past
+//     the count are zeroed in shared memory before its products, so
+//     whatever the buffers hold there (NaN included) adds nothing.  Both
+//     operands are token-major: x is read as an M-major A (wgmma's
+//     transpose bit on A), d as the N-major B the forward kernels read.
+//     Columns: a tile whose second 128 columns lie past N runs an m64n128
+//     product (GLM-4.5-Air's N 1408 is 5.5 tiles of 256; the last one is
+//     128 wide instead of wasting 8% of the products on zero columns).
+//     What bounds it: the products where slots are long (GLM's and
+//     Jamba's train counts, ~500 rows a slot: 0.76 and 0.97 ms), the
+//     output's bytes where they are short (DeepSeek-V3's cell, ~128 rows a
+//     slot: 258 x 7168 x 2048 bf16, 7.6 GB, 2.26 ms against 2 token tiles
+//     of products a tile), where a tile's stores overlap the next tile's
+//     products (a second staging tile in place of a stage measured no
+//     faster).
+//   * B1 grouped_swiglu_bwd_kernel: the SwiGLU's products h = x w1,
+//     g = x w3 from one read of each x tile (w1's and w3's boxes side by
+//     side as one 256-column B), and an epilogue that writes
+//     dh = dact g s (1 + h (1 - s)) and dg = dact h s, s = sigmoid(h),
+//     both bf16.  Only row tiles that hold rows are walked:
+//     sum_g ceil(rows[g] / 128) of them x the 128-column tiles, numbered
+//     by a schedule every block builds in shared memory from `rows` (a
+//     warp scan; no host read): slot-major, then the column tile, then the
+//     row tile fastest.  Blocks take the items one at a time from a counter
+//     on the device, so the items that share a weight panel start together
+//     and its second reader finds it in L2 (with items dealt out by block
+//     number, blocks drift apart and DeepSeek-V3's cell, whose weights
+//     bound it, read them about twice).  A slot's last row tile with at
+//     most 64 valid rows is a narrow item: both warpgroups take its 64
+//     rows, each 64 of the 128 columns (one m64n128 product over w1's and
+//     w3's boxes 16 KB apart), so it costs half an item instead of a full
+//     one with a warpgroup idle.  The tile's dact block (128 x 128, 32 KB)
+//     comes by TMA into its own buffer under its own mbarrier while the
+//     products run (the producer issues it a few k-steps into the tile,
+//     once the previous tile's dh store has read the buffer); each thread
+//     reads its dact values from it and writes dh back in place and dg
+//     into a staging buffer, and both leave by TMA.  Rows past the count:
+//     a straddling tile's are stored as zeros; the rest, rows
+//     [ceil(rows[g] / 64) 64, M) of each slot, one contiguous range, are
+//     written as zeros by streaming 16-byte stores from the producer
+//     warpgroup's three idle warps (the public contract), or left
+//     unwritten (the autograd backward, whose only readers, B2 and B3,
+//     read the valid rows only).  Bound as the forward SwiGLU (operations
+//     on the valid rows), or by the weights' bytes where slots are short.
+// Not yet: clusters with TMA multicast; for fp32, wgmma in TF32 (it needs
+// the weights K-major: a transpose in shared memory or K-major slot
+// buffers), and splitting each weight element once a block, not once a
+// row warp.
 
 #include <cuda_bf16.h>
 
@@ -177,6 +228,65 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "n"(TA), "n"(TB));
 }
 
+// d (64 x 256, fp32) += A (64 x 16) @ B (16 x 256): as wgmma_m64n128k16,
+// with B four 64-column boxes LBO apart (one instruction where two m64n128
+// would read A twice).  d[4 j + e] sits at column 8 j + 2 (lane % 4) +
+// (e & 1): j < 16 is the first 128 columns, so d is acc[2][64] flattened.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, 1, 1, 1, %130, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB));
+}
+
+__device__ __forceinline__ float (&flat(float (&acc)[2][64]))[128] {
+  return *reinterpret_cast<float(*)[128]>(&acc[0][0]);
+}
+
 // Zero rows [m0, m0 + nrows) x columns [n0, n0 + ncols) of one slot's
 // output, 16 bytes a store (ncols, n0 and the row stride are multiples of
 // 16 bytes).
@@ -192,11 +302,11 @@ __device__ __forceinline__ void zero_tile(T* outg, long long som, int m0,
   }
 }
 
-// The products of grouped_gemm_wgmma_kernel.
+// The products of grouped_gemm_wgmma_kernel (the backward entry's modes
+// are B2's, 3 and 4).
 enum Mode {
   MODE_MATMUL = 0,       // out = x w (w N-major)
   MODE_SWIGLU = 1,       // out = silu(x w1) * (x w3)
-  MODE_SWIGLU_BWD = 2,   // (out, out2) = (dh, dg) of the SwiGLU, from dact
   MODE_NT = 3,           // out = x w^T (w stored (G, N, K), K-major)
   MODE_NT2 = 4,          // out = x w1^T + x2 w3^T
 };
@@ -209,20 +319,19 @@ __device__ __forceinline__ void swiglu_grad(float h, float g, float da,
   dh = da * g * sg * (1.0f + h * (1.0f - sg));
 }
 
-// out (and out2, dact): (G, M, n_out) with n_out = N rounded up to 8 (the
-// wrapper returns the first N columns); som = n_out, sog = M * n_out.
+// out: (G, M, n_out) with n_out = N rounded up to 8 (the wrapper returns
+// the first N columns); som = n_out, sog = M * n_out.
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                           const __grid_constant__ CUtensorMap map_x2,
                           const __grid_constant__ CUtensorMap map_w1,
                           const __grid_constant__ CUtensorMap map_w3,
-                          bf16* __restrict__ out, bf16* __restrict__ out2,
-                          const bf16* __restrict__ dact,
+                          bf16* __restrict__ out,
                           const long long* __restrict__ rows, int M, int K,
                           int n_out, int n_tiles, int m_tiles, long long sog,
                           long long som) {
-  constexpr bool SWI = MODE == MODE_SWIGLU || MODE == MODE_SWIGLU_BWD;
+  constexpr bool SWI = MODE == MODE_SWIGLU;
   constexpr bool KMAJOR_B = MODE == MODE_NT || MODE == MODE_NT2;
   constexpr int OUT_COLS = SWI ? BN : 2 * BN;
   extern __shared__ unsigned char smem_raw[];
@@ -236,9 +345,6 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 
   if (m0 >= mv) {   // no valid row in this tile: zeros, no weight bytes
     zero_tile(outg, som, m0, min(BM, M - m0), n0, min(OUT_COLS, n_out - n0));
-    if constexpr (MODE == MODE_SWIGLU_BWD)
-      zero_tile(out2 + g * sog, som, m0, min(BM, M - m0), n0,
-                min(OUT_COLS, n_out - n0));
     return;
   }
 
@@ -353,25 +459,6 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
           const int c = c0 + b * BN + 8 * j;
           if (c >= n_out) continue;
           const int i = 4 * j + 2 * half;
-          if constexpr (MODE == MODE_SWIGLU_BWD) {
-            bf16* o2 = out2 + g * sog + r * som + c;
-            if (!keep) {
-              *reinterpret_cast<__nv_bfloat162*>(orow + c) = zero2;
-              *reinterpret_cast<__nv_bfloat162*>(o2) = zero2;
-              continue;
-            }
-            const float2 da = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(dact + g * sog +
-                                                          r * som + c));
-            float dh0, dg0, dh1, dg1;
-            swiglu_grad(acc[0][i], acc[1][i], da.x, dh0, dg0);
-            swiglu_grad(acc[0][i + 1], acc[1][i + 1], da.y, dh1, dg1);
-            *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-                __floats2bfloat162_rn(dh0, dh1);
-            *reinterpret_cast<__nv_bfloat162*>(o2) =
-                __floats2bfloat162_rn(dg0, dg1);
-            continue;
-          }
           float v0, v1;
           if constexpr (MODE == MODE_SWIGLU) {
             v0 = silu_mul(acc[0][i], acc[1][i]);
@@ -388,134 +475,506 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// dW[g] (Kd x N) = x[g, :mv]^T @ d[g, :mv] over the slot's mv valid rows.
-// x (G, M, Kd) and d (G, M, N) bf16, token-major; out (G, Kd, N) bf16,
-// som = N, sog = Kd * N.  Block: output rows m0 .. m0 + 127 (Kd), columns
-// n0 .. n0 + 255; stage t holds token rows 64 t .. 64 t + 63 as two A boxes
-// (64 Kd columns each, one per consumer warpgroup) and four B boxes.
+// ------------------------------------ backward B1 and B3: persistent blocks
+
+constexpr int P_STAGES = 3;          // ring stages of STAGE_BYTES
+constexpr int SBOX = 64 * 128;       // 8 KB: 64 rows of a swizzled 64-column box
+constexpr int TAIL_BAR = 1;          // named barrier of both consumer warpgroups
+constexpr int WG_BAR = 2;            // 2, 3: one a consumer warpgroup
+constexpr int FREE_AT = 4;           // B1: k-step at which the dact buffer is
+constexpr int DACT_AT = FREE_AT + P_STAGES;   // freed, and refilled
+constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a block may use
+// Shared memory of both: the ring, 64 KB of staging (B3: two warpgroups x
+// four boxes; B1: the dact buffer and dg's), the barriers; then B1's
+// work-item ids and schedule (G + 1 ints, added by the launcher).
+constexpr int SMEM_PERSISTENT =
+    1024 + P_STAGES * STAGE_BYTES + 8 * SBOX + (2 * P_STAGES + 2) * 8 +
+    4 * P_STAGES;
+
+// Byte offset of element column c (even, < 64) of row r in a box of 64 bf16
+// columns with TMA's 128-byte swizzle (16-byte chunk j of row r at chunk
+// j ^ (r % 8); boxes 1024-byte aligned).  A warp's 32-bit accesses at one
+// accumulator index touch 8 rows x 4 words: 32 distinct banks.
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
+  if (++stage == P_STAGES) { stage = 0; phase ^= 1; }
+}
+
+// B3's tile w: slot g, output rows m0 .. m0 + 127 (of Kd), columns
+// n0 .. n0 + 255 (of N); slot-major, the N tiles fastest.
+__device__ __forceinline__ void wgrad_tile(int w, int k_tiles, int n_tiles,
+                                           int& g, int& m0, int& n0) {
+  const int per = k_tiles * n_tiles;
+  g = w / per;
+  const int r = w - g * per;
+  m0 = (r / n_tiles) * BM;
+  n0 = (r % n_tiles) * 2 * BN;
+}
+
+// One B3 tile's token tiles for one consumer warpgroup: TWO, both
+// 128-column halves in one m64n256 product (the four B boxes side by
+// side), else the first half's m64n128.  Stage t holds token rows
+// 64 t .. 64 t + 63 as two A boxes (64 Kd columns each, one per consumer
+// warpgroup) and four B boxes; the ring position carries over to the next
+// tile, and the last stage is released here.
+template <bool TWO>
+__device__ __forceinline__ void wgrad_products(float (&acc)[2][64],
+                                               unsigned char* tiles,
+                                               uint32_t tiles_u,
+                                               uint32_t full0,
+                                               uint32_t empty0, int mv,
+                                               int wg, int& stage,
+                                               uint32_t& phase) {
+  const int lane = threadIdx.x % 32;
+  const int ttiles = (mv + BK - 1) / BK;
+  int prev = 0;
+  for (int t = 0; t < ttiles; ++t) {
+    mbar_wait(full0 + 8 * stage, phase);
+    const int tail = mv - t * BK;   // valid token rows in this tile
+    if (tail < BK) {
+      // Token rows tail .. 63 of all six boxes to zero (a row is 128
+      // bytes; the swizzle permutes 16-byte pieces within it), made
+      // visible to the tensor cores' async proxy, then both consumer
+      // warpgroups meet before the products.
+      unsigned char* st = tiles + stage * STAGE_BYTES;
+      const int n = 6 * (BK - tail) * 8;
+      const uint4 z = make_uint4(0, 0, 0, 0);
+      for (int i = threadIdx.x; i < n; i += CONSUMERS * 128) {
+        const int box = i / ((BK - tail) * 8);
+        const int rr = tail + (i / 8) % (BK - tail), c = i % 8;
+        *reinterpret_cast<uint4*>(st + box * BOX_BYTES + rr * 128 + c * 16) =
+            z;
+      }
+      fence_proxy_async();
+      named_sync(TAIL_BAR, CONSUMERS * 128);
+    }
+    const uint32_t a = tiles_u + stage * STAGE_BYTES + wg * BOX_BYTES;
+    const uint32_t b = tiles_u + stage * STAGE_BYTES + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t da = desc_sw128(a + kk * 2048, BOX_BYTES, 1024);
+      const uint64_t db = desc_sw128(b + kk * 2048, BOX_BYTES, 1024);
+      if constexpr (TWO)
+        wgmma_m64n256k16<1, 1>(flat(acc), da, db);
+      else
+        wgmma_m64n128k16<1, 1>(acc[0], da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+    prev = stage;
+    advance(stage, phase);
+  }
+  wgmma_wait<0>();
+  if (ttiles > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+}
+
+// B3: dW[g] (Kd x N) = x[g, :mv]^T @ d[g, :mv] over the slot's mv valid
+// rows; x (G, M, Kd) and d (G, M, N) bf16, token-major; out (G, Kd, N) bf16
+// through map_out (64 x 64 boxes).  n_work = G k_tiles n_tiles tiles.
 __global__ void __launch_bounds__(THREADS, 1)
 grouped_wgrad_kernel(const __grid_constant__ CUtensorMap map_x,
                      const __grid_constant__ CUtensorMap map_d,
-                     bf16* __restrict__ out,
-                     const long long* __restrict__ rows, int M, int Kd, int N,
-                     int k_tiles, int n_tiles, long long sog, long long som) {
+                     const __grid_constant__ CUtensorMap map_out,
+                     const long long* __restrict__ rows, int M, int N,
+                     int k_tiles, int n_tiles, int n_work) {
   extern __shared__ unsigned char smem_raw[];
-  const int kt = blockIdx.x % k_tiles;
-  const int nt = (blockIdx.x / k_tiles) % n_tiles;
-  const int g = blockIdx.x / (k_tiles * n_tiles);
-  const int m0 = kt * BM, n0 = nt * 2 * BN;
-  const int mv = valid_rows(rows, g, M);
-  bf16* outg = out + g * sog;
-
-  if (mv == 0) {   // a slot with no rows: zeros, nothing read
-    zero_tile(outg, som, m0, min(BM, Kd - m0), n0, min(2 * BN, N - n0));
-    return;
-  }
-
   unsigned char* tiles = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t tiles_u = smem_u32(tiles);
-  const uint32_t full0 = tiles_u + STAGES * STAGE_BYTES;
-  const uint32_t empty0 = full0 + STAGES * 8;
+  const uint32_t out_u = tiles_u + P_STAGES * STAGE_BYTES;   // 8 boxes
+  const uint32_t full0 = out_u + 8 * SBOX;
+  const uint32_t empty0 = full0 + P_STAGES * 8;
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < P_STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, CONSUMERS * 4);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);   // one arrival per warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int ttiles = (mv + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
+  int stage = 0;
+  uint32_t phase = 0;
   if (wg == CONSUMERS) {
+    // ---- producer: one thread keeps the ring full, tile after tile.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == CONSUMERS * 128) {
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int t = 0; t < ttiles; ++t) {
-        mbar_wait(empty0 + 8 * stage, phase ^ 1);
-        const uint32_t full = full0 + 8 * stage;
-        const uint32_t a = tiles_u + stage * STAGE_BYTES;
-        mbar_expect_tx(full, STAGE_BYTES);
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+        int g, m0, n0;
+        wgrad_tile(w, k_tiles, n_tiles, g, m0, n0);
+        const int ttiles = (valid_rows(rows, g, M) + BK - 1) / BK;
+        for (int t = 0; t < ttiles; ++t) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t a = tiles_u + stage * STAGE_BYTES;
+          mbar_expect_tx(full, STAGE_BYTES);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          tma_load(a + j * BOX_BYTES, &map_x, full, m0 + 64 * j, t * BK, g);
+          for (int j = 0; j < 2; ++j)
+            tma_load(a + j * BOX_BYTES, &map_x, full, m0 + 64 * j, t * BK, g);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          tma_load(a + A_BYTES + j * BOX_BYTES, &map_d, full, n0 + 64 * j,
-                   t * BK, g);
-        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+          for (int j = 0; j < 4; ++j)
+            tma_load(a + A_BYTES + j * BOX_BYTES, &map_d, full, n0 + 64 * j,
+                     t * BK, g);
+          advance(stage, phase);
+        }
       }
     }
   } else {
+    // ---- consumers: 64 output rows each.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x % 32, tid = threadIdx.x % 128;
+    const uint32_t my_out = out_u + wg * 4 * SBOX;   // 64 rows x 256 columns
+    const int r0 = (tid / 32) * 16 + lane / 4;
     float acc[2][64];
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      int g, m0, n0;
+      wgrad_tile(w, k_tiles, n_tiles, g, m0, n0);
+      const int mv = valid_rows(rows, g, M);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.0f;
-    const int lane = threadIdx.x % 32;
-    int stage = 0, prev = 0;
-    uint32_t phase = 0;
-    for (int t = 0; t < ttiles; ++t) {
-      mbar_wait(full0 + 8 * stage, phase);
-      unsigned char* st = tiles + stage * STAGE_BYTES;
-      const int tail = mv - t * BK;   // valid token rows in this tile
-      if (tail < BK) {
-        // Token rows tail .. 63 of all six boxes to zero (a row is 128
-        // bytes; the swizzle permutes 16-byte pieces within it), made
-        // visible to the tensor cores' async proxy, then both consumer
-        // warpgroups meet before the products.
-        const int n = 6 * (BK - tail) * 8;
-        const uint4 z = make_uint4(0, 0, 0, 0);
-        for (int i = threadIdx.x; i < n; i += CONSUMERS * 128) {
-          const int box = i / ((BK - tail) * 8);
-          const int rr = tail + (i / 8) % (BK - tail), c = i % 8;
-          *reinterpret_cast<uint4*>(st + box * BOX_BYTES + rr * 128 + c * 16) =
-              z;
-        }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+      for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.0f;
+      const bool two = n0 + BN < N;
+      if (two)
+        wgrad_products<true>(acc, tiles, tiles_u, full0, empty0, mv, wg,
+                             stage, phase);
+      else
+        wgrad_products<false>(acc, tiles, tiles_u, full0, empty0, mv, wg,
+                              stage, phase);
+      // Epilogue.  Thread layout of an m64nN fp32 accumulator: value
+      // 4 j + {0, 1} at row (warp % 4) * 16 + lane / 4, columns
+      // 8 j + 2 (lane % 4) + {0, 1}; 4 j + {2, 3} eight rows below.  The
+      // previous tile's stores must have read the staging boxes.
+      if (tid == 0) bulk_wait_read<0>();
+      named_sync(WG_BAR + wg, 128);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = b * BN + 8 * j + 2 * (lane % 4);
+            const int i = 4 * j + 2 * half;
+            st_shared_u32(my_out + (col / 64) * SBOX +
+                              sw128(r0 + 8 * half, col % 64),
+                          pack_bf16x2(acc[b][i], acc[b][i + 1]));
+          }
+      fence_proxy_async();
+      named_sync(WG_BAR + wg, 128);
+      if (tid == 0) {
+        for (int bx = 0; bx < (two ? 4 : 2); ++bx)
+          tma_store(&map_out, my_out + bx * SBOX, n0 + 64 * bx, m0 + 64 * wg,
+                    g);
+        bulk_commit();
       }
-      const uint32_t a = tiles_u + stage * STAGE_BYTES + wg * BOX_BYTES;
-      const uint32_t b = tiles_u + stage * STAGE_BYTES + A_BYTES;
+    }
+    if (tid == 0) bulk_wait<0>();
+  }
+}
+
+// B1's work item w: slot g (wstart[g] <= w < wstart[g + 1]), its valid row
+// count mv, then the 128-column tile n0 and, fastest, the row tile m0.
+__device__ __forceinline__ void swiglu_bwd_tile(const int* wstart, int G,
+                                                int w,
+                                                const long long* rows, int M,
+                                                int& g, int& mv, int& m0,
+                                                int& n0) {
+  int lo = 0, hi = G;   // wstart[lo] <= w < wstart[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (wstart[mid] <= w) lo = mid; else hi = mid;
+  }
+  g = lo;
+  mv = valid_rows(rows, g, M);
+  const int mt = (mv + BM - 1) / BM;
+  const int r = w - wstart[g];
+  m0 = (r % mt) * BM;
+  n0 = (r / mt) * BN;
+}
+
+// The k loop of one B1 item for one consumer warpgroup.  A full item: this
+// warpgroup's 64 rows against w1's and w3's 128 columns in one m64n256
+// product (the four B boxes side by side: acc[0] holds h, acc[1] g).  A
+// NARROW item (at most 64 valid rows): both warpgroups take rows 0..63,
+// warpgroup wg w1's and w3's 64 columns of box wg (two boxes 16 KB apart:
+// one m64n128 product, acc[0] holding h's 64 columns, then g's), so the
+// tile's last rows cost half an item.  Releases every stage it used.
+template <bool NARROW>
+__device__ __forceinline__ void swiglu_bwd_products(
+    float (&acc)[2][64], uint32_t tiles_u, uint32_t full0, uint32_t empty0,
+    int ktiles, int wg, bool active, int it, uint32_t dempty, int& stage,
+    uint32_t& phase) {
+  const int lane = threadIdx.x % 32, tid = threadIdx.x % 128;
+  const int free_at = min(FREE_AT, ktiles - 1);
+  int prev = 0;
+  for (int t = 0; t < ktiles; ++t) {
+    if (t > 0) mbar_wait(full0 + 8 * stage, phase);
+    if (active) {
+      const uint32_t st = tiles_u + stage * STAGE_BYTES;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t da = desc_sw128(a + kk * 2048, BOX_BYTES, 1024);
-        wgmma_m64n128k16<1, 1>(acc[0], da,
-                               desc_sw128(b + kk * 2048, BOX_BYTES, 1024));
-        wgmma_m64n128k16<1, 1>(
-            acc[1], da, desc_sw128(b + B_BYTES + kk * 2048, BOX_BYTES, 1024));
+        if constexpr (NARROW) {
+          wgmma_m64n128k16<0, 1>(
+              acc[0], desc_sw128(st + kk * 32, 16, 1024),
+              desc_sw128(st + A_BYTES + wg * BOX_BYTES + kk * 2048,
+                         2 * BOX_BYTES, 1024));
+        } else {
+          wgmma_m64n256k16<0, 1>(
+              flat(acc), desc_sw128(st + wg * (64 * 128) + kk * 32, 16, 1024),
+              desc_sw128(st + A_BYTES + kk * 2048, BOX_BYTES, 1024));
+        }
       }
       wgmma_commit();
-      wgmma_wait<1>();
-      if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
-      prev = stage;
-      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      wgmma_wait<1>();   // the previous k-tile's products are done
     }
-    wgmma_wait<0>();
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
+    if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+    if (it > 0 && t == free_at && tid == 0) {
+      // The previous tile's dh and dg stores have read their buffers: the
+      // producer may refill the dact buffer.
+      bulk_wait_read<0>();
+      mbar_arrive(dempty);
+    }
+    prev = stage;
+    advance(stage, phase);
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+}
 
-    const int r0 = m0 + wg * 64 + (threadIdx.x / 32 % 4) * 16 + lane / 4;
-    const int c0 = n0 + 2 * (lane % 4);
+// B1: dh, dg (G, M, N) bf16 of out = silu(x w1) (x w3) for dact (G, M, N);
+// x (G, M, K), w1 / w3 (G, K, N) N-major.  map_dact: 64 x 128 boxes;
+// map_dh, map_dg: 64 x 64 boxes.  ZERO_PAD: rows past the walked row
+// tiles are written as zeros.  `next`: an int zeroed before the launch,
+// from which each block's producer takes its work items one at a time, so
+// the items that share a weight panel start together (the hardware's
+// order of blocks), whatever each block's earlier items cost.
+template <bool ZERO_PAD>
+__global__ void __launch_bounds__(THREADS, 1)
+grouped_swiglu_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_w1,
+                          const __grid_constant__ CUtensorMap map_w3,
+                          const __grid_constant__ CUtensorMap map_dact,
+                          const __grid_constant__ CUtensorMap map_dh,
+                          const __grid_constant__ CUtensorMap map_dg,
+                          bf16* __restrict__ dh, bf16* __restrict__ dg,
+                          const long long* __restrict__ rows,
+                          int* __restrict__ next, int G, int M, int K, int N,
+                          int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t tiles_u = smem_u32(tiles);
+  // dact buffer: two 64-column boxes of 128 rows (dh is written back into
+  // it); then dg's staging, the same layout.
+  const uint32_t dact_u = tiles_u + P_STAGES * STAGE_BYTES;
+  const uint32_t dgs_u = dact_u + 4 * SBOX;
+  const uint32_t full0 = dgs_u + 4 * SBOX;
+  const uint32_t empty0 = full0 + P_STAGES * 8;
+  const uint32_t dfull = empty0 + P_STAGES * 8, dempty = dfull + 8;
+  const uint32_t item0 = dempty + 8;   // the work item of each stage's tile
+  int* wstart = reinterpret_cast<int*>(tiles + (item0 + 4 * P_STAGES -
+                                                tiles_u));
+
+  // The schedule: wstart[g] = sum over g' < g of ceil(rows[g'] / 128)
+  // column tiles' worth of work items, by a chunked scan in one warp.
+  for (int i = threadIdx.x; i < G; i += blockDim.x)
+    wstart[i + 1] = (valid_rows(rows, i, M) + BM - 1) / BM * n_tiles;
+  if (threadIdx.x == 0) {
+    wstart[0] = 0;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + 8 * half;
-      if (r >= Kd) continue;
-      bf16* orow = outg + r * som;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int c = c0 + b * BN + 8 * j;
-          if (c >= N) continue;
-          const int i = 4 * j + 2 * half;
-          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-              __floats2bfloat162_rn(acc[b][i], acc[b][i + 1]);
-        }
+    for (int s = 0; s < P_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);   // one arrival per warp
     }
+    mbar_init(dfull, 1);
+    mbar_init(dempty, CONSUMERS);   // one arrival per consumer warpgroup
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, per = (G + 31) / 32;
+    const int lo = 1 + lane * per, hi = min(G + 1, lo + per);
+    int sum = 0;
+    for (int i = lo; i < hi; ++i) sum += wstart[i];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    int run = incl - sum;
+    for (int i = lo; i < hi; ++i) {
+      run += wstart[i];
+      wstart[i] = run;
+    }
+  }
+  __syncthreads();
+  const int n_work = wstart[G];
+  const int ktiles = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+  int stage = 0;
+  uint32_t phase = 0;
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      // ---- producer.  Each tile's item id goes with its first stage (in
+      // item0[stage], released by that stage's arrival); an id past the
+      // last item, with an arrival and no loads, ends the consumers' loop.
+      // The tile's dact block is loaded after k-step DACT_AT's stage: by
+      // then both consumer warpgroups have passed k-step FREE_AT (the stage
+      // it reuses was released after it), where they free the buffer from
+      // the previous tile's dh store.
+      const int dact_at = min(DACT_AT, ktiles - 1);
+      int w = atomicAdd(next, 1);
+      for (int it = 0;; ++it) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        st_shared_u32(item0 + 4 * stage, static_cast<uint32_t>(w));
+        if (w >= n_work) {
+          mbar_arrive(full0 + 8 * stage);
+          break;
+        }
+        const int after = atomicAdd(next, 1);   // its latency runs under
+        int g, mv, m0, n0;                      // this tile's loads
+        swiglu_bwd_tile(wstart, G, w, rows, M, g, mv, m0, n0);
+        for (int t = 0; t < ktiles; ++t) {
+          if (t > 0) mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t a = tiles_u + stage * STAGE_BYTES;
+          const int k0 = t * BK;
+          mbar_expect_tx(full, STAGE_BYTES);
+          tma_load(a, &map_x, full, k0, m0, g);
+          tma_load(a + A_BYTES, &map_w1, full, n0, k0, g);
+          tma_load(a + A_BYTES + BOX_BYTES, &map_w1, full, n0 + 64, k0, g);
+          tma_load(a + A_BYTES + B_BYTES, &map_w3, full, n0, k0, g);
+          tma_load(a + A_BYTES + B_BYTES + BOX_BYTES, &map_w3, full, n0 + 64,
+                   k0, g);
+          advance(stage, phase);
+          if (t == dact_at) {
+            mbar_wait(dempty, (it & 1) ^ 1);
+            mbar_expect_tx(dfull, 4 * SBOX);
+            tma_load(dact_u, &map_dact, dfull, n0, m0, g);
+            tma_load(dact_u + 2 * SBOX, &map_dact, dfull, n0 + 64, m0, g);
+          }
+        }
+        w = after;
+      }
+    } else if (ZERO_PAD && threadIdx.x >= CONSUMERS * 128 + 32) {
+      // ---- the producer warpgroup's other three warps: rows
+      // [ceil(mv / 64) 64, M) of every slot (the items store the rows
+      // before that, a narrow last item 64 of them), one contiguous range
+      // of dh and of dg each, to zeros, spread over all blocks; streaming
+      // stores (evict-first), so the zeros do not push the weight and x
+      // panels out of L2.
+      const long long lanes = 96LL * gridDim.x;
+      const long long me =
+          96LL * blockIdx.x + threadIdx.x - CONSUMERS * 128 - 32;
+      const int4 z = make_int4(0, 0, 0, 0);
+      for (int g = 0; g < G; ++g) {
+        const int z0 = min(M, (valid_rows(rows, g, M) + 63) / 64 * 64);
+        const long long base = (static_cast<long long>(g) * M + z0) * N;
+        const long long n16 = static_cast<long long>(M - z0) * N / 8;
+        int4* ph = reinterpret_cast<int4*>(dh + base);
+        int4* pg = reinterpret_cast<int4*>(dg + base);
+        for (long long i = me; i < n16; i += lanes) {
+          __stcs(ph + i, z);
+          __stcs(pg + i, z);
+        }
+      }
+    }
+  } else {
+    // ---- consumers.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x % 32, tid = threadIdx.x % 128;
+    float acc[2][64];
+    for (int it = 0;; ++it) {
+      mbar_wait(full0 + 8 * stage, phase);   // the tile's first stage
+      const int w = static_cast<int>(ld_shared_u32(item0 + 4 * stage));
+      if (w >= n_work) break;
+      int g, mv, m0, n0;
+      swiglu_bwd_tile(wstart, G, w, rows, M, g, mv, m0, n0);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.0f;
+      const bool narrow = mv - m0 <= 64;
+      if (narrow)
+        swiglu_bwd_products<true>(acc, tiles_u, full0, empty0, ktiles, wg,
+                                  true, it, dempty, stage, phase);
+      else
+        swiglu_bwd_products<false>(acc, tiles_u, full0, empty0, ktiles, wg,
+                                   m0 + wg * 64 < mv, it, dempty, stage,
+                                   phase);
+
+      // Epilogue: dact from its buffer, dh back into it, dg into the
+      // staging boxes (each element read and written by its own thread),
+      // then this warpgroup's rows and columns of both leave by TMA (a
+      // full item: its 64 rows x 128 columns; a narrow one: rows 0..63 x
+      // its 64 columns).  Accumulator layout: value 4 j + {0, 1} at row
+      // (warp % 4) * 16 + lane / 4, columns 8 j + 2 (lane % 4) + {0, 1};
+      // 4 j + {2, 3} eight rows below.  Rows past the count are stored as
+      // zeros, never multiplied.
+      mbar_wait(dfull, it & 1);
+      named_sync(WG_BAR + wg, 128);
+      const int r0 = (narrow ? 0 : wg * 64) + (tid / 32) * 16 + lane / 4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + 8 * half;
+        const bool keep = m0 + r < mv;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          // A narrow item has 8 column groups of h (acc[0][0..31]) and of
+          // g (acc[0][32..63]); a full one 16 of each (acc[0], acc[1]:
+          // flat 0..63 and 64..127).
+          if (narrow && j >= 8) break;
+          const int col = (narrow ? wg * 64 : 0) + 8 * j + 2 * (lane % 4);
+          const uint32_t off = (col / 64) * 2 * SBOX + sw128(r, col % 64);
+          const uint32_t raw = ld_shared_u32(dact_u + off);
+          const float2 da =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+          const int i = 4 * j + 2 * half;
+          const float h0 = acc[0][i], h1 = acc[0][i + 1];
+          // (constant indices: a register array indexed at run time
+          // would go to local memory)
+          const float g0 = narrow ? flat(acc)[32 + i] : flat(acc)[64 + i];
+          const float g1 = narrow ? flat(acc)[33 + i] : flat(acc)[65 + i];
+          float dh0, dg0, dh1, dg1;
+          swiglu_grad(h0, g0, da.x, dh0, dg0);
+          swiglu_grad(h1, g1, da.y, dh1, dg1);
+          st_shared_u32(dact_u + off, keep ? pack_bf16x2(dh0, dh1) : 0u);
+          st_shared_u32(dgs_u + off, keep ? pack_bf16x2(dg0, dg1) : 0u);
+        }
+      }
+      fence_proxy_async();
+      named_sync(WG_BAR + wg, 128);
+      if (tid == 0) {
+        if (narrow) {
+          tma_store(&map_dh, dact_u + wg * 2 * SBOX, n0 + 64 * wg, m0, g);
+          tma_store(&map_dg, dgs_u + wg * 2 * SBOX, n0 + 64 * wg, m0, g);
+        } else {
+#pragma unroll
+          for (int bx = 0; bx < 2; ++bx) {
+            const uint32_t src = bx * 2 * SBOX + wg * SBOX;
+            tma_store(&map_dh, dact_u + src, n0 + 64 * bx, m0 + 64 * wg, g);
+            tma_store(&map_dg, dgs_u + src, n0 + 64 * bx, m0 + 64 * wg, g);
+          }
+        }
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait<0>();
   }
 }
 
@@ -533,8 +992,8 @@ int make_map(CUtensorMap* map, const void* base, long long cols,
 // (G, N, K) K-major with strides (swg, swn).
 template <int MODE>
 int launch_bf16(const void* x, const void* x2, const void* w1, const void* w3,
-                void* out, void* out2, const void* dact,
-                const long long* rows, int G, int M, int K, int N, int n_out,
+                void* out, const long long* rows, int G, int M, int K, int N,
+                int n_out,
                 long long sxg, long long sxm, long long swg, long long sw1,
                 cudaStream_t stream) {
   constexpr bool KMAJOR_B = MODE == MODE_NT || MODE == MODE_NT2;
@@ -553,16 +1012,57 @@ int launch_bf16(const void* x, const void* x2, const void* w1, const void* w3,
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const bool swi = MODE == MODE_SWIGLU || MODE == MODE_SWIGLU_BWD;
+  const bool swi = MODE == MODE_SWIGLU;
   const int out_cols = swi ? BN : 2 * BN;
   const int n_tiles = (N + out_cols - 1) / out_cols;
   const int m_tiles = (M + BM - 1) / BM;
   const long long blocks = static_cast<long long>(G) * n_tiles * m_tiles;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, stream>>>(
-      mx, mx2, mw1, mw3, static_cast<bf16*>(out), static_cast<bf16*>(out2),
-      static_cast<const bf16*>(dact), rows, M, K, n_out, n_tiles, m_tiles,
+      mx, mx2, mw1, mw3, static_cast<bf16*>(out), rows, M, K, n_out,
+      n_tiles, m_tiles,
       static_cast<long long>(M) * n_out, n_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One block an SM: the persistent kernels' grid.
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
+}
+
+// B1.  x (G, M, K) with strides (sxg, sxm); w1 / w3 (G, K, N) N-major with
+// strides (swg, swk); dact, dh, dg (G, M, N) contiguous; next: an int
+// zeroed before the launch.
+template <bool ZERO_PAD>
+int launch_swiglu_bwd(const void* x, const void* w1, const void* w3,
+                      void* dh, void* dg, const void* dact,
+                      const long long* rows, int* next, int G, int M, int K,
+                      int N, long long sxg, long long sxm, long long swg,
+                      long long swk, cudaStream_t stream) {
+  const long long sog = static_cast<long long>(M) * N;
+  CUtensorMap mx, mw1, mw3, mda, mdh, mdg;
+  int err = make_map(&mx, x, K, M, G, sxm, sxg, BM);
+  if (!err) err = make_map(&mw1, w1, N, K, G, swk, swg, BK);
+  if (!err) err = make_map(&mw3, w3, N, K, G, swk, swg, BK);
+  if (!err) err = make_map(&mda, dact, N, M, G, N, sog, BM);
+  if (!err) err = make_map(&mdh, dh, N, M, G, N, sog, 64);
+  if (!err) err = make_map(&mdg, dg, N, M, G, N, sog, 64);
+  int sms = 0;
+  if (!err) err = sm_count(&sms);
+  if (err) return err;
+  const int smem = SMEM_PERSISTENT + 4 * (G + 1);
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = grouped_swiglu_bwd_kernel<ZERO_PAD>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<sms, THREADS, smem, stream>>>(
+      mx, mw1, mw3, mda, mdh, mdg, static_cast<bf16*>(dh),
+      static_cast<bf16*>(dg), rows, next, G, M, K, N, (N + BN - 1) / BN);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -860,11 +1360,11 @@ extern "C" int grouped_gemm_launch(int dtype, int swiglu, const void* x,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && swiglu)
-    return launch_bf16<MODE_SWIGLU>(x, x, w1, w3, out, nullptr, nullptr, rows,
-                                    G, M, K, N, n_out, sxg, sxm, swg, swk, s);
+    return launch_bf16<MODE_SWIGLU>(x, x, w1, w3, out, rows, G, M, K, N,
+                                    n_out, sxg, sxm, swg, swk, s);
   if (dtype == 1)
-    return launch_bf16<MODE_MATMUL>(x, x, w1, w1, out, nullptr, nullptr, rows,
-                                    G, M, K, N, n_out, sxg, sxm, swg, swk, s);
+    return launch_bf16<MODE_MATMUL>(x, x, w1, w1, out, rows, G, M, K, N,
+                                    n_out, sxg, sxm, swg, swk, s);
   if (dtype == 0 && swiglu)
     return launch_f32<true>(x, w1, w3, out, rows, G, M, K, N, n_out, sxg,
                             sxm, swg, swk, s);
@@ -875,9 +1375,6 @@ extern "C" int grouped_gemm_launch(int dtype, int swiglu, const void* x,
 }
 
 // Backward entry points (bf16; same conventions as grouped_gemm_launch).
-// mode 2: (out, out2) = (dh, dg) of out = silu(x w1) (x w3) for the
-//   upstream gradient dact, (G, M, n_out) like out; w1, w3 (G, K, N)
-//   N-major with strides (swg, sw1).
 // mode 3: out = x w1^T; mode 4: out = x w1^T + x2 w3^T: w1, w3 stored
 //   (G, N, K), K-major with strides (swg, sw1); x2 has x's strides.
 extern "C" int grouped_gemm_bwd_launch(int mode, const void* x, const void* x2,
@@ -889,19 +1386,37 @@ extern "C" int grouped_gemm_bwd_launch(int mode, const void* x, const void* x2,
                                        long long sw1, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case MODE_SWIGLU_BWD:
-      return launch_bf16<MODE_SWIGLU_BWD>(x, x, w1, w3, out, out2, dact, rows,
-                                          G, M, K, N, n_out, sxg, sxm, swg,
-                                          sw1, s);
     case MODE_NT:
-      return launch_bf16<MODE_NT>(x, x, w1, w1, out, nullptr, nullptr, rows,
-                                  G, M, K, N, n_out, sxg, sxm, swg, sw1, s);
+      return launch_bf16<MODE_NT>(x, x, w1, w1, out, rows, G, M, K, N, n_out,
+                                  sxg, sxm, swg, sw1, s);
     case MODE_NT2:
-      return launch_bf16<MODE_NT2>(x, x2, w1, w3, out, nullptr, nullptr, rows,
-                                   G, M, K, N, n_out, sxg, sxm, swg, sw1, s);
+      return launch_bf16<MODE_NT2>(x, x2, w1, w3, out, rows, G, M, K, N,
+                                   n_out, sxg, sxm, swg, sw1, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// (dh, dg) of out = silu(x w1) (x w3) for the upstream gradient dact, all
+// three (G, M, N) contiguous; x (G, M, K) with strides (sxg, sxm); w1, w3
+// (G, K, N) N-major with strides (swg, swk); next: an int on the device,
+// zeroed before the launch.  zero_pad 1: rows past the count are exact
+// zeros; 0: rows at or past the count rounded up to 64 are left
+// unwritten.
+extern "C" int grouped_swiglu_bwd_launch(int zero_pad, const void* x,
+                                         const void* w1, const void* w3,
+                                         void* dh, void* dg, const void* dact,
+                                         const long long* rows, int* next,
+                                         int G, int M, int K, int N,
+                                         long long sxg, long long sxm,
+                                         long long swg, long long swk,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (zero_pad)
+    return launch_swiglu_bwd<true>(x, w1, w3, dh, dg, dact, rows, next, G, M,
+                                   K, N, sxg, sxm, swg, swk, s);
+  return launch_swiglu_bwd<false>(x, w1, w3, dh, dg, dact, rows, next, G, M,
+                                  K, N, sxg, sxm, swg, swk, s);
 }
 
 // dW = x^T d per slot over its valid rows: x (G, M, Kd), d (G, M, N) bf16
@@ -913,21 +1428,25 @@ extern "C" int grouped_wgrad_launch(const void* x, const void* d, void* out,
                                     int Kd, int N, long long sxg,
                                     long long sxm, long long sdg,
                                     long long sdm, void* stream) {
-  CUtensorMap mx, md;
+  CUtensorMap mx, md, mo;
   int err = make_map(&mx, x, Kd, M, G, sxm, sxg, BK);
   if (!err) err = make_map(&md, d, N, M, G, sdm, sdg, BK);
+  if (!err)
+    err = make_map(&mo, out, N, Kd, G, N, static_cast<long long>(Kd) * N, 64);
+  int sms = 0;
+  if (!err) err = sm_count(&sms);
   if (err) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       grouped_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      SMEM_PERSISTENT);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int k_tiles = (Kd + BM - 1) / BM;
   const int n_tiles = (N + 2 * BN - 1) / (2 * BN);
-  const long long blocks = static_cast<long long>(G) * k_tiles * n_tiles;
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  grouped_wgrad_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES,
+  const long long n_work = static_cast<long long>(G) * k_tiles * n_tiles;
+  if (n_work > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(n_work < sms ? n_work : sms);
+  grouped_wgrad_kernel<<<grid, THREADS, SMEM_PERSISTENT,
                          static_cast<cudaStream_t>(stream)>>>(
-      mx, md, static_cast<bf16*>(out), rows, M, Kd, N, k_tiles, n_tiles,
-      static_cast<long long>(Kd) * N, N);
+      mx, md, mo, rows, M, N, k_tiles, n_tiles, static_cast<int>(n_work));
   return static_cast<int>(cudaGetLastError());
 }

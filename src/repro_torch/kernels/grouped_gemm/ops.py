@@ -55,18 +55,25 @@ Functions: the forward kernel as above, and a backward of three more
 kernels of ``csrc/grouped_gemm.cu`` (the JAX package has none: XLA
 differentiates its einsums), each with a plain version and a launch count:
 
-* ``grouped_swiglu_bwd(x, w1, w3, dact, rows)`` -> (dh, dg): the SwiGLU's
-  h = x w1 and g = x w3 recomputed from one read of each x tile, and
-  dh = dact g s (1 + h (1 - s)), dg = dact h s with s = sigmoid(h);
+* ``grouped_swiglu_bwd(x, w1, w3, dact, rows, zero_padded=True)`` ->
+  (dh, dg): the SwiGLU's h = x w1 and g = x w3 recomputed from one read of
+  each x tile, and dh = dact g s (1 + h (1 - s)), dg = dact h s with
+  s = sigmoid(h); a persistent kernel over the row tiles that hold rows
+  (:func:`swiglu_bwd_tiles` gives their order);
 * ``grouped_matmul_nt(x, w, rows, x2=None, w2=None)`` -> x w^T (+ x2 w2^T)
   with w stored (G, N, K), K-contiguous (the weights as they are kept:
   dact = dy w2^T and dx = dh w1^T + dg w3^T);
 * ``grouped_wgrad(x, d, rows)`` -> (G, K, N): x[g, :rows[g]]^T d[g, :rows[g]]
-  over each slot's valid rows only, fp32 accumulation, x's dtype.
+  over each slot's valid rows only, fp32 accumulation, x's dtype; a
+  persistent kernel over every (slot, K tile, N tile) (:func:`wgrad_tiles`).
 
 Rows past a slot's count come out as exact zeros in every output, and its
-gradients are zero there.  The SwiGLU saves x and recomputes h and g; the
-matmul saves its input (the activations, ``act``).  ``plain_backward=True``
+gradients are zero there; with ``zero_padded=False`` the SwiGLU backward
+leaves the rows from the count rounded up to 64 on unwritten on the card
+(what the autograd backward does: its only readers, ``grouped_matmul_nt``
+and ``grouped_wgrad``, never let a padded row reach a valid output, NaN
+included).  The SwiGLU saves x and recomputes h and g; the matmul saves its
+input (the activations, ``act``).  ``plain_backward=True``
 runs the backward as autograd through the plain forward instead, on any
 device (a check of the kernels in place: the forward is the same).  On the
 card the backward kernels take bf16 with K and N multiples of 8 and raise a
@@ -95,7 +102,8 @@ __all__ = ["grouped_swiglu", "grouped_matmul", "grouped_swiglu_ref",
            "grouped_swiglu_q8_ref", "grouped_matmul_q8_ref",
            "grouped_swiglu_bwd", "grouped_swiglu_bwd_ref",
            "grouped_matmul_nt", "grouped_matmul_nt_ref", "grouped_wgrad",
-           "grouped_wgrad_ref", "LIBRARY", "LIBRARY_Q8"]
+           "grouped_wgrad_ref", "swiglu_bwd_tiles", "wgrad_tiles", "LIBRARY",
+           "LIBRARY_Q8"]
 
 LIBRARY = KernelLibrary("grouped_gemm",
                         Path(__file__).parent / "csrc" / "grouped_gemm.cu")
@@ -508,10 +516,13 @@ def _bwd_check(err: int, name: str) -> None:
 
 
 def grouped_swiglu_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-                       dact: torch.Tensor, rows: torch.Tensor | None = None
+                       dact: torch.Tensor, rows: torch.Tensor | None = None,
+                       *, zero_padded: bool = True
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dh, dg), each (G, M, N), of the grouped SwiGLU for ``dact``; see
-    :func:`grouped_swiglu_bwd_ref`."""
+    :func:`grouped_swiglu_bwd_ref`.  On the card, ``zero_padded=False``
+    leaves slot g's rows from ``ceil(rows[g] / 64) * 64`` on unwritten
+    (the rows of its last row tile past the count are still zeros)."""
     if not _check_device(x):
         return grouped_swiglu_bwd_ref(x, w1, w3, dact, rows)
     G, M, K = x.shape
@@ -525,11 +536,13 @@ def grouped_swiglu_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     rows = _check_rows(rows, G, x.device)
     dh, dg = torch.empty_like(dact), torch.empty_like(dact)
     if dh.numel():
-        _bwd_check(_bwd_launcher()(
-            2, x.data_ptr(), x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
+        # The counter from which the kernel's blocks take their work items.
+        nxt = torch.zeros(1, dtype=torch.int32, device=x.device)
+        _bwd_check(_swiglu_bwd_launcher()(
+            int(zero_padded), x.data_ptr(), w1.data_ptr(), w3.data_ptr(),
             dh.data_ptr(), dg.data_ptr(), dact.data_ptr(),
-            None if rows is None else rows.data_ptr(), G, M, K, N, N,
-            x.stride(0), x.stride(1), w1.stride(0), w1.stride(1),
+            None if rows is None else rows.data_ptr(), nxt.data_ptr(), G, M,
+            K, N, x.stride(0), x.stride(1), w1.stride(0), w1.stride(1),
             torch.cuda.current_stream(x.device).cuda_stream),
             "grouped_swiglu_bwd")
         grouped_swiglu_bwd.launches += 1
@@ -594,13 +607,55 @@ def grouped_wgrad(x: torch.Tensor, d: torch.Tensor,
     return out
 
 
+def swiglu_bwd_tiles(rows: torch.Tensor, M: int, N: int) -> torch.Tensor:
+    """The SwiGLU backward kernel's work items in its order, as (W, 3)
+    int64 rows (slot, first row, first column): only the row tiles that
+    hold rows, ``ceil(min(rows[g], M) / 128)`` a slot; slot-major, then
+    the 128-column tile, then the 128-row tile fastest (the blocks running
+    together share a weight panel).  Block b takes items b, b + SMs, ...;
+    the kernel finds an item's slot by a binary search over the prefix
+    sums it builds from ``rows`` in shared memory.  Reads ``rows`` on the
+    host: a mirror for tests and timing reports."""
+    mt = (rows.to(torch.int64).clamp(0, M) + 127) // 128
+    nt = -(-N // 128)
+    per = mt * nt
+    end = torch.cumsum(per, 0)
+    w = torch.arange(int(end[-1]) if len(end) else 0, device=rows.device)
+    g = torch.searchsorted(end, w, right=True)
+    r = w - (end - per)[g]
+    return torch.stack([g, (r % mt[g]) * 128, (r // mt[g]) * 128], dim=1)
+
+
+def wgrad_tiles(G: int, K: int, N: int) -> torch.Tensor:
+    """The wgrad kernel's output tiles in its order, as (W, 3) int64 rows
+    (slot, first row of K, first column of N): every (slot, 128-row tile,
+    256-column tile), slot-major, the column tiles fastest (the tiles
+    running together write whole output rows); a tile of a slot with no
+    rows is stored as zeros.  Block b takes tiles b, b + SMs, ..."""
+    kt, nt = -(-K // 128), -(-N // 256)
+    w = torch.arange(G * kt * nt)
+    r = w % (kt * nt)
+    return torch.stack([w // (kt * nt), (r // nt) * 128, (r % nt) * 256],
+                       dim=1)
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher():
-    """The backward entry points with their argument types (set once)."""
+    """B2's entry point with its argument types (set once)."""
     fn = LIBRARY.load().grouped_gemm_bwd_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _swiglu_bwd_launcher():
+    fn = LIBRARY.load().grouped_swiglu_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
                    + [ctypes.c_void_p])
     return fn
 
@@ -659,7 +714,8 @@ class _GroupedSwiGLU(torch.autograd.Function):
         if ctx.plain_backward:
             return (*_plain_grads(grouped_swiglu_ref, (x, w1, w3), needs,
                                   dact, rows), None, None)
-        dh, dg = grouped_swiglu_bwd(x, w1, w3, dact.contiguous(), rows)
+        dh, dg = grouped_swiglu_bwd(x, w1, w3, dact.contiguous(), rows,
+                                    zero_padded=False)
         dx = grouped_matmul_nt(dh, w1, rows, dg, w3) if needs[0] else None
         dw1 = grouped_wgrad(x, dh, rows) if needs[1] else None
         dw3 = grouped_wgrad(x, dg, rows) if needs[2] else None

@@ -1,0 +1,448 @@
+"""Time the grouped GEMM kernels on the card, one JSON line a case.
+
+Cases: rows 1-2 in bf16 (the forward SwiGLU and matmul) at GLM-4.5-Air's
+serve counts (4096 tokens, capacity factors 4.0) and dense (G 130, M
+1009); the backward B2 (dact = dy w2^T, dx = dh w1^T + dg w3^T) at GLM's
+train counts; B1 (the SwiGLU backward) and B3 (wgrad, dw1 = x^T dh) at
+three shapes: GLM-4.5-Air's train counts (8192 tokens, capacity factors
+4.0: G 130, cap 2017, K 4096, N 1408; B3's dw2 = act^T dy too),
+DeepSeek-V3's train cell (4096 tokens, capacity factors 2.0, K 7168, N
+2048) and Jamba-v0.1's (4096 tokens, 2.0, K 4096, N 14336).  Each slot's
+row count comes from the port's gate, ``ultraep`` plan and bucket on
+seeded tokens; padded rows of the inputs hold NaN, which no kernel may
+let into a valid output.  Each line: the kernel's time (CUDA events over
+repeated launches), its bound on the valid work (bytes or bf16
+operations at the data sheet's rates, whichever is larger) and
+``torch.bmm`` over the padded buffers.
+
+``--parent ROOT``: also builds ROOT's ``grouped_gemm.cu`` (another
+checkout, with its own shared headers) and times both libraries through
+the same C entry points on the same inputs, in turns (parent, change,
+change, parent); ``--check`` asserts that the two give the same bits
+(each output element sums the same products in the same order) and that
+B1's rows past the count are zeros.  ``--split``: B1 and B3 at GLM's
+widths with every slot holding the same row count (0, 64, ..., 1024), and
+a least-squares fit t = fixed + per_tile x tiles over those runs (B3:
+64-row token tiles a block contracts; B1: 128-row tiles): ``fixed`` is
+what the launch pays whatever the rows (prologues, epilogues, stores of
+zero tiles), ``per_tile`` the main loop.  B1 is also timed without its
+zero stores of the padded rows (the autograd backward's call), each
+against the parent's in turns.
+
+Needs the card; the package comes from ``sys.path``:
+
+  PYTHONPATH=src python src/repro_torch/launch/bench_grouped.py \\
+      --parent build/parent --check --split
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import statistics
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import KernelLibrary
+from repro_torch.kernels.grouped_gemm import ops
+
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
+BF16_OPS_PER_S = 989e12             # dense bf16 tensor cores
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+class Entries:
+    """The C entry points of one build of ``grouped_gemm.cu``, called on
+    preallocated outputs (the wrappers' allocations are not timed)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.fwd = lib.grouped_gemm_launch
+        self.fwd.argtypes = [_I, _I] + [_P] * 5 + [_I] * 5 + [_L] * 4 + [_P]
+        self.bwd = lib.grouped_gemm_bwd_launch
+        self.bwd.argtypes = [_I] + [_P] * 8 + [_I] * 5 + [_L] * 4 + [_P]
+        self.wg = lib.grouped_wgrad_launch
+        self.wg.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 4 + [_P]
+        # B1's own entry (a work counter zeroed before each launch), or the
+        # parent's mode 2 of the backward entry.
+        self.b1 = getattr(lib, "grouped_swiglu_bwd_launch", None)
+        if self.b1 is not None:
+            self.b1.argtypes = [_I] + [_P] * 8 + [_I] * 4 + [_L] * 4 + [_P]
+        for fn in (self.fwd, self.bwd, self.wg, self.b1):
+            if fn is not None:
+                fn.restype = _I
+
+    @staticmethod
+    def _ok(err: int, what: str) -> None:
+        if err:
+            raise RuntimeError(f"{what}: launch error {err}")
+
+    @staticmethod
+    def _stream() -> int:
+        return torch.cuda.current_stream().cuda_stream
+
+    def forward(self, x, w1, w3, rows, out, swiglu: bool):
+        G, M, K = x.shape
+        N = w1.shape[2]
+        self._ok(self.fwd(1, int(swiglu), x.data_ptr(), w1.data_ptr(),
+                          (w3 if swiglu else w1).data_ptr(), out.data_ptr(),
+                          rows.data_ptr(), G, M, K, N, out.shape[2],
+                          x.stride(0), x.stride(1), w1.stride(0),
+                          w1.stride(1), self._stream()), "forward")
+
+    def swiglu_bwd(self, x, w1, w3, dact, rows, dh, dg, zero_pad=True):
+        G, M, K = x.shape
+        N = w1.shape[2]
+        if self.b1 is None:
+            self._ok(self.bwd(2, x.data_ptr(), x.data_ptr(), w1.data_ptr(),
+                              w3.data_ptr(), dh.data_ptr(), dg.data_ptr(),
+                              dact.data_ptr(), rows.data_ptr(), G, M, K, N, N,
+                              x.stride(0), x.stride(1), w1.stride(0),
+                              w1.stride(1), self._stream()), "swiglu_bwd")
+            return
+        nxt = torch.zeros(1, dtype=torch.int32, device=x.device)
+        self._ok(self.b1(int(zero_pad), x.data_ptr(), w1.data_ptr(),
+                         w3.data_ptr(), dh.data_ptr(), dg.data_ptr(),
+                         dact.data_ptr(), rows.data_ptr(), nxt.data_ptr(), G,
+                         M, K, N, x.stride(0), x.stride(1), w1.stride(0),
+                         w1.stride(1), self._stream()), "swiglu_bwd")
+
+    def matmul_nt(self, x, w, rows, out, x2=None, w2=None):
+        G, M, K = x.shape
+        N = w.shape[1]
+        self._ok(self.bwd(3 if x2 is None else 4, x.data_ptr(),
+                          (x if x2 is None else x2).data_ptr(), w.data_ptr(),
+                          (w if w2 is None else w2).data_ptr(),
+                          out.data_ptr(), None, None, rows.data_ptr(), G, M,
+                          K, N, N, x.stride(0), x.stride(1), w.stride(0),
+                          w.stride(1), self._stream()), "matmul_nt")
+
+    def wgrad(self, x, d, rows, out):
+        G, M, K = x.shape
+        self._ok(self.wg(x.data_ptr(), d.data_ptr(), out.data_ptr(),
+                         rows.data_ptr(), G, M, K, d.shape[2], x.stride(0),
+                         x.stride(1), d.stride(0), d.stride(1),
+                         self._stream()), "wgrad")
+
+
+def _event_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_mem = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
+
+
+def slot_rows(arch: str, tokens: int, cf: float, seed: int):
+    """(rows, cap, d_model, d_ff): each slot's valid-row count and the slot
+    capacity from the port's gate, ``ultraep`` plan and bucket on
+    ``tokens`` seeded tokens at capacity factors ``cf`` (one EP rank)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.models.transformer import (
+        ParallelCtx,
+        RuntimeConfig,
+        moe_config,
+    )
+    from repro_torch.moe import stages
+
+    cfg = get_config(arch)
+    rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"), cf_pair=cf,
+                         cf_slot=cf, dtype=torch.bfloat16)
+    mcfg = moe_config(cfg, rcfg, ParallelCtx(), tokens)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    D = cfg.d_model
+    router = torch.randn((D, cfg.moe.num_experts), generator=g,
+                         device="cuda") * D ** -0.5
+    x = torch.randn((tokens, D), generator=g, device="cuda").to(torch.bfloat16)
+    ctx = stages.make_stage_ctx(mcfg, None)
+    gs = stages.gate_stage(ctx, x, router)
+    ps = stages.plan_stage(ctx, gs)
+    ds = stages.dispatch_stage(ctx, x, gs.gate_out.expert_ids, gs, ps)
+    return ds.rows, mcfg.cap_slot, D, cfg.moe.d_ff
+
+
+# name -> (arch, tokens, capacity factors, seed): GLM's train counts are
+# chip_smoke phase 12's, its serve counts phase 2's.
+SHAPES = {"glm_train": ("glm45-106b-a12b", 8192, 4.0, 7),
+          "deepseek_cell": ("deepseek-v3-671b", 4096, 2.0, 7),
+          "jamba_cell": ("jamba-v0.1-52b", 4096, 2.0, 7),
+          "glm_serve": ("glm45-106b-a12b", 4096, 4.0, 13)}
+
+
+def _randn(shape, scale, g):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+        torch.bfloat16)
+
+
+def _padded(t, rows, fill=float("nan")):
+    """``t`` (G, M, ...) with the rows at or past ``rows[g]`` set to
+    ``fill``."""
+    pad = torch.arange(t.shape[1], device=t.device)[None, :] >= rows[:, None]
+    return torch.where(pad[..., None], fill, t.float()).to(t.dtype)
+
+
+class Bench:
+    def __init__(self, libs: dict[str, Entries], iters: int, check: bool,
+                 rounds: int):
+        self.libs, self.iters, self.check = libs, iters, check
+        self.rounds = rounds
+
+    def turns(self, make_call) -> tuple[dict, float | None]:
+        """Each library's times in turns, ``rounds`` of (parent, change,
+        change, parent) with every other round reversed, after
+        ``3 * iters`` untimed launches of each (the card's clocks settle
+        under a long product); ``make_call(who, entries)`` gives a
+        no-argument launch.  Also the median over the adjacent (parent,
+        change) turns of change / parent: the card's clocks drift over a
+        case, and a pair of neighbouring turns sees the same clocks."""
+        one = ["parent", "change"] if "parent" in self.libs else ["change"]
+        order = []
+        for r in range(self.rounds):
+            order += (one + one[::-1]) if r % 2 == 0 else (one[::-1] + one)
+        times = {k: [] for k in self.libs}
+        calls = {k: make_call(k, e) for k, e in self.libs.items()}
+        for call in calls.values():
+            _event_ms(call, 3 * self.iters)
+        seq = []
+        for k in order:
+            seq.append((k, _event_ms(calls[k], self.iters)))
+            times[k].append(seq[-1][1])
+        ratio = None
+        if len(one) == 2:
+            ratio = statistics.median(
+                dict(seq[i:i + 2])["change"] / dict(seq[i:i + 2])["parent"]
+                for i in range(0, len(seq), 2))
+        return times, ratio
+
+    def same_bits(self, name, outs: dict, whole: bool = True,
+                  rows=None) -> bool | None:
+        """Parent and change equal bit for bit (``whole`` False: on the
+        valid rows of each slot only)."""
+        if not self.check or "parent" not in outs:
+            return None
+        torch.cuda.synchronize()
+        for a, b in zip(outs["parent"], outs["change"]):
+            if not whole:
+                keep = torch.arange(a.shape[1], device=a.device)[
+                    None, :, None] < rows[:, None, None]
+                a, b = torch.where(keep, a, 0), torch.where(keep, b, 0)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: parent and change differ")
+        return True
+
+
+def _emit(rec: dict) -> None:
+    print(json.dumps(rec), flush=True)
+
+
+def _case(name, shape, rows, bench, fn, outs, flops, nbytes, bmm=None,
+          **extra):
+    """Time ``fn(entries, outs[who])`` for each library, check bits, emit."""
+    times, ratio = bench.turns(lambda who, e: lambda: fn(e, outs[who]))
+    same = bench.same_bits(name, outs, extra.get("zero_padded", True), rows)
+    bound, by = _bound_ms(flops, nbytes)
+    rec = {"case": name, "shape": shape, "rows": int(rows.sum()),
+           "slots_with_rows": int((rows > 0).sum()), "ms": times,
+           "median_ms": {k: statistics.median(v) for k, v in times.items()},
+           "pair_ratio_median": ratio,
+           "bound_ms": bound, "bound_by": by, "same_bits": same, **extra}
+    if bmm is not None:
+        rec["bmm_ms"] = _event_ms(bmm, bench.iters)
+    _emit(rec)
+    return rec
+
+
+def bench_forward(bench: Bench) -> None:
+    rows_s, cap, K, N = slot_rows(*SHAPES["glm_serve"])
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for tag, G, M, rows in (("serve", rows_s.numel(), cap, rows_s),
+                            ("dense", 130, 1009, None)):
+        rows = (torch.full((G,), M, device="cuda", dtype=torch.int64)
+                if rows is None else rows)
+        x = _padded(_randn((G, M, K), 1.0, g), rows, 0.0)
+        w1, w3 = _randn((G, K, N), K ** -0.5, g), _randn((G, K, N),
+                                                         K ** -0.5, g)
+        w2 = _randn((G, N, K), N ** -0.5, g)
+        a = _padded(_randn((G, M, N), 1.0, g), rows, 0.0)
+        R, S = int(rows.sum()), int((rows > 0).sum())
+        shape = dict(G=G, M=M, K=K, N=N)
+        outs = {k: (torch.empty((G, M, N), dtype=x.dtype, device="cuda"),)
+                for k in bench.libs}
+        _case(f"row1_swiglu_{tag}", shape, rows, bench,
+              lambda e, o: e.forward(x, w1, w3, rows, o[0], True), outs,
+              4.0 * R * K * N, 2 * (R * K + 2 * S * K * N + R * N),
+              bmm=lambda: (torch.bmm(x, w1), torch.bmm(x, w3)))
+        outs = {k: (torch.empty((G, M, K), dtype=x.dtype, device="cuda"),)
+                for k in bench.libs}
+        _case(f"row2_matmul_{tag}", dict(G=G, M=M, K=N, N=K), rows, bench,
+              lambda e, o: e.forward(a, w2, None, rows, o[0], False), outs,
+              2.0 * R * K * N, 2 * (R * N + S * K * N + R * K),
+              bmm=lambda: torch.bmm(a, w2))
+        del x, w1, w3, w2, a, outs
+        torch.cuda.empty_cache()
+
+
+def bench_backward(bench: Bench, shape_name: str, b2: bool) -> None:
+    rows, cap, K, N = slot_rows(*SHAPES[shape_name])
+    G, M = rows.numel(), cap
+    R, S = int(rows.sum()), int((rows > 0).sum())
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = _padded(_randn((G, M, K), 1.0, g), rows)
+    w1, w3 = _randn((G, K, N), K ** -0.5, g), _randn((G, K, N), K ** -0.5, g)
+    dact = _padded(_randn((G, M, N), 1.0, g), rows)
+    shape = dict(G=G, M=M, K=K, N=N)
+    tiles = ops.swiglu_bwd_tiles(rows, M, N).shape[0]
+    # B1: the public call (padded rows written as zeros) against the
+    # parent's, then the train step's call (rows from the count rounded up
+    # to 64 on unwritten) against the parent's, each in turns.
+    outs = {k: (torch.empty((G, M, N), dtype=x.dtype, device="cuda"),
+                torch.empty((G, M, N), dtype=x.dtype, device="cuda"))
+            for k in bench.libs}
+    for tag, zero in (("", True), ("_train_call", False)):
+        _case(f"b1_swiglu_bwd_{shape_name}{tag}", shape, rows, bench,
+              lambda e, o: e.swiglu_bwd(x, w1, w3, dact, rows, *o,
+                                        zero_pad=zero or e.b1 is None),
+              outs, 4.0 * R * K * N, 2 * (R * K + 2 * S * K * N + 3 * R * N),
+              bmm=(lambda: (torch.bmm(x, w1), torch.bmm(x, w3))) if zero
+              else None, work_items=tiles, zero_padded=zero)
+        if zero:
+            dh, dg = (t.clone() for t in outs["change"])
+    if bench.check:
+        keep = torch.arange(M, device="cuda")[None, :, None] < rows[:, None,
+                                                                    None]
+        for t in (dh, dg):
+            if not torch.all(torch.where(keep, 0.0, t.float()) == 0):
+                raise AssertionError("b1: a padded row is not zero")
+    del outs
+    # B3: dw1 = x^T dh.
+    outs = {k: (torch.empty((G, K, N), dtype=x.dtype, device="cuda"),)
+            for k in bench.libs}
+    dhn = _padded(dh, rows)
+    _case(f"b3_wgrad_{shape_name}", dict(G=G, M=M, K=K, N=N), rows, bench,
+          lambda e, o: e.wgrad(x, dhn, rows, o[0]), outs, 2.0 * R * K * N,
+          2 * (R * K + R * N + G * K * N),
+          bmm=lambda: torch.bmm(x.transpose(1, 2), dhn),
+          tiles=ops.wgrad_tiles(G, K, N).shape[0])
+    del outs
+    if b2:
+        # B3's dw2 = act^T dy, B2's dact = dy w2^T and dx = dh w1^T + dg w3^T.
+        w2 = _randn((G, N, K), N ** -0.5, g)
+        dy = _padded(_randn((G, M, K), 1.0, g), rows)
+        act = _padded(_randn((G, M, N), 1.0, g), rows)
+        outs = {k: (torch.empty((G, N, K), dtype=x.dtype, device="cuda"),)
+                for k in bench.libs}
+        _case(f"b3_wgrad_dw2_{shape_name}", dict(G=G, M=M, K=N, N=K), rows,
+              bench, lambda e, o: e.wgrad(act, dy, rows, o[0]), outs,
+              2.0 * R * K * N, 2 * (R * K + R * N + G * K * N),
+              bmm=lambda: torch.bmm(act.transpose(1, 2), dy))
+        outs = {k: (torch.empty((G, M, N), dtype=x.dtype, device="cuda"),)
+                for k in bench.libs}
+        _case(f"b2_dact_{shape_name}", dict(G=G, M=M, K=K, N=N), rows, bench,
+              lambda e, o: e.matmul_nt(dy, w2, rows, o[0]), outs,
+              2.0 * R * K * N, 2 * (R * K + S * K * N + R * N),
+              bmm=lambda: torch.bmm(dy, w2.transpose(1, 2)))
+        dgn = _padded(dg, rows)
+        outs = {k: (torch.empty((G, M, K), dtype=x.dtype, device="cuda"),)
+                for k in bench.libs}
+        _case(f"b2_dx_{shape_name}", dict(G=G, M=M, K=N, N=K), rows, bench,
+              lambda e, o: e.matmul_nt(dhn, w1, rows, o[0], dgn, w3), outs,
+              4.0 * R * K * N, 2 * (2 * R * N + 2 * S * K * N + R * K),
+              bmm=lambda: torch.bmm(dhn, w1.transpose(1, 2))
+              + torch.bmm(dgn, w3.transpose(1, 2)))
+    torch.cuda.empty_cache()
+
+
+def _fit(xs, ts) -> dict:
+    n = len(xs)
+    mx, mt = sum(xs) / n, sum(ts) / n
+    sxx = sum((x - mx) ** 2 for x in xs)
+    b = sum((x - mx) * (t - mt) for x, t in zip(xs, ts)) / sxx
+    return {"fixed_ms": mt - b * mx, "per_tile_ms": b}
+
+
+def bench_split(bench: Bench) -> None:
+    """B1 and B3 at GLM's widths and train capacity, every slot at one row
+    count; the fit of time against the tiles each kernel contracts."""
+    G, M, K, N = 130, 2017, 4096, 1408
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = _randn((G, M, K), 1.0, g)
+    w1, w3 = _randn((G, K, N), K ** -0.5, g), _randn((G, K, N), K ** -0.5, g)
+    d = _randn((G, M, N), 1.0, g)
+    dh, dg = torch.empty_like(d), torch.empty_like(d)
+    out = torch.empty((G, K, N), dtype=x.dtype, device="cuda")
+    counts = (0, 64, 128, 256, 512, 1024)
+    for who, e in bench.libs.items():
+        t1, t3 = [], []
+        for r in counts:
+            rows = torch.full((G,), r, device="cuda", dtype=torch.int64)
+            t1.append(_event_ms(lambda: e.swiglu_bwd(x, w1, w3, d, rows, dh,
+                                                     dg), bench.iters))
+            t3.append(_event_ms(lambda: e.wgrad(x, d, rows, out),
+                                bench.iters))
+        _emit({"case": f"split_{who}", "shape": dict(G=G, M=M, K=K, N=N),
+               "rows_per_slot": counts,
+               "b1_ms": t1, "b1_fit_128_row_tiles": _fit(
+                   [G * math.ceil(r / 128) for r in counts], t1),
+               "b3_ms": t3, "b3_fit_64_row_token_tiles": _fit(
+                   [G * math.ceil(r / 64) for r in counts], t3)})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout's root: time its grouped_gemm.cu "
+                         "beside this one")
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="rounds of (parent, change, change, parent)")
+    ap.add_argument("--shapes", default="glm_train,deepseek_cell,jamba_cell")
+    ap.add_argument("--no-forward", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_grouped: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=False).stdout.strip()
+    libs = {}
+    if args.parent is not None:
+        kdir = args.parent / "src" / "repro_torch" / "kernels"
+        parent = KernelLibrary("grouped_gemm_parent", kdir / "grouped_gemm"
+                               / "csrc" / "grouped_gemm.cu",
+                               include=kdir / "csrc")
+        libs["parent"] = Entries(parent.load())
+    libs["change"] = Entries(ops.LIBRARY.load())
+    _emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "torch": torch.__version__, "libraries": list(libs),
+           "ptxas": [ln.strip() for ln in ops.LIBRARY.ptxas_log.splitlines()
+                     if "grouped_wgrad" in ln or "swiglu_bwd" in ln
+                     or "registers" in ln or "spill" in ln
+                     or "warning" in ln.lower()]})
+    bench = Bench(libs, args.iters, args.check, args.rounds)
+    if not args.no_forward:
+        bench_forward(bench)
+    for name in args.shapes.split(","):
+        bench_backward(bench, name, b2=name == "glm_train")
+    if args.split:
+        bench_split(bench)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

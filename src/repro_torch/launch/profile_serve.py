@@ -48,7 +48,7 @@ __all__ = ["main"]
 _CATEGORIES = (
     ("grouped_gemm_q8 (ours)", ("grouped_gemm_q8_wgmma_kernel",)),
     ("grouped_gemm backward (ours)", ("grouped_wgrad_kernel",
-                                      "grouped_gemm_wgmma_kernel<2>",
+                                      "grouped_swiglu_bwd_kernel",
                                       "grouped_gemm_wgmma_kernel<3>",
                                       "grouped_gemm_wgmma_kernel<4>")),
     ("flash_attention backward (ours)", ("bwd_dkdv_kernel", "bwd_dq_kernel",

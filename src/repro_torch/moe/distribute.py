@@ -163,7 +163,9 @@ def replica_grads_to_mains(d_rep: torch.Tensor, x_slots: torch.Tensor,
     all-gathered (R, N_slot, ...) and each row whose slot holds one of this
     rank's experts is added onto that expert's row (the transpose of
     :func:`select_local_replicas`); rows of other homes and unbound slots
-    (-1) add zeros."""
+    (-1) add zeros.  An expert may have replicas on several ranks, so the
+    rows are added one at a time in (rank, slot) order: a single
+    ``index_add_`` would add them with atomics in no fixed order."""
     R, n_slot = x_slots.shape
     n_main = out.shape[0]
     full = d_rep[None] if axis_name is None else _all_gather_slots(
@@ -171,10 +173,11 @@ def replica_grads_to_mains(d_rep: torch.Tensor, x_slots: torch.Tensor,
     flat = full.reshape(R * n_slot, -1)
     local = x_slots.reshape(-1).to(torch.int64) - my_rank * n_main
     ok = (local >= 0) & (local < n_main)
-    out.view(n_main, -1).index_add_(
-        0, local.clamp(0, n_main - 1),
-        torch.where(ok[:, None], flat, torch.zeros((), dtype=flat.dtype,
-                                                   device=flat.device)))
+    dst = out.view(n_main, -1)
+    at = local.clamp(0, n_main - 1)
+    zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
+    for i in range(R * n_slot):
+        dst.index_add_(0, at[i:i + 1], torch.where(ok[i], flat[i:i + 1], zero))
     return out
 
 

@@ -18,9 +18,11 @@ Dtype notes: indices are int64 (PyTorch's indexing type);
 stable ``jnp.argsort`` is ``torch.sort(stable=True)``.
 
 Gradients flow to the tokens and the combine weights through the gathers
-(:func:`gather_rows`, whose backward is an ``index_add_`` that skips the
-invalid positions) and the weighted sums, as autograd differentiates the
-reference's gathers.
+(:func:`gather_rows`, whose backward sums each row's gradients in the
+order of their positions, skipping the invalid ones) and the weighted
+sums, as autograd differentiates the reference's gathers.  No sum on the
+path depends on the order in which the card runs its threads, so a train
+step gives the same bits on every run.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ __all__ = [
     "fused_replicated_bucket",
     "fused_replicated_combine",
     "gather_rows",
+    "ordered_row_sum",
     "two_hop_all_to_all",
     "two_hop_all_to_all_async",
 ]
@@ -82,45 +85,79 @@ class ReplicatedBucket(NamedTuple):
     rows: torch.Tensor       # (num_slots,): valid = arange(cap) < rows
 
 
-def gather_rows(x: torch.Tensor, idx: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor, *,
+                copies: int) -> torch.Tensor:
     """``where(valid, x[idx], 0)``: rows of ``x`` (n, ...) at ``idx`` (any
-    shape) where ``valid``, zeros elsewhere.
+    shape) where ``valid``, zeros elsewhere.  ``copies`` is the caller's
+    bound on how many valid positions read one row of ``x``, known without
+    reading the device (a token's top-k, or 1 where the valid positions
+    are distinct).
 
-    Under a gradient the backward is an ``index_add_`` of the valid
-    positions' gradients (the invalid ones add zeros, each to a row of its
-    own), where autograd's backward of ``x[idx]`` sorts the indices and sums
-    each row's duplicates one after another: the padded positions of a
-    capacity buffer all point at one row, and at GLM-4.5-Air's train step
-    (262,144 send positions, ~196k of them padding) that took 0.4 s of an
-    H100 step."""
+    Under a gradient the backward is :func:`ordered_row_sum` of the valid
+    positions' gradients: each row of ``x`` gets its contributions added
+    from zeros in increasing position order, in ``copies`` gathers, so the
+    sum is the same bits on every run.  An ``index_add_`` on a CUDA tensor
+    adds with atomics in no fixed order, which changes the bits once a row
+    has more than two contributions; autograd's backward of ``x[idx]``
+    would sort the indices and sum each row's duplicates one after
+    another, and the padded positions of a capacity buffer all point at
+    one row (at GLM-4.5-Air's train step, 262,144 send positions, ~196k of
+    them padding, that took 0.4 s of an H100 step)."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return _GatherRows.apply(x, idx, valid)
+        return _GatherRows.apply(x, idx, valid, copies)
     return torch.where(valid[(...,) + (None,) * (x.dim() - 1)], x[idx],
                        _zeros_like_scalar(x))
 
 
+def ordered_row_sum(vals: torch.Tensor, idx: torch.Tensor,
+                    valid: torch.Tensor, n: int, copies: int
+                    ) -> torch.Tensor:
+    """(n, ...) sums of ``vals`` (P, ...) by row: ``out[r]`` is zeros plus
+    ``vals[p]`` for every valid position p with ``idx[p] == r``, added one
+    after another in increasing p, in ``vals``' dtype.  At most ``copies``
+    valid positions may share a row (the caller's bound: contributions
+    past it are not added).
+
+    A stable sort of the positions by row (invalid ones last) puts each
+    row's contributions in a run in position order; pass j adds, to every
+    row, the j-th entry of its run where the run is longer than j.  Within
+    a pass no two contributions share a row, so every pass is a plain
+    gather and an add with no atomics, and no host read."""
+    rest = tuple(vals.shape[1:])
+    out = vals.new_zeros((n,) + rest)
+    P = idx.shape[0]
+    if P == 0 or n == 0:
+        return out
+    key = torch.where(valid, idx.to(_I64), n)
+    sorted_key, order = torch.sort(key, stable=True)
+    probe = torch.arange(n, dtype=_I64, device=idx.device)
+    start = torch.searchsorted(sorted_key, probe, right=False)
+    count = torch.searchsorted(sorted_key, probe, right=True) - start
+    pad = (...,) + (None,) * len(rest)
+    for j in range(copies):
+        src = order[(start + j).clamp(max=P - 1)]
+        out += torch.where((count > j)[pad], vals[src],
+                           _zeros_like_scalar(vals))
+    return out
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, idx, valid):
+    def forward(ctx, x, idx, valid, copies):
         ctx.save_for_backward(idx, valid)
         ctx.x_shape = x.shape
+        ctx.copies = copies
         return torch.where(valid[(...,) + (None,) * (x.dim() - 1)], x[idx],
                            _zeros_like_scalar(x))
 
     @staticmethod
     def backward(ctx, g):
         idx, valid = ctx.saved_tensors
-        n = ctx.x_shape[0]
         flat_idx = idx.reshape(-1)
-        ok = valid.reshape(-1)
-        spread = torch.arange(flat_idx.shape[0], device=idx.device) % n
         gf = g.reshape((flat_idx.shape[0],) + tuple(ctx.x_shape[1:]))
-        out = g.new_zeros(ctx.x_shape)
-        out.index_add_(0, torch.where(ok, flat_idx, spread),
-                       torch.where(ok[(...,) + (None,) * (gf.dim() - 1)], gf,
-                                   _zeros_like_scalar(gf)))
-        return out, None, None
+        return (ordered_row_sum(gf, flat_idx, valid.reshape(-1),
+                                ctx.x_shape[0], ctx.copies),
+                None, None, None)
 
 
 def _hops(group, reverse: bool):
@@ -279,7 +316,8 @@ def fused_dispatch(x_local: torch.Tensor, expert_ids: torch.Tensor,
     gather_idx = dst_start[:, None] + col[None, :]
     in_row = col[None, :] < dst_cnt[:, None]
     src_item = perm[gather_idx.clamp(0, n - 1)]
-    send_x = gather_rows(x_local, src_item // k, in_row)
+    # A token's k items take distinct sorted positions: at most k copies.
+    send_x = gather_rows(x_local, src_item // k, in_row, copies=k)
 
     pair_start, pair_cnt = _group_bounds(sorted_key, R * S1)
     pair_start = pair_start.reshape(R, S1)
@@ -301,7 +339,9 @@ def fused_bucket(recv_x: torch.Tensor, recv_counts: torch.Tensor, *,
     drops, rows): slot buffers (num_slots, cap_slot, D), their validity
     mask, the :class:`BucketMeta` inverse map, the dropped-item count and
     each slot's valid-row count (num_slots,): the valid rows of a slot are
-    the prefix ``arange(cap_slot) < rows``.  The slot buffers' rows start
+    the prefix ``arange(cap_slot) < rows``.  Each valid slot row reads a
+    receive position of its own (a received item lands in one slot row),
+    so the gather's gradient has one copy a receive row.  The slot buffers' rows start
     a multiple of 16 bytes apart, so that the kernels read them with TMA:
     where a row is not (the int8 wire's, D + 4 bytes), xs is a view of a
     buffer with padded rows, written in the same one pass.
@@ -328,7 +368,7 @@ def fused_bucket(recv_x: torch.Tensor, recv_counts: torch.Tensor, *,
     flat_idx = (src * cap_pair + row_pos).clamp(0, R * cap_pair - 1)
     pitch = -(-D * recv_x.element_size() // 16) * 16
     if pitch == D * recv_x.element_size():
-        xs = gather_rows(flat, flat_idx, valid)
+        xs = gather_rows(flat, flat_idx, valid, copies=1)
     else:
         buf = recv_x.new_empty((num_slots, cap_slot,
                                 pitch // recv_x.element_size()))
@@ -350,10 +390,11 @@ def fused_bucket(recv_x: torch.Tensor, recv_counts: torch.Tensor, *,
 
 
 def fused_unbucket(out: torch.Tensor, meta: BucketMeta) -> torch.Tensor:
-    """Inverse of :func:`fused_bucket`: a pure gather back to (R, cap_pair)."""
+    """Inverse of :func:`fused_bucket`: a pure gather back to (R, cap_pair);
+    each valid receive position reads a slot row of its own (one copy)."""
     G, cap, D = out.shape
     return gather_rows(out.reshape(G * cap, D), meta.slot * cap + meta.pos,
-                       meta.valid)
+                       meta.valid, copies=1)
 
 
 def _tokenwise_sum(vals: torch.Tensor) -> torch.Tensor:
@@ -370,14 +411,15 @@ def _tokenwise_sum(vals: torch.Tensor) -> torch.Tensor:
 
 def fused_combine(ret_x: torch.Tensor, disp: FusedDispatch,
                   weights: torch.Tensor) -> torch.Tensor:
-    """Weighted combine, scatter-free (mirrors ``fused_combine``)."""
+    """Weighted combine, scatter-free (mirrors ``fused_combine``); each kept
+    item reads its own (dst, pos) return row (one copy)."""
     T, k = weights.shape
     R, cap, D = ret_x.shape
     safe_dst = torch.where(disp.item_kept, disp.item_dst, 0)
     safe_pos = torch.where(disp.item_kept, disp.item_pos, 0)
     flat_w = weights.reshape(-1) * disp.item_kept.to(weights.dtype)
     vals = gather_rows(ret_x.reshape(R * cap, D), safe_dst * cap + safe_pos,
-                       disp.item_kept) * flat_w[:, None].to(ret_x.dtype)
+                       disp.item_kept, copies=1) * flat_w[:, None].to(ret_x.dtype)
     return _tokenwise_sum(vals.reshape(T, k, D))
 
 
@@ -418,7 +460,8 @@ def fused_replicated_bucket(x: torch.Tensor, expert_ids: torch.Tensor,
     rows = cnt[:num_slots].clamp(max=cap_slot)
     valid = p[None, :] < rows[:, None]
     src_item = perm[gather_idx.clamp(0, n - 1)]
-    xs = gather_rows(x, src_item // k, valid)
+    # A token's k items take distinct sorted positions: at most k copies.
+    xs = gather_rows(x, src_item // k, valid, copies=k)
     return ReplicatedBucket(xs=xs, valid=valid, item_slot=key,
                             item_pos=item_pos, item_ok=item_ok, drops=drops,
                             rows=rows)
@@ -426,12 +469,13 @@ def fused_replicated_bucket(x: torch.Tensor, expert_ids: torch.Tensor,
 
 def fused_replicated_combine(out: torch.Tensor, bucket: ReplicatedBucket,
                              weights: torch.Tensor) -> torch.Tensor:
-    """Per-item gather from the slot buffers + token-major weighted sum."""
+    """Per-item gather from the slot buffers + token-major weighted sum;
+    each kept item reads its own (slot, pos) row (one copy)."""
     T, k = weights.shape
     G, cap, D = out.shape
     safe_slot = torch.where(bucket.item_ok, bucket.item_slot, 0)
     safe_pos = torch.where(bucket.item_ok, bucket.item_pos, 0)
     flat_w = weights.reshape(-1) * bucket.item_ok.to(weights.dtype)
     vals = gather_rows(out.reshape(G * cap, D), safe_slot * cap + safe_pos,
-                       bucket.item_ok) * flat_w[:, None].to(out.dtype)
+                       bucket.item_ok, copies=1) * flat_w[:, None].to(out.dtype)
     return _tokenwise_sum(vals.reshape(T, k, D))
