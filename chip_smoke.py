@@ -76,9 +76,12 @@ Phases, one output line each:
      (probes, steps, critical-path steps) equal, no host sync, graph time,
      the bound (critical-path steps x one redux.sync round) and the plain
      loop's time; ``eplb_place`` (row Pe, EPLB's greedy placement) at E
-     128 and 256, R 64, n_slot 2, Zipf 1.0: hosted bitwise equal to the
-     plain version, no host sync, graph time, the bound (steps x two block
-     reductions, timed here) and the plain loop's time; and
+     128 and 256, R 64, n_slot 2, Zipf 1.0, and over a sweep (E 16-1024,
+     R 2-256, n_slot 1-8, max_rep 2..R; Zipf, equal, zero and half-zero
+     loads): hosted and (steps, placements) bitwise equal to the plain
+     version, no host sync, graph time, the bound (steps x the longer of a
+     step's two dependent chains, timed here) and the plain loop's time;
+     and
      ``flash_attention`` against its plain version at the
      GLM-4.5-Air serve cache (C 4096, Sk 10248: offsets 0 and 4096, a ragged
      last chunk), at Qwen3's 64 over 4 heads, at decode (B 4, per-row
@@ -288,8 +291,27 @@ RACK_PLAN_CASES = [(R, E, k, 8 if R % 8 == 0 else 2)
                    for R, E, k in PLAN_CASES if R >= 4]
 RACKS, RACK_RANKS, RACK_TOKENS = 2, 4, 2048   # phase 14: 2 racks x 2 lanes
 # Row Pe: (R, E, top-k) of GLM-4.5-Air (E 128) and DeepSeek-V3 (E 256) at
-# R 64, n_slot 2.
+# R 64, n_slot 2, timed; and the sweep held bitwise to the plain version:
+# (E, R, n_slot, max_rep, load) over E 16-256, R 2-64, n_slot 1-4, max_rep
+# 2..R, with Zipf loads, equal loads (ties everywhere), zero loads (every
+# expert retired, no placement), half the experts at zero, and max_rep 2
+# (the hot experts retired after one replica); then R 128 and R 256 (8
+# ranks a lane) and E 1024 (32 experts a lane, lists in shared memory).
 EPLB_CASES = [(64, 128, 8), (64, 256, 8)]
+EPLB_SWEEP = [(16, 2, 1, 2, "zipf"), (16, 4, 4, 4, "equal"),
+              (16, 16, 2, 16, "zipf"), (16, 16, 3, 2, "half_zero"),
+              (32, 8, 2, 8, "zero"), (32, 32, 4, 32, "equal"),
+              (64, 2, 4, 2, "zipf"), (64, 4, 3, 4, "half_zero"),
+              (64, 16, 1, 16, "equal"), (64, 32, 2, 2, "zipf"),
+              (64, 64, 4, 64, "zipf"), (128, 8, 2, 8, "zipf"),
+              (128, 16, 4, 2, "zipf"), (128, 32, 3, 32, "half_zero"),
+              (128, 64, 1, 64, "equal"), (128, 64, 4, 2, "zipf"),
+              (128, 64, 2, 64, "zero"), (256, 4, 2, 4, "zipf"),
+              (256, 16, 3, 16, "equal"), (256, 32, 4, 32, "zipf"),
+              (256, 64, 1, 2, "zipf"), (256, 64, 4, 64, "half_zero"),
+              (256, 64, 3, 33, "equal"), (256, 128, 2, 128, "zipf"),
+              (256, 256, 2, 256, "zipf"), (256, 256, 1, 256, "equal"),
+              (1024, 32, 3, 32, "half_zero")]
 # Rows Pk and Ph: (R, E, top-k, rack size or None); P 1 beside P 4 and 8.
 KARY_CASES = [(64, 128, 8, None), (64, 128, 8, 8), (64, 256, 8, None),
               (64, 256, 8, 8)]
@@ -398,12 +420,14 @@ def _time_pair(kernel, plain, library, flops, nbytes, kind, iters):
 
 
 def _serve_dispatch(cfg, T: int, mode: str, seed: int, cf=SERVE["cf"],
-                    **runtime):
+                    x_grad: bool = False, **runtime):
     """The dispatch stage's output and the slot capacity as the serve path
     makes them: the port's gate, ``ultraep`` plan and bucket on T seeded
     tokens at ``cfg``'s width, with capacity factors ``cf`` (the serve
     path's by default) and the ``RuntimeConfig`` fields in ``runtime`` (the
-    wire and FFN dtypes)."""
+    wire and FFN dtypes).  ``x_grad``: the tokens require a gradient, so
+    the slot buffers' backward runs to them; the tokens are returned
+    third."""
     import torch
 
     from repro_torch.core.balancer import BalancerConfig
@@ -423,13 +447,15 @@ def _serve_dispatch(cfg, T: int, mode: str, seed: int, cf=SERVE["cf"],
     router = torch.randn((D, cfg.moe.num_experts), generator=g,
                          device="cuda") * D ** -0.5
     x = torch.randn((T, D), generator=g, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(x_grad)
     ctx = stages.make_stage_ctx(mcfg, None)
-    gs = stages.gate_stage(ctx, x, router)
-    ps = stages.plan_stage(ctx, gs)
-    ds = stages.dispatch_stage(ctx, x, gs.gate_out.expert_ids, gs, ps)
+    with torch.set_grad_enabled(x_grad):
+        gs = stages.gate_stage(ctx, x, router)
+        ps = stages.plan_stage(ctx, gs)
+        ds = stages.dispatch_stage(ctx, x, gs.gate_out.expert_ids, gs, ps)
     if not torch.equal(ds.rows, ds.valid.sum(dim=1)):
         raise AssertionError("bucket rows differ from its validity mask")
-    return ds, mcfg.cap_slot
+    return (ds, mcfg.cap_slot, x) if x_grad else (ds, mcfg.cap_slot)
 
 
 def _serve_rows(cfg, T: int, mode: str, seed: int, cf=SERVE["cf"]):
@@ -1482,53 +1508,93 @@ def phase_plan_solve_racks() -> dict:
     return records
 
 
+def _eplb_load(E, R, law, seed):
+    """(E,) float32 loads of one EPLB_SWEEP law."""
+    import torch
+
+    if law == "equal":
+        return torch.full((E,), 1000.0)
+    if law == "zero":
+        return torch.zeros(E)
+    lam = torch.from_numpy(_plan_lam(R, E, 8, "zipf", seed=seed)).sum(
+        dim=0).to(torch.float32)
+    if law == "half_zero":
+        lam[::2] = 0.0
+    return lam
+
+
 def phase_eplb_place() -> dict:
     """Row Pe: EPLB's greedy placement (``eplb_place``) vs its plain
-    version at EPLB_CASES (Zipf 1.0 loads, n_slot 2): hosted bitwise equal
-    and (steps, placements) equal, no host sync under
-    ``set_sync_debug_mode("error")``; graph device time, the plain loop's
-    eager time on the card, and the bound: steps x two block reductions
-    (the kernel's chain of one, timed here)."""
+    version (on the host): hosted bitwise equal and (steps, placements)
+    equal, at EPLB_CASES (Zipf 1.0 loads, n_slot 2, max_rep R; no host sync
+    under ``set_sync_debug_mode("error")``, the plain loop's eager time on
+    the card) and over EPLB_SWEEP.  Each case: graph device time and the
+    bound, steps x the longer of one step's two dependent chains
+    (``ops.step_chain_ms`` at the case's shape, timed here: the argmin and
+    the re-sum of the chosen rank's list in the kernel's form, the vote
+    and the argmax)."""
     import torch
 
     from repro_torch.kernels.eplb_place import ops
 
-    unit = min(ops.block_reduce_ms() for _ in range(3))
-    records = {}
-    for R, E, k in EPLB_CASES:
-        name = f"e{E}_k{k}_r{R}_zipf"
-        lam = torch.from_numpy(_plan_lam(R, E, k, "zipf", seed=E))
-        lam_e = lam.sum(dim=0).to(torch.float32)
+    units = {}
+
+    def unit(E, R, n_slot):
+        """The larger of a step's two chains at this shape, each the best
+        of three timings."""
+        key = f"e{E}_r{R}_s{n_slot}"
+        if key not in units:
+            runs = [ops.step_chain_ms(E, R, n_slot) for _ in range(3)]
+            units[key] = {"argmin_resum_ms": min(r[0] for r in runs),
+                          "vote_argmax_ms": min(r[1] for r in runs)}
+        return max(units[key].values())
+
+    def case(lam_e, E, R, n_slot, max_rep):
         home = torch.arange(E) // (E // R)
-        kw = dict(n_slot=2, max_rep=R)
+        kw = dict(n_slot=n_slot, max_rep=max_rep)
         stats_ref = torch.zeros(2, dtype=torch.int32)
         want = ops.eplb_place_ref(lam_e, home, R, stats=stats_ref, **kw)
         d_lam, d_home = lam_e.cuda(), home.cuda()
         stats = torch.zeros(2, dtype=torch.int32, device="cuda")
         got = ops.eplb_place(d_lam, d_home, R, stats=stats, **kw)
         torch.cuda.synchronize()
+        name = f"e{E}_r{R}_s{n_slot}_m{max_rep}"
         if not torch.equal(got.cpu(), want):
             raise AssertionError(f"eplb_place {name}: hosted differs from "
                                  f"the plain version")
         if not torch.equal(stats.cpu(), stats_ref):
             raise AssertionError(f"eplb_place {name}: (steps, placements) "
                                  f"{stats.tolist()} != {stats_ref.tolist()}")
-        _sync_free(lambda: ops.eplb_place(d_lam, d_home, R, **kw))
+        steps, placed = stats_ref.tolist()
         ms = _graph_ms(lambda: ops.eplb_place(d_lam, d_home, R, **kw), 5)
+        rec = {"shape": [R, E], "n_slot": n_slot, "max_rep": max_rep,
+               "steps": steps, "placements": placed, "ms": ms,
+               "bound_ms": steps * unit(E, R, n_slot),
+               "bound_by": "operations", "library_ms": None,
+               "max_abs_err": 0, "replicas": int(want.sum()) - E}
+        return rec, d_lam, d_home, kw
+
+    records = {}
+    for R, E, k in EPLB_CASES:
+        lam_e = torch.from_numpy(_plan_lam(R, E, k, "zipf", seed=E)).sum(
+            dim=0).to(torch.float32)
+        rec, d_lam, d_home, kw = case(lam_e, E, R, 2, R)
+        _sync_free(lambda: ops.eplb_place(d_lam, d_home, R, **kw))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ops.eplb_place_ref(d_lam, d_home, R, **kw)
         torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        steps, placed = stats_ref.tolist()
-        records[name] = {
-            "shape": [R, E, k], "law": "zipf", "steps": steps,
-            "placements": placed, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": steps * 2 * unit, "bound_by": "operations",
-            "library_ms": None, "max_abs_err": 0, "sync_free": True,
-            "replicas": int(want.sum()) - E}
-    _line("phase2_eplb_place", {"block_reduce_ms": unit, **records})
-    return records
+        records[f"e{E}_k{k}_r{R}_zipf"] = dict(
+            rec, law="zipf", plain_ms=(time.perf_counter() - t0) * 1e3,
+            sync_free=True)
+    sweep = {}
+    for E, R, n_slot, max_rep, law in EPLB_SWEEP:
+        rec = case(_eplb_load(E, R, law, seed=E + R), E, R, n_slot,
+                   max_rep)[0]
+        sweep[f"e{E}_r{R}_s{n_slot}_m{max_rep}_{law}"] = dict(rec, law=law)
+    _line("phase2_eplb_place", {"step_chain_ms": units, **records,
+                                "sweep": sweep})
+    return {**records, "sweep": sweep}
 
 
 def _kary_record(lam, home, R, E, k, L, law, redux_ms, *, P=1,
@@ -2999,36 +3065,112 @@ def _grouped_bwd_records(cfg, tokens: int, cf: float, iters: int) -> dict:
         torch.cuda.empty_cache()
     recs["grouped_swiglu_bwd"]["padded_rows_unread_bitwise"] = unread
     del dh5, dg5
-    # B2: dact = dy w2^T (w2 stored (G, F, D)), dx = dh w1^T + dg w3^T
-    out = gg.grouped_matmul_nt(dy, w2, rows)
-    torch.cuda.synchronize()
-    e = _slot_check("matmul_nt", (out,), lambda sl: (
-        gg.grouped_matmul_nt_ref(dy[sl], w2[sl], rows[sl]),), TRAIN_TOL)
-    zeros_past("matmul_nt", out, rows)
-    record("grouped_matmul_nt",
-           lambda: gg.grouped_matmul_nt(dy, w2, rows),
-           lambda: gg.grouped_matmul_nt_ref(dy, w2, rows),
-           lambda: torch.bmm(dy, w2.transpose(1, 2)), 2.0 * R * K * N,
-           2 * (R * K + nz * K * N + R * N),
-           dict(max_abs_err=e[0], max_abs_ref=e[1]))
+    # B2: dact = dy w2^T (w2 stored (G, F, D)) and dx = dh w1^T + dg w3^T;
+    # each the public call (rows past the count zeros) and the train
+    # step's call (zero_padded=False, NaN in its operands' padded rows),
+    # which must agree on the rows up to the count rounded up to 64.
+    tile = torch.arange(M, device="cuda")[None, :, None] < \
+        torch.clamp((rows + 63) // 64 * 64, max=M)[:, None, None]
+    sparse = rows.clone()
+    sparse[::13] = 0
+
+    def b2_case(name, args, nan_args, flops, nbytes, bmm):
+        call = lambda a, r, **kw: gg.grouped_matmul_nt(a[0], a[1], r, *a[2:],
+                                                       **kw)
+        ref = lambda a, r, sl: (gg.grouped_matmul_nt_ref(
+            *(t[sl] for t in a[:2]), r[sl], *(t[sl] for t in a[2:])),)
+        pub = call(args, rows)
+        torch.cuda.synchronize()
+        e = _slot_check(f"matmul_nt {name}", (pub,),
+                        lambda sl: ref(args, rows, sl), TRAIN_TOL)
+        zeros_past(f"matmul_nt {name}", pub, rows)
+        train = call(nan_args, rows, zero_padded=False)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.where(tile, train, 0), torch.where(
+                tile, pub, 0)):
+            raise AssertionError(f"matmul_nt {name}: the train step's call "
+                                 f"differs from the public call's")
+        # Every 13th slot empty, NaN past the counts: both calls.
+        nan_sparse = [nan_past(t, sparse) if t.shape[1] == M else t
+                      for t in args]
+        sp_pub = call(nan_sparse, sparse)
+        sp_train = call(nan_sparse, sparse, zero_padded=False)
+        torch.cuda.synchronize()
+        zeros_past(f"matmul_nt {name} sparse", sp_pub, sparse)
+        keep = torch.arange(M, device="cuda")[None, :, None] < \
+            sparse[:, None, None]
+        e_sp = _slot_check(f"matmul_nt {name} sparse",
+                           (torch.where(keep, sp_train, 0),),
+                           lambda sl: ref(args, sparse, sl), TRAIN_TOL)
+        if not torch.equal(torch.where(keep, sp_train, 0), sp_pub):
+            raise AssertionError(f"matmul_nt {name} sparse: the train "
+                                 f"step's call differs")
+        del sp_pub, sp_train, nan_sparse
+        rec = dict(
+            _time_pair(lambda: call(args, rows, zero_padded=False),
+                       lambda: gg.grouped_matmul_nt_ref(args[0], args[1],
+                                                        rows, *args[2:]),
+                       bmm, flops, nbytes, "bf16", iters),
+            max_abs_err=e[0], max_abs_ref=e[1],
+            sparse_nan=dict(max_abs_err=e_sp[0], max_abs_ref=e_sp[1]),
+            zero_padded_ms=_cuda_ms(lambda: call(args, rows), iters),
+            zero_bytes=int(2 * (G * M - int(torch.clamp(
+                (rows + 63) // 64 * 64, max=M).sum())) * pub.shape[2]),
+            work_items=int(gg.matmul_nt_tiles(rows, M, pub.shape[2])
+                           .shape[0]))
+        torch.cuda.empty_cache()
+        return rec, pub, train
+
+    b2 = {}
+    b2["dact"], dact_pub, dact_train = b2_case(
+        "dact", (dy, w2), (nan_past(dy, rows), w2), 2.0 * R * K * N,
+        2 * (R * K + nz * K * N + R * N),
+        lambda: torch.bmm(dy, w2.transpose(1, 2)))
     del w2, dy
-    out = gg.grouped_matmul_nt(dh, w1, rows, dg, w3)
-    torch.cuda.synchronize()
-    e = _slot_check("matmul_nt dual", (out,), lambda sl: (
-        gg.grouped_matmul_nt_ref(dh[sl], w1[sl], rows[sl], dg[sl], w3[sl]),),
-        TRAIN_TOL)
-    zeros_past("matmul_nt dual", out, rows)
-    recs["grouped_matmul_nt"]["dual"] = dict(
-        _time_pair(lambda: gg.grouped_matmul_nt(dh, w1, rows, dg, w3),
-                   lambda: gg.grouped_matmul_nt_ref(dh, w1, rows, dg, w3),
-                   None, 4.0 * R * K * N,
-                   2 * (2 * R * N + 2 * nz * K * N + R * K), "bf16", iters),
-        max_abs_err=e[0], max_abs_ref=e[1],
-        bmm_pair_ms=_cuda_ms(lambda: torch.bmm(dh, w1.transpose(1, 2))
-                             + torch.bmm(dg, w3.transpose(1, 2)), iters))
-    del out
+    torch.cuda.empty_cache()
+    b2["dx"], dx_pub, dx_train = b2_case(
+        "dx", (dh, w1, dg, w3), (nan_past(dh, rows), w1, nan_past(dg, rows),
+                                 w3),
+        4.0 * R * K * N, 2 * (2 * R * N + 2 * nz * K * N + R * K),
+        lambda: torch.bmm(dh, w1.transpose(1, 2))
+        + torch.bmm(dg, w3.transpose(1, 2)))
+    # Their readers: B1 (dact) and the dispatch gathers' backward (dx, into
+    # the tokens) give the same bits whether those rows hold zeros, NaN or
+    # what the train step's call left there.
+    unread = {}
+    base = gg.grouped_swiglu_bwd(x, w1, w3, dact_pub, rows)
+    for tag, d in (("nan", nan_past(dact_pub, rows)),
+                   ("unwritten", dact_train)):
+        got = gg.grouped_swiglu_bwd(x, w1, w3, d, rows)
+        unread[f"swiglu_bwd_dact_{tag}"] = all(
+            torch.equal(a, b) for a, b in zip(got, base))
+        del got
+    del base, dact_pub, dact_train
+    ds, _, tokens_x = _serve_dispatch(cfg, tokens, "a2a", 7, cf=cf,
+                                      x_grad=True)
+    if not torch.equal(ds.rows, rows):
+        raise AssertionError("the dispatch's rows differ from phase 12's")
+    grad = lambda d: torch.autograd.grad(ds.xs, tokens_x, d,
+                                         retain_graph=True)[0]
+    base = grad(torch.where(pad, 0.0, dx_pub.float()).to(bf16))
+    for tag, d in (("nan", nan_past(dx_pub, rows)), ("unwritten", dx_train)):
+        unread[f"gather_bwd_dx_{tag}"] = torch.equal(grad(d), base)
+    del ds, tokens_x, base, dx_pub, dx_train
+    for k, same in unread.items():
+        if not same:
+            raise AssertionError(f"{k}: B2's padded rows reach a valid "
+                                 f"result")
+    recs["grouped_matmul_nt"] = dict(
+        b2["dact"], shape=shape, rows=R, slots_with_rows=nz,
+        dual=b2["dx"], padded_rows_unread_bitwise=unread,
+        library_note="torch.bmm over the padded buffers (dx: two bmm and "
+                     "an add); ms is the train step's call "
+                     "(zero_padded=False), zero_padded_ms the public "
+                     "call's (rows past the count written as zeros)")
+    del b2
+    torch.cuda.empty_cache()
     # B3: dw1 = x^T dh; then NaN in the padded rows and every 13th slot
-    # empty, for B3 and B1.
+    # empty (``sparse``), for B3 and B1.
     out = gg.grouped_wgrad(x, dh, rows)
     torch.cuda.synchronize()
     e = _slot_check("wgrad", (out,), lambda sl: (
@@ -3041,8 +3183,6 @@ def _grouped_bwd_records(cfg, tokens: int, cf: float, iters: int) -> dict:
            dict(max_abs_err=e[0], max_abs_ref=e[1]),
            tiles=int(gg.wgrad_tiles(G, K, N).shape[0]))
     torch.cuda.empty_cache()
-    sparse = rows.clone()
-    sparse[::13] = 0
     nan_x = nan_past(x, rows)
     out = gg.grouped_wgrad(nan_x, dh, sparse)
     torch.cuda.synchronize()
@@ -4851,13 +4991,18 @@ def main() -> int:
                                                          "eplb_plus")), {
             "launches_note": "phase 9 (R = 2), runs eplb and eplb_plus, "
                              "rank 0",
-            "bound_note": "latency: steps x two measured block reductions",
+            "bound_note": "latency: steps x the longer of a step's two "
+                          "measured chains, which run side by side: the "
+                          "argmin's two redux.sync rounds and the re-sum of "
+                          "the chosen rank's list; the vote and the "
+                          "argmax's two rounds",
             "steps": pe["steps"], "placements": pe["placements"],
             "library_note": "none: no PyTorch call computes the placement",
+            "sweep_bitwise": len(eplb_records["sweep"]),
             **{tag: {k: r[k] for k in ("shape", "steps", "placements", "ms",
                                        "plain_ms", "bound_ms")}
                for tag, r in eplb_records.items()
-               if tag != "e256_k8_r64_zipf"}}))
+               if tag not in ("e256_k8_r64_zipf", "sweep")}}))
     # The backward kernels (no pallas_call: XLA differentiates the JAX
     # package's einsums and flash_ref), with their launches in the last
     # train step of phase 13 and in phase 9's R = 2 backward.
@@ -4873,7 +5018,8 @@ def main() -> int:
           "padded_rows_unread_bitwise") + cells),
         ("grouped_matmul_nt", gg_src, "src/repro/kernels/grouped_gemm/"
          "kernel.py:184 and :154 (their dgrad; no pallas_call)",
-         ("dual",) + cells),
+         ("dual", "sparse_nan", "zero_padded_ms", "zero_bytes", "work_items",
+          "padded_rows_unread_bitwise") + cells),
         ("grouped_wgrad", gg_src, "src/repro/kernels/grouped_gemm/"
          "kernel.py:154 and :184 (their wgrad; no pallas_call)",
          ("sparse_nan", "tiles") + cells),

@@ -23,6 +23,8 @@ as the layout gives), ``num_ranks`` R; ``n_slot`` replica slots a rank and
 ``max_rep`` instances an expert (mains included).  Output: ``hosted`` (E,
 R) bool, mains included.  The estimate ``est[t]`` sums rank t's hosted
 experts' loads per instance in f32 in ascending expert id, on both paths.
+The kernel runs its loop in one warp and takes E up to 1024 and R up to
+256 (``MAX_E``, ``MAX_R``); the wrapper raises on more.
 """
 
 from __future__ import annotations
@@ -35,12 +37,13 @@ import torch
 
 from repro_torch.kernels.build import KernelLibrary
 
-__all__ = ["eplb_place", "eplb_place_ref", "block_reduce_ms", "LIBRARY"]
+__all__ = ["eplb_place", "eplb_place_ref", "step_chain_ms", "LIBRARY"]
 
 LIBRARY = KernelLibrary("eplb_place",
                         Path(__file__).parent / "csrc" / "eplb_place.cu")
 
 MAX_SMEM = 232448          # 227 KB: the dynamic shared memory of an H100 block
+MAX_E, MAX_R = 1024, 256   # the kernel's lanes hold 32 experts, 8 ranks each
 
 
 def _estimate(hosted: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
@@ -102,40 +105,53 @@ def _library():
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
     lib.eplb_place_smem_bytes.restype = ctypes.c_longlong
     lib.eplb_place_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.eplb_place_block_reduce_chain.restype = ctypes.c_int
-    lib.eplb_place_block_reduce_chain.argtypes = [ctypes.c_int,
-                                                  ctypes.c_void_p,
-                                                  ctypes.c_void_p]
+    lib.eplb_place_reg_lists.restype = ctypes.c_int
+    lib.eplb_place_reg_lists.argtypes = [ctypes.c_int] * 3
+    lib.eplb_place_step_chain.restype = ctypes.c_int
+    lib.eplb_place_step_chain.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
-def block_reduce_ms(device=None, rounds: int = 1 << 14) -> float:
-    """The card's latency of one block reduction of the kind a step makes
-    twice (a redux.sync round in every warp, a barrier, a second round, a
-    barrier), in ms: a chain of ``rounds`` timed with CUDA events against a
-    chain of 1.  The kernel's bound is its steps times two of these."""
+def step_chain_ms(E: int, R: int, n_slot: int, device=None,
+                  rounds: int = 1 << 14) -> tuple[float, float]:
+    """The card's latency, in ms, of each of the two dependent chains of
+    one step of the kernel at (E, R, n_slot): (the argmin's two redux.sync
+    rounds and the re-sum of the chosen rank's estimate, the vote and the
+    argmax's two rounds).  The re-sum is the kernel's own form there: 8
+    pairs in registers where the kernel keeps its lists there
+    (``eplb_place_reg_lists``), else E / R + n_slot pairs from shared
+    memory.  Each is a chain of
+    ``rounds`` timed with CUDA events against a chain of 1.  The two run
+    side by side in the kernel, so its bound is its steps times the
+    larger."""
     device = torch.device("cuda") if device is None else torch.device(device)
     out = torch.empty(1, dtype=torch.int32, device=device)
     stream = torch._C._cuda_getCurrentRawStream(out.device.index)
     lib = _library()
+    n = E // R + n_slot
+    argmin_part = 0 if lib.eplb_place_reg_lists(E, R, n_slot) else 1
 
-    def run(n):
-        err = lib.eplb_place_block_reduce_chain(n, out.data_ptr(), stream)
+    def run(part, count):
+        err = lib.eplb_place_step_chain(count, part, n, out.data_ptr(),
+                                        stream)
         if err != 0:
-            raise RuntimeError(f"block reduction chain launch failed: CUDA "
-                               f"error {err}")
+            raise RuntimeError(f"step chain launch failed: CUDA error {err}")
 
-    run(rounds)
-    times = []
-    for n in (1, rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run(n)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return (times[1] - times[0]) / (rounds - 1)
+    def chain(part):
+        run(part, rounds)
+        times = []
+        for count in (1, rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(part, count)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return (times[1] - times[0]) / (rounds - 1)
+
+    return chain(argmin_part), chain(2)
 
 
 def eplb_place(lam_e: torch.Tensor, home: torch.Tensor, num_ranks: int, *,
@@ -153,6 +169,9 @@ def eplb_place(lam_e: torch.Tensor, home: torch.Tensor, num_ranks: int, *,
     E, R = lam_e.shape[0], num_ranks
     if R < 1 or E % R != 0:
         raise ValueError(f"eplb_place: E={E} must be a multiple of R={R}")
+    if E > MAX_E or R > MAX_R:
+        raise ValueError(f"eplb_place: the kernel takes E <= {MAX_E} and "
+                         f"R <= {MAX_R}, not E={E}, R={R}")
     if n_slot < 0 or max_rep < 1:
         raise ValueError(f"eplb_place: n_slot={n_slot}, max_rep={max_rep}")
     if (lam_e.dtype != torch.float32 or not lam_e.is_contiguous()

@@ -90,17 +90,7 @@
 // Backward (bf16 only; the training step's expert FFN, at GLM-4.5-Air's
 // train shapes G 130, cap 2017, K 4096, N 1408).  The JAX package has no
 // backward kernel: XLA differentiates the einsums of repro/moe/expert.py.
-//   * B2 dgrad (MODE_NT, MODE_NT2): two more instantiations of
-//     grouped_gemm_wgmma_kernel.  out = x w^T with w stored (G, N, K),
-//     K-contiguous: wgmma reads such a B K-major (no transpose bit), each
-//     128-column B tile one TMA box of 64 K x 128 N rows, as the q8 kernels
-//     read their weight codes.  MODE_NT2 sums two products over the same
-//     K, out = x w1^T + x2 w3^T (dx = dh w1^T + dg w3^T): the K loop runs
-//     over x/w1 and then x2/w3 into the same accumulators.  A tile past a
-//     slot's count loads nothing, and the epilogue selects zero for the
-//     rows past it, so whatever its operands hold there (NaN included)
-//     never reaches a valid row.
-//   * B1 and B3 are persistent kernels of their own: one block an SM
+//   * B1, B2 and B3 are persistent kernels of their own: one block an SM
 //     (__launch_bounds__(THREADS, 1), ~210 KB of shared memory) walks a
 //     list of output tiles; the producer thread keeps the ring (3 stages of
 //     48 KB) full across tile boundaries, so the next tile's loads run
@@ -113,6 +103,36 @@
 //     with half the staging measured no faster).  A consumer warpgroup
 //     runs its 64 rows x 256 columns as one m64n256k16 product a k-step
 //     (two m64n128 would read its A operand twice).
+//   * B2 grouped_matmul_nt_kernel (dgrad): out = x w^T with w stored
+//     (G, N, K), K-contiguous (dact = dy w2^T, N 1408 at GLM-4.5-Air);
+//     NT2 sums two products over the same K, out = x w1^T + x2 w3^T (dx =
+//     dh w1^T + dg w3^T, N 4096): the k loop runs over (x, w1) and then
+//     (x2, w3) into the same accumulators.  A tile is 128 rows (two
+//     warpgroups of 64) x 256 columns; wgmma reads the K-major B without
+//     the transpose bit, the stage's 256 weight rows two TMA boxes of 64 K
+//     x 128 rows side by side.  A last column tile of at most 128 columns
+//     runs an m64n128 product and loads one box (GLM's N 1408 is 5.5
+//     tiles).  Only row tiles that hold rows are walked, numbered and taken
+//     as B1's items (below): slot-major, then the column tile, then the
+//     row tile fastest, from a device counter; a slot's last row tile with
+//     at most 64 valid rows is a narrow item whose 64 rows both warpgroups
+//     take, each 128 of the 256 columns.  A slot's empty row tiles cost
+//     nothing (at GLM-4.5-Air's train counts 12 of a slot's 16).  Rows
+//     past the count: a straddling tile's are stored as zeros (selected,
+//     never multiplied, so NaN in the operands' padded rows never reaches
+//     a valid row); the rest, rows [ceil(rows[g] / 64) 64, M), are written
+//     as zeros by the producer warpgroup's idle warps (the public
+//     contract) or left unwritten (the autograd backward: dact's reader is
+//     B1, dx's the dispatch gathers' backward, both of which select the
+//     valid rows).
+//     Bound: the products on the valid rows where slots are long (GLM's
+//     and Jamba-v0.1's train counts), the weights' bytes where they are
+//     short (DeepSeek-V3's cell).  Where slots are long the main loop also
+//     meets the L2's bandwidth: a 128 x 256 tile takes 48 KB a k-step, ~7
+//     TB/s over 132 SMs at GLM's counts (skipping a third of the bytes
+//     measured 8-10% faster).  Clusters of two CTAs sharing a weight tile
+//     by multicast read a third less, and were 12% faster where every slot
+//     held 512 rows, but 4-8% slower at GLM's train counts, so not kept.
 //   * B3 grouped_wgrad_kernel: dW[g] = x[g, :rows[g]]^T d[g, :rows[g]],
 //     (G, K, N) in bf16 with fp32 accumulation.  A tile is 128 output
 //     rows (two warpgroups of 64) x 256 columns; the list is every
@@ -302,13 +322,10 @@ __device__ __forceinline__ void zero_tile(T* outg, long long som, int m0,
   }
 }
 
-// The products of grouped_gemm_wgmma_kernel (the backward entry's modes
-// are B2's, 3 and 4).
+// The products of grouped_gemm_wgmma_kernel.
 enum Mode {
   MODE_MATMUL = 0,       // out = x w (w N-major)
   MODE_SWIGLU = 1,       // out = silu(x w1) * (x w3)
-  MODE_NT = 3,           // out = x w^T (w stored (G, N, K), K-major)
-  MODE_NT2 = 4,          // out = x w1^T + x2 w3^T
 };
 
 // dh and dg of out = silu(h) g for an upstream gradient da.
@@ -324,7 +341,6 @@ __device__ __forceinline__ void swiglu_grad(float h, float g, float da,
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
-                          const __grid_constant__ CUtensorMap map_x2,
                           const __grid_constant__ CUtensorMap map_w1,
                           const __grid_constant__ CUtensorMap map_w3,
                           bf16* __restrict__ out,
@@ -332,7 +348,6 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                           int n_out, int n_tiles, int m_tiles, long long sog,
                           long long som) {
   constexpr bool SWI = MODE == MODE_SWIGLU;
-  constexpr bool KMAJOR_B = MODE == MODE_NT || MODE == MODE_NT2;
   constexpr int OUT_COLS = SWI ? BN : 2 * BN;
   extern __shared__ unsigned char smem_raw[];
 
@@ -364,7 +379,6 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   __syncthreads();
 
   const int ktiles = (K + BK - 1) / BK;
-  const int total = MODE == MODE_NT2 ? 2 * ktiles : ktiles;
   const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {
     // ---- producer: one thread keeps the ring full.
@@ -372,27 +386,20 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
     if (threadIdx.x == CONSUMERS * 128) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int t = 0; t < total; ++t) {
+      for (int t = 0; t < ktiles; ++t) {
         mbar_wait(empty0 + 8 * stage, phase ^ 1);
         const uint32_t full = full0 + 8 * stage;
         const uint32_t a = tiles_u + stage * STAGE_BYTES;
-        const bool second = MODE == MODE_NT2 && t >= ktiles;
-        const int k0 = (second ? t - ktiles : t) * BK;
+        const int k0 = t * BK;
         mbar_expect_tx(full, STAGE_BYTES);
-        tma_load(a, second ? &map_x2 : &map_x, full, k0, m0, g);
+        tma_load(a, &map_x, full, k0, m0, g);
 #pragma unroll
         for (int b = 0; b < 2; ++b) {   // w1 | w3, or the two column halves
           const uint32_t dst = a + A_BYTES + b * B_BYTES;
-          if constexpr (KMAJOR_B) {
-            // One box of 64 K x 128 N rows of the (G, N, K) weight.
-            tma_load(dst, second ? &map_w3 : &map_w1, full, k0, n0 + b * BN,
-                     g);
-          } else {
-            const CUtensorMap* map = (SWI && b == 1) ? &map_w3 : &map_w1;
-            const int nb = SWI ? n0 : n0 + b * BN;
-            tma_load(dst, map, full, nb, k0, g);
-            tma_load(dst + BOX_BYTES, map, full, nb + 64, k0, g);
-          }
+          const CUtensorMap* map = (SWI && b == 1) ? &map_w3 : &map_w1;
+          const int nb = SWI ? n0 : n0 + b * BN;
+          tma_load(dst, map, full, nb, k0, g);
+          tma_load(dst + BOX_BYTES, map, full, nb + 64, k0, g);
         }
         if (++stage == STAGES) { stage = 0; phase ^= 1; }
       }
@@ -407,7 +414,7 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
     const int lane = threadIdx.x % 32;
     int stage = 0, prev = 0;
     uint32_t phase = 0;
-    for (int t = 0; t < total; ++t) {
+    for (int t = 0; t < ktiles; ++t) {
       mbar_wait(full0 + 8 * stage, phase);
       if (active) {
         const uint32_t a = tiles_u + stage * STAGE_BYTES + wg * (64 * 128);
@@ -416,18 +423,11 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t da = desc_sw128(a + kk * 32, 16, 1024);
-          if constexpr (KMAJOR_B) {
-            wgmma_m64n128k16<0, 0>(acc[0], da,
-                                   desc_sw128(b + kk * 32, 16, 1024));
-            wgmma_m64n128k16<0, 0>(
-                acc[1], da, desc_sw128(b + B_BYTES + kk * 32, 16, 1024));
-          } else {
-            wgmma_m64n128k16<0, 1>(
-                acc[0], da, desc_sw128(b + kk * 2048, BOX_BYTES, 1024));
-            wgmma_m64n128k16<0, 1>(
-                acc[1], da,
-                desc_sw128(b + B_BYTES + kk * 2048, BOX_BYTES, 1024));
-          }
+          wgmma_m64n128k16<0, 1>(
+              acc[0], da, desc_sw128(b + kk * 2048, BOX_BYTES, 1024));
+          wgmma_m64n128k16<0, 1>(
+              acc[1], da,
+              desc_sw128(b + B_BYTES + kk * 2048, BOX_BYTES, 1024));
         }
         wgmma_commit();
         wgmma_wait<1>();   // the previous k-tile's products are done
@@ -475,7 +475,7 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// ------------------------------------ backward B1 and B3: persistent blocks
+// -------------------------------- backward B1, B2 and B3: persistent blocks
 
 constexpr int P_STAGES = 3;          // ring stages of STAGE_BYTES
 constexpr int SBOX = 64 * 128;       // 8 KB: 64 rows of a swizzled 64-column box
@@ -484,9 +484,10 @@ constexpr int WG_BAR = 2;            // 2, 3: one a consumer warpgroup
 constexpr int FREE_AT = 4;           // B1: k-step at which the dact buffer is
 constexpr int DACT_AT = FREE_AT + P_STAGES;   // freed, and refilled
 constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a block may use
-// Shared memory of both: the ring, 64 KB of staging (B3: two warpgroups x
-// four boxes; B1: the dact buffer and dg's), the barriers; then B1's
-// work-item ids and schedule (G + 1 ints, added by the launcher).
+// Shared memory of all three: the ring, 64 KB of staging (B2, B3: two
+// warpgroups x four boxes; B1: the dact buffer and dg's), the barriers;
+// then B1's and B2's work-item ids and schedule (G + 1 ints, added by the
+// launcher).
 constexpr int SMEM_PERSISTENT =
     1024 + P_STAGES * STAGE_BYTES + 8 * SBOX + (2 * P_STAGES + 2) * 8 +
     4 * P_STAGES;
@@ -502,6 +503,18 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8 x 8 bf16 matrices to shared memory in one instruction: lane t
+// gives the address of row t % 8 of matrix t / 8 (16 bytes), and its
+// register i holds its part of matrix i in the mma fragment layout (row
+// lane / 4, columns 2 (lane % 4) + {0, 1}).
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
 }
 
 __device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
@@ -684,13 +697,45 @@ grouped_wgrad_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// B1's work item w: slot g (wstart[g] <= w < wstart[g + 1]), its valid row
-// count mv, then the 128-column tile n0 and, fastest, the row tile m0.
-__device__ __forceinline__ void swiglu_bwd_tile(const int* wstart, int G,
-                                                int w,
-                                                const long long* rows, int M,
-                                                int& g, int& mv, int& m0,
-                                                int& n0) {
+// B1's and B2's schedule: wstart[g] = sum over g' < g of
+// ceil(rows[g'] / 128) row tiles x n_tiles column tiles, G + 1 ints in
+// shared memory, by a chunked scan in one warp (no host read).  Every
+// thread gets it; it has two block barriers.
+__device__ __forceinline__ void build_schedule(int* wstart,
+                                               const long long* rows, int G,
+                                               int M, int n_tiles) {
+  for (int i = threadIdx.x; i < G; i += blockDim.x)
+    wstart[i + 1] = (valid_rows(rows, i, M) + BM - 1) / BM * n_tiles;
+  if (threadIdx.x == 0) wstart[0] = 0;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, per = (G + 31) / 32;
+    const int lo = 1 + lane * per, hi = min(G + 1, lo + per);
+    int sum = 0;
+    for (int i = lo; i < hi; ++i) sum += wstart[i];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    int run = incl - sum;
+    for (int i = lo; i < hi; ++i) {
+      run += wstart[i];
+      wstart[i] = run;
+    }
+  }
+  __syncthreads();
+}
+
+// Work item w of that schedule: slot g (wstart[g] <= w < wstart[g + 1]),
+// its valid row count mv, then the COLS-wide column tile n0 and, fastest,
+// the 128-row tile m0.
+template <int COLS>
+__device__ __forceinline__ void row_tile_item(const int* wstart, int G, int w,
+                                              const long long* rows, int M,
+                                              int& g, int& mv, int& m0,
+                                              int& n0) {
   int lo = 0, hi = G;   // wstart[lo] <= w < wstart[hi]
   while (hi - lo > 1) {
     const int mid = (lo + hi) / 2;
@@ -701,7 +746,31 @@ __device__ __forceinline__ void swiglu_bwd_tile(const int* wstart, int G,
   const int mt = (mv + BM - 1) / BM;
   const int r = w - wstart[g];
   m0 = (r % mt) * BM;
-  n0 = (r / mt) * BN;
+  n0 = (r / mt) * COLS;
+}
+
+// Rows [ceil(rows[g] / 64) 64, M) of every slot of out (G, M, N), and of
+// out2 where it is not null, both contiguous, one range a slot, to zeros:
+// the producer warpgroup's three idle warps of every block, 16-byte
+// streaming stores (evict-first), so the zeros do not push the weight and
+// activation panels out of L2.
+__device__ __forceinline__ void zero_rows_past(bf16* out, bf16* out2,
+                                               const long long* rows, int G,
+                                               int M, int N) {
+  const long long lanes = 96LL * gridDim.x;
+  const long long me = 96LL * blockIdx.x + threadIdx.x - CONSUMERS * 128 - 32;
+  const int4 z = make_int4(0, 0, 0, 0);
+  for (int g = 0; g < G; ++g) {
+    const int z0 = min(M, (valid_rows(rows, g, M) + 63) / 64 * 64);
+    const long long base = (static_cast<long long>(g) * M + z0) * N;
+    const long long n16 = static_cast<long long>(M - z0) * N / 8;
+    int4* p = reinterpret_cast<int4*>(out + base);
+    int4* p2 = reinterpret_cast<int4*>(out2 + base);
+    for (long long i = me; i < n16; i += lanes) {
+      __stcs(p + i, z);
+      if (out2 != nullptr) __stcs(p2 + i, z);
+    }
+  }
 }
 
 // The k loop of one B1 item for one consumer warpgroup.  A full item: this
@@ -790,12 +859,7 @@ grouped_swiglu_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
   int* wstart = reinterpret_cast<int*>(tiles + (item0 + 4 * P_STAGES -
                                                 tiles_u));
 
-  // The schedule: wstart[g] = sum over g' < g of ceil(rows[g'] / 128)
-  // column tiles' worth of work items, by a chunked scan in one warp.
-  for (int i = threadIdx.x; i < G; i += blockDim.x)
-    wstart[i + 1] = (valid_rows(rows, i, M) + BM - 1) / BM * n_tiles;
   if (threadIdx.x == 0) {
-    wstart[0] = 0;
 #pragma unroll
     for (int s = 0; s < P_STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
@@ -805,25 +869,7 @@ grouped_swiglu_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
     mbar_init(dempty, CONSUMERS);   // one arrival per consumer warpgroup
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x, per = (G + 31) / 32;
-    const int lo = 1 + lane * per, hi = min(G + 1, lo + per);
-    int sum = 0;
-    for (int i = lo; i < hi; ++i) sum += wstart[i];
-    int incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
-    }
-    int run = incl - sum;
-    for (int i = lo; i < hi; ++i) {
-      run += wstart[i];
-      wstart[i] = run;
-    }
-  }
-  __syncthreads();
+  build_schedule(wstart, rows, G, M, n_tiles);
   const int n_work = wstart[G];
   const int ktiles = (K + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
@@ -850,7 +896,7 @@ grouped_swiglu_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
         }
         const int after = atomicAdd(next, 1);   // its latency runs under
         int g, mv, m0, n0;                      // this tile's loads
-        swiglu_bwd_tile(wstart, G, w, rows, M, g, mv, m0, n0);
+        row_tile_item<BN>(wstart, G, w, rows, M, g, mv, m0, n0);
         for (int t = 0; t < ktiles; ++t) {
           if (t > 0) mbar_wait(empty0 + 8 * stage, phase ^ 1);
           const uint32_t full = full0 + 8 * stage;
@@ -874,27 +920,10 @@ grouped_swiglu_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
         w = after;
       }
     } else if (ZERO_PAD && threadIdx.x >= CONSUMERS * 128 + 32) {
-      // ---- the producer warpgroup's other three warps: rows
-      // [ceil(mv / 64) 64, M) of every slot (the items store the rows
-      // before that, a narrow last item 64 of them), one contiguous range
-      // of dh and of dg each, to zeros, spread over all blocks; streaming
-      // stores (evict-first), so the zeros do not push the weight and x
-      // panels out of L2.
-      const long long lanes = 96LL * gridDim.x;
-      const long long me =
-          96LL * blockIdx.x + threadIdx.x - CONSUMERS * 128 - 32;
-      const int4 z = make_int4(0, 0, 0, 0);
-      for (int g = 0; g < G; ++g) {
-        const int z0 = min(M, (valid_rows(rows, g, M) + 63) / 64 * 64);
-        const long long base = (static_cast<long long>(g) * M + z0) * N;
-        const long long n16 = static_cast<long long>(M - z0) * N / 8;
-        int4* ph = reinterpret_cast<int4*>(dh + base);
-        int4* pg = reinterpret_cast<int4*>(dg + base);
-        for (long long i = me; i < n16; i += lanes) {
-          __stcs(ph + i, z);
-          __stcs(pg + i, z);
-        }
-      }
+      // ---- the producer warpgroup's other three warps: the rows past the
+      // items (they store the rows before ceil(mv / 64) 64, a narrow last
+      // item 64 of them) to zeros.
+      zero_rows_past(dh, dg, rows, G, M, N);
     }
   } else {
     // ---- consumers.
@@ -906,7 +935,7 @@ grouped_swiglu_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
       const int w = static_cast<int>(ld_shared_u32(item0 + 4 * stage));
       if (w >= n_work) break;
       int g, mv, m0, n0;
-      swiglu_bwd_tile(wstart, G, w, rows, M, g, mv, m0, n0);
+      row_tile_item<BN>(wstart, G, w, rows, M, g, mv, m0, n0);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.0f;
       const bool narrow = mv - m0 <= 64;
@@ -978,6 +1007,206 @@ grouped_swiglu_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
+// The k loop of one B2 item for one consumer warpgroup.  WIDE: its 64
+// rows against the tile's 256 columns, one m64n256 product a k-step (B
+// K-major: the stage's 256 weight rows of 128 bytes, two TMA boxes side by
+// side, no transpose bit).  Otherwise one m64n128 product on the A rows
+// at a_off and the B rows (output columns) at b_off: a last column tile
+// of at most 128 columns, or a narrow item's half of the columns.  total
+// k-steps (NT2: those over (x, w1), then those over (x2, w3)); releases
+// every stage it used.
+template <bool WIDE>
+__device__ __forceinline__ void matmul_nt_products(float (&acc)[2][64],
+                                                   uint32_t tiles_u,
+                                                   uint32_t full0,
+                                                   uint32_t empty0, int total,
+                                                   bool active,
+                                                   uint32_t a_off,
+                                                   uint32_t b_off, int& stage,
+                                                   uint32_t& phase) {
+  const int lane = threadIdx.x % 32;
+  int prev = 0;
+  for (int t = 0; t < total; ++t) {
+    if (t > 0) mbar_wait(full0 + 8 * stage, phase);
+    if (active) {
+      const uint32_t st = tiles_u + stage * STAGE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = desc_sw128(st + a_off + kk * 32, 16, 1024);
+        const uint64_t db =
+            desc_sw128(st + A_BYTES + b_off + kk * 32, 16, 1024);
+        if constexpr (WIDE)
+          wgmma_m64n256k16<0, 0>(flat(acc), da, db);
+        else
+          wgmma_m64n128k16<0, 0>(acc[0], da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();   // the previous k-step's products are done
+    }
+    if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+    prev = stage;
+    advance(stage, phase);
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+}
+
+// B2: out (G, M, N) = x w1^T (NT2: + x2 w3^T), x / x2 (G, M, K), w1 / w3
+// stored (G, N, K) K-major; out bf16 contiguous through map_out (64 x 64
+// boxes).  Work items as B1's (build_schedule, row_tile_item) with
+// 256-column tiles, taken one at a time from the device counter `next`
+// (zeroed before the launch).  ZERO_PAD: the rows past the walked row
+// tiles are written as zeros.
+template <bool NT2, bool ZERO_PAD>
+__global__ void __launch_bounds__(THREADS, 1)
+grouped_matmul_nt_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_x2,
+                         const __grid_constant__ CUtensorMap map_w1,
+                         const __grid_constant__ CUtensorMap map_w3,
+                         const __grid_constant__ CUtensorMap map_out,
+                         bf16* __restrict__ out,
+                         const long long* __restrict__ rows,
+                         int* __restrict__ next, int G, int M, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t tiles_u = smem_u32(tiles);
+  const uint32_t out_u = tiles_u + P_STAGES * STAGE_BYTES;   // 8 boxes
+  const uint32_t full0 = out_u + 8 * SBOX;
+  const uint32_t empty0 = full0 + P_STAGES * 8;
+  const uint32_t item0 = empty0 + P_STAGES * 8;   // each stage's item id
+  int* wstart =
+      reinterpret_cast<int*>(tiles + (item0 + 4 * P_STAGES - tiles_u));
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < P_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);   // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  build_schedule(wstart, rows, G, M, (N + 2 * BN - 1) / (2 * BN));
+  const int n_work = wstart[G];
+  const int ktiles = (K + BK - 1) / BK;
+  const int total = NT2 ? 2 * ktiles : ktiles;
+  const int wg = threadIdx.x / 128;
+  int stage = 0;
+  uint32_t phase = 0;
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      // ---- producer: each item's id goes with its first stage (item0),
+      // an id past the last item, with an arrival and no loads, ends the
+      // consumers' loop.  The next item's loads start as soon as its
+      // stages are free, under this item's epilogue.
+      int w = atomicAdd(next, 1);
+      for (;;) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        st_shared_u32(item0 + 4 * stage, static_cast<uint32_t>(w));
+        if (w >= n_work) {
+          mbar_arrive(full0 + 8 * stage);
+          break;
+        }
+        const int after = atomicAdd(next, 1);   // its latency runs under
+        int g, mv, m0, n0;                      // this item's loads
+        row_tile_item<2 * BN>(wstart, G, w, rows, M, g, mv, m0, n0);
+        const bool two = n0 + BN < N;   // the second 128 columns hold any
+        for (int t = 0; t < total; ++t) {
+          if (t > 0) mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t a = tiles_u + stage * STAGE_BYTES;
+          const bool second = NT2 && t >= ktiles;
+          const int k0 = (second ? t - ktiles : t) * BK;
+          const CUtensorMap* mw = second ? &map_w3 : &map_w1;
+          mbar_expect_tx(full, two ? STAGE_BYTES : A_BYTES + B_BYTES);
+          tma_load(a, second ? &map_x2 : &map_x, full, k0, m0, g);
+          tma_load(a + A_BYTES, mw, full, k0, n0, g);
+          if (two) tma_load(a + A_BYTES + B_BYTES, mw, full, k0, n0 + BN, g);
+          advance(stage, phase);
+        }
+        w = after;
+      }
+    } else if (ZERO_PAD && threadIdx.x >= CONSUMERS * 128 + 32) {
+      zero_rows_past(out, nullptr, rows, G, M, N);
+    }
+  } else {
+    // ---- consumers: 64 rows each (a narrow item: the same 64 rows, each
+    // warpgroup 128 of the 256 columns).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x % 32, tid = threadIdx.x % 128;
+    const uint32_t my_out = out_u + wg * 4 * SBOX;   // 64 rows x 256 columns
+    float acc[2][64];
+    for (;;) {
+      mbar_wait(full0 + 8 * stage, phase);   // the item's first stage
+      const int w = static_cast<int>(ld_shared_u32(item0 + 4 * stage));
+      if (w >= n_work) break;
+      int g, mv, m0, n0;
+      row_tile_item<2 * BN>(wstart, G, w, rows, M, g, mv, m0, n0);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.0f;
+      const bool two = n0 + BN < N;
+      const bool narrow = two && mv - m0 <= 64;
+      const bool active = narrow || m0 + wg * 64 < mv;
+      if (two && !narrow)
+        matmul_nt_products<true>(acc, tiles_u, full0, empty0, total, true,
+                                 wg * (64 * 128), 0, stage, phase);
+      else
+        matmul_nt_products<false>(acc, tiles_u, full0, empty0, total, active,
+                                  narrow ? 0 : wg * (64 * 128),
+                                  narrow ? wg * B_BYTES : 0, stage, phase);
+      if (!active) continue;   // its 64 rows are past the count
+
+      // Epilogue: bf16 into this warpgroup's staging boxes (64 rows x 64
+      // columns each, swizzled), then one thread's TMA stores.  The
+      // previous item's stores must have read the boxes.  Accumulator
+      // layout: value 4 j + {0, 1} at row (warp % 4) * 16 + lane / 4,
+      // columns 8 j + 2 (lane % 4) + {0, 1}; 4 j + {2, 3} eight rows
+      // below; acc[1] is columns 128..255.  So a warp's rows of column
+      // block j are two 8 x 8 matrices in the mma fragment layout (values
+      // 4 j, 4 j + 1 and 4 j + 2, 4 j + 3), and stmatrix stores blocks j
+      // and j + 1 at once.  Rows past the count are stored as zeros,
+      // never multiplied.
+      if (tid == 0) bulk_wait_read<0>();
+      named_sync(WG_BAR + wg, 128);
+      const int r0 = (tid / 32) * 16 + lane / 4;      // this thread's rows
+      const int row0 = m0 + (narrow ? 0 : wg * 64);   // the rows' first
+      const bool keep0 = row0 + r0 < mv, keep1 = row0 + r0 + 8 < mv;
+      // The row and column block this lane addresses: matrix lane / 8 is
+      // (block j or j + 1) x (rows 0-7 or 8-15 of the warp's 16).
+      const int arow = (tid / 32) * 16 + lane % 8 + 8 * ((lane / 8) % 2);
+      const int acol = 8 * (lane / 16);
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        if (b == 1 && (narrow || !two)) break;
+#pragma unroll
+        for (int j = 0; j < 16; j += 2) {
+          const int col = b * BN + 8 * j + acol;
+          const int i = 4 * j;
+          stmatrix_x4(
+              my_out + (col / 64) * SBOX + sw128(arow, col % 64),
+              keep0 ? pack_bf16x2(acc[b][i], acc[b][i + 1]) : 0u,
+              keep1 ? pack_bf16x2(acc[b][i + 2], acc[b][i + 3]) : 0u,
+              keep0 ? pack_bf16x2(acc[b][i + 4], acc[b][i + 5]) : 0u,
+              keep1 ? pack_bf16x2(acc[b][i + 6], acc[b][i + 7]) : 0u);
+        }
+      }
+      fence_proxy_async();
+      named_sync(WG_BAR + wg, 128);
+      if (tid == 0) {
+        const int c0 = n0 + (narrow ? wg * BN : 0);
+        const int boxes = (two && !narrow) ? 4 : 2;
+        for (int bx = 0; bx < boxes && c0 + 64 * bx < N; ++bx)
+          tma_store(&map_out, my_out + bx * SBOX, c0 + 64 * bx, row0, g);
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait<0>();
+  }
+}
+
 // A (groups, rows, cols) bf16 operand with unit-stride cols; strides in
 // elements; a box of box_rows x 64 columns with 128-byte swizzle.
 int make_map(CUtensorMap* map, const void* base, long long cols,
@@ -987,26 +1216,17 @@ int make_map(CUtensorMap* map, const void* base, long long cols,
                      rows, groups, s_row, s_group, 64, box_rows);
 }
 
-// x (G, M, K) with strides (sxg, sxm); x2 likewise (MODE_NT2).  w1 / w3:
-// (G, K, N) N-major with strides (swg, swk), or for MODE_NT / MODE_NT2
-// (G, N, K) K-major with strides (swg, swn).
+// x (G, M, K) with strides (sxg, sxm); w1 / w3 (G, K, N) N-major with
+// strides (swg, swk).
 template <int MODE>
-int launch_bf16(const void* x, const void* x2, const void* w1, const void* w3,
-                void* out, const long long* rows, int G, int M, int K, int N,
-                int n_out,
-                long long sxg, long long sxm, long long swg, long long sw1,
+int launch_bf16(const void* x, const void* w1, const void* w3, void* out,
+                const long long* rows, int G, int M, int K, int N, int n_out,
+                long long sxg, long long sxm, long long swg, long long swk,
                 cudaStream_t stream) {
-  constexpr bool KMAJOR_B = MODE == MODE_NT || MODE == MODE_NT2;
-  CUtensorMap mx, mx2, mw1, mw3;
+  CUtensorMap mx, mw1, mw3;
   int err = make_map(&mx, x, K, M, G, sxm, sxg, BM);
-  if (!err) err = make_map(&mx2, x2, K, M, G, sxm, sxg, BM);
-  if (KMAJOR_B) {
-    if (!err) err = make_map(&mw1, w1, K, N, G, sw1, swg, BN);
-    if (!err) err = make_map(&mw3, w3, K, N, G, sw1, swg, BN);
-  } else {
-    if (!err) err = make_map(&mw1, w1, N, K, G, sw1, swg, BK);
-    if (!err) err = make_map(&mw3, w3, N, K, G, sw1, swg, BK);
-  }
+  if (!err) err = make_map(&mw1, w1, N, K, G, swk, swg, BK);
+  if (!err) err = make_map(&mw3, w3, N, K, G, swk, swg, BK);
   if (err) return err;
   auto kernel = grouped_gemm_wgmma_kernel<MODE>;
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -1019,7 +1239,7 @@ int launch_bf16(const void* x, const void* x2, const void* w1, const void* w3,
   const long long blocks = static_cast<long long>(G) * n_tiles * m_tiles;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, stream>>>(
-      mx, mx2, mw1, mw3, static_cast<bf16*>(out), rows, M, K, n_out,
+      mx, mw1, mw3, static_cast<bf16*>(out), rows, M, K, n_out,
       n_tiles, m_tiles,
       static_cast<long long>(M) * n_out, n_out);
   return static_cast<int>(cudaGetLastError());
@@ -1063,6 +1283,37 @@ int launch_swiglu_bwd(const void* x, const void* w1, const void* w3,
   kernel<<<sms, THREADS, smem, stream>>>(
       mx, mw1, mw3, mda, mdh, mdg, static_cast<bf16*>(dh),
       static_cast<bf16*>(dg), rows, next, G, M, K, N, (N + BN - 1) / BN);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2.  x, x2 (G, M, K) with strides (sxg, sxm); w1, w3 (G, N, K) K-major
+// with strides (swg, swn); out (G, M, N) contiguous; next: an int zeroed
+// before the launch.
+template <bool NT2, bool ZERO_PAD>
+int launch_matmul_nt(const void* x, const void* x2, const void* w1,
+                     const void* w3, void* out, const long long* rows,
+                     int* next, int G, int M, int K, int N, long long sxg,
+                     long long sxm, long long swg, long long swn,
+                     cudaStream_t stream) {
+  CUtensorMap mx, mx2, mw1, mw3, mo;
+  int err = make_map(&mx, x, K, M, G, sxm, sxg, BM);
+  if (!err) err = make_map(&mx2, x2, K, M, G, sxm, sxg, BM);
+  if (!err) err = make_map(&mw1, w1, K, N, G, swn, swg, BN);
+  if (!err) err = make_map(&mw3, w3, K, N, G, swn, swg, BN);
+  if (!err)
+    err = make_map(&mo, out, N, M, G, N, static_cast<long long>(M) * N, 64);
+  int sms = 0;
+  if (!err) err = sm_count(&sms);
+  if (err) return err;
+  const int smem = SMEM_PERSISTENT + 4 * (G + 1);
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = grouped_matmul_nt_kernel<NT2, ZERO_PAD>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<sms, THREADS, smem, stream>>>(mx, mx2, mw1, mw3, mo,
+                                         static_cast<bf16*>(out), rows, next,
+                                         G, M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1360,11 +1611,11 @@ extern "C" int grouped_gemm_launch(int dtype, int swiglu, const void* x,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && swiglu)
-    return launch_bf16<MODE_SWIGLU>(x, x, w1, w3, out, rows, G, M, K, N,
-                                    n_out, sxg, sxm, swg, swk, s);
+    return launch_bf16<MODE_SWIGLU>(x, w1, w3, out, rows, G, M, K, N, n_out,
+                                    sxg, sxm, swg, swk, s);
   if (dtype == 1)
-    return launch_bf16<MODE_MATMUL>(x, x, w1, w1, out, rows, G, M, K, N,
-                                    n_out, sxg, sxm, swg, swk, s);
+    return launch_bf16<MODE_MATMUL>(x, w1, w1, out, rows, G, M, K, N, n_out,
+                                    sxg, sxm, swg, swk, s);
   if (dtype == 0 && swiglu)
     return launch_f32<true>(x, w1, w3, out, rows, G, M, K, N, n_out, sxg,
                             sxm, swg, swk, s);
@@ -1374,27 +1625,36 @@ extern "C" int grouped_gemm_launch(int dtype, int swiglu, const void* x,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Backward entry points (bf16; same conventions as grouped_gemm_launch).
-// mode 3: out = x w1^T; mode 4: out = x w1^T + x2 w3^T: w1, w3 stored
-//   (G, N, K), K-major with strides (swg, sw1); x2 has x's strides.
-extern "C" int grouped_gemm_bwd_launch(int mode, const void* x, const void* x2,
-                                       const void* w1, const void* w3,
-                                       void* out, void* out2, const void* dact,
-                                       const long long* rows, int G, int M,
-                                       int K, int N, int n_out, long long sxg,
-                                       long long sxm, long long swg,
-                                       long long sw1, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case MODE_NT:
-      return launch_bf16<MODE_NT>(x, x, w1, w1, out, rows, G, M, K, N, n_out,
-                                  sxg, sxm, swg, sw1, s);
-    case MODE_NT2:
-      return launch_bf16<MODE_NT2>(x, x2, w1, w3, out, rows, G, M, K, N,
-                                   n_out, sxg, sxm, swg, sw1, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+// B2: out = x w1^T (dual: + x2 w3^T), each slot's valid rows, bf16.  x,
+// x2 (G, M, K) with strides (sxg, sxm); w1, w3 stored (G, N, K),
+// K-major, with strides (swg, swn); out (G, M, N) contiguous; next: an
+// int on the device, zeroed before the launch.  zero_pad 1: rows past the
+// count are exact zeros; 0: rows at or past the count rounded up to 64
+// are left unwritten.  Same conventions as grouped_gemm_launch.
+extern "C" int grouped_matmul_nt_launch(int zero_pad, int dual,
+                                        const void* x, const void* x2,
+                                        const void* w1, const void* w3,
+                                        void* out, const long long* rows,
+                                        int* next, int G, int M, int K, int N,
+                                        long long sxg, long long sxm,
+                                        long long swg, long long swn,
+                                        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dual && zero_pad)
+    return launch_matmul_nt<true, true>(x, x2, w1, w3, out, rows, next,
+                                             G, M, K, N, sxg, sxm, swg, swn,
+                                             s);
+  if (dual)
+    return launch_matmul_nt<true, false>(x, x2, w1, w3, out, rows, next,
+                                              G, M, K, N, sxg, sxm, swg, swn,
+                                              s);
+  if (zero_pad)
+    return launch_matmul_nt<false, true>(x, x, w1, w1, out, rows, next,
+                                              G, M, K, N, sxg, sxm, swg, swn,
+                                              s);
+  return launch_matmul_nt<false, false>(x, x, w1, w1, out, rows, next,
+                                             G, M, K, N, sxg, sxm, swg, swn,
+                                             s);
 }
 
 // (dh, dg) of out = silu(x w1) (x w3) for the upstream gradient dact, all

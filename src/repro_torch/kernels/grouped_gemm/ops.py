@@ -60,20 +60,28 @@ differentiates its einsums), each with a plain version and a launch count:
   each x tile, and dh = dact g s (1 + h (1 - s)), dg = dact h s with
   s = sigmoid(h); a persistent kernel over the row tiles that hold rows
   (:func:`swiglu_bwd_tiles` gives their order);
-* ``grouped_matmul_nt(x, w, rows, x2=None, w2=None)`` -> x w^T (+ x2 w2^T)
-  with w stored (G, N, K), K-contiguous (the weights as they are kept:
-  dact = dy w2^T and dx = dh w1^T + dg w3^T);
+* ``grouped_matmul_nt(x, w, rows, x2=None, w2=None, zero_padded=True)``
+  -> x w^T (+ x2 w2^T) with w stored (G, N, K), K-contiguous (the weights
+  as they are kept: dact = dy w2^T and dx = dh w1^T + dg w3^T); a
+  persistent kernel over the row tiles that hold rows
+  (:func:`matmul_nt_tiles` gives their order);
 * ``grouped_wgrad(x, d, rows)`` -> (G, K, N): x[g, :rows[g]]^T d[g, :rows[g]]
   over each slot's valid rows only, fp32 accumulation, x's dtype; a
   persistent kernel over every (slot, K tile, N tile) (:func:`wgrad_tiles`).
 
 Rows past a slot's count come out as exact zeros in every output, and its
 gradients are zero there; with ``zero_padded=False`` the SwiGLU backward
-leaves the rows from the count rounded up to 64 on unwritten on the card
-(what the autograd backward does: its only readers, ``grouped_matmul_nt``
-and ``grouped_wgrad``, never let a padded row reach a valid output, NaN
-included).  The SwiGLU saves x and recomputes h and g; the matmul saves its
-input (the activations, ``act``).  ``plain_backward=True``
+and the dgrad leave the rows from the count rounded up to 64 on unwritten
+on the card (what the autograd backward does).  Every reader of those
+rows selects the valid ones and never multiplies a padded one into a
+valid result, NaN included: dh and dg are read by ``grouped_matmul_nt``
+and ``grouped_wgrad``; dact (the matmul's dgrad) by the SwiGLU backward,
+which selects zero past the count; dx (the SwiGLU's dgrad, the slot
+buffers' gradient) by the dispatch's backward, which gathers the valid
+rows only (``moe.permute.gather_rows`` / ``ordered_row_sum``, the
+reference engine's ``moe.dispatch.bucket_by_slot``, the ``torch.where``
+of a masked call).  The SwiGLU saves x and recomputes h and g; the
+matmul saves its input (the activations, ``act``).  ``plain_backward=True``
 runs the backward as autograd through the plain forward instead, on any
 device (a check of the kernels in place: the forward is the same).  On the
 card the backward kernels take bf16 with K and N multiples of 8 and raise a
@@ -102,7 +110,8 @@ __all__ = ["grouped_swiglu", "grouped_matmul", "grouped_swiglu_ref",
            "grouped_swiglu_q8_ref", "grouped_matmul_q8_ref",
            "grouped_swiglu_bwd", "grouped_swiglu_bwd_ref",
            "grouped_matmul_nt", "grouped_matmul_nt_ref", "grouped_wgrad",
-           "grouped_wgrad_ref", "swiglu_bwd_tiles", "wgrad_tiles", "LIBRARY",
+           "grouped_wgrad_ref", "swiglu_bwd_tiles", "matmul_nt_tiles",
+           "wgrad_tiles", "LIBRARY",
            "LIBRARY_Q8"]
 
 LIBRARY = KernelLibrary("grouped_gemm",
@@ -249,7 +258,9 @@ def grouped_swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                    plain_backward: bool = False) -> torch.Tensor:
     """Fused ``silu(x@w1) * (x@w3)``: x (G, M, K), w1/w3 (G, K, N) ->
     (G, M, N); slot g's rows at or past ``rows[g]`` (a (G,) int tensor on
-    x's device; None: M) come out zero.  Differentiable in x, w1 and w3."""
+    x's device; None: M) come out zero.  Differentiable in x, w1 and w3;
+    on the card x's gradient is left unwritten in the rows from the count
+    rounded up to 64 on (its readers select the valid rows)."""
     if _needs_grad(x, w1, w3):
         return _GroupedSwiGLU.apply(x, w1, w3, rows, plain_backward)
     return _swiglu_fwd(x, w1, w3, rows)
@@ -269,7 +280,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    rows: torch.Tensor | None = None, *,
                    plain_backward: bool = False) -> torch.Tensor:
     """Grouped matmul: x (G, M, K) @ w (G, K, N) -> (G, M, N); slot g's rows
-    at or past ``rows[g]`` come out zero.  Differentiable in x and w."""
+    at or past ``rows[g]`` come out zero.  Differentiable in x and w; on
+    the card x's gradient is left unwritten in the rows from the count
+    rounded up to 64 on (its reader, the SwiGLU backward, selects)."""
     if _needs_grad(x, w):
         return _GroupedMatmul.apply(x, w, rows, plain_backward)
     return _matmul_fwd(x, w, rows)
@@ -552,9 +565,13 @@ def grouped_swiglu_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 def grouped_matmul_nt(x: torch.Tensor, w: torch.Tensor,
                       rows: torch.Tensor | None = None,
                       x2: torch.Tensor | None = None,
-                      w2: torch.Tensor | None = None) -> torch.Tensor:
+                      w2: torch.Tensor | None = None, *,
+                      zero_padded: bool = True) -> torch.Tensor:
     """x (G, M, K) @ w^T (+ x2 @ w2^T) with w, w2 stored (G, N, K):
-    (G, M, N), zero at or past ``rows[g]``; one launch for both products."""
+    (G, M, N), zero at or past ``rows[g]``; one launch for both products.
+    On the card, ``zero_padded=False`` leaves slot g's rows from
+    ``ceil(rows[g] / 64) * 64`` on unwritten (the rows of its last row tile
+    past the count are still zeros)."""
     if not _check_device(x):
         return grouped_matmul_nt_ref(x, w, rows, x2, w2)
     G, M, K = x.shape
@@ -570,12 +587,14 @@ def grouped_matmul_nt(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
     if out.numel():
         second = x2 is not None
-        _bwd_check(_bwd_launcher()(
-            4 if second else 3, x.data_ptr(),
+        # The counter from which the kernel's blocks take their work items.
+        nxt = torch.zeros(1, dtype=torch.int32, device=x.device)
+        _bwd_check(_matmul_nt_launcher()(
+            int(zero_padded), int(second), x.data_ptr(),
             (x2 if second else x).data_ptr(), w.data_ptr(),
-            (w2 if second else w).data_ptr(), out.data_ptr(), None, None,
-            None if rows is None else rows.data_ptr(), G, M, K, N, N,
-            x.stride(0), x.stride(1), w.stride(0), w.stride(1),
+            (w2 if second else w).data_ptr(), out.data_ptr(),
+            None if rows is None else rows.data_ptr(), nxt.data_ptr(), G, M,
+            K, N, x.stride(0), x.stride(1), w.stride(0), w.stride(1),
             torch.cuda.current_stream(x.device).cuda_stream),
             "grouped_matmul_nt")
         grouped_matmul_nt.launches += 1
@@ -607,23 +626,41 @@ def grouped_wgrad(x: torch.Tensor, d: torch.Tensor,
     return out
 
 
-def swiglu_bwd_tiles(rows: torch.Tensor, M: int, N: int) -> torch.Tensor:
-    """The SwiGLU backward kernel's work items in its order, as (W, 3)
-    int64 rows (slot, first row, first column): only the row tiles that
-    hold rows, ``ceil(min(rows[g], M) / 128)`` a slot; slot-major, then
-    the 128-column tile, then the 128-row tile fastest (the blocks running
-    together share a weight panel).  Block b takes items b, b + SMs, ...;
-    the kernel finds an item's slot by a binary search over the prefix
-    sums it builds from ``rows`` in shared memory.  Reads ``rows`` on the
-    host: a mirror for tests and timing reports."""
+def _row_tile_items(rows: torch.Tensor, M: int, N: int,
+                    cols: int) -> torch.Tensor:
+    """(W, 3) int64 rows (slot, first row, first column): only the
+    128-row tiles that hold rows, ``ceil(min(rows[g], M) / 128)`` a slot,
+    times the ``cols``-wide column tiles; slot-major, then the column tile,
+    then the row tile fastest."""
     mt = (rows.to(torch.int64).clamp(0, M) + 127) // 128
-    nt = -(-N // 128)
+    nt = -(-N // cols)
     per = mt * nt
     end = torch.cumsum(per, 0)
     w = torch.arange(int(end[-1]) if len(end) else 0, device=rows.device)
     g = torch.searchsorted(end, w, right=True)
     r = w - (end - per)[g]
-    return torch.stack([g, (r % mt[g]) * 128, (r // mt[g]) * 128], dim=1)
+    return torch.stack([g, (r % mt[g]) * 128, (r // mt[g]) * cols], dim=1)
+
+
+def swiglu_bwd_tiles(rows: torch.Tensor, M: int, N: int) -> torch.Tensor:
+    """The SwiGLU backward kernel's work items in its order, as (W, 3)
+    int64 rows (slot, first row, first column): only the row tiles that
+    hold rows, ``ceil(min(rows[g], M) / 128)`` a slot; slot-major, then
+    the 128-column tile, then the 128-row tile fastest (the blocks running
+    together share a weight panel).  The kernel's blocks take the items in
+    this order from a counter on the device, and find an item's slot by a
+    binary search over the prefix sums they build from ``rows`` in shared
+    memory.  Reads ``rows`` on the host: a mirror for tests and timing
+    reports."""
+    return _row_tile_items(rows, M, N, 128)
+
+
+def matmul_nt_tiles(rows: torch.Tensor, M: int, N: int) -> torch.Tensor:
+    """The dgrad kernel's (``grouped_matmul_nt``) work items in its order,
+    as :func:`swiglu_bwd_tiles` gives B1's but with 256-column tiles (the
+    last one narrower where N is not a multiple of 256).  A mirror for
+    tests and timing reports."""
+    return _row_tile_items(rows, M, N, 256)
 
 
 def wgrad_tiles(G: int, K: int, N: int) -> torch.Tensor:
@@ -640,12 +677,12 @@ def wgrad_tiles(G: int, K: int, N: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_launcher():
+def _matmul_nt_launcher():
     """B2's entry point with its argument types (set once)."""
-    fn = LIBRARY.load().grouped_gemm_bwd_launch
+    fn = LIBRARY.load().grouped_matmul_nt_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
                    + [ctypes.c_void_p])
     return fn
 
@@ -716,7 +753,8 @@ class _GroupedSwiGLU(torch.autograd.Function):
                                   dact, rows), None, None)
         dh, dg = grouped_swiglu_bwd(x, w1, w3, dact.contiguous(), rows,
                                     zero_padded=False)
-        dx = grouped_matmul_nt(dh, w1, rows, dg, w3) if needs[0] else None
+        dx = (grouped_matmul_nt(dh, w1, rows, dg, w3, zero_padded=False)
+              if needs[0] else None)
         dw1 = grouped_wgrad(x, dh, rows) if needs[1] else None
         dw3 = grouped_wgrad(x, dg, rows) if needs[2] else None
         return dx, dw1, dw3, None, None
@@ -739,7 +777,8 @@ class _GroupedMatmul(torch.autograd.Function):
             return (*_plain_grads(grouped_matmul_ref, (x, w), needs, dy, rows),
                     None, None)
         dy = dy.contiguous()
-        dx = grouped_matmul_nt(dy, w, rows) if needs[0] else None
+        dx = (grouped_matmul_nt(dy, w, rows, zero_padded=False)
+              if needs[0] else None)
         dw = grouped_wgrad(x, dy, rows) if needs[1] else None
         return dx, dw, None, None
 

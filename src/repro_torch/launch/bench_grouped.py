@@ -2,32 +2,33 @@
 
 Cases: rows 1-2 in bf16 (the forward SwiGLU and matmul) at GLM-4.5-Air's
 serve counts (4096 tokens, capacity factors 4.0) and dense (G 130, M
-1009); the backward B2 (dact = dy w2^T, dx = dh w1^T + dg w3^T) at GLM's
-train counts; B1 (the SwiGLU backward) and B3 (wgrad, dw1 = x^T dh) at
-three shapes: GLM-4.5-Air's train counts (8192 tokens, capacity factors
-4.0: G 130, cap 2017, K 4096, N 1408; B3's dw2 = act^T dy too),
-DeepSeek-V3's train cell (4096 tokens, capacity factors 2.0, K 7168, N
-2048) and Jamba-v0.1's (4096 tokens, 2.0, K 4096, N 14336).  Each slot's
-row count comes from the port's gate, ``ultraep`` plan and bucket on
-seeded tokens; padded rows of the inputs hold NaN, which no kernel may
-let into a valid output.  Each line: the kernel's time (CUDA events over
-repeated launches), its bound on the valid work (bytes or bf16
-operations at the data sheet's rates, whichever is larger) and
-``torch.bmm`` over the padded buffers.
+1009); the backward B1 (the SwiGLU backward), B2 (dact = dy w2^T, dx = dh
+w1^T + dg w3^T) and B3 (wgrad, dw1 = x^T dh) at three shapes:
+GLM-4.5-Air's train counts (8192 tokens, capacity factors 4.0: G 130, cap
+2017, K 4096, N 1408; B3's dw2 = act^T dy too), DeepSeek-V3's train cell
+(4096 tokens, capacity factors 2.0, K 7168, N 2048) and Jamba-v0.1's
+(4096 tokens, 2.0, K 4096, N 14336).  Each slot's row count comes from
+the port's gate, ``ultraep`` plan and bucket on seeded tokens; padded
+rows of the inputs hold NaN, which no kernel may let into a valid output.
+Each line: the kernel's time (CUDA events over repeated launches), its
+bound on the valid work (bytes or bf16 operations at the data sheet's
+rates, whichever is larger) and ``torch.bmm`` over the padded buffers.
+B1 and B2 are timed twice: the public call (rows past the count written
+as zeros) and the train step's call (``_train_call``: rows from the count
+rounded up to 64 on unwritten), the parent's one call beside each where
+it has no such mode.
 
 ``--parent ROOT``: also builds ROOT's ``grouped_gemm.cu`` (another
 checkout, with its own shared headers) and times both libraries through
 the same C entry points on the same inputs, in turns (parent, change,
 change, parent); ``--check`` asserts that the two give the same bits
 (each output element sums the same products in the same order) and that
-B1's rows past the count are zeros.  ``--split``: B1 and B3 at GLM's
-widths with every slot holding the same row count (0, 64, ..., 1024), and
-a least-squares fit t = fixed + per_tile x tiles over those runs (B3:
-64-row token tiles a block contracts; B1: 128-row tiles): ``fixed`` is
-what the launch pays whatever the rows (prologues, epilogues, stores of
-zero tiles), ``per_tile`` the main loop.  B1 is also timed without its
-zero stores of the padded rows (the autograd backward's call), each
-against the parent's in turns.
+B1's rows past the count are zeros.  ``--split``: B1, B2 (both modes) and
+B3 at GLM's widths with every slot holding the same row count (0, 64,
+..., 1024), and a least-squares fit t = fixed + per_tile x tiles over
+those runs (B3: 64-row token tiles a block contracts; B1 and B2: 128-row
+tiles): ``fixed`` is what the launch pays whatever the rows (prologues,
+epilogues, stores of zero tiles), ``per_tile`` the main loop.
 
 Needs the card; the package comes from ``sys.path``:
 
@@ -62,8 +63,14 @@ class Entries:
     def __init__(self, lib: ctypes.CDLL):
         self.fwd = lib.grouped_gemm_launch
         self.fwd.argtypes = [_I, _I] + [_P] * 5 + [_I] * 5 + [_L] * 4 + [_P]
-        self.bwd = lib.grouped_gemm_bwd_launch
-        self.bwd.argtypes = [_I] + [_P] * 8 + [_I] * 5 + [_L] * 4 + [_P]
+        # B2's own entry (a work counter zeroed before each launch), or the
+        # parent's modes 3 and 4 of the backward entry.
+        self.nt = getattr(lib, "grouped_matmul_nt_launch", None)
+        if self.nt is not None:
+            self.nt.argtypes = [_I, _I] + [_P] * 7 + [_I] * 4 + [_L] * 4 + [_P]
+        self.bwd = getattr(lib, "grouped_gemm_bwd_launch", None)
+        if self.bwd is not None:
+            self.bwd.argtypes = [_I] + [_P] * 8 + [_I] * 5 + [_L] * 4 + [_P]
         self.wg = lib.grouped_wgrad_launch
         self.wg.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 4 + [_P]
         # B1's own entry (a work counter zeroed before each launch), or the
@@ -71,7 +78,7 @@ class Entries:
         self.b1 = getattr(lib, "grouped_swiglu_bwd_launch", None)
         if self.b1 is not None:
             self.b1.argtypes = [_I] + [_P] * 8 + [_I] * 4 + [_L] * 4 + [_P]
-        for fn in (self.fwd, self.bwd, self.wg, self.b1):
+        for fn in (self.fwd, self.nt, self.bwd, self.wg, self.b1):
             if fn is not None:
                 fn.restype = _I
 
@@ -110,15 +117,24 @@ class Entries:
                          M, K, N, x.stride(0), x.stride(1), w1.stride(0),
                          w1.stride(1), self._stream()), "swiglu_bwd")
 
-    def matmul_nt(self, x, w, rows, out, x2=None, w2=None):
+    def matmul_nt(self, x, w, rows, out, x2=None, w2=None, zero_pad=True):
         G, M, K = x.shape
         N = w.shape[1]
-        self._ok(self.bwd(3 if x2 is None else 4, x.data_ptr(),
-                          (x if x2 is None else x2).data_ptr(), w.data_ptr(),
-                          (w if w2 is None else w2).data_ptr(),
-                          out.data_ptr(), None, None, rows.data_ptr(), G, M,
-                          K, N, N, x.stride(0), x.stride(1), w.stride(0),
-                          w.stride(1), self._stream()), "matmul_nt")
+        x2, w2 = (x, w) if x2 is None else (x2, w2)
+        if self.nt is None:
+            self._ok(self.bwd(3 if x2 is x else 4, x.data_ptr(),
+                              x2.data_ptr(), w.data_ptr(), w2.data_ptr(),
+                              out.data_ptr(), None, None, rows.data_ptr(), G,
+                              M, K, N, N, x.stride(0), x.stride(1),
+                              w.stride(0), w.stride(1), self._stream()),
+                     "matmul_nt")
+            return
+        nxt = torch.zeros(1, dtype=torch.int32, device=x.device)
+        self._ok(self.nt(int(zero_pad), int(x2 is not x), x.data_ptr(),
+                         x2.data_ptr(), w.data_ptr(), w2.data_ptr(),
+                         out.data_ptr(), rows.data_ptr(), nxt.data_ptr(), G,
+                         M, K, N, x.stride(0), x.stride(1), w.stride(0),
+                         w.stride(1), self._stream()), "matmul_nt")
 
     def wgrad(self, x, d, rows, out):
         G, M, K = x.shape
@@ -296,7 +312,7 @@ def bench_forward(bench: Bench) -> None:
         torch.cuda.empty_cache()
 
 
-def bench_backward(bench: Bench, shape_name: str, b2: bool) -> None:
+def bench_backward(bench: Bench, shape_name: str, dw2: bool) -> None:
     rows, cap, K, N = slot_rows(*SHAPES[shape_name])
     G, M = rows.numel(), cap
     R, S = int(rows.sum()), int((rows > 0).sum())
@@ -338,10 +354,10 @@ def bench_backward(bench: Bench, shape_name: str, b2: bool) -> None:
           bmm=lambda: torch.bmm(x.transpose(1, 2), dhn),
           tiles=ops.wgrad_tiles(G, K, N).shape[0])
     del outs
-    if b2:
-        # B3's dw2 = act^T dy, B2's dact = dy w2^T and dx = dh w1^T + dg w3^T.
-        w2 = _randn((G, N, K), N ** -0.5, g)
-        dy = _padded(_randn((G, M, K), 1.0, g), rows)
+    w2 = _randn((G, N, K), N ** -0.5, g)
+    dy = _padded(_randn((G, M, K), 1.0, g), rows)
+    if dw2:
+        # B3's dw2 = act^T dy.
         act = _padded(_randn((G, M, N), 1.0, g), rows)
         outs = {k: (torch.empty((G, N, K), dtype=x.dtype, device="cuda"),)
                 for k in bench.libs}
@@ -349,20 +365,30 @@ def bench_backward(bench: Bench, shape_name: str, b2: bool) -> None:
               bench, lambda e, o: e.wgrad(act, dy, rows, o[0]), outs,
               2.0 * R * K * N, 2 * (R * K + R * N + G * K * N),
               bmm=lambda: torch.bmm(act.transpose(1, 2), dy))
+        del act
+    # B2's dact = dy w2^T and dx = dh w1^T + dg w3^T: the public call, then
+    # the train step's.
+    dgn = _padded(dg, rows)
+    b2_tiles = {n: ops.matmul_nt_tiles(rows, M, n).shape[0] for n in (N, K)}
+    for tag, zero in (("", True), ("_train_call", False)):
         outs = {k: (torch.empty((G, M, N), dtype=x.dtype, device="cuda"),)
                 for k in bench.libs}
-        _case(f"b2_dact_{shape_name}", dict(G=G, M=M, K=K, N=N), rows, bench,
-              lambda e, o: e.matmul_nt(dy, w2, rows, o[0]), outs,
-              2.0 * R * K * N, 2 * (R * K + S * K * N + R * N),
-              bmm=lambda: torch.bmm(dy, w2.transpose(1, 2)))
-        dgn = _padded(dg, rows)
+        _case(f"b2_dact_{shape_name}{tag}", dict(G=G, M=M, K=K, N=N), rows,
+              bench, lambda e, o: e.matmul_nt(dy, w2, rows, o[0],
+                                              zero_pad=zero),
+              outs, 2.0 * R * K * N, 2 * (R * K + S * K * N + R * N),
+              bmm=(lambda: torch.bmm(dy, w2.transpose(1, 2))) if zero
+              else None, work_items=b2_tiles[N], zero_padded=zero)
         outs = {k: (torch.empty((G, M, K), dtype=x.dtype, device="cuda"),)
                 for k in bench.libs}
-        _case(f"b2_dx_{shape_name}", dict(G=G, M=M, K=N, N=K), rows, bench,
-              lambda e, o: e.matmul_nt(dhn, w1, rows, o[0], dgn, w3), outs,
-              4.0 * R * K * N, 2 * (2 * R * N + 2 * S * K * N + R * K),
-              bmm=lambda: torch.bmm(dhn, w1.transpose(1, 2))
-              + torch.bmm(dgn, w3.transpose(1, 2)))
+        _case(f"b2_dx_{shape_name}{tag}", dict(G=G, M=M, K=N, N=K), rows,
+              bench, lambda e, o: e.matmul_nt(dhn, w1, rows, o[0], dgn, w3,
+                                              zero_pad=zero),
+              outs, 4.0 * R * K * N, 2 * (2 * R * N + 2 * S * K * N + R * K),
+              bmm=(lambda: torch.bmm(dhn, w1.transpose(1, 2))
+                   + torch.bmm(dgn, w3.transpose(1, 2))) if zero else None,
+              work_items=b2_tiles[K], zero_padded=zero)
+        del outs
     torch.cuda.empty_cache()
 
 
@@ -375,30 +401,40 @@ def _fit(xs, ts) -> dict:
 
 
 def bench_split(bench: Bench) -> None:
-    """B1 and B3 at GLM's widths and train capacity, every slot at one row
-    count; the fit of time against the tiles each kernel contracts."""
+    """B1, B2 and B3 at GLM's widths and train capacity, every slot at one
+    row count; the fit of time against the tiles each kernel contracts."""
     G, M, K, N = 130, 2017, 4096, 1408
     g = torch.Generator(device="cuda").manual_seed(13)
     x = _randn((G, M, K), 1.0, g)
     w1, w3 = _randn((G, K, N), K ** -0.5, g), _randn((G, K, N), K ** -0.5, g)
+    w2 = _randn((G, N, K), N ** -0.5, g)
     d = _randn((G, M, N), 1.0, g)
     dh, dg = torch.empty_like(d), torch.empty_like(d)
     out = torch.empty((G, K, N), dtype=x.dtype, device="cuda")
+    dx = torch.empty_like(x)
     counts = (0, 64, 128, 256, 512, 1024)
+    calls = {
+        "b1": lambda e, rows: e.swiglu_bwd(x, w1, w3, d, rows, dh, dg),
+        "b3": lambda e, rows: e.wgrad(x, d, rows, out),
+        "b2_dact": lambda e, rows: e.matmul_nt(x, w2, rows, dh),
+        "b2_dact_train_call": lambda e, rows: e.matmul_nt(
+            x, w2, rows, dh, zero_pad=False),
+        "b2_dx": lambda e, rows: e.matmul_nt(d, w1, rows, dx, d, w3),
+        "b2_dx_train_call": lambda e, rows: e.matmul_nt(
+            d, w1, rows, dx, d, w3, zero_pad=False)}
     for who, e in bench.libs.items():
-        t1, t3 = [], []
-        for r in counts:
-            rows = torch.full((G,), r, device="cuda", dtype=torch.int64)
-            t1.append(_event_ms(lambda: e.swiglu_bwd(x, w1, w3, d, rows, dh,
-                                                     dg), bench.iters))
-            t3.append(_event_ms(lambda: e.wgrad(x, d, rows, out),
-                                bench.iters))
-        _emit({"case": f"split_{who}", "shape": dict(G=G, M=M, K=K, N=N),
-               "rows_per_slot": counts,
-               "b1_ms": t1, "b1_fit_128_row_tiles": _fit(
-                   [G * math.ceil(r / 128) for r in counts], t1),
-               "b3_ms": t3, "b3_fit_64_row_token_tiles": _fit(
-                   [G * math.ceil(r / 64) for r in counts], t3)})
+        rec = {"case": f"split_{who}", "shape": dict(G=G, M=M, K=K, N=N),
+               "rows_per_slot": counts}
+        for name, call in calls.items():
+            t = []
+            for r in counts:
+                rows = torch.full((G,), r, device="cuda", dtype=torch.int64)
+                t.append(_event_ms(lambda: call(e, rows), bench.iters))
+            tile = 64 if name == "b3" else 128
+            rec[f"{name}_ms"] = t
+            rec[f"{name}_fit_{tile}_row_tiles"] = _fit(
+                [G * math.ceil(r / tile) for r in counts], t)
+        _emit(rec)
 
 
 def main() -> int:
@@ -432,13 +468,14 @@ def main() -> int:
            "torch": torch.__version__, "libraries": list(libs),
            "ptxas": [ln.strip() for ln in ops.LIBRARY.ptxas_log.splitlines()
                      if "grouped_wgrad" in ln or "swiglu_bwd" in ln
+                     or "matmul_nt" in ln
                      or "registers" in ln or "spill" in ln
                      or "warning" in ln.lower()]})
     bench = Bench(libs, args.iters, args.check, args.rounds)
     if not args.no_forward:
         bench_forward(bench)
     for name in args.shapes.split(","):
-        bench_backward(bench, name, b2=name == "glm_train")
+        bench_backward(bench, name, dw2=name == "glm_train")
     if args.split:
         bench_split(bench)
     return 0

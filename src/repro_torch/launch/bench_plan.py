@@ -14,6 +14,13 @@ at another checkout's ``src`` times that checkout's kernel with the same
 cases (a parent and a change in one call, on one card):
 
   PYTHONPATH=src python src/repro_torch/launch/bench_plan.py --probes 1 4 8
+
+``--eplb``: time EPLB's placement kernel (``eplb_place``, chip_smoke's row
+Pe) instead: E 128 and E 256 at R 64 and E 256 at R 256 (one expert a
+rank, 8 ranks a lane), n_slot 2, ``max_rep`` R, on the
+Zipf load of phase 2 (seed E), with each checkout's bound unit (the
+parent's block reduction, or the longer of one step's two chains: the
+argmin and the re-sum, the vote and the argmax) and a hash of ``hosted``.
 """
 
 from __future__ import annotations
@@ -69,7 +76,11 @@ def main(argv=None) -> None:
     ap.add_argument("--probes", type=int, nargs="+", default=[1])
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--eplb", action="store_true")
     args = ap.parse_args(argv)
+    if args.eplb:
+        _bench_eplb(args)
+        return
     from repro_torch.core import planner
     from repro_torch.kernels.plan_solve import ops
 
@@ -102,6 +113,40 @@ def main(argv=None) -> None:
                 "ms_all": ms, "probes_steps": stats.tolist(),
                 "tau": int(tau), "u_sha256": digest[:16],
                 "time": time.time()}), flush=True)
+
+
+def _bench_eplb(args) -> None:
+    from repro_torch.kernels.eplb_place import ops
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    unit = {}
+    if hasattr(ops, "block_reduce_ms"):
+        unit["block_reduce_ms"] = min(ops.block_reduce_ms() for _ in range(3))
+    print(json.dumps({"tag": args.tag, "nvidia_smi": smi,
+                      "source": ops.__file__, **unit}), flush=True)
+    k = 8
+    for R, E in ((64, 128), (64, 256), (256, 256)):
+        if hasattr(ops, "step_chain_ms"):
+            runs = [ops.step_chain_ms(E, R, 2) for _ in range(3)]
+            unit = {"argmin_resum_ms": min(r[0] for r in runs),
+                    "vote_argmax_ms": min(r[1] for r in runs)}
+        lam_e = torch.from_numpy(_lam(R, E, k, seed=E)).sum(dim=0).to(
+            torch.float32).cuda()
+        home = (torch.arange(E) // (E // R)).cuda()
+        kw = dict(n_slot=2, max_rep=R)
+        stats = torch.zeros(2, dtype=torch.int32, device="cuda")
+        hosted = ops.eplb_place(lam_e, home, R, stats=stats, **kw)
+        torch.cuda.synchronize()
+        ms = sorted(_graph_ms(lambda: ops.eplb_place(lam_e, home, R, **kw), 5)
+                    for _ in range(args.repeats))
+        digest = hashlib.sha256(hosted.cpu().numpy().tobytes()).hexdigest()
+        print(json.dumps({
+            "tag": args.tag, "kernel": "eplb_place", "shape": [R, E, k],
+            "ms": ms[len(ms) // 2], "ms_all": ms,
+            "steps_placements": stats.tolist(), "hosted_sha256": digest[:16],
+            **unit, "time": time.time()}), flush=True)
 
 
 if __name__ == "__main__":

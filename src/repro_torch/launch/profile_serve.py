@@ -49,8 +49,7 @@ _CATEGORIES = (
     ("grouped_gemm_q8 (ours)", ("grouped_gemm_q8_wgmma_kernel",)),
     ("grouped_gemm backward (ours)", ("grouped_wgrad_kernel",
                                       "grouped_swiglu_bwd_kernel",
-                                      "grouped_gemm_wgmma_kernel<3>",
-                                      "grouped_gemm_wgmma_kernel<4>")),
+                                      "grouped_matmul_nt_kernel")),
     ("flash_attention backward (ours)", ("bwd_dkdv_kernel", "bwd_dq_kernel",
                                          "bwd_prep_kernel",
                                          "bwd_dkdv_split_kernel",

@@ -7,19 +7,44 @@ in no fixed order (a token's top-k copies, k > 2).  Held here bitwise
 against a Python loop that adds each destination row's contributions in
 position order, and within 1e-6 of autograd through ``x[idx]``; the
 replica stream's transpose against the same loop in (rank, slot) order;
-and the tile orders of the grouped backward kernels (B1, B3) against a
-brute-force enumeration.
+and the tile orders of the grouped backward kernels (B1, B2, B3) against
+a brute-force enumeration.
+
+The train step's grouped backward leaves the slot rows past each count
+(rounded up to 64) unwritten on the card (``zero_padded=False``): dact,
+dh, dg and the slot buffers' gradient dx.  Every reader of those rows must
+select the valid rows, never multiply a padded one into a valid result:
+held here bitwise with NaN against zeros in the padded rows for the
+dispatch gathers' backward (top-k 8 copies and one), the reference
+engine's ``bucket_by_slot``, the masked call's ``torch.where``, the
+SwiGLU backward's dact, and the whole layer's gradients with the grouped
+backward's padded rows poisoned with NaN as the card leaves them
+undefined (fused and reference engines, ``a2a``, ``replicated``, overlap
+chunks, the payload screen).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.balancer import BalancerConfig
 from repro_torch.kernels.grouped_gemm import ops as gg
-from repro_torch.moe import distribute
-from repro_torch.moe.permute import gather_rows, ordered_row_sum
+from repro_torch.moe import distribute, stages
+from repro_torch.moe.dispatch import bucket_by_slot
+from repro_torch.moe.expert import grouped_ffn
+from repro_torch.moe.gating import GatingConfig
+from repro_torch.moe.layer import MoEConfig, init_moe_params, moe_layer_local
+from repro_torch.moe.stages import Resilience
+from repro_torch.moe.permute import (
+    fused_bucket,
+    fused_replicated_bucket,
+    gather_rows,
+    ordered_row_sum,
+)
 
 
 def _indices(seed: int, n: int, shape: tuple[int, ...], copies: int):
@@ -169,3 +194,236 @@ def test_wgrad_tiles_enumerate_every_output_tile(G, K, N):
     want = [(g, 128 * k, 256 * n) for g in range(G)
             for k in range(-(-K // 128)) for n in range(-(-N // 256))]
     assert [tuple(t) for t in got.tolist()] == want
+
+
+def _brute_rows(rows, M, N, cols):
+    items = []
+    for g, r in enumerate(rows):
+        mt = -(-min(max(r, 0), M) // 128)
+        for nt in range(-(-N // cols)):
+            for m in range(mt):
+                items.append((g, 128 * m, cols * nt))
+    return items
+
+
+@pytest.mark.parametrize("rows,M,N", [
+    ([0, 37, 129, 300, 250], 300, 72),
+    ([0, 0, 0], 64, 128),
+    ([2017, 0, 5, 1024, 2017, 128], 2017, 1408),     # full, empty, N 5.5 x 256
+    ([2017, 0, 600], 2017, 4096),                    # dx's N
+    ([256, 255, 0, 1, 257], 255, 2048),              # counts past M clamp
+    ([511, 129, 0, 384], 511, 256),                  # a short last tile
+])
+def test_matmul_nt_tiles_enumerate_the_valid_row_tiles(rows, M, N):
+    got = gg.matmul_nt_tiles(torch.tensor(rows), M, N)
+    want = _brute_rows(rows, M, N, 256)
+    assert got.shape == (len(want), 3)
+    assert [tuple(t) for t in got.tolist()] == want
+
+
+def _poisoned(g, valid, fill):
+    """``g`` with the rows where ``valid`` is False set to ``fill``."""
+    pad = (...,) + (None,) * (g.dim() - valid.dim())
+    return torch.where(valid[pad], g, torch.full((), fill, dtype=g.dtype))
+
+
+@pytest.mark.parametrize("seed,copies", [(0, 8), (1, 8), (2, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_backward_ignores_invalid_positions(seed, copies, dtype):
+    """The dispatch gathers' backward (top-k 8 copies of a token; one copy
+    a receive row): NaN in the invalid positions' gradient gives the same
+    bits as zeros there."""
+    n, shape, D = 48, (12, 40), 24
+    idx, valid = _indices(seed, n, shape, copies)
+    rng = np.random.default_rng(300 + seed)
+    x = torch.from_numpy(rng.standard_normal((n, D))).to(dtype)
+    g = torch.from_numpy(rng.standard_normal(shape + (D,))).to(dtype)
+    grads = []
+    for fill in (0.0, float("nan")):
+        xg = x.clone().requires_grad_(True)
+        y = gather_rows(xg, idx, valid, copies=copies)
+        (d,) = torch.autograd.grad(y, xg, _poisoned(g, valid, fill))
+        grads.append(d)
+    assert torch.isfinite(grads[1]).all()
+    assert torch.equal(grads[0], grads[1])
+
+
+def _slot_grads(make_xs, src, fill, rows):
+    """Gradient in ``src`` of the slot buffers made by ``make_xs(src)``
+    for a slot gradient whose rows past ``rows`` hold ``fill``."""
+    s = src.clone().requires_grad_(True)
+    xs = make_xs(s)
+    G, C, _ = xs.shape
+    keep = torch.arange(C)[None, :] < rows[:, None]
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        tuple(xs.shape)).astype(np.float32))
+    (d,) = torch.autograd.grad(xs, s, _poisoned(g, keep, fill))
+    return d
+
+
+def _bucket_case(seed=3):
+    rng = np.random.default_rng(seed)
+    R, cap_pair, D, S, cap = 3, 20, 8, 5, 16
+    counts = rng.integers(0, 5, size=(R, S + 1))
+    counts[:, S] = 0
+    recv_x = torch.from_numpy(rng.standard_normal((R, cap_pair, D)).astype(
+        np.float32))
+    return recv_x, torch.from_numpy(counts), S, cap
+
+
+def test_fused_bucket_backward_ignores_padded_slot_rows():
+    recv_x, counts, S, cap = _bucket_case()
+    rows = fused_bucket(recv_x, counts, num_slots=S, cap_slot=cap)[4]
+    make = lambda s: fused_bucket(s, counts, num_slots=S, cap_slot=cap)[0]
+    a, b = (_slot_grads(make, recv_x, f, rows) for f in (0.0, float("nan")))
+    assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+def test_fused_replicated_bucket_backward_ignores_padded_slot_rows():
+    rng = np.random.default_rng(4)
+    T, k, E, S, cap = 24, 8, 16, 6, 40
+    x = torch.from_numpy(rng.standard_normal((T, 8)).astype(np.float32))
+    ids = torch.from_numpy(np.stack([rng.permutation(E)[:k]
+                                     for _ in range(T)]))
+    cum_u = torch.cumsum(torch.full((E, 1), T * k), dim=0)
+    slot_of = torch.where(torch.arange(E) < S, torch.arange(E), -1)
+
+    def make(s):
+        return fused_replicated_bucket(s, ids, cum_u, 0, slot_of,
+                                       num_slots=S, cap_slot=cap).xs
+
+    rows = fused_replicated_bucket(x, ids, cum_u, 0, slot_of, num_slots=S,
+                                   cap_slot=cap).rows
+    a, b = (_slot_grads(make, x, f, rows) for f in (0.0, float("nan")))
+    assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+def test_reference_bucket_backward_ignores_padded_slot_rows():
+    """The reference engine's ``bucket_by_slot`` (a scatter whose
+    backward gathers the kept items' slot rows)."""
+    rng = np.random.default_rng(6)
+    R, cap_pair, D, E, S, cap = 2, 24, 8, 8, 6, 16
+    recv_x = torch.from_numpy(rng.standard_normal((R, cap_pair, D)).astype(
+        np.float32))
+    recv_e = torch.from_numpy(rng.integers(-1, E, size=(R, cap_pair)))
+    slot_of = torch.tensor([0, 1, 2, -1, 3, 4, 5, -1])
+    valid = bucket_by_slot(recv_x, recv_e, slot_of, num_slots=S,
+                           cap_slot=cap)[1]
+    make = lambda s: bucket_by_slot(s, recv_e, slot_of, num_slots=S,
+                                    cap_slot=cap)[0]
+    a, b = (_slot_grads(make, recv_x, f, valid.sum(dim=1))
+            for f in (0.0, float("nan")))
+    assert torch.isfinite(b).all() and torch.equal(a, b)
+
+
+def test_masked_call_ignores_unwritten_padded_rows(monkeypatch):
+    """A grouped FFN called with a mask and no row counts zeroes the rows
+    the mask excludes with a ``torch.where`` and runs each slot to its last
+    valid row: the slot buffers' gradient is the same bits when the
+    grouped backward's padded rows hold NaN."""
+    rng = np.random.default_rng(7)
+    G, C, D, F = 3, 70, 8, 16
+    xs = torch.from_numpy(rng.standard_normal((G, C, D)).astype(np.float32))
+    valid = torch.from_numpy(rng.random((G, C)) < 0.5)
+    valid[1] = False
+    valid[2, 60:] = False
+    w1, w3 = (torch.from_numpy(rng.standard_normal((G, D, F)).astype(
+        np.float32)) for _ in range(2))
+    w2 = torch.from_numpy(rng.standard_normal((G, F, D)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((G, C, D)).astype(np.float32))
+
+    def grad():
+        s = xs.clone().requires_grad_(True)
+        (d,) = torch.autograd.grad(grouped_ffn(s, valid, w1, w3, w2), s, g)
+        return d
+
+    want = grad()
+    _poison_backward(monkeypatch)
+    got = grad()
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def test_swiglu_bwd_ignores_padded_dact_rows():
+    """B1's plain version (the kernel's arithmetic on the CPU) reads the
+    matmul's dgrad, dact: NaN past the counts changes no bit."""
+    rng = np.random.default_rng(8)
+    G, M, K, N = 3, 70, 16, 24
+    x, w1, w3 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for s in ((G, M, K), (G, K, N), (G, K, N)))
+    dact = torch.from_numpy(rng.standard_normal((G, M, N)).astype(np.float32))
+    rows = torch.tensor([0, 33, 70])
+    keep = torch.arange(M)[None, :] < rows[:, None]
+    a = gg.grouped_swiglu_bwd(x, w1, w3, _poisoned(dact, keep, 0.0), rows)
+    b = gg.grouped_swiglu_bwd(x, w1, w3, _poisoned(dact, keep, float("nan")),
+                              rows)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def _poison_backward(monkeypatch):
+    for name, rows_at in (("grouped_matmul_nt", 2), ("grouped_swiglu_bwd", 4)):
+        monkeypatch.setattr(gg, name, _unwritten(getattr(gg, name), rows_at))
+
+
+E_L, K_L, D_L, F_L, T_L = 16, 8, 32, 48, 64
+LAYER_GRADS = ("router", "w1", "w3", "w2")
+
+
+def _unwritten(fn, rows_at):
+    """``fn`` (a grouped backward wrapper, its ``rows`` argument at
+    position ``rows_at``) whose ``zero_padded=False``
+    calls come back with NaN in every row from the count rounded up to
+    64, as the kernels leave them undefined on the card."""
+    def poisoned(*args, zero_padded=True, **kw):
+        out = fn(*args, zero_padded=zero_padded, **kw)
+        if zero_padded:
+            return out
+        rows = args[rows_at]
+        one = out if isinstance(out, torch.Tensor) else out[0]
+        keep = torch.arange(one.shape[1])[None, :] < (
+            (rows.clamp(min=0) + 63) // 64 * 64)[:, None]
+        if isinstance(out, torch.Tensor):
+            return _poisoned(out, keep, float("nan"))
+        return tuple(_poisoned(t, keep, float("nan")) for t in out)
+    return poisoned
+
+
+def _layer_grads(cfg, params, x, screen):
+    params.requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    y, _, _ = moe_layer_local(xg, params, cfg,
+                              resilience=Resilience() if screen else None)
+    (y ** 2).sum().backward()
+    out = [xg.grad] + [getattr(params, n).grad.clone() for n in LAYER_GRADS]
+    for t in params.parameters():
+        t.grad = None
+    params.requires_grad_(False)
+    return out
+
+
+@pytest.mark.parametrize("mode,impl,chunks,screen", [
+    ("a2a", "fused", 1, False), ("replicated", "fused", 1, False),
+    ("a2a", "reference", 1, False), ("replicated", "reference", 1, False),
+    ("a2a", "fused", 2, False), ("a2a", "fused", 1, True)])
+def test_layer_grads_ignore_unwritten_padded_rows(monkeypatch, mode, impl,
+                                                  chunks, screen):
+    """The MoE layer's gradients (tokens, router, experts) are the same
+    bits when the grouped backward's padded rows (dact, dh, dg and the slot
+    buffers' dx) hold NaN as when they hold zeros: no reader lets one into
+    a valid result.  Top-8 of 16 experts, capacity 512 a slot, ~28 rows
+    each, so most rows are padding; with the payload screen too (its
+    ``torch.where`` passes the slot rows' gradient on to the gathers)."""
+    cfg = MoEConfig(gating=GatingConfig(num_experts=E_L, top_k=K_L),
+                    balancer=BalancerConfig(mode="ultraep", n_slot=2),
+                    d_model=D_L, d_ff=F_L, ep_size=1, cap_pair=T_L * K_L,
+                    cap_slot=T_L * K_L, dispatch_mode=mode,
+                    dispatch_impl=impl, overlap_chunks=chunks)
+    params = init_moe_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    x = torch.randn((T_L, D_L), generator=torch.Generator().manual_seed(1))
+    want = _layer_grads(cfg, params, x, screen)
+    _poison_backward(monkeypatch)
+    got = _layer_grads(cfg, params, x, screen)
+    for n, a, b in zip(("x",) + LAYER_GRADS, got, want):
+        assert torch.isfinite(a).all(), n
+        assert torch.equal(a, b), n

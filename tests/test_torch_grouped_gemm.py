@@ -136,6 +136,28 @@ def test_wrappers_zero_rows_past_count(dtype, rows_dtype):
             assert torch.equal(masked[g, r:], torch.zeros_like(masked[g, r:]))
 
 
+@pytest.mark.parametrize("dual", [False, True])
+def test_matmul_nt_train_call_on_cpu_is_the_public_call(dual):
+    """``grouped_matmul_nt(..., zero_padded=False)`` (the autograd
+    backward's dgrad) on the CPU: the plain version, the public call's bits
+    (rows past the count zero), whatever the operands' padded rows hold."""
+    G, M, K, N = 3, 70, 24, 40
+    rng = np.random.default_rng(9)
+    x, x2 = (torch.from_numpy(rng.standard_normal((G, M, K)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    w, w2 = (torch.from_numpy(rng.standard_normal((G, N, K)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    rows = torch.tensor([0, 33, 70])
+    pad = torch.arange(M)[None, :, None] >= rows[:, None, None]
+    x = torch.where(pad, float("nan"), x.float()).to(torch.bfloat16)
+    extra = (x2, w2) if dual else ()
+    got = ops.grouped_matmul_nt(x, w, rows, *extra, zero_padded=False)
+    want = ops.grouped_matmul_nt(x, w, rows, *extra)
+    assert torch.equal(got, want)
+    assert torch.equal(want, ops.grouped_matmul_nt_ref(x, w, rows, *extra))
+    assert torch.all(torch.where(pad, want.float(), 0.0) == 0)
+
+
 def test_tma_operand_helpers():
     """What the bf16 launch does before it touches a card: which operands
     TMA can read as they are, the zero-padded copy of one it cannot, and
@@ -699,7 +721,9 @@ def test_backward_kernels_match_plain_on_card(cuda_device, G, M, K, N,
     """B1 (swiglu_bwd), B2 (matmul_nt, one and two products) and B3 (wgrad)
     in bf16 against their plain versions: every output within 2e-2 of its
     own max|ref| (bf16 outputs of fp32 sums), padded rows exact zeros, and
-    NaN in the padded rows of the wgrad's operands reaching nothing."""
+    NaN in the padded rows of the wgrad's operands reaching nothing; B2's
+    ``zero_padded=False`` the same bits on the rows up to the count
+    rounded up to 64, NaN in its operands' padded rows."""
     rng = np.random.default_rng(1)
 
     def t(shape, scale=1.0):
@@ -726,10 +750,24 @@ def test_backward_kernels_match_plain_on_card(cuda_device, G, M, K, N,
     check("dh", dh, rh)
     check("dg", dg, rg)
     w1t = w1.transpose(1, 2).contiguous()           # (G, N, K) storage
-    check("nt", ops.grouped_matmul_nt(dy, w1t, rows),
-          ops.grouped_matmul_nt_ref(dy, w1t, rows))
-    check("nt2", ops.grouped_matmul_nt(dh, w1, rows, dg, w3),
-          ops.grouped_matmul_nt_ref(dh, w1, rows, dg, w3))
+    nt = ops.grouped_matmul_nt(dy, w1t, rows)
+    check("nt", nt, ops.grouped_matmul_nt_ref(dy, w1t, rows))
+    nt2 = ops.grouped_matmul_nt(dh, w1, rows, dg, w3)
+    check("nt2", nt2, ops.grouped_matmul_nt_ref(dh, w1, rows, dg, w3))
+    # The train step's calls: the same bits on the valid rows, zeros up to
+    # the count rounded up to 64 (NaN in the operands' padded rows).
+    tile = torch.arange(M, device=cuda_device)[None, :, None] < (
+        (rows[:, None, None] + 63) // 64 * 64)
+    nan_dy = torch.where(pad, float("nan"), dy.float()).to(torch.bfloat16)
+    nan_dh = torch.where(pad, float("nan"), dh.float()).to(torch.bfloat16)
+    for name, got, want in (
+            ("nt", ops.grouped_matmul_nt(nan_dy, w1t, rows,
+                                         zero_padded=False), nt),
+            ("nt2", ops.grouped_matmul_nt(nan_dh, w1, rows, dg, w3,
+                                          zero_padded=False), nt2)):
+        torch.cuda.synchronize()
+        assert torch.equal(torch.where(tile, got, 0), torch.where(
+            tile, want, 0)), name
     nan_x = torch.where(pad, float("nan"), x.float()).to(torch.bfloat16)
     nan_d = torch.where(pad, float("nan"), dact.float()).to(torch.bfloat16)
     check("wgrad", ops.grouped_wgrad(nan_x, nan_d, rows),
@@ -738,7 +776,7 @@ def test_backward_kernels_match_plain_on_card(cuda_device, G, M, K, N,
           ops.grouped_wgrad_ref(dy, dact, rows))
     assert (ops.grouped_swiglu_bwd.launches - n0[0],
             ops.grouped_matmul_nt.launches - n0[1],
-            ops.grouped_wgrad.launches - n0[2]) == (1, 2, 2)
+            ops.grouped_wgrad.launches - n0[2]) == (1, 4, 2)
 
 
 @pytest.mark.cuda

@@ -412,10 +412,14 @@ def test_wrapper_raises_at_the_kary_and_health_bounds(cuda_device):
 
 
 # Row Pe: EPLB's placement on the card against its plain version, bitwise,
-# at E 128 and E 256, R 64, over Zipf loads, with no host sync.
+# at E 128 and E 256, R 64, over Zipf loads, with no host sync; R 128 and
+# R 256 (8 ranks a lane), and E 1024 and R 256, the kernel's largest (lists
+# in shared memory).
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_rep", [None, 1])
-@pytest.mark.parametrize("R,E", [(64, 128), (64, 256), (16, 64), (4, 16)])
+@pytest.mark.parametrize("R,E", [(64, 128), (64, 256), (16, 64), (4, 16),
+                                 (128, 512), (2, 512), (256, 256),
+                                 (256, 1024), (32, 1024)])
 def test_eplb_place_matches_plain_on_card(cuda_device, R, E, max_rep):
     from repro_torch.core import eplb
     from repro_torch.kernels.eplb_place import ops as eplb_ops
