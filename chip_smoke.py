@@ -64,9 +64,13 @@ Phases, one output line each:
      card, the bound (serial oracle steps x one redux.sync round, timed
      here) and post_max / ceil(total / R); the rack modes of both kernels:
      ``gating_topk`` with DeepSeek-V3's node-limited routing (T 4096, E
-     256, k 8, sigmoid + bias; G 8, M 4, group top-2; G 2, M 1; decode),
-     ids equal to the plain rack selection on the kernel's own keys on
-     every row, and ``plan_solve`` with rack size 8 (2 at R 4), with and
+     256, k 8, sigmoid + bias; G 8, M 4, group top-2; G 2, M 1; decode)
+     and, at prefill and decode, Jamba-v0.1's 16 experts over 8 racks,
+     DBRX's routing at 8 racks, DeepSeek-V2's device-limited routing (E
+     160, 8 of 3, group top-1), E 60 over 6 racks, a group top-8 and one
+     expert a rack, ids equal to the plain rack selection on the kernel's
+     own keys on every row and through the port's ``verify_rack_limit``
+     with no error, and ``plan_solve`` with rack size 8 (2 at R 4), with and
      without the demand tie-break, the whole Plan with its tier fields
      equal to the plain solve's, no host sync, timed beside the flat
      solve; ``plan_solve``'s k-ary round (row Pk: probe_parallelism 4 and
@@ -173,14 +177,16 @@ Phases, one output line each:
      on the card through ``balancer.solve``: ``metrics.report`` before and
      after (imbalance, instances, fan-out, slots, in-flight share) and the
      solve's time (graph device time; ``lplb``, host numpy by design, its
-     host wall);
+     host wall), then each plan through the port's static plan check
+     (``analysis.plan_check``): no error, warnings counted by rule;
  14. the rack tier on the one card: four processes (spawn) in one gloo
      group and the same ranks factored as 2 racks x 2 lanes, DeepSeek-V3's
      MoE layer at full width (E 256, k 8, d_model 7168, d_ff 2048, bf16),
      2048 tokens a rank: (a) flat ``a2a``, (b) ``hier_a2a``, (c) a rack
      limit of 1 against its flat twin, (d) (b) in 2 overlap chunks, (e) (a)
      on the reference engine, bit for bit as stated, zero drops, the plan
-     tables against the plain solve, launch counts; (f) the backward of (b)
+     tables against the plain solve and through the static plan check (no
+     error; the rack limit's check in (c)), launch counts; (f) the backward of (b)
      against (a) within 2e-2; no time is stated (gloo);
  16. the trainer on groups of two processes on the one card (spawn, gloo
      on CUDA tensors): GLM-4.5-Air, one layer at full width, bf16, the aux
@@ -282,10 +288,24 @@ EP_RANKS, EP_TOKENS = 2, 4096                # phase 9: ranks, tokens a rank
 # Row 5r: (tag, T, E, k, score_fn, num_racks G, rack_limit M, group top-k,
 # timing iterations): DeepSeek-V3's prefill shape and published
 # node-limited routing (n_group 8, topk_group 4, group score of the top 2;
-# arXiv:2412.19437 S2.1.2), two racks of which one, and decode.
+# arXiv:2412.19437 S2.1.2), two racks of which one, and decode; then, at
+# prefill and decode, the geometries the kernel's first rack mode refused:
+# Jamba-v0.1's 16 experts (top-2) over 8 racks, DBRX's routing (16
+# experts, top-4) at 8 racks, DeepSeek-V2's device-limited routing (160
+# experts, top-6, 8 devices of which 3, group top-1; arXiv:2405.04434
+# S3.2.2), E not a multiple of 4, a group top-8, one expert a rack.
 RACK_GATE_CASES = [("ds_g8_m4", 4096, 256, 8, "sigmoid", 8, 4, 2, 20),
                    ("ds_g2_m1", 4096, 256, 8, "sigmoid", 2, 1, 2, 20),
-                   ("ds_g8_m4_decode", 4, 256, 8, "sigmoid", 8, 4, 2, 50)]
+                   ("ds_g8_m4_decode", 4, 256, 8, "sigmoid", 8, 4, 2, 50)] + [
+    (tag + sfx, T, E, k, fn, G, M, gk, 10)
+    for tag, E, k, fn, G, M, gk in (
+        ("jamba_g8_m2", 16, 2, "softmax", 8, 2, 2),
+        ("dbrx_g8_m2", 16, 4, "softmax", 8, 2, 2),
+        ("dsv2_g8_m3", 160, 6, "softmax", 8, 3, 1),
+        ("e60_g6_m2", 60, 4, "softmax", 6, 2, 2),
+        ("ds_g2_m1_gk8", 256, 8, "sigmoid", 2, 1, 8),
+        ("e16_g16_m8", 16, 2, "softmax", 16, 8, 1))
+    for sfx, T in (("", 4096), ("_decode", 4))]
 # Row Pr: PLAN_CASES at rack size 8 (2 at R 4; R 2 has no rack tier).
 RACK_PLAN_CASES = [(R, E, k, 8 if R % 8 == 0 else 2)
                    for R, E, k in PLAN_CASES if R >= 4]
@@ -1295,33 +1315,48 @@ def phase_plan_solve() -> dict:
     return records
 
 
-def _rack_gate_cost(T, E, k, G, want_scores) -> tuple[float, float]:
+def _rack_gate_cost(T, E, k, G, M, gk, want_scores) -> tuple[float, float]:
     """(fp32 operations, bytes) of the rack mode: the free kernel's, plus
-    per key the bias add and its share of the chunk sort (5 compares a 4)
-    and of the rack merges (log2 W rounds of 8 a 4), and per row each
-    lane's count over the G rack words."""
+    per key the bias add, plus the rack stage of the kernel's path.  Lanes
+    path (a rack of L lanes): each rack lane's log2 L merges of a list of
+    P (the power of two >= gk, or the lane's experts) values (P maxes and
+    the cleanup's P / 2 log2 P compare-exchanges of 2 operations), its gk
+    adds and its count over the G rack words (2 compares each).  Shared
+    path: each key's rank (E / G compares of 2), each rack's gk adds and
+    its rank (2 G)."""
+    from repro_torch.kernels.gating_topk import ops
+
     flops, nbytes = _gating_cost(T, E, k, want_scores)
-    W = E // (4 * G)
-    flops += T * E * (1 + 1.25 + 2.0 * max(W.bit_length() - 1, 0)) + T * G * G
-    return flops, nbytes
+    path, L = ops.rack_mode(E, k, G, M, gk)
+    egk = min(gk, E // G)
+    if path == 1:
+        P = 2 if egk <= 2 else (4 if E <= 128 else 8)
+        merge = P + P * (P.bit_length() - 1)
+        row = G * L * ((L.bit_length() - 1) * merge + egk + 2 * G)
+    else:
+        row = E * (E // G) * 2 + G * (egk + 2 * G)
+    return flops + T * (E + row), nbytes
 
 
 def phase_gating_racks() -> dict:
     """Row 5r: ``gating_topk``'s rack mode at DeepSeek-V3's prefill shape
     (T 4096, E 256, k 8, sigmoid, a selection bias) with its node-limited
-    routing (G 8, M 4, group top-2), with G 2, M 1, and at decode (T 4).
+    routing (G 8, M 4, group top-2), with G 2, M 1, at decode (T 4), and at
+    the other geometries of RACK_GATE_CASES (each with the bias too).
     Checks: the ids equal the plain rack selection on the kernel's own
     scores plus the bias on every row (so its rack scores, kept racks and
     rounds are the plain version's), and the fully plain version's on
     every row whose rack choice and k-th key are decided by a gap over
     1e-6 relative; counts the histogram of the ids; scores and weights
-    within GATING_TOL of max|ref|; at most M racks a token.  Times: eager
+    within GATING_TOL of max|ref|; at most M racks a token, and no error
+    from the port's ``verify_rack_limit`` (with the free kernel's ids).  Times: eager
     (``ms``, host work included), graph device time warm and cold, the free
     kernel at the same shape (graph, warm), the plain version eager and the
     PyTorch composite (group top-2 -> top-M -> mask -> topk -> gather ->
     scatter-add) in a graph."""
     import torch
 
+    from repro_torch.analysis.plan_check import verify_rack_limit
     from repro_torch.kernels.gating_topk import ops
 
     records = {}
@@ -1366,10 +1401,19 @@ def phase_gating_racks() -> dict:
         if racks_a_token > M:
             raise AssertionError(f"gating_topk rack {tag}: a token reaches "
                                  f"{racks_a_token} > {M} racks")
+        free_ids = ops.gating_topk(x, k, score_fn=score_fn, bias=bias)[0]
+        vio = verify_rack_limit(ids, rack_limit=M, num_racks=G,
+                                num_experts=E, free_expert_ids=free_ids)
+        if vio:
+            raise AssertionError(f"gating_topk rack {tag}: "
+                                 f"{[str(v) for v in vio]}")
         rec = {"shape": [T, E, k], "score_fn": score_fn, "bias": True,
                "num_racks": G, "rack_limit": M, "group_topk": gk,
+               "path": ["lanes", "shared"][ops.rack_mode(E, k, G, M, gk)[0]
+                                           - 1],
                "rows_excluded_near_tie": int((~decided).sum()),
-               "racks_a_token_max": racks_a_token}
+               "racks_a_token_max": racks_a_token,
+               "rack_limit_violations": 0}
         for name, out, ref in (("weights", w, r_w), ("scores", sc, r_sc)):
             err, scale = _max_err(out, ref)
             if not err <= GATING_TOL * scale:
@@ -1386,7 +1430,8 @@ def phase_gating_racks() -> dict:
             s = torch.sigmoid(x) if score_fn == "sigmoid" \
                 else torch.softmax(x, -1)
             key = s + bias
-            grp_s = torch.topk(key.reshape(T, G, epg), gk).values.sum(-1)
+            grp_s = torch.topk(key.reshape(T, G, epg),
+                               min(gk, epg)).values.sum(-1)
             keep = torch.zeros((T, G), dtype=torch.bool, device="cuda")
             keep.scatter_(1, torch.topk(grp_s, M).indices, True)
             masked_k = key.masked_fill(
@@ -1398,8 +1443,8 @@ def phase_gating_racks() -> dict:
 
         rec.update(_time_pair(lambda: ops.gating_topk(x, k, **kw),
                               lambda: ops.gating_topk_ref(x, k, **kw), None,
-                              *_rack_gate_cost(T, E, k, G, True), "fp32",
-                              iters))
+                              *_rack_gate_cost(T, E, k, G, M, gk, True),
+                              "fp32", iters))
         rec["graph_ms"] = _graph_ms(lambda: ops.gating_topk(x, k, **kw),
                                     iters)
         rec["graph_cold_ms"], rec["cold"] = _graph_cold_ms(
@@ -1730,12 +1775,21 @@ def phase_balancers() -> dict:
     graph device time for the modes that read nothing back (checked under
     ``set_sync_debug_mode("error")``), the host wall with a device sync
     for ``lplb`` (host numpy by design).  ``eplb`` places from the EMA of
-    BAL_HISTORY earlier batches under a popularity rolled by E / 2."""
+    BAL_HISTORY earlier batches under a popularity rolled by E / 2.  After
+    the timing each plan goes through the port's static check
+    (``analysis.plan_check.verify_plan``, flat topology, the EPLB modes'
+    rack-local optimality a warning as in the reference): no error, the
+    warnings counted by rule."""
+    import collections
+
     import numpy as np
     import torch
 
+    from repro_torch.analysis.plan_check import verify_plan
+    from repro_torch.analysis.violation import errors
     from repro_torch.core import balancer, metrics
     from repro_torch.core.eplb import LoadEMA
+    from repro_torch.core.topology import Topology
 
     records = {}
     for arch, E in BAL_CASES:
@@ -1779,7 +1833,15 @@ def phase_balancers() -> dict:
                 _sync_free(solve)
                 ms, timing = _graph_ms(solve, 3), "graph device time"
             tag = mode if mode != "ultraep" else f"ultraep_p{P}"
+            vio = verify_plan(plan, Topology.flat(R), lam=lam, home=home,
+                              rack_aware_mode=(None if mode in (
+                                  "eplb", "eplb_plus") else True))
+            if errors(vio):
+                raise AssertionError(f"balancer {arch} {tag}: "
+                                     f"{[str(v) for v in errors(vio)]}")
             rec["modes"][tag] = {
+                "plan_check": {"errors": 0, "warns": dict(
+                    collections.Counter(v.rule for v in vio))},
                 "pre_imbalance": rep.pre_imbalance,
                 "post_imbalance": rep.post_imbalance,
                 "total_instances": rep.total_instances,
@@ -4168,8 +4230,10 @@ def _rack_worker(rank, world, port, out_dir):
     """One rank of phase 14 (a spawned process on the one card): a flat
     gloo group of 4 and the same ranks factored as 2 racks x 2 lanes; calls
     (a)-(e) with the kernel counts set to 0 before each and read after, the
-    plan tables against the plain solve, then the backward of (b) and
+    plan tables against the plain solve and through the port's static
+    check (and the rack limit's, in (c)), then the backward of (b) and
     (a)."""
+    import collections
     import os
 
     # Four ranks share the card: segments that grow in place leave less of
@@ -4178,8 +4242,11 @@ def _rack_worker(rank, world, port, out_dir):
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
 
+    from repro_torch.analysis.plan_check import verify_plan, verify_rack_limit
+    from repro_torch.analysis.violation import errors
     from repro_torch.configs import get_config
     from repro_torch.core import planner
+    from repro_torch.core.topology import Topology
     from repro_torch.models.transformer import (
         ParallelCtx,
         RuntimeConfig,
@@ -4246,7 +4313,18 @@ def _rack_worker(rank, world, port, out_dir):
             # Failures are recorded and raised by the parent: a rank that
             # raised here would leave the others waiting in a collective.
             mismatch = _plan_mismatch(plan, plain)
+            vio = verify_plan(plan, Topology(
+                racks=RACKS, ranks_per_rack=world // RACKS)
+                if cfg.rack_size else Topology.flat(world), lam=gs.lam,
+                home=home, rack_aware_mode=True)
             ids = gs.gate_out.expert_ids
+            if cfg.gating.rack_binding:
+                vio += verify_rack_limit(
+                    ids, rack_limit=cfg.gating.rack_limit,
+                    num_racks=cfg.gating.num_racks, num_experts=E)
+            check = {"errors": [str(v) for v in errors(vio)],
+                     "warns": dict(collections.Counter(
+                         v.rule for v in vio if v.severity == "warn"))}
             gates[name] = (ids, gs.gate_out.weights)
             del gs, plan
             torch.cuda.synchronize()
@@ -4268,7 +4346,7 @@ def _rack_worker(rank, world, port, out_dir):
                    "racks_a_token_max": racks_a_token,
                    "items": world * T * cfg.gating.top_k,
                    "finite": bool(torch.isfinite(y).all()),
-                   "plan_mismatch": mismatch,
+                   "plan_mismatch": mismatch, "plan_check": check,
                    "launches": {k: launches[k] for k in (
                        "plan_solve", "gating_topk", "gating_topk.rack",
                        "gating_topk.free", "grouped_swiglu",
@@ -4476,7 +4554,9 @@ def phase_rack_tier() -> dict:
     flat twin, y(d) == y(b), y(e) == y(a) bit for bit; (b)'s tier_tokens
     sum to R T k; under (c) every token's experts in one rack and at most
     one at-gate inter-rack copy a token; zero drops; the plan tables equal
-    the plain solve's; each call through one launch of the plan solve,
+    the plain solve's, and no error from the port's static plan check
+    (the rack limit's too, in (c)); each call through one launch of the
+    plan solve,
     the gate (rack mode in (c) and its twin) and the two grouped GEMMs (two each in
     (d)); (f) within TRAIN_TOL of max|g|, in two passes (RACK_BWD_PASSES)
     with their launches of B1, B2 and B3.
@@ -4522,6 +4602,7 @@ def phase_rack_tier() -> dict:
             chunks = c["overlap_chunks"]
             want_rack = 1 if c["rack_limit"] else 0     # (c), its flat twin
             if (c["drops"] or not c["finite"] or c["plan_mismatch"]
+                    or c["plan_check"]["errors"]
                     or n["plan_solve"] != 1
                     or n["gating_topk"] != 1
                     or n["gating_topk.rack"] != want_rack
@@ -4921,10 +5002,11 @@ def main() -> int:
                             "function; torch_ops_graph_ms is the composite "
                             "group top-2 -> top-M -> mask -> topk -> gather "
                             "-> scatter_add in a graph",
-            **{tag: {k: gating_rack_records[tag][k]
-                     for k in ("shape", "num_racks", "rack_limit") + keys
+            **{tag: {k: r[k] for k in ("shape", "num_racks", "rack_limit",
+                                       "group_topk", "path") + keys
                      + rack_gate_keys}
-               for tag in ("ds_g2_m1", "ds_g8_m4_decode")},
+               for tag, r in gating_rack_records.items()
+               if tag != "ds_g8_m4"},
             "rows_excluded_near_tie": {
                 t: r["rows_excluded_near_tie"]
                 for t, r in gating_rack_records.items()}}))

@@ -9,7 +9,11 @@ estimate of the per-expert load (``lam_e_est``, e.g. a
 :class:`repro_torch.core.eplb.LoadEMA` carried by the caller); ``lplb`` is
 the documented host-side numpy mode: it reads the load back once a solve.
 ``ideal`` is realised at the gate (force-balanced router) and maps to
-``none`` here.  The reference's opt-in plan-check hook is not ported.
+``none`` here.  Every mode's plan goes through the opt-in static check
+:func:`repro_torch.analysis.plan_check.verify_solved`, as the reference's
+``_checked`` does: off by default (no host read), on inside
+:func:`repro_torch.analysis.plan_check.plan_verification`, where a plan
+with an error-severity violation raises ``PlanViolationError``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Literal, get_args
 
 import torch
 
+from repro_torch.analysis import plan_check as _plan_check
 from repro_torch.core import planner
 from repro_torch.core.eplb import eplb_replication_dev, round_robin_reroute_dev
 from repro_torch.core.planner import Plan
@@ -98,17 +103,27 @@ def solve(lam: torch.Tensor, home: torch.Tensor, cfg: BalancerConfig, *,
     lam = lam.to(_I64)
     home = home.to(_I64)
     R, _E = lam.shape
+
+    def _checked(plan: Plan, *, health: torch.Tensor | None = None) -> Plan:
+        # Opt-in static verification: a no-op unless plan_verification()
+        # is on, and skipped inside a CUDA-graph capture.
+        _plan_check.verify_solved(plan, lam=lam, home=home,
+                                  rack_size=rack_size, mode=cfg.mode,
+                                  health_weight=health)
+        return plan
+
     if cfg.mode in ("none", "ideal"):
-        return no_balance_plan(lam, home, cfg.n_slot, rack_size,
-                               gate_tier_tokens)
+        return _checked(no_balance_plan(lam, home, cfg.n_slot, rack_size,
+                                        gate_tier_tokens))
     if cfg.mode == "ultraep":
-        return planner.solve_plan(
+        return _checked(planner.solve_plan(
             lam, home, n_slot=cfg.n_slot, u_min=cfg.u_min,
             locality=cfg.locality,
             max_replicas_per_expert=cfg.max_replicas_per_expert,
             probe_parallelism=cfg.probe_parallelism, rack_size=rack_size,
             health_weight=health_weight, demand_tiebreak=demand_tiebreak,
-            gate_tier_tokens=gate_tier_tokens, load_bound=load_bound)
+            gate_tier_tokens=gate_tier_tokens, load_bound=load_bound),
+            health=health_weight)
     if cfg.mode in ("eplb", "eplb_plus"):
         est = lam.sum(dim=0).to(torch.float32)
         if cfg.mode == "eplb" and lam_e_est is not None:
@@ -117,8 +132,8 @@ def solve(lam: torch.Tensor, home: torch.Tensor, cfg: BalancerConfig, *,
             est, home, R, n_slot=cfg.n_slot,
             max_replicas_per_expert=cfg.max_replicas_per_expert)  # (E, R)
         q = round_robin_reroute_dev(lam, hosted)
-        return _finish_plan(lam, q.sum(dim=0), q, home, cfg.n_slot,
-                            rack_size, gate_tier_tokens)
+        return _checked(_finish_plan(lam, q.sum(dim=0), q, home, cfg.n_slot,
+                                     rack_size, gate_tier_tokens))
     # lplb: the documented host-side numpy mode (the one read back).
     import numpy as np
 
@@ -136,5 +151,5 @@ def solve(lam: torch.Tensor, home: torch.Tensor, cfg: BalancerConfig, *,
     # the NW-corner rule of the quota path.
     q = planner.solve_reroute(lam, u, locality=cfg.locality,
                               rack_size=rack_size)
-    return _finish_plan(lam, u, q, home, cfg.n_slot, rack_size,
-                        gate_tier_tokens)
+    return _checked(_finish_plan(lam, u, q, home, cfg.n_slot, rack_size,
+                                 gate_tier_tokens))

@@ -26,9 +26,10 @@ _rack_limited_top_k``): the rounds select among the experts of each row's
 M best racks only, a rack (a contiguous block of E / G experts) scored by
 the sum of its gk largest keys.  On a CUDA tensor a binding limit (M < G)
 launches the kernel's rack mode (counted in ``launches_by_kernel["rack"]``
-besides ``launches``) or raises where the kernel does not take the
-geometry; M == G is free routing, bit for bit, and takes the free kernel.
-The plain version is :func:`rack_limited_ids`.
+besides ``launches``) at every geometry the reference routes (G dividing
+E, gk >= 1, k <= M E / G; :func:`rack_mode` says which of the kernel's two
+paths takes it); M == G is free routing, bit for bit, and takes the free
+kernel.  The plain version is :func:`rack_limited_ids`.
 
 Shapes: logits (T, E) fp32 -> ids (T, k) int64 (the port's id dtype),
 weights (T, k) fp32 (the raw selected scores: the caller renormalises),
@@ -55,7 +56,7 @@ from repro_torch.kernels.build import KernelLibrary
 
 __all__ = ["gating_topk", "gating_topk_ref", "scores_of", "prepare_stream",
            "release_scratch", "launch_geometry", "packed_keys", "packed_topk",
-           "rack_limited_ids", "rack_chunks", "LIBRARY"]
+           "rack_limited_ids", "rack_mode", "LIBRARY"]
 
 LIBRARY = KernelLibrary("gating_topk",
                         Path(__file__).parent / "csrc" / "gating_topk.cu")
@@ -109,23 +110,27 @@ def rack_limited_ids(keys: torch.Tensor, k: int, num_racks: int,
     return _top(masked, k)
 
 
-def rack_chunks(E: int, k: int, num_racks: int, rack_limit: int,
-                group_topk: int) -> int:
-    """The kernel's 16-byte chunks a rack (``gating_topk_rack_chunks`` in
-    the CUDA source): 0 for free routing (one rack, no limit, or a limit
-    that does not bind), -1 where the kernel does not take the geometry
-    (racks of a whole power of two of 4-expert chunks, the clamped group
-    top-k at most 4, k at most M E / G)."""
+def rack_mode(E: int, k: int, num_racks: int, rack_limit: int,
+              group_topk: int) -> tuple[int, int]:
+    """The kernel's rack-mode path (``gating_topk_rack_mode`` in the CUDA
+    source) and its lanes a rack: (0, 0) for free routing (one rack, no
+    limit, or a limit that does not bind); (1, L) where a rack is L aligned
+    lanes of PER experts (L a power of two) and the clamped group top-k is
+    at most PER (the lanes path); (2, 0) for every other geometry (the
+    shared-memory path); (-1, 0) where the reference does not route either
+    (G not dividing E, a group top-k below 1, k above M E / G)."""
     if num_racks <= 1 or rack_limit <= 0 or rack_limit >= num_racks:
-        return 0
-    if E % num_racks:
-        return -1
+        return 0, 0
+    if E % num_racks or group_topk < 1:
+        return -1, 0
     epg = E // num_racks
-    W = epg // 4
-    if (epg % 4 or W & (W - 1) or group_topk < 1 or min(group_topk, epg) > 4
-            or k > rack_limit * epg):
-        return -1
-    return W
+    if k > rack_limit * epg:
+        return -1, 0
+    per = 4 if E <= 128 else 8
+    L = epg // per
+    if epg % per == 0 and not L & (L - 1) and min(group_topk, epg) <= per:
+        return 1, L
+    return 2, 0
 
 
 def gating_topk_ref(logits: torch.Tensor, k: int, *, score_fn: str,
@@ -155,10 +160,10 @@ def gating_topk_ref(logits: torch.Tensor, k: int, *, score_fn: str,
 # capped at MAX_BLOCKS.
 MAX_ROWS = 32
 MAX_BLOCKS = 256
-# The scratch: a 16-byte head (word 0: the ticket), then one partial
-# histogram (E int32 words, padded to whole int4s) per block.
+# The scratch: a 16-byte head (word 0: the ticket), then the accumulator
+# of the blocks' histograms (E int32 words).
 SCRATCH_HEAD = 4
-SCRATCH_INTS = SCRATCH_HEAD + MAX_BLOCKS * MAX_EXPERTS
+SCRATCH_INTS = SCRATCH_HEAD + MAX_EXPERTS
 
 
 @functools.lru_cache(maxsize=256)
@@ -253,6 +258,9 @@ def _library():
     lib.gating_topk_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
         + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.gating_topk_rack_mode.restype = ctypes.c_int
+    lib.gating_topk_rack_mode.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -264,13 +272,23 @@ def kernel_plan(T: int, E: int, k: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+def kernel_rack_mode(E: int, k: int, num_racks: int, rack_limit: int,
+                     group_topk: int) -> tuple[int, int]:
+    """The kernel's own (path, lanes a rack) for a rack geometry, from its
+    entry point (:func:`rack_mode` mirrors it)."""
+    lanes = ctypes.c_int(0)
+    mode = _library().gating_topk_rack_mode(E, k, num_racks, rack_limit,
+                                            group_topk, ctypes.byref(lanes))
+    return mode, lanes.value
+
+
 def prepare_stream(stream: torch.cuda.Stream | None = None) -> torch.Tensor:
     """Make the kernel's scratch for launches on ``stream`` (the current
-    stream by default) and return it: the ticket and the blocks' partial
-    histograms.
+    stream by default) and return it: the ticket and the blocks' histogram
+    accumulator.
 
-    Made once per (device, stream), with its ticket 0; every launch that
-    uses it leaves the ticket 0 again, so no call zeroes anything.  Two
+    Made once per (device, stream), zeroed; every launch that uses it
+    leaves it zero again, so no call zeroes anything.  Two
     launches on one stream share it safely because they run one after the
     other; launches on two streams use two scratches.  The first call on a
     stream makes it, but not inside a CUDA-graph capture (its zeroing would
@@ -278,7 +296,7 @@ def prepare_stream(stream: torch.cuda.Stream | None = None) -> torch.Tensor:
     capture stream first and captures with ``torch.cuda.graph(g,
     stream=s)``.  A graph keeps the scratch of the stream it was captured
     on, so replay it where no other launch on that stream runs at the same
-    time.  A scratch is 256 KB, kept until ``release_scratch``."""
+    time.  A scratch is 1 KB, kept until ``release_scratch``."""
     if stream is None:
         stream = torch.cuda.current_stream()
     return _scratch(stream.device, stream.cuda_stream)
@@ -321,12 +339,11 @@ def _launch(logits: torch.Tensor, k: int, score_fn: str, bias,
                          f"k <= {MAX_K} (k <= E), not E={E}, k={k}")
     if logits.stride(1) != 1:
         raise ValueError("gating_topk needs unit-stride expert logits")
-    if rack_chunks(E, k, *racks) < 0:
+    if rack_mode(E, k, *racks)[0] < 0:
         raise ValueError(
-            f"gating_topk's rack mode takes racks of a power of two of "
-            f"4-expert chunks, a group top-k of at most 4 and k <= "
-            f"rack_limit * E / num_racks, not E={E}, k={k}, (num_racks, "
-            f"rack_limit, group_topk)={racks}")
+            f"gating_topk's rack mode takes num_racks dividing E, a group "
+            f"top-k of at least 1 and k <= rack_limit * E / num_racks, not "
+            f"E={E}, k={k}, (num_racks, rack_limit, group_topk)={racks}")
     dev = logits.device
     if bias is not None:
         if bias.shape != (E,) or bias.device != dev:
@@ -382,7 +399,7 @@ def _topk(logits, k, score_fn, bias, want_scores, racks):
     ids, weights, counts, scores = _launch(logits, k, score_fn, bias,
                                            want_scores, racks)
     gating_topk.launches += 1
-    kernel = "rack" if rack_chunks(logits.shape[1], k, *racks) else "free"
+    kernel = "rack" if rack_mode(logits.shape[1], k, *racks)[0] else "free"
     gating_topk.launches_by_kernel[kernel] += 1
     return (ids, weights, counts) + ((scores,) if want_scores else ())
 

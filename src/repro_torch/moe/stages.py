@@ -65,6 +65,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.analysis.plan_check import PlanViolationError
 from repro_torch.core import balancer as balancer_mod
 from repro_torch.core.layout import physical_slot_of
 from repro_torch.core.planner import token_targets
@@ -216,15 +217,17 @@ class Resilience:
     The degradation ladder of :meth:`solve_with_ladder`:
 
         solve (health-weighted)  -- normal path; every plan is cached
-          |  PlannerFault / SolveTimeout
+          |  PlannerFault / SolveTimeout / PlanViolationError
           v
         last-good cached plan    -- stale but valid; quotas may clamp
           |  no cached plan of matching shape
           v
         no_balance_plan          -- home routing, never fails, never stalls
 
-    Every port plan is concrete, so every solved plan is cached; its
-    tensors are fresh outputs of the solve that no later call writes in
+    ``PlanViolationError`` comes from the balancer's static plan check
+    (:func:`repro_torch.analysis.plan_check.plan_verification`, off by
+    default).  Every port plan is concrete, so every solved plan is cached;
+    its tensors are fresh outputs of the solve that no later call writes in
     place.
     """
 
@@ -290,7 +293,7 @@ class Resilience:
         """Run ``solve_fn`` through the ladder; always returns a plan."""
         try:
             plan = solve_fn()
-        except PlannerFault as e:
+        except (PlannerFault, PlanViolationError) as e:
             self.last_error = e
             self.counters["fallback_plans"] += 1
             cached = self.last_good
@@ -483,9 +486,10 @@ def plan_stage(ctx: StageCtx, gs: GateState, *,
     ``lam_e_est`` feeds the ``eplb`` mode's stale estimate.
 
     With ``resilience`` the solve is health-weighted and runs through the
-    degradation ladder: an injected or real :class:`PlannerFault` or a
-    deadline overrun falls back to the last good plan, then to the
-    no-balance plan; the stage never raises for them.
+    degradation ladder: an injected or real :class:`PlannerFault`, a
+    deadline overrun or (with plan verification on) a
+    :class:`PlanViolationError` falls back to the last good plan, then to
+    the no-balance plan; the stage never raises for them.
 
     The load's total is at most R x tokens per rank x top-k, which the
     host knows: the solve's int32 bound on the card."""

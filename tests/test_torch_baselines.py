@@ -23,6 +23,7 @@ from repro.core import eplb as jeplb
 from repro.core import lplb as jlplb
 from repro.core import metrics as jmetrics
 from repro.core import planner as jplan
+from repro_torch.analysis import plan_check
 from repro_torch.core import balancer as tbal
 from repro_torch.core import eplb as teplb
 from repro_torch.core import lplb as tlplb
@@ -33,6 +34,15 @@ from repro_torch.kernels.eplb_place import ops as eplb_ops
 PLAN_FIELDS = ("u", "q", "x", "tau", "hosted", "cum_q", "cum_u", "pre_max",
                "post_max")
 MODES = ("none", "ultraep", "eplb_plus", "eplb", "lplb", "ideal")
+
+
+@pytest.fixture(autouse=True)
+def _verify_plans():
+    """Every plan the port's balancer solves here goes through its static
+    check (``repro_torch.analysis.plan_check``), as the reference's
+    tests/conftest.py does for the JAX package's."""
+    with plan_check.plan_verification():
+        yield
 
 
 def _case(rng, R=16, epr=4, alpha=1.2):

@@ -42,6 +42,7 @@ from repro.moe.gating import GatingConfig as JGatingConfig
 from repro.moe.layer import MoEConfig as JMoEConfig
 from repro.moe.layer import MoEParams as JMoEParams
 from repro.moe.layer import moe_layer_local as j_moe_layer_local
+from repro_torch.analysis import plan_check
 from repro_torch import convert
 from repro_torch.core import comm_plan as tcomm
 from repro_torch.core.balancer import BalancerConfig
@@ -54,6 +55,15 @@ from repro_torch.moe.layer import MoEConfig, moe_layer_local
 
 ROOT = Path(__file__).resolve().parents[1]
 E1, K1, D1, F1, T1 = 8, 2, 16, 32, 64        # tests/test_fault.py's shapes
+
+
+@pytest.fixture(autouse=True)
+def _verify_plans():
+    """Every plan the port's balancer solves here goes through its static
+    check (``repro_torch.analysis.plan_check``), as the reference's
+    tests/conftest.py does for the JAX package's."""
+    with plan_check.plan_verification():
+        yield
 
 
 # ------------------------------------------------------ host-side pieces --

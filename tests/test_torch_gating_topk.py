@@ -243,12 +243,13 @@ def test_launch_geometry_and_scratch_size(E, k, group, per):
         assert blocks == 1 or rows == ops.MAX_ROWS
         assert (blocks - 1) * rows < max(T, 1) <= blocks * rows or T > (
             ops.MAX_BLOCKS * rows)
-    # The scratch: a 16-byte head, then a partial of whole int4s per block.
-    pitch = -(-E // 4) * 4
+    # The scratch: a 16-byte head, then one accumulator of E words that
+    # every block adds its histogram into (the last block reads E words
+    # with its 32 G threads, whatever the grid).
     assert ops.SCRATCH_HEAD * 4 == 16
-    assert ops.SCRATCH_INTS >= ops.SCRATCH_HEAD + ops.MAX_BLOCKS * pitch
-    # The last block's reduction spreads int4 columns over its 32 G threads.
-    assert pitch // 4 <= 32 * group
+    assert ops.SCRATCH_INTS == ops.SCRATCH_HEAD + ops.MAX_EXPERTS >= (
+        ops.SCRATCH_HEAD + E)
+    assert E <= 32 * group * per
 
 
 def test_wrapper_refuses_other_devices():
@@ -447,11 +448,21 @@ def test_prepare_stream_lets_the_first_call_be_captured_on_card(cuda_device):
 
 # (T, E, k, num_racks, rack_limit, group_topk): DeepSeek-V3's prefill shape
 # with its published node-limited routing (8 groups, 4 kept, group top-2),
-# two racks of which one, decode, and small geometries (W 1 and 2).
+# two racks of which one, decode, and small geometries (1 and 2 lanes a
+# rack); then the shared path: Jamba-v0.1's 16 experts over 8 racks,
+# DBRX's routing at 8 racks, DeepSeek-V2's device-limited routing (160
+# experts, top-6, 8 of 3, group top-1), E not a multiple of 4, one expert
+# a rack, a group top-k above a lane's experts, more rows than one pass of
+# the grid; a group top-8 on the lanes path.
 RACK_SHAPES = [(4096, 256, 8, 8, 4, 2), (4096, 256, 8, 2, 1, 2),
                (4, 256, 8, 8, 4, 2), (1000, 128, 8, 4, 2, 3),
                (512, 16, 2, 4, 1, 2), (300, 32, 4, 2, 1, 4),
-               (9000, 256, 8, 8, 2, 2)]
+               (9000, 256, 8, 8, 2, 2), (4096, 16, 2, 8, 2, 2),
+               (4096, 16, 4, 8, 2, 2), (4096, 160, 6, 8, 3, 1),
+               (4, 160, 6, 8, 3, 1), (1000, 60, 4, 6, 2, 2),
+               (4096, 256, 8, 2, 1, 8), (512, 16, 2, 16, 8, 1),
+               (300, 256, 8, 2, 1, 16), (77, 255, 8, 5, 2, 3),
+               (9000, 160, 6, 8, 3, 1)]
 
 
 @pytest.mark.cuda
@@ -499,9 +510,19 @@ def test_kernel_rack_limit_of_all_racks_is_free_routing(cuda_device,
 
 @pytest.mark.cuda
 def test_kernel_rack_mode_refuses_other_geometries(cuda_device):
+    """Only geometries the reference refuses too: racks that do not divide
+    E, k above the kept racks' experts, a group top-k below 1.  The
+    kernel's entry point picks the path its CPU mirror picks."""
     x = torch.zeros((8, 96), device=cuda_device)
     with pytest.raises(ValueError, match="rack mode"):
-        ops.gating_topk(x, 4, num_racks=2, rack_limit=1)     # 12 chunks a rack
+        ops.gating_topk(x, 4, num_racks=5, rack_limit=1)
     with pytest.raises(ValueError, match="rack mode"):
-        ops.gating_topk(x[:, :64], 4, num_racks=2, rack_limit=1,
-                        group_topk=8)
+        ops.gating_topk(x[:, :16], 8, num_racks=4, rack_limit=1)
+    with pytest.raises(ValueError, match="rack mode"):
+        ops.gating_topk(x, 4, num_racks=2, rack_limit=1, group_topk=0)
+    for E in (16, 60, 96, 128, 160, 255, 256):
+        for G in (g for g in range(2, E + 1) if E % g == 0):
+            for k, M, gk in ((1, 1, 1), (min(8, E // G), 1, 2),
+                             (2, G - 1, E // G), (8, G - 1, 9)):
+                assert ops.kernel_rack_mode(E, k, G, M, gk) == \
+                    ops.rack_mode(E, k, G, M, gk), (E, k, G, M, gk)

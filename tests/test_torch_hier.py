@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import plan_check
 from repro_torch.core import planner
 from repro_torch.kernels.plan_solve import ops
 
@@ -67,6 +68,15 @@ FLAT_TWIN = {"hier": ("a2a", 1, 0), "hier_limit": ("a2a", 1, 1),
 GRAD_NAMES = ("x", "router", "w1", "w3", "w2")
 LAWS = ("zipf", "hot4", "racked")
 RACK_CASES = [(4, 2), (16, 4), (64, 8)]
+
+
+@pytest.fixture(autouse=True)
+def _verify_plans():
+    """Every plan the port's balancer solves here goes through its static
+    check (``repro_torch.analysis.plan_check``), as the reference's
+    tests/conftest.py does for the JAX package's."""
+    with plan_check.plan_verification():
+        yield
 
 
 def _lam(R_, E_, L, law, seed, tokens=256, k=4):
@@ -304,6 +314,12 @@ def _inputs(path):
 
 
 def _worker(rank, world, port, inputs, out_dir):
+    """One rank, with every plan the rank solves statically checked."""
+    with plan_check.plan_verification():
+        _rank_cases(rank, world, port, inputs, out_dir)
+
+
+def _rank_cases(rank, world, port, inputs, out_dir):
     """One rank: the exchanges, then every layer case on the factored
     group and its flat twin on the flat group, and the gradients."""
     torch.set_num_threads(1)

@@ -4,7 +4,8 @@ One test runs a reduced prefill of each ported arch (and of GLM-4.5-Air
 under the int8 wire and w8a8 FFN) in a subprocess where ``import jax``
 fails, through the gating and flash-attention wrappers, then the plan
 solve at R = 4 (``kernels/plan_solve``) and every balancer mode
-(``kernels/eplb_place``, the metrics), a MoE layer (with a
+(``kernels/eplb_place``, the metrics) with the plan check on (``analysis/``,
+the schedule check too), a MoE layer (with a
 ``Resilience`` too) on a one-rank gloo
 group through every collective of ``parallel/`` (and its backward through
 their transposes), and one reduced train step through
@@ -66,11 +67,19 @@ from repro_torch.parallel import collectives
 lam = torch.from_numpy(np.random.default_rng(0).integers(0, 50, (4, 16)))
 plan = planner.solve_plan(lam, torch.arange(16) // 4, n_slot=2)
 assert (plan.x >= 0).any() and int(plan.post_max) < int(plan.pre_max)
-from repro_torch.core import balancer, metrics
+from repro_torch.analysis import errors, hosted_matrix, plan_verification
+from repro_torch.analysis.sched_check import verify_schedule
+from repro_torch.core import balancer, comm_plan, metrics
 from repro_torch.moe.stages import Resilience
-for mode in balancer.MODES:
-    pl = balancer.solve(lam, torch.arange(16) // 4, BalancerConfig(mode=mode))
-    assert metrics.report(lam, pl.u, torch.arange(16) // 4).max_fanout >= 1
+with plan_verification():
+    for mode in balancer.MODES:
+        pl = balancer.solve(lam, torch.arange(16) // 4,
+                            BalancerConfig(mode=mode))
+        assert metrics.report(lam, pl.u, torch.arange(16) // 4).max_fanout >= 1
+sched = comm_plan.build_relay_schedule(hosted_matrix(pl),
+                                       np.arange(16) // 4, 1 << 20)
+assert not errors(verify_schedule(sched, home=np.arange(16) // 4,
+                                  hosted=hosted_matrix(pl)))
 with socket.socket() as s:
     s.bind(("localhost", 0))
     port = s.getsockname()[1]

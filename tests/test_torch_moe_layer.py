@@ -23,6 +23,7 @@ from repro.moe.layer import MoEConfig as JMoEConfig
 from repro.moe.layer import MoEParams as JMoEParams
 from repro.moe.expert import grouped_ffn as j_grouped_ffn
 from repro.moe.layer import moe_layer_local as j_moe_layer_local
+from repro_torch.analysis import plan_check
 from repro_torch import convert
 from repro_torch.moe import stages
 from repro_torch.moe.expert import grouped_ffn
@@ -34,6 +35,15 @@ from repro_torch.moe.reference import moe_ref
 T, D, F, E, K = 256, 64, 128, 64, 4
 STAT_FIELDS = ("drops_dispatch", "drops_slot", "pre_max", "post_max",
                "max_slot_load", "counts")
+
+
+@pytest.fixture(autouse=True)
+def _verify_plans():
+    """Every plan the port's balancer solves here goes through its static
+    check (``repro_torch.analysis.plan_check``), as the reference's
+    tests/conftest.py does for the JAX package's."""
+    with plan_check.plan_verification():
+        yield
 
 
 def _params(shared: bool, seed=0):

@@ -17,6 +17,7 @@ from repro.core import planner as jplan
 from repro.core import ref_planner
 from repro.core.layout import ExpertLayout as JLayout
 from repro.core.layout import physical_slot_of as j_physical_slot_of
+from repro_torch.analysis import plan_check
 from repro_torch.core import balancer as tbal
 from repro_torch.core import planner as tplan
 from repro_torch.core.layout import ExpertLayout, physical_slot_of
@@ -24,6 +25,15 @@ from repro_torch.core.layout import ExpertLayout, physical_slot_of
 E = 64
 PLAN_FIELDS = ("u", "q", "x", "tau", "cum_q", "cum_u", "pre_max", "post_max",
                "hosted")
+
+
+@pytest.fixture(autouse=True)
+def _verify_plans():
+    """Every plan the port's balancer solves here goes through its static
+    check (``repro_torch.analysis.plan_check``), as the reference's
+    tests/conftest.py does for the JAX package's."""
+    with plan_check.plan_verification():
+        yield
 
 
 def _pareto_load(R, seed, scale=30):

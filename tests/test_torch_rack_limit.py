@@ -11,11 +11,14 @@ against the JAX package, on the CPU.
 * ``rack_copy_volumes`` and the two-level ``update_router_bias`` against
   JAX, and ``effective_rack_limit``'s degradation.
 * The gate kernel's rack mode, mirrored on the CPU (:func:`_lane_mirror`:
-  the 16-byte chunks on their lanes, each lane's sorted top 4, the xor
-  merges over a rack's W lanes, the racks' packed words counted by every
-  lane), equals the plain selection on the same keys, ties included.  The
-  kernel itself is held against the plain version on the card
-  (``test_torch_gating_topk.py``, chip_smoke.py).
+  PER contiguous experts a lane; on the lanes path each lane's sorted top
+  gk, the xor merges over a rack's L lanes and the racks' words counted by
+  every lane; on the shared path each key's rank in its rack, the slots
+  summed in order and the racks ranked), equals the plain selection on the
+  same keys, ties included, at every geometry of ``CASES``; every geometry
+  the port's ``GatingConfig`` accepts within the kernel's E and k takes one
+  of the two paths.  The kernel itself is held against the plain version
+  on the card (``test_torch_gating_topk.py``, chip_smoke.py).
 """
 
 import numpy as np
@@ -26,9 +29,16 @@ from repro_torch.kernels.gating_topk import ops
 from repro_torch.moe import gating as tg
 
 # (E, k, G, M, gk): DeepSeek-V3's routing (256 experts, top-8, 8 groups,
-# 4 kept, group score of 2), a two-rack limit of one, and small shapes.
+# 4 kept, group score of 2), a two-rack limit of one, and small shapes;
+# then geometries on the kernel's shared path: Jamba-v0.1's 16 experts
+# over 8 racks, DBRX's routing (16 experts, top-4) at 8 racks,
+# DeepSeek-V2's device-limited routing (160 experts, top-6, 8 devices, 3
+# kept, group top-1), E not a multiple of 4, and one expert a rack; and a
+# group top-8 on the lanes path.
 CASES = [(256, 8, 8, 4, 2), (256, 8, 2, 1, 2), (64, 4, 4, 2, 2),
-         (32, 8, 8, 3, 3), (16, 2, 2, 1, 2), (128, 6, 4, 2, 4)]
+         (32, 8, 8, 3, 3), (16, 2, 2, 1, 2), (128, 6, 4, 2, 4),
+         (16, 2, 8, 2, 2), (16, 4, 8, 2, 2), (160, 6, 8, 3, 1),
+         (60, 4, 6, 2, 2), (256, 8, 2, 1, 8), (16, 2, 16, 8, 1)]
 
 
 def _inputs(T, E, seed, ties=True):
@@ -166,39 +176,67 @@ def test_effective_rack_limit_matches_jax():
         assert got == want, (limit, racks)
 
 
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    """-0.0 as +0.0, as the kernel's order bits read a key back."""
+    return torch.where(x == 0, torch.zeros_like(x), x)
+
+
 def _lane_mirror(keys: torch.Tensor, k: int, G: int, M: int,
                  gk: int) -> torch.Tensor:
     """The gate kernel's rack-mode selection, step by step on the CPU: the
-    row's 16-byte chunks on the group's lanes (chunk c on lane c % lanes,
-    column c // lanes), each lane's chunk sorted (top 4), the W lanes of a
-    rack merged by xor rounds (max against the partner's list reversed,
-    then a 4-wide bitonic cleanup), the first gk summed in order, the
-    racks' words (order bits of the score above the complement of the
-    rack) counted by each lane, dead racks' keys at -inf, then the free
-    kernel's selection (``ops.packed_topk``)."""
+    row's experts on the group's lanes, PER contiguous experts a lane
+    (-inf past E); the racks scored on the kernel's path, the live racks
+    found by counting the rack words above each rack's (the larger score,
+    or the same score and the lower rack), a dead rack's keys out of the
+    rounds; then the free kernel's selection (``ops.packed_topk``).
+
+    Lanes path: each lane's top gk in order (its sorted words), padded with
+    -inf to the power of two >= gk, merged over the rack's L aligned lanes
+    by xor rounds (the max against the partner's list reversed, then the
+    bitonic cleanup, a descending sort) and summed in order.  Shared path:
+    each key's rank in its rack (the packed words above it), the key in
+    slot (rack, rank) when the rank is below gk, the slots summed in
+    order."""
     T, E = keys.shape
     lanes, per, _, _ = ops.launch_geometry(T, E, k)
-    W = ops.rack_chunks(E, k, G, M, gk)
-    assert W > 0
-    gk = min(gk, 4 * W)
-    chunks = keys.reshape(T, E // 4, 4)
-    t = chunks.sort(dim=-1, descending=True).values           # (T, C, 4)
-    o = 1
-    while o < W:
-        c = torch.arange(E // 4)
-        u = t[:, c ^ o]                                       # the partner
-        t = torch.maximum(t, u.flip(-1))                      # bitonic top 4
-        t = t.sort(dim=-1, descending=True).values            # the cleanup
-        o *= 2
-    score = t[..., 0]
-    for q in range(1, gk):
-        score = score + t[..., q]
-    rack_of_chunk = torch.arange(E // 4) // W
-    words = ops.packed_keys(score[:, ::W].contiguous())       # (T, G)
-    above = (words[:, None, :] > words[:, :, None]).sum(-1)   # (T, G)
-    live = (above < M)[:, rack_of_chunk].repeat_interleave(4, dim=1)
+    mode, L = ops.rack_mode(E, k, G, M, gk)
+    assert mode > 0 and lanes * per >= E
+    epg = E // G
+    gk = min(gk, epg)
+    keys = keys.to(torch.float32)
+    if mode == 1:
+        padded = torch.full((T, lanes * per), float("-inf"))
+        padded[:, :E] = keys
+        gkp = 1 << (gk - 1).bit_length()
+        t = _zero(padded.view(T, lanes, per).sort(
+            dim=-1, descending=True).values[..., :gk])
+        t = torch.cat([t, torch.full((T, lanes, gkp - gk), float("-inf"))],
+                      dim=-1)                                  # (T, lanes, gkp)
+        o = 1
+        while o < L:
+            u = t[:, torch.arange(lanes) ^ o]                  # the partner
+            t = torch.maximum(t, u.flip(-1))                   # bitonic top gkp
+            t = t.sort(dim=-1, descending=True).values         # the cleanup
+            o *= 2
+        lane_score = t[..., 0]
+        for q in range(1, gk):
+            lane_score = lane_score + t[..., q]
+        score = lane_score[:, ::L][:, :G]                      # racks' first lanes
+    else:
+        words = ops.packed_keys(keys).view(T, G, epg)
+        rank = (words[..., None, :] > words[..., :, None]).sum(-1)  # (T, G, epg)
+        slots = torch.zeros((T, G, gk))
+        for q in range(gk):
+            at = rank == q
+            assert bool((at.sum(-1) == 1).all())
+            slots[..., q] = torch.where(at, keys.view(T, G, epg), 0.0).sum(-1)
+        score = slots[..., 0]
+        for q in range(1, gk):
+            score = score + slots[..., q]
+    rw = ops.packed_keys(_zero(score).contiguous())            # (T, G)
+    above = (rw[:, None, :] > rw[:, :, None]).sum(-1)
+    live = (above < M).repeat_interleave(epg, dim=1)
     masked = torch.where(live, keys, torch.full_like(keys, float("-inf")))
-    assert lanes * per >= E
     return ops.packed_topk(masked, k)
 
 
@@ -214,11 +252,42 @@ def test_kernel_rack_mode_mirror_equals_plain_selection(E, k, G, M, gk,
 
 
 def test_rack_chunks_geometry():
-    assert ops.rack_chunks(256, 8, 8, 4, 2) == 8
-    assert ops.rack_chunks(256, 8, 2, 1, 2) == 32
-    assert ops.rack_chunks(16, 2, 4, 1, 2) == 1
-    assert ops.rack_chunks(256, 8, 8, 8, 2) == 0           # M == G: free
-    assert ops.rack_chunks(256, 8, 1, 0, 2) == 0
-    assert ops.rack_chunks(96, 4, 2, 1, 2) == -1           # 12 chunks a rack
-    assert ops.rack_chunks(32, 2, 16, 1, 2) == -1          # 2 experts a rack
-    assert ops.rack_chunks(256, 8, 8, 1, 8) == -1          # group top-8
+    """The kernel's rack paths: (1, lanes a rack) where a rack is a power of
+    two of whole lanes and the group top-k fits a lane, (2, 0) for every
+    other geometry the reference routes, (0, 0) for free routing, -1 only
+    where ``GatingConfig`` refuses the geometry too."""
+    assert ops.rack_mode(256, 8, 8, 4, 2) == (1, 4)
+    assert ops.rack_mode(256, 8, 2, 1, 2) == (1, 16)
+    assert ops.rack_mode(16, 2, 4, 1, 2) == (1, 1)
+    assert ops.rack_mode(256, 8, 8, 8, 2) == (0, 0)        # M == G: free
+    assert ops.rack_mode(256, 8, 1, 0, 2) == (0, 0)
+    assert ops.rack_mode(96, 4, 2, 1, 2) == (2, 0)         # 12 lanes a rack
+    assert ops.rack_mode(32, 2, 16, 1, 2) == (2, 0)        # 2 experts a rack
+    assert ops.rack_mode(256, 8, 8, 1, 8) == (1, 4)        # group top-8
+    assert ops.rack_mode(160, 6, 8, 3, 1) == (2, 0)        # 20 experts a rack
+    assert ops.rack_mode(256, 8, 2, 1, 16) == (2, 0)       # gk above PER
+    assert ops.rack_mode(96, 4, 5, 1, 2) == (-1, 0)        # G not dividing E
+    assert ops.rack_mode(16, 8, 4, 1, 2) == (-1, 0)        # k > M E / G
+    assert ops.rack_mode(16, 2, 4, 1, 0) == (-1, 0)        # group top-0
+
+
+def test_every_accepted_rack_geometry_takes_a_kernel_path():
+    """Within the kernel's limits (E <= 256, k <= 8), every (E, k, G, M,
+    gk) the port's ``GatingConfig`` accepts with a binding limit takes path
+    1 or 2: none is refused on the card."""
+    n = 0
+    for E in (1, 2, 3, 6, 16, 24, 60, 64, 96, 128, 160, 192, 250, 255, 256):
+        for G in (g for g in range(2, E + 1) if E % g == 0):
+            for M in sorted({1, G // 2, G - 1} - {0}):
+                for k in sorted({1, min(8, E), min(8, M * (E // G))}):
+                    for gk in sorted({1, 2, E // G, E // G + 1}):
+                        try:
+                            tg.GatingConfig(num_experts=E, top_k=k,
+                                            num_racks=G, rack_limit=M,
+                                            rack_group_topk=gk)
+                        except ValueError:
+                            continue
+                        assert ops.rack_mode(E, k, G, M, gk)[0] in (1, 2), (
+                            E, k, G, M, gk)
+                        n += 1
+    assert n > 500
