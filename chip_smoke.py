@@ -10,8 +10,10 @@ Phases, one output line each:
      GLM-4.5-Air and Jamba-v0.1 prefill and decode shapes with every row
      valid, at ragged shapes, and with each slot's valid-row count as the
      serve path makes it (the port's gate, ``ultraep`` plan and bucket on
-     seeded tokens at GLM prefill, GLM decode, Jamba prefill and DeepSeek-V3
-     prefill and decode: padded rows must come out exactly zero), in bf16
+     seeded tokens at GLM prefill, GLM decode, Jamba prefill, DeepSeek-V3
+     prefill and decode, and DBRX-132B's 1024-token chunk and decode step
+     (16 experts top-4, K 6144, N 10752): padded rows must come out
+     exactly zero), in bf16
      (max|err| <= 1e-2 max|ref|: one bf16 rounding of the output) and fp32 (max|err| <= 1e-4 max|ref|: the
      kernels' 3xTF32 products; GLM dense at G 8, prefill and decode serve
      counts, and counts that straddle a tile with NaN in the padded rows),
@@ -20,7 +22,9 @@ Phases, one output line each:
      the valid rows' work (fp32: three TF32 products at the TF32 rate, the
      fp32 CUDA-core bound beside it); then ``ssd_intra_chunk`` and
      ``ssd_chunk_scan`` (from an initial state) against their plain
-     versions at the Jamba prefill chunk in bf16 and fp32 inputs and at the
+     versions at the Jamba prefill chunk in bf16 and fp32 inputs, at
+     Mamba2-130M's serve chunk (8 chunks of 128, 24 heads of 64, state 128),
+     and at the
      reduced shape at nc 1 and at B 2, within 3e-4 max|ref| (the kernel's
      split bf16 products
      against fp32; its bound under that arithmetic, the fp32 CUDA-core bound
@@ -43,7 +47,8 @@ Phases, one output line each:
      (cuBLAS int8) over every row plus the dequant in PyTorch; then
      ``gating_topk`` against
      its plain version at the GLM/Qwen3 prefill (T 4096, E 128, k 8) and
-     decode (T 4) shapes, Jamba's (E 16, k 2), sigmoid at E 256 (DeepSeek-V3's
+     decode (T 4) shapes, Jamba's (E 16, k 2), DBRX's (E 16, k 4; T 1024
+     and 4), sigmoid at E 256 (DeepSeek-V3's
      prefill and decode), a ragged
      shape and a tie case (duplicated router columns, all-zero rows): ids
      equal wherever the plain k-th and (k+1)-th scores differ by more than
@@ -98,7 +103,11 @@ Phases, one output line each:
      MLA dims (q/k 192, v 128 as a strided view, 128 heads): its serve chunk
      (4096 queries at offset 4096) on the wgmma kernel and 64 queries at B 1
      on the split-KV kernel, SDPA under the first backend that takes
-     unequal head dims, named; each case asserts
+     unequal head dims, named, and in fp32 on the fp32 prefill kernel (the
+     serve entry point's chunk of 64 over 272 keys, and the 4096 chunk);
+     at HuBERT-XLarge's head dim 80 (B 2, 4096 frames, 16 heads,
+     bidirectional and causal, bf16 on the wgmma kernel and fp32, and a
+     7-frame input, which takes the wgmma kernel too); each case asserts
      the kernel the wrapper picked (``launches_by_kernel``) and holds each
      output row (batch row, query position, head) within a share of its
      own max|ref|: 1e-2 in bf16 (P and the output rounded to bf16), 1e-4 in
@@ -138,8 +147,7 @@ Phases, one output line each:
      ``main``) on each of the three archs in fp32 (its default) and bf16 at
      chunk 64 (every flash call on the split-KV kernel), and on GLM-4.5-Air
      at chunk 4096 (prefill on the fp32 and the hd-16 mma.sync kernels);
-     then DeepSeek-V3 at full width with one layer in fp32, whose first
-     prefill must raise a ValueError naming (192, 128), a bf16-only pair;
+     (DeepSeek-V3 at full width in fp32 runs in phase 18);
  10. one DeepSeek-V3 MLA layer at full width: bf16 ``mla_prefill`` of a
      4096-token chunk at offset 4096 through the flash kernel against the
      plain flash on the card (1e-2 max|ref|, caches equal), and in fp32 the
@@ -206,7 +214,9 @@ Phases, one output line each:
      DeepSeek-V3 and Jamba-v0.1 train cells' (each with NaN in the padded
      rows and every 13th slot empty; B2's and B3's outputs bitwise
      whatever B1's padded rows hold), B4 (B 2, S 4096,
-     32 / 8 heads), B4m at DeepSeek-V3's MLA cell (B 1, S 4096, 128 heads,
+     32 / 8 heads; and at (80, 80), HuBERT-XLarge's B 2, S 4096, 16
+     heads, bidirectional, beside SDPA's flash backward), B4m at
+     DeepSeek-V3's MLA cell (B 1, S 4096, 128 heads,
      q/k 192, v 128; SDPA's backward, memory-efficient) and B5 at
      Jamba-v0.1's train chunk in bf16 and fp32 inputs (against the closed
      form and autograd of the plain forward); B4, B4m and B5 bitwise
@@ -222,6 +232,22 @@ Phases, one output line each:
      ``launch.train.train_cell(arch, "train_4k")`` with the launches a step as
      CELL_LAUNCHES, their times and peak memory; remat's saving on
      Jamba's first two layers;
+ 18. the model hosts, each through its normal entry point at its
+     published widths: ``serve_trace`` (bf16, 3 requests of 256-1535
+     tokens in chunks of 1024, 4 new tokens each) on DBRX-132B, Qwen2-72B,
+     Mistral-Large-123B and InternVL2-26B cut to 2 layers and on
+     Qwen3-0.6B, InternLM2-1.8B and Mamba2-130M whole, each request
+     finished, no non-finite logits, each flash call by the kernel its
+     shapes select, the gate and both grouped GEMMs once per MoE layer and
+     engine call, the SSD kernel once per Mamba layer and prefill call, no
+     TMA copy; ``python -m repro_torch.launch.serve --arch
+     deepseek-v3-671b --layers 2 --requests 2`` (its ``main``; fp32, every
+     prefill on the fp32 kernel at (192, 128)); HuBERT-XLarge, 4 layers,
+     frames through the stub, AdamW, bf16, 2 x 4096, a gradient check
+     against ``plain_backward`` (2e-2) then 3 steps through
+     ``launch.train.train`` with each step's launches (flash and B4 at
+     (80, 80) once a layer); InternVL2-26B's train cell at 2 layers, one
+     Adafactor step with its 256 patches spliced in;
   8. the kernels with their launch counts on the serve paths: every count
      is set to 0 just before each serve run and read just after it; on
      every path (phase 7b's too) ``flash_attention`` runs once per
@@ -270,6 +296,9 @@ JAMBA_PREFILL = dict(G=18, M=1821, K=4096, N=14336)
 JAMBA_DECODE = dict(G=18, M=8, K=4096, N=14336)
 JAMBA_SSD = dict(B=1, nc=32, Q=128, H=128, P=64, N=16)   # one 4096 chunk
 REDUCED_SSD = dict(B=1, nc=1, Q=16, H=8, P=16, N=16)
+# Mamba2-130M's serve chunk of 1024 tokens: 8 SSD chunks of 128, 24 heads
+# of 64, state 128 (one group).
+MAMBA2_SSD = dict(B=1, nc=8, Q=128, H=24, P=64, N=128)
 Q8_SWIGLU_TOL = 1e-5                          # the gate's expf; matmul: exact
 SSD_TOL = 3e-4
 SERVE_SK = 6144 + 8 + 4096                   # the serve cache: prompt + new + chunk
@@ -458,7 +487,8 @@ def _serve_dispatch(cfg, T: int, mode: str, seed: int, cf=SERVE["cf"],
     )
     from repro_torch.moe import stages
 
-    rcfg = RuntimeConfig(balancer=BalancerConfig(mode=SERVE["balancer"]),
+    rcfg = RuntimeConfig(balancer=BalancerConfig(mode=SERVE["balancer"],
+                                                 n_slot=cfg.moe.n_slot),
                          cf_pair=cf, cf_slot=cf, dtype=torch.bfloat16,
                          **runtime)
     mcfg = moe_config(cfg, rcfg, ParallelCtx(), T, dispatch_mode=mode)
@@ -485,7 +515,7 @@ def _serve_rows(cfg, T: int, mode: str, seed: int, cf=SERVE["cf"]):
     return ds.rows, cap
 
 
-def phase_kernels(glm, jamba, deepseek) -> dict:
+def phase_kernels(glm, jamba, deepseek, dbrx) -> dict:
     """Both grouped-GEMM kernels vs their plain versions, every row valid
     and at the serve path's row counts; returns the records by name."""
     import torch
@@ -509,6 +539,12 @@ def phase_kernels(glm, jamba, deepseek) -> dict:
               torch.bfloat16, 3),
              ("deepseek_decode_serve", (deepseek, 4, "replicated"),
               torch.bfloat16, 10),
+             # DBRX-132B (the hosts phase's serve path): 16 coarse experts
+             # top-4, 4 slots, d_model 6144, d_ff 10752; a 1024-token chunk
+             # and a decode step of 4.
+             ("dbrx_prefill_serve", (dbrx, 1024, "a2a"), torch.bfloat16, 5),
+             ("dbrx_decode_serve", (dbrx, 4, "replicated"), torch.bfloat16,
+              10),
              ("fp32_g8", dict(PREFILL, G=8), torch.float32, 3),
              ("prefill_serve_fp32", (glm, 4096, "a2a"), torch.float32, 3),
              ("decode_serve_fp32", (glm, 4, "replicated"), torch.float32, 20),
@@ -1011,6 +1047,8 @@ def phase_ssd() -> dict:
 
     cases = [("jamba_prefill", JAMBA_SSD, torch.bfloat16, 20),
              ("jamba_prefill_fp32", JAMBA_SSD, torch.float32, 10),
+             ("mamba2_prefill", MAMBA2_SSD, torch.bfloat16, 20),
+             ("mamba2_prefill_fp32", MAMBA2_SSD, torch.float32, 10),
              ("reduced_nc1", REDUCED_SSD, torch.bfloat16, 0),
              ("reduced_nc1_fp32", REDUCED_SSD, torch.float32, 0),
              ("reduced_b2", dict(REDUCED_SSD, B=2, nc=4), torch.bfloat16, 0),
@@ -1118,6 +1156,8 @@ def phase_gating() -> dict:
     cases = [("prefill", 4096, 128, 8, "softmax", 50),
              ("decode", 4, 128, 8, "softmax", 50),
              ("jamba_prefill", 4096, 16, 2, "softmax", 50),
+             ("dbrx_prefill", 1024, 16, 4, "softmax", 50),
+             ("dbrx_decode", 4, 16, 4, "softmax", 50),
              ("sigmoid_e256", 4096, 256, 8, "sigmoid", 20),
              ("sigmoid_e256_decode", 4, 256, 8, "sigmoid", 50),
              ("ragged", 1000, 60, 6, "softmax", 0),
@@ -1920,9 +1960,9 @@ def _graph_ms(fn, iters: int) -> float:
 
 def _sdpa_free(q, k, v, causal, q_off, kv_len):
     """The mask-free library call where every row shares one offset and
-    the chunk ends at the valid length (B 1, q_offset + Sq = kv_valid_len,
-    or not causal): k/v sliced to the valid length and, when causal,
-    ``causal_lower_right``, under the flash or the memory-efficient
+    one valid length, and the chunk ends at it (q_offset + Sq =
+    kv_valid_len, or not causal): k/v sliced to the valid length and,
+    when causal, ``causal_lower_right``, under the flash or the memory-efficient
     backend, GQA native or (if refused) k/v expanded to H heads outside
     the timed call.  Returns (call, backend, gqa) or None where no such
     call computes the same function."""
@@ -1933,7 +1973,8 @@ def _sdpa_free(q, k, v, causal, q_off, kv_len):
 
     B, Sq, H, _ = q.shape
     L = kv_len[0]
-    if B != 1 or L < 1 or (causal and q_off[0] + Sq != L):
+    if len(set(kv_len)) > 1 or len(set(q_off)) > 1 or L < 1 or \
+            (causal and q_off[0] + Sq != L):
         return None
     qt = q.transpose(1, 2)
     kt = k[:, :L].transpose(1, 2)
@@ -2070,7 +2111,46 @@ def phase_flash() -> dict:
              ("mla_prefill_64", 1, 64, SERVE_SK, 128, 128, (192, 128), bf16,
               True, [4096], [4160], wg, 20),
              ("mla_prefill_128", 1, 128, SERVE_SK, 128, 128, (192, 128), bf16,
-              True, [4096], [4224], wg, 20)]
+              True, [4096], [4224], wg, 20),
+             # In fp32 (the serve entry point's default dtype): the prefill
+             # chunk of ``python -m repro_torch.launch.serve --arch
+             # deepseek-v3-671b`` (64 queries over its 272-key cache) and
+             # the 4096-token serve chunk, on the fp32 prefill kernel.
+             ("mla_prefill_64_fp32", 1, 64, 272, 128, 128, (192, 128), fp32,
+              True, [64], [128], "prefill_f32", 20),
+             ("mla_prefill_at_4096_fp32", 1, 4096, SERVE_SK, 128, 128,
+              (192, 128), fp32, True, [4096], [8192], "prefill_f32", 3),
+             # HuBERT-XLarge's attention: 16 heads of 80, bidirectional, its
+             # train step's 2 x 4096 frames (the wgmma kernel on two
+             # 64-column boxes a row, zero-filled past column 80), causal
+             # too, and in fp32.
+             ("hubert_train", 2, 4096, 4096, 16, 16, 80, bf16, False,
+              [0, 0], [4096, 4096], wg, 20),
+             ("hubert_train_causal", 2, 4096, 4096, 16, 16, 80, bf16, True,
+              [0, 0], [4096, 4096], wg, 0),
+             ("hubert_train_fp32", 2, 4096, 4096, 16, 16, 80, fp32, False,
+              [0, 0], [4096, 4096], "prefill_f32", 3),
+             ("hubert_train_fp32_causal", 2, 4096, 4096, 16, 16, 80, fp32,
+              True, [0, 0], [4096, 4096], "prefill_f32", 0),
+             ("hubert_short", 2, 7, 7, 16, 16, 80, bf16, False, [0, 0],
+              [7, 7], wg, 0)]
+    # Phase 18's serve hosts at their own head ratios and shapes: a
+    # 1024-query prefill chunk at offset 0 and at 1024 (a 1535-token
+    # prompt, the chunk's rows past it padding) over the hosts' cache, and
+    # a decode step of three rows.  G 6: DBRX-132B, InternVL2-26B (48 / 8);
+    # G 8: Qwen2-72B (64 / 8); G 12: Mistral-Large-123B (96 / 8); G 2:
+    # Qwen3-0.6B, InternLM2-1.8B (16 / 8).
+    host_sk = max(HOST_SERVE["prompt_len"][1] + HOST_SERVE["max_new"]
+                  + HOST_SERVE["chunk"], 2 * HOST_SERVE["chunk"])
+    chunk = HOST_SERVE["chunk"]
+    for host, H in (("g6", 48), ("g8", 64), ("g12", 96), ("g2", 16)):
+        cases += [(f"host_{host}_prefill_at_0", 1, chunk, host_sk, H, 8, 128,
+                   bf16, True, [0], [chunk], wg, 0),
+                  (f"host_{host}_prefill_at_{chunk}", 1, chunk, host_sk, H, 8,
+                   128, bf16, True, [chunk], [HOST_SERVE["prompt_len"][1] - 1],
+                   wg, 0),
+                  (f"host_{host}_decode", 3, 1, host_sk, H, 8, 128, bf16,
+                   False, [0] * 3, [257, 1290, 1539], split, 0)]
     records = {}
     for (tag, B, Sq, Sk, H, Hkv, hd, dtype, causal, q_off, kv_len, want,
          iters) in cases:
@@ -2142,6 +2222,9 @@ def phase_flash() -> dict:
                                      f"{rec['sdpa_free_max_abs_err']}")
         pairs, keys = _flash_pairs(Sq, causal, q_off, kv_len)
         rec["pairs"] = pairs
+        if hd == 80 and want == wg:
+            # Rows are two whole 64-column boxes: the products run at 128.
+            rec["padded_product_share"] = 1 - hd / 128
         if iters:
             flops = 2.0 * (hd + hd_v) * H * pairs
             nbytes = q.element_size() * (hd + hd_v) * (B * Sq * H + keys * Hkv)
@@ -2259,12 +2342,13 @@ def _padded_copies() -> dict:
 
 
 def phase_serve(cfg, tag: str, beside: dict | None = None,
-                dtype: str = "bfloat16", **runtime) -> dict:
-    """``serve_trace`` on ``cfg`` with the SERVE settings in ``dtype`` (and
-    ``runtime``, the wire and FFN dtypes); returns the run's record, whose
-    ``launches`` are the kernel launch counts (set to 0 just before it,
-    read just after).  ``beside``: another serve record of this run,
-    printed alongside."""
+                dtype: str = "bfloat16", settings: dict = SERVE,
+                **runtime) -> dict:
+    """``serve_trace`` on ``cfg`` with the SERVE settings (or
+    ``settings``) in ``dtype`` (and ``runtime``, the wire and FFN dtypes);
+    returns the run's record, whose ``launches`` are the kernel launch
+    counts (set to 0 just before it, read just after).  ``beside``: another
+    serve record of this run, printed alongside."""
     import gc
 
     import torch
@@ -2275,27 +2359,30 @@ def phase_serve(cfg, tag: str, beside: dict | None = None,
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     eng = serve_trace(cfg, dtype=getattr(torch, dtype), device="cuda",
-                      **SERVE, **runtime)
+                      **settings, **runtime)
     launches = _launches()
     copies = _padded_copies()
     done = eng.finished
     failed = [r.rid for r in done if r.failed]
-    if len(done) != SERVE["requests"] or failed or \
+    if len(done) != settings["requests"] or failed or \
             eng.fault_counters["nonfinite_logits"]:
         raise AssertionError(f"{tag}: finished {len(done)}, failed {failed}, "
                              f"faults {eng.fault_counters}, last error "
                              f"{eng.last_error!r}")
-    if any(len(r.output) != SERVE["max_new"] for r in done):
+    if any(len(r.output) != settings["max_new"] for r in done):
         raise AssertionError(f"{tag}: a request did not produce "
-                             f"{SERVE['max_new']} tokens")
+                             f"{settings['max_new']} tokens")
     pre = [(n, s) for kind, n, s in eng.calls if kind == "prefill"]
     dec = [(n, s) for kind, n, s in eng.calls if kind == "decode"]
     rec = {
         "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
         "attn_layers": sum(k.startswith("attn+") for k in layer_kinds(cfg)),
         "moe_layers": sum(k.endswith("+moe") for k in layer_kinds(cfg)),
+        "mamba_layers": sum(k.startswith("mamba+") for k in layer_kinds(cfg)),
         "dtype": dtype, "runtime": runtime,
-        "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+        "experts": cfg.moe.num_experts if cfg.moe else 0,
+        "top_k": cfg.moe.top_k if cfg.moe else 0,
+        "chunk": settings["chunk"], "max_seq": eng.cfg.max_seq,
         "prompt_tokens": [len(r.prompt) for r in sorted(done, key=lambda r: r.rid)],
         "prefill_calls": len(pre), "decode_calls": len(dec),
         "prefill_tok_per_s": sum(n for n, _ in pre) / sum(s for _, s in pre),
@@ -2360,9 +2447,8 @@ def phase_serve_cli() -> dict:
     every attention and gate call of the run went through its kernel.  At
     chunk 64 no prefill grid fills the card, so every flash call takes the
     split-KV kernel; at chunk 4096 the prefill calls take the fp32 and the
-    hd-16 ``mma.sync`` kernels.  Then DeepSeek-V3 at full width, one
-    layer, in fp32: the flash kernel takes MLA's (192, 128) in bf16 only,
-    so its first prefill must raise a ValueError that names the dims."""
+    hd-16 ``mma.sync`` kernels.  (DeepSeek-V3 at full width in fp32 runs
+    in phase 18.)"""
     import gc
 
     import torch
@@ -2409,23 +2495,6 @@ def phase_serve_cli() -> dict:
                         "mean_ttft_s": float(eng.ttft().mean()),
                         "mean_tpot_s": float(eng.tpot().mean()),
                         "launches": launches}
-    # DeepSeek-V3 at full width, one layer, in fp32 (the CLI's default):
-    # MLA prefill's (192, 128) is a bf16-only pair of the flash kernel, so
-    # the first prefill raises a ValueError that names it, and nothing ran
-    # in its place.
-    _reset_launches()
-    try:
-        serve_main(["--arch", "deepseek-v3-671b", "--layers", "1",
-                    "--requests", "1", "--chunk", "256", "--max-new", "2"])
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise AssertionError("serve cli deepseek-v3-671b fp32: no error")
-    if "(192, 128)" not in refused or _launches()["flash_attention"]:
-        raise AssertionError(f"serve cli deepseek-v3-671b fp32: {refused!r}, "
-                             f"{_launches()['flash_attention']} launches")
-    records["deepseek-v3-671b_float32_refused"] = {"error": refused,
-                                                   "launches": _launches()}
     gc.collect()
     torch.cuda.empty_cache()
     _line("phase7b_serve_cli", records)
@@ -3279,7 +3348,9 @@ def phase_train_kernels(glm, deepseek, jamba) -> dict:
     step's records are the kernels line's, the cells' stand beside them.
     Flash (B4): B 2, S 4096, 32 / 8 heads, hd 128, causal; dq, dk, dv
     within TRAIN_TOL of their max|ref| against autograd through the plain
-    version.  Bounds on the valid rows' (causal pairs') bf16 work or the
+    version.  B4 at (80, 80) too: HuBERT-XLarge's B 2, S 4096, 16 heads,
+    bidirectional, bitwise over two calls, beside SDPA's backward (flash
+    backend).  Bounds on the valid rows' (causal pairs') bf16 work or the
     bytes, whichever is larger; library: ``torch.bmm`` over the padded
     buffers, and SDPA's backward through autograd (flash backend, k/v
     expanded to 32 heads outside the timed call)."""
@@ -3349,9 +3420,66 @@ def phase_train_kernels(glm, deepseek, jamba) -> dict:
     del q, k, v, dout, o, lse, grads, qt, kt, vt, ot
     torch.cuda.empty_cache()
     recs["flash_attention_bwd.mla"] = _mla_bwd_record(g)
+    recs["flash_attention_bwd.hd80"] = _hd80_bwd_record(g)
     recs["ssd_intra_chunk_bwd"] = _ssd_bwd_record()
     _line("phase12_train_kernels", recs)
     return recs
+
+
+def _hd80_bwd_record(g) -> dict:
+    """B4 at (80, 80), HuBERT-XLarge's train step: B 2, S 4096, 16 heads
+    (G 1), bidirectional, the (128, 128) tiles with rows zero-filled past
+    column 80; dq, dk, dv within TRAIN_TOL of autograd through the plain
+    version, bitwise over two calls; timed beside SDPA's backward (flash
+    backend, which takes head dim 80).  Bound on the true work: five
+    products of 80 a pair over every (query, key) pair."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    bf16 = torch.bfloat16
+    B, S, H, hd = 2, 4096, 16, 80
+    q, k, v, dout = (torch.randn((B, S, H, hd), generator=g, device="cuda")
+                     .to(bf16) for _ in range(4))
+    lse = torch.empty((B, H, S), device="cuda")
+    o, _ = fa._launch(q, k, v, False, 0, None, None, sms=1, lse=lse)
+    grads = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=False)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=False)
+    torch.cuda.synchronize()
+    for n, a, r in zip("qkv", grads, again):
+        if not torch.equal(a, r):
+            raise AssertionError(f"flash_bwd hd80 d{n}: two calls differ")
+    del again
+    refs = fa.flash_attention_bwd_ref(q, k, v, dout, causal=False)
+    errs = {n: _rel_check(f"flash_bwd hd80 d{n}", a, r, TRAIN_TOL)
+            for n, a, r in zip("qkv", grads, refs)}
+    del refs
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        ot = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = dout.transpose(1, 2)
+    pairs = B * H * S * S
+    elems = B * S * H * hd
+    t = _time_pair(
+        lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=False),
+        lambda: fa.flash_attention_bwd_ref(q, k, v, dout, causal=False),
+        lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+        pairs * 5 * 2.0 * hd, 2 * 5 * elems + 4 * B * H * S + 2 * 3 * elems,
+        "bf16", 5)
+    rec = dict(t, shape=dict(B=B, S=S, H=H, Hkv=H, hd=hd, causal=False),
+               max_abs_err=max(e[0] for e in errs.values()),
+               errs={n: {"max_abs_err": e[0], "max_abs_ref": e[1]}
+                     for n, e in errs.items()},
+               padded_product_share=1 - hd / 128,
+               stage_ms=fa.bwd_stage_ms(q, k, v, o, dout, lse, causal=False),
+               library_note="SDPA's backward through autograd (flash "
+                            "backend, head dim 80)")
+    del q, k, v, dout, o, lse, grads, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _mla_bwd_record(g) -> dict:
@@ -3521,7 +3649,6 @@ def phase_train(glm) -> dict:
     from repro_torch.launch.train import train
     from repro_torch.models.model import init_lm
     from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
-    from repro_torch.train.loop import loss_and_grads
 
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(glm, name=f"{glm.name}-{TRAIN['layers']}l",
@@ -3538,32 +3665,8 @@ def phase_train(glm) -> dict:
         global_batch=TRAIN["batch"], seed=TRAIN["seed"])).batch(0)
     batch = {k: torch.from_numpy(v).to("cuda", torch.int64)
              for k, v in batch.items()}
-    loss_p, _, counts_p, grads_p = loss_and_grads(
-        params, batch, cfg, dataclasses.replace(rcfg, plain_backward=True),
-        pctx)
-    grads_p = [t.clone() for t in grads_p]
-    torch.cuda.synchronize()
-    _reset_launches()
-    loss_k, drops_k, counts_k, grads_k = loss_and_grads(params, batch, cfg,
-                                                        rcfg, pctx)
-    torch.cuda.synchronize()
-    check_launches = _launches()
-    if not torch.equal(counts_p, counts_k):
-        raise AssertionError("train check: the two runs routed differently")
-    errs = {}
-    for (name, _), gk, gp in zip(params.named_parameters(), grads_k, grads_p):
-        err, scale = _max_err(gk, gp)
-        if not torch.isfinite(gk).all():
-            raise AssertionError(f"train grad {name} is not finite")
-        errs[name] = err / max(scale, 1e-30)
-    bad = {n: e for n, e in errs.items() if not e <= TRAIN_TOL}
-    if bad:
-        raise AssertionError(f"train grads beyond {TRAIN_TOL} of max|ref|: "
-                             f"{bad}; all: {errs}")
-    check = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
-             "drops": int(drops_k), "max_rel_err_by_param": errs,
-             "worst": max(errs, key=errs.get), "launches": check_launches}
-    del params, grads_p, grads_k, batch
+    check = _grad_check(params, batch, cfg, rcfg, pctx)
+    del params, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4628,6 +4731,270 @@ def phase_rack_tier() -> dict:
     return result
 
 
+# Phase 18, the model hosts beside the paper's two, Jamba-v0.1 and
+# DeepSeek-V3, each through its normal entry point at its published widths.
+# Serve: ``serve_trace`` on a short seeded Poisson trace in bf16, prompts of
+# 256-1535 tokens in chunks of 1024, 4 new tokens each; the depth cut to
+# the layers listed (None: every layer).
+HOST_SERVE = dict(requests=3, chunk=1024, max_new=4, reduce=False,
+                  balancer="ultraep", seed=0, prompt_len=(256, 1536),
+                  decode_batch=4, cf=4.0)
+HOST_SERVES = (("dbrx-132b", 2), ("qwen2-72b", 2), ("mistral-large-123b", 2),
+               ("internvl2-26b", 2), ("qwen3-0.6b", None),
+               ("internlm2-1.8b", None), ("mamba2-130m", None))
+# DeepSeek-V3 through the serve entry point as a user types it: fp32, its
+# default dtype (MLA prefill at (192, 128) on the fp32 prefill kernel), its
+# default trace and chunk (64), 2 dense layers at full width.
+DEEPSEEK_CLI = ["--arch", "deepseek-v3-671b", "--layers", "2",
+                "--requests", "2"]
+# Train: HuBERT-XLarge's first 4 layers from the frames stub, AdamW, bf16,
+# 2 x 4096 frames, 3 steps without remat; InternVL2-26B's train cell
+# (Adafactor, per-layer remat, bf16) at 2 layers, 1 x 4096 tokens with
+# its 256 patches spliced in, one step.
+HUBERT_TRAIN = dict(layers=4, batch=2, seq=4096, steps=3, seed=0)
+INTERNVL_TRAIN = dict(layers=2, batch=1, steps=1, loss_chunks=8, seed=0)
+
+
+def _host_flash_calls(rec) -> dict:
+    """Flash kernel -> the engine calls that go through it on a serve path,
+    from the shapes alone (``plan_launch``): the prefill chunks (B 1,
+    ``chunk`` queries over the cache) and the decode steps (one query a
+    row: the split-KV kernel)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import plan_launch
+
+    cfg = rec["cfg"]
+    if not rec["attn_layers"]:
+        return {}
+    prefill = plan_launch(1, rec["chunk"], rec["max_seq"], cfg.num_heads,
+                          cfg.num_kv_heads, cfg.head_dim,
+                          getattr(torch, rec["dtype"])).kernel
+    calls = {prefill: rec["prefill_calls"]}
+    calls["decode_split"] = calls.get("decode_split", 0) + rec["decode_calls"]
+    return calls
+
+
+def _grad_check(params, batch, cfg, rcfg, pctx, router_bias=None) -> dict:
+    """One step's gradient of every parameter with the backward kernels
+    against the same step with ``plain_backward`` (the forward kernels
+    shared, so both runs route alike: their counts must be equal), within
+    TRAIN_TOL of each max|ref|, every gradient and the loss finite; the
+    kernel run's launches (counts set to 0 just before it)."""
+    import torch
+
+    from repro_torch.train.loop import loss_and_grads
+
+    loss_p, _, counts_p, grads_p = loss_and_grads(
+        params, batch, cfg, dataclasses.replace(rcfg, plain_backward=True),
+        pctx, router_bias=router_bias)
+    grads_p = [t.clone() for t in grads_p]
+    torch.cuda.synchronize()
+    _reset_launches()
+    loss_k, drops_k, counts_k, grads_k = loss_and_grads(
+        params, batch, cfg, rcfg, pctx, router_bias=router_bias)
+    torch.cuda.synchronize()
+    launches = _launches()
+    if not torch.equal(counts_p, counts_k):
+        raise AssertionError("grad check: the two runs routed differently")
+    errs = {}
+    for (name, _), gk, gp in zip(params.named_parameters(), grads_k,
+                                 grads_p):
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"grad check: {name} is not finite")
+        err, scale = _max_err(gk, gp)
+        errs[name] = err / max(scale, 1e-30)
+    bad = {n: e for n, e in errs.items() if not e <= TRAIN_TOL}
+    if bad or not torch.isfinite(loss_k):
+        raise AssertionError(f"grads beyond {TRAIN_TOL} of max|ref|: {bad}; "
+                             f"loss {float(loss_k)}; all: {errs}")
+    for p in params.parameters():
+        p.grad = None
+    return {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "drops": int(drops_k), "max_rel_err_by_param": errs,
+            "worst": max(errs, key=errs.get),
+            "worst_rel_err": max(errs.values()), "launches": launches}
+
+
+def _per_step_launches(want: dict, tag: str):
+    """(on_metrics, steps): each step's launches checked against ``want``
+    (counts set to 0 after each step)."""
+    import torch
+
+    steps = []
+
+    def on_metrics(step, m):
+        torch.cuda.synchronize()
+        seen = _launches()
+        bad = {k: (seen[k], n) for k, n in want.items() if seen[k] != n}
+        if bad or any(_padded_copies().values()):
+            raise AssertionError(f"{tag} step {step}: launches (seen, want) "
+                                 f"{bad}, copies {_padded_copies()}")
+        steps.append(seen)
+        _reset_launches()
+
+    return on_metrics, steps
+
+
+def phase_hosts() -> dict:
+    """Phase 18: (a) ``serve_trace`` on each of HOST_SERVES (DBRX-132B:
+    the grouped GEMMs at K 6144 / N 10752 and the gate at E 16, k 4;
+    Mamba2-130M: the SSD kernel at state 128; InternVL2-26B serves text
+    tokens), every request finished with its tokens, no non-finite logits,
+    each flash call by the kernel its shapes select, the gate and both
+    grouped GEMMs once per MoE layer and engine call, the SSD kernel once
+    per Mamba layer and prefill call, no operand copied for TMA; (b) the
+    serve entry point on DeepSeek-V3 in fp32 (DEEPSEEK_CLI): every prefill
+    through the fp32 prefill kernel at (192, 128); (c) HuBERT-XLarge
+    trained HUBERT_TRAIN["steps"] steps through ``launch.train.train``
+    after a gradient check against ``plain_backward`` (flash forward and
+    B4 at (80, 80), bidirectional); (d) one step of InternVL2-26B's train
+    cell through ``launch.train.train_cell``."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.launch.train import build, train, train_cell
+    from repro_torch.models.transformer import ParallelCtx
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"serve": {}}
+    for arch, layers in HOST_SERVES:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, name=f"{arch}-{layers}l",
+                                      num_layers=layers)
+        tag = f"phase18_hosts_serve {cfg.name}"
+        rec = phase_serve(cfg, tag, settings=HOST_SERVE)
+        _check_kernel_calls(tag, rec["launches"], rec["padded_copies"], cfg,
+                            _host_flash_calls(rec),
+                            engine_calls=rec["prefill_calls"]
+                            + rec["decode_calls"])
+        ssd = rec["mamba_layers"] * rec["prefill_calls"]
+        if rec["launches"]["ssd_intra_chunk"] != ssd:
+            raise AssertionError(f"{tag}: ssd_intra_chunk launched "
+                                 f"{rec['launches']['ssd_intra_chunk']} "
+                                 f"times, not {ssd}")
+        needs = [n for n, c in (("flash_attention", rec["attn_layers"]),
+                                ("gating_topk", rec["moe_layers"]),
+                                ("grouped_swiglu", rec["moe_layers"]),
+                                ("grouped_matmul", rec["moe_layers"]),
+                                ("ssd_intra_chunk", rec["mamba_layers"]))
+                 if c and rec["launches"][n] <= 0]
+        if needs:
+            raise AssertionError(f"{tag}: {needs} not launched")
+        out["serve"][arch] = rec
+        free()
+
+    _reset_launches()
+    eng = serve_main(DEEPSEEK_CLI)
+    launches, copies = _launches(), _padded_copies()
+    done = eng.finished
+    if len(done) != 2 or any(r.failed or len(r.output) != 8 for r in done) \
+            or eng.fault_counters["nonfinite_logits"]:
+        raise AssertionError(f"hosts serve cli deepseek-v3-671b fp32: "
+                             f"finished {len(done)}, faults "
+                             f"{eng.fault_counters}, last error "
+                             f"{eng.last_error!r}")
+    pre = sum(kind == "prefill" for kind, _, _ in eng.calls)
+    ds_cfg = dataclasses.replace(get_config("deepseek-v3-671b"), num_layers=2)
+    _check_kernel_calls("hosts serve cli deepseek-v3-671b fp32", launches,
+                        copies, ds_cfg, {"prefill_f32": pre},
+                        engine_calls=len(eng.calls))
+    out["deepseek_cli_fp32"] = {
+        "argv": DEEPSEEK_CLI, "engine_calls": len(eng.calls),
+        "prefill_calls": pre, "mean_ttft_s": float(eng.ttft().mean()),
+        "mean_tpot_s": float(eng.tpot().mean()), "launches": launches}
+    _line("phase18_hosts_serve_cli deepseek-v3-671b",
+          out["deepseek_cli_fp32"])
+    del eng, done
+    free()
+
+    # HuBERT-XLarge: frames through the stub, 16 heads of 80, no causal mask.
+    h = HUBERT_TRAIN
+    kw = dict(reduce=False, layers=h["layers"], batch=h["batch"],
+              seq=h["seq"], steps=h["steps"], seed=h["seed"],
+              dtype=torch.bfloat16, remat=False, device="cuda")
+    tr = build("hubert-xlarge", **kw)
+    batch = tr.batch(0)
+    frames = batch.get("frames")
+    if "tokens" in batch or frames is None or frames.dtype != torch.bfloat16 \
+            or frames.shape != (h["batch"], h["seq"], tr.cfg.d_model):
+        shapes = {k: (tuple(t.shape), str(t.dtype)) for k, t in batch.items()}
+        raise AssertionError(f"hubert batch: {shapes}")
+    check = _grad_check(tr.state.params, batch, tr.cfg, tr.rcfg, tr.pctx)
+    L = h["layers"]
+    want = {"flash_attention": L, "flash_attention.prefill_wgmma": L,
+            "flash_attention_bwd": L, "flash_attention_bwd.80x80": L,
+            "gating_topk": 0, "grouped_swiglu": 0, "plan_solve": 0}
+    bad = {k: (check["launches"][k], n) for k, n in want.items()
+           if check["launches"][k] != n}
+    if bad:
+        raise AssertionError(f"hubert grad check launches (seen, want) {bad}")
+    del tr, batch, frames
+    free()
+    on_metrics, steps = _per_step_launches(want, "hubert train")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    run = train("hubert-xlarge", ckpt_every=0, log_every=h["steps"],
+                on_metrics=on_metrics, **kw)
+    if not all(math.isfinite(v) for v in run.losses):
+        raise AssertionError(f"hubert train: a loss is not finite: "
+                             f"{run.losses}")
+    out["hubert_train"] = {
+        "arch": "hubert-xlarge", **h, "params": run.params,
+        "optimizer": "adamw fp32", "dtype": "bfloat16",
+        "losses": run.losses, "grad_norms": run.grad_norms,
+        "step_s": run.step_s, "step_s_median": run.step_s_median,
+        "frames_per_s": run.tokens_per_s, "peak_mem_gb": run.peak_mem / 1e9,
+        "launches_per_step": steps[-1], "grad_check": check}
+    _line("phase18_hosts_train hubert-xlarge", out["hubert_train"])
+    free()
+
+    # InternVL2-26B's train cell: 256 projected patches over the first
+    # positions of each row's token embeddings.
+    v = INTERNVL_TRAIN
+    cell = build_cell("internvl2-26b", "train_4k", ParallelCtx(),
+                      num_layers_override=v["layers"])
+    patches = cell.arg_shapes[1]["patches"]
+    if tuple(patches.shape[1:]) != (256, 6144):
+        raise AssertionError(f"internvl2 cell patches {tuple(patches.shape)}")
+    L = v["layers"]
+    want = {"flash_attention": 2 * L, "flash_attention.prefill_wgmma": 2 * L,
+            "flash_attention_bwd": L, "flash_attention_bwd.128x128": L,
+            "gating_topk": 0, "plan_solve": 0}
+    on_metrics, steps = _per_step_launches(want, "internvl2 train cell")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    run = train_cell("internvl2-26b", "train_4k", layers=L, batch=v["batch"],
+                     steps=v["steps"], loss_chunks=v["loss_chunks"],
+                     seed=v["seed"], device="cuda", ckpt_every=0,
+                     log_every=v["steps"], on_metrics=on_metrics)
+    if not all(math.isfinite(x) for x in run.losses) or \
+            not all(math.isfinite(x) for x in run.grad_norms):
+        raise AssertionError(f"internvl2 train: not finite: {run.losses}, "
+                             f"{run.grad_norms}")
+    out["internvl2_train"] = {
+        "arch": "internvl2-26b", **v, "cell": "train_4k",
+        "optimizer_state": type(cell.meta["optimizer"].init([])).__name__,
+        "patches": list(patches.shape[1:]), "params": run.params,
+        "losses": run.losses, "grad_norms": run.grad_norms,
+        "step_s": run.step_s, "tokens_per_s": run.tokens_per_s,
+        "peak_mem_gb": run.peak_mem / 1e9, "launches_per_step": steps[-1]}
+    _line("phase18_hosts_train internvl2-26b", out["internvl2_train"])
+    del cell
+    free()
+    return out
+
+
+
 def _kernel_row(name, source, replaces, rec, launches, extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4665,7 +5032,9 @@ def main() -> int:
         return out
 
     timed("phase1_card", phase_card)     # its line holds kernel_build_s
-    records = timed("phase2_kernels", phase_kernels, glm, jamba, deepseek)
+    dbrx = get_config("dbrx-132b")
+    records = timed("phase2_kernels", phase_kernels, glm, jamba, deepseek,
+                    dbrx)
     ssd_records = timed("phase2_ssd", phase_ssd)
     q8_records = timed("phase2_kernels_q8", phase_kernels_q8, glm)
     gating_records = timed("phase2_gating_topk", phase_gating)
@@ -4713,12 +5082,14 @@ def main() -> int:
     rack = timed("phase14_rack_tier", phase_rack_tier)
     timed("phase16_train_group", phase_train_group, glm)
     cell_records = timed("phase17_train_cells", phase_train_cells)
+    hosts = timed("phase18_hosts", phase_hosts)
     serves = {"glm45-106b-a12b": glm_serve,
               "glm45-106b-a12b-q8": glm_q8_serve,
               "glm45-106b-a12b-fp32": glm_fp32_serve,
               "jamba-v0.1-52b": jamba_serve,
               "qwen3-235b-a22b": qwen3_serve,
-              "deepseek-v3-671b": deepseek_serve}
+              "deepseek-v3-671b": deepseek_serve,
+              **hosts["serve"]}
     paths = {path: rec["launches"] for path, rec in serves.items()}
     glm_launches = paths["glm45-106b-a12b"]
     glm_q8_launches = paths["glm45-106b-a12b-q8"]
@@ -5155,6 +5526,89 @@ def main() -> int:
             "errs": rec["errs"], "library_note": rec["library_note"],
             "fp32_inputs": {k: rec["fp32_inputs"][k] for k in
                             keys + ("bytes_bound_ms",)}}))
+    # The hosts phase's new shapes of rows 1, 2, 5, 6, 6b, 7 and B4, each
+    # with its launches on its own path of phase 18.
+    dbrx_launches = paths["dbrx-132b"]
+    for name, line in (("grouped_swiglu", 154), ("grouped_matmul", 184)):
+        rec = records[name]
+        kernels.append(_kernel_row(
+            f"{name}.dbrx", gg_src,
+            f"src/repro/kernels/grouped_gemm/kernel.py:{line}",
+            rec["dbrx_prefill_serve"], dbrx_launches[name], {
+                "path": "phase 18 serve dbrx-132b-2l",
+                "rows": rec["dbrx_prefill_serve"]["rows"],
+                "dbrx_decode_serve": {k: rec["dbrx_decode_serve"][k]
+                                      for k in ("shape",) + keys}}))
+    gd = gating_records["dbrx_prefill"]
+    kernels.append(_kernel_row(
+        "gating_topk.dbrx",
+        "src/repro_torch/kernels/gating_topk/csrc/gating_topk.cu",
+        "src/repro/kernels/gating_topk/kernel.py:59", gd,
+        dbrx_launches["gating_topk"], {
+            "path": "phase 18 serve dbrx-132b-2l",
+            **{k: gd[k] for k in gating_keys},
+            "dbrx_decode": {k: gating_records["dbrx_decode"][k]
+                            for k in ("shape",) + keys + gating_keys}}))
+    hub = hosts["hubert_train"]["launches_per_step"]
+    h80 = flash_records["hubert_train"]
+    kernels.append(_kernel_row(
+        "flash_attention.hd80",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:84", h80,
+        hub["flash_attention.prefill_wgmma"], {
+            "kernel": h80["kernel"], "head_dims": [80, 80],
+            "causal": False, "path": "phase 18 train hubert-xlarge, a step",
+            "padded_product_share": h80["padded_product_share"],
+            "sdpa_free_ms": h80["sdpa_free_ms"],
+            "sdpa_free_backend": h80.get("sdpa_free_backend"),
+            "sdpa_masked_ms": h80["sdpa_masked_ms"],
+            "max_row_rel_err": max(
+                flash_records[t]["max_row_rel_err"]
+                for t in ("hubert_train", "hubert_train_causal",
+                          "hubert_train_fp32", "hubert_train_fp32_causal",
+                          "hubert_short")),
+            "hubert_train_fp32": {
+                k: flash_records["hubert_train_fp32"][k]
+                for k in flash_keys + ("bound_fp32_ms", "max_row_rel_err")},
+            "checks": ["hubert_train", "hubert_train_causal",
+                       "hubert_train_fp32", "hubert_train_fp32_causal",
+                       "hubert_short"]}))
+    mf = flash_records["mla_prefill_64_fp32"]
+    kernels.append(_kernel_row(
+        "flash_attention.mla_f32",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:84", mf,
+        hosts["deepseek_cli_fp32"]["launches"]["flash_attention.prefill_f32"],
+        {"kernel": mf["kernel"], "head_dims": [192, 128],
+         "arithmetic": "3xTF32 mma.sync",
+         "path": "phase 18 serve cli deepseek-v3-671b --layers 2 (fp32)",
+         "bound_fp32_ms": mf["bound_fp32_ms"],
+         "max_row_rel_err": mf["max_row_rel_err"],
+         "mla_prefill_at_4096_fp32": {
+             k: flash_records["mla_prefill_at_4096_fp32"][k]
+             for k in flash_keys + ("bound_fp32_ms", "max_row_rel_err")}}))
+    m2 = ssd_records["mamba2_prefill"]
+    kernels.append(_kernel_row(
+        "ssd_intra_chunk.mamba2",
+        "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:66", m2,
+        paths["mamba2-130m"]["ssd_intra_chunk"], {
+            "path": "phase 18 serve mamba2-130m", "dtype": m2["dtype"],
+            "bound_fp32_ms": m2["bound_fp32_ms"], "scan_ms": m2["scan_ms"],
+            "fp32_inputs": {k: ssd_records["mamba2_prefill_fp32"][k]
+                            for k in keys + ("bound_fp32_ms", "scan_ms")}}))
+    rec = train_kernel_records["flash_attention_bwd.hd80"]
+    kernels.append(_kernel_row(
+        "flash_attention_bwd.hd80", "src/repro_torch/kernels/flash_attention/"
+        "csrc/flash_attention_bwd.cu", "src/repro/kernels/flash_attention/"
+        "kernel.py:84 (its backward at (80, 80); no pallas_call: XLA "
+        "differentiates src/repro/models/attention.py:252 through "
+        "flash_ref)", rec, hub["flash_attention_bwd.80x80"], {
+            "head_dims": [80, 80], "causal": False,
+            "path": "phase 18 train hubert-xlarge, a step",
+            "padded_product_share": rec["padded_product_share"],
+            "errs": rec["errs"], "stage_ms": rec["stage_ms"],
+            "library_note": rec["library_note"]}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

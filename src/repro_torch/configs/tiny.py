@@ -1,9 +1,8 @@
 """Reduced test configs: same families, tiny dims (smoke tests / CI).
 
 Mirrors ``repro.configs.tiny`` (the port keeps its own copy), so the port
-and the reference can run ``tiny-moe`` side by side.  The frontend configs
-(``tiny-audio``, ``tiny-vlm``) register here too and raise at ``init_lm``,
-as every modality frontend does in the port.
+and the reference can run ``tiny-moe`` side by side, the frontend stubs
+(``tiny-audio``, ``tiny-vlm``) among them.
 """
 from repro_torch.configs.base import ModelConfig, MoEArch, SSMArch, register
 

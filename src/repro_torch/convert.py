@@ -10,7 +10,8 @@ JAX package is imported.
 * :func:`ssm_params`: a ``repro.models.ssm.SSMParams``.
 * :func:`mla_params`: a ``repro.models.attention.MLAParams``.
 * :func:`lm_params`: a ``repro.models.model.LMParams`` of GQA or MLA
-  attention and Mamba blocks.  Segments built with ``scan_layers=True``
+  attention and Mamba blocks, with a frontend stub's ``frontend_proj``.
+  Segments built with ``scan_layers=True``
   carry a leading layer axis and are unstacked per layer, unscanned
   segments are tuples of blocks, and a hybrid's "cycle" segment is a tuple
   of ``p`` blocks each stacked over the ``n_rep`` repetitions of the
@@ -109,8 +110,6 @@ def lm_params(p, cfg: ModelConfig, *, device="cuda", ep_rank: int = 0,
               ep_size: int = 1) -> LMParams:
     """JAX ``LMParams`` (numpy leaves) -> the port's :class:`LMParams`, the
     share of EP rank ``ep_rank`` of ``ep_size``."""
-    if getattr(p, "frontend_proj", None) is not None:
-        raise ValueError("modality frontends are not ported")
     blocks = []
     for seg in p.segments:
         if isinstance(seg, tuple) and not hasattr(seg, "_fields"):
@@ -129,4 +128,5 @@ def lm_params(p, cfg: ModelConfig, *, device="cuda", ep_rank: int = 0,
                     layers=[_block(b, cfg, device, ep_rank, ep_size)
                             for b in blocks],
                     final_norm=to_tensor(p.final_norm, device),
-                    lm_head=to_tensor(p.lm_head, device))
+                    lm_head=to_tensor(p.lm_head, device),
+                    frontend_proj=to_tensor(p.frontend_proj, device))

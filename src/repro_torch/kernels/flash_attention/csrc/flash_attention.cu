@@ -9,11 +9,12 @@
 // j <= i + q_offset[b].  Grouped-query attention: query head h reads KV
 // head h / G, G = H / Hkv.  q (B, Sq, H, hd), k (B, Sk, Hkv, hd), v
 // (B, Sk, Hkv, hd_v) and the output (B, Sq, H, hd_v) are all bf16 or all
-// fp32 with a unit-stride head dim; (hd, hd_v) is (16, 16), (64, 64) or
-// (128, 128) (128 is the width of the GQA models, 16 the reduced
-// configurations'), or, in bf16 only, (192, 128): DeepSeek-V3's MLA
-// prefill, whose q and k are nope 128 + rope 64 wide and whose v is 128
-// (repro/models/attention.py:mla_prefill; kernels 1 and 2 take it).
+// fp32 with a unit-stride head dim; (hd, hd_v) is (16, 16), (64, 64),
+// (80, 80) or (128, 128) (128 is the width of the GQA models, 80
+// HuBERT-XLarge's, 16 the reduced configurations'), or (192, 128):
+// DeepSeek-V3's MLA prefill, whose q and k are nope 128 + rope 64 wide and
+// whose v is 128 (repro/models/attention.py:mla_prefill; kernels 1 and 2
+// take it in bf16, kernel 4 in fp32).
 // q_offset and kv_valid_len are read on the device (a (B,) int64 vector or
 // one constant), so the caller never syncs with the host.  In every kernel
 // a row with no valid key gives 0.
@@ -27,10 +28,12 @@
 // shapes alone, never from the device-held lengths:
 //
 // 1. flash_split_kernel + flash_combine_kernel (bf16 and fp32, hd 16, 64,
-//    128; bf16 (192, 128)): every launch whose prefill grid (q tiles x Hkv
-//    x B) would not
-//    fill the card, which is every decode step.  A decode step is bound by
-//    the bytes of the valid cache (GLM-4.5-Air at batch 4: 45.8 MB,
+//    128; bf16 (192, 128)): every launch at those dims whose prefill grid
+//    (q tiles x Hkv x B) would not fill the card, which is every decode
+//    step.  (hd 80 and fp32 (192, 128) never decode here -- HuBERT is an
+//    encoder, MLA decode attends on its latent cache -- so their short
+//    launches take kernel 2 or 4 whatever the grid.)  A decode step is
+//    bound by the bytes of the valid cache (GLM-4.5-Air at batch 4: 45.8 MB,
 //    13.7 us at 3.35 TB/s).  Blocks are (split of the keys, row tile of at
 //    most RT rows, KV head, batch row); the number of splits comes from
 //    the cache capacity Sk so that the grid holds at least two blocks per
@@ -57,7 +60,7 @@
 //    at B 1 for chunks of at most 128 tokens (128 KV heads fill fewer than
 //    132 SMs).
 //
-// 2. flash_wgmma_kernel (bf16, hd 64, 128 and (192, 128)): every other
+// 2. flash_wgmma_kernel (bf16, hd 64, 80, 128 and (192, 128)): every other
 //    bf16 launch, which is every serve prefill chunk.  Bound by operations
 //    (the GLM chunk at offset 4096: 412 GFLOP of causal pairs, 0.42 ms at
 //    989 TFLOP/s, against 29 MB of bytes).  Warp-specialised as
@@ -92,6 +95,13 @@
 //    q 48 KB + 2 stages x (K 48 KB + V 32 KB) = 208 KB + the barriers, of
 //    the 227 KB a block may have.  The bound is still the operations: 320
 //    flops a pair (192 for S, 128 for P V) against 256 at hd 128.
+//    At hd 80 (HuBERT-XLarge, bidirectional) the kernel runs the hd-128
+//    tiles with tensor maps of the true width: a row is two 64-column
+//    boxes, and TMA fills columns 80-127 of the second with zeros, so S
+//    and P V run at 128 and 37.5% of their products multiply zeros; only
+//    80 output columns are written (Args::hd_out).  A 16-column box with
+//    a 32-byte swizzle would save that share at the cost of a second
+//    descriptor layout.
 //
 // 3. flash_fwd_kernel (bf16, hd 16 only: the reduced configurations' width,
 //    which no served model uses): the first, simple tensor-core version.
@@ -102,8 +112,10 @@
 //
 // 4. flash_fwd_f32_kernel (fp32 prefill: fp32 serving, every prefill chunk
 //    of `python -m repro_torch.launch.serve` by default, and the reduced
-//    configurations).  flash_ref computes in fp32; on the CUDA cores that
-//    work is bound by the fp32 rate (GLM's fp32 case, 1024 queries at
+//    configurations; q/k and v head dims apart: (16, 16), (64, 64),
+//    (80, 80), (128, 128) and MLA's (192, 128), 131 KB of shared memory
+//    there, one block an SM).  flash_ref computes in fp32; on the CUDA
+//    cores that work is bound by the fp32 rate (GLM's fp32 case, 1024 queries at
 //    offset 1024: 25.8 GFLOP of causal pairs, 0.385 ms at 67 TFLOP/s), and
 //    a kernel that feeds each FMA from shared memory reaches a fraction of
 //    it.  So both products run on the tensor cores in 3xTF32: each fp32
@@ -165,17 +177,22 @@ struct Bf16Tile {
   static constexpr int CHUNKS = HD * 2 / 16;   // 16-byte pieces per row
 };
 
-// Shared-memory layout of the fp32 kernel for head dim HD: q, then two
-// stages of (k, v).  Rows are HD + 4 floats apart, so the m16n8k8
-// fragments' reads (row gid, column tq of q and k; rows 2 tq, 2 tq + 1,
-// column gid of v) hit 32 distinct banks, and each row starts on 16 bytes.
-template <int HD>
+// Shared-memory layout of the fp32 kernel for q/k head dim HDK and v head
+// dim HDV: q, then two stages of (k, v).  q and K rows are HDK + 4 floats
+// apart, V rows HDV + 4, so the m16n8k8 fragments' reads (row gid, column
+// tq of q and k; rows 2 tq, 2 tq + 1, column gid of v) hit 32 distinct
+// banks, and each row starts on 16 bytes.  At (192, 128) that is 131 KB,
+// one block an SM.
+template <int HDK, int HDV>
 struct F32Tile {
-  static constexpr int LD = HD + 4;
-  static constexpr int Q_FLOATS = BM * LD;
-  static constexpr int KV_FLOATS = F32_BN * LD;
-  static constexpr int SMEM_BYTES = (Q_FLOATS + 4 * KV_FLOATS) * 4;
-  static constexpr int CHUNKS = HD / 4;      // 16-byte pieces per row
+  static constexpr int LDK = HDK + 4, LDV = HDV + 4;
+  static constexpr int Q_FLOATS = BM * LDK;
+  static constexpr int K_FLOATS = F32_BN * LDK;
+  static constexpr int STAGE_FLOATS = F32_BN * (LDK + LDV);   // K then V
+  static constexpr int SMEM_BYTES = (Q_FLOATS + 2 * STAGE_FLOATS) * 4;
+  static constexpr int CHUNKS_K = HDK / 4;   // 16-byte pieces per row
+  static constexpr int CHUNKS_V = HDV / 4;
+  static_assert(SMEM_BYTES <= 232448, "above a block's shared memory");
 };
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -224,6 +241,9 @@ struct Args {
   // row's logsumexp of its scaled scores, natural log (+inf for a row with
   // no valid key), for the backward kernels.
   float* lse;
+  // TMA + wgmma kernel only: the output columns written, hd_v (below the
+  // tile's HDV where the head dim is zero-filled up to whole boxes).
+  int hd_out;
 
   __device__ __forceinline__ long long qoff(int b) const {
     return q_off ? q_off[b * q_off_stride] : q_off_const;
@@ -436,14 +456,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
   }
 }
 
-template <int HD, bool CAUSAL>
+template <int HDK, int HDV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_f32_kernel(const Args a) {
-  using L = F32Tile<HD>;
-  constexpr int LD = L::LD, CHUNKS = L::CHUNKS, BN = F32_BN;
+  using L = F32Tile<HDK, HDV>;
+  constexpr int LD = L::LDK, LDV = L::LDV, BN = F32_BN;
+  constexpr int CHUNKS = L::CHUNKS_K, CHUNKS_V = L::CHUNKS_V;
   extern __shared__ __align__(128) float fsmem[];
   float* q_s = fsmem;
-  float* kv_s = fsmem + L::Q_FLOATS;  // stage st: k at 2 st, v at 2 st + 1
+  float* kv_s = fsmem + L::Q_FLOATS;  // stage st: k, then v
   const auto* qg = static_cast<const float*>(a.q);
   const auto* kg = static_cast<const float*>(a.k);
   const auto* vg = static_cast<const float*>(a.v);
@@ -466,16 +487,21 @@ flash_fwd_f32_kernel(const Args a) {
     cp_async16(q_s + r * LD + c * 4, src, ok ? 16 : 0);
   }
   auto load_kv = [&](int stage, int n0) {
-    float* k_s = kv_s + (2 * stage) * L::KV_FLOATS;
-    float* v_s = k_s + L::KV_FLOATS;
+    float* k_s = kv_s + stage * L::STAGE_FLOATS;
+    float* v_s = k_s + L::K_FLOATS;
     for (int idx = tid; idx < BN * CHUNKS; idx += THREADS) {
       const int j = idx / CHUNKS, c = idx % CHUNKS;
       const long long key = n0 + j;
       const bool ok = key < kv_end;
       const float* ks = ok ? kg + b * a.skb + key * a.sks + hkv * a.skh + c * 4 : kg;
-      const float* vs = ok ? vg + b * a.svb + key * a.svs + hkv * a.svh + c * 4 : vg;
       cp_async16(k_s + j * LD + c * 4, ks, ok ? 16 : 0);
-      cp_async16(v_s + j * LD + c * 4, vs, ok ? 16 : 0);
+    }
+    for (int idx = tid; idx < BN * CHUNKS_V; idx += THREADS) {
+      const int j = idx / CHUNKS_V, c = idx % CHUNKS_V;
+      const long long key = n0 + j;
+      const bool ok = key < kv_end;
+      const float* vs = ok ? vg + b * a.svb + key * a.svs + hkv * a.svh + c * 4 : vg;
+      cp_async16(v_s + j * LDV + c * 4, vs, ok ? 16 : 0);
     }
   };
   if (n_tiles > 0) load_kv(0, 0);
@@ -490,9 +516,9 @@ flash_fwd_f32_kernel(const Args a) {
     row_lim[i] = tl.row_limit<CAUSAL>(warp * 16 + gid + 8 * i);
   const long long warp_lim = tl.row_limit<CAUSAL>(warp * 16);
 
-  float o[HD / 8][4];
+  float o[HDV / 8][4];
 #pragma unroll
-  for (int nf = 0; nf < HD / 8; ++nf)
+  for (int nf = 0; nf < HDV / 8; ++nf)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nf][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -503,13 +529,13 @@ flash_fwd_f32_kernel(const Args a) {
     cp_async_wait<1>();            // tile t (and the q tile) landed
     __syncthreads();
     if (t == 0) {                  // q *= scale log2 e, once
-      for (int idx = tid; idx < BM * HD; idx += THREADS)
-        q_s[(idx / HD) * LD + idx % HD] *= a.scale_log2;
+      for (int idx = tid; idx < BM * HDK; idx += THREADS)
+        q_s[(idx / HDK) * LD + idx % HDK] *= a.scale_log2;
       __syncthreads();
     }
     if (active) {
-      const float* k_s = kv_s + (2 * (t & 1)) * L::KV_FLOATS;
-      const float* v_s = k_s + L::KV_FLOATS;
+      const float* k_s = kv_s + (t & 1) * L::STAGE_FLOATS;
+      const float* v_s = k_s + L::K_FLOATS;
       const int n0 = t * BN;
 
       // S = (scale log2 e) q k^T: 16 rows x BN keys per warp, 3xTF32,
@@ -520,7 +546,7 @@ flash_fwd_f32_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = s_lo[j][e] = 0.f;
 #pragma unroll
-      for (int kd = 0; kd < HD / 8; ++kd) {
+      for (int kd = 0; kd < HDK / 8; ++kd) {
         const float* qp = q_s + (warp * 16 + gid) * LD + kd * 8 + tq;
         unsigned ah[4], al[4];
         split_tf32(qp[0], ah[0], al[0]);
@@ -577,15 +603,15 @@ flash_fwd_f32_kernel(const Args a) {
       // tile's products in fresh registers (the tensor core's truncating
       // accumulation stays 3 BN / 8 steps long) and adds them to O in
       // fp32.
-      const float* vp = v_s + 2 * tq * LD + gid;
+      const float* vp = v_s + 2 * tq * LDV + gid;
 #pragma unroll
-      for (int nf = 0; nf < HD / 8; ++nf) {
+      for (int nf = 0; nf < HDV / 8; ++nf) {
         float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int kk = 0; kk < BN / 8; ++kk) {
           unsigned bh[2], bl[2];
-          split_tf32(vp[kk * 8 * LD + nf * 8], bh[0], bl[0]);
-          split_tf32(vp[(kk * 8 + 1) * LD + nf * 8], bh[1], bl[1]);
+          split_tf32(vp[kk * 8 * LDV + nf * 8], bh[0], bl[0]);
+          split_tf32(vp[(kk * 8 + 1) * LDV + nf * 8], bh[1], bl[1]);
           mma_3xtf32(big, small, ph[kk], pl[kk], bh, bl);
         }
 #pragma unroll
@@ -608,7 +634,7 @@ flash_fwd_f32_kernel(const Args a) {
     const float denom = lsum[i] > 1e-20f ? lsum[i] : 1e-20f;
     float* dst = og + b * a.sob + qp * a.sos + h * a.soh + tq * 2;
 #pragma unroll
-    for (int nf = 0; nf < HD / 8; ++nf)
+    for (int nf = 0; nf < HDV / 8; ++nf)
       *reinterpret_cast<float2*>(dst + nf * 8) =
           make_float2(o[nf][2 * i] / denom, o[nf][2 * i + 1] / denom);
   }
@@ -1207,7 +1233,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   auto* og = static_cast<__nv_bfloat16*>(a.out);
 
   if (n_tiles == 0) {   // no row has a valid key: zeros, no loads
-    constexpr int CH = HDV / 8;
+    const int CH = a.hd_out / 8;
     const uint4 z = make_uint4(0, 0, 0, 0);
     for (int i = threadIdx.x; i < q_rows * G * CH; i += WG_THREADS) {
       const int r = i / CH, c = i % CH;
@@ -1387,9 +1413,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         __nv_bfloat16* dst = og + b * a.sob + pos * a.sos + h * a.soh + 2 * tq;
 #pragma unroll
         for (int j = 0; j < HDV / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-              __floats2bfloat162_rn(o[4 * j + 2 * i] / denom,
-                                    o[4 * j + 2 * i + 1] / denom);
+          if (8 * j < a.hd_out)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                __floats2bfloat162_rn(o[4 * j + 2 * i] / denom,
+                                      o[4 * j + 2 * i + 1] / denom);
         // m is in log2 units of the scaled scores, l = sum 2^(s - m).
         if (a.lse != nullptr && tq == 0)
           a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + pos] =
@@ -1400,17 +1427,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// The tensor maps have the operands' true head dims (hd, hd_v); a row of
+// fewer columns than the tile's HDK (HDV) whole boxes is zero-filled past
+// them by TMA, and only hd_v output columns are written.
 template <int HDK, int HDV>
-int launch_wgmma(bool causal, const Args& a, cudaStream_t s) {
+int launch_wgmma(bool causal, const Args& a, cudaStream_t s, int hd = HDK,
+                 int hd_v = HDV) {
   const int QT = WG_BM / a.G;
   CUtensorMap mq, mk, mv;
-  int err = make_map_4d(&mq, a.q, HDK, a.H, a.Sq, a.B, a.sqh, a.sqs, a.sqb,
+  int err = make_map_4d(&mq, a.q, hd, a.H, a.Sq, a.B, a.sqh, a.sqs, a.sqb,
                         a.G, QT);
   if (!err)
-    err = make_map_4d(&mk, a.k, HDK, a.Hkv, a.Sk, a.B, a.skh, a.sks, a.skb,
+    err = make_map_4d(&mk, a.k, hd, a.Hkv, a.Sk, a.B, a.skh, a.sks, a.skb,
                       1, WG_BN);
   if (!err)
-    err = make_map_4d(&mv, a.v, HDV, a.Hkv, a.Sk, a.B, a.svh, a.svs, a.svb,
+    err = make_map_4d(&mv, a.v, hd_v, a.Hkv, a.Sk, a.B, a.svh, a.svs, a.svb,
                       1, WG_BN);
   if (err) return err;
   auto kernel = causal ? flash_wgmma_kernel<HDK, HDV, true>
@@ -1474,29 +1505,30 @@ cudaError_t launch_tile(Kernel kernel, int smem, const Args& a,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HDK, int HDV = HDK>
 cudaError_t launch_f32(bool causal, const Args& a, cudaStream_t s) {
-  const auto kernel = causal ? flash_fwd_f32_kernel<HD, true>
-                             : flash_fwd_f32_kernel<HD, false>;
+  const auto kernel = causal ? flash_fwd_f32_kernel<HDK, HDV, true>
+                             : flash_fwd_f32_kernel<HDK, HDV, false>;
   // Two blocks of 99 KB an SM (hd 128) need the largest shared carveout.
   const cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
       cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  return launch_tile(kernel, F32Tile<HD>::SMEM_BYTES, a, s);
+  return launch_tile(kernel, F32Tile<HDK, HDV>::SMEM_BYTES, a, s);
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.
 //   (hd, hd_v): the head dims of q and k, and of v and out: (16, 16),
-//   (64, 64), (128, 128), or (192, 128) (MLA prefill, bf16 only).
-//   kernel: 0 TMA + wgmma prefill (bf16, (64, 64), (128, 128), (192, 128)),
-//   1 split-KV (bf16 at every pair, fp32 at the equal ones; splits,
-//   keys_per_split, row_tile 16 (fp32: 4 or 16) and, for splits > 1, a
-//   workspace of splits * B * Sq * H * (hd_v + 2) floats), 2 mma.sync
-//   prefill (bf16, (16, 16)), 3 fp32 prefill (the equal pairs).
+//   (64, 64), (80, 80), (128, 128), or (192, 128) (MLA prefill).
+//   kernel: 0 TMA + wgmma prefill (bf16, (64, 64), (80, 80), (128, 128),
+//   (192, 128)), 1 split-KV (bf16 at every pair but (80, 80), fp32 at
+//   (16, 16), (64, 64), (128, 128); splits, keys_per_split, row_tile 16
+//   (fp32: 4 or 16) and, for splits > 1, a workspace of splits * B * Sq *
+//   H * (hd_v + 2) floats), 2 mma.sync prefill (bf16, (16, 16)), 3 fp32
+//   prefill (every pair).
 //   dtype: 0 fp32, 1 bf16 (q, k, v and out alike).  Strides are in
 //   elements (batch, sequence, head of q, k, v and out; the head dim is
 //   unit-stride, and for bf16 the caller checks that bases and strides are
@@ -1519,8 +1551,8 @@ extern "C" int flash_attention_launch(
   const int inval = static_cast<int>(cudaErrorInvalidValue);
   const bool mla = hd == 192 && hd_v == 128;
   if (B < 1 || Sq < 1 || Hkv < 1 || H % Hkv || (dtype != 0 && dtype != 1) ||
-      !(mla || (hd == hd_v && (hd == 16 || hd == 64 || hd == 128))) ||
-      (mla && dtype != 1))
+      !(mla || (hd == hd_v && (hd == 16 || hd == 64 || hd == 80 ||
+                               hd == 128))))
     return inval;
   Args a;
   a.q = q;
@@ -1550,6 +1582,7 @@ extern "C" int flash_attention_launch(
   a.n_rt = 1;
   a.ws = static_cast<float*>(workspace);
   a.lse = static_cast<float*>(lse);
+  a.hd_out = hd_v;
   if (lse != nullptr && kernel != 0) return inval;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1, c = a.causal;
@@ -1559,9 +1592,12 @@ extern "C" int flash_attention_launch(
       if (!bf16 || hd == 16 || a.G > WG_BM || B > 65535 || Hkv > 65535)
         return inval;
       if (mla) return launch_wgmma<192, 128>(c, a, s);
+      // hd 80: two 64-column boxes a row, zero-filled past column 80.
+      if (hd == 80) return launch_wgmma<128, 128>(c, a, s, 80, 80);
       return hd == 128 ? launch_wgmma<128, 128>(c, a, s)
                        : launch_wgmma<64, 64>(c, a, s);
     case 1: {  // split-KV
+      if (hd == 80 || (mla && !bf16)) return inval;
       if (splits < 1 || keys_per_split < 1 ||
           (row_tile != 16 && (bf16 || row_tile != 4)) ||
           static_cast<long long>(splits - 1) * keys_per_split >= (Sk > 0 ? Sk : 1) ||
@@ -1599,10 +1635,15 @@ extern "C" int flash_attention_launch(
       return static_cast<int>(err);
     case 3:   // fp32 prefill
       if (bf16 || a.G > BM || B > 65535 || Hkv > 65535) return inval;
-      switch (hd) {
-        case 16: err = launch_f32<16>(c, a, s); break;
-        case 64: err = launch_f32<64>(c, a, s); break;
-        default: err = launch_f32<128>(c, a, s);
+      if (mla) {
+        err = launch_f32<192, 128>(c, a, s);
+      } else {
+        switch (hd) {
+          case 16: err = launch_f32<16>(c, a, s); break;
+          case 64: err = launch_f32<64>(c, a, s); break;
+          case 80: err = launch_f32<80>(c, a, s); break;
+          default: err = launch_f32<128>(c, a, s);
+        }
       }
       return static_cast<int>(err);
     default:

@@ -1,6 +1,7 @@
 // Flash attention backward for Hopper (sm_90a): GQA, bf16, full sequences
-// (the training step), causal or not, at (q/k, v) head dims (128, 128) (B4)
-// and (192, 128) (B4m: DeepSeek-V3's MLA, nope 128 + rope 64, v 128).
+// (the training step), causal or not, at (q/k, v) head dims (128, 128) and
+// (80, 80) (B4; 80 is HuBERT-XLarge's, bidirectional) and (192, 128) (B4m:
+// DeepSeek-V3's MLA, nope 128 + rope 64, v 128).
 //
 // The JAX package has no backward kernel: it differentiates
 // repro/models/attention.py:flash_ref (the plain version of the Pallas
@@ -73,6 +74,12 @@
 // Registers: setmaxnreg gives each consumer thread 240 and the producer 24
 // (384 threads, one block an SM at 195 KB of shared memory at (128, 128));
 // ptxas reports no spills.
+// (80, 80) runs the same kernels on the same (128, 128) tiles: the tensor
+// maps have the operands' true width, so a row is two 64-column boxes,
+// the second zero-filled past column 80 by TMA; every product runs at 128
+// (37.5% of each multiplies zeros), and dq, dk, dv store 80 columns a row
+// (Bwd::hdk, hdv).  The prep kernel's rowsum(do o) loops over HDV / 2
+// bf16 pairs a warp, for 128 and 80 alike.
 //
 // Design at (192, 128) (B4m): the q and K rows are three 64-column boxes,
 // do and V two, and dk alone holds 96 fp32 a thread, so B4's dK/dV block
@@ -121,7 +128,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int HDV_PREP = 128;                // v head dim of every pair
 constexpr int CONSUMERS = 2;                 // warpgroups of 64 rows
 constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int ROWS = 64 * CONSUMERS;         // resident rows a block
@@ -136,7 +142,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 // bwd_dq_gemm_kernel, with SplitCfg and GemmCfg.
 template <int HDK, int HDV>
 struct Cfg {
-  static_assert(HDK == 128 && HDV == HDV_PREP, "B4's kernels: (128, 128)");
+  static_assert(HDK == 128 && HDV == 128, "B4's kernels: (128, 128) tiles");
   static constexpr int BK = HDK / 64, BV = HDV / 64;
   static constexpr int STREAM = 64;
   static constexpr int STAGES = 4;
@@ -190,6 +196,7 @@ struct Bwd {
   bf16 *dq, *dk, *dv;
   bf16* ds;                  // (192, 128): dS^T tiles, n_tri a (b, h)
   int B, S, S64, H, Hkv, G;
+  int hdk, hdv;              // the operands' head dims (row lengths)
   int n_tri;                 // 64 x 64 tiles of dS a (b, h)
   float scale, scale_log2;
   long long ws_half;         // B * H * S64
@@ -253,11 +260,12 @@ __device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], uint32_t tile,
 
 // Write 64 rows x N of an fp32 accumulator (m64nN layout), times `mul`,
 // as bf16 rows at dst(r) for each row r of the warpgroup below `limit`
-// (r counted from the warpgroup's first row `r0`).
+// (r counted from the warpgroup's first row `r0`); only the first `cols`
+// columns (a multiple of 8) where the row is shorter than the tile.
 template <int N, typename RowPtr>
 __device__ __forceinline__ void store_acc(const float (&acc)[N / 2],
                                           float mul, int r0, int limit,
-                                          RowPtr dst) {
+                                          RowPtr dst, int cols = N) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32 % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -266,11 +274,15 @@ __device__ __forceinline__ void store_acc(const float (&acc)[N / 2],
     bf16* p = dst(r) + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
-          acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
+      if (8 * j < cols)
+        *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
   }
 }
 
+// HDV: the v head dim, 128 or 80; lane l sums the bf16 pairs l, l + 32,
+// ... below HDV / 2.
+template <int HDV>
 __global__ void __launch_bounds__(256) bwd_prep_kernel(const Bwd a) {
   const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
   if (row >= a.ws_half) return;
@@ -281,13 +293,13 @@ __global__ void __launch_bounds__(256) bwd_prep_kernel(const Bwd a) {
   if (s < a.S) {
     const int h = static_cast<int>(bh % a.H);
     const long long b = bh / a.H;
-    const long long at = ((b * a.S + s) * a.H + h) * HDV_PREP + lane * 4;
+    const long long at = ((b * a.S + s) * a.H + h) * HDV;
+    const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(a.o + at);
+    const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(a.dout + at);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 o = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(a.o + at)[i]);
-      const float2 d = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(a.dout + at)[i]);
+    for (int i = lane; i < HDV / 2; i += 32) {
+      const float2 o = __bfloat1622float2(o2[i]);
+      const float2 d = __bfloat1622float2(d2[i]);
       sum += o.x * d.x + o.y * d.y;
     }
     sum = warp_sum(sum);
@@ -449,11 +461,11 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     const long long row0 = static_cast<long long>(b) * a.S * a.Hkv + hkv;
     store_acc<HDK>(dk, a.scale, kw0, a.S, [&](int r) {
-      return a.dk + (row0 + static_cast<long long>(r) * a.Hkv) * HDK;
-    });
+      return a.dk + (row0 + static_cast<long long>(r) * a.Hkv) * a.hdk;
+    }, a.hdk);
     store_acc<HDV>(dv, 1.f, kw0, a.S, [&](int r) {
-      return a.dv + (row0 + static_cast<long long>(r) * a.Hkv) * HDV;
-    });
+      return a.dv + (row0 + static_cast<long long>(r) * a.Hkv) * a.hdv;
+    }, a.hdv);
   }
 }
 
@@ -998,8 +1010,8 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     const long long row0 = static_cast<long long>(b) * a.S * a.H + h;
     store_acc<HDK>(dq, a.scale, qw0, a.S, [&](int r) {
-      return a.dq + (row0 + static_cast<long long>(r) * a.H) * HDK;
-    });
+      return a.dq + (row0 + static_cast<long long>(r) * a.H) * a.hdk;
+    }, a.hdk);
   }
 }
 
@@ -1015,14 +1027,18 @@ int launch(Kernel kernel, long long blocks, int smem, cudaStream_t s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor maps and the two main kernels of the pair (HDK, HDV).
+// The tensor maps and the two main kernels of the tiles (HDK, HDV).  The
+// maps have the operands' own head dims (a.hdk, a.hdv): at (80, 80) a row
+// is two 64-column boxes of the (128, 128) tiles, zero-filled past column
+// 80 by TMA, and the outputs' rows are 80 long.
 template <int HDK, int HDV>
 int run(const void* q, const void* k, const void* v, const long long (&ks)[3],
         const long long (&vs)[3], const Bwd& a, bool causal, int parts,
         cudaStream_t s) {
   const int B = a.B, S = a.S, H = a.H, Hkv = a.Hkv;
-  const long long sq = static_cast<long long>(H) * HDK;
-  const long long sdo = static_cast<long long>(H) * HDV;
+  const int hk = a.hdk, hv = a.hdv;
+  const long long sq = static_cast<long long>(H) * hk;
+  const long long sdo = static_cast<long long>(H) * hv;
   if constexpr (HDK == 192) {
     // dK/dV: 64-row boxes of q, do (streamed) and K, V (resident); dQ: K
     // again and the dS^T tiles, rows of 64 queries.
@@ -1057,27 +1073,27 @@ int run(const void* q, const void* k, const void* v, const long long (&ks)[3],
     // dkdv streams STREAM queries and holds ROWS keys; dq holds ROWS
     // queries and streams KT keys.
     CUtensorMap m_dkdv[4], m_dq[4];
-    int err = make_map_4d(&m_dkdv[0], q, HDK, H, S, B, HDK, sq, S * sq, 1,
+    int err = make_map_4d(&m_dkdv[0], q, hk, H, S, B, hk, sq, S * sq, 1,
                           C::STREAM);
     if (!err)
-      err = make_map_4d(&m_dkdv[1], a.dout, HDV, H, S, B, HDV, sdo, S * sdo,
+      err = make_map_4d(&m_dkdv[1], a.dout, hv, H, S, B, hv, sdo, S * sdo,
                         1, C::STREAM);
     if (!err)
-      err = make_map_4d(&m_dkdv[2], k, HDK, Hkv, S, B, ks[0], ks[1], ks[2], 1,
+      err = make_map_4d(&m_dkdv[2], k, hk, Hkv, S, B, ks[0], ks[1], ks[2], 1,
                         ROWS);
     if (!err)
-      err = make_map_4d(&m_dkdv[3], v, HDV, Hkv, S, B, vs[0], vs[1], vs[2], 1,
+      err = make_map_4d(&m_dkdv[3], v, hv, Hkv, S, B, vs[0], vs[1], vs[2], 1,
                         ROWS);
     if (!err)
-      err = make_map_4d(&m_dq[0], q, HDK, H, S, B, HDK, sq, S * sq, 1, ROWS);
+      err = make_map_4d(&m_dq[0], q, hk, H, S, B, hk, sq, S * sq, 1, ROWS);
     if (!err)
-      err = make_map_4d(&m_dq[1], a.dout, HDV, H, S, B, HDV, sdo, S * sdo, 1,
+      err = make_map_4d(&m_dq[1], a.dout, hv, H, S, B, hv, sdo, S * sdo, 1,
                         ROWS);
     if (!err)
-      err = make_map_4d(&m_dq[2], k, HDK, Hkv, S, B, ks[0], ks[1], ks[2], 1,
+      err = make_map_4d(&m_dq[2], k, hk, Hkv, S, B, ks[0], ks[1], ks[2], 1,
                         C::KT);
     if (!err)
-      err = make_map_4d(&m_dq[3], v, HDV, Hkv, S, B, vs[0], vs[1], vs[2], 1,
+      err = make_map_4d(&m_dq[3], v, hv, Hkv, S, B, vs[0], vs[1], vs[2], 1,
                         C::KT);
     if (err) return err;
     const long long tiles = (S + ROWS - 1) / ROWS;
@@ -1098,7 +1114,8 @@ int run(const void* q, const void* k, const void* v, const long long (&ks)[3],
 
 // Plain C entry point, bound with ctypes.  q, dq: (B, S, H, hdk); o, do:
 // (B, S, H, hdv); k, dk: (B, S, Hkv, hdk); v, dv: (B, S, Hkv, hdv); all
-// bf16 and contiguous; (hdk, hdv) is (128, 128) or (192, 128).  lse:
+// bf16 and contiguous; (hdk, hdv) is (80, 80), (128, 128) or (192, 128).
+// lse:
 // (B, H, S) fp32 from the forward; ws: an fp32 workspace of 2 B H S64
 // floats, S64 = S rounded up to 64 (16-byte aligned); ds, at (192, 128)
 // only (else null): a bf16 workspace of B H n_tri 64 x 64 tiles, n_tri =
@@ -1116,7 +1133,8 @@ extern "C" int flash_attention_bwd_launch(
     long long skb, long long svh, long long svs, long long svb,
     void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || B > 65535 ||
-      hdv != HDV_PREP || (hdk != 128 && hdk != 192))
+      !((hdk == 80 && hdv == 80) || (hdk == 128 && hdv == 128) ||
+        (hdk == 192 && hdv == 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   Bwd a;
   a.o = static_cast<const bf16*>(o);
@@ -1139,6 +1157,8 @@ extern "C" int flash_attention_bwd_launch(
   a.H = H;
   a.Hkv = Hkv;
   a.G = H / Hkv;
+  a.hdk = hdk;
+  a.hdv = hdv;
   a.scale = scale;
   a.scale_log2 = scale * LOG2E;
   a.ws_half = static_cast<long long>(B) * H * a.S64;
@@ -1148,14 +1168,16 @@ extern "C" int flash_attention_bwd_launch(
   // A prep-less call (parts without 1) makes the context current with a
   // runtime call of its own.
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (parts & 1)
-    bwd_prep_kernel<<<static_cast<unsigned>((a.ws_half + 7) / 8), 256, 0,
-                      s>>>(a);
+  const unsigned prep_blocks = static_cast<unsigned>((a.ws_half + 7) / 8);
+  if ((parts & 1) && hdv == 80)
+    bwd_prep_kernel<80><<<prep_blocks, 256, 0, s>>>(a);
+  else if (parts & 1)
+    bwd_prep_kernel<128><<<prep_blocks, 256, 0, s>>>(a);
   else
     cudaFree(nullptr);
   const int err = static_cast<int>(cudaGetLastError());
   if (err || !(parts & 6)) return err;
   const long long ks[3] = {skh, sks, skb}, vs[3] = {svh, svs, svb};
-  return hdk == 128 ? run<128, 128>(q, k, v, ks, vs, a, causal != 0, parts, s)
-                    : run<192, 128>(q, k, v, ks, vs, a, causal != 0, parts, s);
+  return hdk == 192 ? run<192, 128>(q, k, v, ks, vs, a, causal != 0, parts, s)
+                    : run<128, 128>(q, k, v, ks, vs, a, causal != 0, parts, s);
 }

@@ -24,13 +24,17 @@ lengths are never read on the host):
 * ``decode_split``: the split-KV kernel (bf16 or fp32) for every launch
   whose prefill grid (q tiles x Hkv x B) would fill less than
   ``PREFILL_FILL`` (three quarters) of the card's SMs -- every decode
-  step.  The keys are cut into splits, from the cache capacity Sk, so the
+  step -- at the head dims it takes (``SPLIT_HEAD_DIMS``: not 80, and
+  (192, 128) in bf16 only; those launches take the prefill kernel whatever
+  the grid).  The keys are cut into splits, from the cache capacity Sk, so the
   grid holds at least two blocks per SM; a second small kernel combines
   the splits' partials from an fp32 workspace.
 * ``prefill_wgmma``: the TMA + ``wgmma`` kernel for every other bf16 launch
-  at head dims 64, 128 or (192, 128) (128-row q tiles): every serve
+  at head dims 64, 80, 128 or (192, 128) (128-row q tiles): every serve
   prefill chunk, DeepSeek-V3's MLA chunks of at most 128 tokens among
-  them (128 blocks of 132 SMs).
+  them (128 blocks of 132 SMs), and HuBERT's bidirectional attention at
+  head dim 80, whose rows are two 64-column boxes zero-filled past column
+  80 (the products run at 128: 37.5% of them multiply zeros).
 * ``prefill_mma_hd16``: the ``mma.sync`` kernel for the other bf16
   launches at head dim 16, the reduced configurations' width.
 * ``prefill_f32``: the fp32 kernel for the other fp32 launches (every fp32
@@ -41,10 +45,10 @@ lengths are never read on the host):
 q, k, v are all bf16 (tensor cores, P rounded to bf16) or all fp32 (fp32
 results: the split-KV kernel computes in fp32 on the CUDA cores, the
 prefill kernel in 3xTF32), at a (q/k, v) pair of head dims in
-``HEAD_DIMS``: 16, 64 or 128 for both (128 is the width of the GQA models,
-16 that of the reduced configurations), or q/k 192 and v 128 in bf16
-(DeepSeek-V3's MLA prefill: nope 128 + rope 64, v 128).  Any other pair or
-dtype raises a ``ValueError`` that names it (fp32 MLA among them).
+``HEAD_DIMS``: 16, 64, 80 or 128 for both (128 is the width of the GQA
+models, 80 HuBERT-XLarge's, 16 that of the reduced configurations), or
+q/k 192 and v 128 (DeepSeek-V3's MLA prefill: nope 128 + rope 64, v 128).
+Any other pair raises a ``ValueError`` that names it.
 ``q_offset`` and ``kv_valid_len`` are a Python int or a (B,) tensor on the
 tensors' device, which the kernels read there (no host sync).  The wrapper
 counts its calls that launched in ``flash_attention.launches`` and, by
@@ -67,8 +71,9 @@ run; k and v may be strided views, as MLA makes them, read in place
 where TMA can), counted
 in ``flash_attention_bwd.launches`` (and by head-dim pair in
 ``flash_attention_bwd.launches_by_dims``).  Both take bf16 at the (q/k, v)
-head dims of ``BWD_HEAD_DIMS``, (128, 128) and MLA's (192, 128), and raise
-a ``ValueError`` naming anything else (fp32, 64, 16, 80) before any
+head dims of ``BWD_HEAD_DIMS``, (80, 80), (128, 128) and MLA's (192, 128)
+((80, 80) on the (128, 128) tiles, rows zero-filled past column 80), and
+raise a ``ValueError`` naming anything else (fp32, 64, 16) before any
 launch.  The JAX package has no backward kernel: XLA
 differentiates ``flash_ref``.  The plain version of the backward,
 ``flash_attention_bwd_ref``, is autograd through ``flash_attention_ref``
@@ -90,7 +95,8 @@ from repro_torch.kernels.build import KernelLibrary
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "plan_launch", "Plan", "HEAD_DIMS",
-           "BWD_HEAD_DIMS", "KERNELS", "LIBRARY", "LIBRARY_BWD"]
+           "SPLIT_HEAD_DIMS", "BWD_HEAD_DIMS", "KERNELS", "LIBRARY",
+           "LIBRARY_BWD"]
 
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).parent / "csrc" / "flash_attention.cu")
@@ -102,8 +108,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (q/k head dim, v head dim) -> the dtypes the kernels take at that pair.
 HEAD_DIMS = {(16, 16): (torch.float32, torch.bfloat16),
              (64, 64): (torch.float32, torch.bfloat16),
+             (80, 80): (torch.float32, torch.bfloat16),   # HuBERT-XLarge
              (128, 128): (torch.float32, torch.bfloat16),
-             (192, 128): (torch.bfloat16,)}          # MLA prefill
+             (192, 128): (torch.float32, torch.bfloat16)}  # MLA prefill
+# q/k head dim -> the dtypes the split-KV kernel takes there; every other
+# launch takes the prefill kernel of its dtype whatever its grid.  MLA
+# decode attends on the latent cache without flash, and HuBERT never
+# decodes.
+SPLIT_HEAD_DIMS = {16: (torch.float32, torch.bfloat16),
+                   64: (torch.float32, torch.bfloat16),
+                   128: (torch.float32, torch.bfloat16),
+                   192: (torch.bfloat16,)}
 # Kernel names, in the order of their codes in flash_attention_launch.
 KERNELS = ("prefill_wgmma", "decode_split", "prefill_mma_hd16", "prefill_f32")
 TILE_ROWS = {"prefill_wgmma": 128, "prefill_mma_hd16": 64, "prefill_f32": 64}
@@ -134,12 +149,13 @@ def plan_launch(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
                 dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
     """The kernel for these shapes, from the shapes alone.
 
-    The prefill kernel by dtype and q/k head dim ``hd`` (bf16 at 64, 128
-    or 192: the TMA + wgmma kernel; bf16 at 16: the mma.sync one; fp32:
-    the 3xTF32 one)
+    The prefill kernel by dtype and q/k head dim ``hd`` (bf16 at 64, 80,
+    128 or 192: the TMA + wgmma kernel; bf16 at 16: the mma.sync one;
+    fp32: the 3xTF32 one)
     unless its grid of q tiles (``TILE_ROWS / G`` positions each) times
     Hkv times B is below ``PREFILL_FILL`` of ``sms`` (``sms=1`` always
-    picks the prefill kernel): then the split-KV kernel, with
+    picks the prefill kernel) and the split-KV kernel takes ``hd`` in
+    ``dtype`` (``SPLIT_HEAD_DIMS``): then the split-KV kernel, with
     enough splits of Sk that B * Hkv * row tiles * splits >= 2 * sms, or
     as many as splits of SPLIT_KEYS keys allow.
     """
@@ -149,7 +165,8 @@ def plan_launch(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
     else:
         prefill = "prefill_f32"
     per_tile = max(1, TILE_ROWS[prefill] // G)        # query positions
-    if -(-Sq // per_tile) * Hkv * B >= PREFILL_FILL * sms:
+    if -(-Sq // per_tile) * Hkv * B >= PREFILL_FILL * sms or \
+            dtype not in SPLIT_HEAD_DIMS.get(hd, ()):
         if G > TILE_ROWS[prefill]:
             raise ValueError(f"{G} query heads per KV head exceed the "
                              f"{prefill} kernel's {TILE_ROWS[prefill]}-row "
@@ -301,9 +318,7 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None,
         raise TypeError(f"the flash attention kernel takes q, k, v all bf16 "
                         f"or all fp32, not {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dtype not in HEAD_DIMS.get((hd, hd_v), ()):
-        pairs = ", ".join(
-            f"({a}, {b})" + ("" if len(t) == 2 else " bf16 only")
-            for (a, b), t in HEAD_DIMS.items())
+        pairs = ", ".join(f"({a}, {b})" for a, b in HEAD_DIMS)
         raise ValueError(f"the flash attention kernel takes (q/k, v) head "
                          f"dims {pairs}, not ({hd}, {hd_v}) in {q.dtype}")
     if k.device != q.device or v.device != q.device:
@@ -383,9 +398,9 @@ flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 # ---------------------------------------------------------------- backward
 
-# (q/k, v) head dims the backward kernel takes, all in bf16: the GQA
-# models' 128 and DeepSeek-V3's MLA (nope 128 + rope 64, v 128).
-BWD_HEAD_DIMS = ((128, 128), (192, 128))
+# (q/k, v) head dims the backward kernel takes, all in bf16: HuBERT-XLarge's
+# 80, the GQA models' 128 and DeepSeek-V3's MLA (nope 128 + rope 64, v 128).
+BWD_HEAD_DIMS = ((80, 80), (128, 128), (192, 128))
 
 
 def _bwd_contract(q, k, v) -> None:

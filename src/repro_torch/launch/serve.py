@@ -19,10 +19,13 @@ Example (on a card; ``--dtype`` is float32, the default, or bfloat16):
       --reduce --wire-dtype int8 --ffn-dtype int8     # the w8a8 expert path
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
       --layers 4 --dtype bfloat16 --chunk 256     # full width: 3 dense + 1 MoE
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+      --layers 2 --requests 2                     # fp32: 2 dense layers
 
-DeepSeek-V3's MLA prefill attends at q/k head dim 192 and v head dim 128,
-which the flash kernel takes in bf16 only: in fp32 on a card the first
-prefill raises a ValueError that names the dims.
+Every arch that decodes serves: the paper's two, Jamba-v0.1, DeepSeek-V3,
+DBRX-132B, Qwen2-72B, Mistral-Large-123B, InternLM2-1.8B, Qwen3-0.6B,
+Mamba2-130M and InternVL2-26B (text tokens, as the reference's engine);
+HuBERT-XLarge is an encoder and raises.
 
 Expert parallelism: under ``torchrun`` (``WORLD_SIZE`` and ``RANK`` set)
 every process is one rank of an EP group of ``WORLD_SIZE`` ranks, NCCL on

@@ -86,14 +86,24 @@ def runtime_for(cfg: ModelConfig, shape: ShapeSpec, *,
     return RuntimeConfig(**kw)
 
 
-def _batch_shapes(shape: ShapeSpec) -> dict:
+def _batch_shapes(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """The cell's batch on the ``meta`` device: tokens (and targets when
+    training), or a stub frontend's bf16 inputs as the reference's cells
+    give them: frames (B, S, D) in place of the tokens, patches (B, P, D)
+    beside them except at decode."""
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
         S = 1
     meta = dict(dtype=torch.int32, device="meta")
+    act = dict(dtype=torch.bfloat16, device="meta")
     out = {"tokens": torch.empty((B, S), **meta)}
     if shape.kind == "train":
         out["targets"] = torch.empty((B, S), **meta)
+    if cfg.frontend == "audio_frames":
+        out["frames"] = torch.empty((B, S, cfg.d_model), **act)
+        out.pop("tokens")
+    if cfg.frontend == "vision_patches" and shape.kind != "decode":
+        out["patches"] = torch.empty((B, cfg.num_patches, cfg.d_model), **act)
     return out
 
 
@@ -111,7 +121,7 @@ def build_cell(arch: str, shape_name: str, pctx: ParallelCtx, *,
     rcfg = runtime_for(cfg, shape, balancer_mode=balancer_mode,
                        analysis=analysis, **(rcfg_overrides or {}))
     params_shape = init_lm(cfg, rcfg, pctx, None, device="meta")
-    bshapes = _batch_shapes(shape)
+    bshapes = _batch_shapes(cfg, shape)
     meta = {"cfg": cfg, "rcfg": rcfg, "shape": shape}
 
     if shape.kind == "train":

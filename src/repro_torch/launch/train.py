@@ -38,12 +38,16 @@ those fix (``--seq``, ``--balancer``, ``--reduce``, ``--lr``, ``--dtype``,
       --cell train_4k --layers 4 --batch 1 --steps 3 --loss-chunks 8 \
       --ckpt-every 0    # DeepSeek-V3, 3 dense + 1 MoE layer, on an H100
 
-What trains on the card: bf16 GQA attention at head dim 128 (B4) and
-DeepSeek-V3's MLA at (192, 128) (B4m), the Mamba-2 mixer (the SSD
+What trains on the card: bf16 GQA attention at head dims 128 and 80
+(B4; 80 is HuBERT-XLarge's, bidirectional) and DeepSeek-V3's MLA at
+(192, 128) (B4m), the Mamba-2 mixer at Jamba's (64, 16) (the SSD
 intra-chunk backward, B5), the bf16 and fp32 expert FFN (B1-B3) and the
-router's top-k; so GLM-4.5-Air, Qwen3-235B-A22B, Jamba-v0.1 and
-DeepSeek-V3.  fp32 attention, head dims other than those two pairs, and
-the int8 wire and FFN raise a ValueError there and train on the CPU.
+router's top-k; so GLM-4.5-Air, Qwen3-235B-A22B, Jamba-v0.1,
+DeepSeek-V3, DBRX-132B, Qwen2-72B, Mistral-Large-123B, InternLM2-1.8B,
+Qwen3-0.6B, HuBERT-XLarge (frames through its stub frontend) and
+InternVL2-26B (patches spliced over the first positions).  fp32
+attention, Mamba2-130M's (64, 128) (no B5 there yet), and the int8 wire
+and FFN raise a ValueError there and train on the CPU.
 Training remats each layer by default (``train(remat=False)`` keeps
 every activation; a cell's runtime fixes it on).
 """
@@ -112,7 +116,11 @@ class TrainRun:
 class Trainer:
     """What :func:`build` makes: the configs, the train state, the step
     function and the data stream, and ``batch(step)``, a step's global
-    batch as int64 tensors on the device."""
+    batch on the device: the stream's tokens and targets as int64, and
+    for a stub frontend (as the reference's ``batch_fn``) frames (B, S, D)
+    in place of the tokens or patches (B, P, D) beside them, standard
+    normal in the model's dtype from a ``torch.Generator`` on the device
+    seeded with (seed, step)."""
 
     cfg: object
     rcfg: RuntimeConfig
@@ -123,9 +131,25 @@ class Trainer:
     device: object
 
     def batch(self, step: int) -> dict:
-        return {k: torch.from_numpy(v).to(device=self.device,
-                                          dtype=torch.int64)
-                for k, v in self.stream.batch(step).items()}
+        out = {k: torch.from_numpy(v).to(device=self.device,
+                                         dtype=torch.int64)
+               for k, v in self.stream.batch(step).items()}
+        frontend = self.cfg.frontend
+        if frontend == "none":
+            return out
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self.stream.cfg.seed << 32) + step)
+        B, S = out["targets"].shape
+        D = self.cfg.d_model
+        rows = S if frontend == "audio_frames" else self.cfg.num_patches
+        x = torch.randn((B, rows, D), generator=gen, dtype=self.rcfg.dtype,
+                        device=self.device)
+        if frontend == "audio_frames":
+            del out["tokens"]
+            out["frames"] = x
+        else:
+            out["patches"] = x
+        return out
 
 
 def build(arch, *, steps: int = 100, batch: int = 8, seq: int = 128,

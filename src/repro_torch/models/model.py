@@ -5,7 +5,13 @@ Mirrors ``repro.models.model``: :class:`LMParams`, :func:`init_lm`,
 :func:`init_router_bias`, the full-sequence :func:`forward` and the losses
 :func:`lm_loss` and :func:`blocked_lm_loss` (training), :func:`init_caches`,
 :func:`prefill_step` and :func:`decode_step` (serving), :func:`param_count`.
-Modality frontends are not ported.  The layers are a list (one block per layer) where the
+The modality frontends are the reference's stubs: a (D, D) projection,
+``frontend_proj``, of precomputed frame embeddings (``audio_frames``: the
+input is ``batch["frames"]`` (B, S, D), no tokens) or of patch embeddings
+spliced over the first P positions of the token embeddings
+(``vision_patches``: ``batch["patches"]`` (B, P, D)); :func:`forward` takes
+them, while :func:`prefill_step` and :func:`decode_step` embed tokens only,
+as the JAX ones do.  The layers are a list (one block per layer) where the
 JAX package stacks scanned segments; caches are one entry per layer, a
 :class:`KVCache` for an attention layer and an :class:`SSMState` for a
 Mamba layer.
@@ -33,17 +39,21 @@ __all__ = ["LMParams", "init_lm", "init_router_bias", "forward", "lm_loss",
 
 class LMParams(nn.Module):
     """embedding (V, D), one BlockParams per layer, final_norm (D,),
-    lm_head (V, D) or None when tied.  Built with ``requires_grad=False``
-    (serving); ``requires_grad_(True)`` makes every parameter trainable
+    lm_head (V, D) or None when tied, frontend_proj (D, D) for a modality
+    frontend stub or None.  Built with ``requires_grad=False`` (serving);
+    ``requires_grad_(True)`` makes every parameter trainable
     (``repro_torch.train.loop.init_train_state`` does)."""
 
-    def __init__(self, embedding, layers, final_norm, lm_head=None):
+    def __init__(self, embedding, layers, final_norm, lm_head=None,
+                 frontend_proj=None):
         super().__init__()
         self.embedding = nn.Parameter(embedding, requires_grad=False)
         self.layers = nn.ModuleList(layers)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.lm_head = None if lm_head is None else nn.Parameter(
             lm_head, requires_grad=False)
+        self.frontend_proj = None if frontend_proj is None else nn.Parameter(
+            frontend_proj, requires_grad=False)
 
     def head(self) -> torch.Tensor:
         return self.embedding if self.lm_head is None else self.lm_head
@@ -55,21 +65,25 @@ def init_lm(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
 
     On an EP group each rank draws every weight from the same seed and
     keeps its own experts of each MoE layer (``init_moe_params``), so the
-    group's ranks together hold what one rank holds at ``ep_size == 1``."""
-    if cfg.frontend != "none":
-        raise ValueError(f"{cfg.name}: modality frontends are not ported yet")
+    group's ranks together hold what one rank holds at ``ep_size == 1``.
+    A frontend stub's projection, N(0, 1 / D) as the reference's, is drawn
+    last."""
     layers = [init_block(cfg, kind, rcfg, pctx, generator, device=device)
               for kind in layer_kinds(cfg)]
     D, V = cfg.d_model, cfg.vocab_size
 
-    def normal(shape):
+    def normal(shape, std=0.02):
         return torch.randn(shape, generator=generator, dtype=rcfg.dtype,
-                           device=device) * 0.02
+                           device=device) * std
 
+    embedding = normal((V, D))
+    lm_head = None if cfg.tie_embeddings else normal((V, D))
     return LMParams(
-        embedding=normal((V, D)), layers=layers,
+        embedding=embedding, layers=layers,
         final_norm=torch.ones(D, dtype=rcfg.dtype, device=device),
-        lm_head=None if cfg.tie_embeddings else normal((V, D)))
+        lm_head=lm_head,
+        frontend_proj=(None if cfg.frontend == "none"
+                       else normal((D, D), D ** -0.5)))
 
 
 def init_router_bias(cfg: ModelConfig, *, device="cuda"
@@ -81,11 +95,29 @@ def init_router_bias(cfg: ModelConfig, *, device="cuda"
                        dtype=torch.float32, device=device)
 
 
+def _input_embeddings(params: LMParams, batch: dict,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Embed the tokens, or take the stub frontend's embeddings: frames
+    (B, S, D) through ``frontend_proj``, or projected patches (B, P, D)
+    over the first P token positions (mirrors the reference's
+    ``_input_embeddings``).  The stub's inputs are cast to the
+    projection's dtype."""
+    proj = params.frontend_proj
+    if cfg.frontend == "audio_frames":
+        return batch["frames"].to(proj.dtype) @ proj
+    x = embed(batch["tokens"], params.embedding)
+    if cfg.frontend == "vision_patches":
+        patches = batch["patches"].to(proj.dtype) @ proj          # (B, P, D)
+        x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
+    return x
+
+
 def forward(params: LMParams, batch: dict, cfg: ModelConfig,
             rcfg: RuntimeConfig, pctx: ParallelCtx, *,
             router_bias: torch.Tensor | None = None,
             return_hidden: bool = False):
-    """Full-sequence forward of ``batch["tokens"]`` (B, S).
+    """Full-sequence forward of ``batch["tokens"]`` (B, S), or of a stub
+    frontend's ``batch["frames"]`` / ``batch["patches"]``.
 
     Returns (logits, aux_loss, drops, counts) where counts is the
     (num_layers, E) realized per-layer expert load (zeros on non-MoE
@@ -98,9 +130,7 @@ def forward(params: LMParams, batch: dict, cfg: ModelConfig,
     (on a mesh) EP collectives included, in the same order on every rank.
     aux, drops and counts are this forward's; the recompute's copies feed
     only the gradient.  No layer draws random numbers."""
-    if cfg.frontend != "none":
-        raise ValueError(f"{cfg.name}: modality frontends are not ported yet")
-    x = embed(batch["tokens"], params.embedding)
+    x = _input_embeddings(params, batch, cfg)
     dev = x.device
     aux_tot = torch.zeros((), dtype=torch.float32, device=dev)
     drops_tot = torch.zeros((), dtype=torch.int64, device=dev)

@@ -119,7 +119,7 @@ def loss_and_grads(params: LMParams, batch: dict, cfg: ModelConfig,
         p.grad = None
     n = max(1, tcfg.microbatches)
     D = pctx.data_size
-    B = batch["tokens"].shape[0]
+    B = batch["targets"].shape[0]
     if B % n:
         raise ValueError(f"batch {B} does not split into {n} microbatches")
     loss = drops = counts = None
@@ -161,7 +161,7 @@ def global_grads(params: LMParams, batch: dict, cfg: ModelConfig,
     if pctx.world_size == 1:
         return loss_and_grads(params, batch, cfg, rcfg, pctx, tcfg,
                               router_bias)
-    if sharding.batch_replicated(pctx, batch["tokens"].shape[0]):
+    if sharding.batch_replicated(pctx, batch["targets"].shape[0]):
         pctx = dataclasses.replace(pctx, batch_replicated=True)
     loss, drops, counts, grads = loss_and_grads(
         params, sharding.local_batch(batch, pctx), cfg, rcfg, pctx, tcfg,

@@ -36,7 +36,8 @@ def _qkv(B, Sq, Sk, H, Hkv, hd, seed=0):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S,d,bq,bk", [(256, 64, 128, 128), (512, 128, 256, 512)])
+@pytest.mark.parametrize("S,d,bq,bk", [(256, 64, 128, 128), (512, 128, 256, 512),
+                                      (256, 80, 128, 128)])
 def test_plain_version_matches_pallas_interpret(causal, S, d, bq, bk):
     import jax.numpy as jnp
 
@@ -62,16 +63,19 @@ CASES = [
     (3, 1, 70, 16, 1, False, 0, [70, 2, 41]),          # decode, GQA 16
     (1, 40, 40, 4, 4, True, 0, None),                  # full sequence
 ]
+# HuBERT-XLarge's head dim, bidirectional over a full sequence, and causal
+# GQA with offsets.
+HD80_REF_CASES = [(2, 48, 48, 4, 4, False, 0, None),
+                  (2, 24, 77, 8, 2, True, [0, 37], [24, 61])]
 
 
-@pytest.mark.parametrize("case", CASES, ids=str)
-def test_plain_version_matches_jax_flash_ref(case):
+def _check_against_jax_flash_ref(case, hd):
     import jax.numpy as jnp
 
     from repro.models.attention import flash_ref as jax_flash_ref
 
     B, Sq, Sk, H, Hkv, causal, q_off, kv_len = case
-    q, k, v = _qkv(B, Sq, Sk, H, Hkv, 32, seed=1)
+    q, k, v = _qkv(B, Sq, Sk, H, Hkv, hd, seed=1)
     j_off = q_off if isinstance(q_off, int) else jnp.asarray(q_off)
     j_len = None if kv_len is None else jnp.asarray(kv_len)
     want = np.asarray(jax_flash_ref(jnp.asarray(q), jnp.asarray(k),
@@ -84,6 +88,16 @@ def test_plain_version_matches_jax_flash_ref(case):
                               causal=causal, block_kv=16, q_offset=t_off,
                               kv_valid_len=t_len)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_plain_version_matches_jax_flash_ref(case):
+    _check_against_jax_flash_ref(case, 32)
+
+
+@pytest.mark.parametrize("case", HD80_REF_CASES, ids=str)
+def test_plain_version_at_hd80_matches_jax_flash_ref(case):
+    _check_against_jax_flash_ref(case, 80)
 
 
 def test_attention_module_re_exports_the_plain_version():
@@ -115,7 +129,7 @@ def test_wrapper_refuses_other_devices():
     ((torch.bfloat16, torch.float32, torch.float32), 128, TypeError),
     ((torch.float32,) * 3, 32, ValueError),            # head dim not served
     ((torch.bfloat16,) * 3, 256, ValueError),
-    ((torch.float32,) * 3, (192, 128), ValueError),    # MLA: bf16 only
+    ((torch.float32,) * 3, (80, 64), ValueError),      # pair not served
     ((torch.bfloat16,) * 3, (192, 64), ValueError),    # pair not served
     ((torch.bfloat16,) * 3, (128, 64), ValueError),
     ((torch.bfloat16,) * 3, (12, 8), ValueError),      # reduced MLA dims
@@ -133,12 +147,16 @@ def test_kernel_refuses_what_it_does_not_compute(dtypes, hd, error):
 
 
 def test_kernel_takes_fp32_and_the_reduced_head_dims():
-    """Both dtypes at equal head dims 16, 64 and 128, and bf16 at MLA's
-    (192, 128); both need a unit-stride head dim and 16-byte aligned bases
-    and outer strides (the kernels read rows in 16-byte pieces)."""
+    """Both dtypes at equal head dims 16, 64, 80 and 128 and at MLA's
+    (192, 128), the split-KV kernel at all but 80 and fp32 (192, 128);
+    both need a unit-stride head dim and 16-byte aligned bases and outer
+    strides (the kernels read rows in 16-byte pieces)."""
     both = (torch.float32, torch.bfloat16)
-    assert ops.HEAD_DIMS == {(16, 16): both, (64, 64): both,
-                             (128, 128): both, (192, 128): (torch.bfloat16,)}
+    assert ops.HEAD_DIMS == {(16, 16): both, (64, 64): both, (80, 80): both,
+                             (128, 128): both, (192, 128): both}
+    assert ops.SPLIT_HEAD_DIMS == {16: both, 64: both, 128: both,
+                                   192: (torch.bfloat16,)}
+    assert ops.BWD_HEAD_DIMS == ((80, 80), (128, 128), (192, 128))
     f = torch.zeros((2, 8, 4, 16))
     assert ops._aligned(f) and ops._aligned(f[:, 1:])
     b = torch.zeros((2, 8, 4, 16), dtype=torch.bfloat16)
@@ -216,6 +234,25 @@ def test_plan_fills_the_card_and_stays_inside_the_cache(shape):
             or B * Hkv * rows * plan.splits >= 2 * ops.H100_SMS)
     assert (plan.splits - 1) * plan.keys_per_split < Sk
     assert plan.splits * plan.keys_per_split >= Sk
+
+
+NO_SPLIT_SHAPES = [
+    # B, Sq, Sk, H, Hkv, hd, dtype, kernel: pairs the split-KV kernel does
+    # not take go to the prefill kernel of their dtype whatever the grid
+    (1, 10, 10, 16, 16, 80, torch.bfloat16, "prefill_wgmma"),     # HuBERT
+    (1, 10, 10, 16, 16, 80, torch.float32, "prefill_f32"),
+    (2, 4096, 4096, 16, 16, 80, torch.bfloat16, "prefill_wgmma"),
+    (1, 1, 300, 128, 128, 192, torch.float32, "prefill_f32"),     # MLA fp32
+    (1, 30, 4126, 128, 128, 192, torch.float32, "prefill_f32"),
+]
+
+
+@pytest.mark.parametrize("shape", NO_SPLIT_SHAPES, ids=str)
+def test_plan_never_splits_pairs_the_split_kernel_does_not_take(shape):
+    B, Sq, Sk, H, Hkv, hd, dtype, kernel = shape
+    assert ops.plan_launch(B, Sq, Sk, H, Hkv, hd, dtype) == ops.Plan(kernel)
+    assert ops.plan_launch(B, Sq, Sk, H, Hkv, hd, dtype, 4096).kernel == \
+        kernel
 
 
 @pytest.mark.parametrize("make", [
@@ -565,7 +602,7 @@ def test_mla_head_dims_under_cuda_graph(cuda_device, Sq, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,dims", [(torch.float32, (192, 128)),
+@pytest.mark.parametrize("dtype,dims", [(torch.float32, (192, 64)),
                                         (torch.bfloat16, (192, 64)),
                                         (torch.bfloat16, (128, 64)),
                                         (torch.bfloat16, (64, 128))],
@@ -603,10 +640,9 @@ def test_plain_backward_matches_jax_vjp(G, causal, S):
     q, k, v = _qkv(B, S, S, H, Hkv, hd, seed=S + G)
     dout = np.random.default_rng(S).standard_normal(
         (B, S, H, hd)).astype(np.float32)
-    _, vjp = jax.vjp(lambda a, b, c: flash_ref(a, b, c, causal=causal,
-                                               block_kv=64),
-                     *map(jnp.asarray, (q, k, v)))
-    want = vjp(jnp.asarray(dout))
+    want = jax.jit(lambda a, b, c, d: jax.vjp(
+        lambda a, b, c: flash_ref(a, b, c, causal=causal, block_kv=64),
+        a, b, c)[1](d))(*map(jnp.asarray, (q, k, v, dout)))
     got = ops.flash_attention_bwd_ref(*map(torch.from_numpy, (q, k, v, dout)),
                                       causal=causal, block_kv=64)
     for name, g, w in zip("qkv", got, want):
@@ -683,3 +719,119 @@ def test_backward_refuses_other_dims_on_card(cuda_device, dtype, hd, hd_v):
     with pytest.raises(ValueError, match="backward kernel takes bf16"):
         ops.flash_attention(q, k, v, causal=True)
     assert ops.flash_attention.launches == n0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_at_hd80_matches_jax_vjp(causal):
+    """HuBERT-XLarge's head dim (80), bidirectional as it attends and
+    causal: ``flash_attention_bwd_ref`` against ``jax.vjp`` of JAX
+    ``flash_ref`` in fp32, S not a multiple of 64; dq, dk, dv within
+    1e-5 of their own max|ref|."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.attention import flash_ref
+
+    B, S, H, hd = 2, 100, 4, 80
+    q, k, v = _qkv(B, S, S, H, H, hd, seed=80)
+    dout = np.random.default_rng(81).standard_normal(
+        (B, S, H, hd)).astype(np.float32)
+    want = jax.jit(lambda a, b, c, d: jax.vjp(
+        lambda a, b, c: flash_ref(a, b, c, causal=causal, block_kv=64),
+        a, b, c)[1](d))(*map(jnp.asarray, (q, k, v, dout)))
+    got = ops.flash_attention_bwd_ref(*map(torch.from_numpy, (q, k, v, dout)),
+                                      causal=causal, block_kv=64)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-5 * np.abs(w).max(), (name, err)
+
+
+HD80_CASES = [
+    # B, Sq, Sk, H, Hkv, hd, causal, q_offset, kv_valid_len at hd 80
+    (2, 4096, 4096, 16, 16, 80, False, 0, None),   # HuBERT-XLarge's train step
+    (1, 300, 300, 16, 16, 80, False, 0, None),     # Sq ends mid-tile
+    (2, 130, 400, 16, 4, 80, True, [5, 250], [100, 380]),   # GQA 4, offsets
+    (2, 7, 7, 16, 16, 80, False, 0, None),         # a short encoder input
+    (1, 200, 260, 8, 2, 80, False, [0], [0]),      # no valid key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("case", HD80_CASES, ids=str)
+def test_hd80_matches_plain_on_card(cuda_device, case, dtype, tol):
+    """Head dim 80 through the wrapper, causal and not: one launch of the
+    dtype's prefill kernel (TMA + wgmma in bf16, its rows two 64-column
+    boxes zero-filled past column 80; 3xTF32 in fp32), whatever the grid,
+    each row within its dtype's share of its own max|ref|."""
+    q, k, v, kw = _card_inputs(case, dtype, cuda_device)
+    want = "prefill_wgmma" if dtype == torch.bfloat16 else "prefill_f32"
+    before = dict(ops.flash_attention.launches_by_kernel)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    moved = {name: n - before[name] for name, n in
+             ops.flash_attention.launches_by_kernel.items()}
+    assert moved == {name: int(name == want) for name in ops.KERNELS}
+    assert out.shape == q.shape
+    _check_against_plain(out, q, k, v, kw, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_fp32_mla_head_dims_match_plain_on_card(cuda_device, case):
+    """(192, 128) in fp32 (the serve entry point's default dtype on
+    DeepSeek-V3): one launch of the fp32 prefill kernel whatever the grid
+    (the split-KV kernel does not take the pair), v a strided view, each
+    row within 1e-4 of its own max|ref|, rows with no valid key 0."""
+    q, k, v, kw = _mla_inputs(case, cuda_device)
+    q, k, v = q.float(), k.float(), v.float()
+    before = dict(ops.flash_attention.launches_by_kernel)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    moved = {name: n - before[name] for name, n in
+             ops.flash_attention.launches_by_kernel.items()}
+    assert moved == {name: int(name == "prefill_f32") for name in ops.KERNELS}
+    assert out.shape == q.shape[:3] + (128,)
+    _check_against_plain(out, q, k, v, kw, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,causal", [(1, 192, 4, 4, False),
+                                              (2, 333, 8, 2, True),
+                                              (1, 1000, 16, 16, False),
+                                              (2, 4096, 16, 16, False)])
+def test_backward_kernel_at_hd80_matches_plain_on_card(cuda_device, B, S, H,
+                                                       Hkv, causal):
+    """B4 at (80, 80), HuBERT-XLarge's heads (bidirectional) and a causal
+    GQA case: the autograd Function on the card against autograd through
+    the plain version, dq, dk, dv within 2e-2 of their own max|ref|, and
+    the same bits from two calls of the backward."""
+    rng = np.random.default_rng(5)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+
+    q, k, v = t((B, S, H, 80)), t((B, S, Hkv, 80)), t((B, S, Hkv, 80))
+    dout = t((B, S, H, 80))
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    n0 = ops.flash_attention_bwd.launches_by_dims[(80, 80)]
+    out = ops.flash_attention(*leaves, causal=causal)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_bwd.launches_by_dims[(80, 80)] == n0 + 1
+    refs = ops.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+    for name, leaf, ref in zip("qkv", leaves, refs):
+        err = (leaf.grad.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        assert err <= 2e-2 * scale, (name, err, scale)
+    lse = torch.empty((B, H, S), device=cuda_device)
+    o = ops._launch(q, k, v, causal, 0, None, None, sms=1, lse=lse)[0]
+    first, again = (ops.flash_attention_bwd(q, k, v, o, dout, lse,
+                                            causal=causal) for _ in range(2))
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", first, again):
+        assert a.shape[-1] == 80
+        assert torch.equal(a, b), f"d{name} differs between two calls"

@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither ``jax`` nor the JAX package.
 
-One test runs a reduced prefill of each ported arch (and of GLM-4.5-Air
-under the int8 wire and w8a8 FFN) in a subprocess where ``import jax``
-fails, through the gating and flash-attention wrappers, then the plan
+One test runs a reduced prefill of each ported arch that decodes (and of
+GLM-4.5-Air under the int8 wire and w8a8 FFN) and a reduced forward of
+HuBERT-XLarge's frames and InternVL2-26B's patches (the frontend stubs)
+in a subprocess where ``import jax`` fails, through the gating and
+flash-attention wrappers, then the plan
 solve at R = 4 (``kernels/plan_solve``) and every balancer mode
 (``kernels/eplb_place``, the metrics) with the plan check on (``analysis/``,
 the schedule check too), a MoE layer (with a
@@ -43,7 +45,10 @@ from repro_torch.models.model import init_caches, init_lm, prefill_step
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 for arch, q8 in (("glm45-106b-a12b", "none"), ("jamba-v0.1-52b", "none"),
                  ("glm45-106b-a12b", "int8"), ("qwen3-235b-a22b", "none"),
-                 ("deepseek-v3-671b", "none")):
+                 ("deepseek-v3-671b", "none"), ("dbrx-132b", "none"),
+                 ("qwen2-72b", "none"), ("mistral-large-123b", "none"),
+                 ("internlm2-1.8b", "none"), ("qwen3-0.6b", "none"),
+                 ("mamba2-130m", "none"), ("internvl2-26b", "none")):
     cfg = reduced(get_config(arch))
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"),
                          cf_pair=4.0, cf_slot=4.0, wire_dtype=q8,
@@ -54,6 +59,19 @@ for arch, q8 in (("glm45-106b-a12b", "none"), ("jamba-v0.1-52b", "none"),
     toks = torch.from_numpy(np.arange(32, dtype=np.int64)[None]
                             % cfg.vocab_size)
     logits, _ = prefill_step(params, caches, toks, cfg, rcfg, ParallelCtx())
+    assert logits.shape == (1, 32, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+from repro_torch.models.model import forward
+for arch, key, rows in (("hubert-xlarge", "frames", 32),
+                        ("internvl2-26b", "patches", 8)):
+    cfg = reduced(get_config(arch))
+    params = init_lm(cfg, rcfg, ParallelCtx(),
+                     torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.zeros((1, 32), dtype=torch.int64),
+             key: torch.randn((1, rows, cfg.d_model))}
+    if key == "frames":
+        del batch["tokens"]
+    logits = forward(params, batch, cfg, rcfg, ParallelCtx())[0]
     assert logits.shape == (1, 32, cfg.vocab_size)
     assert torch.isfinite(logits).all()
 

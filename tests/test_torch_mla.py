@@ -7,9 +7,10 @@ parameters carried across by ``repro_torch.convert``: ``mla_attention``,
 offset and valid length) and the absorbed ``mla_decode`` against their JAX
 counterparts within 1e-4 (fp32), and the plain flash at unequal head dims
 against JAX ``flash_ref`` with a scale.  On the CPU an fp32 MLA model
-reaches the plain flash.  (The kernel takes (192, 128) in bf16 only;
+reaches the plain flash.  (The kernel takes (192, 128) in bf16 and fp32;
 ``tests/test_torch_flash_attention.py``, which a card machine without JAX
-runs, checks that other dtypes and pairs raise.)
+runs, holds both against the plain version and checks that other pairs
+raise.)
 """
 
 import dataclasses

@@ -66,7 +66,8 @@ def test_plain_mla_backward_matches_jax_vjp(S, causal):
 
 def test_backward_contract_takes_mla_dims_and_nothing_else():
     """``_bwd_contract`` (checked before any launch) takes bf16 at
-    (128, 128) and (192, 128) and refuses fp32 there and every other pair."""
+    (80, 80), (128, 128) and (192, 128) and refuses fp32 there and every
+    other pair."""
     def t(hd, dtype):
         return torch.zeros((1, 4, 2, hd), dtype=dtype)
 
@@ -76,7 +77,7 @@ def test_backward_contract_takes_mla_dims_and_nothing_else():
     for dtype, hd, hd_v in [(torch.float32, 192, 128),
                             (torch.float32, 128, 128),
                             (torch.bfloat16, 64, 64), (torch.bfloat16, 16, 16),
-                            (torch.bfloat16, 80, 80),
+                            (torch.float32, 80, 80),
                             (torch.bfloat16, 192, 192)]:
         with pytest.raises(ValueError, match=f"not \\({hd}, {hd_v}\\)"):
             flash._bwd_contract(t(hd, dtype), t(hd, dtype), t(hd_v, dtype))
