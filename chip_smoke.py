@@ -248,6 +248,23 @@ Phases, one output line each:
      ``launch.train.train`` with each step's launches (flash and B4 at
      (80, 80) once a layer); InternVL2-26B's train cell at 2 layers, one
      Adafactor step with its 256 patches spliced in;
+ 19. training at the trainer's own defaults (fp32; ``train()``'s head dim
+     16): B4f (the fp32 flash backward) at every head-dim pair, causal and
+     bidirectional, B4 in bf16 at (64, 64) and (16, 16), B5 at
+     Mamba2-130M's (64, 128) in bf16 and fp32 inputs and B1f-B3f (the
+     fp32 grouped backward) at the reduced GLM-4.5-Air's counts and at
+     GLM-4.5-Air's full width, each against its plain version (fp32
+     within 1e-4 of max|ref|, bf16 within 2e-2), bitwise over two calls,
+     timed beside its bound and SDPA or ``bmm``; then each DEFAULT_PATHS
+     path: a step-0 gradient check against ``plain_backward`` (2e-2;
+     Mamba2-130M in bf16 against the fp32 gradient, see GRAD_VS_FP32) and
+     3 steps through ``launch.train.main`` (Qwen3-0.6B whole) or
+     ``launch.train.train`` (the reduced GLM-4.5-Air in fp32 and bf16,
+     Mamba2-130M whole in fp32 and bf16, HuBERT-XLarge at 2 layers,
+     DeepSeek-V3 at 1 dense layer), each step's backward launches held to
+     the model's attention, Mamba and MoE layers; then
+     ``repro_torch.examples.quickstart`` on the card (its plan equal to the
+     plain solve's, its layer within 1e-4 of the dense oracle);
   8. the kernels with their launch counts on the serve paths: every count
      is set to 0 just before each serve run and read just after it; on
      every path (phase 7b's too) ``flash_attention`` runs once per
@@ -286,9 +303,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12,   # dense, no sparsity
-                  "int8": 1979e12, "tf32": 495e12}
 PREFILL = dict(G=130, M=1009, K=4096, N=1408)      # 128 mains + 2 replicas
 DECODE = dict(G=130, M=8, K=4096, N=1408)
 # Jamba-v0.1: 16 mains + 2 replicas; M is cap_slot at T 4096, top-2, cf 4.
@@ -377,6 +391,14 @@ BAL_MODES = (("none", 1), ("eplb", 1), ("eplb_plus", 1), ("lplb", 1),
              ("ultraep", 1), ("ultraep", 4))
 
 
+def _hw():
+    """The card's data-sheet figures (``repro_torch.roofline.hw.H100``:
+    HBM bytes a second, ``peak(kind)`` operations a second by dtype)."""
+    from repro_torch.roofline.hw import H100
+
+    return H100
+
+
 def _line(tag: str, payload) -> None:
     print(f"{tag} {json.dumps(payload)}", flush=True)
 
@@ -398,8 +420,8 @@ def _cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 def _bound(flops: float, nbytes: float, kind: str) -> tuple[float, str]:
-    t_ops = flops / PEAK_OPS_PER_S[kind]
-    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / _hw().peak(kind)
+    t_mem = nbytes / _hw().hbm_bw
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
@@ -624,7 +646,7 @@ def phase_kernels(glm, jamba, deepseek, dbrx) -> dict:
                 else:
                     kind_ops = kind
                 rec.update(_time_pair(*fns, flops, nbytes, kind_ops, iters))
-                rec["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                rec["bytes_bound_ms"] = nbytes / _hw().hbm_bw * 1e3
                 rec["slower_than_library"] = rec["ms"] > rec["library_ms"]
         records["grouped_swiglu"][tag] = dict(shape=[G, M, K, N], dtype=kind, **sw)
         records["grouped_matmul"][tag] = dict(shape=[G, M, N, K], dtype=kind, **mm)
@@ -1033,8 +1055,8 @@ def _ssd_tensor_bound(B, nc, Q, H, P, N, elt, nbytes):
     cb = 2.0 * N * pairs
     wx = 2.0 * P * pairs + 2.0 * B * nc * H * Q * N * P
     n_cb, n_wx = (1, 2) if elt == 2 else (3, 3)
-    t_ops = (n_cb * cb + n_wx * wx) / PEAK_OPS_PER_S["bf16"]
-    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = (n_cb * cb + n_wx * wx) / _hw().peak("bf16")
+    t_mem = nbytes / _hw().hbm_bw
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
                                      else "bytes")
 
@@ -3429,57 +3451,14 @@ def phase_train_kernels(glm, deepseek, jamba) -> dict:
 def _hd80_bwd_record(g) -> dict:
     """B4 at (80, 80), HuBERT-XLarge's train step: B 2, S 4096, 16 heads
     (G 1), bidirectional, the (128, 128) tiles with rows zero-filled past
-    column 80; dq, dk, dv within TRAIN_TOL of autograd through the plain
-    version, bitwise over two calls; timed beside SDPA's backward (flash
-    backend, which takes head dim 80).  Bound on the true work: five
-    products of 80 a pair over every (query, key) pair."""
+    column 80 (``_flash_bwd_case``: against the plain version, bitwise over
+    two calls, beside SDPA's backward on the flash backend, which takes
+    head dim 80).  Bound on the true work: five products of 80 a pair."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from repro_torch.kernels.flash_attention import ops as fa
-
-    bf16 = torch.bfloat16
-    B, S, H, hd = 2, 4096, 16, 80
-    q, k, v, dout = (torch.randn((B, S, H, hd), generator=g, device="cuda")
-                     .to(bf16) for _ in range(4))
-    lse = torch.empty((B, H, S), device="cuda")
-    o, _ = fa._launch(q, k, v, False, 0, None, None, sms=1, lse=lse)
-    grads = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=False)
-    again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=False)
-    torch.cuda.synchronize()
-    for n, a, r in zip("qkv", grads, again):
-        if not torch.equal(a, r):
-            raise AssertionError(f"flash_bwd hd80 d{n}: two calls differ")
-    del again
-    refs = fa.flash_attention_bwd_ref(q, k, v, dout, causal=False)
-    errs = {n: _rel_check(f"flash_bwd hd80 d{n}", a, r, TRAIN_TOL)
-            for n, a, r in zip("qkv", grads, refs)}
-    del refs
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-        ot = F.scaled_dot_product_attention(qt, kt, vt)
-    dot = dout.transpose(1, 2)
-    pairs = B * H * S * S
-    elems = B * S * H * hd
-    t = _time_pair(
-        lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=False),
-        lambda: fa.flash_attention_bwd_ref(q, k, v, dout, causal=False),
-        lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
-        pairs * 5 * 2.0 * hd, 2 * 5 * elems + 4 * B * H * S + 2 * 3 * elems,
-        "bf16", 5)
-    rec = dict(t, shape=dict(B=B, S=S, H=H, Hkv=H, hd=hd, causal=False),
-               max_abs_err=max(e[0] for e in errs.values()),
-               errs={n: {"max_abs_err": e[0], "max_abs_ref": e[1]}
-                     for n, e in errs.items()},
-               padded_product_share=1 - hd / 128,
-               stage_ms=fa.bwd_stage_ms(q, k, v, o, dout, lse, causal=False),
-               library_note="SDPA's backward through autograd (flash "
-                            "backend, head dim 80)")
-    del q, k, v, dout, o, lse, grads, qt, kt, vt, ot
-    torch.cuda.empty_cache()
-    return rec
+    return dict(_flash_bwd_case(g, torch.bfloat16, 80, 80, False, 2, 4096,
+                                16, 16, iters=5),
+                padded_product_share=1 - 80 / 128)
 
 
 def _mla_bwd_record(g) -> dict:
@@ -3555,7 +3534,7 @@ def _mla_bwd_record(g) -> dict:
                errs={n: {"max_abs_err": e[0], "max_abs_ref": e[1]}
                      for n, e in errs.items()},
                ds_round_trip_ms=2 * B * H * n_tri * 64 * 64 * 2
-               / HBM_BYTES_PER_S * 1e3,
+               / _hw().hbm_bw * 1e3,
                stage_ms=stage_ms,
                library_note="SDPA's backward through autograd "
                             "(memory-efficient backend; the flash backend "
@@ -3566,21 +3545,21 @@ def _mla_bwd_record(g) -> dict:
     return rec
 
 
-def _ssd_bwd_record() -> dict:
+def _ssd_bwd_record(s=JAMBA_SSD, fp32_tol=TRAIN_TOL) -> dict:
     """B5 at Jamba-v0.1's train cell (B 1, T 4096: nc 32, Q 128, H 128, P 64,
-    N 16) in the model's bf16 inputs, and in fp32 inputs beside: dxs, dB,
-    dC, ddt, dda against the closed form and against autograd through the
-    plain forward, within TRAIN_TOL of each max|ref|, bitwise equal over
-    two calls; bound: the bytes of the dtypes the kernel sees, or the
-    products at the TF32 rate (as the fp32 product rows are bounded),
-    whichever is larger; the products at the fp32 CUDA-core rate beside,
-    as ``cuda_core_fp32_ms`` (the rate of the first, CUDA-core version);
-    no library call computes it."""
+    N 16; or the shape ``s``) in the model's bf16 inputs, and in fp32
+    inputs beside: dxs, dB, dC, ddt, dda against the closed form and
+    against autograd through the plain forward, within TRAIN_TOL of each
+    max|ref| (``fp32_tol`` with fp32 inputs), bitwise equal over two
+    calls; bound: the bytes of the dtypes the kernel sees, or the products
+    at the TF32 rate (as the fp32 product rows are bounded), whichever is
+    larger; the products at the fp32 CUDA-core rate beside, as
+    ``cuda_core_fp32_ms`` (the rate of the first, CUDA-core version); no
+    library call computes it."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ops
 
-    s = JAMBA_SSD
     B, nc, Q, H, P, N = (s[k] for k in ("B", "nc", "Q", "H", "P", "N"))
     out = {}
     for tag, dtype, iters in (("bf16", torch.bfloat16, 10),
@@ -3604,7 +3583,7 @@ def _ssd_bwd_record() -> dict:
             want = ref(*args)
             for n, a, r in zip(("xs", "Bm", "Cm", "dt", "da"), got, want):
                 e = _rel_check(f"ssd_bwd {tag} d{n} vs {ref_name}", a, r,
-                               TRAIN_TOL)
+                               fp32_tol if tag == "fp32" else TRAIN_TOL)
                 errs[f"d{n}_vs_{ref_name}"] = {"max_abs_err": e[0],
                                                "max_abs_ref": e[1]}
             del want
@@ -3618,9 +3597,9 @@ def _ssd_bwd_record() -> dict:
                          lambda: ops.ssd_intra_chunk_bwd_ref(*args), None,
                          flops, nbytes, "tf32", iters)
         rec.update(shape=[B, nc, Q, H, P, N], dtype=tag,
-                   cuda_core_fp32_ms=flops / PEAK_OPS_PER_S["fp32"] * 1e3,
+                   cuda_core_fp32_ms=flops / _hw().peak("fp32") * 1e3,
                    max_abs_err=max(e["max_abs_err"] for e in errs.values()),
-                   errs=errs, bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   errs=errs, bytes_bound_ms=nbytes / _hw().hbm_bw * 1e3,
                    library_note="none: no PyTorch call computes it")
         out[tag] = rec
         del xs, Bm, Cm, dt, da, dy, dS, ddec, args, got
@@ -4995,6 +4974,417 @@ def phase_hosts() -> dict:
 
 
 
+# Phase 19: training at the trainer's own defaults on the card: fp32 (the
+# JAX trainer's dtype, ``RuntimeConfig.dtype``) and, through ``train()``'s
+# ``reduce=True``, head dim 16.  Kernels: B4f (the fp32 flash backward,
+# mma.sync in 3xTF32) at every (q/k, v) pair the forward takes, causal and
+# bidirectional, at GQA 4 (B4F_SHAPE); B4 in bf16 at (64, 64) (wgmma) and
+# (16, 16) (mma.sync), causal; B5 at Mamba2-130M's (64, 128) on one
+# 4096-token row (nc 32, Q 128, 24 heads), bf16 and fp32 inputs.  Paths
+# (DEFAULT_PATHS): each trains DEFAULT_STEPS steps through the trainer's
+# entry points with no dtype given (Mamba2-130M and the reduced GLM-4.5-Air
+# also in bf16, for B5's and B4 (16, 16)'s bf16 launches), its step-0
+# gradients first held against ``plain_backward``, checkpoints off (0).
+B4F_SHAPE = dict(B=1, S=2048, H=16, Hkv=4)
+B4F_PAIRS = ((16, 16), (64, 64), (80, 80), (128, 128), (192, 128))
+MAMBA2_SSD_TRAIN = dict(B=1, nc=32, Q=128, H=24, P=64, N=128)
+DEFAULT_STEPS = 3
+# tag -> (arch, build/train keywords beyond the defaults); "main" runs the
+# command line, ``launch.train.main``, on the same settings.
+DEFAULT_PATHS = {
+    "qwen3-0.6b main": ("qwen3-0.6b", dict(reduce=False)),
+    "glm45 train() defaults": ("glm45-106b-a12b", {}),
+    "glm45 train() bf16": ("glm45-106b-a12b", dict(dtype="bfloat16")),
+    "mamba2-130m fp32": ("mamba2-130m", dict(reduce=False)),
+    "mamba2-130m bf16": ("mamba2-130m", dict(reduce=False,
+                                             dtype="bfloat16")),
+    "hubert-xlarge 2l fp32": ("hubert-xlarge", dict(reduce=False, layers=2)),
+    "deepseek-v3 1l fp32": ("deepseek-v3-671b", dict(reduce=False, layers=1,
+                                                     batch=1, seq=1024)),
+}
+# Paths whose gradient check is against the same weights' fp32 gradient,
+# not plain_backward's bf16 one within TRAIN_TOL: Mamba2-130M's 24 bf16
+# layers carry each layer's one-ulp rounding of dx, dB and dC (the kernel's
+# own error, 0.25% of max|ref|) through the whole depth, so the two bf16
+# runs differ by 2.45e-2 at layer 0 (a development run) while each is as
+# far from the fp32 gradient as the other (_bf16_grad_check_vs_fp32).
+GRAD_VS_FP32 = ("mamba2-130m bf16",)
+
+
+def _flash_bwd_case(g, dtype, hd, hv, causal, B, S, H, Hkv, iters=3) -> dict:
+    """One backward launch of ``bwd_kernel(dtype, hd)`` at (hd, hv) on the
+    prefill kernel's output and logsumexp: dq, dk, dv within 1e-4 (fp32)
+    or TRAIN_TOL (bf16) of each max|ref| against autograd through the
+    plain version, bitwise equal over two calls; timed beside the plain
+    version and SDPA's backward (fp32: the memory-efficient backend; bf16:
+    flash; k and v repeated to the query heads), and each of its three
+    kernels alone (``stage_ms``).  Bound: the five products a (query, key)
+    pair, 2 (3 hd + 2 hv) flops, at the TF32 x 3 rate (fp32; the fp32
+    CUDA-core rate beside) or the bf16 rate, against q, k, v, o, do and
+    the logsumexp read and dq, dk, dv written once."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    tol = 1e-4 if dtype == torch.float32 else TRAIN_TOL
+    tag = f"flash_bwd {str(dtype)[6:]} ({hd}, {hv}) causal={causal}"
+    q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, hv), generator=g, device="cuda").to(dtype)
+    dout = torch.randn((B, S, H, hv), generator=g, device="cuda").to(dtype)
+    lse = torch.empty((B, H, S), device="cuda")
+    o, fwd_kernel = fa._launch(q, k, v, causal, 0, None, None, sms=1,
+                               lse=lse)
+    grads = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal)
+    torch.cuda.synchronize()
+    for n, a, r in zip("qkv", grads, again):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag} d{n}: two calls differ")
+    del again
+    refs = fa.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+    errs = {n: _rel_check(f"{tag} d{n}", a, r, tol)
+            for n, a, r in zip("qkv", grads, refs)}
+    del refs, grads
+    G = H // Hkv
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for t in (k, v))
+    dot = dout.transpose(1, 2)
+    backend = (SDPBackend.EFFICIENT_ATTENTION if dtype == torch.float32
+               else SDPBackend.FLASH_ATTENTION)
+    library, library_error, ot = None, None, None
+    try:
+        with sdpa_kernel([backend]):
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+        def library():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                       retain_graph=True)
+    except RuntimeError as e:        # no SDPA backward at these dims
+        library_error = str(e)[:300]
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    flops = pairs * 2.0 * (3 * hd + 2 * hv)
+    elt = q.element_size()
+    nbytes = (2 * elt * (B * S * H * hd + B * S * Hkv * (hd + hv))
+              + 2 * elt * B * S * H * hv + 4 * B * H * S)
+    kind = "tf32x3" if dtype == torch.float32 else "bf16"
+    t = _time_pair(
+        lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal),
+        lambda: fa.flash_attention_bwd_ref(q, k, v, dout, causal=causal),
+        library, flops, nbytes, kind, iters)
+    rec = dict(t, shape=dict(B=B, S=S, H=H, Hkv=Hkv, hd=hd, hd_v=hv,
+                             causal=causal, dtype=str(dtype)[6:]),
+               kernel=fa.bwd_kernel(dtype, hd), forward_kernel=fwd_kernel,
+               stage_ms=fa.bwd_stage_ms(q, k, v, o, dout, lse,
+                                        causal=causal),
+               max_abs_err=max(e[0] for e in errs.values()),
+               errs={n: {"max_abs_err": e[0], "max_abs_ref": e[1],
+                         "rel": e[0] / max(e[1], 1e-30)}
+                     for n, e in errs.items()},
+               tol=tol, library_error=library_error,
+               library_note=f"SDPA's backward through autograd "
+                            f"({backend.name}; k, v repeated to {H} heads)")
+    if dtype == torch.float32:
+        rec["bound_fp32_ms"] = flops / _hw().peak("fp32") * 1e3
+        rec["bound_kind"] = "five products at the TF32 x 3 rate"
+    del q, k, v, dout, o, lse, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _grouped_bwd_f32_records(cfg, tokens: int, cf: float,
+                             iters: int) -> dict:
+    """B1f (swiglu_bwd), B2f (matmul_nt, dx = dh w1^T + dg w3^T) and B3f
+    (wgrad) in fp32 at ``cfg``'s width with each slot's valid-row count
+    from the port's gate, ``ultraep`` plan and bucket on ``tokens`` seeded
+    tokens at capacity factors ``cf``, NaN in the padded rows of every
+    operand: each output within 1e-4 of its max|ref| (slots checked a group
+    at a time), padded rows zero, bitwise equal over two calls; timed
+    beside the plain version and ``torch.bmm`` in fp32 over the padded
+    buffers.  Bound: the valid rows' products at the TF32 x 3 rate (the
+    fp32 CUDA-core rate beside) against each needed byte once."""
+    import torch
+
+    from repro_torch.kernels.grouped_gemm import ops as gg
+
+    f32 = torch.float32
+    rows, cap = _serve_rows(cfg, tokens, "a2a", 7, cf=cf)
+    G, M, K, N = rows.shape[0], cap, cfg.d_model, cfg.moe.d_ff
+    R, nz = int(rows.sum()), int((rows > 0).sum())
+    x, w1, w3, _ = _kernel_inputs(G, M, K, N, f32, 11)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    dact = torch.randn((G, M, N), generator=g, device="cuda")
+    pad = torch.arange(M, device="cuda")[None, :, None] >= rows[:, None, None]
+    nan = lambda t: torch.where(pad, float("nan"), t)
+    x0, dact0 = torch.where(pad, 0.0, x), torch.where(pad, 0.0, dact)
+    x, dact = nan(x), nan(dact)
+    dh, dg = gg.grouped_swiglu_bwd(x, w1, w3, dact, rows)
+    shape = dict(G=G, M=M, K=K, N=N, tokens=tokens, cf=cf, dtype="float32")
+    cases = {
+        "grouped_swiglu_bwd": (
+            lambda: gg.grouped_swiglu_bwd(x, w1, w3, dact, rows),
+            lambda sl: gg.grouped_swiglu_bwd_ref(x0[sl], w1[sl], w3[sl],
+                                                 dact0[sl], rows[sl]),
+            lambda: (torch.bmm(x0, w1), torch.bmm(x0, w3)),
+            4.0 * R * K * N, 4 * (R * K + 2 * nz * K * N + 3 * R * N)),
+        "grouped_matmul_nt": (
+            lambda: gg.grouped_matmul_nt(nan(dh), w1, rows, nan(dg), w3),
+            lambda sl: (gg.grouped_matmul_nt_ref(dh[sl], w1[sl], rows[sl],
+                                                 dg[sl], w3[sl]),),
+            lambda: torch.bmm(dh, w1.transpose(1, 2))
+            + torch.bmm(dg, w3.transpose(1, 2)),
+            4.0 * R * K * N, 4 * (2 * R * N + 2 * nz * K * N + R * K)),
+        "grouped_wgrad": (
+            lambda: gg.grouped_wgrad(x, nan(dh), rows),
+            lambda sl: (gg.grouped_wgrad_ref(x0[sl], dh[sl], rows[sl]),),
+            lambda: torch.bmm(x0.transpose(1, 2), dh),
+            2.0 * R * K * N, 4 * (R * K + R * N + G * K * N)),
+    }
+    recs = {}
+    for name, (kernel, ref, library, flops, nbytes) in cases.items():
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} fp32: two calls differ")
+        e = _slot_check(f"{name} fp32", got, ref, 1e-4)
+        if got[0].shape[1] == M and not all(
+                torch.all(torch.where(pad, t, 0.0) == 0) for t in got):
+            raise AssertionError(f"{name} fp32: a padded row is not zero")
+        del got, again
+        t = _time_pair(kernel, lambda: ref(slice(None)), library, flops,
+                       nbytes, "tf32x3", iters)
+        recs[name] = dict(t, shape=shape, rows=R, slots_with_rows=nz,
+                          max_abs_err=e[0], max_abs_ref=e[1],
+                          bound_fp32_ms=flops / _hw().peak("fp32") * 1e3,
+                          library_note="torch.bmm in fp32 over the padded "
+                                       "buffers (TF32 off)")
+        torch.cuda.empty_cache()
+    del x, w1, w3, dact, x0, dact0, dh, dg, pad
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _bf16_grad_check_vs_fp32(params, batch, cfg, rcfg, pctx) -> dict:
+    """The bf16 gradients with the backward kernels and with
+    ``plain_backward`` (the forward kernels shared), each against the same
+    weights' gradient in fp32 arithmetic (the parameters cast to fp32,
+    the fp32 kernels, which phase 19's fp32 path holds to ``plain_backward``
+    within TRAIN_TOL): the kernels' worst error over the parameters must be
+    within 1.5x the plain backward's own (bf16 rounding through the whole
+    depth), every gradient finite; the direct kernels-vs-plain error beside,
+    and the kernel run's launches."""
+    import copy
+
+    import torch
+
+    from repro_torch.train.loop import loss_and_grads
+
+    def grads(ps, rc):
+        loss, _, counts, gs = loss_and_grads(ps, batch, cfg, rc, pctx)
+        out = [g.float().clone() for g in gs]
+        for q in ps.parameters():
+            q.grad = None
+        return float(loss), counts, out
+
+    loss_p, counts_p, g_p = grads(params, dataclasses.replace(
+        rcfg, plain_backward=True))
+    torch.cuda.synchronize()
+    _reset_launches()
+    loss_k, counts_k, g_k = grads(params, rcfg)
+    torch.cuda.synchronize()
+    launches = _launches()
+    if not torch.equal(counts_p, counts_k):
+        raise AssertionError("grad check: the two runs routed differently")
+    p32 = copy.deepcopy(params).float()
+    _, _, g_t = grads(p32, dataclasses.replace(rcfg, dtype=torch.float32))
+    del p32
+    names = [n for n, _ in params.named_parameters()]
+    e_k, e_p, e_kp = {}, {}, {}
+    for n, gk, gp, gt in zip(names, g_k, g_p, g_t):
+        if not (torch.isfinite(gk).all() and torch.isfinite(gt).all()):
+            raise AssertionError(f"grad check: {n} is not finite")
+        scale = max(gt.abs().max().item(), 1e-30)
+        e_k[n] = (gk - gt).abs().max().item() / scale
+        e_p[n] = (gp - gt).abs().max().item() / scale
+        err, sc = _max_err(gk, gp)
+        e_kp[n] = err / max(sc, 1e-30)
+    worst_k, worst_p = max(e_k.values()), max(e_p.values())
+    if not worst_k <= 1.5 * worst_p:
+        raise AssertionError(f"bf16 grad check: the kernels' worst error "
+                             f"against fp32 {worst_k:.3e} is beyond 1.5x the "
+                             f"plain backward's {worst_p:.3e}")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "worst_vs_fp32_kernels": worst_k,
+            "worst_vs_fp32_plain": worst_p,
+            "worst_vs_fp32_param": max(e_k, key=e_k.get),
+            "worst": max(e_kp, key=e_kp.get),
+            "worst_rel_err": max(e_kp.values()), "launches": launches}
+
+
+def _attn_mamba_layers(cfg) -> tuple[int, int]:
+    from repro_torch.configs import layer_kinds
+
+    kinds = [k.split("+")[0] for k in layer_kinds(cfg)]
+    return kinds.count("attn"), kinds.count("mamba")
+
+
+def _default_path(tag, arch, kw) -> dict:
+    """One path of DEFAULT_PATHS: the step-0 gradients of a trainer built
+    as the path builds it against ``plain_backward`` (``_grad_check``),
+    then DEFAULT_STEPS steps through ``train`` (or ``main``), each step's
+    backward launches held to the model's attention and Mamba layers (the
+    counts set to 0 just before the run, read just after)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs import layer_kinds
+    from repro_torch.launch.train import DTYPES, build, main, train
+
+    kw = dict(kw)
+    if "dtype" in kw:
+        kw["dtype"] = DTYPES[kw["dtype"]]
+    tr = build(arch, **kw)
+    dtype = tr.rcfg.dtype
+    attn, mamba = _attn_mamba_layers(tr.cfg)
+    hd, hv = ((tr.cfg.qk_nope_dim + tr.cfg.qk_rope_dim, tr.cfg.v_head_dim)
+              if tr.cfg.is_mla else (tr.cfg.head_dim, tr.cfg.head_dim))
+    if tag in GRAD_VS_FP32:
+        check = _bf16_grad_check_vs_fp32(tr.state.params, tr.batch(0),
+                                         tr.cfg, tr.rcfg, tr.pctx)
+    else:
+        check = _grad_check(tr.state.params, tr.batch(0), tr.cfg, tr.rcfg,
+                            tr.pctx, router_bias=tr.state.router_bias)
+    cfg = tr.cfg
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {"flash_attention_bwd": attn, "ssd_intra_chunk_bwd": mamba}
+    if cfg.moe is not None:
+        moe = sum(k.endswith("+moe") for k in layer_kinds(cfg))
+        # B1 once, B2 twice (dact, dx), B3 three times a MoE layer.
+        kind = "fp32" if dtype == torch.float32 else "bf16"
+        want.update({f"grouped_swiglu_bwd.{kind}": moe,
+                     f"grouped_matmul_nt.{kind}": 2 * moe,
+                     f"grouped_wgrad.{kind}": 3 * moe})
+    if attn:
+        from repro_torch.kernels.flash_attention.ops import bwd_kernel
+
+        want[f"flash_attention_bwd.{bwd_kernel(dtype, hd)}"] = attn
+        want[f"flash_attention_bwd.{hd}x{hv}"] = attn
+    bad = {k: (check["launches"][k], n) for k, n in want.items()
+           if check["launches"][k] != n}
+    if bad:
+        raise AssertionError(f"{tag} grad check launches (seen, want) {bad}")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    if tag.endswith(" main"):
+        run = main(["--arch", arch, "--steps", str(DEFAULT_STEPS),
+                    "--ckpt-every", "0", "--log-every", "1"])
+        launches = _launches()
+        bad = {k: (launches[k], DEFAULT_STEPS * n) for k, n in want.items()
+               if launches[k] != DEFAULT_STEPS * n}
+        if bad:
+            raise AssertionError(f"{tag} launches (seen, want) {bad}")
+        per_step = {k: launches[k] // DEFAULT_STEPS for k in want}
+    else:
+        on_metrics, steps = _per_step_launches(want, tag)
+        run = train(arch, steps=DEFAULT_STEPS, ckpt_every=0, log_every=1,
+                    on_metrics=on_metrics, **kw)
+        per_step = {k: steps[-1][k] for k in want}
+    wall = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in run.losses + run.grad_norms):
+        raise AssertionError(f"{tag}: not finite: {run.losses}, "
+                             f"{run.grad_norms}")
+    out = {"arch": cfg.name, "dtype": str(dtype)[6:], "kw": {
+        k: str(v) for k, v in kw.items()}, "head_dims": [hd, hv],
+        "attn_layers": attn, "mamba_layers": mamba, "params": run.params,
+        "losses": run.losses, "grad_norms": run.grad_norms,
+        "step_s": run.step_s, "run_s": wall,
+        "peak_mem_gb": run.peak_mem / 1e9, "launches_per_step": per_step,
+        "grad_check": {k: v for k, v in check.items() if k != "launches"}}
+    _line(f"phase19_train_defaults path {tag}", out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_defaults() -> dict:
+    """Phase 19 (see B4F_SHAPE): the new backward kernels held against
+    their plain versions and timed, then every path of DEFAULT_PATHS, then
+    ``repro_torch.examples.quickstart`` on the card: its plan equal to the
+    plain solve's on the CPU (quota table and Table-4 metrics), its layer
+    within 1e-4 of the dense oracle, the plan solve, gate and grouped
+    GEMMs launched."""
+    import torch
+
+    from repro_torch.examples import quickstart
+
+    g = torch.Generator(device="cuda").manual_seed(34)
+    kernels = {}
+    sh = B4F_SHAPE
+    for hd, hv in B4F_PAIRS:
+        for causal in (True, False):
+            tag = f"f32_{hd}x{hv}_{'causal' if causal else 'bidir'}"
+            kernels[tag] = _flash_bwd_case(g, torch.float32, hd, hv, causal,
+                                           **sh)
+            _line(f"phase19_train_defaults kernel {tag}", kernels[tag])
+    for hd in (64, 16):
+        tag = f"bf16_{hd}x{hd}_causal"
+        kernels[tag] = _flash_bwd_case(g, torch.bfloat16, hd, hd, True, **sh)
+        _line(f"phase19_train_defaults kernel {tag}", kernels[tag])
+    kernels["ssd_bwd_mamba2"] = _ssd_bwd_record(MAMBA2_SSD_TRAIN,
+                                                fp32_tol=1e-4)
+    _line("phase19_train_defaults kernel ssd_bwd_mamba2",
+          kernels["ssd_bwd_mamba2"])
+    # B1f-B3f at the reduced GLM-4.5-Air's path (8 x 128 tokens, the
+    # trainer's capacity factors) and at GLM-4.5-Air's full width (phase
+    # 13's 8192 tokens).
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
+
+    glm = get_config("glm45-106b-a12b")
+    kernels["grouped_bwd_f32"] = _grouped_bwd_f32_records(
+        reduced(glm), 8 * 128, 4.0, 10)
+    kernels["grouped_bwd_f32_glm"] = _grouped_bwd_f32_records(
+        glm, 8192, SERVE["cf"], 3)
+    for tag in ("grouped_bwd_f32", "grouped_bwd_f32_glm"):
+        _line(f"phase19_train_defaults kernel {tag}", kernels[tag])
+    paths = {tag: _default_path(tag, arch, kw)
+             for tag, (arch, kw) in DEFAULT_PATHS.items()}
+
+    _reset_launches()
+    res = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = _launches()
+    plain_plan, plain_rep = quickstart.plan_and_report("cpu")
+    if not (res["u"] == plain_plan.u.numpy()).all() or \
+            res["report"] != plain_rep:
+        raise AssertionError(f"quickstart: the card's plan differs from the "
+                             f"plain solve's: {res['report']} vs {plain_rep}")
+    if not res["finite"] or \
+            not res["layer_max_err"] <= 1e-4 * res["layer_max_ref"]:
+        raise AssertionError(f"quickstart layer: {res}")
+    needs = [n for n in ("plan_solve", "gating_topk", "grouped_swiglu",
+                         "grouped_matmul") if launches[n] <= 0]
+    if needs:
+        raise AssertionError(f"quickstart: {needs} not launched")
+    quick = {"report": dataclasses.asdict(res["report"]),
+             "layer_max_err": res["layer_max_err"],
+             "layer_max_ref": res["layer_max_ref"], "drops": res["drops"],
+             "launches": {k: n for k, n in launches.items() if n}}
+    _line("phase19_train_defaults quickstart", quick)
+    return {"kernels": kernels, "paths": paths, "quickstart": quick}
+
+
 def _kernel_row(name, source, replaces, rec, launches, extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5083,6 +5473,7 @@ def main() -> int:
     timed("phase16_train_group", phase_train_group, glm)
     cell_records = timed("phase17_train_cells", phase_train_cells)
     hosts = timed("phase18_hosts", phase_hosts)
+    defaults = timed("phase19_train_defaults", phase_train_defaults)
     serves = {"glm45-106b-a12b": glm_serve,
               "glm45-106b-a12b-q8": glm_q8_serve,
               "glm45-106b-a12b-fp32": glm_fp32_serve,
@@ -5609,6 +6000,89 @@ def main() -> int:
             "padded_product_share": rec["padded_product_share"],
             "errs": rec["errs"], "stage_ms": rec["stage_ms"],
             "library_note": rec["library_note"]}))
+    # Phase 19's kernels: B4f at every pair (its row at Qwen3-0.6B's
+    # (128, 128), causal), B4 in bf16 at (16, 16) and (64, 64), B5 at
+    # Mamba2-130M's (64, 128); launches on each phase-19 path a step.
+    d_paths = defaults["paths"]
+    d_kern = defaults["kernels"]
+    bwd_src = ("src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention_bwd_mma.cu")
+    bwd_replaces = ("src/repro/kernels/flash_attention/kernel.py:84 (its "
+                    "backward; no pallas_call: XLA differentiates "
+                    "src/repro/models/attention.py:252 through flash_ref)")
+    sub_keys = ("shape", "kernel") + keys + ("library_error", "errs")
+
+    def path_launches(key):
+        return {t: r["launches_per_step"].get(key, 0) * DEFAULT_STEPS
+                for t, r in d_paths.items()}
+
+    kernels.append(_kernel_row(
+        "flash_attention_bwd.f32", bwd_src, bwd_replaces,
+        d_kern["f32_128x128_causal"],
+        d_paths["qwen3-0.6b main"]["launches_per_step"][
+            "flash_attention_bwd.mma_f32"] * DEFAULT_STEPS, {
+            "arithmetic": "3xTF32 mma.sync",
+            "bound_fp32_ms": d_kern["f32_128x128_causal"]["bound_fp32_ms"],
+            "launches_note": f"phase 19, {DEFAULT_STEPS} steps of each path",
+            "launches_by_path": path_launches("flash_attention_bwd.mma_f32"),
+            "errs": d_kern["f32_128x128_causal"]["errs"],
+            **{tag: {k: r.get(k) for k in sub_keys + ("bound_fp32_ms",)}
+               for tag, r in d_kern.items() if tag.startswith("f32_")}}))
+    kernels.append(_kernel_row(
+        "flash_attention_bwd.hd16", bwd_src, bwd_replaces,
+        d_kern["bf16_16x16_causal"],
+        d_paths["glm45 train() bf16"]["launches_per_step"][
+            "flash_attention_bwd.mma_bf16"] * DEFAULT_STEPS, {
+            "arithmetic": "bf16 mma.sync",
+            "launches_note": f"phase 19, {DEFAULT_STEPS} steps of each path",
+            "launches_by_path": path_launches("flash_attention_bwd.mma_bf16"),
+            "errs": d_kern["bf16_16x16_causal"]["errs"]}))
+    kernels.append(_kernel_row(
+        "flash_attention_bwd.hd64", "src/repro_torch/kernels/flash_attention/"
+        "csrc/flash_attention_bwd.cu", bwd_replaces,
+        d_kern["bf16_64x64_causal"], 0, {
+            "arithmetic": "bf16 wgmma (B4's kernels at (64, 64))",
+            "launches_note": "no registered arch has head dim 64: phase 19's "
+                             "kernel check is its only launch",
+            "errs": d_kern["bf16_64x64_causal"]["errs"]}))
+    m2 = d_kern["ssd_bwd_mamba2"]
+    kernels.append(_kernel_row(
+        "ssd_intra_chunk_bwd.mamba2",
+        "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:66 (its backward; no "
+        "pallas_call: XLA differentiates the plain SSD path)", m2,
+        d_paths["mamba2-130m bf16"]["launches_per_step"][
+            "ssd_intra_chunk_bwd"] * DEFAULT_STEPS, {
+            "dtype": m2["dtype"], "head_dim_state": [64, 128],
+            "arithmetic": "split bf16 (hi + lo) on mma.sync m16n8k16",
+            "bytes_bound_ms": m2["bytes_bound_ms"],
+            "launches_note": f"phase 19, {DEFAULT_STEPS} steps of each path",
+            "launches_by_path": path_launches("ssd_intra_chunk_bwd"),
+            "errs": m2["errs"],
+            "fp32_inputs": {k: m2["fp32_inputs"][k] for k in
+                            keys + ("bytes_bound_ms", "errs")}}))
+    for name, what in (("grouped_swiglu_bwd", "kernel.py:154 (its "
+                        "backward in fp32; no pallas_call: XLA differentiates "
+                        "src/repro/moe/expert.py:102-105)"),
+                       ("grouped_matmul_nt", "kernel.py:184 and :154 (their "
+                        "dgrad in fp32; no pallas_call)"),
+                       ("grouped_wgrad", "kernel.py:154 and :184 (their "
+                        "wgrad in fp32; no pallas_call)")):
+        rec = d_kern["grouped_bwd_f32"][name]
+        kernels.append(_kernel_row(
+            f"{name}.f32",
+            "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm_bwd_f32.cu",
+            f"src/repro/kernels/grouped_gemm/{what}", rec,
+            d_paths["glm45 train() defaults"]["launches_per_step"][
+                f"{name}.fp32"] * DEFAULT_STEPS, {
+                "arithmetic": "3xTF32 mma.sync",
+                "bound_fp32_ms": rec["bound_fp32_ms"],
+                "launches_note": f"phase 19, {DEFAULT_STEPS} steps of each "
+                                 f"path",
+                "launches_by_path": path_launches(f"{name}.fp32"),
+                "glm_full_width": {
+                    k: d_kern["grouped_bwd_f32_glm"][name].get(k)
+                    for k in ("shape",) + keys + ("bound_fp32_ms",)}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -108,9 +108,10 @@ def _libraries() -> list[KernelLibrary]:
     from repro_torch.kernels.ssd_scan import ops as ssd_scan_ops
 
     return [grouped_gemm_ops.LIBRARY, grouped_gemm_ops.LIBRARY_Q8,
+            grouped_gemm_ops.LIBRARY_BWD_F32,
             ssd_scan_ops.LIBRARY, ssd_scan_ops.LIBRARY_BWD,
             gating_ops.LIBRARY, flash_ops.LIBRARY, flash_ops.LIBRARY_BWD,
-            plan_solve_ops.LIBRARY, eplb_ops.LIBRARY]
+            flash_ops.LIBRARY_BWD_MMA, plan_solve_ops.LIBRARY, eplb_ops.LIBRARY]
 
 
 def build_all() -> dict[str, str]:

@@ -141,6 +141,10 @@
 //    within each 8-key step, V read in the same order), masking only on
 //    tiles that cross a row's limit.
 //
+// Kernels 2, 3 and 4 write each row's logsumexp beside the output when
+// asked (Args::lse): the training step's forward, whose backward kernels
+// (flash_attention_bwd.cu, flash_attention_bwd_mma.cu) read it.
+//
 // Not yet: overlapping one tile's softmax with the next tile's products in
 // the wgmma kernel (two consumer warpgroups interleave only as the
 // scheduler lets them), a persistent schedule, TMA in the split kernel
@@ -237,9 +241,9 @@ struct Args {
   int splits;               // key splits; 1: the blocks write the output
   int keys_per_split;
   float* ws;                // splits x (B Sq H) x (hd + 2) fp32 partials
-  // TMA + wgmma kernel only: null, or (B, H, Sq) fp32 that receives each
-  // row's logsumexp of its scaled scores, natural log (+inf for a row with
-  // no valid key), for the backward kernels.
+  // Prefill kernels (2, 3, 4) only: null, or (B, H, Sq) fp32 that receives
+  // each row's logsumexp of its scaled scores, natural log (+inf for a row
+  // with no valid key), for the backward kernels.
   float* lse;
   // TMA + wgmma kernel only: the output columns written, hd_v (below the
   // tile's HDV where the head dim is zero-filled up to whole boxes).
@@ -254,6 +258,15 @@ struct Args {
     return lim < 0 ? 0 : (lim < Sk ? lim : Sk);
   }
 };
+
+// Row (b, h, position)'s logsumexp of its scaled scores, natural log, for
+// the backward kernels: m is the row max in log2 units, l = sum 2^(s - m);
+// +inf for a row with no valid key (P = 0 in the backward).
+__device__ __forceinline__ void store_lse(const Args& a, int b, int h,
+                                          int pos, float m, float l) {
+  a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + pos] =
+      l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : INFINITY;
+}
 
 // This block's rows and KV extent, shared by kernels 3 and 4.  Row r of the
 // tile is (position q0 + r / G, head hkv * G + r % G).
@@ -291,7 +304,24 @@ struct Tile {
   }
 };
 
-template <int HD, bool CAUSAL>
+// The logsumexp of this thread's two rows of a kernel 3 or 4 tile, after
+// the output is written (the accumulators are dead by then).
+__device__ __forceinline__ void store_lse_rows(const Args& a, const Tile& tl,
+                                               int warp, int gid,
+                                               const float (&m)[2],
+                                               const float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i;
+    if (tl.row_valid(r, a.Sq))
+      store_lse(a, tl.b, tl.hkv * tl.G + r % tl.G, tl.q0 + r / tl.G, m[i],
+                l[i]);
+  }
+}
+
+// LSE: the instantiation that writes the logsumexp (the training step's
+// forward); the serve path's keeps the epilogue without it.
+template <int HD, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
   using L = Bf16Tile<HD>;
   constexpr int LDS = L::LDS, CHUNKS = L::CHUNKS;
@@ -454,9 +484,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
       *reinterpret_cast<__nv_bfloat162*>(dst + nf * 8) = __floats2bfloat162_rn(
           o[nf][2 * i] / denom, o[nf][2 * i + 1] / denom);
   }
+  if (LSE && tq == 0) store_lse_rows(a, tl, warp, gid, m, lsum);
 }
 
-template <int HDK, int HDV, bool CAUSAL>
+template <int HDK, int HDV, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_f32_kernel(const Args a) {
   using L = F32Tile<HDK, HDV>;
@@ -638,6 +669,7 @@ flash_fwd_f32_kernel(const Args a) {
       *reinterpret_cast<float2*>(dst + nf * 8) =
           make_float2(o[nf][2 * i] / denom, o[nf][2 * i + 1] / denom);
   }
+  if (LSE && tq == 0) store_lse_rows(a, tl, warp, gid, m, lsum);
 }
 
 // ------------------------------------------------- 1. split-KV (decode)
@@ -1507,8 +1539,12 @@ cudaError_t launch_tile(Kernel kernel, int smem, const Args& a,
 
 template <int HDK, int HDV = HDK>
 cudaError_t launch_f32(bool causal, const Args& a, cudaStream_t s) {
-  const auto kernel = causal ? flash_fwd_f32_kernel<HDK, HDV, true>
-                             : flash_fwd_f32_kernel<HDK, HDV, false>;
+  const bool lse = a.lse != nullptr;
+  const auto kernel =
+      causal ? (lse ? flash_fwd_f32_kernel<HDK, HDV, true, true>
+                    : flash_fwd_f32_kernel<HDK, HDV, true, false>)
+             : (lse ? flash_fwd_f32_kernel<HDK, HDV, false, true>
+                    : flash_fwd_f32_kernel<HDK, HDV, false, false>);
   // Two blocks of 99 KB an SM (hd 128) need the largest shared carveout.
   const cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
@@ -1534,8 +1570,8 @@ cudaError_t launch_f32(bool causal, const Args& a, cudaStream_t s) {
 //   unit-stride, and for bf16 the caller checks that bases and strides are
 //   16-byte aligned).  q_off / kv_len: device int64 vectors read at
 //   b * stride, or null for the constant beside them.  lse: null, or for
-//   kernel 0 only a (B, H, Sq) fp32 buffer that receives each row's
-//   logsumexp (natural log) of its scaled scores.  Launches on
+//   the prefill kernels (0, 2, 3) a (B, H, Sq) fp32 buffer that receives
+//   each row's logsumexp (natural log) of its scaled scores.  Launches on
 //   `stream`, does not synchronise, and returns the launch's CUDA error
 //   code (0 = launched; 1000 and up: a tensor map could not be made).
 extern "C" int flash_attention_launch(
@@ -1583,7 +1619,7 @@ extern "C" int flash_attention_launch(
   a.ws = static_cast<float*>(workspace);
   a.lse = static_cast<float*>(lse);
   a.hd_out = hd_v;
-  if (lse != nullptr && kernel != 0) return inval;
+  if (lse != nullptr && kernel == 1) return inval;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1, c = a.causal;
   cudaError_t err = cudaErrorInvalidValue;
@@ -1629,9 +1665,12 @@ extern "C" int flash_attention_launch(
     case 2:   // mma.sync prefill, hd 16
       if (!bf16 || hd != 16 || a.G > BM || B > 65535 || Hkv > 65535)
         return inval;
-      err = launch_tile(c ? flash_fwd_kernel<16, true>
-                          : flash_fwd_kernel<16, false>,
-                        Bf16Tile<16>::SMEM_BYTES, a, s);
+      err = launch_tile(
+          c ? (a.lse ? flash_fwd_kernel<16, true, true>
+                     : flash_fwd_kernel<16, true, false>)
+            : (a.lse ? flash_fwd_kernel<16, false, true>
+                     : flash_fwd_kernel<16, false, false>),
+          Bf16Tile<16>::SMEM_BYTES, a, s);
       return static_cast<int>(err);
     case 3:   // fp32 prefill
       if (bf16 || a.G > BM || B > 65535 || Hkv > 65535) return inval;

@@ -1,7 +1,9 @@
 // Flash attention backward for Hopper (sm_90a): GQA, bf16, full sequences
-// (the training step), causal or not, at (q/k, v) head dims (128, 128) and
-// (80, 80) (B4; 80 is HuBERT-XLarge's, bidirectional) and (192, 128) (B4m:
-// DeepSeek-V3's MLA, nope 128 + rope 64, v 128).
+// (the training step), causal or not, at (q/k, v) head dims (128, 128),
+// (64, 64) and (80, 80) (B4; 80 is HuBERT-XLarge's, bidirectional) and
+// (192, 128) (B4m: DeepSeek-V3's MLA, nope 128 + rope 64, v 128).  fp32
+// at every pair, and bf16 at (16, 16), take flash_attention_bwd_mma.cu
+// (B4f) instead.
 //
 // The JAX package has no backward kernel: it differentiates
 // repro/models/attention.py:flash_ref (the plain version of the Pallas
@@ -74,6 +76,8 @@
 // Registers: setmaxnreg gives each consumer thread 240 and the producer 24
 // (384 threads, one block an SM at 195 KB of shared memory at (128, 128));
 // ptxas reports no spills.
+// (64, 64) is the same kernels' own instantiation: q / K rows of one
+// 64-column box, dk and dv 32 fp32 a thread, 97 KB of shared memory.
 // (80, 80) runs the same kernels on the same (128, 128) tiles: the tensor
 // maps have the operands' true width, so a row is two 64-column boxes,
 // the second zero-filled past column 80 by TMA; every product runs at 128
@@ -142,7 +146,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 // bwd_dq_gemm_kernel, with SplitCfg and GemmCfg.
 template <int HDK, int HDV>
 struct Cfg {
-  static_assert(HDK == 128 && HDV == 128, "B4's kernels: (128, 128) tiles");
+  static_assert(HDK == HDV && (HDK == 128 || HDK == 64),
+                "B4's kernels: (128, 128) or (64, 64) tiles");
   static constexpr int BK = HDK / 64, BV = HDV / 64;
   static constexpr int STREAM = 64;
   static constexpr int STAGES = 4;
@@ -280,7 +285,7 @@ __device__ __forceinline__ void store_acc(const float (&acc)[N / 2],
   }
 }
 
-// HDV: the v head dim, 128 or 80; lane l sums the bf16 pairs l, l + 32,
+// HDV: the v head dim, 128, 80 or 64; lane l sums the bf16 pairs l, l + 32,
 // ... below HDV / 2.
 template <int HDV>
 __global__ void __launch_bounds__(256) bwd_prep_kernel(const Bwd a) {
@@ -1114,7 +1119,8 @@ int run(const void* q, const void* k, const void* v, const long long (&ks)[3],
 
 // Plain C entry point, bound with ctypes.  q, dq: (B, S, H, hdk); o, do:
 // (B, S, H, hdv); k, dk: (B, S, Hkv, hdk); v, dv: (B, S, Hkv, hdv); all
-// bf16 and contiguous; (hdk, hdv) is (80, 80), (128, 128) or (192, 128).
+// bf16 and contiguous; (hdk, hdv) is (64, 64), (80, 80), (128, 128) or
+// (192, 128).
 // lse:
 // (B, H, S) fp32 from the forward; ws: an fp32 workspace of 2 B H S64
 // floats, S64 = S rounded up to 64 (16-byte aligned); ds, at (192, 128)
@@ -1133,8 +1139,8 @@ extern "C" int flash_attention_bwd_launch(
     long long skb, long long svh, long long svs, long long svb,
     void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || B > 65535 ||
-      !((hdk == 80 && hdv == 80) || (hdk == 128 && hdv == 128) ||
-        (hdk == 192 && hdv == 128)))
+      !((hdk == 64 && hdv == 64) || (hdk == 80 && hdv == 80) ||
+        (hdk == 128 && hdv == 128) || (hdk == 192 && hdv == 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   Bwd a;
   a.o = static_cast<const bf16*>(o);
@@ -1171,6 +1177,8 @@ extern "C" int flash_attention_bwd_launch(
   const unsigned prep_blocks = static_cast<unsigned>((a.ws_half + 7) / 8);
   if ((parts & 1) && hdv == 80)
     bwd_prep_kernel<80><<<prep_blocks, 256, 0, s>>>(a);
+  else if ((parts & 1) && hdv == 64)
+    bwd_prep_kernel<64><<<prep_blocks, 256, 0, s>>>(a);
   else if (parts & 1)
     bwd_prep_kernel<128><<<prep_blocks, 256, 0, s>>>(a);
   else
@@ -1178,6 +1186,7 @@ extern "C" int flash_attention_bwd_launch(
   const int err = static_cast<int>(cudaGetLastError());
   if (err || !(parts & 6)) return err;
   const long long ks[3] = {skh, sks, skb}, vs[3] = {svh, svs, svb};
-  return hdk == 192 ? run<192, 128>(q, k, v, ks, vs, a, causal != 0, parts, s)
-                    : run<128, 128>(q, k, v, ks, vs, a, causal != 0, parts, s);
+  if (hdk == 192) return run<192, 128>(q, k, v, ks, vs, a, causal != 0, parts, s);
+  if (hdk == 64) return run<64, 64>(q, k, v, ks, vs, a, causal != 0, parts, s);
+  return run<128, 128>(q, k, v, ks, vs, a, causal != 0, parts, s);
 }

@@ -57,28 +57,32 @@ kernel, in ``flash_attention.launches_by_kernel``.
 Layouts: q (B, Sq, H, hd); k (B, Sk, Hkv, hd) and v (B, Sk, Hkv, hd_v)
 with H % Hkv == 0; the output is (B, Sq, H, hd_v) in q's dtype.
 
-Gradients.  With a gradient required of q, k or v, ``flash_attention`` runs
-as an autograd Function over a full sequence (no ``q_offset`` or
-``kv_valid_len``): on the card the forward is ``prefill_wgmma`` writing
-each row's logsumexp beside the output, and the backward is
-``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``: dq, dk, dv from
-q, k, v, the output, its gradient and the logsumexp; dk and dv summed over
-each KV head's query heads in one block, dq from a second pass that
-recomputes S and dP at (128, 128), and at (192, 128) that reads back the
-bf16 dS tiles the first pass stored in a workspace the wrapper allocates
-(2.2 GB at DeepSeek-V3's train cell); no atomics: the same bits on every
-run; k and v may be strided views, as MLA makes them, read in place
-where TMA can), counted
-in ``flash_attention_bwd.launches`` (and by head-dim pair in
-``flash_attention_bwd.launches_by_dims``).  Both take bf16 at the (q/k, v)
-head dims of ``BWD_HEAD_DIMS``, (80, 80), (128, 128) and MLA's (192, 128)
-((80, 80) on the (128, 128) tiles, rows zero-filled past column 80), and
-raise a ``ValueError`` naming anything else (fp32, 64, 16) before any
-launch.  The JAX package has no backward kernel: XLA
-differentiates ``flash_ref``.  The plain version of the backward,
-``flash_attention_bwd_ref``, is autograd through ``flash_attention_ref``
-(recomputed): the CPU's backward, and the card's under
-``plain_backward=True``.
+Gradients.  With a gradient required of q, k or v, ``flash_attention``
+runs as an autograd Function over a full sequence (no ``q_offset`` or
+``kv_valid_len``): on the card the forward is the prefill kernel of its
+dtype and head dim (``prefill_wgmma``, ``prefill_mma_hd16`` or
+``prefill_f32``) writing each row's logsumexp beside the output, and the
+backward is ``flash_attention_bwd``: dq, dk, dv from q, k, v, the output,
+its gradient and the logsumexp; dk and dv summed over each KV head's
+query heads in one block, dq from a second pass; no atomics: the same
+bits on every run; k and v may be strided views, as MLA makes them, read
+in place.  Its kernels (``BWD_KERNELS``): ``wgmma``, bf16 at (64, 64),
+(80, 80), (128, 128) and (192, 128) (``csrc/flash_attention_bwd.cu``,
+TMA + ``wgmma``; (80, 80) on the (128, 128) tiles, rows zero-filled past
+column 80; at (192, 128) the dQ pass reads back the bf16 dS tiles the
+first pass stored in a workspace the wrapper allocates, 2.2 GB at
+DeepSeek-V3's train cell); ``mma_f32``, fp32 at every pair, and
+``mma_bf16``, bf16 at (16, 16) (``csrc/flash_attention_bwd_mma.cu``,
+``mma.sync``, fp32 in 3xTF32 as ``prefill_f32``).  So the backward takes
+every (dtype, pair) of ``BWD_HEAD_DIMS``, which equals ``HEAD_DIMS``, and
+raises a ``ValueError`` naming anything else before any launch.  Counted
+in ``flash_attention_bwd.launches``, by kernel in
+``flash_attention_bwd.launches_by_kernel`` and by head-dim pair in
+``flash_attention_bwd.launches_by_dims``.  The JAX package has no
+backward kernel: XLA differentiates ``flash_ref``.  The plain version of
+the backward, ``flash_attention_bwd_ref``, is autograd through
+``flash_attention_ref`` (recomputed): the CPU's backward, and the card's
+under ``plain_backward=True``.
 """
 
 from __future__ import annotations
@@ -95,14 +99,17 @@ from repro_torch.kernels.build import KernelLibrary
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "plan_launch", "Plan", "HEAD_DIMS",
-           "SPLIT_HEAD_DIMS", "BWD_HEAD_DIMS", "KERNELS", "LIBRARY",
-           "LIBRARY_BWD"]
+           "SPLIT_HEAD_DIMS", "BWD_HEAD_DIMS", "KERNELS", "BWD_KERNELS",
+           "bwd_kernel", "LIBRARY", "LIBRARY_BWD", "LIBRARY_BWD_MMA"]
 
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).parent / "csrc" / "flash_attention.cu")
 LIBRARY_BWD = KernelLibrary(
     "flash_attention_bwd",
     Path(__file__).parent / "csrc" / "flash_attention_bwd.cu")
+LIBRARY_BWD_MMA = KernelLibrary(
+    "flash_attention_bwd_mma",
+    Path(__file__).parent / "csrc" / "flash_attention_bwd_mma.cu")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (q/k head dim, v head dim) -> the dtypes the kernels take at that pair.
@@ -303,7 +310,7 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None,
     """Validate, plan, allocate the output (and the split workspace) and
     launch on the current stream.  Returns the output and the kernel that
     ran, or None when there was nothing to compute.  ``lse``: a (B, H, Sq)
-    fp32 buffer that receives each row's logsumexp (``prefill_wgmma``
+    fp32 buffer that receives each row's logsumexp (the prefill kernels
     only)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
             v.shape[:3] != k.shape[:3]:
@@ -330,9 +337,9 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None,
         raise ValueError(f"grid too large for B={B}, Hkv={Hkv}")
     plan = plan_launch(B, Sq, Sk, H, Hkv, hd, q.dtype,
                        _sm_count(q.device) if sms is None else sms)
-    if lse is not None and plan.kernel != "prefill_wgmma":
-        raise ValueError(f"the logsumexp for the backward comes from "
-                         f"prefill_wgmma, not {plan.kernel} (B {B}, Sq {Sq}, "
+    if lse is not None and plan.kernel == "decode_split":
+        raise ValueError(f"the logsumexp for the backward comes from a "
+                         f"prefill kernel, not decode_split (B {B}, Sq {Sq}, "
                          f"Hkv {Hkv}: a grid that leaves the card idle)")
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -398,20 +405,32 @@ flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)
 
 # ---------------------------------------------------------------- backward
 
-# (q/k, v) head dims the backward kernel takes, all in bf16: HuBERT-XLarge's
-# 80, the GQA models' 128 and DeepSeek-V3's MLA (nope 128 + rope 64, v 128).
-BWD_HEAD_DIMS = ((80, 80), (128, 128), (192, 128))
+# (q/k, v) head dims -> the dtypes the backward kernels take there: what
+# the forward takes.  bf16 at 64, 80, 128 and MLA's (192, 128) on the wgmma
+# kernels; fp32 everywhere and bf16 at 16 (the reduced configurations'
+# width) on the mma.sync kernels.
+BWD_HEAD_DIMS = HEAD_DIMS
+# Backward kernels, by the name their launches are counted under.
+BWD_KERNELS = ("wgmma", "mma_f32", "mma_bf16")
+
+
+def bwd_kernel(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernel of a (dtype, q/k head dim) that
+    ``BWD_HEAD_DIMS`` holds."""
+    if dtype == torch.float32:
+        return "mma_f32"
+    return "mma_bf16" if hd == 16 else "wgmma"
 
 
 def _bwd_contract(q, k, v) -> None:
-    """What the backward kernel takes, checked before any launch."""
+    """What the backward kernels take, checked before any launch."""
     hd, hd_v = q.shape[-1], v.shape[-1]
-    if q.dtype != torch.bfloat16 or (hd, hd_v) not in BWD_HEAD_DIMS or \
+    if q.dtype not in BWD_HEAD_DIMS.get((hd, hd_v), ()) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         pairs = ", ".join(f"({a}, {b})" for a, b in BWD_HEAD_DIMS)
-        raise ValueError(f"the flash attention backward kernel takes bf16 at "
-                         f"head dims {pairs}, not ({hd}, {hd_v}) in "
-                         f"{q.dtype}")
+        raise ValueError(f"the flash attention backward kernels take fp32 "
+                         f"or bf16 at head dims {pairs}, not ({hd}, {hd_v}) "
+                         f"in {q.dtype}, {k.dtype}, {v.dtype}")
 
 
 # The plain backward runs over groups of KV heads whose fp32 scores take
@@ -449,9 +468,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
                         scale: float | None = None):
     """(dq, dk, dv) of full-sequence attention on the card: q (B, S, H,
     hd), k (B, S, Hkv, hd), v (B, S, Hkv, hd_v), out and dout (B, S, H,
-    hd_v), bf16 at a pair of ``BWD_HEAD_DIMS``, and the forward's
+    hd_v), fp32 or bf16 at a pair of ``BWD_HEAD_DIMS``, and the forward's
     logsumexp ``lse`` (B, H, S) fp32; one call launches the three kernels
-    of ``csrc/flash_attention_bwd.cu`` (counted once).  Deterministic: two
+    of ``bwd_kernel(q.dtype, hd)`` (counted once).  Deterministic: two
     calls on the same inputs give the same bits."""
     if not _is_cuda(q):
         return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
@@ -468,6 +487,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool,
     ops = _bwd_operands(q, k, v, out, dout, lse, causal)
     _bwd_call(ops, causal, scale, 7)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_kernel[bwd_kernel(q.dtype, hd)] += 1
     flash_attention_bwd.launches_by_dims[(hd, hd_v)] += 1
     return ops[7:10]
 
@@ -485,9 +505,10 @@ def _tma_view(t: torch.Tensor) -> torch.Tensor:
 def _bwd_operands(q, k, v, out, dout, lse, causal) -> tuple:
     """The kernels' inputs (q, out, dout, lse contiguous; k and v as TMA
     reads them), the workspace (lse log2(e) and rowsum(do o), each (B, H,
-    S rounded up to 64)), dq, dk, dv (contiguous) and, at (192, 128), the
-    dS^T tiles the dK/dV pass hands the dQ pass (bf16, 64 x 64 a tile,
-    the causal triangle's or the square's tiles a (b, h); else None)."""
+    S rounded up to 64)), dq, dk, dv (contiguous) and, at (192, 128) in
+    bf16, the dS^T tiles the dK/dV pass hands the dQ pass (bf16, 64 x 64
+    a tile, the causal triangle's or the square's tiles a (b, h); else
+    None)."""
     q, out, dout, lse = (t.contiguous() for t in (q, out, dout, lse))
     k, v = _tma_view(k), _tma_view(v)
     B, S, H, hd = q.shape
@@ -495,7 +516,7 @@ def _bwd_operands(q, k, v, out, dout, lse, causal) -> tuple:
     ws = torch.empty(2 * B * H * n * 64, dtype=torch.float32,
                      device=q.device)
     ds = None
-    if hd == 192:
+    if hd == 192 and bwd_kernel(q.dtype, hd) == "wgmma":
         tiles = n * (n + 1) // 2 if causal else n * n
         ds = torch.empty(B * H * tiles * 64 * 64, dtype=torch.bfloat16,
                          device=q.device)
@@ -505,19 +526,25 @@ def _bwd_operands(q, k, v, out, dout, lse, causal) -> tuple:
 
 
 def _bwd_call(ops, causal, scale, parts: int) -> None:
-    """Launch the kernels ``parts`` names (1 prep, 2 dK/dV, 4 dQ)."""
+    """Launch the kernels ``parts`` names (1 prep, 2 dK/dV, 4 dQ) of
+    ``bwd_kernel`` (the mma.sync entry point takes the dtype first)."""
     q, k, v = ops[:3]
     B, S, H, hd = q.shape
     Hkv, hd_v = v.shape[2], v.shape[3]
-    err = _bwd_launcher()(
-        *(None if t is None else t.data_ptr() for t in ops), B, S, H, Hkv,
+    if bwd_kernel(q.dtype, hd) == "wgmma":
+        fn, first = _bwd_launcher(), ()
+    else:
+        fn, first = _bwd_mma_launcher(), (_DTYPE_CODE[q.dtype],)
+    err = fn(
+        *first, *(None if t is None else t.data_ptr() for t in ops), B, S, H,
+        Hkv,
         hd, hd_v, int(causal),
         float(scale if scale is not None else hd ** -0.5), parts,
         *(t.stride(d) for t in (k, v) for d in (2, 1, 0)),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed at ({hd}, "
-                           f"{hd_v}): error {err}")
+                           f"{hd_v}) in {q.dtype}: error {err}")
 
 
 def bwd_stage_ms(q, k, v, out, dout, lse, *, causal: bool,
@@ -542,14 +569,28 @@ def bwd_stage_ms(q, k, v, out, dout, lse, *, causal: bool,
     return out_ms
 
 
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_int] + [ctypes.c_longlong] * 6
+                 + [ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_launcher():
-    """The backward's C entry point with its argument types (set once)."""
+    """The wgmma backward's C entry point with its argument types (set
+    once)."""
     fn = LIBRARY_BWD.load().flash_attention_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int] + [ctypes.c_longlong] * 6
-                   + [ctypes.c_void_p])
+    fn.argtypes = _BWD_ARGTYPES
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_mma_launcher():
+    """The mma.sync backward's C entry point: the dtype code, then the
+    wgmma entry point's arguments (set once)."""
+    fn = LIBRARY_BWD_MMA.load().flash_attention_bwd_mma_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + _BWD_ARGTYPES
     return fn
 
 
@@ -564,8 +605,9 @@ class _FlashAttention(torch.autograd.Function):
             _bwd_contract(q, k, v)
             B, S, H, _ = q.shape
             lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-            # The logsumexp comes from prefill_wgmma, which sms=1 selects
-            # whatever the grid (plan_launch).
+            # The logsumexp comes from the prefill kernel of the dtype and
+            # head dim, which sms=1 selects whatever the grid
+            # (plan_launch).
             out, kernel = _launch(q, k, v, causal, 0, None, scale, sms=1,
                                   lse=lse)
             if kernel is not None:
@@ -592,4 +634,5 @@ class _FlashAttention(torch.autograd.Function):
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)
 flash_attention_bwd.launches_by_dims = dict.fromkeys(BWD_HEAD_DIMS, 0)

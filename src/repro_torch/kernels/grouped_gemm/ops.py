@@ -49,11 +49,15 @@ fp32 runs its products on the tensor cores in 3xTF32 (each operand split
 into a TF32 part and the rest; see the source's header): each product
 keeps about 2^-20 where fp32 keeps 2^-24, within 1e-4 of max|ref|.
 
-Gradients (bf16 on the card; any float dtype on the CPU).  With a gradient
-required, ``grouped_swiglu`` and ``grouped_matmul`` run as autograd
-Functions: the forward kernel as above, and a backward of three more
-kernels of ``csrc/grouped_gemm.cu`` (the JAX package has none: XLA
-differentiates its einsums), each with a plain version and a launch count:
+Gradients (bf16 and fp32 on the card; any float dtype on the CPU).  With
+a gradient required, ``grouped_swiglu`` and ``grouped_matmul`` run as
+autograd Functions: the forward kernel as above, and a backward of three
+more kernels (the JAX package has none: XLA differentiates its einsums),
+each with a plain version and a launch count (by dtype in
+``launches_by_kernel``): in bf16 those of ``csrc/grouped_gemm.cu`` below,
+in fp32 those of ``csrc/grouped_gemm_bwd_f32.cu`` (3xTF32 on ``mma.sync``,
+a block per 64 x 64 output tile, rows past a slot's count written as
+zeros; the trainer's default dtype):
 
 * ``grouped_swiglu_bwd(x, w1, w3, dact, rows, zero_padded=True)`` ->
   (dh, dg): the SwiGLU's h = x w1 and g = x w3 recomputed from one read of
@@ -84,8 +88,8 @@ of a masked call).  The SwiGLU saves x and recomputes h and g; the
 matmul saves its input (the activations, ``act``).  ``plain_backward=True``
 runs the backward as autograd through the plain forward instead, on any
 device (a check of the kernels in place: the forward is the same).  On the
-card the backward kernels take bf16 with K and N multiples of 8 and raise a
-``ValueError`` on anything else before any launch.
+card the backward kernels take bf16 or fp32 with K and N multiples of 8
+and raise a ``ValueError`` on anything else before any launch.
 
 The q8 plain versions contract in fp64, which is exact here (every partial
 sum is an integer below 2^53), and convert to int32: CUDA has no int32
@@ -112,12 +116,15 @@ __all__ = ["grouped_swiglu", "grouped_matmul", "grouped_swiglu_ref",
            "grouped_matmul_nt", "grouped_matmul_nt_ref", "grouped_wgrad",
            "grouped_wgrad_ref", "swiglu_bwd_tiles", "matmul_nt_tiles",
            "wgrad_tiles", "LIBRARY",
-           "LIBRARY_Q8"]
+           "LIBRARY_Q8", "LIBRARY_BWD_F32"]
 
 LIBRARY = KernelLibrary("grouped_gemm",
                         Path(__file__).parent / "csrc" / "grouped_gemm.cu")
 LIBRARY_Q8 = KernelLibrary(
     "grouped_gemm_q8", Path(__file__).parent / "csrc" / "grouped_gemm_q8.cu")
+LIBRARY_BWD_F32 = KernelLibrary(
+    "grouped_gemm_bwd_f32",
+    Path(__file__).parent / "csrc" / "grouped_gemm_bwd_f32.cu")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -507,12 +514,14 @@ def grouped_wgrad_ref(x: torch.Tensor, d: torch.Tensor,
 
 
 def _bwd_operands(name: str, *ts: torch.Tensor) -> None:
-    """The backward kernels' contract: bf16 on one card, 3-D, a unit-stride
-    last dim, TMA-readable, widths that are multiples of 8."""
+    """The backward kernels' contract: bf16 or fp32, one dtype, on one
+    card, 3-D, a unit-stride last dim, TMA-readable, widths that are
+    multiples of 8."""
     for t in ts:
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: the backward kernels take bf16, not "
-                             f"{t.dtype}")
+        if t.dtype not in (torch.bfloat16, torch.float32) or \
+                t.dtype != ts[0].dtype:
+            raise ValueError(f"{name}: the backward kernels take bf16 or "
+                             f"fp32 operands of one dtype, not {t.dtype}")
         if t.device != ts[0].device or t.dim() != 3:
             raise ValueError(f"{name}: expected 3-D operands on one device")
         if t.shape[-1] % 8 or t.stride(-1) != 1 or not _tma_ready(t):
@@ -548,7 +557,11 @@ def grouped_swiglu_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                          "with equal strides, dact (G, M, N) contiguous")
     rows = _check_rows(rows, G, x.device)
     dh, dg = torch.empty_like(dact), torch.empty_like(dact)
-    if dh.numel():
+    if dh.numel() and x.dtype == torch.float32:
+        _bwd_check(_f32_launch(1, x, None, w1, w3, dact, dh, dg, rows),
+                   "grouped_swiglu_bwd fp32")
+        _count_bwd(grouped_swiglu_bwd, x.dtype)
+    elif dh.numel():
         # The counter from which the kernel's blocks take their work items.
         nxt = torch.zeros(1, dtype=torch.int32, device=x.device)
         _bwd_check(_swiglu_bwd_launcher()(
@@ -558,7 +571,7 @@ def grouped_swiglu_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             K, N, x.stride(0), x.stride(1), w1.stride(0), w1.stride(1),
             torch.cuda.current_stream(x.device).cuda_stream),
             "grouped_swiglu_bwd")
-        grouped_swiglu_bwd.launches += 1
+        _count_bwd(grouped_swiglu_bwd, x.dtype)
     return dh, dg
 
 
@@ -585,7 +598,11 @@ def grouped_matmul_nt(x: torch.Tensor, w: torch.Tensor,
                          "w2 with the shapes and strides of x and w")
     rows = _check_rows(rows, G, x.device)
     out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
-    if out.numel():
+    if out.numel() and x.dtype == torch.float32:
+        _bwd_check(_f32_launch(0, x, x2, w, w2, None, out, None, rows),
+                   "grouped_matmul_nt fp32")
+        _count_bwd(grouped_matmul_nt, x.dtype)
+    elif out.numel():
         second = x2 is not None
         # The counter from which the kernel's blocks take their work items.
         nxt = torch.zeros(1, dtype=torch.int32, device=x.device)
@@ -597,7 +614,7 @@ def grouped_matmul_nt(x: torch.Tensor, w: torch.Tensor,
             K, N, x.stride(0), x.stride(1), w.stride(0), w.stride(1),
             torch.cuda.current_stream(x.device).cuda_stream),
             "grouped_matmul_nt")
-        grouped_matmul_nt.launches += 1
+        _count_bwd(grouped_matmul_nt, x.dtype)
     return out
 
 
@@ -616,14 +633,47 @@ def grouped_wgrad(x: torch.Tensor, d: torch.Tensor,
                          f"{tuple(d.shape)}")
     rows = _check_rows(rows, G, x.device)
     out = torch.empty((G, K, N), dtype=x.dtype, device=x.device)
-    if out.numel():
+    if out.numel() and x.dtype == torch.float32:
+        _bwd_check(_f32_launch(2, x, None, d, None, None, out, None, rows),
+                   "grouped_wgrad fp32")
+        _count_bwd(grouped_wgrad, x.dtype)
+    elif out.numel():
         _bwd_check(_wgrad_launcher()(
             x.data_ptr(), d.data_ptr(), out.data_ptr(),
             None if rows is None else rows.data_ptr(), G, M, K, N,
             x.stride(0), x.stride(1), d.stride(0), d.stride(1),
             torch.cuda.current_stream(x.device).cuda_stream), "grouped_wgrad")
-        grouped_wgrad.launches += 1
+        _count_bwd(grouped_wgrad, x.dtype)
     return out
+
+
+def _count_bwd(fn, dtype: torch.dtype) -> None:
+    """One launch of a backward wrapper, counted whole and by dtype."""
+    fn.launches += 1
+    fn.launches_by_kernel[_BWD_KERNEL[dtype]] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_launcher():
+    """The fp32 backward's entry point with its argument types (set once)."""
+    fn = LIBRARY_BWD_F32.load().grouped_bwd_f32_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def _f32_launch(mode, a, a2, b, b2, dact, out, out2, rows) -> int:
+    """One launch of ``csrc/grouped_gemm_bwd_f32.cu`` (mode 0 dgrad, 1
+    SwiGLU backward, 2 wgrad) on the current stream; its error code."""
+    G, M, K = a.shape
+    N = out.shape[2]
+    return _f32_launcher()(
+        mode, *(None if t is None else t.data_ptr()
+                for t in (a, a2, b, b2, dact, out, out2, rows)),
+        G, M, K, N, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+        torch.cuda.current_stream(a.device).cuda_stream)
 
 
 def _row_tile_items(rows: torch.Tensor, M: int, N: int,
@@ -783,9 +833,11 @@ class _GroupedMatmul(torch.autograd.Function):
         return dx, dw, None, None
 
 
-grouped_swiglu_bwd.launches = 0
-grouped_matmul_nt.launches = 0
-grouped_wgrad.launches = 0
+# The backward wrappers' kernels by operand dtype.
+_BWD_KERNEL = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+for _fn in (grouped_swiglu_bwd, grouped_matmul_nt, grouped_wgrad):
+    _fn.launches = 0
+    _fn.launches_by_kernel = dict.fromkeys(_BWD_KERNEL.values(), 0)
 grouped_swiglu.launches = 0
 grouped_matmul.launches = 0
 grouped_swiglu.padded_copies = 0

@@ -23,7 +23,8 @@
 // come back in that type), dt, da, dY, dS, d(decay) fp32, all contiguous:
 // x, dY (B, nc, Q, H, P), B, C (B, nc, Q, H, N), dt, da (B, nc, Q, H),
 // dS (B, nc, H, N, P), d(decay) (B, nc, H).  (P, N) is (64, 16), Jamba's
-// head dim and state, or (16, 16), the reduced configurations'; Q <= 128.
+// head dim and state, (64, 128), Mamba2-130M's, or (16, 16), the reduced
+// configurations'; Q <= 128.
 //
 // What bounds it on an H100: bytes.  At Jamba-v0.1's train shape (B 1,
 // T 4096: nc 32, Q 128, H 128, P 64, N 16) it reads x, B, C, dY, dS and
@@ -84,6 +85,22 @@
 // across its i-tiles; with fp32 inputs (two blocks an SM) that holds
 // their lo part too.
 //
+// At N 128 (Mamba2-130M: Q 128, 24 heads of 64, state 128, one group) the
+// state-sized operands B, C and dS grow 8x: B and C rows are 128 wide
+// (their 16 pieces swizzled by row within each 128-byte half), dB and dC
+// hold 64 fp32 a thread, and the chunk state's u = x_j dS^T is formed 16
+// columns at a time and spent at once (the same order of sums as a whole
+// u).  Shared memory: 150,528 bytes with bf16 inputs and, with fp32 inputs,
+// 232,448 bytes, exactly a block's limit: the staged layout above would
+// be 528 bytes over, so exp(cum_last - cum_j) is recomputed by the thread
+// that owns j at the end (the same expf, the same bits) rather than kept,
+// and the 4 scan totals sit in arrays that are dead at each scan (T's
+// before the column pass, dS's after it).  The other splits would cost
+// more: halving N restages B and C and forms dW and W^T dY twice; staging
+// the lo parts a pass at a time does not shrink the peak, which both
+// passes need.  One block an SM at N 128 (4 warps); the launch bound asks
+// for no more, so ptxas may give a thread 255 registers.
+//
 // Not yet: one block's loads overlap only another block's products (no
 // ring inside a block), and the per-element work between the products
 // (decay, mask, splits) is done twice, once a pass.
@@ -118,17 +135,19 @@ struct Args {
 // keep their 16-byte pieces swizzled by row (the 8 rows one ldmatrix
 // phase reads at one column fall in 8 bank groups); 16-column rows are
 // padded to 24 elements (48 bytes), which does the same.
+// Rows of 128 elements swizzle each 128-byte half the same way.
 template <int W>
 struct Rows {
-  static_assert(W == 16 || W == 64, "rows of 16 or 64 elements");
-  static constexpr int LD = W == 64 ? 64 : 24;
+  static_assert(W == 16 || W == 64 || W == 128,
+                "rows of 16, 64 or 128 elements");
+  static constexpr int LD = W == 16 ? 24 : W;
   __host__ __device__ static constexpr int bytes(int rows) {
     return rows * LD * 2;
   }
   __device__ static __forceinline__ int off(int r, int c) {
-    if constexpr (W == 64) {
+    if constexpr (W != 16) {
       const int piece = c >> 3;
-      return r * 64 + (((piece ^ r) & 7) << 3) + (c & 7);
+      return r * W + ((piece & ~7) << 3) + (((piece ^ r) & 7) << 3) + (c & 7);
     } else {
       return r * LD + c;
     }
@@ -272,17 +291,18 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 }
 
 // Shared memory of a block: the operands' bf16 rows (lo parts of x, B, C
-// only with fp32 inputs), then Qp floats each of cum, dt, exp(cum_last -
-// cum), wj, the row term of dcum (later dcum), T and B.u, and kWarps
-// scan totals.
+// only with fp32 inputs), then Qp floats each of cum, dt, wj, the row
+// term of dcum (later dcum), T and B.u.  The kWarps scan totals of the
+// cumsum take T's first floats (T is written by the column pass, later),
+// those of the end's sums dS's rows (read by the column pass only).
 template <int P, int N, bool F32>
 struct Smem {
   bf16 *dyh, *dyl, *xh, *xl, *bh, *bl, *ch, *cl, *dsh, *dsl;
-  float *cum, *dtv, *ej, *wj, *rowm, *colt, *dwj, *tot;
+  float *cum, *dtv, *wj, *rowm, *colt, *dwj, *tot_first, *tot_last;
   __host__ __device__ static long long bytes(int Qp) {
     return (F32 ? 4LL : 3LL) * Rows<P>::bytes(Qp) +
            (F32 ? 4LL : 2LL) * Rows<N>::bytes(Qp) + 2LL * Rows<P>::bytes(N) +
-           (7LL * Qp + kWarps) * 4;
+           6LL * Qp * 4;
   }
   __device__ Smem(unsigned char* raw, int Qp) {
     bf16* p = reinterpret_cast<bf16*>(raw);
@@ -302,12 +322,12 @@ struct Smem {
     dsl = p; p += Rows<P>::bytes(N) / 2;
     cum = reinterpret_cast<float*>(p);
     dtv = cum + Qp;
-    ej = dtv + Qp;
-    wj = ej + Qp;
+    wj = dtv + Qp;
     rowm = wj + Qp;
     colt = rowm + Qp;
     dwj = colt + Qp;
-    tot = dwj + Qp;
+    tot_first = colt;
+    tot_last = reinterpret_cast<float*>(dsh);
   }
 };
 
@@ -490,29 +510,31 @@ __device__ void col_tile(const Smem<P, N, sizeof(T) == 4>& s, int jt, int nt,
       mma2<true, F32>(dba[n0 / 8], dba[n0 / 8 + 1], gh, gl, bh, bl);
     }
   }
-  // The chunk state's terms: u = x_j dS^T (rows j, columns n).
-  float uacc[N / 8][4] = {};
+  // The chunk state's terms: u = x_j dS^T (rows j, columns n), 16
+  // columns at a time, each spent on B_j . u and dB_j += w_j u at once.
+  const float wja = s.wj[ja], wjb = s.wj[jb];
+  float bu[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n0 = 0; n0 < N; n0 += 16)
+  for (int n0 = 0; n0 < N; n0 += 16) {
+    float uacc[2][4] = {};
 #pragma unroll
     for (int k = 0; k < P / 16; ++k) {
       unsigned sh[4], sl[4];
       ldb_n<P>(sh, s.dsh, n0, 16 * k, lane);
       ldb_n<P>(sl, s.dsl, n0, 16 * k, lane);
-      mma2<F32, true>(uacc[n0 / 8], uacc[n0 / 8 + 1], xh[k],
-                      xl[F32 ? k : 0], sh, sl);
+      mma2<F32, true>(uacc[0], uacc[1], xh[k], xl[F32 ? k : 0], sh, sl);
     }
-  const float wja = s.wj[ja], wjb = s.wj[jb];
-  float bu[2] = {0.f, 0.f};
 #pragma unroll
-  for (int nf = 0; nf < N / 8; ++nf)
+    for (int u = 0; u < 2; ++u)
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int j = (v >> 1) ? jb : ja, n = 8 * nf + 2 * tq + (v & 1);
-      const float b = elem<T>(s.bh, s.bl, Rows<N>::off(j, n));
-      bu[v >> 1] = fmaf(b, uacc[nf][v], bu[v >> 1]);
-      dba[nf][v] = fmaf((v >> 1) ? wjb : wja, uacc[nf][v], dba[nf][v]);
-    }
+      for (int v = 0; v < 4; ++v) {
+        const int nf = n0 / 8 + u;
+        const int j = (v >> 1) ? jb : ja, n = 8 * nf + 2 * tq + (v & 1);
+        const float b = elem<T>(s.bh, s.bl, Rows<N>::off(j, n));
+        bu[v >> 1] = fmaf(b, uacc[u][v], bu[v >> 1]);
+        dba[nf][v] = fmaf((v >> 1) ? wjb : wja, uacc[u][v], dba[nf][v]);
+      }
+  }
   // dx_j += (w_j B_j) dS: A fragment built from the staged B, split.
 #pragma unroll
   for (int k0 = 0; k0 < N; k0 += 16) {
@@ -559,7 +581,8 @@ __device__ void col_tile(const Smem<P, N, sizeof(T) == 4>& s, int jt, int nt,
 }
 
 template <typename T, int P, int N>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 3)
+__global__ void __launch_bounds__(kThreads,
+                                  N == 128 ? 1 : (sizeof(T) == 4 ? 2 : 3))
 ssd_bwd_kernel(const Args a) {
   constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -593,18 +616,15 @@ ssd_bwd_kernel(const Args a) {
   stage_split<P>(s.dsh, s.dsl, a.dS, (blk * H + h) * N * P, P, N, N);
 
   // ---- cum = cumsum(da) (Q <= kThreads); decays of the chunk state.
-  const float cum_t = block_scan(da_t, s.tot);
+  const float cum_t = block_scan(da_t, s.tot_first);
   if (t < Qp) {
     s.cum[t] = t < Q ? cum_t : 0.f;
     s.dtv[t] = dt_t;
   }
   __syncthreads();
   const float last = s.cum[Q - 1];
-  if (t < Qp) {
-    const float e = t < Q ? expf(last - cum_t) : 0.f;
-    s.ej[t] = e;
-    s.wj[t] = e * dt_t;
-  }
+  const float ej_t = t < Q ? expf(last - cum_t) : 0.f;
+  if (t < Qp) s.wj[t] = ej_t * dt_t;
   if constexpr (!F32) cp_async_wait<0>();
   __syncthreads();
 
@@ -629,24 +649,24 @@ ssd_bwd_kernel(const Args a) {
   float dcum = 0.f, r = 0.f;
   if (t < Q) {
     const float bu = s.dwj[t], col = s.colt[t];
-    a.ddt[at] = fmaf(bu, s.ej[t], col);
+    a.ddt[at] = fmaf(bu, ej_t, col);
     r = bu * s.wj[t];
     dcum = s.rowm[t] - dt_t * col - r;
   }
   // sum_j (B_j . u_j) wj: a warp's xor sum, then the warps in order.
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
-  if ((t & 31) == 0) s.tot[warp] = r;
+  if ((t & 31) == 0) s.tot_last[warp] = r;
   __syncthreads();
   if (t == Q - 1) {
     float sum = 0.f;
-    for (int w = 0; w < kWarps; ++w) sum += s.tot[w];
+    for (int w = 0; w < kWarps; ++w) sum += s.tot_last[w];
     dcum += sum + a.ddec[blk * H + h] * expf(last);
   }
   if (t < Qp) s.rowm[t] = dcum;
   __syncthreads();
   // Thread t takes position Q - 1 - t: an inclusive scan from the end.
-  const float rev = block_scan(t < Q ? s.rowm[Q - 1 - t] : 0.f, s.tot);
+  const float rev = block_scan(t < Q ? s.rowm[Q - 1 - t] : 0.f, s.tot_last);
   if (t < Q) a.dda[(blk * Q + (Q - 1 - t)) * H + h] = rev;
 }
 
@@ -660,7 +680,7 @@ int launch(const Args& a, long long blocks, cudaStream_t st) {
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   // All of the SM's unified memory as shared memory: three bf16 blocks
-  // (two fp32) fit only so.
+  // (two fp32; one at N 128) fit only so.
   e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
@@ -675,7 +695,8 @@ int launch(const Args& a, long long blocks, cudaStream_t st) {
 // Plain C entry point, bound with ctypes.  dtype 0: fp32 x, B, C; 1: bf16.
 // Every tensor contiguous (shapes above).  Returns 0 when launched, else a
 // CUDA error code (cudaErrorInvalidValue for a shape the kernel does not
-// take: Q above 128 or (P, N) other than (64, 16) and (16, 16)).
+// take: Q above 128 or (P, N) other than (64, 16), (64, 128) and
+// (16, 16)).
 extern "C" int ssd_intra_chunk_bwd_launch(
     int dtype, const void* x, const void* Bm, const void* Cm, const void* dt,
     const void* da, const void* dy, const void* dS, const void* ddec,
@@ -700,6 +721,9 @@ extern "C" int ssd_intra_chunk_bwd_launch(
   if (P == 64 && N == 16)
     return dtype == 1 ? launch<bf16, 64, 16>(a, blocks, s)
                       : launch<float, 64, 16>(a, blocks, s);
+  if (P == 64 && N == 128)
+    return dtype == 1 ? launch<bf16, 64, 128>(a, blocks, s)
+                      : launch<float, 64, 128>(a, blocks, s);
   if (P == 16 && N == 16)
     return dtype == 1 ? launch<bf16, 16, 16>(a, blocks, s)
                       : launch<float, 16, 16>(a, blocks, s);

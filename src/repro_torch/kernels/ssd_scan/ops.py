@@ -51,9 +51,10 @@ LIBRARY = KernelLibrary("ssd_scan",
                         Path(__file__).parent / "csrc" / "ssd_scan.cu")
 LIBRARY_BWD = KernelLibrary(
     "ssd_scan_bwd", Path(__file__).parent / "csrc" / "ssd_scan_bwd.cu")
-# (head dim P, state N) pairs the backward kernel takes (Jamba's, and the
-# reduced configurations'), at chunks of at most BWD_MAX_Q positions.
-BWD_DIMS = ((64, 16), (16, 16))
+# (head dim P, state N) pairs the backward kernel takes (Jamba's,
+# Mamba2-130M's and the reduced configurations'), at chunks of at most
+# BWD_MAX_Q positions.
+BWD_DIMS = ((64, 16), (64, 128), (16, 16))
 BWD_MAX_Q = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -217,14 +218,11 @@ def _bwd_launcher():
     return fn
 
 
-def ssd_intra_chunk_bwd(xs, Bm, Cm, dt, da, dy, dS, ddec):
-    """(dxs, dBm, dCm, ddt, dda) of the intra-chunk term: on the card one
-    launch of ``csrc/ssd_scan_bwd.cu``, on the CPU the closed form
-    :func:`ssd_intra_chunk_bwd_ref`.  The kernel takes xs, Bm, Cm all bf16
-    or all fp32 with fp32 dt and da, (P, N) in ``BWD_DIMS`` and chunks of
-    at most ``BWD_MAX_Q``, and raises on anything else."""
-    if not _is_cuda(xs):
-        return ssd_intra_chunk_bwd_ref(xs, Bm, Cm, dt, da, dy, dS, ddec)
+def _bwd_contract(xs, Bm, Cm, dt, da, dy, dS, ddec) -> None:
+    """What the backward kernel takes, checked before any launch: xs, Bm,
+    Cm all bf16 or all fp32 with fp32 dt and da (else ``TypeError``), (P,
+    N) in ``BWD_DIMS``, Q at most ``BWD_MAX_Q`` and the shapes of one call
+    (else ``ValueError``)."""
     if xs.dtype not in _DTYPE_CODE or Bm.dtype != xs.dtype or \
             Cm.dtype != xs.dtype or dt.dtype != torch.float32 or \
             da.dtype != torch.float32:
@@ -242,6 +240,19 @@ def ssd_intra_chunk_bwd(xs, Bm, Cm, dt, da, dy, dS, ddec):
         raise ValueError(f"the SSD backward kernel takes (P, N) in "
                          f"{BWD_DIMS} and Q <= {BWD_MAX_Q}, not xs "
                          f"{tuple(xs.shape)}, Bm {tuple(Bm.shape)}")
+
+
+def ssd_intra_chunk_bwd(xs, Bm, Cm, dt, da, dy, dS, ddec):
+    """(dxs, dBm, dCm, ddt, dda) of the intra-chunk term: on the card one
+    launch of ``csrc/ssd_scan_bwd.cu``, on the CPU the closed form
+    :func:`ssd_intra_chunk_bwd_ref`.  The kernel takes xs, Bm, Cm all bf16
+    or all fp32 with fp32 dt and da, (P, N) in ``BWD_DIMS`` and chunks of
+    at most ``BWD_MAX_Q``, and raises on anything else."""
+    if not _is_cuda(xs):
+        return ssd_intra_chunk_bwd_ref(xs, Bm, Cm, dt, da, dy, dS, ddec)
+    _bwd_contract(xs, Bm, Cm, dt, da, dy, dS, ddec)
+    B, nc, Q, H, P = xs.shape
+    N = Bm.shape[-1]
     f32 = torch.float32
     xs, Bm, Cm, dt, da = (t.contiguous() for t in (xs, Bm, Cm, dt, da))
     dy, dS, ddec = (t.to(f32).contiguous() for t in (dy, dS, ddec))

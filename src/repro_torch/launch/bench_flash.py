@@ -12,8 +12,8 @@ each serve path's flash shapes (chunk 4096 at offset 4096, decode at
 batch 4), with GLM decode at batch 8 and 16 beside (grids 64 and 128).
 
 ``--fwd``: the plan's pick at GLM-4.5-Air's serve chunk (4096 queries at
-offset 4096 over a 10,248-position cache) and at DeepSeek-V3's 64- and
-128-query MLA chunks.  ``--bwd``: ``flash_attention_bwd`` at the train
+offset 4096 over a 10,248-position cache; in bf16 and in fp32) and at
+DeepSeek-V3's 64- and 128-query MLA chunks.  ``--bwd``: ``flash_attention_bwd`` at the train
 step's shape (B 2, S 4096, 32 / 8 heads, hd 128, causal) and at
 DeepSeek-V3's train cell (B 1, S 4096, 128 heads, q/k 192, v 128, MLA's
 scale), eager events over repeated calls, beside SDPA's backward (flash
@@ -77,9 +77,10 @@ def _event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _inputs(B, Sq, Sk, H, Hkv, hd, hd_v, q_off, kv_len, seed=0):
+def _inputs(B, Sq, Sk, H, Hkv, hd, hd_v, q_off, kv_len, seed=0,
+            dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    bf = torch.bfloat16
+    bf = dtype
     q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").to(bf)
     k = torch.randn((B, Sk, Hkv, hd), generator=g, device="cuda").to(bf)
     # MLA's v is the last 128 columns of the expanded latent: a view.
@@ -160,14 +161,18 @@ def bench_plan(iters: int) -> None:
 def bench_fwd(iters: int) -> None:
     from repro_torch.kernels.flash_attention import ops
 
-    for tag, B, Sq, Sk, H, Hkv, (hd, hd_v), q_off, kv_len in [
+    f32 = torch.float32
+    for tag, B, Sq, Sk, H, Hkv, (hd, hd_v), q_off, kv_len, *dtype in [
             ("glm_prefill_at_4096", 1, 4096, SERVE_SK, 32, 8, (128, 128),
              [4096], [8192]),
+            ("glm_prefill_at_4096_fp32", 1, 4096, SERVE_SK, 32, 8,
+             (128, 128), [4096], [8192], f32),
             ("mla_prefill_64", 1, 64, SERVE_SK, 128, 128, (192, 128), [4096],
              [4160]),
             ("mla_prefill_128", 1, 128, SERVE_SK, 128, 128, (192, 128),
              [4096], [4224])]:
-        q, k, v, off, lim = _inputs(B, Sq, Sk, H, Hkv, hd, hd_v, q_off, kv_len)
+        q, k, v, off, lim = _inputs(B, Sq, Sk, H, Hkv, hd, hd_v, q_off, kv_len,
+                                    dtype=dtype[0] if dtype else torch.bfloat16)
         kw = dict(causal=True, q_offset=off, kv_valid_len=lim)
         before = dict(ops.flash_attention.launches_by_kernel)
         ops.flash_attention(q, k, v, **kw)

@@ -47,8 +47,9 @@ import torch
 
 from repro_torch.kernels.build import KernelLibrary, build_dir
 from repro_torch.kernels.gating_topk import ops
+from repro_torch.roofline.hw import H100
 
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = H100.hbm_bw
 # (tag, T, E, k, score_fn, bias, num_racks G, rack_limit M, group top-k,
 # graph iterations).
 RACK = [("ds_g8_m4", 4096, 256, 8, "sigmoid", True, 8, 4, 2, 20),

@@ -50,9 +50,10 @@ import torch
 
 from repro_torch.kernels.build import KernelLibrary
 from repro_torch.kernels.grouped_gemm import ops
+from repro_torch.roofline.hw import H100
 
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
-BF16_OPS_PER_S = 989e12             # dense bf16 tensor cores
+HBM_BYTES_PER_S = H100.hbm_bw
+BF16_OPS_PER_S = H100.peak("bf16")
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 

@@ -38,16 +38,19 @@ those fix (``--seq``, ``--balancer``, ``--reduce``, ``--lr``, ``--dtype``,
       --cell train_4k --layers 4 --batch 1 --steps 3 --loss-chunks 8 \
       --ckpt-every 0    # DeepSeek-V3, 3 dense + 1 MoE layer, on an H100
 
-What trains on the card: bf16 GQA attention at head dims 128 and 80
-(B4; 80 is HuBERT-XLarge's, bidirectional) and DeepSeek-V3's MLA at
-(192, 128) (B4m), the Mamba-2 mixer at Jamba's (64, 16) (the SSD
+What trains on the card, at the trainer's defaults (fp32, ``--reduce``'s
+head dim 16) and in bf16: GQA attention at head dims 16, 64, 80 and 128
+(B4 in bf16, B4f in fp32; 80 is HuBERT-XLarge's, bidirectional) and
+DeepSeek-V3's MLA at (192, 128) (B4m, B4f), the Mamba-2 mixer at Jamba's
+(64, 16), Mamba2-130M's (64, 128) and the reduced (16, 16) (the SSD
 intra-chunk backward, B5), the bf16 and fp32 expert FFN (B1-B3) and the
-router's top-k; so GLM-4.5-Air, Qwen3-235B-A22B, Jamba-v0.1,
-DeepSeek-V3, DBRX-132B, Qwen2-72B, Mistral-Large-123B, InternLM2-1.8B,
-Qwen3-0.6B, HuBERT-XLarge (frames through its stub frontend) and
-InternVL2-26B (patches spliced over the first positions).  fp32
-attention, Mamba2-130M's (64, 128) (no B5 there yet), and the int8 wire
-and FFN raise a ValueError there and train on the CPU.
+router's top-k; so every registered arch: GLM-4.5-Air, Qwen3-235B-A22B,
+Jamba-v0.1, DeepSeek-V3, DBRX-132B, Qwen2-72B, Mistral-Large-123B,
+InternLM2-1.8B, Qwen3-0.6B, Mamba2-130M, HuBERT-XLarge (frames through
+its stub frontend), InternVL2-26B (patches spliced over the first
+positions) and the rest.  The reduced DeepSeek-V3's MLA widths (q/k 12,
+v 8), the ``tiny`` configurations' head dim 8, and the int8 wire and FFN
+raise a ValueError there and train on the CPU.
 Training remats each layer by default (``train(remat=False)`` keeps
 every activation; a cell's runtime fixes it on).
 """

@@ -20,10 +20,13 @@ computes outside any Pallas kernel too.
 
 The full-sequence functions (``gqa_attention``, ``mla_attention``) are
 differentiable: with a gradient required, ``flash_attention`` is its
-autograd Function (on the card the backward kernel in bf16 at head dim
-128, GQA at the models' width, and at MLA's (192, 128), DeepSeek-V3's
-full-sequence training path; fp32 raises there).  ``plain_backward`` runs
-that backward as autograd through the plain version instead.
+autograd Function (on the card the backward kernels in fp32, the
+trainer's default, and bf16 at every head-dim pair the forward takes:
+GQA at the models' 128, 80 and 64, the reduced configurations' 16, and
+MLA's (192, 128), DeepSeek-V3's full-sequence training path; only the
+reduced MLA widths and the ``tiny`` configurations' head dim 8 raise
+there).  ``plain_backward`` runs that backward as autograd through the
+plain version instead.
 """
 
 from __future__ import annotations

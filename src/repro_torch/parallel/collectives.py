@@ -57,6 +57,15 @@ the global loss's sum, the MoE statistics) and the optimizer's groups
 (the gradients' in-place sums, the ``all_gather`` of updated parameter
 shards).
 
+Counts.  Every call adds its operand's bytes (what this rank puts in: the
+input of a gather, an exchange, a reduction or a broadcast, the tensor a
+:func:`sendrecv` sends) and one call to its kind's count
+(``bytes_by_kind``, ``calls_by_kind``; kinds ``KINDS``), as the reference
+counts each collective's operand sizes in the compiled HLO
+(``repro.roofline.analysis.parse_hlo_collectives``).  :func:`reset_counts`
+sets them to 0 and :func:`counts` reads them, like the kernels' launch
+counters; ``repro_torch.roofline`` reads them for its collective term.
+
 NCCL carries CUDA tensors, one card per rank.  gloo carries CPU tensors,
 and CUDA tensors too where several ranks share one card (which NCCL
 refuses): on PyTorch 2.11 with CUDA 12.8 gloo takes CUDA tensors in all
@@ -75,7 +84,33 @@ import torch.distributed as dist
 __all__ = ["EPGroup", "init", "subgroup", "factor", "destroy", "all_gather",
            "all_to_all", "all_to_all_async", "reduce_scatter", "all_reduce",
            "all_reduce_", "all_max", "shard", "barrier", "sendrecv", "broadcast",
-           "world_size", "world_rank"]
+           "world_size", "world_rank", "KINDS", "bytes_by_kind",
+           "calls_by_kind", "reset_counts", "counts"]
+
+# The collective kinds counted, as the reference's HLO parser names them
+# (all-to-all, all-gather, reduce-scatter, all-reduce; broadcast and
+# point-to-point, which a collective-permute is there).
+KINDS = ("all_to_all", "all_gather", "reduce_scatter", "all_reduce",
+         "broadcast", "sendrecv")
+bytes_by_kind = dict.fromkeys(KINDS, 0)
+calls_by_kind = dict.fromkeys(KINDS, 0)
+
+
+def reset_counts() -> None:
+    """Set every kind's bytes and calls to 0."""
+    for kind in KINDS:
+        bytes_by_kind[kind] = calls_by_kind[kind] = 0
+
+
+def counts() -> dict:
+    """{kind: {"bytes": n, "calls": n}} since the last reset."""
+    return {kind: {"bytes": bytes_by_kind[kind],
+                   "calls": calls_by_kind[kind]} for kind in KINDS}
+
+
+def _count(kind: str, x: torch.Tensor | None) -> None:
+    bytes_by_kind[kind] += 0 if x is None else x.numel() * x.element_size()
+    calls_by_kind[kind] += 1
 
 
 class EPGroup:
@@ -190,6 +225,7 @@ def all_gather(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
 def _all_gather(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((g.size,) + tuple(x.shape))
+    _count("all_gather", x)
     dist.all_gather_into_tensor(out.view(-1), x.view(-1), group=g.group)
     return out
 
@@ -208,6 +244,7 @@ def _all_to_all(g: EPGroup, buf: torch.Tensor) -> torch.Tensor:
                          f"{buf.shape[0]}")
     buf = buf.contiguous()
     out = torch.empty_like(buf)
+    _count("all_to_all", buf)
     dist.all_to_all_single(out, buf, group=g.group)
     return out
 
@@ -227,6 +264,7 @@ def _reduce_scatter(g: EPGroup, buf: torch.Tensor) -> torch.Tensor:
                          f"not {buf.shape[0]}")
     buf = buf.contiguous()
     out = buf.new_empty(tuple(buf.shape[1:]))
+    _count("reduce_scatter", buf)
     dist.reduce_scatter_tensor(out.view(-1), buf.view(-1), group=g.group)
     return out
 
@@ -241,12 +279,14 @@ def all_reduce(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
 
 def _all_reduce(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
+    _count("all_reduce", out)
     dist.all_reduce(out, group=g.group)
     return out
 
 
 def all_reduce_(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
     """The sum over ranks written into ``x`` (contiguous, no gradient)."""
+    _count("all_reduce", x)
     dist.all_reduce(x, group=g.group)
     return x
 
@@ -255,6 +295,7 @@ def all_max(g: EPGroup, x: torch.Tensor) -> torch.Tensor:
     """The max over ranks (``jax.lax.pmax``), as a new tensor, no
     gradient."""
     out = x.detach().clone(memory_format=torch.contiguous_format)
+    _count("all_reduce", out)
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g.group)
     return out
 
@@ -289,6 +330,7 @@ def barrier(g: EPGroup) -> None:
 
 def broadcast(g: EPGroup, x: torch.Tensor, src: int) -> torch.Tensor:
     """``x`` of group rank ``src`` written into every rank's ``x``."""
+    _count("broadcast", x)
     dist.broadcast(x, group_src=src, group=g.group)
     return x
 
@@ -308,6 +350,7 @@ def sendrecv(g: EPGroup, x: torch.Tensor | None, dst: int | None,
         ops.append(dist.P2POp(dist.irecv, out,
                               dist.get_global_rank(g.group, src)
                               if g.group is not None else src, g.group))
+    _count("sendrecv", x)
     for req in dist.batch_isend_irecv(ops) if ops else ():
         req.wait()
 
@@ -339,6 +382,7 @@ def all_to_all_async(g: EPGroup, buf: torch.Tensor) -> AsyncExchange:
                          f"{buf.shape[0]}")
     buf = buf.contiguous()
     out = torch.empty_like(buf)
+    _count("all_to_all", buf)
     work = dist.all_to_all_single(out, buf, group=g.group, async_op=True)
     return AsyncExchange(out, work)
 

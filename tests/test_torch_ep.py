@@ -14,6 +14,10 @@ group) holds every case, beside one JAX run on four virtual CPU devices
   tolerance of ``test_quantized_moe_layer_matches_jax``); drops and
   ``post_max`` per rank and every plan table equal; y also against the
   dense oracle ``moe_ref`` where nothing drops.
+* The collective counters of ``parallel/collectives`` (one call of each
+  kind, reset just before and read just after): each kind's calls and
+  operand bytes equal the tensors' on every rank, and the roofline's
+  collective term reads their sum.
 * The layer's gradients at R = 4 (``a2a``, ``ultraep``, a load skewed so
   the plan binds replica slots): d(sum y^2) with respect to x, the router
   and the experts, against JAX's ``jax.grad`` under ``shard_map`` and of
@@ -125,6 +129,45 @@ def _served_tokens(group):
                                               key=lambda r: r.rid)])
 
 
+# One call of each counted collective kind and its operand's bytes: dtype,
+# shape (R stands for the group's size).
+COUNT_CALLS = {"all_gather": ("float32", (3, 5)),
+               "all_to_all": ("float32", ("R", 2, 3)),
+               "reduce_scatter": ("float64", ("R", 4)),
+               "all_reduce": ("float64", (7,)),
+               "broadcast": ("int64", (6,)),
+               "sendrecv": ("float32", (5,))}
+
+
+def _collective_counts(group, rank, world) -> dict:
+    """Each counted kind once over the group (sendrecv: a ring), the
+    counters reset just before and read just after, and the roofline's
+    collective term from them."""
+    from repro_torch import roofline
+    from repro_torch.parallel import collectives
+
+    def t(kind):
+        dtype, shape = COUNT_CALLS[kind]
+        shape = tuple(world if d == "R" else d for d in shape)
+        return torch.ones(shape, dtype=getattr(torch, dtype))
+
+    collectives.reset_counts()
+    collectives.all_gather(group, t("all_gather"))
+    collectives.all_to_all(group, t("all_to_all"))
+    collectives.reduce_scatter(group, t("reduce_scatter"))
+    collectives.all_reduce(group, t("all_reduce"))
+    collectives.broadcast(group, t("broadcast"), 0)
+    recv = torch.empty_like(t("sendrecv"))
+    collectives.sendrecv(group, t("sendrecv"), (rank + 1) % world, recv,
+                         (rank - 1) % world)
+    out = {f"counts/{kind}/{k}": v for kind, c in collectives.counts().items()
+           for k, v in c.items()}
+    out["counts/roofline_bytes"] = roofline.roofline_terms(
+        0.0, 0.0).collective_bytes_per_device
+    collectives.reset_counts()
+    return out
+
+
 def _worker(rank, world, port, inputs, out_dir):
     """One rank: every layer case at R = 4, then the model and the serve
     trace at R = 2 on ranks 0 and 1."""
@@ -137,13 +180,13 @@ def _worker(rank, world, port, inputs, out_dir):
     group = collectives.init("gloo", world_size=world, rank=rank,
                              init_method=f"tcp://localhost:{port}",
                              timeout_s=120)
+    out = _collective_counts(group, rank, world)
     data = np.load(inputs)
     # The JAX MoEParams' fields, carried across as this rank's share.
     params = convert.moe_params(types.SimpleNamespace(
         router=data["router"], w1=data["w1"], w3=data["w3"], w2=data["w2"],
         shared_w1=None, shared_w3=None, shared_w2=None), n_slot=2,
         device="cpu", ep_rank=rank, ep_size=world)
-    out = {}
     for name, case in LAYER_CASES.items():
         cfg = _configs(*case)
         x = torch.from_numpy(data["x"])
@@ -361,6 +404,23 @@ def test_ep_model_matches_single_rank(ep_run, step):
     for r in ranks[:2]:
         np.testing.assert_allclose(r[f"model/{step}"], one, rtol=0,
                                    atol=1e-5 * np.abs(one).max())
+
+
+def test_collective_counters_match_tensor_bytes(ep_run):
+    """``parallel/collectives`` counts one call of each kind and the
+    bytes of its operand on every rank over gloo (R = 4), and the
+    roofline's collective term reads their sum."""
+    _, _, ranks = ep_run
+    total = 0
+    for kind, (dtype, shape) in COUNT_CALLS.items():
+        n = int(np.prod([R if d == "R" else d for d in shape]))
+        nbytes = n * np.dtype(dtype).itemsize
+        total += nbytes
+        for r in ranks:
+            assert r[f"counts/{kind}/calls"] == 1, kind
+            assert r[f"counts/{kind}/bytes"] == nbytes, kind
+    for r in ranks:
+        assert r["counts/roofline_bytes"] == total
 
 
 def test_ep_serve_gives_single_rank_tokens(ep_run):

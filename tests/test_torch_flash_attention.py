@@ -156,7 +156,7 @@ def test_kernel_takes_fp32_and_the_reduced_head_dims():
                              (128, 128): both, (192, 128): both}
     assert ops.SPLIT_HEAD_DIMS == {16: both, 64: both, 128: both,
                                    192: (torch.bfloat16,)}
-    assert ops.BWD_HEAD_DIMS == ((80, 80), (128, 128), (192, 128))
+    assert ops.BWD_HEAD_DIMS == ops.HEAD_DIMS
     f = torch.zeros((2, 8, 4, 16))
     assert ops._aligned(f) and ops._aligned(f[:, 1:])
     b = torch.zeros((2, 8, 4, 16), dtype=torch.bfloat16)
@@ -387,6 +387,82 @@ def test_3xtf32_products_stay_within_tolerance(hd):
     one = _f32_kernel_mirror(q, k, v, True, q_off, kv_len, split=False)
     assert _row_rel_err(split, want) <= 1e-5
     assert _row_rel_err(one, want) > 1e-4
+
+
+def _b4f_mirror(q, k, v, dout, causal, split):
+    """B4f's products in fp32 on the CPU (``csrc/flash_attention_bwd_mma.cu``):
+    S = q k^T and dP = do v^T, then dv = P^T do, dk = scale dS^T q and
+    dq = scale dS k, each product in 3xTF32 (``split``) or as one TF32
+    product, from the forward's logsumexp and output in fp64 (the kernel
+    reads the prefill kernel's, itself within 1e-5 of a row); P = 2^(s
+    scale log2 e - lse log2 e), D = rowsum(do o), sums over the group's
+    query heads in fp32."""
+    def prod(eq, a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        out = torch.einsum(eq, ah, bh)
+        if split:
+            out = (out + torch.einsum(eq, _tf32(a - ah), bh)
+                   + torch.einsum(eq, ah, _tf32(b - bh)))
+        return out
+
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = hd ** -0.5
+    kf, vf = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    s64 = torch.einsum("bqhd,bkhd->bhqk", q.double(), kf.double()) * scale
+    s64 = s64.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s64, dim=-1)
+    o = torch.einsum("bhqk,bkhv->bqhv", torch.softmax(s64, dim=-1),
+                     vf.double())
+    dl = (dout.double() * o).sum(-1).float().movedim(1, 2)     # (B, H, S)
+    log2e = float(np.log2(np.e))
+    s = prod("bqhd,bkhd->bhqk", q, kf)
+    p = torch.exp2(s * (scale * log2e) - (lse.float() * log2e)[..., None])
+    p = torch.where(keep, p, 0.0)
+    dp = prod("bqhv,bkhv->bhqk", dout, vf)
+    ds = p * (dp - dl[..., None])
+
+    def group_sum(t):
+        return t.reshape(B, S, Hkv, G, t.shape[-1]).sum(3)
+
+    dv = group_sum(prod("bhqk,bqhv->bkhv", p, dout))
+    dk = group_sum(prod("bhqk,bqhd->bkhd", ds, q)) * scale
+    dq = prod("bhqk,bkhd->bqhd", ds, kf) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("hd,hv,causal", [(16, 16, True), (128, 128, True),
+                                          (192, 128, False)])
+def test_b4f_3xtf32_products_stay_within_tolerance(hd, hv, causal):
+    """B4f's split products give dk and dv within 1e-5 of each row's
+    max|ref| (fp64 autograd through the plain version) and dq within 2e-5
+    of its rows' (dS = P (dP - D) cancels: the same algorithm in exact
+    fp32 arithmetic leaves a dq row at 7e-6, the split 1.6e-5 at hd 128),
+    all inside the card's 1e-4 of max|ref|; one TF32 product a product
+    misses by more than 1e-4, which is why the kernel splits its
+    operands."""
+    rng = np.random.default_rng(hd + hv)
+    B, S, H, Hkv = 1, 96, 8, 2
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for shape in ((B, S, H, hd), (B, S, Hkv, hd),
+                                   (B, S, Hkv, hv), (B, S, H, hv)))
+    want = ops.flash_attention_bwd_ref(*(t.double() for t in (q, k, v, dout)),
+                                       causal=causal)
+    split = _b4f_mirror(q, k, v, dout, causal, split=True)
+    one = _b4f_mirror(q, k, v, dout, causal, split=False)
+    for name, a, b, w in zip("qkv", split, one, want):
+        # A causal dq's first row is exactly 0 (one key: dS = dP - D = 0);
+        # rows like it are held to the tensor's max instead.
+        live = w.abs().amax(dim=-1) > 1e-6 * w.abs().max()
+        assert _row_rel_err(a[live], w[live]) <= (2e-5 if name == "q"
+                                                  else 1e-5), name
+        assert (a[~live].abs().max().item() if (~live).any() else 0.0) <= \
+            1e-5 * w.abs().max().item(), name
+        assert _row_rel_err(b[live], w[live]) > 1e-4, name
 
 
 @pytest.fixture
@@ -706,17 +782,20 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, B, S, H, Hkv,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,hd,hd_v", [(torch.float32, 128, 128),
-                                           (torch.bfloat16, 64, 64),
-                                           (torch.float32, 192, 128),
-                                           (torch.bfloat16, 16, 16)])
+@pytest.mark.parametrize("dtype,hd,hd_v", [(torch.bfloat16, 8, 8),
+                                           (torch.float32, 12, 8),
+                                           (torch.float16, 128, 128),
+                                           (torch.bfloat16, 192, 192)])
 def test_backward_refuses_other_dims_on_card(cuda_device, dtype, hd, hd_v):
+    """A pair or dtype that no forward kernel takes (the ``tiny``
+    configurations' head dim 8, the reduced MLA widths, fp16, (192, 192))
+    raises before the forward launches."""
     q = torch.zeros((1, 256, 4, hd), dtype=dtype, device=cuda_device,
                     requires_grad=True)
     k = torch.zeros((1, 256, 4, hd), dtype=dtype, device=cuda_device)
     v = torch.zeros((1, 256, 4, hd_v), dtype=dtype, device=cuda_device)
     n0 = ops.flash_attention.launches
-    with pytest.raises(ValueError, match="backward kernel takes bf16"):
+    with pytest.raises(ValueError, match="backward kernels take"):
         ops.flash_attention(q, k, v, causal=True)
     assert ops.flash_attention.launches == n0
 

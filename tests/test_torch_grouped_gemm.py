@@ -781,9 +781,72 @@ def test_backward_kernels_match_plain_on_card(cuda_device, G, M, K, N,
 
 @pytest.mark.cuda
 def test_backward_kernels_refuse_fp32_on_card(cuda_device):
+    """The backward kernels take bf16 or fp32 (the fp32 ones since the
+    trainer's default dtype trains on the card) of one dtype: fp16 and a
+    mix of fp32 and bf16 raise before any launch."""
     x = torch.zeros((1, 8, 16), device=cuda_device)
     w = torch.zeros((1, 16, 16), device=cuda_device)
-    with pytest.raises(ValueError, match="bf16"):
-        ops.grouped_wgrad(x, x)
-    with pytest.raises(ValueError, match="bf16"):
-        ops.grouped_matmul_nt(x, w)
+    n0 = ops.grouped_wgrad.launches + ops.grouped_matmul_nt.launches
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        ops.grouped_wgrad(x.half(), x.half())
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        ops.grouped_matmul_nt(x, w.to(torch.bfloat16))
+    assert ops.grouped_wgrad.launches + ops.grouped_matmul_nt.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,M,K,N", [(2, 256, 128, 256), (3, 200, 136, 200),
+                                     (4, 130, 64, 32)])
+@pytest.mark.parametrize("counts", ["zero", "straddle", "full"])
+def test_fp32_backward_kernels_match_plain_on_card(cuda_device, G, M, K, N,
+                                                   counts):
+    """B1-B3 in fp32 (``csrc/grouped_gemm_bwd_f32.cu``, 3xTF32) against
+    their plain versions: every output within 1e-4 of its own max|ref|,
+    padded rows exact zeros whatever the operands hold there (NaN), each
+    launch counted under ``fp32``, and the same bits from two calls."""
+    rng = np.random.default_rng(2)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda_device)
+
+    x, w1, w3 = t((G, M, K)), t((G, K, N), K ** -0.5), t((G, K, N), K ** -0.5)
+    dact, dy = t((G, M, N)), t((G, M, K))
+    rows = torch.tensor(_bwd_rows(G, M, counts), device=cuda_device)
+    pad = torch.arange(M, device=cuda_device)[None, :, None] >= \
+        rows[:, None, None]
+    nan_x, nan_dact, nan_dy = (torch.where(pad, float("nan"), a)
+                               for a in (x, dact, dy))
+    w1t = w1.transpose(1, 2).contiguous()           # (G, N, K) storage
+    n0 = {f: dict(f.launches_by_kernel) for f in (
+        ops.grouped_swiglu_bwd, ops.grouped_matmul_nt, ops.grouped_wgrad)}
+    calls = {
+        "dh_dg": (lambda: ops.grouped_swiglu_bwd(nan_x, w1, w3, nan_dact,
+                                                 rows),
+                  lambda: ops.grouped_swiglu_bwd_ref(x, w1, w3, dact, rows)),
+        "nt": (lambda: ops.grouped_matmul_nt(nan_dy, w1t, rows),
+               lambda: ops.grouped_matmul_nt_ref(dy, w1t, rows)),
+        "nt2": (lambda: ops.grouped_matmul_nt(nan_dact, w1, rows, nan_dact,
+                                              w3, zero_padded=False),
+                lambda: ops.grouped_matmul_nt_ref(dact, w1, rows, dact, w3)),
+        "wgrad": (lambda: ops.grouped_wgrad(nan_x, nan_dact, rows),
+                  lambda: ops.grouped_wgrad_ref(x, dact, rows)),
+    }
+    for name, (kernel, plain) in calls.items():
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b, r in zip(got, again, want):
+            assert torch.equal(a, b), name
+            assert a.dtype == torch.float32
+            err = (a - r).abs().max().item()
+            assert err <= 1e-4 * max(r.abs().max().item(), 1e-30), (name, err)
+            if a.shape[1] == M:
+                assert torch.all(torch.where(pad, a, 0.0) == 0), name
+    moved = {f.__name__: f.launches_by_kernel["fp32"] - n0[f]["fp32"]
+             for f in n0}
+    assert moved == {"grouped_swiglu_bwd": 2, "grouped_matmul_nt": 4,
+                     "grouped_wgrad": 2}

@@ -16,8 +16,8 @@ Supervisor and ``checkpoint/``; ``parallel/pipeline`` is imported); the other
 reads every source file of the port and ``chip_smoke.py``.  The first
 also runs the int8 gradient all-reduce (``optim/grad_compress``) on the
 group, stochastic rounding, a train cell of ``launch/specs`` on the meta
-device and an Adafactor step of a reduced Jamba (remat, the SSD
-backward).
+device, an Adafactor step of a reduced Jamba (remat, the SSD
+backward), ``roofline.model_flops`` and ``examples.quickstart``.
 """
 
 import ast
@@ -145,6 +145,13 @@ toks = torch.arange(32)[None] % cfg.vocab_size
 state, m = make_train_step(cfg, rcfg, ParallelCtx(), adafactor(1e-3))(
     state, {"tokens": toks, "targets": toks})
 assert np.isfinite(float(m["loss"]))
+from repro_torch import roofline
+from repro_torch.configs.base import SHAPES
+assert roofline.model_flops(get_config("qwen3-0.6b"), SHAPES["train_4k"],
+                            backward=True) > 0
+from repro_torch.examples import quickstart
+res = quickstart.main(["--device", "cpu"])
+assert res["finite"] and res["layer_max_err"] <= 1e-4 * res["layer_max_ref"]
 assert not any(m == "repro" or m.startswith(("repro.", "jax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")

@@ -65,26 +65,66 @@ def test_plain_mla_backward_matches_jax_vjp(S, causal):
 
 
 def test_backward_contract_takes_mla_dims_and_nothing_else():
-    """``_bwd_contract`` (checked before any launch) takes bf16 at
-    (80, 80), (128, 128) and (192, 128) and refuses fp32 there and every
-    other pair."""
+    """``_bwd_contract`` (checked before any launch) takes fp32 and bf16
+    at every pair a forward kernel takes, MLA's (192, 128) among them, and
+    refuses every other pair and dtype: the ``tiny`` configurations' head
+    dim 8, the reduced MLA widths (12, 8), fp16, mixed dtypes.  Each pair
+    names its kernel: wgmma for bf16 at 64 and up, mma.sync for fp32 and
+    for bf16 at 16."""
     def t(hd, dtype):
         return torch.zeros((1, 4, 2, hd), dtype=dtype)
 
-    for hd, hd_v in flash.BWD_HEAD_DIMS:
-        flash._bwd_contract(t(hd, torch.bfloat16), t(hd, torch.bfloat16),
-                            t(hd_v, torch.bfloat16))
-    for dtype, hd, hd_v in [(torch.float32, 192, 128),
-                            (torch.float32, 128, 128),
-                            (torch.bfloat16, 64, 64), (torch.bfloat16, 16, 16),
-                            (torch.float32, 80, 80),
-                            (torch.bfloat16, 192, 192)]:
+    for (hd, hd_v), dtypes in flash.BWD_HEAD_DIMS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            assert dtype in dtypes
+            flash._bwd_contract(t(hd, dtype), t(hd, dtype), t(hd_v, dtype))
+            want = ("mma_f32" if dtype == torch.float32
+                    else "mma_bf16" if hd == 16 else "wgmma")
+            assert flash.bwd_kernel(dtype, hd) == want
+    for dtype, hd, hd_v in [(torch.bfloat16, 8, 8), (torch.float32, 8, 8),
+                            (torch.float32, 12, 8), (torch.bfloat16, 12, 8),
+                            (torch.float16, 128, 128),
+                            (torch.bfloat16, 192, 192),
+                            (torch.float32, 128, 64)]:
         with pytest.raises(ValueError, match=f"not \\({hd}, {hd_v}\\)"):
             flash._bwd_contract(t(hd, dtype), t(hd, dtype), t(hd_v, dtype))
+    with pytest.raises(ValueError, match="not \\(128, 128\\)"):
+        flash._bwd_contract(t(128, torch.float32), t(128, torch.bfloat16),
+                            t(128, torch.float32))
+
+
+def test_ssd_backward_contract_takes_mamba2_dims_and_nothing_else():
+    """B5's check (before any launch) takes (P, N) = (64, 16), (64, 128)
+    (Mamba2-130M's) and (16, 16) in bf16 and fp32 at Q <= 128, and refuses
+    other pairs, a longer chunk, fp16 and mixed dtypes."""
+    def args(P, N, Q=128, dtype=torch.float32, bdtype=None):
+        f = torch.float32
+        B, nc, H = 1, 2, 3
+        return (torch.zeros((B, nc, Q, H, P), dtype=dtype),
+                torch.zeros((B, nc, Q, H, N), dtype=bdtype or dtype),
+                torch.zeros((B, nc, Q, H, N), dtype=bdtype or dtype),
+                torch.zeros((B, nc, Q, H), dtype=f),
+                torch.zeros((B, nc, Q, H), dtype=f),
+                torch.zeros((B, nc, Q, H, P), dtype=f),
+                torch.zeros((B, nc, H, N, P), dtype=f),
+                torch.zeros((B, nc, H), dtype=f))
+
+    assert (64, 128) in ssd.BWD_DIMS
+    for P, N in ssd.BWD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            ssd._bwd_contract(*args(P, N, dtype=dtype))
+    for P, N, Q in [(64, 64, 128), (128, 128, 128), (32, 16, 16),
+                    (64, 128, 256)]:
+        with pytest.raises(ValueError, match="takes \\(P, N\\)"):
+            ssd._bwd_contract(*args(P, N, Q))
+    for dtype, bdtype in [(torch.float16, None),
+                          (torch.float32, torch.bfloat16)]:
+        with pytest.raises(TypeError):
+            ssd._bwd_contract(*args(64, 128, dtype=dtype, bdtype=bdtype))
 
 
 SSD_SHAPES = [(1, 2, 16, 2, 8, 16), (2, 3, 16, 4, 16, 16),
-              (1, 2, 32, 2, 16, 8)]
+              (1, 2, 32, 2, 16, 8), (1, 2, 16, 2, 64, 128)]
 
 
 def _ssd_inputs(B, nc, Q, H, P, N, seed=0):
@@ -208,8 +248,82 @@ def test_mla_backward_kernel_matches_plain_on_card(cuda_device, B, S, H,
         assert torch.equal(a, b), f"d{name} differs between two calls"
 
 
+# (dtype, q/k head dim, v head dim, B, S, H, Hkv, causal): B4f at every
+# pair, causal and not, GQA 4 and 1; B4 in bf16 at (64, 64) (wgmma) and
+# (16, 16) (mma.sync).  S a multiple of 64, of 16 only, and of neither.
+BWD_CARD_CASES = [
+    (torch.float32, 16, 16, 2, 200, 8, 2, True),
+    (torch.float32, 16, 16, 1, 100, 4, 4, False),
+    (torch.float32, 64, 64, 1, 333, 8, 2, True),
+    (torch.float32, 80, 80, 1, 300, 4, 4, False),
+    (torch.float32, 80, 80, 2, 128, 8, 2, True),
+    (torch.float32, 128, 128, 2, 256, 8, 2, True),
+    (torch.float32, 128, 128, 1, 1000, 4, 1, False),
+    (torch.float32, 192, 128, 1, 260, 4, 4, True),
+    (torch.float32, 192, 128, 1, 130, 2, 2, False),
+    (torch.bfloat16, 64, 64, 2, 320, 8, 2, True),
+    (torch.bfloat16, 64, 64, 1, 333, 4, 4, False),
+    (torch.bfloat16, 16, 16, 2, 200, 8, 2, True),
+    (torch.bfloat16, 16, 16, 1, 100, 4, 4, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CARD_CASES, ids=str)
+def test_backward_kernels_at_trainer_defaults_match_plain_on_card(
+        cuda_device, case):
+    """The autograd Function on the card at the pairs the trainer's
+    defaults reach (fp32 everywhere, head dim 16) and bf16 (64, 64): the
+    prefill kernel of the dtype with the logsumexp (within 1e-4 of the
+    plain one's), then one launch of ``bwd_kernel``'s kernels; dq, dk, dv
+    each within 1e-4 (fp32: 3xTF32 products) or TRAIN_TOL (bf16: P and dS
+    rounded) of its max|ref| against autograd through the plain version;
+    two calls of the backward give the same bits."""
+    dtype, hd, hv, B, S, H, Hkv, causal = case
+    tol = 1e-4 if dtype == torch.float32 else TRAIN_TOL
+    rng = np.random.default_rng(hd + S)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, dtype)
+
+    q, k, v = t((B, S, H, hd)), t((B, S, Hkv, hd)), t((B, S, Hkv, hv))
+    do = t((B, S, H, hv))
+    kernel = flash.bwd_kernel(dtype, hd)
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    n0 = dict(flash.flash_attention_bwd.launches_by_kernel)
+    out = flash.flash_attention(*leaves, causal=causal)
+    out.backward(do)
+    torch.cuda.synchronize()
+    moved = {n: c - n0[n] for n, c in
+             flash.flash_attention_bwd.launches_by_kernel.items()}
+    assert moved == {n: int(n == kernel) for n in flash.BWD_KERNELS}
+    refs = flash.flash_attention_bwd_ref(q, k, v, do, causal=causal)
+    for name, leaf, ref in zip("qkv", leaves, refs):
+        assert leaf.grad.dtype == dtype
+        err = (leaf.grad.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item(), (name, err)
+    lse = torch.empty((B, H, S), device=cuda_device)
+    o = flash._launch(q, k, v, causal, 0, None, None, sms=1, lse=lse)[0]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float().repeat_interleave(
+        H // Hkv, dim=2)) * hd ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                     device=cuda_device).triu(1), -torch.inf)
+    ref_lse = torch.logsumexp(s, dim=-1)
+    assert (lse - ref_lse).abs().max().item() <= \
+        1e-4 * ref_lse.abs().max().item()
+    first, again = (flash.flash_attention_bwd(q, k, v, o, do, lse,
+                                              causal=causal)
+                    for _ in range(2))
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", first, again):
+        assert torch.equal(a, b), f"d{name} differs between two calls"
+
+
 SSD_CARD_SHAPES = [(1, 4, 128, 8, 64, 16), (2, 3, 16, 4, 16, 16),
-                   (1, 2, 100, 3, 64, 16)]
+                   (1, 2, 100, 3, 64, 16), (1, 2, 128, 4, 64, 128),
+                   (2, 2, 100, 3, 64, 128)]
 
 
 @pytest.mark.cuda
@@ -218,7 +332,8 @@ SSD_CARD_SHAPES = [(1, 4, 128, 8, 64, 16), (2, 3, 16, 4, 16, 16),
 def test_ssd_backward_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     """B5 against the closed form and against autograd through the plain
     forward, on the same inputs, with cotangents of y, S and the decay:
-    Jamba's chunk (Q 128, P 64, N 16), the reduced one and a ragged Q;
+    Jamba's chunk (Q 128, P 64, N 16), the reduced one, a ragged Q, and
+    Mamba2-130M's (P 64, N 128) whole and ragged;
     each gradient within 1e-4 (fp32 inputs) or TRAIN_TOL (bf16) of its
     max|ref|; a steep decay gives no NaN (and there, as on the CPU, da's
     gradient is held to finiteness only)."""
