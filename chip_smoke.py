@@ -4979,13 +4979,17 @@ def phase_hosts() -> dict:
 # ``reduce=True``, head dim 16.  Kernels: B4f (the fp32 flash backward,
 # mma.sync in 3xTF32) at every (q/k, v) pair the forward takes, causal and
 # bidirectional, at GQA 4 (B4F_SHAPE); B4 in bf16 at (64, 64) (wgmma) and
-# (16, 16) (mma.sync), causal; B5 at Mamba2-130M's (64, 128) on one
+# (16, 16) (mma.sync), causal; B4f at the Qwen3-0.6B path's own shape;
+# B5 at Mamba2-130M's (64, 128) on one
 # 4096-token row (nc 32, Q 128, 24 heads), bf16 and fp32 inputs.  Paths
 # (DEFAULT_PATHS): each trains DEFAULT_STEPS steps through the trainer's
 # entry points with no dtype given (Mamba2-130M and the reduced GLM-4.5-Air
 # also in bf16, for B5's and B4 (16, 16)'s bf16 launches), its step-0
 # gradients first held against ``plain_backward``, checkpoints off (0).
 B4F_SHAPE = dict(B=1, S=2048, H=16, Hkv=4)
+# The attention of the Qwen3-0.6B path ("qwen3-0.6b main"): the trainer's
+# batch of 8 x 128 tokens, 16 query and 8 KV heads of 128.
+QWEN3_MAIN_SHAPE = dict(B=8, S=128, H=16, Hkv=8)
 B4F_PAIRS = ((16, 16), (64, 64), (80, 80), (128, 128), (192, 128))
 MAMBA2_SSD_TRAIN = dict(B=1, nc=32, Q=128, H=24, P=64, N=128)
 DEFAULT_STEPS = 3
@@ -5123,6 +5127,8 @@ def _grouped_bwd_f32_records(cfg, tokens: int, cf: float,
     x0, dact0 = torch.where(pad, 0.0, x), torch.where(pad, 0.0, dact)
     x, dact = nan(x), nan(dact)
     dh, dg = gg.grouped_swiglu_bwd(x, w1, w3, dact, rows)
+    # The NaN-padded operands are made once, outside the timed calls.
+    dhn, dgn = nan(dh), nan(dg)
     shape = dict(G=G, M=M, K=K, N=N, tokens=tokens, cf=cf, dtype="float32")
     cases = {
         "grouped_swiglu_bwd": (
@@ -5132,14 +5138,14 @@ def _grouped_bwd_f32_records(cfg, tokens: int, cf: float,
             lambda: (torch.bmm(x0, w1), torch.bmm(x0, w3)),
             4.0 * R * K * N, 4 * (R * K + 2 * nz * K * N + 3 * R * N)),
         "grouped_matmul_nt": (
-            lambda: gg.grouped_matmul_nt(nan(dh), w1, rows, nan(dg), w3),
+            lambda: gg.grouped_matmul_nt(dhn, w1, rows, dgn, w3),
             lambda sl: (gg.grouped_matmul_nt_ref(dh[sl], w1[sl], rows[sl],
                                                  dg[sl], w3[sl]),),
             lambda: torch.bmm(dh, w1.transpose(1, 2))
             + torch.bmm(dg, w3.transpose(1, 2)),
             4.0 * R * K * N, 4 * (2 * R * N + 2 * nz * K * N + R * K)),
         "grouped_wgrad": (
-            lambda: gg.grouped_wgrad(x, nan(dh), rows),
+            lambda: gg.grouped_wgrad(x, dhn, rows),
             lambda sl: (gg.grouped_wgrad_ref(x0[sl], dh[sl], rows[sl]),),
             lambda: torch.bmm(x0.transpose(1, 2), dh),
             2.0 * R * K * N, 4 * (R * K + R * N + G * K * N)),
@@ -5165,7 +5171,7 @@ def _grouped_bwd_f32_records(cfg, tokens: int, cf: float,
                           library_note="torch.bmm in fp32 over the padded "
                                        "buffers (TF32 off)")
         torch.cuda.empty_cache()
-    del x, w1, w3, dact, x0, dact0, dh, dg, pad
+    del x, w1, w3, dact, x0, dact0, dh, dg, dhn, dgn, pad
     torch.cuda.empty_cache()
     return recs
 
@@ -5341,6 +5347,11 @@ def phase_train_defaults() -> dict:
         tag = f"bf16_{hd}x{hd}_causal"
         kernels[tag] = _flash_bwd_case(g, torch.bfloat16, hd, hd, True, **sh)
         _line(f"phase19_train_defaults kernel {tag}", kernels[tag])
+    # B4f at the Qwen3-0.6B command line's own shape (QWEN3_MAIN_SHAPE).
+    kernels["f32_qwen3_main"] = _flash_bwd_case(g, torch.float32, 128, 128,
+                                                True, **QWEN3_MAIN_SHAPE)
+    _line("phase19_train_defaults kernel f32_qwen3_main",
+          kernels["f32_qwen3_main"])
     kernels["ssd_bwd_mamba2"] = _ssd_bwd_record(MAMBA2_SSD_TRAIN,
                                                 fp32_tol=1e-4)
     _line("phase19_train_defaults kernel ssd_bwd_mamba2",
@@ -6021,7 +6032,9 @@ def main() -> int:
         d_kern["f32_128x128_causal"],
         d_paths["qwen3-0.6b main"]["launches_per_step"][
             "flash_attention_bwd.mma_f32"] * DEFAULT_STEPS, {
-            "arithmetic": "3xTF32 mma.sync",
+            "arithmetic": "3xTF32 mma.sync; one query head a dK/dV block, "
+                          "the heads' partials summed in head order; the "
+                          "stage split once into TF32 planes at (64, 64)",
             "bound_fp32_ms": d_kern["f32_128x128_causal"]["bound_fp32_ms"],
             "launches_note": f"phase 19, {DEFAULT_STEPS} steps of each path",
             "launches_by_path": path_launches("flash_attention_bwd.mma_f32"),
@@ -6075,7 +6088,8 @@ def main() -> int:
             f"src/repro/kernels/grouped_gemm/{what}", rec,
             d_paths["glm45 train() defaults"]["launches_per_step"][
                 f"{name}.fp32"] * DEFAULT_STEPS, {
-                "arithmetic": "3xTF32 mma.sync",
+                "arithmetic": "3xTF32 on TF32 wgmma: A split in "
+                              "registers, B split once into TF32 planes",
                 "bound_fp32_ms": rec["bound_fp32_ms"],
                 "launches_note": f"phase 19, {DEFAULT_STEPS} steps of each "
                                  f"path",

@@ -25,61 +25,81 @@
 // (the data sheet's 67 TFLOP/s); the bytes (q, k, v, o, do, lse read
 // once, dq, dk, dv written once) are a few percent of that.  These
 // kernels do seven products (S and dP twice, so that dq needs no
-// atomics), each on mma.sync with operands read from shared memory and
-// split as they are read: a simple kernel that is right, not yet a fast
-// one.
+// atomics) on mma.sync.
 //
 // Precision (fp32): every product in 3xTF32 as the fp32 forward's
 // (flash_fwd_f32_kernel): each operand split into hi + lo TF32 parts
-// (warp_mma.cuh split_tf32), a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, so
-// each product keeps about 2^-20 of its size.  The tensor core truncates
-// as it accumulates, so S^T and dP^T keep their small terms apart from
-// their large ones over the head dim, and dv, dk and dq sum each stage of
-// 16 queries or keys in fresh registers that are added to them in fp32.
+// (tf32_planes.cuh), a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, so each
+// product keeps about 2^-20 of its size.  The tensor core truncates as it
+// accumulates, so S^T and dP^T keep their small terms apart from their
+// large ones over the head dim, and dv, dk and dq sum each stage of
+// queries or keys in fresh registers that are added to them in fp32.
 // bf16 (hd 16): P and dS are rounded to bf16 as the A operands of their
 // products, as B4 does.
 //
-// Determinism: every sum is taken by one warp in a fixed order (dk and dv
-// over the group's query heads and query tiles in order, dq over the key
-// tiles in order); no atomics, so the same bits on every run.
+// Determinism: every sum is taken in a fixed order (a warp's dk and dv
+// over its head's query tiles in order, the group's heads then added in
+// head order by a third kernel; dq over the key tiles in order); no
+// atomics, so the same bits on every run.
 //
-// Design: three kernels, as B4 at (128, 128).
+// Design: four kernels.
 //   1. bwd_prep_mma_kernel: one warp a row (b, h, position) writes lse2 =
 //      lse log2(e) and D = rowsum(do o) into an fp32 workspace of two
 //      (B, H, S64) arrays, S64 = S rounded up to 64 (B4's layout);
 //      positions past S get lse2 = +inf and D = 0, so P is 0 there.
-//   2. bwd_dkdv_mma_kernel: one block of 4 warps per (64-key tile, KV
-//      head, batch row), the heaviest (first, causal) key tiles first.
-//      K and V of the block's keys are loaded once into shared memory;
-//      16-query stages of q and do (with their lse2 and D) for each of the
-//      G query heads, from the diagonal on when causal, stream through a
-//      2-stage cp.async ring.  Each warp owns 16 keys and per stage forms
-//      S^T = K q^T and dP^T = V do^T (16 x 16), P^T and dS^T in registers,
-//      repacks them as A fragments (the fp32 accumulator's columns
-//      permuted within each 8-key step, do and q read in that order), and
-//      adds dv += P^T do and dk += dS^T q.  dk and dv stay in registers
-//      over the whole group and are written once.  A warp skips a stage
-//      wholly above its keys' diagonal.
-//   3. bwd_dq_mma_kernel: one block of 4 warps per (64-query tile, query
+//   2. bwd_dkdv_mma_kernel: one block of 4 warps per (64-key tile, query
+//      head, batch row), key-tile major (the heaviest, first causal tiles
+//      first).  A block takes one query head, not the G heads of its KV
+//      head in turn: G times the blocks, and a causal first key tile's
+//      block no longer walks G whole sequences while the rest of the card
+//      idles (a block a KV head is 128 blocks at B 1, S 2048, 16 / 4
+//      heads: one an SM, a warp a sub-partition).  K and V of the block's keys stay
+//      resident in fp32; 16 query rows of q and do a stage (with their
+//      lse2 and D), from the diagonal on when causal, land by cp.async;
+//      each warp owns 16 keys and per stage forms S^T = K q^T and dP^T =
+//      V do^T (K's and V's fragments by ldmatrix, split in registers), P^T
+//      and dS^T in registers, repacks them as A fragments (the
+//      accumulator's columns permuted within each 8-key step, do and q
+//      read in that order) and adds dv += P^T do and dk += dS^T q.  dk and
+//      dv stay in registers over the head's queries; with G = 1 they are
+//      written as the outputs, else as fp32 partials of the head into a
+//      workspace (B, S, H, HDK + HDV).
+//   3. bwd_group_sum_kernel (G > 1): dk = scale sum_h dk_h, dv = sum_h
+//      dv_h over each KV head's G query heads, in head order.
+//   4. bwd_dq_mma_kernel: one block of 4 warps per (64-query tile, query
 //      head, batch row), the heaviest (last, causal) tiles first: q and do
-//      resident, 16-key stages of K and V up to the diagonal through a
-//      2-stage ring; per stage each warp forms S = q K^T and dP = do V^T,
-//      P, dS, then dq += dS K; dq is written once.
+//      resident in fp32, 16-key stages of K and V up to the diagonal; per
+//      stage each warp forms S = q K^T and dP = do V^T, P, dS, then dq +=
+//      dS K; dq is written once.
+// The stage's operands: at (64, 64) the block splits each landed stage
+// once into a hi plane (in place) and a lo plane (tf32_planes.cuh) that
+// the warps read with one ldmatrix a fragment; at the other pairs each
+// warp splits the fragments it reads.  The planes double the bytes a
+// fragment read moves and take a stage's size again in shared memory
+// (at (192, 128) they cost the 16-row stages: 8-row ones fit); measured
+// (PERF.md), they are faster at (64, 64) only.
 // Shared memory: rows of HD + 4 floats (fp32; HD + 8 bf16 elements at hd
 // 16), so the fragments' reads hit distinct banks and every row starts on
-// 16 bytes.  fp32 (128, 128): 101.6 KB a block (two blocks an SM); (192,
-// 128): 126.2 KB (one); (80, 80), (64, 64), (16, 16) less.  Registers:
-// dk and dv take HDK / 2 + HDV / 2 fp32 a thread (160 at (192, 128)).
+// 16 bytes; the resident 64 rows, NBUF landed stages (and the lo plane).
+// Two blocks an SM at every pair (at most 113 KB each): two stages where
+// they fit, (128, 128) 101.6 KB, one at (192, 128), 105.1 KB.
+// Registers: dk and dv take HDK / 2 + HDV / 2 fp32 a thread (160 at
+// (192, 128)).
 //
-// Not yet: the products on wgmma (TF32 wgmma takes K-major operands only,
-// so do and q would be staged transposed), a producer warp with TMA, and
-// the splits of K and V hoisted out of the stage loop.
+// Not yet: the products on TF32 wgmma.  The budget is what stops them:
+// TF32 wgmma reads both shared operands K-major, so the dK/dV pass would
+// hold K and V as hi and lo planes (128 KB for 64 keys at (128, 128), 160
+// KB at (192, 128)) beside the stage's q, do and their transposes (64 KB
+// for 16 queries at (128, 128)): one block of one warpgroup an SM, and
+// dk, dv, S^T and dP^T with their small terms exceed a warpgroup's
+// registers at 64 queries a stage.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_planes.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -89,14 +109,15 @@ using bf16 = __nv_bfloat16;
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS = 16 * WARPS;       // resident keys (dK/dV) or queries (dQ)
-constexpr int STAGE = 16;              // streamed queries (dK/dV) or keys (dQ)
 constexpr int PAD = 64;                // workspace rows pad to this
+constexpr int TWO_BLOCKS = 113 * 1024; // a block's share when two fit an SM
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const void *q, *k, *v, *o, *dout;
   const float* lse;          // (B, H, S)
   float* ws;                 // lse2 then D, each (B, H, S64)
+  float* part;               // G > 1: dk then dv partials, (B, S, H, HD) fp32
   void *dq, *dk, *dv;
   int B, S, S64, H, Hkv, G;
   long long skh, sks, skb, svh, svs, svb;   // k, v strides, elements
@@ -104,53 +125,57 @@ struct Args {
   long long ws_half;         // B * H * S64
 };
 
-// The products by operand type.  A fragments come from rows of a shared
-// array (rows = M, the contraction along the row) or from an fp32
-// accumulator of the same rows; B fragments from rows of a shared array
-// whose rows are n (b_rows: X Y^T) or k (b_cols: X Y).
+// The products by operand type.  A fragments come from rows of a resident
+// shared array (rows = M, the contraction along the row) or from an fp32
+// accumulator of the same rows; B fragments from a landed stage, rows n
+// (b_rows: X Y^T) or k (b_cols: X Y), read from its hi and lo planes.
 
-template <typename T>
+template <typename T, bool PLANES>
 struct Mma;
 
-// fp32 in 3xTF32 on m16n8k8.
+// fp32 in 3xTF32 on m16n8k8, B fragments from a stage split once into hi
+// and lo planes.
 template <>
-struct Mma<float> {
+struct Mma<float, true> {
   static constexpr int KS = 8;     // contraction a step
   static constexpr int PAD = 4;    // shared row padding, elements
+  static constexpr bool SPLIT = true;
   struct A { unsigned h[4], l[4]; };
   struct B { unsigned h[2], l[2]; };
 
-  // Rows r0 + gid (+ 8), columns k0 + tq (+ 4).
+  // Rows r0 + gid (+ 8), columns k0 + tq (+ 4): one ldmatrix (lanes
+  // 8i .. 8i + 7 give rows of matrix i: rows + 8 (i % 2), columns
+  // + 4 (i / 2)), split in registers.
   __device__ static __forceinline__ A a_rows(const float* s, int ld, int r0,
                                              int k0) {
-    const int lane = threadIdx.x % 32;
-    const float* p = s + (r0 + lane / 4) * ld + k0 + lane % 4;
+    const int lane = threadIdx.x % 32, i = lane >> 3;
+    unsigned r[4];
+    ldsm_x4(r, static_cast<unsigned>(__cvta_generic_to_shared(
+                   s + (r0 + (lane & 7) + 8 * (i & 1)) * ld + k0 +
+                   4 * (i >> 1))));
     A a;
-    split_tf32(p[0], a.h[0], a.l[0]);
-    split_tf32(p[8 * ld], a.h[1], a.l[1]);
-    split_tf32(p[4], a.h[2], a.l[2]);
-    split_tf32(p[8 * ld + 4], a.h[3], a.l[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(r[e]), a.h[e], a.l[e]);
     return a;
   }
-  // n = row n0 + gid, k = k0 + tq (+ 4).
-  __device__ static __forceinline__ B b_rows(const float* s, int ld, int n0,
-                                             int k0) {
-    const int lane = threadIdx.x % 32;
-    const float* p = s + (n0 + lane / 4) * ld + k0 + lane % 4;
-    B b;
-    split_tf32(p[0], b.h[0], b.l[0]);
-    split_tf32(p[4], b.h[1], b.l[1]);
-    return b;
+  // n = row n0 + gid, k = k0 + tq (+ 4): hi and lo in one ldmatrix
+  // (matrices: hi k0, hi k0 + 4, lo k0, lo k0 + 4).
+  __device__ static __forceinline__ B b_rows(const float* hi, const float* lo,
+                                             int ld, int n0, int k0) {
+    const int lane = threadIdx.x % 32, i = lane >> 3;
+    unsigned r[4];
+    ldsm_x4(r, static_cast<unsigned>(__cvta_generic_to_shared(
+                   (i >> 1 ? lo : hi) + (n0 + (lane & 7)) * ld + k0 +
+                   4 * (i & 1))));
+    return B{{r[0], r[1]}, {r[2], r[3]}};
   }
   // k = row k0 + 2 tq (+ 1), n = n0 + gid: the k order of from_acc.
-  __device__ static __forceinline__ B b_cols(const float* s, int ld, int k0,
-                                             int n0) {
+  __device__ static __forceinline__ B b_cols(const float* hi, const float* lo,
+                                             int ld, int k0, int n0) {
     const int lane = threadIdx.x % 32;
-    const float* p = s + (k0 + 2 * (lane % 4)) * ld + n0 + lane / 4;
-    B b;
-    split_tf32(p[0], b.h[0], b.l[0]);
-    split_tf32(p[ld], b.h[1], b.l[1]);
-    return b;
+    const int at = (k0 + 2 * (lane % 4)) * ld + n0 + lane / 4;
+    return B{{__float_as_uint(hi[at]), __float_as_uint(hi[at + ld])},
+             {__float_as_uint(lo[at]), __float_as_uint(lo[at + ld])}};
   }
   // One n8 tile of an accumulator (value e at row gid + 8 (e / 2), column
   // 2 tq + e % 2) as the A fragment of a k8 step whose column tq is 2 tq
@@ -175,11 +200,37 @@ __device__ __forceinline__ unsigned pack2(bf16 lo, bf16 hi) {
          (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-// bf16 on m16n8k16; `small` is not used.
+// fp32 as above, B fragments split as they are read from the landed fp32
+// stage (no lo plane: half the stage's shared memory).
 template <>
-struct Mma<bf16> {
+struct Mma<float, false> : Mma<float, true> {
+  static constexpr bool SPLIT = false;
+  __device__ static __forceinline__ B b_rows(const float* s, const float*,
+                                             int ld, int n0, int k0) {
+    const int lane = threadIdx.x % 32;
+    const float* p = s + (n0 + lane / 4) * ld + k0 + lane % 4;
+    B b;
+    split_tf32(p[0], b.h[0], b.l[0]);
+    split_tf32(p[4], b.h[1], b.l[1]);
+    return b;
+  }
+  __device__ static __forceinline__ B b_cols(const float* s, const float*,
+                                             int ld, int k0, int n0) {
+    const int lane = threadIdx.x % 32;
+    const float* p = s + (k0 + 2 * (lane % 4)) * ld + n0 + lane / 4;
+    B b;
+    split_tf32(p[0], b.h[0], b.l[0]);
+    split_tf32(p[ld], b.h[1], b.l[1]);
+    return b;
+  }
+};
+
+// bf16 on m16n8k16; `small` and the lo planes are not used.
+template <bool PLANES>
+struct Mma<bf16, PLANES> {
   static constexpr int KS = 16;
   static constexpr int PAD = 8;
+  static constexpr bool SPLIT = false;
   struct A { unsigned h[4]; };
   struct B { unsigned h[2]; };
 
@@ -189,14 +240,14 @@ struct Mma<bf16> {
     const bf16* p = s + (r0 + lane / 4) * ld + k0 + 2 * (lane % 4);
     return A{{lds32(p), lds32(p + 8 * ld), lds32(p + 8), lds32(p + 8 * ld + 8)}};
   }
-  __device__ static __forceinline__ B b_rows(const bf16* s, int ld, int n0,
-                                             int k0) {
+  __device__ static __forceinline__ B b_rows(const bf16* s, const bf16*,
+                                             int ld, int n0, int k0) {
     const int lane = threadIdx.x % 32;
     const bf16* p = s + (n0 + lane / 4) * ld + k0 + 2 * (lane % 4);
     return B{{lds32(p), lds32(p + 8)}};
   }
-  __device__ static __forceinline__ B b_cols(const bf16* s, int ld, int k0,
-                                             int n0) {
+  __device__ static __forceinline__ B b_cols(const bf16* s, const bf16*,
+                                             int ld, int k0, int n0) {
     const int lane = threadIdx.x % 32;
     const bf16* p = s + (k0 + 2 * (lane % 4)) * ld + n0 + lane / 4;
     return B{{pack2(p[0], p[ld]), pack2(p[8 * ld], p[9 * ld])}};
@@ -212,22 +263,42 @@ struct Mma<bf16> {
   }
 };
 
+// Where the fp32 stage is split once into planes (else split as read):
+// by measurement, at (64, 64) only (PERF.md: the planes double the bytes
+// each fragment read takes, and their lo plane costs (192, 128) its 16-row
+// stages).
+template <typename T>
+constexpr bool planes(int hdk) {
+  return hdk == 64;
+}
+
 // Shared-memory layout for element T and head dims (HDK, HDV): ROWS
-// resident rows of two operands, then 2 stages of STAGE rows of the two
-// streamed ones (q and do, or K and V); the dK/dV pass adds each stage's
-// lse2 and D.
+// resident rows of two operands, then NBUF landed stages of STAGE rows of
+// the two streamed ones (q and do, or K and V; with planes each the hi
+// plane once split, and one lo plane beside), and each stage's lse2 and D
+// (the dK/dV pass).  STAGE is 16 (8 where planes at (192, 128) would not
+// fit two blocks an SM otherwise); NBUF 2 where two blocks still fit an
+// SM, else 1.
 template <typename T, int HDK, int HDV>
 struct Tiles {
-  static constexpr int LDK = HDK + Mma<T>::PAD, LDV = HDV + Mma<T>::PAD;
+  static constexpr bool PLANES = planes<T>(HDK);
+  using M = Mma<T, PLANES>;
+  static constexpr int STAGE =
+      M::SPLIT && HDK == 192 ? 8 : 16;        // streamed rows a stage
+  static constexpr int LDK = HDK + M::PAD, LDV = HDV + M::PAD;
   static constexpr int RES = ROWS * (LDK + LDV);          // elements
   static constexpr int STAGE_ELEMS = STAGE * (LDK + LDV);
+  static constexpr int LO_ELEMS = M::SPLIT ? STAGE_ELEMS : 0;
   static constexpr int STAT_FLOATS = 2 * STAGE;           // lse2, D
+  static constexpr int ELT = static_cast<int>(sizeof(T));
+  static constexpr int NBUF =
+      (RES + 2 * STAGE_ELEMS + LO_ELEMS) * ELT + 2 * STAT_FLOATS * 4 <=
+              TWO_BLOCKS ? 2 : 1;
   static constexpr int BYTES =
-      (RES + 2 * STAGE_ELEMS) * static_cast<int>(sizeof(T)) +
-      2 * STAT_FLOATS * 4;
+      (RES + NBUF * STAGE_ELEMS + LO_ELEMS) * ELT + NBUF * STAT_FLOATS * 4;
   static_assert(LDK * sizeof(T) % 16 == 0 && LDV * sizeof(T) % 16 == 0,
                 "rows start on 16 bytes");
-  static_assert(BYTES <= 232448, "above a block's shared memory");
+  static_assert(BYTES <= TWO_BLOCKS, "two blocks an SM");
 };
 
 // NROWS rows of COLS elements into rows LD apart, 16-byte cp.async pieces
@@ -245,16 +316,23 @@ __device__ __forceinline__ void load_rows(T* dst, RowPtr src, const T* any) {
   }
 }
 
-// acc (16 x N, N / 8 tiles) += X Y: X the 16 x STAGE accumulator x (fp32,
-// repacked as A fragments), Y STAGE rows of N columns at y_s (rows LD
-// apart).  Each 8-column block sums the stage in fresh registers and adds
-// them to acc in fp32.
-template <typename T, int N, int LD>
+// A landed fp32 stage split once by the block: hi in place, lo beside
+// (nothing to do in bf16).
+template <typename M, typename T, int N>
+__device__ __forceinline__ void split_stage(T* buf, T* lo) {
+  if constexpr (M::SPLIT)
+    split_in_place(buf, lo, N / 4, threadIdx.x, THREADS);
+}
+
+// acc (16 x N, N / 8 tiles) += X Y: X the 16 x ST accumulator x (fp32,
+// repacked as A fragments), Y ST rows of N columns of a landed stage (hi,
+// lo; rows LD apart).  Each 8-column block sums the stage in fresh
+// registers and adds them to acc in fp32.
+template <typename M, typename T, int N, int LD, int ST>
 __device__ __forceinline__ void add_product(float (&acc)[N / 8][4],
-                                            const float (&x)[STAGE / 8][4],
-                                            const T* y_s) {
-  using M = Mma<T>;
-  constexpr int KSTEPS = STAGE / M::KS;
+                                            const float (&x)[ST / 8][4],
+                                            const T* y_hi, const T* y_lo) {
+  constexpr int KSTEPS = ST / M::KS;
   typename M::A xa[KSTEPS];
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) xa[kk] = M::from_acc(&x[kk * M::KS / 8]);
@@ -263,34 +341,34 @@ __device__ __forceinline__ void add_product(float (&acc)[N / 8][4],
     float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      M::mma(big, small, xa[kk], M::b_cols(y_s, LD, kk * M::KS, nf * 8));
+      M::mma(big, small, xa[kk],
+             M::b_cols(y_hi, y_lo, LD, kk * M::KS, nf * 8));
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nf][e] += big[e] + small[e];
   }
 }
 
-// x (16 x STAGE) = X Y^T over D: X 16 rows at x_s from row x0, Y STAGE
-// rows at y_s, both LD apart; large and small terms apart (xs), summed
-// into x at the end.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void product_t(float (&x)[STAGE / 8][4],
+// x (16 x ST) = X Y^T over D: X 16 resident rows at x_s from row x0, Y ST
+// rows of a landed stage (hi, lo), all LD apart; large and small terms
+// apart (xs), summed into x at the end.
+template <typename M, typename T, int D, int LD, int ST>
+__device__ __forceinline__ void product_t(float (&x)[ST / 8][4],
                                           const T* x_s, int x0,
-                                          const T* y_s) {
-  using M = Mma<T>;
-  float xs[STAGE / 8][4];
+                                          const T* y_hi, const T* y_lo) {
+  float xs[ST / 8][4];
 #pragma unroll
-  for (int j = 0; j < STAGE / 8; ++j)
+  for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[j][e] = xs[j][e] = 0.f;
 #pragma unroll
   for (int kd = 0; kd < D / M::KS; ++kd) {
     const typename M::A a = M::a_rows(x_s, LD, x0, kd * M::KS);
 #pragma unroll
-    for (int j = 0; j < STAGE / 8; ++j)
-      M::mma(x[j], xs[j], a, M::b_rows(y_s, LD, j * 8, kd * M::KS));
+    for (int j = 0; j < ST / 8; ++j)
+      M::mma(x[j], xs[j], a, M::b_rows(y_hi, y_lo, LD, j * 8, kd * M::KS));
   }
 #pragma unroll
-  for (int j = 0; j < STAGE / 8; ++j)
+  for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[j][e] += xs[j][e];
 }
@@ -359,12 +437,14 @@ template <typename T, int HDK, int HDV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 2)
 bwd_dkdv_mma_kernel(const Args a) {
   using C = Tiles<T, HDK, HDV>;
-  constexpr int LDK = C::LDK, LDV = C::LDV;
+  using M = typename C::M;
+  constexpr int LDK = C::LDK, LDV = C::LDV, ST = C::STAGE, NBUF = C::NBUF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* k_s = reinterpret_cast<T*>(smem_raw);
   T* v_s = k_s + ROWS * LDK;
   T* ring = v_s + ROWS * LDV;                  // stage st: q, then do
-  float* stats = reinterpret_cast<float*>(ring + 2 * C::STAGE_ELEMS);
+  T* lo = ring + NBUF * C::STAGE_ELEMS;        // the stage's lo planes
+  float* stats = reinterpret_cast<float*>(lo + C::LO_ELEMS);
   const auto* qg = static_cast<const T*>(a.q);
   const auto* kg = static_cast<const T*>(a.k);
   const auto* vg = static_cast<const T*>(a.v);
@@ -372,10 +452,11 @@ bwd_dkdv_mma_kernel(const Args a) {
 
   // Key tile major, so every block of the first key tiles (the heaviest
   // when causal) starts first.
-  const int per = a.Hkv * a.B;
+  const int per = a.H * a.B;
   const int kt = static_cast<int>(blockIdx.x / per);
-  const int hkv = static_cast<int>(blockIdx.x % per) % a.Hkv;
-  const int b = static_cast<int>(blockIdx.x % per) / a.Hkv;
+  const int h = static_cast<int>(blockIdx.x % per) % a.H;
+  const int b = static_cast<int>(blockIdx.x % per) / a.H;
+  const int hkv = h / a.G;
   const int k0 = kt * ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tq = lane % 4;
@@ -389,32 +470,30 @@ bwd_dkdv_mma_kernel(const Args a) {
     const int key = k0 + r;
     return key < a.S ? vg + b * a.svb + key * a.svs + hkv * a.svh : nullptr;
   }, vg);
-  const int n_qt = (a.S + STAGE - 1) / STAGE;
-  const int qt0 = CAUSAL ? k0 / STAGE : 0;     // the diagonal's tile
-  const int per_head = n_qt - qt0;
-  const int iters = a.G * per_head;
+  const int n_qt = (a.S + ST - 1) / ST;
+  const int qt0 = CAUSAL ? k0 / ST : 0;        // the diagonal's tile
+  const int iters = n_qt - qt0;
   auto load_stage = [&](int st, int it) {
-    const int h = hkv * a.G + it / per_head;
-    const int q0 = (qt0 + it % per_head) * STAGE;
+    const int q0 = (qt0 + it) * ST;
     T* q_s = ring + st * C::STAGE_ELEMS;
-    load_rows<T, HDK, LDK, STAGE>(q_s, [&](int r) -> const T* {
+    load_rows<T, HDK, LDK, ST>(q_s, [&](int r) -> const T* {
       const int p = q0 + r;
       return p < a.S ? qg + (static_cast<long long>(b * a.S + p) * a.H + h) * HDK
                      : nullptr;
     }, qg);
-    load_rows<T, HDV, LDV, STAGE>(q_s + STAGE * LDK, [&](int r) -> const T* {
+    load_rows<T, HDV, LDV, ST>(q_s + ST * LDK, [&](int r) -> const T* {
       const int p = q0 + r;
       return p < a.S ? dog + (static_cast<long long>(b * a.S + p) * a.H + h) * HDV
                      : nullptr;
     }, dog);
     // lse2 and D of the stage's queries: the workspace rows are padded to
-    // S64, a multiple of STAGE, so the slice is read whole.
-    constexpr int P4 = STAGE / 4;
+    // S64, a multiple of ST, so the slice is read whole.
+    constexpr int P4 = ST / 4;
     if (threadIdx.x < 2 * P4) {
       const int half = threadIdx.x / P4, piece = threadIdx.x % P4;
       const float* src = a.ws + half * a.ws_half +
                          (static_cast<long long>(b) * a.H + h) * a.S64 + q0;
-      cp_async16(stats + st * C::STAT_FLOATS + half * STAGE + piece * 4,
+      cp_async16(stats + st * C::STAT_FLOATS + half * ST + piece * 4,
                  src + piece * 4, 16);
     }
   };
@@ -432,25 +511,34 @@ bwd_dkdv_mma_kernel(const Args a) {
     for (int e = 0; e < 4; ++e) dv[i][e] = 0.f;
 
   for (int it = 0; it < iters; ++it) {
-    if (it + 1 < iters) load_stage((it + 1) & 1, it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();              // stage it (and K, V) landed
+    const int buf = NBUF == 2 ? it & 1 : 0;
+    if (NBUF == 2) {
+      if (it + 1 < iters) load_stage((it + 1) & 1, it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();            // stage it (and K, V) landed
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    const int q0 = (qt0 + it % per_head) * STAGE;
+    T* q_s = ring + buf * C::STAGE_ELEMS;
+    split_stage<M, T, C::STAGE_ELEMS>(q_s, lo);
+    __syncthreads();
+    const int q0 = (qt0 + it) * ST;
     // A warp past S, or a causal stage wholly before its first key, adds
     // nothing.
-    if (kw0 < a.S && (!CAUSAL || q0 + STAGE - 1 >= kw0)) {
-      const T* q_s = ring + (it & 1) * C::STAGE_ELEMS;
-      const T* do_s = q_s + STAGE * LDK;
-      const float* lse2 = stats + (it & 1) * C::STAT_FLOATS;
-      const float* dl = lse2 + STAGE;
+    if (kw0 < a.S && (!CAUSAL || q0 + ST - 1 >= kw0)) {
+      const T* do_s = q_s + ST * LDK;
+      const T* q_lo = lo;
+      const T* do_lo = lo + ST * LDK;
+      const float* lse2 = stats + buf * C::STAT_FLOATS;
+      const float* dl = lse2 + ST;
       // S^T = K q^T and dP^T = V do^T: value e of tile j at key
       // kw0 + gid + 8 (e / 2), query q0 + 8 j + 2 tq + e % 2.
-      float s[STAGE / 8][4], dp[STAGE / 8][4];
-      product_t<T, HDK, LDK>(s, k_s, 16 * warp, q_s);
+      float s[ST / 8][4], dp[ST / 8][4];
+      product_t<M, T, HDK, LDK, ST>(s, k_s, 16 * warp, q_s, q_lo);
       const bool diag = CAUSAL && q0 < kw0 + 15;
 #pragma unroll
-      for (int j = 0; j < STAGE / 8; ++j)
+      for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = 8 * j + 2 * tq + (e & 1);
@@ -458,36 +546,85 @@ bwd_dkdv_mma_kernel(const Args a) {
           if (diag && kw0 + gid + 8 * (e >> 1) > q0 + qi) p = 0.f;
           s[j][e] = p;
         }
-      product_t<T, HDV, LDV>(dp, v_s, 16 * warp, do_s);
+      product_t<M, T, HDV, LDV, ST>(dp, v_s, 16 * warp, do_s, do_lo);
 #pragma unroll
-      for (int j = 0; j < STAGE / 8; ++j)
+      for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           dp[j][e] = s[j][e] * (dp[j][e] - dl[8 * j + 2 * tq + (e & 1)]);
-      add_product<T, HDV, LDV>(dv, s, do_s);      // dv += P^T do
-      add_product<T, HDK, LDK>(dk, dp, q_s);      // dk += dS^T q
+      add_product<M, T, HDV, LDV, ST>(dv, s, do_s, do_lo);    // dv += P^T do
+      add_product<M, T, HDK, LDK, ST>(dk, dp, q_s, q_lo);     // dk += dS^T q
     }
-    __syncthreads();                 // stage it & 1 is free for it + 2
+    __syncthreads();                 // the stage and lo are free
+    if (NBUF == 1 && it + 1 < iters) {
+      load_stage(0, it + 1);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
-  const long long row0 = static_cast<long long>(b) * a.S * a.Hkv + hkv;
-  store_rows<T, HDK>(dk, a.scale, kw0, a.S, [&](int r) {
-    return static_cast<T*>(a.dk) + (row0 + static_cast<long long>(r) * a.Hkv) * HDK;
-  });
-  store_rows<T, HDV>(dv, 1.f, kw0, a.S, [&](int r) {
-    return static_cast<T*>(a.dv) + (row0 + static_cast<long long>(r) * a.Hkv) * HDV;
-  });
+  if (a.G == 1) {
+    const long long row0 = static_cast<long long>(b) * a.S * a.Hkv + hkv;
+    store_rows<T, HDK>(dk, a.scale, kw0, a.S, [&](int r) {
+      return static_cast<T*>(a.dk) + (row0 + static_cast<long long>(r) * a.Hkv) * HDK;
+    });
+    store_rows<T, HDV>(dv, 1.f, kw0, a.S, [&](int r) {
+      return static_cast<T*>(a.dv) + (row0 + static_cast<long long>(r) * a.Hkv) * HDV;
+    });
+  } else {
+    // This head's partials, fp32, unscaled: (B, S, H, HDK) then HDV.
+    const long long row0 = static_cast<long long>(b) * a.S * a.H + h;
+    float* pk = a.part;
+    float* pv = a.part + static_cast<long long>(a.B) * a.S * a.H * HDK;
+    store_rows<float, HDK>(dk, 1.f, kw0, a.S, [&](int r) {
+      return pk + (row0 + static_cast<long long>(r) * a.H) * HDK;
+    });
+    store_rows<float, HDV>(dv, 1.f, kw0, a.S, [&](int r) {
+      return pv + (row0 + static_cast<long long>(r) * a.H) * HDV;
+    });
+  }
+}
+
+// dk = scale sum_h dk_h and dv = sum_h dv_h over the G query heads of each
+// KV head, in head order, from the dK/dV pass's fp32 partials.
+template <typename T, int HDK, int HDV>
+__global__ void __launch_bounds__(256) bwd_group_sum_kernel(const Args a) {
+  constexpr int K4 = HDK / 4, V4 = HDV / 4;
+  const long long rows = static_cast<long long>(a.B) * a.S * a.Hkv;
+  const long long n = rows * (K4 + V4);
+  const float* pv = a.part + static_cast<long long>(a.B) * a.S * a.H * HDK;
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * 256) {
+    const bool is_k = i < rows * K4;
+    const long long j = is_k ? i : i - rows * K4;
+    const int w4 = is_k ? K4 : V4;
+    const long long row = j / w4;                 // (b, s) * Hkv + hkv
+    const int c = static_cast<int>(j % w4) * 4;
+    const int hd = is_k ? HDK : HDV;
+    const float* src = (is_k ? a.part : pv) +
+                       (row * a.G) * hd + c;      // heads hkv G .. hkv G + G - 1
+    float4 s = *reinterpret_cast<const float4*>(src);
+    for (int g = 1; g < a.G; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(src + g * hd);
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    const float mul = is_k ? a.scale : 1.f;
+    T* dst = static_cast<T*>(is_k ? a.dk : a.dv) + row * hd + c;
+    store2(dst, s.x * mul, s.y * mul);
+    store2(dst + 2, s.z * mul, s.w * mul);
+  }
 }
 
 template <typename T, int HDK, int HDV, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 2)
 bwd_dq_mma_kernel(const Args a) {
   using C = Tiles<T, HDK, HDV>;
-  constexpr int LDK = C::LDK, LDV = C::LDV;
+  using M = typename C::M;
+  constexpr int LDK = C::LDK, LDV = C::LDV, ST = C::STAGE, NBUF = C::NBUF;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);
   T* do_s = q_s + ROWS * LDK;
   T* ring = do_s + ROWS * LDV;                 // stage st: K, then V
+  T* lo = ring + NBUF * C::STAGE_ELEMS;
   const auto* qg = static_cast<const T*>(a.q);
   const auto* kg = static_cast<const T*>(a.k);
   const auto* vg = static_cast<const T*>(a.v);
@@ -516,15 +653,15 @@ bwd_dq_mma_kernel(const Args a) {
                    : nullptr;
   }, dog);
   const int kv_end = CAUSAL ? min(a.S, q0 + ROWS) : a.S;
-  const int n_t = (kv_end + STAGE - 1) / STAGE;
+  const int n_t = (kv_end + ST - 1) / ST;
   auto load_stage = [&](int st, int t) {
     T* k_s = ring + st * C::STAGE_ELEMS;
-    load_rows<T, HDK, LDK, STAGE>(k_s, [&](int r) -> const T* {
-      const int key = t * STAGE + r;
+    load_rows<T, HDK, LDK, ST>(k_s, [&](int r) -> const T* {
+      const int key = t * ST + r;
       return key < a.S ? kg + b * a.skb + key * a.sks + hkv * a.skh : nullptr;
     }, kg);
-    load_rows<T, HDV, LDV, STAGE>(k_s + STAGE * LDK, [&](int r) -> const T* {
-      const int key = t * STAGE + r;
+    load_rows<T, HDV, LDV, ST>(k_s + ST * LDK, [&](int r) -> const T* {
+      const int key = t * ST + r;
       return key < a.S ? vg + b * a.svb + key * a.svs + hkv * a.svh : nullptr;
     }, vg);
   };
@@ -548,24 +685,33 @@ bwd_dq_mma_kernel(const Args a) {
     for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
 
   for (int t = 0; t < n_t; ++t) {
-    if (t + 1 < n_t) load_stage((t + 1) & 1, t + 1);
-    cp_async_commit();
-    cp_async_wait<1>();              // stage t (and q, do) landed
+    const int buf = NBUF == 2 ? t & 1 : 0;
+    if (NBUF == 2) {
+      if (t + 1 < n_t) load_stage((t + 1) & 1, t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();            // stage t (and q, do) landed
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    const int key0 = t * STAGE;
+    T* k_s = ring + buf * C::STAGE_ELEMS;
+    split_stage<M, T, C::STAGE_ELEMS>(k_s, lo);
+    __syncthreads();
+    const int key0 = t * ST;
     // A warp past S, or a causal stage wholly after its last query, adds
     // nothing.
     if (qw0 < a.S && (!CAUSAL || key0 <= qw0 + 15)) {
-      const T* k_s = ring + (t & 1) * C::STAGE_ELEMS;
-      const T* v_s = k_s + STAGE * LDK;
+      const T* v_s = k_s + ST * LDK;
+      const T* k_lo = lo;
+      const T* v_lo = lo + ST * LDK;
       // S = q K^T and dP = do V^T: value e of tile j at query
       // row_r + 8 (e / 2), key key0 + 8 j + 2 tq + e % 2.
-      float s[STAGE / 8][4], dp[STAGE / 8][4];
-      product_t<T, HDK, LDK>(s, q_s, 16 * warp, k_s);
-      const bool mask = key0 + STAGE > a.S ||
-                        (CAUSAL && key0 + STAGE - 1 > qw0);
+      float s[ST / 8][4], dp[ST / 8][4];
+      product_t<M, T, HDK, LDK, ST>(s, q_s, 16 * warp, k_s, k_lo);
+      const bool mask = key0 + ST > a.S ||
+                        (CAUSAL && key0 + ST - 1 > qw0);
 #pragma unroll
-      for (int j = 0; j < STAGE / 8; ++j)
+      for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1;
@@ -575,15 +721,19 @@ bwd_dq_mma_kernel(const Args a) {
             p = 0.f;
           s[j][e] = p;
         }
-      product_t<T, HDV, LDV>(dp, do_s, 16 * warp, v_s);
+      product_t<M, T, HDV, LDV, ST>(dp, do_s, 16 * warp, v_s, v_lo);
 #pragma unroll
-      for (int j = 0; j < STAGE / 8; ++j)
+      for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]);
-      add_product<T, HDK, LDK>(dq, dp, k_s);      // dq += dS K
+      add_product<M, T, HDK, LDK, ST>(dq, dp, k_s, k_lo);    // dq += dS K
     }
-    __syncthreads();                 // stage t & 1 is free for t + 2
+    __syncthreads();                 // the stage and lo are free
+    if (NBUF == 1 && t + 1 < n_t) {
+      load_stage(0, t + 1);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
   const long long row0 = static_cast<long long>(b) * a.S * a.H + h;
@@ -598,7 +748,7 @@ int launch_main(Kernel kernel, long long blocks, int smem, const Args& a,
   cudaError_t err = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)   // two blocks of up to 101.6 KB an SM
+  if (err == cudaSuccess)   // two blocks of up to 113 KB an SM
     err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -619,11 +769,21 @@ int run(const Args& a, bool causal, int parts, cudaStream_t s) {
   }
   const long long tiles = (a.S + ROWS - 1) / ROWS;
   if (parts & 2) {
-    const int err = launch_main(
+    int err = launch_main(
         causal ? bwd_dkdv_mma_kernel<T, HDK, HDV, true>
                : bwd_dkdv_mma_kernel<T, HDK, HDV, false>,
-        tiles * a.Hkv * a.B, C::BYTES, a, s);
+        tiles * a.H * a.B, C::BYTES, a, s);
     if (err) return err;
+    if (a.G > 1) {
+      const long long n =
+          static_cast<long long>(a.B) * a.S * a.Hkv * (HDK + HDV) / 4;
+      const long long blocks = (n + 255) / 256;
+      bwd_group_sum_kernel<T, HDK, HDV>
+          <<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192), 256, 0,
+             s>>>(a);
+      err = static_cast<int>(cudaGetLastError());
+      if (err) return err;
+    }
   }
   if (parts & 4)
     return launch_main(causal ? bwd_dq_mma_kernel<T, HDK, HDV, true>
@@ -641,26 +801,30 @@ int run(const Args& a, bool causal, int parts, cudaStream_t s) {
 // contiguous, k and v read through their strides (head, position, batch;
 // elements, unit-stride rows on 16 bytes).  lse: (B, H, S) fp32 from the
 // forward; ws: an fp32 workspace of 2 B H S64 floats, S64 = S rounded up
-// to 64 (16-byte aligned); ds: unused (null), the argument list is
-// flash_attention_bwd_launch's.  Launches the kernels that `parts` names
-// (1: prep, 2: dK/dV, 4: dQ; 7 all three) on `stream`, does not
-// synchronise, and returns the first failure's CUDA error code (0 =
+// to 64 (16-byte aligned); part: where H > Hkv, an fp32 workspace of
+// B S H (hdk + hdv) floats for the dK/dV pass's per-head partials (null
+// otherwise; the argument list is flash_attention_bwd_launch's, whose
+// `ds` this is).  Launches the kernels that `parts` names (1: prep, 2:
+// dK/dV and, where H > Hkv, the group sum, 4: dQ; 7 all) on `stream`, does
+// not synchronise, and returns the first failure's CUDA error code (0 =
 // launched).
 extern "C" int flash_attention_bwd_mma_launch(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* ws, void* dq, void* dk,
-    void* dv, void* ds, int B, int S, int H, int Hkv, int hdk, int hdv,
+    void* dv, void* part, int B, int S, int H, int Hkv, int hdk, int hdv,
     int causal, float scale, int parts, long long skh, long long sks,
     long long skb, long long svh, long long svs, long long svb,
     void* stream) {
   const int inval = static_cast<int>(cudaErrorInvalidValue);
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || ds != nullptr ||
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv ||
+      (H > Hkv && (parts & 2) && part == nullptr) ||
       (dtype != 0 && dtype != 1))
     return inval;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.ws = static_cast<float*>(ws);
+  a.part = static_cast<float*>(part);
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.B = B;
   a.S = S;

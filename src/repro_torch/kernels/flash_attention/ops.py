@@ -64,7 +64,7 @@ dtype and head dim (``prefill_wgmma``, ``prefill_mma_hd16`` or
 ``prefill_f32``) writing each row's logsumexp beside the output, and the
 backward is ``flash_attention_bwd``: dq, dk, dv from q, k, v, the output,
 its gradient and the logsumexp; dk and dv summed over each KV head's
-query heads in one block, dq from a second pass; no atomics: the same
+query heads in a fixed order, dq from a second pass; no atomics: the same
 bits on every run; k and v may be strided views, as MLA makes them, read
 in place.  Its kernels (``BWD_KERNELS``): ``wgmma``, bf16 at (64, 64),
 (80, 80), (128, 128) and (192, 128) (``csrc/flash_attention_bwd.cu``,
@@ -73,9 +73,13 @@ column 80; at (192, 128) the dQ pass reads back the bf16 dS tiles the
 first pass stored in a workspace the wrapper allocates, 2.2 GB at
 DeepSeek-V3's train cell); ``mma_f32``, fp32 at every pair, and
 ``mma_bf16``, bf16 at (16, 16) (``csrc/flash_attention_bwd_mma.cu``,
-``mma.sync``, fp32 in 3xTF32 as ``prefill_f32``).  So the backward takes
-every (dtype, pair) of ``BWD_HEAD_DIMS``, which equals ``HEAD_DIMS``, and
-raises a ``ValueError`` naming anything else before any launch.  Counted
+``mma.sync``, fp32 in 3xTF32 as ``prefill_f32``, the streamed stage
+split once into TF32 planes at (64, 64); its dK/dV pass takes one query
+head a block, and a group-sum kernel adds the heads' fp32 partials, a
+workspace the wrapper allocates, :func:`bwd_partials_floats`).  So the
+backward takes every (dtype, pair) of ``BWD_HEAD_DIMS``, which equals
+``HEAD_DIMS``, and raises a ``ValueError`` naming anything else before
+any launch.  Counted
 in ``flash_attention_bwd.launches``, by kernel in
 ``flash_attention_bwd.launches_by_kernel`` and by head-dim pair in
 ``flash_attention_bwd.launches_by_dims``.  The JAX package has no
@@ -100,7 +104,8 @@ from repro_torch.kernels.build import KernelLibrary
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_bwd",
            "flash_attention_bwd_ref", "plan_launch", "Plan", "HEAD_DIMS",
            "SPLIT_HEAD_DIMS", "BWD_HEAD_DIMS", "KERNELS", "BWD_KERNELS",
-           "bwd_kernel", "LIBRARY", "LIBRARY_BWD", "LIBRARY_BWD_MMA"]
+           "bwd_kernel", "bwd_partials_floats", "LIBRARY", "LIBRARY_BWD",
+           "LIBRARY_BWD_MMA"]
 
 LIBRARY = KernelLibrary(
     "flash_attention", Path(__file__).parent / "csrc" / "flash_attention.cu")
@@ -505,24 +510,41 @@ def _tma_view(t: torch.Tensor) -> torch.Tensor:
 def _bwd_operands(q, k, v, out, dout, lse, causal) -> tuple:
     """The kernels' inputs (q, out, dout, lse contiguous; k and v as TMA
     reads them), the workspace (lse log2(e) and rowsum(do o), each (B, H,
-    S rounded up to 64)), dq, dk, dv (contiguous) and, at (192, 128) in
-    bf16, the dS^T tiles the dK/dV pass hands the dQ pass (bf16, 64 x 64
-    a tile, the causal triangle's or the square's tiles a (b, h); else
-    None)."""
+    S rounded up to 64)), dq, dk, dv (contiguous) and the last pass's
+    scratch: at (192, 128) in bf16 the dS^T tiles the dK/dV pass hands the
+    dQ pass (bf16, 64 x 64 a tile, the causal triangle's or the square's
+    tiles a (b, h)); on the mma.sync kernels with H > Hkv the dK/dV pass's
+    fp32 partials of each query head (:func:`bwd_partials_floats`); else
+    None."""
     q, out, dout, lse = (t.contiguous() for t in (q, out, dout, lse))
     k, v = _tma_view(k), _tma_view(v)
     B, S, H, hd = q.shape
+    Hkv, hd_v = v.shape[2], v.shape[3]
     n = -(-S // 64)
     ws = torch.empty(2 * B * H * n * 64, dtype=torch.float32,
                      device=q.device)
     ds = None
-    if hd == 192 and bwd_kernel(q.dtype, hd) == "wgmma":
+    kernel = bwd_kernel(q.dtype, hd)
+    if hd == 192 and kernel == "wgmma":
         tiles = n * (n + 1) // 2 if causal else n * n
         ds = torch.empty(B * H * tiles * 64 * 64, dtype=torch.bfloat16,
                          device=q.device)
+    elif kernel != "wgmma" and H > Hkv:
+        ds = torch.empty(bwd_partials_floats(B, S, H, Hkv, hd, hd_v),
+                         dtype=torch.float32, device=q.device)
     return (q, k, v, out, dout, lse, ws,
             *(torch.empty(t.shape, dtype=t.dtype, device=t.device)
               for t in (q, k, v)), ds)
+
+
+def bwd_partials_floats(B: int, S: int, H: int, Hkv: int, hd: int,
+                        hd_v: int) -> int:
+    """Floats of the mma.sync backward's partials workspace: its dK/dV
+    pass takes one query head a block and writes each head's dk and dv in
+    fp32, (B, S, H, hd) then (B, S, H, hd_v), which a group-sum kernel adds
+    over each KV head's H / Hkv query heads in head order; none where
+    H == Hkv (the pass writes dk and dv itself)."""
+    return 0 if H == Hkv else B * S * H * (hd + hd_v)
 
 
 def _bwd_call(ops, causal, scale, parts: int) -> None:

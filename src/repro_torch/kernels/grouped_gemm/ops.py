@@ -55,9 +55,12 @@ autograd Functions: the forward kernel as above, and a backward of three
 more kernels (the JAX package has none: XLA differentiates its einsums),
 each with a plain version and a launch count (by dtype in
 ``launches_by_kernel``): in bf16 those of ``csrc/grouped_gemm.cu`` below,
-in fp32 those of ``csrc/grouped_gemm_bwd_f32.cu`` (3xTF32 on ``mma.sync``,
-a block per 64 x 64 output tile, rows past a slot's count written as
-zeros; the trainer's default dtype):
+in fp32 those of ``csrc/grouped_gemm_bwd_f32.cu`` (3xTF32 on TF32
+``wgmma``, one operand split once into TF32 planes, the other split in
+registers; warp specialised, a persistent grid over the 128-row tiles
+that hold rows: :func:`bwd_f32_items` gives each mode's work items; the
+wgrad in row chunks where its output tiles are fewer than the SMs,
+:func:`wgrad_f32_chunk`; the trainer's default dtype; G at most 512):
 
 * ``grouped_swiglu_bwd(x, w1, w3, dact, rows, zero_padded=True)`` ->
   (dh, dg): the SwiGLU's h = x w1 and g = x w3 recomputed from one read of
@@ -75,8 +78,8 @@ zeros; the trainer's default dtype):
 
 Rows past a slot's count come out as exact zeros in every output, and its
 gradients are zero there; with ``zero_padded=False`` the SwiGLU backward
-and the dgrad leave the rows from the count rounded up to 64 on unwritten
-on the card (what the autograd backward does).  Every reader of those
+and the dgrad leave the rows from the count rounded up to 64 (bf16) or
+128 (fp32) on unwritten on the card (what the autograd backward does).  Every reader of those
 rows selects the valid ones and never multiplies a padded one into a
 valid result, NaN included: dh and dg are read by ``grouped_matmul_nt``
 and ``grouped_wgrad``; dact (the matmul's dgrad) by the SwiGLU backward,
@@ -115,7 +118,7 @@ __all__ = ["grouped_swiglu", "grouped_matmul", "grouped_swiglu_ref",
            "grouped_swiglu_bwd", "grouped_swiglu_bwd_ref",
            "grouped_matmul_nt", "grouped_matmul_nt_ref", "grouped_wgrad",
            "grouped_wgrad_ref", "swiglu_bwd_tiles", "matmul_nt_tiles",
-           "wgrad_tiles", "LIBRARY",
+           "wgrad_tiles", "bwd_f32_items", "wgrad_f32_chunk", "LIBRARY",
            "LIBRARY_Q8", "LIBRARY_BWD_F32"]
 
 LIBRARY = KernelLibrary("grouped_gemm",
@@ -248,9 +251,9 @@ def _launch(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
 
 def _check_device(x: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch), False for CPU (plain version)."""
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return True
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return False
     raise ValueError(f"no grouped GEMM for device {x.device}")
 
@@ -343,11 +346,11 @@ def _check_rows(rows: torch.Tensor | None, G: int,
     ``device`` (an int32 one is converted); raises on anything else."""
     if rows is None:
         return None
-    if rows.shape != (G,) or rows.device != device or rows.dtype not in (
-            torch.int32, torch.int64):
+    if rows.shape != (G,) or rows.get_device() != device.index or \
+            rows.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"rows must be an int32/int64 ({G},) tensor on "
                          f"{device}")
-    return rows.to(torch.int64)
+    return rows if rows.dtype is torch.int64 else rows.to(torch.int64)
 
 
 def _launch_q8(q, row_scale, w1q, w1s, w3q, w3s, rows=None,
@@ -516,18 +519,25 @@ def grouped_wgrad_ref(x: torch.Tensor, d: torch.Tensor,
 def _bwd_operands(name: str, *ts: torch.Tensor) -> None:
     """The backward kernels' contract: bf16 or fp32, one dtype, on one
     card, 3-D, a unit-stride last dim, TMA-readable, widths that are
-    multiples of 8."""
+    multiples of 8.  (Few tensor attributes read: at the reduced widths
+    these checks are a good part of a call.)"""
+    dtype, dev = ts[0].dtype, ts[0].get_device()
+    if dtype is not torch.bfloat16 and dtype is not torch.float32:
+        raise ValueError(f"{name}: the backward kernels take bf16 or "
+                         f"fp32 operands of one dtype, not {dtype}")
+    m = 16 // ts[0].element_size()      # elements in 16 bytes
     for t in ts:
-        if t.dtype not in (torch.bfloat16, torch.float32) or \
-                t.dtype != ts[0].dtype:
+        if t.dtype is not dtype:
             raise ValueError(f"{name}: the backward kernels take bf16 or "
                              f"fp32 operands of one dtype, not {t.dtype}")
-        if t.device != ts[0].device or t.dim() != 3:
+        st = t.stride()
+        if t.get_device() != dev or len(st) != 3:
             raise ValueError(f"{name}: expected 3-D operands on one device")
-        if t.shape[-1] % 8 or t.stride(-1) != 1 or not _tma_ready(t):
+        if t.shape[2] % 8 or st[2] != 1 or st[0] <= 0 or st[1] <= 0 or \
+                st[0] % m or st[1] % m or t.data_ptr() % 16:
             raise ValueError(f"{name}: operands need a unit-stride last dim "
                              f"that is a multiple of 8 and 16-byte aligned "
-                             f"rows, not {tuple(t.shape)} / {t.stride()}")
+                             f"rows, not {tuple(t.shape)} / {st}")
 
 
 def _bwd_check(err: int, name: str) -> None:
@@ -543,8 +553,9 @@ def grouped_swiglu_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dh, dg), each (G, M, N), of the grouped SwiGLU for ``dact``; see
     :func:`grouped_swiglu_bwd_ref`.  On the card, ``zero_padded=False``
-    leaves slot g's rows from ``ceil(rows[g] / 64) * 64`` on unwritten
-    (the rows of its last row tile past the count are still zeros)."""
+    leaves slot g's rows from ``ceil(rows[g] / 64) * 64`` (fp32: 128) on
+    unwritten (the rows of its last row tile past the count are still
+    zeros)."""
     if not _check_device(x):
         return grouped_swiglu_bwd_ref(x, w1, w3, dact, rows)
     G, M, K = x.shape
@@ -556,9 +567,11 @@ def grouped_swiglu_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
         raise ValueError("grouped_swiglu_bwd: x (G, M, K), w1 / w3 (G, K, N) "
                          "with equal strides, dact (G, M, N) contiguous")
     rows = _check_rows(rows, G, x.device)
-    dh, dg = torch.empty_like(dact), torch.empty_like(dact)
+    dh, dg = torch.empty((2, *dact.shape), dtype=dact.dtype,
+                         device=dact.device).unbind(0)
     if dh.numel() and x.dtype == torch.float32:
-        _bwd_check(_f32_launch(1, x, None, w1, w3, dact, dh, dg, rows),
+        _bwd_check(_f32_launch(1, x, None, w1, w3, dact, dh, dg, rows,
+                               zero_padded=zero_padded),
                    "grouped_swiglu_bwd fp32")
         _count_bwd(grouped_swiglu_bwd, x.dtype)
     elif dh.numel():
@@ -583,8 +596,8 @@ def grouped_matmul_nt(x: torch.Tensor, w: torch.Tensor,
     """x (G, M, K) @ w^T (+ x2 @ w2^T) with w, w2 stored (G, N, K):
     (G, M, N), zero at or past ``rows[g]``; one launch for both products.
     On the card, ``zero_padded=False`` leaves slot g's rows from
-    ``ceil(rows[g] / 64) * 64`` on unwritten (the rows of its last row tile
-    past the count are still zeros)."""
+    ``ceil(rows[g] / 64) * 64`` (fp32: 128) on unwritten (the rows of its
+    last row tile past the count are still zeros)."""
     if not _check_device(x):
         return grouped_matmul_nt_ref(x, w, rows, x2, w2)
     G, M, K = x.shape
@@ -599,7 +612,8 @@ def grouped_matmul_nt(x: torch.Tensor, w: torch.Tensor,
     rows = _check_rows(rows, G, x.device)
     out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
     if out.numel() and x.dtype == torch.float32:
-        _bwd_check(_f32_launch(0, x, x2, w, w2, None, out, None, rows),
+        _bwd_check(_f32_launch(0, x, x2, w, w2, None, out, None, rows,
+                               zero_padded=zero_padded),
                    "grouped_matmul_nt fp32")
         _count_bwd(grouped_matmul_nt, x.dtype)
     elif out.numel():
@@ -632,9 +646,15 @@ def grouped_wgrad(x: torch.Tensor, d: torch.Tensor,
         raise ValueError(f"grouped_wgrad: x {tuple(x.shape)}, d "
                          f"{tuple(d.shape)}")
     rows = _check_rows(rows, G, x.device)
-    out = torch.empty((G, K, N), dtype=x.dtype, device=x.device)
+    chunk = (wgrad_f32_chunk(G, M, K, N, _sm_count(x.get_device()))
+             if x.dtype == torch.float32 else 0)
+    # The fp32 chunks' partial sums follow the output in its allocation.
+    buf = torch.empty((G * (1 + (-(-M // chunk) if chunk else 0)), K, N),
+                      dtype=x.dtype, device=x.device)
+    out = buf[:G]
     if out.numel() and x.dtype == torch.float32:
-        _bwd_check(_f32_launch(2, x, None, d, None, None, out, None, rows),
+        _bwd_check(_f32_launch(2, x, None, d, None, None, out, None, rows,
+                               chunk=chunk, ws=buf if chunk else None),
                    "grouped_wgrad fp32")
         _count_bwd(grouped_wgrad, x.dtype)
     elif out.numel():
@@ -658,22 +678,89 @@ def _f32_launcher():
     """The fp32 backward's entry point with its argument types (set once)."""
     fn = LIBRARY_BWD_F32.load().grouped_bwd_f32_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     return fn
 
 
-def _f32_launch(mode, a, a2, b, b2, dact, out, out2, rows) -> int:
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _f32_launch(mode, a, a2, b, b2, dact, out, out2, rows, *,
+                zero_padded: bool = True, chunk: int = 0,
+                ws: torch.Tensor | None = None) -> int:
     """One launch of ``csrc/grouped_gemm_bwd_f32.cu`` (mode 0 dgrad, 1
-    SwiGLU backward, 2 wgrad) on the current stream; its error code."""
+    SwiGLU backward, 2 wgrad, with its chunk sum where ``chunk``: the
+    partial sums go to ``ws`` after the output's G slots) on the current
+    stream; its error code.  Few tensor attributes are read: at the
+    reduced widths the call's host work takes longer than its kernels."""
     G, M, K = a.shape
     N = out.shape[2]
+    sa, sb = a.stride(), b.stride()
     return _f32_launcher()(
-        mode, *(None if t is None else t.data_ptr()
-                for t in (a, a2, b, b2, dact, out, out2, rows)),
-        G, M, K, N, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        mode, a.data_ptr(), _ptr(a2), b.data_ptr(), _ptr(b2), _ptr(dact),
+        out.data_ptr(), _ptr(out2),
+        None if ws is None else ws.data_ptr() + G * K * N * 4, _ptr(rows),
+        G, M, K, N, sa[0], sa[1], sb[0], sb[1], int(zero_padded), chunk,
+        torch._C._cuda_getCurrentRawStream(a.get_device()))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    """SMs of CUDA device ``device`` (an index)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def wgrad_f32_chunk(G: int, M: int, K: int, N: int, sms: int) -> int:
+    """Rows of one partial sum of the fp32 wgrad (B3f), or 0: each slot's
+    rows in one item, where its (slot, 128 x 128) output tiles are at
+    least ``sms``.  Otherwise (the reduced widths: one tile a slot) the
+    rows are cut into chunks of a multiple of 32 rows, about 2 ``sms``
+    items where every slot is full, whose partials a second kernel adds in
+    chunk order; the wrapper's workspace holds G ceil(M / chunk) K N
+    floats."""
+    tiles = G * -(-K // 128) * -(-N // 128)
+    if tiles >= sms or M == 0:
+        return 0
+    per = -(-2 * sms // tiles)
+    return max(32, -(-M // (32 * per)) * 32)
+
+
+def bwd_f32_items(mode: int, rows: torch.Tensor, M: int, K: int, N: int,
+                  chunk: int = 0, second: bool = False) -> torch.Tensor:
+    """The fp32 backward kernel's work items in its order (block b takes
+    items b, b + grid, ...), each with its contraction, as (W, 5) int64
+    rows.  Modes 0 (dgrad) and 1 (SwiGLU backward): (slot, first row,
+    first column, first contracted index, its end) over the 128-row tiles
+    that hold rows, ``ceil(min(rows[g], M) / 128)`` a slot, times the
+    128-column (mode 0) or 64-column (mode 1, h and g) tiles, slot-major,
+    then the column tile, then the row tile fastest; the contraction is
+    K (2 K with ``second``).  Mode 2 (wgrad): (slot, first row of K, first
+    column, first contracted row, its end): every (slot, 128 x 128 tile) of
+    the output, or with ``chunk`` each slot's valid rows in chunks of that
+    many rows (none for an empty slot), slot-major, then the chunk, then
+    the tile, the column tiles fastest.  The kernel builds the same list
+    from ``rows`` on the card; this mirror reads them on the host."""
+    cnt = rows.to(torch.int64).clamp(0, M).tolist()
+    items = []
+    if mode == 2:
+        kt, nt = -(-K // 128), -(-N // 128)
+        for g, c in enumerate(cnt):
+            spans = ([(r, min(r + chunk, c)) for r in range(0, c, chunk)]
+                     if chunk else [(0, c)])
+            for r0, r1 in spans:
+                items += [(g, i * 128, j * 128, r0, r1)
+                          for i in range(kt) for j in range(nt)]
+    else:
+        cols = 128 if mode == 0 else 64
+        depth = 2 * K if mode == 0 and second else K
+        for g, c in enumerate(cnt):
+            mt = -(-c // 128)
+            items += [(g, r * 128, j * cols, 0, depth)
+                      for j in range(-(-N // cols)) for r in range(mt)]
+    return torch.tensor(items, dtype=torch.int64).reshape(-1, 5)
 
 
 def _row_tile_items(rows: torch.Tensor, M: int, N: int,

@@ -21,20 +21,39 @@ backend; memory-efficient at (192, 128), where flash takes one head dim),
 each of its three kernels timed alone with CUDA events
 (``ops.bwd_stage_ms``) and the device time of each kernel from
 ``torch.profiler``; with ``--check`` it also asserts that two calls give
-the same bits.
+the same bits.  It then times the mma.sync backward (``mma_f32``,
+``mma_bf16``: ``csrc/flash_attention_bwd_mma.cu``) at the trainer's
+defaults: fp32 at B 1, S 2048, 16 / 4 heads (chip_smoke's B4F_SHAPE) at
+every head-dim pair, causal, and (128, 128) and (192, 128) bidirectional
+too, the Qwen3-0.6B command line's own shape (B 8, S 128, 16 / 8 heads,
+(128, 128), causal), and bf16 at (16, 16); each beside SDPA's backward
+(fp32: memory-efficient; bf16: flash) and its kernels alone.
+
+``--parent ROOT`` (with ``--bwd``): also builds ROOT's
+``flash_attention_bwd_mma.cu`` (another checkout, with its own shared
+headers) and times it through the same C entry point on the same inputs,
+in turns (parent, change, change, parent); ``--check`` then asserts that
+each library gives the same bits on two calls and that each is within
+1e-4 (fp32; bf16 2e-2) of each of dq, dk, dv's max|ref| against the
+plain version.  The two sum in other orders, so they are not compared
+bit for bit.
 
 The script imports the package from ``sys.path``, so pointing PYTHONPATH
 at another checkout's ``src`` times that checkout's kernels with the same
 cases (a parent and a change in one call, on one card):
 
   PYTHONPATH=src python src/repro_torch/launch/bench_flash.py --fwd --bwd
+  PYTHONPATH=src python src/repro_torch/launch/bench_flash.py --bwd \
+      --parent build/parent --check
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -251,6 +270,139 @@ def bench_bwd(iters: int, check: bool) -> None:
         torch.cuda.empty_cache()
 
 
+def _bwd_mma_cases():
+    """(tag, B, S, H, Hkv, hd, hd_v, causal, dtype) of the mma.sync
+    backward: chip_smoke's B4F_SHAPE at each pair, the Qwen3-0.6B command
+    line's shape, bf16 at hd 16."""
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [(f"b4f_{hd}x{hv}_causal", 1, 2048, 16, 4, hd, hv, True, f32)
+             for hd, hv in ((16, 16), (64, 64), (80, 80), (128, 128),
+                            (192, 128))]
+    cases += [(f"b4f_{hd}x{hv}_bidir", 1, 2048, 16, 4, hd, hv, False, f32)
+              for hd, hv in ((128, 128), (192, 128))]
+    cases += [("b4f_qwen3_0.6b_main", 8, 128, 16, 8, 128, 128, True, f32),
+              ("b4_bf16_16x16_causal", 1, 2048, 16, 4, 16, 16, True, bf)]
+    return cases
+
+
+def _mma_entry(root: Path | None):
+    """The C entry point of ROOT's ``flash_attention_bwd_mma.cu`` (None:
+    this checkout's), argument types set."""
+    from repro_torch.kernels.build import KernelLibrary
+    from repro_torch.kernels.flash_attention import ops
+
+    if root is None:
+        return ops._bwd_mma_launcher()
+    kdir = root / "src" / "repro_torch" / "kernels"
+    lib = KernelLibrary("flash_attention_bwd_mma_parent", kdir /
+                        "flash_attention" / "csrc" /
+                        "flash_attention_bwd_mma.cu", include=kdir / "csrc")
+    fn = lib.load().flash_attention_bwd_mma_launch
+    fn.restype = ops._bwd_mma_launcher().restype
+    fn.argtypes = ops._bwd_mma_launcher().argtypes
+    return fn
+
+
+def bench_bwd_mma(iters: int, check: bool, parent: Path | None,
+                  rounds: int = 2) -> None:
+    """The mma.sync backward at ``_bwd_mma_cases``: each library (this
+    checkout's, and ROOT's with ``parent``) called through its C entry on
+    the same operands, timed in turns, beside SDPA's backward; the
+    change's kernels alone (``ops.bwd_stage_ms``)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops
+
+    libs = {"change": _mma_entry(None)}
+    if parent is not None:
+        libs = {"parent": _mma_entry(parent), **libs}
+    for tag, B, S, H, Hkv, hd, hv, causal, dtype in _bwd_mma_cases():
+        g = torch.Generator(device="cuda").manual_seed(19)
+        q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, S, Hkv, hd), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, S, Hkv, hv), generator=g, device="cuda").to(dtype)
+        dout = torch.randn((B, S, H, hv), generator=g,
+                           device="cuda").to(dtype)
+        lse = torch.empty((B, H, S), device="cuda")
+        o = ops._launch(q, k, v, causal, 0, None, None, sms=1, lse=lse)[0]
+        opnds = {who: ops._bwd_operands(q, k, v, o, dout, lse, causal)
+                 for who in libs}
+        if "parent" in opnds:    # the parent's entry takes no workspace
+            opnds["parent"] = (*opnds["parent"][:10], None)
+        scale = hd ** -0.5
+
+        def call(who):
+            t = opnds[who]
+            err = libs[who](
+                ops._DTYPE_CODE[dtype],
+                *(None if x is None else x.data_ptr() for x in t), B, S, H,
+                Hkv, hd, hv, int(causal), scale, 7,
+                *(x.stride(d) for x in (t[1], t[2]) for d in (2, 1, 0)),
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{tag} {who}: launch error {err}")
+
+        rec = {"case": tag, "shape": [B, S, H, Hkv, hd, hv],
+               "causal": causal, "dtype": str(dtype)[6:],
+               "libraries": list(libs)}
+        if check:
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            refs = ops.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+            rec["rel_err"] = {}
+            for who in libs:
+                call(who)
+                first = [t.clone() for t in opnds[who][7:10]]
+                call(who)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in
+                           zip(first, opnds[who][7:10])):
+                    raise AssertionError(f"{tag} {who}: two calls differ")
+                errs = {}
+                for n, a, r in zip("qkv", first, refs):
+                    ref_max = r.float().abs().max().item()
+                    errs[n] = (a.float() - r.float()).abs().max().item() / \
+                        max(ref_max, 1e-30)
+                    if not errs[n] <= tol:
+                        raise AssertionError(f"{tag} {who} d{n}: {errs[n]:.3e}"
+                                             f" of max|ref| > {tol}")
+                rec["rel_err"][who] = errs
+            rec["bitwise_two_calls"] = True
+            del refs, first
+        one = list(libs)
+        order = []
+        for r in range(rounds):
+            order += (one + one[::-1]) if r % 2 == 0 else (one[::-1] + one)
+        for who in libs:
+            _event_ms(lambda: call(who), iters)
+        times = {who: [] for who in libs}
+        for who in order:
+            times[who].append(_event_ms(lambda: call(who), iters))
+        rec["ms"] = times
+        rec["median_ms"] = {w: statistics.median(t) for w, t in times.items()}
+        if "parent" in libs:
+            rec["change_over_parent"] = (rec["median_ms"]["change"]
+                                         / rec["median_ms"]["parent"])
+        rec["stage_ms"] = ops.bwd_stage_ms(q, k, v, o, dout, lse,
+                                           causal=causal, iters=iters)
+        G = H // Hkv
+        qt = q.transpose(1, 2).detach().requires_grad_(True)
+        kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+                  .requires_grad_(True) for t in (k, v))
+        backend = (SDPBackend.EFFICIENT_ATTENTION if dtype == torch.float32
+                   else SDPBackend.FLASH_ATTENTION)
+        with sdpa_kernel([backend]):
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = dout.transpose(1, 2)
+        rec["sdpa_bwd_ms"] = _event_ms(
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                        retain_graph=True), iters)
+        rec["sdpa_backend"] = backend.name
+        print(json.dumps(rec), flush=True)
+        del q, k, v, dout, o, lse, opnds, qt, kt, vt, ot
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--plan", action="store_true")
@@ -259,6 +411,11 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true",
                     help="with --bwd: assert two calls give the same bits")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="with --bwd: another checkout's root, whose "
+                         "mma.sync backward is timed beside this one's")
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="rounds of (parent, change, change, parent)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_flash needs a CUDA device")
@@ -275,6 +432,8 @@ def main(argv=None) -> int:
         bench_fwd(args.iters)
     if args.bwd:
         bench_bwd(max(1, args.iters // 4), args.check)
+        bench_bwd_mma(max(1, args.iters // 4), args.check, args.parent,
+                      args.rounds)
     return 0
 
 

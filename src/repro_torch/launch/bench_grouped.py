@@ -30,10 +30,26 @@ those runs (B3: 64-row token tiles a block contracts; B1 and B2: 128-row
 tiles): ``fixed`` is what the launch pays whatever the rows (prologues,
 epilogues, stores of zero tiles), ``per_tile`` the main loop.
 
+``--f32 SHAPES``: B1f, B2f (dx) and B3f, the fp32 backward of
+``csrc/grouped_gemm_bwd_f32.cu``, at GLM-4.5-Air's full width and train
+counts (``glm_train``) and at the reduced GLM-4.5-Air's path (``glm_reduced``:
+``train()``'s defaults, 8 x 128 tokens), B1f and B2f as the public call
+and the train step's call, each beside fp32 ``torch.bmm`` over the padded
+buffers (TF32 off); with ``--parent`` ROOT's ``grouped_gemm_bwd_f32.cu``
+is built and timed in turns on the same inputs, and ``--check`` asserts
+that each library gives the same bits on two calls, is within 1e-4 of
+each output's max|ref| against the plain version (the two sum in other
+orders, so they are not compared bit for bit), never lets the NaN of the
+padded rows into a valid one, and that the public call's padded rows are
+zeros.
+
 Needs the card; the package comes from ``sys.path``:
 
   PYTHONPATH=src python src/repro_torch/launch/bench_grouped.py \\
       --parent build/parent --check --split
+  PYTHONPATH=src python src/repro_torch/launch/bench_grouped.py \\
+      --parent build/parent --check --no-forward --shapes "" \\
+      --f32 glm_reduced,glm_train
 """
 
 from __future__ import annotations
@@ -145,6 +161,44 @@ class Entries:
                          self._stream()), "wgrad")
 
 
+class F32Entries:
+    """The C entry point of one build of ``grouped_gemm_bwd_f32.cu``: this
+    checkout's (a workspace, ``zero_padded`` and the wgrad's chunk) or an
+    older one without them (``legacy``: zeros always written, no
+    chunks)."""
+
+    def __init__(self, lib: ctypes.CDLL, legacy: bool):
+        self.fn = lib.grouped_bwd_f32_launch
+        self.legacy = legacy
+        self.fn.restype = _I
+        self.fn.argtypes = ([_I] + [_P] * (8 if legacy else 9) + [_I] * 4
+                            + [_L] * 4 + ([] if legacy else [_I] * 2) + [_P])
+
+    def __call__(self, mode, a, a2, b, b2, dact, out, out2, rows, *,
+                 zero_pad=True):
+        G, M, K = a.shape
+        N = out.shape[2]
+        ptrs = [None if t is None else t.data_ptr()
+                for t in (a, a2, b, b2, dact, out, out2)]
+        strides = (a.stride(0), a.stride(1), b.stride(0), b.stride(1))
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.legacy:
+            err = self.fn(mode, *ptrs, rows.data_ptr(), G, M, K, N, *strides,
+                          stream)
+        else:
+            sms = ops._sm_count(a.get_device())
+            chunk = ops.wgrad_f32_chunk(G, M, K, N, sms) if mode == 2 else 0
+            ws = (torch.empty(G * (1 + -(-M // chunk)) * K * N,
+                              device=a.device) if chunk else None)
+            # The partial sums go after G output slots, as the wrapper's.
+            wsp = None if ws is None else ws.data_ptr() + G * K * N * 4
+            err = self.fn(mode, *ptrs, wsp, rows.data_ptr(), G, M, K, N,
+                          *strides, int(zero_pad), chunk, stream)
+        if err:
+            raise RuntimeError(f"grouped_bwd_f32 mode {mode}: launch error "
+                               f"{err}")
+
+
 def _event_ms(fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -163,11 +217,14 @@ def _bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
 
 
-def slot_rows(arch: str, tokens: int, cf: float, seed: int):
+def slot_rows(arch: str, tokens: int, cf: float, seed: int,
+              reduce: bool = False):
     """(rows, cap, d_model, d_ff): each slot's valid-row count and the slot
     capacity from the port's gate, ``ultraep`` plan and bucket on
-    ``tokens`` seeded tokens at capacity factors ``cf`` (one EP rank)."""
+    ``tokens`` seeded tokens at capacity factors ``cf`` (one EP rank;
+    ``reduce``: the arch's reduced configuration)."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.reduce import reduced
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.models.transformer import (
         ParallelCtx,
@@ -177,6 +234,7 @@ def slot_rows(arch: str, tokens: int, cf: float, seed: int):
     from repro_torch.moe import stages
 
     cfg = get_config(arch)
+    cfg = reduced(cfg) if reduce else cfg
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"), cf_pair=cf,
                          cf_slot=cf, dtype=torch.bfloat16)
     mcfg = moe_config(cfg, rcfg, ParallelCtx(), tokens)
@@ -198,6 +256,13 @@ SHAPES = {"glm_train": ("glm45-106b-a12b", 8192, 4.0, 7),
           "deepseek_cell": ("deepseek-v3-671b", 4096, 2.0, 7),
           "jamba_cell": ("jamba-v0.1-52b", 4096, 2.0, 7),
           "glm_serve": ("glm45-106b-a12b", 4096, 4.0, 13)}
+
+
+# name -> (arch, tokens, capacity factors, seed, reduced): the fp32
+# backward's cases, chip_smoke phase 19's grouped_bwd_f32_glm and
+# grouped_bwd_f32 counts.
+F32_SHAPES = {"glm_train": ("glm45-106b-a12b", 8192, 4.0, 7, False),
+              "glm_reduced": ("glm45-106b-a12b", 8 * 128, 4.0, 7, True)}
 
 
 def _randn(shape, scale, g):
@@ -393,6 +458,116 @@ def bench_backward(bench: Bench, shape_name: str, dw2: bool) -> None:
     torch.cuda.empty_cache()
 
 
+def bench_backward_f32(libs: dict, shape_name: str, iters: int,
+                       check: bool, rounds: int) -> None:
+    """B1f, B2f (dx = dh w1^T + dg w3^T) and B3f (dw1 = x^T dh) in fp32,
+    NaN in every operand's padded rows, each library in turns beside
+    fp32 ``torch.bmm`` over the padded buffers."""
+    rows, cap, K, N = slot_rows(*F32_SHAPES[shape_name])
+    G, M = rows.numel(), cap
+    R, S = int(rows.sum()), int((rows > 0).sum())
+    g = torch.Generator(device="cuda").manual_seed(12)
+    f32 = torch.float32
+    x = _padded(torch.randn((G, M, K), generator=g, device="cuda"), rows)
+    w1, w3 = (torch.randn((G, K, N), generator=g, device="cuda") * K ** -0.5
+              for _ in range(2))
+    dact = _padded(torch.randn((G, M, N), generator=g, device="cuda"), rows)
+    keep = torch.arange(M, device="cuda")[None, :, None] < rows[:, None, None]
+    x0, dact0 = torch.where(keep, x, 0.0), torch.where(keep, dact, 0.0)
+    dh, dg = ops.grouped_swiglu_bwd_ref(x0, w1, w3, dact0, rows)
+    dhn, dgn = _padded(dh, rows), _padded(dg, rows)
+    shape = dict(G=G, M=M, K=K, N=N)
+
+    def empty(*shape_):
+        return {who: torch.empty(shape_, dtype=f32, device="cuda")
+                for who in libs}
+
+    cases = []
+    for tag, zero in (("", True), ("_train_call", False)):
+        o1, o2 = empty(G, M, N), empty(G, M, N)
+        cases.append((f"b1f_swiglu_bwd_{shape_name}{tag}", zero,
+                      lambda e, who, z=zero, a=o1, b=o2: e(
+                          1, x, None, w1, w3, dact, a[who], b[who], rows,
+                          zero_pad=z),
+                      lambda who, a=o1, b=o2: (a[who], b[who]),
+                      lambda: ops.grouped_swiglu_bwd_ref(x0, w1, w3, dact0,
+                                                         rows),
+                      (lambda: (torch.bmm(x0, w1), torch.bmm(x0, w3)))
+                      if zero else None, 4.0 * R * K * N))
+    for tag, zero in (("", True), ("_train_call", False)):
+        o = empty(G, M, K)
+        cases.append((f"b2f_dx_{shape_name}{tag}", zero,
+                      lambda e, who, z=zero, a=o: e(
+                          0, dhn, dgn, w1, w3, None, a[who], None, rows,
+                          zero_pad=z),
+                      lambda who, a=o: (a[who],),
+                      lambda: (ops.grouped_matmul_nt_ref(dh, w1, rows, dg,
+                                                         w3),),
+                      (lambda: torch.bmm(dh, w1.transpose(1, 2))
+                       + torch.bmm(dg, w3.transpose(1, 2))) if zero else None,
+                      4.0 * R * K * N))
+    o = empty(G, K, N)
+    cases.append((f"b3f_wgrad_{shape_name}", True,
+                  lambda e, who, a=o: e(2, x, None, dhn, None, None, a[who],
+                                        None, rows),
+                  lambda who, a=o: (a[who],),
+                  lambda: (ops.grouped_wgrad_ref(x0, dh, rows),),
+                  lambda: torch.bmm(x0.transpose(1, 2), dh),
+                  2.0 * R * K * N))
+    for name, zero, call, outs, ref, bmm, flops in cases:
+        rec = {"case": name, "shape": shape, "rows": R, "slots_with_rows": S,
+               "dtype": "float32", "zero_padded": zero,
+               "libraries": list(libs)}
+        if check:
+            refs = ref()
+            rec["rel_err"] = {}
+            for who, e in libs.items():
+                call(e, who)
+                first = [t.clone() for t in outs(who)]
+                call(e, who)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in
+                           zip(first, outs(who))):
+                    raise AssertionError(f"{name} {who}: two calls differ")
+                errs = []
+                for a, r in zip(first, refs):
+                    if a.shape[1] == M:
+                        if zero and not torch.all(
+                                torch.where(keep, 0.0, a) == 0):
+                            raise AssertionError(f"{name} {who}: a padded "
+                                                 f"row is not zero")
+                        a = torch.where(keep, a, 0.0)
+                    if not torch.isfinite(a).all():
+                        raise AssertionError(f"{name} {who}: not finite")
+                    errs.append((a - r).abs().max().item()
+                                / max(r.abs().max().item(), 1e-30))
+                if not max(errs) <= 1e-4:
+                    raise AssertionError(f"{name} {who}: {errs} of max|ref|")
+                rec["rel_err"][who] = errs
+            rec["bitwise_two_calls"] = True
+            del refs, first
+        one = list(libs)
+        order = []
+        for r in range(rounds):
+            order += (one + one[::-1]) if r % 2 == 0 else (one[::-1] + one)
+        for who, e in libs.items():
+            _event_ms(lambda: call(e, who), iters)
+        times = {who: [] for who in libs}
+        for who in order:
+            times[who].append(_event_ms(lambda: call(libs[who], who), iters))
+        rec["ms"] = times
+        rec["median_ms"] = {w: statistics.median(t) for w, t in times.items()}
+        if "parent" in libs:
+            rec["change_over_parent"] = (rec["median_ms"]["change"]
+                                         / rec["median_ms"]["parent"])
+        rec["bound_ms_tf32x3"] = 3 * flops / H100.peak("tf32") * 1e3
+        if bmm is not None:
+            rec["bmm_ms"] = _event_ms(bmm, iters)
+        _emit(rec)
+    del x, w1, w3, dact, x0, dact0, dh, dg, dhn, dgn
+    torch.cuda.empty_cache()
+
+
 def _fit(xs, ts) -> dict:
     n = len(xs)
     mx, mt = sum(xs) / n, sum(ts) / n
@@ -450,6 +625,8 @@ def main() -> int:
                     help="rounds of (parent, change, change, parent)")
     ap.add_argument("--shapes", default="glm_train,deepseek_cell,jamba_cell")
     ap.add_argument("--no-forward", action="store_true")
+    ap.add_argument("--f32", default="",
+                    help="fp32 backward shapes: glm_reduced, glm_train")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_grouped: no CUDA device")
@@ -475,10 +652,28 @@ def main() -> int:
     bench = Bench(libs, args.iters, args.check, args.rounds)
     if not args.no_forward:
         bench_forward(bench)
-    for name in args.shapes.split(","):
+    for name in filter(None, args.shapes.split(",")):
         bench_backward(bench, name, dw2=name == "glm_train")
     if args.split:
         bench_split(bench)
+    if args.f32:
+        f32_libs = {}
+        if args.parent is not None:
+            src = (args.parent / "src" / "repro_torch" / "kernels"
+                   / "grouped_gemm" / "csrc" / "grouped_gemm_bwd_f32.cu")
+            lib = KernelLibrary("grouped_gemm_bwd_f32_parent", src,
+                                include=src.parents[2] / "csrc")
+            f32_libs["parent"] = F32Entries(
+                lib.load(), legacy="void* ws" not in src.read_text())
+        f32_libs["change"] = F32Entries(ops.LIBRARY_BWD_F32.load(),
+                                        legacy=False)
+        _emit({"f32_ptxas": [
+            ln.strip() for ln in ops.LIBRARY_BWD_F32.ptxas_log.splitlines()
+            if "registers" in ln or "spill" in ln
+            or "warning" in ln.lower()]})
+        for name in args.f32.split(","):
+            bench_backward_f32(f32_libs, name, args.iters, args.check,
+                               args.rounds)
     return 0
 
 
