@@ -6033,8 +6033,7 @@ def main() -> int:
         d_paths["qwen3-0.6b main"]["launches_per_step"][
             "flash_attention_bwd.mma_f32"] * DEFAULT_STEPS, {
             "arithmetic": "3xTF32 mma.sync; one query head a dK/dV block, "
-                          "the heads' partials summed in head order; the "
-                          "stage split once into TF32 planes at (64, 64)",
+                          "the heads' partials summed in head order",
             "bound_fp32_ms": d_kern["f32_128x128_causal"]["bound_fp32_ms"],
             "launches_note": f"phase 19, {DEFAULT_STEPS} steps of each path",
             "launches_by_path": path_launches("flash_attention_bwd.mma_f32"),

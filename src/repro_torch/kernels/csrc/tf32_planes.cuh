@@ -1,6 +1,8 @@
-// TF32 hi / lo planes for the 3xTF32 products of the fp32 backward kernels
-// (grouped_gemm_bwd_f32.cu, flash_attention_bwd_mma.cu), and the TF32
-// wgmma product that reads them.
+// TF32 hi / lo planes for the 3xTF32 products on TF32 wgmma (the fp32
+// grouped backward, grouped_gemm_bwd_f32.cu), and the TF32 wgmma product
+// that reads them.  The mma.sync kernels split each fragment as they read
+// it (warp_mma.cuh split_tf32): for them planes were measured slower
+// (flash_attention_bwd_mma.cu's header).
 //
 // 3xTF32: an fp32 value x is hi + lo, hi being x with its 13 low mantissa
 // bits cleared (a TF32 value) and lo = x - hi, whose own low bits the
@@ -18,9 +20,6 @@
 //    c ^ (r % 8), regions on 1024 bytes; a wgmma descriptor
 //    desc_sw128(addr, 16, 1024) (hopper_tma.cuh) and 32 bytes a k8 step.
 //    sw128(r, c) is a chunk's float offset.
-//  * split_in_place: the landed tile becomes its own hi plane and its lo
-//    plane is written beside at the same offsets, whatever the layout (the
-//    padded rows of the mma.sync kernels).
 //  * split_rows: a landed tile of R rows x 32 contraction values, rows
 //    `ld` floats apart, into swizzled K-major planes.
 //  * split_transposed: a landed tile of 32 contraction rows x C columns,
@@ -49,18 +48,6 @@ __device__ __forceinline__ void split4(float4 v, float4& hi, float4& lo) {
 // plane.
 __device__ __forceinline__ int sw128(int r, int c) {
   return r * 32 + ((c ^ (r & 7)) << 2);
-}
-
-// n4 float4s at buf split in place (buf becomes hi) with lo beside, by
-// threads tid, tid + nthr, ...
-__device__ __forceinline__ void split_in_place(float* buf, float* lo, int n4,
-                                               int tid, int nthr) {
-  for (int i = tid; i < n4; i += nthr) {
-    float4 h, l;
-    split4(reinterpret_cast<const float4*>(buf)[i], h, l);
-    reinterpret_cast<float4*>(buf)[i] = h;
-    reinterpret_cast<float4*>(lo)[i] = l;
-  }
 }
 
 // A landed R x 32 tile, rows ld floats apart, into hi and lo swizzled

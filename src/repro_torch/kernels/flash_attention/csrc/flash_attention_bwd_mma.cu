@@ -29,8 +29,8 @@
 //
 // Precision (fp32): every product in 3xTF32 as the fp32 forward's
 // (flash_fwd_f32_kernel): each operand split into hi + lo TF32 parts
-// (tf32_planes.cuh), a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, so each
-// product keeps about 2^-20 of its size.  The tensor core truncates as it
+// (warp_mma.cuh split_tf32), a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, so
+// each product keeps about 2^-20 of its size.  The tensor core truncates as it
 // accumulates, so S^T and dP^T keep their small terms apart from their
 // large ones over the head dim, and dv, dk and dq sum each stage of
 // queries or keys in fresh registers that are added to them in fp32.
@@ -71,16 +71,16 @@
 //      resident in fp32, 16-key stages of K and V up to the diagonal; per
 //      stage each warp forms S = q K^T and dP = do V^T, P, dS, then dq +=
 //      dS K; dq is written once.
-// The stage's operands: at (64, 64) the block splits each landed stage
-// once into a hi plane (in place) and a lo plane (tf32_planes.cuh) that
-// the warps read with one ldmatrix a fragment; at the other pairs each
-// warp splits the fragments it reads.  The planes double the bytes a
-// fragment read moves and take a stage's size again in shared memory
-// (at (192, 128) they cost the 16-row stages: 8-row ones fit); measured
-// (PERF.md), they are faster at (64, 64) only.
+// The operands stay fp32 in shared memory and each warp splits the
+// fragments it reads into hi and lo TF32 parts.  Split once instead (the
+// landed stage as a hi plane in place and a lo plane beside, read with one
+// ldmatrix a fragment) was measured at every pair (PERF.md): the
+// planes double the bytes a fragment read moves, take a stage's size
+// again in shared memory (8-row stages at (192, 128)) and add a block
+// barrier a stage, and were slower at the pairs the paths run.
 // Shared memory: rows of HD + 4 floats (fp32; HD + 8 bf16 elements at hd
 // 16), so the fragments' reads hit distinct banks and every row starts on
-// 16 bytes; the resident 64 rows, NBUF landed stages (and the lo plane).
+// 16 bytes; the resident 64 rows and NBUF landed stages.
 // Two blocks an SM at every pair (at most 113 KB each): two stages where
 // they fit, (128, 128) 101.6 KB, one at (192, 128), 105.1 KB.
 // Registers: dk and dv take HDK / 2 + HDV / 2 fp32 a thread (160 at
@@ -99,7 +99,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tf32_planes.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -128,24 +127,23 @@ struct Args {
 // The products by operand type.  A fragments come from rows of a resident
 // shared array (rows = M, the contraction along the row) or from an fp32
 // accumulator of the same rows; B fragments from a landed stage, rows n
-// (b_rows: X Y^T) or k (b_cols: X Y), read from its hi and lo planes.
+// (b_rows: X Y^T) or k (b_cols: X Y).
 
-template <typename T, bool PLANES>
+template <typename T>
 struct Mma;
 
-// fp32 in 3xTF32 on m16n8k8, B fragments from a stage split once into hi
-// and lo planes.
+// fp32 in 3xTF32 on m16n8k8, every fragment split in registers as it is
+// read.
 template <>
-struct Mma<float, true> {
+struct Mma<float> {
   static constexpr int KS = 8;     // contraction a step
   static constexpr int PAD = 4;    // shared row padding, elements
-  static constexpr bool SPLIT = true;
   struct A { unsigned h[4], l[4]; };
   struct B { unsigned h[2], l[2]; };
 
   // Rows r0 + gid (+ 8), columns k0 + tq (+ 4): one ldmatrix (lanes
   // 8i .. 8i + 7 give rows of matrix i: rows + 8 (i % 2), columns
-  // + 4 (i / 2)), split in registers.
+  // + 4 (i / 2)).
   __device__ static __forceinline__ A a_rows(const float* s, int ld, int r0,
                                              int k0) {
     const int lane = threadIdx.x % 32, i = lane >> 3;
@@ -158,24 +156,25 @@ struct Mma<float, true> {
     for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(r[e]), a.h[e], a.l[e]);
     return a;
   }
-  // n = row n0 + gid, k = k0 + tq (+ 4): hi and lo in one ldmatrix
-  // (matrices: hi k0, hi k0 + 4, lo k0, lo k0 + 4).
-  __device__ static __forceinline__ B b_rows(const float* hi, const float* lo,
-                                             int ld, int n0, int k0) {
-    const int lane = threadIdx.x % 32, i = lane >> 3;
-    unsigned r[4];
-    ldsm_x4(r, static_cast<unsigned>(__cvta_generic_to_shared(
-                   (i >> 1 ? lo : hi) + (n0 + (lane & 7)) * ld + k0 +
-                   4 * (i & 1))));
-    return B{{r[0], r[1]}, {r[2], r[3]}};
+  // n = row n0 + gid, k = k0 + tq (+ 4).
+  __device__ static __forceinline__ B b_rows(const float* s, int ld, int n0,
+                                             int k0) {
+    const int lane = threadIdx.x % 32;
+    const float* p = s + (n0 + lane / 4) * ld + k0 + lane % 4;
+    B b;
+    split_tf32(p[0], b.h[0], b.l[0]);
+    split_tf32(p[4], b.h[1], b.l[1]);
+    return b;
   }
   // k = row k0 + 2 tq (+ 1), n = n0 + gid: the k order of from_acc.
-  __device__ static __forceinline__ B b_cols(const float* hi, const float* lo,
-                                             int ld, int k0, int n0) {
+  __device__ static __forceinline__ B b_cols(const float* s, int ld, int k0,
+                                             int n0) {
     const int lane = threadIdx.x % 32;
-    const int at = (k0 + 2 * (lane % 4)) * ld + n0 + lane / 4;
-    return B{{__float_as_uint(hi[at]), __float_as_uint(hi[at + ld])},
-             {__float_as_uint(lo[at]), __float_as_uint(lo[at + ld])}};
+    const float* p = s + (k0 + 2 * (lane % 4)) * ld + n0 + lane / 4;
+    B b;
+    split_tf32(p[0], b.h[0], b.l[0]);
+    split_tf32(p[ld], b.h[1], b.l[1]);
+    return b;
   }
   // One n8 tile of an accumulator (value e at row gid + 8 (e / 2), column
   // 2 tq + e % 2) as the A fragment of a k8 step whose column tq is 2 tq
@@ -200,37 +199,11 @@ __device__ __forceinline__ unsigned pack2(bf16 lo, bf16 hi) {
          (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-// fp32 as above, B fragments split as they are read from the landed fp32
-// stage (no lo plane: half the stage's shared memory).
+// bf16 on m16n8k16; `small` is not used.
 template <>
-struct Mma<float, false> : Mma<float, true> {
-  static constexpr bool SPLIT = false;
-  __device__ static __forceinline__ B b_rows(const float* s, const float*,
-                                             int ld, int n0, int k0) {
-    const int lane = threadIdx.x % 32;
-    const float* p = s + (n0 + lane / 4) * ld + k0 + lane % 4;
-    B b;
-    split_tf32(p[0], b.h[0], b.l[0]);
-    split_tf32(p[4], b.h[1], b.l[1]);
-    return b;
-  }
-  __device__ static __forceinline__ B b_cols(const float* s, const float*,
-                                             int ld, int k0, int n0) {
-    const int lane = threadIdx.x % 32;
-    const float* p = s + (k0 + 2 * (lane % 4)) * ld + n0 + lane / 4;
-    B b;
-    split_tf32(p[0], b.h[0], b.l[0]);
-    split_tf32(p[ld], b.h[1], b.l[1]);
-    return b;
-  }
-};
-
-// bf16 on m16n8k16; `small` and the lo planes are not used.
-template <bool PLANES>
-struct Mma<bf16, PLANES> {
+struct Mma<bf16> {
   static constexpr int KS = 16;
   static constexpr int PAD = 8;
-  static constexpr bool SPLIT = false;
   struct A { unsigned h[4]; };
   struct B { unsigned h[2]; };
 
@@ -240,14 +213,14 @@ struct Mma<bf16, PLANES> {
     const bf16* p = s + (r0 + lane / 4) * ld + k0 + 2 * (lane % 4);
     return A{{lds32(p), lds32(p + 8 * ld), lds32(p + 8), lds32(p + 8 * ld + 8)}};
   }
-  __device__ static __forceinline__ B b_rows(const bf16* s, const bf16*,
-                                             int ld, int n0, int k0) {
+  __device__ static __forceinline__ B b_rows(const bf16* s, int ld, int n0,
+                                             int k0) {
     const int lane = threadIdx.x % 32;
     const bf16* p = s + (n0 + lane / 4) * ld + k0 + 2 * (lane % 4);
     return B{{lds32(p), lds32(p + 8)}};
   }
-  __device__ static __forceinline__ B b_cols(const bf16* s, const bf16*,
-                                             int ld, int k0, int n0) {
+  __device__ static __forceinline__ B b_cols(const bf16* s, int ld, int k0,
+                                             int n0) {
     const int lane = threadIdx.x % 32;
     const bf16* p = s + (k0 + 2 * (lane % 4)) * ld + n0 + lane / 4;
     return B{{pack2(p[0], p[ld]), pack2(p[8 * ld], p[9 * ld])}};
@@ -263,39 +236,24 @@ struct Mma<bf16, PLANES> {
   }
 };
 
-// Where the fp32 stage is split once into planes (else split as read):
-// by measurement, at (64, 64) only (PERF.md: the planes double the bytes
-// each fragment read takes, and their lo plane costs (192, 128) its 16-row
-// stages).
-template <typename T>
-constexpr bool planes(int hdk) {
-  return hdk == 64;
-}
-
 // Shared-memory layout for element T and head dims (HDK, HDV): ROWS
 // resident rows of two operands, then NBUF landed stages of STAGE rows of
-// the two streamed ones (q and do, or K and V; with planes each the hi
-// plane once split, and one lo plane beside), and each stage's lse2 and D
-// (the dK/dV pass).  STAGE is 16 (8 where planes at (192, 128) would not
-// fit two blocks an SM otherwise); NBUF 2 where two blocks still fit an
-// SM, else 1.
+// the two streamed ones (q and do, or K and V), and each stage's lse2 and
+// D (the dK/dV pass).  NBUF 2 where two blocks still fit an SM, else 1.
 template <typename T, int HDK, int HDV>
 struct Tiles {
-  static constexpr bool PLANES = planes<T>(HDK);
-  using M = Mma<T, PLANES>;
-  static constexpr int STAGE =
-      M::SPLIT && HDK == 192 ? 8 : 16;        // streamed rows a stage
+  using M = Mma<T>;
+  static constexpr int STAGE = 16;                        // streamed rows
   static constexpr int LDK = HDK + M::PAD, LDV = HDV + M::PAD;
   static constexpr int RES = ROWS * (LDK + LDV);          // elements
   static constexpr int STAGE_ELEMS = STAGE * (LDK + LDV);
-  static constexpr int LO_ELEMS = M::SPLIT ? STAGE_ELEMS : 0;
   static constexpr int STAT_FLOATS = 2 * STAGE;           // lse2, D
   static constexpr int ELT = static_cast<int>(sizeof(T));
   static constexpr int NBUF =
-      (RES + 2 * STAGE_ELEMS + LO_ELEMS) * ELT + 2 * STAT_FLOATS * 4 <=
-              TWO_BLOCKS ? 2 : 1;
+      (RES + 2 * STAGE_ELEMS) * ELT + 2 * STAT_FLOATS * 4 <= TWO_BLOCKS ? 2
+                                                                        : 1;
   static constexpr int BYTES =
-      (RES + NBUF * STAGE_ELEMS + LO_ELEMS) * ELT + NBUF * STAT_FLOATS * 4;
+      (RES + NBUF * STAGE_ELEMS) * ELT + NBUF * STAT_FLOATS * 4;
   static_assert(LDK * sizeof(T) % 16 == 0 && LDV * sizeof(T) % 16 == 0,
                 "rows start on 16 bytes");
   static_assert(BYTES <= TWO_BLOCKS, "two blocks an SM");
@@ -316,22 +274,14 @@ __device__ __forceinline__ void load_rows(T* dst, RowPtr src, const T* any) {
   }
 }
 
-// A landed fp32 stage split once by the block: hi in place, lo beside
-// (nothing to do in bf16).
-template <typename M, typename T, int N>
-__device__ __forceinline__ void split_stage(T* buf, T* lo) {
-  if constexpr (M::SPLIT)
-    split_in_place(buf, lo, N / 4, threadIdx.x, THREADS);
-}
-
 // acc (16 x N, N / 8 tiles) += X Y: X the 16 x ST accumulator x (fp32,
-// repacked as A fragments), Y ST rows of N columns of a landed stage (hi,
-// lo; rows LD apart).  Each 8-column block sums the stage in fresh
+// repacked as A fragments), Y ST rows of N columns of a landed stage
+// (rows LD apart).  Each 8-column block sums the stage in fresh
 // registers and adds them to acc in fp32.
 template <typename M, typename T, int N, int LD, int ST>
 __device__ __forceinline__ void add_product(float (&acc)[N / 8][4],
                                             const float (&x)[ST / 8][4],
-                                            const T* y_hi, const T* y_lo) {
+                                            const T* y) {
   constexpr int KSTEPS = ST / M::KS;
   typename M::A xa[KSTEPS];
 #pragma unroll
@@ -342,19 +292,19 @@ __device__ __forceinline__ void add_product(float (&acc)[N / 8][4],
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
       M::mma(big, small, xa[kk],
-             M::b_cols(y_hi, y_lo, LD, kk * M::KS, nf * 8));
+             M::b_cols(y, LD, kk * M::KS, nf * 8));
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nf][e] += big[e] + small[e];
   }
 }
 
 // x (16 x ST) = X Y^T over D: X 16 resident rows at x_s from row x0, Y ST
-// rows of a landed stage (hi, lo), all LD apart; large and small terms
+// rows of a landed stage, all LD apart; large and small terms
 // apart (xs), summed into x at the end.
 template <typename M, typename T, int D, int LD, int ST>
 __device__ __forceinline__ void product_t(float (&x)[ST / 8][4],
                                           const T* x_s, int x0,
-                                          const T* y_hi, const T* y_lo) {
+                                          const T* y) {
   float xs[ST / 8][4];
 #pragma unroll
   for (int j = 0; j < ST / 8; ++j)
@@ -365,7 +315,7 @@ __device__ __forceinline__ void product_t(float (&x)[ST / 8][4],
     const typename M::A a = M::a_rows(x_s, LD, x0, kd * M::KS);
 #pragma unroll
     for (int j = 0; j < ST / 8; ++j)
-      M::mma(x[j], xs[j], a, M::b_rows(y_hi, y_lo, LD, j * 8, kd * M::KS));
+      M::mma(x[j], xs[j], a, M::b_rows(y, LD, j * 8, kd * M::KS));
   }
 #pragma unroll
   for (int j = 0; j < ST / 8; ++j)
@@ -443,8 +393,7 @@ bwd_dkdv_mma_kernel(const Args a) {
   T* k_s = reinterpret_cast<T*>(smem_raw);
   T* v_s = k_s + ROWS * LDK;
   T* ring = v_s + ROWS * LDV;                  // stage st: q, then do
-  T* lo = ring + NBUF * C::STAGE_ELEMS;        // the stage's lo planes
-  float* stats = reinterpret_cast<float*>(lo + C::LO_ELEMS);
+  float* stats = reinterpret_cast<float*>(ring + NBUF * C::STAGE_ELEMS);
   const auto* qg = static_cast<const T*>(a.q);
   const auto* kg = static_cast<const T*>(a.k);
   const auto* vg = static_cast<const T*>(a.v);
@@ -520,22 +469,18 @@ bwd_dkdv_mma_kernel(const Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    T* q_s = ring + buf * C::STAGE_ELEMS;
-    split_stage<M, T, C::STAGE_ELEMS>(q_s, lo);
-    __syncthreads();
+    const T* q_s = ring + buf * C::STAGE_ELEMS;
     const int q0 = (qt0 + it) * ST;
     // A warp past S, or a causal stage wholly before its first key, adds
     // nothing.
     if (kw0 < a.S && (!CAUSAL || q0 + ST - 1 >= kw0)) {
       const T* do_s = q_s + ST * LDK;
-      const T* q_lo = lo;
-      const T* do_lo = lo + ST * LDK;
       const float* lse2 = stats + buf * C::STAT_FLOATS;
       const float* dl = lse2 + ST;
       // S^T = K q^T and dP^T = V do^T: value e of tile j at key
       // kw0 + gid + 8 (e / 2), query q0 + 8 j + 2 tq + e % 2.
       float s[ST / 8][4], dp[ST / 8][4];
-      product_t<M, T, HDK, LDK, ST>(s, k_s, 16 * warp, q_s, q_lo);
+      product_t<M, T, HDK, LDK, ST>(s, k_s, 16 * warp, q_s);
       const bool diag = CAUSAL && q0 < kw0 + 15;
 #pragma unroll
       for (int j = 0; j < ST / 8; ++j)
@@ -546,16 +491,16 @@ bwd_dkdv_mma_kernel(const Args a) {
           if (diag && kw0 + gid + 8 * (e >> 1) > q0 + qi) p = 0.f;
           s[j][e] = p;
         }
-      product_t<M, T, HDV, LDV, ST>(dp, v_s, 16 * warp, do_s, do_lo);
+      product_t<M, T, HDV, LDV, ST>(dp, v_s, 16 * warp, do_s);
 #pragma unroll
       for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           dp[j][e] = s[j][e] * (dp[j][e] - dl[8 * j + 2 * tq + (e & 1)]);
-      add_product<M, T, HDV, LDV, ST>(dv, s, do_s, do_lo);    // dv += P^T do
-      add_product<M, T, HDK, LDK, ST>(dk, dp, q_s, q_lo);     // dk += dS^T q
+      add_product<M, T, HDV, LDV, ST>(dv, s, do_s);    // dv += P^T do
+      add_product<M, T, HDK, LDK, ST>(dk, dp, q_s);     // dk += dS^T q
     }
-    __syncthreads();                 // the stage and lo are free
+    __syncthreads();                 // the stage is free
     if (NBUF == 1 && it + 1 < iters) {
       load_stage(0, it + 1);
       cp_async_commit();
@@ -624,7 +569,6 @@ bwd_dq_mma_kernel(const Args a) {
   T* q_s = reinterpret_cast<T*>(smem_raw);
   T* do_s = q_s + ROWS * LDK;
   T* ring = do_s + ROWS * LDV;                 // stage st: K, then V
-  T* lo = ring + NBUF * C::STAGE_ELEMS;
   const auto* qg = static_cast<const T*>(a.q);
   const auto* kg = static_cast<const T*>(a.k);
   const auto* vg = static_cast<const T*>(a.v);
@@ -694,20 +638,16 @@ bwd_dq_mma_kernel(const Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    T* k_s = ring + buf * C::STAGE_ELEMS;
-    split_stage<M, T, C::STAGE_ELEMS>(k_s, lo);
-    __syncthreads();
+    const T* k_s = ring + buf * C::STAGE_ELEMS;
     const int key0 = t * ST;
     // A warp past S, or a causal stage wholly after its last query, adds
     // nothing.
     if (qw0 < a.S && (!CAUSAL || key0 <= qw0 + 15)) {
       const T* v_s = k_s + ST * LDK;
-      const T* k_lo = lo;
-      const T* v_lo = lo + ST * LDK;
       // S = q K^T and dP = do V^T: value e of tile j at query
       // row_r + 8 (e / 2), key key0 + 8 j + 2 tq + e % 2.
       float s[ST / 8][4], dp[ST / 8][4];
-      product_t<M, T, HDK, LDK, ST>(s, q_s, 16 * warp, k_s, k_lo);
+      product_t<M, T, HDK, LDK, ST>(s, q_s, 16 * warp, k_s);
       const bool mask = key0 + ST > a.S ||
                         (CAUSAL && key0 + ST - 1 > qw0);
 #pragma unroll
@@ -721,15 +661,15 @@ bwd_dq_mma_kernel(const Args a) {
             p = 0.f;
           s[j][e] = p;
         }
-      product_t<M, T, HDV, LDV, ST>(dp, do_s, 16 * warp, v_s, v_lo);
+      product_t<M, T, HDV, LDV, ST>(dp, do_s, 16 * warp, v_s);
 #pragma unroll
       for (int j = 0; j < ST / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]);
-      add_product<M, T, HDK, LDK, ST>(dq, dp, k_s, k_lo);    // dq += dS K
+      add_product<M, T, HDK, LDK, ST>(dq, dp, k_s);    // dq += dS K
     }
-    __syncthreads();                 // the stage and lo are free
+    __syncthreads();                 // the stage is free
     if (NBUF == 1 && t + 1 < n_t) {
       load_stage(0, t + 1);
       cp_async_commit();

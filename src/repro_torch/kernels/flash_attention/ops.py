@@ -73,8 +73,8 @@ column 80; at (192, 128) the dQ pass reads back the bf16 dS tiles the
 first pass stored in a workspace the wrapper allocates, 2.2 GB at
 DeepSeek-V3's train cell); ``mma_f32``, fp32 at every pair, and
 ``mma_bf16``, bf16 at (16, 16) (``csrc/flash_attention_bwd_mma.cu``,
-``mma.sync``, fp32 in 3xTF32 as ``prefill_f32``, the streamed stage
-split once into TF32 planes at (64, 64); its dK/dV pass takes one query
+``mma.sync``, fp32 in 3xTF32 as ``prefill_f32``, each fragment split
+as it is read; its dK/dV pass takes one query
 head a block, and a group-sum kernel adds the heads' fp32 partials, a
 workspace the wrapper allocates, :func:`bwd_partials_floats`).  So the
 backward takes every (dtype, pair) of ``BWD_HEAD_DIMS``, which equals

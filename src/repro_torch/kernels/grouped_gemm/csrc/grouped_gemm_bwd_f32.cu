@@ -25,8 +25,9 @@
 // 1408; 8192 tokens at top-8, 65,536 routed rows) the products, 3 x 2 x
 // 65536 x 4096 x 1408 flops a product in 3xTF32, 4.6 ms each at the data
 // sheet's 495 TFLOP/s TF32; at the reduced configurations' widths (D 64,
-// F 32) the call itself: a launch's host work, which takes longer than
-// the kernels (a few microseconds).
+// F 32) latency: the kernels take 8-22 us of device time (CUDA-graph
+// replays, PERF.md) for under a microsecond of products, and a call's host
+// work takes longer again.
 //
 // Arithmetic: 3xTF32 (tf32_planes.cuh): a b = a_lo b_hi + a_hi b_lo +
 // a_hi b_hi, each product about 2^-20 of its size.  The tensor core
@@ -73,7 +74,11 @@
 //
 // Not yet: the SwiGLU backward takes 1.3x the dgrad's time a stage at
 // GLM-4.5-Air's full width, not for its transposed B (w1 and w3 read into
-// registers and x split instead measured the same: PERF.md); TMA stores.
+// registers and x split instead measured the same: PERF.md); TMA stores;
+// the public call's zero pass reads the slots' counts one after another
+// (9 us of device time at the reduced widths; reading them into shared
+// memory in parallel first measured 12-21% slower at full width, the
+// products' code no longer the same: PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -58,8 +58,8 @@ each with a plain version and a launch count (by dtype in
 in fp32 those of ``csrc/grouped_gemm_bwd_f32.cu`` (3xTF32 on TF32
 ``wgmma``, one operand split once into TF32 planes, the other split in
 registers; warp specialised, a persistent grid over the 128-row tiles
-that hold rows: :func:`bwd_f32_items` gives each mode's work items; the
-wgrad in row chunks where its output tiles are fewer than the SMs,
+that hold rows; the wgrad in row chunks where its output tiles are fewer
+than the SMs,
 :func:`wgrad_f32_chunk`; the trainer's default dtype; G at most 512):
 
 * ``grouped_swiglu_bwd(x, w1, w3, dact, rows, zero_padded=True)`` ->
@@ -118,7 +118,7 @@ __all__ = ["grouped_swiglu", "grouped_matmul", "grouped_swiglu_ref",
            "grouped_swiglu_bwd", "grouped_swiglu_bwd_ref",
            "grouped_matmul_nt", "grouped_matmul_nt_ref", "grouped_wgrad",
            "grouped_wgrad_ref", "swiglu_bwd_tiles", "matmul_nt_tiles",
-           "wgrad_tiles", "bwd_f32_items", "wgrad_f32_chunk", "LIBRARY",
+           "wgrad_tiles", "wgrad_f32_chunk", "LIBRARY",
            "LIBRARY_Q8", "LIBRARY_BWD_F32"]
 
 LIBRARY = KernelLibrary("grouped_gemm",
@@ -519,25 +519,19 @@ def grouped_wgrad_ref(x: torch.Tensor, d: torch.Tensor,
 def _bwd_operands(name: str, *ts: torch.Tensor) -> None:
     """The backward kernels' contract: bf16 or fp32, one dtype, on one
     card, 3-D, a unit-stride last dim, TMA-readable, widths that are
-    multiples of 8.  (Few tensor attributes read: at the reduced widths
-    these checks are a good part of a call.)"""
+    multiples of 8."""
     dtype, dev = ts[0].dtype, ts[0].get_device()
-    if dtype is not torch.bfloat16 and dtype is not torch.float32:
-        raise ValueError(f"{name}: the backward kernels take bf16 or "
-                         f"fp32 operands of one dtype, not {dtype}")
-    m = 16 // ts[0].element_size()      # elements in 16 bytes
     for t in ts:
-        if t.dtype is not dtype:
+        if t.dtype not in (torch.bfloat16, torch.float32) or \
+                t.dtype != dtype:
             raise ValueError(f"{name}: the backward kernels take bf16 or "
                              f"fp32 operands of one dtype, not {t.dtype}")
-        st = t.stride()
-        if t.get_device() != dev or len(st) != 3:
+        if t.get_device() != dev or t.dim() != 3:
             raise ValueError(f"{name}: expected 3-D operands on one device")
-        if t.shape[2] % 8 or st[2] != 1 or st[0] <= 0 or st[1] <= 0 or \
-                st[0] % m or st[1] % m or t.data_ptr() % 16:
+        if t.shape[2] % 8 or t.stride(2) != 1 or not _tma_ready(t):
             raise ValueError(f"{name}: operands need a unit-stride last dim "
                              f"that is a multiple of 8 and 16-byte aligned "
-                             f"rows, not {tuple(t.shape)} / {st}")
+                             f"rows, not {tuple(t.shape)} / {t.stride()}")
 
 
 def _bwd_check(err: int, name: str) -> None:
@@ -694,8 +688,7 @@ def _f32_launch(mode, a, a2, b, b2, dact, out, out2, rows, *,
     """One launch of ``csrc/grouped_gemm_bwd_f32.cu`` (mode 0 dgrad, 1
     SwiGLU backward, 2 wgrad, with its chunk sum where ``chunk``: the
     partial sums go to ``ws`` after the output's G slots) on the current
-    stream; its error code.  Few tensor attributes are read: at the
-    reduced widths the call's host work takes longer than its kernels."""
+    stream; its error code."""
     G, M, K = a.shape
     N = out.shape[2]
     sa, sb = a.stride(), b.stride()
@@ -704,7 +697,7 @@ def _f32_launch(mode, a, a2, b, b2, dact, out, out2, rows, *,
         out.data_ptr(), _ptr(out2),
         None if ws is None else ws.data_ptr() + G * K * N * 4, _ptr(rows),
         G, M, K, N, sa[0], sa[1], sb[0], sb[1], int(zero_padded), chunk,
-        torch._C._cuda_getCurrentRawStream(a.get_device()))
+        torch.cuda.current_stream(a.device).cuda_stream)
 
 
 @functools.lru_cache(maxsize=None)
@@ -726,41 +719,6 @@ def wgrad_f32_chunk(G: int, M: int, K: int, N: int, sms: int) -> int:
         return 0
     per = -(-2 * sms // tiles)
     return max(32, -(-M // (32 * per)) * 32)
-
-
-def bwd_f32_items(mode: int, rows: torch.Tensor, M: int, K: int, N: int,
-                  chunk: int = 0, second: bool = False) -> torch.Tensor:
-    """The fp32 backward kernel's work items in its order (block b takes
-    items b, b + grid, ...), each with its contraction, as (W, 5) int64
-    rows.  Modes 0 (dgrad) and 1 (SwiGLU backward): (slot, first row,
-    first column, first contracted index, its end) over the 128-row tiles
-    that hold rows, ``ceil(min(rows[g], M) / 128)`` a slot, times the
-    128-column (mode 0) or 64-column (mode 1, h and g) tiles, slot-major,
-    then the column tile, then the row tile fastest; the contraction is
-    K (2 K with ``second``).  Mode 2 (wgrad): (slot, first row of K, first
-    column, first contracted row, its end): every (slot, 128 x 128 tile) of
-    the output, or with ``chunk`` each slot's valid rows in chunks of that
-    many rows (none for an empty slot), slot-major, then the chunk, then
-    the tile, the column tiles fastest.  The kernel builds the same list
-    from ``rows`` on the card; this mirror reads them on the host."""
-    cnt = rows.to(torch.int64).clamp(0, M).tolist()
-    items = []
-    if mode == 2:
-        kt, nt = -(-K // 128), -(-N // 128)
-        for g, c in enumerate(cnt):
-            spans = ([(r, min(r + chunk, c)) for r in range(0, c, chunk)]
-                     if chunk else [(0, c)])
-            for r0, r1 in spans:
-                items += [(g, i * 128, j * 128, r0, r1)
-                          for i in range(kt) for j in range(nt)]
-    else:
-        cols = 128 if mode == 0 else 64
-        depth = 2 * K if mode == 0 and second else K
-        for g, c in enumerate(cnt):
-            mt = -(-c // 128)
-            items += [(g, r * 128, j * cols, 0, depth)
-                      for j in range(-(-N // cols)) for r in range(mt)]
-    return torch.tensor(items, dtype=torch.int64).reshape(-1, 5)
 
 
 def _row_tile_items(rows: torch.Tensor, M: int, N: int,

@@ -287,20 +287,22 @@ def _bwd_mma_cases():
 
 def _mma_entry(root: Path | None):
     """The C entry point of ROOT's ``flash_attention_bwd_mma.cu`` (None:
-    this checkout's), argument types set."""
+    this checkout's), argument types set, and whether it takes the dK/dV
+    pass's per-head partials workspace (a source with the group-sum
+    kernel; older ones take none)."""
     from repro_torch.kernels.build import KernelLibrary
     from repro_torch.kernels.flash_attention import ops
 
     if root is None:
-        return ops._bwd_mma_launcher()
+        return ops._bwd_mma_launcher(), True
     kdir = root / "src" / "repro_torch" / "kernels"
-    lib = KernelLibrary("flash_attention_bwd_mma_parent", kdir /
-                        "flash_attention" / "csrc" /
-                        "flash_attention_bwd_mma.cu", include=kdir / "csrc")
+    src = kdir / "flash_attention" / "csrc" / "flash_attention_bwd_mma.cu"
+    lib = KernelLibrary("flash_attention_bwd_mma_parent", src,
+                        include=kdir / "csrc")
     fn = lib.load().flash_attention_bwd_mma_launch
     fn.restype = ops._bwd_mma_launcher().restype
     fn.argtypes = ops._bwd_mma_launcher().argtypes
-    return fn
+    return fn, "bwd_group_sum_kernel" in src.read_text()
 
 
 def bench_bwd_mma(iters: int, check: bool, parent: Path | None,
@@ -317,6 +319,8 @@ def bench_bwd_mma(iters: int, check: bool, parent: Path | None,
     libs = {"change": _mma_entry(None)}
     if parent is not None:
         libs = {"parent": _mma_entry(parent), **libs}
+    takes_part = {who: e[1] for who, e in libs.items()}
+    libs = {who: e[0] for who, e in libs.items()}
     for tag, B, S, H, Hkv, hd, hv, causal, dtype in _bwd_mma_cases():
         g = torch.Generator(device="cuda").manual_seed(19)
         q = torch.randn((B, S, H, hd), generator=g, device="cuda").to(dtype)
@@ -328,8 +332,9 @@ def bench_bwd_mma(iters: int, check: bool, parent: Path | None,
         o = ops._launch(q, k, v, causal, 0, None, None, sms=1, lse=lse)[0]
         opnds = {who: ops._bwd_operands(q, k, v, o, dout, lse, causal)
                  for who in libs}
-        if "parent" in opnds:    # the parent's entry takes no workspace
-            opnds["parent"] = (*opnds["parent"][:10], None)
+        for who in opnds:
+            if not takes_part[who]:
+                opnds[who] = (*opnds[who][:10], None)
         scale = hd ** -0.5
 
         def call(who):

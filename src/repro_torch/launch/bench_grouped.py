@@ -35,7 +35,9 @@ epilogues, stores of zero tiles), ``per_tile`` the main loop.
 counts (``glm_train``) and at the reduced GLM-4.5-Air's path (``glm_reduced``:
 ``train()``'s defaults, 8 x 128 tokens), B1f and B2f as the public call
 and the train step's call, each beside fp32 ``torch.bmm`` over the padded
-buffers (TF32 off); with ``--parent`` ROOT's ``grouped_gemm_bwd_f32.cu``
+buffers (TF32 off), and where a call takes under a millisecond each
+one's device time alone from CUDA-graph replays (``graph_ms``,
+``bmm_graph_ms``); with ``--parent`` ROOT's ``grouped_gemm_bwd_f32.cu``
 is built and timed in turns on the same inputs, and ``--check`` asserts
 that each library gives the same bits on two calls, is within 1e-4 of
 each output's max|ref| against the plain version (the two sum in other
@@ -170,6 +172,7 @@ class F32Entries:
     def __init__(self, lib: ctypes.CDLL, legacy: bool):
         self.fn = lib.grouped_bwd_f32_launch
         self.legacy = legacy
+        self.ws = {}                    # the wgrad's workspace by shape
         self.fn.restype = _I
         self.fn.argtypes = ([_I] + [_P] * (8 if legacy else 9) + [_I] * 4
                             + [_L] * 4 + ([] if legacy else [_I] * 2) + [_P])
@@ -188,8 +191,13 @@ class F32Entries:
         else:
             sms = ops._sm_count(a.get_device())
             chunk = ops.wgrad_f32_chunk(G, M, K, N, sms) if mode == 2 else 0
-            ws = (torch.empty(G * (1 + -(-M // chunk)) * K * N,
-                              device=a.device) if chunk else None)
+            # Made once a shape, as the outputs are: the timed calls
+            # allocate nothing.
+            key = (G, M, K, N, chunk)
+            if chunk and key not in self.ws:
+                self.ws[key] = torch.empty(G * (1 + -(-M // chunk)) * K * N,
+                                           device=a.device)
+            ws = self.ws.get(key)
             # The partial sums go after G output slots, as the wrapper's.
             wsp = None if ws is None else ws.data_ptr() + G * K * N * 4
             err = self.fn(mode, *ptrs, wsp, rows.data_ptr(), G, M, K, N,
@@ -210,6 +218,35 @@ def _event_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int, reps: int = 5) -> float | None:
+    """Device time of one call of ``fn`` from replays of a CUDA graph of
+    ``iters`` calls (no host work in the time), or None where the capture
+    fails."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                fn()
+    except RuntimeError:
+        return None
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
 
 
 def _bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -563,6 +600,13 @@ def bench_backward_f32(libs: dict, shape_name: str, iters: int,
         rec["bound_ms_tf32x3"] = 3 * flops / H100.peak("tf32") * 1e3
         if bmm is not None:
             rec["bmm_ms"] = _event_ms(bmm, iters)
+        # Device time alone (a graph's replays), where calls are short
+        # enough that the host's launch work may set the eager time.
+        if rec["median_ms"]["change"] < 1.0:
+            rec["graph_ms"] = {who: _graph_ms(lambda: call(e, who), iters)
+                               for who, e in libs.items()}
+            if bmm is not None:
+                rec["bmm_graph_ms"] = _graph_ms(bmm, iters)
         _emit(rec)
     del x, w1, w3, dact, x0, dact0, dh, dg, dhn, dgn
     torch.cuda.empty_cache()
