@@ -292,6 +292,7 @@ checkout of the repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -4022,6 +4023,189 @@ def _bias_after(cfg, counts):
     return torch.where((counts.sum(dim=1) > 0)[:, None], upd, bias)
 
 
+# On the sharded layout a model axis of T > 1 splits wo's and w2's
+# products over ranks, and their bf16 partial sums (reduced in bf16, as the
+# reference reduces them) round otherwise than one rank's product, so a
+# token whose k-th and (k + 1)-th router scores nearly tie may route apart
+# from the R = 1 run.  Each token apart must be a near tie of the R = 1
+# gate: its relative top-k gap (``_topk_gap``) among the lowest
+# NEAR_TIE_SHARE of the R = 1 gaps of the same tokens.  The same test must
+# fail a planted fault: PLANTED_TOKENS tokens that route alike, each given
+# one other expert.  The share is set from two readings (PERF.md §6):
+# the shares of the tokens a sound run routes apart on an H100, and a
+# planted token's, which falls anywhere among the R = 1 gaps, so a fault
+# of PLANTED_TOKENS tokens passes with probability 0.25^8 (1.5e-5).
+# Where the counts differ, the router bias after the step is held to the
+# update of the run's own counts.
+NEAR_TIE_SHARE = 0.25
+PLANTED_TOKENS = 8
+
+
+class _GateInputs:
+    """Records each MoE call's router input (this rank's tokens), its
+    gating config, router and bias while installed."""
+
+    def __enter__(self):
+        from repro_torch.moe.layer import MoEParams
+
+        self.calls, self.drops, self._orig = [], [], MoEParams.forward
+        orig = self._orig
+
+        def forward(mp, x, cfg, **kw):
+            y, aux, st = orig(mp, x, cfg, **kw)
+            self.calls.append((x.detach(), cfg.gating, mp.router.detach(),
+                               kw.get("router_bias")))
+            self.drops.append(int(st.drops_dispatch + st.drops_slot))
+            return y, aux, st
+
+        MoEParams.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.moe.layer import MoEParams
+
+        MoEParams.forward = self._orig
+
+
+def _gate_all(call, pctx, rows: int):
+    """The R = 1 gate on every rank's router inputs of one recorded call
+    (``rows`` rows of the sequence on this rank), gathered over the model
+    axis (the sequence) and the data axis (the rows) in the global batch's
+    row-major token order."""
+    from repro_torch.moe.gating import gate
+    from repro_torch.parallel import collectives
+
+    x, gcfg, router, bias = call
+    x = x.reshape(rows, -1, x.shape[-1])
+    if pctx.group is not None:
+        x = collectives.all_gather(pctx.group, x.contiguous()) \
+            .transpose(0, 1).flatten(1, 2)
+    if pctx.data is not None:
+        x = collectives.all_gather(pctx.data, x.contiguous()).flatten(0, 1)
+    return gate(x.flatten(0, 1), router, gcfg, bias=bias)
+
+
+def _topk_gap(scores, call):
+    """Each token's gap between its k-th and (k + 1)-th selection score
+    (the scores plus the router bias), relative to the k-th: how near its
+    routing is to a tie."""
+    import torch
+
+    _x, gcfg, _router, bias = call
+    sel = scores.float() + (bias.float() if gcfg.use_bias and bias
+                            is not None else 0.0)
+    top = torch.topk(sel, gcfg.top_k + 1, dim=-1).values
+    kth = top[:, -2]
+    return ((kth - top[:, -1]) / kth.abs().clamp(min=1e-30)).cpu()
+
+
+def _sorted_ids(gates) -> "torch.Tensor":
+    """Each token's experts, sorted, of the gates of every MoE layer
+    (layer-major, then the global token order), on the host."""
+    import torch
+
+    return torch.cat([g.expert_ids.sort(-1)[0].cpu() for g in gates])
+
+
+def _r1_routing(calls, layers: int) -> dict:
+    """The R = 1 run's routing, token by token, from its recorded calls
+    (one a layer a microbatch of one row, in row order): each call gated
+    again, its sorted ids and top-k gaps, layer-major, then the global
+    token order."""
+    import torch
+
+    from repro_torch.models.transformer import ParallelCtx
+
+    if not layers:
+        return {"ids": None, "gap": None}
+    by_layer = [calls[i::layers] for i in range(layers)]
+    gates = [[(_gate_all(c, ParallelCtx(), 1), c) for c in cs]
+             for cs in by_layer]
+    return {"ids": _sorted_ids([g for gs in gates for g, _ in gs]),
+            "gap": torch.cat([_topk_gap(g.scores, c) for gs in gates
+                              for g, c in gs])}
+
+
+def _routing_check(ids, ref_ids, ref_gap, num_experts: int) -> dict:
+    """Each token's sorted experts (one row a token) against the R = 1
+    run's: the tokens routed apart, each one's R = 1 top-k gap as the share
+    of R = 1 gaps below it, and whether every one is a near tie (share at
+    most NEAR_TIE_SHARE); then the same test on a planted fault, which
+    must fail (``ok`` needs both)."""
+    import torch
+
+    order = ref_gap.sort().values
+
+    def shares(t):
+        return torch.searchsorted(order, ref_gap[t]).double() / len(order)
+
+    apart = (ids != ref_ids).any(-1)
+    sh = shares(apart).sort().values
+    out = {"tokens": len(ids), "tokens_apart": int(apart.sum()),
+           "near_tie_share": NEAR_TIE_SHARE,
+           "near_tie_gap": float(order[int(NEAR_TIE_SHARE
+                                           * (len(order) - 1))]),
+           "apart_gap_shares": [round(float(x), 5) for x in sh],
+           "apart_gap_max": float(ref_gap[apart].max()) if apart.any()
+           else 0.0,
+           "near_ties": bool((sh <= NEAR_TIE_SHARE).all())}
+    alike = (~apart).nonzero().flatten()
+    pick = alike[torch.randperm(len(alike), generator=torch.Generator()
+                                .manual_seed(0))[:PLANTED_TOKENS]]
+    planted = ids.clone()
+    for t in pick.tolist():
+        row = set(planted[t].tolist())
+        planted[t, 0] = next(e for e in range(num_experts) if e not in row)
+    planted = planted.sort(-1).values
+    psh = shares((planted != ref_ids).any(-1))
+    out["planted"] = {
+        "tokens": len(pick),
+        "gap_shares": sorted(round(float(x), 5) for x in shares(pick)),
+        "caught": not bool((psh <= NEAR_TIE_SHARE).all())}
+    out["ok"] = out["near_ties"] and out["planted"]["caught"]
+    return out
+
+
+def _counts_check(counts, ref, calls, pctx, rows: int) -> dict:
+    """Counts against the R = 1 step's (``ref``): equal where the model
+    axis is 1 (or on the EP layout).  Else two checks: the run's counts
+    are the R = 1 gate's on the run's own router inputs (every rank's,
+    gathered; this checks how the counts are summed over ranks, not the
+    routing), and each token those inputs route apart from the R = 1
+    step is a near tie of the R = 1 gate (``_routing_check``)."""
+    import torch
+
+    diff = int((counts.cpu() - ref["counts"]).abs().sum())
+    out = {"counts_diff": diff, "counts_equal": diff == 0}
+    if pctx.ep_size == 1 or not pctx.shard_dense or not calls:
+        out["counts_ok"] = diff == 0
+        return out
+    moe = counts.sum(dim=1) > 0
+    gates = [_gate_all(c, pctx, rows) for c in calls]
+    out["counts_summed_as_gated"] = bool(torch.equal(
+        counts[moe].cpu(), torch.stack([g.counts for g in gates]).cpu()))
+    out["routing"] = _routing_check(_sorted_ids(gates), ref["ids"],
+                                    ref["gap"], calls[0][1].num_experts)
+    out["counts_ok"] = out["counts_summed_as_gated"] \
+        and out["routing"]["ok"]
+    return out
+
+
+def _bias_check(bias, ref_bias, cfg, counts, counts_equal: bool) -> dict:
+    """The router bias after one step: the R = 1 step's where the counts
+    equal R = 1's; else (tokens routed apart at near ties,
+    ``_counts_check``) the update of the run's own counts, with the
+    entries apart from R = 1's counted."""
+    import torch
+
+    out = {"equal_r1": torch.equal(bias.cpu(), ref_bias),
+           "entries_apart_r1": int((bias.cpu() != ref_bias).sum()),
+           "equal_own_update": torch.equal(bias, _bias_after(cfg, counts))}
+    out["ok"] = out["equal_r1"] if counts_equal \
+        else out["equal_own_update"]
+    return out
+
+
 def _group_case(rank, name, mesh, glm, ref_path):
     """One case of phase 16 on one rank: the global gradient against the
     R = 1 step's (``ref_path``), then one train step with the kernel counts
@@ -4038,22 +4222,21 @@ def _group_case(rank, name, mesh, glm, ref_path):
                                         make_train_step)
 
     cfg, rcfg = _group_cfgs(glm, GROUP_CHECK_CF)
-    pctx = pctx_for_mesh(mesh)
+    pctx = pctx_for_mesh(mesh, shard_dense=True)
     torch.cuda.reset_peak_memory_stats()
     params = init_lm(cfg, rcfg, pctx, torch.Generator(device="cuda")
                      .manual_seed(TRAIN_GROUP["seed"]), device="cuda")
     params.requires_grad_(True)
     batch = _group_batch(cfg, GROUP_CASES[name][2])
-    loss, drops, counts, grads = global_grads(params, batch, cfg, rcfg, pctx)
+    with _GateInputs() as rec:
+        loss, drops, counts, grads = global_grads(params, batch, cfg, rcfg,
+                                                  pctx)
     ref = torch.load(ref_path, mmap=True)
+    rows = GROUP_CASES[name][2] // pctx.data_size
     errs = {}
     specs = sharding.lm_param_specs(params, pctx)
     for (pname, _), g, sp in zip(params.named_parameters(), grads, specs):
-        r = ref["grads"][pname]
-        if sp.expert and pctx.ep_size > 1:
-            n = g.shape[0]
-            r = r[pctx.ep_rank * n:(pctx.ep_rank + 1) * n]
-        r = r.to("cuda")
+        r = sharding.cut(ref["grads"][pname], sp.dims).to("cuda")
         if not torch.isfinite(g).all():
             raise AssertionError(f"group {name} rank {rank}: grad {pname} "
                                  f"is not finite")
@@ -4063,13 +4246,16 @@ def _group_case(rank, name, mesh, glm, ref_path):
     check = {"loss": float(loss), "loss_r1": float(ref["loss"]),
              "loss_rel_err": abs(float(loss) - float(ref["loss"]))
              / abs(float(ref["loss"])),
-             "counts_diff": int((counts.cpu() - ref["counts"]).abs().sum()),
+             **_counts_check(counts, ref, rec.calls, pctx, rows),
              "drops": int(drops), "drops_r1": int(ref["drops"]),
              "max_rel_err_by_param": errs, "worst": max(errs, key=errs.get)}
+    del rec
+    fails = []
     if any(not e <= TRAIN_TOL for e in errs.values()) or check["drops"] \
-            or check["counts_diff"] or not check["loss_rel_err"] <= TRAIN_TOL:
-        raise AssertionError(f"group {name} rank {rank}: against the R = 1 "
-                             f"step (tolerance {TRAIN_TOL}): {check}")
+            or not check["counts_ok"] \
+            or not check["loss_rel_err"] <= TRAIN_TOL:
+        fails.append(f"against the R = 1 step (tolerance {TRAIN_TOL}): "
+                     f"{check}")
     for p in params.parameters():
         p.grad = None
     del grads, ref
@@ -4086,13 +4272,16 @@ def _group_case(rank, name, mesh, glm, ref_path):
     torch.cuda.synchronize()
     launches, copies = _launches(), _padded_copies()
     ref = torch.load(ref_path, mmap=True)
-    bias_ok = torch.equal(state.router_bias.cpu(), ref["bias"])
+    bias = _bias_check(state.router_bias, ref["bias"], cfg, counts,
+                       check["counts_equal"])
     bad = {k: (launches[k], n) for k, n in GROUP_LAUNCHES[name].items()
            if launches[k] != n}
-    if bad or any(copies.values()) or not bias_ok:
-        raise AssertionError(f"group {name} rank {rank}: launches (seen, "
-                             f"want) {bad}, copies {copies}, router bias "
-                             f"equal {bias_ok}")
+    if bad or any(copies.values()) or not bias["ok"]:
+        fails.append(f"launches (seen, want) {bad}, copies {copies}, "
+                     f"router bias {bias}")
+    if fails:
+        raise AssertionError(f"group {name} rank {rank}: "
+                             + "; ".join(fails))
     moments = sum(t.numel() for t in state.opt_state.mu)
     out = {"data": pctx.data_size, "ep": pctx.ep_size,
            "global_batch": [GROUP_CASES[name][2], TRAIN_GROUP["seq"]],
@@ -4100,7 +4289,7 @@ def _group_case(rank, name, mesh, glm, ref_path):
            "moment_elems_a_rank": moments, "grad_check": check,
            "check_cf": GROUP_CHECK_CF, "step_cf": TRAIN_GROUP["cf"],
            "step_loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-           "step_drops": int(m["drops"]), "router_bias_equal": bias_ok,
+           "step_drops": int(m["drops"]), "router_bias": bias,
            "launches": {k: launches[k] for k in GROUP_LAUNCHES[name]},
            "peak_mem_gb_check": peak_check,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -4121,7 +4310,7 @@ def _supervised(rank, mesh, glm, out_dir):
     from repro_torch.launch.train import train
 
     cfg = dataclasses.replace(reduced(glm), head_dim=128)
-    pctx = pctx_for_mesh(mesh)
+    pctx = pctx_for_mesh(mesh, shard_dense=True)
     sv = SUPERVISED
 
     def inject(fn):
@@ -4185,11 +4374,12 @@ def _group_worker(rank, world, port, out_dir):
 
 def phase_train_group(glm) -> dict:
     """Phase 16: the trainer on groups of two processes on the one card
-    (spawn; one gloo group carrying CUDA tensors, as phase 9).  GLM-4.5-Air
+    (spawn; one gloo group carrying CUDA tensors, as phase 9), on the
+    reference's layout (``shard_dense``: tensor parallelism over the model
+    axis, FSDP over the data axis).  GLM-4.5-Air
     at every published width, depth cut to one layer (attention + MoE),
-    bf16 weights, fp32 AdamW moments sharded over each parameter's
-    replicas (``parallel/sharding.opt_state_specs``), ``ultraep``, blocked
-    loss in 8 chunks, the synthetic stream from seed 0; the aux loss off
+    bf16 weights, fp32 AdamW moments of each parameter's shard,
+    ``ultraep``, blocked loss in 8 chunks, the synthetic stream from seed 0; the aux loss off
     and the router bias on (``_group_cfgs``).  First the parent runs the
     R = 1 step on each global batch, a microbatch a row (so each row runs
     at a data rank's shapes), at GROUP_CHECK_CF, and keeps its loss,
@@ -4197,8 +4387,12 @@ def phase_train_group(glm) -> dict:
     ``mmap``).  Then, on each rank, (a) EP 2 x data 1, global batch 1 x
     4096, and (b) data 2 x EP 1, global batch 2 x 4096: at GROUP_CHECK_CF
     every gradient of the global loss within TRAIN_TOL of the R = 1
-    gradient's max|ref| (an expert's: the rank's rows), the loss within
-    TRAIN_TOL relative, the counts equal, zero drops; then one train step
+    gradient's max|ref| (a parameter's shard against the same slice of
+    the reference), the loss within
+    TRAIN_TOL relative, zero drops, the counts equal (where the model axis
+    is 2, ``_counts_check``: summed over ranks as the run's own router
+    inputs route, and each token routed apart from the R = 1 step a near
+    tie of its gate); then one train step
     at capacity factors TRAIN_GROUP["cf"] whose launches are
     GROUP_LAUNCHES with no operand copied for TMA, and whose router bias
     equals the R = 1 step's.  (d) the Supervisor
@@ -4231,15 +4425,19 @@ def phase_train_group(glm) -> dict:
         params.requires_grad_(True)
         for name, (_, _, rows) in GROUP_CASES.items():
             # A microbatch a row: each row runs at a data rank's shapes.
-            loss, drops, counts, grads = loss_and_grads(
-                params, _group_batch(cfg, rows), cfg, rcfg, ParallelCtx(),
-                TrainConfig(microbatches=rows))
+            with _GateInputs() as rec:
+                loss, drops, counts, grads = loss_and_grads(
+                    params, _group_batch(cfg, rows), cfg, rcfg,
+                    ParallelCtx(), TrainConfig(microbatches=rows))
             torch.save({"loss": float(loss), "drops": int(drops),
                         "counts": counts.cpu(),
+                        **_r1_routing(rec.calls,
+                                      int((counts.sum(dim=1) > 0).sum())),
                         "bias": _bias_after(cfg, counts).cpu(),
                         "grads": {n: g.cpu() for (n, _), g in
                                   zip(params.named_parameters(), grads)}},
                        Path(out_dir) / f"ref_{name}.pt")
+            del rec
             for p in params.parameters():
                 p.grad = None
             del grads
@@ -4275,6 +4473,478 @@ def phase_train_group(glm) -> dict:
                                             for r in ranks],
               "ranks_by_case": ranks}
     _line("phase16_train_group", result)
+    return result
+
+
+# Phase 20: the reference's layout on a mesh (``shard_dense``): four
+# processes on the one card, as phase 16's two.  (a) GLM-4.5-Air, phase
+# 16's model, on a (data 2, model 2) mesh at a global batch of 2 x 4096;
+# (b) DeepSeek-V3's first layer (MLA + the dense FFN of d_ff 18432), bf16,
+# on a (data 1, model 2) mesh of ranks 0-1 at 1 x 4096.  A prefill chunk of
+# TP_GROUP["chunk"] tokens a row is checked beside each.
+TP_GROUP = dict(glm_mesh=(2, 2), glm_rows=2, ds_mesh=(1, 2), ds_rows=1,
+                ranks=4, chunk=512)
+# Each rank's launches in (a)'s train step (phase 16's EP 2 case: per
+# rank one attention layer on its 16 query and 4 KV heads, one MoE layer
+# on its sequence shard), in (b)'s gradient pass (one MLA layer on 64 of
+# the 128 heads, forward and backward; no MoE), and in each prefill chunk
+# (the flash kernel by the chunk's grid, recorded by kernel).
+TP_LAUNCHES = {
+    "glm_step": GROUP_LAUNCHES["a"],
+    "ds_grad": {"flash_attention": 1, "flash_attention.prefill_wgmma": 1,
+                "flash_attention_bwd": 1, "flash_attention_bwd.192x128": 1,
+                "gating_topk": 0, "grouped_swiglu": 0, "plan_solve": 0},
+    "glm_prefill": {"flash_attention": 1, "gating_topk": 1,
+                    "grouped_swiglu": 1, "grouped_matmul": 1,
+                    "plan_solve": 1},
+    "ds_prefill": {"flash_attention": 1, "gating_topk": 0, "plan_solve": 0},
+}
+
+
+def _tp_cfgs(which, glm, deepseek, cf):
+    """Phase 20's models: (a) phase 16's GLM-4.5-Air layer; (b)
+    DeepSeek-V3 cut to its first layer (attention + the dense FFN), bf16,
+    blocked loss, remat off."""
+    if which == "glm":
+        return _group_cfgs(glm, cf)
+    import torch
+
+    from repro_torch.core.balancer import BalancerConfig
+    from repro_torch.models.transformer import RuntimeConfig
+
+    cfg = dataclasses.replace(deepseek, name=f"{deepseek.name}-1l",
+                              num_layers=1)
+    rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep", n_slot=2),
+                         cf_pair=cf, cf_slot=cf, dtype=torch.bfloat16,
+                         loss_chunks=TRAIN_GROUP["loss_chunks"], remat=False)
+    return cfg, rcfg
+
+
+def _tp_batch(cfg, rows):
+    """``rows`` rows of the synthetic stream at 4096 tokens (seed 0)."""
+    return _group_batch(cfg, rows)
+
+
+def _resident_bytes(params, state, cfg, rcfg, pctx) -> dict:
+    """This rank's parameter and AdamW bytes against what its placements
+    give, each computed apart: a parameter's shard is ``shard_shape`` of
+    its global shape (a meta init of the one-rank model), and its two fp32
+    moments take the shard's shape (the reference's ``opt_state_specs``)."""
+    import math
+
+    from repro_torch.models.model import init_lm
+    from repro_torch.models.transformer import ParallelCtx
+    from repro_torch.parallel import sharding
+
+    glob = {n: tuple(p.shape) for n, p in init_lm(
+        cfg, rcfg, ParallelCtx(), None, device="meta").named_parameters()}
+    ax = sharding.from_ctx(pctx)
+    want_p = want_m = 0
+    for name, p in params.named_parameters():
+        n = math.prod(sharding.shard_shape(params.layout[name], glob[name],
+                                           ax.sizes))
+        want_p += n * p.element_size()
+        want_m += 2 * 4 * n
+    got_p = sum(p.numel() * p.element_size() for p in params.parameters())
+    got_m = sum(t.numel() * t.element_size()
+                for t in state.opt_state.mu + state.opt_state.nu)
+    return {"param_bytes": got_p, "param_bytes_placed": want_p,
+            "adamw_bytes": got_m, "adamw_bytes_placed": want_m,
+            "equal": got_p == want_p and got_m == want_m}
+
+
+class _RankPlan:
+    """While installed, the flash kernel plans each launch as a rank of a
+    model axis of ``model`` plans its share (``ops.plan_launch`` on the
+    heads cut by the axis): an R = 1 run at a rank's batch shape then
+    takes the rank's kernel, splits and row tiles, so each head's
+    attention is computed as the rank computes it."""
+
+    def __init__(self, model: int):
+        self.model = model
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+
+        orig = self._orig = ops.plan_launch
+        t = self.model
+
+        def plan(B, Sq, Sk, H, Hkv, hd, dtype, sms=ops.H100_SMS):
+            return orig(B, Sq, Sk, H // t, max(1, Hkv // t), hd, dtype, sms)
+
+        ops.plan_launch = plan
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops
+
+        ops.plan_launch = self._orig
+
+
+def _tp_prefill(params, cfg, rcfg, pctx, tokens):
+    """One prefill chunk on the mesh: this rank's rows and sequence shard
+    of ``tokens`` (rows x chunk), the logits gathered over both axes."""
+    import torch
+
+    from repro_torch.models.model import (gather_logits, init_caches,
+                                          prefill_step)
+    from repro_torch.parallel import collectives
+
+    rows = tokens.shape[0] // pctx.data_size
+    C, T, t = tokens.shape[1], pctx.ep_size, pctx.ep_rank
+    mine = tokens[pctx.data_rank * rows:(pctx.data_rank + 1) * rows,
+                  t * (C // T):(t + 1) * (C // T)]
+    caches = init_caches(cfg, rows, C, rcfg, device="cuda", pctx=pctx)
+    with torch.no_grad():
+        logits, _ = prefill_step(params, caches, mine, cfg, rcfg, pctx)
+        whole = gather_logits(logits, pctx, cfg.vocab_size)
+        if pctx.data is not None:
+            whole = collectives.all_gather(pctx.data, whole).flatten(0, 1)
+    return whole
+
+
+def _prefill_check(logits, calls, ref, pctx, rows: int) -> dict:
+    """One prefill chunk's gathered logits against the R = 1 chunk's
+    (``ref["prefill"]``) and against the witness (the R = 1 chunk on the
+    rank's flash plan, ``_RankPlan``).  Without a MoE layer every token
+    is held within TRAIN_TOL; with one, the tokens routed alike with the
+    R = 1 chunk are, and each token routed apart must be a near tie of the
+    R = 1 gate (``_routing_check``); the logits of the tokens apart and of
+    the whole chunk are measured beside (relative to the whole chunk's
+    max|ref|), and so is each token's routing against the witness."""
+    import torch
+
+    ref_l = ref["prefill"].to(logits.device)
+    err, scale = _max_err(logits, ref_l)
+    out = {"shape": list(logits.shape), "max_rel_err_whole": err / scale,
+           "max_rel_err_whole_witness": _max_err(
+               logits, ref["witness"].to(logits.device))[0] / scale}
+    apart = torch.zeros(logits.shape[:2], dtype=torch.bool,
+                        device=logits.device)
+    if calls:
+        ids = _sorted_ids([_gate_all(c, pctx, rows) for c in calls])
+        out["routing"] = _routing_check(ids, ref["prefill_ids"],
+                                        ref["prefill_gap"],
+                                        calls[0][1].num_experts)
+        out["tokens_apart_from_witness"] = int(
+            (ids != ref["witness_ids"]).any(-1).sum())
+        out["witness_tokens_apart_r1"] = ref["witness_tokens_apart_r1"]
+        apart = (ids != ref["prefill_ids"]).any(-1).reshape(
+            len(calls), -1).any(0).reshape(apart.shape).to(apart.device)
+    for tag, m in (("alike", ~apart), ("apart", apart)):
+        out[f"max_rel_err_{tag}"] = (_max_err(logits[m], ref_l[m])[0]
+                                     / scale if m.any() else 0.0)
+    out["ok"] = out["max_rel_err_alike"] <= TRAIN_TOL \
+        and out.get("routing", {"ok": True})["ok"]
+    return out
+
+
+def _tp_case(rank, which, mesh, glm, deepseek, ref_path):
+    """Phase 20 (a) or (b) on one rank: the global gradient against the
+    R = 1 step's, one prefill chunk's logits against the R = 1 chunk's,
+    the resident bytes against the placements, and for (a) one AdamW step
+    at TRAIN_GROUP["cf"]; the kernel counts set to 0 before each run and
+    read after.  Every check runs; the case fails at its end if any
+    failed."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch.mesh import pctx_for_mesh
+    from repro_torch.models.model import init_lm, init_router_bias
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.train.loop import (global_grads, init_train_state,
+                                        make_train_step)
+
+    cfg, rcfg = _tp_cfgs(which, glm, deepseek, GROUP_CHECK_CF)
+    pctx = pctx_for_mesh(mesh, shard_dense=True)
+    rows = TP_GROUP[f"{which}_rows"]
+    local_rows = rows // pctx.data_size
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, rcfg, pctx, torch.Generator(device="cuda")
+                     .manual_seed(TRAIN_GROUP["seed"]), device="cuda")
+    params.requires_grad_(True)
+    batch = _tp_batch(cfg, rows)
+    bias = init_router_bias(cfg, device="cuda")
+    torch.cuda.synchronize()
+    _reset_launches()
+    with _GateInputs() as rec:
+        loss, drops, counts, grads = global_grads(params, batch, cfg, rcfg,
+                                                  pctx, router_bias=bias)
+    torch.cuda.synchronize()
+    grad_launches = _launches()
+    ref = torch.load(ref_path, mmap=True)
+    errs = {}
+    specs = sharding.lm_param_specs(params, pctx)
+    for (pname, _), g, sp in zip(params.named_parameters(), grads, specs):
+        r = sharding.cut(ref["grads"][pname], sp.dims)
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"tp {which} rank {rank}: grad {pname} is "
+                                 f"not finite")
+        err, scale = _max_err_rows(g, r)
+        errs[pname] = err / max(scale, 1e-30)
+    check = {"loss": float(loss), "loss_r1": float(ref["loss"]),
+             "loss_rel_err": abs(float(loss) - float(ref["loss"]))
+             / abs(float(ref["loss"])),
+             **_counts_check(counts, ref, rec.calls, pctx, local_rows),
+             "drops": int(drops), "drops_r1": int(ref["drops"]),
+             "max_rel_err_by_param": errs, "worst": max(errs, key=errs.get)}
+    del rec
+    fails = []
+    if any(not e <= TRAIN_TOL for e in errs.values()) or check["drops"] \
+            or not check["counts_ok"] \
+            or not check["loss_rel_err"] <= TRAIN_TOL:
+        fails.append(f"against the R = 1 step (tolerance {TRAIN_TOL}): "
+                     f"{check}")
+    for p in params.parameters():
+        p.grad = None
+    del grads
+    gc.collect()
+    peak_check = torch.cuda.max_memory_allocated() / 1e9
+    tokens = batch["tokens"][:, :TP_GROUP["chunk"]]
+    _reset_launches()
+    with _GateInputs() as rec:
+        logits = _tp_prefill(params, cfg, rcfg, pctx, tokens)
+    torch.cuda.synchronize()
+    prefill_launches = _launches()
+    prefill = {**_prefill_check(logits, rec.calls, ref, pctx, local_rows),
+               "drops": sum(rec.drops),
+               "drops_r1": int(ref["prefill_drops"])}
+    del rec, logits
+    if not prefill["ok"] or prefill["drops"]:
+        fails.append(f"prefill logits (tolerance {TRAIN_TOL}): {prefill}")
+    opt = adamw(1e-3)
+    state = init_train_state(params, opt, cfg, pctx)
+    resident = _resident_bytes(params, state, cfg, rcfg, pctx)
+    if not resident["equal"]:
+        fails.append(f"resident bytes {resident}")
+    want = {"grad": TP_LAUNCHES["ds_grad"] if which == "ds" else None,
+            "prefill": TP_LAUNCHES[f"{which}_prefill"]}
+    out = {"mesh": dict(pctx.mesh_axes), "rank": rank,
+           "global_batch": [rows, TRAIN_GROUP["seq"]],
+           "prefill_chunk": list(tokens.shape), "grad_check": check,
+           "check_cf": GROUP_CHECK_CF, "prefill_check": prefill,
+           "resident": resident, "peak_mem_gb_check": peak_check,
+           "launches_grad": {k: grad_launches[k] for k in
+                             (want["grad"] or TP_LAUNCHES["glm_step"])},
+           "launches_prefill": {k: n for k, n in prefill_launches.items()
+                                if k in want["prefill"]
+                                or k.startswith("flash_attention.")}}
+    if which == "glm":
+        torch.cuda.reset_peak_memory_stats()
+        _, rcfg = _tp_cfgs(which, glm, deepseek, TRAIN_GROUP["cf"])
+        step = make_train_step(cfg, rcfg, pctx, opt)
+        torch.cuda.synchronize()
+        _reset_launches()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        want["step"] = TP_LAUNCHES["glm_step"]
+        launches = _launches()
+        out["launches_step"] = {k: launches[k] for k in want["step"]}
+        out["padded_copies"] = _padded_copies()
+        bias = _bias_check(state.router_bias, ref["bias"], cfg, counts,
+                           check["counts_equal"])
+        out.update(step_loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]),
+                   step_drops=int(m["drops"]), step_cf=TRAIN_GROUP["cf"],
+                   router_bias=bias,
+                   peak_mem_gb_step=torch.cuda.max_memory_allocated() / 1e9)
+        if not bias["ok"] or any(out["padded_copies"].values()):
+            fails.append(f"router bias {bias}, copies "
+                         f"{out['padded_copies']}")
+    for kind, seen in (("grad", out["launches_grad"]),
+                       ("prefill", out["launches_prefill"]),
+                       ("step", out.get("launches_step"))):
+        if want.get(kind) is None:
+            continue
+        bad = {k: (seen[k], n) for k, n in want[kind].items()
+               if seen[k] != n}
+        if bad:
+            fails.append(f"{kind} launches (seen, want) {bad}")
+    if fails:
+        raise AssertionError(f"tp {which} rank {rank}: " + "; ".join(fails))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, params, ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_worker(rank, world, port, out_dir):
+    """One rank of phase 20 (a spawned process on the one card)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import collectives
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    collectives.init("gloo", world_size=world, rank=rank,
+                     init_method=f"tcp://localhost:{port}", timeout_s=600)
+    glm = get_config("glm45-106b-a12b")
+    deepseek = get_config("deepseek-v3-671b")
+    meshes = {"glm": make_test_mesh(*TP_GROUP["glm_mesh"]),
+              "ds": make_test_mesh(*TP_GROUP["ds_mesh"])}
+    out = {}
+    for which, mesh in meshes.items():
+        if mesh is not None:
+            out[which] = _tp_case(rank, which, mesh, glm, deepseek,
+                                  str(Path(out_dir) / f"tp_ref_{which}.pt"))
+        collectives.barrier(collectives.EPGroup())
+    with open(Path(out_dir) / f"tp_rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    collectives.destroy()
+
+
+def _r1_prefill(params, cfg, rcfg, tokens):
+    """The R = 1 prefill chunk a row at a time (each row at a data rank's
+    batch shape, as the R = 1 training step runs a microbatch a row):
+    the logits (on the host), the routing (``_r1_routing``) and the
+    drops."""
+    import torch
+
+    from repro_torch.models.model import init_caches, prefill_step
+    from repro_torch.models.transformer import ParallelCtx
+
+    logits = []
+    with torch.no_grad(), _GateInputs() as rec:
+        for r in range(tokens.shape[0]):
+            caches = init_caches(cfg, 1, tokens.shape[1], rcfg,
+                                 device="cuda")
+            logits.append(prefill_step(params, caches, tokens[r:r + 1], cfg,
+                                       rcfg, ParallelCtx())[0].cpu())
+            del caches
+        layers = len(rec.calls) // tokens.shape[0]
+        routing = _r1_routing(rec.calls, layers)
+    return torch.cat(logits), routing, sum(rec.drops)
+
+
+def phase_tp_group(glm, deepseek) -> dict:
+    """Phase 20: the reference's production layout on a mesh
+    (``ParallelCtx.shard_dense``, ``repro_torch.parallel.sharding``):
+    tensor parallelism over the model axis (attention heads, the FFN's
+    hidden dimension, the vocabulary), FSDP over the data axis and the
+    sequence-parallel residual stream, in four spawned processes on the
+    one card (one gloo group carrying CUDA tensors, as phases 9 and 16).
+    First the parent runs the R = 1 references on each model (a
+    microbatch a row, so each row runs at a data rank's shapes, as phase
+    16), at GROUP_CHECK_CF: the loss, counts, every gradient, the router
+    bias after one update, each token's routing, and one prefill chunk's
+    logits and routing (the first TP_GROUP["chunk"] tokens of each row, a
+    row at a time), plain and on the rank's flash plan (the witness),
+    kept on disk, and its peak memory.  Then (a) GLM-4.5-Air's layer on (data 2, model 2), global
+    batch 2 x 4096, and (b) DeepSeek-V3's first layer on (data 1, model 2)
+    (ranks 0-1), 1 x 4096: every gradient of the global loss within
+    TRAIN_TOL of the R = 1 gradient's max|ref| (each rank's shard against
+    the same slice), the loss within TRAIN_TOL relative, zero drops, the
+    counts as ``_counts_check`` holds them (each token routed apart a near
+    tie of the R = 1 gate); the chunk's logits, gathered over both axes,
+    as ``_prefill_check`` holds them (the tokens routed alike within
+    TRAIN_TOL of the R = 1 chunk's max|ref|, each token apart a near tie;
+    the whole chunk's error and the witness's routing measured beside); each rank's parameter and AdamW bytes equal to what its
+    placements give; for (a) one AdamW train step at TRAIN_GROUP["cf"],
+    its router bias the R = 1 update's.
+    The launches of each run are counted on every rank (TP_LAUNCHES).
+    Each rank's peak memory is printed beside the R = 1 run's; no time is
+    stated: gloo stages CUDA tensors through the host."""
+    import gc
+    import os
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.models.model import init_lm, init_router_bias
+    from repro_torch.models.transformer import ParallelCtx
+    from repro_torch.train.loop import TrainConfig, loss_and_grads
+
+    world = TP_GROUP["ranks"]
+    torch.cuda.empty_cache()
+    peak_r1 = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        for which in ("glm", "ds"):
+            cfg, rcfg = _tp_cfgs(which, glm, deepseek, GROUP_CHECK_CF)
+            rows = TP_GROUP[f"{which}_rows"]
+            torch.cuda.reset_peak_memory_stats()
+            params = init_lm(cfg, rcfg, ParallelCtx(), torch.Generator(
+                device="cuda").manual_seed(TRAIN_GROUP["seed"]),
+                device="cuda")
+            params.requires_grad_(True)
+            batch = _tp_batch(cfg, rows)
+            bias = init_router_bias(cfg, device="cuda")
+            with _GateInputs() as rec:
+                loss, drops, counts, grads = loss_and_grads(
+                    params, batch, cfg, rcfg, ParallelCtx(),
+                    TrainConfig(microbatches=rows), router_bias=bias)
+            ref = {"loss": float(loss), "drops": int(drops),
+                   "counts": counts.cpu(),
+                   **_r1_routing(rec.calls,
+                                 int((counts.sum(dim=1) > 0).sum())),
+                   "bias": (_bias_after(cfg, counts).cpu()
+                            if bias is not None else None),
+                   "grads": {n: g.cpu() for (n, _), g in
+                             zip(params.named_parameters(), grads)}}
+            for p in params.parameters():
+                p.grad = None
+            del grads, rec
+            gc.collect()
+            tokens = batch["tokens"][:, :TP_GROUP["chunk"]]
+            # The R = 1 chunk, then its witness on the rank's flash plan.
+            T = TP_GROUP[f"{which}_mesh"][1]
+            for tag, plan in (("prefill", contextlib.nullcontext()),
+                              ("witness", _RankPlan(T))):
+                with plan:
+                    ref[tag], r1, ref[f"{tag}_drops"] = _r1_prefill(
+                        params, cfg, rcfg, tokens)
+                ref[f"{tag}_ids"] = r1["ids"]
+                if tag == "prefill":
+                    ref["prefill_gap"] = r1["gap"]
+            ref["witness_tokens_apart_r1"] = None if r1["ids"] is None \
+                else int((ref["witness_ids"] != ref["prefill_ids"])
+                         .any(-1).sum())
+            torch.save(ref, Path(out_dir) / f"tp_ref_{which}.pt")
+            peak_r1[which] = torch.cuda.max_memory_allocated() / 1e9
+            del params, ref, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            mp.spawn(_tp_worker, args=(world, port, out_dir), nprocs=world,
+                     join=True)
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        ranks = [json.loads((Path(out_dir) / f"tp_rank{r}.json").read_text())
+                 for r in range(world)]
+    result = {"ranks": world, "backend": "gloo",
+              "time": "not stated (gloo stages CUDA tensors through the "
+                      "host)",
+              "nvidia_smi": subprocess.run(
+                  ["nvidia-smi", "--query-gpu=name,power.limit",
+                   "--format=csv,noheader"], capture_output=True, text=True,
+                  timeout=60).stdout.strip(),
+              "peak_mem_gb_r1": peak_r1,
+              "peak_mem_gb_by_rank": {
+                  w: [r[w]["peak_mem_gb"] for r in ranks if w in r]
+                  for w in ("glm", "ds")},
+              "resident_by_rank": {
+                  w: [r[w]["resident"] for r in ranks if w in r]
+                  for w in ("glm", "ds")},
+              "launches_by_rank": {
+                  w: [{k: r[w][k] for k in ("launches_grad",
+                                            "launches_prefill",
+                                            "launches_step") if k in r[w]}
+                      for r in ranks if w in r] for w in ("glm", "ds")},
+              "ranks_by_case": ranks}
+    _line("phase20_tp_group", result)
     return result
 
 
@@ -5482,6 +6152,7 @@ def main() -> int:
     timed("phase15_balancers", phase_balancers)
     rack = timed("phase14_rack_tier", phase_rack_tier)
     timed("phase16_train_group", phase_train_group, glm)
+    timed("phase20_tp_group", phase_tp_group, glm, deepseek)
     cell_records = timed("phase17_train_cells", phase_train_cells)
     hosts = timed("phase18_hosts", phase_hosts)
     defaults = timed("phase19_train_defaults", phase_train_defaults)

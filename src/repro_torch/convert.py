@@ -20,6 +20,9 @@ JAX package is imported.
 On an EP group of ``ep_size`` ranks, rank ``ep_rank`` gets the experts
 ``[ep_rank * E / ep_size, (ep_rank + 1) * E / ep_size)`` of every MoE layer
 and everything else whole (the router and the shared expert included).
+Given a ``pctx`` with ``shard_dense`` (the reference's layout,
+``repro_torch.parallel.sharding``), :func:`lm_params` cuts every parameter
+to this rank's shard of it on that mesh, a layer at a time.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from repro_torch.models.model import LMParams
 from repro_torch.models.ssm import SSMParams
 from repro_torch.models.transformer import BlockParams
 from repro_torch.moe.layer import MoEParams
+from repro_torch.parallel import sharding
 
 __all__ = ["to_tensor", "moe_params", "ssm_params", "mla_params",
            "lm_params"]
@@ -107,9 +111,15 @@ def _block(bp, cfg: ModelConfig, device, ep_rank: int,
 
 
 def lm_params(p, cfg: ModelConfig, *, device="cuda", ep_rank: int = 0,
-              ep_size: int = 1) -> LMParams:
+              ep_size: int = 1, pctx=None) -> LMParams:
     """JAX ``LMParams`` (numpy leaves) -> the port's :class:`LMParams`, the
-    share of EP rank ``ep_rank`` of ``ep_size``."""
+    share of EP rank ``ep_rank`` of ``ep_size``, or of ``pctx``'s rank on
+    its mesh (whose EP rank and size it takes)."""
+    layout = None
+    if pctx is not None:
+        ep_rank, ep_size = pctx.ep_rank, pctx.ep_size
+        if pctx.shard_dense:
+            layout = sharding.lm_layout(cfg, pctx)
     blocks = []
     for seg in p.segments:
         if isinstance(seg, tuple) and not hasattr(seg, "_fields"):
@@ -124,9 +134,22 @@ def lm_params(p, cfg: ModelConfig, *, device="cuda", ep_rank: int = 0,
                           for i in range(np.shape(seg.norm1)[0]))
     if len(blocks) != len(layer_kinds(cfg)):
         raise ValueError(f"{len(blocks)} blocks for {cfg.num_layers} layers")
-    return LMParams(embedding=to_tensor(p.embedding, device),
-                    layers=[_block(b, cfg, device, ep_rank, ep_size)
-                            for b in blocks],
+    layers = []
+    for i, b in enumerate(blocks):
+        bp = _block(b, cfg, device, ep_rank, ep_size)
+        if layout is not None:
+            sharding.shard_params_(bp, layout, pctx, f"layers.{i}.")
+        layers.append(bp)
+
+    def whole(name, a):
+        t = to_tensor(a, device)
+        if t is None or layout is None:
+            return t
+        return sharding.cut(t, sharding.dims_of(layout[name], pctx)).clone()
+
+    return LMParams(embedding=whole("embedding", p.embedding),
+                    layers=layers,
                     final_norm=to_tensor(p.final_norm, device),
-                    lm_head=to_tensor(p.lm_head, device),
-                    frontend_proj=to_tensor(p.frontend_proj, device))
+                    lm_head=whole("lm_head", p.lm_head),
+                    frontend_proj=whole("frontend_proj", p.frontend_proj),
+                    layout=layout)

@@ -1,7 +1,11 @@
 """Meshes of ranks over ``torch.distributed``.
 
-Mirrors ``repro.launch.mesh``: :func:`make_test_mesh` (data x model),
-:func:`make_rack_mesh` (data x rack x lane) and :func:`pctx_for_mesh`.
+Mirrors ``repro.launch.mesh``: :func:`make_production_mesh` (the 16 x 16
+pod, the 2 x 16 x 16 multi-pod and the factored rack mesh),
+:func:`make_test_mesh` (data x model), :func:`make_rack_mesh` (data x
+rack x lane) and :func:`pctx_for_mesh`.  ``pod`` and ``data`` are the
+batch axes: their ranks form one data group, pod-major (the reference's
+``("pod", "data")`` entry).
 Where the JAX mesh is an array of devices with named axes, a
 :class:`Mesh` here holds the process groups of one world of ranks, in the
 reference's row-major order: global rank ``d * R + r`` is data row ``d``,
@@ -23,7 +27,8 @@ import dataclasses
 
 from repro_torch.parallel import collectives
 
-__all__ = ["Mesh", "make_test_mesh", "make_rack_mesh", "pctx_for_mesh"]
+__all__ = ["Mesh", "production_shape", "make_production_mesh",
+           "make_test_mesh", "make_rack_mesh", "pctx_for_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +44,13 @@ class Mesh:
     data: object
 
 
-def _mesh(data: int, racks: int, lanes: int, axes: tuple) -> Mesh | None:
+def _mesh(shape: tuple, axes: tuple) -> Mesh | None:
+    sizes = dict(zip(axes, shape))
+    data = 1
+    for a in axes:
+        if a not in ("rack", "model"):
+            data *= sizes[a]
+    racks, lanes = sizes.get("rack", 1), sizes["model"]
     W = collectives.world_size()
     R = racks * lanes
     n = data * R
@@ -67,27 +78,50 @@ def _mesh(data: int, racks: int, lanes: int, axes: tuple) -> Mesh | None:
                 data_g = g
     if me >= n:
         return None
-    sizes = dict(zip(axes, (data, racks, lanes) if len(axes) == 3
-                     else (data, lanes)))
-    return Mesh(shape=sizes, axis_names=axes, world=world, model=model,
-                data=data_g)
+    return Mesh(shape=sizes, axis_names=tuple(axes), world=world,
+                model=model, data=data_g)
+
+
+def production_shape(*, multi_pod: bool = False, racks: int = 1):
+    """(shape, axis names) of :func:`make_production_mesh`'s mesh."""
+    if racks > 1:
+        if 16 % racks != 0:
+            raise ValueError(f"racks={racks} must divide the 16-way model "
+                             "axis")
+        shape, axes = (16, racks, 16 // racks), ("data", "rack", "model")
+        if multi_pod:
+            shape, axes = (2, *shape), ("pod", *axes)
+        return shape, axes
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False, racks: int = 1
+                         ) -> Mesh | None:
+    """The 256-rank pod mesh (data 16 x model 16), or with ``multi_pod``
+    512 ranks (pod 2 x data 16 x model 16); ``racks > 1`` factors the
+    16-way model axis into a two-level (rack, model) EP topology."""
+    return _mesh(*production_shape(multi_pod=multi_pod, racks=racks))
 
 
 def make_rack_mesh(data: int = 1, racks: int = 2, lanes: int = 4
                    ) -> Mesh | None:
     """Factored two-level EP mesh: (data, rack, model) = DP x scale-out x
     scale-up; the EP group is ``racks * lanes`` ranks, rack-major."""
-    return _mesh(data, racks, lanes, ("data", "rack", "model"))
+    return _mesh((data, racks, lanes), ("data", "rack", "model"))
 
 
 def make_test_mesh(data: int = 2, model: int = 4) -> Mesh | None:
     """(data, model) mesh of ``data * model`` ranks."""
-    return _mesh(data, 1, model, ("data", "model"))
+    return _mesh((data, model), ("data", "model"))
 
 
-def pctx_for_mesh(mesh: Mesh | None):
+def pctx_for_mesh(mesh: Mesh | None, *, shard_dense: bool = False):
     """The mesh's :class:`repro_torch.models.transformer.ParallelCtx`
-    (one rank's: ``ParallelCtx()``, for None)."""
+    (one rank's: ``ParallelCtx()``, for None), carrying its axis sizes;
+    ``shard_dense`` (training and prefill) lays the model out as the
+    reference does (``repro_torch.parallel.sharding``)."""
     from repro_torch.models.transformer import ParallelCtx
 
     if mesh is None:
@@ -97,4 +131,6 @@ def pctx_for_mesh(mesh: Mesh | None):
     world = mesh.world
     if (model is None) != (data is None):     # one group is the mesh
         world = None
-    return ParallelCtx(group=model, data=data, world=world)
+    return ParallelCtx(group=model, data=data, world=world,
+                       shard_dense=shard_dense,
+                       mesh_axes=tuple(mesh.shape.items()))

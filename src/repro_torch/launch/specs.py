@@ -10,13 +10,23 @@ shapes are tensors on the ``meta`` device (built by the port's own init
 functions there), which take the place of ``jax.eval_shape``: nothing is
 allocated.
 
-A partial port: the sharding specs of the reference's cells
-(``repro.parallel.sharding``'s ``lm_param_specs`` / ``batch_specs``) and
-the multi-pod dry run (``launch/dryrun.py``) are not ported, so
-``in_shardings`` and ``out_shardings`` are None (one rank), and the
-runtime has no counterpart of the reference's scan and analysis knobs.
-A train cell's optimizer is in ``meta["optimizer"]``, so a caller builds
-the real state with the step's own optimizer.
+On a mesh (a ``pctx`` of more than one rank, ``launch.mesh``) a cell's
+``in_shardings`` holds the port's placements
+(``repro_torch.parallel.sharding``: one entry per dimension) as the
+reference's cells hold their PartitionSpecs: a train cell's
+``(TrainState(params, opt_state, router_bias (None, None), step ()),
+batch)``, a prefill cell's ``(params, batch)``, a decode cell's ``(params,
+None, batch)`` (the cache's placement comes with decode on the sharded
+layout, not ported yet); each ``params`` a dict by parameter name, each
+``opt_state`` a dict by field of such dicts.  Its ``arg_shapes`` are this
+rank's shards, and its step takes this rank's share of the batch (rows
+over the data axis, the sequence over the model axis, ``sharding.
+batch_specs``).  On one rank ``in_shardings`` is None and the step takes
+the whole batch.  ``out_shardings`` is None, and the multi-pod dry run
+(``launch/dryrun.py``) is not ported; the runtime has no counterpart of
+the reference's scan and analysis knobs.  A train cell's optimizer is in
+``meta["optimizer"]`` (and its microbatches in ``meta["microbatches"]``),
+so a caller builds the real state with the step's own optimizer.
 """
 
 from __future__ import annotations
@@ -32,8 +42,9 @@ from repro_torch.models.model import (decode_step, forward, init_caches,
                                       init_lm, init_router_bias)
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 from repro_torch.optim import adafactor, adamw
-from repro_torch.train.loop import (TrainConfig, init_train_state,
-                                    make_train_step)
+from repro_torch.parallel import sharding
+from repro_torch.train.loop import (TrainConfig, TrainState,
+                                    init_train_state, make_train_step)
 
 __all__ = ["Cell", "build_cell", "shape_supported", "supported_shapes",
            "runtime_for"]
@@ -123,15 +134,34 @@ def build_cell(arch: str, shape_name: str, pctx: ParallelCtx, *,
     params_shape = init_lm(cfg, rcfg, pctx, None, device="meta")
     bshapes = _batch_shapes(cfg, shape)
     meta = {"cfg": cfg, "rcfg": rcfg, "shape": shape}
+    mesh = pctx.world_size > 1
+    pspecs = bspecs = None
+    if mesh:
+        pspecs = sharding.layout_of(params_shape, pctx)
+        bspecs = sharding.batch_specs(cfg, sharding.from_ctx(pctx),
+                                      shape.kind, shape.global_batch)
+        bshapes = sharding.local_batch(bshapes, pctx, shape.kind)
 
     if shape.kind == "train":
         opt = adafactor(1e-4) if arch in _BIG else adamw(3e-4)
         state_shape = init_train_state(params_shape, opt, cfg, pctx)
         step = make_train_step(cfg, rcfg, pctx, opt,
-                               TrainConfig(microbatches=microbatches))
+                               TrainConfig(microbatches=microbatches),
+                               global_batch=shape.global_batch if mesh
+                               else None)
         meta["optimizer"] = opt
-        return Cell(arch, shape_name, step, (state_shape, bshapes), None,
-                    None, (0,), meta)
+        meta["microbatches"] = microbatches
+        shardings = None
+        if mesh:
+            kind = "adafactor" if arch in _BIG else "adamw"
+            shardings = (TrainState(
+                params=pspecs,
+                opt_state=sharding.opt_state_specs(pspecs, kind),
+                router_bias=(None if state_shape.router_bias is None
+                             else (None, None)),
+                step=()), bspecs)
+        return Cell(arch, shape_name, step, (state_shape, bshapes),
+                    shardings, None, (0,), meta)
 
     # The serve steps route with the initial (zero) router bias, as the
     # reference's cells do, made on the parameters' device.
@@ -144,7 +174,7 @@ def build_cell(arch: str, shape_name: str, pctx: ParallelCtx, *,
             return logits, drops, counts
 
         return Cell(arch, shape_name, prefill_step, (params_shape, bshapes),
-                    None, None, (), meta)
+                    (pspecs, bspecs) if mesh else None, None, (), meta)
 
     caches_shape = init_caches(cfg, shape.global_batch, shape.seq_len, rcfg,
                                device="meta")
@@ -156,4 +186,5 @@ def build_cell(arch: str, shape_name: str, pctx: ParallelCtx, *,
                            router_bias=bias)
 
     return Cell(arch, shape_name, serve_step,
-                (params_shape, caches_shape, bshapes), None, None, (1,), meta)
+                (params_shape, caches_shape, bshapes),
+                (pspecs, None, bspecs) if mesh else None, None, (1,), meta)

@@ -15,8 +15,12 @@ host clock up to a device synchronisation.
 
 On a mesh of ``--data`` x ``--ep`` ranks (``repro_torch.launch.mesh``)
 under ``torchrun`` (env://): each rank trains its data row's rows of the
-global batch with its EP rank's experts; gloo on ``--device cpu``, NCCL
-where each rank has a card, gloo where the ranks share one card.
+global batch on the reference's layout (``ParallelCtx.shard_dense``:
+tensor parallelism over the EP axis, FSDP over the data axis, the
+sequence split over the EP axis between blocks) where the sequence
+divides by ``--ep``, else on the EP layout (its EP rank's experts,
+everything else whole); gloo on ``--device cpu``, NCCL where each rank
+has a card, gloo where the ranks share one card.
 
 Example (the CPU, a reduced model; on a card drop ``--device``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch glm45-106b-a12b \
@@ -66,6 +70,7 @@ import tempfile
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import SHAPES
 from repro_torch.configs.reduce import reduced
 from repro_torch.core.balancer import BalancerConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
@@ -201,10 +206,15 @@ def build_cell_trainer(cell: Cell, *, batch: int, seed: int = 0,
     params = init_lm(cfg, rcfg, pctx,
                      torch.Generator(device=device).manual_seed(seed),
                      device=device)
+    opt = cell.meta["optimizer"]
+    # A mesh cell's step takes a rank's share of the cell's batch; the
+    # trainer's steps take the stream's global batch of ``batch`` rows.
+    step_fn = cell.step_fn if pctx.world_size == 1 else make_train_step(
+        cfg, rcfg, pctx, opt,
+        TrainConfig(microbatches=cell.meta["microbatches"]))
     return Trainer(cfg=cfg, rcfg=rcfg, pctx=pctx,
-                   state=init_train_state(params, cell.meta["optimizer"],
-                                          cfg, pctx),
-                   step_fn=cell.step_fn,
+                   state=init_train_state(params, opt, cfg, pctx),
+                   step_fn=step_fn,
                    stream=SyntheticLMStream(DataConfig(
                        vocab_size=cfg.vocab_size,
                        seq_len=cell.meta["shape"].seq_len,
@@ -322,11 +332,12 @@ def _shared_tmpdir(pctx: ParallelCtx) -> str:
     return bytes(buf.cpu().numpy()).rstrip(b"\0").decode()
 
 
-def init_group(data: int, ep: int, device: str):
+def init_group(data: int, ep: int, device: str, shard_dense: bool = True):
     """Start this torchrun process's group (env://) and return
-    ``(pctx, device)`` for a ``data`` x ``ep`` mesh: NCCL where each rank
-    has a card of its own (``LOCAL_RANK``), gloo on the CPU or where the
-    ranks share one card."""
+    ``(pctx, device)`` for a ``data`` x ``ep`` mesh (on the reference's
+    layout with ``shard_dense``): NCCL where each rank has a card of its
+    own (``LOCAL_RANK``), gloo on the CPU or where the ranks share one
+    card."""
     world = int(os.environ["WORLD_SIZE"])
     if world != data * ep:
         raise ValueError(f"--data {data} x --ep {ep} needs {data * ep} "
@@ -343,7 +354,8 @@ def init_group(data: int, ep: int, device: str):
         torch.cuda.set_device(device)
     collectives.init(backend, world_size=world,
                      rank=int(os.environ["RANK"]))
-    return pctx_for_mesh(make_test_mesh(data, ep)), device
+    return pctx_for_mesh(make_test_mesh(data, ep),
+                         shard_dense=shard_dense), device
 
 
 def main(argv=None) -> TrainRun:
@@ -383,7 +395,12 @@ def main(argv=None) -> TrainRun:
     device, pctx = args.device, ParallelCtx()
     grouped = args.data * args.ep > 1
     if grouped:
-        pctx, device = init_group(args.data, args.ep, device)
+        # The sharded layout splits the sequence over the EP axis; where
+        # it does not divide, the run keeps the EP layout.
+        seq = SHAPES[args.cell].seq_len if args.cell is not None \
+            else args.seq
+        pctx, device = init_group(args.data, args.ep, device,
+                                  shard_dense=seq % args.ep == 0)
     common = dict(steps=args.steps, batch=args.batch,
                   microbatches=args.microbatches, layers=args.layers,
                   log_every=args.log_every, seed=args.seed, device=device,

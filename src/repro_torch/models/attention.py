@@ -42,10 +42,12 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention_ref as flash_ref,
 )
 from repro_torch.models.layers import apply_rotary, rms_norm, rotary_cos_sin
+from repro_torch.parallel import sharding
 
 __all__ = ["AttnConfig", "GQAParams", "MLAParams", "KVCache", "flash_ref",
            "init_gqa", "init_mla", "gqa_attention", "mla_attention",
-           "gqa_prefill", "mla_prefill", "gqa_decode", "mla_decode"]
+           "gqa_prefill", "mla_prefill", "gqa_decode", "mla_decode",
+           "tp_view", "kv_heads_of", "local_kv_heads"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,8 +216,10 @@ def _project_gqa(x: torch.Tensor, params: GQAParams, cfg: AttnConfig):
 def gqa_attention(x: torch.Tensor, params: GQAParams, cfg: AttnConfig, *,
                   positions: torch.Tensor | None = None,
                   block_kv: int = 512,
-                  plain_backward: bool = False) -> torch.Tensor:
-    """Full-sequence GQA.  x: (B, S, D)."""
+                  plain_backward: bool = False,
+                  project: bool = True) -> torch.Tensor:
+    """Full-sequence GQA.  x: (B, S, D).  ``project`` False: the heads'
+    output (B, S, H hd) before wo."""
     B, S, _ = x.shape
     q, k, v = _project_gqa(x, params, cfg)
     pos = torch.arange(S, device=x.device) if positions is None else positions
@@ -224,16 +228,18 @@ def gqa_attention(x: torch.Tensor, params: GQAParams, cfg: AttnConfig, *,
     k = apply_rotary(k, cos, sin)
     out = flash_attention(q, k, v, causal=cfg.causal, block_kv=block_kv,
                           plain_backward=plain_backward)
-    return out.reshape(B, S, -1) @ params.wo
+    out = out.reshape(B, S, -1)
+    return out @ params.wo if project else out
 
 
 def gqa_prefill(x: torch.Tensor, cache: KVCache, params: GQAParams,
-                cfg: AttnConfig, *, valid_len=None, block_kv: int = 1024
-                ) -> tuple[torch.Tensor, KVCache]:
+                cfg: AttnConfig, *, valid_len=None, block_kv: int = 1024,
+                project: bool = True) -> tuple[torch.Tensor, KVCache]:
     """Chunked prefill: attend a chunk against cache + itself, write cache.
 
     x: (B, C, D) starting at absolute position cache.length; ``valid_len``
-    counts the chunk's real tokens (the rest is right padding).
+    counts the chunk's real tokens (the rest is right padding); ``project``
+    as :func:`gqa_attention`'s.
     """
     B, C, _ = x.shape
     q, k, v = _project_gqa(x, params, cfg)
@@ -247,7 +253,8 @@ def gqa_prefill(x: torch.Tensor, cache: KVCache, params: GQAParams,
     out = flash_attention(q, k_all, v_all, causal=True, block_kv=block_kv,
                           q_offset=cache.length,
                           kv_valid_len=cache.length + vl)
-    y = out.reshape(B, C, -1) @ params.wo
+    y = out.reshape(B, C, -1)
+    y = y @ params.wo if project else y
     return y, KVCache(k_all, v_all, cache.length + vl)
 
 
@@ -302,9 +309,10 @@ def _expand_latent(c_all: torch.Tensor, kr_all: torch.Tensor,
 
 def mla_attention(x: torch.Tensor, params: MLAParams, cfg: AttnConfig, *,
                   block_kv: int = 512,
-                  plain_backward: bool = False) -> torch.Tensor:
+                  plain_backward: bool = False,
+                  project: bool = True) -> torch.Tensor:
     """Full-sequence MLA: the latent expanded to per-head K/V.
-    x: (B, S, D)."""
+    x: (B, S, D); ``project`` as :func:`gqa_attention`'s."""
     B, S, _ = x.shape
     q, c_kv, k_r = _project_mla(x, params, cfg,
                                 torch.arange(S, device=x.device))
@@ -312,14 +320,16 @@ def mla_attention(x: torch.Tensor, params: MLAParams, cfg: AttnConfig, *,
     out = flash_attention(q, k, v, causal=cfg.causal, block_kv=block_kv,
                           scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5,
                           plain_backward=plain_backward)
-    return out.reshape(B, S, -1) @ params.wo
+    out = out.reshape(B, S, -1)
+    return out @ params.wo if project else out
 
 
 def mla_prefill(x: torch.Tensor, cache: KVCache, params: MLAParams,
-                cfg: AttnConfig, *, valid_len=None, block_kv: int = 1024
-                ) -> tuple[torch.Tensor, KVCache]:
+                cfg: AttnConfig, *, valid_len=None, block_kv: int = 1024,
+                project: bool = True) -> tuple[torch.Tensor, KVCache]:
     """Chunked MLA prefill on the latent cache.  x: (B, C, D) starting at
-    absolute position cache.length."""
+    absolute position cache.length; ``project`` as
+    :func:`gqa_attention`'s."""
     B, C, _ = x.shape
     pos = cache.length[:, None] + torch.arange(C, device=x.device)[None, :]
     q, c_new, kr_new = _project_mla(x, params, cfg, pos)
@@ -331,7 +341,8 @@ def mla_prefill(x: torch.Tensor, cache: KVCache, params: MLAParams,
                           q_offset=cache.length,
                           kv_valid_len=cache.length + vl,
                           scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5)
-    y = out.reshape(B, C, -1) @ params.wo
+    y = out.reshape(B, C, -1)
+    y = y @ params.wo if project else y
     return y, KVCache(c_all, kr_all, cache.length + vl)
 
 
@@ -369,3 +380,85 @@ def mla_decode(x: torch.Tensor, cache: KVCache, params: MLAParams,
     out = torch.einsum("bhl,lhv->bhv", ctx, w_full[..., nope:])
     y = out.reshape(B, 1, H * hv).to(x.dtype) @ params.wo
     return y, KVCache(c_all, kr_all, cache.length + 1)
+
+
+def kv_heads_of(H: int, Hkv: int, T: int, t: int):
+    """The KV heads the query heads ``[t H / T, (t + 1) H / T)`` read: a
+    contiguous range ``(k0, k1)`` where each of its heads serves an equal
+    run of them (a GQA group of the rank's own), else None (one KV head
+    per query head, gathered)."""
+    Hl, G = H // T, H // Hkv
+    heads = [(t * Hl + j) // G for j in range(Hl)]
+    k0, k1 = heads[0], heads[-1] + 1
+    n = k1 - k0
+    if Hl % n == 0 and all(h - k0 == j // (Hl // n)
+                           for j, h in enumerate(heads)):
+        return k0, k1
+    return None
+
+
+def local_kv_heads(cfg: AttnConfig, T: int, t: int) -> int:
+    """The KV heads model rank ``t`` of ``T`` attends with on the sharded
+    layout (its GQA cache's heads)."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if T == 1 or H % T:
+        return Hkv
+    if Hkv % T == 0:
+        return Hkv // T
+    heads = kv_heads_of(H, Hkv, T, t)
+    return H // T if heads is None else heads[1] - heads[0]
+
+
+def _kv_cols(w: torch.Tensor, heads, hd: int) -> torch.Tensor:
+    """Columns of a (..., Hkv * hd) tensor of the KV heads ``heads`` (a
+    (k0, k1) range, or one index per query head)."""
+    if isinstance(heads, tuple):
+        return w[..., heads[0] * hd:heads[1] * hd]
+    idx = torch.tensor([h * hd + i for h in heads for i in range(hd)],
+                       device=w.device)
+    return w.index_select(w.dim() - 1, idx)
+
+
+def tp_view(params, cfg: AttnConfig, pctx, spec: dict):
+    """(weights, config, split) of this rank on a ``shard_dense`` mesh:
+    the tensors ``gqa_*`` / ``mla_*`` compute with, the config of the
+    rank's heads, and whether the heads split over the model axis (False:
+    every weight is gathered whole and the mixer runs whole on every rank,
+    where the heads do not divide by the axis).  ``spec``: the mixer's
+    entries (``sharding.block_layout`` without the ``attn.`` prefix)."""
+    from types import SimpleNamespace
+
+    T, t = pctx.ep_size, pctx.ep_rank
+    H = cfg.num_heads
+    names = [n for n in spec if getattr(params, n, None) is not None]
+    split = T > 1 and H % T == 0      # then H * hd divides: wq is split
+    if not split:
+        return (SimpleNamespace(**{n: sharding.use(
+            getattr(params, n), spec[n], pctx, model=True) for n in names}),
+            cfg, False)
+    Hl = H // T
+    if cfg.is_mla:
+        w = {n: sharding.use(getattr(params, n), spec[n], pctx,
+                             model=n == "wq_a") for n in names}
+        return (SimpleNamespace(**w),
+                dataclasses.replace(cfg, num_heads=Hl, num_kv_heads=Hl),
+                True)
+    w = {n: sharding.use(getattr(params, n), spec[n], pctx)
+         for n in names if n not in ("wk", "wv", "bk", "bv")}
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    kv = [n for n in ("wk", "wv", "bk", "bv") if n in names]
+    if Hkv % T == 0:
+        w.update({n: sharding.use(getattr(params, n), spec[n], pctx)
+                  for n in kv})
+        Hkv_l = Hkv // T
+    else:
+        heads = kv_heads_of(H, Hkv, T, t)
+        if heads is None:
+            G = H // Hkv
+            heads = [(t * Hl + j) // G for j in range(Hl)]
+        Hkv_l = local_kv_heads(cfg, T, t)
+        w.update({n: _kv_cols(sharding.use(getattr(params, n), spec[n],
+                                           pctx, model=True), heads, hd)
+                  for n in kv})
+    return (SimpleNamespace(**w),
+            dataclasses.replace(cfg, num_heads=Hl, num_kv_heads=Hkv_l), True)

@@ -15,6 +15,23 @@ as the JAX ones do.  The layers are a list (one block per layer) where the
 JAX package stacks scanned segments; caches are one entry per layer, a
 :class:`KVCache` for an attention layer and an :class:`SSMState` for a
 Mamba layer.
+
+On a mesh with ``ParallelCtx.shard_dense`` (the reference's layout,
+``repro_torch.parallel.sharding``) every parameter is this rank's shard
+(``LMParams.layout`` holds the entries it was cut by), the batch is this
+rank's share (rows over the data axis, the sequence over the model axis:
+``sharding.local_batch``) and the residual stream between blocks its
+sequence shard.  The embedding is vocab-parallel over the model axis (the
+token ids gathered, the rank's rows looked up with the others masked to
+zero, then a reduce-scatter along the sequence); the head gives logits
+column-parallel over the vocabulary (B, S, V / T) from the gathered
+sequence, and :func:`lm_loss` and :func:`blocked_lm_loss` take the row
+max, the sum of exponentials and the target's logit over the model axis,
+so the vocab-sized logits are never gathered in training.  Where the
+vocabulary does not divide by the model axis the table is whole on every
+rank: the logits are the rank's sequence shard's (B, S / T, V) and the
+losses sum their terms over the model axis.  :func:`gather_logits` puts
+either back together.
 """
 
 from __future__ import annotations
@@ -31,10 +48,11 @@ from repro_torch.models.transformer import (
     init_block,
     init_cache_block,
 )
+from repro_torch.parallel import collectives, sharding
 
 __all__ = ["LMParams", "init_lm", "init_router_bias", "forward", "lm_loss",
            "blocked_lm_loss", "init_caches", "prefill_step", "decode_step",
-           "param_count"]
+           "param_count", "head_of", "vocab_split", "gather_logits"]
 
 
 class LMParams(nn.Module):
@@ -45,8 +63,9 @@ class LMParams(nn.Module):
     (``repro_torch.train.loop.init_train_state`` does)."""
 
     def __init__(self, embedding, layers, final_norm, lm_head=None,
-                 frontend_proj=None):
+                 frontend_proj=None, layout=None):
         super().__init__()
+        self.layout = layout        # shard_dense: every parameter's entries
         self.embedding = nn.Parameter(embedding, requires_grad=False)
         self.layers = nn.ModuleList(layers)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
@@ -67,23 +86,36 @@ def init_lm(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
     keeps its own experts of each MoE layer (``init_moe_params``), so the
     group's ranks together hold what one rank holds at ``ep_size == 1``.
     A frontend stub's projection, N(0, 1 / D) as the reference's, is drawn
-    last."""
-    layers = [init_block(cfg, kind, rcfg, pctx, generator, device=device)
-              for kind in layer_kinds(cfg)]
+    last.  With ``pctx.shard_dense`` each parameter is drawn whole from
+    the one-rank stream and cut to this rank's shard before the next is
+    drawn (a layer at a time), so the shard equals the slice of the
+    one-rank init bitwise."""
+    layout = sharding.lm_layout(cfg, pctx) if pctx.shard_dense else None
+    layers = []
+    for i, kind in enumerate(layer_kinds(cfg)):
+        bp = init_block(cfg, kind, rcfg, pctx, generator, device=device)
+        if layout is not None:
+            sharding.shard_params_(bp, layout, pctx, f"layers.{i}.")
+        layers.append(bp)
     D, V = cfg.d_model, cfg.vocab_size
 
-    def normal(shape, std=0.02):
-        return torch.randn(shape, generator=generator, dtype=rcfg.dtype,
-                           device=device) * std
+    def normal(name, shape, std=0.02):
+        t = torch.randn(shape, generator=generator, dtype=rcfg.dtype,
+                        device=device) * std
+        if layout is None:
+            return t
+        return sharding.cut(t, sharding.dims_of(layout[name], pctx)
+                            ).clone()
 
-    embedding = normal((V, D))
-    lm_head = None if cfg.tie_embeddings else normal((V, D))
+    embedding = normal("embedding", (V, D))
+    lm_head = None if cfg.tie_embeddings else normal("lm_head", (V, D))
     return LMParams(
         embedding=embedding, layers=layers,
         final_norm=torch.ones(D, dtype=rcfg.dtype, device=device),
         lm_head=lm_head,
         frontend_proj=(None if cfg.frontend == "none"
-                       else normal((D, D), D ** -0.5)))
+                       else normal("frontend_proj", (D, D), D ** -0.5)),
+        layout=layout)
 
 
 def init_router_bias(cfg: ModelConfig, *, device="cuda"
@@ -95,21 +127,92 @@ def init_router_bias(cfg: ModelConfig, *, device="cuda"
                        dtype=torch.float32, device=device)
 
 
-def _input_embeddings(params: LMParams, batch: dict,
-                      cfg: ModelConfig) -> torch.Tensor:
+def _input_embeddings(params: LMParams, batch: dict, cfg: ModelConfig,
+                      pctx: ParallelCtx) -> torch.Tensor:
     """Embed the tokens, or take the stub frontend's embeddings: frames
     (B, S, D) through ``frontend_proj``, or projected patches (B, P, D)
     over the first P token positions (mirrors the reference's
     ``_input_embeddings``).  The stub's inputs are cast to the
     projection's dtype."""
     proj = params.frontend_proj
+    lay = params.layout
+    if proj is not None and lay is not None:
+        proj = sharding.use(proj, lay["frontend_proj"], pctx, model=True)
     if cfg.frontend == "audio_frames":
         return batch["frames"].to(proj.dtype) @ proj
-    x = embed(batch["tokens"], params.embedding)
+    x = _embed_tokens(params, batch["tokens"], pctx)
     if cfg.frontend == "vision_patches":
         patches = batch["patches"].to(proj.dtype) @ proj          # (B, P, D)
-        x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
+        P, Sl = patches.shape[1], x.shape[1]
+        lo = 0 if lay is None else pctx.ep_rank * Sl   # the shard's start
+        n = min(max(P - lo, 0), Sl)
+        x = torch.cat([patches[:, lo:lo + n].to(x.dtype), x[:, n:]], dim=1)
     return x
+
+
+def _embed_tokens(params: LMParams, tokens: torch.Tensor,
+                  pctx: ParallelCtx) -> torch.Tensor:
+    if params.layout is None:
+        return embed(tokens, params.embedding)
+    return _embed_sharded(tokens, params.embedding,
+                          params.layout["embedding"], pctx)
+
+
+def _embed_sharded(tokens, table, spec, pctx):
+    """The embedding of this rank's sequence shard of ``tokens`` on the
+    sharded layout: vocab-parallel (every rank's token ids gathered, its
+    rows of the table looked up with the others masked to zero, a
+    reduce-scatter along the sequence), or a whole table's rows of the
+    shard's own tokens where the vocabulary does not divide."""
+    g, T = pctx.group, pctx.ep_size
+    if T == 1 or not sharding.on_model(spec[0]):
+        return embed(tokens, sharding.use(table, spec, pctx, model=True))
+    tab = sharding.use(table, spec, pctx)
+    ids = collectives.gather_along(g, tokens, 1)
+    Vl = tab.shape[0]
+    local = ids - pctx.ep_rank * Vl
+    mine = (local >= 0) & (local < Vl)
+    e = embed(local.clamp(0, Vl - 1), tab) * mine[..., None].to(tab.dtype)
+    return collectives.scatter_along(g, e, 1)
+
+
+def head_of(params: LMParams, pctx: ParallelCtx) -> torch.Tensor:
+    """The output head a rank computes with: (V, D), or on the sharded
+    layout its vocab rows gathered over the data axis."""
+    head = params.head()
+    if params.layout is None:
+        return head
+    name = "embedding" if params.lm_head is None else "lm_head"
+    return sharding.use(head, params.layout[name], pctx)
+
+
+def _unembed(x: torch.Tensor, params: LMParams, pctx: ParallelCtx):
+    """fp32 logits of the final-norm stream: (B, S, V), or on the sharded
+    layout column-parallel (B, S, V / T) over the gathered sequence (the
+    rank's (B, S / T, V) where the vocabulary does not divide)."""
+    head = head_of(params, pctx)
+    if not vocab_split(params, pctx):
+        return unembed(x, head)
+    return unembed(collectives.gather_along(pctx.group, x, 1), head)
+
+
+def vocab_split(params, pctx) -> bool:
+    """On the sharded layout, the head's rows split over the model axis
+    (the vocabulary divides by it)."""
+    return params.layout is not None and pctx.ep_size > 1 and \
+        sharding.on_model(params.layout["embedding"][0])
+
+
+def gather_logits(logits: torch.Tensor, pctx: ParallelCtx,
+                  vocab_size: int) -> torch.Tensor:
+    """The whole (B, S, V) logits from the sharded layout's (collective
+    over the model axis, no gradient): column-parallel (B, S, V / T) are
+    gathered along the vocabulary, sequence-sharded (B, S / T, V) along
+    the sequence."""
+    if not pctx.shard_dense or pctx.ep_size == 1:
+        return logits
+    dim = 1 if logits.shape[-1] == vocab_size else 2
+    return collectives.gather_along(pctx.group, logits.detach(), dim)
 
 
 def forward(params: LMParams, batch: dict, cfg: ModelConfig,
@@ -130,7 +233,7 @@ def forward(params: LMParams, batch: dict, cfg: ModelConfig,
     (on a mesh) EP collectives included, in the same order on every rank.
     aux, drops and counts are this forward's; the recompute's copies feed
     only the gradient.  No layer draws random numbers."""
-    x = _input_embeddings(params, batch, cfg)
+    x = _input_embeddings(params, batch, cfg, pctx)
     dev = x.device
     aux_tot = torch.zeros((), dtype=torch.float32, device=dev)
     drops_tot = torch.zeros((), dtype=torch.int64, device=dev)
@@ -152,33 +255,86 @@ def forward(params: LMParams, batch: dict, cfg: ModelConfig,
     counts = torch.stack(counts)
     if return_hidden:
         return x, aux_tot, drops_tot, counts
-    return unembed(x, params.head()), aux_tot, drops_tot, counts
+    return _unembed(x, params, pctx), aux_tot, drops_tot, counts
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor, *,
-            z_loss: float = 1e-4) -> torch.Tensor:
-    """Token cross-entropy (fp32) with z-loss regularisation."""
-    logits = logits.to(torch.float32)
+            z_loss: float = 1e-4,
+            pctx: ParallelCtx | None = None) -> torch.Tensor:
+    """Token cross-entropy (fp32) with z-loss regularisation.  On the
+    sharded layout (``pctx.shard_dense``) ``targets`` is the rank's
+    sequence shard and ``logits`` the head's (see the module's notes); the
+    loss is the data rank's, on every rank of its model group."""
+    if pctx is None or not pctx.shard_dense or pctx.ep_size == 1:
+        logits = logits.to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          targets[..., None].to(torch.int64))[..., 0]
+        return (lse - ll).mean() + z_loss * (lse ** 2).mean()
+    T = pctx.ep_size
+    if logits.shape[1] == targets.shape[1]:        # (B, S / T, V)
+        a, b = _ce_terms(logits.to(torch.float32), targets)
+        ab = collectives.all_reduce(pctx.group, torch.stack([a, b]))
+        n = targets.numel() * T
+        return ab[0] / n + z_loss * ab[1] / n
+    tg = collectives.gather_along(pctx.group, targets, 1)
+    a, b = _ce_split(logits.to(torch.float32), tg, pctx)
+    return a / tg.numel() + z_loss * b / tg.numel()
+
+
+def _ce_terms(logits: torch.Tensor, targets: torch.Tensor):
+    """(sum of lse - target logit, sum of lse^2) over the tokens."""
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets[..., None].to(torch.int64))[..., 0]
-    return (lse - ll).mean() + z_loss * (lse ** 2).mean()
-
-
-def _chunk_terms(xc: torch.Tensor, head32: torch.Tensor, tc: torch.Tensor):
-    logits = torch.einsum("bsd,vd->bsv", xc.to(torch.float32), head32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, tc[..., None].to(torch.int64))[..., 0]
     return (lse - ll).sum(), (lse ** 2).sum()
+
+
+def _ce_split(logits, targets, pctx):
+    """:func:`_ce_terms` from this model rank's column-parallel logits
+    (B, S, V / T) of the whole sequence's ``targets``: the row max, the
+    sum of exponentials and the target's logit taken over the model axis.
+    The sums' backward is the identity: every rank holds the same loss
+    and back-propagates it whole."""
+    g = pctx.group
+    Vl = logits.shape[-1]
+    m = collectives.all_max(g, logits.detach().amax(dim=-1))
+    se = collectives.all_reduce(
+        g, torch.exp(logits - m[..., None]).sum(dim=-1))
+    lse = m + torch.log(se)
+    local = targets.to(torch.int64) - pctx.ep_rank * Vl
+    mine = (local >= 0) & (local < Vl)
+    ll = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    ll = collectives.all_reduce(g, torch.where(mine, ll, 0.0))
+    return (lse - ll).sum(), (lse ** 2).sum()
+
+
+def _chunk_terms(xc: torch.Tensor, head32: torch.Tensor, tc: torch.Tensor,
+                 pctx=None):
+    logits = torch.einsum("bsd,vd->bsv", xc.to(torch.float32), head32)
+    if pctx is None:
+        return _ce_terms(logits, tc)
+    return _ce_split(logits, tc, pctx)
 
 
 def blocked_lm_loss(x: torch.Tensor, head: torch.Tensor,
                     targets: torch.Tensor, *, z_loss: float = 1e-4,
-                    chunks: int = 8) -> torch.Tensor:
+                    chunks: int = 8, pctx: ParallelCtx | None = None,
+                    vocab_split: bool = False) -> torch.Tensor:
     """Cross-entropy over sequence chunks without materialising the full
     (B, S, V) fp32 logits: each chunk's logits are recomputed in the
     backward (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint``).  The head is cast to fp32 once, so its gradient
-    accumulates over the chunks in fp32."""
+    accumulates over the chunks in fp32.  On the sharded layout ``x`` is
+    the final-norm stream's shard, ``head`` :func:`head_of`'s and
+    ``targets`` the shard's: with ``vocab_split`` (the head's rows split
+    over the model axis) the sequence is gathered and each chunk's
+    column-parallel terms are taken over the model axis, else the
+    shard's chunks are summed over it."""
+    sharded = pctx is not None and pctx.shard_dense and pctx.ep_size > 1
+    split = sharded and vocab_split
+    if split:
+        x = collectives.gather_along(pctx.group, x, 1)
+        targets = collectives.gather_along(pctx.group, targets, 1)
     B, S, _ = x.shape
     chunks = max(1, min(chunks, S))
     while S % chunks:
@@ -190,9 +346,12 @@ def blocked_lm_loss(x: torch.Tensor, head: torch.Tensor,
         sl = slice(c * size, (c + 1) * size)
         a, b = torch.utils.checkpoint.checkpoint(
             _chunk_terms, x[:, sl], head32, targets[:, sl],
-            use_reentrant=False)
+            pctx if split else None, use_reentrant=False)
         nll, z = nll + a, z + b
     n = B * S
+    if sharded and not split:
+        nz = collectives.all_reduce(pctx.group, torch.stack([nll, z]))
+        nll, z, n = nz[0], nz[1], n * pctx.ep_size
     return nll / n + z_loss * z / n
 
 
@@ -202,10 +361,14 @@ def param_count(params: LMParams) -> int:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                rcfg: RuntimeConfig, *, device="cuda") -> list:
-    """One decode cache per layer (KVCache or SSMState by the layer's kind)."""
+                rcfg: RuntimeConfig, *, device="cuda",
+                pctx: ParallelCtx | None = None) -> list:
+    """One decode cache per layer (KVCache or SSMState by the layer's
+    kind); on the sharded layout a GQA cache holds the KV heads this rank
+    attends with."""
     return [init_cache_block(cfg, kind, batch, max_seq, rcfg.dtype,
-                             device=device) for kind in layer_kinds(cfg)]
+                             device=device, pctx=pctx)
+            for kind in layer_kinds(cfg)]
 
 
 def _run_layers(x, params: LMParams, caches, cfg, rcfg, pctx, *, decode,
@@ -226,19 +389,24 @@ def prefill_step(params: LMParams, caches, tokens: torch.Tensor,
                  valid_len=None, router_bias: torch.Tensor | None = None):
     """Chunked prefill of a (B, C) chunk at the caches' offsets.
 
-    Returns (logits (B, C, V) fp32, new_caches).
+    Returns (logits (B, C, V) fp32, new_caches).  On the sharded layout
+    ``tokens`` is this rank's shard of the chunk (B, C / T) and the logits
+    are column-parallel (B, C, V / T) (:func:`gather_logits` makes them
+    whole).
     """
-    x = embed(tokens, params.embedding)
+    x = _embed_tokens(params, tokens, pctx)
     x, new_caches = _run_layers(x, params, caches, cfg, rcfg, pctx,
                                 decode=False, valid_len=valid_len,
                                 router_bias=router_bias)
-    return unembed(x, params.head()), new_caches
+    return _unembed(x, params, pctx), new_caches
 
 
 def decode_step(params: LMParams, caches, tokens: torch.Tensor,
                 cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx, *,
                 router_bias: torch.Tensor | None = None):
-    """One-token decode.  tokens: (B, 1).  Returns (logits, new_caches)."""
+    """One-token decode.  tokens: (B, 1).  Returns (logits, new_caches).
+    The sharded layout (``pctx.shard_dense``) raises: decode on it is not
+    ported yet (``transformer.block_apply``)."""
     x = embed(tokens, params.embedding)
     x, new_caches = _run_layers(x, params, caches, cfg, rcfg, pctx,
                                 decode=True, router_bias=router_bias)

@@ -14,6 +14,13 @@ output projection (fp32 @ bf16 promotes to an fp32 product in JAX), which
 is cast back to the model dtype at the end.  The causal conv is written as
 the same shifted sums as the reference, not ``conv1d`` (which would go
 through cuDNN, TF32 by default).
+
+On the sharded layout (``ParallelCtx.shard_dense``) ``in_proj``,
+``conv_w``, ``conv_b`` and ``out_proj`` take the reference's placements
+(``repro_torch.parallel.sharding``), but ``in_proj``'s split output
+mixes z, x, B, C and dt, which is not a split by heads: the block gathers
+them over the model axis at use, as FSDP gathers over the data axis, and
+the mixer runs whole on every rank (``transformer.block_apply``).
 """
 
 from __future__ import annotations

@@ -7,9 +7,16 @@ Mirrors ``repro.models.transformer`` for the block kinds ``attn+moe``,
 built by ``repro_torch.launch.mesh``: the EP group is the mesh's model
 axis, the data group its batch axis; a factored EP group of racks x lanes,
 ``collectives.factor``, is the mesh with a rack axis, and its MoE blocks
-run ``hier_a2a``): attention, Mamba and dense layers are replicated on
-every rank of an EP group, which all see their data rank's rows of the
-batch, and each MoE block runs the EP layer (:func:`_ep_moe_block`).  JAX
+run ``hier_a2a``).  With ``ParallelCtx.shard_dense`` (training and
+prefill) the model takes the reference's layout
+(``repro_torch.parallel.sharding``): the residual stream is each model
+rank's shard of the sequence, attention and the dense FFN are tensor
+parallel over the model axis, every large weight is FSDP over the data
+axis, and each MoE block runs the EP layer on the stream's shard
+(:func:`_block_apply_sharded`).  Without it (decode on the serve CLI's EP
+group) attention, Mamba and dense layers are replicated on every rank of
+an EP group, which all see their data rank's rows of the batch, and each
+MoE block runs the EP layer (:func:`_ep_moe_block`).  JAX
 groups identical layers into scanned segments (and a hybrid's repeating
 period into one "cycle" segment); here the layers are a Python list and
 each block runs in turn.
@@ -39,7 +46,7 @@ from repro_torch.models.layers import dense_swiglu, rms_norm
 from repro_torch.models.ssm import SSMConfig, SSMState
 from repro_torch.moe.gating import GatingConfig
 from repro_torch.moe.layer import MoEConfig, default_capacities, init_moe_params
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, sharding
 
 __all__ = ["RuntimeConfig", "ParallelCtx", "BlockParams", "attn_config",
            "ssm_config", "effective_rack_limit", "moe_config", "init_block",
@@ -88,12 +95,23 @@ class ParallelCtx:
     ``d * R + r``; a factored group is rack-major inside each data row, so
     its rank r holds flat rank r's experts.  ``batch_replicated``: every
     data row holds the whole global batch, which does not divide over the
-    data group (``sharding.batch_specs``); the train step sets it."""
+    data group (``sharding.batch_rows``); the train step sets it.
+    ``shard_dense``: the reference's layout on the mesh
+    (``repro_torch.parallel.sharding``): tensor parallelism over the model
+    axis, FSDP over the data axis and a sequence-parallel residual stream
+    (:func:`block_apply`), for training and prefill; unset, the dense
+    weights are whole on every rank and only the experts are split (the
+    serve CLI's EP group).  Transitional: decode on the sharded layout is
+    not ported, and refuses it.  ``mesh_axes``: the mesh's (axis name,
+    size) pairs, which ``sharding.from_ctx`` reads (empty: one rank, or a
+    bare EP group)."""
 
     group: object = None
     data: object = None
     world: object = None
     batch_replicated: bool = False
+    shard_dense: bool = False
+    mesh_axes: tuple = ()
 
     @property
     def ep_size(self) -> int:
@@ -266,18 +284,24 @@ def init_block(cfg: ModelConfig, kind: str, rcfg: RuntimeConfig,
 
 
 def init_cache_block(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
-                     dtype, *, device="cuda") -> KVCache | SSMState:
+                     dtype, *, device="cuda",
+                     pctx: ParallelCtx | None = None) -> KVCache | SSMState:
     """Decode cache entry for one layer: a KVCache for attention (MLA: the
     latent (B, S, kv_lora) and the rope key (B, S, rope)), an SSMState
-    (fp32 state, conv tail in ``dtype``) for a Mamba mixer."""
+    (fp32 state, conv tail in ``dtype``) for a Mamba mixer.  On the
+    sharded layout (``pctx.shard_dense``) a GQA cache holds the KV heads
+    this rank attends with (``attention.local_kv_heads``)."""
     length = torch.zeros(batch, dtype=torch.int64, device=device)
     if kind.startswith("attn+"):
         if cfg.is_mla:
             k_shape = (batch, max_seq, cfg.kv_lora_rank)
             v_shape = (batch, max_seq, cfg.qk_rope_dim)
         else:
-            k_shape = v_shape = (batch, max_seq, cfg.num_kv_heads,
-                                 cfg.head_dim)
+            hkv = cfg.num_kv_heads
+            if pctx is not None and pctx.shard_dense:
+                hkv = attn_mod.local_kv_heads(attn_config(cfg), pctx.ep_size,
+                                              pctx.ep_rank)
+            k_shape = v_shape = (batch, max_seq, hkv, cfg.head_dim)
         return KVCache(k=torch.zeros(k_shape, dtype=dtype, device=device),
                        v=torch.zeros(v_shape, dtype=dtype, device=device),
                        length=length)
@@ -361,6 +385,15 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
     Modes: full forward (cache None), chunked prefill (cache given, decode
     False), decode (cache given, decode True, S == 1).
     """
+    if pctx.shard_dense:
+        if decode:
+            raise ValueError(
+                "decode on the sharded layout (ParallelCtx.shard_dense) is "
+                "not ported yet: it comes with the sequence-sharded KV "
+                "cache; decode on an EP group with shard_dense unset")
+        return _block_apply_sharded(x, bp, kind, cfg, rcfg, pctx,
+                                    cache=cache, router_bias=router_bias,
+                                    valid_len=valid_len)
     mixer, ffn_kind = kind.split("+")
     dev = x.device
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -408,5 +441,165 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
                                                    router_bias)
         else:
             y2 = dense_swiglu(h2, *bp.ffn)
+        x = x + y2
+    return x, aux, drops, counts, new_cache
+
+
+# ------------------------------------------------- the sharded layout ----
+
+def _seq_gather(h: torch.Tensor, pctx: ParallelCtx) -> torch.Tensor:
+    """The whole sequence from every model rank's shard (B, S / T, ...)
+    (Megatron's sequence-parallel entry: the backward reduce-scatters)."""
+    return collectives.gather_along(pctx.group, h, 1)
+
+
+def _seq_exit(y: torch.Tensor, pctx: ParallelCtx, split: bool):
+    """Back to this rank's sequence shard: the sum of the ranks' partial
+    ``y`` reduce-scattered (``split``: heads or FFN columns over the model
+    axis; the partials in the model dtype, as the reference reduces them),
+    or this rank's slice of a ``y`` every rank computed whole."""
+    T = pctx.ep_size
+    if split:
+        return collectives.scatter_along(pctx.group, y, 1)
+    if T == 1:
+        return y
+    n = y.shape[1] // T
+    return y.narrow(1, pctx.ep_rank * n, n)
+
+
+def _ssm_view(params, spec: dict, pctx: ParallelCtx):
+    """The Mamba mixer's weights gathered whole (in_proj's model split
+    mixes z, x, B, C and dt, not heads): every rank runs the whole
+    mixer."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**{n: sharding.use(getattr(params, n), spec[n],
+                                              pctx, model=True)
+                              for n in spec})
+
+
+def _moe_view(mp, spec: dict, pctx: ParallelCtx):
+    """The MoE weights one call computes with: the rank's experts gathered
+    over the data axis into slot buffers of their own (FSDP; an expert
+    weight the data axis does not split keeps its buffer), the router
+    whole and the shared expert gathered whole, as the reference's island
+    takes it."""
+    from repro_torch.moe.layer import GatheredMoE
+
+    mains, slots = [], []
+    for n, buf in zip(("w1", "w3", "w2"), mp.slot_buffers()):
+        w, sp = getattr(mp, n), (None,) + tuple(spec[n][1:])
+        if pctx.data is None or all(e is None for e in sp):
+            mains.append(w)
+            slots.append(buf)
+            continue
+        whole = [s * (pctx.data.size if e is not None else 1)
+                 for s, e in zip(w.shape, sp)]
+        buf = w.new_zeros((whole[0] + mp.n_slot,) + tuple(whole[1:]))
+        mains.append(sharding.use(w, sp, pctx, out=buf[:whole[0]]))
+        slots.append(buf)
+    shared = {n: None if getattr(mp, n) is None else sharding.use(
+        getattr(mp, n), spec[n], pctx, model=True)
+        for n in ("shared_w1", "shared_w3", "shared_w2")}
+    return GatheredMoE(mp.router, *mains, **shared, n_slot=mp.n_slot,
+                       slots=tuple(slots))
+
+
+def _ep_moe_block_sharded(x, mp, spec, mcfg, pctx, router_bias):
+    """(B, S / T, D) -> (B, S / T, D): the EP layer on this rank's
+    sequence shard (already split, nothing gathered back), with its
+    experts gathered over the data axis; aux, drops and counts summed as
+    :func:`_ep_moe_block` sums them."""
+    B, S, D = x.shape
+    g = pctx.group
+    y, aux, stats = _moe_view(mp, spec, pctx)(
+        x.reshape(-1, D), mcfg, axis_name=g, router_bias=router_bias)
+    world = g if pctx.batch_replicated else pctx.world_group
+    drops = stats.drops_dispatch + stats.drops_slot
+    counts = stats.counts
+    if world is not None:
+        summed = collectives.all_reduce(world, torch.cat([counts,
+                                                          drops[None]]))
+        counts, drops = summed[:-1], summed[-1]
+        aux = collectives.all_reduce(world, aux)
+    return y.reshape(B, S, D), aux, drops, counts
+
+
+def _block_apply_sharded(x, bp, kind, cfg, rcfg, pctx, *, cache=None,
+                         router_bias=None, valid_len=None):
+    """:func:`block_apply` on the reference's layout
+    (``ParallelCtx.shard_dense``): ``x`` is this rank's sequence shard (B,
+    S / T, D), T the model axis (the reference's ``wsc`` "seq" layout), and
+    the norms run on it.  A mixer gathers the sequence at entry ("full"),
+    runs on the rank's heads (attention) or whole (Mamba), and leaves by a
+    reduce-scatter of wo's partial sums, or its slice of the whole output;
+    the dense FFN is column-parallel w1 / w3 and row-parallel w2 between
+    the same two; the MoE block runs on the shard.  Every weight is
+    gathered over the data axis at use (FSDP).
+
+    Gradients: a tensor every rank of the model group holds whole (the
+    gathered sequence, a gathered weight) carries a part of its cotangent
+    on each rank (``collectives``' notes), so a replicated parameter's
+    gradient is a part too and is summed over the model axis
+    (``sharding.lm_param_specs``)."""
+    mixer, ffn_kind = kind.split("+")
+    dev = x.device
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    drops = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = torch.zeros(cfg.moe.num_experts if cfg.moe else 1,
+                         dtype=torch.int64, device=dev)
+    new_cache = cache
+    spec = sharding.block_layout(cfg, kind, pctx)
+
+    def sub(prefix):
+        n = len(prefix)
+        return {k[n:]: v for k, v in spec.items() if k.startswith(prefix)}
+
+    h = _seq_gather(rms_norm(x, bp.norm1), pctx)
+    if mixer == "attn":
+        acfg = attn_config(cfg)
+        w, lcfg, split = attn_mod.tp_view(bp.attn, acfg, pctx, sub("attn."))
+        if cache is not None:
+            pre = attn_mod.mla_prefill if cfg.is_mla else \
+                attn_mod.gqa_prefill
+            y, new_cache = pre(h, cache, w, lcfg, valid_len=valid_len,
+                               block_kv=rcfg.block_kv, project=not split)
+        else:
+            full = attn_mod.mla_attention if cfg.is_mla else \
+                attn_mod.gqa_attention
+            y = full(h, w, lcfg, block_kv=rcfg.block_kv,
+                     plain_backward=rcfg.plain_backward, project=not split)
+        if split:                     # row-parallel wo: partial sums
+            y = y @ w.wo
+    else:
+        scfg = ssm_config(cfg)
+        w = _ssm_view(bp.ssm, sub("ssm."), pctx)
+        split = False
+        if cache is not None:
+            y, new_cache = ssm_mod.ssd_prefill(h, cache, w, scfg)
+        else:
+            y, _final = ssm_mod.ssd_forward(
+                h, w, scfg, plain_backward=rcfg.plain_backward)
+    x = x + _seq_exit(y, pctx, split)
+
+    if ffn_kind != "none":
+        h2 = rms_norm(x, bp.norm2)
+        if ffn_kind == "moe":
+            B, S, D = x.shape
+            rows = B // pctx.batch_size_divisor if pctx.batch_replicated \
+                else B
+            mcfg = moe_config(cfg, rcfg, pctx, max(1, rows * S),
+                              dispatch_mode="a2a")
+            y2, aux, drops, counts = _ep_moe_block_sharded(
+                h2, bp.moe, sub("moe."), mcfg, pctx, router_bias)
+        else:
+            fs = [spec[f"ffn.{i}"] for i in range(3)]
+            split = pctx.ep_size > 1 and sharding.on_model(fs[0][1])
+            w1, w3, w2 = (sharding.use(wi, si, pctx, model=not split)
+                          for wi, si in zip(bp.ffn, fs))
+            # Column-parallel w1 / w3, row-parallel w2 (partial sums)
+            # where the hidden dimension is split.
+            y2 = _seq_exit(dense_swiglu(_seq_gather(h2, pctx), w1, w3, w2),
+                           pctx, split)
         x = x + y2
     return x, aux, drops, counts, new_cache

@@ -30,8 +30,8 @@ from repro_torch.moe.expert import quantize_weight_cols
 from repro_torch.moe.gating import GatingConfig
 from repro_torch.moe.stages import MoEStats, run_staged_moe
 
-__all__ = ["MoEConfig", "MoEParams", "MoEStats", "moe_layer_local",
-           "init_moe_params", "default_capacities"]
+__all__ = ["MoEConfig", "MoEParams", "GatheredMoE", "MoEStats",
+           "moe_layer_local", "init_moe_params", "default_capacities"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,6 +181,36 @@ class MoEParams(nn.Module):
                 router_bias: torch.Tensor | None = None):
         return moe_layer_local(x, self, cfg, axis_name=axis_name,
                                router_bias=router_bias)
+
+
+class GatheredMoE:
+    """:class:`MoEParams`' fields over the weights one call computes with
+    (``repro_torch.models.transformer`` on the sharded layout: the rank's
+    experts gathered over the data axis, FSDP): ``w1``, ``w3``, ``w2``
+    the heads of ``slots`` (the call's own slot buffers, or the
+    parameters' where no gather was needed), each carrying its gradient
+    back to the shard it was gathered from."""
+
+    def __init__(self, router, w1, w3, w2, shared_w1=None, shared_w3=None,
+                 shared_w2=None, *, n_slot: int, slots: tuple):
+        self.router, self.w1, self.w3, self.w2 = router, w1, w3, w2
+        self.shared_w1, self.shared_w3 = shared_w1, shared_w3
+        self.shared_w2 = shared_w2
+        self.n_slot = n_slot
+        self._slots = slots
+        self._q8 = None
+
+    def slot_buffers(self):
+        return self._slots
+
+    def q8_slot_buffers(self) -> tuple:
+        if self._q8 is None:
+            self._q8 = tuple(_q8_slots(w.detach(), self.n_slot)
+                             for w in (self.w1, self.w3, self.w2))
+        return self._q8
+
+    def __call__(self, x: torch.Tensor, cfg: MoEConfig, **kw):
+        return MoEParams.forward(self, x, cfg, **kw)
 
 
 def _q8_slots(w: torch.Tensor, n_slot: int):

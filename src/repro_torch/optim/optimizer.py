@@ -18,25 +18,33 @@ the fp32 temporaries (a GLM-4.5-Air expert weight holds 738M elements).
 The step count and the learning rate are host numbers: nothing here reads
 the device.
 
-On a mesh the moments may be sharded (``init(params, shards)``, the
+On a mesh each parameter is this rank's shard of it
+(``repro_torch.parallel.sharding``), and the optimizers take each
+parameter's :class:`~repro_torch.parallel.sharding.Placement`
+(``update(..., placements=)``, ``clip_by_global_norm(..., spans=)``): the
+group each dimension is split over, and ``span``, the group whose ranks
+hold its distinct shards.  AdamW is elementwise, so it updates a shard as
+it is, and its moments take the shard's shape (the reference's
+``opt_state_specs``).  On the EP layout (``ParallelCtx.shard_dense``
+unset) the moments are sharded further over the parameter's replicas
+(``init(params, shards)``, the
 :class:`repro_torch.parallel.sharding.MomentShard` of each parameter):
 each rank then updates its moment shard and the matching slice of the
-parameter, and an ``all_gather`` over the parameter's replica group puts
-the parameter back together on every replica.  AdamW is elementwise, so
-the sharded update is bitwise the unsharded one.  Adafactor's state is
-small (factored second moments, no first moment) and stays whole on every
-replica: each computes the same update from the same summed gradient.  An
-expert parameter is the EP rank's rows of it, so where Adafactor's
-statistics span those rows (the update's RMS, and for a 2-D parameter the
-column mean and the mean of v_row) it sums them over the EP group
-(``update(..., sharded=, group=)``, as :func:`clip_by_global_norm`
-takes them), and every rank scales its rows as the whole tensor's update
-would be scaled.  The gather runs in
-pieces of at most ``BUCKET_BYTES`` (gloo stages CUDA tensors through the
-host), as does :func:`reduce_grads`, the gradients' sums over their
-groups.  :func:`clip_by_global_norm` takes the norm over the whole mesh
-when given the EP group: expert shards' squares are summed over it, and
-each replicated parameter counts once.
+parameter, and an ``all_gather`` over the replica group puts the
+parameter back together on every replica, bitwise the unsharded update.
+Adafactor's state is small (factored second moments, no first moment)
+and mirrors its parameter's placement (the reference's
+``opt_state_specs``: v_row drops the last dimension's entry, v_col the
+second last): where a statistic spans a split dimension it is summed over
+that dimension's group, so every shard sees the unsharded values, as
+GSPMD gives them to the reference: v_row's mean over a split last
+dimension, v_col's and v_row's means over a split second last, and the
+update's RMS over every split (``span``).  The gather runs in pieces of at
+most ``BUCKET_BYTES`` (gloo stages CUDA tensors through the host), as
+does :func:`reduce_grads`, the gradients' sums over their groups.
+:func:`clip_by_global_norm` counts each element once: the squares of a
+split parameter are summed over its ``span``, and a replicated one counts
+once.
 """
 
 from __future__ import annotations
@@ -113,25 +121,29 @@ def _sq_sum(grads):
     return total
 
 
-def clip_by_global_norm(grads: list, max_norm: float, *, sharded=None,
-                        group=None):
+def clip_by_global_norm(grads: list, max_norm: float, *, spans=None):
     """Scale ``grads`` in place so their global L2 norm (fp32) is at most
     ``max_norm``; returns the norm before clipping, a device scalar.
 
-    On a mesh ``sharded[i]`` marks the gradients of ``group``'s shards
-    (the experts over the EP group): their squares are summed over the
-    group, and every other gradient (replicated, whole on every rank)
-    counts once."""
-    if group is None or group.size == 1 or sharded is None:
+    On a mesh ``spans[i]`` is the group whose ranks hold gradient i's
+    distinct shards (None: whole on every rank): each group's squares are
+    summed over it, in the order the groups first appear (the same on
+    every rank), and a whole gradient counts once."""
+    if spans is None:
         total = _sq_sum(grads)
     else:
-        rep = _sq_sum([g for g, s in zip(grads, sharded) if not s])
-        own = _sq_sum([g for g, s in zip(grads, sharded) if s])
-        if own is None:
-            own = torch.zeros((), dtype=torch.float32,
-                              device=grads[0].device)
-        own = collectives.all_reduce(group, own)
-        total = own if rep is None else rep + own
+        order, parts = [], {}
+        for g, sp in zip(grads, spans):
+            if id(sp) not in parts:
+                order.append(sp)
+                parts[id(sp)] = []
+            parts[id(sp)].append(g)
+        total = None
+        for sp in order:
+            t = _sq_sum(parts[id(sp)])
+            if sp is not None and sp.size > 1:
+                t = collectives.all_reduce(sp, t)
+            total = t if total is None else total + t
     gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in grads:
@@ -191,9 +203,9 @@ def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def update(grads: list, state: AdamWState, params: list, step: int,
-               *, sharded=None, group=None) -> AdamWState:
-        """``sharded`` and ``group`` are ignored: the update is elementwise."""
-        del sharded, group
+               *, placements=None) -> AdamWState:
+        """``placements`` is ignored: the update is elementwise."""
+        del placements
         stepf = step + 1.0
         lr_t = lr_fn(step)
         c1, c2 = 1 - b1 ** stepf, 1 - b2 ** stepf
@@ -235,8 +247,8 @@ def _row_blocks(p: torch.Tensor):
 
 def _mean_over(sq: torch.Tensor, p: torch.Tensor, grp) -> torch.Tensor:
     """``sq`` (a sum over ``p``) over the elements of the whole tensor:
-    ``p``'s alone, or summed over its rows on every rank of ``grp``."""
-    if grp is None:
+    ``p``'s alone, or summed over its shards on every rank of ``grp``."""
+    if grp is None or grp.size == 1:
         return sq / p.numel()
     return collectives.all_reduce(grp, sq) / (p.numel() * grp.size)
 
@@ -257,15 +269,11 @@ def adafactor(lr: float | Callable, decay: float = 0.99, eps: float = 1e-30,
     size is made (an expert weight's u would be 15 GB at DeepSeek-V3's
     width): first the statistics (v_row, and v_col as a sum over the
     blocks), then the RMS of u, then the update, with u recomputed each
-    time.  The state is whole on every replica of a mesh (``shards`` of
-    ``init`` is ignored): each replica computes the same update from the
-    same summed gradient.  ``update(..., sharded=, group=)``: where
-    ``sharded[i]``, parameter i is this rank's rows (its first axis) of a
-    tensor split over ``group``, and the statistics that span that axis are
-    summed over it: the update's RMS always, and for a 2-D parameter, whose
-    rows are its second last axis, v_col's column sums and v_row's mean.
-    v_row is then this rank's rows, v_col whole, as the checkpoint's
-    global shapes (``train.loop``) have them."""
+    time.  On a mesh the state takes the parameter's shard (``shards`` of
+    ``init`` is ignored) and each replica computes the same update from
+    the same summed gradient; ``update(..., placements=)`` sums the
+    statistics that span a split dimension over its group (the module's
+    notes)."""
     lr_fn = lr if callable(lr) else (lambda _: float(lr))
 
     def init(params: list, shards: list | None = None) -> AdafactorState:
@@ -288,22 +296,26 @@ def adafactor(lr: float | Callable, decay: float = 0.99, eps: float = 1e-30,
         denom = (vr2[lead, lo:hi, None] / rmean[lead]) * vc2[lead, None, :]
         return gf * torch.rsqrt(torch.clamp(denom, min=eps))
 
-    def _update_factored(g, vr, vc, p, lr_t, grp):
+    def _update_factored(g, vr, vc, p, lr_t, grp, gr, gc):
         R, C = p.shape[-2], p.shape[-1]
         g3 = g.reshape(-1, R, C)
         p3 = p.view(-1, R, C)
         vr2, vc2 = vr.view(-1, R), vc.view(-1, C)
-        rows_split = grp is not None and p.dim() == 2
         col = torch.zeros_like(vc2)
         for lead, lo, hi in _row_blocks(p):
             gf = g3[lead, lo:hi].to(torch.float32)
             g2 = gf * gf + eps
-            vr2[lead, lo:hi].mul_(decay).add_((1 - decay) * g2.mean(dim=-1))
+            if gc is None:
+                mean = g2.mean(dim=-1)
+            else:
+                mean = collectives.all_reduce(gc, g2.sum(dim=-1)) / (
+                    C * gc.size)
+            vr2[lead, lo:hi].mul_(decay).add_((1 - decay) * mean)
             col[lead].add_(g2.sum(dim=0))
-        if rows_split:
-            Rg = R * grp.size
-            col = collectives.all_reduce(grp, col)
-            rsum = collectives.all_reduce(grp, vr2.sum(dim=-1, keepdim=True))
+        if gr is not None:
+            Rg = R * gr.size
+            col = collectives.all_reduce(gr, col)
+            rsum = collectives.all_reduce(gr, vr2.sum(dim=-1, keepdim=True))
             vc2.mul_(decay).add_((1 - decay) * (col / Rg))
             rmean = torch.clamp(rsum / Rg, min=eps)
         else:
@@ -333,20 +345,24 @@ def adafactor(lr: float | Callable, decay: float = 0.99, eps: float = 1e-30,
 
     @torch.no_grad()
     def update(grads: list, state: AdafactorState, params: list, step: int,
-               *, sharded=None, group=None) -> AdafactorState:
+               *, placements=None) -> AdafactorState:
         lr_t = lr_fn(step)
-        split = sharded if group is not None and group.size > 1 and \
-            sharded is not None else [False] * len(params)
-        for g, vr, vc, p, sp in zip(grads, state.v_row, state.v_col, params,
-                                    split):
+        pls = placements or [None] * len(params)
+        for g, vr, vc, p, pl in zip(grads, state.v_row, state.v_col, params,
+                                    pls):
             if not p.is_contiguous():
                 raise ValueError("adafactor updates contiguous parameters "
                                  "in place")
-            grp = group if sp else None
+            grp = None if pl is None else pl.span
+            if grp is not None and grp.size == 1:
+                grp = None
             if p.numel() == 0 and grp is None:
                 continue
             if _factored(p):
-                _update_factored(g, vr, vc, p, lr_t, grp)
+                dims = (None, None) if pl is None else pl.dims[-2:]
+                gr, gc = (None if d is None or d.size == 1 else d
+                          for d in dims)
+                _update_factored(g, vr, vc, p, lr_t, grp, gr, gc)
             else:
                 _update_whole(g, vr, p, lr_t, grp)
         return state

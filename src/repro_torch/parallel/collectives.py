@@ -18,6 +18,12 @@ MoE layer and the model need, in the JAX package's terms
   (``pmax``, no gradient);
 * :func:`shard`: this rank's slice of a replicated tensor along a
   dimension (the inverse of :func:`all_gather`);
+* :func:`gather_along`, :func:`scatter_along`, :func:`sum_grad`: the
+  pairs of the sharded layout (``repro_torch.parallel.sharding``), an
+  all-gather along a dimension whose backward is a reduce-scatter, a
+  reduce-scatter along a dimension whose backward is an all-gather, and
+  the identity whose backward is an all-reduce (the dual of
+  :func:`all_reduce`);
 * :func:`all_reduce_`, :func:`broadcast`, :func:`sendrecv`,
   :func:`barrier`: an in-place sum (gradient buckets), a broadcast and a
   point-to-point exchange (the pipeline), with no gradient, and a
@@ -52,6 +58,23 @@ backward in the same order as the forward:
 * ``all_reduce`` (the summed aux loss and statistics): the identity, so
   each rank back-propagates its own term of the sum.
 
+The sharded layout's pairs follow the other convention, Megatron's
+sequence parallelism: a tensor that every rank of the group holds whole
+(a gathered sequence, a gathered weight) carries on each rank only that
+rank's part of its cotangent, and the parts sum to the whole gradient.
+
+* :func:`gather_along` (shards -> whole along ``dim``): a reduce-scatter
+  of the cotangent along ``dim``, the sum of the ranks' parts of this
+  rank's slice;
+* :func:`scatter_along` (partial sums -> this rank's slice of the sum): an
+  all-gather of the slices' cotangents along ``dim``;
+* :func:`sum_grad` (the identity): an all-reduce of the cotangent, where a
+  replicated value with the whole cotangent on every rank enters a region
+  whose ranks each hold a part.
+
+Each works over any group: the model (EP) group, a factored group as
+one, or the data group.
+
 The same ops serve the data group (a ``ParallelCtx``'s ``data`` group:
 the global loss's sum, the MoE statistics) and the optimizer's groups
 (the gradients' in-place sums, the ``all_gather`` of updated parameter
@@ -83,7 +106,8 @@ import torch.distributed as dist
 
 __all__ = ["EPGroup", "init", "subgroup", "factor", "destroy", "all_gather",
            "all_to_all", "all_to_all_async", "reduce_scatter", "all_reduce",
-           "all_reduce_", "all_max", "shard", "barrier", "sendrecv", "broadcast",
+           "all_reduce_", "all_max", "shard", "gather_along", "scatter_along",
+           "sum_grad", "barrier", "sendrecv", "broadcast",
            "world_size", "world_rank", "KINDS", "bytes_by_kind",
            "calls_by_kind", "reset_counts", "counts"]
 
@@ -324,6 +348,57 @@ def _unshard(g: EPGroup, xs: torch.Tensor, dim: int) -> torch.Tensor:
     return parts.movedim(0, dim).flatten(dim, dim + 1)
 
 
+def gather_along(g: EPGroup | None, x: torch.Tensor, dim: int, *,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """Every rank's ``x`` put together along ``dim`` (``g`` None or of one
+    rank: ``x``); under a gradient its backward reduce-scatters the
+    cotangent along ``dim``.  ``out``: a tensor of the whole shape to
+    write into (a slot buffer's head), returned in place of a new one."""
+    if g is None or g.size == 1:
+        return x
+    if _grad(x):
+        return _GatherAlong.apply(g, x, dim, (out,))
+    return _gather_along(g, x, dim, out)
+
+
+def _gather_along(g, x, dim, out=None):
+    whole = _unshard(g, x.contiguous(), dim)
+    if out is None:
+        return whole.contiguous()
+    out.copy_(whole)
+    return out
+
+
+def scatter_along(g: EPGroup | None, x: torch.Tensor,
+                  dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum over ranks of ``x``
+    (``g`` None: ``x``); under a gradient its backward all-gathers the
+    slices' cotangents along ``dim``."""
+    if g is None or g.size == 1:
+        return x
+    if x.shape[dim] % g.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {g.size} ranks")
+    if _grad(x):
+        return _ScatterAlong.apply(g, x, dim)
+    return _scatter_along(g, x, dim)
+
+
+def _scatter_along(g, x, dim):
+    dim = dim % x.dim()
+    n = x.shape[dim] // g.size
+    parts = x.unflatten(dim, (g.size, n)).movedim(dim, 0)
+    return _reduce_scatter(g, parts.contiguous())
+
+
+def sum_grad(g: EPGroup | None, x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; under a gradient its backward all-reduces the
+    cotangent over ``g`` (the dual of :func:`all_reduce`)."""
+    if g is None or g.size == 1 or not _grad(x):
+        return x
+    return _SumGrad.apply(g, x)
+
+
 def barrier(g: EPGroup) -> None:
     dist.barrier(group=g.group)
 
@@ -439,3 +514,36 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return None, dy
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x, dim, out):
+        ctx.g, ctx.dim = g, dim
+        return _gather_along(g, x, dim, out[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _scatter_along(ctx.g, dy, ctx.dim), None, None
+
+
+class _ScatterAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x, dim):
+        ctx.g, ctx.dim = g, dim
+        return _scatter_along(g, x, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _unshard(ctx.g, dy.contiguous(), ctx.dim), None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _all_reduce(ctx.g, dy)

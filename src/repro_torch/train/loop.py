@@ -14,18 +14,22 @@ gradients are clipped by their global norm before the optimizer.  Metrics
 are device tensors: nothing here reads the device.
 
 On a mesh of D data rows x R EP ranks (``ParallelCtx`` ``data`` and
-``group``) the step takes the global batch and runs its data rank's rows
-(``sharding.local_batch``).  The rule: the sum over every rank of each
-rank's gradient contribution is the gradient of the reference's one
-global loss, the LM loss's mean over the global batch plus the aux loss
-summed over all ranks (the reference's island returns each device's aux
-and sums them).  So each rank back-propagates its LM loss scaled by 1/D
+``group``) the step takes the global batch and runs its rank's share
+(``sharding.local_batch``: its data rank's rows, and on the sharded layout
+its model rank's shard of the sequence).  The rule: the sum over every
+rank of each rank's gradient contribution is the gradient of the
+reference's one global loss, the LM loss's mean over the global batch
+plus the aux loss summed over all ranks (the reference's island returns
+each device's aux and sums them).  So each rank back-propagates its data
+row's LM loss (the same on every rank of its model group) scaled by 1/D
 plus the summed aux (whose ``all_reduce`` passes each rank's own term
-back); the gradients are then summed over the data group, and the
-router's and shared expert's, which each EP rank runs on its slice of the
-tokens only, over data x EP (``sharding.lm_param_specs``).  Taking the
-mean over the data group instead would leave the aux term's gradient D
-times too small.  Where the global batch does not divide over the data
+back); the gradients are then summed over each parameter's ``reduce``
+group (``sharding.lm_param_specs``): on the sharded layout over the axes
+the parameter is not split over (a split one's sum over the data axis
+is its gather's reduce-scatter), on the EP layout over the data group,
+and the router's and shared expert's, which each EP rank runs on its
+slice of the tokens only, over data x EP.  Taking the mean over the data
+group instead would leave the aux term's gradient D times too small.  Where the global batch does not divide over the data
 group, every data row runs all of it (``ParallelCtx.batch_replicated``):
 the reference then sums aux, drops and counts over the EP axes only, and
 each rank back-propagates its aux scaled by 1/D as well.  The metrics
@@ -42,7 +46,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (LMParams, blocked_lm_loss, forward,
-                                      init_router_bias, lm_loss)
+                                      head_of, init_router_bias, lm_loss,
+                                      vocab_split)
 from repro_torch.models.transformer import (ParallelCtx, RuntimeConfig,
                                             effective_rack_limit)
 from repro_torch.moe.gating import update_router_bias
@@ -72,14 +77,16 @@ class TrainState(NamedTuple):
 def init_train_state(params: LMParams, optimizer: Optimizer,
                      cfg: ModelConfig,
                      pctx: ParallelCtx | None = None) -> TrainState:
-    """Make every parameter trainable and start the optimizer state; on a
-    mesh, with each moment sharded over its parameter's replicas
-    (``sharding.opt_state_specs``)."""
+    """Make every parameter trainable and start the optimizer state: the
+    moments take each parameter's shard (the sharded layout mirrors the
+    placements, as the reference's ``opt_state_specs``); on the EP layout
+    each moment is sharded further over its parameter's replicas
+    (``sharding.moment_shards``)."""
     params.requires_grad_(True)
     plist = list(params.parameters())
     shards = None
-    if pctx is not None and pctx.world_size > 1:
-        shards = sharding.opt_state_specs(
+    if pctx is not None and pctx.world_size > 1 and not pctx.shard_dense:
+        shards = sharding.moment_shards(
             plist, sharding.lm_param_specs(params, pctx))
     return TrainState(params=params, opt_state=optimizer.init(plist, shards),
                       router_bias=init_router_bias(
@@ -93,12 +100,13 @@ def _loss(params, batch, cfg, rcfg, pctx, router_bias):
         x, aux, drops, counts = forward(params, batch, cfg, rcfg, pctx,
                                         router_bias=router_bias,
                                         return_hidden=True)
-        lm = blocked_lm_loss(x, params.head(), batch["targets"],
-                             chunks=rcfg.loss_chunks)
+        lm = blocked_lm_loss(x, head_of(params, pctx), batch["targets"],
+                             chunks=rcfg.loss_chunks, pctx=pctx,
+                             vocab_split=vocab_split(params, pctx))
     else:
         logits, aux, drops, counts = forward(params, batch, cfg, rcfg, pctx,
                                              router_bias=router_bias)
-        lm = lm_loss(logits, batch["targets"])
+        lm = lm_loss(logits, batch["targets"], pctx=pctx)
     return lm, aux, drops, counts
 
 
@@ -153,19 +161,25 @@ def loss_and_grads(params: LMParams, batch: dict, cfg: ModelConfig,
 def global_grads(params: LMParams, batch: dict, cfg: ModelConfig,
                  rcfg: RuntimeConfig, pctx: ParallelCtx,
                  tcfg: TrainConfig = TrainConfig(),
-                 router_bias: torch.Tensor | None = None):
-    """:func:`loss_and_grads` of this rank's rows of the global ``batch``,
-    then each gradient summed over its group of the mesh
-    (``sharding.lm_param_specs``): the gradients of the global loss (an
-    expert's: this EP rank's rows of it)."""
+                 router_bias: torch.Tensor | None = None, *,
+                 global_batch: int | None = None):
+    """:func:`loss_and_grads` of this rank's share of the global ``batch``
+    (``sharding.local_batch``; with ``global_batch``, ``batch`` is that
+    share already, of a global batch of that many rows), then each
+    gradient summed over its group of the mesh
+    (``sharding.lm_param_specs``): the gradients of the global loss (a
+    split parameter's: this rank's shard of it)."""
     if pctx.world_size == 1:
         return loss_and_grads(params, batch, cfg, rcfg, pctx, tcfg,
                               router_bias)
-    if sharding.batch_replicated(pctx, batch["targets"].shape[0]):
+    rows = batch["targets"].shape[0] if global_batch is None \
+        else global_batch
+    if sharding.batch_replicated(pctx, rows):
         pctx = dataclasses.replace(pctx, batch_replicated=True)
+    if global_batch is None:
+        batch = sharding.local_batch(batch, pctx)
     loss, drops, counts, grads = loss_and_grads(
-        params, sharding.local_batch(batch, pctx), cfg, rcfg, pctx, tcfg,
-        router_bias)
+        params, batch, cfg, rcfg, pctx, tcfg, router_bias)
     specs = sharding.lm_param_specs(params, pctx)
     with torch.no_grad():
         reduce_grads(grads, [s.reduce for s in specs])
@@ -173,24 +187,27 @@ def global_grads(params: LMParams, batch: dict, cfg: ModelConfig,
 
 
 def make_train_step(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
-                    optimizer: Optimizer, tcfg: TrainConfig = TrainConfig()):
+                    optimizer: Optimizer, tcfg: TrainConfig = TrainConfig(),
+                    *, global_batch: int | None = None):
     """``(state, batch) -> (state, metrics)``; ``batch`` is the global
-    batch (on a mesh each rank takes its data rank's rows)."""
+    batch (on a mesh each rank takes its share), or with ``global_batch``
+    this rank's share of a global batch of that many rows (a mesh cell's
+    step, ``launch.specs``)."""
     def train_step(state: TrainState, batch: dict):
         params = state.params
         loss, drops, counts, grads = global_grads(
-            params, batch, cfg, rcfg, pctx, tcfg, state.router_bias)
+            params, batch, cfg, rcfg, pctx, tcfg, state.router_bias,
+            global_batch=global_batch)
         with torch.no_grad():
-            sharded = None
+            specs = None
             if pctx.world_size > 1:
-                sharded = [s.expert for s in
-                           sharding.lm_param_specs(params, pctx)]
+                specs = sharding.lm_param_specs(params, pctx)
             grads, gnorm = clip_by_global_norm(
-                grads, tcfg.clip_norm, sharded=sharded, group=pctx.group)
+                grads, tcfg.clip_norm,
+                spans=None if specs is None else [s.span for s in specs])
             opt_state = optimizer.update(grads, state.opt_state,
                                          list(params.parameters()),
-                                         state.step, sharded=sharded,
-                                         group=pctx.group)
+                                         state.step, placements=specs)
         for p in params.parameters():
             p.grad = None
         router_bias = state.router_bias
@@ -216,40 +233,42 @@ def make_train_step(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
 # ---------------- the state at global shapes (checkpoints) ----------------
 
 def _leaves(state: TrainState, pctx: ParallelCtx):
-    """(key, tensor, expert, moment shard or None) of every tensor of
-    ``state``: the parameters, then the optimizer's per-parameter state
-    (AdamW's two moments, sharded on a mesh; Adafactor's v_row and v_col,
-    whole).  An expert parameter's state is expert-major as the parameter
-    is, except a factored v_col of a 2-D parameter (its columns)."""
+    """(key, tensor, per-dimension groups, moment shard or None) of every
+    tensor of ``state``: the parameters (each dimension split over its
+    placement's group), then the optimizer's per-parameter state (AdamW's
+    two moments, placed as their parameter, and on the EP layout sharded
+    over its replicas; Adafactor's v_row without the last dimension and v_col
+    without the second last of a factored parameter)."""
     named = list(state.params.named_parameters())
-    expert = [False] * len(named)
+    dims = [(None,) * p.dim() for _, p in named]
     if pctx.world_size > 1:
-        expert = [s.expert for s in
-                  sharding.lm_param_specs(state.params, pctx)]
+        dims = [s.dims for s in sharding.lm_param_specs(state.params, pctx)]
     opt = state.opt_state
     shards = getattr(opt, "shards", None) or [None] * len(named)
-    for (name, p), ex in zip(named, expert):
-        yield f"params/{name}", p, ex, None
+    for (name, p), dm in zip(named, dims):
+        yield f"params/{name}", p, dm, None
     for field in opt._fields:
         if field == "shards":
             continue
-        for (name, p), t, ex, sh in zip(named, getattr(opt, field), expert,
+        for (name, p), t, dm, sh in zip(named, getattr(opt, field), dims,
                                         shards):
-            ex_t = ex and (field != "v_col" or p.dim() >= 3)
-            yield f"opt_state/{field}/{name}", t, ex_t, sh
+            if field == "v_row" and p.dim() >= 2:
+                dm = dm[:-1]
+            elif field == "v_col":
+                dm = dm[:-2] + dm[-1:] if p.dim() >= 2 else ()
+            yield f"opt_state/{field}/{name}", t, dm, sh
 
 
 def global_shapes(state: TrainState, pctx: ParallelCtx) -> dict:
     """Every leaf's key -> its global shape (what ``state_to_global``
     gives), on any mesh."""
     out = {}
-    for key, t, ex, sh in _leaves(state, pctx):
+    for key, t, dims, sh in _leaves(state, pctx):
         shape = list(t.shape) if sh is None or sh.whole else \
             [s * sh.count if i == sh.dim else s
              for i, s in enumerate(t.shape)]
-        if ex:
-            shape[0] *= pctx.ep_size
-        out[key] = shape
+        out[key] = [s * (1 if g is None else g.size)
+                    for s, g in zip(shape, dims)]
     if state.router_bias is not None:
         out["router_bias"] = list(state.router_bias.shape)
     out["step"] = []
@@ -259,17 +278,14 @@ def global_shapes(state: TrainState, pctx: ParallelCtx) -> dict:
 @torch.no_grad()
 def state_to_global(state: TrainState, pctx: ParallelCtx) -> dict:
     """The train state as one flat mapping at global shapes, the same on
-    every rank (collective on a mesh): expert rows gathered over the EP
-    group, moment shards over their replicas."""
+    every rank (collective on a mesh): moment shards gathered over their
+    replicas, then every split dimension over its group."""
     out = {}
-    for key, t, ex, sh in _leaves(state, pctx):
+    for key, t, dims, sh in _leaves(state, pctx):
         if sh is not None and not sh.whole:
             t = collectives.all_gather(sh.group, t.contiguous())
             t = t.movedim(0, sh.dim).flatten(sh.dim, sh.dim + 1)
-        if ex and pctx.ep_size > 1:
-            t = collectives.all_gather(pctx.group,
-                                       t.contiguous()).flatten(0, 1)
-        out[key] = t
+        out[key] = sharding.gather_whole(t, dims)
     if state.router_bias is not None:
         out["router_bias"] = state.router_bias
     out["step"] = int(state.step)
@@ -282,12 +298,10 @@ def state_from_global(state: TrainState, tree: dict,
     """``state`` with every tensor overwritten in place by this rank's
     share of the global ``tree`` (``state_to_global``'s layout, from a
     mesh of any size)."""
-    for key, t, ex, sh in _leaves(state, pctx):
+    for key, t, dims, sh in _leaves(state, pctx):
         a = tree[key]
         a = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
-        if ex and pctx.ep_size > 1:
-            n = a.shape[0] // pctx.ep_size
-            a = a[pctx.ep_rank * n:(pctx.ep_rank + 1) * n]
+        a = sharding.cut(a, dims)
         if sh is not None:
             a = sh.take(a)
         t.copy_(a.to(t.device))

@@ -1,5 +1,7 @@
 """The trainer on a mesh of data x EP ranks (gloo, CPU) against the JAX
-package's train step on a mesh of virtual devices.
+package's train step on a mesh of virtual devices, on the reference's
+layout (``ParallelCtx.shard_dense``: tensor parallelism over the model
+axis, FSDP over the data axis, a sequence-parallel residual stream).
 
 One run of eight processes (``torch.multiprocessing``, spawn, one gloo
 world) holds every torch case, beside one JAX run on eight virtual CPU
@@ -93,18 +95,16 @@ def _cfgs(cf, use_bias, aux):
 
 def _params(cfg, rcfg, pctx, init):
     """The port's parameters of this rank, set to the JAX initial values
-    (global arrays by parameter name; an expert tensor takes its rows)."""
+    (global arrays by parameter name, each cut to the rank's shard)."""
     from repro_torch.models.model import init_lm
+    from repro_torch.parallel import sharding
 
     params = init_lm(cfg, rcfg, pctx, torch.Generator().manual_seed(0),
                      device="cpu")
+    specs = sharding.lm_param_specs(params, pctx)
     with torch.no_grad():
-        for name, p in params.named_parameters():
-            a = torch.from_numpy(init[name])
-            if a.shape != p.shape:
-                n = p.shape[0]
-                a = a[pctx.ep_rank * n:(pctx.ep_rank + 1) * n]
-            p.copy_(a)
+        for (name, p), sp in zip(params.named_parameters(), specs):
+            p.copy_(sharding.cut(torch.from_numpy(init[name]), sp.dims))
     return params
 
 
@@ -131,16 +131,21 @@ def _split_adafactor(g):
     over ``g``; returns the parameters, v_row and v_col."""
     from repro_torch.optim import adafactor
 
+    from repro_torch.parallel.sharding import Placement
+
     R, r = g.size, g.rank
     ps, gs = _factor_inputs()
     rows = [torch.from_numpy(p[r * (p.shape[0] // R):][:p.shape[0] // R])
             .contiguous() for p in ps]
+    split = [Placement(("model",) + (None,) * (p.dim() - 1),
+                       (g,) + (None,) * (p.dim() - 1), g, None, None)
+             for p in rows]
     opt = adafactor(1e-2)
     st = opt.init(rows)
     for i, gi in enumerate(gs):
         mine = [torch.from_numpy(x[r * (x.shape[0] // R):][:x.shape[0] // R])
                 .contiguous() for x in gi]
-        opt.update(mine, st, rows, i, sharded=[True] * len(rows), group=g)
+        opt.update(mine, st, rows, i, placements=split)
     out = {}
     for i, p in enumerate(rows):
         out[f"factor/p{i}"] = p.numpy()
@@ -177,14 +182,13 @@ def _masking(opt, params, specs, pctx, out, name):
     shapes): Adam's update elsewhere is about lr sign(g) with a sign that
     rounding may decide."""
     from repro_torch.optim.optimizer import Optimizer
-    from repro_torch.parallel import collectives
+    from repro_torch.parallel import sharding
 
     names = [n for n, _ in params.named_parameters()]
 
     def update(grads, state, plist, step, **kw):
         for n, g, sp in zip(names, grads, specs):
-            if sp.expert:
-                g = collectives.all_gather(pctx.group, g).flatten(0, 1)
+            g = sharding.gather_whole(g, sp.dims)
             m = (g.abs() > 1e-3 * g.abs().max()).numpy()
             key = f"{name}/mask/{n}"
             out[key] = m if key not in out else out[key] & m
@@ -231,7 +235,7 @@ def _worker(rank, world, port, inputs, out_dir):
         mesh = meshes[mesh_name]
         if mesh is None:
             continue
-        pctx = pctx_for_mesh(mesh)
+        pctx = pctx_for_mesh(mesh, shard_dense=True)
         cfg, rcfg = _cfgs(cf, use_bias, aux)
         params = _params(cfg, rcfg, pctx, init)
         specs = sharding.lm_param_specs(params, pctx)
@@ -256,22 +260,20 @@ def _worker(rank, world, port, inputs, out_dir):
     MoEParams.forward = orig
 
     # The gradients of the global loss with the aux loss off.
-    pctx = pctx_for_mesh(meshes["flat"])
+    pctx = pctx_for_mesh(meshes["flat"], shard_dense=True)
     cfg, rcfg = _cfgs(8.0, False, 0.0)
     params = _params(cfg, rcfg, pctx, init)
     params.requires_grad_(True)
     _, _, _, grads = global_grads(params, batch, cfg, rcfg, pctx)
     specs = sharding.lm_param_specs(params, pctx)
     for (n, _), g, sp in zip(params.named_parameters(), grads, specs):
-        if sp.expert:
-            g = collectives.all_gather(pctx.group, g).flatten(0, 1)
-        out[f"aux0/grad/{n}"] = g.numpy()
+        out[f"aux0/grad/{n}"] = sharding.gather_whole(g, sp.dims).numpy()
 
     # Sharded AdamW over the 8 ranks, in pieces of a few bytes.
     world_g = meshes["flat"].world
     ps, gs = _adam_inputs()
-    place = sharding.Placement(False, None, world_g)
-    shards = sharding.opt_state_specs(ps, [place] * len(ps))
+    place = sharding.Placement((), (), None, None, world_g)
+    shards = sharding.moment_shards(ps, [place] * len(ps))
     out["adam/dims"] = np.array([(s.dim, s.count) for s in shards])
     opt_mod.BUCKET_BYTES = 24
     opt = adamw(1e-2)
