@@ -319,6 +319,10 @@ SSD_TOL = 3e-4
 SERVE_SK = 6144 + 8 + 4096                   # the serve cache: prompt + new + chunk
 GATING_TOL = 1e-6
 FLASH_TOL = {"bf16": 1e-2, "fp32": 1e-4}
+# A row's logsumexp against the plain version's, of max(|lse|, 1); the
+# shards' combine against the one launch over the whole cache in fp32.
+LSE_TOL = {"bf16": 1e-4, "fp32": 1e-5}
+LSE_COMBINE_TOL = 1e-5
 SERVE = dict(requests=4, chunk=4096, max_new=8, reduce=False,
              balancer="ultraep", seed=0, prompt_len=(2048, 6144),
              decode_batch=4, cf=4.0)
@@ -2298,6 +2302,7 @@ def phase_flash() -> dict:
         records[tag] = rec
         del q, k, v, out, ref, mask, qt, kt, vt, free
         torch.cuda.empty_cache()
+    records.update(_flash_lse_records())
     # The graph timings ran cuBLAS on streams of their own, and each such
     # stream keeps a workspace: release them, so the serve phases' peak
     # memory counts the serve path alone.
@@ -2305,6 +2310,99 @@ def phase_flash() -> dict:
     torch.cuda.empty_cache()
     _line("phase2_flash_attention", records)
     return records
+
+
+def _flash_lse_records() -> dict:
+    """The split-KV kernel's logsumexp (``flash_attention(...,
+    return_lse=True)``) against the plain version's at GLM-4.5-Air's
+    decode shape (hd 128, its 32 query and 8 KV heads), bf16 and fp32,
+    with one split (a 128-key cache) and with several (the serve cache),
+    rows of 0 valid keys among them (lse +inf, output exactly 0); then one
+    decode cache cut into T = 2 and 4 position shards, each shard's
+    partial from the same entry and ``attention.combine_partials`` held
+    against the one launch over the whole cache (fp32 within
+    ``LSE_COMBINE_TOL`` of max|ref|, bf16 within the phase's bound), and
+    the split kernel's device time with and without the logsumexp."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.attention import combine_partials
+
+    B, H, Hkv, hd = 4, 32, 8, 128
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for Sk, lens in ((128, [0, 1, 77, 128]),
+                         (SERVE_SK, [0, 1, 3000, SERVE_SK])):
+            tag = f"lse_decode_{kind}_{Sk}"
+            g = torch.Generator(device="cuda").manual_seed(Sk)
+            q, k, v = (torch.randn(sh, generator=g, device="cuda").to(dtype)
+                       for sh in ((B, 1, H, hd), (B, Sk, Hkv, hd),
+                                  (B, Sk, Hkv, hd)))
+            lim = torch.tensor(lens, device="cuda")
+            before = dict(ops.flash_attention.launches_by_kernel)
+            o, lse = ops.flash_attention(q, k, v, causal=False,
+                                         kv_valid_len=lim, return_lse=True)
+            torch.cuda.synchronize()
+            ran = [n for n, c in ops.flash_attention.launches_by_kernel.items()
+                   if c != before[n]]
+            if ran != ["decode_split"]:
+                raise AssertionError(f"{tag} ran {ran}, not decode_split")
+            ref, ref_lse = ops.flash_attention_ref(
+                q, k, v, causal=False, kv_valid_len=lim, return_lse=True)
+            empty = lim == 0
+            if not (torch.isinf(lse[empty]).all() and (lse[empty] > 0).all()
+                    and (o[empty] == 0).all()):
+                raise AssertionError(f"{tag}: a row of no valid key is not "
+                                     f"(lse +inf, output 0)")
+            lerr = (lse[~empty] - ref_lse[~empty]).abs().max().item()
+            lscale = ref_lse[~empty].abs().max().item()
+            if not lerr <= LSE_TOL[kind] * max(lscale, 1.0):
+                raise AssertionError(f"{tag}: lse off by {lerr:.3e}")
+            rec = {"shape": [B, 1, Sk, H, Hkv, hd], "dtype": kind,
+                   "kv_valid_len": lens, "kernel": "decode_split",
+                   "splits": ops.plan_launch(B, 1, Sk, H, Hkv, hd, dtype,
+                                             ops._sm_count(q.device)).splits,
+                   "lse_max_abs_err": lerr, "lse_max_abs_ref": lscale,
+                   "lse_tol": LSE_TOL[kind]}
+            (rec["max_abs_err"], rec["max_abs_ref"],
+             rec["max_row_rel_err"]) = _check_rows(
+                 tag, o[~empty], ref[~empty], FLASH_TOL[kind])
+            if Sk == SERVE_SK:
+                # The shards of this cache, combined, against the one launch.
+                for T in (2, 4):
+                    n = Sk // T
+                    parts = [ops.flash_attention(
+                        q, k[:, r * n:(r + 1) * n].contiguous(),
+                        v[:, r * n:(r + 1) * n].contiguous(), causal=False,
+                        kv_valid_len=lim - r * n, return_lse=True)
+                        for r in range(T)]
+                    comb = combine_partials(torch.stack([p[0] for p in parts]),
+                                            torch.stack([p[1] for p in parts]))
+                    err = (comb - o.float()).abs().max().item()
+                    scale = o.float().abs().max().item()
+                    tol = LSE_COMBINE_TOL if kind == "fp32" \
+                        else FLASH_TOL[kind]
+                    if not err <= tol * scale or not (comb[empty] == 0).all():
+                        raise AssertionError(f"{tag}: {T} shards combined "
+                                             f"differ by {err:.3e} of "
+                                             f"{scale:.3e}")
+                    rec[f"combine_T{T}_max_abs_err"] = err
+                    rec[f"combine_T{T}_tol"] = tol
+                rec["combine_max_abs_ref"] = o.float().abs().max().item()
+                lens2 = [2048, 6144, 3000, 1]      # phase 2's decode case
+                lim2 = torch.tensor(lens2, device="cuda")
+                rec["ms_without_lse"] = _graph_ms(
+                    lambda: ops.flash_attention(q, k, v, causal=False,
+                                                kv_valid_len=lim2), 50)
+                rec["ms_with_lse"] = _graph_ms(
+                    lambda: ops.flash_attention(q, k, v, causal=False,
+                                                kv_valid_len=lim2,
+                                                return_lse=True), 50)
+                rec["timed_kv_valid_len"] = lens2
+            out[tag] = rec
+            del q, k, v, o, ref
+    return out
 
 
 def _wrappers() -> dict:
@@ -2333,6 +2431,9 @@ def _wrappers() -> dict:
 
 
 def _reset_launches():
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    fa.flash_attention.lse_launches = 0
     for fn in _wrappers().values():
         fn.launches = 0
         if hasattr(fn, "padded_copies"):
@@ -2345,11 +2446,14 @@ def _reset_launches():
 
 def _launches() -> dict:
     """Launch counts by wrapper, flash_attention's by kernel (as
-    ``flash_attention.<kernel>``) and flash_attention_bwd's by head-dim
-    pair (as ``flash_attention_bwd.<hd>x<hd_v>``)."""
+    ``flash_attention.<kernel>``; those with the logsumexp as
+    ``flash_attention.lse``) and flash_attention_bwd's by head-dim pair
+    (as ``flash_attention_bwd.<hd>x<hd_v>``)."""
     counts = {}
     for name, fn in _wrappers().items():
         counts[name] = fn.launches
+        if hasattr(fn, "lse_launches"):
+            counts[f"{name}.lse"] = fn.lse_launches
         for kernel, n in getattr(fn, "launches_by_kernel", {}).items():
             counts[f"{name}.{kernel}"] = n
         for (a, b), n in getattr(fn, "launches_by_dims", {}).items():
@@ -4168,7 +4272,7 @@ def _routing_check(ids, ref_ids, ref_gap, num_experts: int) -> dict:
 
 def _counts_check(counts, ref, calls, pctx, rows: int) -> dict:
     """Counts against the R = 1 step's (``ref``): equal where the model
-    axis is 1 (or on the EP layout).  Else two checks: the run's counts
+    axis is 1.  Else two checks: the run's counts
     are the R = 1 gate's on the run's own router inputs (every rank's,
     gathered; this checks how the counts are summed over ranks, not the
     routing), and each token those inputs route apart from the R = 1
@@ -4177,7 +4281,7 @@ def _counts_check(counts, ref, calls, pctx, rows: int) -> dict:
 
     diff = int((counts.cpu() - ref["counts"]).abs().sum())
     out = {"counts_diff": diff, "counts_equal": diff == 0}
-    if pctx.ep_size == 1 or not pctx.shard_dense or not calls:
+    if pctx.ep_size == 1 or not calls:
         out["counts_ok"] = diff == 0
         return out
     moe = counts.sum(dim=1) > 0
@@ -4222,7 +4326,7 @@ def _group_case(rank, name, mesh, glm, ref_path):
                                         make_train_step)
 
     cfg, rcfg = _group_cfgs(glm, GROUP_CHECK_CF)
-    pctx = pctx_for_mesh(mesh, shard_dense=True)
+    pctx = pctx_for_mesh(mesh)
     torch.cuda.reset_peak_memory_stats()
     params = init_lm(cfg, rcfg, pctx, torch.Generator(device="cuda")
                      .manual_seed(TRAIN_GROUP["seed"]), device="cuda")
@@ -4264,7 +4368,7 @@ def _group_case(rank, name, mesh, glm, ref_path):
     torch.cuda.reset_peak_memory_stats()
     _, rcfg = _group_cfgs(glm, TRAIN_GROUP["cf"])
     opt = adamw(1e-3)
-    state = init_train_state(params, opt, cfg, pctx)
+    state = init_train_state(params, opt, cfg)
     step = make_train_step(cfg, rcfg, pctx, opt)
     torch.cuda.synchronize()
     _reset_launches()
@@ -4310,7 +4414,7 @@ def _supervised(rank, mesh, glm, out_dir):
     from repro_torch.launch.train import train
 
     cfg = dataclasses.replace(reduced(glm), head_dim=128)
-    pctx = pctx_for_mesh(mesh, shard_dense=True)
+    pctx = pctx_for_mesh(mesh)
     sv = SUPERVISED
 
     def inject(fn):
@@ -4375,8 +4479,8 @@ def _group_worker(rank, world, port, out_dir):
 def phase_train_group(glm) -> dict:
     """Phase 16: the trainer on groups of two processes on the one card
     (spawn; one gloo group carrying CUDA tensors, as phase 9), on the
-    reference's layout (``shard_dense``: tensor parallelism over the model
-    axis, FSDP over the data axis).  GLM-4.5-Air
+    reference's layout (tensor parallelism over the model axis, FSDP over
+    the data axis).  GLM-4.5-Air
     at every published width, depth cut to one layer (attention + MoE),
     bf16 weights, fp32 AdamW moments of each parameter's shard,
     ``ultraep``, blocked loss in 8 chunks, the synthetic stream from seed 0; the aux loss off
@@ -4476,14 +4580,16 @@ def phase_train_group(glm) -> dict:
     return result
 
 
-# Phase 20: the reference's layout on a mesh (``shard_dense``): four
-# processes on the one card, as phase 16's two.  (a) GLM-4.5-Air, phase
-# 16's model, on a (data 2, model 2) mesh at a global batch of 2 x 4096;
-# (b) DeepSeek-V3's first layer (MLA + the dense FFN of d_ff 18432), bf16,
-# on a (data 1, model 2) mesh of ranks 0-1 at 1 x 4096.  A prefill chunk of
-# TP_GROUP["chunk"] tokens a row is checked beside each.
+# Phase 20: the reference's layout on a mesh (one layout for every step):
+# four processes on the one card, as phase 16's two.  (a) GLM-4.5-Air,
+# phase 16's model, on a (data 2, model 2) mesh at a global batch of 2 x
+# 4096; (b) DeepSeek-V3's first layer (MLA + the dense FFN of d_ff 18432),
+# bf16, on a (data 1, model 2) mesh of ranks 0-1 at 1 x 4096.  A prefill
+# chunk of TP_GROUP["chunk"] tokens a row into the sequence-sharded cache
+# of chunk + decode positions, then TP_GROUP["decode"] decode steps (the
+# next tokens of the batch), are checked beside each.
 TP_GROUP = dict(glm_mesh=(2, 2), glm_rows=2, ds_mesh=(1, 2), ds_rows=1,
-                ranks=4, chunk=512)
+                ranks=4, chunk=512, decode=8)
 # Each rank's launches in (a)'s train step (phase 16's EP 2 case: per
 # rank one attention layer on its 16 query and 4 KV heads, one MoE layer
 # on its sequence shard), in (b)'s gradient pass (one MLA layer on 64 of
@@ -4498,6 +4604,14 @@ TP_LAUNCHES = {
                     "grouped_swiglu": 1, "grouped_matmul": 1,
                     "plan_solve": 1},
     "ds_prefill": {"flash_attention": 1, "gating_topk": 0, "plan_solve": 0},
+    # Each decode step: GLM's flash-decode partial of all 32 heads over
+    # the rank's positions on the split-KV kernel with its logsumexp, the
+    # replicated MoE island; DeepSeek's absorbed MLA decode (no flash).
+    "glm_decode": {"flash_attention": 1, "flash_attention.decode_split": 1,
+                   "flash_attention.lse": 1, "gating_topk": 1,
+                   "grouped_swiglu": 1, "grouped_matmul": 1,
+                   "plan_solve": 1},
+    "ds_decode": {"flash_attention": 0, "gating_topk": 0, "plan_solve": 0},
 }
 
 
@@ -4581,26 +4695,125 @@ class _RankPlan:
         ops.plan_launch = self._orig
 
 
+def _tp_gathered(logits, pctx, vocab_size):
+    """A call's logits gathered over both axes of the mesh."""
+    from repro_torch.models.model import gather_logits
+    from repro_torch.parallel import collectives
+
+    whole = gather_logits(logits, pctx, vocab_size)
+    if pctx.data is not None:
+        whole = collectives.all_gather(pctx.data, whole).flatten(0, 1)
+    return whole
+
+
 def _tp_prefill(params, cfg, rcfg, pctx, tokens):
     """One prefill chunk on the mesh: this rank's rows and sequence shard
-    of ``tokens`` (rows x chunk), the logits gathered over both axes."""
+    of ``tokens`` (rows x chunk) into the rank's shard of a cache of chunk
+    + TP_GROUP["decode"] positions; the logits gathered over both axes,
+    and the caches."""
     import torch
 
-    from repro_torch.models.model import (gather_logits, init_caches,
-                                          prefill_step)
-    from repro_torch.parallel import collectives
+    from repro_torch.models.model import init_caches, prefill_step
 
     rows = tokens.shape[0] // pctx.data_size
     C, T, t = tokens.shape[1], pctx.ep_size, pctx.ep_rank
     mine = tokens[pctx.data_rank * rows:(pctx.data_rank + 1) * rows,
                   t * (C // T):(t + 1) * (C // T)]
-    caches = init_caches(cfg, rows, C, rcfg, device="cuda", pctx=pctx)
+    caches = init_caches(cfg, tokens.shape[0], C + TP_GROUP["decode"], rcfg,
+                         device="cuda", pctx=pctx)
     with torch.no_grad():
-        logits, _ = prefill_step(params, caches, mine, cfg, rcfg, pctx)
-        whole = gather_logits(logits, pctx, cfg.vocab_size)
-        if pctx.data is not None:
-            whole = collectives.all_gather(pctx.data, whole).flatten(0, 1)
-    return whole
+        logits, caches = prefill_step(params, caches, mine, cfg, rcfg, pctx)
+        return _tp_gathered(logits, pctx, cfg.vocab_size), caches
+
+
+def _tp_decode(params, cfg, rcfg, pctx, caches, tokens):
+    """TP_GROUP["decode"] decode steps on the mesh after the prefill
+    chunk (``tokens`` rows x steps: each step's input, this rank's rows
+    taken), each with the kernel counts set to 0 before and read after:
+    (logits of every step gathered over both axes (rows, steps, V), the
+    launches of each step, the caches)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.models.model import decode_step
+
+    rows = tokens.shape[0] // pctx.data_size
+    mine = tokens[pctx.data_rank * rows:(pctx.data_rank + 1) * rows]
+    whole = dc.replace(pctx, seq_whole=True)
+    logits, launches = [], []
+    with torch.no_grad():
+        for i in range(tokens.shape[1]):
+            torch.cuda.synchronize()
+            _reset_launches()
+            out, caches = decode_step(params, caches, mine[:, i:i + 1], cfg,
+                                      rcfg, pctx)
+            torch.cuda.synchronize()
+            launches.append(_launches())
+            logits.append(_tp_gathered(out, whole, cfg.vocab_size))
+    return torch.cat(logits, dim=1), launches, caches
+
+
+def _cache_bytes(caches, cfg, rcfg, pctx, rows: int) -> dict:
+    """This rank's decode cache bytes against ``shard_shape`` of
+    ``sharding.cache_specs`` (each entry's global shape from a meta init
+    of the one-rank caches)."""
+    import math
+
+    from repro_torch.models.model import init_caches
+    from repro_torch.parallel import sharding
+
+    glob = init_caches(cfg, rows, TP_GROUP["chunk"] + TP_GROUP["decode"],
+                       rcfg, device="meta")
+    specs = sharding.cache_specs(cfg, sharding.from_ctx(pctx), rows)
+    got = want = 0
+    for entry, g, sp in zip(caches, glob, specs):
+        for a, ga, spa in zip(entry, g, sp):
+            got += a.numel() * a.element_size()
+            want += math.prod(sharding.shard_shape(spa, ga.shape, dict(
+                pctx.mesh_axes))) * ga.element_size()
+    return {"cache_bytes": got, "cache_bytes_placed": want,
+            "equal": got == want}
+
+
+def _decode_check(logits, calls, ref, pctx, rows: int) -> dict:
+    """The decode steps' gathered logits (rows, steps, V) against the R =
+    1 steps' (``ref["decode"]``) under ``_prefill_check``'s rule: the
+    tokens routed alike with the R = 1 steps within TRAIN_TOL of the
+    steps' max|ref|, each token apart a near tie of the R = 1 gate.  The
+    stream is whole at decode: each recorded call's inputs are the data
+    rank's rows on every model rank, gathered over the data axis only."""
+    import torch
+
+    from repro_torch.moe.gating import gate
+    from repro_torch.parallel import collectives
+
+    ref_l = ref["decode"].to(logits.device)
+    err, scale = _max_err(logits, ref_l)
+    out = {"shape": list(logits.shape), "max_rel_err_whole": err / scale}
+    apart = torch.zeros(logits.shape[:2], dtype=torch.bool)
+    if calls:
+        gates = []
+        for x, gcfg, router, bias in calls:
+            x = x.reshape(rows, -1)
+            if pctx.data is not None:
+                x = collectives.all_gather(pctx.data, x.contiguous()) \
+                    .flatten(0, 1)
+            gates.append(gate(x, router, gcfg, bias=bias))
+        ids = _sorted_ids(gates)                   # step-major, then rows
+        out["routing"] = _routing_check(ids, ref["decode_ids"],
+                                        ref["decode_gap"],
+                                        calls[0][1].num_experts)
+        steps = logits.shape[1]
+        apart = (ids != ref["decode_ids"]).any(-1).reshape(
+            steps, -1, logits.shape[0]).any(1).T
+    apart = apart.to(logits.device)
+    for tag, m in (("alike", ~apart), ("apart", apart)):
+        out[f"max_rel_err_{tag}"] = (_max_err(logits[m], ref_l[m])[0]
+                                     / scale if m.any() else 0.0)
+    out["ok"] = out["max_rel_err_alike"] <= TRAIN_TOL \
+        and out.get("routing", {"ok": True})["ok"]
+    return out
 
 
 def _prefill_check(logits, calls, ref, pctx, rows: int) -> dict:
@@ -4658,7 +4871,7 @@ def _tp_case(rank, which, mesh, glm, deepseek, ref_path):
                                         make_train_step)
 
     cfg, rcfg = _tp_cfgs(which, glm, deepseek, GROUP_CHECK_CF)
-    pctx = pctx_for_mesh(mesh, shard_dense=True)
+    pctx = pctx_for_mesh(mesh)
     rows = TP_GROUP[f"{which}_rows"]
     local_rows = rows // pctx.data_size
     torch.cuda.reset_peak_memory_stats()
@@ -4702,10 +4915,11 @@ def _tp_case(rank, which, mesh, glm, deepseek, ref_path):
     del grads
     gc.collect()
     peak_check = torch.cuda.max_memory_allocated() / 1e9
-    tokens = batch["tokens"][:, :TP_GROUP["chunk"]]
+    C, steps = TP_GROUP["chunk"], TP_GROUP["decode"]
+    tokens = batch["tokens"][:, :C]
     _reset_launches()
     with _GateInputs() as rec:
-        logits = _tp_prefill(params, cfg, rcfg, pctx, tokens)
+        logits, caches = _tp_prefill(params, cfg, rcfg, pctx, tokens)
     torch.cuda.synchronize()
     prefill_launches = _launches()
     prefill = {**_prefill_check(logits, rec.calls, ref, pctx, local_rows),
@@ -4714,17 +4928,34 @@ def _tp_case(rank, which, mesh, glm, deepseek, ref_path):
     del rec, logits
     if not prefill["ok"] or prefill["drops"]:
         fails.append(f"prefill logits (tolerance {TRAIN_TOL}): {prefill}")
+    with _GateInputs() as rec:
+        logits, decode_launches, caches = _tp_decode(
+            params, cfg, rcfg, pctx, caches, batch["tokens"][:, C:C + steps])
+    decode = {**_decode_check(logits, rec.calls, ref, pctx, local_rows),
+              "drops": sum(rec.drops), "steps": steps,
+              **_cache_bytes(caches, cfg, rcfg, pctx, rows)}
+    del rec, logits, caches
+    if not decode["ok"] or decode["drops"] or not decode["equal"]:
+        fails.append(f"decode (tolerance {TRAIN_TOL}): {decode}")
     opt = adamw(1e-3)
-    state = init_train_state(params, opt, cfg, pctx)
+    state = init_train_state(params, opt, cfg)
     resident = _resident_bytes(params, state, cfg, rcfg, pctx)
     if not resident["equal"]:
         fails.append(f"resident bytes {resident}")
     want = {"grad": TP_LAUNCHES["ds_grad"] if which == "ds" else None,
             "prefill": TP_LAUNCHES[f"{which}_prefill"]}
+    want_dec = TP_LAUNCHES[f"{which}_decode"]
+    bad = [{k: (seen[k], n) for k, n in want_dec.items() if seen[k] != n}
+           for seen in decode_launches]
+    if any(bad):
+        fails.append(f"decode launches a step (seen, want) {bad}")
     out = {"mesh": dict(pctx.mesh_axes), "rank": rank,
            "global_batch": [rows, TRAIN_GROUP["seq"]],
            "prefill_chunk": list(tokens.shape), "grad_check": check,
            "check_cf": GROUP_CHECK_CF, "prefill_check": prefill,
+           "decode_check": decode,
+           "launches_decode_step": {k: decode_launches[0][k]
+                                    for k in want_dec},
            "resident": resident, "peak_mem_gb_check": peak_check,
            "launches_grad": {k: grad_launches[k] for k in
                              (want["grad"] or TP_LAUNCHES["glm_step"])},
@@ -4797,35 +5028,61 @@ def _tp_worker(rank, world, port, out_dir):
     collectives.destroy()
 
 
-def _r1_prefill(params, cfg, rcfg, tokens):
+def _r1_prefill(params, cfg, rcfg, tokens, steps: int = 0):
     """The R = 1 prefill chunk a row at a time (each row at a data rank's
-    batch shape, as the R = 1 training step runs a microbatch a row):
-    the logits (on the host), the routing (``_r1_routing``) and the
-    drops."""
+    batch shape, as the R = 1 training step runs a microbatch a row) into
+    a cache of chunk + TP_GROUP["decode"] positions: the logits (on the
+    host), the routing (``_r1_routing``) and the drops; with ``steps``,
+    then that many decode steps on the next tokens of ``tokens`` (rows x
+    (chunk + steps)): their logits (rows, steps, V) and routing
+    (step-major, then rows, as ``_decode_check`` gathers it)."""
     import torch
 
-    from repro_torch.models.model import init_caches, prefill_step
+    from repro_torch.models.model import (decode_step, init_caches,
+                                          prefill_step)
     from repro_torch.models.transformer import ParallelCtx
 
-    logits = []
+    C = tokens.shape[1] - steps
+    logits, dec, dec_calls = [], [], []
     with torch.no_grad(), _GateInputs() as rec:
         for r in range(tokens.shape[0]):
-            caches = init_caches(cfg, 1, tokens.shape[1], rcfg,
+            caches = init_caches(cfg, 1, C + TP_GROUP["decode"], rcfg,
                                  device="cuda")
-            logits.append(prefill_step(params, caches, tokens[r:r + 1], cfg,
-                                       rcfg, ParallelCtx())[0].cpu())
+            lg, caches = prefill_step(params, caches, tokens[r:r + 1, :C],
+                                      cfg, rcfg, ParallelCtx())
+            logits.append(lg.cpu())
+            n = len(rec.calls)
+            row = []
+            for i in range(steps):
+                lg, caches = decode_step(params, caches,
+                                         tokens[r:r + 1, C + i:C + i + 1],
+                                         cfg, rcfg, ParallelCtx())
+                row.append(lg.cpu())
+            if steps:
+                dec.append(torch.cat(row, dim=1))
+                dec_calls.append(rec.calls[n:])
+                del rec.calls[n:]
             del caches
         layers = len(rec.calls) // tokens.shape[0]
         routing = _r1_routing(rec.calls, layers)
-    return torch.cat(logits), routing, sum(rec.drops)
+    out = {"prefill": torch.cat(logits), "routing": routing,
+           "drops": sum(rec.drops)}
+    if steps:
+        out["decode"] = torch.cat(dec)
+        per = len(dec_calls[0]) // steps            # MoE layers a step
+        order = [cs[i] for i in range(steps * per) for cs in dec_calls]
+        r1 = _r1_routing(order, 1) if per else {"ids": None, "gap": None}
+        out["decode_ids"], out["decode_gap"] = r1["ids"], r1["gap"]
+    return out
 
 
 def phase_tp_group(glm, deepseek) -> dict:
     """Phase 20: the reference's production layout on a mesh
-    (``ParallelCtx.shard_dense``, ``repro_torch.parallel.sharding``):
+    (``repro_torch.parallel.sharding``, one layout for every step):
     tensor parallelism over the model axis (attention heads, the FFN's
-    hidden dimension, the vocabulary), FSDP over the data axis and the
-    sequence-parallel residual stream, in four spawned processes on the
+    hidden dimension, the vocabulary), FSDP over the data axis, the
+    sequence-parallel residual stream and the sequence-sharded decode
+    cache (flash-decode over the model axis), in four spawned processes on the
     one card (one gloo group carrying CUDA tensors, as phases 9 and 16).
     First the parent runs the R = 1 references on each model (a
     microbatch a row, so each row runs at a data rank's shapes, as phase
@@ -4842,7 +5099,11 @@ def phase_tp_group(glm, deepseek) -> dict:
     tie of the R = 1 gate); the chunk's logits, gathered over both axes,
     as ``_prefill_check`` holds them (the tokens routed alike within
     TRAIN_TOL of the R = 1 chunk's max|ref|, each token apart a near tie;
-    the whole chunk's error and the witness's routing measured beside); each rank's parameter and AdamW bytes equal to what its
+    the whole chunk's error and the witness's routing measured beside);
+    then TP_GROUP["decode"] decode steps on the next tokens, their
+    logits against the R = 1 steps' by the same rule (``_decode_check``)
+    and each rank's decode cache bytes equal to its ``cache_specs``
+    shard's; each rank's parameter and AdamW bytes equal to what its
     placements give; for (a) one AdamW train step at TRAIN_GROUP["cf"],
     its router bias the R = 1 update's.
     The launches of each run are counted on every rank (TP_LAUNCHES).
@@ -4890,17 +5151,22 @@ def phase_tp_group(glm, deepseek) -> dict:
                 p.grad = None
             del grads, rec
             gc.collect()
-            tokens = batch["tokens"][:, :TP_GROUP["chunk"]]
-            # The R = 1 chunk, then its witness on the rank's flash plan.
+            C, steps = TP_GROUP["chunk"], TP_GROUP["decode"]
+            tokens = batch["tokens"][:, :C + steps]
+            # The R = 1 chunk and decode steps, then the chunk's witness
+            # on the rank's flash plan.
             T = TP_GROUP[f"{which}_mesh"][1]
-            for tag, plan in (("prefill", contextlib.nullcontext()),
-                              ("witness", _RankPlan(T))):
+            for tag, plan, n in (("prefill", contextlib.nullcontext(), steps),
+                                 ("witness", _RankPlan(T), 0)):
                 with plan:
-                    ref[tag], r1, ref[f"{tag}_drops"] = _r1_prefill(
-                        params, cfg, rcfg, tokens)
-                ref[f"{tag}_ids"] = r1["ids"]
+                    run = _r1_prefill(params, cfg, rcfg, tokens[:, :C + n],
+                                      n)
+                ref[tag], r1 = run["prefill"], run["routing"]
+                ref[f"{tag}_drops"], ref[f"{tag}_ids"] = run["drops"], r1["ids"]
                 if tag == "prefill":
                     ref["prefill_gap"] = r1["gap"]
+                    ref.update({k: run[k] for k in ("decode", "decode_ids",
+                                                    "decode_gap")})
             ref["witness_tokens_apart_r1"] = None if r1["ids"] is None \
                 else int((ref["witness_ids"] != ref["prefill_ids"])
                          .any(-1).sum())
@@ -4941,6 +5207,7 @@ def phase_tp_group(glm, deepseek) -> dict:
               "launches_by_rank": {
                   w: [{k: r[w][k] for k in ("launches_grad",
                                             "launches_prefill",
+                                            "launches_decode_step",
                                             "launches_step") if k in r[w]}
                       for r in ranks if w in r] for w in ("glm", "ds")},
               "ranks_by_case": ranks}

@@ -17,12 +17,12 @@ JAX package is imported.
   of ``p`` blocks each stacked over the ``n_rep`` repetitions of the
   period: layer ``pre + r * p + j`` is entry ``j`` at index ``r``.
 
-On an EP group of ``ep_size`` ranks, rank ``ep_rank`` gets the experts
-``[ep_rank * E / ep_size, (ep_rank + 1) * E / ep_size)`` of every MoE layer
-and everything else whole (the router and the shared expert included).
-Given a ``pctx`` with ``shard_dense`` (the reference's layout,
-``repro_torch.parallel.sharding``), :func:`lm_params` cuts every parameter
-to this rank's shard of it on that mesh, a layer at a time.
+:func:`moe_params` on an EP group of ``ep_size`` ranks gives rank
+``ep_rank`` the experts ``[ep_rank * E / ep_size, (ep_rank + 1) * E /
+ep_size)`` and everything else whole (the router and the shared expert
+included).  Given a ``pctx`` of more than one rank (the reference's
+layout, ``repro_torch.parallel.sharding``), :func:`lm_params` cuts every
+parameter to this rank's shard of it on that mesh, a layer at a time.
 """
 
 from __future__ import annotations
@@ -110,16 +110,15 @@ def _block(bp, cfg: ModelConfig, device, ep_rank: int,
                        ssm=ssm)
 
 
-def lm_params(p, cfg: ModelConfig, *, device="cuda", ep_rank: int = 0,
-              ep_size: int = 1, pctx=None) -> LMParams:
-    """JAX ``LMParams`` (numpy leaves) -> the port's :class:`LMParams`, the
-    share of EP rank ``ep_rank`` of ``ep_size``, or of ``pctx``'s rank on
-    its mesh (whose EP rank and size it takes)."""
-    layout = None
-    if pctx is not None:
+def lm_params(p, cfg: ModelConfig, *, device="cuda",
+              pctx=None) -> LMParams:
+    """JAX ``LMParams`` (numpy leaves) -> the port's :class:`LMParams`,
+    whole, or with a ``pctx`` of more than one rank the share of its rank
+    on its mesh."""
+    layout, ep_rank, ep_size = None, 0, 1
+    if pctx is not None and pctx.world_size > 1:
         ep_rank, ep_size = pctx.ep_rank, pctx.ep_size
-        if pctx.shard_dense:
-            layout = sharding.lm_layout(cfg, pctx)
+        layout = sharding.lm_layout(cfg, pctx)
     blocks = []
     for seg in p.segments:
         if isinstance(seg, tuple) and not hasattr(seg, "_fields"):

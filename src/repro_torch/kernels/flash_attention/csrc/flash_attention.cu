@@ -141,9 +141,13 @@
 //    within each 8-key step, V read in the same order), masking only on
 //    tiles that cross a row's limit.
 //
-// Kernels 2, 3 and 4 write each row's logsumexp beside the output when
-// asked (Args::lse): the training step's forward, whose backward kernels
-// (flash_attention_bwd.cu, flash_attention_bwd_mma.cu) read it.
+// Every kernel writes each row's logsumexp beside the output when asked
+// (Args::lse): the training step's forward, whose backward kernels
+// (flash_attention_bwd.cu, flash_attention_bwd_mma.cu) read it, and a
+// decode step's partial over one shard of a sequence-sharded cache, whose
+// shards are combined by their logsumexps (models/attention.py).  The
+// split-KV kernel writes it where it writes the output: the block with one
+// split, else the combine kernel from the splits' (m, l).
 //
 // Not yet: overlapping one tile's softmax with the next tile's products in
 // the wgmma kernel (two consumer warpgroups interleave only as the
@@ -241,9 +245,8 @@ struct Args {
   int splits;               // key splits; 1: the blocks write the output
   int keys_per_split;
   float* ws;                // splits x (B Sq H) x (hd + 2) fp32 partials
-  // Prefill kernels (2, 3, 4) only: null, or (B, H, Sq) fp32 that receives
-  // each row's logsumexp of its scaled scores, natural log (+inf for a row
-  // with no valid key), for the backward kernels.
+  // Null, or (B, H, Sq) fp32 that receives each row's logsumexp of its
+  // scaled scores, natural log (+inf for a row with no valid key).
   float* lse;
   // TMA + wgmma kernel only: the output columns written, hd_v (below the
   // tile's HDV where the head dim is zero-filled up to whole boxes).
@@ -259,9 +262,9 @@ struct Args {
   }
 };
 
-// Row (b, h, position)'s logsumexp of its scaled scores, natural log, for
-// the backward kernels: m is the row max in log2 units, l = sum 2^(s - m);
-// +inf for a row with no valid key (P = 0 in the backward).
+// Row (b, h, position)'s logsumexp of its scaled scores, natural log: m
+// is the row max in log2 units, l = sum 2^(s - m); +inf for a row with no
+// valid key (P = 0 in the backward, weight 0 in a combine of shards).
 __device__ __forceinline__ void store_lse(const Args& a, int b, int h,
                                           int pos, float m, float l) {
   a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + pos] =
@@ -823,6 +826,7 @@ flash_split_kernel(const Args a) {
       if (a.splits == 1) {
         static_cast<T*>(a.out)[b * a.sob + ph.x * a.sos + ph.y * a.soh + d] =
             from_f32<T>(0.f);
+        if (a.lse != nullptr && d == 0) store_lse(a, b, ph.y, ph.x, 0.f, 0.f);
       } else if (d == 0) {
         const long long orow = (static_cast<long long>(b) * a.Sq + ph.x) * a.H
                                + ph.y;
@@ -1142,6 +1146,8 @@ flash_split_kernel(const Args a) {
       float* ml = a.ws + NR * a.splits * HDV + (split * NR + orow) * 2;
       ml[0] = M;
       ml[1] = L;
+    } else if (a.lse != nullptr && lane == 0) {
+      store_lse(a, b, ph.y, ph.x, M, L);
     }
   }
 }
@@ -1193,6 +1199,7 @@ __global__ void __launch_bounds__(128) flash_combine_kernel(const Args a) {
     }
   }
   L = warp_sum(L);
+  if (a.lse != nullptr && lane == 0) store_lse(a, b, head, pos, M, L);
   const float denom = L > 1e-20f ? L : 1e-20f;
   T* dst = static_cast<T*>(a.out) + b * a.sob + pos * a.sos + head * a.soh;
 #pragma unroll
@@ -1619,7 +1626,6 @@ extern "C" int flash_attention_launch(
   a.ws = static_cast<float*>(workspace);
   a.lse = static_cast<float*>(lse);
   a.hd_out = hd_v;
-  if (lse != nullptr && kernel == 1) return inval;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1, c = a.causal;
   cudaError_t err = cudaErrorInvalidValue;

@@ -202,14 +202,18 @@ def _as_batch_vector(v, device) -> torch.Tensor:
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, block_kv: int = 512, q_offset=0,
-                        kv_valid_len=None, scale: float | None = None
-                        ) -> torch.Tensor:
+                        kv_valid_len=None, scale: float | None = None,
+                        return_lse: bool = False):
     """Online-softmax attention over KV blocks (mirrors ``flash_ref``).
 
     q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd); v: (B, Sk, Hkv, hd_v) with
     H % Hkv == 0.  Query i attends key j iff j < kv_valid_len and, when
     causal, j <= i + q_offset.  The scale defaults to hd ** -0.5.  fp32
-    arithmetic (fp64 for fp64 operands).
+    arithmetic (fp64 for fp64 operands).  A row with no valid key gives 0
+    (the kernels' convention; ``flash_ref`` divides 0 by 0 there).
+    ``return_lse``: also each row's logsumexp of its scaled scores (B, H,
+    Sq), natural log, in the accumulation dtype; +inf for a row with no
+    valid key.
     """
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -247,14 +251,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask = mask & (kv_pos[None, None, :] <= q_pos[:, :, None])
         s = torch.where(mask[:, None, :, :], s, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
+        base = torch.where(m_new == float("-inf"), 0.0, m_new)
+        p = torch.exp(s - base[..., None])
+        corr = torch.exp(m - base)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhqk,bkhv->bhqv", p,
                                                     vf[:, i])
         m = m_new
     out = acc / l[..., None].clamp(min=1e-20)
-    return out.movedim(1, 2).to(q.dtype)                          # (B, Sq, H, hv)
+    out = out.movedim(1, 2).to(q.dtype)                           # (B, Sq, H, hv)
+    if not return_lse:
+        return out
+    return out, torch.where(l > 0, m + torch.log(l), float("inf"))
 
 
 def _is_cuda(x: torch.Tensor) -> bool:
@@ -315,8 +323,7 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None,
     """Validate, plan, allocate the output (and the split workspace) and
     launch on the current stream.  Returns the output and the kernel that
     ran, or None when there was nothing to compute.  ``lse``: a (B, H, Sq)
-    fp32 buffer that receives each row's logsumexp (the prefill kernels
-    only)."""
+    fp32 buffer that receives each row's logsumexp (every kernel)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
             v.shape[:3] != k.shape[:3]:
         raise ValueError("expected q (B, Sq, H, hd), k (B, Sk, Hkv, hd) and "
@@ -342,10 +349,6 @@ def _launch(q, k, v, causal, q_offset, kv_valid_len, scale, sms=None,
         raise ValueError(f"grid too large for B={B}, Hkv={Hkv}")
     plan = plan_launch(B, Sq, Sk, H, Hkv, hd, q.dtype,
                        _sm_count(q.device) if sms is None else sms)
-    if lse is not None and plan.kernel == "decode_split":
-        raise ValueError(f"the logsumexp for the backward comes from a "
-                         f"prefill kernel, not decode_split (B {B}, Sq {Sq}, "
-                         f"Hkv {Hkv}: a grid that leaves the card idle)")
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out, None
@@ -379,12 +382,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset=0, kv_valid_len=None,
                     scale: float | None = None,
                     block_kv: int = 512,
-                    plain_backward: bool = False) -> torch.Tensor:
+                    plain_backward: bool = False,
+                    return_lse: bool = False):
     """Attention of q (B, Sq, H, hd) over k (B, Sk, Hkv, hd) and v
     (B, Sk, Hkv, hd_v) with absolute query positions ``i + q_offset`` and
     ``kv_valid_len`` valid keys per row (default all); the output is
     (B, Sq, H, hd_v).  ``block_kv`` is read by the plain version only.
-    Differentiable over full sequences (see the module's notes)."""
+    Differentiable over full sequences (see the module's notes).
+
+    ``return_lse`` (no gradient): (out, lse), ``lse`` (B, H, Sq) fp32 each
+    row's logsumexp of its scaled scores, +inf (and an output of 0) for a
+    row with no valid key, from whichever kernel ``plan_launch`` picks:
+    one shard's partial of attention over a cache split by positions
+    (``repro_torch.models.attention.combine_partials`` merges them).  A
+    shard's local ``kv_valid_len`` (the row's valid length less the
+    shard's first position) may be below 0 or above Sk: the kernels clamp
+    it to [0, Sk] as they read it (``Args::limit``, no extra launch on the
+    card), and the plain version receives it clamped so."""
+    if return_lse:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise ValueError("flash attention's logsumexp output has no "
+                             "gradient")
+        if not _is_cuda(q):
+            Sk = k.shape[1]
+            lim = Sk if kv_valid_len is None else \
+                torch.as_tensor(kv_valid_len).clamp(0, Sk)
+            out, lse = flash_attention_ref(
+                q, k, v, causal=causal, block_kv=block_kv, q_offset=q_offset,
+                kv_valid_len=lim, scale=scale, return_lse=True)
+            return out, lse.to(torch.float32)
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        out, kernel = _launch(q, k, v, causal, q_offset, kv_valid_len, scale,
+                              lse=lse)
+        if kernel is not None:
+            flash_attention.launches += 1
+            flash_attention.launches_by_kernel[kernel] += 1
+            flash_attention.lse_launches += 1
+        return out, lse
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if not (isinstance(q_offset, int) and q_offset == 0
                 and kv_valid_len is None and k.shape[1] == q.shape[1]):
@@ -406,6 +442,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_kernel = dict.fromkeys(KERNELS, 0)
+flash_attention.lse_launches = 0        # of them, with return_lse
 
 
 # ---------------------------------------------------------------- backward

@@ -28,7 +28,8 @@ import dataclasses
 from repro_torch.parallel import collectives
 
 __all__ = ["Mesh", "production_shape", "make_production_mesh",
-           "make_test_mesh", "make_rack_mesh", "pctx_for_mesh"]
+           "make_test_mesh", "make_rack_mesh", "make_serve_mesh",
+           "pctx_for_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,11 +118,21 @@ def make_test_mesh(data: int = 2, model: int = 4) -> Mesh | None:
     return _mesh((data, model), ("data", "model"))
 
 
-def pctx_for_mesh(mesh: Mesh | None, *, shard_dense: bool = False):
+def make_serve_mesh(model: int, racks: int = 1) -> Mesh | None:
+    """The serve CLI's mesh: one data row, ``model`` EP ranks, factored
+    into ``racks`` x ``model / racks`` with ``racks > 1``."""
+    if racks > 1:
+        if model % racks:
+            raise ValueError(f"racks={racks} must divide the {model} ranks")
+        return make_rack_mesh(1, racks, model // racks)
+    return make_test_mesh(1, model)
+
+
+def pctx_for_mesh(mesh: Mesh | None):
     """The mesh's :class:`repro_torch.models.transformer.ParallelCtx`
-    (one rank's: ``ParallelCtx()``, for None), carrying its axis sizes;
-    ``shard_dense`` (training and prefill) lays the model out as the
-    reference does (``repro_torch.parallel.sharding``)."""
+    (one rank's: ``ParallelCtx()``, for None), carrying its axis sizes:
+    the model takes the reference's layout on it
+    (``repro_torch.parallel.sharding``) for every step."""
     from repro_torch.models.transformer import ParallelCtx
 
     if mesh is None:
@@ -132,5 +143,4 @@ def pctx_for_mesh(mesh: Mesh | None, *, shard_dense: bool = False):
     if (model is None) != (data is None):     # one group is the mesh
         world = None
     return ParallelCtx(group=model, data=data, world=world,
-                       shard_dense=shard_dense,
                        mesh_axes=tuple(mesh.shape.items()))

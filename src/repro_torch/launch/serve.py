@@ -28,13 +28,17 @@ Mamba2-130M and InternVL2-26B (text tokens, as the reference's engine);
 HuBERT-XLarge is an encoder and raises.
 
 Expert parallelism: under ``torchrun`` (``WORLD_SIZE`` and ``RANK`` set)
-every process is one rank of an EP group of ``WORLD_SIZE`` ranks, NCCL on
-``--device cuda`` with one card a rank (``LOCAL_RANK``), gloo on ``--device
-cpu``; each rank serves the same trace with its share of the experts and
-rank 0 prints.  Without ``WORLD_SIZE`` it runs on one device.
+every process is one rank of a (data 1, model ``WORLD_SIZE``) mesh
+(``launch.mesh.make_serve_mesh``), NCCL on ``--device cuda`` with one card
+a rank (``LOCAL_RANK``), gloo on ``--device cpu``; the model takes the
+reference's layout on it (``repro_torch.parallel.sharding``: attention
+heads and FFN columns over the model axis, each rank its experts and its
+block of the decode cache's positions, ``max_seq`` rounded up to a
+multiple of the ranks), each rank serves the same trace and rank 0
+prints.  Without ``WORLD_SIZE`` it runs on one device.
   PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.serve \
       --arch glm45-106b-a12b --reduce --dtype bfloat16
-``--racks G`` factors the group into G racks of WORLD_SIZE / G ranks (the
+``--racks G`` factors the model axis into G racks of WORLD_SIZE / G ranks (the
 two-level topology: the MoE layers run ``hier_a2a``, the rack-aware plan
 and the tiered replica stream); ``--rack-limit M`` bounds each token's
 experts to M racks at the gate (0: free routing);
@@ -61,6 +65,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.reduce import reduced
 from repro_torch.core.balancer import BalancerConfig
 from repro_torch.core.quantize import FFN_DTYPES, WIRE_DTYPES
+from repro_torch.launch.mesh import make_serve_mesh, pctx_for_mesh
 from repro_torch.models.model import init_lm
 from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 from repro_torch.parallel import collectives
@@ -91,12 +96,12 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
                 cf: float = 4.0, dtype=torch.float32, device="cuda",
                 wire_dtype: str = "none", ffn_dtype: str = "none",
                 rack_limit: int = 0, overlap_chunks: int = 1,
-                dispatch_impl: str = "fused", group=None) -> ServingEngine:
-    """Serve a seeded Poisson trace; ``group``: the EP group
-    (:class:`repro_torch.parallel.collectives.EPGroup`, factored for a
-    two-level topology) this process is a rank of, or None for one device.
-    Every rank of a group serves the same trace; rank 0 prints the
-    summary."""
+                dispatch_impl: str = "fused",
+                pctx: ParallelCtx | None = None) -> ServingEngine:
+    """Serve a seeded Poisson trace; ``pctx``: the context of the mesh
+    this process is a rank of (``launch.mesh.pctx_for_mesh``; a factored
+    model axis for a two-level topology), or None for one device.  Every
+    rank of a mesh serves the same trace; rank 0 prints the summary."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduce:
         cfg = reduced(cfg, layers=layers)
@@ -114,10 +119,11 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
         cf_pair=cf, cf_slot=cf, dtype=dtype, wire_dtype=wire_dtype,
         ffn_dtype=ffn_dtype, rack_limit=rack_limit,
         overlap_chunks=overlap_chunks, dispatch_impl=dispatch_impl)
-    pctx = ParallelCtx(group=group)
+    pctx = ParallelCtx() if pctx is None else pctx
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_lm(cfg, rcfg, pctx, gen, device=device)
     max_seq = max(prompt_len[1] + max_new + chunk, 2 * chunk)
+    max_seq = -(-max_seq // pctx.ep_size) * pctx.ep_size   # whole blocks
 
     prefill_fn, decode_fn, new_cache_fn, stack, unstack = make_engine_fns(
         params, cfg, rcfg, pctx, max_seq=max_seq)
@@ -149,7 +155,7 @@ def serve_trace(arch: str | ModelConfig, *, requests: int = 16,
             max_new_tokens=max_new, arrival=t))
     done = eng.run()
     ttft, tpot = eng.ttft(), eng.tpot()
-    if len(ttft) and (group is None or group.rank == 0):
+    if len(ttft) and (pctx.world_group is None or pctx.world_group.rank == 0):
         print(f"served {len(done)} requests  mean TTFT {ttft.mean()*1e3:.1f}ms"
               f"  mean TPOT {tpot.mean()*1e3:.2f}ms")
     return eng
@@ -178,19 +184,18 @@ def main(argv=None) -> ServingEngine:
     ap.add_argument("--dispatch-impl", default="fused",
                     choices=("fused", "reference"))
     args = ap.parse_args(argv)
-    device, group = args.device, None
+    device, pctx = args.device, None
     if "WORLD_SIZE" in os.environ:
-        # One EP rank per process (torchrun): NCCL with a card each, or gloo
-        # on the CPU.
+        # One model rank per process (torchrun): NCCL with a card each, or
+        # gloo on the CPU.
         on_cuda = torch.device(device).type == "cuda"
         if on_cuda:
             device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
             torch.cuda.set_device(device)
-        group = collectives.init("nccl" if on_cuda else "gloo",
-                                 world_size=int(os.environ["WORLD_SIZE"]),
-                                 rank=int(os.environ["RANK"]))
-        if args.racks > 1:
-            group = collectives.factor(args.racks)
+        world = int(os.environ["WORLD_SIZE"])
+        collectives.init("nccl" if on_cuda else "gloo", world_size=world,
+                         rank=int(os.environ["RANK"]))
+        pctx = pctx_for_mesh(make_serve_mesh(world, args.racks))
     elif args.racks > 1:
         raise ValueError("--racks needs an EP group (run under torchrun)")
     try:
@@ -203,9 +208,9 @@ def main(argv=None) -> ServingEngine:
                            ffn_dtype=args.ffn_dtype,
                            rack_limit=args.rack_limit,
                            overlap_chunks=args.overlap_chunks,
-                           dispatch_impl=args.dispatch_impl, group=group)
+                           dispatch_impl=args.dispatch_impl, pctx=pctx)
     finally:
-        if group is not None:
+        if pctx is not None:
             collectives.destroy()
 
 

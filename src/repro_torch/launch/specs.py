@@ -16,11 +16,11 @@ On a mesh (a ``pctx`` of more than one rank, ``launch.mesh``) a cell's
 reference's cells hold their PartitionSpecs: a train cell's
 ``(TrainState(params, opt_state, router_bias (None, None), step ()),
 batch)``, a prefill cell's ``(params, batch)``, a decode cell's ``(params,
-None, batch)`` (the cache's placement comes with decode on the sharded
-layout, not ported yet); each ``params`` a dict by parameter name, each
-``opt_state`` a dict by field of such dicts.  Its ``arg_shapes`` are this
-rank's shards, and its step takes this rank's share of the batch (rows
-over the data axis, the sequence over the model axis, ``sharding.
+caches, batch)`` (``sharding.cache_specs``: one entry a layer); each
+``params`` a dict by parameter name, each ``opt_state`` a dict by field of
+such dicts.  Its ``arg_shapes`` are this rank's shards (the decode cell's
+caches too), and its step takes this rank's share of the batch (rows over
+the data axis, the sequence over the model axis, ``sharding.
 batch_specs``).  On one rank ``in_shardings`` is None and the step takes
 the whole batch.  ``out_shardings`` is None, and the multi-pod dry run
 (``launch/dryrun.py``) is not ported; the runtime has no counterpart of
@@ -137,14 +137,14 @@ def build_cell(arch: str, shape_name: str, pctx: ParallelCtx, *,
     mesh = pctx.world_size > 1
     pspecs = bspecs = None
     if mesh:
-        pspecs = sharding.layout_of(params_shape, pctx)
+        pspecs = params_shape.layout
         bspecs = sharding.batch_specs(cfg, sharding.from_ctx(pctx),
                                       shape.kind, shape.global_batch)
         bshapes = sharding.local_batch(bshapes, pctx, shape.kind)
 
     if shape.kind == "train":
         opt = adafactor(1e-4) if arch in _BIG else adamw(3e-4)
-        state_shape = init_train_state(params_shape, opt, cfg, pctx)
+        state_shape = init_train_state(params_shape, opt, cfg)
         step = make_train_step(cfg, rcfg, pctx, opt,
                                TrainConfig(microbatches=microbatches),
                                global_batch=shape.global_batch if mesh
@@ -177,7 +177,9 @@ def build_cell(arch: str, shape_name: str, pctx: ParallelCtx, *,
                     (pspecs, bspecs) if mesh else None, None, (), meta)
 
     caches_shape = init_caches(cfg, shape.global_batch, shape.seq_len, rcfg,
-                               device="meta")
+                               device="meta", pctx=pctx)
+    cspecs = sharding.cache_specs(cfg, sharding.from_ctx(pctx),
+                                  shape.global_batch) if mesh else None
 
     @torch.no_grad()
     def serve_step(params, caches, batch):
@@ -187,4 +189,4 @@ def build_cell(arch: str, shape_name: str, pctx: ParallelCtx, *,
 
     return Cell(arch, shape_name, serve_step,
                 (params_shape, caches_shape, bshapes),
-                (pspecs, None, bspecs) if mesh else None, None, (1,), meta)
+                (pspecs, cspecs, bspecs) if mesh else None, None, (1,), meta)

@@ -15,12 +15,11 @@ host clock up to a device synchronisation.
 
 On a mesh of ``--data`` x ``--ep`` ranks (``repro_torch.launch.mesh``)
 under ``torchrun`` (env://): each rank trains its data row's rows of the
-global batch on the reference's layout (``ParallelCtx.shard_dense``:
-tensor parallelism over the EP axis, FSDP over the data axis, the
-sequence split over the EP axis between blocks) where the sequence
-divides by ``--ep``, else on the EP layout (its EP rank's experts,
-everything else whole); gloo on ``--device cpu``, NCCL where each rank
-has a card, gloo where the ranks share one card.
+global batch on the reference's layout (tensor parallelism over the EP
+axis, FSDP over the data axis, the sequence split over the EP axis
+between blocks where it divides by ``--ep``, else whole on every rank);
+gloo on ``--device cpu``, NCCL where each rank has a card, gloo where the
+ranks share one card.
 
 Example (the CPU, a reduced model; on a card drop ``--device``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch glm45-106b-a12b \
@@ -70,7 +69,6 @@ import tempfile
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import SHAPES
 from repro_torch.configs.reduce import reduced
 from repro_torch.core.balancer import BalancerConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
@@ -184,7 +182,7 @@ def build(arch, *, steps: int = 100, batch: int = 8, seq: int = 128,
                      device=device)
     opt = adamw(cosine_schedule(lr, warmup=max(steps // 20, 5), total=steps))
     return Trainer(cfg=cfg, rcfg=rcfg, pctx=pctx,
-                   state=init_train_state(params, opt, cfg, pctx),
+                   state=init_train_state(params, opt, cfg),
                    step_fn=make_train_step(
                        cfg, rcfg, pctx, opt,
                        TrainConfig(microbatches=microbatches)),
@@ -213,7 +211,7 @@ def build_cell_trainer(cell: Cell, *, batch: int, seed: int = 0,
         cfg, rcfg, pctx, opt,
         TrainConfig(microbatches=cell.meta["microbatches"]))
     return Trainer(cfg=cfg, rcfg=rcfg, pctx=pctx,
-                   state=init_train_state(params, opt, cfg, pctx),
+                   state=init_train_state(params, opt, cfg),
                    step_fn=step_fn,
                    stream=SyntheticLMStream(DataConfig(
                        vocab_size=cfg.vocab_size,
@@ -332,12 +330,11 @@ def _shared_tmpdir(pctx: ParallelCtx) -> str:
     return bytes(buf.cpu().numpy()).rstrip(b"\0").decode()
 
 
-def init_group(data: int, ep: int, device: str, shard_dense: bool = True):
+def init_group(data: int, ep: int, device: str):
     """Start this torchrun process's group (env://) and return
-    ``(pctx, device)`` for a ``data`` x ``ep`` mesh (on the reference's
-    layout with ``shard_dense``): NCCL where each rank has a card of its
-    own (``LOCAL_RANK``), gloo on the CPU or where the ranks share one
-    card."""
+    ``(pctx, device)`` for a ``data`` x ``ep`` mesh on the reference's
+    layout: NCCL where each rank has a card of its own (``LOCAL_RANK``),
+    gloo on the CPU or where the ranks share one card."""
     world = int(os.environ["WORLD_SIZE"])
     if world != data * ep:
         raise ValueError(f"--data {data} x --ep {ep} needs {data * ep} "
@@ -354,8 +351,7 @@ def init_group(data: int, ep: int, device: str, shard_dense: bool = True):
         torch.cuda.set_device(device)
     collectives.init(backend, world_size=world,
                      rank=int(os.environ["RANK"]))
-    return pctx_for_mesh(make_test_mesh(data, ep),
-                         shard_dense=shard_dense), device
+    return pctx_for_mesh(make_test_mesh(data, ep)), device
 
 
 def main(argv=None) -> TrainRun:
@@ -395,12 +391,7 @@ def main(argv=None) -> TrainRun:
     device, pctx = args.device, ParallelCtx()
     grouped = args.data * args.ep > 1
     if grouped:
-        # The sharded layout splits the sequence over the EP axis; where
-        # it does not divide, the run keeps the EP layout.
-        seq = SHAPES[args.cell].seq_len if args.cell is not None \
-            else args.seq
-        pctx, device = init_group(args.data, args.ep, device,
-                                  shard_dense=seq % args.ep == 0)
+        pctx, device = init_group(args.data, args.ep, device)
     common = dict(steps=args.steps, batch=args.batch,
                   microbatches=args.microbatches, layers=args.layers,
                   log_every=args.log_every, seed=args.seed, device=device,

@@ -47,7 +47,9 @@ from repro_torch.parallel import sharding
 __all__ = ["AttnConfig", "GQAParams", "MLAParams", "KVCache", "flash_ref",
            "init_gqa", "init_mla", "gqa_attention", "mla_attention",
            "gqa_prefill", "mla_prefill", "gqa_decode", "mla_decode",
-           "tp_view", "kv_heads_of", "local_kv_heads"]
+           "tp_view", "kv_heads_of", "combine_partials",
+           "gqa_decode_sharded", "gqa_prefill_sharded", "mla_decode_sharded",
+           "mla_prefill_sharded"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,6 +384,267 @@ def mla_decode(x: torch.Tensor, cache: KVCache, params: MLAParams,
     return y, KVCache(c_all, kr_all, cache.length + 1)
 
 
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Attention over a sequence split into T position shards, from each
+    shard's partial: ``outs`` (T, B, Sq, H, hv), the attention of every
+    query row over that shard's keys alone, and ``lses`` (T, B, H, Sq)
+    fp32, their logsumexps (+inf: no valid key in the shard, weight 0).
+    In fp32: o = sum_t exp(lse_t - M) o_t / sum_t exp(lse_t - M), M the
+    largest finite lse_t; 0 for a row with no key in any shard, as the
+    plain flash gives it.  The same function on the card and the CPU."""
+    lse = lses.to(torch.float32).movedim(-1, -2)[..., None]   # (T,B,Sq,H,1)
+    lse = torch.where(torch.isinf(lse), float("-inf"), lse)
+    M = lse.amax(dim=0)
+    w = torch.exp(lse - torch.where(M == float("-inf"), 0.0, M))
+    den = w.sum(dim=0)
+    num = (w * outs.to(torch.float32)).sum(dim=0)
+    return num / den.clamp(min=1e-30)
+
+
+# ------------------------------------ the sequence-sharded decode cache ----
+#
+# On a mesh the cache holds the rank's contiguous block of max_seq / T
+# positions with every KV head (GQA), or the whole latent and rope key
+# (MLA): the reference's ``cache_specs``.  A decode step is flash-decode
+# over the model axis, as GSPMD partitions the reference's: every rank
+# attends all query heads against its own positions (the queries, a few KB,
+# gathered over the heads), and the ranks that own each head combine the
+# shards' (output, logsumexp) partials (:func:`combine_partials`).  A
+# prefill chunk rebuilds the rank's heads' K/V over every position from the
+# shards (an all-to-all; MLA gathers its latent, 576 values a position at
+# DeepSeek-V3's width), attends as on one rank, and each rank keeps the
+# chunk's positions that fall in its block.  No rank keeps more than its
+# shard after a call.
+
+
+def _rank_kv_heads(cfg: AttnConfig, T: int, t: int) -> list:
+    """The KV heads rank ``t`` of ``T`` attends with where the query heads
+    split over the model axis (``tp_view``): its contiguous block of
+    Hkv / T, else those its query heads read (a range, or one a query
+    head)."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if Hkv % T == 0:
+        n = Hkv // T
+        return list(range(t * n, (t + 1) * n))
+    heads = kv_heads_of(H, Hkv, T, t)
+    if heads is not None:
+        return list(range(*heads))
+    Hl, G = H // T, H // Hkv
+    return [(t * Hl + j) // G for j in range(Hl)]
+
+
+def _whole_kv(k: torch.Tensor, cfg: AttnConfig, pctx, split: bool):
+    """(B, C, Hkv, hd) of every KV head from each rank's (B, C, Hkv_l, hd)
+    of its own (an all-gather over the heads; no gradient); ``k`` itself
+    where every rank computed them all."""
+    from repro_torch.parallel import collectives
+
+    T = pctx.ep_size
+    if not split or T == 1:
+        return k
+    parts = collectives.all_gather(pctx.group, k.contiguous())
+    if cfg.num_kv_heads % T == 0:
+        return parts.movedim(0, 2).flatten(2, 3)
+    first = {}
+    for t in range(T):
+        for j, h in enumerate(_rank_kv_heads(cfg, T, t)):
+            first.setdefault(h, (t, j))
+    return torch.stack([parts[first[h][0], :, :, first[h][1]]
+                        for h in range(cfg.num_kv_heads)], dim=2)
+
+
+def _heads_from_shards(shard: torch.Tensor, cfg: AttnConfig, pctx,
+                       split: bool) -> torch.Tensor:
+    """(B, S, Hkv_l, hd): this rank's heads (every head where the mixer
+    runs whole) over every position, from each rank's position shard
+    (B, S / T, Hkv, hd): an all-to-all over the model axis, each rank
+    sending every other its heads' columns of its positions."""
+    from repro_torch.parallel import collectives
+
+    T = pctx.ep_size
+    if T == 1:
+        return shard
+    if not split:
+        return collectives.gather_along(pctx.group, shard, 1)
+    buf = torch.stack([shard[:, :, _rank_kv_heads(cfg, T, t)]
+                       for t in range(T)])
+    got = collectives.all_to_all(pctx.group, buf)     # (T, B, S/T, Hl, hd)
+    return got.movedim(0, 1).flatten(1, 2)
+
+
+def _write_shard(shard: torch.Tensor, new: torch.Tensor,
+                 length: torch.Tensor, pctx) -> torch.Tensor:
+    """``shard`` (B, S / T, ...), this rank's positions of a cache of S,
+    with the positions of ``new`` (B, C, ...) written at each row's
+    ``length`` that fall in it: the clamped update of :func:`_update_at`
+    on the whole cache (``lax.dynamic_update_slice``), cut to the shard."""
+    B, Sl = shard.shape[:2]
+    C = new.shape[1]
+    start = length.to(torch.int64).clamp(0, Sl * pctx.ep_size - C)
+    pos = torch.arange(Sl, device=shard.device) + pctx.ep_rank * Sl
+    c = pos[None, :] - start[:, None]                         # (B, S/T)
+    hit = ((c >= 0) & (c < C)).view(B, Sl, *[1] * (new.dim() - 2))
+    idx = c.clamp(0, C - 1).view(B, Sl, *[1] * (new.dim() - 2))
+    picked = torch.gather(new.to(shard.dtype), 1,
+                          idx.expand(B, Sl, *new.shape[2:]))
+    return torch.where(hit, picked, shard)
+
+
+def _exchange_partials(out: torch.Tensor, lse: torch.Tensor, pctx,
+                       split: bool):
+    """Every rank's partial for this rank's heads: ``out`` (B, Sq, H, hv)
+    and ``lse`` (B, H, Sq) of all H heads over this rank's positions ->
+    (T, B, Sq, H_l, hv) and (T, B, H_l, Sq), source-major; an all-to-all
+    over the model axis (each rank keeps its heads' partials from every
+    other), or an all-gather where every rank runs every head."""
+    from repro_torch.parallel import collectives
+
+    T = pctx.ep_size
+    if T == 1:
+        return out[None], lse[None]
+    if not split:
+        return (collectives.all_gather(pctx.group, out),
+                collectives.all_gather(pctx.group, lse))
+    B, Sq, H, hv = out.shape
+    o = out.reshape(B, Sq, T, H // T, hv).movedim(2, 0).contiguous()
+    ls = lse.reshape(B, T, H // T, Sq).movedim(1, 0).contiguous()
+    return (collectives.all_to_all(pctx.group, o),
+            collectives.all_to_all(pctx.group, ls))
+
+
+def _local_len(length: torch.Tensor, Sl: int, pctx) -> torch.Tensor:
+    """Each row's valid positions in this rank's block of ``Sl``, from its
+    global valid length (the flash entry clamps it to [0, Sl])."""
+    return length - pctx.ep_rank * Sl
+
+
+def gqa_decode_sharded(x: torch.Tensor, cache: KVCache, w, cfg: AttnConfig,
+                       lcfg: AttnConfig, pctx, split: bool, *,
+                       block_kv: int = 1024):
+    """:func:`gqa_decode` on a mesh (the module's notes above): ``w`` and
+    ``lcfg`` are the rank's heads' (``tp_view``), ``cfg`` the whole
+    model's, ``cache`` the rank's position shard.  Returns the rank's
+    heads' output (B, 1, H_l hd) before wo, and the new shard."""
+    from repro_torch.parallel import collectives
+
+    B = x.shape[0]
+    Sl = cache.k.shape[1]
+    q, k, v = _project_gqa(x, w, lcfg)
+    cos, sin = rotary_cos_sin(cache.length[:, None], cfg.head_dim,
+                              cfg.rope_theta)
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    k_sh = _write_shard(cache.k, _whole_kv(k, cfg, pctx, split),
+                        cache.length, pctx)
+    v_sh = _write_shard(cache.v, _whole_kv(v, cfg, pctx, split),
+                        cache.length, pctx)
+    if split:
+        q = collectives.gather_along(pctx.group, q, 2)         # every head
+    o, lse = flash_attention(q, k_sh, v_sh, causal=False, block_kv=block_kv,
+                             kv_valid_len=_local_len(cache.length + 1, Sl,
+                                                     pctx),
+                             return_lse=True)
+    out = combine_partials(*_exchange_partials(o, lse, pctx, split))
+    return (out.to(x.dtype).reshape(B, 1, -1),
+            KVCache(k_sh, v_sh, cache.length + 1))
+
+
+def gqa_prefill_sharded(x: torch.Tensor, cache: KVCache, w,
+                        cfg: AttnConfig, lcfg: AttnConfig, pctx,
+                        split: bool, *, valid_len=None, block_kv: int = 1024):
+    """:func:`gqa_prefill` on a mesh: ``x`` the whole chunk (B, C, D),
+    ``cache`` the rank's position shard.  The rank's heads' K/V over every
+    position come from the shards (:func:`_heads_from_shards`), the chunk
+    is attended as on one rank, and the chunk's positions in this rank's
+    block are written with every KV head.  Returns the rank's heads'
+    output (B, C, H_l hd) before wo, and the new shard."""
+    B, C, _ = x.shape
+    q, k, v = _project_gqa(x, w, lcfg)
+    pos = cache.length[:, None] + torch.arange(C, device=x.device)[None, :]
+    cos, sin = rotary_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+    k_all = _update_at(_heads_from_shards(cache.k, cfg, pctx, split), k,
+                       cache.length)
+    v_all = _update_at(_heads_from_shards(cache.v, cfg, pctx, split), v,
+                       cache.length)
+    vl = C if valid_len is None else valid_len
+    out = flash_attention(q, k_all, v_all, causal=True, block_kv=block_kv,
+                          q_offset=cache.length,
+                          kv_valid_len=cache.length + vl)
+    k_sh = _write_shard(cache.k, _whole_kv(k, cfg, pctx, split),
+                        cache.length, pctx)
+    v_sh = _write_shard(cache.v, _whole_kv(v, cfg, pctx, split),
+                        cache.length, pctx)
+    return out.reshape(B, C, -1), KVCache(k_sh, v_sh, cache.length + vl)
+
+
+def mla_prefill_sharded(x: torch.Tensor, cache: KVCache, w,
+                        cfg: AttnConfig, lcfg: AttnConfig, pctx,
+                        split: bool, *, valid_len=None, block_kv: int = 1024):
+    """:func:`mla_prefill` on a mesh: the latent and rope key gathered
+    over the model axis (every rank computes the chunk's own), the chunk
+    attended with the rank's heads (``lcfg``), and this rank's positions
+    of the new latent kept.  Returns the rank's heads' output before wo
+    and the new shard."""
+    from repro_torch.parallel import collectives
+
+    del cfg, split
+    g = pctx.group
+    whole = KVCache(collectives.gather_along(g, cache.k, 1),
+                    collectives.gather_along(g, cache.v, 1), cache.length)
+    y, new = mla_prefill(x, whole, w, lcfg, valid_len=valid_len,
+                         block_kv=block_kv, project=False)
+    Sl = cache.k.shape[1]
+    lo = pctx.ep_rank * Sl
+    return y, KVCache(new.k[:, lo:lo + Sl].contiguous(),
+                      new.v[:, lo:lo + Sl].contiguous(), new.length)
+
+
+def mla_decode_sharded(x: torch.Tensor, cache: KVCache, w, cfg: AttnConfig,
+                       lcfg: AttnConfig, pctx, split: bool):
+    """:func:`mla_decode` on a mesh, absorbed, in fp32 products: each rank
+    absorbs W_UK into its heads' queries, the (q_abs, q_rope) of every
+    head are gathered (B x H x (kv_lora + rope) values), every rank scores
+    all heads against its latent shard and forms its partial latent
+    context with its logsumexp, and each head's owner combines them
+    (:func:`combine_partials`) and applies its W_UV.  Returns the rank's
+    heads' output (B, 1, H_l v) before wo, and the new shard."""
+    from repro_torch.parallel import collectives
+
+    B = x.shape[0]
+    Hl = lcfg.num_heads
+    nope, rope, hv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lora = cfg.kv_lora_rank
+    Sl = cache.k.shape[1]
+    q, c_new, kr_new = _project_mla(x, w, lcfg, cache.length[:, None])
+    c_sh = _write_shard(cache.k, c_new, cache.length, pctx)
+    kr_sh = _write_shard(cache.v, kr_new, cache.length, pctx)
+    w_full = w.wkv_b.reshape(lora, Hl, nope + hv).to(torch.float32)
+    q_abs = torch.einsum("bqhn,lhn->bhl", q[..., :nope].to(torch.float32),
+                         w_full[..., :nope])
+    qq = torch.cat([q_abs, q[:, 0, :, nope:].to(torch.float32)], dim=-1)
+    if split:
+        qq = collectives.gather_along(pctx.group, qq, 1)     # every head
+    c32, kr32 = c_sh.to(torch.float32), kr_sh.to(torch.float32)
+    scores = (torch.einsum("bhl,bsl->bhs", qq[..., :lora], c32)
+              + torch.einsum("bhr,bsr->bhs", qq[..., lora:], kr32))
+    scores = scores * (nope + rope) ** -0.5
+    pos = torch.arange(Sl, device=x.device) + pctx.ep_rank * Sl
+    mask = pos[None, None, :] <= cache.length[:, None, None]
+    scores = torch.where(mask, scores, float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - torch.where(m == float("-inf"), 0.0, m))
+    den = p.sum(dim=-1, keepdim=True)
+    ctx = torch.einsum("bhs,bsl->bhl", p, c32) / den.clamp(min=1e-30)
+    lse = torch.where(den > 0, m + torch.log(den), float("inf"))   # (B,H,1)
+    ctx = combine_partials(*_exchange_partials(ctx[:, None], lse, pctx,
+                                               split))[:, 0]
+    out = torch.einsum("bhl,lhv->bhv", ctx, w_full[..., nope:])
+    return (out.reshape(B, 1, Hl * hv).to(x.dtype),
+            KVCache(c_sh, kr_sh, cache.length + 1))
+
+
 def kv_heads_of(H: int, Hkv: int, T: int, t: int):
     """The KV heads the query heads ``[t H / T, (t + 1) H / T)`` read: a
     contiguous range ``(k0, k1)`` where each of its heads serves an equal
@@ -397,30 +660,15 @@ def kv_heads_of(H: int, Hkv: int, T: int, t: int):
     return None
 
 
-def local_kv_heads(cfg: AttnConfig, T: int, t: int) -> int:
-    """The KV heads model rank ``t`` of ``T`` attends with on the sharded
-    layout (its GQA cache's heads)."""
-    H, Hkv = cfg.num_heads, cfg.num_kv_heads
-    if T == 1 or H % T:
-        return Hkv
-    if Hkv % T == 0:
-        return Hkv // T
-    heads = kv_heads_of(H, Hkv, T, t)
-    return H // T if heads is None else heads[1] - heads[0]
-
-
-def _kv_cols(w: torch.Tensor, heads, hd: int) -> torch.Tensor:
-    """Columns of a (..., Hkv * hd) tensor of the KV heads ``heads`` (a
-    (k0, k1) range, or one index per query head)."""
-    if isinstance(heads, tuple):
-        return w[..., heads[0] * hd:heads[1] * hd]
+def _kv_cols(w: torch.Tensor, heads: list, hd: int) -> torch.Tensor:
+    """Columns of a (..., Hkv * hd) tensor of the KV heads ``heads``."""
     idx = torch.tensor([h * hd + i for h in heads for i in range(hd)],
                        device=w.device)
     return w.index_select(w.dim() - 1, idx)
 
 
 def tp_view(params, cfg: AttnConfig, pctx, spec: dict):
-    """(weights, config, split) of this rank on a ``shard_dense`` mesh:
+    """(weights, config, split) of this rank on a mesh:
     the tensors ``gqa_*`` / ``mla_*`` compute with, the config of the
     rank's heads, and whether the heads split over the model axis (False:
     every weight is gathered whole and the mixer runs whole on every rank,
@@ -452,11 +700,8 @@ def tp_view(params, cfg: AttnConfig, pctx, spec: dict):
                   for n in kv})
         Hkv_l = Hkv // T
     else:
-        heads = kv_heads_of(H, Hkv, T, t)
-        if heads is None:
-            G = H // Hkv
-            heads = [(t * Hl + j) // G for j in range(Hl)]
-        Hkv_l = local_kv_heads(cfg, T, t)
+        heads = _rank_kv_heads(cfg, T, t)
+        Hkv_l = len(heads)
         w.update({n: _kv_cols(sharding.use(getattr(params, n), spec[n],
                                            pctx, model=True), heads, hd)
                   for n in kv})

@@ -16,25 +16,30 @@ JAX package stacks scanned segments; caches are one entry per layer, a
 :class:`KVCache` for an attention layer and an :class:`SSMState` for a
 Mamba layer.
 
-On a mesh with ``ParallelCtx.shard_dense`` (the reference's layout,
-``repro_torch.parallel.sharding``) every parameter is this rank's shard
-(``LMParams.layout`` holds the entries it was cut by), the batch is this
-rank's share (rows over the data axis, the sequence over the model axis:
-``sharding.local_batch``) and the residual stream between blocks its
-sequence shard.  The embedding is vocab-parallel over the model axis (the
-token ids gathered, the rank's rows looked up with the others masked to
-zero, then a reduce-scatter along the sequence); the head gives logits
-column-parallel over the vocabulary (B, S, V / T) from the gathered
-sequence, and :func:`lm_loss` and :func:`blocked_lm_loss` take the row
-max, the sum of exponentials and the target's logit over the model axis,
-so the vocab-sized logits are never gathered in training.  Where the
-vocabulary does not divide by the model axis the table is whole on every
-rank: the logits are the rank's sequence shard's (B, S / T, V) and the
-losses sum their terms over the model axis.  :func:`gather_logits` puts
-either back together.
+On a mesh (a ``ParallelCtx`` of more than one rank: the reference's
+layout, ``repro_torch.parallel.sharding``) every parameter is this rank's
+shard (``LMParams.layout`` holds the entries it was cut by), the batch is
+this rank's share (rows over the data axis, the sequence over the model
+axis where it divides: ``sharding.local_batch``) and the residual stream
+between blocks its sequence shard, or the whole sequence where it does
+not divide and at decode (``ParallelCtx.seq_whole``).  The embedding is
+vocab-parallel over the model axis (the token ids gathered, the rank's
+rows looked up with the others masked to zero, then a reduce-scatter along
+the sequence, or an all-reduce onto a whole stream); the head gives logits
+column-parallel over the vocabulary (B, S, V / T) of the whole sequence,
+and :func:`lm_loss` and :func:`blocked_lm_loss` take the row max, the sum
+of exponentials and the target's logit over the model axis, so the
+vocab-sized logits are never gathered in training.  Where the vocabulary
+does not divide by the model axis the table is whole on every rank: the
+logits are the stream's (B, S / T, V), or (B, S, V) on a whole stream,
+and the losses sum each rank's share of the tokens' terms over the model
+axis.  :func:`gather_logits` puts either back together.  The decode cache
+holds the rank's block of positions (``sharding.cache_specs``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.utils.checkpoint
@@ -65,7 +70,7 @@ class LMParams(nn.Module):
     def __init__(self, embedding, layers, final_norm, lm_head=None,
                  frontend_proj=None, layout=None):
         super().__init__()
-        self.layout = layout        # shard_dense: every parameter's entries
+        self.layout = layout        # on a mesh: every parameter's entries
         self.embedding = nn.Parameter(embedding, requires_grad=False)
         self.layers = nn.ModuleList(layers)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
@@ -86,11 +91,11 @@ def init_lm(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
     keeps its own experts of each MoE layer (``init_moe_params``), so the
     group's ranks together hold what one rank holds at ``ep_size == 1``.
     A frontend stub's projection, N(0, 1 / D) as the reference's, is drawn
-    last.  With ``pctx.shard_dense`` each parameter is drawn whole from
-    the one-rank stream and cut to this rank's shard before the next is
-    drawn (a layer at a time), so the shard equals the slice of the
-    one-rank init bitwise."""
-    layout = sharding.lm_layout(cfg, pctx) if pctx.shard_dense else None
+    last.  On a mesh each parameter is drawn whole from the one-rank
+    stream and cut to this rank's shard before the next is drawn (a layer
+    at a time), so the shard equals the slice of the one-rank init
+    bitwise."""
+    layout = sharding.lm_layout(cfg, pctx) if pctx.world_size > 1 else None
     layers = []
     for i, kind in enumerate(layer_kinds(cfg)):
         bp = init_block(cfg, kind, rcfg, pctx, generator, device=device)
@@ -144,7 +149,7 @@ def _input_embeddings(params: LMParams, batch: dict, cfg: ModelConfig,
     if cfg.frontend == "vision_patches":
         patches = batch["patches"].to(proj.dtype) @ proj          # (B, P, D)
         P, Sl = patches.shape[1], x.shape[1]
-        lo = 0 if lay is None else pctx.ep_rank * Sl   # the shard's start
+        lo = 0 if lay is None or pctx.seq_whole else pctx.ep_rank * Sl
         n = min(max(P - lo, 0), Sl)
         x = torch.cat([patches[:, lo:lo + n].to(x.dtype), x[:, n:]], dim=1)
     return x
@@ -159,20 +164,24 @@ def _embed_tokens(params: LMParams, tokens: torch.Tensor,
 
 
 def _embed_sharded(tokens, table, spec, pctx):
-    """The embedding of this rank's sequence shard of ``tokens`` on the
-    sharded layout: vocab-parallel (every rank's token ids gathered, its
-    rows of the table looked up with the others masked to zero, a
-    reduce-scatter along the sequence), or a whole table's rows of the
-    shard's own tokens where the vocabulary does not divide."""
+    """The embedding of the stream's ``tokens`` (this rank's sequence
+    shard, or the whole sequence on a whole stream) on a mesh:
+    vocab-parallel (every rank's token ids gathered, its rows of the table
+    looked up with the others masked to zero, a reduce-scatter along the
+    sequence, or an all-reduce onto a whole stream), or a whole table's
+    rows of the stream's own tokens where the vocabulary does not
+    divide."""
     g, T = pctx.group, pctx.ep_size
     if T == 1 or not sharding.on_model(spec[0]):
         return embed(tokens, sharding.use(table, spec, pctx, model=True))
     tab = sharding.use(table, spec, pctx)
-    ids = collectives.gather_along(g, tokens, 1)
+    ids = tokens if pctx.seq_whole else collectives.gather_along(g, tokens, 1)
     Vl = tab.shape[0]
     local = ids - pctx.ep_rank * Vl
     mine = (local >= 0) & (local < Vl)
     e = embed(local.clamp(0, Vl - 1), tab) * mine[..., None].to(tab.dtype)
+    if pctx.seq_whole:
+        return collectives.reduce_whole(g, e)
     return collectives.scatter_along(g, e, 1)
 
 
@@ -187,32 +196,37 @@ def head_of(params: LMParams, pctx: ParallelCtx) -> torch.Tensor:
 
 
 def _unembed(x: torch.Tensor, params: LMParams, pctx: ParallelCtx):
-    """fp32 logits of the final-norm stream: (B, S, V), or on the sharded
-    layout column-parallel (B, S, V / T) over the gathered sequence (the
-    rank's (B, S / T, V) where the vocabulary does not divide)."""
+    """fp32 logits of the final-norm stream: (B, S, V), or on a mesh
+    column-parallel (B, S, V / T) over the whole sequence (gathered from
+    the shards, unless the stream is whole), or where the vocabulary does
+    not divide the stream's own (B, S / T, V) (a whole stream's (B, S,
+    V))."""
     head = head_of(params, pctx)
-    if not vocab_split(params, pctx):
+    if not vocab_split(params, pctx) or pctx.seq_whole:
         return unembed(x, head)
     return unembed(collectives.gather_along(pctx.group, x, 1), head)
 
 
 def vocab_split(params, pctx) -> bool:
-    """On the sharded layout, the head's rows split over the model axis
-    (the vocabulary divides by it)."""
+    """On a mesh, the head's rows split over the model axis (the
+    vocabulary divides by it)."""
     return params.layout is not None and pctx.ep_size > 1 and \
         sharding.on_model(params.layout["embedding"][0])
 
 
 def gather_logits(logits: torch.Tensor, pctx: ParallelCtx,
                   vocab_size: int) -> torch.Tensor:
-    """The whole (B, S, V) logits from the sharded layout's (collective
-    over the model axis, no gradient): column-parallel (B, S, V / T) are
-    gathered along the vocabulary, sequence-sharded (B, S / T, V) along
-    the sequence."""
-    if not pctx.shard_dense or pctx.ep_size == 1:
+    """The whole (B, S, V) logits from a mesh's (collective over the model
+    axis, no gradient): column-parallel (B, S, V / T) are gathered along
+    the vocabulary, a sequence shard's (B, S / T, V) along the sequence
+    (``pctx`` the call's: a whole stream's (B, S, V) are whole already)."""
+    if pctx.ep_size == 1:
         return logits
-    dim = 1 if logits.shape[-1] == vocab_size else 2
-    return collectives.gather_along(pctx.group, logits.detach(), dim)
+    if logits.shape[-1] != vocab_size:
+        return collectives.gather_along(pctx.group, logits.detach(), 2)
+    if pctx.seq_whole:
+        return logits
+    return collectives.gather_along(pctx.group, logits.detach(), 1)
 
 
 def forward(params: LMParams, batch: dict, cfg: ModelConfig,
@@ -260,26 +274,47 @@ def forward(params: LMParams, batch: dict, cfg: ModelConfig,
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor, *,
             z_loss: float = 1e-4,
-            pctx: ParallelCtx | None = None) -> torch.Tensor:
-    """Token cross-entropy (fp32) with z-loss regularisation.  On the
-    sharded layout (``pctx.shard_dense``) ``targets`` is the rank's
-    sequence shard and ``logits`` the head's (see the module's notes); the
-    loss is the data rank's, on every rank of its model group."""
-    if pctx is None or not pctx.shard_dense or pctx.ep_size == 1:
+            pctx: ParallelCtx | None = None,
+            vocab_split: bool | None = None) -> torch.Tensor:
+    """Token cross-entropy (fp32) with z-loss regularisation.  On a mesh
+    ``targets`` is the stream's (the rank's sequence shard, or the whole
+    sequence where ``pctx.seq_whole``) and ``logits`` the head's (see the
+    module's notes; ``vocab_split``: the head's rows split over the model
+    axis, which a sequence shard's shapes tell where it is None); the loss
+    is the data rank's, on every rank of its model group."""
+    if pctx is None or pctx.ep_size == 1:
         logits = logits.to(torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1,
                           targets[..., None].to(torch.int64))[..., 0]
         return (lse - ll).mean() + z_loss * (lse ** 2).mean()
-    T = pctx.ep_size
-    if logits.shape[1] == targets.shape[1]:        # (B, S / T, V)
-        a, b = _ce_terms(logits.to(torch.float32), targets)
-        ab = collectives.all_reduce(pctx.group, torch.stack([a, b]))
-        n = targets.numel() * T
-        return ab[0] / n + z_loss * ab[1] / n
-    tg = collectives.gather_along(pctx.group, targets, 1)
-    a, b = _ce_split(logits.to(torch.float32), tg, pctx)
-    return a / tg.numel() + z_loss * b / tg.numel()
+    if vocab_split is None:
+        if pctx.seq_whole:
+            raise ValueError("lm_loss on a whole stream needs vocab_split")
+        vocab_split = logits.shape[1] != targets.shape[1]
+    if vocab_split:
+        tg = targets if pctx.seq_whole else \
+            collectives.gather_along(pctx.group, targets, 1)
+        a, b = _ce_split(logits.to(torch.float32), tg, pctx)
+        return a / tg.numel() + z_loss * b / tg.numel()
+    logits, targets, n = _token_share(logits, targets, pctx)
+    a, b = _ce_terms(logits.to(torch.float32), targets)
+    ab = collectives.all_reduce(pctx.group, torch.stack([a, b]))
+    return ab[0] / n + z_loss * ab[1] / n
+
+
+def _token_share(x, targets, pctx):
+    """(x, targets, global token count) of this rank's share of the
+    tokens where the head is whole on every rank: the stream's shard as it
+    is, or on a whole stream the rank's block of ``torch.tensor_split``'s
+    T blocks of the sequence, so the model axis's sum of the ranks' terms
+    counts each token once (and each rank back-propagates its own)."""
+    B, S = targets.shape[:2]
+    if not pctx.seq_whole:
+        return x, targets, B * S * pctx.ep_size
+    part = torch.tensor_split(torch.arange(S), pctx.ep_size)[pctx.ep_rank]
+    lo, hi = (int(part[0]), int(part[-1]) + 1) if len(part) else (0, 0)
+    return x[:, lo:hi], targets[:, lo:hi], B * S
 
 
 def _ce_terms(logits: torch.Tensor, targets: torch.Tensor):
@@ -324,34 +359,39 @@ def blocked_lm_loss(x: torch.Tensor, head: torch.Tensor,
     (B, S, V) fp32 logits: each chunk's logits are recomputed in the
     backward (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint``).  The head is cast to fp32 once, so its gradient
-    accumulates over the chunks in fp32.  On the sharded layout ``x`` is
-    the final-norm stream's shard, ``head`` :func:`head_of`'s and
-    ``targets`` the shard's: with ``vocab_split`` (the head's rows split
-    over the model axis) the sequence is gathered and each chunk's
-    column-parallel terms are taken over the model axis, else the
-    shard's chunks are summed over it."""
-    sharded = pctx is not None and pctx.shard_dense and pctx.ep_size > 1
+    accumulates over the chunks in fp32.  On a mesh ``x`` is the
+    final-norm stream (a shard, or whole where ``pctx.seq_whole``),
+    ``head`` :func:`head_of`'s and ``targets`` the stream's: with
+    ``vocab_split`` (the head's rows split over the model axis) the
+    sequence is gathered (unless whole) and each chunk's column-parallel
+    terms are taken over the model axis, else each rank's share of the
+    tokens (:func:`_token_share`) is chunked and the terms are summed over
+    it."""
+    sharded = pctx is not None and pctx.ep_size > 1
     split = sharded and vocab_split
-    if split:
+    n = targets.numel()
+    if split and not pctx.seq_whole:
         x = collectives.gather_along(pctx.group, x, 1)
         targets = collectives.gather_along(pctx.group, targets, 1)
+        n = targets.numel()
+    elif sharded and not split:
+        x, targets, n = _token_share(x, targets, pctx)
     B, S, _ = x.shape
     chunks = max(1, min(chunks, S))
-    while S % chunks:
+    while S and S % chunks:
         chunks -= 1
     size = S // chunks
     head32 = head.to(torch.float32)
     nll = z = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c in range(chunks):
+    for c in range(chunks if S else 0):
         sl = slice(c * size, (c + 1) * size)
         a, b = torch.utils.checkpoint.checkpoint(
             _chunk_terms, x[:, sl], head32, targets[:, sl],
             pctx if split else None, use_reentrant=False)
         nll, z = nll + a, z + b
-    n = B * S
     if sharded and not split:
         nz = collectives.all_reduce(pctx.group, torch.stack([nll, z]))
-        nll, z, n = nz[0], nz[1], n * pctx.ep_size
+        nll, z = nz[0], nz[1]
     return nll / n + z_loss * z / n
 
 
@@ -364,8 +404,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 rcfg: RuntimeConfig, *, device="cuda",
                 pctx: ParallelCtx | None = None) -> list:
     """One decode cache per layer (KVCache or SSMState by the layer's
-    kind); on the sharded layout a GQA cache holds the KV heads this rank
-    attends with."""
+    kind) for ``batch`` rows of ``max_seq`` positions; on a mesh the
+    rank's shard of them (``transformer.init_cache_block``)."""
     return [init_cache_block(cfg, kind, batch, max_seq, rcfg.dtype,
                              device=device, pctx=pctx)
             for kind in layer_kinds(cfg)]
@@ -389,10 +429,11 @@ def prefill_step(params: LMParams, caches, tokens: torch.Tensor,
                  valid_len=None, router_bias: torch.Tensor | None = None):
     """Chunked prefill of a (B, C) chunk at the caches' offsets.
 
-    Returns (logits (B, C, V) fp32, new_caches).  On the sharded layout
-    ``tokens`` is this rank's shard of the chunk (B, C / T) and the logits
-    are column-parallel (B, C, V / T) (:func:`gather_logits` makes them
-    whole).
+    Returns (logits (B, C, V) fp32, new_caches).  On a mesh ``tokens`` is
+    this rank's shard of the chunk (B, C / T), or the whole chunk where
+    ``pctx.seq_whole`` (a C that does not divide by the model axis:
+    ``sharding.stream_whole``), and the logits are column-parallel (B, C,
+    V / T) (:func:`gather_logits` makes them whole).
     """
     x = _embed_tokens(params, tokens, pctx)
     x, new_caches = _run_layers(x, params, caches, cfg, rcfg, pctx,
@@ -404,11 +445,13 @@ def prefill_step(params: LMParams, caches, tokens: torch.Tensor,
 def decode_step(params: LMParams, caches, tokens: torch.Tensor,
                 cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx, *,
                 router_bias: torch.Tensor | None = None):
-    """One-token decode.  tokens: (B, 1).  Returns (logits, new_caches).
-    The sharded layout (``pctx.shard_dense``) raises: decode on it is not
-    ported yet (``transformer.block_apply``)."""
-    x = embed(tokens, params.embedding)
+    """One-token decode.  tokens: (B, 1) (on a mesh the data rank's rows).
+    Returns (logits, new_caches); on a mesh the stream is whole and the
+    logits column-parallel (B, 1, V / T) where the vocabulary divides
+    (:func:`gather_logits` with ``seq_whole`` set makes them whole)."""
+    if pctx.world_size > 1:
+        pctx = dataclasses.replace(pctx, seq_whole=True)
+    x = _embed_tokens(params, tokens, pctx)
     x, new_caches = _run_layers(x, params, caches, cfg, rcfg, pctx,
                                 decode=True, router_bias=router_bias)
-    return unembed(x, params.head()), new_caches
-
+    return _unembed(x, params, pctx), new_caches

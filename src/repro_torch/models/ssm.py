@@ -15,12 +15,15 @@ is cast back to the model dtype at the end.  The causal conv is written as
 the same shifted sums as the reference, not ``conv1d`` (which would go
 through cuDNN, TF32 by default).
 
-On the sharded layout (``ParallelCtx.shard_dense``) ``in_proj``,
-``conv_w``, ``conv_b`` and ``out_proj`` take the reference's placements
-(``repro_torch.parallel.sharding``), but ``in_proj``'s split output
-mixes z, x, B, C and dt, which is not a split by heads: the block gathers
-them over the model axis at use, as FSDP gathers over the data axis, and
-the mixer runs whole on every rank (``transformer.block_apply``).
+On a mesh (the reference's layout, ``repro_torch.parallel.sharding``)
+``in_proj``, ``conv_w``, ``conv_b`` and ``out_proj`` take the reference's
+placements, but ``in_proj``'s split output mixes z, x, B, C and dt, which
+is not a split by heads: the block gathers them over the model axis at
+use, as FSDP gathers over the data axis, and the mixer runs whole on
+every rank (``transformer.block_apply``).  So does its decode state: the
+reference places ``s`` over the heads and the conv tail over its channels
+(``sharding.cache_specs``), while the port keeps both whole on every model
+rank (its rows over the data axis) until the mixer is split by heads.
 """
 
 from __future__ import annotations

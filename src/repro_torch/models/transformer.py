@@ -2,24 +2,23 @@
 
 Mirrors ``repro.models.transformer`` for the block kinds ``attn+moe``,
 ``attn+dense``, ``mamba+moe`` and ``mamba+dense`` (attention GQA or MLA) on one device
-(``ParallelCtx()``) or on a mesh of data x EP ranks over
-``torch.distributed`` (``ParallelCtx(group=..., data=..., world=...)``,
-built by ``repro_torch.launch.mesh``: the EP group is the mesh's model
-axis, the data group its batch axis; a factored EP group of racks x lanes,
+(``ParallelCtx()``) or on a mesh of data x model ranks over
+``torch.distributed`` (a ``ParallelCtx`` built by ``repro_torch.launch.
+mesh.pctx_for_mesh``: the EP group is the mesh's model axis, the data
+group its batch axis; a factored EP group of racks x lanes,
 ``collectives.factor``, is the mesh with a rack axis, and its MoE blocks
-run ``hier_a2a``).  With ``ParallelCtx.shard_dense`` (training and
-prefill) the model takes the reference's layout
-(``repro_torch.parallel.sharding``): the residual stream is each model
-rank's shard of the sequence, attention and the dense FFN are tensor
-parallel over the model axis, every large weight is FSDP over the data
-axis, and each MoE block runs the EP layer on the stream's shard
-(:func:`_block_apply_sharded`).  Without it (decode on the serve CLI's EP
-group) attention, Mamba and dense layers are replicated on every rank of
-an EP group, which all see their data rank's rows of the batch, and each
-MoE block runs the EP layer (:func:`_ep_moe_block`).  JAX
-groups identical layers into scanned segments (and a hybrid's repeating
-period into one "cycle" segment); here the layers are a Python list and
-each block runs in turn.
+run ``hier_a2a``).  On a mesh the model takes the reference's layout
+(``repro_torch.parallel.sharding``) for every step, training, prefill and
+decode: attention and the dense FFN are tensor parallel over the model
+axis, every large weight is FSDP over the data axis, each MoE block runs
+the EP layer with its experts gathered over data, and the decode cache
+holds the rank's block of positions (:func:`_block_apply_sharded`).  The
+residual stream between blocks is each model rank's shard of the
+sequence, or the whole sequence where it does not divide by the model
+axis and at decode (``ParallelCtx.seq_whole``, the reference's ``wsc``).
+JAX groups identical layers into scanned segments (and a hybrid's
+repeating period into one "cycle" segment); here the layers are a Python
+list and each block runs in turn.
 
 The full forward (cache None) is differentiable on one device and on a
 mesh (``repro_torch.train.loop`` reduces the gradients over it).  With
@@ -93,24 +92,22 @@ class ParallelCtx:
     ``world`` every rank of the mesh (None: the EP group's ranks).  Rank
     numbering is the reference mesh's row-major order, global rank
     ``d * R + r``; a factored group is rack-major inside each data row, so
-    its rank r holds flat rank r's experts.  ``batch_replicated``: every
-    data row holds the whole global batch, which does not divide over the
-    data group (``sharding.batch_rows``); the train step sets it.
-    ``shard_dense``: the reference's layout on the mesh
-    (``repro_torch.parallel.sharding``): tensor parallelism over the model
-    axis, FSDP over the data axis and a sequence-parallel residual stream
-    (:func:`block_apply`), for training and prefill; unset, the dense
-    weights are whole on every rank and only the experts are split (the
-    serve CLI's EP group).  Transitional: decode on the sharded layout is
-    not ported, and refuses it.  ``mesh_axes``: the mesh's (axis name,
-    size) pairs, which ``sharding.from_ctx`` reads (empty: one rank, or a
-    bare EP group)."""
+    its rank r holds flat rank r's experts.  ``mesh_axes``: the mesh's
+    (axis name, size) pairs, which ``sharding.from_ctx`` reads; a context
+    of more than one rank carries them and runs the reference's layout
+    (:func:`block_apply`).  Per call: ``batch_replicated``: every data row
+    holds the whole global batch, which does not divide over the data
+    group (``sharding.batch_rows``; the train step sets it);
+    ``seq_whole``: the residual stream is the whole sequence on every
+    model rank, not its shard (a sequence that does not divide by the
+    model axis, ``sharding.stream_whole``; the train step and the serving
+    adapter set it, a decode step always runs so)."""
 
     group: object = None
     data: object = None
     world: object = None
     batch_replicated: bool = False
-    shard_dense: bool = False
+    seq_whole: bool = False
     mesh_axes: tuple = ()
 
     @property
@@ -288,20 +285,32 @@ def init_cache_block(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      pctx: ParallelCtx | None = None) -> KVCache | SSMState:
     """Decode cache entry for one layer: a KVCache for attention (MLA: the
     latent (B, S, kv_lora) and the rope key (B, S, rope)), an SSMState
-    (fp32 state, conv tail in ``dtype``) for a Mamba mixer.  On the
-    sharded layout (``pctx.shard_dense``) a GQA cache holds the KV heads
-    this rank attends with (``attention.local_kv_heads``)."""
-    length = torch.zeros(batch, dtype=torch.int64, device=device)
+    (fp32 state, conv tail in ``dtype``) for a Mamba mixer.  On a mesh
+    (``pctx`` of more than one rank) the rank's shard of the reference's
+    placement (``sharding.cache_specs``): the ``batch`` rows over the data
+    axis where they divide, and an attention cache's ``max_seq`` positions
+    over the model axis in contiguous blocks (every KV head, or the whole
+    latent, on each rank); a Mamba state stays whole over the model axis,
+    where the mixer runs whole."""
+    length_rows = batch
+    if pctx is not None and pctx.world_size > 1:
+        T = pctx.ep_size
+        if max_seq % T:
+            raise ValueError(f"max_seq {max_seq} does not split over the "
+                             f"model axis of {T}: the decode cache holds "
+                             f"max_seq / {T} positions a rank")
+        if not sharding.batch_replicated(pctx, batch):
+            batch //= pctx.data_size
+        max_seq //= T
+        length_rows = batch
+    length = torch.zeros(length_rows, dtype=torch.int64, device=device)
     if kind.startswith("attn+"):
         if cfg.is_mla:
             k_shape = (batch, max_seq, cfg.kv_lora_rank)
             v_shape = (batch, max_seq, cfg.qk_rope_dim)
         else:
-            hkv = cfg.num_kv_heads
-            if pctx is not None and pctx.shard_dense:
-                hkv = attn_mod.local_kv_heads(attn_config(cfg), pctx.ep_size,
-                                              pctx.ep_rank)
-            k_shape = v_shape = (batch, max_seq, hkv, cfg.head_dim)
+            k_shape = v_shape = (batch, max_seq, cfg.num_kv_heads,
+                                 cfg.head_dim)
         return KVCache(k=torch.zeros(k_shape, dtype=dtype, device=device),
                        v=torch.zeros(v_shape, dtype=dtype, device=device),
                        length=length)
@@ -315,67 +324,6 @@ def init_cache_block(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
         length=length)
 
 
-def _ep_moe_block(x: torch.Tensor, mp, mcfg: MoEConfig, pctx: ParallelCtx,
-                  router_bias: torch.Tensor | None):
-    """(B, S, D) -> (B, S, D) through the EP layer; returns (y, aux, drops,
-    counts) summed as the reference's shard_map island
-    (``repro.models.transformer._ep_moe_block``) sums them: aux and drops
-    over every rank of the mesh (each rank's aux is its own tokens' term),
-    counts over data x EP (``replicated``: over the data group, the EP
-    ranks already count every token).  Where the batch is replicated over
-    the data group (``pctx.batch_replicated``) every data row holds the
-    same values, and the sums run over the EP group only, as the
-    reference's island leaves the data axes out of them.
-
-    On a group, a prefill chunk's or a training batch's sequence is split
-    over the ranks when S divides by R and the mode is not replicated: each
-    rank runs the layer on its shard of S (:func:`collectives.shard`) and
-    an ``all_gather`` puts y back together along S; both carry gradients
-    (the module notes of ``collectives``).  Otherwise every rank runs the
-    whole batch (decode: ``replicated`` dispatch, which merges the ranks'
-    shares inside the layer), which has no backward here.  A factored
-    group is split the same way over all its R ranks."""
-    B, S, D = x.shape
-    g = pctx.group
-    data = None if pctx.batch_replicated else pctx.data
-    if g is None:
-        y, aux, stats = mp(x.reshape(-1, D), mcfg, router_bias=router_bias)
-        drops, counts = stats.drops_dispatch + stats.drops_slot, stats.counts
-        if data is not None:          # one EP rank a data row
-            summed = collectives.all_reduce(data, torch.cat(
-                [counts, drops[None]]))
-            counts, drops = summed[:-1], summed[-1]
-            aux = collectives.all_reduce(data, aux)
-        return y.reshape(B, S, D), aux, drops, counts
-    R = pctx.ep_size
-    replicated = mcfg.dispatch_mode == "replicated"
-    seq_ok = (not replicated) and S % R == 0
-    if seq_ok:
-        x = collectives.shard(g, x, 1)
-    elif torch.is_grad_enabled() and x.requires_grad:
-        raise ValueError(f"training on an EP group of {R} splits the "
-                         f"sequence: S={S} must divide by {R}")
-    y, aux, stats = mp(x.reshape(-1, D), mcfg, axis_name=g,
-                       router_bias=router_bias)
-    y = y.reshape(x.shape)
-    if seq_ok:
-        y = collectives.all_gather(g, y).permute(1, 0, 2, 3).reshape(B, S, D)
-    world = g if pctx.batch_replicated else pctx.world_group
-    drops = stats.drops_dispatch + stats.drops_slot
-    # The global per-expert load: replicated tokens already count it whole
-    # on each EP rank.
-    counts = stats.counts
-    if replicated:
-        drops = collectives.all_reduce(world, drops)
-        if data is not None:
-            counts = collectives.all_reduce(data, counts)
-    else:
-        summed = collectives.all_reduce(world, torch.cat([counts,
-                                                          drops[None]]))
-        counts, drops = summed[:-1], summed[-1]
-    return y, collectives.all_reduce(world, aux), drops, counts
-
-
 def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
                 rcfg: RuntimeConfig, pctx: ParallelCtx, *, cache=None,
                 router_bias: torch.Tensor | None = None, decode: bool = False,
@@ -383,17 +331,13 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
     """One residual block.  Returns (x, aux, drops, counts, new_cache).
 
     Modes: full forward (cache None), chunked prefill (cache given, decode
-    False), decode (cache given, decode True, S == 1).
+    False), decode (cache given, decode True, S == 1).  On a mesh:
+    :func:`_block_apply_sharded`.
     """
-    if pctx.shard_dense:
-        if decode:
-            raise ValueError(
-                "decode on the sharded layout (ParallelCtx.shard_dense) is "
-                "not ported yet: it comes with the sequence-sharded KV "
-                "cache; decode on an EP group with shard_dense unset")
+    if pctx.world_size > 1:
         return _block_apply_sharded(x, bp, kind, cfg, rcfg, pctx,
                                     cache=cache, router_bias=router_bias,
-                                    valid_len=valid_len)
+                                    decode=decode, valid_len=valid_len)
     mixer, ffn_kind = kind.split("+")
     dev = x.device
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -426,19 +370,13 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
         h2 = rms_norm(x, bp.norm2)
         if ffn_kind == "moe":
             B, S, D = x.shape
-            # The reference sizes the capacities from its global B floored
-            # by the data group, (B // D).  A split batch leaves this rank
-            # B // D rows already; a replicated one leaves all B, and the
-            # floor is taken here, a mirror of the reference (its capacity
-            # then counts fewer tokens than a rank routes), not a fix.
-            rows = B // pctx.batch_size_divisor if pctx.batch_replicated \
-                else B
-            tokens_per_rank = max(1, rows * (S if decode or S < pctx.ep_size
-                                             else S // pctx.ep_size))
-            mcfg = moe_config(cfg, rcfg, pctx, tokens_per_rank,
+            mcfg = moe_config(cfg, rcfg, pctx, max(1, B * S),
                               dispatch_mode="replicated" if decode else "a2a")
-            y2, aux, drops, counts = _ep_moe_block(h2, bp.moe, mcfg, pctx,
-                                                   router_bias)
+            y2, aux, stats = bp.moe(h2.reshape(-1, D), mcfg,
+                                    router_bias=router_bias)
+            y2 = y2.reshape(B, S, D)
+            drops, counts = stats.drops_dispatch + stats.drops_slot, \
+                stats.counts
         else:
             y2 = dense_swiglu(h2, *bp.ffn)
         x = x + y2
@@ -447,21 +385,28 @@ def block_apply(x: torch.Tensor, bp: BlockParams, kind: str, cfg: ModelConfig,
 
 # ------------------------------------------------- the sharded layout ----
 
-def _seq_gather(h: torch.Tensor, pctx: ParallelCtx) -> torch.Tensor:
+def _seq_gather(h: torch.Tensor, pctx: ParallelCtx,
+                whole: bool) -> torch.Tensor:
     """The whole sequence from every model rank's shard (B, S / T, ...)
-    (Megatron's sequence-parallel entry: the backward reduce-scatters)."""
-    return collectives.gather_along(pctx.group, h, 1)
+    (Megatron's sequence-parallel entry: the backward reduce-scatters), or
+    ``h`` itself on a ``whole`` stream."""
+    return h if whole else collectives.gather_along(pctx.group, h, 1)
 
 
-def _seq_exit(y: torch.Tensor, pctx: ParallelCtx, split: bool):
-    """Back to this rank's sequence shard: the sum of the ranks' partial
-    ``y`` reduce-scattered (``split``: heads or FFN columns over the model
-    axis; the partials in the model dtype, as the reference reduces them),
-    or this rank's slice of a ``y`` every rank computed whole."""
+def _seq_exit(y: torch.Tensor, pctx: ParallelCtx, split: bool,
+              whole: bool):
+    """Back to the stream: the sum of the ranks' partial ``y`` (``split``:
+    heads or FFN columns over the model axis; the partials in the model
+    dtype, as the reference reduces them) reduce-scattered to this rank's
+    sequence shard, or all-reduced onto a ``whole`` stream; a ``y`` every
+    rank computed whole is cut to the rank's shard, or left as it is on a
+    whole stream."""
     T = pctx.ep_size
     if split:
+        if whole:
+            return collectives.reduce_whole(pctx.group, y)
         return collectives.scatter_along(pctx.group, y, 1)
-    if T == 1:
+    if T == 1 or whole:
         return y
     n = y.shape[1] // T
     return y.narrow(1, pctx.ep_rank * n, n)
@@ -505,19 +450,42 @@ def _moe_view(mp, spec: dict, pctx: ParallelCtx):
                        slots=tuple(slots))
 
 
-def _ep_moe_block_sharded(x, mp, spec, mcfg, pctx, router_bias):
-    """(B, S / T, D) -> (B, S / T, D): the EP layer on this rank's
-    sequence shard (already split, nothing gathered back), with its
-    experts gathered over the data axis; aux, drops and counts summed as
-    :func:`_ep_moe_block` sums them."""
+def _ep_moe_block_sharded(x, mp, spec, mcfg, pctx, router_bias, whole):
+    """(B, S, D) -> (B, S, D): the EP layer on the stream as it is (the
+    rank's sequence shard, or every token where the stream is whole:
+    ``a2a`` (``hier_a2a`` on racks) with every model rank routing the same
+    tokens, or at decode ``replicated``), with its experts gathered over
+    the data axis; aux,
+    drops and counts summed as the reference's island
+    (``repro.models.transformer._ep_moe_block``) sums them: aux and drops
+    over every rank of the mesh (each rank's aux is its own tokens' term;
+    on a whole stream every model rank's is the same), counts over data x
+    model (``replicated``: over the data axis, every model rank already
+    counts every token).  Where the batch is replicated over the data
+    group (``pctx.batch_replicated``) every data row holds the same
+    values, and the sums run over the model group only, as the reference's
+    island leaves the data axes out of them."""
     B, S, D = x.shape
     g = pctx.group
     y, aux, stats = _moe_view(mp, spec, pctx)(
         x.reshape(-1, D), mcfg, axis_name=g, router_bias=router_bias)
+    if whole and mcfg.dispatch_mode != "replicated":
+        # The reference's island declares its output replicated over the
+        # model axis, but where items drop its copies differ by the
+        # exchange's source order; the array's value is the first model
+        # rank's copy, which every rank takes here.
+        y = collectives.first_copy(g, y)
     world = g if pctx.batch_replicated else pctx.world_group
+    data = None if pctx.batch_replicated else pctx.data
     drops = stats.drops_dispatch + stats.drops_slot
     counts = stats.counts
-    if world is not None:
+    if mcfg.dispatch_mode == "replicated":
+        if world is not None:
+            drops = collectives.all_reduce(world, drops)
+            aux = collectives.all_reduce(world, aux)
+        if data is not None:
+            counts = collectives.all_reduce(data, counts)
+    elif world is not None:
         summed = collectives.all_reduce(world, torch.cat([counts,
                                                           drops[None]]))
         counts, drops = summed[:-1], summed[-1]
@@ -526,22 +494,26 @@ def _ep_moe_block_sharded(x, mp, spec, mcfg, pctx, router_bias):
 
 
 def _block_apply_sharded(x, bp, kind, cfg, rcfg, pctx, *, cache=None,
-                         router_bias=None, valid_len=None):
-    """:func:`block_apply` on the reference's layout
-    (``ParallelCtx.shard_dense``): ``x`` is this rank's sequence shard (B,
-    S / T, D), T the model axis (the reference's ``wsc`` "seq" layout), and
-    the norms run on it.  A mixer gathers the sequence at entry ("full"),
-    runs on the rank's heads (attention) or whole (Mamba), and leaves by a
-    reduce-scatter of wo's partial sums, or its slice of the whole output;
-    the dense FFN is column-parallel w1 / w3 and row-parallel w2 between
-    the same two; the MoE block runs on the shard.  Every weight is
-    gathered over the data axis at use (FSDP).
+                         router_bias=None, decode=False, valid_len=None):
+    """:func:`block_apply` on the reference's layout: ``x`` is this rank's
+    sequence shard (B, S / T, D), T the model axis (the reference's
+    ``wsc`` "seq" layout), or the whole sequence on every rank where the
+    stream is whole (``pctx.seq_whole``, and every decode step), and the
+    norms run on it.  A mixer gathers a shard's sequence at entry
+    ("full"), runs on the rank's heads (attention) or whole (Mamba), and
+    leaves by a reduce-scatter of wo's partial sums (an all-reduce onto a
+    whole stream), or its slice of the whole output (all of it on a whole
+    stream); the dense FFN is column-parallel w1 / w3 and row-parallel w2
+    between the same two; the MoE block runs on the stream as it is.
+    Every weight is gathered over the data axis at use (FSDP).  The decode
+    cache is the rank's block of positions (``attention``'s sharded
+    prefill and decode); a Mamba state stays whole.
 
     Gradients: a tensor every rank of the model group holds whole (the
-    gathered sequence, a gathered weight) carries a part of its cotangent
-    on each rank (``collectives``' notes), so a replicated parameter's
-    gradient is a part too and is summed over the model axis
-    (``sharding.lm_param_specs``)."""
+    gathered sequence, a whole stream, a gathered weight) carries a part
+    of its cotangent on each rank (``collectives``' notes), so a
+    replicated parameter's gradient is a part too and is summed over the
+    model axis (``sharding.lm_param_specs``)."""
     mixer, ffn_kind = kind.split("+")
     dev = x.device
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -550,48 +522,63 @@ def _block_apply_sharded(x, bp, kind, cfg, rcfg, pctx, *, cache=None,
                          dtype=torch.int64, device=dev)
     new_cache = cache
     spec = sharding.block_layout(cfg, kind, pctx)
+    whole = decode or pctx.seq_whole
 
     def sub(prefix):
         n = len(prefix)
         return {k[n:]: v for k, v in spec.items() if k.startswith(prefix)}
 
-    h = _seq_gather(rms_norm(x, bp.norm1), pctx)
+    h = _seq_gather(rms_norm(x, bp.norm1), pctx, whole)
     if mixer == "attn":
         acfg = attn_config(cfg)
         w, lcfg, split = attn_mod.tp_view(bp.attn, acfg, pctx, sub("attn."))
-        if cache is not None:
-            pre = attn_mod.mla_prefill if cfg.is_mla else \
-                attn_mod.gqa_prefill
-            y, new_cache = pre(h, cache, w, lcfg, valid_len=valid_len,
-                               block_kv=rcfg.block_kv, project=not split)
+        if decode:
+            dec = attn_mod.mla_decode_sharded if cfg.is_mla else \
+                attn_mod.gqa_decode_sharded
+            y, new_cache = dec(h, cache, w, acfg, lcfg, pctx, split)
+        elif cache is not None:
+            pre = attn_mod.mla_prefill_sharded if cfg.is_mla else \
+                attn_mod.gqa_prefill_sharded
+            y, new_cache = pre(h, cache, w, acfg, lcfg, pctx, split,
+                               valid_len=valid_len, block_kv=rcfg.block_kv)
         else:
             full = attn_mod.mla_attention if cfg.is_mla else \
                 attn_mod.gqa_attention
             y = full(h, w, lcfg, block_kv=rcfg.block_kv,
-                     plain_backward=rcfg.plain_backward, project=not split)
-        if split:                     # row-parallel wo: partial sums
-            y = y @ w.wo
+                     plain_backward=rcfg.plain_backward, project=False)
+        y = y @ w.wo                 # row-parallel where split: partials
     else:
         scfg = ssm_config(cfg)
         w = _ssm_view(bp.ssm, sub("ssm."), pctx)
         split = False
-        if cache is not None:
+        if decode:
+            y, new_cache = ssm_mod.ssd_decode(h, cache, w, scfg)
+        elif cache is not None:
             y, new_cache = ssm_mod.ssd_prefill(h, cache, w, scfg)
         else:
             y, _final = ssm_mod.ssd_forward(
                 h, w, scfg, plain_backward=rcfg.plain_backward)
-    x = x + _seq_exit(y, pctx, split)
+    x = x + _seq_exit(y, pctx, split, whole)
 
     if ffn_kind != "none":
         h2 = rms_norm(x, bp.norm2)
         if ffn_kind == "moe":
             B, S, D = x.shape
+            # The reference sizes the capacities from its global B floored
+            # by the data group, (B // D), and S over the model axis where
+            # S is at least T (also where it does not divide: a mirror, not
+            # a fix; the capacity then counts fewer tokens than a rank
+            # routes).  A split batch leaves this rank B // D rows already;
+            # a replicated one leaves all B.
             rows = B // pctx.batch_size_divisor if pctx.batch_replicated \
                 else B
-            mcfg = moe_config(cfg, rcfg, pctx, max(1, rows * S),
-                              dispatch_mode="a2a")
+            T = pctx.ep_size
+            per = S if not whole or decode or S < T else S // T
+            mcfg = moe_config(cfg, rcfg, pctx, max(1, rows * per),
+                              dispatch_mode="replicated" if decode
+                              else "a2a")
             y2, aux, drops, counts = _ep_moe_block_sharded(
-                h2, bp.moe, sub("moe."), mcfg, pctx, router_bias)
+                h2, bp.moe, sub("moe."), mcfg, pctx, router_bias, whole)
         else:
             fs = [spec[f"ffn.{i}"] for i in range(3)]
             split = pctx.ep_size > 1 and sharding.on_model(fs[0][1])
@@ -599,7 +586,7 @@ def _block_apply_sharded(x, bp, kind, cfg, rcfg, pctx, *, cache=None,
                           for wi, si in zip(bp.ffn, fs))
             # Column-parallel w1 / w3, row-parallel w2 (partial sums)
             # where the hidden dimension is split.
-            y2 = _seq_exit(dense_swiglu(_seq_gather(h2, pctx), w1, w3, w2),
-                           pctx, split)
+            y2 = _seq_exit(dense_swiglu(_seq_gather(h2, pctx, whole), w1,
+                                        w3, w2), pctx, split, whole)
         x = x + y2
     return x, aux, drops, counts, new_cache

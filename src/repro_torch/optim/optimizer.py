@@ -25,23 +25,16 @@ parameter's :class:`~repro_torch.parallel.sharding.Placement`
 group each dimension is split over, and ``span``, the group whose ranks
 hold its distinct shards.  AdamW is elementwise, so it updates a shard as
 it is, and its moments take the shard's shape (the reference's
-``opt_state_specs``).  On the EP layout (``ParallelCtx.shard_dense``
-unset) the moments are sharded further over the parameter's replicas
-(``init(params, shards)``, the
-:class:`repro_torch.parallel.sharding.MomentShard` of each parameter):
-each rank then updates its moment shard and the matching slice of the
-parameter, and an ``all_gather`` over the replica group puts the
-parameter back together on every replica, bitwise the unsharded update.
-Adafactor's state is small (factored second moments, no first moment)
+``opt_state_specs``: ZeRO falls out of FSDP).  Adafactor's state is small (factored second moments, no first moment)
 and mirrors its parameter's placement (the reference's
 ``opt_state_specs``: v_row drops the last dimension's entry, v_col the
 second last): where a statistic spans a split dimension it is summed over
 that dimension's group, so every shard sees the unsharded values, as
 GSPMD gives them to the reference: v_row's mean over a split last
 dimension, v_col's and v_row's means over a split second last, and the
-update's RMS over every split (``span``).  The gather runs in pieces of at
-most ``BUCKET_BYTES`` (gloo stages CUDA tensors through the host), as
-does :func:`reduce_grads`, the gradients' sums over their groups.
+update's RMS over every split (``span``).  :func:`reduce_grads`, the
+gradients' sums over their groups, runs in pieces of at most
+``BUCKET_BYTES`` (gloo stages CUDA tensors through the host).
 :func:`clip_by_global_norm` counts each element once: the squares of a
 split parameter are summed over its ``span``, and a replicated one counts
 once.
@@ -62,7 +55,7 @@ __all__ = ["Optimizer", "AdamWState", "adamw", "AdafactorState",
            "apply_updates", "reduce_grads", "CHUNK", "BUCKET_BYTES"]
 
 CHUNK = 1 << 26            # elements per fp32 slice of an update
-BUCKET_BYTES = 256 << 20   # most bytes a gradient sum or gather moves
+BUCKET_BYTES = 256 << 20   # most bytes a gradient sum moves at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,9 +84,9 @@ def _slices(t: torch.Tensor):
         yield flat[lo:lo + CHUNK]
 
 
-def _pieces(flat: torch.Tensor, rows: int = 1):
-    """``flat`` in slices of at most BUCKET_BYTES over ``rows`` ranks."""
-    step = max(1, BUCKET_BYTES // (flat.element_size() * rows))
+def _pieces(flat: torch.Tensor):
+    """``flat`` in slices of at most BUCKET_BYTES."""
+    step = max(1, BUCKET_BYTES // flat.element_size())
     for lo in range(0, flat.numel(), step):
         yield lo, flat[lo:lo + step]
 
@@ -162,36 +155,19 @@ def apply_updates(params: list, updates: list) -> list:
 class AdamWState(NamedTuple):
     mu: list      # fp32, one per parameter (its shard on a mesh)
     nu: list
-    shards: list | None = None   # MomentShard per parameter, or None
-
-
-def _gather_into(p: torch.Tensor, ps: torch.Tensor, sh) -> None:
-    """Every replica's updated slice ``ps`` put back into ``p``."""
-    if all(s == 1 for s in p.shape[:sh.dim]):     # slices are row blocks
-        p2 = p.view(sh.count, -1)
-        for lo, piece in _pieces(ps.view(-1), sh.count):
-            parts = collectives.all_gather(sh.group, piece)
-            p2[:, lo:lo + piece.numel()].copy_(parts)
-        return
-    parts = collectives.all_gather(sh.group, ps)
-    p.copy_(parts.movedim(0, sh.dim).flatten(sh.dim, sh.dim + 1))
 
 
 def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1) -> Optimizer:
     lr_fn = lr if callable(lr) else (lambda _: float(lr))
 
-    def init(params: list, shards: list | None = None) -> AdamWState:
-        """Zero moments, each the shape of its parameter's moment shard
-        (``shards``: one MomentShard per parameter, None: whole)."""
-        def zeros(p, sh):
-            shape = p.shape if sh is None else sh.shape(p.shape)
-            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    def init(params: list) -> AdamWState:
+        """Zero moments, each the shape of its parameter (its shard)."""
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
-        shs = shards or [None] * len(params)
-        return AdamWState(mu=[zeros(p, sh) for p, sh in zip(params, shs)],
-                          nu=[zeros(p, sh) for p, sh in zip(params, shs)],
-                          shards=shards)
+        return AdamWState(mu=[zeros(p) for p in params],
+                          nu=[zeros(p) for p in params])
 
     def _apply(gs, ms, ns, ps, c1, c2, lr_t):
         gf = gs.to(torch.float32)
@@ -209,18 +185,12 @@ def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.95,
         stepf = step + 1.0
         lr_t = lr_fn(step)
         c1, c2 = 1 - b1 ** stepf, 1 - b2 ** stepf
-        shards = state.shards or [None] * len(params)
-        for g, m, n, p, sh in zip(grads, state.mu, state.nu, params, shards):
+        for g, m, n, p in zip(grads, state.mu, state.nu, params):
             if not p.is_contiguous():
                 raise ValueError("adamw updates contiguous parameters in place")
-            whole = sh is None or sh.whole
-            ps = p if whole else sh.take(p).contiguous()
-            gs = g if whole else sh.take(g)
-            for a in zip(_slices(gs.contiguous()), _slices(m), _slices(n),
-                         _slices(ps)):
+            for a in zip(_slices(g.contiguous()), _slices(m), _slices(n),
+                         _slices(p)):
                 _apply(*a, c1, c2, lr_t)
-            if not whole:
-                _gather_into(p, ps, sh)
         return state
 
     return Optimizer(init=init, update=update)
@@ -269,15 +239,14 @@ def adafactor(lr: float | Callable, decay: float = 0.99, eps: float = 1e-30,
     size is made (an expert weight's u would be 15 GB at DeepSeek-V3's
     width): first the statistics (v_row, and v_col as a sum over the
     blocks), then the RMS of u, then the update, with u recomputed each
-    time.  On a mesh the state takes the parameter's shard (``shards`` of
-    ``init`` is ignored) and each replica computes the same update from
+    time.  On a mesh the state takes the parameter's shard and each
+    replica computes the same update from
     the same summed gradient; ``update(..., placements=)`` sums the
     statistics that span a split dimension over its group (the module's
     notes)."""
     lr_fn = lr if callable(lr) else (lambda _: float(lr))
 
-    def init(params: list, shards: list | None = None) -> AdafactorState:
-        del shards
+    def init(params: list) -> AdafactorState:
         f32 = dict(dtype=torch.float32)
 
         def vr(p):

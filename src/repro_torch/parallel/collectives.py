@@ -70,7 +70,16 @@ rank's part of its cotangent, and the parts sum to the whole gradient.
   all-gather of the slices' cotangents along ``dim``;
 * :func:`sum_grad` (the identity): an all-reduce of the cotangent, where a
   replicated value with the whole cotangent on every rank enters a region
-  whose ranks each hold a part.
+  whose ranks each hold a part;
+* :func:`reduce_whole` (partial sums -> their sum, whole on every rank:
+  a row-parallel exit onto a stream every rank holds whole): an
+  all-reduce of the cotangent's parts, each partial's cotangent being the
+  whole one;
+* :func:`first_copy` (copies of one value, which may differ -> group rank
+  0's on every rank): the mean of the cotangent's parts on every rank's
+  own copy, as JAX transposes a ``shard_map`` output that its spec
+  declares replicated (each device's copy takes the cotangent over the
+  group's size).
 
 Each works over any group: the model (EP) group, a factored group as
 one, or the data group.
@@ -107,7 +116,7 @@ import torch.distributed as dist
 __all__ = ["EPGroup", "init", "subgroup", "factor", "destroy", "all_gather",
            "all_to_all", "all_to_all_async", "reduce_scatter", "all_reduce",
            "all_reduce_", "all_max", "shard", "gather_along", "scatter_along",
-           "sum_grad", "barrier", "sendrecv", "broadcast",
+           "sum_grad", "reduce_whole", "first_copy", "barrier", "sendrecv", "broadcast",
            "world_size", "world_rank", "KINDS", "bytes_by_kind",
            "calls_by_kind", "reset_counts", "counts"]
 
@@ -399,6 +408,29 @@ def sum_grad(g: EPGroup | None, x: torch.Tensor) -> torch.Tensor:
     return _SumGrad.apply(g, x)
 
 
+def reduce_whole(g: EPGroup | None, x: torch.Tensor) -> torch.Tensor:
+    """The sum over ranks of the partial sums ``x``, whole on every rank
+    (``g`` None or of one rank: ``x``); under a gradient its backward
+    all-reduces the cotangent (see the module's notes)."""
+    if g is None or g.size == 1:
+        return x
+    if _grad(x):
+        return _ReduceWhole.apply(g, x)
+    return _all_reduce(g, x)
+
+
+def first_copy(g: EPGroup | None, x: torch.Tensor) -> torch.Tensor:
+    """Group rank 0's ``x`` on every rank (``g`` None or of one rank:
+    ``x``), as a new tensor; under a gradient its backward gives every
+    rank's own ``x`` the group's mean of the cotangent (see the module's
+    notes)."""
+    if g is None or g.size == 1:
+        return x
+    if _grad(x):
+        return _FirstCopy.apply(g, x)
+    return broadcast(g, x.detach().clone(memory_format=torch.contiguous_format), 0)
+
+
 def barrier(g: EPGroup) -> None:
     dist.barrier(group=g.group)
 
@@ -547,3 +579,26 @@ class _SumGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return None, _all_reduce(ctx.g, dy)
+
+
+class _ReduceWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x):
+        ctx.g = g
+        return _all_reduce(g, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _all_reduce(ctx.g, dy)
+
+
+class _FirstCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, x):
+        ctx.g = g
+        return broadcast(g, x.clone(memory_format=torch.contiguous_format),
+                         0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return None, _all_reduce(ctx.g, dy) / ctx.g.size

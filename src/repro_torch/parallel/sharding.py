@@ -24,28 +24,23 @@ with no process group, and :func:`shard_shape` a rank's shard of a global
 shape; every helper leaves a dimension that does not divide by its axis
 replicated, as the reference's do.  :func:`batch_specs`,
 :func:`opt_state_specs` and :func:`activation_spec` are the reference's
-too.  On the ranks of a mesh, :func:`lm_param_specs` turns each
-parameter's entries into a :class:`Placement`: the group each dimension
-is split over, the group whose sum of the ranks' gradients is the
-gradient (``reduce``) and the ranks holding the same values
-(``replicas``).  On the EP layout :func:`moment_shards` splits AdamW's
-moments further over those replicas, on the first dimension that
-divides; on the sharded layout the moments mirror the placements.
+too, and so is :func:`cache_specs` (the decode cache: its positions over
+the model axis, flash-decode).  On the ranks of a mesh, :func:`lm_param_specs`
+turns each parameter's entries into a :class:`Placement`: the group each
+dimension is split over, the group whose sum of the ranks' gradients is
+the gradient (``reduce``) and the ranks holding the same values
+(``replicas``).  AdamW's moments mirror the placements.
 
-Two layouts, chosen by ``ParallelCtx.shard_dense``:
-
-* set (training and prefill on a mesh, ``launch.mesh.pctx_for_mesh``):
-  the reference's layout above; a parameter's gradient is summed over the
-  axes it is not split over (``reduce`` equals ``replicas``): the blocks
-  see a rank's shard of the sequence, or a head's share of a whole one, so
-  a replicated parameter's gradient is a part on every rank, and a split
-  one is whole after the reduce-scatter of its gather
-  (``repro_torch.models.transformer``'s notes);
-* not set (decode on an EP group, until decode on the sharded layout is
-  ported): the experts' rows over the EP group and everything else whole
-  on every rank; the router and the shared expert, which each EP rank runs
-  on its slice of the tokens, sum their gradients over data x EP, every
-  other replicated parameter over the data group.
+One layout for every step on a mesh (a ``ParallelCtx`` of more than one
+rank, which carries its ``mesh_axes``): a parameter's gradient is summed
+over the axes it is not split over (``reduce`` equals ``replicas``): the
+blocks see a rank's shard of the sequence, or a head's share of a whole
+one, so a replicated parameter's gradient is a part on every rank, and a
+split one is whole after the reduce-scatter of its gather
+(``repro_torch.models.transformer``'s notes).  The residual stream is the
+rank's sequence shard where the sequence divides by the model axis, and
+whole otherwise, a decode step among them (``ParallelCtx.seq_whole``, the
+reference's ``wsc``).
 """
 
 from __future__ import annotations
@@ -57,12 +52,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, layer_kinds
 
-__all__ = ["MeshAxes", "from_ctx", "param_layout", "batch_specs",
-           "opt_state_specs", "activation_spec", "shard_shape",
-           "Placement", "MomentShard", "batch_rows", "batch_replicated",
-           "local_batch", "lm_param_specs", "moment_shards", "cut",
-           "gather_whole", "shard_params_", "use", "block_layout",
-           "lm_layout", "mesh_axes", "layout_of", "dims_of", "on_model"]
+__all__ = ["MeshAxes", "from_ctx", "topology_from_ctx", "param_layout",
+           "batch_specs", "cache_specs", "opt_state_specs",
+           "activation_spec", "shard_shape", "Placement", "batch_rows",
+           "batch_replicated", "stream_whole", "local_batch", "lm_param_specs",
+           "cut", "gather_whole", "shard_params_", "use", "block_layout",
+           "lm_layout", "mesh_axes", "dims_of", "on_model"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +100,29 @@ def mesh_axes(shape: dict) -> MeshAxes:
 
 
 def from_ctx(pctx) -> MeshAxes:
-    """The axes of ``pctx``'s mesh (``ParallelCtx.mesh_axes``)."""
+    """The axes of ``pctx``'s mesh (``ParallelCtx.mesh_axes``); a context
+    of more than one rank must carry them (``launch.mesh.pctx_for_mesh``
+    builds every such context)."""
+    if pctx.world_size > 1 and not pctx.mesh_axes:
+        raise ValueError("a ParallelCtx of more than one rank carries its "
+                         "mesh's axes (launch.mesh.pctx_for_mesh)")
     return mesh_axes(dict(pctx.mesh_axes))
+
+
+def topology_from_ctx(pctx, **link_kw):
+    """The EP :class:`repro_torch.core.topology.Topology` of a mesh
+    context (the reference's), from its axes: one rack of the model
+    axis's ranks on a flat mesh, racks x lanes on a factored one (a
+    ``rack`` axis); ``link_kw`` overrides the per-tier alpha / beta link
+    model."""
+    from repro_torch.core.topology import Topology
+
+    ax = from_ctx(pctx)
+    ep = ax.model_size if ax.sizes else pctx.ep_size
+    if "rack" not in ax.sizes:
+        return Topology.flat(ep, **link_kw)
+    racks = ax.sizes["rack"]
+    return Topology(racks=racks, ranks_per_rack=ep // racks, **link_kw)
 
 
 def _mm(ax: MeshAxes, n: int):
@@ -207,17 +223,6 @@ def param_layout(cfg: ModelConfig, ax: MeshAxes) -> dict:
     return out
 
 
-def _ep_layout(params, ep_axes) -> dict:
-    """The layout of ``shard_dense`` unset: the experts' rows over the EP
-    group (``ep_axes``; None on one rank), everything else whole."""
-    out = {}
-    for name, p in params.named_parameters():
-        expert = name.split(".")[-1] in ("w1", "w3", "w2") and ".moe." in name
-        out[name] = ((ep_axes,) + (None,) * (p.dim() - 1) if expert
-                     else (None,) * p.dim())
-    return out
-
-
 def batch_specs(cfg: ModelConfig, ax: MeshAxes, kind: str,
                 global_batch: int | None = None) -> dict:
     """The batch's entries (kind: train | prefill | decode): rows over the
@@ -237,6 +242,37 @@ def batch_specs(cfg: ModelConfig, ax: MeshAxes, kind: str,
     if cfg.frontend == "vision_patches" and kind != "decode":
         spec["patches"] = (b, None, None)
     return spec
+
+
+def _cache_entry_spec(cfg: ModelConfig, kind: str, ax: MeshAxes,
+                      batch: int):
+    """One layer's decode cache entries (the reference's): an attention
+    layer's positions over the model axis with every KV head (GQA) or the
+    whole latent and rope key (MLA), the rows over the batch axes where
+    ``batch`` divides; a Mamba layer's state over its heads and its conv
+    tail over its channels (where they divide)."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMState
+
+    b = ax.batch if ax.sizes and ax.div(batch, ax.batch) else None
+    m = ax.model if ax.sizes else None
+    if kind.startswith("attn+"):
+        tail = (None,) if cfg.is_mla else (None, None)
+        return KVCache(k=(b, m) + tail, v=(b, m) + tail, length=(b,))
+    s = cfg.ssm
+    cc = s.d_inner + 2 * s.n_groups * s.d_state
+    return SSMState(s=(b, _mm(ax, s.d_inner // s.headdim), None, None),
+                    conv=(b, None, _mm(ax, cc)), length=(b,))
+
+
+def cache_specs(cfg: ModelConfig, ax: MeshAxes, batch: int) -> list:
+    """Every layer's decode cache entries (a :class:`KVCache` or
+    :class:`SSMState` of entries, one a layer, as the reference's
+    ``cache_specs`` with ``scan_layers=False``).  The port's caches take
+    them, except a Mamba layer's state, which stays whole on every model
+    rank while the mixer runs whole there (``transformer._ssm_view``)."""
+    return [_cache_entry_spec(cfg, kind, ax, batch)
+            for kind in layer_kinds(cfg)]
 
 
 def opt_state_specs(layout: dict, optimizer: str) -> dict:
@@ -315,35 +351,6 @@ class Placement:
     replicas: object
 
 
-@dataclasses.dataclass(frozen=True)
-class MomentShard:
-    """This rank's part of a parameter's AdamW moments: slice ``index`` of
-    ``count`` along ``dim`` over the replica ``group`` (count 1: whole)."""
-
-    group: object
-    dim: int
-    count: int
-    index: int
-
-    @property
-    def whole(self) -> bool:
-        return self.count == 1
-
-    def take(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of a tensor of the parameter's shape (a
-        view)."""
-        if self.whole:
-            return t
-        n = t.shape[self.dim] // self.count
-        return t.narrow(self.dim, self.index * n, n)
-
-    def shape(self, full) -> tuple:
-        s = list(full)
-        if not self.whole:
-            s[self.dim] //= self.count
-        return tuple(s)
-
-
 def batch_rows(pctx, global_batch: int) -> slice:
     """This data rank's rows of a global batch of ``global_batch`` rows:
     its contiguous share, or every row where the batch does not divide
@@ -361,86 +368,47 @@ def batch_replicated(pctx, global_batch: int) -> bool:
     return pctx.data_size > 1 and global_batch % pctx.data_size != 0
 
 
+def stream_whole(pctx, seq: int) -> bool:
+    """True where a sequence of ``seq`` does not divide by the model axis:
+    the residual stream then stays whole on every model rank (the
+    reference's ``wsc``)."""
+    return pctx.ep_size > 1 and seq % pctx.ep_size != 0
+
+
 def local_batch(batch: dict, pctx, kind: str = "train") -> dict:
     """``batch`` (every value (B, ...)) cut to this rank's share
-    (:func:`batch_specs`): its data rank's rows, and under ``shard_dense``
-    for train and prefill its model rank's shard of the sequence (axis 1)
-    of every value but a vision stub's patches."""
+    (:func:`batch_specs`): its data rank's rows, and for train and prefill
+    its model rank's shard of the sequence (axis 1) of every value but a
+    vision stub's patches, where the sequence divides by the model axis
+    (else it stays whole: :func:`stream_whole`)."""
     B = next(iter(batch.values())).shape[0]
     rows = batch_rows(pctx, B)
     out = {k: v[rows] for k, v in batch.items()}
     T = pctx.ep_size
-    if pctx.shard_dense and T > 1 and kind != "decode":
+    if T > 1 and kind != "decode":
         for k, v in out.items():
-            if k == "patches":
+            if k == "patches" or stream_whole(pctx, v.shape[1]):
                 continue
-            S = v.shape[1]
-            if S % T:
-                raise ValueError(f"{k}: a sequence of {S} does not split "
-                                 f"over the model axis of {T}")
-            out[k] = v[:, pctx.ep_rank * (S // T):(pctx.ep_rank + 1)
-                       * (S // T)]
+            n = v.shape[1] // T
+            out[k] = v[:, pctx.ep_rank * n:(pctx.ep_rank + 1) * n]
     return out
-
-
-def layout_of(params, pctx) -> dict:
-    """``params``' entries on ``pctx``'s mesh: the sharded layout it was
-    built with (``LMParams.layout``), else the EP layout."""
-    lay = getattr(params, "layout", None)
-    if lay is not None:
-        return lay
-    ep = None
-    if pctx.ep_size > 1:
-        ep = from_ctx(pctx).model if pctx.mesh_axes else "model"
-    return _ep_layout(params, ep)
 
 
 def lm_param_specs(params, pctx) -> list[Placement]:
     """One :class:`Placement` per tensor of ``params.parameters()``, in
-    that order (see the module's notes for the two layouts)."""
-    lay = layout_of(params, pctx)
-    world = pctx.world_group
-    split = set()
-    for bp in params.layers:
-        mp = bp.moe
-        if mp is not None:
-            split.update(id(w) for w in (mp.router, mp.shared_w1,
-                                         mp.shared_w3, mp.shared_w2)
-                         if w is not None)
+    that order, from the layout it was built with (``LMParams.layout``;
+    see the module's notes; on one rank every tensor is whole)."""
+    lay = params.layout
     out = []
     for name, p in params.named_parameters():
-        spec = lay[name]
+        spec = (None,) * p.dim() if lay is None else lay[name]
         dims = dims_of(spec, pctx)
         by_model = any(on_model(e) for e in spec)
         by_data = any(e is not None and not on_model(e) for e in spec)
         span = _union(pctx, by_model and pctx.group is not None,
                       by_data and pctx.data is not None)
-        if pctx.shard_dense:
-            reduce = replicas = _union(pctx, not by_model, not by_data)
-        elif by_model:                      # an expert's rows
-            reduce = replicas = pctx.data
-        elif id(p) in split:                # used on the rank's token slice
-            reduce = replicas = world
-        else:
-            reduce, replicas = pctx.data, world
+        reduce = replicas = _union(pctx, not by_model, not by_data)
         out.append(Placement(spec, dims, span, reduce, replicas))
-    return out
-
-
-def moment_shards(params, specs: list[Placement]) -> list[MomentShard]:
-    """Each parameter's AdamW moment shard over its replicas on the EP
-    layout (``shard_dense`` unset; the sharded layout's moments take
-    their parameter's shard alone): the first dimension of its shard that
-    divides by the replica count, else whole."""
-    out = []
-    for p, pl in zip(params, specs):
-        g = pl.replicas
-        n = 1 if g is None else g.size
-        dim = next((i for i, s in enumerate(p.shape) if s % n == 0), None)
-        if n == 1 or dim is None:
-            out.append(MomentShard(None, 0, 1, 0))
-        else:
-            out.append(MomentShard(g, dim, n, g.rank))
     return out
 
 

@@ -15,8 +15,9 @@ are device tensors: nothing here reads the device.
 
 On a mesh of D data rows x R EP ranks (``ParallelCtx`` ``data`` and
 ``group``) the step takes the global batch and runs its rank's share
-(``sharding.local_batch``: its data rank's rows, and on the sharded layout
-its model rank's shard of the sequence).  The rule: the sum over every
+(``sharding.local_batch``: its data rank's rows, and its model rank's
+shard of the sequence where the sequence divides by the model axis; the
+whole sequence otherwise, ``ParallelCtx.seq_whole``).  The rule: the sum over every
 rank of each rank's gradient contribution is the gradient of the
 reference's one global loss, the LM loss's mean over the global batch
 plus the aux loss summed over all ranks (the reference's island returns
@@ -24,12 +25,10 @@ each device's aux and sums them).  So each rank back-propagates its data
 row's LM loss (the same on every rank of its model group) scaled by 1/D
 plus the summed aux (whose ``all_reduce`` passes each rank's own term
 back); the gradients are then summed over each parameter's ``reduce``
-group (``sharding.lm_param_specs``): on the sharded layout over the axes
-the parameter is not split over (a split one's sum over the data axis
-is its gather's reduce-scatter), on the EP layout over the data group,
-and the router's and shared expert's, which each EP rank runs on its
-slice of the tokens only, over data x EP.  Taking the mean over the data
-group instead would leave the aux term's gradient D times too small.  Where the global batch does not divide over the data
+group (``sharding.lm_param_specs``): over the axes the parameter is not
+split over (a split one's sum over the data axis is its gather's
+reduce-scatter).  Taking the mean over the data group instead would
+leave the aux term's gradient D times too small.  Where the global batch does not divide over the data
 group, every data row runs all of it (``ParallelCtx.batch_replicated``):
 the reference then sums aux, drops and counts over the EP axes only, and
 each rank back-propagates its aux scaled by 1/D as well.  The metrics
@@ -75,20 +74,13 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(params: LMParams, optimizer: Optimizer,
-                     cfg: ModelConfig,
-                     pctx: ParallelCtx | None = None) -> TrainState:
+                     cfg: ModelConfig) -> TrainState:
     """Make every parameter trainable and start the optimizer state: the
-    moments take each parameter's shard (the sharded layout mirrors the
-    placements, as the reference's ``opt_state_specs``); on the EP layout
-    each moment is sharded further over its parameter's replicas
-    (``sharding.moment_shards``)."""
+    moments take each parameter's shard (on a mesh they mirror the
+    placements, as the reference's ``opt_state_specs``)."""
     params.requires_grad_(True)
     plist = list(params.parameters())
-    shards = None
-    if pctx is not None and pctx.world_size > 1 and not pctx.shard_dense:
-        shards = sharding.moment_shards(
-            plist, sharding.lm_param_specs(params, pctx))
-    return TrainState(params=params, opt_state=optimizer.init(plist, shards),
+    return TrainState(params=params, opt_state=optimizer.init(plist),
                       router_bias=init_router_bias(
                           cfg, device=plist[0].device),
                       step=0)
@@ -106,7 +98,8 @@ def _loss(params, batch, cfg, rcfg, pctx, router_bias):
     else:
         logits, aux, drops, counts = forward(params, batch, cfg, rcfg, pctx,
                                              router_bias=router_bias)
-        lm = lm_loss(logits, batch["targets"], pctx=pctx)
+        lm = lm_loss(logits, batch["targets"], pctx=pctx,
+                     vocab_split=vocab_split(params, pctx))
     return lm, aux, drops, counts
 
 
@@ -168,7 +161,10 @@ def global_grads(params: LMParams, batch: dict, cfg: ModelConfig,
     share already, of a global batch of that many rows), then each
     gradient summed over its group of the mesh
     (``sharding.lm_param_specs``): the gradients of the global loss (a
-    split parameter's: this rank's shard of it)."""
+    split parameter's: this rank's shard of it).  A sequence that does
+    not divide by the model axis runs whole (``ParallelCtx.seq_whole``;
+    with ``global_batch``, the share is cut already and ``pctx`` says
+    so)."""
     if pctx.world_size == 1:
         return loss_and_grads(params, batch, cfg, rcfg, pctx, tcfg,
                               router_bias)
@@ -177,6 +173,8 @@ def global_grads(params: LMParams, batch: dict, cfg: ModelConfig,
     if sharding.batch_replicated(pctx, rows):
         pctx = dataclasses.replace(pctx, batch_replicated=True)
     if global_batch is None:
+        if sharding.stream_whole(pctx, batch["targets"].shape[1]):
+            pctx = dataclasses.replace(pctx, seq_whole=True)
         batch = sharding.local_batch(batch, pctx)
     loss, drops, counts, grads = loss_and_grads(
         params, batch, cfg, rcfg, pctx, tcfg, router_bias)
@@ -233,42 +231,34 @@ def make_train_step(cfg: ModelConfig, rcfg: RuntimeConfig, pctx: ParallelCtx,
 # ---------------- the state at global shapes (checkpoints) ----------------
 
 def _leaves(state: TrainState, pctx: ParallelCtx):
-    """(key, tensor, per-dimension groups, moment shard or None) of every
-    tensor of ``state``: the parameters (each dimension split over its
-    placement's group), then the optimizer's per-parameter state (AdamW's
-    two moments, placed as their parameter, and on the EP layout sharded
-    over its replicas; Adafactor's v_row without the last dimension and v_col
-    without the second last of a factored parameter)."""
+    """(key, tensor, per-dimension groups) of every tensor of ``state``:
+    the parameters (each dimension split over its placement's group), then
+    the optimizer's per-parameter state (AdamW's two moments, placed as
+    their parameter; Adafactor's v_row without the last dimension and
+    v_col without the second last of a factored parameter)."""
     named = list(state.params.named_parameters())
     dims = [(None,) * p.dim() for _, p in named]
     if pctx.world_size > 1:
         dims = [s.dims for s in sharding.lm_param_specs(state.params, pctx)]
     opt = state.opt_state
-    shards = getattr(opt, "shards", None) or [None] * len(named)
     for (name, p), dm in zip(named, dims):
-        yield f"params/{name}", p, dm, None
+        yield f"params/{name}", p, dm
     for field in opt._fields:
-        if field == "shards":
-            continue
-        for (name, p), t, dm, sh in zip(named, getattr(opt, field), dims,
-                                        shards):
+        for (name, p), t, dm in zip(named, getattr(opt, field), dims):
             if field == "v_row" and p.dim() >= 2:
                 dm = dm[:-1]
             elif field == "v_col":
                 dm = dm[:-2] + dm[-1:] if p.dim() >= 2 else ()
-            yield f"opt_state/{field}/{name}", t, dm, sh
+            yield f"opt_state/{field}/{name}", t, dm
 
 
 def global_shapes(state: TrainState, pctx: ParallelCtx) -> dict:
     """Every leaf's key -> its global shape (what ``state_to_global``
     gives), on any mesh."""
     out = {}
-    for key, t, dims, sh in _leaves(state, pctx):
-        shape = list(t.shape) if sh is None or sh.whole else \
-            [s * sh.count if i == sh.dim else s
-             for i, s in enumerate(t.shape)]
+    for key, t, dims in _leaves(state, pctx):
         out[key] = [s * (1 if g is None else g.size)
-                    for s, g in zip(shape, dims)]
+                    for s, g in zip(t.shape, dims)]
     if state.router_bias is not None:
         out["router_bias"] = list(state.router_bias.shape)
     out["step"] = []
@@ -278,13 +268,10 @@ def global_shapes(state: TrainState, pctx: ParallelCtx) -> dict:
 @torch.no_grad()
 def state_to_global(state: TrainState, pctx: ParallelCtx) -> dict:
     """The train state as one flat mapping at global shapes, the same on
-    every rank (collective on a mesh): moment shards gathered over their
-    replicas, then every split dimension over its group."""
+    every rank (collective on a mesh): every split dimension gathered over
+    its group."""
     out = {}
-    for key, t, dims, sh in _leaves(state, pctx):
-        if sh is not None and not sh.whole:
-            t = collectives.all_gather(sh.group, t.contiguous())
-            t = t.movedim(0, sh.dim).flatten(sh.dim, sh.dim + 1)
+    for key, t, dims in _leaves(state, pctx):
         out[key] = sharding.gather_whole(t, dims)
     if state.router_bias is not None:
         out["router_bias"] = state.router_bias
@@ -298,13 +285,10 @@ def state_from_global(state: TrainState, tree: dict,
     """``state`` with every tensor overwritten in place by this rank's
     share of the global ``tree`` (``state_to_global``'s layout, from a
     mesh of any size)."""
-    for key, t, dims, sh in _leaves(state, pctx):
+    for key, t, dims in _leaves(state, pctx):
         a = tree[key]
         a = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
-        a = sharding.cut(a, dims)
-        if sh is not None:
-            a = sh.take(a)
-        t.copy_(a.to(t.device))
+        t.copy_(sharding.cut(a, dims).to(t.device))
     bias = state.router_bias
     if bias is not None:
         a = tree["router_bias"]

@@ -122,7 +122,7 @@ def _setup(pctx):
     opt = adamw(1e-3)
     params = init_lm(cfg, rcfg, pctx, torch.Generator().manual_seed(0),
                      device="cpu")
-    state = init_train_state(params, opt, cfg, pctx)
+    state = init_train_state(params, opt, cfg)
     return state, make_train_step(cfg, rcfg, pctx, opt, TrainConfig())
 
 

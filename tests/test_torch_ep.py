@@ -26,11 +26,13 @@ group) holds every case, beside one JAX run on four virtual CPU devices
   mains through the all-gather of the replica stream's transpose, and the
   tokens' through the exchanges' transposes.  The router is replicated, so
   its gradient is the sum of the ranks'; it is held against ``moe_ref``'s.
-* The model at R = 2 (a subgroup of ranks 0 and 1): a reduced GLM-4.5-Air,
-  prefill and decode logits against the port at R = 1 within 1e-5 of
-  max|logits|.
-* ``launch.serve.serve_trace`` in a gloo world of 2 answers its requests
-  with the tokens of the R = 1 run.
+* The model at R = 2 (a (data 1, model 2) mesh of ranks 0 and 1, the
+  reference's layout: heads and FFN columns over the model axis, the
+  decode cache's positions split between the two): a reduced
+  GLM-4.5-Air, prefill and decode logits against the port at R = 1
+  within 1e-5 of max|logits|.
+* ``launch.serve.serve_trace`` on that mesh answers its requests with
+  the tokens of the R = 1 run.
 """
 
 import concurrent.futures
@@ -95,36 +97,44 @@ def _configs(mode, balancer, cap, wire, chunks):
                      distribute_chunks=chunks)
 
 
-def _model(group):
-    """A reduced GLM-4.5-Air (2 layers) from seed 0 on this rank; prefill of
-    two 32-token rows, then one decode step.  Returns the logits."""
+def _model(pctx):
+    """A reduced GLM-4.5-Air (2 layers) from seed 0 on this rank (``pctx``
+    a mesh's context, or None for one rank); prefill of two 32-token rows
+    (on a mesh the rank's shard of the chunk), then one decode step.
+    Returns the logits (gathered on a mesh)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.configs.reduce import reduced
     from repro_torch.core.balancer import BalancerConfig
-    from repro_torch.models.model import (decode_step, init_caches, init_lm,
-                                          prefill_step)
+    from repro_torch.models.model import (decode_step, gather_logits,
+                                          init_caches, init_lm, prefill_step)
     from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 
     cfg = reduced(get_config("glm45-106b-a12b"))
     rcfg = RuntimeConfig(balancer=BalancerConfig(mode="ultraep"),
                          cf_pair=16.0, cf_slot=16.0)
-    pctx = ParallelCtx(group=group)
+    pctx = ParallelCtx() if pctx is None else pctx
     params = init_lm(cfg, rcfg, pctx, torch.Generator().manual_seed(0),
                      device="cpu")
-    caches = init_caches(cfg, 2, 64, rcfg, device="cpu")
+    caches = init_caches(cfg, 2, 64, rcfg, device="cpu", pctx=pctx)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 32)))
+    n = 32 // pctx.ep_size
+    chunk = toks[:, pctx.ep_rank * n:(pctx.ep_rank + 1) * n]
+    whole = dataclasses.replace(pctx, seq_whole=True)
     with torch.inference_mode():
-        prefill, caches = prefill_step(params, caches, toks, cfg, rcfg, pctx,
-                                       valid_len=32)
+        prefill, caches = prefill_step(params, caches, chunk, cfg, rcfg,
+                                       pctx, valid_len=32)
         decode, _ = decode_step(params, caches, toks[:, -1:], cfg, rcfg, pctx)
-    return prefill.numpy(), decode.numpy()
+    return (gather_logits(prefill, pctx, cfg.vocab_size).numpy(),
+            gather_logits(decode, whole, cfg.vocab_size).numpy())
 
 
-def _served_tokens(group):
+def _served_tokens(pctx):
     from repro_torch.launch.serve import serve_trace
 
-    eng = serve_trace("glm45-106b-a12b", group=group, **SERVE)
+    eng = serve_trace("glm45-106b-a12b", pctx=pctx, **SERVE)
     return np.array([r.output for r in sorted(eng.finished,
                                               key=lambda r: r.rid)])
 
@@ -173,6 +183,7 @@ def _worker(rank, world, port, inputs, out_dir):
     trace at R = 2 on ranks 0 and 1."""
     torch.set_num_threads(1)
     from repro_torch import convert
+    from repro_torch.launch.mesh import make_test_mesh, pctx_for_mesh
     from repro_torch.moe import stages
     from repro_torch.moe.layer import moe_layer_local
     from repro_torch.parallel import collectives
@@ -212,10 +223,11 @@ def _worker(rank, world, port, inputs, out_dir):
             params.requires_grad_(False)
             for t in params.parameters():
                 t.grad = None
-    pair = collectives.subgroup([0, 1])
-    if pair is not None:
-        out["model/prefill"], out["model/decode"] = _model(pair)
-        out["serve/tokens"] = _served_tokens(pair)
+    mesh = make_test_mesh(1, 2)                 # ranks 0 and 1
+    if mesh is not None:
+        pctx = pctx_for_mesh(mesh)
+        out["model/prefill"], out["model/decode"] = _model(pctx)
+        out["serve/tokens"] = _served_tokens(pctx)
     np.savez(os.path.join(out_dir, f"torch_rank{rank}.npz"), **out)
     collectives.destroy()
 

@@ -339,6 +339,69 @@ def test_split_combine_gives_zero_where_no_key_is_valid():
     assert torch.isfinite(got).all()
 
 
+LSE_CASES = [
+    # B, Sq, Sk, H, Hkv, causal, q_offset, kv_valid_len
+    (4, 1, 96, 8, 2, False, [0] * 4, [0, 1, 50, 96]),       # decode
+    (2, 9, 40, 4, 4, True, [0, 35], [0, 40]),               # causal
+    (3, 5, 30, 6, 2, True, [-7, -2, 4], [0, 3, 9]),         # offsets < 0
+]
+
+
+@pytest.mark.parametrize("case", LSE_CASES, ids=str)
+def test_plain_version_logsumexp_matches_fp64(case):
+    """``return_lse``: each row's logsumexp of its scaled scores against a
+    direct fp64 one; a row with no valid key (a shard past the prefix, a
+    query before a shard's first position) gives +inf and an output of
+    0."""
+    B, Sq, Sk, H, Hkv, causal, q_off, kv_len = case
+    q, k, v = map(torch.from_numpy, _qkv(B, Sq, Sk, H, Hkv, 16, seed=6))
+    out, lse = ops.flash_attention(
+        q, k, v, causal=causal, q_offset=torch.tensor(q_off),
+        kv_valid_len=torch.tensor(kv_len), block_kv=16, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double() * 16 ** -0.5,
+                     k.double().repeat_interleave(H // Hkv, dim=2))
+    kpos = torch.arange(Sk)
+    keep = kpos[None, None, :] < torch.tensor(kv_len)[:, None, None]
+    if causal:
+        qpos = torch.arange(Sq)[None, :] + torch.tensor(q_off)[:, None]
+        keep = keep & (kpos[None, None, :] <= qpos[:, :, None])
+    want = torch.logsumexp(torch.where(keep[:, None], s, -torch.inf), -1)
+    empty = ~keep.any(dim=-1)[:, None].expand(B, H, Sq)
+    assert empty.any() and (~empty).any()
+    assert torch.isinf(lse[empty]).all() and (lse[empty] > 0).all()
+    assert (out.movedim(1, 2)[empty] == 0).all()
+    np.testing.assert_allclose(lse[~empty].double().numpy(),
+                               want[~empty].numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("T", [2, 3, 4])
+@pytest.mark.parametrize("causal", [False, True])
+def test_combine_partials_over_shards_equals_unsharded(T, causal):
+    """``attention.combine_partials`` of T position shards' partials (each
+    the flash entry's (out, lse) over one shard, at the shard's local
+    offsets) against the plain version over the whole cache, fp32 at
+    1e-6; rows with no key in a shard, or in any, among them."""
+    from repro_torch.models.attention import combine_partials
+
+    B, Sq, Sk, H, Hkv = 3, 4, 60, 8, 2
+    q, k, v = map(torch.from_numpy, _qkv(B, Sq, Sk, H, Hkv, 16, seed=7))
+    q_off, kv_len = torch.tensor([0, 20, 56]), torch.tensor([0, 24, 60])
+    want = ops.flash_attention_ref(q, k, v, causal=causal, q_offset=q_off,
+                                   kv_valid_len=kv_len, block_kv=16)
+    n = Sk // T
+    parts = [ops.flash_attention(q, k[:, r * n:(r + 1) * n],
+                                 v[:, r * n:(r + 1) * n], causal=causal,
+                                 q_offset=q_off - r * n,
+                                 kv_valid_len=kv_len - r * n, block_kv=16,
+                                 return_lse=True) for r in range(T)]
+    got = combine_partials(torch.stack([p[0] for p in parts]),
+                           torch.stack([p[1] for p in parts]))
+    assert (got[0] == 0).all()                    # no valid key anywhere
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
 def _tf32(t):
     """TF32 as the tensor core reads an fp32 operand: the 13 low mantissa
     bits cleared."""
@@ -525,10 +588,10 @@ def _card_inputs(case, dtype, device):
 
 def _check_against_plain(out, q, k, v, kw, tol):
     """Rows with a valid key within tol of their own max|ref|; rows with
-    none exactly 0 (the plain version gives NaN there)."""
-    ref = ops.flash_attention_ref(q, k, v, **kw)
+    none exactly 0 (their logsumexp is +inf)."""
+    ref, lse = ops.flash_attention_ref(q, k, v, **kw, return_lse=True)
     assert out.dtype == q.dtype
-    dead = ~torch.isfinite(ref).all(dim=-1)
+    dead = torch.isinf(lse).movedim(1, 2)                  # (B, Sq, H)
     assert torch.equal(out[dead].float(), torch.zeros_like(out[dead].float()))
     if (~dead).any():
         assert _row_rel_err(out[~dead], ref[~dead]) <= tol
@@ -583,6 +646,28 @@ F32_CASES = [
     (1, 1000, 1500, 32, 8, 128, False, [0], [1337]),   # not causal
     (1, 64, 10248, 32, 8, 128, False, [0], [10248]),   # 10248 keys a row
 ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-4),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("case", CARD_CASES, ids=str)
+def test_kernel_logsumexp_matches_plain_on_card(cuda_device, case, dtype,
+                                                tol):
+    """``return_lse`` on whichever kernel the plan picks (the split-KV
+    kernel's one-split and combine paths among them): the logsumexp
+    within tol of max(|lse|, 1) of the plain version's, +inf where no key
+    is valid."""
+    q, k, v, kw = _card_inputs(case, dtype, cuda_device)
+    out, lse = ops.flash_attention(q, k, v, **kw, return_lse=True)
+    ref, ref_lse = ops.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    dead = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), dead) and (lse[dead] > 0).all()
+    if (~dead).any():
+        err = (lse[~dead] - ref_lse[~dead].float()).abs().max().item()
+        assert err <= tol * max(ref_lse[~dead].abs().max().item(), 1.0)
+    _check_against_plain(out, q, k, v, kw, 1e-2 if dtype == torch.bfloat16
+                         else 1e-4)
 
 
 @pytest.mark.cuda

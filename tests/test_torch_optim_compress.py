@@ -117,14 +117,6 @@ def test_adafactor_converges():
     assert float(((w - target) ** 2).sum()) < 1e-2
 
 
-def test_adafactor_ignores_moment_shards():
-    """The state stays whole when ``init`` is given shards (each replica
-    keeps all of it)."""
-    p = torch.zeros((4, 6))
-    st = topt.adafactor(1e-3).init([p], [object()])
-    assert tuple(st.v_row[0].shape) == (4,) and tuple(st.v_col[0].shape) == (6,)
-
-
 def test_adafactor_checkpoint_round_trip(tmp_path):
     """An Adafactor train state (reduced Jamba, one step taken) saved at
     global shapes and restored into a fresh state gives the same

@@ -1,30 +1,39 @@
-"""The reference's layout on a mesh (``repro_torch.parallel.sharding``,
-``ParallelCtx.shard_dense``) against the JAX package's.
+"""The reference's layout on a mesh (``repro_torch.parallel.sharding``:
+one layout for every step) against the JAX package's.
 
 * Placements: for every registered config at full width, on the 16 x 16
   pod, the 2 x 16 x 16 multi-pod and a (data 16, rack 2, model 8) rack
   mesh, each parameter's entries equal the reference's ``lm_param_specs``
   (``scan_layers=False``, one entry per layer), dimension by dimension,
   the batch axes one entry; so do ``batch_specs`` (train, prefill and
-  decode), ``opt_state_specs`` (AdamW and Adafactor) and
-  ``activation_spec``.  The reference reads only ``pctx.mesh.shape``, so
-  a stand-in with that dict takes the mesh's place and no device is
-  needed.  A shard's shape (``shard_shape``) divides each placed
-  dimension by its axes' sizes.
+  decode), ``opt_state_specs`` (AdamW and Adafactor),
+  ``activation_spec`` and ``cache_specs`` (one entry a layer), and
+  ``topology_from_ctx`` on a flat and a factored mesh.  The reference
+  reads only ``pctx.mesh.shape``, so a stand-in with that dict takes the
+  mesh's place and no device is needed.  A shard's shape
+  (``shard_shape``) divides each placed dimension by its axes' sizes.
 * Computation: one run of four gloo processes on a (data 2, model 2)
   mesh (``torch.multiprocessing``, spawn) beside JAX on the same mesh of
   four virtual CPU devices, one process a config, all started at once:
   both sides start from the port's one-rank init (the ranks' sharded
   init cuts it; the JAX run puts its values into the reference's tree)
-  and one numpy batch.  Two configs: ``gqa``, ``tiny-moe`` with a
+  and one numpy batch.  Two configs train: ``gqa``, ``tiny-moe`` with a
   dense first layer and a shared expert (the vocabulary 128 divides by
   2), and ``mla``, ``tiny-mla-moe`` (q_lora and kv_lora 16).  The loss
-  and every gradient (gathered) of one global batch (B 4, S 16), the
-  parameters after two AdamW and after two Adafactor steps on it (within
-  ``TOL`` of their max|p| where each step's gradient exceeded 1e-3 of
-  its max|g|, as ``tests/test_torch_train_ep.py`` compares them), and the
-  logits of two prefill chunks (B 2, C 8) gathered over both axes,
-  within ``TOL`` of each tensor's max|ref|.
+  and every gradient (gathered) of one global batch (B 4, S 16), and of
+  the same batch cut to S 15, where the residual stream stays whole on
+  every model rank, the parameters after two AdamW and after two
+  Adafactor steps on it (within ``TOL`` of their max|p| where each
+  step's gradient exceeded 1e-3 of its max|g|, as
+  ``tests/test_torch_train_ep.py`` compares them), and one prefill chunk
+  of C 7 (a whole stream).  Those two and a third, ``hybrid``
+  (``tiny-hybrid``: Mamba layers, whose decode state stays whole on every
+  model rank), serve: two prefill chunks (B 2, C 8, or 16 at the SSD
+  chunk) into the sequence-sharded cache, then ``DEC`` decode steps, the
+  reference's ``decode_step`` jitted with its ``(lm_param_specs,
+  cache_specs, batch_specs)`` shardings; each call's logits gathered over
+  both axes, within ``TOL`` of each tensor's max|ref|, and after the
+  steps each rank's cache shard against the same slice of JAX's cache.
 """
 
 import dataclasses
@@ -41,14 +50,31 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5               # tests/test_torch_train_ep.py's
 LR, STEPS, B, S = 1e-3, 2, 4, 16
-PB, PC = 2, 8            # prefill rows and chunk length (two chunks)
-# name: (registered config, ModelConfig overrides, MoEArch overrides)
+SW, CW = 15, 7           # whole-stream train sequence and prefill chunk
+# The gradient runs: (key prefix, sequence, capacity factor).  At S 15 the
+# capacities count 7 of a rank's 15 positions (the reference's floor of
+# S / T), so ``mla``'s island drops items at factor 8, and its model
+# ranks' copies then differ (ROADMAP section 3): the port takes the first
+# copy, as the array's value, and matches the reference's loss there; the
+# gradients are held where nothing drops (factor 32).
+RUNS = (("", S, 8.0), ("whole/", SW, 8.0), ("whole_free/", SW, 32.0))
+PB, DEC = 2, 3           # prefill rows (one a data row), decode steps
+# name: (registered config, ModelConfig overrides, MoEArch overrides);
+# CONFIGS train and serve, SERVE_CONFIGS serve.
 CONFIGS = {
     "gqa": ("tiny-moe", {"d_ff": 64},
             {"first_dense_layers": 1, "n_shared_experts": 1,
              "shared_d_ff": 32}),
     "mla": ("tiny-mla-moe", {}, {}),
 }
+SERVE_CONFIGS = dict(CONFIGS, hybrid=("tiny-hybrid", {}, {}))
+PC = {"gqa": 8, "mla": 8, "hybrid": 16}   # prefill chunk (SSD chunk: 16)
+
+
+def _max_seq(name) -> int:
+    """The decode cache: two chunks and the decode steps, in whole blocks
+    of the model axis."""
+    return 2 * PC[name] + DEC + 1
 MESHES = {"pod": {"data": 16, "model": 16},
           "multi_pod": {"pod": 2, "data": 16, "model": 16},
           "rack": {"data": 16, "rack": 2, "model": 8}}
@@ -205,18 +231,62 @@ def test_shard_shapes_and_production_meshes():
                                 MESHES["rack"]) == (2, 7)
 
 
-def test_decode_on_the_sharded_layout_raises():
+@pytest.mark.parametrize("arch", _archs())
+def test_cache_specs_equal_the_reference(arch):
+    """Every layer's decode cache entries on the three production meshes,
+    at the decode shapes' global batch and at one that does not divide
+    (the reference's ``cache_specs`` with ``scan_layers=False``)."""
+    from repro.configs import get_config as j_get_config
+    from repro.models.transformer import RuntimeConfig
+    from repro.parallel import sharding as jsh
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.parallel import sharding
+
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    batches = {s.global_batch for s in SHAPES.values()
+               if s.kind == "decode"} | {3}
+    for shape in MESHES.values():
+        jp = _jax_pctx(shape)
+        for gb in batches:
+            want = [e for seg in jsh.cache_specs(
+                jcfg, RuntimeConfig(scan_layers=False), jp, gb) for e in seg]
+            got = sharding.cache_specs(cfg, sharding.mesh_axes(shape), gb)
+            assert len(got) == len(want) == cfg.num_layers
+            for g, w in zip(got, want):
+                assert type(g).__name__ == type(w).__name__
+                assert [_entries(e) for e in g] == [_entries(e) for e in w]
+
+
+def test_topology_from_ctx_equals_the_reference():
+    from repro.parallel import sharding as jsh
+    from repro_torch.models.transformer import ParallelCtx
+    from repro_torch.parallel import sharding
+
+    for shape in (MESHES["pod"], MESHES["rack"], {"data": 2, "rack": 4,
+                                                   "model": 2}):
+        want = jsh.topology_from_ctx(_jax_pctx(shape), inter_beta=5e9)
+        got = sharding.topology_from_ctx(
+            ParallelCtx(mesh_axes=tuple(shape.items())), inter_beta=5e9)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), shape
+
+
+def test_decode_cache_holds_whole_blocks():
+    """A mesh's decode cache holds max_seq / T positions a rank: a
+    max_seq that does not divide raises, naming it."""
+    from types import SimpleNamespace
+
     from repro_torch.configs import get_config
-    from repro_torch.models.model import decode_step, init_caches, init_lm
+    from repro_torch.models.model import init_caches
     from repro_torch.models.transformer import ParallelCtx, RuntimeConfig
 
-    cfg, rcfg = get_config("tiny-moe"), RuntimeConfig()
-    params = init_lm(cfg, rcfg, ParallelCtx(),
-                     torch.Generator().manual_seed(0), device="cpu")
-    caches = init_caches(cfg, 1, 8, rcfg, device="cpu")
-    with pytest.raises(ValueError, match="decode on the sharded layout"):
-        decode_step(params, caches, torch.zeros((1, 1), dtype=torch.int64),
-                    cfg, rcfg, ParallelCtx(shard_dense=True))
+    cfg = get_config("tiny-moe")
+    pctx = ParallelCtx(group=SimpleNamespace(size=2, rank=1, factored=False),
+                       mesh_axes=(("data", 1), ("model", 2)))
+    caches = init_caches(cfg, 3, 10, RuntimeConfig(), device="meta",
+                         pctx=pctx)
+    assert tuple(caches[0].k.shape) == (3, 5, 2, 8)
+    with pytest.raises(ValueError, match="max_seq 9 does not split"):
+        init_caches(cfg, 3, 9, RuntimeConfig(), device="meta", pctx=pctx)
 
 
 # ------------------------------------------------ the four-rank run ----
@@ -226,7 +296,7 @@ def _port_cfgs(name):
     from repro_torch.core.balancer import BalancerConfig
     from repro_torch.models.transformer import RuntimeConfig
 
-    arch, over, moe = CONFIGS[name]
+    arch, over, moe = SERVE_CONFIGS[name]
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, **over,
                               moe=dataclasses.replace(cfg.moe, **moe))
@@ -239,6 +309,14 @@ def _batch(cfg) -> dict:
     rng = np.random.default_rng(1)
     return {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
             for k in ("tokens", "targets")}
+
+
+def _serve_tokens(cfg, name) -> np.ndarray:
+    """(PB, two chunks + DEC) tokens: the prompts, then the decode
+    steps' inputs."""
+    rng = np.random.default_rng(2)
+    return rng.integers(0, cfg.vocab_size,
+                        (PB, 2 * PC[name] + DEC)).astype(np.int64)
 
 
 def _port_init(name) -> dict:
@@ -258,6 +336,9 @@ def _pairs_backward(g):
     from repro_torch.parallel import collectives
 
     r = g.rank
+    c = torch.ones(2, dtype=torch.float64, requires_grad=True)
+    d = collectives.reduce_whole(g, c * (r + 1))
+    (d * (r + 1)).sum().backward()
     w = torch.arange(12, dtype=torch.float64).reshape(3, 4) * (r + 1)
     x = torch.full((3, 2), float(r + 1), dtype=torch.float64,
                    requires_grad=True)
@@ -271,7 +352,8 @@ def _pairs_backward(g):
     (b * (r + 1)).sum().backward()
     return {"pairs/y": y.detach().numpy(), "pairs/dx": x.grad.numpy(),
             "pairs/s": s.detach().numpy(), "pairs/dz": z.grad.numpy(),
-            "pairs/b": b.detach().numpy(), "pairs/da": a.grad.numpy()}
+            "pairs/b": b.detach().numpy(), "pairs/da": a.grad.numpy(),
+            "pairs/d": d.detach().numpy(), "pairs/dc": c.grad.numpy()}
 
 
 def _init_is_slice(name, params, specs, pctx) -> bool:
@@ -326,13 +408,39 @@ def _restores(tree, cfg, rcfg, pctx, opt) -> bool:
     for ctx in (pctx, ParallelCtx()):
         params = init_lm(cfg, rcfg, ctx, torch.Generator().manual_seed(7),
                          device="cpu")
-        state = state_from_global(init_train_state(params, opt, cfg, ctx),
+        state = state_from_global(init_train_state(params, opt, cfg),
                                   tree, ctx)
         back = state_to_global(state, ctx)
         ok = ok and all(torch.equal(torch.as_tensor(back[k]),
                                     torch.as_tensor(v))
                         for k, v in tree.items() if k != "step")
     return ok
+
+
+def _decode_cell_on_mesh(pctx) -> bool:
+    """The decode cell on the mesh: ``in_shardings`` (params, caches,
+    batch) with the caches' ``cache_specs``, and caches of this rank's
+    shard on the ``meta`` device."""
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models.model import init_caches
+    from repro_torch.parallel import sharding
+
+    cell = build_cell("tiny-moe", "decode_32k", pctx)
+    pspecs, cspecs, bspecs = cell.in_shardings
+    cfg, shape = cell.meta["cfg"], cell.meta["shape"]
+    ax = sharding.from_ctx(pctx)
+    glob = init_caches(cfg, shape.global_batch, shape.seq_len,
+                       cell.meta["rcfg"], device="meta")
+    caches = cell.arg_shapes[1]
+    return (pspecs == sharding.param_layout(cfg, ax)
+            and cspecs == sharding.cache_specs(cfg, ax, shape.global_batch)
+            and bspecs == sharding.batch_specs(cfg, ax, "decode",
+                                               shape.global_batch)
+            and all(tuple(a.shape) == sharding.shard_shape(sp, g.shape,
+                                                           ax.sizes)
+                    and a.device.type == "meta"
+                    for c, s, gl in zip(caches, cspecs, glob)
+                    for a, sp, g in zip(c, s, gl)))
 
 
 def _cell_on_mesh(pctx) -> bool:
@@ -373,22 +481,16 @@ def _cell_on_mesh(pctx) -> bool:
 def _worker(rank, world, port, out_dir):
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import make_test_mesh, pctx_for_mesh
-    from repro_torch.models.model import (gather_logits, init_caches,
-                                          init_lm, init_router_bias,
-                                          prefill_step)
-    from repro_torch.optim import adafactor, adamw
-    from repro_torch.optim.optimizer import Optimizer
+    from repro_torch.models.model import init_lm
     from repro_torch.parallel import collectives, sharding
-    from repro_torch.train.loop import (TrainConfig, global_grads,
-                                        init_train_state, make_train_step,
-                                        state_to_global)
 
     collectives.init("gloo", world_size=world, rank=rank,
                      init_method=f"tcp://localhost:{port}", timeout_s=120)
-    pctx = pctx_for_mesh(make_test_mesh(2, 2), shard_dense=True)
+    pctx = pctx_for_mesh(make_test_mesh(2, 2))
     out = _pairs_backward(pctx.group)
     out["cell_ok"] = _cell_on_mesh(pctx)
-    for name in CONFIGS:
+    out["decode_cell_ok"] = _decode_cell_on_mesh(pctx)
+    for name in SERVE_CONFIGS:
         cfg, rcfg = _port_cfgs(name)
         batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
 
@@ -399,60 +501,134 @@ def _worker(rank, world, port, out_dir):
                              torch.Generator().manual_seed(0), device="cpu")
             return params, sharding.lm_param_specs(params, pctx)
 
-        params, specs = fresh()
-        out[f"{name}/init_is_slice"] = _init_is_slice(name, params, specs,
-                                                      pctx)
-        params.requires_grad_(True)
-        bias = init_router_bias(cfg, device="cpu")
-        loss, _, _, grads = global_grads(params, batch, cfg, rcfg, pctx,
-                                         router_bias=bias)
-        out[f"{name}/loss"] = float(loss)
-        for (n, _), g, sp in zip(params.named_parameters(), grads, specs):
-            out[f"{name}/grad/{n}"] = sharding.gather_whole(
-                g, sp.dims).numpy()
-
-        for opt_name, make in (("adamw", adamw), ("adafactor", adafactor)):
-            params, specs = fresh()
-            names = [n for n, _ in params.named_parameters()]
-            inner = make(LR)
-
-            def update(gs, st, plist, step, _inner=inner, _specs=specs,
-                       _names=names, _key=f"{name}/{opt_name}", **kw):
-                for n, g, sp in zip(_names, gs, _specs):
-                    g = sharding.gather_whole(g, sp.dims)
-                    m = (g.abs() > 1e-3 * g.abs().max()).numpy()
-                    k = f"{_key}/mask/{n}"
-                    out[k] = m if k not in out else out[k] & m
-                return _inner.update(gs, st, plist, step, **kw)
-
-            opt = Optimizer(init=inner.init, update=update)
-            state = init_train_state(params, opt, cfg, pctx)
-            step = make_train_step(cfg, rcfg, pctx, opt, TrainConfig())
-            for _ in range(STEPS):
-                state, _m = step(state, batch)
-            tree = state_to_global(state, pctx)
-            for k, v in tree.items():
-                if k.startswith("params/"):
-                    out[f"{name}/{opt_name}/final/{k[7:]}"] = \
-                        v.detach().numpy()
-            out[f"{name}/{opt_name}/restored"] = _restores(
-                tree, cfg, rcfg, pctx, inner)
-
+        if name in CONFIGS:
+            _train_on_mesh(name, cfg, rcfg, pctx, batch, fresh, out)
         params, _ = fresh()
-        T, t = pctx.ep_size, pctx.ep_rank
-        rows = batch["tokens"][pctx.data_rank:pctx.data_rank + 1, :2 * PC]
-        caches = init_caches(cfg, 1, 2 * PC, rcfg, device="cpu", pctx=pctx)
-        n = PC // T
-        with torch.no_grad():
-            for c in range(2):
-                chunk = rows[:, c * PC + t * n:c * PC + (t + 1) * n]
-                logits, caches = prefill_step(params, caches, chunk, cfg,
-                                              rcfg, pctx)
-                whole = gather_logits(logits, pctx, cfg.vocab_size)
-                out[f"{name}/prefill/{c}"] = collectives.all_gather(
-                    pctx.data, whole).flatten(0, 1).numpy()
+        _serve_on_mesh(name, cfg, rcfg, pctx, params, out)
     np.savez(os.path.join(out_dir, f"torch_rank{rank}.npz"), **out)
     collectives.destroy()
+
+
+def _train_on_mesh(name, cfg, rcfg, pctx, batch, fresh, out):
+    """The train config's checks on one rank: the init, the loss and the
+    gradients at S and at SW (a whole stream), the optimizers' steps, and
+    a whole-stream prefill chunk of CW."""
+    import dataclasses as dc
+
+    from repro_torch.models.model import (gather_logits, init_caches,
+                                          init_router_bias, prefill_step)
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.optim.optimizer import Optimizer
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.train.loop import (TrainConfig, global_grads,
+                                        init_train_state, make_train_step,
+                                        state_to_global)
+
+    params, specs = fresh()
+    out[f"{name}/init_is_slice"] = _init_is_slice(name, params, specs, pctx)
+    params.requires_grad_(True)
+    bias = init_router_bias(cfg, device="cpu")
+    for tag, seq, cf in RUNS:
+        rc = dc.replace(rcfg, cf_pair=cf, cf_slot=cf)
+        loss, drops, _, grads = global_grads(
+            params, {k: v[:, :seq] for k, v in batch.items()}, cfg, rc,
+            pctx, router_bias=bias)
+        out[f"{name}/{tag}loss"] = float(loss)
+        out[f"{name}/{tag}drops"] = int(drops)
+        for (n, _), g, sp in zip(params.named_parameters(), grads, specs):
+            out[f"{name}/{tag}grad/{n}"] = sharding.gather_whole(
+                g, sp.dims).numpy()
+
+    for opt_name, make in (("adamw", adamw), ("adafactor", adafactor)):
+        params, specs = fresh()
+        names = [n for n, _ in params.named_parameters()]
+        inner = make(LR)
+
+        def update(gs, st, plist, step, _inner=inner, _specs=specs,
+                   _names=names, _key=f"{name}/{opt_name}", **kw):
+            for n, g, sp in zip(_names, gs, _specs):
+                g = sharding.gather_whole(g, sp.dims)
+                m = (g.abs() > 1e-3 * g.abs().max()).numpy()
+                k = f"{_key}/mask/{n}"
+                out[k] = m if k not in out else out[k] & m
+            return _inner.update(gs, st, plist, step, **kw)
+
+        opt = Optimizer(init=inner.init, update=update)
+        state = init_train_state(params, opt, cfg)
+        step = make_train_step(cfg, rcfg, pctx, opt, TrainConfig())
+        for _ in range(STEPS):
+            state, _m = step(state, batch)
+        tree = state_to_global(state, pctx)
+        for k, v in tree.items():
+            if k.startswith("params/"):
+                out[f"{name}/{opt_name}/final/{k[7:]}"] = v.detach().numpy()
+        out[f"{name}/{opt_name}/restored"] = _restores(tree, cfg, rcfg, pctx,
+                                                       inner)
+
+    params, _ = fresh()
+    toks = torch.from_numpy(_serve_tokens(cfg, name))
+    whole = dc.replace(pctx, seq_whole=True)
+    caches = init_caches(cfg, PB, _max_seq(name), rcfg, device="cpu",
+                         pctx=pctx)
+    with torch.no_grad():
+        logits, _ = prefill_step(params, caches,
+                                 toks[pctx.data_rank:pctx.data_rank + 1, :CW],
+                                 cfg, rcfg, whole)
+    out[f"{name}/whole/prefill"] = collectives.all_gather(
+        pctx.data, gather_logits(logits, whole, cfg.vocab_size)
+    ).flatten(0, 1).numpy()
+
+
+def _serve_on_mesh(name, cfg, rcfg, pctx, params, out):
+    """Two prefill chunks into the sequence-sharded cache, then DEC
+    decode steps (each call's logits gathered over both axes), the
+    rank's cache shard after them, and whether each cache entry has the
+    shape of its ``cache_specs`` shard."""
+    import dataclasses as dc
+
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.model import (decode_step, gather_logits,
+                                          init_caches, prefill_step)
+    from repro_torch.parallel import collectives, sharding
+
+    T, t, d = pctx.ep_size, pctx.ep_rank, pctx.data_rank
+    rows = torch.from_numpy(_serve_tokens(cfg, name))[d:d + 1]
+    max_seq, C = _max_seq(name), PC[name]
+    caches = init_caches(cfg, PB, max_seq, rcfg, device="cpu", pctx=pctx)
+    specs = sharding.cache_specs(cfg, sharding.from_ctx(pctx), PB)
+    glob = init_caches(cfg, PB, max_seq, rcfg, device="meta")
+
+    def want(spec, g, attn):
+        if attn:
+            return sharding.shard_shape(spec, g.shape, dict(pctx.mesh_axes))
+        # A Mamba state: its data rank's rows, whole over the model axis.
+        return (g.shape[0] // pctx.data_size,) + tuple(g.shape[1:])
+
+    out[f"{name}/cache_ok"] = all(
+        tuple(a.shape) == want(sp, g, isinstance(c, KVCache))
+        for c, s, gl in zip(caches, specs, glob)
+        for a, sp, g in zip(c, s, gl))
+    whole = dc.replace(pctx, seq_whole=True)
+
+    def gathered(logits, ctx):
+        return collectives.all_gather(pctx.data, gather_logits(
+            logits, ctx, cfg.vocab_size)).flatten(0, 1).numpy()
+
+    n = C // T
+    with torch.no_grad():
+        for c in range(2):
+            chunk = rows[:, c * C + t * n:c * C + (t + 1) * n]
+            logits, caches = prefill_step(params, caches, chunk, cfg, rcfg,
+                                          pctx)
+            out[f"{name}/prefill/{c}"] = gathered(logits, pctx)
+        for i in range(DEC):
+            logits, caches = decode_step(
+                params, caches, rows[:, 2 * C + i:2 * C + i + 1], cfg, rcfg,
+                pctx)
+            out[f"{name}/decode/{i}"] = gathered(logits, whole)
+    for i, entry in enumerate(caches):
+        for field, a in entry._asdict().items():
+            out[f"{name}/cache/{i}/{field}"] = a.numpy()
 
 
 def _spawn(out_dir):
@@ -476,10 +652,14 @@ from repro.models.transformer import RuntimeConfig
 from repro.optim import adafactor, adamw
 from repro.train.loop import TrainConfig, init_train_state, make_train_step
 from repro_torch import convert
-from tests.test_torch_sharding_tp import _batch, _port_init
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.models.model import decode_step
+from repro.parallel import sharding as jsh
+from tests.test_torch_sharding_tp import _batch, _port_init, _serve_tokens
 
 name, (arch, over, moe) = {name!r}, {config!r}
-LR, STEPS, PB, PC = {lr}, {steps}, {PB}, {PC}
+LR, STEPS, PB, PC, DEC, SW, CW = {lr}, {steps}, {PB}, {PC}, {DEC}, {SW}, {CW}
+TRAIN, MAX_SEQ = {train}, {max_seq}
 jax.config.update("jax_disable_most_optimizations", True)   # compile time
 pctx = pctx_for_mesh(make_test_mesh(2, 2))
 base = get_config(arch)
@@ -531,17 +711,20 @@ bias = init_router_bias(cfg)
 out = {{f"{{name}}/init/{{n}}": v for n, v in init.items()}}
 
 
-def loss_fn(p):
-    logits, aux, _d, _c = forward(p, batch, cfg, rcfg, pctx,
-                                  router_bias=bias)
-    return lm_loss(logits, batch["targets"]) + aux
+def loss_fn(p, b, rc):
+    logits, aux, _d, _c = forward(p, b, cfg, rc, pctx, router_bias=bias)
+    return lm_loss(logits, b["targets"]) + aux
 
 
-loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
-out[f"{{name}}/loss"] = np.asarray(loss)
-for n, v in named(grads).items():
-    out[f"{{name}}/grad/{{n}}"] = v
-for opt_name, make in (("adamw", adamw), ("adafactor", adafactor)):
+for tag, seq, cf in {runs!r} if TRAIN else ():
+    rc = dataclasses.replace(rcfg, cf_pair=cf, cf_slot=cf)
+    vg = jax.jit(jax.value_and_grad(lambda p, b: loss_fn(p, b, rc)))
+    loss, grads = vg(params, {{k: v[:, :seq] for k, v in batch.items()}})
+    out[f"{{name}}/{{tag}}loss"] = np.asarray(loss)
+    for n, v in named(grads).items():
+        out[f"{{name}}/{{tag}}grad/{{n}}"] = v
+for opt_name, make in (("adamw", adamw), ("adafactor", adafactor)) if TRAIN \
+        else ():
     opt = make(LR)
     state = init_train_state(params, opt, cfg)
     step = jax.jit(make_train_step(cfg, rcfg, pctx, opt, TrainConfig()))
@@ -549,12 +732,42 @@ for opt_name, make in (("adamw", adamw), ("adafactor", adafactor)):
         state, m = step(state, batch)
     for n, v in named(state.params).items():
         out[f"{{name}}/{{opt_name}}/final/{{n}}"] = v
-caches = init_caches(cfg, PB, 2 * PC, rcfg)
+toks = jnp.asarray(_serve_tokens(cfg, name))
 pre = jax.jit(lambda p, c, t: prefill_step(p, c, t, cfg, rcfg, pctx))
+if TRAIN:
+    logits, _ = pre(params, init_caches(cfg, PB, MAX_SEQ, rcfg), toks[:, :CW])
+    out[f"{{name}}/whole/prefill"] = np.asarray(logits)
+caches = init_caches(cfg, PB, MAX_SEQ, rcfg)
 for c in range(2):
-    logits, caches = pre(params, caches,
-                         batch["tokens"][:PB, c * PC:(c + 1) * PC])
+    logits, caches = pre(params, caches, toks[:, c * PC:(c + 1) * PC])
     out[f"{{name}}/prefill/{{c}}"] = np.asarray(logits)
+# Decode on the reference's placement: parameters, the sequence-sharded
+# cache and the batch as its cells place them.
+is_p = lambda x: isinstance(x, P)
+shard = lambda specs: jax.tree.map(lambda sp: NamedSharding(pctx.mesh, sp),
+                                   specs, is_leaf=is_p)
+put = lambda tree, specs: jax.device_put(tree, shard(specs))
+pspecs = jsh.lm_param_specs(cfg, rcfg, pctx)
+cspecs = jsh.cache_specs(cfg, rcfg, pctx, PB)
+tspec = jsh.batch_specs(cfg, pctx, "decode", PB)["tokens"]
+
+
+def dec_fn(p, c, t):
+    logits, new = decode_step(p, c, t, cfg, rcfg, pctx)
+    return logits, tuple(tuple(seg) for seg in new)     # cspecs' structure
+
+
+dec = jax.jit(dec_fn, in_shardings=(shard(pspecs), shard(cspecs),
+                                    shard(tspec)))
+params = put(params, pspecs)
+caches = put(tuple(tuple(seg) for seg in caches), cspecs)
+for i in range(DEC):
+    t = put(toks[:, 2 * PC + i:2 * PC + i + 1], tspec)
+    logits, caches = dec(params, caches, t)
+    out[f"{{name}}/decode/{{i}}"] = np.asarray(logits)
+for i, entry in enumerate(e for seg in caches for e in seg):
+    for field, a in entry._asdict().items():
+        out[f"{{name}}/cache/{{i}}/{{field}}"] = np.asarray(a)
 np.savez({result!r}, **out)
 print("DONE")
 """
@@ -570,9 +783,12 @@ def mesh_run(tmp_path_factory):
         [str(ROOT / "src"), str(ROOT), os.environ.get("PYTHONPATH", "")]))
     jenv = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4")
     procs = {}
-    for name, config in CONFIGS.items():
+    for name, config in SERVE_CONFIGS.items():
         code = _JAX.format(name=name, config=config, lr=LR, steps=STEPS,
-                           PB=PB, PC=PC, result=str(tmp / f"jax_{name}.npz"))
+                           PB=PB, PC=PC[name], DEC=DEC, SW=SW, CW=CW,
+                           train=name in CONFIGS, max_seq=_max_seq(name),
+                           runs=RUNS,
+                           result=str(tmp / f"jax_{name}.npz"))
         procs[name] = subprocess.Popen(
             [sys.executable, "-c", code], cwd=ROOT, env=jenv, text=True,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
@@ -584,7 +800,7 @@ def mesh_run(tmp_path_factory):
         _, err = proc.communicate(timeout=300)
         assert proc.returncode == 0, (name, err[-4000:])
     jax_out = {}
-    for name in CONFIGS:
+    for name in SERVE_CONFIGS:
         jax_out.update(np.load(tmp / f"jax_{name}.npz"))
     ranks = [dict(np.load(tmp / f"torch_rank{r}.npz")) for r in range(4)]
     return jax_out, ranks
@@ -630,7 +846,7 @@ def test_params_after_steps_match_jax(mesh_run, name, opt_name):
             assert (err <= 2 * LR * STEPS).all(), (k, err.max())
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("name", list(SERVE_CONFIGS))
 def test_prefill_logits_match_jax(mesh_run, name):
     jax_out, ranks = mesh_run
     for c in range(2):
@@ -640,9 +856,80 @@ def test_prefill_logits_match_jax(mesh_run, name):
             _close(r[key], jax_out[key], key)
 
 
+@pytest.mark.parametrize("name", list(SERVE_CONFIGS))
+def test_decode_logits_match_jax(mesh_run, name):
+    """Each decode step's logits on the sequence-sharded cache (gathered
+    over both axes) against the reference's ``decode_step`` on its
+    placement."""
+    jax_out, ranks = mesh_run
+    for i in range(DEC):
+        key = f"{name}/decode/{i}"
+        for r in ranks:
+            assert r[key].shape == jax_out[key].shape == (PB, 1, 128)
+            _close(r[key], jax_out[key], key)
+
+
+@pytest.mark.parametrize("name", list(SERVE_CONFIGS))
+def test_decode_cache_shards_match_jax(mesh_run, name):
+    """After the decode steps each rank's cache is its shard of the
+    reference's (``cache_specs``: its data row, and for attention its
+    block of positions; a Mamba state whole over the model axis), with
+    the shapes of its shard; the lengths equal."""
+    jax_out, ranks = mesh_run
+    pre = f"{name}/cache/"
+    keys = [k for k in jax_out if k.startswith(pre)]
+    assert len(keys) >= 6
+    for i, r in enumerate(ranks):
+        d, t = divmod(i, 2)
+        assert bool(r[f"{name}/cache_ok"])
+        for k in keys:
+            want = jax_out[k][d:d + 1]
+            if k.endswith("/length"):
+                np.testing.assert_array_equal(r[k], want, err_msg=k)
+                assert int(want[0]) == 2 * PC[name] + DEC
+                continue
+            if r[k].shape != want.shape:          # a block of positions
+                n = r[k].shape[1]
+                assert want.shape[1] == 2 * n
+                want = want[:, t * n:(t + 1) * n]
+            _close(r[k], want, k)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_whole_stream_loss_and_gradients_match_jax(mesh_run, name):
+    """S 15 does not divide by the model axis of 2: the residual stream
+    stays whole on every model rank (the reference's ``wsc``), the
+    row-parallel exits are all-reduced, and every model rank routes the
+    same tokens through the EP layer.  The loss where the island drops
+    items (``mla`` at factor 8, see ``RUNS``), and the loss and every
+    gradient where it does not."""
+    jax_out, ranks = mesh_run
+    keys = [k for k in jax_out if k.startswith(f"{name}/whole_free/grad/")]
+    assert len(keys) > 10
+    if name == "mla":
+        assert all(r["mla/whole/drops"] > 0 for r in ranks)
+    for r in ranks:
+        assert r[f"{name}/whole_free/drops"] == 0
+        for tag in ("whole", "whole_free"):
+            _close(r[f"{name}/{tag}/loss"], jax_out[f"{name}/{tag}/loss"],
+                   tag)
+        for k in keys:
+            _close(r[k], jax_out[k], k)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_whole_stream_prefill_matches_jax(mesh_run, name):
+    jax_out, ranks = mesh_run
+    key = f"{name}/whole/prefill"
+    for r in ranks:
+        assert r[key].shape == jax_out[key].shape == (PB, CW, 128)
+        _close(r[key], jax_out[key], key)
+
+
 def test_collective_pairs_backward(mesh_run):
     """gather_along's backward reduce-scatters, scatter_along's gathers,
-    sum_grad's sums; on the model group of 2 (ranks d * 2 + t)."""
+    sum_grad's and reduce_whole's sum; on the model group of 2 (ranks
+    d * 2 + t)."""
     _, ranks = mesh_run
     w = np.arange(12, dtype=np.float64).reshape(3, 4)
     for i, r in enumerate(ranks):
@@ -657,6 +944,8 @@ def test_collective_pairs_backward(mesh_run):
             .reshape(4, 3))
         np.testing.assert_array_equal(r["pairs/b"], np.ones(3))
         np.testing.assert_array_equal(r["pairs/da"], np.full(3, 3.0))
+        np.testing.assert_array_equal(r["pairs/d"], np.full(2, 3.0))
+        np.testing.assert_array_equal(r["pairs/dc"], np.full(2, 3.0 * (t + 1)))
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -677,3 +966,8 @@ def test_state_restores_across_meshes(mesh_run, name, opt_name):
 def test_train_cell_on_a_mesh_holds_the_placements(mesh_run):
     _, ranks = mesh_run
     assert all(bool(r["cell_ok"]) for r in ranks)
+
+
+def test_decode_cell_on_a_mesh_holds_the_cache_specs(mesh_run):
+    _, ranks = mesh_run
+    assert all(bool(r["decode_cell_ok"]) for r in ranks)

@@ -1,10 +1,10 @@
 """The train CLI (``repro_torch.launch.train.main``) on a mesh of two gloo
 ranks (EP 2) on the CPU, as ``torchrun`` starts it (env://).
 
-Where the sequence divides by the EP axis the run takes the reference's
-layout (``ParallelCtx.shard_dense``: each rank holds a shard of the dense
-weights); where it does not, the EP layout (every dense weight whole on
-each rank).  Either way a dense model's losses equal the one-process
+The run takes the reference's layout (each rank holds a shard of the
+dense weights): the residual stream is each rank's shard of the sequence
+where the sequence divides by the EP axis, and whole on every rank where
+it does not.  Either way a dense model's losses equal the one-process
 run's within the fp32 tolerance of the mesh tests.
 """
 
@@ -46,8 +46,8 @@ def _spawn(seq, out_dir):
     mp.spawn(_worker, args=(2, port, seq, out_dir), nprocs=2, join=True)
 
 
-@pytest.mark.parametrize("seq, sharded", [(16, True), (15, False)])
-def test_cli_on_a_mesh_matches_one_process(tmp_path, seq, sharded):
+@pytest.mark.parametrize("seq, divides", [(16, True), (15, False)])
+def test_cli_on_a_mesh_matches_one_process(tmp_path, seq, divides):
     from repro_torch.launch.train import main
 
     one = main(ARGS + ["--seq", str(seq)])
@@ -61,4 +61,5 @@ def test_cli_on_a_mesh_matches_one_process(tmp_path, seq, sharded):
         out = dict(np.load(tmp_path / f"rank{r}.npz"))
         np.testing.assert_allclose(out["losses"], one.losses, rtol=TOL,
                                    atol=TOL)
-        assert (int(out["params"]) < one.params) == sharded
+        assert int(out["params"]) < one.params      # a shard of each
+        assert (seq % 2 == 0) == divides
